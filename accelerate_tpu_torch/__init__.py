@@ -1,0 +1,17 @@
+"""accelerate_tpu_torch: the PyTorch/CUDA port of ``accelerate_tpu``.
+
+A package of its own beside the JAX one, with the same module names.  It
+imports ``torch`` and never ``jax`` or ``accelerate_tpu``.  Its entry points
+run on the GPU unless the caller passes ``device="cpu"``, and each Pallas
+TPU kernel on a ported path becomes a hand-written Hopper kernel
+(``ops/csrc/``) with a plain PyTorch version beside it.
+
+Ported so far: paged continuous-batching serving of the llama family
+(:meth:`Accelerator.prepare_serving`, ``serving/``, ``models/llama.py``,
+``models/generation.py``) with the paged decode and verify-window attention
+kernels (``ops/paged_attention.py``).  ROADMAP.md lists what remains.
+"""
+
+from .accelerator import Accelerator
+
+__all__ = ["Accelerator"]

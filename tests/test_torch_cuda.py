@@ -1,0 +1,136 @@
+"""The port's CUDA kernels on the card (``-m cuda``; they skip without one).
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+that has only PyTorch and the CUDA toolkit.  ``tests/conftest.py`` imports
+JAX, so there it runs without the conftest::
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerances (the kernel's online softmax sums in another order than the
+plain version): fp32 atol = rtol = 1e-4, bf16 and fp16 atol = rtol = 2e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from accelerate_tpu_torch.models import llama
+from accelerate_tpu_torch.ops import paged_attention as pa
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(seed, kv_heads, groups, window, dtype, d=128, bs=16,
+            lengths=(0, 1, 15, 16, 17, 700), m=64):
+    """Llama-3-8B head geometry by default; pool blocks in shuffled order,
+    tables null-padded to ``m``."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    owned = [-(-n // bs) for n in lengths]
+    nblk = sum(owned) + 1
+    perm = rng.permutation(np.arange(1, nblk))
+    tables = np.zeros((b, m), np.int32)
+    c = 0
+    for i, n in enumerate(owned):
+        tables[i, :n] = perm[c:c + n]
+        c += n
+    lead = (b,) if window is None else (b, window)
+    h = kv_heads * groups
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+
+    return dict(
+        q=randn(*lead, h, d), k_new=randn(*lead, kv_heads, d), v_new=randn(*lead, kv_heads, d),
+        pool_k=randn(nblk, bs, kv_heads, d), pool_v=randn(nblk, bs, kv_heads, d),
+        tables=torch.from_numpy(tables).cuda(),
+        lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+    )
+
+
+def _fns(window):
+    if window is None:
+        return pa.paged_attention, pa.paged_attention_plain
+    return pa.paged_window_attention, pa.paged_window_attention_plain
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("window", [None, 1, 4])
+def test_kernel_matches_plain(cuda, dtype, window):
+    args = _inputs(23, 8, 4, window, dtype)
+    fn, plain = _fns(window)
+    before = fn.launches
+    got = fn(**args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == dtype and got.shape == args["q"].shape
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), plain(**args).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d,dtype,window", [
+    (64, torch.float32, 3), (256, torch.bfloat16, 2), (128, torch.float32, 40),
+])
+def test_kernel_other_head_dims_and_long_windows(cuda, d, dtype, window):
+    args = _inputs(29, 2, 8, window, dtype, d=d, bs=8, lengths=(5, 0, 33, 70), m=16)
+    fn, plain = _fns(window)
+    tol = TOL[dtype]
+    torch.testing.assert_close(fn(**args).float(), plain(**args).float(), rtol=tol, atol=tol)
+
+
+def test_idle_slot_reads_no_pool_block(cuda):
+    """Length 0 and an all-null table: only the new row counts, whatever
+    the null block holds."""
+    args = _inputs(31, 8, 4, None, torch.float32, lengths=(0, 40))
+    args["pool_k"][0] = float("nan")
+    args["pool_v"][0] = float("nan")
+    out = pa.paged_attention(**args)
+    torch.testing.assert_close(out[0], args["v_new"][0].repeat_interleave(4, dim=0))
+    assert torch.isfinite(out).all()
+
+
+def test_wrapper_raises_instead_of_falling_back(cuda):
+    args = _inputs(37, 8, 4, None, torch.float32)
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_attention(**dict(args, tables=args["tables"].long()))
+    with pytest.raises(TypeError, match="pool_k"):
+        pa.paged_attention(**dict(args, pool_k=args["pool_k"].half()))
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_attention(**dict(args, q=args["q"].transpose(0, 1).contiguous().transpose(0, 1)))
+    with pytest.raises(ValueError, match="head_dim"):
+        small = _inputs(37, 2, 2, None, torch.float32, d=32)
+        pa.paged_attention(**small)
+
+
+def test_apply_paged_kernel_launches_per_layer_and_matches_plain(cuda):
+    """Tiny llama in fp32 on the card: one decode forward launches the
+    decode kernel once per layer, a verify forward the window kernel once
+    per layer, and both match the plain einsum path."""
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, head_dim=64, num_layers=3)
+    params = llama.init_params(cfg, seed=0)
+    rng = np.random.default_rng(41)
+    shape = (cfg.num_layers, 12, 4, cfg.num_kv_heads, 64)
+    pool = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+            for k in ("k", "v")}
+    tables = torch.tensor([[3, 5, 0, 0], [0, 0, 0, 0], [1, 2, 4, 6]], dtype=torch.int32).cuda()
+    starts = torch.tensor([6, 0, 13], dtype=torch.int32, device="cuda")
+    for t, fn in ((1, pa.paged_attention), (3, pa.paged_window_attention)):
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(3, t))).cuda()
+        before = fn.launches
+        got, rows = llama.apply_paged(params, ids, cfg, pool, tables, starts, kernel=True)
+        assert fn.launches == before + cfg.num_layers
+        want, want_rows = llama.apply_paged(params, ids, cfg, pool, tables, starts, kernel=False)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(rows["k"], want_rows["k"], rtol=1e-4, atol=1e-4)

@@ -1,0 +1,124 @@
+"""The port's paged attention (``accelerate_tpu_torch/ops/paged_attention.py``)
+against the JAX package's Pallas paged kernels run in interpret mode.
+
+On the CPU the port's wrappers run their plain versions, so these tests hold
+the plain versions to the TPU kernels' semantics: GQA head grouping, ragged
+lengths including 0, null-padded tables, the window fold and its causal
+mask.  Tolerance: fp32 atol = rtol = 2e-5 (both sides sum in fp32, in
+different orders).  The CUDA kernels themselves are held against the plain
+versions on the card by ``tests/test_torch_cuda.py`` and by
+``chip_smoke.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from accelerate_tpu.ops.pallas_attention import (
+    pallas_paged_attention,
+    pallas_paged_window_attention,
+)
+from accelerate_tpu_torch.ops import paged_attention as pa
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _inputs(seed, kv_heads, groups, window, d=8, bs=4, lengths=(6, 0, 9, 4), m=4):
+    """Pool blocks scattered in a shuffled order, tables null-padded to ``m``."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    h = kv_heads * groups
+    owned = [-(-n // bs) for n in lengths]
+    nblk = sum(owned) + 1
+    perm = rng.permutation(np.arange(1, nblk))
+    tables = np.zeros((b, m), np.int32)
+    c = 0
+    for i, n in enumerate(owned):
+        tables[i, :n] = perm[c:c + n]
+        c += n
+    lead = (b,) if window is None else (b, window)
+    return dict(
+        q=rng.standard_normal(lead + (h, d)).astype(np.float32),
+        k_new=rng.standard_normal(lead + (kv_heads, d)).astype(np.float32),
+        v_new=rng.standard_normal(lead + (kv_heads, d)).astype(np.float32),
+        pool_k=rng.standard_normal((nblk, bs, kv_heads, d)).astype(np.float32),
+        pool_v=rng.standard_normal((nblk, bs, kv_heads, d)).astype(np.float32),
+        tables=tables,
+        lengths=np.asarray(lengths, np.int32),
+    )
+
+
+def _torch(args):
+    return {k: torch.from_numpy(v) for k, v in args.items()}
+
+
+def _jax(args):
+    return {k: jnp.asarray(v) for k, v in args.items()}
+
+
+@pytest.mark.parametrize("kv_heads,groups", [(2, 1), (2, 2), (1, 4)])
+def test_decode_matches_pallas_kernel(kv_heads, groups):
+    args = _inputs(3, kv_heads, groups, None)
+    want = np.asarray(pallas_paged_attention(**_jax(args), interpret=True))
+    got = pa.paged_attention(**_torch(args))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("window", [1, 3])
+@pytest.mark.parametrize("kv_heads,groups", [(2, 1), (2, 2)])
+def test_window_matches_pallas_kernel(window, kv_heads, groups):
+    args = _inputs(5, kv_heads, groups, window)
+    want = np.asarray(pallas_paged_window_attention(**_jax(args), interpret=True))
+    got = pa.paged_window_attention(**_torch(args))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_window_of_one_equals_decode():
+    args = _torch(_inputs(7, 2, 2, 1))
+    win = pa.paged_window_attention(**args)
+    dec = pa.paged_attention(**{**args, "q": args["q"][:, 0], "k_new": args["k_new"][:, 0],
+                                "v_new": args["v_new"][:, 0]})
+    torch.testing.assert_close(win[:, 0], dec, rtol=0, atol=0)
+
+
+def test_length_zero_slot_reads_no_pool_block():
+    """An idle slot (length 0, all-null table) attends only its new row, so
+    its output is exactly that row's value, whatever the pool holds."""
+    args = _torch(_inputs(11, 2, 2, None, lengths=(0, 5)))
+    args["pool_k"][0] = float("nan")  # the null block
+    args["pool_v"][0] = float("nan")
+    out = pa.paged_attention(**args)
+    want = args["v_new"][0].repeat_interleave(2, dim=0)  # head h reads kv head h // 2
+    torch.testing.assert_close(out[0], want)
+    assert torch.isfinite(out).all()
+
+
+def test_stale_rows_past_length_are_masked():
+    """Pool rows at positions >= length do not change the output (the
+    window dispatch's own scatter overwrites them afterwards)."""
+    args = _torch(_inputs(13, 2, 2, 3, lengths=(5, 2)))
+    base = pa.paged_window_attention(**args)
+    for i, n in enumerate(args["lengths"].tolist()):
+        blk, off = args["tables"][i, n // 4], n % 4
+        args["pool_k"][blk, off:] = 1e4
+        args["pool_v"][blk, off:] = -1e4
+    torch.testing.assert_close(pa.paged_window_attention(**args), base, rtol=0, atol=0)
+
+
+def test_cpu_tensors_run_the_plain_version_without_counting():
+    before = (pa.paged_attention.launches, pa.paged_window_attention.launches)
+    args = _torch(_inputs(17, 2, 2, None))
+    torch.testing.assert_close(pa.paged_attention(**args), pa.paged_attention_plain(**args),
+                               rtol=0, atol=0)
+    wargs = _torch(_inputs(17, 2, 2, 2))
+    pa.paged_window_attention(**wargs)
+    assert (pa.paged_attention.launches, pa.paged_window_attention.launches) == before
+
+
+def test_other_devices_raise():
+    args = {k: v.to("meta") for k, v in _torch(_inputs(19, 2, 2, None)).items()}
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pa.paged_attention(**args)
