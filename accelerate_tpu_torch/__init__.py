@@ -6,12 +6,22 @@ run on the GPU unless the caller passes ``device="cpu"``, and each Pallas
 TPU kernel on a ported path becomes a hand-written Hopper kernel
 (``ops/csrc/``) with a plain PyTorch version beside it.
 
-Ported so far: paged continuous-batching serving of the llama family
-(:meth:`Accelerator.prepare_serving`, ``serving/``, ``models/llama.py``,
-``models/generation.py``) with the paged decode and verify-window attention
-kernels (``ops/paged_attention.py``).  ROADMAP.md lists what remains.
+Ported so far:
+
+- paged continuous-batching serving of the llama family
+  (:meth:`Accelerator.prepare_serving`, ``serving/``, ``models/llama.py``,
+  ``models/generation.py``) with the paged decode and verify-window
+  attention kernels (``ops/paged_attention.py``);
+- single-GPU training of the llama family (:meth:`Accelerator.prepare`,
+  ``backward``/``accumulate``, :meth:`Accelerator.make_train_step`,
+  ``optimizer.py``, ``pipeline/train_step.py``, the training forward and
+  loss in ``models/llama.py``, ``ops/chunked_ce.py``,
+  ``ops/flash_attention.py``) with the flash-attention forward, dQ and
+  dK/dV kernels (``ops/fused_attention.py``).
+
+ROADMAP.md lists what remains.
 """
 
-from .accelerator import Accelerator
+from .accelerator import Accelerator, FunctionalModel
 
-__all__ = ["Accelerator"]
+__all__ = ["Accelerator", "FunctionalModel"]

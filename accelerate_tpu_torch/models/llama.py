@@ -10,11 +10,15 @@ over that axis.  :class:`LlamaForCausalLM` wraps the dict as an
 
 Covered here: :class:`LlamaConfig`, the building blocks (RMSNorm, gate
 activation, RoPE with llama3 rescaling, projections, einsum attention,
-embedding and head), :func:`init_params`, the dense KV cache
-(:func:`init_cache`, :func:`apply_cached`), the paged serving forward
-(:func:`apply_paged`) and greedy :func:`generate`.  Training, fp8, int8 KV,
-flash/pallas attention and sequence parallelism are not part of this port
-yet; their config fields raise ``NotImplementedError`` when set.
+embedding and head), :func:`init_params`, the training forward and loss
+(:func:`apply_hidden`, :func:`apply`, :func:`loss_fn` with the dense or the
+chunked cross-entropy; attention through the einsum path, the blockwise
+``flash`` path or the fused ``pallas`` kernels; per-layer activation
+checkpointing under ``remat``), the dense KV cache (:func:`init_cache`,
+:func:`apply_cached`), the paged serving forward (:func:`apply_paged`) and
+greedy :func:`generate`.  fp8, int8 KV, sequence parallelism and
+``remat_policy="dots"`` are not part of this port yet; their config fields
+raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..state import resolve_device
 
@@ -33,6 +38,12 @@ __all__ = [
     "LlamaConfig",
     "LlamaForCausalLM",
     "init_params",
+    "apply",
+    "apply_hidden",
+    "attention_block",
+    "labels_and_weights",
+    "cross_entropy",
+    "loss_fn",
     "init_cache",
     "apply_cached",
     "apply_paged",
@@ -47,8 +58,10 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     """Field for field the JAX ``LlamaConfig``; ``dtype``/``param_dtype``
-    are torch dtypes.  ``remat`` and ``loss_chunk_size`` only shape training
-    and are accepted and unused here."""
+    are torch dtypes.  ``remat`` checkpoints each layer of the training
+    forward (the JAX ``remat_policy="nothing"``); ``attention_impl`` picks
+    the training attention path and ``loss_impl``/``loss_chunk_size`` the
+    loss (see :func:`attention_block` and :func:`loss_fn`)."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -107,10 +120,8 @@ class LlamaConfig:
         unported = {
             "fp8": self.fp8,
             "kv_cache_quant": self.kv_cache_quant,
-            "attention_impl": self.attention_impl in ("flash", "pallas"),
             "sp_impl": self.sp_impl != "ring",
             "remat_policy": self.remat_policy != "nothing",
-            "loss_impl": self.loss_impl != "dense",
         }
         for name, on in unported.items():
             if on:
@@ -238,10 +249,15 @@ def init_params(config: LlamaConfig, seed: int = 0, device=None) -> dict:
 
 
 class LlamaForCausalLM(nn.Module):
-    """The decoder as an ``nn.Module``: holds the parameter dict as frozen
+    """The decoder as an ``nn.Module``: holds the parameter dict as
     ``nn.Parameter``s (random from ``seed`` unless ``params`` is given) on
     ``device`` (default ``cuda``).  ``params`` is the dict view the
-    functional API takes; ``forward`` is :func:`apply_cached`."""
+    functional API takes.
+
+    ``forward(input_ids, cache)`` is :func:`apply_cached` (serving);
+    ``forward(input_ids=..., attention_mask=..., labels=...)`` without a
+    cache is the training forward and returns ``{"loss": loss_fn(...)}``,
+    the shape ``Accelerator.make_train_step`` and ``backward`` read."""
 
     def __init__(self, config: LlamaConfig, params: Optional[dict] = None, *,
                  seed: int = 0, device=None):
@@ -250,19 +266,22 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         if params is None:
             params = init_params(config, seed=seed, device=dev)
-
-        def frozen(t):
-            return nn.Parameter(t.to(dev), requires_grad=False)
-
-        self.top = nn.ParameterDict({k: frozen(v) for k, v in params.items() if k != "layers"})
-        self.layers = nn.ParameterDict({k: frozen(v) for k, v in params["layers"].items()})
+        self.top = nn.ParameterDict(
+            {k: nn.Parameter(v.to(dev)) for k, v in params.items() if k != "layers"})
+        self.layers = nn.ParameterDict(
+            {k: nn.Parameter(v.to(dev)) for k, v in params["layers"].items()})
 
     @property
     def params(self) -> dict:
         return dict(self.top.items(), layers=dict(self.layers.items()))
 
-    def forward(self, input_ids: torch.Tensor, cache: dict):
-        return apply_cached(self.params, input_ids, self.config, cache)
+    def forward(self, input_ids: torch.Tensor, cache: Optional[dict] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None):
+        if cache is not None:
+            return apply_cached(self.params, input_ids, self.config, cache)
+        batch = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
+        return {"loss": loss_fn(self.params, batch, self.config)}
 
     def generate(self, input_ids: torch.Tensor, max_new_tokens: int, **kw) -> torch.Tensor:
         return generate(self.params, input_ids, self.config, max_new_tokens, **kw)
@@ -368,17 +387,26 @@ def _qkv_proj(h, p, c, b: int, s: int):
     )
 
 
-def _out_proj_and_mlp(x, attn, p, c):
-    """Attention output projection + residual, then the gated MLP block."""
+def _out_proj(attn, p, c):
+    """Attention output projection (with the optional bias)."""
     b, s = attn.shape[:2]
     out = _mm(attn.reshape(b, s, -1), p["wo"], c)
     if "bo" in p:
         out = out + p["bo"].to(out.dtype)
-    y = x + out
-    h = _norm(y, p["ln_mlp"], c)
+    return out
+
+
+def _mlp_block(x, p, c):
+    """Pre-norm gated MLP with residual."""
+    h = _norm(x, p["ln_mlp"], c)
     gate = _act(_mm(h, p["w_gate"], c), c)
     up = _mm(h, p["w_up"], c)
-    return y + _mm(gate * up, p["w_down"], c)
+    return x + _mm(gate * up, p["w_down"], c)
+
+
+def _out_proj_and_mlp(x, attn, p, c):
+    """Attention output projection + residual, then the gated MLP block."""
+    return _mlp_block(x + _out_proj(attn, p, c), p, c)
 
 
 def _layer_params(params: dict, i: int) -> dict:
@@ -407,6 +435,162 @@ def lm_head(params: dict, config: LlamaConfig) -> torch.Tensor:
 def unembed(params: dict, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
     """Final norm + LM head -> fp32 logits."""
     return (final_norm(params, x, config) @ lm_head(params, config)).float()
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+
+def _flash_block(s: int):
+    """Block of the blockwise flash path (None: the einsum path); sequences
+    up to 1024 that no ladder entry divides run as one block."""
+    from ..ops.flash_attention import pick_block
+
+    return pick_block(s, max_single_block=1024)
+
+
+def _use_fused(c: LlamaConfig, s: int, head_dim: int, device: torch.device) -> bool:
+    """The fused kernels: always for ``attention_impl="pallas"``; for
+    ``"auto"`` on CUDA tensors at ``s >= 1024`` when a fused block divides
+    ``s`` (the JAX single-device rule, where the kernels run on the
+    accelerator; a head dim the kernels do not take raises there).  CPU
+    tensors under ``"auto"`` take the flash or einsum path, as JAX does off
+    the TPU."""
+    from ..ops.flash_attention import pick_block_pallas
+
+    if c.attention_impl == "pallas":
+        return True
+    return (c.attention_impl == "auto" and device.type == "cuda" and s >= 1024
+            and _flash_block(s) is not None and pick_block_pallas(s, head_dim) is not None)
+
+
+def _attend(q, k, v, c: LlamaConfig, kv_valid):
+    """Causal GQA attention of the training forward, by ``attention_impl``
+    (the dispatch of the JAX ``attention_block``): the fused kernels, the
+    blockwise flash path, or einsum with ``kv_valid`` folded into the mask."""
+    b, s = q.shape[:2]
+    if _use_fused(c, s, q.shape[-1], q.device):
+        from ..ops.flash_attention import pick_block_pallas
+        from ..ops.fused_attention import fused_attention
+
+        blk = pick_block_pallas(s, q.shape[-1])
+        if blk is None:
+            raise ValueError(
+                "attention_impl='pallas' needs a sequence length divisible by "
+                f"64/128/256/512/1024 or at most 1024; got seq_len={s}"
+            )
+        return fused_attention(q, k, v, causal=True, block_size=blk, kv_valid=kv_valid)
+    if (c.attention_impl == "flash" or (c.attention_impl == "auto" and s >= 1024)) and (
+        _flash_block(s) is not None
+    ):
+        from ..ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=True, block_size=_flash_block(s),
+                               kv_valid=kv_valid)
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril().expand(b, s, s)
+    if kv_valid is not None:
+        mask = mask & kv_valid[:, None, :]
+    return _attention(q, k, v, mask, c.num_heads // c.num_kv_heads)
+
+
+def attention_block(x, p, c: LlamaConfig, positions, kv_valid=None) -> torch.Tensor:
+    """Pre-norm causal attention sub-block with residual; ``kv_valid``
+    ``[B, S]`` bool is the padding mask, kept factored so the flash and
+    fused paths never build an ``[S, S]`` mask."""
+    h = _norm(x, p["ln_attn"], c)
+    b, s, _ = h.shape
+    q, k, v = _qkv_proj(h, p, c, b, s)
+    q, k = _rope(q, k, positions, c.rope_theta, c.rope_scaling)
+    return x + _out_proj(_attend(q, k, v, c, kv_valid), p, c)
+
+
+def _layer(x, p, c: LlamaConfig, positions, kv_valid=None) -> torch.Tensor:
+    return _mlp_block(attention_block(x, p, c, positions, kv_valid), p, c)
+
+
+def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
+                 positions: Optional[torch.Tensor] = None,
+                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Trunk forward: token ids ``[B, S]`` -> final-normed hidden ``[B, S,
+    d]`` in the compute dtype.  With an ``attention_mask`` the positions
+    count real tokens (left padding gets the right RoPE offsets).  Under
+    ``config.remat`` each layer runs under ``torch.utils.checkpoint``: its
+    activations are recomputed in the backward instead of stored."""
+    c = config
+    b, s = input_ids.shape
+    kv_valid = attention_mask.bool() if attention_mask is not None else None
+    if positions is None:
+        if kv_valid is not None:
+            positions = torch.clamp(torch.cumsum(kv_valid.int(), dim=-1) - 1, min=0)
+        else:
+            positions = torch.arange(s, device=input_ids.device).expand(b, s)
+    x = embed_tokens(params, input_ids, c)
+    # One unbind per stacked leaf: its backward stacks the L layer gradients
+    # once, where a per-layer select would add a full [L, ...] zero-padded
+    # gradient per layer.
+    names = list(params["layers"])
+    per_layer = list(zip(*(params["layers"][k].unbind(0) for k in names)))
+
+    def layer(x, *weights):
+        return _layer(x, dict(zip(names, weights)), c, positions, kv_valid)
+
+    for weights in per_layer:
+        if c.remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, *weights, use_reentrant=False)
+        else:
+            x = layer(x, *weights)
+    return final_norm(params, x, c)
+
+
+def apply(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
+          positions: Optional[torch.Tensor] = None,
+          attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training forward: token ids ``[B, S]`` -> logits ``[B, S, V]`` fp32."""
+    hidden = apply_hidden(params, input_ids, config, positions, attention_mask)
+    return (hidden @ lm_head(params, config)).float()
+
+
+def labels_and_weights(batch: dict):
+    """Next-token labels and fp32 loss weights of a batch ``{"input_ids":
+    [B, S]}`` (+ optional ``"labels"``, negative = ignored, and
+    ``"attention_mask"``)."""
+    input_ids = batch["input_ids"]
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.cat([input_ids[:, 1:], torch.zeros_like(input_ids[:, :1])], dim=1)
+        weights = torch.cat([torch.ones_like(input_ids[:, 1:]),
+                             torch.zeros_like(input_ids[:, :1])], dim=1).float()
+    else:
+        weights = (labels >= 0).float()
+        labels = torch.clamp(labels, min=0)
+    if batch.get("attention_mask") is not None:
+        weights = weights * batch["attention_mask"].float()
+    return labels, weights
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """Weighted-mean token cross-entropy in fp32."""
+    logp = torch.log_softmax(logits, dim=-1)
+    token_loss = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return (token_loss * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+def loss_fn(params: dict, batch: dict, config: LlamaConfig) -> torch.Tensor:
+    """Next-token cross-entropy, fp32, mean over non-padded targets.
+    ``config.loss_impl == "chunked"`` streams the LM head over vocabulary
+    tiles (``ops/chunked_ce.py``), so the ``[B, S, V]`` logits never exist."""
+    labels, weights = labels_and_weights(batch)
+    mask = batch.get("attention_mask")
+    if config.loss_impl == "chunked":
+        from ..ops.chunked_ce import chunked_cross_entropy
+
+        x = apply_hidden(params, batch["input_ids"], config, attention_mask=mask)
+        return chunked_cross_entropy(x, lm_head(params, config), labels, weights,
+                                     config.loss_chunk_size)
+    logits = apply(params, batch["input_ids"], config, attention_mask=mask)
+    return cross_entropy(logits, labels, weights)
 
 
 # ---------------------------------------------------------------------------

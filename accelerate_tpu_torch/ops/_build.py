@@ -23,7 +23,10 @@ __all__ = ["BUILD_DIR", "SOURCES", "build", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES: Dict[str, Path] = {"paged_attention": _CSRC / "paged_attention.cu"}
+SOURCES: Dict[str, Path] = {
+    "paged_attention": _CSRC / "paged_attention.cu",
+    "flash_attention": _CSRC / "flash_attention.cu",
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,0 +1,337 @@
+"""Fused flash attention for training: forward and backward kernels.
+
+The counterpart of the JAX package's ``pallas_attention`` with the same
+contract: :func:`fused_attention` takes q ``[B, S, H, d]`` and k/v
+``[B, S, K, d]`` (``H = K * groups``, query head ``h`` reads kv head
+``h // groups``), causal or full, with an optional key-validity mask
+``kv_valid [B, S]``; a query row with no admitted key outputs zeros.  It is
+differentiable through a ``torch.autograd.Function`` that saves ``(q, k, v,
+kv_valid, out, lse)`` and computes δ = rowsum(dO∘O) with a plain torch op
+before the two backward kernels.
+
+Three kernels (``csrc/flash_attention.cu``), each behind a wrapper that
+counts its launches in ``<wrapper>.launches``:
+
+- :func:`fused_attention_fwd` -> ``(out, lse)``;
+- :func:`fused_attention_bwd_dq` -> ``dq``;
+- :func:`fused_attention_bwd_dkv` -> ``(dk, dv)``, already summed over each
+  kv head's query heads.
+
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
+runs the plain PyTorch version (:func:`fused_attention_fwd_plain`,
+:func:`fused_attention_bwd_plain`), which follows the TPU kernels operation
+for operation: finite ``-1e30`` masking, probabilities gated on the masked
+score (``s > -0.5e30``), ``l`` floored at ``1e-30``, P cast to v's dtype
+before P·V, dP in fp32, dS cast to k's (q's) dtype before dS·K (dS^T·Q), and
+dV = P^T·dO in fp32.  ``block_size`` keeps the JAX contract (S must be
+divisible by it) and sets the plain version's key blocks; the kernels tile
+on their own.
+
+The kernels sum in another order than the plain versions, so the two agree
+to fp32 atol = rtol = 1e-4 and to 2e-2 in bf16/fp16, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+__all__ = [
+    "fused_attention",
+    "fused_attention_fwd",
+    "fused_attention_bwd",
+    "fused_attention_bwd_dq",
+    "fused_attention_bwd_dkv",
+    "fused_attention_fwd_plain",
+    "fused_attention_bwd_plain",
+]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HEAD_DIMS = (64, 128)
+_NEG = -1e30  # finite: no inf - inf in the exp bookkeeping
+_LIVE = -0.5e30  # scores above this are admitted
+
+
+def _block(s: int, block_size: int) -> int:
+    blk = min(block_size, s)
+    if s % blk:
+        raise ValueError(f"seq len {s} must be divisible by block_size {blk}")
+    return blk
+
+
+def _admitted(s: int, k0: int, blk: int, causal: bool, valid, device):
+    """Boolean ``[B or 1, 1, 1, S, blk]`` mask of the (query, key) pairs of
+    key block ``k0 .. k0+blk-1`` that take part."""
+    ok = torch.ones(1, 1, 1, s, blk, dtype=torch.bool, device=device)
+    if causal:
+        q_pos = torch.arange(s, device=device)[:, None]
+        k_pos = k0 + torch.arange(blk, device=device)[None, :]
+        ok = ok & (q_pos >= k_pos)
+    if valid is not None:
+        ok = ok & valid[:, k0:k0 + blk].bool()[:, None, None, None, :]
+    return ok
+
+
+def _heads(x: torch.Tensor, kh: int) -> torch.Tensor:
+    """``[B, S, H, d]`` -> fp32 ``[B, K, G, S, d]``."""
+    b, s, h, d = x.shape
+    return x.float().reshape(b, s, kh, h // kh, d).permute(0, 2, 3, 1, 4)
+
+
+def fused_attention_fwd_plain(q, k, v, kv_valid=None, *, causal: bool = True,
+                              block_size: int = 512):
+    """Plain version of :func:`fused_attention_fwd`: the online softmax of
+    ``_flash_fwd`` over key blocks of ``block_size``.  Returns ``(out [B, S,
+    H, d]`` in q's dtype, ``lse [B, H, S]`` fp32)."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    blk = _block(s, block_size)
+    scale = 1.0 / math.sqrt(d)
+    qf = _heads(q, kh)  # [B, K, G, S, d]
+    m = torch.full((b, kh, h // kh, s, 1), _NEG, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, s, blk):
+        kt = k[:, k0:k0 + blk].float().permute(0, 2, 1, 3)  # [B, K, blk, d]
+        vt = v[:, k0:k0 + blk].permute(0, 2, 1, 3)
+        sc = torch.einsum("bkgsd,bktd->bkgst", qf, kt) * scale
+        sc = torch.where(_admitted(s, k0, blk, causal, kv_valid, q.device), sc, _NEG)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.where(sc > _LIVE, torch.exp(sc - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = torch.einsum("bkgst,bktd->bkgsd", p.to(v.dtype).float(), vt.float())
+        acc = acc * alpha + pv
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    out = (acc / l).permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+    lse = (m + torch.log(l)).reshape(b, h, s)
+    return out, lse
+
+
+def _delta(out, do):
+    """δ = rowsum(dO∘O) in fp32, ``[B, H, S]``."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, block_size):
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    blk = _block(s, block_size)
+    scale = 1.0 / math.sqrt(d)
+    qf, dof = _heads(q, kh), _heads(do, kh)  # dO is upcast, as in the TPU kernels
+    lse = lse.reshape(b, kh, g, s, 1)
+    delta = delta.reshape(b, kh, g, s, 1)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for k0 in range(0, s, blk):
+        kt = k[:, k0:k0 + blk].float().permute(0, 2, 1, 3)  # [B, K, blk, d]
+        vt = v[:, k0:k0 + blk].float().permute(0, 2, 1, 3)
+        sc = torch.einsum("bkgsd,bktd->bkgst", qf, kt) * scale
+        sc = torch.where(_admitted(s, k0, blk, causal, kv_valid, q.device), sc, _NEG)
+        p = torch.where(sc > _LIVE, torch.exp(sc - lse), 0.0)
+        dp = torch.einsum("bkgsd,bktd->bkgst", dof, vt)
+        ds = p * (dp - delta) * scale
+        dq = dq + torch.einsum("bkgst,bktd->bkgsd", ds.to(k.dtype).float(), kt)
+        dvs.append(torch.einsum("bkgst,bkgsd->btkd", p, dof))
+        dks.append(torch.einsum("bkgst,bkgsd->btkd", ds.to(q.dtype).float(), qf))
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+    return dq, torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype)
+
+
+def fused_attention_bwd_plain(q, k, v, out, lse, do, kv_valid=None, *, causal: bool = True,
+                              block_size: int = 512):
+    """Plain version of :func:`fused_attention_bwd`: ``_flash_bwd``'s two
+    kernels' arithmetic over key blocks of ``block_size``, dK/dV summed over
+    each kv head's query heads.  Returns ``(dq, dk, dv)`` in the input
+    dtypes."""
+    return _bwd_plain(q, k, v, lse, _delta(out, do), do, kv_valid, causal, block_size)
+
+
+def _check(q, k, v, kv_valid, extra=()) -> None:
+    tensors = {"q": q, "k": k, "v": v, **dict(extra)}
+    if kv_valid is not None:
+        tensors["kv_valid"] = kv_valid
+    for name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q dtype {q.dtype} not supported (float32, bfloat16, float16)")
+    for name in ("k", "v", "do"):
+        if name in tensors and tensors[name].dtype != q.dtype:
+            raise TypeError(f"{name} is {tensors[name].dtype}; the kernel needs q's {q.dtype}")
+    for name in ("lse", "delta"):
+        if name in tensors and tensors[name].dtype != torch.float32:
+            raise TypeError(f"{name} must be float32")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"bad q/k/v shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    if k.shape[:2] != (b, s) or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if h % kh:
+        raise ValueError(f"num q heads {h} not divisible by kv heads {kh}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported by the kernel (one of {_HEAD_DIMS})")
+    if b * h > 65535:
+        raise ValueError(f"batch x heads {b * h} exceeds the kernel grid (65535)")
+    if kv_valid is not None and (kv_valid.dtype != torch.int8 or kv_valid.shape != (b, s)):
+        raise ValueError(f"kv_valid must be int8 [{b}, {s}], got {kv_valid.dtype} "
+                         f"{tuple(kv_valid.shape)}")
+    for name in ("q", "k", "v", "do"):
+        if name in tensors and tensors[name].data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for vector loads")
+    if q.device.index is not None and q.device.index != torch.cuda.current_device():
+        raise ValueError(f"q is on {q.device}, the current CUDA device is "
+                         f"{torch.cuda.current_device()}")
+
+
+_LIB = {}
+_ARGTYPES = {
+    # dtype, q, k, v, valid, out, lse, B, S, H, KH, hd, causal, scale, stream
+    "atpu_flash_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_void_p],
+    # dtype, q, k, v, do, lse, delta, valid, dq, B, S, H, KH, hd, causal, scale, stream
+    "atpu_flash_bwd_dq": [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_void_p],
+    # dtype, q, k, v, do, lse, delta, valid, dk, dv, B, S, H, KH, hd, causal, scale, stream
+    "atpu_flash_bwd_dkv": [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def _kernel(symbol: str):
+    """The C launcher ``symbol`` with its argument types declared (pointers
+    and the stream as ``c_void_p``, so they are not cut to 32 bits)."""
+    fn = _LIB.get(symbol)
+    if fn is None:
+        from . import _build
+
+        fn = getattr(_build.load("flash_attention"), symbol)
+        fn.argtypes = _ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
+        _LIB[symbol] = fn
+    return fn
+
+
+def _launch(symbol: str, q, k, v, kv_valid, *ptrs, causal: bool):
+    b, s, h, d = q.shape
+    rc = _kernel(symbol)(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs,
+        b, s, h, k.shape[2], d, int(causal), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
+
+
+def _on_cuda(name: str, q) -> bool:
+    """True on a CUDA tensor, False on a CPU one; raises on anything else."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {q.device}")
+    return True
+
+
+def _valid_ptr(kv_valid):
+    return None if kv_valid is None else kv_valid.data_ptr()
+
+
+def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_size: int = 512):
+    """Flash-attention forward: ``(out [B, S, H, d]`` in q's dtype, ``lse
+    [B, H, S]`` fp32).  ``kv_valid`` is int8 ``[B, S]`` (nonzero: the key
+    takes part) or None."""
+    if not _on_cuda("fused_attention_fwd", q):
+        return fused_attention_fwd_plain(q, k, v, kv_valid, causal=causal, block_size=block_size)
+    _check(q, k, v, kv_valid)
+    _block(q.shape[1], block_size)
+    b, s, h, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    _launch("atpu_flash_fwd", q, k, v, kv_valid, _valid_ptr(kv_valid), out.data_ptr(),
+            lse.data_ptr(), causal=causal)
+    fused_attention_fwd.launches += 1
+    return out, lse
+
+
+def fused_attention_bwd_dq(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True):
+    """dQ ``[B, S, H, d]`` in q's dtype from the saved ``lse`` and δ
+    (``delta [B, H, S]`` fp32)."""
+    if not _on_cuda("fused_attention_bwd_dq", q):
+        return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[0]
+    _check(q, k, v, kv_valid, {"do": do, "lse": lse, "delta": delta})
+    dq = torch.empty_like(q)
+    _launch("atpu_flash_bwd_dq", q, k, v, kv_valid, do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _valid_ptr(kv_valid), dq.data_ptr(), causal=causal)
+    fused_attention_bwd_dq.launches += 1
+    return dq
+
+
+def fused_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True):
+    """dK, dV ``[B, S, K, d]`` in k's dtype, summed over each kv head's query
+    heads."""
+    if not _on_cuda("fused_attention_bwd_dkv", q):
+        return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[1:]
+    _check(q, k, v, kv_valid, {"do": do, "lse": lse, "delta": delta})
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("atpu_flash_bwd_dkv", q, k, v, kv_valid, do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _valid_ptr(kv_valid), dk.data_ptr(), dv.data_ptr(), causal=causal)
+    fused_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def fused_attention_bwd(q, k, v, out, lse, do, kv_valid=None, *, causal: bool = True,
+                        block_size: int = 512):
+    """Backward of :func:`fused_attention_fwd`: ``(dq, dk, dv)``.  On CUDA,
+    δ in torch, then the dQ kernel and the dK/dV kernel."""
+    if not _on_cuda("fused_attention_bwd", q):
+        return fused_attention_bwd_plain(q, k, v, out, lse, do, kv_valid, causal=causal,
+                                         block_size=block_size)
+    do = do.contiguous()
+    delta = _delta(out, do)
+    dq = fused_attention_bwd_dq(q, k, v, do, lse, delta, kv_valid, causal=causal)
+    dk, dv = fused_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid, causal=causal)
+    return dq, dk, dv
+
+
+fused_attention_fwd.launches = 0
+fused_attention_bwd_dq.launches = 0
+fused_attention_bwd_dkv.launches = 0
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, causal, block_size):
+        out, lse = fused_attention_fwd(q, k, v, kv_valid, causal=causal, block_size=block_size)
+        ctx.save_for_backward(q, k, v, kv_valid, out, lse)
+        ctx.causal, ctx.block_size = causal, block_size
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_valid, out, lse = ctx.saved_tensors
+        dq, dk, dv = fused_attention_bwd(q, k, v, out, lse, do, kv_valid, causal=ctx.causal,
+                                         block_size=ctx.block_size)
+        return dq, dk, dv, None, None, None
+
+
+def fused_attention(q, k, v, *, causal: bool = True, block_size: int = 512,
+                    kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused flash attention: q ``[B, S, H, d]``, k/v ``[B, S, K, d]``,
+    optional ``kv_valid [B, S]`` (bool or int: nonzero keys take part).
+    Returns ``[B, S, H, d]`` in q's dtype; differentiable in q, k and v."""
+    b, s, h, _ = q.shape
+    if h % k.shape[2]:
+        raise ValueError(f"num q heads {h} not divisible by kv heads {k.shape[2]}")
+    blk = _block(s, block_size)
+    valid = None if kv_valid is None else kv_valid.to(torch.int8).contiguous()
+    return _FusedAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), valid,
+                                 causal, blk)

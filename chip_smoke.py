@@ -25,6 +25,24 @@ Phases (each fails the run on any mismatch; nothing is caught):
 3. Token identity: the same widths at 4 layers in fp32; the engine with the
    kernel must match greedy ``generate`` per request, and again with
    ``spec_tokens=3`` (window kernel launched, drafts accepted).
+4. Flash-attention training kernels (forward, dQ, dK/dV) against their plain
+   versions at Llama-3-8B head geometry (32 q heads over 8 kv heads, head
+   dim 128) in fp32 and bf16: B 2 x S 2048 causal, S 1024 non-causal, and
+   S 2048 causal with a left-padded row (``kv_valid``, its first rows admit
+   no key).  Prints max errors and, at B 2 x S 2048 causal, the kernel,
+   plain, bound and library (``scaled_dot_product_attention``, forward and
+   forward+backward, a yardstick only) times.
+5. Training at full width: Llama-3-8B widths cut to 4 layers (fp32 params,
+   AdamW state and gradients of all 32 would need ~128 GB), bf16 compute,
+   ``remat=True``, random weights from seed 0, through
+   ``Accelerator().prepare(model, torch.optim.AdamW(...))`` and
+   ``make_train_step`` at B 2 x S 2048: one step with fp32 activations on
+   the kernel path and on the plain path (loss and every gradient within a
+   relative 1e-4), one bf16 step on both paths (loss within 1e-3, every
+   gradient within a relative 5e-2), then 5 AdamW steps at lr 3e-5 on one
+   fixed batch (loss finite and falling; per step the forward kernel runs 2 x L
+   times under remat, dQ and dK/dV L times each), with step time, tokens/s,
+   model FLOPs and the device idle share of one profiled step.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -42,11 +60,20 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}  # fp32 CUDA cores; bf16 dense
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+# Phase 5, bf16 training step, kernel path against plain path: the loss
+# (absolute) and each gradient leaf (max |diff| over the plain leaf's max).
+BF16_LOSS_TOL = 1e-3
+BF16_GRAD_TOL = 5e-2
 SOURCE = "accelerate_tpu_torch/ops/csrc/paged_attention.cu"
+FLASH_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_attention.cu"
 REPLACES = {
     "paged_attention": "accelerate_tpu/ops/pallas_attention.py:564",
     "paged_window_attention": "accelerate_tpu/ops/pallas_attention.py:686",
+    "fused_attention_fwd": "accelerate_tpu/ops/pallas_attention.py:96",
+    "fused_attention_bwd_dq": "accelerate_tpu/ops/pallas_attention.py:206",
+    "fused_attention_bwd_dkv": "accelerate_tpu/ops/pallas_attention.py:258",
 }
+FLASH_KERNELS = ("fused_attention_fwd", "fused_attention_bwd_dq", "fused_attention_bwd_dkv")
 
 
 def log(*args):
@@ -467,6 +494,333 @@ def phase3():
     return win
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: flash-attention training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def flash_inputs(dtype, b, s, pad, gen, h=32, kh=8, d=128):
+    """q, k, v, dO on the card; with ``pad``, batch 0's first ``pad`` keys
+    are invalid (left padding: under the causal mask its first rows admit
+    no key at all)."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    valid = None
+    if pad:
+        valid = torch.ones(b, s, dtype=torch.int8, device="cuda")
+        valid[0, :pad] = 0
+    return randn(b, s, h, d), randn(b, s, kh, d), randn(b, s, kh, d), randn(b, s, h, d), valid
+
+
+def attention_delta(out, do):
+    """δ = rowsum(dO∘O), fp32 ``[B, H, S]``, as the backward computes it."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_bounds(q, k, causal):
+    """Least time of each kernel's work at these shapes: operations over the
+    dtype's peak against bytes (each input read once, each output written
+    once) over the memory rate, the larger of the two.  A score product is
+    2 * d flops per admitted (query, key) pair: the forward does 2 products
+    (S = QK^T, P.V), dQ 3 (S, dP, dS.K), dK/dV 4 (S^T, dP^T, P^T.dO, dS^T.Q)."""
+    b, s, h, d = q.shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flop = 2 * b * h * d * pairs
+    es = q.element_size()
+    qb, kb, stat = q.numel() * es, k.numel() * es, b * h * s * 4
+    work = {
+        "fused_attention_fwd": (2 * flop, 2 * qb + 2 * kb + stat),
+        "fused_attention_bwd_dq": (3 * flop, 3 * qb + 2 * kb + 2 * stat),
+        "fused_attention_bwd_dkv": (4 * flop, 2 * qb + 4 * kb + 2 * stat),
+    }
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops = ops / PEAK_FLOPS[str(q.dtype)] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return out, flop
+
+
+def phase4():
+    import torch
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import fused_attention as fu
+    from accelerate_tpu_torch.ops.flash_attention import pick_block_pallas
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype)]
+        for b, s, causal, pad in ((2, 2048, True, 0), (2, 1024, False, 0), (2, 2048, True, 300)):
+            blk = pick_block_pallas(s, 128)
+            q, k, v, do, valid = flash_inputs(dtype, b, s, pad, gen)
+            out, lse = fu.fused_attention_fwd(q, k, v, valid, causal=causal, block_size=blk)
+            dq, dk, dv = fu.fused_attention_bwd(q, k, v, out, lse, do, valid, causal=causal,
+                                                block_size=blk)
+            torch.cuda.synchronize()
+            want_out, want_lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=causal,
+                                                              block_size=blk)
+            # The backward kernels are held against the plain backward on the
+            # same saved (out, lse), so each comparison isolates one pass.
+            want = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, valid, causal=causal,
+                                                block_size=blk)
+            errs = {}
+            for name, got, ref in (("out", out, want_out), ("lse", lse, want_lse),
+                                   ("dq", dq, want[0]), ("dk", dk, want[1]),
+                                   ("dv", dv, want[2])):
+                check(bool(torch.isfinite(got).all()), f"flash {dtype} {name}: non-finite")
+                errs[name] = (got.float() - ref.float()).abs().max().item()
+                check(torch.allclose(got.float(), ref.float(), atol=tol, rtol=tol),
+                      f"flash {dtype} B{b} S{s} causal={causal} pad={pad} {name}: "
+                      f"max abs err {errs[name]} over atol=rtol={tol}")
+            if pad:
+                check(bool((out[0, :pad] == 0).all()) and bool((dq[0, :pad] == 0).all()),
+                      "empty rows must output zero and get zero gradient")
+            log(f"phase4 flash {dtype} B={b} S={s} causal={causal} left_pad={pad}: max_abs_err "
+                + " ".join(f"{n}={e:.3e}" for n, e in errs.items()) + f" (atol=rtol={tol})")
+            if (s, causal, pad) == (2048, True, 0):
+                results[str(dtype)] = flash_times(fu, F, q, k, v, do, out, lse, blk, errs)
+            del q, k, v, do, valid, out, lse, dq, dk, dv, want_out, want_lse, want
+            torch.cuda.empty_cache()
+    return results
+
+
+def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
+    """Kernel, plain, bound and library times at the main shape."""
+    import torch
+
+    delta = attention_delta(out, do)
+    set_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, do))
+    copies = [(q, k, v, do, lse, delta)] + [
+        tuple(t.clone() for t in (q, k, v, do, lse, delta))
+        for _ in range(math.ceil(100e6 / set_bytes) - 1)
+    ]
+    fwd_sets = [c[:3] for c in copies]
+    times = {
+        "fused_attention_fwd": cuda_ms(
+            lambda q, k, v: fu.fused_attention_fwd(q, k, v, causal=True, block_size=blk),
+            fwd_sets, iters=10),
+        "fused_attention_bwd_dq": cuda_ms(
+            lambda *a: fu.fused_attention_bwd_dq(a[0], a[1], a[2], a[3], a[4], a[5]), copies,
+            iters=10),
+        "fused_attention_bwd_dkv": cuda_ms(
+            lambda *a: fu.fused_attention_bwd_dkv(a[0], a[1], a[2], a[3], a[4], a[5]), copies,
+            iters=10),
+    }
+    plain_fwd = cuda_ms(
+        lambda q, k, v: fu.fused_attention_fwd_plain(q, k, v, causal=True, block_size=blk),
+        fwd_sets[:1], iters=3)
+    # One plain backward computes dQ, dK and dV together: its time stands
+    # beside both backward kernels.
+    plain_bwd = cuda_ms(
+        lambda q, k, v, do: fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                                         block_size=blk),
+        [(q, k, v, do)], iters=3)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+
+    def sdpa(qt, kt, vt):
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd(qt, kt, vt, dot):
+        qt, kt, vt = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        sdpa(qt, kt, vt).backward(dot)
+
+    lib_fwd = cuda_ms(sdpa, [(qt, kt, vt)], iters=10)
+    lib_fwd_bwd = cuda_ms(sdpa_fwd_bwd, [(qt, kt, vt, dot)], iters=10)
+    delta_ms = cuda_ms(attention_delta, [(out, do)], iters=10)
+    bounds, flop = flash_bounds(q, k, True)
+    err = {"fused_attention_fwd": errs["out"], "fused_attention_bwd_dq": errs["dq"],
+           "fused_attention_bwd_dkv": max(errs["dk"], errs["dv"])}
+    rec = {}
+    for name in FLASH_KERNELS:
+        b_ms, b_by = bounds[name]
+        fwd = name == "fused_attention_fwd"
+        rec[name] = dict(max_abs_err=err[name], ms=times[name],
+                         plain_ms=plain_fwd if fwd else plain_bwd, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_fwd if fwd else None)
+        log(f"phase4 {name} {q.dtype} B=2 S=2048 causal: kernel_ms={times[name]:.4f} "
+            f"plain_ms={rec[name]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})"
+            + (f" library_ms={lib_fwd:.4f}" if fwd else ""))
+    bwd_ms = delta_ms + times["fused_attention_bwd_dq"] + times["fused_attention_bwd_dkv"]
+    log(f"phase4 {q.dtype} whole attention: kernels fwd+delta+dq+dkv "
+        f"{times['fused_attention_fwd'] + bwd_ms:.4f} ms (backward {bwd_ms:.4f}, delta "
+        f"{delta_ms:.4f}) against sdpa fwd+bwd {lib_fwd_bwd:.4f} ms (fwd {lib_fwd:.4f}, "
+        f"bwd by difference {lib_fwd_bwd - lib_fwd:.4f}); "
+        f"least work fwd {2 * flop / 1e9:.1f} GFLOP, backward {5 * flop / 1e9:.1f} GFLOP")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: training at full width
+# ---------------------------------------------------------------------------
+
+
+def reset_flash_counts():
+    from accelerate_tpu_torch.ops import fused_attention as fu
+
+    for name in FLASH_KERNELS:
+        getattr(fu, name).launches = 0
+
+
+def read_flash_counts():
+    from accelerate_tpu_torch.ops import fused_attention as fu
+
+    return {name: getattr(fu, name).launches for name in FLASH_KERNELS}
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Inside the block the fused op runs its plain versions in place of the
+    kernels (its autograd function looks the wrappers up at each call)."""
+    from accelerate_tpu_torch.ops import fused_attention as fu
+
+    saved = fu.fused_attention_fwd, fu.fused_attention_bwd
+    fu.fused_attention_fwd = fu.fused_attention_fwd_plain
+    fu.fused_attention_bwd = fu.fused_attention_bwd_plain
+    try:
+        yield
+    finally:
+        fu.fused_attention_fwd, fu.fused_attention_bwd = saved
+
+
+def loss_and_grads(model, cfg, batch):
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+
+    loss = llama.loss_fn(model.params, batch, cfg)
+    return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+
+def phase5():
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import llama
+
+    layers, b, s = 4, 2, 2048
+    cfg = llama.LlamaConfig.llama3_8b(num_layers=layers, dtype=torch.bfloat16,
+                                      param_dtype=torch.float32, remat=True)
+    t0 = time.perf_counter()
+    model = llama.LlamaForCausalLM(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = cfg.num_params()
+    log(f"phase5 Llama-3-8B widths, {layers} layers, fp32 params={n_params} "
+        f"init_s={time.perf_counter() - t0:.1f}")
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s))).cuda()}
+
+    # fp32 activations: the kernel path against the plain path, loss and
+    # every gradient leaf (relative to the leaf's largest entry).
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    loss_k, grads_k = loss_and_grads(model, cfg32, batch)
+    with plain_flash():
+        loss_p, grads_p = loss_and_grads(model, cfg32, batch)
+    rel = max(((gk - gp).abs().max() / gp.abs().max()).item() for gk, gp in zip(grads_k, grads_p))
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"phase5 fp32 step, kernel vs plain path: loss {loss_k.item():.6f} vs "
+        f"{loss_p.item():.6f} (rel {loss_rel:.3e}); max over {len(grads_k)} gradient leaves of "
+        f"max|diff|/max|plain| = {rel:.3e} (limit 1e-4)")
+    check(loss_rel <= 1e-4 and rel <= 1e-4, f"fp32 kernel path differs: loss {loss_rel}, grad {rel}")
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # bf16 activations: the loss barely moves with attention at random init,
+    # so the gradients are held too.  Both limits sit a few times above the
+    # readings on an H100 (PERF.md, Findings).
+    loss_k, grads_k = loss_and_grads(model, cfg, batch)
+    with plain_flash():
+        loss_p, grads_p = loss_and_grads(model, cfg, batch)
+    loss_k, loss_p = loss_k.item(), loss_p.item()
+    rels = [((gk - gp).abs().max() / gp.abs().max()).item() for gk, gp in zip(grads_k, grads_p)]
+    names = [n for n, _ in model.named_parameters()]
+    log(f"phase5 bf16 step, kernel vs plain path: loss {loss_k:.5f} vs {loss_p:.5f} "
+        f"(|diff| {abs(loss_k - loss_p):.3e}, limit {BF16_LOSS_TOL}); per gradient leaf "
+        "max|diff|/max|plain|: " + " ".join(f"{n}={r:.3e}" for n, r in zip(names, rels))
+        + f" (limit {BF16_GRAD_TOL})")
+    check(abs(loss_k - loss_p) <= BF16_LOSS_TOL, f"bf16 loss differs by {abs(loss_k - loss_p)}")
+    check(max(rels) <= BF16_GRAD_TOL, f"bf16 gradients differ: {max(rels)}")
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    acc = Accelerator()
+    lr = 3e-5  # the loss falls at every one of the 5 steps at this rate, not at every rate
+    log(f"phase5 AdamW lr={lr} weight_decay=1e-4")
+    model, opt = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=lr,
+                                                      weight_decay=1e-4))
+    step = acc.make_train_step(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    losses, step_s = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        losses.append(step(batch).item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = read_flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase5 5 steps on one batch: losses {[round(x, 5) for x in losses]} launches {counts} "
+        f"peak_mem_gb={peak_gb:.1f}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(all(b_ < a for a, b_ in zip(losses, losses[1:])), f"loss not falling: {losses}")
+    want = {"fused_attention_fwd": 2 * layers * 5, "fused_attention_bwd_dq": layers * 5,
+            "fused_attention_bwd_dkv": layers * 5}
+    check(counts == want, f"kernel launches {counts}, want {want} (2L, L, L per step)")
+
+    # Model FLOPs per step: 6 per non-embedding parameter (the LM head
+    # counted) per token, plus attention's forward and backward (3.5 x the
+    # forward's 2 products; the recomputed forward under remat not counted).
+    tokens = b * s
+    dense = n_params - cfg.vocab_size * cfg.hidden_size  # the embedding is a lookup
+    pairs = s * (s + 1) // 2
+    attn = layers * 3.5 * 4 * b * cfg.num_heads * cfg.head_dim_ * pairs
+    flops = 6 * dense * tokens + attn
+    ms = median(step_s[1:]) * 1e3
+    log(f"phase5 step_ms={ms:.2f} (median of steps 2-5; first {step_s[0] * 1e3:.2f}) "
+        f"tokens_per_s={tokens / ms * 1e3:.1f} model_tflop_per_step={flops / 1e12:.2f} "
+        f"bf16_peak_share={flops / (ms / 1e3) / PEAK_FLOPS['torch.bfloat16']:.4f} "
+        f"floor_ms={flops / PEAK_FLOPS['torch.bfloat16'] * 1e3:.2f}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Kernels only: a GPU user annotation (the optimizer's step span) also
+    # carries device time, which would count its kernels twice.
+    by_kernel = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+         and not getattr(e, "is_user_annotation", False)),
+        reverse=True,
+    )
+    busy = sum(t for t, _, _ in by_kernel)
+    groups = {"flash kernels": 0.0, "GEMMs": 0.0, "other": 0.0}
+    for t, _, key in by_kernel:
+        low = key.lower()
+        if "flash_" in low and "kernel" in low:
+            groups["flash kernels"] += t
+        elif any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas", "sm90_")):
+            groups["GEMMs"] += t
+        else:
+            groups["other"] += t
+    log(f"phase5 profiled step: wall_ms={wall_ms:.2f} device_busy_ms={busy:.2f} "
+        f"idle_share={1 - busy / wall_ms:.3f}; by group (ms) "
+        + " ".join(f"{k}={v:.2f}" for k, v in groups.items()))
+    for t, n, key in by_kernel[:10]:
+        log(f"phase5   device {t:.3f} ms in {n} launches: {key[:110]}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -494,14 +848,24 @@ def main() -> int:
     p1 = phase1()
     p2 = phase2()
     win3 = phase3()
-    log("kernels: paged_attention, paged_window_attention")
-    launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"]}
+    p4 = phase4()
+    p5 = phase5()
+    log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS))
+    launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"], **p5}
     check(win3 > 0, "window kernel not launched in phase 3")
     record = []
     for name in ("paged_attention", "paged_window_attention"):
         r = p1[(name, "torch.bfloat16")]
         record.append(dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
                            launches=launches[name], **r))
+    for name in FLASH_KERNELS:
+        record.append(dict(name=name, route="cuda", source=FLASH_SOURCE,
+                           replaces=REPLACES[name], launches=launches[name],
+                           **p4["torch.bfloat16"][name]))
+    for name in FLASH_KERNELS:
+        r = p4["torch.float32"][name]
+        log(f"kernels fp32 {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}")
     log(json.dumps({"kernels": record}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from accelerate_tpu_torch.models import llama
+from accelerate_tpu_torch.ops import fused_attention as fu
 from accelerate_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -134,3 +135,133 @@ def test_apply_paged_kernel_launches_per_layer_and_matches_plain(cuda):
         want, want_rows = llama.apply_paged(params, ids, cfg, pool, tables, starts, kernel=False)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(rows["k"], want_rows["k"], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# flash-attention training kernels (ops/fused_attention.py)
+# ---------------------------------------------------------------------------
+
+
+def _flash_inputs(seed, b, s, h, kh, d, dtype, masked):
+    """q/k/v/dO from a numpy seed; with ``masked``, batch 0 is left-padded
+    by a third of S (its first causal rows admit no key) and the last batch
+    is all invalid (every row empty)."""
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+
+    valid = None
+    if masked:
+        vm = np.ones((b, s), np.int8)
+        vm[0, : s // 3] = 0
+        vm[-1, :] = 0
+        valid = torch.from_numpy(vm).cuda()
+    return randn(b, s, h, d), randn(b, s, kh, d), randn(b, s, kh, d), randn(b, s, h, d), valid
+
+
+def _flash_check(seed, b, s, h, kh, d, dtype, causal, masked):
+    q, k, v, do, valid = _flash_inputs(seed, b, s, h, kh, d, dtype, masked)
+    counts = (fu.fused_attention_fwd.launches, fu.fused_attention_bwd_dq.launches,
+              fu.fused_attention_bwd_dkv.launches)
+    out, lse = fu.fused_attention_fwd(q, k, v, valid, causal=causal, block_size=s)
+    dq, dk, dv = fu.fused_attention_bwd(q, k, v, out, lse, do, valid, causal=causal,
+                                        block_size=s)
+    torch.cuda.synchronize()
+    assert (fu.fused_attention_fwd.launches, fu.fused_attention_bwd_dq.launches,
+            fu.fused_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    want_out, want_lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=causal,
+                                                      block_size=s)
+    want = fu.fused_attention_bwd_plain(q, k, v, want_out, want_lse, do, valid, causal=causal,
+                                        block_size=s)
+    tol = TOL[dtype]
+    assert out.dtype == dtype and lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol, msg=name)
+    if masked:
+        assert (out[-1] == 0).all() and (dq[-1] == 0).all() and (dk[-1] == 0).all()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "kv_valid"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+def test_flash_kernels_match_plain(cuda, dtype, d, groups, causal, masked):
+    _flash_check(43, 2, 256, 2 * groups, 2, d, dtype, causal, masked)
+
+
+@pytest.mark.parametrize("s", [200, 1024])
+def test_flash_kernels_ragged_and_long(cuda, s):
+    """S not a multiple of the kernels' 64-row tiles, and a long sequence at
+    Llama-3-8B head geometry."""
+    _flash_check(47, 1, s, 32, 8, 128, torch.bfloat16, True, True)
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
+def test_train_step_launches_flash_kernels_per_layer(cuda, remat):
+    """One training step of a tiny llama on the fused path launches the
+    forward kernel once per layer (twice under remat, which recomputes it)
+    and each backward kernel once per layer, and the loss matches the same
+    step on the kernels' plain versions."""
+    from accelerate_tpu_torch import Accelerator
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, head_dim=64, num_layers=3, remat=remat,
+                                 attention_impl="pallas", max_seq_len=256)
+    ids = torch.from_numpy(np.random.default_rng(59).integers(0, cfg.vocab_size, (2, 128)))
+    batch = {"input_ids": ids.cuda()}
+    model = llama.LlamaForCausalLM(cfg, seed=0)
+    with torch.no_grad():
+        fwd, bwd = fu.fused_attention_fwd, fu.fused_attention_bwd
+        fu.fused_attention_fwd, fu.fused_attention_bwd = (fu.fused_attention_fwd_plain,
+                                                          fu.fused_attention_bwd_plain)
+        try:
+            want = llama.loss_fn(model.params, batch, cfg).item()
+        finally:
+            fu.fused_attention_fwd, fu.fused_attention_bwd = fwd, bwd
+    acc = Accelerator()
+    model, opt = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-3))
+    step = acc.make_train_step(model, opt)
+    before = (fu.fused_attention_fwd.launches, fu.fused_attention_bwd_dq.launches,
+              fu.fused_attention_bwd_dkv.launches)
+    loss = step(batch)
+    torch.cuda.synchronize()
+    after = (fu.fused_attention_fwd.launches, fu.fused_attention_bwd_dq.launches,
+             fu.fused_attention_bwd_dkv.launches)
+    layers = cfg.num_layers
+    assert tuple(a - b for a, b in zip(after, before)) == ((2 if remat else 1) * layers,
+                                                           layers, layers)
+    assert abs(loss.item() - want) <= 1e-4 * abs(want)
+
+
+def test_flash_wrapper_raises_instead_of_falling_back(cuda):
+    q, k, v, do, _ = _flash_inputs(53, 1, 128, 4, 2, 64, torch.float32, False)
+    with pytest.raises(TypeError, match="k is"):
+        fu.fused_attention_fwd(q, k.half(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fu.fused_attention_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                               v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fu.fused_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="kv_valid"):
+        fu.fused_attention_fwd(q, k, v, torch.ones(1, 128, dtype=torch.bool, device="cuda"))
+    with pytest.raises(ValueError, match="divisible"):
+        fu.fused_attention_fwd(q, k, v, block_size=96)
+
+
+def test_auto_attention_with_unsupported_head_dim_raises(cuda):
+    """``attention_impl="auto"`` at S 1024 on the card takes the kernels
+    whatever the head dim, so a head dim they do not take raises instead of
+    running a plain path."""
+    cfg = llama.LlamaConfig.tiny(head_dim=256, num_layers=1, max_seq_len=1024,
+                                 attention_impl="auto")
+    params = llama.init_params(cfg, seed=0)
+    ids = torch.from_numpy(np.random.default_rng(61).integers(0, cfg.vocab_size, (1, 1024)))
+    before = fu.fused_attention_fwd.launches
+    with pytest.raises(ValueError, match="head_dim 256"):
+        llama.apply(params, ids.cuda(), cfg)
+    assert fu.fused_attention_fwd.launches == before

@@ -1,0 +1,181 @@
+"""The port's attention ops (``accelerate_tpu_torch/ops/fused_attention.py``
+and ``ops/flash_attention.py``) against the JAX package on the same inputs.
+
+The fused op's plain versions (what its wrappers run on CPU tensors) are
+held to the Pallas flash kernels run in interpret mode, as the JAX package's
+own tests run them: forward ``out`` and ``lse`` from ``_flash_fwd``, and the
+gradients of ``pallas_attention`` through its ``jax.vjp``.  Tolerances are
+those of ``tests/test_pallas_attention.py``: 2e-5 fp32 forward, 5e-5
+gradients, 0.05 bf16.  Inputs come from a numpy seed."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from accelerate_tpu.ops import flash_attention as jfa
+from accelerate_tpu.ops import pallas_attention as jpa
+from accelerate_tpu_torch.ops import flash_attention as tfa
+from accelerate_tpu_torch.ops import fused_attention as tfu
+
+B, S, H, D, BLK = 3, 128, 4, 64, 64
+
+
+def _inputs(seed, kv_heads, dtype=np.float32, s=S):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, s, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, s, kv_heads, D)).astype(np.float32)
+    v = rng.standard_normal((B, s, kv_heads, D)).astype(np.float32)
+    do = rng.standard_normal((B, s, H, D)).astype(np.float32)
+    return q, k, v, do
+
+
+def _valid(s=S):
+    """Batch 0 left-padded by 40 (its first 40 causal rows admit no key),
+    batch 1 all valid, batch 2 all invalid (every row empty)."""
+    valid = np.ones((B, s), np.int8)
+    valid[0, :40] = 0
+    valid[2, :] = 0
+    return valid
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "kv_valid"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kv_heads", [1, 2, 4])
+def test_plain_forward_matches_pallas(kv_heads, causal, masked):
+    q, k, v, _ = _inputs(0, kv_heads)
+    valid = _valid() if masked else None
+    tr = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    want_out, want_lse = jpa._flash_fwd(
+        tr(q), tr(k), tr(v), scale=float(1.0 / np.sqrt(D)), causal=causal, blk_q=BLK,
+        blk_k=BLK, interpret=True, kv_valid=None if valid is None else jnp.asarray(valid),
+    )
+    out, lse = tfu.fused_attention_fwd(
+        _t(q), _t(k), _t(v), None if valid is None else torch.from_numpy(valid),
+        causal=causal, block_size=BLK,
+    )
+    assert tfu.fused_attention_fwd.launches == 0  # CPU tensors: the plain version
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out).transpose(0, 2, 1, 3),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=2e-5, rtol=2e-5)
+    if masked:
+        assert np.all(out.numpy()[2] == 0) and np.all(lse.numpy()[2] < -1e29)
+        if causal:
+            assert np.all(out.numpy()[0, :40] == 0)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "kv_valid"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kv_heads", [1, 2, 4])
+def test_plain_backward_matches_pallas_vjp(kv_heads, causal, masked):
+    q, k, v, do = _inputs(1, kv_heads)
+    valid = _valid() if masked else None
+
+    def f(q, k, v):
+        return jpa.pallas_attention(q, k, v, causal=causal, block_size=BLK, interpret=True,
+                                    kv_valid=None if valid is None else jnp.asarray(valid))
+
+    out_j, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    out = tfu.fused_attention(tq, tk, tv, causal=causal, block_size=BLK,
+                              kv_valid=None if valid is None else torch.from_numpy(valid))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), atol=2e-5, rtol=2e-5)
+    out.backward(_t(do))
+    for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5, rtol=5e-5,
+                                   err_msg=f"d{name}")
+    if masked:
+        # Invalid keys get no gradient; empty rows give none to their query.
+        assert np.all(tk.grad.numpy()[2] == 0) and np.all(tv.grad.numpy()[0, :40] == 0)
+        assert np.all(tq.grad.numpy()[2] == 0)
+
+
+def test_bf16_plain_matches_pallas():
+    q, k, v, do = _inputs(2, 2)
+    valid = _valid()
+    bf = lambda x: jnp.asarray(x, jnp.bfloat16)  # noqa: E731
+
+    def f(q, k, v):
+        return jpa.pallas_attention(q, k, v, causal=True, block_size=BLK, interpret=True,
+                                    kv_valid=jnp.asarray(valid))
+
+    out_j, vjp = jax.vjp(f, bf(q), bf(k), bf(v))
+    want = vjp(bf(do))
+    tq, tk, tv = (_t(x, torch.bfloat16).requires_grad_() for x in (q, k, v))
+    out = tfu.fused_attention(tq, tk, tv, causal=True, block_size=BLK,
+                              kv_valid=torch.from_numpy(valid))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(out_j.astype(jnp.float32)), atol=0.05, rtol=0.05)
+    out.backward(_t(do, torch.bfloat16))
+    for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                                   atol=0.05, rtol=0.05, err_msg=f"d{name}")
+
+
+def test_wrappers_on_cpu_run_the_plain_versions():
+    """The backward wrappers on CPU tensors return the plain version's
+    pieces; no kernel is counted."""
+    q, k, v, do = (_t(x) for x in _inputs(3, 2))
+    out, lse = tfu.fused_attention_fwd_plain(q, k, v, causal=True, block_size=BLK)
+    dq, dk, dv = tfu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                               block_size=BLK)
+    delta = tfu._delta(out, do)
+    torch.testing.assert_close(tfu.fused_attention_bwd_dq(q, k, v, do, lse, delta), dq)
+    got_dk, got_dv = tfu.fused_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.testing.assert_close(got_dk, dk)
+    torch.testing.assert_close(got_dv, dv)
+    launches = (tfu.fused_attention_fwd.launches, tfu.fused_attention_bwd_dq.launches,
+                tfu.fused_attention_bwd_dkv.launches)
+    assert launches == (0, 0, 0)
+    with pytest.raises(ValueError, match="divisible"):
+        tfu.fused_attention(q, k, v, block_size=48)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "kv_valid"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_blockwise_flash_matches_jax(causal, masked):
+    q, k, v, do = _inputs(4, 2)
+    valid = _valid() if masked else None
+
+    def f(q, k, v):
+        return jfa.flash_attention(q, k, v, causal=causal, block_size=32,
+                                   kv_valid=None if valid is None else jnp.asarray(valid, bool))
+
+    out_j, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=causal, block_size=32,
+                              kv_valid=None if valid is None else torch.from_numpy(valid).bool())
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), atol=2e-5, rtol=2e-5)
+    out.backward(_t(do))
+    for got, ref, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5, rtol=5e-5,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("s,head_dim", [(2048, 128), (3072, 128), (1536, 256), (100, 64),
+                                        (1100, 64), (96, 128)])
+def test_block_pickers_match_jax(s, head_dim):
+    assert tfa.pick_block(s) == jfa.pick_block(s)
+    assert tfa.pick_block(s, max_single_block=1024) == jfa.pick_block(s, max_single_block=1024)
+    assert tfa.pick_block_pallas(s, head_dim) == jfa.pick_block_pallas(s, head_dim)
+
+
+def test_block_override_env(monkeypatch):
+    monkeypatch.setenv("ACCELERATE_ATTN_BLOCK", "256")
+    assert tfa.pick_block_pallas(2048, 128) == jfa.pick_block_pallas(2048, 128) == 256
+    monkeypatch.setenv("ACCELERATE_ATTN_BLOCK", "384")
+    with pytest.warns(UserWarning, match="does not divide"):
+        assert tfa.pick_block(2048) == 512
+    monkeypatch.setenv("ACCELERATE_ATTN_BLOCK", "-2")
+    with pytest.raises(ValueError, match="positive"):
+        tfa.pick_block(2048)

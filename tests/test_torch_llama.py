@@ -207,21 +207,42 @@ def test_init_params_shapes_and_rule():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("fp8", True), ("kv_cache_quant", True), ("attention_impl", "flash"),
-    ("attention_impl", "pallas"), ("sp_impl", "ulysses"), ("remat_policy", "dots"),
-    ("loss_impl", "chunked"),
+    ("fp8", True), ("kv_cache_quant", True), ("sp_impl", "ulysses"), ("remat_policy", "dots"),
 ])
 def test_unported_config_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         tl.LlamaConfig.tiny(**{field: value})
 
 
+@pytest.mark.parametrize("field,value", [
+    ("attention_impl", "flash"), ("attention_impl", "pallas"), ("loss_impl", "chunked"),
+])
+def test_training_config_fields_build_and_run(field, value):
+    """The training fields ported with the training slice build, and
+    ``loss_fn`` runs through them on the CPU."""
+    cfg = tl.LlamaConfig.tiny(dtype=torch.float32, loss_chunk_size=100, **{field: value})
+    assert getattr(cfg, field) == value
+    params = tl.init_params(cfg, seed=0, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, size=(2, 64)))
+    loss = tl.loss_fn(params, {"input_ids": ids}, cfg)
+    assert loss.shape == () and torch.isfinite(loss)
+
+
 def test_entry_points_default_to_cuda():
+    from accelerate_tpu_torch import Accelerator
+
     cfg = tl.LlamaConfig.tiny()
     if torch.cuda.is_available():
         assert tl.init_params(cfg)["embed"].device.type == "cuda"
+        assert Accelerator().device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tl.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tl.LlamaForCausalLM(cfg)
+    model = tl.LlamaForCausalLM(cfg, device="cpu")
+    opt = torch.optim.AdamW(model.parameters())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Accelerator().prepare(model, opt)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Accelerator().make_train_step(model, opt)
