@@ -26,6 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES: Dict[str, Path] = {
     "paged_attention": _CSRC / "paged_attention.cu",
     "flash_attention": _CSRC / "flash_attention.cu",
+    "flash_fwd_sm90": _CSRC / "flash_fwd_sm90.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -9,13 +9,15 @@ differentiable through a ``torch.autograd.Function`` that saves ``(q, k, v,
 kv_valid, out, lse)`` and computes δ = rowsum(dO∘O) with a plain torch op
 before the two backward kernels.
 
-Three kernels (``csrc/flash_attention.cu``), each behind a wrapper that
-counts its launches in ``<wrapper>.launches``:
+Three kernels, each behind a wrapper that counts its launches in
+``<wrapper>.launches``:
 
-- :func:`fused_attention_fwd` -> ``(out, lse)``;
-- :func:`fused_attention_bwd_dq` -> ``dq``;
+- :func:`fused_attention_fwd` -> ``(out, lse)``: bf16 and fp16 run the
+  Hopper forward of ``csrc/flash_fwd_sm90.cu`` (wgmma, TMA-fed K/V ring, P
+  in registers), fp32 the CUDA-core body of ``csrc/flash_attention.cu``;
+- :func:`fused_attention_bwd_dq` -> ``dq`` (``csrc/flash_attention.cu``);
 - :func:`fused_attention_bwd_dkv` -> ``(dk, dv)``, already summed over each
-  kv head's query heads.
+  kv head's query heads (``csrc/flash_attention.cu``).
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the plain PyTorch version (:func:`fused_attention_fwd_plain`,
@@ -193,10 +195,12 @@ def _check(q, k, v, kv_valid, extra=()) -> None:
 
 
 _LIB = {}
+# dtype, q, k, v, valid, out, lse, B, S, H, KH, hd, causal, scale, stream
+_FWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
 _ARGTYPES = {
-    # dtype, q, k, v, valid, out, lse, B, S, H, KH, hd, causal, scale, stream
-    "atpu_flash_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_void_p],
+    "atpu_flash_fwd": _FWD_ARGTYPES,
+    "atpu_flash_fwd_sm90": _FWD_ARGTYPES,
     # dtype, q, k, v, do, lse, delta, valid, dq, B, S, H, KH, hd, causal, scale, stream
     "atpu_flash_bwd_dq": [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
@@ -213,7 +217,8 @@ def _kernel(symbol: str):
     if fn is None:
         from . import _build
 
-        fn = getattr(_build.load("flash_attention"), symbol)
+        source = "flash_fwd_sm90" if symbol == "atpu_flash_fwd_sm90" else "flash_attention"
+        fn = getattr(_build.load(source), symbol)
         fn.argtypes = _ARGTYPES[symbol]
         fn.restype = ctypes.c_int
         _LIB[symbol] = fn
@@ -247,7 +252,8 @@ def _valid_ptr(kv_valid):
 def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_size: int = 512):
     """Flash-attention forward: ``(out [B, S, H, d]`` in q's dtype, ``lse
     [B, H, S]`` fp32).  ``kv_valid`` is int8 ``[B, S]`` (nonzero: the key
-    takes part) or None."""
+    takes part) or None.  On CUDA, bf16 and fp16 launch the Hopper kernel
+    (``atpu_flash_fwd_sm90``) and fp32 the CUDA-core one (``atpu_flash_fwd``)."""
     if not _on_cuda("fused_attention_fwd", q):
         return fused_attention_fwd_plain(q, k, v, kv_valid, causal=causal, block_size=block_size)
     _check(q, k, v, kv_valid)
@@ -255,8 +261,9 @@ def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_si
     b, s, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    _launch("atpu_flash_fwd", q, k, v, kv_valid, _valid_ptr(kv_valid), out.data_ptr(),
-            lse.data_ptr(), causal=causal)
+    symbol = "atpu_flash_fwd" if q.dtype == torch.float32 else "atpu_flash_fwd_sm90"
+    _launch(symbol, q, k, v, kv_valid, _valid_ptr(kv_valid), out.data_ptr(), lse.data_ptr(),
+            causal=causal)
     fused_attention_fwd.launches += 1
     return out, lse
 

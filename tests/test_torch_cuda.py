@@ -6,6 +6,11 @@ JAX, so there it runs without the conftest::
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
+and while working on one flash kernel, only its cases (the build and ~200
+tests take under a minute)::
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py -k flash
+
 Tolerances (the kernel's online softmax sums in another order than the
 plain version): fp32 atol = rtol = 1e-4, bf16 and fp16 atol = rtol = 2e-2.
 """
@@ -200,6 +205,100 @@ def test_flash_kernels_ragged_and_long(cuda, s):
     """S not a multiple of the kernels' 64-row tiles, and a long sequence at
     Llama-3-8B head geometry."""
     _flash_check(47, 1, s, 32, 8, 128, torch.bfloat16, True, True)
+
+
+@pytest.fixture
+def fwd_symbols(monkeypatch):
+    """The C launchers the flash wrappers call, in order."""
+    seen = []
+    kernel = fu._kernel
+
+    def spy(symbol):
+        seen.append(symbol)
+        return kernel(symbol)
+
+    monkeypatch.setattr(fu, "_kernel", spy)
+    return seen
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("groups", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [64, 100, 129, 200, 1024])
+def test_flash_fwd_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal):
+    """The Hopper forward (128-row CTAs over 128-key tiles) at S below one
+    tile, across a ragged edge and long, against the plain forward."""
+    q, k, v, _, _ = _flash_inputs(67, 2, s, 2 * groups, 2, d, dtype, False)
+    before = fu.fused_attention_fwd.launches
+    out, lse = fu.fused_attention_fwd(q, k, v, causal=causal, block_size=s)
+    torch.cuda.synchronize()
+    assert fu.fused_attention_fwd.launches == before + 1
+    assert fwd_symbols == ["atpu_flash_fwd_sm90"]
+    want_out, want_lse = fu.fused_attention_fwd_plain(q, k, v, causal=causal, block_size=s)
+    tol = TOL[dtype]
+    assert out.dtype == dtype and torch.isfinite(out).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_sm90_left_pad_past_a_tile(cuda, dtype, d, causal):
+    """Batch 0 left-padded by 300 keys (its first two 128-key tiles hold no
+    valid key; under the causal mask its first 300 rows admit none), batch
+    1 all invalid: empty rows output 0 with lse ~ -1e30 and get zero
+    gradients from the backward kernels."""
+    s, pad = 400, 300
+    q, k, v, do, _ = _flash_inputs(71, 2, s, 8, 2, d, dtype, False)
+    valid = torch.ones(2, s, dtype=torch.int8, device="cuda")
+    valid[0, :pad] = 0
+    valid[1] = 0
+    out, lse = fu.fused_attention_fwd(q, k, v, valid, causal=causal, block_size=s)
+    dq, dk, dv = fu.fused_attention_bwd(q, k, v, out, lse, do, valid, causal=causal,
+                                        block_size=s)
+    torch.cuda.synchronize()
+    want_out, want_lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=causal,
+                                                      block_size=s)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    assert (out[1] == 0).all() and (lse[1] < -1e29).all()
+    assert (dq[1] == 0).all() and (dk[1] == 0).all() and (dv[1] == 0).all()
+    assert (dk[0, :pad] == 0).all() and (dv[0, :pad] == 0).all()
+    if causal:
+        assert (out[0, :pad] == 0).all() and (lse[0, :, :pad] < -1e29).all()
+        assert (dq[0, :pad] == 0).all()
+
+
+def test_flash_fwd_bf16_counts_one_launch_and_raises_on_misaligned_view(cuda, fwd_symbols):
+    q, k, v, _, _ = _flash_inputs(73, 1, 256, 8, 2, 128, torch.bfloat16, False)
+    before = fu.fused_attention_fwd.launches
+    fu.fused_attention_fwd(q, k, v, causal=True, block_size=256)
+    torch.cuda.synchronize()
+    assert fu.fused_attention_fwd.launches == before + 1
+    assert fwd_symbols == ["atpu_flash_fwd_sm90"]
+    # A contiguous view one element into its storage: not 16-byte aligned.
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fu.fused_attention_fwd(shifted, k, v, causal=True, block_size=256)
+    assert fu.fused_attention_fwd.launches == before + 1
+    assert fwd_symbols == ["atpu_flash_fwd_sm90"]
+
+
+def test_flash_fwd_fp32_stays_on_the_cuda_core_body(cuda, fwd_symbols):
+    q, k, v, _, valid = _flash_inputs(79, 2, 200, 8, 2, 128, torch.float32, True)
+    out, lse = fu.fused_attention_fwd(q, k, v, valid, causal=True, block_size=200)
+    torch.cuda.synchronize()
+    assert fwd_symbols == ["atpu_flash_fwd"]
+    want_out, want_lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=True,
+                                                      block_size=200)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])

@@ -70,6 +70,45 @@ def test_plain_forward_matches_pallas(kv_heads, causal, masked):
             assert np.all(out.numpy()[0, :40] == 0)
 
 
+@pytest.mark.parametrize("h,kv_heads,pad,causal", [
+    (4, 2, 0, True),      # S 192: one 128-key tile and a ragged one
+    (4, 2, 130, True),    # left pad past a whole 128-key tile
+    (4, 2, 130, False),
+    (8, 1, 0, True),      # a GQA group of 8
+    (8, 1, 130, False),
+], ids=["ragged", "pad130-causal", "pad130-full", "gqa8", "gqa8-pad130-full"])
+def test_plain_forward_matches_pallas_at_hopper_tile_edges(h, kv_heads, pad, causal):
+    """The shapes the Hopper forward's 128-row, 128-key tiles meet, held on
+    the plain forward (the card's reference) against ``_flash_fwd``: S 192
+    with block 64, batch 0 left-padded by ``pad`` keys and batch 2 all
+    invalid when ``pad`` is set."""
+    s = 192
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((B, s, h, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, s, kv_heads, D)).astype(np.float32) for _ in range(2))
+    valid = None
+    if pad:
+        valid = np.ones((B, s), np.int8)
+        valid[0, :pad] = 0
+        valid[2, :] = 0
+    tr = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    want_out, want_lse = jpa._flash_fwd(
+        tr(q), tr(k), tr(v), scale=float(1.0 / np.sqrt(D)), causal=causal, blk_q=BLK,
+        blk_k=BLK, interpret=True, kv_valid=None if valid is None else jnp.asarray(valid),
+    )
+    out, lse = tfu.fused_attention_fwd(
+        _t(q), _t(k), _t(v), None if valid is None else torch.from_numpy(valid),
+        causal=causal, block_size=BLK,
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out).transpose(0, 2, 1, 3),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=2e-5, rtol=2e-5)
+    if pad:
+        assert np.all(out.numpy()[2] == 0) and np.all(lse.numpy()[2] < -1e29)
+        if causal:
+            assert np.all(out.numpy()[0, :pad] == 0) and np.all(lse.numpy()[0, :, :pad] < -1e29)
+
+
 @pytest.mark.parametrize("masked", [False, True], ids=["dense", "kv_valid"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("kv_heads", [1, 2, 4])
