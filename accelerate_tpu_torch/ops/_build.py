@@ -24,7 +24,8 @@ __all__ = ["BUILD_DIR", "SOURCES", "build", "load"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES: Dict[str, Path] = {
-    "paged_attention": _CSRC / "paged_attention.cu",
+    "paged_attention": _CSRC / "paged_attention.cu",  # the first paged body, a timing yardstick
+    "paged_attention_sm90": _CSRC / "paged_attention_sm90.cu",
     "flash_attention": _CSRC / "flash_attention.cu",
     "flash_fwd_sm90": _CSRC / "flash_fwd_sm90.cu",
 }

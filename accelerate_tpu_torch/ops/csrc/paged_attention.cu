@@ -2,6 +2,12 @@
 // W-token speculative verify window, read straight out of the serving
 // engine's block pool through per-slot block tables.
 //
+// NOT ON ANY PATH: the wrappers in ops/paged_attention.py launch
+// paged_attention_sm90.cu.  This first body (one CTA per slot and kv head)
+// is kept only so that chip_smoke.py can time it as `previous_ms` beside the
+// split-K kernels, calling its symbols directly and uncounted; a later
+// change removes it.
+//
 // Replaces (accelerate_tpu/ops/pallas_attention.py):
 //   atpu_paged_attention        -> _paged_kernel (:564), launched by
 //                                  pallas_paged_attention (:621)

@@ -8,12 +8,22 @@ Phases (each fails the run on any mismatch; nothing is caught):
 0. Device and build: the card's name and power limit, then every kernel
    source under ``accelerate_tpu_torch/ops/csrc`` built, one ``nvcc`` each,
    all started together (timed).
-1. Kernels against their plain versions at Llama-3-8B head geometry (32 q
-   heads over 8 kv heads, head dim 128, block 16) in fp32 and bf16, over 8
-   slots with ragged lengths (0, 1, bs-1, bs, bs+1, ..., 4100), null-padded
-   bucketed tables, decode and a W=4 verify window.  Prints max error and the
+1. Paged kernels (``paged_attention_sm90.cu``: split kernel + merge kernel)
+   against their plain versions at Llama-3-8B head geometry (32 q heads over
+   8 kv heads, head dim 128, block 16) in fp32 and bf16, decode and a W=4
+   verify window, at two shapes of 8 slots with null-padded bucketed tables:
+   lengths 0, 1, bs-1, bs, bs+1, 300, 1000, 4100 (table 512 wide) and the
+   serving decode step's 0, 5, 16, 100, 300, 700, 1000, 1023 (64 wide).
+   Prints max error, the CTAs launched and the CTAs that did work, and the
    kernel, plain, bound and library (``scaled_dot_product_attention`` on the
-   pre-gathered dense K/V, a yardstick only) times.
+   pre-gathered dense K/V, a yardstick only) times, the previous body
+   (``paged_attention.cu``, called directly, not counted) as ``previous_ms``
+   in turns with the kernel, the merge kernel alone, the same inputs with the
+   table cut to the longest slot (what the empty split CTAs cost), and bf16
+   times for split sizes of 64, 128 and 256 positions.  Phase 1's times are
+   device times from CUDA graphs of the calls (a paged call's host side,
+   checks and two launches, takes longer than its kernels); the eager
+   call's time is printed beside them.
 2. Serving at full width: Llama-3-8B (all 32 layers, bf16, random weights
    from a seed) through ``Accelerator().prepare_serving(paged_kernel=True)``,
    8 staggered requests with 128-1024-token prompts and 32 new tokens each;
@@ -22,7 +32,8 @@ Phases (each fails the run on any mismatch; nothing is caught):
    per verify dispatch.  Then one decode step over a fixed pool: in bf16 the
    kernel path must pick every slot's top token as the kernel's plain
    version does, and with fp32 activations its logits must match the plain
-   einsum path to 1e-4; the step is timed on both paths and profiled.
+   einsum path to 1e-4; the step is timed on both paths and profiled (the
+   paged kernels' device ms as a group).
 3. Token identity: the same widths at 4 layers in fp32; the engine with the
    kernel must match greedy ``generate`` per request, and again with
    ``spec_tokens=3`` (window kernel launched, drafts accepted).
@@ -69,7 +80,18 @@ TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2, "torch.float16": 2e-2}
 # (absolute) and each gradient leaf (max |diff| over the plain leaf's max).
 BF16_LOSS_TOL = 1e-3
 BF16_GRAD_TOL = 5e-2
-SOURCE = "accelerate_tpu_torch/ops/csrc/paged_attention.cu"
+SOURCE = "accelerate_tpu_torch/ops/csrc/paged_attention_sm90.cu"
+PAGED_PREVIOUS = "accelerate_tpu_torch/ops/csrc/paged_attention.cu"  # the first paged body, timed only
+PAGED_DESIGN = ("split kernel, CTA per (slot x kv head, split of C pool positions, 16 query "
+                "rows), empty splits exit at once; the split's table entries once in shared "
+                "memory; 2-4 stage CTA-wide cp.async K/V ring of 64 positions; bf16/fp16 "
+                "mma.sync m16n8k16 for Q.K^T and P.V, P kept in registers, K/V fragments by "
+                "ldmatrix (.trans for V); fp32 on CUDA-core FMA; fp32 partials (o, m, l); "
+                "merge kernel per (slot x kv head): lse merge of the used splits, the W new "
+                "rows folded in under kw <= qw; C from host shapes only")
+PHASE1_SHAPES = (("long", [0, 1, 15, 16, 17, 300, 1000, 4100]),
+                 ("serving", [0, 5, 16, 100, 300, 700, 1000, 1023]))
+SPLIT_SWEEP = (64, 128, 256)
 FLASH_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_attention.cu"
 FWD_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_fwd_sm90.cu"  # bf16 and fp16 forward
 FWD_DESIGN = ("bf16/fp16: wgmma m64n128k16 Q.K^T (smem descriptors) and P.V (P in registers, "
@@ -110,6 +132,34 @@ def cuda_ms(fn, arg_sets, iters=30):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, arg_sets, iters=30, replays=3):
+    """Mean device time of ``fn(*args)`` with the host out of the way: the
+    ``iters`` calls (cycling through ``arg_sets``, as :func:`cuda_ms`) are
+    captured once in a CUDA graph, which is replayed.  A call whose host
+    side (checks, allocations, two launches) takes longer than its kernels
+    would otherwise be timed at the host's pace."""
+    import torch
+
+    for args in arg_sets:
+        fn(*args)  # builds, shared-memory attributes: outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -190,45 +240,131 @@ def library_call(a, window):
     return call, (qt, dense[0], dense[1], mask)
 
 
+def previous_paged(window):
+    """The first paged body (``paged_attention.cu``) called directly, so it is not
+    counted as a launch of the wrapper."""
+    import ctypes
+
+    import torch
+
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    symbol = "atpu_paged_window_attention" if window else "atpu_paged_attention"
+    fn = getattr(_build.load("paged_attention"), symbol)
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * (7 if window else 6)
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+    def call(q, k_new, v_new, pool_k, pool_v, tables, lengths):
+        out = torch.empty_like(q)
+        rc = fn(pa._DTYPE_CODES[q.dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), q.shape[0], q.shape[-2], pool_k.shape[2], q.shape[-1],
+                pool_k.shape[1], tables.shape[1], *((q.shape[1],) if window else ()),
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"{symbol} launch failed: CUDA error {rc}")
+        return out
+
+    return call
+
+
+def split_ctas(a, window, split_tokens):
+    """CTAs the split kernel launches, those that do work (splits below each
+    slot's length), and the merge kernel's CTAs."""
+    q, pk = a["q"], a["pool_k"]
+    bs, kh = pk.shape[1], pk.shape[2]
+    m = a["tables"].shape[1]
+    rows = q.shape[-2] // kh * (window or 1)
+    groups = -(-rows // 16)
+    ns = -(-m * bs // split_tokens)
+    lens = [min(int(n), m * bs) for n in a["lengths"].tolist()]
+    b = len(lens)
+    return dict(launched=b * kh * ns * groups,
+                working=sum(-(-n // split_tokens) for n in lens) * kh * groups,
+                merge=b * kh * groups)
+
+
 def phase1():
     import torch
 
     from accelerate_tpu_torch.ops import paged_attention as pa
 
-    lengths = [0, 1, 15, 16, 17, 300, 1000, 4100]
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    order = ("q", "k_new", "v_new", "pool_k", "pool_v", "tables", "lengths")
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, window in (("paged_attention", None), ("paged_window_attention", 4)):
-            kern = getattr(pa, name)
-            plain = getattr(pa, name + "_plain")
-            a = kernel_inputs(dtype, window, lengths, gen)
-            got = kern(**a)
-            torch.cuda.synchronize()
-            want = plain(**a)
-            err = (got.float() - want.float()).abs().max().item()
-            tol = TOL[str(dtype)]
-            check(torch.isfinite(got).all().item(), f"{name} {dtype}: non-finite output")
-            check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
-                  f"{name} {dtype}: max abs err {err} over atol=rtol={tol}")
-            pool_bytes = 2 * a["pool_k"].numel() * a["pool_k"].element_size()
-            copies = [a] + [dict(a, pool_k=a["pool_k"].clone(), pool_v=a["pool_v"].clone())
-                            for _ in range(math.ceil(100e6 / pool_bytes) - 1)]
-            order = ("q", "k_new", "v_new", "pool_k", "pool_v", "tables", "lengths")
-            sets = [tuple(c[k] for k in order) for c in copies]
-            k_ms = cuda_ms(kern, sets)
-            p_ms = cuda_ms(plain, sets, iters=10)
-            lib_fn, lib_args = library_call(a, window)
-            lib_ms = cuda_ms(lib_fn, [lib_args], iters=10)
-            b_ms, b_by = bound_ms(a, window)
-            results[(name, str(dtype))] = dict(
-                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms,
-            )
-            log(f"phase1 {name} {dtype} W={window or 1} lengths={lengths}: max_abs_err={err:.3e} "
-                f"(atol=rtol={tol}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms:.4f}")
-            del a, copies, sets, lib_args
+    for shape, lengths in PHASE1_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, window in (("paged_attention", None), ("paged_window_attention", 4)):
+                kern = getattr(pa, name)
+                plain = getattr(pa, name + "_plain")
+                prev = previous_paged(window)
+                a = kernel_inputs(dtype, window, lengths, gen)
+                tol = TOL[str(dtype)]
+                got = kern(**a)
+                torch.cuda.synchronize()
+                want = plain(**a)
+                err = (got.float() - want.float()).abs().max().item()
+                check(torch.isfinite(got).all().item(), f"{name} {dtype}: non-finite output")
+                check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+                      f"{name} {dtype} {shape}: max abs err {err} over atol=rtol={tol}")
+                got_prev = prev(**a)
+                torch.cuda.synchronize()
+                prev_err = (got_prev.float() - want.float()).abs().max().item()
+                check(torch.allclose(got_prev.float(), want.float(), atol=tol, rtol=tol),
+                      f"previous {name} {dtype} {shape}: max abs err {prev_err} over {tol}")
+                pool_bytes = 2 * a["pool_k"].numel() * a["pool_k"].element_size()
+                copies = [a] + [dict(a, pool_k=a["pool_k"].clone(), pool_v=a["pool_v"].clone())
+                                for _ in range(math.ceil(100e6 / pool_bytes) - 1)]
+                sets = [tuple(c[k] for k in order) for c in copies]
+                # Device times from CUDA graphs, in turns: kernel, previous,
+                # previous, kernel; then the eager call as the serving loop
+                # makes it (host checks and launches included).
+                turns = [graph_ms(f, sets) for f in (kern, prev, prev, kern)]
+                k_ms, prev_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                eager_ms = cuda_ms(kern, sets)
+                p_ms = graph_ms(plain, sets[:1], iters=5, replays=2)
+                lib_fn, lib_args = library_call(a, window)
+                lib_ms = graph_ms(lib_fn, [lib_args], iters=10)
+                b_ms, b_by = bound_ms(a, window)
+                bs, m = a["pool_k"].shape[1], a["tables"].shape[1]
+                c = pa.pick_split_tokens(len(lengths), a["pool_k"].shape[2], m, bs, sms)
+                ctas = split_ctas(a, window, c)
+                # The merge kernel alone on partials of the same shape.
+                wa = {k: (v if window else v[:, None]) if k in ("q", "k_new", "v_new") else v
+                      for k, v in a.items()}
+                part = [t.contiguous() for t in pa.paged_split_partials_plain(
+                    wa["q"], a["pool_k"], a["pool_v"], a["tables"], a["lengths"], c)]
+                merge_args = (wa["q"], wa["k_new"], wa["v_new"], *part, a["lengths"], c, bs, m)
+                merge_ms = graph_ms(pa.paged_split_merge, [merge_args])
+                # The same inputs with the table cut to the longest slot's
+                # blocks: fewer empty split CTAs, the same work.
+                tight = dict(a, tables=a["tables"][:, :-(-max(lengths) // bs)].contiguous())
+                tight_ms = graph_ms(kern, [tuple(tight[k] for k in order)])
+                results[(name, str(dtype), shape)] = dict(
+                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms, previous_ms=prev_ms, previous_max_abs_err=prev_err,
+                    merge_ms=merge_ms, tight_table_ms=tight_ms, eager_ms=eager_ms,
+                    split_tokens=c, ctas=ctas,
+                )
+                log(f"phase1 {name} {dtype} W={window or 1} {shape} lengths={lengths} "
+                    f"table={m}: max_abs_err={err:.3e} (atol=rtol={tol}) kernel_ms={k_ms:.4f} "
+                    f"previous_ms={prev_ms:.4f} (max_abs_err {prev_err:.3e}) plain_ms={p_ms:.4f} "
+                    f"bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms:.4f} merge_ms={merge_ms:.4f} "
+                    f"eager_call_ms={eager_ms:.4f} "
+                    f"tight_table_ms={tight_ms:.4f} split_tokens={c} split_ctas_launched="
+                    f"{ctas['launched']} split_ctas_working={ctas['working']} "
+                    f"merge_ctas={ctas['merge']}")
+                if dtype == torch.bfloat16:
+                    sweep = {s: graph_ms(lambda *x, s=s: pa._launch(
+                        *x, window=window is not None, split_tokens=s), sets)
+                        for s in SPLIT_SWEEP}
+                    log(f"phase1 {name} bf16 {shape} split sweep (ms by positions per split): "
+                        + " ".join(f"C={s}:{t:.4f} (working CTAs "
+                                   f"{split_ctas(a, window, s)['working']})"
+                                   for s, t in sweep.items()))
+                del a, copies, sets, lib_args, part, merge_args, tight
     return results
 
 
@@ -434,11 +570,14 @@ def decode_step_checks(params, cfg):
         reverse=True,
     )
     busy = sum(t for t, _, _ in by_kernel)
+    paged = [(t, n) for t, n, key in by_kernel if "paged_" in key]
     # Idle share: the device's gaps between kernels within the event-timed
     # step (the host launching the next kernel), 1 - busy / step time.
     log(f"phase2 decode step (8 slots, 32 layers): kernel_path_ms={k_ms:.3f} "
         f"einsum_path_ms={e_ms:.3f}; profiled step wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
-        f"idle_share={(1 - busy / k_ms) if busy else float('nan'):.3f}")
+        f"idle_share={(1 - busy / k_ms) if busy else float('nan'):.3f}; paged kernels "
+        f"{sum(t for t, _ in paged):.3f} ms in {sum(n for _, n in paged)} launches "
+        "(split + merge)")
     for t, n, key in by_kernel[:8]:
         log(f"phase2   device {t:.3f} ms in {n} launches: {key[:110]}")
 
@@ -904,9 +1043,20 @@ def main() -> int:
     check(win3 > 0, "window kernel not launched in phase 3")
     record = []
     for name in ("paged_attention", "paged_window_attention"):
-        r = p1[(name, "torch.bfloat16")]
+        r = p1[(name, "torch.bfloat16", "long")]
+        serving = p1[(name, "torch.bfloat16", "serving")]
         record.append(dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-                           launches=launches[name], **r))
+                           launches=launches[name], **r, previous_source=PAGED_PREVIOUS,
+                           design=PAGED_DESIGN,
+                           serving_shape={k: serving[k] for k in (
+                               "max_abs_err", "ms", "previous_ms", "plain_ms", "bound_ms",
+                               "library_ms", "merge_ms", "eager_ms", "split_tokens", "ctas")}))
+    for name in ("paged_attention", "paged_window_attention"):
+        for shape, _ in PHASE1_SHAPES:
+            r = p1[(name, "torch.float32", shape)]
+            log(f"kernels fp32 {name} {shape}: ms={r['ms']:.4f} previous_ms={r['previous_ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                f"library_ms={r['library_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}")
     for name in FLASH_KERNELS:
         extra = {}
         if name == "fused_attention_fwd":

@@ -6,10 +6,11 @@ JAX, so there it runs without the conftest::
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-and while working on one flash kernel, only its cases (the build and ~200
-tests take under a minute)::
+and while working on one kernel, only its cases (``-k flash`` for the
+flash kernels, ``-k paged`` for the paged ones; the build and the tests take
+under a minute)::
 
-    python -m pytest --noconftest -q tests/test_torch_cuda.py -k flash
+    python -m pytest --noconftest -q tests/test_torch_cuda.py -k paged
 
 Tolerances (the kernel's online softmax sums in another order than the
 plain version): fp32 atol = rtol = 1e-4, bf16 and fp16 atol = rtol = 2e-2.
@@ -71,6 +72,7 @@ def _fns(window):
     return pa.paged_window_attention, pa.paged_window_attention_plain
 
 
+@pytest.mark.paged
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
                          ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("window", [None, 1, 4])
@@ -86,6 +88,7 @@ def test_kernel_matches_plain(cuda, dtype, window):
     torch.testing.assert_close(got.float(), plain(**args).float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.paged
 @pytest.mark.parametrize("d,dtype,window", [
     (64, torch.float32, 3), (256, torch.bfloat16, 2), (128, torch.float32, 40),
 ])
@@ -96,6 +99,7 @@ def test_kernel_other_head_dims_and_long_windows(cuda, d, dtype, window):
     torch.testing.assert_close(fn(**args).float(), plain(**args).float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.paged
 def test_idle_slot_reads_no_pool_block(cuda):
     """Length 0 and an all-null table: only the new row counts, whatever
     the null block holds."""
@@ -107,6 +111,7 @@ def test_idle_slot_reads_no_pool_block(cuda):
     assert torch.isfinite(out).all()
 
 
+@pytest.mark.paged
 def test_wrapper_raises_instead_of_falling_back(cuda):
     args = _inputs(37, 8, 4, None, torch.float32)
     with pytest.raises(TypeError, match="int32"):
@@ -120,6 +125,7 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         pa.paged_attention(**small)
 
 
+@pytest.mark.paged
 def test_apply_paged_kernel_launches_per_layer_and_matches_plain(cuda):
     """Tiny llama in fp32 on the card: one decode forward launches the
     decode kernel once per layer, a verify forward the window kernel once
@@ -140,6 +146,112 @@ def test_apply_paged_kernel_launches_per_layer_and_matches_plain(cuda):
         want, want_rows = llama.apply_paged(params, ids, cfg, pool, tables, starts, kernel=False)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(rows["k"], want_rows["k"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def paged_symbols(monkeypatch):
+    """The C launchers the paged wrappers call, in order."""
+    seen = []
+    kernel = pa._kernel
+
+    def spy(symbol):
+        seen.append(symbol)
+        return kernel(symbol)
+
+    monkeypatch.setattr(pa, "_kernel", spy)
+    return seen
+
+
+_SM90_CASES = [(dtype, d) for dtype in (torch.float32, torch.bfloat16, torch.float16)
+               for d in (64, 128, 256) if not (dtype == torch.float32 and d == 256)]
+
+
+@pytest.mark.paged
+@pytest.mark.parametrize("window", [None, 1, 4, 40])
+@pytest.mark.parametrize("dtype,d", _SM90_CASES,
+                         ids=[f"{str(t)[6:]}-hd{d}" for t, d in _SM90_CASES])
+def test_paged_sm90_matches_plain(cuda, paged_symbols, dtype, d, window):
+    """The split and merge kernels in every dtype and head dim, decode and
+    windows up to 40 (G*W = 160 rows: ten row groups), one wrapper launch
+    per call."""
+    args = _inputs(83, 2, 4, window, dtype, d=d, lengths=(0, 1, 15, 16, 17, 300, 1000), m=64)
+    fn, plain = _fns(window)
+    before = fn.launches
+    got = fn(**args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want_symbol = "atpu_paged_attention_sm90" if window is None else \
+        "atpu_paged_window_attention_sm90"
+    assert paged_symbols == [want_symbol]
+    assert got.dtype == dtype and got.shape == args["q"].shape and torch.isfinite(got).all()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), plain(**args).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.paged
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("window", [None, 4])
+@pytest.mark.parametrize("split_blocks", [1, 2, 8, 64])
+def test_paged_sm90_split_boundaries(cuda, dtype, window, split_blocks):
+    """Lengths k*C - 1, k*C, k*C + 1 for chunk C of one block up to the whole
+    table, a table full to M*bs, and an idle slot."""
+    bs, m = 16, 64
+    c = split_blocks * bs
+    k = max(1, (m * bs - 1) // c - 1)
+    lengths = (k * c - 1, k * c, min(k * c + 1, m * bs), m * bs, 0, c - 1 if c > 1 else 1)
+    args = _inputs(89, 8, 4, window, dtype, lengths=lengths, m=m)
+    fn, plain = _fns(window)
+    got = pa._launch(**args, window=window is not None, split_tokens=c)  # not counted
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), plain(**args).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.paged
+@pytest.mark.parametrize("window", [None, 3])
+def test_paged_sm90_every_slot_idle(cuda, window):
+    """Every slot at length 0 with a NaN null block: no pool block is read,
+    and a row that admits only new row 0 outputs v_new exactly."""
+    args = _inputs(97, 8, 4, window, torch.bfloat16, lengths=(0, 0, 0), m=64)
+    args["pool_k"][0] = float("nan")
+    args["pool_v"][0] = float("nan")
+    fn, plain = _fns(window)
+    out = fn(**args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    first = out if window is None else out[:, 0]
+    v0 = args["v_new"] if window is None else args["v_new"][:, 0]
+    torch.testing.assert_close(first, v0.repeat_interleave(4, dim=1), rtol=0, atol=0)
+    torch.testing.assert_close(out.float(), plain(**args).float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.paged
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 128),
+                                     (torch.float16, 64), (torch.bfloat16, 256)],
+                         ids=["fp32-hd128", "bf16-hd128", "fp16-hd64", "bf16-hd256"])
+@pytest.mark.parametrize("window", [1, 4, 40])
+def test_paged_split_merge_kernel_matches_plain(cuda, dtype, d, window):
+    """The merge kernel alone against its plain version on the same
+    partials (from the plain split path, with NaN in every split the merge
+    must not read)."""
+    bs, m, c = 16, 64, 128
+    args = _inputs(101, 2, 4, window, dtype, d=d, lengths=(0, 5, 128, 129, 700, 1024), m=m)
+    part_o, part_ml = pa.paged_split_partials_plain(args["q"], args["pool_k"], args["pool_v"],
+                                                    args["tables"], args["lengths"], c)
+    n_used = (args["lengths"].long() + c - 1) // c
+    for b, n in enumerate(n_used.tolist()):
+        part_o[b, :, n:] = float("nan")
+        part_ml[b, :, n:] = float("nan")
+    rest = (args["q"], args["k_new"], args["v_new"], part_o.contiguous(), part_ml.contiguous(),
+            args["lengths"], c, bs, m)
+    before = pa.paged_split_merge.launches
+    got = pa.paged_split_merge(*rest)
+    torch.cuda.synchronize()
+    assert pa.paged_split_merge.launches == before + 1
+    want = pa.paged_split_merge_plain(*rest)
+    tol = TOL[dtype]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 # ---------------------------------------------------------------------------

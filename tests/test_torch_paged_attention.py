@@ -122,3 +122,80 @@ def test_other_devices_raise():
     args = {k: v.to("meta") for k, v in _torch(_inputs(19, 2, 2, None)).items()}
     with pytest.raises(ValueError, match="cuda or cpu"):
         pa.paged_attention(**args)
+
+
+# ---------------------------------------------------------------------------
+# The split path (the Hopper kernels' algorithm) in plain PyTorch: partials
+# per chunk of ``split_tokens`` pool positions, then the lse merge with the
+# new rows folded in.  bs = 4 and a table 4 wide: 16 positions at most.
+# ---------------------------------------------------------------------------
+
+_CHUNKS = {"one_block": 4, "two_blocks": 8, "wider_than_table": 32}
+
+
+def _split_lengths(chunk):
+    """A length exactly on a chunk boundary, one past it, an idle slot, and
+    one mid-chunk (all within the 16 positions of the table)."""
+    return (min(chunk, 16), min(chunk + 1, 15), 0, 9)
+
+
+def _split_args(seed, window, chunk):
+    args = _inputs(seed, 2, 2, 1 if window is None else window, lengths=_split_lengths(chunk))
+    args["pool_k"][0] = np.nan  # the null block: never read by either side
+    args["pool_v"][0] = np.nan
+    return args
+
+
+@pytest.mark.parametrize("chunk", list(_CHUNKS), ids=list(_CHUNKS))
+@pytest.mark.parametrize("window", [None, 1, 3], ids=["decode", "w1", "w3"])
+def test_split_path_matches_pallas_kernel(window, chunk):
+    args = _split_args(23, window, _CHUNKS[chunk])
+    if window is None:
+        jargs = {**args, **{k: args[k][:, 0] for k in ("q", "k_new", "v_new")}}
+        want = np.asarray(pallas_paged_attention(**_jax(jargs), interpret=True))[:, None]
+    else:
+        want = np.asarray(pallas_paged_window_attention(**_jax(args), interpret=True))
+    got = pa.paged_window_attention_split_plain(**_torch(args), split_tokens=_CHUNKS[chunk])
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("window", [1, 3])
+def test_split_path_idle_slot_is_exactly_v_new(window):
+    """Length 0 with a NaN null block: no chunk is merged, and window row 0
+    (every row, for decode) admits only new row 0, so it is v_new exactly."""
+    t = _torch(_split_args(29, window, 4))
+    out = pa.paged_window_attention_split_plain(**t, split_tokens=8)
+    idle = 2  # _split_lengths puts the idle slot third
+    want = t["v_new"][idle, 0].repeat_interleave(2, dim=0)  # head h reads kv head h // 2
+    torch.testing.assert_close(out[idle, 0], want, rtol=0, atol=0)
+    assert torch.isfinite(out).all()
+
+
+def test_split_merge_reads_no_split_past_the_length():
+    """The merge plain version ignores the scratch of splits at or past
+    ceil(length / C), whatever it holds (the kernel leaves it unwritten)."""
+    t = _torch(_split_args(31, 3, 4))
+    part_o, part_ml = pa.paged_split_partials_plain(t["q"], t["pool_k"], t["pool_v"],
+                                                    t["tables"], t["lengths"], 4)
+    base = pa.paged_split_merge_plain(t["q"], t["k_new"], t["v_new"], part_o, part_ml,
+                                      t["lengths"], 4, 4, 4)
+    n_used = (t["lengths"] + 3) // 4
+    for b, n in enumerate(n_used.tolist()):
+        part_o[b, :, n:] = float("nan")
+        part_ml[b, :, n:] = float("nan")
+    got = pa.paged_split_merge(t["q"], t["k_new"], t["v_new"], part_o, part_ml, t["lengths"],
+                               4, 4, 4)
+    torch.testing.assert_close(got, base, rtol=0, atol=0)
+
+
+def test_pick_split_tokens_uses_whole_blocks_within_the_table():
+    # Llama-3-8B serving shapes on a 132-SM card: 128 positions per split.
+    assert pa.pick_split_tokens(8, 8, 512, 16, 132) == 128
+    assert pa.pick_split_tokens(8, 8, 64, 16, 132) == 128
+    # Never past the table, always whole blocks.
+    assert pa.pick_split_tokens(4, 2, 4, 4, 132) == 16
+    assert pa.pick_split_tokens(1, 1, 100, 24, 132) == 144
+    # Many full slots: splits grow until at most 64 CTAs per SM remain.
+    c = pa.pick_split_tokens(64, 8, 4096, 16, 132)
+    assert c % 16 == 0 and 64 * 8 * -(-4096 * 16 // c) <= 64 * 132
