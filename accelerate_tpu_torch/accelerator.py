@@ -14,6 +14,7 @@ counterpart here; functional models come as :class:`FunctionalModel`.
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Any, Callable, List
 
 import torch
@@ -157,9 +158,11 @@ class Accelerator:
     def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0, norm_type: float = 2.0):
         """Arm global-norm clipping for the next optimizer step (one shot)
         and return the accumulated gradients' current norm (None before any
-        backward)."""
+        backward).  The norm is always the global 2-norm: like the JAX
+        ``Accelerator``, another ``norm_type`` is ignored, with a warning."""
         if norm_type != 2.0:
-            raise NotImplementedError("only the global 2-norm is supported")
+            warnings.warn(f"clip_grad_norm_ ignores norm_type={norm_type}: it clips to and "
+                          "returns the global 2-norm", stacklevel=2)
         for opt in self._optimizers:
             opt._clip_norm_once = float(max_norm)
         grads = [p.grad for p in self._trainable() if p.grad is not None]

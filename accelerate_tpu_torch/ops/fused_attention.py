@@ -17,7 +17,9 @@ Three kernels, each behind a wrapper that counts its launches in
   in registers), fp32 the CUDA-core body of ``csrc/flash_attention.cu``;
 - :func:`fused_attention_bwd_dq` -> ``dq`` (``csrc/flash_attention.cu``);
 - :func:`fused_attention_bwd_dkv` -> ``(dk, dv)``, already summed over each
-  kv head's query heads (``csrc/flash_attention.cu``).
+  kv head's query heads: bf16 and fp16 run the Hopper kernel of
+  ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma, TMA-fed Q/dO ring, P^T and dS^T in
+  registers), fp32 the CUDA-core body of ``csrc/flash_attention.cu``.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the plain PyTorch version (:func:`fused_attention_fwd_plain`,
@@ -198,15 +200,25 @@ _LIB = {}
 # dtype, q, k, v, valid, out, lse, B, S, H, KH, hd, causal, scale, stream
 _FWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p]
+# dtype, q, k, v, do, lse, delta, valid, dk, dv, B, S, H, KH, hd, causal, scale, stream
+_DKV_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
 _ARGTYPES = {
     "atpu_flash_fwd": _FWD_ARGTYPES,
     "atpu_flash_fwd_sm90": _FWD_ARGTYPES,
     # dtype, q, k, v, do, lse, delta, valid, dq, B, S, H, KH, hd, causal, scale, stream
     "atpu_flash_bwd_dq": [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
-    # dtype, q, k, v, do, lse, delta, valid, dk, dv, B, S, H, KH, hd, causal, scale, stream
-    "atpu_flash_bwd_dkv": [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_void_p],
+    "atpu_flash_bwd_dkv": _DKV_ARGTYPES,
+    "atpu_flash_bwd_dkv_sm90": _DKV_ARGTYPES,
+    # the same kernel without the lo half of P in dV: on no path, timed only
+    "atpu_flash_bwd_dkv_sm90_nolo": _DKV_ARGTYPES,
+}
+# The source of each symbol that is not in flash_attention.cu.
+_SOURCES = {
+    "atpu_flash_fwd_sm90": "flash_fwd_sm90",
+    "atpu_flash_bwd_dkv_sm90": "flash_bwd_dkv_sm90",
+    "atpu_flash_bwd_dkv_sm90_nolo": "flash_bwd_dkv_sm90",
 }
 
 
@@ -217,8 +229,7 @@ def _kernel(symbol: str):
     if fn is None:
         from . import _build
 
-        source = "flash_fwd_sm90" if symbol == "atpu_flash_fwd_sm90" else "flash_attention"
-        fn = getattr(_build.load(source), symbol)
+        fn = getattr(_build.load(_SOURCES.get(symbol, "flash_attention")), symbol)
         fn.argtypes = _ARGTYPES[symbol]
         fn.restype = ctypes.c_int
         _LIB[symbol] = fn
@@ -283,13 +294,16 @@ def fused_attention_bwd_dq(q, k, v, do, lse, delta, kv_valid=None, *, causal: bo
 
 def fused_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True):
     """dK, dV ``[B, S, K, d]`` in k's dtype, summed over each kv head's query
-    heads."""
+    heads.  On CUDA, bf16 and fp16 launch the Hopper kernel
+    (``atpu_flash_bwd_dkv_sm90``) and fp32 the CUDA-core one
+    (``atpu_flash_bwd_dkv``)."""
     if not _on_cuda("fused_attention_bwd_dkv", q):
         return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[1:]
     _check(q, k, v, kv_valid, {"do": do, "lse": lse, "delta": delta})
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("atpu_flash_bwd_dkv", q, k, v, kv_valid, do.data_ptr(), lse.data_ptr(),
+    symbol = "atpu_flash_bwd_dkv" if q.dtype == torch.float32 else "atpu_flash_bwd_dkv_sm90"
+    _launch(symbol, q, k, v, kv_valid, do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), _valid_ptr(kv_valid), dk.data_ptr(), dv.data_ptr(), causal=causal)
     fused_attention_bwd_dkv.launches += 1
     return dk, dv

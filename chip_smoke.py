@@ -42,11 +42,14 @@ Phases (each fails the run on any mismatch; nothing is caught):
    dim 128) in fp32, bf16 and fp16: B 2 x S 2048 causal, S 1024 non-causal,
    and S 2048 causal with a left-padded row (``kv_valid``, its first rows
    admit no key).  bf16 and fp16 run the Hopper forward
-   (``flash_fwd_sm90.cu``), fp32 the CUDA-core one.  Prints max errors and,
-   at B 2 x S 2048 causal in fp32 and bf16, the kernel, plain, bound and
-   library (``scaled_dot_product_attention``, forward and forward+backward,
-   a yardstick only) times, and in bf16 the previous forward body
-   (``atpu_flash_fwd`` called directly, not counted) as ``previous_ms``.
+   (``flash_fwd_sm90.cu``) and dK/dV (``flash_bwd_dkv_sm90.cu``), fp32 the
+   CUDA-core ones.  Prints max errors and, at B 2 x S 2048 causal in fp32 and
+   bf16, the kernel, plain, bound and library (``scaled_dot_product_attention``,
+   forward and forward+backward, a yardstick only) times, and in bf16 the
+   previous forward and dK/dV bodies (``atpu_flash_fwd``,
+   ``atpu_flash_bwd_dkv``, called directly, not counted) as ``previous_ms``
+   in turns with the kernels, and the dK/dV kernel without the lo half of P
+   in its dV product (``atpu_flash_bwd_dkv_sm90_nolo``) as ``nolo_ms``.
 5. Training at full width: Llama-3-8B widths cut to 4 layers (fp32 params,
    AdamW state and gradients of all 32 would need ~128 GB), bf16 compute,
    ``remat=True``, random weights from seed 0, through
@@ -57,7 +60,8 @@ Phases (each fails the run on any mismatch; nothing is caught):
    gradient within a relative 5e-2), then 5 AdamW steps at lr 3e-5 on one
    fixed batch (loss finite and falling; per step the forward kernel runs 2 x L
    times under remat, dQ and dK/dV L times each), with step time, tokens/s,
-   model FLOPs and the device idle share of one profiled step.
+   model FLOPs and the device idle share of one profiled step (device time
+   by kernel group, and each flash kernel's).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -68,6 +72,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +103,14 @@ FWD_DESIGN = ("bf16/fp16: wgmma m64n128k16 Q.K^T (smem descriptors) and P.V (P i
               "V MN-major), TMA 4-D maps into a 2-stage mbarrier K/V ring, 128-row CTA of 2 "
               "consumer warpgroups + a producer warpgroup (one warp loads), setmaxnreg 232/40; "
               "fp32: the CUDA-core body of flash_attention.cu")
+DKV_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu"  # bf16 and fp16 dK/dV
+DKV_DESIGN = ("bf16/fp16: 128-key CTA of one (batch, kv head), 2 consumer warpgroups of 64 keys "
+              "+ a producer warp, setmaxnreg 240/24; K/V by TMA once, 64-row Q/dO tiles of the "
+              "G query heads by TMA into a 3-stage mbarrier ring (lse, delta by plain loads); "
+              "wgmma m64n64k16 S^T = K.Q^T and dP^T = V.dO^T (smem descriptors), P^T and dS^T "
+              "in registers as A of wgmma m64n{d}k16 dV += P^T.dO (P as hi + lo) and "
+              "dK += dS^T.Q (Q/dO MN-major); no atomics; fp32: the CUDA-core body of "
+              "flash_attention.cu")
 REPLACES = {
     "paged_attention": "accelerate_tpu/ops/pallas_attention.py:564",
     "paged_window_attention": "accelerate_tpu/ops/pallas_attention.py:686",
@@ -751,9 +764,61 @@ def previous_fwd(fu, q, k, v):
     return out, lse
 
 
+def direct_dkv(fu, symbol, q, k, v, do, lse, delta):
+    """A dK/dV launcher (``symbol``) called directly, so it is not counted
+    as a launch of the wrapper."""
+    import torch
+
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fu._launch(symbol, q, k, v, None, do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None,
+               dk.data_ptr(), dv.data_ptr(), causal=True)
+    return dk, dv
+
+
+def dkv_variants(fu, copies, q, k, v, do, out, lse, delta, blk, kernel_ms):
+    """The previous dK/dV body (``atpu_flash_bwd_dkv``, held to the plain
+    version's tolerance) and the kernel without the lo half of P
+    (``atpu_flash_bwd_dkv_sm90_nolo``, its error reported): errors, and
+    times in turns with the kernel (kernel, previous, no-lo, no-lo,
+    previous, kernel).  Returns the record's extra keys and the kernel's
+    second time."""
+    import torch
+
+    _, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                                       block_size=blk)
+    tol = TOL[str(q.dtype)]
+    symbols = {"previous": "atpu_flash_bwd_dkv", "nolo": "atpu_flash_bwd_dkv_sm90_nolo"}
+    errs = {}
+    for name, symbol in symbols.items():
+        dk, dv = direct_dkv(fu, symbol, q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        errs[name] = max((dk.float() - want_dk.float()).abs().max().item(),
+                         (dv.float() - want_dv.float()).abs().max().item())
+        check(bool(torch.isfinite(dk).all() and torch.isfinite(dv).all()),
+              f"{symbol}: non-finite dK/dV")
+        if name == "previous":
+            check(torch.allclose(dk.float(), want_dk.float(), atol=tol, rtol=tol)
+                  and torch.allclose(dv.float(), want_dv.float(), atol=tol, rtol=tol),
+                  f"previous dK/dV body: max abs err {errs[name]} over atol=rtol={tol}")
+        del dk, dv
+    times = {"previous": [], "nolo": []}
+    for name in ("previous", "nolo", "nolo", "previous"):
+        times[name].append(cuda_ms(lambda *a, sym=symbols[name]: direct_dkv(fu, sym, *a),
+                                   copies, iters=10))
+    second = cuda_ms(lambda *a: fu.fused_attention_bwd_dkv(a[0], a[1], a[2], a[3], a[4], a[5]),
+                     copies, iters=10)
+    log(f"phase4 fused_attention_bwd_dkv {q.dtype} in turns: kernel {kernel_ms:.4f} "
+        f"previous {times['previous'][0]:.4f} nolo {times['nolo'][0]:.4f} "
+        f"nolo {times['nolo'][1]:.4f} previous {times['previous'][1]:.4f} kernel {second:.4f} "
+        f"ms; max abs err previous {errs['previous']:.3e} nolo {errs['nolo']:.3e}")
+    return dict(previous_ms=sum(times["previous"]) / 2, previous_max_abs_err=errs["previous"],
+                nolo_ms=sum(times["nolo"]) / 2, nolo_max_abs_err=errs["nolo"]), second
+
+
 def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
     """Kernel, plain, bound and library times at the main shape; in 16-bit
-    types also the previous forward body's time and error."""
+    types also the previous forward and dK/dV bodies' times and errors, and
+    the dK/dV kernel's without the lo half of P."""
     import torch
 
     delta = attention_delta(out, do)
@@ -777,7 +842,7 @@ def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
     plain_fwd = cuda_ms(
         lambda q, k, v: fu.fused_attention_fwd_plain(q, k, v, causal=True, block_size=blk),
         fwd_sets[:1], iters=3)
-    prev = None
+    prev = prev_dkv = None
     if q.dtype != torch.float32:
         prev_out, prev_lse = previous_fwd(fu, q, k, v)
         torch.cuda.synchronize()
@@ -794,6 +859,9 @@ def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
             fwd_sets, iters=10))
         prev = dict(previous_ms=sum(prev_ms) / 2, previous_max_abs_err=prev_err)
         del prev_out, prev_lse, want_out
+        prev_dkv, second = dkv_variants(fu, copies, q, k, v, do, out, lse, delta, blk,
+                                        times["fused_attention_bwd_dkv"])
+        times["fused_attention_bwd_dkv"] = 0.5 * (times["fused_attention_bwd_dkv"] + second)
     # One plain backward computes dQ, dK and dV together: its time stands
     # beside both backward kernels.
     plain_bwd = cuda_ms(
@@ -822,17 +890,23 @@ def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
         rec[name] = dict(max_abs_err=err[name], ms=times[name],
                          plain_ms=plain_fwd if fwd else plain_bwd, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_fwd if fwd else None)
-        if fwd and prev:
-            rec[name].update(prev)
+        extra = (prev if fwd else prev_dkv if name == "fused_attention_bwd_dkv" else None)
+        if prev and extra:
+            rec[name].update(extra)
         log(f"phase4 {name} {q.dtype} B=2 S=2048 causal: kernel_ms={times[name]:.4f} "
             f"plain_ms={rec[name]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})"
             + (f" library_ms={lib_fwd:.4f}" if fwd else "")
-            + (f" previous_ms={prev['previous_ms']:.4f} (previous body max_abs_err "
-               f"{prev['previous_max_abs_err']:.3e})" if fwd and prev else ""))
+            + ("".join(f" {key}={val:.4f}" if key.endswith("ms") else f" {key}={val:.3e}"
+                       for key, val in extra.items()) if prev and extra else ""))
     if prev:
         tflops = 2 * flop / times["fused_attention_fwd"] / 1e9
         log(f"phase4 fused_attention_fwd {q.dtype}: {tflops:.1f} TFLOP/s of least work; "
             f"previous body {2 * flop / prev['previous_ms'] / 1e9:.1f}")
+        dkv_ms = times["fused_attention_bwd_dkv"]
+        log(f"phase4 fused_attention_bwd_dkv {q.dtype}: {4 * flop / dkv_ms / 1e9:.1f} TFLOP/s "
+            f"of least work ({5 * flop / dkv_ms / 1e9:.1f} with the lo half); no-lo "
+            f"{4 * flop / prev_dkv['nolo_ms'] / 1e9:.1f}; previous body "
+            f"{4 * flop / prev_dkv['previous_ms'] / 1e9:.1f}")
     bwd_ms = delta_ms + times["fused_attention_bwd_dq"] + times["fused_attention_bwd_dkv"]
     log(f"phase4 {q.dtype} whole attention: kernels fwd+delta+dq+dkv "
         f"{times['fused_attention_fwd'] + bwd_ms:.4f} ms (backward {bwd_ms:.4f}, delta "
@@ -991,17 +1065,20 @@ def phase5():
     )
     busy = sum(t for t, _, _ in by_kernel)
     groups = {"flash kernels": 0.0, "GEMMs": 0.0, "other": 0.0}
-    for t, _, key in by_kernel:
+    flash = []
+    for t, n, key in by_kernel:
         low = key.lower()
         if "flash_" in low and "kernel" in low:
             groups["flash kernels"] += t
+            name = re.search(r"flash_\w*kernel", key)
+            flash.append(f"{name.group(0) if name else key[:40]} {t:.3f} ms in {n}")
         elif any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas", "sm90_")):
             groups["GEMMs"] += t
         else:
             groups["other"] += t
     log(f"phase5 profiled step: wall_ms={wall_ms:.2f} device_busy_ms={busy:.2f} "
         f"idle_share={1 - busy / wall_ms:.3f}; by group (ms) "
-        + " ".join(f"{k}={v:.2f}" for k, v in groups.items()))
+        + " ".join(f"{k}={v:.2f}" for k, v in groups.items()) + "; flash: " + ", ".join(flash))
     for t, n, key in by_kernel[:10]:
         log(f"phase5   device {t:.3f} ms in {n} launches: {key[:110]}")
     del model, opt, step
@@ -1059,9 +1136,11 @@ def main() -> int:
                 f"library_ms={r['library_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}")
     for name in FLASH_KERNELS:
         extra = {}
-        if name == "fused_attention_fwd":
-            extra = dict(source=FWD_SOURCE, previous_source=FLASH_SOURCE, design=FWD_DESIGN,
-                         dtypes={"bfloat16": FWD_SOURCE, "float16": FWD_SOURCE,
+        sm90 = {"fused_attention_fwd": (FWD_SOURCE, FWD_DESIGN),
+                "fused_attention_bwd_dkv": (DKV_SOURCE, DKV_DESIGN)}.get(name)
+        if sm90:
+            extra = dict(source=sm90[0], previous_source=FLASH_SOURCE, design=sm90[1],
+                         dtypes={"bfloat16": sm90[0], "float16": sm90[0],
                                  "float32": FLASH_SOURCE})
         record.append(dict(dict(name=name, route="cuda", source=FLASH_SOURCE,
                                 replaces=REPLACES[name], launches=launches[name],

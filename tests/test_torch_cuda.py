@@ -413,6 +413,74 @@ def test_flash_fwd_fp32_stays_on_the_cuda_core_body(cuda, fwd_symbols):
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
 
 
+def _dkv_inputs(seed, b, s, groups, d, dtype, causal, valid=None):
+    """q/k/v/dO with the saved (out, lse) of the plain forward and δ."""
+    q, k, v, do, _ = _flash_inputs(seed, b, s, 2 * groups, 2, d, dtype, False)
+    out, lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=causal, block_size=s)
+    return q, k, v, do, out, lse, fu._delta(out, do)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("groups", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [64, 100, 129, 200, 1024])
+def test_flash_bwd_dkv_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal):
+    """The Hopper dK/dV kernel (128-key CTAs over 64-row Q/dO tiles) at S
+    below one tile, across a ragged edge (129: an lse row that is not
+    16-byte aligned) and long, against the plain backward."""
+    q, k, v, do, out, lse, delta = _dkv_inputs(83, 2, s, groups, d, dtype, causal)
+    before = fu.fused_attention_bwd_dkv.launches
+    dk, dv = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert fu.fused_attention_bwd_dkv.launches == before + 1
+    assert fwd_symbols == ["atpu_flash_bwd_dkv_sm90"]
+    _, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                                       block_size=s)
+    tol = TOL[dtype]
+    for got, ref, name in ((dk, want_dk, "dk"), (dv, want_dv, "dv")):
+        assert got.dtype == dtype and torch.isfinite(got).all(), name
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_flash_bwd_dkv_sm90_is_deterministic(cuda, dtype):
+    """One CTA owns its keys across the group's query heads (no atomics), so
+    two calls agree bit for bit, padded keys included."""
+    valid = torch.ones(2, 300, dtype=torch.int8, device="cuda")
+    valid[0, :70] = 0
+    q, k, v, do, out, lse, delta = _dkv_inputs(89, 2, 300, 4, 128, dtype, True, valid)
+    first = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, valid, causal=True)
+    second = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, valid, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert (first[0][0, :70] == 0).all() and (first[1][0, :70] == 0).all()
+
+
+def test_flash_bwd_dkv_fp32_stays_on_the_cuda_core_body(cuda, fwd_symbols):
+    q, k, v, do, out, lse, delta = _dkv_inputs(97, 2, 200, 4, 128, torch.float32, True)
+    dk, dv = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    torch.cuda.synchronize()
+    assert fwd_symbols == ["atpu_flash_bwd_dkv"]
+    _, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                                       block_size=200)
+    torch.testing.assert_close(dk, want_dk, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dv, want_dv, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_bwd_dkv_raises_on_misaligned_view_and_launches_nothing(cuda, fwd_symbols):
+    q, k, v, do, out, lse, delta = _dkv_inputs(101, 1, 256, 4, 128, torch.bfloat16, True)
+    flat = torch.empty(do.numel() + 1, dtype=do.dtype, device="cuda")
+    shifted = flat[1:].view(do.shape)
+    shifted.copy_(do)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = fu.fused_attention_bwd_dkv.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fu.fused_attention_bwd_dkv(q, k, v, shifted, lse, delta, causal=True)
+    assert fu.fused_attention_bwd_dkv.launches == before and fwd_symbols == []
+
+
 @pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
 def test_train_step_launches_flash_kernels_per_layer(cuda, remat):
     """One training step of a tiny llama on the fused path launches the

@@ -8,6 +8,8 @@ gradients of ``pallas_attention`` through its ``jax.vjp``.  Tolerances are
 those of ``tests/test_pallas_attention.py``: 2e-5 fp32 forward, 5e-5
 gradients, 0.05 bf16.  Inputs come from a numpy seed."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -134,6 +136,61 @@ def test_plain_backward_matches_pallas_vjp(kv_heads, causal, masked):
         # Invalid keys get no gradient; empty rows give none to their query.
         assert np.all(tk.grad.numpy()[2] == 0) and np.all(tv.grad.numpy()[0, :40] == 0)
         assert np.all(tq.grad.numpy()[2] == 0)
+
+
+@pytest.mark.parametrize("h,kv_heads,pad,causal", [
+    (4, 2, 0, True),      # S 192: one 128-key CTA and a ragged one; three 64-row q tiles
+    (4, 2, 130, True),    # left pad past a whole 128-key CTA
+    (4, 2, 130, False),
+    (8, 1, 0, True),      # a GQA group of 8 walked by one CTA
+    (8, 1, 130, False),
+], ids=["ragged", "pad130-causal", "pad130-full", "gqa8", "gqa8-pad130-full"])
+def test_plain_backward_matches_pallas_vjp_at_hopper_tile_edges(h, kv_heads, pad, causal):
+    """The shapes the Hopper dK/dV kernel's 128-key CTAs and 64-row Q/dO
+    tiles meet, held on the plain backward (the card's reference) against
+    the gradients of ``pallas_attention``: S 192 with block 64, batch 0
+    left-padded by ``pad`` keys and batch 2 all invalid when ``pad`` is set.
+    Padded keys get exactly zero dK and dV."""
+    s = 192
+    rng = np.random.default_rng(9)
+    q, do = (rng.standard_normal((B, s, h, D)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, s, kv_heads, D)).astype(np.float32) for _ in range(2))
+    valid = None
+    if pad:
+        valid = np.ones((B, s), np.int8)
+        valid[0, :pad] = 0
+        valid[2, :] = 0
+
+    def f(q, k, v):
+        return jpa.pallas_attention(q, k, v, causal=causal, block_size=BLK, interpret=True,
+                                    kv_valid=None if valid is None else jnp.asarray(valid))
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    _, want_dk, want_dv = vjp(jnp.asarray(do))
+    tvalid = None if valid is None else torch.from_numpy(valid)
+    out, lse = tfu.fused_attention_fwd_plain(_t(q), _t(k), _t(v), tvalid, causal=causal,
+                                             block_size=BLK)
+    dk, dv = tfu.fused_attention_bwd_dkv(_t(q), _t(k), _t(v), _t(do), lse,
+                                         tfu._delta(out, _t(do)), tvalid, causal=causal)
+    for got, ref, name in ((dk, want_dk, "dk"), (dv, want_dv, "dv")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5, rtol=5e-5,
+                                   err_msg=name)
+    if pad:
+        assert np.all(dk.numpy()[0, :pad] == 0) and np.all(dv.numpy()[0, :pad] == 0)
+        assert np.all(dk.numpy()[2] == 0) and np.all(dv.numpy()[2] == 0)
+
+
+@pytest.mark.parametrize("symbol", sorted(tfu._ARGTYPES))
+def test_every_launcher_is_defined_in_a_built_source(symbol):
+    """Each C launcher the wrappers can call is defined, with as many
+    parameters as ``_ARGTYPES`` declares, in a source ``_build`` compiles
+    (read as text: nothing is built here)."""
+    from accelerate_tpu_torch.ops import _build
+
+    source = _build.SOURCES[tfu._SOURCES.get(symbol, "flash_attention")].read_text()
+    found = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", source)
+    assert found, f"{symbol} not defined"
+    assert len(found.group(1).split(",")) == len(tfu._ARGTYPES[symbol])
 
 
 def test_bf16_plain_matches_pallas():

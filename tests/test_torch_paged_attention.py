@@ -189,6 +189,59 @@ def test_split_merge_reads_no_split_past_the_length():
     torch.testing.assert_close(got, base, rtol=0, atol=0)
 
 
+# ---------------------------------------------------------------------------
+# bf16: the Pallas kernels round P to the pool dtype before P.V
+# (pallas_attention.py:589); the plain versions keep P in fp32.  Over seeds
+# 0-2 at these shapes the two differ by at most 3.906e-3 (decode) and
+# 7.813e-3 (W=3): one bf16 ulp at the outputs' magnitude, the size of the
+# Pallas kernels' own gap to an fp32 evaluation of the same bf16 inputs
+# (<= 6.7e-3).  So atol = rtol = 1e-2, and the plain versions keep fp32 P.
+# ---------------------------------------------------------------------------
+
+BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+def _bf16_args(seed, window):
+    args = _inputs(seed, 2, 2, window, d=64, bs=4, lengths=(30, 0, 61, 17), m=16)
+    args["pool_k"][0] = np.nan  # the null block: never read by either side
+    args["pool_v"][0] = np.nan
+    floats = ("q", "k_new", "v_new", "pool_k", "pool_v")
+    jargs = {k: jnp.asarray(v, jnp.bfloat16 if k in floats else None) for k, v in args.items()}
+    targs = {k: torch.from_numpy(v).to(torch.bfloat16) if k in floats else torch.from_numpy(v)
+             for k, v in args.items()}
+    return jargs, targs
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("window", [None, 3], ids=["decode", "w3"])
+def test_bf16_matches_pallas_kernel(seed, window):
+    jargs, targs = _bf16_args(seed, window)
+    if window is None:
+        want = pallas_paged_attention(**jargs, interpret=True)
+        got = pa.paged_attention(**targs)
+    else:
+        want = pallas_paged_window_attention(**jargs, interpret=True)
+        got = pa.paged_window_attention(**targs)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("window", [None, 3], ids=["decode", "w3"])
+def test_bf16_split_path_matches_pallas_kernel(seed, window):
+    jargs, targs = _bf16_args(seed, 1 if window is None else window)
+    if window is None:
+        jargs = {**jargs, **{k: jargs[k][:, 0] for k in ("q", "k_new", "v_new")}}
+        want = np.asarray(pallas_paged_attention(**jargs, interpret=True), np.float32)[:, None]
+    else:
+        want = np.asarray(pallas_paged_window_attention(**jargs, interpret=True), np.float32)
+    got = pa.paged_window_attention_split_plain(**targs, split_tokens=16)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
+
+
 def test_pick_split_tokens_uses_whole_blocks_within_the_table():
     # Llama-3-8B serving shapes on a 132-SM card: 128 positions per split.
     assert pa.pick_split_tokens(8, 8, 512, 16, 132) == 128

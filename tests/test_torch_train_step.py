@@ -260,6 +260,65 @@ def test_accumulate_gates_step_and_zero_grad():
     assert model.params["w"].grad is None
 
 
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {n: x for k, v in tree.items() for n, x in _leaves(v, f"{prefix}{k}/").items()}
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("norm_type", [1.0, 2.0])
+def test_clip_grad_norm_ignores_norm_type_like_jax(norm_type):
+    """``clip_grad_norm_`` with any ``norm_type`` arms the global 2-norm
+    clip and returns the 2-norm, as the JAX ``Accelerator`` does (the port
+    warns that ``norm_type`` is ignored): one eager backward on the same
+    tiny llama and batch, then one clipped SGD step.  The norms agree to
+    1e-5 and the stepped parameters to 2e-5 (fp32, summed in different
+    orders on the two sides)."""
+    jcfg, tcfg, params = _setup()
+    batch = _windows(jcfg.vocab_size, 1)[0][0]
+    max_norm, lr = 0.05, 0.1
+
+    jacc = JaxAccelerator()
+
+    def japply(p, input_ids, attention_mask):
+        return {"loss": jl.loss_fn(p, {"input_ids": input_ids,
+                                       "attention_mask": attention_mask}, jcfg)}
+
+    jmodel, jopt = jacc.prepare(JaxModel(japply, jax.tree.map(jnp.asarray, params)),
+                                optax.sgd(lr))
+    jacc.backward(jmodel(**jax.tree.map(jnp.asarray, batch))["loss"])
+    want = float(jacc.clip_grad_norm_(None, max_norm, norm_type=norm_type))
+    jopt.step()
+    jopt.zero_grad()
+
+    acc = Accelerator(cpu=True)
+
+    def apply_fn(p, input_ids, attention_mask):
+        return {"loss": tl.loss_fn(p, {"input_ids": input_ids,
+                                       "attention_mask": attention_mask}, tcfg)}
+
+    model = FunctionalModel(apply_fn, llama_params_from_jax(params, tcfg, device="cpu"))
+    model, opt = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=lr))
+    acc.backward(model(**_tensors(batch))["loss"])
+    if norm_type == 2.0:
+        got = acc.clip_grad_norm_(None, max_norm, norm_type=norm_type)
+    else:
+        with pytest.warns(UserWarning, match="norm_type"):
+            got = acc.clip_grad_norm_(None, max_norm, norm_type=norm_type)
+    opt.step()
+    opt.zero_grad()
+
+    assert want > 10 * max_norm  # the clip is active
+    np.testing.assert_allclose(got.item(), want, rtol=1e-5)
+    stepped = _leaves(llama_params_from_jax(jax.tree.map(np.asarray, jmodel.params), tcfg,
+                                            device="cpu"))
+    mine = _leaves(model.params)
+    assert stepped.keys() == mine.keys()
+    for name, p in mine.items():
+        np.testing.assert_allclose(p.detach().numpy(), stepped[name].numpy(), rtol=2e-5,
+                                   atol=2e-6, err_msg=name)
+
+
 def test_prepare_pairs_by_parameter_identity_and_checks():
     m1, _ = _regression(poison_at=-1)
     m2, _ = _regression(poison_at=-1)
