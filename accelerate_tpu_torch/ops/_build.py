@@ -28,6 +28,7 @@ SOURCES: Dict[str, Path] = {
     "paged_attention_sm90": _CSRC / "paged_attention_sm90.cu",
     "flash_attention": _CSRC / "flash_attention.cu",
     "flash_fwd_sm90": _CSRC / "flash_fwd_sm90.cu",
+    "flash_bwd_dq_sm90": _CSRC / "flash_bwd_dq_sm90.cu",
     "flash_bwd_dkv_sm90": _CSRC / "flash_bwd_dkv_sm90.cu",
 }
 NVCC_FLAGS = [

@@ -15,7 +15,9 @@ Three kernels, each behind a wrapper that counts its launches in
 - :func:`fused_attention_fwd` -> ``(out, lse)``: bf16 and fp16 run the
   Hopper forward of ``csrc/flash_fwd_sm90.cu`` (wgmma, TMA-fed K/V ring, P
   in registers), fp32 the CUDA-core body of ``csrc/flash_attention.cu``;
-- :func:`fused_attention_bwd_dq` -> ``dq`` (``csrc/flash_attention.cu``);
+- :func:`fused_attention_bwd_dq` -> ``dq``: bf16 and fp16 run the Hopper
+  kernel of ``csrc/flash_bwd_dq_sm90.cu`` (wgmma, TMA-fed K/V ring, dS in
+  registers), fp32 the CUDA-core body of ``csrc/flash_attention.cu``;
 - :func:`fused_attention_bwd_dkv` -> ``(dk, dv)``, already summed over each
   kv head's query heads: bf16 and fp16 run the Hopper kernel of
   ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma, TMA-fed Q/dO ring, P^T and dS^T in
@@ -200,15 +202,19 @@ _LIB = {}
 # dtype, q, k, v, valid, out, lse, B, S, H, KH, hd, causal, scale, stream
 _FWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p]
+# dtype, q, k, v, do, lse, delta, valid, dq, B, S, H, KH, hd, causal, scale, stream
+_DQ_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
 # dtype, q, k, v, do, lse, delta, valid, dk, dv, B, S, H, KH, hd, causal, scale, stream
 _DKV_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p]
 _ARGTYPES = {
     "atpu_flash_fwd": _FWD_ARGTYPES,
     "atpu_flash_fwd_sm90": _FWD_ARGTYPES,
-    # dtype, q, k, v, do, lse, delta, valid, dq, B, S, H, KH, hd, causal, scale, stream
-    "atpu_flash_bwd_dq": [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_void_p],
+    "atpu_flash_bwd_dq": _DQ_ARGTYPES,
+    "atpu_flash_bwd_dq_sm90": _DQ_ARGTYPES,
+    # the same kernel with a 2-stage K/V ring: on no path, timed only
+    "atpu_flash_bwd_dq_sm90_ring2": _DQ_ARGTYPES,
     "atpu_flash_bwd_dkv": _DKV_ARGTYPES,
     "atpu_flash_bwd_dkv_sm90": _DKV_ARGTYPES,
     # the same kernel without the lo half of P in dV: on no path, timed only
@@ -217,6 +223,8 @@ _ARGTYPES = {
 # The source of each symbol that is not in flash_attention.cu.
 _SOURCES = {
     "atpu_flash_fwd_sm90": "flash_fwd_sm90",
+    "atpu_flash_bwd_dq_sm90": "flash_bwd_dq_sm90",
+    "atpu_flash_bwd_dq_sm90_ring2": "flash_bwd_dq_sm90",
     "atpu_flash_bwd_dkv_sm90": "flash_bwd_dkv_sm90",
     "atpu_flash_bwd_dkv_sm90_nolo": "flash_bwd_dkv_sm90",
 }
@@ -281,12 +289,15 @@ def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_si
 
 def fused_attention_bwd_dq(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True):
     """dQ ``[B, S, H, d]`` in q's dtype from the saved ``lse`` and δ
-    (``delta [B, H, S]`` fp32)."""
+    (``delta [B, H, S]`` fp32).  On CUDA, bf16 and fp16 launch the Hopper
+    kernel (``atpu_flash_bwd_dq_sm90``) and fp32 the CUDA-core one
+    (``atpu_flash_bwd_dq``)."""
     if not _on_cuda("fused_attention_bwd_dq", q):
         return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[0]
     _check(q, k, v, kv_valid, {"do": do, "lse": lse, "delta": delta})
     dq = torch.empty_like(q)
-    _launch("atpu_flash_bwd_dq", q, k, v, kv_valid, do.data_ptr(), lse.data_ptr(),
+    symbol = "atpu_flash_bwd_dq" if q.dtype == torch.float32 else "atpu_flash_bwd_dq_sm90"
+    _launch(symbol, q, k, v, kv_valid, do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), _valid_ptr(kv_valid), dq.data_ptr(), causal=causal)
     fused_attention_bwd_dq.launches += 1
     return dq

@@ -42,14 +42,17 @@ Phases (each fails the run on any mismatch; nothing is caught):
    dim 128) in fp32, bf16 and fp16: B 2 x S 2048 causal, S 1024 non-causal,
    and S 2048 causal with a left-padded row (``kv_valid``, its first rows
    admit no key).  bf16 and fp16 run the Hopper forward
-   (``flash_fwd_sm90.cu``) and dK/dV (``flash_bwd_dkv_sm90.cu``), fp32 the
-   CUDA-core ones.  Prints max errors and, at B 2 x S 2048 causal in fp32 and
-   bf16, the kernel, plain, bound and library (``scaled_dot_product_attention``,
-   forward and forward+backward, a yardstick only) times, and in bf16 the
-   previous forward and dK/dV bodies (``atpu_flash_fwd``,
+   (``flash_fwd_sm90.cu``), dQ (``flash_bwd_dq_sm90.cu``) and dK/dV
+   (``flash_bwd_dkv_sm90.cu``), fp32 the CUDA-core ones.  Prints max errors
+   and, at B 2 x S 2048 causal in fp32 and bf16, the kernel, plain, bound and
+   library (``scaled_dot_product_attention``, forward and forward+backward, a
+   yardstick only) times and δ's time, and in bf16 the previous forward, dQ
+   and dK/dV bodies (``atpu_flash_fwd``, ``atpu_flash_bwd_dq``,
    ``atpu_flash_bwd_dkv``, called directly, not counted) as ``previous_ms``
-   in turns with the kernels, and the dK/dV kernel without the lo half of P
-   in its dV product (``atpu_flash_bwd_dkv_sm90_nolo``) as ``nolo_ms``.
+   in turns with the kernels, the dQ kernel with a 2-stage K/V ring
+   (``atpu_flash_bwd_dq_sm90_ring2``) as ``ring2_ms``, and the dK/dV kernel
+   without the lo half of P in its dV product
+   (``atpu_flash_bwd_dkv_sm90_nolo``) as ``nolo_ms``.
 5. Training at full width: Llama-3-8B widths cut to 4 layers (fp32 params,
    AdamW state and gradients of all 32 would need ~128 GB), bf16 compute,
    ``remat=True``, random weights from seed 0, through
@@ -103,6 +106,14 @@ FWD_DESIGN = ("bf16/fp16: wgmma m64n128k16 Q.K^T (smem descriptors) and P.V (P i
               "V MN-major), TMA 4-D maps into a 2-stage mbarrier K/V ring, 128-row CTA of 2 "
               "consumer warpgroups + a producer warpgroup (one warp loads), setmaxnreg 232/40; "
               "fp32: the CUDA-core body of flash_attention.cu")
+DQ_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu"  # bf16 and fp16 dQ
+DQ_DESIGN = ("bf16/fp16: 128-row CTA of one (batch, q head), 2 consumer warpgroups of 64 rows "
+             "+ a producer warp, setmaxnreg 240/24; Q/dO by TMA once, 64-key K/V tiles of the "
+             "kv head by TMA into a 3-stage mbarrier ring with kv_valid bytes and an all-valid "
+             "flag (lse, delta by plain loads per row); wgmma m64n64k16 S = Q.K^T and "
+             "dP = dO.V^T (smem descriptors), dS in registers as A of wgmma m64n{d}k16 "
+             "dQ += dS.K (K MN-major); heaviest causal q tiles first; no atomics; fp32: the "
+             "CUDA-core body of flash_attention.cu")
 DKV_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu"  # bf16 and fp16 dK/dV
 DKV_DESIGN = ("bf16/fp16: 128-key CTA of one (batch, kv head), 2 consumer warpgroups of 64 keys "
               "+ a producer warp, setmaxnreg 240/24; K/V by TMA once, 64-row Q/dO tiles of the "
@@ -764,61 +775,64 @@ def previous_fwd(fu, q, k, v):
     return out, lse
 
 
-def direct_dkv(fu, symbol, q, k, v, do, lse, delta):
-    """A dK/dV launcher (``symbol``) called directly, so it is not counted
-    as a launch of the wrapper."""
+def direct_bwd(fu, symbol, q, k, v, do, lse, delta):
+    """A backward launcher (``symbol``, dQ's or dK/dV's) called directly, so
+    it is not counted as a launch of the wrapper.  Returns ``(dq,)`` or
+    ``(dk, dv)``."""
     import torch
 
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    outs = ((torch.empty_like(q),) if "_dq" in symbol
+            else (torch.empty_like(k), torch.empty_like(v)))
     fu._launch(symbol, q, k, v, None, do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None,
-               dk.data_ptr(), dv.data_ptr(), causal=True)
-    return dk, dv
+               *(o.data_ptr() for o in outs), causal=True)
+    return outs
 
 
-def dkv_variants(fu, copies, q, k, v, do, out, lse, delta, blk, kernel_ms):
-    """The previous dK/dV body (``atpu_flash_bwd_dkv``, held to the plain
-    version's tolerance) and the kernel without the lo half of P
-    (``atpu_flash_bwd_dkv_sm90_nolo``, its error reported): errors, and
-    times in turns with the kernel (kernel, previous, no-lo, no-lo,
-    previous, kernel).  Returns the record's extra keys and the kernel's
-    second time."""
+def bwd_variants(fu, copies, wrapper, symbols, want, kernel_ms):
+    """A backward kernel's previous body (``symbols["previous"]``, held to
+    the plain version's tolerance) and one variant (the other entry, its
+    error reported) on the first input set: errors against ``want``, and
+    times in turns with the kernel (kernel, previous, variant, variant,
+    previous, kernel).  Returns the record's extra keys (``<name>_ms``,
+    ``<name>_max_abs_err``) and the kernel's second time."""
     import torch
 
-    _, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
-                                                       block_size=blk)
+    q, k, v, do, lse, delta = copies[0]
     tol = TOL[str(q.dtype)]
-    symbols = {"previous": "atpu_flash_bwd_dkv", "nolo": "atpu_flash_bwd_dkv_sm90_nolo"}
     errs = {}
     for name, symbol in symbols.items():
-        dk, dv = direct_dkv(fu, symbol, q, k, v, do, lse, delta)
+        got = direct_bwd(fu, symbol, q, k, v, do, lse, delta)
         torch.cuda.synchronize()
-        errs[name] = max((dk.float() - want_dk.float()).abs().max().item(),
-                         (dv.float() - want_dv.float()).abs().max().item())
-        check(bool(torch.isfinite(dk).all() and torch.isfinite(dv).all()),
-              f"{symbol}: non-finite dK/dV")
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"{symbol}: non-finite output")
+        errs[name] = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
         if name == "previous":
-            check(torch.allclose(dk.float(), want_dk.float(), atol=tol, rtol=tol)
-                  and torch.allclose(dv.float(), want_dv.float(), atol=tol, rtol=tol),
-                  f"previous dK/dV body: max abs err {errs[name]} over atol=rtol={tol}")
-        del dk, dv
-    times = {"previous": [], "nolo": []}
-    for name in ("previous", "nolo", "nolo", "previous"):
-        times[name].append(cuda_ms(lambda *a, sym=symbols[name]: direct_dkv(fu, sym, *a),
+            check(all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
+                      for g, w in zip(got, want)),
+                  f"previous {wrapper} body: max abs err {errs[name]} over atol=rtol={tol}")
+        del got
+    variant = next(name for name in symbols if name != "previous")
+    times = {name: [] for name in symbols}
+    for name in ("previous", variant, variant, "previous"):
+        times[name].append(cuda_ms(lambda *a, sym=symbols[name]: direct_bwd(fu, sym, *a),
                                    copies, iters=10))
-    second = cuda_ms(lambda *a: fu.fused_attention_bwd_dkv(a[0], a[1], a[2], a[3], a[4], a[5]),
-                     copies, iters=10)
-    log(f"phase4 fused_attention_bwd_dkv {q.dtype} in turns: kernel {kernel_ms:.4f} "
-        f"previous {times['previous'][0]:.4f} nolo {times['nolo'][0]:.4f} "
-        f"nolo {times['nolo'][1]:.4f} previous {times['previous'][1]:.4f} kernel {second:.4f} "
-        f"ms; max abs err previous {errs['previous']:.3e} nolo {errs['nolo']:.3e}")
-    return dict(previous_ms=sum(times["previous"]) / 2, previous_max_abs_err=errs["previous"],
-                nolo_ms=sum(times["nolo"]) / 2, nolo_max_abs_err=errs["nolo"]), second
+    second = cuda_ms(getattr(fu, wrapper), copies, iters=10)
+    log(f"phase4 {wrapper} {q.dtype} in turns: kernel {kernel_ms:.4f} "
+        f"previous {times['previous'][0]:.4f} {variant} {times[variant][0]:.4f} "
+        f"{variant} {times[variant][1]:.4f} previous {times['previous'][1]:.4f} "
+        f"kernel {second:.4f} ms; max abs err previous {errs['previous']:.3e} "
+        f"{variant} {errs[variant]:.3e}")
+    extra = {}
+    for name in symbols:
+        extra[f"{name}_ms"] = sum(times[name]) / 2
+        extra[f"{name}_max_abs_err"] = errs[name]
+    return extra, second
 
 
 def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
     """Kernel, plain, bound and library times at the main shape; in 16-bit
-    types also the previous forward and dK/dV bodies' times and errors, and
-    the dK/dV kernel's without the lo half of P."""
+    types also the previous forward, dQ and dK/dV bodies' times and errors,
+    the dQ kernel's with a 2-stage ring and the dK/dV kernel's without the
+    lo half of P."""
     import torch
 
     delta = attention_delta(out, do)
@@ -842,7 +856,7 @@ def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
     plain_fwd = cuda_ms(
         lambda q, k, v: fu.fused_attention_fwd_plain(q, k, v, causal=True, block_size=blk),
         fwd_sets[:1], iters=3)
-    prev = prev_dkv = None
+    prev = prev_bwd = None
     if q.dtype != torch.float32:
         prev_out, prev_lse = previous_fwd(fu, q, k, v)
         torch.cuda.synchronize()
@@ -859,9 +873,19 @@ def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
             fwd_sets, iters=10))
         prev = dict(previous_ms=sum(prev_ms) / 2, previous_max_abs_err=prev_err)
         del prev_out, prev_lse, want_out
-        prev_dkv, second = dkv_variants(fu, copies, q, k, v, do, out, lse, delta, blk,
-                                        times["fused_attention_bwd_dkv"])
-        times["fused_attention_bwd_dkv"] = 0.5 * (times["fused_attention_bwd_dkv"] + second)
+        want_dq, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do,
+                                                                 causal=True, block_size=blk)
+        prev_bwd = {}
+        for name, symbols, want in (
+                ("fused_attention_bwd_dq",
+                 {"previous": "atpu_flash_bwd_dq", "ring2": "atpu_flash_bwd_dq_sm90_ring2"},
+                 (want_dq,)),
+                ("fused_attention_bwd_dkv",
+                 {"previous": "atpu_flash_bwd_dkv", "nolo": "atpu_flash_bwd_dkv_sm90_nolo"},
+                 (want_dk, want_dv))):
+            prev_bwd[name], second = bwd_variants(fu, copies, name, symbols, want, times[name])
+            times[name] = 0.5 * (times[name] + second)
+        del want_dq, want_dk, want_dv
     # One plain backward computes dQ, dK and dV together: its time stands
     # beside both backward kernels.
     plain_bwd = cuda_ms(
@@ -890,7 +914,7 @@ def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
         rec[name] = dict(max_abs_err=err[name], ms=times[name],
                          plain_ms=plain_fwd if fwd else plain_bwd, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_fwd if fwd else None)
-        extra = (prev if fwd else prev_dkv if name == "fused_attention_bwd_dkv" else None)
+        extra = prev if fwd else prev_bwd.get(name) if prev_bwd else None
         if prev and extra:
             rec[name].update(extra)
         log(f"phase4 {name} {q.dtype} B=2 S=2048 causal: kernel_ms={times[name]:.4f} "
@@ -902,11 +926,18 @@ def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
         tflops = 2 * flop / times["fused_attention_fwd"] / 1e9
         log(f"phase4 fused_attention_fwd {q.dtype}: {tflops:.1f} TFLOP/s of least work; "
             f"previous body {2 * flop / prev['previous_ms'] / 1e9:.1f}")
-        dkv_ms = times["fused_attention_bwd_dkv"]
+        dq_ms, dq_var = times["fused_attention_bwd_dq"], prev_bwd["fused_attention_bwd_dq"]
+        log(f"phase4 fused_attention_bwd_dq {q.dtype}: {3 * flop / dq_ms / 1e9:.1f} TFLOP/s "
+            f"of least work; 2-stage ring {3 * flop / dq_var['ring2_ms'] / 1e9:.1f}; previous "
+            f"body {3 * flop / dq_var['previous_ms'] / 1e9:.1f}")
+        dkv_ms, dkv_var = times["fused_attention_bwd_dkv"], prev_bwd["fused_attention_bwd_dkv"]
         log(f"phase4 fused_attention_bwd_dkv {q.dtype}: {4 * flop / dkv_ms / 1e9:.1f} TFLOP/s "
             f"of least work ({5 * flop / dkv_ms / 1e9:.1f} with the lo half); no-lo "
-            f"{4 * flop / prev_dkv['nolo_ms'] / 1e9:.1f}; previous body "
-            f"{4 * flop / prev_dkv['previous_ms'] / 1e9:.1f}")
+            f"{4 * flop / dkv_var['nolo_ms'] / 1e9:.1f}; previous body "
+            f"{4 * flop / dkv_var['previous_ms'] / 1e9:.1f}")
+    log(f"phase4 delta {q.dtype}: rowsum(dO*O) in torch before the backward kernels, "
+        f"delta_ms={delta_ms:.4f} (dQ kernel {times['fused_attention_bwd_dq']:.4f}, dK/dV "
+        f"kernel {times['fused_attention_bwd_dkv']:.4f})")
     bwd_ms = delta_ms + times["fused_attention_bwd_dq"] + times["fused_attention_bwd_dkv"]
     log(f"phase4 {q.dtype} whole attention: kernels fwd+delta+dq+dkv "
         f"{times['fused_attention_fwd'] + bwd_ms:.4f} ms (backward {bwd_ms:.4f}, delta "
@@ -1137,6 +1168,7 @@ def main() -> int:
     for name in FLASH_KERNELS:
         extra = {}
         sm90 = {"fused_attention_fwd": (FWD_SOURCE, FWD_DESIGN),
+                "fused_attention_bwd_dq": (DQ_SOURCE, DQ_DESIGN),
                 "fused_attention_bwd_dkv": (DKV_SOURCE, DKV_DESIGN)}.get(name)
         if sm90:
             extra = dict(source=sm90[0], previous_source=FLASH_SOURCE, design=sm90[1],

@@ -481,6 +481,89 @@ def test_flash_bwd_dkv_raises_on_misaligned_view_and_launches_nothing(cuda, fwd_
     assert fu.fused_attention_bwd_dkv.launches == before and fwd_symbols == []
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("groups", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [64, 100, 129, 200, 1024])
+def test_flash_bwd_dq_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal):
+    """The Hopper dQ kernel (128-row CTAs over 64-key K/V tiles) at S below
+    one CTA, across a ragged edge (129: an lse row that is not 16-byte
+    aligned) and long, against the plain backward."""
+    q, k, v, do, out, lse, delta = _dkv_inputs(103, 2, s, groups, d, dtype, causal)
+    before = fu.fused_attention_bwd_dq.launches
+    dq = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert fu.fused_attention_bwd_dq.launches == before + 1
+    assert fwd_symbols == ["atpu_flash_bwd_dq_sm90"]
+    want_dq = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=causal, block_size=s)[0]
+    tol = TOL[dtype]
+    assert dq.dtype == dtype and torch.isfinite(dq).all()
+    torch.testing.assert_close(dq.float(), want_dq.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_flash_bwd_dq_sm90_is_deterministic(cuda, dtype):
+    """One CTA owns its query rows (no atomics), so two calls agree bit for
+    bit, empty rows included."""
+    valid = torch.ones(2, 300, dtype=torch.int8, device="cuda")
+    valid[0, :70] = 0
+    q, k, v, do, out, lse, delta = _dkv_inputs(107, 2, 300, 4, 128, dtype, True, valid)
+    first = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, valid, causal=True)
+    second = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, valid, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert (first[0, :70] == 0).all()
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_dq_sm90_left_pad_past_a_cta(cuda, fwd_symbols, dtype, d, causal):
+    """Batch 0 left-padded by 130 keys (past a 128-row CTA and two 64-key
+    tiles; under the causal mask its first 130 rows admit no key), batch 1
+    all invalid: against the plain backward, with dq exactly 0 on every
+    empty row."""
+    s, pad = 400, 130
+    valid = torch.ones(2, s, dtype=torch.int8, device="cuda")
+    valid[0, :pad] = 0
+    valid[1] = 0
+    q, k, v, do, out, lse, delta = _dkv_inputs(109, 2, s, 4, d, dtype, causal, valid)
+    dq = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, valid, causal=causal)
+    torch.cuda.synchronize()
+    assert fwd_symbols == ["atpu_flash_bwd_dq_sm90"]
+    want_dq = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, valid, causal=causal,
+                                           block_size=s)[0]
+    tol = TOL[dtype]
+    assert torch.isfinite(dq).all()
+    torch.testing.assert_close(dq.float(), want_dq.float(), rtol=tol, atol=tol)
+    assert (dq[1] == 0).all()
+    if causal:
+        assert (dq[0, :pad] == 0).all()
+
+
+def test_flash_bwd_dq_fp32_stays_on_the_cuda_core_body(cuda, fwd_symbols):
+    q, k, v, do, out, lse, delta = _dkv_inputs(113, 2, 200, 4, 128, torch.float32, True)
+    dq = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    torch.cuda.synchronize()
+    assert fwd_symbols == ["atpu_flash_bwd_dq"]
+    want_dq = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                           block_size=200)[0]
+    torch.testing.assert_close(dq, want_dq, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_bwd_dq_raises_on_misaligned_view_and_launches_nothing(cuda, fwd_symbols):
+    q, k, v, do, out, lse, delta = _dkv_inputs(127, 1, 256, 4, 128, torch.bfloat16, True)
+    flat = torch.empty(do.numel() + 1, dtype=do.dtype, device="cuda")
+    shifted = flat[1:].view(do.shape)
+    shifted.copy_(do)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = fu.fused_attention_bwd_dq.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fu.fused_attention_bwd_dq(q, k, v, shifted, lse, delta, causal=True)
+    assert fu.fused_attention_bwd_dq.launches == before and fwd_symbols == []
+
+
 @pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
 def test_train_step_launches_flash_kernels_per_layer(cuda, remat):
     """One training step of a tiny llama on the fused path launches the

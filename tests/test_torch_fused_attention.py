@@ -140,17 +140,22 @@ def test_plain_backward_matches_pallas_vjp(kv_heads, causal, masked):
 
 @pytest.mark.parametrize("h,kv_heads,pad,causal", [
     (4, 2, 0, True),      # S 192: one 128-key CTA and a ragged one; three 64-row q tiles
-    (4, 2, 130, True),    # left pad past a whole 128-key CTA
+    (4, 2, 130, True),    # left pad past a whole 128-key CTA (and a 128-row dQ CTA)
     (4, 2, 130, False),
     (8, 1, 0, True),      # a GQA group of 8 walked by one CTA
     (8, 1, 130, False),
-], ids=["ragged", "pad130-causal", "pad130-full", "gqa8", "gqa8-pad130-full"])
+    (8, 2, 0, True),      # G 4; dQ: one full 128-row CTA and a ragged 64-row one
+    (8, 2, 64, True),     # dQ: exactly one invalid 64-key tile
+    (8, 2, 64, False),
+], ids=["ragged", "pad130-causal", "pad130-full", "gqa8", "gqa8-pad130-full", "gqa4",
+        "gqa4-pad64-causal", "gqa4-pad64-full"])
 def test_plain_backward_matches_pallas_vjp_at_hopper_tile_edges(h, kv_heads, pad, causal):
-    """The shapes the Hopper dK/dV kernel's 128-key CTAs and 64-row Q/dO
-    tiles meet, held on the plain backward (the card's reference) against
-    the gradients of ``pallas_attention``: S 192 with block 64, batch 0
-    left-padded by ``pad`` keys and batch 2 all invalid when ``pad`` is set.
-    Padded keys get exactly zero dK and dV."""
+    """The shapes the Hopper backward kernels meet (dK/dV: 128-key CTAs over
+    64-row Q/dO tiles; dQ: 128-row CTAs over 64-key K/V tiles), held on the
+    plain backward (the card's reference) against the gradients of
+    ``pallas_attention``: S 192 with block 64, batch 0 left-padded by ``pad``
+    keys and batch 2 all invalid when ``pad`` is set.  Padded keys get
+    exactly zero dK and dV, and rows that admit no key exactly zero dQ."""
     s = 192
     rng = np.random.default_rng(9)
     q, do = (rng.standard_normal((B, s, h, D)).astype(np.float32) for _ in range(2))
@@ -166,18 +171,24 @@ def test_plain_backward_matches_pallas_vjp_at_hopper_tile_edges(h, kv_heads, pad
                                     kv_valid=None if valid is None else jnp.asarray(valid))
 
     _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    _, want_dk, want_dv = vjp(jnp.asarray(do))
+    want_dq, want_dk, want_dv = vjp(jnp.asarray(do))
     tvalid = None if valid is None else torch.from_numpy(valid)
     out, lse = tfu.fused_attention_fwd_plain(_t(q), _t(k), _t(v), tvalid, causal=causal,
                                              block_size=BLK)
-    dk, dv = tfu.fused_attention_bwd_dkv(_t(q), _t(k), _t(v), _t(do), lse,
-                                         tfu._delta(out, _t(do)), tvalid, causal=causal)
-    for got, ref, name in ((dk, want_dk, "dk"), (dv, want_dv, "dv")):
+    delta = tfu._delta(out, _t(do))
+    dq = tfu.fused_attention_bwd_dq(_t(q), _t(k), _t(v), _t(do), lse, delta, tvalid,
+                                    causal=causal)
+    dk, dv = tfu.fused_attention_bwd_dkv(_t(q), _t(k), _t(v), _t(do), lse, delta, tvalid,
+                                         causal=causal)
+    for got, ref, name in ((dq, want_dq, "dq"), (dk, want_dk, "dk"), (dv, want_dv, "dv")):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5, rtol=5e-5,
                                    err_msg=name)
     if pad:
         assert np.all(dk.numpy()[0, :pad] == 0) and np.all(dv.numpy()[0, :pad] == 0)
         assert np.all(dk.numpy()[2] == 0) and np.all(dv.numpy()[2] == 0)
+        assert np.all(dq.numpy()[2] == 0)
+        if causal:
+            assert np.all(dq.numpy()[0, :pad] == 0)
 
 
 @pytest.mark.parametrize("symbol", sorted(tfu._ARGTYPES))
