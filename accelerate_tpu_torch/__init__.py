@@ -22,6 +22,8 @@ Ported so far:
 ROADMAP.md lists what remains.
 """
 
-from .accelerator import Accelerator, FunctionalModel
+__version__ = "0.1.0"
 
-__all__ = ["Accelerator", "FunctionalModel"]
+from .accelerator import Accelerator, FunctionalModel  # noqa: E402
+
+__all__ = ["Accelerator", "FunctionalModel", "__version__"]

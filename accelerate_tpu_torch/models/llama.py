@@ -33,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..state import resolve_device
+from ..utils.operations import rename_state_dict
 
 __all__ = [
     "LlamaConfig",
@@ -257,7 +258,12 @@ class LlamaForCausalLM(nn.Module):
     ``forward(input_ids, cache)`` is :func:`apply_cached` (serving);
     ``forward(input_ids=..., attention_mask=..., labels=...)`` without a
     cache is the training forward and returns ``{"loss": loss_fn(...)}``,
-    the shape ``Accelerator.make_train_step`` and ``backward`` read."""
+    the shape ``Accelerator.make_train_step`` and ``backward`` read.
+
+    ``state_dict()`` / ``load_state_dict()`` use the JAX package's flat
+    parameter names (``embed``, ``final_norm``, ``lm_head``, ``layers.wq``,
+    ...), so a ``model.safetensors`` the JAX package saved for a llama loads
+    unchanged."""
 
     def __init__(self, config: LlamaConfig, params: Optional[dict] = None, *,
                  seed: int = 0, device=None):
@@ -270,6 +276,7 @@ class LlamaForCausalLM(nn.Module):
             {k: nn.Parameter(v.to(dev)) for k, v in params.items() if k != "layers"})
         self.layers = nn.ParameterDict(
             {k: nn.Parameter(v.to(dev)) for k, v in params["layers"].items()})
+        rename_state_dict(self, {f"top.{k}": k for k in self.top})
 
     @property
     def params(self) -> dict:

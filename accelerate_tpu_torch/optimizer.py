@@ -95,6 +95,34 @@ class AcceleratedOptimizer:
     def step_was_skipped(self) -> bool:
         return self._step_was_skipped
 
+    @property
+    def param_groups(self) -> list:
+        return self.optimizer.param_groups
+
+    @property
+    def learning_rate(self) -> float:
+        return float(self.optimizer.param_groups[0]["lr"])
+
+    def set_learning_rate(self, lr: float) -> None:
+        """Write ``lr`` into every parameter group, only when the groups
+        share one LR: distinct group LRs are a per-group schedule that its
+        torch scheduler advances itself."""
+        groups = self.optimizer.param_groups
+        if len({float(g["lr"]) for g in groups}) <= 1:
+            for group in groups:
+                group["lr"] = lr
+
+    def state_dict(self) -> dict:
+        """The torch optimizer's own ``state_dict()`` (live tensors, not
+        copies) and the count of updates taken."""
+        return {"optimizer": self.optimizer.state_dict(), "step_count": self._step_count}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Restore :meth:`state_dict`'s output; torch moves each state
+        tensor to its parameter's device."""
+        self.optimizer.load_state_dict(state_dict["optimizer"])
+        self._step_count = int(state_dict.get("step_count", 0))
+
     def zero_grad(self, set_to_none: bool = True) -> None:
         if self.gradient_state.sync_gradients:
             self.optimizer.zero_grad(set_to_none=set_to_none)

@@ -24,17 +24,9 @@ from typing import Mapping, Optional
 
 import torch
 
+from ..utils.operations import send_to_device
+
 __all__ = ["TrainStep", "make_train_step"]
-
-
-def _to_device(batch, device):
-    if isinstance(batch, torch.Tensor):
-        return batch.to(device)
-    if isinstance(batch, Mapping):
-        return {k: _to_device(v, device) for k, v in batch.items()}
-    if isinstance(batch, tuple):
-        return tuple(_to_device(v, device) for v in batch)
-    return batch
 
 
 def micro_loss(model, batch) -> torch.Tensor:
@@ -114,7 +106,7 @@ class TrainStep:
         grads = [None] * len(params)
         losses = []
         for batch in batches:
-            loss = micro_loss(self.model, _to_device(batch, self.accelerator.device))
+            loss = micro_loss(self.model, send_to_device(batch, self.accelerator.device))
             micro = torch.autograd.grad(loss, params, allow_unused=True)
             grads = accumulate_grads(grads, micro, scale)
             losses.append(loss.detach())

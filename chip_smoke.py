@@ -66,6 +66,27 @@ Phases (each fails the run on any mismatch; nothing is caught):
    model FLOPs and the device idle share of one profiled step (device time
    by kernel group, and each flash kernel's).
 
+6. The README's training loop at full width, with a checkpoint round trip:
+   Llama-3-8B widths cut to 1 layer (fp32 parameters and AdamW's two
+   moments are 12 bytes a parameter: 15.2 GB a checkpoint), bf16 compute,
+   ``remat=True``, through ``Accelerator().prepare(model, AdamW, DataLoader,
+   LambdaLR)`` over 14 sequences of 2048 tokens from a seed (batch 2,
+   shuffled by the seedable sampler, copied ahead by the prefetcher at
+   depth 2 on its own CUDA stream), ``gradient_accumulation_steps=2``: 7
+   micro-batches, optimizer steps on 2, 4, 6 and 7 (the last one at the
+   end of the dataloader), the flash kernels launched 2L / L / L per
+   micro-batch.  Run A saves a verified checkpoint after step 2 (automatic
+   naming, SHA-256 manifest) and runs to the end; run B, a fresh
+   accelerator, model (another seed), optimizer, scheduler and loader,
+   resumes from it with ``resume_from_latest`` and must end bit-identical
+   to run A: losses of micro-batches 5-7, parameters and AdamW state.
+   Prints the free disk space first (fails under twice the checkpoint),
+   the micro-batch times, the bytes written, the save time split into
+   device-to-host, write, manifest (hashing) and publish, the load time
+   split into verify and read-and-place, and the prefetcher's host-blocked
+   time per batch.  The checkpoint lives under ``build/`` beside this
+   script and is deleted at the end.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -75,7 +96,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1117,6 +1140,172 @@ def phase5():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the README's training loop with a checkpoint round trip
+# ---------------------------------------------------------------------------
+
+PHASE6_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase6")
+
+
+def readme_run(cfg, data, seed, resume, smi, record=None):
+    """One run of the README loop over ``data``; run A (``resume`` False)
+    saves after optimizer step 2 and fills ``record``; run B resumes.
+    Returns the per-micro-batch losses, the micro-batches that synced, the
+    micro-batch times, the launch counts, the accelerator, model,
+    optimizer and loader."""
+    import torch
+    from torch.utils.data import DataLoader
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.utils.dataclasses import (
+        DataLoaderConfiguration,
+        ProjectConfiguration,
+    )
+
+    acc = Accelerator(
+        gradient_accumulation_steps=2,
+        dataloader_config=DataLoaderConfiguration(use_seedable_sampler=True,
+                                                  use_stateful_dataloader=True,
+                                                  prefetch_to_device=2),
+        project_config=ProjectConfiguration(project_dir=PHASE6_DIR,
+                                            automatic_checkpoint_naming=True, total_limit=2))
+    model = llama.LlamaForCausalLM(cfg, seed=seed)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda n: min(1.0, (n + 1) / 4))
+    model, opt, dl, sched = acc.prepare(model, opt, DataLoader(data, batch_size=2, shuffle=True),
+                                        sched)
+    tag = "B" if resume else "A"
+    if resume:
+        step = acc.resume_from_latest()
+        t = acc.last_load_timing
+        log(f"phase6 run B resume_from_latest -> {step}; load verify_s={t['verify_s']:.3f} "
+            f"read_place_s={t['read_place_s']:.3f} ({smi})")
+        check(step == 2, f"resume_from_latest returned {step}, want 2")
+        now = dict(lr=opt.learning_rate, sched_steps=sched._step_count,
+                   last_epoch=sched.scheduler.last_epoch,
+                   sampler=(dl.sampler.epoch, dl.sampler.initial_seed), loader=dl.state_dict())
+        log(f"phase6 run B restored {now}; run A at the save {record['at_save']}")
+        check(now == record["at_save"], f"restored state {now} != run A's {record['at_save']}")
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    losses, synced, times, ids = [], [], [], []
+    t0 = time.perf_counter()
+    for batch in dl:
+        ids.append(batch["input_ids"].cpu())
+        with acc.accumulate(model):
+            loss = model(**batch)["loss"]
+            acc.backward(loss)
+            opt.step()
+            sched.step()
+            opt.zero_grad()
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        if acc.sync_gradients:
+            synced.append((len(losses), acc.gradient_state.end_of_dataloader))
+            if not resume and opt._step_count == 2:
+                path = acc.save_state(step=2)
+                record["path"] = path
+                record["at_save"] = dict(
+                    lr=opt.learning_rate, sched_steps=sched._step_count,
+                    last_epoch=sched.scheduler.last_epoch,
+                    sampler=(dl.sampler.epoch, dl.sampler.initial_seed), loader=dl.state_dict())
+                t = acc.last_save_timing
+                log(f"phase6 run A save_state -> {path}: bytes={t['bytes']} "
+                    f"({t['bytes'] / 1e9:.3f} GB) d2h_s={t['d2h_s']:.3f} "
+                    f"write_s={t['write_s']:.3f} "
+                    f"manifest_s={t['manifest_s']:.3f} publish_s={t['publish_s']:.3f} "
+                    f"total_s={t['d2h_s'] + t['write_s'] + t['manifest_s'] + t['publish_s']:.3f} "
+                    f"({smi}); at the save {record['at_save']}")
+                t0 = time.perf_counter()  # the save is not a micro-batch's time
+    counts = read_flash_counts()
+    blocked = dl.prefetch_blocked_ms
+    log(f"phase6 run {tag}: losses {[round(x, 6) for x in losses]} synced (micro-batch, "
+        f"end_of_dataloader) {synced} launches {counts} micro_batch_ms "
+        f"{[round(x * 1e3, 2) for x in times]} prefetch host-blocked ms per batch "
+        f"{[round(x, 3) for x in blocked]} ({smi})")
+    if resume:
+        check(torch.equal(ids[0], record["ids"][4]), "run B did not start at micro-batch 5")
+    else:
+        record["ids"] = ids
+    return losses, synced, counts, acc, model, opt
+
+
+def phase6(smi):
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.resilience.manifest import read_manifest, verify_checkpoint
+
+    layers, s, n_seq = 1, 2048, 14
+    cfg = llama.LlamaConfig.llama3_8b(num_layers=layers, dtype=torch.bfloat16,
+                                      param_dtype=torch.float32, remat=True)
+    n_params = cfg.num_params()
+    ckpt_bytes = 12 * n_params  # fp32 parameters + AdamW exp_avg + exp_avg_sq
+    shutil.rmtree(PHASE6_DIR, ignore_errors=True)
+    os.makedirs(PHASE6_DIR)
+    disk = shutil.disk_usage(PHASE6_DIR)
+    log(f"phase6 Llama-3-8B widths, {layers} layer, params={n_params}, checkpoint ~"
+        f"{ckpt_bytes / 1e9:.2f} GB; disk at {PHASE6_DIR}: free={disk.free / 1e9:.2f} GB "
+        f"total={disk.total / 1e9:.2f} GB")
+    check(disk.free >= 2 * ckpt_bytes, f"free disk {disk.free} < twice the checkpoint "
+          f"({2 * ckpt_bytes})")
+    rng = np.random.default_rng(0)
+    data = [{"input_ids": torch.from_numpy(rng.integers(0, cfg.vocab_size, size=s))}
+            for _ in range(n_seq)]
+    record = {}
+    torch.cuda.reset_peak_memory_stats()
+    losses_a, synced_a, counts_a, acc, model, opt = readme_run(cfg, data, 0, False, smi, record)
+    want = {"fused_attention_fwd": 2 * layers * n_seq // 2,
+            "fused_attention_bwd_dq": layers * n_seq // 2,
+            "fused_attention_bwd_dkv": layers * n_seq // 2}
+    check(counts_a == want, f"run A launches {counts_a}, want {want} (2L, L, L per micro-batch)")
+    check([m for m, _ in synced_a] == [2, 4, 6, 7] and synced_a[-1][1] and opt._step_count == 4,
+          f"optimizer steps {synced_a} ({opt._step_count}), want 4 on 2, 4, 6, 7 (end)")
+    check(all(math.isfinite(x) for x in losses_a), f"non-finite loss {losses_a}")
+    with torch.no_grad():
+        again = model(**{"input_ids": record["ids"][0].cuda()})["loss"].item()
+    log(f"phase6 first micro-batch's loss {losses_a[0]:.6f} before the first step, {again:.6f} "
+        f"after the last (peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f})")
+    check(again < losses_a[0], f"loss did not fall: {losses_a[0]} -> {again}")
+    manifest = read_manifest(record["path"])
+    check(manifest["hashed"] and manifest["step"] == 2, f"manifest {manifest['step']}")
+    t0 = time.perf_counter()
+    verify_checkpoint(record["path"], check_hashes=True)
+    log(f"phase6 manifest verified with SHA-256 over {len(manifest['files'])} files "
+        f"({sum(e['size'] for e in manifest['files'].values())} bytes) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    names = [n for n, _ in model.named_parameters()]
+    final_params = [p.detach().cpu() for p in model.parameters()]
+    final_state = {k: {n: t.cpu() for n, t in v.items()}
+                   for k, v in opt.optimizer.state_dict()["state"].items()}
+    del acc, model, opt
+    torch.cuda.empty_cache()
+
+    losses_b, synced_b, counts_b, acc, model, opt = readme_run(cfg, data, 1, True, smi, record)
+    check(counts_b == {k: v * 3 // 7 for k, v in want.items()},
+          f"run B launches {counts_b}, want 2L / L / L for 3 micro-batches")
+    check([m for m, _ in synced_b] == [2, 3] and synced_b[-1][1] and opt._step_count == 4,
+          f"run B optimizer steps {synced_b} ({opt._step_count})")
+    check(losses_b == losses_a[4:], f"run B losses {losses_b} != run A's {losses_a[4:]}")
+    diff = [n for n, a, b in zip(names, final_params, model.parameters())
+            if not torch.equal(a, b.detach().cpu())]
+    state_b = opt.optimizer.state_dict()["state"]
+    diff += [f"state[{k}].{n}" for k, v in final_state.items() for n, t in v.items()
+             if not torch.equal(t, state_b[k][n].cpu())]
+    log(f"phase6 run B against run A: losses of micro-batches 5-7 equal; "
+        f"{len(final_params)} parameters and {sum(len(v) for v in final_state.values())} AdamW "
+        f"state tensors, bit-identical except {diff}")
+    check(not diff, f"resumed run differs from the uninterrupted one in {diff}")
+    del acc, model, opt, final_params, final_state
+    torch.cuda.empty_cache()
+    shutil.rmtree(PHASE6_DIR)
+    return counts_a
+
+
 def main() -> int:
     import torch
 
@@ -1146,6 +1335,7 @@ def main() -> int:
     win3 = phase3()
     p4 = phase4()
     p5 = phase5()
+    p6 = phase6(smi)
     log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS))
     launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"], **p5}
     check(win3 > 0, "window kernel not launched in phase 3")
@@ -1176,6 +1366,7 @@ def main() -> int:
                                  "float32": FLASH_SOURCE})
         record.append(dict(dict(name=name, route="cuda", source=FLASH_SOURCE,
                                 replaces=REPLACES[name], launches=launches[name],
+                                launches_phase6=p6[name],
                                 **p4["torch.bfloat16"][name]), **extra))
     for name in FLASH_KERNELS:
         r = p4["torch.float32"][name]

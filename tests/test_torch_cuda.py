@@ -627,3 +627,133 @@ def test_auto_attention_with_unsupported_head_dim_raises(cuda):
     with pytest.raises(ValueError, match="head_dim 256"):
         llama.apply(params, ids.cuda(), cfg)
     assert fu.fused_attention_fwd.launches == before
+
+
+# -- the training loop's data pipeline and checkpoints on the card -----------
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_prefetcher_side_stream_slow_consumer(cuda, depth):
+    """The worker copies pinned batches on its own stream while the compute
+    stream is held back by a slow consumer; every batch, read on the
+    compute stream right after it is handed over, holds its host values
+    (a missing stream wait reads a buffer still being copied, a missing
+    ``record_stream`` lets the allocator hand a live buffer to the next
+    copy)."""
+    from torch.utils.data import DataLoader
+
+    from accelerate_tpu_torch.data_loader import prepare_data_loader
+
+    rng = np.random.default_rng(71)
+    host = [torch.from_numpy(rng.integers(0, 1000, size=(256, 4096))) for _ in range(12)]
+    dl = prepare_data_loader(DataLoader(host, batch_size=None), device="cuda",
+                             prefetch_to_device=depth)
+    sums, copies, flags = [], [], []
+    for batch in dl:
+        assert batch.device.type == "cuda"
+        torch.cuda._sleep(5_000_000)  # the compute stream lags the copies
+        sums.append(batch.sum())
+        copies.append(batch * 1)
+        flags.append(dl.end_of_dataloader)
+        del batch
+    torch.cuda.synchronize()
+    assert [s.item() for s in sums] == [int(h.sum()) for h in host]
+    for got, want in zip(copies, host):
+        assert torch.equal(got.cpu(), want)
+    assert flags == [False] * 11 + [True]
+    assert len(dl.prefetch_blocked_ms) == 12
+
+
+def test_prefetcher_copies_on_its_own_stream(cuda):
+    from accelerate_tpu_torch.pipeline.prefetch import DevicePrefetcher
+    from accelerate_tpu_torch.utils.operations import send_to_device
+
+    streams = []
+
+    def convert(b):
+        streams.append(torch.cuda.current_stream())
+        return send_to_device(b, "cuda", non_blocking=True)
+
+    pre = DevicePrefetcher(iter([torch.ones(4), torch.zeros(4)]), convert, depth=1,
+                           device=torch.device("cuda"))
+    out = [(b.sum().item(), last) for b, last in pre]
+    assert out == [(4.0, False), (0.0, True)]
+    assert streams and all(s == pre._stream for s in streams)
+    assert pre._stream != torch.cuda.current_stream()
+
+
+def test_safetensors_bf16_roundtrip_of_cuda_tensors(cuda, tmp_path):
+    from accelerate_tpu_torch.utils import safetensors_io
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    src = {"w": torch.randn(64, 33, generator=gen, device="cuda").bfloat16(),
+           "b": torch.randn(7, generator=gen, device="cuda"),
+           "ids": torch.arange(5, device="cuda")}
+    path = str(tmp_path / "w.safetensors")
+    safetensors_io.save_file(src, path)
+    back = safetensors_io.load_file(path, device="cuda")
+    for k, v in src.items():
+        assert back[k].device.type == "cuda" and back[k].dtype == v.dtype
+        assert torch.equal(back[k], v)
+
+
+def _card_run(tmp_path, resume, seed, data):
+    from torch.utils.data import DataLoader
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.utils.dataclasses import (
+        DataLoaderConfiguration,
+        ProjectConfiguration,
+    )
+
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                            num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=128,
+                            attention_impl="pallas", dtype=torch.bfloat16, remat=True)
+    acc = Accelerator(gradient_accumulation_steps=2, dataloader_config=DataLoaderConfiguration(
+        use_seedable_sampler=True, use_stateful_dataloader=True, prefetch_to_device=2),
+        project_config=ProjectConfiguration(project_dir=str(tmp_path),
+                                            automatic_checkpoint_naming=True, total_limit=2))
+    model = llama.LlamaForCausalLM(cfg, seed=seed)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda n: min(1.0, (n + 1) / 3))
+    model, opt, dl, sched = acc.prepare(model, opt, DataLoader(data, batch_size=2, shuffle=True),
+                                        sched)
+    step = acc.resume_from_latest() if resume else None
+    before = (fu.fused_attention_fwd.launches, fu.fused_attention_bwd_dq.launches,
+              fu.fused_attention_bwd_dkv.launches)
+    losses, micro = [], 0
+    for batch in dl:
+        assert batch["input_ids"].device.type == "cuda"
+        with acc.accumulate(model):
+            loss = model(**batch)["loss"]
+            acc.backward(loss)
+            opt.step()
+            sched.step()
+            opt.zero_grad()
+        losses.append(loss.item())
+        micro += 1
+        if not resume and acc.sync_gradients and opt._step_count == 2:
+            acc.save_state(step=2)
+    after = (fu.fused_attention_fwd.launches, fu.fused_attention_bwd_dq.launches,
+             fu.fused_attention_bwd_dkv.launches)
+    counts = tuple(a - b for a, b in zip(after, before))
+    assert counts == (2 * 2 * micro, 2 * micro, 2 * micro)  # 2L / L / L per micro-batch
+    return step, losses, model, opt
+
+
+def test_save_load_continue_is_bit_identical_on_the_card(cuda, tmp_path):
+    """The README loop on the kernel path (7 micro-batches, accumulation 2,
+    a checkpoint after optimizer step 2); a fresh run from another seed
+    resumes from it and ends bit-identical to the uninterrupted run."""
+    rng = np.random.default_rng(0)
+    data = [{"input_ids": torch.from_numpy(rng.integers(0, 512, size=128))} for _ in range(14)]
+    _, losses_a, model_a, opt_a = _card_run(tmp_path, False, 0, data)
+    assert opt_a._step_count == 4
+    step, losses_b, model_b, opt_b = _card_run(tmp_path, True, 1, data)
+    assert step == 2 and losses_b == losses_a[4:]
+    for a, b in zip(model_a.parameters(), model_b.parameters()):
+        assert torch.equal(a, b)
+    sa, sb = opt_a.optimizer.state_dict()["state"], opt_b.optimizer.state_dict()["state"]
+    for k in sa:
+        for name in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(sa[k][name], sb[k][name])

@@ -1,6 +1,7 @@
 """Import hygiene of the port: ``accelerate_tpu_torch`` and ``chip_smoke.py``
-load neither ``jax`` nor anything of ``accelerate_tpu``, at run time or in
-their source."""
+load neither ``jax`` nor anything of ``accelerate_tpu``, nor the
+``safetensors`` package (the GPU machine has none; the port reads and
+writes the format itself), at run time or in their source."""
 
 import ast
 import json
@@ -12,7 +13,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "accelerate_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "accelerate_tpu")
+FORBIDDEN = ("jax", "jaxlib", "accelerate_tpu", "safetensors")
 
 
 def _module_names():
