@@ -11,7 +11,10 @@ Ported so far:
 - paged continuous-batching serving of the llama family
   (:meth:`Accelerator.prepare_serving`, ``serving/``, ``models/llama.py``,
   ``models/generation.py``) with the paged decode and verify-window
-  attention kernels (``ops/paged_attention.py``);
+  attention kernels (``ops/paged_attention.py``), and its robustness
+  layer: the host-memory KV tier, int8 KV pools, queue bounds, deadlines,
+  the crash-recovery journal and drain under a ``PreemptionGuard``
+  (``resilience/preemption.py``);
 - single-GPU training of the llama family (:meth:`Accelerator.prepare`,
   ``backward``/``accumulate``, :meth:`Accelerator.make_train_step`,
   ``optimizer.py``, ``pipeline/train_step.py``, the training forward and

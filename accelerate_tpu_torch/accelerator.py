@@ -142,6 +142,7 @@ class Accelerator:
         self._load_state_pre_hooks: dict = {}
         self.last_save_timing: Optional[dict] = None
         self.last_load_timing: Optional[dict] = None
+        self._preemption_guard = None
 
     # -- accumulation state ---------------------------------------------------
 
@@ -380,6 +381,45 @@ class Accelerator:
             self.project_configuration.iteration = int(tail) + 1
         return int(step) if step is not None else 0
 
+    # -- preemption ---------------------------------------------------------------
+
+    def enable_preemption_handling(self, save_dir: Optional[str] = None, signals=None):
+        """Install a :class:`~accelerate_tpu_torch.resilience.PreemptionGuard`
+        for this process (idempotent) and return it.  ``save_dir`` is where
+        :meth:`check_preemption` writes the final checkpoint; without it,
+        automatic checkpoint naming must be on.  Serving engines built by
+        :meth:`prepare_serving` afterwards drain on the signal."""
+        from .resilience import PreemptionGuard
+
+        if (self._preemption_guard is None and save_dir is None
+                and not self.project_configuration.automatic_checkpoint_naming):
+            # Fail now, not when the signal arrives and the checkpoint matters.
+            raise ValueError(
+                "enable_preemption_handling needs a checkpoint target: pass save_dir=, or "
+                "enable ProjectConfiguration(automatic_checkpoint_naming=True)"
+            )
+        if self._preemption_guard is None:
+            kwargs = {} if signals is None else {"signals": signals}
+            self._preemption_guard = PreemptionGuard(**kwargs).install()
+        if save_dir is not None:
+            self._preemption_guard.save_dir = save_dir
+        return self._preemption_guard
+
+    def check_preemption(self, save_dir: Optional[str] = None, step: Optional[int] = None) -> bool:
+        """Call once per step at the step boundary.  Returns True once the
+        installed guard saw its signal, after writing ONE final verified
+        checkpoint (to ``save_dir``, the guard's directory, or automatic
+        naming) whose manifest records ``step`` for
+        :meth:`resume_from_latest`; the caller then leaves its loop.
+        Without a guard it returns False."""
+        guard = self._preemption_guard
+        if guard is None or not guard.should_stop():
+            return False
+        if not guard.final_checkpoint_saved:
+            self.save_state(save_dir or guard.save_dir, step=step)
+            guard.final_checkpoint_saved = True
+        return True
+
     # -- serving ----------------------------------------------------------------
 
     def prepare_serving(self, apply_cached, init_cache, params, config, serving=None,
@@ -397,6 +437,9 @@ class Accelerator:
             )
             rid = engine.submit(prompt_tokens, max_new_tokens=64)
             outputs = engine.run()
+
+        With a guard from :meth:`enable_preemption_handling` the engine
+        drains on the signal instead of dying with work in its queue.
         """
         from .serving import ServingConfig, ServingEngine
 
@@ -404,8 +447,11 @@ class Accelerator:
             raise ValueError("pass either a ServingConfig or its fields, not both")
         if serving is None:
             serving = ServingConfig(**serving_kwargs)
-        return ServingEngine(apply_cached, init_cache, params, config, serving=serving,
-                             device=self.device)
+        engine = ServingEngine(apply_cached, init_cache, params, config, serving=serving,
+                               device=self.device)
+        if self._preemption_guard is not None:
+            engine.install_preemption_guard(self._preemption_guard)
+        return engine
 
 
 def _is_scheduler_like(obj) -> bool:

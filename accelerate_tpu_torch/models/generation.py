@@ -7,9 +7,12 @@ JAX functions return updated copies of a cache or pool (and the engine's
 programs donate the old one), these write into the tensors they are given
 and say so; the values are the same.
 
-Not ported yet: the int8 cache (``quantize_kv``/``dequantize_kv``), the
-host tier (``demote/promote_pool_blocks``), sampling, beam search and the
-offline speculative loop.
+The int8 cache stores codes with a bf16 absmax scale per (position, head)
+(:func:`quantize_kv`); every cache and pool helper takes either layout.
+:func:`demote_pool_blocks` / :func:`promote_pool_blocks` move whole blocks
+between the pool and the serving engine's host tier.
+
+Not ported yet: sampling, beam search and the offline speculative loop.
 """
 
 from __future__ import annotations
@@ -19,23 +22,49 @@ from typing import Callable, List, Optional
 import torch
 
 __all__ = [
-    "make_kv_cache", "check_cache_room", "cache_write", "make_paged_pool", "gather_block_view",
-    "extract_token_rows", "scatter_token_rows", "paged_cache_write",
-    "pack_paged_pool_for_scan", "unpack_paged_rows_from_scan", "generate_loop",
-    "speculative_verify_greedy",
+    "make_kv_cache", "check_cache_room", "quantize_kv", "dequantize_kv", "cache_write",
+    "make_paged_pool", "gather_block_view", "extract_token_rows", "scatter_token_rows",
+    "paged_cache_write", "pack_paged_pool_for_scan", "unpack_paged_rows_from_scan",
+    "demote_pool_blocks", "promote_pool_blocks", "generate_loop", "speculative_verify_greedy",
 ]
 
 
 def make_kv_cache(num_layers: int, batch_size: int, max_len: int, num_kv_heads: int,
-                  head_dim: int, dtype, device) -> dict:
+                  head_dim: int, dtype, device, quantized: bool = False) -> dict:
     """Zeroed stacked KV cache: k/v ``[L, B, max_len, K, hd]`` plus the write
-    index (a Python int)."""
+    index (a Python int).  ``quantized=True`` stores int8 codes in k/v and a
+    bf16 scale per (position, head) in ``k_scale``/``v_scale`` ``[L, B,
+    max_len, K]``."""
     shape = (num_layers, batch_size, max_len, num_kv_heads, head_dim)
+    if quantized:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            "index": 0,
+        }
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "index": 0,
     }
+
+
+def quantize_kv(x: torch.Tensor):
+    """Absmax int8 quantization of K/V rows over the last axis: ``[..., hd]``
+    -> (codes int8 ``[..., hd]``, scale bf16 ``[...]``).  As in the JAX
+    package, the codes divide by the scale in ``x``'s dtype and the stored
+    scale is its bf16 rounding; ``torch.round`` rounds half to even like
+    ``jnp.round``."""
+    scale = torch.clamp(x.abs().amax(-1), min=1e-6) / 127.0
+    codes = torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8)
+    return codes, scale.to(torch.bfloat16)
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv` with the stored bf16 scale."""
+    return codes.to(dtype) * scale[..., None].to(dtype)
 
 
 def check_cache_room(index: int, new_tokens: int, max_len: int) -> None:
@@ -47,11 +76,18 @@ def check_cache_room(index: int, new_tokens: int, max_len: int) -> None:
         )
 
 
-def cache_write(cache_leaf: torch.Tensor, new_rows: torch.Tensor, index: int) -> torch.Tensor:
+def cache_write(cache_leaf, new_rows: torch.Tensor, index: int, dtype=None) -> torch.Tensor:
     """Write ``new_rows`` ``[B, S, K, hd]`` into one layer's cache leaf
-    ``[B, max_len, K, hd]`` at ``index``, in place; returns the leaf, which
-    is also the attention context."""
+    ``[B, max_len, K, hd]`` at ``index``, in place, and return the attention
+    context: the leaf itself, or for the int8 layout (a ``(codes, scale)``
+    pair) the whole layer dequantized to ``dtype``."""
     s = new_rows.shape[1]
+    if isinstance(cache_leaf, tuple):
+        codes, scale = cache_leaf
+        n_codes, n_scale = quantize_kv(new_rows)
+        codes[:, index:index + s] = n_codes
+        scale[:, index:index + s] = n_scale
+        return dequantize_kv(codes, scale, dtype or new_rows.dtype)
     cache_leaf[:, index:index + s] = new_rows.to(cache_leaf.dtype)
     return cache_leaf
 
@@ -141,33 +177,98 @@ def _insert_rows(ctx: torch.Tensor, new_rows: torch.Tensor, starts: torch.Tensor
     return torch.where(in_new, picked, ctx)
 
 
-def paged_cache_write(pool_layer: torch.Tensor, new_rows: torch.Tensor, tables: torch.Tensor,
-                      starts: torch.Tensor):
-    """Per-layer paged analog of :func:`cache_write` for the fp pool: the
-    stored form of ``new_rows`` ``[B, T, K, hd]`` (cast to the pool dtype)
-    and the attention context ``[B, M*bs, K, hd]`` gathered through
-    ``tables`` ``[B, M]`` with the new rows overlaid at ``starts[b] +
-    arange(T)``.  The pool is only read; the caller scatters the stored
-    rows afterwards."""
+def paged_cache_write(pool_layer, new_rows: torch.Tensor, tables: torch.Tensor,
+                      starts: torch.Tensor, dtype=None):
+    """Per-layer paged analog of :func:`cache_write`: the stored form of
+    ``new_rows`` ``[B, T, K, hd]`` (cast to the fp pool's dtype, or
+    ``(codes, scale)`` for the int8 pool, a ``(codes [N, bs, K, hd], scale
+    [N, bs, K])`` pair) and the attention context ``[B, M*bs, K, hd]``
+    gathered through ``tables`` ``[B, M]`` with the new rows overlaid at
+    ``starts[b] + arange(T)``; an int8 context is dequantized to ``dtype``.
+    The pool is only read; the caller scatters the stored rows afterwards."""
     b, m = tables.shape
+    idx = tables.long()
+    if isinstance(pool_layer, tuple):
+        codes, scale = pool_layer
+        bs = codes.shape[1]
+        dtype = dtype or new_rows.dtype
+        stored = quantize_kv(new_rows)
+        ctx = dequantize_kv(codes[idx].reshape(b, m * bs, *codes.shape[2:]),
+                            scale[idx].reshape(b, m * bs, *scale.shape[2:]), dtype)
+        # Attention sees the QUANTIZED new rows, as a dense int8 cache would.
+        return stored, _insert_rows(ctx, dequantize_kv(*stored, dtype), starts)
     bs = pool_layer.shape[1]
     stored = new_rows.to(pool_layer.dtype)
-    ctx = pool_layer[tables.long()].reshape(b, m * bs, *pool_layer.shape[2:])
+    ctx = pool_layer[idx].reshape(b, m * bs, *pool_layer.shape[2:])
     return stored, _insert_rows(ctx, stored, starts)
 
 
 def pack_paged_pool_for_scan(pool: dict):
-    """The pool leaves a family's layer loop walks: ``(k, v)``, each leading
-    with the layer axis.  int8 pools raise ``NotImplementedError``."""
-    if "k_scale" in pool or pool["k"].dtype == torch.int8:
-        raise NotImplementedError("int8 paged pools are not ported to accelerate_tpu_torch yet")
-    return pool["k"], pool["v"]
+    """The pool leaves a family's layer loop walks, each leading with the
+    layer axis: ``(k, v, False)``, or ``((k, k_scale), (v, v_scale), True)``
+    for the int8 pool.  int8 codes without their scales raise."""
+    quant = "k_scale" in pool
+    if not quant and pool["k"].dtype == torch.int8:
+        raise ValueError("an int8 paged pool needs its k_scale and v_scale leaves")
+    pk = (pool["k"], pool["k_scale"]) if quant else pool["k"]
+    pv = (pool["v"], pool["v_scale"]) if quant else pool["v"]
+    return pk, pv, quant
 
 
-def unpack_paged_rows_from_scan(k_rows: List[torch.Tensor], v_rows: List[torch.Tensor]) -> dict:
-    """Per-layer stored rows (each ``[B, T, ...]``) -> ``{leaf: [B, L, T,
-    ...]}``, the layout :func:`scatter_token_rows` writes."""
+def unpack_paged_rows_from_scan(k_rows: list, v_rows: list, quant: bool = False) -> dict:
+    """Per-layer stored rows (each ``[B, T, ...]``, or a ``(codes, scale)``
+    pair for int8) -> ``{leaf: [B, L, T, ...]}``, the layout
+    :func:`scatter_token_rows` writes."""
+    if quant:
+        return {
+            "k": torch.stack([r[0] for r in k_rows], 1),
+            "k_scale": torch.stack([r[1] for r in k_rows], 1),
+            "v": torch.stack([r[0] for r in v_rows], 1),
+            "v_scale": torch.stack([r[1] for r in v_rows], 1),
+        }
     return {"k": torch.stack(k_rows, 1), "v": torch.stack(v_rows, 1)}
+
+
+def _wait_for_copies(device: torch.device) -> None:
+    """Block the host until the copies just queued on ``device``'s current
+    stream have landed (an event recorded after them, then waited on): a
+    host buffer read or written by a ``non_blocking`` copy is then free to
+    be reused, scrubbed or read."""
+    if device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        event.synchronize()
+
+
+def demote_pool_blocks(pool: dict, blocks: List[int]) -> dict:
+    """Copy whole blocks out of every pool leaf to host memory: ``{name:
+    [L, n, bs, *r]}`` on the CPU for ``n = len(blocks)``.  The blocks are
+    gathered on the device (``index_select`` on the block axis) and each
+    leaf comes back in one copy, into pinned memory when the pool is on a
+    GPU; the copies have landed when this returns."""
+    out = {}
+    for name, leaf in pool.items():
+        idx = torch.as_tensor(blocks, dtype=torch.long, device=leaf.device)
+        rows = leaf.index_select(1, idx)
+        if leaf.device.type == "cpu":
+            out[name] = rows
+            continue
+        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        host.copy_(rows, non_blocking=True)
+        out[name] = host
+    _wait_for_copies(next(iter(pool.values())).device)
+    return out
+
+
+def promote_pool_blocks(pool: dict, host_rows: dict, dst_blocks: List[int]) -> None:
+    """Write host block rows ``{name: [L, n, bs, *r]}`` into the pool at block
+    ids ``dst_blocks``, in place: one host-to-device copy (from pinned
+    memory, for a GPU pool) and one ``index_copy_`` per leaf.  The copies
+    have landed when this returns, so the host rows may be reused."""
+    for name, leaf in pool.items():
+        dst = torch.as_tensor(dst_blocks, dtype=torch.long, device=leaf.device)
+        leaf.index_copy_(1, dst, host_rows[name].to(leaf.device, non_blocking=True))
+    _wait_for_copies(next(iter(pool.values())).device)
 
 
 @torch.no_grad()

@@ -16,9 +16,10 @@ chunked cross-entropy; attention through the einsum path, the blockwise
 ``flash`` path or the fused ``pallas`` kernels; per-layer activation
 checkpointing under ``remat``), the dense KV cache (:func:`init_cache`,
 :func:`apply_cached`), the paged serving forward (:func:`apply_paged`) and
-greedy :func:`generate`.  fp8, int8 KV, sequence parallelism and
-``remat_policy="dots"`` are not part of this port yet; their config fields
-raise ``NotImplementedError`` when set.
+greedy :func:`generate`; ``kv_cache_quant`` stores the KV cache as int8 codes
+with bf16 scales in both the dense cache and the paged pool.  fp8, sequence
+parallelism and ``remat_policy="dots"`` are not part of this port yet; their
+config fields raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -120,7 +121,6 @@ class LlamaConfig:
             raise ValueError(f"loss_impl must be 'dense' or 'chunked', got {self.loss_impl!r}")
         unported = {
             "fp8": self.fp8,
-            "kv_cache_quant": self.kv_cache_quant,
             "sp_impl": self.sp_impl != "ring",
             "remat_policy": self.remat_policy != "nothing",
         }
@@ -606,13 +606,14 @@ def loss_fn(params: dict, batch: dict, config: LlamaConfig) -> torch.Tensor:
 
 
 def init_cache(config: LlamaConfig, batch_size: int, max_len: int, device=None) -> dict:
-    """Zeroed KV cache: k/v ``[L, B, max_len, K, hd]`` + write index."""
+    """Zeroed KV cache: k/v ``[L, B, max_len, K, hd]`` + write index;
+    ``config.kv_cache_quant`` stores int8 codes with bf16 scales."""
     from .generation import make_kv_cache
 
     c = config
     return make_kv_cache(
         c.num_layers, batch_size, max_len, c.num_kv_heads, c.head_dim_, c.dtype,
-        device=resolve_device(device),
+        device=resolve_device(device), quantized=c.kv_cache_quant,
     )
 
 
@@ -635,13 +636,18 @@ def apply_cached(params: dict, input_ids: torch.Tensor, config: LlamaConfig, cac
     x = embed_tokens(params, input_ids, c)
     mask = (positions[:, :, None] >= torch.arange(max_len, device=dev)[None, None, :])
     groups = c.num_heads // c.num_kv_heads
+    quant = "k_scale" in cache
+
+    def layer_leaf(name, i):
+        return (cache[name][i], cache[name + "_scale"][i]) if quant else cache[name][i]
+
     for i in range(c.num_layers):
         p = _layer_params(params, i)
         h = _norm(x, p["ln_attn"], c)
         q, k, v = _qkv_proj(h, p, c, b, s)
         q, k = _rope(q, k, positions, c.rope_theta, c.rope_scaling)
-        k_full = cache_write(cache["k"][i], k, index)
-        v_full = cache_write(cache["v"][i], v, index)
+        k_full = cache_write(layer_leaf("k", i), k, index, c.dtype)
+        v_full = cache_write(layer_leaf("v", i), v, index, c.dtype)
         attn = _attention(q, k_full, v_full, mask, groups)
         x = _out_proj_and_mlp(x, attn, p, c)
     return unembed(params, x, c), dict(cache, index=index + s)
@@ -654,23 +660,27 @@ def apply_paged(params: dict, input_ids: torch.Tensor, config: LlamaConfig, pool
     serving engine's decode, verify and prefill forward.
 
     tokens ``[B, T]`` sit at positions ``starts[b] .. starts[b]+T-1``; the
-    pool is ``{k, v: [L, N, bs, K, hd]}``, tables ``[B, M]`` int32, starts
-    ``[B]`` int32.  Returns (logits ``[B, T, V]`` fp32, the rows this
-    forward wrote ``{k, v: [B, L, T, K, hd]}``) for the caller's scatter;
+    pool is ``{k, v: [L, N, bs, K, hd]}`` (the int8 pool adds ``k_scale``,
+    ``v_scale``: ``[L, N, bs, K]``), tables ``[B, M]`` int32, starts ``[B]``
+    int32.  Returns (logits ``[B, T, V]`` fp32, the rows this forward wrote,
+    one ``[B, L, T, ...]`` entry per pool leaf) for the caller's scatter;
     the pool itself is only read.
 
-    ``kernel=True`` sends attention through the paged kernels: the
-    single-token one at ``T == 1``, the window one at ``T > 1``.  On CUDA
-    tensors they launch the Hopper kernel or raise; on CPU tensors they run
-    their plain version.  ``kernel=False`` gathers the context through the
+    ``kernel=True`` sends attention of an fp pool through the paged
+    kernels: the single-token one at ``T == 1``, the window one at ``T >
+    1``.  On CUDA tensors they launch the Hopper kernel or raise; on CPU
+    tensors they run their plain version.  An int8 pool takes the plain
+    path whatever ``kernel`` says, as in the JAX package, whose kernels
+    read fp pools only.  ``kernel=False`` gathers the context through the
     tables (``paged_cache_write``) and runs the einsum attention."""
     from ..ops.paged_attention import paged_attention, paged_window_attention
     from .generation import pack_paged_pool_for_scan, paged_cache_write, unpack_paged_rows_from_scan
 
     c = config
     b, t = input_ids.shape
-    pk_all, pv_all = pack_paged_pool_for_scan(pool)
-    total = tables.shape[1] * pk_all.shape[2]
+    pk_all, pv_all, quant = pack_paged_pool_for_scan(pool)
+    use_kernel = kernel and not quant
+    total = tables.shape[1] * pool["k"].shape[2]
     dev = input_ids.device
     positions = starts[:, None].long() + torch.arange(t, device=dev)[None]
     x = embed_tokens(params, input_ids, c)
@@ -679,11 +689,14 @@ def apply_paged(params: dict, input_ids: torch.Tensor, config: LlamaConfig, pool
     k_rows, v_rows = [], []
     for i in range(c.num_layers):
         p = _layer_params(params, i)
-        pk, pv = pk_all[i], pv_all[i]
+        if quant:
+            pk, pv = (pk_all[0][i], pk_all[1][i]), (pv_all[0][i], pv_all[1][i])
+        else:
+            pk, pv = pk_all[i], pv_all[i]
         h = _norm(x, p["ln_attn"], c)
         q, k, v = _qkv_proj(h, p, c, b, t)
         q, k = _rope(q, k, positions, c.rope_theta, c.rope_scaling)
-        if kernel:
+        if use_kernel:
             k_store = k.to(pk.dtype).contiguous()
             v_store = v.to(pv.dtype).contiguous()
             if t == 1:
@@ -695,13 +708,13 @@ def apply_paged(params: dict, input_ids: torch.Tensor, config: LlamaConfig, pool
                     q.contiguous(), k_store, v_store, pk, pv, tables, starts
                 )
         else:
-            k_store, k_full = paged_cache_write(pk, k, tables, starts)
-            v_store, v_full = paged_cache_write(pv, v, tables, starts)
+            k_store, k_full = paged_cache_write(pk, k, tables, starts, c.dtype)
+            v_store, v_full = paged_cache_write(pv, v, tables, starts, c.dtype)
             attn = _attention(q, k_full, v_full, mask, groups)
         x = _out_proj_and_mlp(x, attn, p, c)
         k_rows.append(k_store)
         v_rows.append(v_store)
-    return unembed(params, x, c), unpack_paged_rows_from_scan(k_rows, v_rows)
+    return unembed(params, x, c), unpack_paged_rows_from_scan(k_rows, v_rows, quant)
 
 
 def generate(params: dict, input_ids: torch.Tensor, config: LlamaConfig, max_new_tokens: int,

@@ -1,0 +1,156 @@
+"""Preemption-safe stepping for one process: SIGTERM/SIGINT as a flag.
+
+The port of the JAX package's ``resilience/preemption.py`` for a single
+process.  :class:`PreemptionGuard` turns an asynchronous kill signal into a
+decision taken at a step boundary: the handler only sets a flag; the
+training loop asks ``accelerator.check_preemption()`` once per step (which
+writes one final verified checkpoint), and a serving engine with the guard
+installed drains at its next tick.
+
+Nothing is installed unless :meth:`PreemptionGuard.install` runs.  Agreement
+across processes (``coordinated=True``) is not ported yet: it needs the
+multi-GPU runtime.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import signal
+from typing import Callable, Optional, Sequence
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["PreemptionGuard"]
+
+
+class PreemptionGuard:
+    """Install SIGTERM/SIGINT handlers that request a graceful stop.
+
+    >>> guard = accelerator.enable_preemption_handling(save_dir="ckpts")
+    >>> for batch in dl:
+    ...     train_step(batch)
+    ...     if accelerator.check_preemption(step=global_step):
+    ...         break  # final verified checkpoint already written
+
+    The handler records the signal, runs the registered callbacks, then
+    chains to the Python handler installed before it.  A second delivery of
+    the same signal restores the default disposition and re-raises it, so a
+    run stuck in its final checkpoint can still be killed.
+    """
+
+    def __init__(self, signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT),
+                 coordinated: Optional[bool] = None):
+        if coordinated:
+            raise NotImplementedError(
+                "a coordinated PreemptionGuard (agreement across processes) is not ported to "
+                "accelerate_tpu_torch yet (see ROADMAP.md)"
+            )
+        self.signals = tuple(signals)
+        self._installed = False
+        self._prev_handlers: dict = {}
+        self._in_signal: dict = {}
+        self._flag = False
+        self._signum: Optional[int] = None
+        self._callbacks: list = []
+        self.final_checkpoint_saved = False
+        self.save_dir: Optional[str] = None
+
+    # -- signal plumbing -----------------------------------------------------
+
+    def _handler(self, signum, frame):
+        if not self._installed:
+            # Uninstalled but still chained behind an outer handler: keep the
+            # chain firing, and never swallow a kill when it is the
+            # registered handler over the default disposition.
+            prev = self._prev_handlers.get(signum)
+            if callable(prev):
+                prev(signum, frame)
+            elif prev == signal.SIG_DFL and signal.getsignal(signum) == self._handler:
+                signal.signal(signum, signal.SIG_DFL)
+                os.kill(os.getpid(), signum)
+            return
+        if self._in_signal.get(signum):
+            return  # re-entered through a handler cycle, not a second kill
+        if self._flag and self._signum == signum:
+            # Second delivery: get out of the way of a determined kill.
+            signal.signal(signum, signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+            return
+        self._in_signal[signum] = True
+        try:
+            # Flags only: the interrupted thread may hold any lock.
+            self._flag = True
+            self._signum = signum
+            for cb in self._callbacks:
+                try:
+                    cb(signum)
+                except Exception:
+                    logger.exception("PreemptionGuard callback failed")
+            prev = self._prev_handlers.get(signum)
+            if callable(prev):
+                try:
+                    prev(signum, frame)
+                except Exception:
+                    logger.exception("chained previous signal handler failed")
+        finally:
+            self._in_signal[signum] = False
+
+    def install(self) -> "PreemptionGuard":
+        """Install the handlers (idempotent).  Must run on the main thread,
+        where CPython delivers signals."""
+        if self._installed:
+            return self
+        for signum in self.signals:
+            self._prev_handlers[signum] = signal.signal(signum, self._handler)
+        self._installed = True
+        return self
+
+    def uninstall(self) -> None:
+        """Restore the previous handlers (idempotent), only where the
+        registration is still this guard's: a handler installed over it
+        keeps its chain, and the inert guard passes signals through."""
+        if not self._installed:
+            return
+        self._installed = False
+        for signum in list(self._prev_handlers):
+            if signal.getsignal(signum) != self._handler:
+                continue
+            try:
+                signal.signal(signum, self._prev_handlers[signum])
+            except (ValueError, TypeError, OSError):
+                continue  # off the main thread: keep the entry for pass-through
+            self._prev_handlers.pop(signum)
+
+    def __enter__(self) -> "PreemptionGuard":
+        return self.install()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.uninstall()
+        return False
+
+    def add_callback(self, fn: Callable[[int], None]) -> None:
+        """Register ``fn(signum)`` to run inside the signal handler; keep it
+        to setting flags or writing a line."""
+        self._callbacks.append(fn)
+
+    # -- queries -------------------------------------------------------------
+
+    @property
+    def installed(self) -> bool:
+        return self._installed
+
+    def preempted_locally(self) -> bool:
+        """This process received a signal."""
+        return self._flag
+
+    def should_stop(self) -> bool:
+        """Whether to stop at this step boundary: on one process, the local
+        flag."""
+        return self._flag
+
+    def reset(self) -> None:
+        """Clear the flag (tests, loops that survive several preemptions)."""
+        self._flag = False
+        self._signum = None
+        self.final_checkpoint_saved = False

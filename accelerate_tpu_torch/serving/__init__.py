@@ -1,18 +1,23 @@
 """Serving layer of the port: continuous batching over a paged KV cache.
 
-- ``blocks`` — the block pool, refcounting allocator and prefix cache;
-- ``scheduler`` — admission queue, slot map, LIFO preemption;
+- ``blocks`` — the block pool, refcounting allocator, prefix cache and the
+  host tier (``HostBlockPool``);
+- ``scheduler`` — admission queue, slot map, LIFO preemption, deadlines and
+  the migration hook;
 - ``drafter`` — the n-gram drafter for speculative decode;
+- ``journal`` — the crash-recovery write-ahead journal;
 - ``engine`` — the engine: one prefill chunk and one decode forward per
-  tick.
+  tick, with queue bounds, deadlines, quarantine, the host tier, graceful
+  drain and journal recovery.
 
 Entry point: :meth:`accelerate_tpu_torch.Accelerator.prepare_serving`, or
 :class:`ServingEngine` built from a family's ``apply_cached``/``init_cache``.
 """
 
-from .blocks import BlockAllocator, BlockOutOfMemory, PagedKVCache, PrefixCache
+from .blocks import BlockAllocator, BlockOutOfMemory, HostBlockPool, PagedKVCache, PrefixCache
 from .drafter import NgramDrafter
 from .engine import AdmissionRejected, CompletedRequest, ServingConfig, ServingEngine
+from .journal import JournalError, ServingJournal
 from .scheduler import Request, RequestState, Scheduler
 
 __all__ = [
@@ -20,6 +25,8 @@ __all__ = [
     "BlockAllocator",
     "BlockOutOfMemory",
     "CompletedRequest",
+    "HostBlockPool",
+    "JournalError",
     "NgramDrafter",
     "PagedKVCache",
     "PrefixCache",
@@ -28,4 +35,5 @@ __all__ = [
     "Scheduler",
     "ServingConfig",
     "ServingEngine",
+    "ServingJournal",
 ]

@@ -3,8 +3,8 @@ content-addressed prefix cache.
 
 A copy of the JAX package's ``serving/blocks.py`` (which is numpy-only but
 sits behind a package import that loads JAX), with the pool as torch tensors
-on the engine's device.  The host-DRAM tier (``HostBlockPool``) is not
-ported yet.
+on the engine's device and the host tier as CPU tensors (pinned when the
+pool is on a GPU).
 
 The resident KV cache is a pool of ``num_blocks`` fixed-size blocks shared by
 every in-flight request (``[L, num_blocks, block_size, K, hd]`` per leaf),
@@ -30,6 +30,16 @@ content**: block ``i`` of a request's feed is keyed by a chain hash ``h_i =
 H(h_{i-1} || tokens[i*bs:(i+1)*bs])`` — K/V rows depend on the whole prefix.
 A partial tail is reused by **copy-on-write** into a private block; shared
 blocks are never written after registration.
+
+**Host tier.**  :class:`PagedKVCache` can carry a second block pool in host
+memory (:class:`HostBlockPool`) with the device pool's leaf layout, and
+:meth:`PagedKVCache.demote` / :meth:`PagedKVCache.promote` copy whole blocks
+between the tiers (one batched copy per leaf, between forwards).  Each copy
+has landed when the call returns (an event recorded after the copies is
+waited on), so host rows are never reused, scrubbed or read while a copy
+still reads or writes them.  A host block has exactly one owner (a
+preempted request's demoted KV, or a cold prefix-cache entry), so the tier
+keeps no refcounts; a host block marked dirty is zeroed when it is freed.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ __all__ = [
     "NULL_BLOCK",
     "BlockAllocator",
     "BlockOutOfMemory",
+    "HostBlockPool",
     "PagedKVCache",
     "PrefixCache",
     "blocks_for_tokens",
@@ -185,11 +196,98 @@ class BlockAllocator:
         self._free.extend(blocks)
 
 
+class HostBlockPool:
+    """Host mirror of the device block pool: one CPU leaf per pool leaf with
+    the same ``[L, num_blocks, block_size, *rest]`` layout (fp and int8
+    codes and scales alike), pinned when the device pool is on a GPU, plus a
+    LIFO free list over ids ``0..num_blocks-1`` (no null block: host blocks
+    are only ever copied whole).  No refcounts: every host block has one
+    owner.  A block marked dirty is zeroed at :meth:`free`, before it can be
+    allocated again."""
+
+    def __init__(self, pool: Dict[str, torch.Tensor], num_blocks: int):
+        if num_blocks < 1:
+            raise ValueError(f"host tier needs >= 1 block, got {num_blocks}")
+        self.num_blocks = num_blocks
+        pin = next(iter(pool.values())).device.type == "cuda"
+        self.leaves: Dict[str, torch.Tensor] = {
+            name: torch.zeros((leaf.shape[0], num_blocks) + tuple(leaf.shape[2:]),
+                              dtype=leaf.dtype, pin_memory=pin)
+            for name, leaf in pool.items()
+        }
+        self._free: List[int] = list(range(num_blocks - 1, -1, -1))
+        self._used: set = set()
+        self._dirty: set = set()
+
+    @property
+    def capacity(self) -> int:
+        return self.num_blocks
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return len(self._used)
+
+    @property
+    def occupancy(self) -> float:
+        return len(self._used) / self.num_blocks
+
+    def block_bytes(self) -> int:
+        """Bytes behind ONE host block across every leaf and layer (the
+        device pool's per-block footprint)."""
+        return self.pool_bytes() // self.num_blocks
+
+    def pool_bytes(self) -> int:
+        return sum(leaf.numel() * leaf.element_size() for leaf in self.leaves.values())
+
+    def used_bytes(self) -> int:
+        return len(self._used) * self.block_bytes()
+
+    def alloc(self, n: int = 1) -> List[int]:
+        """Pop ``n`` free host blocks, all or nothing."""
+        if n < 0:
+            raise ValueError(f"alloc count must be >= 0, got {n}")
+        if n > len(self._free):
+            raise BlockOutOfMemory(
+                f"host tier needs {n} blocks, {len(self._free)} free of {self.num_blocks}"
+            )
+        out = [self._free.pop() for _ in range(n)]
+        self._used.update(out)
+        return out
+
+    def mark_dirty(self, ids: List[int]) -> None:
+        """Mark host blocks as possibly poisoned: they are zeroed at free."""
+        for i in ids:
+            if i in self._used:
+                self._dirty.add(i)
+
+    def free(self, ids: List[int]) -> None:
+        """Return host blocks to the free list, zeroing dirty ones first.
+        Freeing an unallocated id is a hard error."""
+        for i in ids:
+            if i not in self._used:
+                raise ValueError(f"host double free / foreign block: {i}")
+            self._used.discard(i)
+            if i in self._dirty:
+                self._dirty.discard(i)
+                for leaf in self.leaves.values():
+                    leaf[:, i] = 0
+            self._free.append(i)
+
+
 class PrefixCache:
     """Content-addressed cache of full prompt blocks for cross-request
     sharing (see the module docstring).  The cache holds ONE allocator
     reference per cached block; :meth:`evict` releases cache-only blocks
-    LRU-first when the allocator needs room."""
+    LRU-first when the allocator needs room.
+
+    With a host tier attached (:meth:`attach_tier`), eviction **demotes** a
+    clean cache-only block to the host tier instead of dropping it (its
+    chain key moves to a host-side LRU map), and a lookup that walks onto a
+    demoted key **promotes** it back into a fresh device block."""
 
     def __init__(self, allocator: BlockAllocator, block_size: int):
         self.allocator = allocator
@@ -198,7 +296,21 @@ class PrefixCache:
         self._by_block: Dict[int, bytes] = {}
         # Cache-only block count, kept incrementally so free_blocks stays O(1).
         self._reclaimable = 0
+        # Host tier: chain key -> host block id, LRU oldest first.  A key
+        # lives in exactly one of _entries / _host_entries.
+        self._host_entries: "OrderedDict[bytes, int]" = OrderedDict()
+        self._kv: Optional["PagedKVCache"] = None
+        self.host_demotions = 0
+        self.host_promotions = 0
+        self.host_drops = 0  # evictions that dropped for want of host room
         allocator.attach_cache(self)
+
+    def attach_tier(self, kv: "PagedKVCache") -> None:
+        """Spill evictions to ``kv``'s host tier and promote them back on a
+        lookup hit."""
+        if kv.host is None:
+            raise ValueError("attach_tier requires an enabled host tier")
+        self._kv = kv
 
     @staticmethod
     def chain_keys(tokens: List[int], block_size: int, limit: Optional[int] = None) -> List[bytes]:
@@ -222,6 +334,11 @@ class PrefixCache:
         """Cached blocks whose ONLY reference is this cache."""
         return self._reclaimable
 
+    @property
+    def host_count(self) -> int:
+        """Chain entries currently demoted to the host tier."""
+        return len(self._host_entries)
+
     def _note_first_reader(self, block: int) -> None:
         if block in self._by_block:
             self._reclaimable -= 1
@@ -242,7 +359,11 @@ class PrefixCache:
         for key in self.chain_keys(tokens, bs, limit=blocks_for_tokens(max_rows, bs)):
             block = self._entries.get(key)
             if block is None:
+                block = self._promote_entry(key)
+            if block is None:
                 break
+            # Retain now: promoting the next key allocates, and that
+            # allocation may evict an unretained earlier match.
             self.allocator.retain(block)
             self._entries.move_to_end(key)
             matched.append((key, block))
@@ -259,6 +380,29 @@ class PrefixCache:
             self.allocator.free([block])
         return blocks, full_usable * bs, cow_src
 
+    def _promote_entry(self, key: bytes) -> Optional[int]:
+        """Bring a host-demoted chain entry back into a fresh device block
+        (a device OOM is a miss); returns the block, or None when ``key`` is
+        not on the host tier."""
+        if self._kv is None:
+            return None
+        host_id = self._host_entries.get(key)
+        if host_id is None:
+            return None
+        try:
+            block = self.allocator.alloc(1)[0]
+        except BlockOutOfMemory:
+            return None
+        self._kv.promote([host_id], [block])
+        del self._host_entries[key]
+        # The alloc's lone reference is now the cache's: reclaimable until
+        # the caller retains it.
+        self._entries[key] = block
+        self._by_block[block] = key
+        self._reclaimable += 1
+        self.host_promotions += 1
+        return block
+
     def register(self, chain_key: bytes, block: int) -> bool:
         """Publish a fully-written prompt block under its chain key; returns
         False when the key or the block is already cached."""
@@ -272,7 +416,8 @@ class PrefixCache:
     def evict(self, n: int) -> int:
         """Release up to ``n`` cache-only blocks, least recently used first;
         returns how many were released.  Blocks with live readers are never
-        touched."""
+        touched.  With a host tier, a clean victim is demoted first; it is
+        dropped only when the tier is full or the block is dirty."""
         released = 0
         for key in list(self._entries):
             if released >= n:
@@ -280,12 +425,32 @@ class PrefixCache:
             block = self._entries[key]
             if self.allocator.refcount(block) != 1:
                 continue
+            if self._kv is not None:
+                host_ids = (None if self.allocator.is_dirty(block)
+                            else self._kv.try_demote([block]))
+                if host_ids is not None:
+                    self._host_entries[key] = host_ids[0]
+                    self._host_entries.move_to_end(key)
+                    self.host_demotions += 1
+                else:
+                    self.host_drops += 1
             del self._entries[key]
             del self._by_block[block]
             self._reclaimable -= 1
             self.allocator.free([block])
             released += 1
         return released
+
+    def drop_host_entries(self, n: Optional[int] = None) -> int:
+        """Free up to ``n`` host-demoted entries (all when None), least
+        recently used first; returns how many were dropped."""
+        dropped = 0
+        for key in list(self._host_entries):
+            if n is not None and dropped >= n:
+                break
+            self._kv.host.free([self._host_entries.pop(key)])
+            dropped += 1
+        return dropped
 
     def invalidate_blocks(self, blocks: List[int]) -> None:
         """Drop cached entries for ``blocks`` (quarantine: no new sharers may
@@ -303,10 +468,13 @@ class PrefixCache:
 class PagedKVCache:
     """The device-side block pool plus its allocator.  ``init_cache`` is a
     model family's cache constructor; the pool leaves are derived from its
-    batch-1 template (:func:`~accelerate_tpu_torch.models.generation.make_paged_pool`)
-    and live on ``device``."""
+    batch-1 template (:func:`~accelerate_tpu_torch.models.generation.make_paged_pool`,
+    fp and int8 layouts alike) and live on ``device``.  With
+    ``num_host_blocks > 0`` (or :meth:`enable_host_tier`) a host tier of
+    that many blocks sits beside it."""
 
-    def __init__(self, init_cache: Callable, config, num_blocks: int, block_size: int, device):
+    def __init__(self, init_cache: Callable, config, num_blocks: int, block_size: int, device,
+                 num_host_blocks: int = 0):
         from ..models.generation import make_paged_pool
 
         if block_size < 1:
@@ -316,6 +484,73 @@ class PagedKVCache:
         self.pool: Dict[str, torch.Tensor] = make_paged_pool(
             init_cache, config, num_blocks, block_size, device
         )
+        self.host: Optional[HostBlockPool] = None
+        if num_host_blocks:
+            self.enable_host_tier(num_host_blocks)
+
+    def enable_host_tier(self, num_host_blocks: int) -> HostBlockPool:
+        """Attach a host pool of ``num_host_blocks`` blocks with the device
+        pool's leaf layout."""
+        if self.host is not None:
+            raise ValueError("host tier already enabled")
+        self.host = HostBlockPool(self.pool, num_host_blocks)
+        return self.host
+
+    def host_can_fit(self, n: int) -> bool:
+        """Whether a demotion of ``n`` blocks can be granted now."""
+        return self.host is not None and self.host.free_blocks >= n
+
+    def demote(self, blocks: List[int]) -> List[int]:
+        """Copy device ``blocks`` into fresh host blocks and return their
+        ids, in order; the copy has landed when this returns.  The caller
+        keeps its device references.  Raises :class:`BlockOutOfMemory` when
+        the host tier cannot fit them."""
+        from ..models.generation import demote_pool_blocks
+
+        if not blocks:
+            return []
+        if not self.host_can_fit(len(blocks)):
+            free = self.host.free_blocks if self.host is not None else 0
+            cap = self.host.capacity if self.host is not None else 0
+            raise BlockOutOfMemory(
+                f"host tier cannot fit {len(blocks)} blocks ({free} free of {cap})"
+            )
+        host_ids = self.host.alloc(len(blocks))
+        rows = demote_pool_blocks(self.pool, blocks)
+        ids = torch.tensor(host_ids, dtype=torch.long)
+        for name, leaf in self.host.leaves.items():
+            leaf.index_copy_(1, ids, rows[name])
+        return host_ids
+
+    def try_demote(self, blocks: List[int]) -> Optional[List[int]]:
+        """:meth:`demote`, or None when the host tier cannot fit."""
+        if not self.host_can_fit(len(blocks)):
+            return None
+        return self.demote(blocks)
+
+    def promote(self, host_ids: List[int], dst_blocks: List[int]) -> None:
+        """Copy host blocks into the already-allocated device blocks
+        ``dst_blocks`` and free the host ids once the copy has landed.
+        The host rows are gathered into one staging tensor per leaf (pinned
+        for a GPU pool) and copied from there."""
+        from ..models.generation import promote_pool_blocks
+
+        if len(host_ids) != len(dst_blocks):
+            raise ValueError(
+                f"promote id mismatch: {len(host_ids)} host vs {len(dst_blocks)} device"
+            )
+        if not host_ids:
+            return
+        if self.host is None:
+            raise ValueError("promote without a host tier")
+        ids = torch.tensor(host_ids, dtype=torch.long)
+        rows = {}
+        for name, leaf in self.host.leaves.items():
+            shape = (leaf.shape[0], len(host_ids)) + tuple(leaf.shape[2:])
+            staging = torch.empty(shape, dtype=leaf.dtype, pin_memory=leaf.is_pinned())
+            rows[name] = torch.index_select(leaf, 1, ids, out=staging)
+        promote_pool_blocks(self.pool, rows, dst_blocks)
+        self.host.free(host_ids)
 
     def pool_bytes(self) -> int:
         return sum(leaf.numel() * leaf.element_size() for leaf in self.pool.values())

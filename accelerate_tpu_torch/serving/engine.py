@@ -1,42 +1,67 @@
 """The serving engine: continuous batching over the paged KV cache.
 
 The PyTorch port of the JAX package's ``serving/engine.py``.  One engine
-**tick** (:meth:`ServingEngine.step`) is:
+**tick** (:meth:`ServingEngine.step`) is, in this order:
 
-1. **admit** — queue-head requests take free decode slots (FIFO), and reuse
-   any cached prefix of their prompt (shared full blocks, a copy-on-write
-   tail);
-2. **prefill** — at most ONE chunk (``prefill_chunk`` tokens, padded to a
+1. a **drain** instead of the tick once an installed preemption guard saw
+   its signal (:meth:`ServingEngine.drain`);
+2. **scrubs** of dirty blocks whose last reference dropped;
+3. **deadlines** — expired queued requests are shed before any slot,
+   prefill chunk or block is spent on them; expired in-flight ones are
+   cancelled and their blocks freed (``status="deadline_expired"``);
+4. **pressure relief** — below the headroom watermark, cold prefix-cache
+   blocks move to the host tier before admission allocates;
+5. **admit** — queue-head requests take free decode slots (FIFO); a
+   request whose KV sits in the host tier is **promoted** back and resumes
+   where it stopped, others reuse any cached prefix of their prompt;
+6. **prefill** — at most ONE chunk (``prefill_chunk`` tokens, padded to a
    fixed length) of the oldest prefilling request;
-3. **decode** — ONE forward over every decode slot, advancing each by one
-   token, or by up to ``spec_tokens + 1`` tokens when speculation is on
-   (a verify window drafted on the host and checked in the same forward).
+7. **decode** — ONE forward over every decode slot, advancing each by one
+   token, or by up to ``spec_tokens + 1`` tokens when speculation is on.
 
-All three forwards are the family's ``apply_paged``: attention reads the
-pool through per-slot block tables (bucketed to the next power of two of
-the widest live slot), and only the freshly written K/V rows come back,
-which the engine scatters into the pool **in place** — where the JAX
-programs donate the pool and return an updated one.  With
-``ServingConfig.paged_kernel`` the decode and verify attention run the
-paged kernels of ``ops/paged_attention.py``; prefill attention is the plain
-einsum path in either case.
+On the default ``decode_path="paged"`` all forwards are the family's
+``apply_paged``: attention reads the pool through per-slot block tables
+(bucketed to the next power of two of the widest live slot), and only the
+freshly written K/V rows come back, which the engine scatters into the pool
+**in place** — where the JAX programs donate the pool and return an updated
+one.  With ``ServingConfig.paged_kernel`` the decode and verify attention of
+an fp pool run the paged kernels of ``ops/paged_attention.py``; prefill and
+int8 pools take the plain path.  ``decode_path="dense"`` (taken also when
+the family has no ``apply_paged``) gathers each live slot's full-width view
+of the pool and runs the family's ``apply_cached`` on it, one slot at a
+time: the reference arm.
 
 Token selection is greedy, so every request's tokens are identical to the
 offline greedy ``generate`` on the same prompt, whatever the batching,
-preemption, prefix sharing or speculation.  A slot whose logits are not
-finite completes as ``"quarantined"`` and its blocks are zeroed when their
-last reference drops.
+preemption, migration, prefix sharing or speculation.  A slot whose logits
+are not finite completes as ``"quarantined"`` and its blocks are zeroed when
+their last reference drops.
 
-Not ported yet (their ``ServingConfig`` fields raise ``NotImplementedError``
-when set off their defaults): the host-DRAM KV tier, the crash-recovery
-journal, request tracing, queue bounds and deadlines, and the dense
-gather-view decode path.  Telemetry, the memory ledger, fault injection and
-the preemption guard are left out.
+Robustness layer:
+
+- ``max_queue_depth`` bounds the queue: ``submit`` past it raises
+  :class:`AdmissionRejected`;
+- per-request and default TTFT and total deadlines (step 3);
+- ``host_blocks`` adds a host-memory tier: preemption copies the victim's
+  blocks there instead of freeing them, re-admission copies them back with
+  no re-prefill, evicted prefix blocks spill there, and the free-and-re-
+  prefill path is the fallback when the tier is full;
+- ``journal_path`` arms the write-ahead journal (``journal.py``): a
+  successor engine's :meth:`ServingEngine.recover_from_journal` finishes
+  every acknowledged request token-identically, even after a SIGKILL;
+- :meth:`ServingEngine.install_preemption_guard` drains on a signal, and
+  the requeue journal resubmits to a successor.
+
+Not ported yet: request tracing (``trace``, ``trace_dir`` raise
+``NotImplementedError`` when set).  Telemetry, the memory ledger and fault
+injection are left out.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -44,9 +69,15 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models.generation import scatter_token_rows, speculative_verify_greedy
+from ..models.generation import (
+    extract_token_rows,
+    gather_block_view,
+    scatter_token_rows,
+    speculative_verify_greedy,
+)
 from ..state import resolve_device
 from .blocks import NULL_BLOCK, BlockOutOfMemory, PagedKVCache, PrefixCache, blocks_for_tokens
+from .journal import JournalError, ServingJournal
 from .scheduler import Request, RequestState, Scheduler
 
 __all__ = [
@@ -58,9 +89,9 @@ __all__ = [
 
 
 class AdmissionRejected(RuntimeError):
-    """Load-shedding rejection of the JAX engine's bounded admission queue.
-    Queue bounds (``max_queue_depth``) are not ported yet, so the port's
-    engine does not raise it."""
+    """Load shedding: the admission queue is at ``max_queue_depth``.  Not a
+    ``ValueError``: the request was well formed, the engine is overloaded;
+    callers retry with backoff or go elsewhere."""
 
 
 @dataclass
@@ -77,12 +108,25 @@ class ServingConfig:
     - ``spec_tokens``: speculative window ``k`` (0 disables);
       ``spec_ngram_max``/``spec_ngram_min``: match lengths of the default
       prompt-lookup drafter.
+    - ``decode_path``: ``"paged"`` (through ``apply_paged``; ``"dense"``
+      when the family has none) or ``"dense"`` (gathered views through
+      ``apply_cached``, the reference arm).
 
-    Not ported yet, and raising ``NotImplementedError`` when set off their
-    defaults: ``max_queue_depth``, ``default_ttft_deadline_ms``,
-    ``default_deadline_ms``, ``journal_path``, ``host_blocks``, ``trace``,
-    ``trace_dir`` and ``decode_path="dense"``.  ``tier_demote_batch`` only
-    acts with a host tier.
+    Robustness (host-side policy):
+
+    - ``max_queue_depth``: queue bound; ``submit`` past it raises
+      :class:`AdmissionRejected` (None: unbounded).
+    - ``default_ttft_deadline_ms`` / ``default_deadline_ms``: deadlines of
+      requests that pass none of their own (None: no deadline).
+    - ``journal_path``: arm the write-ahead journal at this path.
+    - ``host_blocks``: blocks of the host-memory KV tier (0: none).
+    - ``tier_demote_batch``: the most cold prefix blocks moved to the host
+      tier per tick while the device pool's free list is under the headroom
+      watermark (``ACCELERATE_TPU_SERVING_HEADROOM_WATERMARK``, a fraction
+      of the pool, default 0.1); 0 disables the sweep.
+
+    Not ported yet, and raising ``NotImplementedError`` when set:
+    ``trace`` and ``trace_dir``.
     """
 
     block_size: int = 16
@@ -114,16 +158,7 @@ class ServingConfig:
         """Raise ``NotImplementedError`` for the fields this port lacks."""
         if self.decode_path not in ("paged", "dense"):
             raise ValueError(f"decode_path must be 'paged' or 'dense', got {self.decode_path!r}")
-        unported = {
-            "max_queue_depth": self.max_queue_depth is not None,
-            "default_ttft_deadline_ms": self.default_ttft_deadline_ms is not None,
-            "default_deadline_ms": self.default_deadline_ms is not None,
-            "journal_path": self.journal_path is not None,
-            "host_blocks": self.host_blocks != 0,
-            "trace": bool(self.trace),
-            "trace_dir": self.trace_dir is not None,
-            "decode_path": self.decode_path != "paged",
-        }
+        unported = {"trace": bool(self.trace), "trace_dir": self.trace_dir is not None}
         for name, on in unported.items():
             if on:
                 raise NotImplementedError(
@@ -135,7 +170,12 @@ class ServingConfig:
 @dataclass
 class CompletedRequest:
     """Completion record: the tokens (prompt + generated) plus the request's
-    SLO timeline.  ``status`` is ``"ok"`` or ``"quarantined"``."""
+    SLO timeline.  ``status`` is ``"ok"``, ``"deadline_expired"`` (the
+    tokens emitted before expiry) or ``"quarantined"``.  ``migrations``
+    counts the request's round trips through the host tier,
+    ``fallback_reprefills`` its preemptions that re-prefilled for want of
+    host room, and ``prefill_dispatches`` all its prefill chunks (a
+    migrated resume adds none)."""
 
     id: int
     tokens: List[int]
@@ -149,13 +189,16 @@ class CompletedRequest:
     inter_token_ms: List[float] = field(default_factory=list)
     status: str = "ok"
     tag: Optional[str] = None
+    migrations: int = 0
+    fallback_reprefills: int = 0
     prefill_dispatches: int = 0
 
 
 class ServingEngine:
     """Continuous-batching serving over a model family's
-    ``apply_cached``/``init_cache`` pair; the family's module must also
-    define ``apply_paged`` (the llama family does)::
+    ``apply_cached``/``init_cache`` pair (fp or int8 KV); the paged path
+    also uses the family module's ``apply_paged`` (the llama family has
+    one)::
 
         engine = ServingEngine(llama.apply_cached, llama.init_cache, params, cfg,
                                serving=ServingConfig(max_slots=8))
@@ -178,6 +221,8 @@ class ServingEngine:
             raise ValueError("max_blocks_per_seq must be >= 1")
         if sc.spec_tokens < 0:
             raise ValueError(f"spec_tokens must be >= 0, got {sc.spec_tokens}")
+        if sc.host_blocks < 0:
+            raise ValueError(f"host_blocks must be >= 0, got {sc.host_blocks}")
         max_len = sc.resolved_max_blocks() * sc.block_size
         model_max = getattr(config, "max_seq_len", None)
         if model_max is not None and max_len > model_max:
@@ -188,15 +233,16 @@ class ServingEngine:
         param_dev = params["embed"].device
         if param_dev.type != self.device.type:
             raise ValueError(f"params are on {param_dev}, the engine serves on {self.device}")
-        self._paged_apply = getattr(inspect.getmodule(apply_cached), "apply_paged", None)
-        if self._paged_apply is None:
-            raise NotImplementedError(
-                "the family has no apply_paged; the dense decode path is not ported yet"
-            )
+        self._apply_cached = apply_cached
+        self._paged_apply = None
+        if sc.decode_path == "paged":
+            self._paged_apply = getattr(inspect.getmodule(apply_cached), "apply_paged", None)
+        self.decode_path = "paged" if self._paged_apply is not None else "dense"
         self._config = config
         self.params = params
         self.spec_tokens = int(sc.spec_tokens)
-        self.cache = PagedKVCache(init_cache, config, sc.num_blocks, sc.block_size, self.device)
+        self.cache = PagedKVCache(init_cache, config, sc.num_blocks, sc.block_size, self.device,
+                                  num_host_blocks=sc.host_blocks)
         self.sched = Scheduler(
             self.cache.allocator,
             num_slots=sc.max_slots,
@@ -208,6 +254,13 @@ class ServingEngine:
         self._prefix: Optional[PrefixCache] = (
             PrefixCache(self.cache.allocator, sc.block_size) if sc.prefix_cache else None
         )
+        if self.cache.host is not None:
+            # Evicted prefix blocks spill to the host tier, and preemption
+            # migrates the victim's KV there (the scheduler frees and
+            # re-prefills when the hook declines).
+            if self._prefix is not None:
+                self._prefix.attach_tier(self.cache)
+            self.sched.on_migrate_out = self._migrate_out
         self._drafter = None
         if self.spec_tokens > 0:
             if drafter is None:
@@ -215,10 +268,29 @@ class ServingEngine:
 
                 drafter = NgramDrafter(max_ngram=sc.spec_ngram_max, min_ngram=sc.spec_ngram_min)
             self._drafter = drafter
+        self.journal: Optional[ServingJournal] = (
+            ServingJournal(sc.journal_path) if sc.journal_path else None
+        )
+        self._preemption_guard = None
+        self._drained = False
+        self._draining = False
+        self._recovering = False
+        self.requeue_journal: Optional[List[dict]] = None
+        try:
+            self._headroom_watermark_frac = float(
+                os.environ.get("ACCELERATE_TPU_SERVING_HEADROOM_WATERMARK", "") or 0.1
+            )
+        except ValueError:
+            self._headroom_watermark_frac = 0.1
+        # A pressure episode starts under the watermark and ends only once
+        # the free share recovers above 1.5x it, so a pool hovering at the
+        # line counts one episode, not one per tick.
+        self._headroom_rearm_frac = min(self._headroom_watermark_frac * 1.5, 1.0)
+        self._low_headroom = False
+        self.low_headroom_episodes = 0
         self._block_bytes = self.cache.block_bytes()
         self._finished: List[CompletedRequest] = []
         self._decode_widths: set = set()
-        self.decode_path = "paged"
         self.ticks = 0
         self.decode_dispatches = 0
         self.decode_emitted_tokens = 0
@@ -227,11 +299,19 @@ class ServingEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.prefill_dispatches = 0
+        self.shed_count = 0
+        self.deadline_expired_count = 0
         self.quarantined_count = 0
         self.prefix_hits = 0
         self.prefix_blocks_reused = 0
         self.cow_copies = 0
         self.decode_gather_bytes = 0
+        # Engine-side migrations; the prefix cache's own spills and
+        # promotions are added in stats().
+        self.tier_demotions = 0
+        self.tier_promotions = 0
+        self.tier_demoted_blocks = 0
+        self.tier_fallback_reprefills = 0
         # Host seconds spent in the decode and prefill forwards, each up to
         # and including its one device synchronisation.
         self.decode_seconds = 0.0
@@ -243,82 +323,177 @@ class ServingEngine:
     # the device.  The pool is updated in place with the returned rows (the
     # JAX programs donate it and return a new one).
 
+    def _dense_forward(self, table_row: np.ndarray, start: int, ids: torch.Tensor):
+        """One slot through the family's ``apply_cached`` on the dense view
+        gathered through its full-width table; the rows it wrote go back
+        into the pool.  Returns its logits ``[1, T, V]``."""
+        dev = self.device
+        tables = torch.as_tensor(table_row[None], device=dev)
+        starts = torch.tensor([start], dtype=torch.int32, device=dev)
+        view = {n: gather_block_view(leaf, tables)[0] for n, leaf in self.cache.pool.items()}
+        logits, view = self._apply_cached(self.params, ids, self._config,
+                                          dict(view, index=int(start)))
+        t = ids.shape[1]
+        for n, leaf in self.cache.pool.items():
+            rows = extract_token_rows(view[n][None], starts, t)
+            scatter_token_rows(leaf, rows, tables, starts, t)
+        return logits
+
     @torch.no_grad()
     def _prefill_forward(self, table_row: np.ndarray, start: int, chunk: np.ndarray,
                          n_real: int):
         dev = self.device
-        tables = torch.as_tensor(table_row[None], device=dev)
-        starts = torch.tensor([start], dtype=torch.int32, device=dev)
         ids = torch.as_tensor(chunk, device=dev)
-        logits, rows = self._paged_apply(
-            self.params, ids, self._config, self.cache.pool, tables, starts
-        )
+        if self.decode_path == "dense":
+            logits = self._dense_forward(table_row, start, ids)
+        else:
+            tables = torch.as_tensor(table_row[None], device=dev)
+            starts = torch.tensor([start], dtype=torch.int32, device=dev)
+            logits, rows = self._paged_apply(
+                self.params, ids, self._config, self.cache.pool, tables, starts
+            )
+            for name, r in rows.items():
+                scatter_token_rows(self.cache.pool[name], r, tables, starts, chunk.shape[1])
         next_tok = logits[0, n_real - 1].argmax()
         ok = torch.isfinite(logits).all()
-        for name, r in rows.items():
-            scatter_token_rows(self.cache.pool[name], r, tables, starts, chunk.shape[1])
         tok, ok = torch.stack([next_tok, ok.long()]).tolist()
         return tok, bool(ok)
 
     @torch.no_grad()
     def _decode_forward(self, tables: np.ndarray, lengths: np.ndarray, tokens: np.ndarray,
-                        draft_len: np.ndarray):
-        """One decode (window 1) or verify (window k+1) forward over every
-        slot: returns the target argmax per window position ``[S, W]``, the
-        accepted draft count ``[S]`` and per-slot logit finiteness ``[S]``."""
+                        draft_len: np.ndarray, live: List[int]):
+        """One decode (window 1) or verify (window k+1) forward over the
+        slots: returns the target argmax per window position ``[S, W]``, the
+        accepted draft count ``[S]`` and per-slot logit finiteness ``[S]``
+        (rows of slots not in ``live`` are meaningless)."""
         dev = self.device
-        tables_t = torch.as_tensor(tables, device=dev)
-        lengths_t = torch.as_tensor(lengths, device=dev)
         tokens_t = torch.as_tensor(tokens, device=dev)
-        logits, rows = self._paged_apply(
-            self.params, tokens_t, self._config, self.cache.pool, tables_t, lengths_t,
-            kernel=self.serving.paged_kernel,
-        )  # [S, W, V]
-        t, m = speculative_verify_greedy(
-            logits, tokens_t[:, 1:], torch.as_tensor(draft_len, device=dev)
-        )
-        ok = torch.isfinite(logits).all(-1).all(-1)
-        for name, r in rows.items():
-            scatter_token_rows(self.cache.pool[name], r, tables_t, lengths_t, tokens.shape[1])
-        host = torch.cat([t, m[:, None], ok[:, None].to(torch.int32)], 1).cpu().numpy()
+        draft_t = torch.as_tensor(draft_len, device=dev)
+        if self.decode_path == "dense":
+            # One slot at a time: the port's apply_cached takes one write
+            # index per call.
+            logits = torch.stack([
+                self._dense_forward(tables[i], int(lengths[i]), tokens_t[i:i + 1])[0]
+                for i in live
+            ])  # [n_live, W, V]
+            sel = torch.as_tensor(live, device=dev)
+            t, m = speculative_verify_greedy(logits, tokens_t[sel, 1:], draft_t[sel])
+            ok = torch.isfinite(logits).all(-1).all(-1)
+            part = torch.cat([t, m[:, None], ok[:, None].to(torch.int32)], 1).cpu().numpy()
+            host = np.zeros((tokens.shape[0], part.shape[1]), part.dtype)
+            host[live] = part
+        else:
+            tables_t = torch.as_tensor(tables, device=dev)
+            lengths_t = torch.as_tensor(lengths, device=dev)
+            logits, rows = self._paged_apply(
+                self.params, tokens_t, self._config, self.cache.pool, tables_t, lengths_t,
+                kernel=self.serving.paged_kernel,
+            )  # [S, W, V]
+            t, m = speculative_verify_greedy(logits, tokens_t[:, 1:], draft_t)
+            ok = torch.isfinite(logits).all(-1).all(-1)
+            for name, r in rows.items():
+                scatter_token_rows(self.cache.pool[name], r, tables_t, lengths_t, tokens.shape[1])
+            host = torch.cat([t, m[:, None], ok[:, None].to(torch.int32)], 1).cpu().numpy()
         return host[:, :-2], host[:, -2], host[:, -1].astype(bool)
 
     # -- request API ---------------------------------------------------------
 
+    def install_preemption_guard(self, guard) -> None:
+        """Drain on a preemption signal: once ``guard`` (a
+        :class:`~accelerate_tpu_torch.resilience.PreemptionGuard`) has seen
+        its signal, the next :meth:`step` runs :meth:`drain` instead of a
+        tick."""
+        if self._drained:
+            raise RuntimeError(
+                "engine already drained: the requeue journal is final and admission is "
+                "closed; build a successor engine instead of re-arming this one"
+            )
+        self._preemption_guard = guard
+
+    @property
+    def drained(self) -> bool:
+        return self._drained
+
     def submit(self, prompt_ids, max_new_tokens: int, arrival_t: Optional[float] = None, *,
-               tag: Optional[str] = None) -> int:
+               tag: Optional[str] = None, ttft_deadline_ms: Optional[float] = None,
+               deadline_ms: Optional[float] = None) -> int:
         """Queue one request; returns its id.  ``max_new_tokens == 0``
-        completes immediately.  Raises ``ValueError`` when the request's
-        geometry can never be served."""
-        req = Request(list(np.asarray(prompt_ids).reshape(-1)), max_new_tokens, arrival_t, tag=tag)
+        completes immediately.  Deadlines default from the
+        :class:`ServingConfig` (None means the default).  ``tag`` is carried
+        into the :class:`CompletedRequest` and the journal: the request's
+        identity across a recovery, where ids change.
+
+        Raises :class:`AdmissionRejected` when the queue is at
+        ``max_queue_depth``, ``ValueError`` when the request's geometry can
+        never be served, and ``RuntimeError`` once the engine drained."""
+        if self._drained:
+            raise RuntimeError(
+                "engine drained after a preemption signal: admission is closed and the "
+                "requeue journal is final; resubmit to a successor engine "
+                "(see engine.requeue_journal)"
+            )
+        sc = self.serving
+        if (sc.max_queue_depth is not None and not self._recovering
+                and self.sched.pending >= sc.max_queue_depth):
+            self.shed_count += 1
+            raise AdmissionRejected(
+                f"admission queue full ({self.sched.pending} >= max_queue_depth "
+                f"{sc.max_queue_depth}): request shed"
+            )
+        req = Request(
+            list(np.asarray(prompt_ids).reshape(-1)), max_new_tokens, arrival_t, tag=tag,
+            ttft_deadline_ms=(ttft_deadline_ms if ttft_deadline_ms is not None
+                              else sc.default_ttft_deadline_ms),
+            deadline_ms=deadline_ms if deadline_ms is not None else sc.default_deadline_ms,
+        )
         if req.max_new_tokens == 0:
             req.state = RequestState.DONE
             req.admit_t = req.finish_t = time.monotonic()
-            self._complete(req)
         else:
             self.sched.submit(req)
+        # Write-ahead: on disk before the id is returned.
+        if self.journal is not None:
+            self.journal.record_admit(req)
+        if req.state == RequestState.DONE:
+            self._complete(req)
         return req.id
 
     def step(self) -> List[CompletedRequest]:
-        """One engine tick: admit, one prefill chunk, one decode forward.
-        Returns the requests that completed this tick."""
+        """One engine tick (see the module docstring for its order).
+        Returns the requests that completed this tick; a drain returns
+        none."""
         now = time.monotonic()
         done_before = len(self._finished)
+        if self._drained or self._drain_requested():
+            self.drain()
+            return []
         self.ticks += 1
         self._drain_scrubs()
-        for idx in self.sched.admit(now):
+        self._expire_deadlines(now)
+        self._pressure_relief()
+        admitted = self.sched.admit(now)
+        for idx in admitted:
+            # A migrated victim comes back from the host tier first;
+            # _attach_prefix then leaves its slot alone.
+            self._promote_admitted(idx)
+        for idx in admitted:
             self._attach_prefix(idx)
         self._prefill_tick()
         self._decode_tick()
         self._drain_scrubs()
+        self._note_headroom()
         return self._finished[done_before:]
 
     def run(self, max_ticks: Optional[int] = None) -> Dict[int, List[int]]:
         """Tick until every submitted request completes; returns
-        ``{request_id: full token list (prompt + generated)}``."""
+        ``{request_id: full token list (prompt + generated)}``.  A drain
+        ends the loop early: incomplete requests are in
+        :attr:`requeue_journal`."""
         ticks = 0
         while not self.sched.idle():
             self.step()
+            if self._drained:
+                break
             ticks += 1
             if max_ticks is not None and ticks >= max_ticks:
                 raise RuntimeError(
@@ -331,7 +506,215 @@ class ServingEngine:
         out, self._finished = self._finished, []
         return out
 
-    # -- quarantine ----------------------------------------------------------
+    def _drain_requested(self) -> bool:
+        guard = self._preemption_guard
+        return guard is not None and guard.should_stop()
+
+    def drain(self) -> List[dict]:
+        """Graceful drain: close admission, preempt every in-flight slot
+        back to the queue (blocks freed, emitted tokens carried, the oldest
+        request at the front), release the host tier, and return the
+        requeue journal of the incomplete requests (also kept in
+        :attr:`requeue_journal` and, with a journal, their progress on
+        disk).  Idempotent."""
+        if self._drained:
+            return self.requeue_journal or []
+        # Host memory dies with the process: no migration past this line,
+        # and queued victims give their host blocks back.
+        self._draining = True
+        while self.sched.slots:
+            self.sched.preempt_one()
+        for req in self.sched.queue:
+            self._release_demoted(req)
+        journal = [
+            {
+                "id": req.id,
+                "prompt": list(req.prompt),
+                "emitted": list(req.emitted),
+                "remaining": req.remaining,
+                "preemptions": req.preemptions,
+                "tag": req.tag,
+            }
+            for req in self.sched.queue
+        ]
+        self._drained = True
+        self.requeue_journal = journal
+        self._drain_scrubs()
+        if self.journal is not None:
+            self.journal.record_progress(self.sched.queue)
+        return journal
+
+    # -- crash recovery ------------------------------------------------------
+
+    def recover_from_journal(self, path: Optional[str] = None) -> Dict[int, int]:
+        """Resubmit every request of a dead engine's journal that has no
+        terminal record, as ``prompt + emitted`` with the remaining budget,
+        so this engine finishes each token-identically.  Returns ``{old id:
+        new id}``.  Call it before the first ``submit`` when this engine
+        journals to the same path.  The queue bound does not apply to
+        recovered requests, and the whole batch lands in the journal in one
+        flush; deadlines restart from now."""
+        path = path or self.serving.journal_path
+        if path is None:
+            raise ValueError("no journal path: pass one or set ServingConfig.journal_path")
+        if (self.journal is not None and self.journal.flushed
+                and os.path.abspath(path) == os.path.abspath(self.journal.path)):
+            raise JournalError(
+                f"this engine already overwrote the journal at {path!r}; "
+                "recover_from_journal must run before the first submit"
+            )
+        state = ServingJournal.load(path)
+        mapping: Dict[int, int] = {}
+        batch = self.journal.deferred() if self.journal is not None else contextlib.nullcontext()
+        self._recovering = True
+        try:
+            with batch:
+                for rec in ServingJournal.pending(state):
+                    emitted = rec.get("emitted") or []
+                    mapping[rec["id"]] = self.submit(
+                        rec["prompt"] + list(emitted),
+                        rec["max_new_tokens"] - len(emitted),
+                        tag=rec.get("tag"),
+                        ttft_deadline_ms=rec.get("ttft_deadline_ms"),
+                        deadline_ms=rec.get("deadline_ms"),
+                    )
+        finally:
+            self._recovering = False
+        return mapping
+
+    # -- host tier -----------------------------------------------------------
+
+    def _count_fallback(self, req: Request) -> None:
+        req.fallback_reprefills += 1
+        self.tier_fallback_reprefills += 1
+
+    def _migrate_out(self, slot) -> bool:
+        """The scheduler's ``on_migrate_out`` hook: copy the victim's blocks
+        to the host tier, release the device references and park the host
+        ids and resume state on the request.  Declines during a drain, when
+        a block is quarantine-dirty (it must be rebuilt clean), or when the
+        tier cannot fit the blocks even after dropping cold prefix
+        entries."""
+        req = slot.request
+        blocks = slot.blocks
+        if self._draining or not blocks:
+            return False
+        alloc = self.cache.allocator
+        if any(alloc.is_dirty(b) for b in blocks):
+            self._count_fallback(req)
+            return False
+        n = len(blocks)
+        if not self.cache.host_can_fit(n) and self._prefix is not None:
+            need = n - self.cache.host.free_blocks
+            if 0 < need <= self._prefix.host_count:
+                self._prefix.drop_host_entries(need)  # a live request outranks a cold prefix
+        if not self.cache.host_can_fit(n):
+            self._count_fallback(req)
+            return False
+        req.demoted_blocks = self.cache.demote(blocks)
+        req.demoted_rows = slot.cache_len
+        req.demoted_registered = slot.registered_blocks
+        req.migrations += 1
+        alloc.free(blocks)
+        self.tier_demotions += 1
+        self.tier_demoted_blocks += n
+        if self.journal is not None:
+            self.journal.record_tier(req, "host")
+        return True
+
+    def _promote_admitted(self, idx: int) -> None:
+        """Bring a re-admitted migration victim's KV back from the host tier
+        and restore its slot as preemption found it: ``cache_len``, the
+        registration cursor, and DECODING when only the last emitted token's
+        row is unwritten, so the resume spends no prefill dispatch.  Without
+        device room it falls back to the re-prefill (host blocks freed)."""
+        slot = self.sched.slots.get(idx)
+        if slot is None:
+            return
+        req = slot.request
+        host_ids = req.demoted_blocks
+        if not host_ids:
+            return
+        try:
+            dst = self.cache.allocator.alloc(len(host_ids))
+        except BlockOutOfMemory:
+            self._release_demoted(req)
+            self._count_fallback(req)
+            if self.journal is not None:
+                self.journal.record_tier(req, "device")
+            return
+        self.cache.promote(host_ids, dst)
+        slot.blocks = dst
+        slot.cache_len = req.demoted_rows
+        slot.registered_blocks = req.demoted_registered
+        req.demoted_blocks = None
+        req.demoted_rows = 0
+        req.demoted_registered = 0
+        if req.emitted and slot.cache_len == len(req.to_feed) - 1:
+            req.state = RequestState.DECODING
+        self.tier_promotions += 1
+        if self.journal is not None:
+            self.journal.record_tier(req, "device")
+
+    def _release_demoted(self, req: Request, dirty: bool = False) -> None:
+        """Free a request's host blocks (expiry of a queued victim, promotion
+        fallback, drain, quarantine); ``dirty`` zeroes them on the way."""
+        if req.demoted_blocks:
+            if dirty:
+                self.cache.host.mark_dirty(req.demoted_blocks)
+            self.cache.host.free(req.demoted_blocks)
+        req.demoted_blocks = None
+        req.demoted_rows = 0
+        req.demoted_registered = 0
+
+    def _pressure_relief(self) -> None:
+        """Under the headroom watermark (the device pool's raw free list, not
+        counting reclaimable cache blocks, as a share of its capacity), move
+        up to ``tier_demote_batch`` cold prefix blocks to the host tier
+        before admission allocates.  The order under pressure: demote,
+        drop (host full), migrate a victim, free and re-prefill it."""
+        if self._prefix is None or self.cache.host is None or self.serving.tier_demote_batch <= 0:
+            return
+        alloc = self.cache.allocator
+        raw_free = alloc.free_blocks - self._prefix.reclaimable_count
+        if raw_free / max(alloc.capacity, 1) >= self._headroom_watermark_frac:
+            return
+        reclaim = min(self.serving.tier_demote_batch, self._prefix.reclaimable_count)
+        if reclaim > 0:
+            self._prefix.evict(reclaim)
+
+    def _note_headroom(self) -> None:
+        """Count low-headroom episodes: one starts when the pool's free share
+        falls under the watermark and ends once it is back above 1.5x it."""
+        alloc = self.cache.allocator
+        free_frac = alloc.free_blocks / max(alloc.capacity, 1)
+        if free_frac < self._headroom_watermark_frac:
+            if not self._low_headroom:
+                self._low_headroom = True
+                self.low_headroom_episodes += 1
+        elif self._low_headroom and free_frac >= self._headroom_rearm_frac:
+            self._low_headroom = False
+
+    # -- deadlines and quarantine --------------------------------------------
+
+    def _expire_deadlines(self, now: float) -> None:
+        """Shed expired queued requests and cancel expired in-flight ones
+        (blocks freed, slot returned)."""
+        for req in [r for r in self.sched.queue if r.expired(now)]:
+            self.sched.cancel_queued(req)
+            self._finish_expired(req, now)
+        for idx in list(self.sched.slots):
+            req = self.sched.slots[idx].request
+            if req.expired(now):
+                self.sched.finish(idx, now)
+                self._finish_expired(req, now)
+
+    def _finish_expired(self, req: Request, now: float) -> None:
+        self._release_demoted(req)
+        req.state = RequestState.DONE
+        req.finish_t = now
+        self.deadline_expired_count += 1
+        self._complete(req, status="deadline_expired")
 
     def _quarantine(self, idx: int, now: float) -> None:
         """A slot's logits came back non-finite: complete its request as
@@ -343,6 +726,7 @@ class ServingEngine:
             self._prefix.invalidate_blocks(slot.blocks)
         self.cache.allocator.mark_dirty(slot.blocks)
         req = self.sched.finish(idx, now)
+        self._release_demoted(req, dirty=True)
         self._drain_scrubs(always_null=True)
         self.quarantined_count += 1
         self._complete(req, status="quarantined")
@@ -365,10 +749,13 @@ class ServingEngine:
         full blocks are shared into the slot's table, a reusable partial
         tail is copied into a private block, and ``cache_len`` starts past
         the shared rows.  At least one feed token is always left to process:
-        the final chunk's logits are the next token."""
+        the final chunk's logits are the next token.  A promoted slot
+        already owns its table and is left alone."""
         if self._prefix is None:
             return
-        slot = self.sched.slots[idx]
+        slot = self.sched.slots.get(idx)
+        if slot is None or slot.blocks:
+            return
         feed = slot.request.to_feed
         max_rows = len(feed) - 1
         if max_rows < self.serving.block_size:
@@ -415,8 +802,11 @@ class ServingEngine:
     # -- tick phases ---------------------------------------------------------
 
     def _bucket_width(self, blocks_needed: int) -> int:
-        """Block-table width: the next power of two covering
-        ``blocks_needed``, capped at the configured maximum."""
+        """Block-table width of the paged path: the next power of two
+        covering ``blocks_needed``, capped at the configured maximum.  The
+        dense path always takes the maximum."""
+        if self.decode_path == "dense":
+            return self.serving.resolved_max_blocks()
         width = 1
         while width < blocks_needed:
             width *= 2
@@ -515,10 +905,13 @@ class ServingEngine:
             if d:
                 tokens[idx, 1:1 + len(d)] = d
                 draft_len[idx] = len(d)
-        self.decode_gather_bytes += sum(len(sched.slots[i].blocks) for i in live) * self._block_bytes
+        # The dense path gathers each live slot's full-width view.
+        gathered = (len(live) * m if self.decode_path == "dense"
+                    else sum(len(sched.slots[i].blocks) for i in live))
+        self.decode_gather_bytes += gathered * self._block_bytes
         self._decode_widths.add(m)
         t0 = time.perf_counter()
-        out, accepts, oks = self._decode_forward(tables, lengths, tokens, draft_len)
+        out, accepts, oks = self._decode_forward(tables, lengths, tokens, draft_len, live)
         self.decode_seconds += time.perf_counter() - t0
         self.decode_dispatches += 1
         emit_t = time.monotonic()
@@ -586,8 +979,32 @@ class ServingEngine:
             inter_token_ms=list(req.inter_token_ms),
             status=status,
             tag=req.tag,
+            migrations=req.migrations,
+            fallback_reprefills=req.fallback_reprefills,
             prefill_dispatches=req.prefill_dispatches,
         ))
+        if self.journal is not None:
+            self.journal.record_done(req.id, status)
+
+    def _tier_stats(self) -> Optional[dict]:
+        host = self.cache.host
+        if host is None:
+            return None
+        spilled = self._prefix.host_demotions if self._prefix else 0
+        return {
+            "host_blocks": host.capacity,
+            "host_used": host.used_blocks,
+            "host_free": host.free_blocks,
+            "host_occupancy": round(host.occupancy, 4),
+            "host_bytes": host.used_bytes(),
+            "demotions": self.tier_demotions + spilled,
+            "promotions": self.tier_promotions
+            + (self._prefix.host_promotions if self._prefix else 0),
+            "demoted_blocks": self.tier_demoted_blocks + spilled,
+            "fallback_reprefills": self.tier_fallback_reprefills,
+            "prefix_host_entries": self._prefix.host_count if self._prefix else 0,
+            "prefix_host_drops": self._prefix.host_drops if self._prefix else 0,
+        }
 
     def stats(self) -> dict:
         alloc = self.cache.allocator
@@ -601,9 +1018,12 @@ class ServingEngine:
             "block_occupancy": round(alloc.occupancy, 4),
             "completed": len(self._finished),
             "preempted": self.sched.preempted_count,
+            "shed": self.shed_count,
+            "deadline_expired": self.deadline_expired_count,
             "quarantined": self.quarantined_count,
             "pool_bytes": self.cache.pool_bytes(),
             "free_pool_bytes": alloc.free_blocks * self._block_bytes,
+            "low_headroom_episodes": self.low_headroom_episodes,
             "decode_path": self.decode_path,
             "decode_gather_bytes": self.decode_gather_bytes,
             "prefix_hits": self.prefix_hits,
@@ -613,6 +1033,8 @@ class ServingEngine:
             "decode_bucket_widths": sorted(self._decode_widths),
             "decode_s": self.decode_seconds,
             "prefill_s": self.prefill_seconds,
+            "journal_flushes": self.journal.flushes if self.journal else 0,
+            "journal_flush_s": self.journal.flush_seconds if self.journal else 0.0,
             "spec": {
                 "window": self.spec_tokens,
                 "rounds": self.spec_rounds,
@@ -623,4 +1045,5 @@ class ServingEngine:
                     self.decode_emitted_tokens / max(self.decode_slot_ticks, 1), 4
                 ),
             },
+            "tiering": self._tier_stats(),
         }

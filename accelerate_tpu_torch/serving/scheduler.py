@@ -1,8 +1,8 @@
 """Continuous-batching request scheduler: admission queue, slot map, preemption.
 
 A copy of the JAX package's ``serving/scheduler.py`` with the same behaviour
-for admission, LIFO preemption, chunked-prefill geometry and the speculative
-overshoot.  Deadlines and the host-tier migration hook are not ported yet.
+for admission, LIFO preemption, chunked-prefill geometry, the speculative
+overshoot, deadlines and the host-tier migration hook.
 
 State machine per request::
 
@@ -17,6 +17,11 @@ allocator runs dry mid-flight, the most recently admitted request is evicted
 livelock), its blocks are freed, and it re-enters the queue FRONT carrying
 the tokens it already emitted.  Re-prefilling ``prompt + emitted`` rebuilds
 the same cache, so preemption never changes a request's output.
+
+With the engine's host tier on, preemption first offers the victim to the
+``on_migrate_out`` hook, which copies its blocks to host memory; the
+request then resumes from them on re-admission with no re-prefill.  The
+free-and-re-prefill path is the fallback when the hook declines.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import itertools
 import time
 from collections import deque
 from enum import Enum
-from typing import Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional
 
 from .blocks import BlockAllocator, BlockOutOfMemory, blocks_for_tokens
 
@@ -42,12 +47,16 @@ class RequestState(Enum):
 class Request:
     """One serving request plus its lifecycle bookkeeping.  ``emitted``
     accumulates generated tokens across preemptions; the tokens a slot must
-    (re)prefill are always ``prompt + emitted``."""
+    (re)prefill are always ``prompt + emitted``.  ``ttft_deadline_ms``
+    bounds the wait for the first token and ``deadline_ms`` the whole
+    request, both from ``arrival_t``."""
 
     _ids = itertools.count()
 
     def __init__(self, prompt_ids: List[int], max_new_tokens: int,
-                 arrival_t: Optional[float] = None, tag: Optional[str] = None):
+                 arrival_t: Optional[float] = None, tag: Optional[str] = None,
+                 ttft_deadline_ms: Optional[float] = None,
+                 deadline_ms: Optional[float] = None):
         if max_new_tokens < 0:
             raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
         if not prompt_ids:
@@ -57,6 +66,8 @@ class Request:
         self.max_new_tokens = int(max_new_tokens)
         self.arrival_t = time.monotonic() if arrival_t is None else arrival_t
         self.tag = tag
+        self.ttft_deadline_ms = ttft_deadline_ms
+        self.deadline_ms = deadline_ms
         self.emitted: List[int] = []
         self.state = RequestState.QUEUED
         # SLO timeline (monotonic seconds; None until the event happens).
@@ -66,7 +77,36 @@ class Request:
         self.last_token_t: Optional[float] = None
         self.inter_token_ms: List[float] = []
         self.preemptions = 0
+        # Each re-queue after a preemption marks requeued_t; re-admission
+        # moves the wait into requeue_waits_ms (first admission is admit_t).
+        self.requeued_t: Optional[float] = None
+        self.requeue_waits_ms: List[float] = []
+        # Host-tier residency while re-queued after a migration: host block
+        # ids in table order, the cache rows they hold and the prefix-cache
+        # registration cursor; cleared on promotion or fallback.
+        self.demoted_blocks: Optional[List[int]] = None
+        self.demoted_rows = 0
+        self.demoted_registered = 0
+        # Prefill dispatches spent (a migrated resume adds none), host-tier
+        # round trips survived, and preemptions that fell back to re-prefill.
         self.prefill_dispatches = 0
+        self.migrations = 0
+        self.fallback_reprefills = 0
+
+    def pop_requeue_waits(self) -> List[float]:
+        out, self.requeue_waits_ms = self.requeue_waits_ms, []
+        return out
+
+    def expired(self, now: float) -> Optional[str]:
+        """``"deadline"`` or ``"ttft"`` when that deadline has passed (the
+        total deadline first), else None."""
+        elapsed_ms = (now - self.arrival_t) * 1e3
+        if self.deadline_ms is not None and elapsed_ms > self.deadline_ms:
+            return "deadline"
+        if (self.ttft_deadline_ms is not None and self.first_token_t is None
+                and elapsed_ms > self.ttft_deadline_ms):
+            return "ttft"
+        return None
 
     @property
     def to_feed(self) -> List[int]:
@@ -121,6 +161,12 @@ class Scheduler:
         self.slots: Dict[int, _Slot] = {}  # slot index -> lane
         self._admit_seq = itertools.count()
         self.preempted_count = 0
+        # Called with the evicted Request on every preemption.
+        self.on_preempt: Optional[Callable[[Request], None]] = None
+        # Offered the victim's slot before its blocks are freed; True means
+        # the hook moved the KV to the host tier and released the device
+        # references itself, False falls back to free-and-re-prefill.
+        self.on_migrate_out: Optional[Callable[[_Slot], bool]] = None
 
     def max_rows(self, request: Request) -> int:
         """Worst-case cache rows the request ever needs: the prompt plus
@@ -167,26 +213,44 @@ class Scheduler:
             head.state = RequestState.PREFILLING
             if head.admit_t is None:
                 head.admit_t = now
+            if head.requeued_t is not None:
+                head.requeue_waits_ms.append((now - head.requeued_t) * 1e3)
+                head.requeued_t = None
             self.slots[idx] = _Slot(head, next(self._admit_seq))
             admitted.append(idx)
         return admitted
 
+    def cancel_queued(self, request: Request) -> None:
+        """Remove a QUEUED request (deadline shed); the caller completes it.
+        Raises ValueError when it is not queued."""
+        self.queue.remove(request)
+
     def preempt_one(self) -> Optional[int]:
-        """Evict the most recently admitted in-flight request: free its
-        blocks and push it back onto the queue FRONT, carrying its emitted
-        tokens.  Returns the freed slot index, or None when nothing is in
-        flight."""
+        """Evict the most recently admitted in-flight request (see
+        :meth:`preempt_slot`).  Returns the freed slot index, or None when
+        nothing is in flight."""
         if not self.slots:
             return None
-        idx = max(self.slots, key=lambda i: self.slots[i].admit_seq)
+        return self.preempt_slot(max(self.slots, key=lambda i: self.slots[i].admit_seq))
+
+    def preempt_slot(self, idx: int) -> int:
+        """Evict slot ``idx``: its blocks go to the host tier when the
+        ``on_migrate_out`` hook takes them, else they are freed; either way
+        the request re-enters the queue FRONT with its emitted tokens."""
         slot = self.slots.pop(idx)
-        if slot.blocks:
+        migrated = False
+        if slot.blocks and self.on_migrate_out is not None:
+            migrated = self.on_migrate_out(slot)
+        if slot.blocks and not migrated:
             self.allocator.free(slot.blocks)
         req = slot.request
         req.state = RequestState.QUEUED
         req.preemptions += 1
+        req.requeued_t = time.monotonic()
         self.preempted_count += 1
         self.queue.appendleft(req)
+        if self.on_preempt is not None:
+            self.on_preempt(req)
         return idx
 
     def grow_to(self, idx: int, rows: int) -> bool:

@@ -87,8 +87,31 @@ Phases (each fails the run on any mismatch; nothing is caught):
    time per batch.  The checkpoint lives under ``build/`` beside this
    script and is deleted at the end.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+7. The serving robustness layer under memory pressure.  7a: Phase 3's
+   widths (4 layers, fp32, weights from seed 2) and six prompts, 24 new
+   tokens each, over 4 slots and a 21-block pool (20 usable; with 4 slots
+   this traffic never preempts a pool of 25 blocks or more),
+   ``paged_kernel=True``; every run must be token-identical to
+   greedy ``generate`` with no block leaked: the host tier (32 blocks,
+   prefix sharing off: migrations, promotions, and every promoted resume
+   without a re-prefill), no tier (prefix sharing off: the fallback
+   re-prefill),
+   ``kv_cache_quant`` (against ``generate`` on the int8 cache; no paged
+   launch), ``decode_path="dense"``, ``spec_tokens=3`` with the tier
+   (the window kernel launched), journal recovery (an engine abandoned
+   undrained after 30 ticks, its successor finishing from the journal),
+   and a drain on a SIGUSR1 the process sends itself (the requeue journal
+   finished on a successor).  7b: Phase 2's model and weights with 8 slots,
+   328 blocks, a 256-block pinned host tier and the journal on, 8 requests
+   of 512 + 73 i prompt tokens and 64 new tokens, one every 2 ticks: every
+   request ok, migrations > 0, one victim's blocks bit-identical across
+   demote -> promote (SHA-256), 32 decode launches per decode dispatch;
+   prints demote and promote times and GB/s beside a pinned ``copy_`` of
+   the same bytes, TTFT, ITL and decode tokens/s beside Phase 2's, and
+   the journal's ms per flush (fsync on).
+
+The last lines are the kernels' JSON record (the paged kernels' Phase 7
+launches as ``launches_phase7``), the card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
@@ -519,7 +542,8 @@ def phase2():
             f"decode_tokens_per_s={decode_tps:.1f} ttft_p50_ms={ttft:.1f} itl_p50_ms={itl:.2f} "
             f"itl_mean_ms={itl_mean:.2f} preempted={st['preempted']} "
             f"acceptance={st['spec']['acceptance_rate']}")
-        out[spec] = dict(dec=dec, win=win)
+        out[spec] = dict(dec=dec, win=win, ttft_p50_ms=ttft, itl_p50_ms=itl, itl_mean_ms=itl_mean,
+                         decode_tokens_per_s=decode_tps)
         del engine
         torch.cuda.empty_cache()
     decode_step_checks(params, cfg)
@@ -634,8 +658,17 @@ def decode_step_checks(params, cfg):
 # ---------------------------------------------------------------------------
 
 
-def phase3():
+def phase3_prompts(vocab_size):
+    """Six prompts of 43-200 tokens, the first two sharing 40 tokens."""
     import numpy as np
+
+    rng = np.random.default_rng(1)
+    shared = list(rng.integers(0, vocab_size, size=40))
+    prompts = [shared + list(rng.integers(0, vocab_size, size=n)) for n in (3, 25)]
+    return prompts + [list(rng.integers(0, vocab_size, size=n)) for n in (17, 64, 130, 200)]
+
+
+def phase3():
     import torch
 
     from accelerate_tpu_torch import Accelerator
@@ -643,10 +676,7 @@ def phase3():
 
     cfg = llama.LlamaConfig.llama3_8b(num_layers=4, dtype=torch.float32)
     params = llama.init_params(cfg, seed=1)
-    rng = np.random.default_rng(1)
-    shared = list(rng.integers(0, cfg.vocab_size, size=40))
-    prompts = [shared + list(rng.integers(0, cfg.vocab_size, size=n)) for n in (3, 25)]
-    prompts += [list(rng.integers(0, cfg.vocab_size, size=n)) for n in (17, 64, 130, 200)]
+    prompts = phase3_prompts(cfg.vocab_size)
     max_new = 24
 
     def greedy(p, n):
@@ -1306,6 +1336,341 @@ def phase6(smi):
     return counts_a
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the serving robustness layer under memory pressure
+# ---------------------------------------------------------------------------
+
+PHASE7_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase7")
+
+
+def tier_clean(engine, what):
+    """No device block and no request-owned host block left in use (what
+    stays on the host tier belongs to the prefix cache's spilled entries)."""
+    cached = engine._prefix.host_count if engine._prefix is not None else 0
+    host_used = engine.cache.host.used_blocks if engine.cache.host is not None else 0
+    check(engine.cache.allocator.used_blocks == 0,
+          f"{what}: {engine.cache.allocator.used_blocks} device blocks leaked")
+    check(host_used == cached, f"{what}: {host_used - cached} host blocks leaked")
+    return host_used
+
+
+def phase7a():
+    """Token identity under pressure at Llama-3-8B widths cut to 4 layers,
+    fp32: seven runs of Phase 3's six prompts over a 40-block pool."""
+    import signal
+
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.resilience import PreemptionGuard
+    from accelerate_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = llama.LlamaConfig.llama3_8b(num_layers=4, dtype=torch.float32)
+    qcfg = dataclasses.replace(cfg, kv_cache_quant=True)
+    params = llama.init_params(cfg, seed=2)
+    prompts = phase3_prompts(cfg.vocab_size)
+    max_new = 24
+    geometry = dict(max_slots=4, block_size=16, num_blocks=21, max_blocks_per_seq=32,
+                    prefill_chunk=64, paged_kernel=True)
+    need = sum(-(-(len(p) + max_new - 1) // 16) for p in prompts)
+    log(f"phase7a Llama-3-8B widths, 4 layers, fp32, seed 2: {len(prompts)} requests of "
+        f"{[len(p) for p in prompts]} + {max_new} tokens need {need} blocks, "
+        f"{geometry['num_blocks'] - 1} usable")
+
+    def greedy(c, p):
+        ids = torch.tensor([p], device="cuda")
+        return llama.generate(params, ids, c, max_new_tokens=max_new)[0].tolist()
+
+    want = [greedy(cfg, p) for p in prompts]
+    want_q = [greedy(qcfg, p) for p in prompts]
+
+    def engine(c=cfg, **kw):
+        return ServingEngine(llama.apply_cached, llama.init_cache, params, c,
+                             serving=ServingConfig(**dict(geometry, **kw)))
+
+    def submit_all(eng):
+        return [eng.submit(p, max_new, tag=str(i)) for i, p in enumerate(prompts)]
+
+    def identical(done, expect, what):
+        """``done``: {tag: CompletedRequest}, every prompt's exactly once."""
+        check(sorted(done) == [str(i) for i in range(len(prompts))],
+              f"{what}: completed {sorted(done)}")
+        for tag, c in done.items():
+            check(c.status == "ok" and c.tokens == expect[int(tag)],
+                  f"{what}: request {tag} ({c.status}) differs from greedy generate")
+
+    total = [0, 0]
+
+    def run(what, expect=want, c=cfg, **kw):
+        eng = engine(c, **kw)
+        submit_all(eng)
+        reset_counts()
+        eng.run(max_ticks=5000)
+        counts = read_counts()
+        total[0] += counts[0]
+        total[1] += counts[1]
+        done = {r.tag: r for r in eng.pop_finished()}
+        identical(done, expect, what)
+        st = eng.stats()
+        check(st["preempted"] > 0, f"{what}: nothing was preempted")
+        host = tier_clean(eng, what)
+        tier = st["tiering"] or {}
+        log(f"phase7a {what}: {len(done)} requests token-identical to greedy generate; "
+            f"preempted={st['preempted']} migrations={sum(r.migrations for r in done.values())} "
+            f"promotions={tier.get('promotions')} fallback_reprefills="
+            f"{tier.get('fallback_reprefills')} prefill_dispatches={st['prefill_dispatches']} "
+            f"decode_dispatches={st['decode_dispatches']} decode_launches={counts[0]} "
+            f"window_launches={counts[1]} cached_prefix_host_blocks={host}")
+        return eng, done, st, counts
+
+    # 1. The tier on; prefix sharing off, so a request's prefill dispatches
+    #    are its prompt's chunks exactly unless it re-prefilled.
+    eng, done, st, (dec, win) = run("host_blocks=32", host_blocks=32, prefix_cache=False)
+    migrated = [r for r in done.values() if r.migrations and not r.fallback_reprefills]
+    check(migrated and st["tiering"]["promotions"] > 0, f"no promoted resume: {st['tiering']}")
+    for r in migrated:
+        chunks = -(-r.prompt_len // geometry["prefill_chunk"])
+        check(r.prefill_dispatches == chunks, f"request {r.tag} spent {r.prefill_dispatches} "
+              f"prefill dispatches on a promoted resume, its prompt needs {chunks}")
+    check(dec == cfg.num_layers * st["decode_dispatches"] and win == 0,
+          f"decode kernel launched {dec} times over {st['decode_dispatches']} dispatches")
+    # 2. No tier: every preemption frees and re-prefills (prefix sharing off
+    #    again, or the victim's own cached prompt blocks hide the re-prefill).
+    chunks = sum(-(-len(p) // geometry["prefill_chunk"]) for p in prompts)
+    eng, done, st, _ = run("host_blocks=0", host_blocks=0, prefix_cache=False)
+    check(st["tiering"] is None and st["prefill_dispatches"] > chunks,
+          f"no re-prefill: {st['prefill_dispatches']} prefill dispatches for {chunks} chunks")
+    # 3. int8 KV: the plain path, no paged launch.
+    eng, done, st, (dec, win) = run("kv_cache_quant", want_q, qcfg, host_blocks=32)
+    check(dec == 0 and win == 0, f"int8 pool launched paged kernels: {dec}, {win}")
+    # 4. The dense gather-view path.
+    eng, done, st, (dec, win) = run("decode_path=dense", host_blocks=32, decode_path="dense")
+    check(st["decode_path"] == "dense" and dec == 0 and win == 0, "dense path launched kernels")
+    # 5. Speculation with the tier on.
+    eng, done, st, (dec, win) = run("spec_tokens=3", host_blocks=32, spec_tokens=3)
+    check(win > 0 and dec == 0, f"window kernel launched {win} times, decode kernel {dec}")
+    check(st["tiering"]["promotions"] > 0, f"spec run promoted nothing: {st['tiering']}")
+    del eng
+
+    # 6. Journal recovery: an engine abandoned undrained after 30 ticks.
+    os.makedirs(PHASE7_DIR, exist_ok=True)
+    jp = os.path.join(PHASE7_DIR, "journal.json")
+    first = engine(host_blocks=32, journal_path=jp)
+    submit_all(first)
+    for _ in range(30):
+        first.step()
+    done = {r.tag: r for r in first.pop_finished()}
+    left = len(prompts) - len(done)
+    del first
+    succ = engine(host_blocks=32, journal_path=os.path.join(PHASE7_DIR, "successor.json"))
+    mapping = succ.recover_from_journal(jp)
+    check(len(mapping) == left and left > 0, f"recovered {len(mapping)} of {left} pending")
+    reset_counts()
+    succ.run(max_ticks=5000)
+    total[0] += read_counts()[0]
+    done.update({r.tag: r for r in succ.pop_finished()})
+    identical(done, want, "journal recovery")
+    tier_clean(succ, "journal recovery")
+    log(f"phase7a journal recovery: {len(done) - left} finished before the abandonment, "
+        f"{left} recovered from the journal and finished token-identically; successor "
+        f"journal flushes={succ.stats()['journal_flushes']}")
+    del succ
+
+    # 7. Drain on a signal the process sends itself; the requeue journal
+    #    finishes on a successor.
+    guard = PreemptionGuard(signals=(signal.SIGUSR1,)).install()
+    try:
+        eng = engine(host_blocks=32)
+        eng.install_preemption_guard(guard)
+        submit_all(eng)
+        reset_counts()
+        for _ in range(12):
+            eng.step()
+        os.kill(os.getpid(), signal.SIGUSR1)
+        check(eng.step() == [] and eng.drained, "the signal did not drain the engine")
+    finally:
+        guard.uninstall()
+    total[0] += read_counts()[0]
+    requeue = eng.requeue_journal
+    done = {r.tag: r for r in eng.pop_finished()}
+    tier_clean(eng, "drain")
+    check(requeue and eng.sched.active == 0, f"drain left {eng.sched.active} slots")
+    succ = engine(host_blocks=32)
+    for rec in requeue:
+        succ.submit(rec["prompt"] + rec["emitted"], rec["remaining"], tag=rec["tag"])
+    reset_counts()
+    succ.run(max_ticks=5000)
+    total[0] += read_counts()[0]
+    # The successor's prompts carry the drained requests' emitted tokens.
+    done.update({r.tag: r for r in succ.pop_finished()})
+    identical(done, want, "drain")
+    tier_clean(succ, "drain successor")
+    log(f"phase7a drain on SIGUSR1: {len(requeue)} requests requeued with "
+        f"{sum(len(r['emitted']) for r in requeue)} emitted tokens carried, finished "
+        "token-identically on a successor")
+    del eng, succ, params
+    shutil.rmtree(PHASE7_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase7b(smi, unpressured):
+    """Llama-3-8B (32 layers, bf16, Phase 2's weights) under pressure: eight
+    long requests over a 328-block pool with a 256-block host tier."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    params = llama.init_params(cfg, seed=0)
+    rng = np.random.default_rng(7)
+    lens = [512 + 73 * i for i in range(8)]
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in lens]
+    max_new = 64
+    geometry = dict(max_slots=8, block_size=16, num_blocks=328, host_blocks=256,
+                    max_blocks_per_seq=128, prefill_chunk=256, paged_kernel=True)
+    os.makedirs(PHASE7_DIR, exist_ok=True)
+    acc = Accelerator()
+    engine = acc.prepare_serving(llama.apply_cached, llama.init_cache, params, cfg,
+                                 journal_path=os.path.join(PHASE7_DIR, "journal.json"), **geometry)
+    kv = engine.cache
+    block_bytes = kv.block_bytes()
+    need = sum(-(-(n + max_new - 1) // 16) for n in lens)
+    log(f"phase7b Llama-3-8B bf16, 32 layers: block {block_bytes} B, pool "
+        f"{kv.pool_bytes()} B, pinned host tier {kv.host.pool_bytes()} B; {len(lens)} requests "
+        f"of {lens[0]}-{lens[-1]} + {max_new} tokens need {need} blocks, "
+        f"{geometry['num_blocks'] - 1} usable")
+    engine.submit(list(rng.integers(0, cfg.vocab_size, size=40)), 4)  # warm-up
+    engine.run()
+    engine.pop_finished()
+
+    # Time every migration, and hold request victims' bytes (SHA-256 of the
+    # device blocks) across demote -> promote until one round trip is
+    # confirmed; the hashing runs outside the timed copies and the decode
+    # forwards, but inside the ticks the ITL samples span.
+    moves = {"demote": [], "promote": []}
+    pending, round_trips = {}, []
+    demote, promote = kv.demote, kv.promote
+
+    def digest(blocks):
+        h = hashlib.sha256()
+        for name in sorted(kv.pool):
+            h.update(kv.pool[name][:, blocks].contiguous().view(torch.uint8).cpu().numpy())
+        return h.hexdigest()
+
+    def timed_demote(blocks):
+        watch = len(blocks) > 1 and not round_trips and len(pending) < 3
+        before = digest(blocks) if watch else None
+        t0 = time.perf_counter()
+        ids = demote(blocks)
+        moves["demote"].append((time.perf_counter() - t0, len(blocks)))
+        if watch:
+            pending[tuple(ids)] = before
+        return ids
+
+    def timed_promote(host_ids, dst):
+        t0 = time.perf_counter()
+        promote(host_ids, dst)
+        moves["promote"].append((time.perf_counter() - t0, len(dst)))
+        if tuple(host_ids) in pending:
+            round_trips.append((pending.pop(tuple(host_ids)), digest(dst), len(dst)))
+
+    kv.demote, kv.promote = timed_demote, timed_promote
+    base_dispatches = engine.decode_dispatches
+    base_s, base_tok = engine.decode_seconds, engine.decode_emitted_tokens
+    base_flushes = engine.journal.flushes, engine.journal.flush_seconds
+    base_prefill = engine.prefill_seconds, engine.prefill_dispatches
+    reset_counts()
+    done, wall, ids = serve(engine, prompts, max_new, stagger_ticks=2)
+    dec, win = read_counts()
+    kv.demote, kv.promote = demote, promote
+    dispatches = engine.decode_dispatches - base_dispatches
+    st = engine.stats()
+    check(len(done) == len(prompts), f"{len(done)} of {len(prompts)} completed")
+    for rid, n in zip(ids, lens):
+        c = done[rid]
+        check(c.status == "ok" and c.new_tokens == max_new and len(c.tokens) == n + max_new,
+              f"request {rid} status {c.status} with {c.new_tokens} tokens")
+    migrations = sum(c.migrations for c in done.values())
+    check(migrations > 0, f"no migration under pressure: {st['tiering']}")
+    check(dec == cfg.num_layers * dispatches and win == 0,
+          f"decode kernel launched {dec} times over {dispatches} dispatches; window {win}")
+    check(round_trips and all(a == b for a, b, _ in round_trips),
+          f"a victim's blocks changed across demote -> promote: {round_trips}")
+    tier_clean(engine, "phase7b")
+
+    def rate(kind, many):
+        """Calls of ``kind`` moving more than one block (request migrations)
+        or exactly one (prefix-cache spills and their promotions)."""
+        calls = [(t, n * block_bytes) for t, n in moves[kind] if (n > 1) == many]
+        if not calls:
+            return "none"
+        per = [b / t / 1e9 for t, b in calls]
+        return (f"{len(calls)} calls, {sum(b for _, b in calls)} B in "
+                f"{sum(t for t, _ in calls) * 1e3:.3f} ms (median "
+                f"{median([t for t, _ in calls]) * 1e3:.3f} ms for "
+                f"{int(median([b for _, b in calls]))} B, {median(per):.2f} GB/s; "
+                f"{min(per):.2f}-{max(per):.2f} GB/s)")
+
+    for kind in ("demote", "promote"):
+        log(f"phase7b {kind}s of requests: {rate(kind, True)}; of single prefix blocks: "
+            f"{rate(kind, False)}")
+    # Yardstick: one pinned copy_ each way of the largest migration's bytes.
+    largest = max(n for _, n in moves["demote"]) * block_bytes
+    dev = torch.empty(largest, dtype=torch.uint8, device="cuda")
+    host = torch.empty(largest, dtype=torch.uint8, pin_memory=True)
+    times = {"d2h": [], "h2d": []}
+    for _ in range(5):
+        for way, (dst, src) in (("d2h", (host, dev)), ("h2d", (dev, host))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dst.copy_(src, non_blocking=True)
+            torch.cuda.synchronize()
+            times[way].append(time.perf_counter() - t0)
+    log(f"phase7b pinned copy_ of {largest} B: d2h {median(times['d2h']) * 1e3:.3f} ms "
+        f"({largest / median(times['d2h']) / 1e9:.2f} GB/s), h2d "
+        f"{median(times['h2d']) * 1e3:.3f} ms ({largest / median(times['h2d']) / 1e9:.2f} GB/s)")
+    del dev, host
+    ttft = median([c.ttft_ms for c in done.values()])
+    gaps = [x for c in done.values() for x in c.inter_token_ms]
+    itl, itl_mean = median(gaps), sum(gaps) / len(gaps)
+    decode_tps = (engine.decode_emitted_tokens - base_tok) / (engine.decode_seconds - base_s)
+    prefill_ms = ((engine.prefill_seconds - base_prefill[0])
+                  / (engine.prefill_dispatches - base_prefill[1]) * 1e3)
+    flushes = engine.journal.flushes - base_flushes[0]
+    flush_s = engine.journal.flush_seconds - base_flushes[1]
+    tier = st["tiering"]
+    log(f"phase7b under pressure: {len(done)} requests ok, wall_s={wall:.3f} "
+        f"decode_dispatches={dispatches} prefill_dispatches="
+        f"{engine.prefill_dispatches - base_prefill[1]} decode_launches={dec} "
+        f"preempted={st['preempted']} migrations={migrations} "
+        f"demotions={tier['demotions']} promotions={tier['promotions']} demoted_blocks="
+        f"{tier['demoted_blocks']} fallback_reprefills={tier['fallback_reprefills']} "
+        f"round trip of {round_trips[0][2]} blocks bit-identical by SHA-256; ttft_p50_ms={ttft:.1f} itl_p50_ms={itl:.2f} "
+        f"itl_mean_ms={itl_mean:.2f} decode_tokens_per_s={decode_tps:.1f} "
+        f"prefill_ms_per_chunk={prefill_ms:.2f}")
+    log(f"phase7b beside Phase 2 unpressured (8 requests of 128-1024 + 32 tokens): "
+        f"ttft_p50_ms={unpressured['ttft_p50_ms']:.1f} itl_p50_ms={unpressured['itl_p50_ms']:.2f} "
+        f"itl_mean_ms={unpressured['itl_mean_ms']:.2f} "
+        f"decode_tokens_per_s={unpressured['decode_tokens_per_s']:.1f}")
+    log(f"phase7b journal (fsync on): {flushes} flushes in {flush_s * 1e3:.3f} ms, "
+        f"{flush_s / max(flushes, 1) * 1e3:.3f} ms per mutation; {smi}")
+    del engine, params
+    shutil.rmtree(PHASE7_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dec
+
+
+def phase7(smi, unpressured):
+    a = phase7a()
+    dec_b = phase7b(smi, unpressured)
+    return {"paged_attention": a[0] + dec_b, "paged_window_attention": a[1]}
+
+
 def main() -> int:
     import torch
 
@@ -1336,6 +1701,9 @@ def main() -> int:
     p4 = phase4()
     p5 = phase5()
     p6 = phase6(smi)
+    p7 = phase7(smi, p2[0])
+    check(p7["paged_attention"] > 0 and p7["paged_window_attention"] > 0,
+          f"phase 7 launched the paged kernels {p7} times")
     log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS))
     launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"], **p5}
     check(win3 > 0, "window kernel not launched in phase 3")
@@ -1344,7 +1712,8 @@ def main() -> int:
         r = p1[(name, "torch.bfloat16", "long")]
         serving = p1[(name, "torch.bfloat16", "serving")]
         record.append(dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-                           launches=launches[name], **r, previous_source=PAGED_PREVIOUS,
+                           launches=launches[name], launches_phase7=p7[name], **r,
+                           previous_source=PAGED_PREVIOUS,
                            design=PAGED_DESIGN,
                            serving_shape={k: serving[k] for k in (
                                "max_abs_err", "ms", "previous_ms", "plain_ms", "bound_ms",

@@ -757,3 +757,116 @@ def test_save_load_continue_is_bit_identical_on_the_card(cuda, tmp_path):
     for k in sa:
         for name in ("step", "exp_avg", "exp_avg_sq"):
             assert torch.equal(sa[k][name], sb[k][name])
+
+
+# ---------------------------------------------------------------------------
+# The serving engine's host tier and int8 pools on the card (``-k tier``)
+# ---------------------------------------------------------------------------
+
+
+def _tier_cache(quant, dtype, num_blocks=12, host_blocks=6):
+    from accelerate_tpu_torch.serving.blocks import PagedKVCache
+
+    cfg = llama.LlamaConfig.tiny(dtype=dtype, kv_cache_quant=quant)
+    kv = PagedKVCache(llama.init_cache, cfg, num_blocks, 16, "cuda", num_host_blocks=host_blocks)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for leaf in kv.pool.values():
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen, device="cuda"))
+        else:
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    return kv
+
+
+@pytest.mark.parametrize("quant,dtype", [(False, torch.bfloat16), (False, torch.float32),
+                                         (True, torch.float32)], ids=["bf16", "fp32", "int8"])
+def test_tier_round_trip_is_bit_exact(cuda, quant, dtype):
+    kv = _tier_cache(quant, dtype)
+    assert all(leaf.is_pinned() for leaf in kv.host.leaves.values())
+    blocks = kv.allocator.alloc(4)
+    before = {n: leaf[:, blocks].clone() for n, leaf in kv.pool.items()}
+    host_ids = kv.demote(blocks)
+    kv.allocator.free(blocks)
+    for leaf in kv.pool.values():
+        leaf[:, blocks] = 0
+    dst = kv.allocator.alloc(4)[::-1]
+    kv.promote(host_ids, dst)
+    for n, leaf in kv.pool.items():
+        assert torch.equal(leaf[:, dst], before[n]), n
+    assert kv.host.used_blocks == 0
+
+
+def test_tier_promote_then_reuse_of_its_host_ids_lands_the_right_bytes(cuda):
+    """A promote whose copy is queued behind a busy stream, followed at once
+    by a demote into the same (LIFO-reused) host ids and a dirty free of
+    them: the promoted blocks still hold the demoted bytes."""
+    kv = _tier_cache(False, torch.bfloat16)
+    src = kv.allocator.alloc(3)
+    want = {n: leaf[:, src].clone() for n, leaf in kv.pool.items()}
+    host_ids = kv.demote(src)
+    kv.allocator.free(src)
+    other = kv.allocator.alloc(3)
+    for leaf in kv.pool.values():
+        leaf[:, other] = -1
+    dst = kv.allocator.alloc(3)
+    torch.cuda._sleep(50_000_000)  # keep the stream busy past the host's next steps
+    kv.promote(host_ids, dst)
+    again = kv.demote(other)
+    assert sorted(again) == sorted(host_ids)
+    kv.host.mark_dirty(again)
+    kv.host.free(again)
+    torch.cuda.synchronize()
+    for n, leaf in kv.pool.items():
+        assert torch.equal(leaf[:, dst], want[n]), n
+
+
+@pytest.mark.parametrize("t", [1, 4])
+def test_apply_paged_int8_pool_runs_no_kernel(cuda, t):
+    """An int8 pool takes the plain path under ``kernel=True`` (the JAX
+    package's kernels read fp pools only): no launch, the same logits and
+    rows as ``kernel=False``."""
+    from accelerate_tpu_torch.models.generation import make_paged_pool
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, kv_cache_quant=True)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    pool = make_paged_pool(llama.init_cache, cfg, 10, 16, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for n, leaf in pool.items():
+        leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen, device="cuda")
+                   if leaf.dtype == torch.int8 else torch.rand(leaf.shape, generator=gen,
+                                                               device="cuda") * 0.05)
+    tables = torch.tensor([[1, 4, 7], [2, 3, 0], [9, 8, 6]], dtype=torch.int32, device="cuda")
+    starts = torch.tensor([20, 2, 40], dtype=torch.int32, device="cuda")
+    ids = torch.randint(0, cfg.vocab_size, (3, t), generator=gen, device="cuda")
+    before = (pa.paged_attention.launches, pa.paged_window_attention.launches)
+    lk, rk = llama.apply_paged(params, ids, cfg, pool, tables, starts, kernel=True)
+    assert (pa.paged_attention.launches, pa.paged_window_attention.launches) == before
+    lp, rp = llama.apply_paged(params, ids, cfg, pool, tables, starts, kernel=False)
+    assert torch.equal(lk, lp) and all(torch.equal(rk[n], rp[n]) for n in rp)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_tiered_engine_on_the_card_matches_generate(cuda, quant):
+    from accelerate_tpu_torch.serving import ServingConfig, ServingEngine
+
+    # head_dim 64: the smallest the paged kernels take.
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, head_dim=64, kv_cache_quant=quant)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(7)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in (9, 13, 9)]
+    max_new = (8, 6, 7)
+    eng = ServingEngine(llama.apply_cached, llama.init_cache, params, cfg, device="cuda",
+                        serving=ServingConfig(block_size=4, num_blocks=8, max_slots=3,
+                                              prefill_chunk=4, max_blocks_per_seq=6,
+                                              host_blocks=16, paged_kernel=True))
+    before = pa.paged_attention.launches
+    ids = [eng.submit(p, m) for p, m in zip(prompts, max_new)]
+    out = eng.run(max_ticks=3000)
+    launches = pa.paged_attention.launches - before
+    for rid, p, m in zip(ids, prompts, max_new):
+        want = llama.generate(params, torch.tensor([p], device="cuda"), cfg, m)[0].tolist()
+        assert out[rid] == want
+    st = eng.stats()
+    assert st["tiering"]["demotions"] > 0 and st["tiering"]["promotions"] > 0
+    assert launches == (0 if quant else cfg.num_layers * st["decode_dispatches"])
+    assert eng.cache.allocator.used_blocks == 0

@@ -56,3 +56,29 @@ def test_source_names_no_jax_import(path):
         else:
             continue
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+@pytest.mark.parametrize("name", [
+    "accelerate_tpu_torch.resilience.preemption",
+    "accelerate_tpu_torch.serving.journal",
+    "accelerate_tpu_torch.serving.blocks",
+    "accelerate_tpu_torch.serving.engine",
+    "accelerate_tpu_torch.models.generation",
+])
+def test_robustness_modules_are_checked(name):
+    """The serving robustness layer's modules are among those the two checks
+    above import and parse, and they export the JAX package's names."""
+    import importlib
+
+    assert name in _module_names()
+    mod = importlib.import_module(name)
+    assert set(getattr(mod, "__all__", ())) <= set(dir(mod))
+
+
+def test_robustness_exports_match_jax_names():
+    import accelerate_tpu_torch.resilience as res
+    import accelerate_tpu_torch.serving as srv
+
+    for n in ("HostBlockPool", "JournalError", "ServingJournal", "AdmissionRejected"):
+        assert n in srv.__all__ and hasattr(srv, n)
+    assert res.__all__ == ["PreemptionGuard"]

@@ -115,14 +115,15 @@ def test_apply_paged_matches_jax(variant, t, kernel):
 
 @pytest.mark.parametrize("kernel", [True, False])
 def test_apply_paged_int8_pool_raises(kernel):
-    """The int8 pool is not ported: it raises rather than running a path the
-    JAX package does not take."""
+    """int8 codes without their ``k_scale``/``v_scale`` leaves are not a
+    pool: it raises rather than reading codes as values.  (The whole int8
+    pool is held against JAX in ``test_torch_kv_quant.py``.)"""
     cfg = tl.LlamaConfig.tiny(dtype=torch.float32)
     params = tl.init_params(cfg, seed=0, device="cpu")
     shape = (cfg.num_layers, 4, 4, cfg.num_kv_heads, cfg.head_dim_)
     pool = {k: torch.zeros(shape, dtype=torch.int8) for k in ("k", "v")}
     tables = torch.tensor([[1, 0]], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8"):
         tl.apply_paged(params, torch.tensor([[3]]), cfg, pool, tables,
                        torch.tensor([2], dtype=torch.int32), kernel=kernel)
 
@@ -210,6 +211,12 @@ def test_init_params_shapes_and_rule():
     ("fp8", True), ("kv_cache_quant", True), ("sp_impl", "ulysses"), ("remat_policy", "dots"),
 ])
 def test_unported_config_fields_raise(field, value):
+    """The fields still unported raise; ``kv_cache_quant`` is ported and
+    gives an int8 cache."""
+    if field == "kv_cache_quant":
+        cache = tl.init_cache(tl.LlamaConfig.tiny(**{field: value}), 1, 4, device="cpu")
+        assert cache["k"].dtype == torch.int8 and cache["k_scale"].dtype == torch.bfloat16
+        return
     with pytest.raises(NotImplementedError, match=field):
         tl.LlamaConfig.tiny(**{field: value})
 

@@ -120,11 +120,20 @@ def test_engine_defaults_to_cuda(llama_setup):
     ("max_queue_depth", 3), ("default_ttft_deadline_ms", 5.0), ("default_deadline_ms", 5.0),
     ("decode_path", "dense"),
 ])
-def test_unported_serving_fields_raise(llama_setup, field, value):
+def test_unported_serving_fields_raise(llama_setup, tmp_path, field, value):
+    """Only request tracing is left unported: ``trace`` and ``trace_dir``
+    raise, every other robustness field builds an engine that serves."""
     _, tcfg, _, tparams = llama_setup
-    with pytest.raises(NotImplementedError, match=field):
-        ServingEngine(tl.apply_cached, tl.init_cache, tparams, tcfg, device="cpu",
-                      serving=ServingConfig(**{field: value}))
+    if field == "journal_path":
+        value = str(tmp_path / value)
+    sc = ServingConfig(block_size=4, num_blocks=16, **{field: value})
+    if field in ("trace", "trace_dir"):
+        with pytest.raises(NotImplementedError, match=field):
+            ServingEngine(tl.apply_cached, tl.init_cache, tparams, tcfg, device="cpu", serving=sc)
+        return
+    eng = ServingEngine(tl.apply_cached, tl.init_cache, tparams, tcfg, device="cpu", serving=sc)
+    rid = eng.submit([1, 2, 3], 2, deadline_ms=60_000.0, ttft_deadline_ms=60_000.0)
+    assert len(eng.run(max_ticks=50)[rid]) == 5
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
