@@ -14,7 +14,11 @@ Ported so far:
   attention kernels (``ops/paged_attention.py``), and its robustness
   layer: the host-memory KV tier, int8 KV pools, queue bounds, deadlines,
   the crash-recovery journal and drain under a ``PreemptionGuard``
-  (``resilience/preemption.py``);
+  (``resilience/preemption.py``), the draft-model drafter and per-request
+  serving traces (``serving/tracing.py``, on by default);
+- offline generation: greedy and sampled ``generate`` (top-k / top-p
+  under an explicit ``utils.random.PRNGKey``), beam search and batch-1
+  speculative decoding (``models/generation.py``);
 - single-GPU training of the llama family (:meth:`Accelerator.prepare`,
   ``backward``/``accumulate``, :meth:`Accelerator.make_train_step`,
   ``optimizer.py``, ``pipeline/train_step.py``, the training forward and

@@ -12,7 +12,9 @@ The int8 cache stores codes with a bf16 absmax scale per (position, head)
 :func:`demote_pool_blocks` / :func:`promote_pool_blocks` move whole blocks
 between the pool and the serving engine's host tier.
 
-Not ported yet: sampling, beam search and the offline speculative loop.
+Decoding: greedy and sampled :func:`generate_loop` (top-k / top-p under
+an explicit key, :func:`select_token`), :func:`beam_search` and the
+batch-1 :func:`speculative_generate_loop`, greedy or rejection-sampled.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ __all__ = [
     "make_kv_cache", "check_cache_room", "quantize_kv", "dequantize_kv", "cache_write",
     "make_paged_pool", "gather_block_view", "extract_token_rows", "scatter_token_rows",
     "paged_cache_write", "pack_paged_pool_for_scan", "unpack_paged_rows_from_scan",
-    "demote_pool_blocks", "promote_pool_blocks", "generate_loop", "speculative_verify_greedy",
+    "demote_pool_blocks", "promote_pool_blocks", "generate_loop", "select_token",
+    "speculative_verify_greedy", "speculative_generate_loop", "beam_search",
 ]
 
 
@@ -271,22 +274,78 @@ def promote_pool_blocks(pool: dict, host_rows: dict, dst_blocks: List[int]) -> N
     _wait_for_copies(next(iter(pool.values())).device)
 
 
+def _categorical(key, logits: torch.Tensor) -> torch.Tensor:
+    """One sample per row of ``logits`` ``[..., V]`` under ``key``:
+    ``argmax(gumbel + logits)``, as ``jax.random.categorical`` draws."""
+    return (key.gumbel(logits.shape, logits.device) + logits).argmax(-1)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest entries of the last axis, ties broken by the lower
+    index as ``jax.lax.top_k`` breaks them (``torch.topk`` promises no tie
+    order): a stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def select_token(logits: torch.Tensor, temperature: float, key, i: int, top_k: int = 0,
+                 top_p: float = 1.0) -> torch.Tensor:
+    """Greedy argmax (``temperature <= 0``) or a filtered categorical sample
+    at step ``i`` (step key ``key.fold_in(i)``).  ``top_k > 0`` keeps the k
+    highest logits; ``top_p < 1`` keeps the smallest set whose cumulative
+    probability reaches p, the top-1 token always.  One vocab sort at most,
+    shared by the two filters."""
+    if temperature <= 0.0:
+        return logits.argmax(-1).to(torch.int32)
+    logits = logits / temperature
+    sorted_desc = None
+    if top_k > 0:
+        k = min(int(top_k), logits.shape[-1])
+        # The descending top-k values double as the sorted prefix for top_p:
+        # masked tokens carry no probability.
+        sorted_desc = torch.topk(logits, k, dim=-1).values
+        logits = torch.where(logits < sorted_desc[..., -1:], float("-inf"), logits)
+    if top_p < 1.0:
+        if sorted_desc is None:
+            sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_desc, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # A token is cut when the mass BEFORE it already reaches p, so the
+        # token that crosses the threshold is kept.
+        cut = (cum - probs) >= top_p
+        cutoff = torch.where(cut, float("inf"), sorted_desc).amin(-1, keepdim=True)
+        logits = torch.where(logits < cutoff, float("-inf"), logits)
+    return _categorical(key.fold_in(i), logits).to(torch.int32)
+
+
 @torch.no_grad()
 def generate_loop(apply_cached: Callable, init_cache: Callable, params, input_ids: torch.Tensor,
-                  config, max_new_tokens: int, temperature: float = 0.0,
-                  max_len: Optional[int] = None,
+                  config, max_new_tokens: int, temperature: float = 0.0, key=None,
+                  max_len: Optional[int] = None, top_k: int = 0, top_p: float = 1.0,
                   prefill_chunk: Optional[int] = None) -> torch.Tensor:
-    """Greedy generation: dense prompt ``[B, S]`` -> ``[B, S +
-    max_new_tokens]``; ``prefill_chunk`` feeds the prompt in slices of that
-    many tokens (same outputs).  Sampling is not ported yet."""
-    if temperature > 0.0:
-        raise NotImplementedError("sampled generation is not ported to accelerate_tpu_torch yet")
+    """Dense prompt ``[B, S]`` -> ``[B, S + max_new_tokens]``, greedy
+    (``temperature <= 0``) or sampled under ``key`` (a
+    :class:`~accelerate_tpu_torch.utils.random.PRNGKey`; token ``i`` draws
+    with ``key.fold_in(i)``).  ``prefill_chunk`` feeds the prompt in slices
+    of that many tokens (same outputs)."""
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0, got {top_k}")
+    if temperature <= 0.0 and (top_k > 0 or top_p < 1.0):
+        raise ValueError(
+            "top_k/top_p filter a SAMPLED distribution; greedy decoding "
+            "(temperature<=0, the default) would silently ignore them — pass "
+            "temperature>0 (with a PRNG key) to sample."
+        )
     b, s = input_ids.shape
     total = s + max_new_tokens
     if max_len is None:
         max_len = total
     if total > max_len:
         raise ValueError(f"prompt ({s}) + max_new_tokens ({max_new_tokens}) > max_len ({max_len})")
+    if temperature > 0 and key is None:
+        raise ValueError("sampling (temperature > 0) needs a PRNG key")
     if max_new_tokens < 0:
         raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
     if max_new_tokens == 0:
@@ -297,11 +356,11 @@ def generate_loop(apply_cached: Callable, init_cache: Callable, params, input_id
     step = s if prefill_chunk is None else prefill_chunk
     for start in range(0, s, step):
         logits, cache = apply_cached(params, input_ids[:, start:start + step], config, cache)
-    tok = logits[:, -1].argmax(-1)
+    tok = select_token(logits[:, -1], temperature, key, 0, top_k=top_k, top_p=top_p)
     out = [tok]
-    for _ in range(1, max_new_tokens):
+    for i in range(1, max_new_tokens):
         logits, cache = apply_cached(params, tok[:, None], config, cache)
-        tok = logits[:, -1].argmax(-1)
+        tok = select_token(logits[:, -1], temperature, key, i, top_k=top_k, top_p=top_p)
         out.append(tok)
     return torch.cat([input_ids, torch.stack(out, 1).to(input_ids.dtype)], 1)
 
@@ -325,3 +384,224 @@ def speculative_verify_greedy(t_logits: torch.Tensor, drafts: torch.Tensor,
         )
     m = torch.cumprod(accept.to(torch.int32), dim=1).sum(1).to(torch.int32)
     return t, m
+
+
+@torch.no_grad()
+def speculative_generate_loop(apply_cached: Callable, init_cache: Callable, params, config,
+                              draft_apply_cached: Callable, draft_init_cache: Callable,
+                              draft_params, draft_config, input_ids: torch.Tensor,
+                              max_new_tokens: int, num_draft_tokens: int = 4,
+                              max_len: Optional[int] = None, return_stats: bool = False,
+                              temperature: float = 0.0, key=None):
+    """Speculative decoding: the draft proposes ``γ = num_draft_tokens``
+    tokens one cached step at a time, the target verifies all of them (plus a
+    bonus position) in one cached forward, and the longest accepted prefix
+    lands, ``1..γ+1`` tokens per target forward.
+
+    ``temperature <= 0``: greedy, token-identical to greedy decoding with
+    the target alone.  ``temperature > 0`` (needs ``key``): the rejection
+    scheme, each token distributed as target-only sampling; keys
+    ``fold_in(0)`` for the first token, and per round ``rkey =
+    fold_in(1 + rounds)`` with draft ``j`` at ``rkey.fold_in(j)``, the
+    uniforms at ``rkey.fold_in(γ)`` and the fill at ``rkey.fold_in(γ+1)``,
+    as in the JAX package.
+
+    Both caches keep "``index`` counts the tokens before ``last``, the
+    newest emitted token".  A round writes ``γ+1`` rows into each, in
+    place, then lowers ``index`` to the accepted length; the next round's
+    writes cover the stale rows before any query reads them (the accept
+    count is ≥ 1) and the causal mask hides rows past a query's position.
+    The accept count comes to the host once per round.  Batch 1 only.
+    ``return_stats=True`` also returns ``{"rounds", "proposed",
+    "accepted"}``."""
+    b, s = input_ids.shape
+    if b != 1:
+        raise ValueError(
+            f"speculative decoding is batch-1 only (got batch {b}): rows with "
+            "different accept counts would need per-row cache indices"
+        )
+    sampled = temperature > 0.0
+    if sampled and key is None:
+        raise ValueError("sampled speculative decoding (temperature > 0) needs a PRNG key")
+    gamma = int(num_draft_tokens)
+    if gamma < 1:
+        raise ValueError(f"num_draft_tokens must be >= 1, got {num_draft_tokens}")
+    tv = getattr(config, "vocab_size", None)
+    dv = getattr(draft_config, "vocab_size", None)
+    if tv != dv:
+        raise ValueError(f"target and draft vocab sizes differ: {tv} vs {dv}")
+    if max_new_tokens < 0:
+        raise ValueError(f"max_new_tokens must be >= 0, got {max_new_tokens}")
+    if max_new_tokens == 0:
+        return input_ids
+    # The last round can start at generated-count max_new-1 and still write
+    # γ+1 rows: the caches need that much room past the final token.
+    need = s + max_new_tokens + gamma
+    if max_len is None:
+        max_len = need
+    elif max_len < need:
+        raise ValueError(
+            f"max_len ({max_len}) < prompt + max_new_tokens + num_draft_tokens "
+            f"({need}): the verify writes need overshoot room"
+        )
+    dev = input_ids.device
+    t_cache = init_cache(config, b, max_len, device=dev)
+    d_cache = draft_init_cache(draft_config, b, max_len, device=dev)
+    t_logits, t_cache = apply_cached(params, input_ids, config, t_cache)
+    _, d_cache = draft_apply_cached(draft_params, input_ids, draft_config, d_cache)
+    if sampled:
+        # fp32 before the divide: the proposal distribution and the p/q of
+        # the acceptance test come from identical logits (bf16 models).
+        first = _categorical(key.fold_in(0), t_logits[:, -1].float() / temperature)
+    else:
+        first = t_logits[:, -1].argmax(-1)
+    chunks = [first.to(torch.int32)[:, None]]
+    last = chunks[0][:, 0]
+    n = 1
+    rounds = accepted = 0
+    window = torch.arange(gamma + 1, device=dev)[None, :]
+    while n < max_new_tokens:
+        rkey = key.fold_in(1 + rounds) if sampled else None
+        tok, d_toks, d_logits = last, [], []
+        for j in range(gamma):
+            dl, d_cache = draft_apply_cached(draft_params, tok[:, None], draft_config, d_cache)
+            logits = dl[:, -1].float()  # fp32: q is the distribution sampled
+            if sampled:
+                tok = _categorical(rkey.fold_in(j), logits / temperature).to(torch.int32)
+            else:
+                tok = logits.argmax(-1).to(torch.int32)
+            d_toks.append(tok)
+            d_logits.append(logits)
+        # One more feed keeps the draft cache covering d_γ for a full accept.
+        _, d_cache = draft_apply_cached(draft_params, tok[:, None], draft_config, d_cache)
+        d = torch.stack(d_toks, 1)  # [B, γ]
+        # The target verifies [last, d_1..d_γ] in one forward: row j is its
+        # distribution after seq[:, j].
+        seq = torch.cat([last[:, None], d], 1)
+        t_logits, t_cache = apply_cached(params, seq, config, t_cache)
+        if sampled:
+            p = torch.softmax(t_logits.float() / temperature, -1)  # [B, γ+1, V]
+            q = torch.softmax(torch.stack(d_logits, 1) / temperature, -1)  # [B, γ, V]
+            p_head = p[:, :gamma]
+            d_idx = d.long()[..., None]
+            p_at_d = torch.gather(p_head, -1, d_idx)[..., 0]
+            q_at_d = torch.gather(q, -1, d_idx)[..., 0]
+            u = rkey.fold_in(gamma).uniform((b, gamma), dev)
+            accept = (u * torch.clamp_min(q_at_d, 1e-30) < p_at_d).to(torch.int32)
+            m = int(torch.cumprod(accept, 1).sum(1)[0])
+            # The replacement at the stop position: the residual
+            # normalize(max(p - q, 0)) on a rejection, p itself on a full
+            # accept (the bonus token); a ~zero residual falls back to p.
+            resid = torch.clamp_min(p_head - q, 0.0)
+            mass = resid.sum(-1, keepdim=True)
+            resid = torch.where(mass > 1e-9, resid, p_head)
+            dist_m = torch.cat([resid, p[:, gamma:]], 1)[:, m]
+            # 1e-38 is an fp32 subnormal: neither the CPU nor CUDA kernels
+            # flush it, so a zero-probability token gets log ≈ -87.5, not -inf.
+            fill = _categorical(rkey.fold_in(gamma + 1), torch.log(dist_m + 1e-38))
+            fill_col = fill.to(torch.int32)[:, None].expand(b, gamma + 1)
+        else:
+            t, m_rows = speculative_verify_greedy(t_logits, d)
+            m = int(m_rows[0])
+            fill_col = t
+        count = m + 1
+        d_pad = torch.cat([d, torch.zeros((b, 1), dtype=torch.int32, device=dev)], 1)
+        chunk = torch.where(window < m, d_pad, fill_col)
+        chunks.append(chunk[:, :count])
+        last = chunk[:, m]
+        t_cache = dict(t_cache, index=t_cache["index"] - (gamma + 1) + count)
+        d_cache = dict(d_cache, index=d_cache["index"] - (gamma + 1) + count)
+        n += count
+        rounds += 1
+        accepted += m
+    gen = torch.cat(chunks, 1)[:, :max_new_tokens].to(input_ids.dtype)
+    out = torch.cat([input_ids, gen], 1)
+    if return_stats:
+        return out, {"rounds": rounds, "proposed": rounds * gamma, "accepted": accepted}
+    return out
+
+
+def _tile_beams(cache: dict, rows: int, fn) -> dict:
+    """Apply ``fn`` to every cache tensor that carries the batch on axis 1
+    (``shape[1] == rows``): k/v and the int8 scales; the Python ``index``
+    and any other leaf pass through."""
+    return {
+        name: fn(leaf) if torch.is_tensor(leaf) and leaf.dim() >= 2 and leaf.shape[1] == rows
+        else leaf
+        for name, leaf in cache.items()
+    }
+
+
+@torch.no_grad()
+def beam_search(apply_cached: Callable, init_cache: Callable, params, input_ids: torch.Tensor,
+                config, max_new_tokens: int, num_beams: int = 4, length_penalty: float = 1.0,
+                eos_token_id: Optional[int] = None,
+                max_len: Optional[int] = None) -> torch.Tensor:
+    """Beam search over the shared KV cache: dense prompt ``[B, S]`` ->
+    the best sequence ``[B, S + max_new_tokens]``.
+
+    The prompt is prefilled once at batch B and the cache rows are tiled per
+    beam (``repeat_interleave`` on axis 1, the JAX ``jnp.repeat``).  Each
+    step scores ``num_beams * vocab`` continuations, keeps the top
+    ``num_beams`` (ties to the lower index, as ``jax.lax.top_k``) and
+    reorders the cache rows to follow their beams.  A beam that emits
+    ``eos_token_id`` freezes: its score stops accumulating and it pads with
+    EOS.  The final ranking divides by ``length ** length_penalty``.
+
+    Cache contract: every cache tensor with ``ndim >= 2`` carries the batch
+    on axis 1 (the ``make_kv_cache`` layout, int8 scales included)."""
+    if max_new_tokens < 1:
+        raise ValueError("beam search needs max_new_tokens >= 1")
+    if num_beams < 1:
+        raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+    b, s = input_ids.shape
+    kb = num_beams
+    total = s + max_new_tokens
+    if max_len is None:
+        max_len = total
+    if total > max_len:
+        raise ValueError(f"prompt ({s}) + max_new_tokens ({max_new_tokens}) > max_len ({max_len})")
+    dev = input_ids.device
+    cache = init_cache(config, b, max_len, device=dev)
+    logits, cache = apply_cached(params, input_ids, config, cache)
+    cache = _tile_beams(cache, b, lambda leaf: leaf.repeat_interleave(kb, dim=1))
+    logp = torch.log_softmax(logits[:, -1].float(), -1)  # [B, V]
+    vocab = logp.shape[-1]
+    if kb > vocab:
+        raise ValueError(
+            f"num_beams ({kb}) > vocab_size ({vocab}): top_k cannot select "
+            "more beams than there are tokens"
+        )
+    scores, tokens = _top_k(logp, kb)  # [B, K]
+    finished = (tokens == eos_token_id if eos_token_id is not None
+                else torch.zeros_like(tokens, dtype=torch.bool))
+    lengths = torch.ones((b, kb), dtype=torch.int32, device=dev)
+    out = torch.zeros((b, kb, max_new_tokens), dtype=torch.int64, device=dev)
+    out[:, :, 0] = tokens
+    offsets = (torch.arange(b, device=dev) * kb)[:, None]
+    if eos_token_id is not None:
+        # Frozen beams continue with EOS alone, at no added score.
+        frozen = torch.full((vocab,), float("-inf"), device=dev)
+        frozen[eos_token_id] = 0.0
+    for i in range(1, max_new_tokens):
+        logits, cache = apply_cached(params, tokens.reshape(b * kb, 1), config, cache)
+        logp = torch.log_softmax(logits[:, -1].float(), -1).reshape(b, kb, vocab)
+        if eos_token_id is not None:
+            logp = torch.where(finished[:, :, None], frozen, logp)
+        cand = (scores[:, :, None] + logp).reshape(b, kb * vocab)
+        scores, flat = _top_k(cand, kb)
+        beam_idx = flat // vocab  # [B, K] source beam
+        tokens = flat % vocab
+        rows = (offsets + beam_idx).reshape(-1)
+        cache = _tile_beams(cache, b * kb, lambda leaf: leaf.index_select(1, rows))
+        out = torch.take_along_dim(out, beam_idx[:, :, None], 1)
+        out[:, :, i] = tokens
+        prev_finished = torch.take_along_dim(finished, beam_idx, 1)
+        lengths = torch.take_along_dim(lengths, beam_idx, 1) + (~prev_finished).to(torch.int32)
+        finished = prev_finished
+        if eos_token_id is not None:
+            finished = finished | (tokens == eos_token_id)
+    ranked = scores / lengths.float() ** length_penalty
+    best = ranked.argmax(1)  # [B]
+    best_out = torch.take_along_dim(out, best[:, None, None], 1)[:, 0]
+    return torch.cat([input_ids, best_out.to(input_ids.dtype)], 1)

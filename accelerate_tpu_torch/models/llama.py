@@ -15,8 +15,9 @@ embedding and head), :func:`init_params`, the training forward and loss
 chunked cross-entropy; attention through the einsum path, the blockwise
 ``flash`` path or the fused ``pallas`` kernels; per-layer activation
 checkpointing under ``remat``), the dense KV cache (:func:`init_cache`,
-:func:`apply_cached`), the paged serving forward (:func:`apply_paged`) and
-greedy :func:`generate`; ``kv_cache_quant`` stores the KV cache as int8 codes
+:func:`apply_cached`), the paged serving forward (:func:`apply_paged`),
+greedy and sampled :func:`generate`, :func:`speculative_generate` and
+:func:`generate_beam`; ``kv_cache_quant`` stores the KV cache as int8 codes
 with bf16 scales in both the dense cache and the paged pool.  fp8, sequence
 parallelism and ``remat_policy="dots"`` are not part of this port yet; their
 config fields raise ``NotImplementedError`` when set.
@@ -50,6 +51,8 @@ __all__ = [
     "apply_cached",
     "apply_paged",
     "generate",
+    "speculative_generate",
+    "generate_beam",
     "embed_tokens",
     "final_norm",
     "lm_head",
@@ -718,13 +721,50 @@ def apply_paged(params: dict, input_ids: torch.Tensor, config: LlamaConfig, pool
 
 
 def generate(params: dict, input_ids: torch.Tensor, config: LlamaConfig, max_new_tokens: int,
-             temperature: float = 0.0, max_len: Optional[int] = None,
-             prefill_chunk: Optional[int] = None) -> torch.Tensor:
-    """Greedy autoregressive generation: ``[B, S]`` -> ``[B, S +
-    max_new_tokens]``.  Sampling (``temperature > 0``) is not ported yet."""
+             temperature: float = 0.0, key=None, max_len: Optional[int] = None, top_k: int = 0,
+             top_p: float = 1.0, prefill_chunk: Optional[int] = None) -> torch.Tensor:
+    """Greedy (``temperature <= 0``) or sampled autoregressive generation:
+    ``[B, S]`` -> ``[B, S + max_new_tokens]``.  Sampling takes an explicit
+    ``key`` (:class:`~accelerate_tpu_torch.utils.random.PRNGKey`) and the
+    ``top_k`` / ``top_p`` filters; the arguments come in the JAX package's
+    order."""
     from .generation import generate_loop
 
     return generate_loop(
         apply_cached, init_cache, params, input_ids, config, max_new_tokens,
-        temperature=temperature, max_len=max_len, prefill_chunk=prefill_chunk,
+        temperature=temperature, key=key, max_len=max_len, top_k=top_k, top_p=top_p,
+        prefill_chunk=prefill_chunk,
+    )
+
+
+def speculative_generate(params: dict, draft_params: dict, input_ids: torch.Tensor,
+                         config: LlamaConfig, draft_config: LlamaConfig, max_new_tokens: int,
+                         num_draft_tokens: int = 4, max_len: Optional[int] = None,
+                         return_stats: bool = False, temperature: float = 0.0, key=None):
+    """Speculative decoding with a draft llama, up to ``num_draft_tokens +
+    1`` tokens per target forward; greedy output is token-identical to
+    ``generate(..., temperature=0)``, sampled output (``key``) is
+    distributed as target-only sampling.  Batch 1 only (see
+    ``generation.speculative_generate_loop``)."""
+    from .generation import speculative_generate_loop
+
+    return speculative_generate_loop(
+        apply_cached, init_cache, params, config,
+        apply_cached, init_cache, draft_params, draft_config,
+        input_ids, max_new_tokens, num_draft_tokens=num_draft_tokens, max_len=max_len,
+        return_stats=return_stats, temperature=temperature, key=key,
+    )
+
+
+def generate_beam(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
+                  max_new_tokens: int, num_beams: int = 4, length_penalty: float = 1.0,
+                  eos_token_id: Optional[int] = None,
+                  max_len: Optional[int] = None) -> torch.Tensor:
+    """Beam-search generation (see ``generation.beam_search``)."""
+    from .generation import beam_search
+
+    return beam_search(
+        apply_cached, init_cache, params, input_ids, config, max_new_tokens,
+        num_beams=num_beams, length_penalty=length_penalty, eos_token_id=eos_token_id,
+        max_len=max_len,
     )

@@ -52,9 +52,15 @@ Robustness layer:
 - :meth:`ServingEngine.install_preemption_guard` drains on a signal, and
   the requeue journal resubmits to a successor.
 
-Not ported yet: request tracing (``trace``, ``trace_dir`` raise
-``NotImplementedError`` when set).  Telemetry, the memory ledger and fault
-injection are left out.
+Per-request tracing (``tracing.py``) is on by default, as in the JAX
+engine: every request's phase timeline (queue wait, prefill chunks, decode
+and verify residency, preemptions, first dispatches at a table width),
+blame per completed request in ``stats()["trace_blame"]``,
+:meth:`ServingEngine.debug_requests` / :meth:`ServingEngine.debug_blocks`
+snapshots and :meth:`ServingEngine.export_chrome_trace`.
+``ACCELERATE_TPU_SERVING_TRACE=0`` turns it off unless
+``ServingConfig.trace`` says otherwise.  Telemetry, the memory ledger and
+fault injection are left out.
 """
 
 from __future__ import annotations
@@ -79,6 +85,7 @@ from ..state import resolve_device
 from .blocks import NULL_BLOCK, BlockOutOfMemory, PagedKVCache, PrefixCache, blocks_for_tokens
 from .journal import JournalError, ServingJournal
 from .scheduler import Request, RequestState, Scheduler
+from .tracing import ServingTracer, resolve_trace_dir, tracing_enabled
 
 __all__ = [
     "AdmissionRejected",
@@ -125,8 +132,12 @@ class ServingConfig:
       watermark (``ACCELERATE_TPU_SERVING_HEADROOM_WATERMARK``, a fraction
       of the pool, default 0.1); 0 disables the sweep.
 
-    Not ported yet, and raising ``NotImplementedError`` when set:
-    ``trace`` and ``trace_dir``.
+    Observability:
+
+    - ``trace``: per-request phase tracing.  ``None`` (default) defers to
+      ``ACCELERATE_TPU_SERVING_TRACE`` (default on; ``0`` turns it off).
+    - ``trace_dir``: where trace JSONL persists; ``None`` defers to
+      ``ACCELERATE_TPU_SERVING_TRACE_DIR``, else traces stay in memory.
     """
 
     block_size: int = 16
@@ -153,18 +164,6 @@ class ServingConfig:
         if self.max_blocks_per_seq is not None:
             return self.max_blocks_per_seq
         return self.num_blocks - 1
-
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for the fields this port lacks."""
-        if self.decode_path not in ("paged", "dense"):
-            raise ValueError(f"decode_path must be 'paged' or 'dense', got {self.decode_path!r}")
-        unported = {"trace": bool(self.trace), "trace_dir": self.trace_dir is not None}
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(
-                    f"ServingConfig.{name}={getattr(self, name)!r} is not ported to "
-                    "accelerate_tpu_torch yet (see ROADMAP.md)"
-                )
 
 
 @dataclass
@@ -214,7 +213,8 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.serving = serving or ServingConfig()
         sc = self.serving
-        sc.check_ported()
+        if sc.decode_path not in ("paged", "dense"):
+            raise ValueError(f"decode_path must be 'paged' or 'dense', got {sc.decode_path!r}")
         if sc.prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {sc.prefill_chunk}")
         if sc.resolved_max_blocks() < 1:
@@ -261,6 +261,17 @@ class ServingEngine:
             if self._prefix is not None:
                 self._prefix.attach_tier(self.cache)
             self.sched.on_migrate_out = self._migrate_out
+        # Per-request phase tracing.  Every preemption (drain, block
+        # pressure, LIFO victim) goes through the scheduler's callback.
+        self.tracer: Optional[ServingTracer] = None
+        if tracing_enabled(sc.trace):
+            self.tracer = ServingTracer(dir=resolve_trace_dir(sc.trace_dir))
+            self.sched.on_preempt = lambda req: self.tracer.on_preempt(req, time.monotonic())
+        # The table widths each program kind has dispatched at: a width not
+        # seen yet marks the tick as the first at that shape (where the JAX
+        # engine compiles).
+        self._seen_widths: Dict[str, set] = {"decode": set(), "decode_spec": set(),
+                                             "prefill": set()}
         self._drafter = None
         if self.spec_tokens > 0:
             if drafter is None:
@@ -290,7 +301,6 @@ class ServingEngine:
         self.low_headroom_episodes = 0
         self._block_bytes = self.cache.block_bytes()
         self._finished: List[CompletedRequest] = []
-        self._decode_widths: set = set()
         self.ticks = 0
         self.decode_dispatches = 0
         self.decode_emitted_tokens = 0
@@ -454,6 +464,8 @@ class ServingEngine:
         # Write-ahead: on disk before the id is returned.
         if self.journal is not None:
             self.journal.record_admit(req)
+        if self.tracer is not None:
+            self.tracer.on_submit(req)
         if req.state == RequestState.DONE:
             self._complete(req)
         return req.id
@@ -468,10 +480,16 @@ class ServingEngine:
             self.drain()
             return []
         self.ticks += 1
+        if self.tracer is not None:
+            self.tracer.begin_tick(now)
         self._drain_scrubs()
         self._expire_deadlines(now)
         self._pressure_relief()
         admitted = self.sched.admit(now)
+        if self.tracer is not None:
+            admit_t = time.monotonic()
+            for idx in admitted:
+                self.tracer.on_admit(self.sched.slots[idx].request, admit_t, idx)
         for idx in admitted:
             # A migrated victim comes back from the host tier first;
             # _attach_prefix then leaves its slot alone.
@@ -481,6 +499,8 @@ class ServingEngine:
         self._prefill_tick()
         self._decode_tick()
         self._drain_scrubs()
+        if self.tracer is not None:
+            self.tracer.end_tick(time.monotonic(), self.sched.slots)
         self._note_headroom()
         return self._finished[done_before:]
 
@@ -542,6 +562,9 @@ class ServingEngine:
         self._drain_scrubs()
         if self.journal is not None:
             self.journal.record_progress(self.sched.queue)
+        if self.tracer is not None:
+            # The successor's stitcher needs this life's partial timelines.
+            self.tracer.flush()
         return journal
 
     # -- crash recovery ------------------------------------------------------
@@ -571,15 +594,20 @@ class ServingEngine:
             with batch:
                 for rec in ServingJournal.pending(state):
                     emitted = rec.get("emitted") or []
-                    mapping[rec["id"]] = self.submit(
+                    rid = self.submit(
                         rec["prompt"] + list(emitted),
                         rec["max_new_tokens"] - len(emitted),
                         tag=rec.get("tag"),
                         ttft_deadline_ms=rec.get("ttft_deadline_ms"),
                         deadline_ms=rec.get("deadline_ms"),
                     )
+                    mapping[rec["id"]] = rid
+                    if self.tracer is not None:
+                        self.tracer.on_recover(rid, rec)
         finally:
             self._recovering = False
+        if self.tracer is not None:
+            self.tracer.flush()
         return mapping
 
     # -- host tier -----------------------------------------------------------
@@ -812,9 +840,19 @@ class ServingEngine:
             width *= 2
         return min(width, self.serving.resolved_max_blocks())
 
-    @staticmethod
-    def _table_row(blocks: List[int], width: int) -> np.ndarray:
-        row = np.zeros((width,), np.int32)
+    def _note_bucket(self, kind: str, width: Optional[int]) -> bool:
+        """Record a dispatch of ``kind`` at this table width; True when it is
+        the first in this engine's life (the dense path keys on its one
+        width).  The JAX engine compiles on exactly these dispatches, and
+        the tracer marks them ``compile_in_path`` in both packages."""
+        key = width if width is not None else self.serving.resolved_max_blocks()
+        if key in self._seen_widths[kind]:
+            return False
+        self._seen_widths[kind].add(key)
+        return True
+
+    def _table_row(self, blocks: List[int], width: Optional[int] = None) -> np.ndarray:
+        row = np.zeros((width or self.serving.resolved_max_blocks(),), np.int32)
         row[:len(blocks)] = blocks
         return row
 
@@ -837,8 +875,12 @@ class ServingEngine:
             return  # the slot itself was preempted to find blocks
         chunk = np.zeros((1, chunk_len), np.int32)
         chunk[0, :n_real] = feed[start:start + n_real]
-        # Bucket the table to the chunk's padded write extent.
-        width = self._bucket_width(blocks_for_tokens(start + chunk_len, self.serving.block_size))
+        width = None
+        if self.decode_path == "paged":
+            # Bucket the table to the chunk's padded write extent.
+            width = self._bucket_width(
+                blocks_for_tokens(start + chunk_len, self.serving.block_size))
+        fresh = self._note_bucket("prefill", width)
         t0 = time.perf_counter()
         next_tok, ok = self._prefill_forward(
             self._table_row(slot.blocks, width), start, chunk, n_real
@@ -847,6 +889,9 @@ class ServingEngine:
         self.prefill_dispatches += 1
         req.prefill_dispatches += 1
         slot.cache_len = start + n_real
+        if self.tracer is not None:
+            self.tracer.on_prefill(req, idx, time.monotonic(), padded_rows=chunk_len - n_real,
+                                   width=width, fresh=fresh)
         if not ok:
             self._quarantine(idx, time.monotonic())
             return
@@ -909,12 +954,21 @@ class ServingEngine:
         gathered = (len(live) * m if self.decode_path == "dense"
                     else sum(len(sched.slots[i].blocks) for i in live))
         self.decode_gather_bytes += gathered * self._block_bytes
-        self._decode_widths.add(m)
+        fresh = self._note_bucket("decode_spec" if window > 1 else "decode", m)
+        dispatch_t0 = time.monotonic()
         t0 = time.perf_counter()
         out, accepts, oks = self._decode_forward(tables, lengths, tokens, draft_len, live)
         self.decode_seconds += time.perf_counter() - t0
         self.decode_dispatches += 1
         emit_t = time.monotonic()
+        if self.tracer is not None:
+            # emit_t is past the forward's device synchronisation.
+            self.tracer.on_decode(
+                [(sched.slots[idx].request, idx) for idx in live], emit_t,
+                co_batch=len(live), width=m, fresh=fresh,
+                dispatch_ms=(emit_t - dispatch_t0) * 1e3,
+                phase="verify" if window > 1 else "decode",
+            )
         proposed = accepted = healthy = 0
         for idx in live:
             slot = sched.slots[idx]
@@ -985,6 +1039,89 @@ class ServingEngine:
         ))
         if self.journal is not None:
             self.journal.record_done(req.id, status)
+        if self.tracer is not None:
+            self.tracer.on_terminal(req, status)
+
+    # -- introspection -------------------------------------------------------
+
+    def debug_requests(self) -> List[dict]:
+        """Snapshot of every slotted and queued request: state, age and,
+        with tracing on, its phase-so-far decomposition.  Host reads only."""
+        now = time.monotonic()
+        out = []
+        seen = set()
+        for idx, slot in sorted(self.sched.slots.items()):
+            seen.add(slot.request.id)
+            out.append(self._debug_request(slot.request, now, slot=idx))
+        for req in self.sched.queue:
+            if req.id not in seen:
+                out.append(self._debug_request(req, now, slot=None))
+        return out
+
+    def _debug_request(self, req: Request, now: float, slot: Optional[int]) -> dict:
+        rec = {
+            "id": req.id,
+            "tag": req.tag,
+            "state": req.state.name,
+            "slot": slot,
+            "age_ms": round((now - req.arrival_t) * 1e3, 3),
+            "prompt_len": len(req.prompt),
+            "emitted": len(req.emitted),
+            "max_new": req.max_new_tokens,
+            "preemptions": req.preemptions,
+        }
+        if self.tracer is not None:
+            rec["trace"] = self.tracer.snapshot_request(req.id, now)
+        return rec
+
+    def debug_blocks(self) -> dict:
+        """Pool snapshot: occupancy, per-block refcounts (shared prefix
+        blocks show more than 1), each slot's table, the prefix cache's LRU
+        chain and the host tier."""
+        alloc = self.cache.allocator
+        out = {
+            "capacity": alloc.capacity,
+            "free": alloc.free_blocks,
+            "used": alloc.used_blocks,
+            "occupancy": round(alloc.occupancy, 4),
+            "pending_scrub": sorted(alloc._pending_scrub),
+            "refcounts": {str(b): n for b, n in sorted(alloc._ref.items()) if n > 0},
+            "slots": {
+                str(idx): {"request": slot.request.id, "blocks": list(slot.blocks),
+                           "cache_len": slot.cache_len}
+                for idx, slot in sorted(self.sched.slots.items())
+            },
+        }
+        if self._prefix is not None:
+            out["prefix_cache"] = {
+                "blocks": len(self._prefix),
+                "reclaimable": self._prefix.reclaimable_count,
+                # LRU order, oldest first, with live refcounts.
+                "chain": [{"block": b, "refcount": alloc.refcount(b)}
+                          for b in self._prefix._entries.values()],
+            }
+            if self.cache.host is not None:
+                out["prefix_cache"]["host_entries"] = self._prefix.host_count
+        host = self.cache.host
+        if host is not None:
+            out["host_tier"] = {
+                "capacity": host.capacity,
+                "free": host.free_blocks,
+                "used": host.used_blocks,
+                "occupancy": round(host.occupancy, 4),
+                "demoted_requests": {str(req.id): len(req.demoted_blocks or ())
+                                     for req in self.sched.queue if req.demoted_blocks},
+            }
+        return out
+
+    def export_chrome_trace(self, path: str) -> str:
+        """Write every traced request (the completed ring and the live ones)
+        as a Chrome/Perfetto trace (``tracing.export_chrome_trace``)."""
+        from .tracing import export_chrome_trace
+
+        if self.tracer is None:
+            raise RuntimeError("tracing is disabled on this engine")
+        return export_chrome_trace(path, self.tracer.traces())
 
     def _tier_stats(self) -> Optional[dict]:
         host = self.cache.host
@@ -1030,7 +1167,7 @@ class ServingEngine:
             "prefix_blocks_reused": self.prefix_blocks_reused,
             "prefix_cow_copies": self.cow_copies,
             "prefix_cached_blocks": len(self._prefix) if self._prefix else 0,
-            "decode_bucket_widths": sorted(self._decode_widths),
+            "decode_bucket_widths": sorted(self._seen_widths["decode"]),
             "decode_s": self.decode_seconds,
             "prefill_s": self.prefill_seconds,
             "journal_flushes": self.journal.flushes if self.journal else 0,
@@ -1046,4 +1183,6 @@ class ServingEngine:
                 ),
             },
             "tiering": self._tier_stats(),
+            "trace_blame": (dict(self.tracer.blame_counts) if self.tracer is not None
+                            else None),
         }

@@ -110,9 +110,39 @@ Phases (each fails the run on any mismatch; nothing is caught):
    the same bytes, TTFT, ITL and decode tokens/s beside Phase 2's, and
    the journal's ms per flush (fsync on).
 
+8. Offline generation, the draft-model drafter and serving traces, at
+   full width.  8a: Llama-3-8B (32 layers, bf16, Phase 2's weights):
+   sampled ``generate`` over 4 prompts of 960 tokens + 64 (temperature 0.8,
+   top-k 50, top-p 0.9, ``PRNGKey``): the same key twice gives the same
+   tokens, another key others, and every sampled token lies inside the
+   top-50 and the 0.9 nucleus of the logits that ``apply`` (the fused
+   forward, launches counted) recomputes over the outputs, up to the bf16
+   margin ``NEAR_TIE``; ``generate_beam`` with one beam equals greedy
+   ``generate``, four beams on 2 x 512 + 32 timed; greedy
+   ``speculative_generate`` (1 x 512 + 64, gamma 4) with a draft at
+   Llama-3.2-1B's published widths (seed 3) and with the target as its own
+   draft, each token-identical to greedy ``generate`` or parting from it
+   only at a near tie, with rounds, proposed and accepted; sampled
+   speculative decoding with the target as its own draft and its acceptance
+   rate.  8b: fp32 at Phase 7a's widths (4 layers, seed 2): ``generate_beam``
+   (4 beams, EOS) and greedy ``speculative_generate`` give the same tokens
+   on the card and on the CPU.  8c: Phase 2's geometry and traffic with
+   ``spec_tokens=3``, ``DraftModelDrafter`` over the 1B-width draft and
+   tracing on (its JSONL under ``build/phase8``): every request ok and
+   token-identical to greedy ``generate`` or parting at a near tie, 32
+   window launches per verify dispatch, the drafter's fused-forward
+   launches counted, each trace's intervals disjoint inside its window,
+   verify intervals recorded, the Chrome export read back,
+   ``debug_requests()`` mid-run; ITL, decode tokens/s and the tracer's
+   hook time; the target as its own draft on 2 requests + 16 (every
+   rejected draft a near tie); Phase 2's traffic with tracing off and on
+   in turns.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
-launches as ``launches_phase7``), the card's name and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
-package beside it, the script exits non-zero and prints no result.
+launches as ``launches_phase7``, every kernel's Phase 8 launches as
+``launches_phase8``), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.  Without CUDA, or without the package beside it, the
+script exits non-zero and prints no result.
 """
 
 import contextlib
@@ -443,6 +473,11 @@ def phase1():
 # ---------------------------------------------------------------------------
 
 
+PHASE2_PROMPT_LENS = (128, 256, 384, 512, 640, 768, 896, 1024)
+PHASE2_GEOMETRY = dict(max_slots=8, block_size=16, num_blocks=8 * 80 + 8, max_blocks_per_seq=128,
+                       prefill_chunk=256)
+
+
 def reset_counts():
     from accelerate_tpu_torch.ops import paged_attention as pa
 
@@ -493,11 +528,10 @@ def phase2():
     torch.cuda.synchronize()
     log(f"phase2 Llama-3-8B bf16 params={cfg.num_params()} init_s={time.perf_counter() - t0:.1f}")
     rng = np.random.default_rng(0)
-    prompt_lens = [128, 256, 384, 512, 640, 768, 896, 1024]
+    prompt_lens = PHASE2_PROMPT_LENS
     prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in prompt_lens]
     max_new = 32
-    geometry = dict(max_slots=8, block_size=16, num_blocks=8 * 80 + 8, max_blocks_per_seq=128,
-                    prefill_chunk=256)
+    geometry = PHASE2_GEOMETRY
     acc = Accelerator()
     out = {}
     for spec in (0, 3):
@@ -1671,6 +1705,436 @@ def phase7(smi, unpressured):
     return {"paged_attention": a[0] + dec_b, "paged_window_attention": a[1]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: offline generation, the draft-model drafter and serving traces
+# ---------------------------------------------------------------------------
+
+PHASE8_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase8")
+# bf16 logits of the 32-layer model differ by up to ~0.15 between two paths
+# through the same weights (Phase 2's fixed-pool step: the kernel against its
+# own plain version).  Where two bf16 paths pick different greedy tokens, or
+# a sampled token sits just outside a filter recomputed on another path, the
+# two candidates must lie within this margin of each other in the logits.
+NEAR_TIE = 0.25
+
+
+def llama32_1b_config():
+    """Llama-3.2-1B's published widths (random weights, built in code)."""
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+
+    return llama.LlamaConfig(
+        vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_layers=16,
+        num_heads=32, num_kv_heads=8, head_dim=64, tie_embeddings=True, rope_theta=500000.0,
+        rope_scaling=("llama3", 32.0, 1.0, 4.0, 8192), dtype=torch.bfloat16,
+        param_dtype=torch.bfloat16)
+
+
+def timed(fn):
+    """(result, host seconds) of ``fn()`` ending in a device synchronisation."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def divergence(params, cfg, ref, other, start):
+    """None when ``other`` equals ``ref``; else (i, gap): the first position
+    past ``start`` where they differ and, from a forward over ``ref[:i]``,
+    the logit of ``ref[i]`` minus that of ``other[i]``."""
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+
+    ref, other = list(ref), list(other)
+    if ref == other:
+        return None
+    i = next(j for j in range(start, len(ref)) if ref[j] != other[j])
+    with torch.no_grad():
+        logits = llama.apply(params, torch.tensor([ref[:i]], device="cuda"), cfg)[0, -1]
+    return i, float(logits[ref[i]] - logits[other[i]])
+
+
+def check_greedy(params, cfg, what, ref, other, start):
+    """Token identity with greedy decoding, or a first divergence at a near
+    tie (both tokens within NEAR_TIE in the logits); returns a label."""
+    d = divergence(params, cfg, ref, other, start)
+    if d is None:
+        return "identical"
+    i, gap = d
+    check(abs(gap) <= NEAR_TIE,
+          f"{what}: differs from greedy at token {i - start} with a logit gap of {gap:.4f}")
+    return f"near-tie divergence at token {i - start} (gap {gap:.4f})"
+
+
+def phase8a(params, cfg, draft, dcfg):
+    """Llama-3-8B (32 layers, bf16, Phase 2's weights): sampled generate,
+    beam search, greedy speculative decoding with a Llama-3.2-1B-width draft
+    and with the target as its own draft, and sampled speculative decoding."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.utils.random import PRNGKey
+
+    rng = np.random.default_rng(8)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(4, 960))).cuda()
+    samp = dict(temperature=0.8, top_k=50, top_p=0.9)
+    a, a_s = timed(lambda: llama.generate(params, ids, cfg, 64, key=PRNGKey(80), **samp))
+    b = llama.generate(params, ids, cfg, 64, key=PRNGKey(80), **samp)
+    c = llama.generate(params, ids, cfg, 64, key=PRNGKey(81), **samp)
+    check(torch.equal(a, b), "sampled generate: the same key gave different tokens")
+    check(not torch.equal(a, c), "sampled generate: two keys gave the same tokens")
+    check(torch.equal(a[:, :960], ids), "sampled generate: the prompt changed")
+    # The noise is drawn on the host: time one step's draw and copy alone.
+    key = PRNGKey(80)
+    _, draw_s = timed(lambda: [key.fold_in(i).gumbel((4, cfg.vocab_size), "cuda")
+                               for i in range(64)])
+    reset_flash_counts()
+    with torch.no_grad():
+        logits = llama.apply(params, a, cfg)
+    torch.cuda.synchronize()
+    fwd_launches = read_flash_counts()["fused_attention_fwd"]
+    check(fwd_launches == cfg.num_layers,
+          f"apply over 4 x 1024 launched the fused forward {fwd_launches} times")
+    lg = logits[:, 959:1023].float() / samp["temperature"]
+    del logits
+    tok = a[:, 960:1024].long()
+    val = torch.gather(lg, -1, tok[..., None])[..., 0]
+    top = torch.topk(lg, samp["top_k"], dim=-1).values  # [4, 64, 50], descending
+    probs = torch.softmax(top, -1)
+    cut = (torch.cumsum(probs, -1) - probs) >= samp["top_p"]
+    cutoff = torch.where(cut, float("inf"), top).amin(-1)
+    slack = torch.minimum(val - top[..., -1], val - cutoff) * samp["temperature"]
+    inside = float((slack >= 0).float().mean())
+    check(float(slack.min()) >= -NEAR_TIE,
+          f"a sampled token lies {float(-slack.min()):.4f} outside top-50 / top-p 0.9")
+    del lg, top, probs
+    log(f"phase8a sampled generate (4 x 960 + 64, T 0.8, top-k 50, top-p 0.9): wall_s={a_s:.3f} "
+        f"({a_s / 64 * 1e3:.2f} ms per step); same key identical, second key differs; noise "
+        f"draws on the host {draw_s / 64 * 1e3:.3f} ms per step (4 x {cfg.vocab_size} fp32, "
+        f"copy included); apply over the outputs: fused_attention_fwd launches={fwd_launches}; "
+        f"tokens strictly inside both filters {inside:.4f}, min slack "
+        f"{float(slack.min()):.4f} (margin {NEAR_TIE})")
+
+    ids2 = ids[:2, :512]
+    greedy2, g_s = timed(lambda: llama.generate(params, ids2, cfg, 32))
+    beam1 = llama.generate_beam(params, ids2, cfg, 32, num_beams=1)
+    check(torch.equal(beam1, greedy2), "generate_beam(num_beams=1) differs from greedy generate")
+    beam4, b_s = timed(lambda: llama.generate_beam(params, ids2, cfg, 32, num_beams=4))
+    check(beam4.shape == (2, 544), f"beam output shape {tuple(beam4.shape)}")
+    log(f"phase8a beam search (2 x 512 + 32): num_beams=1 equals greedy generate; num_beams=4 "
+        f"wall_s={b_s:.3f} against greedy's {g_s:.3f}")
+
+    ids1 = ids[:1, :512]
+    greedy, gs = timed(lambda: llama.generate(params, ids1, cfg, 64))
+    ref = greedy[0].tolist()
+    out = {}
+    for name, (dp, dc) in (("Llama-3.2-1B-width draft", (draft, dcfg)),
+                           ("self-draft", (params, cfg))):
+        (o, st), s_ = timed(lambda: llama.speculative_generate(
+            params, dp, ids1, cfg, dc, 64, num_draft_tokens=4, return_stats=True))
+        label = check_greedy(params, cfg, f"speculative ({name})", ref, o[0].tolist(), 512)
+        out[name] = dict(st, wall_s=s_, result=label)
+        log(f"phase8a greedy speculative_generate (1 x 512 + 64, gamma 4, {name}): {label}; "
+            f"rounds={st['rounds']} proposed={st['proposed']} accepted={st['accepted']} "
+            f"wall_s={s_:.3f} against greedy generate's {gs:.3f}")
+    (o, st), s_ = timed(lambda: llama.speculative_generate(
+        params, params, ids1, cfg, cfg, 64, num_draft_tokens=4, return_stats=True,
+        temperature=0.8, key=PRNGKey(83)))
+    rate = st["accepted"] / max(st["proposed"], 1)
+    check(o.shape == (1, 576) and bool((o >= 0).all() and (o < cfg.vocab_size).all()),
+          "sampled speculative output out of range")
+    check(rate > 0.5, f"sampled self-draft acceptance {rate:.4f}")
+    log(f"phase8a sampled speculative_generate (self-draft, T 0.8): rounds={st['rounds']} "
+        f"proposed={st['proposed']} accepted={st['accepted']} acceptance={rate:.4f} "
+        f"wall_s={s_:.3f}")
+    return fwd_launches
+
+
+def phase8b():
+    """fp32 at Phase 7a's widths (Llama-3-8B cut to 4 layers, seed 2) on the
+    card and on the CPU: beam search with EOS and greedy speculative decoding
+    (a 1-layer draft, seed 4) give the same tokens."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b(num_layers=4, dtype=torch.float32)
+    # A narrow 1-layer draft over the same vocab keeps the CPU side short.
+    dcfg = llama.LlamaConfig(vocab_size=cfg.vocab_size, hidden_size=256, intermediate_size=512,
+                             num_layers=1, num_heads=4, num_kv_heads=2, dtype=torch.float32)
+    params, draft = llama.init_params(cfg, seed=2), llama.init_params(dcfg, seed=4)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+    cparams, cdraft = to_cpu(params), to_cpu(draft)
+    ids = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.vocab_size, size=(1, 32)))
+    cache = llama.init_cache(cfg, 1, 32, device="cuda")
+    first, _ = llama.apply_cached(params, ids.cuda(), cfg, cache)
+    eos = int(torch.argsort(first[0, -1], descending=True)[1])  # a beam freezes at once
+    beam = dict(num_beams=4, eos_token_id=eos)
+    bg, bg_s = timed(lambda: llama.generate_beam(params, ids.cuda(), cfg, 12, **beam))
+    t0 = time.perf_counter()
+    bc = llama.generate_beam(cparams, ids, cfg, 12, **beam)
+    bc_s = time.perf_counter() - t0
+    check(torch.equal(bg.cpu(), bc), "fp32 beam search differs between the card and the CPU")
+    (sg, stg), sg_s = timed(lambda: llama.speculative_generate(
+        params, draft, ids.cuda(), cfg, dcfg, 12, num_draft_tokens=4, return_stats=True))
+    t0 = time.perf_counter()
+    sc, stc = llama.speculative_generate(cparams, cdraft, ids, cfg, dcfg, 12,
+                                         num_draft_tokens=4, return_stats=True)
+    sc_s = time.perf_counter() - t0
+    check(torch.equal(sg.cpu(), sc) and stg == stc,
+          f"fp32 speculative decoding differs between the card and the CPU: {stg} vs {stc}")
+    log(f"phase8b fp32 4 layers, card == CPU: generate_beam (4 beams, EOS {eos}, 32 + 12) "
+        f"card {bg_s:.3f} s, CPU {bc_s:.3f} s; speculative_generate (1-layer draft, gamma 4, "
+        f"32 + 12) {stg} card {sg_s:.3f} s, CPU {sc_s:.3f} s")
+    del params, draft, cparams, cdraft
+    torch.cuda.empty_cache()
+
+
+def trace_timer(tracer):
+    """Wrap the tracer's hooks on this instance to sum their host time."""
+    spent = [0.0, 0]
+
+    def wrap(fn):
+        def timed_hook(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+                spent[1] += 1
+        return timed_hook
+
+    for name in ("on_submit", "on_admit", "on_preempt", "begin_tick", "on_prefill", "on_decode",
+                 "end_tick", "on_terminal", "flush"):
+        setattr(tracer, name, wrap(getattr(tracer, name)))
+    return spent
+
+
+def phase8c(params, cfg, draft, dcfg, smi):
+    """Serving with the draft-model drafter and tracing on (Phase 2's
+    geometry and traffic, spec_tokens=3), the target as its own draft, the
+    traces, and Phase 2's traffic with tracing off beside the default."""
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import fused_attention as fu
+    from accelerate_tpu_torch.serving import (
+        DraftModelDrafter,
+        ServingConfig,
+        ServingEngine,
+        load_serving_traces,
+    )
+
+    shutil.rmtree(PHASE8_DIR, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in PHASE2_PROMPT_LENS]
+    warm = list(rng.integers(0, cfg.vocab_size, size=40))
+    max_new = 32
+
+    def engine(drafter=None, **kw):
+        eng = ServingEngine(llama.apply_cached, llama.init_cache, params, cfg, device="cuda",
+                            drafter=drafter, serving=ServingConfig(
+                                paged_kernel=True, **dict(PHASE2_GEOMETRY, **kw)))
+        eng.submit(warm, 4)
+        eng.run()
+        eng.pop_finished()
+        return eng
+
+    eng = engine(DraftModelDrafter(llama.apply, draft, dcfg), spec_tokens=3,
+                 trace_dir=os.path.join(PHASE8_DIR, "drafter"))
+    check(eng.tracer is not None, "tracing is not on by default")
+    spent = trace_timer(eng.tracer)
+    base = eng.decode_dispatches
+    base_s, base_tok = eng.decode_seconds, eng.decode_emitted_tokens
+    # Which kernel symbols the drafter's fused forward launches (dtype, head dim).
+    symbols, launch = set(), fu._launch
+
+    def recording_launch(symbol, q, *args, **kw):
+        symbols.add(f"{symbol} ({str(q.dtype)[6:]}, head dim {q.shape[-1]})")
+        return launch(symbol, q, *args, **kw)
+
+    reset_counts()
+    reset_flash_counts()
+    ids, done, snapshot = [], {}, None
+    fu._launch = recording_launch
+    t0 = time.perf_counter()
+    tick = 0
+    try:
+        while len(ids) < len(prompts) or not eng.sched.idle():
+            while len(ids) < len(prompts) and tick >= 3 * len(ids):
+                ids.append(eng.submit(prompts[len(ids)], max_new))
+            for c in eng.step():
+                done[c.id] = c
+            if snapshot is None and eng.sched.active:
+                snapshot = eng.debug_requests()
+            tick += 1
+        torch.cuda.synchronize()
+    finally:
+        fu._launch = launch
+    wall = time.perf_counter() - t0
+    dec, win = read_counts()
+    drafter_fwd = read_flash_counts()["fused_attention_fwd"]
+    dispatches = eng.decode_dispatches - base
+    st = eng.stats()
+    check(len(done) == len(prompts) and all(c.status == "ok" for c in done.values()),
+          "draft-model serving: a request did not complete ok")
+    check(win == cfg.num_layers * dispatches and dec == 0,
+          f"window kernel launched {win} times over {dispatches} verify dispatches; decode {dec}")
+    check(drafter_fwd > 0, "the drafter never ran the fused forward kernel")
+    check(snapshot and all("current_phase" in r["trace"] for r in snapshot),
+          f"debug_requests() mid-run: {snapshot}")
+    labels = []
+    for rid, p in zip(ids, prompts):
+        want = llama.generate(params, torch.tensor([p], device="cuda"), cfg, max_new)[0]
+        labels.append(check_greedy(params, cfg, f"draft-model serving request {rid}",
+                                   want.tolist(), done[rid].tokens, len(p)))
+    gaps = [x for rid in ids for x in done[rid].inter_token_ms]
+    itl, itl_mean = median(gaps), sum(gaps) / len(gaps)
+    decode_tps = (eng.decode_emitted_tokens - base_tok) / (eng.decode_seconds - base_s)
+    traces = {t.rid: t for t in eng.tracer.completed}
+    verify = 0
+    for rid in ids:
+        t = traces[rid]
+        check(t.finish is not None and t.unattributed_ms() >= 0.0,
+              f"request {rid}: trace not closed")
+        check(all(cur.start >= prev.end for prev, cur in zip(t.intervals, t.intervals[1:]))
+              and t.intervals[0].start >= t.arrival and t.intervals[-1].end <= t.finish,
+              f"request {rid}: intervals overlap or leave the submit->terminal window")
+        verify += sum(iv.phase == "verify" for iv in t.intervals)
+    check(verify > 0, "no verify interval recorded")
+    chrome = eng.export_chrome_trace(os.path.join(PHASE8_DIR, "drafter.trace.json"))
+    with open(chrome) as f:
+        events = json.load(f)["traceEvents"]
+    check(sum(e["ph"] == "X" for e in events) > 0, "the Chrome export holds no interval")
+    records = load_serving_traces(os.path.join(PHASE8_DIR, "drafter"))
+    check(sum(r["status"] == "ok" for r in records) >= len(prompts), "trace JSONL incomplete")
+    exact = sum(label == "identical" for label in labels)
+    log(f"phase8c draft-model drafter (Llama-3.2-1B widths, seed 3), spec_tokens=3, tracing on: "
+        f"{len(done)} requests ok, {exact} token-identical to greedy generate, "
+        f"{len(labels) - exact} near-tie divergences {[x for x in labels if x != 'identical']}; "
+        f"verify dispatches={dispatches} window_launches={win} decode_launches={dec} "
+        f"drafter fused_attention_fwd launches={drafter_fwd} by {sorted(symbols)}; acceptance="
+        f"{st['spec']['acceptance_rate']} (proposed {st['spec']['proposed']}, accepted "
+        f"{st['spec']['accepted']}); wall_s={wall:.3f} itl_p50_ms={itl:.2f} "
+        f"itl_mean_ms={itl_mean:.2f} decode_tokens_per_s={decode_tps:.1f}")
+    log(f"phase8c traces: {len(records)} JSONL records, {len(events)} Chrome events, "
+        f"{verify} verify intervals; blame {st['trace_blame']}; tracer hooks "
+        f"{spent[0] * 1e3:.3f} ms in {spent[1]} calls over {eng.ticks} ticks "
+        f"({spent[0] / max(eng.ticks, 1) * 1e6:.1f} us per tick)")
+    del eng
+    torch.cuda.empty_cache()
+
+    # The target as its own draft: every draft is the target's own greedy
+    # token by a full forward, so a draft is rejected only where that
+    # forward and the verify window part at a near tie.
+    drafter = DraftModelDrafter(llama.apply, params, cfg)
+    proposals = []
+    propose = drafter.propose
+
+    def recording_propose(feed, k):
+        d = propose(feed, k)
+        proposals.append((list(feed), d))
+        return d
+
+    drafter.propose = recording_propose
+    eng = engine(drafter, spec_tokens=3)
+    proposals.clear()
+    base = eng.stats()["spec"]
+    reset_counts()
+    pair = prompts[:2]
+    rids = [eng.submit(p, 16) for p in pair]
+    outs = eng.run()
+    self_win = read_counts()[1]
+    st = {k: eng.stats()["spec"][k] - base[k] for k in ("proposed", "accepted")}
+    labels = []
+    for rid, p in zip(rids, pair):
+        want = llama.generate(params, torch.tensor([p], device="cuda"), cfg, 16)[0].tolist()
+        labels.append(check_greedy(params, cfg, f"self-draft request {rid}", want, outs[rid],
+                                   len(p)))
+    # A draft is accepted iff it equals the token the engine emitted there.
+    rejected, accepted = [], 0
+    for feed, d in proposals:
+        out = next(o for o in outs.values() if o[:len(feed)] == feed)
+        miss = [j for j, t in enumerate(d) if t != out[len(feed) + j]]
+        accepted += miss[0] if miss else len(d)
+        if miss:
+            at = len(feed) + miss[0]
+            rejected.append(divergence(params, cfg, out[:at + 1], out[:at] + [d[miss[0]]],
+                                       at)[1])
+    check(st["proposed"] > 0 and accepted == st["accepted"],
+          f"self-draft: {accepted} drafts match the output, the engine accepted {st['accepted']}")
+    check(all(abs(g) <= NEAR_TIE for g in rejected),
+          f"self-draft rejected drafts away from a near tie: logit gaps {rejected}")
+    log(f"phase8c self-draft serving (2 requests + 16): {labels}; proposed={st['proposed']} "
+        f"accepted={st['accepted']} rejected at near ties (logit gaps): {rejected}; "
+        f"window_launches={self_win}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # Phase 2's traffic (no speculation) with tracing off and by default
+    # (on), in turns.
+    runs = {None: [], False: []}
+    dec_launches = 0
+    for trace in (False, None, None, False):
+        eng = engine(trace=trace)
+        base_s, base_tok = eng.decode_seconds, eng.decode_emitted_tokens
+        reset_counts()
+        done, wall, ids = serve(eng, prompts, max_new, stagger_ticks=3)
+        dec_launches += read_counts()[0]
+        gaps = [x for c in done.values() for x in c.inter_token_ms]
+        runs[trace].append(dict(
+            wall_s=wall, itl_p50_ms=median(gaps), itl_mean_ms=sum(gaps) / len(gaps),
+            decode_tokens_per_s=(eng.decode_emitted_tokens - base_tok)
+            / (eng.decode_seconds - base_s)))
+        del eng
+    for trace in (False, None):
+        r = runs[trace]
+        log(f"phase8c Phase 2 traffic, trace={trace}: " + "; ".join(
+            f"wall_s={x['wall_s']:.3f} itl_p50_ms={x['itl_p50_ms']:.2f} "
+            f"itl_mean_ms={x['itl_mean_ms']:.2f} decode_tokens_per_s="
+            f"{x['decode_tokens_per_s']:.1f}" for x in r) + f"; {smi}")
+    shutil.rmtree(PHASE8_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dec_launches, win + self_win, drafter_fwd
+
+
+def phase8(smi):
+    import torch
+
+    from accelerate_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    params = llama.init_params(cfg, seed=0)
+    dcfg = llama32_1b_config()
+    draft = llama.init_params(dcfg, seed=3)
+    log(f"phase8 Llama-3-8B bf16 ({cfg.num_params()} parameters, seed 0) and a Llama-3.2-1B-"
+        f"width draft ({dcfg.num_params()} parameters, seed 3)")
+    t0 = time.perf_counter()
+    fwd_a = phase8a(params, cfg, draft, dcfg)
+    t1 = time.perf_counter()
+    phase8b()
+    t2 = time.perf_counter()
+    dec, win, fwd_c = phase8c(params, cfg, draft, dcfg, smi)
+    t3 = time.perf_counter()
+    log(f"phase8 seconds: 8a {t1 - t0:.1f}, 8b {t2 - t1:.1f}, 8c {t3 - t2:.1f}")
+    del params, draft
+    torch.cuda.empty_cache()
+    return {"paged_attention": dec, "paged_window_attention": win,
+            "fused_attention_fwd": fwd_a + fwd_c, "fused_attention_bwd_dq": 0,
+            "fused_attention_bwd_dkv": 0}
+
+
 def main() -> int:
     import torch
 
@@ -1704,6 +2168,10 @@ def main() -> int:
     p7 = phase7(smi, p2[0])
     check(p7["paged_attention"] > 0 and p7["paged_window_attention"] > 0,
           f"phase 7 launched the paged kernels {p7} times")
+    p8 = phase8(smi)
+    check(all(p8[n] > 0 for n in ("paged_attention", "paged_window_attention",
+                                  "fused_attention_fwd")),
+          f"phase 8 launched the kernels of its path {p8} times")
     log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS))
     launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"], **p5}
     check(win3 > 0, "window kernel not launched in phase 3")
@@ -1712,7 +2180,8 @@ def main() -> int:
         r = p1[(name, "torch.bfloat16", "long")]
         serving = p1[(name, "torch.bfloat16", "serving")]
         record.append(dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-                           launches=launches[name], launches_phase7=p7[name], **r,
+                           launches=launches[name], launches_phase7=p7[name],
+                           launches_phase8=p8[name], **r,
                            previous_source=PAGED_PREVIOUS,
                            design=PAGED_DESIGN,
                            serving_shape={k: serving[k] for k in (
@@ -1735,7 +2204,7 @@ def main() -> int:
                                  "float32": FLASH_SOURCE})
         record.append(dict(dict(name=name, route="cuda", source=FLASH_SOURCE,
                                 replaces=REPLACES[name], launches=launches[name],
-                                launches_phase6=p6[name],
+                                launches_phase6=p6[name], launches_phase8=p8[name],
                                 **p4["torch.bfloat16"][name]), **extra))
     for name in FLASH_KERNELS:
         r = p4["torch.float32"][name]

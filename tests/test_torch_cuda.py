@@ -870,3 +870,114 @@ def test_tiered_engine_on_the_card_matches_generate(cuda, quant):
     assert st["tiering"]["demotions"] > 0 and st["tiering"]["promotions"] > 0
     assert launches == (0 if quant else cfg.num_layers * st["decode_dispatches"])
     assert eng.cache.allocator.used_blocks == 0
+
+
+# ---------------------------------------------------------------------------
+# Sampling, the draft-model drafter and tracing on the card
+# ---------------------------------------------------------------------------
+
+
+def test_sampling_on_the_card_is_reproducible_and_equals_the_cpu(cuda):
+    """The port's key draws on the host, so one key gives the same noise on
+    the CPU and the card: the card's sampled tokens repeat under the same
+    key, move under another, and in fp32 equal the CPU run's."""
+    from accelerate_tpu_torch.utils.random import PRNGKey
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, head_dim=64)
+    params = llama.init_params(cfg, seed=3, device="cuda")
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, size=(3, 7)))
+    kw = dict(temperature=0.8, top_k=50, top_p=0.9)
+    a = llama.generate(params, ids.cuda(), cfg, 16, key=PRNGKey(11), **kw)
+    b = llama.generate(params, ids.cuda(), cfg, 16, key=PRNGKey(11), **kw)
+    c = llama.generate(params, ids.cuda(), cfg, 16, key=PRNGKey(12), **kw)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    cpu_params = {k: (v.cpu() if torch.is_tensor(v) else {n: t.cpu() for n, t in v.items()})
+                  for k, v in params.items()}
+    ref = llama.generate(cpu_params, ids, cfg, 16, key=PRNGKey(11), **kw)
+    assert torch.equal(a.cpu(), ref)
+
+
+def test_log_of_the_fill_floor_is_finite_on_the_card(cuda):
+    """``log(p + 1e-38)`` of a zero probability: 1e-38 is an fp32
+    subnormal, and the card's kernels keep it (no flush to zero)."""
+    z = torch.zeros(4, device="cuda") + 1e-38
+    assert bool((z > 0).all())
+    assert torch.allclose(torch.log(z), torch.full_like(z, float(np.log(1e-38))), rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_draft_model_drafter_through_the_fused_kernel(cuda, dtype):
+    """A feed of 1003 tokens pads to a 1024 bucket, where ``llama.apply``
+    runs the fused forward kernel (head dim 64; bf16 on the sm90 body) with
+    the padding masked through ``kv_valid``.  Against the same drafter over
+    the kernel's plain version: fp32 proposals are equal; in bf16 the last
+    real row's logits agree to 5e-2 (two layers of bf16 rounding on top of
+    the kernel's 2e-2) and so does the proposal wherever the plain top two
+    logits are further apart than that."""
+    from accelerate_tpu_torch.serving import DraftModelDrafter
+
+    cfg = llama.LlamaConfig.tiny(dtype=dtype, head_dim=64, max_seq_len=2048)
+    params = llama.init_params(cfg, seed=5, device="cuda")
+    feed = [int(t) for t in np.random.default_rng(6).integers(0, cfg.vocab_size, size=1003)]
+    drafter = DraftModelDrafter(llama.apply, params, cfg)
+    ids = torch.zeros((1, 1024), dtype=torch.long, device="cuda")
+    ids[0, :len(feed)] = torch.tensor(feed)
+    mask = (torch.arange(1024, device="cuda") < len(feed))[None]
+    before = fu.fused_attention_fwd.launches
+    got = drafter.propose(feed, 3)
+    assert fu.fused_attention_fwd.launches - before == 3 * cfg.num_layers
+    with torch.no_grad():
+        lk = llama.apply(params, ids, cfg, attention_mask=mask)[0, len(feed) - 1]
+    saved = fu.fused_attention_fwd
+    fu.fused_attention_fwd = fu.fused_attention_fwd_plain
+    try:
+        want = drafter.propose(feed, 3)
+        with torch.no_grad():
+            lp = llama.apply(params, ids, cfg, attention_mask=mask)[0, len(feed) - 1]
+    finally:
+        fu.fused_attention_fwd = saved
+    if dtype == torch.float32:
+        assert got == want
+        torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+        return
+    torch.testing.assert_close(lk, lp, atol=5e-2, rtol=5e-2)
+    top2 = torch.topk(lp, 2).values
+    if float(top2[0] - top2[1]) > 5e-2:
+        assert got[0] == want[0]
+
+
+def test_tracing_on_a_paged_kernel_engine(cuda, tmp_path):
+    """Tracing on (the default) with the paged kernels and speculation:
+    tokens equal greedy ``generate``, every request's intervals are
+    disjoint inside its window, verify intervals are recorded, and the
+    Chrome export is written."""
+    import json
+
+    from accelerate_tpu_torch.serving import ServingConfig, ServingEngine, load_serving_traces
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32, head_dim=64)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(9)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in (9, 13, 5)]
+    eng = ServingEngine(llama.apply_cached, llama.init_cache, params, cfg, device="cuda",
+                        serving=ServingConfig(block_size=4, num_blocks=24, max_slots=2,
+                                              prefill_chunk=8, max_blocks_per_seq=8,
+                                              paged_kernel=True, spec_tokens=2,
+                                              trace_dir=str(tmp_path)))
+    assert eng.tracer is not None
+    ids = [eng.submit(p, 6) for p in prompts]
+    out = eng.run(max_ticks=500)
+    for rid, p in zip(ids, prompts):
+        assert out[rid] == llama.generate(params, torch.tensor([p], device="cuda"), cfg,
+                                          6)[0].tolist()
+    traces = list(eng.tracer.completed)
+    assert len(traces) == 3
+    for t in traces:
+        for prev, cur in zip(t.intervals, t.intervals[1:]):
+            assert cur.start >= prev.end
+        assert t.unattributed_ms() >= 0.0 and t.intervals[-1].end <= t.finish
+    assert any(iv.phase == "verify" for t in traces for iv in t.intervals)
+    path = eng.export_chrome_trace(str(tmp_path / "card.trace.json"))
+    with open(path) as f:
+        assert json.load(f)["traceEvents"]
+    assert len(load_serving_traces(str(tmp_path))) == 3

@@ -64,10 +64,15 @@ def test_source_names_no_jax_import(path):
     "accelerate_tpu_torch.serving.blocks",
     "accelerate_tpu_torch.serving.engine",
     "accelerate_tpu_torch.models.generation",
+    "accelerate_tpu_torch.serving.tracing",
+    "accelerate_tpu_torch.serving.drafter",
+    "accelerate_tpu_torch.models.llama",
+    "accelerate_tpu_torch.utils.random",
 ])
 def test_robustness_modules_are_checked(name):
-    """The serving robustness layer's modules are among those the two checks
-    above import and parse, and they export the JAX package's names."""
+    """The serving robustness layer's modules and the generation and tracing
+    slice's are among those the two checks above import and parse, and
+    they export the JAX package's names."""
     import importlib
 
     assert name in _module_names()
@@ -82,3 +87,22 @@ def test_robustness_exports_match_jax_names():
     for n in ("HostBlockPool", "JournalError", "ServingJournal", "AdmissionRejected"):
         assert n in srv.__all__ and hasattr(srv, n)
     assert res.__all__ == ["PreemptionGuard"]
+
+
+def test_generation_and_tracing_exports_match_jax_names():
+    """The names this slice ports exist under the JAX package's names."""
+    import accelerate_tpu_torch.serving as srv
+    from accelerate_tpu_torch.models import generation, llama
+    from accelerate_tpu_torch.serving import tracing
+
+    for n in ("DraftModelDrafter", "RequestTrace", "ServingTracer", "export_chrome_trace",
+              "load_serving_traces", "stitch_traces", "summarize_traces"):
+        assert n in srv.__all__ and hasattr(srv, n)
+    for n in ("select_token", "generate_loop", "speculative_generate_loop", "beam_search"):
+        assert n in generation.__all__
+    for n in ("generate", "speculative_generate", "generate_beam"):
+        assert n in llama.__all__
+    for n in ("PHASES", "BADPUT_PHASES", "PhaseInterval", "decompose_blame", "tracing_enabled",
+              "resolve_trace_dir", "format_trace_block", "ENV_ENABLE", "ENV_DIR",
+              "ENV_CAPACITY", "ENV_FLUSH_EVERY"):
+        assert hasattr(tracing, n)

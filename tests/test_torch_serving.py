@@ -121,19 +121,20 @@ def test_engine_defaults_to_cuda(llama_setup):
     ("decode_path", "dense"),
 ])
 def test_unported_serving_fields_raise(llama_setup, tmp_path, field, value):
-    """Only request tracing is left unported: ``trace`` and ``trace_dir``
-    raise, every other robustness field builds an engine that serves."""
+    """Every ``ServingConfig`` field is ported now, request tracing
+    included: each one builds an engine that serves (``trace_dir`` gets the
+    request's trace record)."""
     _, tcfg, _, tparams = llama_setup
-    if field == "journal_path":
+    if field in ("journal_path", "trace_dir"):
         value = str(tmp_path / value)
     sc = ServingConfig(block_size=4, num_blocks=16, **{field: value})
-    if field in ("trace", "trace_dir"):
-        with pytest.raises(NotImplementedError, match=field):
-            ServingEngine(tl.apply_cached, tl.init_cache, tparams, tcfg, device="cpu", serving=sc)
-        return
     eng = ServingEngine(tl.apply_cached, tl.init_cache, tparams, tcfg, device="cpu", serving=sc)
     rid = eng.submit([1, 2, 3], 2, deadline_ms=60_000.0, ttft_deadline_ms=60_000.0)
     assert len(eng.run(max_ticks=50)[rid]) == 5
+    if field in ("trace", "trace_dir"):
+        assert eng.tracer is not None and len(eng.tracer.completed) == 1
+    if field == "trace_dir":
+        assert (tmp_path / value).is_dir() and any((tmp_path / value).iterdir())
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
