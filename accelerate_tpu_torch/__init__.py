@@ -24,13 +24,63 @@ Ported so far:
   ``optimizer.py``, ``pipeline/train_step.py``, the training forward and
   loss in ``models/llama.py``, ``ops/chunked_ce.py``,
   ``ops/flash_attention.py``) with the flash-attention forward, dQ and
-  dK/dV kernels (``ops/fused_attention.py``).
+  dK/dV kernels (``ops/fused_attention.py``), checkpoints
+  (``checkpointing.py``), and the single-process ``Accelerator`` surface:
+  ``mixed_precision`` (:class:`PreparedModel`), :class:`PartialState` /
+  :class:`AcceleratorState`, the process properties and decorators, and
+  the operations (``gather_for_metrics``, ``reduce``, ...,
+  ``utils/operations.py``).
+
+The JAX package's top-level names import from here under the same names;
+the data loader, pipeline, resilience and serving ones load on first use.
 
 ROADMAP.md lists what remains.
 """
 
 __version__ = "0.1.0"
 
-from .accelerator import Accelerator, FunctionalModel  # noqa: E402
+from .accelerator import Accelerator, FunctionalModel, PreparedModel  # noqa: E402
+from .state import AcceleratorState, GradientState, PartialState  # noqa: E402
+from .utils import (  # noqa: E402
+    AutocastKwargs,
+    DataLoaderConfiguration,
+    DDPCommunicationHookType,
+    DistributedDataParallelKwargs,
+    DistributedInitKwargs,
+    DistributedType,
+    GradientAccumulationPlugin,
+    GradScalerKwargs,
+    InitProcessGroupKwargs,
+    MixedPrecisionPolicy,
+    ProfileKwargs,
+    ProjectConfiguration,
+    set_seed,
+)
 
-__all__ = ["Accelerator", "FunctionalModel", "__version__"]
+# Imported on first use, as the JAX package does: serving pulls in the
+# engine, and the rest is kept off ``import accelerate_tpu_torch``'s path.
+_LAZY = {
+    "data_loader": ("prepare_data_loader", "skip_first_batches", "DataLoaderShard"),
+    "pipeline": ("make_train_step", "TrainStep", "DevicePrefetcher"),
+    "resilience": ("PreemptionGuard", "verify_checkpoint", "find_latest_complete",
+                   "CheckpointVerificationError"),
+    "serving": ("ServingEngine", "ServingConfig", "AdmissionRejected", "ServingJournal"),
+}
+
+__all__ = [
+    "Accelerator", "AcceleratorState", "AutocastKwargs", "DDPCommunicationHookType",
+    "DataLoaderConfiguration", "DistributedDataParallelKwargs", "DistributedInitKwargs",
+    "DistributedType", "FunctionalModel", "GradScalerKwargs", "GradientAccumulationPlugin",
+    "GradientState", "InitProcessGroupKwargs", "MixedPrecisionPolicy", "PartialState",
+    "PreparedModel", "ProfileKwargs", "ProjectConfiguration", "__version__", "set_seed",
+    *(name for names in _LAZY.values() for name in names),
+]
+
+
+def __getattr__(name):
+    for module, names in _LAZY.items():
+        if name in names:
+            import importlib
+
+            return getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

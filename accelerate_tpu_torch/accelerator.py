@@ -21,6 +21,12 @@ in one call with the same numerics.  :meth:`~Accelerator.save_state`,
 checkpoint all of it (:mod:`.checkpointing`).  Serving:
 :meth:`~Accelerator.prepare_serving`.
 
+``Accelerator(mixed_precision="bf16")`` computes each prepared model's
+forward with bf16 copies of its fp32 parameters (:class:`PreparedModel`);
+the process surface (``print``, ``is_main_process``, ``gather_for_metrics``,
+...) is the JAX ``Accelerator``'s at one process (:mod:`.state`,
+:mod:`.utils.operations`).
+
 ``prepare`` takes an ``nn.Module`` directly, so the JAX package's
 ``utils/torch_bridge.py`` (FX graph -> JAX lowering of torch modules) has no
 counterpart here; functional models come as :class:`FunctionalModel`.
@@ -29,6 +35,7 @@ counterpart here; functional models come as :class:`FunctionalModel`.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import os
 import warnings
@@ -42,15 +49,31 @@ from .data_loader import DataLoaderShard, prepare_data_loader, skip_first_batche
 from .optimizer import AcceleratedOptimizer, global_norm
 from .pipeline.train_step import accumulate_grads
 from .scheduler import AcceleratedScheduler
-from .state import GradientState, resolve_device
+from .state import AcceleratorState, GradientState, resolve_device
 from .utils.dataclasses import (
+    AutocastKwargs,
     DataLoaderConfiguration,
+    DistributedDataParallelKwargs,
+    DistributedInitKwargs,
+    DistributedType,
+    FP8RecipeKwargs,
     GradientAccumulationPlugin,
+    GradScalerKwargs,
+    KwargsHandler,
+    ProfileKwargs,
     ProjectConfiguration,
 )
-from .utils.operations import rename_state_dict
+from .utils.modeling import PreparedModel
+from .utils.operations import (
+    gather,
+    gather_object,
+    pad_across_processes,
+    recursively_apply,
+    reduce,
+    rename_state_dict,
+)
 
-__all__ = ["Accelerator", "FunctionalModel"]
+__all__ = ["Accelerator", "FunctionalModel", "PreparedModel"]
 
 
 class FunctionalModel(nn.Module):
@@ -62,7 +85,9 @@ class FunctionalModel(nn.Module):
     ``model(**batch)`` is ``apply_fn(params, **batch)``, which returns
     ``{"loss": ...}`` for training.  ``state_dict()`` names each leaf by
     its path in the tree, joined with dots (``layers.wq``), as the JAX
-    ``JaxModel.state_dict`` does."""
+    ``JaxModel.state_dict`` does.  ``params`` is rebuilt from the
+    registered leaves on each read, so ``torch.func.functional_call``
+    (a :class:`PreparedModel`'s 16-bit copies) reaches ``apply_fn``."""
 
     def __init__(self, apply_fn: Callable, params: Any):
         super().__init__()
@@ -74,17 +99,34 @@ class FunctionalModel(nn.Module):
             if isinstance(tree, dict):
                 return {k: wrap(v, f"{path}{k}.") for k, v in tree.items()}
             if isinstance(tree, torch.Tensor):
-                leaf = tree if isinstance(tree, nn.Parameter) else nn.Parameter(tree)
-                self._leaves.append(leaf)
+                self._leaves.append(tree if isinstance(tree, nn.Parameter) else nn.Parameter(tree))
                 names.append(path[:-1])
-                return leaf
+                return _Leaf(len(self._leaves) - 1)
             return tree
 
-        self.params = wrap(params, "")
+        self._structure = wrap(params, "")
         rename_state_dict(self, {f"_leaves.{i}": n for i, n in enumerate(names)})
+
+    @property
+    def params(self):
+        def build(tree):
+            if isinstance(tree, dict):
+                return {k: build(v) for k, v in tree.items()}
+            return self._leaves[tree.index] if isinstance(tree, _Leaf) else tree
+
+        return build(self._structure)
 
     def forward(self, *args, **kwargs):
         return self.apply_fn(self.params, *args, **kwargs)
+
+
+class _Leaf:
+    """Where a parameter sits in a :class:`FunctionalModel`'s tree."""
+
+    __slots__ = ("index",)
+
+    def __init__(self, index: int):
+        self.index = index
 
 
 class _RemovableHandle:
@@ -102,37 +144,74 @@ class _RemovableHandle:
 
 class Accelerator:
     """``Accelerator()`` runs on the GPU (raising without CUDA); ``cpu=True``
-    or ``device="cpu"`` keeps everything on the host.  The other arguments
-    keep the JAX ``Accelerator``'s names:
+    or ``device="cpu"`` keeps everything on the host.  The device is the
+    process's, ``state.device``: an ``Accelerator`` that names another
+    device than a live state raises.  The other arguments keep the JAX
+    ``Accelerator``'s names:
 
+    - ``mixed_precision``: ``"no"``, ``"bf16"`` or ``"fp16"`` (bf16 compute,
+      as in the JAX package; ``"fp8"`` raises until ROADMAP A8), else
+      ``ACCELERATE_MIXED_PRECISION``; held in :attr:`state`, an
+      :class:`~accelerate_tpu_torch.state.AcceleratorState`;
     - ``gradient_accumulation_steps`` (or a ``gradient_accumulation_plugin``):
       micro-batches per optimizer step;
-    - ``dataloader_config`` (or ``split_batches``): how ``prepare``
+    - ``dataloader_config`` (or ``split_batches``, ``even_batches``,
+      ``dispatch_batches``, ``use_seedable_sampler``): how ``prepare``
       rebuilds dataloaders;
+    - ``device_placement``: ``prepare`` moves models and batches to the
+      device (False leaves them where they are);
     - ``project_dir`` / ``project_config``: where checkpoints go;
     - ``step_scheduler_with_optimizer``: the scheduler holds back while
-      gradients accumulate.
+      gradients accumulate;
+    - ``kwargs_handlers``: at most one each of :class:`AutocastKwargs`,
+      :class:`ProfileKwargs`, :class:`GradScalerKwargs`,
+      :class:`DistributedDataParallelKwargs` and
+      :class:`DistributedInitKwargs`, kept in ``autocast_handler``,
+      ``profile_handler``, ``scaler_handler``, ``ddp_handler`` and
+      ``init_handler`` (:meth:`profile` reads its handler; one process syncs
+      no gradient and scales no loss, so the others are held only);
+    - ``rng_types``: kept for the JAX surface (one process has no generator
+      to synchronise);
+    - ``log_with``: trackers are not ported yet (ROADMAP A1(b)), so any
+      tracker raises.
     """
 
-    def __init__(self, cpu: bool = False, device=None, gradient_accumulation_steps: int = 1,
-                 split_batches: bool = False,
-                 dataloader_config: Optional[DataLoaderConfiguration] = None,
-                 project_dir: Optional[str] = None,
+    def __init__(self, device_placement: bool = True, split_batches: bool = False,
+                 mixed_precision: Optional[str] = None, gradient_accumulation_steps: int = 1,
+                 cpu: bool = False, dataloader_config: Optional[DataLoaderConfiguration] = None,
+                 log_with=None, project_dir: Optional[str] = None,
                  project_config: Optional[ProjectConfiguration] = None,
                  gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
-                 step_scheduler_with_optimizer: bool = True):
+                 step_scheduler_with_optimizer: bool = True,
+                 kwargs_handlers: Optional[List[KwargsHandler]] = None,
+                 rng_types: Optional[list] = None, even_batches: bool = True,
+                 dispatch_batches: Optional[bool] = None, use_seedable_sampler: bool = False,
+                 device=None):
         if cpu and device is not None and str(device) != "cpu":
             raise ValueError(f"cpu=True contradicts device={device!r}")
-        self.device = resolve_device("cpu" if cpu else device)
+        if log_with:
+            raise NotImplementedError(
+                f"log_with={log_with!r}: experiment trackers are not ported to "
+                "accelerate_tpu_torch yet (ROADMAP.md A1(b))")
+        # The device named in full, so a live state on another one raises.
+        self.state = AcceleratorState(mixed_precision=mixed_precision,
+                                      device=resolve_device("cpu" if cpu else device))
+        self.device = self.state.device
         self.project_configuration = project_config or ProjectConfiguration()
         if project_dir is not None and self.project_configuration.project_dir is None:
-            self.project_configuration.project_dir = project_dir
+            self.project_configuration.set_directories(project_dir)
         self.dataloader_config = dataloader_config or DataLoaderConfiguration(
-            split_batches=split_batches)
+            split_batches=split_batches, dispatch_batches=dispatch_batches,
+            even_batches=even_batches, use_seedable_sampler=use_seedable_sampler)
         self.gradient_state = GradientState(
             gradient_accumulation_plugin
             or GradientAccumulationPlugin(num_steps=gradient_accumulation_steps))
+        self.device_placement = device_placement
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
+        self.rng_types = rng_types or ["generator"]
+        self.log_with: list = []
+        self.trackers: list = []
+        self.flag_tensor = None
         self._models: List[nn.Module] = []
         self._optimizers: List[AcceleratedOptimizer] = []
         self._schedulers: List[AcceleratedScheduler] = []
@@ -143,6 +222,138 @@ class Accelerator:
         self.last_save_timing: Optional[dict] = None
         self.last_load_timing: Optional[dict] = None
         self._preemption_guard = None
+
+        self.ddp_handler = None
+        self.scaler_handler = None
+        self.init_handler = None
+        self.autocast_handler = None
+        self.profile_handler = None
+        self.fp8_recipe_handler = None
+        slots = {DistributedDataParallelKwargs: "ddp_handler", GradScalerKwargs: "scaler_handler",
+                 DistributedInitKwargs: "init_handler", AutocastKwargs: "autocast_handler",
+                 ProfileKwargs: "profile_handler", FP8RecipeKwargs: "fp8_recipe_handler"}
+        for handler in kwargs_handlers or []:
+            if not isinstance(handler, KwargsHandler):
+                raise ValueError(f"Unsupported kwargs handler: {handler!r}")
+            slot = slots.get(type(handler))
+            if slot is None:
+                raise ValueError(f"Unsupported kwargs handler type: {type(handler).__name__}")
+            if getattr(self, slot) is not None:
+                raise ValueError(
+                    f"You can only pass one {type(handler).__name__} in `kwargs_handlers`.")
+            setattr(self, slot, handler)
+
+    # -- the process (state passthroughs) -------------------------------------
+
+    @property
+    def distributed_type(self) -> DistributedType:
+        return self.state.distributed_type
+
+    @property
+    def num_processes(self) -> int:
+        return self.state.num_processes
+
+    @property
+    def process_index(self) -> int:
+        return self.state.process_index
+
+    @property
+    def local_process_index(self) -> int:
+        return self.state.local_process_index
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.state.is_main_process
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.state.is_last_process
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.state.use_distributed
+
+    @property
+    def mixed_precision(self) -> str:
+        return self.state.mixed_precision
+
+    @property
+    def fp8_backend(self) -> Optional[str]:
+        """The fp8 engine in use: none, as fp8 is not ported (ROADMAP A8)."""
+        return None
+
+    def print(self, *args, **kwargs) -> None:
+        """``print`` on the local main process only."""
+        self.state.print(*args, **kwargs)
+
+    def wait_for_everyone(self) -> None:
+        self.state.wait_for_everyone()
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        with self.state.main_process_first():
+            yield
+
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        with self.state.local_main_process_first():
+            yield
+
+    def on_main_process(self, func=None):
+        return self.state.on_main_process(func)
+
+    def on_local_main_process(self, func=None):
+        return self.state.on_local_main_process(func)
+
+    def on_process(self, func=None, process_index=None):
+        return self.state.on_process(func, process_index)
+
+    def on_last_process(self, func):
+        return self.state.on_last_process(func)
+
+    def on_local_process(self, func=None, local_process_index=None):
+        return self.state.on_local_process(func, local_process_index)
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.state.split_between_processes(inputs, apply_padding)
+
+    # -- dataloader configuration -------------------------------------------
+
+    @property
+    def split_batches(self) -> bool:
+        return self.dataloader_config.split_batches
+
+    @property
+    def dispatch_batches(self) -> Optional[bool]:
+        return self.dataloader_config.dispatch_batches
+
+    @property
+    def even_batches(self) -> bool:
+        return self.dataloader_config.even_batches
+
+    @even_batches.setter
+    def even_batches(self, value: bool) -> None:
+        self.dataloader_config.even_batches = value
+
+    @property
+    def use_seedable_sampler(self) -> bool:
+        return self.dataloader_config.use_seedable_sampler
+
+    @property
+    def use_stateful_dataloader(self) -> bool:
+        return self.dataloader_config.use_stateful_dataloader
+
+    @property
+    def non_blocking(self) -> bool:
+        return self.dataloader_config.non_blocking
+
+    @property
+    def logging_dir(self) -> Optional[str]:
+        return self.project_configuration.logging_dir
 
     # -- accumulation state ---------------------------------------------------
 
@@ -188,11 +399,12 @@ class Accelerator:
         out = [staged[i] for i in range(len(args))]
         return out[0] if len(out) == 1 else tuple(out)
 
-    def prepare_data_loader(self, data_loader):
+    def prepare_data_loader(self, data_loader, device_placement: Optional[bool] = None):
         """Wrap a torch ``DataLoader`` (or any iterable of batches) as a
         :class:`~accelerate_tpu_torch.data_loader.DataLoaderShard` that
-        yields batches on this accelerator's device and tells
-        :meth:`accumulate` about its last batch."""
+        yields batches on this accelerator's device (left where they are
+        without ``device_placement``) and tells :meth:`accumulate` about its
+        last batch."""
         if isinstance(data_loader, DataLoaderShard):
             if not any(data_loader is d for d in self._dataloaders):
                 self._dataloaders.append(data_loader)
@@ -200,6 +412,7 @@ class Accelerator:
         cfg = self.dataloader_config
         prepared = prepare_data_loader(
             data_loader, device=self.device, split_batches=cfg.split_batches,
+            put_on_device=self.device_placement if device_placement is None else device_placement,
             even_batches=cfg.even_batches, use_seedable_sampler=cfg.use_seedable_sampler,
             data_seed=cfg.data_seed, non_blocking=cfg.non_blocking,
             use_stateful_dataloader=cfg.use_stateful_dataloader,
@@ -222,18 +435,29 @@ class Accelerator:
         self._schedulers.append(prepared)
         return prepared
 
-    def prepare_model(self, model: nn.Module) -> nn.Module:
+    def prepare_model(self, model: nn.Module, device_placement: Optional[bool] = None,
+                      evaluation_mode: bool = False) -> nn.Module:
         """Move ``model`` (an ``nn.Module`` or a :class:`FunctionalModel`) to
         this accelerator's device in place (its ``Parameter`` objects stay
-        the same, so an optimizer built over them stays valid) and register
-        it."""
+        the same, so an optimizer built over them stays valid; not moved
+        without ``device_placement``) and register it.  Under a 16-bit
+        ``mixed_precision`` it comes back as a :class:`PreparedModel` around
+        it, under ``"no"`` as itself.  ``evaluation_mode`` puts it in
+        ``eval()`` mode."""
         if not isinstance(model, nn.Module):
             raise TypeError(f"prepare_model takes an nn.Module or a FunctionalModel, "
                             f"got {type(model).__name__}")
-        if not any(model is m for m in self._models):
+        for m in self._models:
+            if model is m or (isinstance(m, PreparedModel) and m.module is model):
+                return m
+        if self.device_placement if device_placement is None else device_placement:
             model.to(self.device)
-            self._models.append(model)
-        return model
+        dt = self.state.dtype_policy.compute_dtype
+        prepared = model if dt == torch.float32 else PreparedModel(model, dt)
+        if evaluation_mode:
+            prepared.eval()
+        self._models.append(prepared)
+        return prepared
 
     def prepare_optimizer(self, optimizer: torch.optim.Optimizer) -> AcceleratedOptimizer:
         """Wrap ``optimizer``, paired by parameter identity with the prepared
@@ -308,6 +532,162 @@ class Accelerator:
         return make_train_step(self, model, optimizer, accum_steps=accum_steps,
                                clip_norm=clip_norm, clip_value=clip_value)
 
+    @contextlib.contextmanager
+    def no_sync(self, model=None):
+        """``sync_gradients`` False inside (restored on exit): one process
+        has no gradient all-reduce to skip, so only the flag moves."""
+        old = self.gradient_state.sync_gradients
+        self.gradient_state.sync_gradients = False
+        try:
+            yield
+        finally:
+            self.gradient_state.sync_gradients = old
+
+    def trigger_sync_in_backward(self, model) -> None:
+        """Make the next backward a sync step inside :meth:`no_sync`."""
+        self.gradient_state.sync_gradients = True
+
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables, even_batches: Optional[bool] = None):
+        """torch's ``Join`` over processes with uneven inputs: one process
+        has nobody to wait for, so the block runs as it is (the JAX
+        ``Accelerator`` too overrides ``even_batches`` only with several)."""
+        yield
+
+    def unscale_gradients(self, optimizer=None) -> None:
+        """No loss scaler runs (``fp16`` computes in bf16, which needs none),
+        so gradients are already at true scale: a no-op kept for the JAX
+        surface, where optax carries no scaler either."""
+
+    @property
+    def optimizer_step_was_skipped(self) -> bool:
+        """Whether the last ``optimizer.step()`` of any prepared optimizer
+        skipped its update (accumulating, or no gradient)."""
+        return any(opt.step_was_skipped for opt in self._optimizers)
+
+    def unwrap_model(self, model, keep_fp32_wrapper: bool = True,
+                     keep_torch_compile: bool = True) -> nn.Module:
+        """The original module of a prepared model, with its fp32
+        parameters (see :func:`~accelerate_tpu_torch.utils.other.extract_model_from_parallel`)."""
+        from .utils.other import extract_model_from_parallel
+
+        return extract_model_from_parallel(model, keep_fp32_wrapper=keep_fp32_wrapper,
+                                           keep_torch_compile=keep_torch_compile)
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler=None):
+        """A no-op context, as in the JAX package: the 16-bit compute of
+        ``mixed_precision`` lives in the prepared model."""
+        yield
+
+    @contextlib.contextmanager
+    def profile(self, profile_handler: Optional[ProfileKwargs] = None):
+        """``torch.profiler.profile`` over the block, configured by
+        ``profile_handler`` (else the constructor's :class:`ProfileKwargs`,
+        else the defaults), yielded so the caller can ``step()`` a schedule.
+        With ``output_trace_dir`` (or ``ACCELERATE_TPU_TRACE_DIR``) each
+        finished trace is written as Chrome JSON to
+        ``<dir>/profile_<process_index>/trace_<step>.json``; without one it
+        is dropped."""
+        handler = profile_handler or self.profile_handler or ProfileKwargs()
+        kinds = {"cpu": torch.profiler.ProfilerActivity.CPU,
+                 "cuda": torch.profiler.ProfilerActivity.CUDA}
+        names = handler.activities or (["cpu", "cuda"] if torch.cuda.is_available() else ["cpu"])
+        out_dir = handler.output_trace_dir or os.environ.get("ACCELERATE_TPU_TRACE_DIR")
+        on_ready = None
+        if out_dir is not None:
+            trace_dir = os.path.join(out_dir, f"profile_{self.process_index}")
+            os.makedirs(trace_dir, exist_ok=True)
+
+            def on_ready(prof):
+                prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{prof.step_num}.json"))
+
+        schedule = (torch.profiler.schedule(**handler.schedule_option)
+                    if handler.schedule_option else None)
+        with torch.profiler.profile(activities=[kinds[n] for n in names], schedule=schedule,
+                                    on_trace_ready=on_ready, record_shapes=handler.record_shapes,
+                                    profile_memory=handler.profile_memory,
+                                    with_flops=handler.with_flops) as prof:
+            yield prof
+
+    def free_memory(self, *objects):
+        """Forget every prepared model, optimizer, scheduler and dataloader,
+        restart the accumulation count, collect garbage and empty the CUDA
+        cache; returns one None per argument, for the caller to rebind."""
+        self._models.clear()
+        self._optimizers.clear()
+        self._schedulers.clear()
+        self._dataloaders.clear()
+        self.gradient_state.step = 0
+        objects = [None] * len(objects)
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        return objects
+
+    def clear(self, *objects):
+        return self.free_memory(*objects)
+
+    def save(self, obj, f, safe_serialization: bool = False) -> None:
+        """Write ``obj`` on the main process (see
+        :func:`~accelerate_tpu_torch.utils.other.save`)."""
+        from .utils.other import save
+
+        save(obj, f, save_on_each_node=self.project_configuration.save_on_each_node,
+             safe_serialization=safe_serialization)
+
+    # -- metrics and collectives (one process) ------------------------------
+
+    def gather(self, tensor):
+        return gather(tensor)
+
+    def gather_for_metrics(self, input_data, use_gather_object: bool = False):
+        """:meth:`gather`, then, on a prepared dataloader's last batch, only
+        its first ``remainder`` rows (what a loader filled its tail batch
+        with is dropped).  Input that is not all tensors, or
+        ``use_gather_object``, goes through ``gather_object`` as a list of
+        samples."""
+        try:
+            recursively_apply(lambda x: x, input_data, error_on_other_type=True)
+            all_tensors = True
+        except TypeError:
+            all_tensors = False
+        object_mode = not all_tensors or use_gather_object
+        if object_mode:
+            data = gather_object(input_data if isinstance(input_data, (list, tuple))
+                                 else [input_data])
+        else:
+            data = self.gather(input_data)
+        remainder = self.gradient_state.remainder
+        if not (self.gradient_state.end_of_dataloader and remainder > 0):
+            return data
+        if object_mode:
+            return data[:remainder]
+        try:
+            return recursively_apply(lambda t: t[:remainder], data)
+        except IndexError:  # a 0-d leaf has no rows to drop
+            return data
+
+    def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
+        return reduce(tensor, reduction, scale)
+
+    def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0,
+                             pad_first: bool = False):
+        return pad_across_processes(tensor, dim, pad_index, pad_first)
+
+    def set_trigger(self) -> None:
+        """Raise this process's flag for :meth:`check_trigger`."""
+        self.flag_tensor = torch.ones(1, dtype=torch.int64, device=self.device)
+
+    def check_trigger(self) -> bool:
+        """True (and the flag lowered) when any process raised its flag."""
+        flag = (self.flag_tensor if self.flag_tensor is not None
+                else torch.zeros(1, dtype=torch.int64, device=self.device))
+        if int(reduce(flag, reduction="sum")[0]) >= 1:
+            self.flag_tensor = None
+            return True
+        return False
+
     # -- checkpoints ------------------------------------------------------------
 
     def register_save_state_pre_hook(self, hook: Callable) -> _RemovableHandle:
@@ -334,40 +714,53 @@ class Accelerator:
                                  "registered.")
             self._custom_objects.append(obj)
 
-    def save_state(self, output_dir: Optional[str] = None, step: Optional[int] = None) -> str:
+    def save_state(self, output_dir: Optional[str] = None, step: Optional[int] = None,
+                   verified: bool = True) -> str:
         """Write a verified checkpoint of everything prepared (see
         :mod:`accelerate_tpu_torch.checkpointing`) and return its directory;
         under automatic naming it is
-        ``<project_dir>/checkpoints/checkpoint_<iteration>``."""
+        ``<project_dir>/checkpoints/checkpoint_<iteration>``.
+        ``verified=False`` writes in place, with no staging and no
+        manifest."""
         from .checkpointing import save_accelerator_state
 
-        return save_accelerator_state(self, output_dir, step=step)
+        return save_accelerator_state(self, output_dir, step=step, verified=verified)
 
-    def load_state(self, input_dir: Optional[str] = None) -> str:
+    def load_state(self, input_dir: Optional[str] = None, verify: bool = True) -> str:
         """Restore a checkpoint written by :meth:`save_state` (verified
-        against its manifest first) and return its directory."""
+        against its manifest first, unless ``verify=False``) and return its
+        directory."""
         from .checkpointing import load_accelerator_state
 
-        return load_accelerator_state(self, input_dir)
+        return load_accelerator_state(self, input_dir, verify=verify)
 
-    def save_model(self, model, save_directory: str, max_shard_size="10GB") -> str:
-        """``model``'s weights as safetensors under ``save_directory``."""
+    def save_model(self, model, save_directory: str, max_shard_size="10GB",
+                   safe_serialization: bool = True) -> str:
+        """``model``'s weights as safetensors under ``save_directory`` (a
+        ``model.pkl`` ``torch.save`` archive without
+        ``safe_serialization``)."""
         from .checkpointing import save_model_weights
 
-        return save_model_weights(model, save_directory, max_shard_size=max_shard_size)
+        return save_model_weights(model, save_directory, max_shard_size=max_shard_size,
+                                  safe_serialization=safe_serialization)
 
-    def get_state_dict(self, model) -> dict:
-        return model.state_dict()
+    def get_state_dict(self, model, unwrap: bool = True) -> dict:
+        """``model``'s state dict (fp32, under its names): a prepared
+        wrapper's is its module's, so ``unwrap`` changes nothing."""
+        return (self.unwrap_model(model) if unwrap else model).state_dict()
 
     def skip_first_batches(self, dataloader, num_batches: int = 0):
         return skip_first_batches(dataloader, num_batches)
 
-    def resume_from_latest(self, checkpoint_dir: Optional[str] = None) -> Optional[int]:
+    def resume_from_latest(self, checkpoint_dir: Optional[str] = None,
+                           verify: bool = True) -> Optional[int]:
         """Restore the newest manifest-complete checkpoint under
         ``checkpoint_dir`` (default ``<project_dir>/checkpoints``), passing
         over torn partials, and return the step its manifest records (0
-        when none), or None when there is no complete checkpoint.  Automatic
-        naming continues after the checkpoint resumed from."""
+        when none), or None when there is no complete checkpoint
+        (``verify=False`` loads it without checking the manifest's sizes
+        and hashes).  Automatic naming continues after the checkpoint
+        resumed from."""
         from .resilience.manifest import find_latest_complete, read_manifest
 
         root = checkpoint_dir or os.path.join(self.project_dir or ".", "checkpoints")
@@ -375,7 +768,7 @@ class Accelerator:
         if ckpt is None:
             return None
         step = (read_manifest(ckpt) or {}).get("step")
-        self.load_state(ckpt)
+        self.load_state(ckpt, verify=verify)
         tail = os.path.basename(ckpt).rsplit("_", 1)[-1]
         if os.path.basename(ckpt).startswith("checkpoint_") and tail.isdigit():
             self.project_configuration.iteration = int(tail) + 1
@@ -383,12 +776,15 @@ class Accelerator:
 
     # -- preemption ---------------------------------------------------------------
 
-    def enable_preemption_handling(self, save_dir: Optional[str] = None, signals=None):
+    def enable_preemption_handling(self, save_dir: Optional[str] = None, signals=None,
+                                   coordinated: Optional[bool] = None):
         """Install a :class:`~accelerate_tpu_torch.resilience.PreemptionGuard`
         for this process (idempotent) and return it.  ``save_dir`` is where
         :meth:`check_preemption` writes the final checkpoint; without it,
         automatic checkpoint naming must be on.  Serving engines built by
-        :meth:`prepare_serving` afterwards drain on the signal."""
+        :meth:`prepare_serving` afterwards drain on the signal.
+        ``coordinated=True`` (agreement across processes) raises
+        ``NotImplementedError`` until ROADMAP A6."""
         from .resilience import PreemptionGuard
 
         if (self._preemption_guard is None and save_dir is None
@@ -400,7 +796,7 @@ class Accelerator:
             )
         if self._preemption_guard is None:
             kwargs = {} if signals is None else {"signals": signals}
-            self._preemption_guard = PreemptionGuard(**kwargs).install()
+            self._preemption_guard = PreemptionGuard(coordinated=coordinated, **kwargs).install()
         if save_dir is not None:
             self._preemption_guard.save_dir = save_dir
         return self._preemption_guard

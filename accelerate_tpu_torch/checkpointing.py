@@ -20,7 +20,8 @@ later object of a kind):
 Apart from the weights, files are ``torch.save`` archives (the JAX package
 pickles optax state, which the port has no use for).
 
-The save is atomic: files are staged in ``<dir>.tmp``, the manifest is
+The save is atomic (``verified=False`` opts out and writes in place, with
+no staging and no manifest): files are staged in ``<dir>.tmp``, the manifest is
 written last, an existing ``<dir>`` is moved aside to ``<dir>.old`` and
 the staging directory renamed in (the old one restored if that rename
 fails, and a checkpoint left displaced by a crash restored on the next
@@ -88,15 +89,21 @@ def _named(name: str, i: int, ext: str) -> str:
 
 def save_model_weights(model, save_directory: str, weights_name: str = WEIGHTS_NAME,
                        max_shard_size="10GB", state_dict: Optional[dict] = None,
-                       fsync: bool = False) -> str:
+                       fsync: bool = False, safe_serialization: bool = True) -> str:
     """Write ``model.state_dict()`` (or ``state_dict``) as safetensors under
     ``save_directory``; above ``max_shard_size`` bytes the tensors go into
     numbered shards, filled in order, with a ``<weights_name>.index.json``
     weight map.  A re-save removes the other layout's files.  Returns the
-    path of the file or index written."""
+    path of the file or index written.  ``safe_serialization=False`` writes
+    one ``<stem>.pkl`` instead (a ``torch.save`` archive of the host
+    tensors, where the JAX package pickles numpy arrays), unsharded."""
     os.makedirs(save_directory, exist_ok=True)
     if state_dict is None:
         state_dict = model.state_dict()
+    if not safe_serialization:
+        pkl_path = os.path.join(save_directory, f"{weights_name.rsplit('.', 1)[0]}.pkl")
+        _save(_to_host(state_dict), pkl_path, fsync)
+        return pkl_path
     limit = _parse_size(max_shard_size)
     total = sum(t.numel() * t.element_size() for t in state_dict.values())
     stem = weights_name.rsplit(".", 1)[0]
@@ -221,25 +228,40 @@ def _publish(staging_dir: str, final_dir: str, fsync: bool) -> None:
 
 
 def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
-                           step: Optional[int] = None) -> str:
+                           step: Optional[int] = None, verified: bool = True) -> str:
     """Write every prepared model, optimizer, scheduler, dataloader position,
     registered object and the RNG states as one verified checkpoint (see the
     module docstring) and return its directory.  ``step`` is recorded in the
-    manifest for ``resume_from_latest``.
+    manifest for ``resume_from_latest``.  ``verified=False`` writes the
+    files straight into the directory, with no manifest (so
+    ``resume_from_latest`` passes it over), and rotates the oldest
+    ``checkpoint_<i>`` directories out by index.
 
     ``accelerator.last_save_timing`` gets the seconds spent copying state
     to the host (``d2h_s``), writing files (``write_s``), hashing and
     syncing them into the manifest (``manifest_s``) and publishing
     (``publish_s``), and the bytes written (``bytes``)."""
     from .data_loader import SeedableRandomSampler
-    from .resilience.manifest import fsync_enabled, prune_checkpoints, write_manifest
+    from .resilience.manifest import (
+        MANIFEST_NAME,
+        fsync_enabled,
+        prune_checkpoints,
+        write_manifest,
+    )
 
     fsync = fsync_enabled()
     final_dir = _resolve_output_dir(accelerator, output_dir)
-    staging = f"{final_dir.rstrip(os.sep)}.tmp"
-    if os.path.isdir(staging):  # a crashed save's staging: never loadable
-        shutil.rmtree(staging, ignore_errors=True)
-    os.makedirs(staging)
+    if verified:
+        staging = f"{final_dir.rstrip(os.sep)}.tmp"
+        if os.path.isdir(staging):  # a crashed save's staging: never loadable
+            shutil.rmtree(staging, ignore_errors=True)
+        os.makedirs(staging)
+    else:
+        staging = final_dir
+        os.makedirs(staging, exist_ok=True)
+        stale = os.path.join(staging, MANIFEST_NAME)
+        if os.path.exists(stale):  # it would describe the files being replaced
+            os.remove(stale)
 
     # Pre-hooks see the models and their current weights; what they leave
     # in the weights list is what gets written.
@@ -282,28 +304,48 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
             _save(obj, path, fsync)
     del files
     t2 = time.perf_counter()
-    manifest = write_manifest(staging, step=step)
-    t3 = time.perf_counter()
-    _publish(staging, final_dir, fsync)
     cfg = accelerator.project_configuration
-    if cfg.automatic_checkpoint_naming and cfg.total_limit is not None:
-        prune_checkpoints(os.path.dirname(final_dir), keep=cfg.total_limit)
+    rotate = cfg.automatic_checkpoint_naming and cfg.total_limit is not None
+    if verified:
+        manifest = write_manifest(staging, step=step)
+        t3 = time.perf_counter()
+        _publish(staging, final_dir, fsync)
+        if rotate:
+            prune_checkpoints(os.path.dirname(final_dir), keep=cfg.total_limit)
+        written = sum(e["size"] for e in manifest["files"].values())
+    else:
+        t3 = t2
+        if rotate:
+            _rotate_unverified(os.path.dirname(final_dir), cfg.total_limit)
+        written = sum(os.path.getsize(os.path.join(final_dir, n)) for n in os.listdir(final_dir))
     t4 = time.perf_counter()
     cfg.iteration += 1
     accelerator.last_save_timing = {
         "d2h_s": t1 - t0, "write_s": t2 - t1, "manifest_s": t3 - t2, "publish_s": t4 - t3,
-        "bytes": sum(e["size"] for e in manifest["files"].values()),
+        "bytes": written,
     }
     logger.info(f"Saved accelerator state to {final_dir}")
     return final_dir
 
 
-def load_accelerator_state(accelerator, input_dir: Optional[str] = None) -> str:
+def _rotate_unverified(base: str, keep: int) -> None:
+    """Delete the oldest ``checkpoint_<i>`` directories (by ``i``) beyond
+    ``keep``: the rotation of saves that carry no manifest."""
+    existing = sorted((d for d in os.listdir(base)
+                       if d.startswith("checkpoint_") and d.split("_")[-1].isdigit()),
+                      key=lambda d: int(d.split("_")[-1]))
+    while len(existing) > keep:
+        shutil.rmtree(os.path.join(base, existing.pop(0)), ignore_errors=True)
+
+
+def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
+                           verify: bool = True) -> str:
     """Restore what :func:`save_accelerator_state` wrote (``input_dir``
     default: the newest manifest-complete checkpoint under automatic
     naming) and return the directory.  A checkpoint with a manifest is
     verified first (sizes, and SHA-256 unless
-    ``ACCELERATE_TPU_MANIFEST_HASH=0``); one without loads unverified.
+    ``ACCELERATE_TPU_MANIFEST_HASH=0``) unless ``verify=False``; one without
+    loads unverified.
 
     ``accelerator.last_load_timing`` gets the seconds spent verifying
     (``verify_s``) and reading and placing the state (``read_place_s``)."""
@@ -318,7 +360,7 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None) -> str:
     if input_dir is None:
         raise ValueError("input_dir required")
     t0 = time.perf_counter()
-    if read_manifest(input_dir) is not None:
+    if verify and read_manifest(input_dir) is not None:
         verify_checkpoint(input_dir)
     t1 = time.perf_counter()
 

@@ -18,21 +18,27 @@ checkpointing under ``remat``), the dense KV cache (:func:`init_cache`,
 :func:`apply_cached`), the paged serving forward (:func:`apply_paged`),
 greedy and sampled :func:`generate`, :func:`speculative_generate` and
 :func:`generate_beam`; ``kv_cache_quant`` stores the KV cache as int8 codes
-with bf16 scales in both the dense cache and the paged pool.  fp8, sequence
-parallelism and ``remat_policy="dots"`` are not part of this port yet; their
-config fields raise ``NotImplementedError`` when set.
+with bf16 scales in both the dense cache and the paged pool.  fp8 and
+sequence parallelism are not part of this port yet; their config fields
+raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ..state import resolve_device
 from ..utils.operations import rename_state_dict
@@ -64,9 +70,12 @@ __all__ = [
 class LlamaConfig:
     """Field for field the JAX ``LlamaConfig``; ``dtype``/``param_dtype``
     are torch dtypes.  ``remat`` checkpoints each layer of the training
-    forward (the JAX ``remat_policy="nothing"``); ``attention_impl`` picks
-    the training attention path and ``loss_impl``/``loss_chunk_size`` the
-    loss (see :func:`attention_block` and :func:`loss_fn`)."""
+    forward: under ``remat_policy="nothing"`` the backward recomputes the
+    whole layer, under ``"dots"`` it keeps the products without batch
+    dimensions (the seven projections) and recomputes the rest (see
+    :func:`apply_hidden`); ``attention_impl`` picks the training attention
+    path and ``loss_impl``/``loss_chunk_size`` the loss (see
+    :func:`attention_block` and :func:`loss_fn`)."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -125,7 +134,6 @@ class LlamaConfig:
         unported = {
             "fp8": self.fp8,
             "sp_impl": self.sp_impl != "ring",
-            "remat_policy": self.remat_policy != "nothing",
         }
         for name, on in unported.items():
             if on:
@@ -519,6 +527,19 @@ def _layer(x, p, c: LlamaConfig, positions, kv_valid=None) -> torch.Tensor:
     return _mlp_block(attention_block(x, p, c, positions, kv_valid), p, c)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``, the JAX
+    ``dots_with_no_batch_dims_saveable``: keep the outputs of products
+    without batch dimensions (``h @ W`` on a 3-D ``h`` reaches the
+    dispatcher as ``mm``), recompute everything else (``bmm``, the einsum
+    attention, the norms, RoPE, and the fused attention kernels, whose
+    ``autograd.Function`` launches no aten op the policy could keep)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
                  positions: Optional[torch.Tensor] = None,
                  attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -526,7 +547,9 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     d]`` in the compute dtype.  With an ``attention_mask`` the positions
     count real tokens (left padding gets the right RoPE offsets).  Under
     ``config.remat`` each layer runs under ``torch.utils.checkpoint``: its
-    activations are recomputed in the backward instead of stored."""
+    activations are recomputed in the backward instead of stored, all of
+    them under ``remat_policy="nothing"``, all but the outputs of ``mm`` /
+    ``addmm`` under ``"dots"`` (:func:`_save_dots`)."""
     c = config
     b, s = input_ids.shape
     kv_valid = attention_mask.bool() if attention_mask is not None else None
@@ -545,9 +568,11 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     def layer(x, *weights):
         return _layer(x, dict(zip(names, weights)), c, positions, kv_valid)
 
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                  if c.remat_policy == "dots" else noop_context_fn)
     for weights in per_layer:
         if c.remat and torch.is_grad_enabled():
-            x = checkpoint(layer, x, *weights, use_reentrant=False)
+            x = checkpoint(layer, x, *weights, use_reentrant=False, context_fn=context_fn)
         else:
             x = layer(x, *weights)
     return final_norm(params, x, c)

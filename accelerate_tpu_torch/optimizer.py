@@ -23,7 +23,7 @@ use ``betas=(0.9, 0.999)``, ``eps=1e-8`` and the same ``weight_decay``
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -148,9 +148,25 @@ class AcceleratedOptimizer:
         self._step_count += 1
         return gnorm, health_norm
 
-    def step(self) -> None:
-        params = [p for p in self.params if p.grad is not None]
-        if not self.gradient_state.sync_gradients or not params:
+    def step(self, closure: Optional[Callable] = None):
+        """One update on a sync step.  A ``closure`` (which recomputes the
+        loss and its gradients) runs first, under ``torch.enable_grad()``,
+        and its loss is returned: torch's ``Optimizer.step(closure)``
+        contract, which the JAX ``AcceleratedOptimizer.step`` accepts and
+        ignores (optax has no closure).  The port follows torch because a
+        torch loop that passes a closure relies on the gradients it computes.
+        While gradients accumulate the closure does not run, as the step
+        does not."""
+        if not self.gradient_state.sync_gradients:
             self._step_was_skipped = True
-            return
+            return None
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        params = [p for p in self.params if p.grad is not None]
+        if not params:
+            self._step_was_skipped = True
+            return loss
         self._apply_update(params, [p.grad for p in params])
+        return loss

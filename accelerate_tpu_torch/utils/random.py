@@ -21,9 +21,19 @@ import torch
 __all__ = ["PRNGKey", "get_rng_state", "set_rng_state", "set_seed"]
 
 
-def set_seed(seed: int) -> None:
+def set_seed(seed: int, device_specific: bool = False, deterministic: bool = False) -> None:
     """Seed python's ``random``, numpy's global generator and torch's CPU
-    and CUDA generators with ``seed``."""
+    and CUDA generators with ``seed``.  ``device_specific`` adds the
+    process index (0 at one process, or before any state exists);
+    ``deterministic`` also calls ``torch.use_deterministic_algorithms(True)``,
+    torch's counterpart of what the JAX package relies on: XLA is
+    deterministic for a fixed key, so its flag changes nothing there."""
+    if device_specific:
+        from ..state import PartialState
+
+        seed += PartialState._shared_state.get("process_index", 0)
+    if deterministic:
+        torch.use_deterministic_algorithms(True)
     random.seed(seed)
     np.random.seed(seed % 2**32)
     torch.manual_seed(seed)

@@ -138,9 +138,32 @@ Phases (each fails the run on any mismatch; nothing is caught):
    rejected draft a near tie); Phase 2's traffic with tracing off and on
    in turns.
 
+9. The single-process ``Accelerator`` surface and mixed precision.  9a:
+   Phase 5's widths (4 layers, fp32 parameters, bf16 compute, B 2 x S
+   2048): one forward and backward from seed 0 under
+   ``mixed_precision="no"`` and ``"bf16"`` (the loss and every gradient
+   but the embedding table's bit-identical: llama casts each weight to
+   bf16 at use either way; the forward peak, the memory held after the
+   forward and the backward peak of each); then the README loop twice from seed 0 under
+   ``Accelerator(mixed_precision="bf16", kwargs_handlers=[ProfileKwargs(...)])``,
+   ``prepare(model, AdamW, train loader, eval loader, LambdaLR)``, with
+   ``remat_policy="nothing"`` and ``"dots"``: 5 optimizer steps (the
+   fifth under ``accelerator.profile()``, whose Chrome trace under
+   ``build/phase9`` must name the three sm90 flash kernels), the flash
+   kernels launched 2L / L / L per micro-batch under both policies, the
+   step time (median of steps 2-5) and peak memory of each, the first
+   loss equal across policies and to the parity step's, an eval pass of
+   5 sequences at batch 2 whose ``gather_for_metrics`` returns 5 rows,
+   ``unwrap_model``, ``print`` once, and ``free_memory`` returning its
+   ``None``s and lowering ``memory_allocated``.  9b: the twin of
+   ``examples/nlp_example.py``'s ``training_function`` (below) under
+   ``mixed_precision="bf16"`` on the card and with ``cpu=True``: each
+   accuracy above 0.8, JAX's ``test_nlp_example_learns`` threshold.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
-launches as ``launches_phase7``, every kernel's Phase 8 launches as
-``launches_phase8``), the card's name and power limit, and ``{"ok": true,
+launches as ``launches_phase7``, every kernel's Phase 8 and Phase 9
+launches as ``launches_phase8`` and ``launches_phase9``), the card's name
+and power limit, and ``{"ok": true,
 "device": {...}}``.  Without CUDA, or without the package beside it, the
 script exits non-zero and prints no result.
 """
@@ -155,6 +178,9 @@ import shutil
 import subprocess
 import sys
 import time
+
+import numpy as np
+import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # fp32 on the CUDA cores; bf16 and fp16 dense on the tensor cores
@@ -1076,6 +1102,36 @@ def loss_and_grads(model, cfg, batch):
     return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
 
 
+def kernel_groups(prof):
+    """Device ms by kernel from a ``torch.profiler`` run, largest first, as
+    ``(ms, launches, name)``; their sum; ms by group (the flash kernels,
+    GEMMs, the rest); launches by group; and a line per flash kernel."""
+    # Kernels only: a GPU user annotation (the optimizer's step span) also
+    # carries device time, which would count its kernels twice.
+    by_kernel = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+         and not getattr(e, "is_user_annotation", False)),
+        reverse=True,
+    )
+    groups = {"flash kernels": 0.0, "GEMMs": 0.0, "other": 0.0}
+    launches = dict.fromkeys(groups, 0)
+    flash = []
+    for t, n, key in by_kernel:
+        low = key.lower()
+        if "flash_" in low and "kernel" in low:
+            group = "flash kernels"
+            name = re.search(r"flash_\w*kernel", key)
+            flash.append(f"{name.group(0) if name else key[:40]} {t:.3f} ms in {n}")
+        elif any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas", "sm90_")):
+            group = "GEMMs"
+        else:
+            group = "other"
+        groups[group] += t
+        launches[group] += n
+    return by_kernel, sum(t for t, _, _ in by_kernel), groups, launches, flash
+
+
 def phase5():
     import numpy as np
     import torch
@@ -1173,27 +1229,7 @@ def phase5():
         step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Kernels only: a GPU user annotation (the optimizer's step span) also
-    # carries device time, which would count its kernels twice.
-    by_kernel = sorted(
-        ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
-         and not getattr(e, "is_user_annotation", False)),
-        reverse=True,
-    )
-    busy = sum(t for t, _, _ in by_kernel)
-    groups = {"flash kernels": 0.0, "GEMMs": 0.0, "other": 0.0}
-    flash = []
-    for t, n, key in by_kernel:
-        low = key.lower()
-        if "flash_" in low and "kernel" in low:
-            groups["flash kernels"] += t
-            name = re.search(r"flash_\w*kernel", key)
-            flash.append(f"{name.group(0) if name else key[:40]} {t:.3f} ms in {n}")
-        elif any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma", "cublas", "sm90_")):
-            groups["GEMMs"] += t
-        else:
-            groups["other"] += t
+    by_kernel, busy, groups, _, flash = kernel_groups(prof)
     log(f"phase5 profiled step: wall_ms={wall_ms:.2f} device_busy_ms={busy:.2f} "
         f"idle_share={1 - busy / wall_ms:.3f}; by group (ms) "
         + " ".join(f"{k}={v:.2f}" for k, v in groups.items()) + "; flash: " + ", ".join(flash))
@@ -2135,6 +2171,355 @@ def phase8(smi):
             "fused_attention_bwd_dkv": 0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the single-process Accelerator surface and mixed precision
+# ---------------------------------------------------------------------------
+
+# The twin of examples/nlp_example.py (which imports the JAX package): the
+# same model, data, loop and metric, against accelerate_tpu_torch.
+VOCAB = 512
+SEQ = 32
+EVAL_BATCH_SIZE = 32
+
+
+class PairClassifier(torch.nn.Module):
+    """Mean-pooled embedding encoder over both sentences + MLP head."""
+
+    def __init__(self, vocab=VOCAB, dim=64):
+        super().__init__()
+        self.embed = torch.nn.Embedding(vocab, dim)
+        self.head = torch.nn.Sequential(
+            torch.nn.Linear(4 * dim, 128), torch.nn.GELU(), torch.nn.Linear(128, 2)
+        )
+
+    def forward(self, input_ids_a, input_ids_b):
+        a = self.embed(input_ids_a).mean(dim=1)
+        b = self.embed(input_ids_b).mean(dim=1)
+        feats = torch.cat([a, b, torch.abs(a - b), a * b], dim=1)
+        return self.head(feats)
+
+
+def make_dataset(n: int, seed: int):
+    """Synthetic paraphrase pairs: positives are shuffled copies (+ noise),
+    negatives are independent draws."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(1, VOCAB, (n, SEQ))
+    labels = rng.integers(0, 2, n)
+    b = np.where(
+        labels[:, None] == 1,
+        rng.permuted(a, axis=1),
+        rng.integers(1, VOCAB, (n, SEQ)),
+    )
+    return [
+        {
+            "input_ids_a": torch.tensor(a[i]),
+            "input_ids_b": torch.tensor(b[i]),
+            "labels": int(labels[i]),
+        }
+        for i in range(n)
+    ]
+
+
+def collate(samples):
+    return {
+        "input_ids_a": torch.stack([s["input_ids_a"] for s in samples]),
+        "input_ids_b": torch.stack([s["input_ids_b"] for s in samples]),
+        "labels": torch.tensor([s["labels"] for s in samples]),
+    }
+
+
+def get_dataloaders(accelerator, batch_size: int = 16):
+    from torch.utils.data import DataLoader
+
+    train = make_dataset(512, seed=0)
+    val = make_dataset(128, seed=1)
+    return (
+        DataLoader(train, shuffle=True, collate_fn=collate, batch_size=batch_size),
+        DataLoader(val, shuffle=False, collate_fn=collate, batch_size=EVAL_BATCH_SIZE),
+    )
+
+
+def training_function(config, args):
+    from torch.optim.lr_scheduler import LambdaLR
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.utils import set_seed
+
+    accelerator = Accelerator(cpu=args.cpu, mixed_precision=args.mixed_precision)
+    lr = config["lr"]
+    num_epochs = int(config["num_epochs"])
+    seed = int(config["seed"])
+    batch_size = int(config["batch_size"])
+
+    set_seed(seed)
+    train_dataloader, eval_dataloader = get_dataloaders(accelerator, batch_size)
+    model = PairClassifier()
+    optimizer = torch.optim.AdamW(params=model.parameters(), lr=lr)
+    total_steps = num_epochs * len(train_dataloader)
+    lr_scheduler = LambdaLR(optimizer, lambda step: max(0.0, 1.0 - step / max(total_steps, 1)))
+
+    model, optimizer, train_dataloader, eval_dataloader, lr_scheduler = accelerator.prepare(
+        model, optimizer, train_dataloader, eval_dataloader, lr_scheduler
+    )
+
+    criterion = torch.nn.CrossEntropyLoss()
+    final_accuracy = 0.0
+    for epoch in range(num_epochs):
+        model.train()
+        for batch in train_dataloader:
+            logits = model(batch["input_ids_a"], batch["input_ids_b"])
+            loss = criterion(logits, batch["labels"])
+            accelerator.backward(loss)
+            optimizer.step()
+            lr_scheduler.step()
+            optimizer.zero_grad()
+
+        model.eval()
+        correct, total = [], []
+        for batch in eval_dataloader:
+            logits = model(batch["input_ids_a"], batch["input_ids_b"])
+            preds = torch.argmax(logits, dim=-1)
+            preds, refs = accelerator.gather_for_metrics((preds, batch["labels"]))
+            correct.append(int((preds == refs).sum()))
+            total.append(len(refs))
+        final_accuracy = float(sum(correct)) / max(sum(total), 1)
+        accelerator.print(f"epoch {epoch}: accuracy {final_accuracy:.3f}")
+    return final_accuracy
+
+
+PHASE9_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase9")
+PHASE9_LAYERS, PHASE9_B, PHASE9_S, PHASE9_STEPS, PHASE9_EVAL = 4, 2, 2048, 5, 5
+SM90_FLASH = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
+
+
+def fresh_state():
+    """Clear the port's shared state: each run here names its own
+    ``mixed_precision``, which a live state would refuse."""
+    from accelerate_tpu_torch import AcceleratorState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+
+
+def phase9_policy_parity(cfg, batch, smi):
+    """One forward and backward of the seed-0 model under ``"no"`` and under
+    ``"bf16"``: llama casts each weight to ``config.dtype`` at use, so the
+    policy's bf16 copies change no value: the loss is bit-identical, and so
+    is every gradient but the embedding table's (bf16 sums of its repeated
+    rows under the policy, fp32 sums without)."""
+    from accelerate_tpu_torch import Accelerator, PreparedModel
+    from accelerate_tpu_torch.models import llama
+
+    model = llama.LlamaForCausalLM(cfg, seed=0)
+    out, mem = {}, {}
+    for mode in ("no", "bf16"):
+        fresh_state()
+        acc = Accelerator(mixed_precision=mode)
+        prepared = acc.prepare(model)
+        check(isinstance(prepared, PreparedModel) == (mode == "bf16"), f"prepare under {mode}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = prepared(**batch)["loss"]
+        held = torch.cuda.memory_allocated() - base
+        fwd_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        acc.backward(loss)
+        mem[mode] = (fwd_peak, held, torch.cuda.max_memory_allocated() - base)
+        out[mode] = (loss.item(), [p.grad for p in model.parameters()])
+        for p in model.parameters():
+            p.grad = None
+    layer_params = sum(p.numel() for n, p in model.named_parameters() if n.startswith("layers."))
+    (f_no, h_no, b_no), (f_bf, h_bf, b_bf) = mem["no"], mem["bf16"]
+    log(f"phase9 memory of one forward and backward, 'no' vs 'bf16', in bytes above what was "
+        f"allocated before it: forward peak {f_no} vs {f_bf} ({f_bf - f_no:+d}); held after "
+        f"the forward {h_no} vs {h_bf} ({h_bf - h_no:+d}; the layers' bf16 copy, computed, "
+        f"{2 * layer_params}); backward peak {b_no} vs {b_bf} ({b_bf - b_no:+d}); "
+        f"forward+backward peak {max(f_no, b_no)} vs {max(f_bf, b_bf)} "
+        f"({max(f_bf, b_bf) - max(f_no, b_no):+d}); {smi}")
+    names = [n for n, _ in model.named_parameters()]
+    loss_no, grads_no = out["no"]
+    loss_bf, grads_bf = out["bf16"]
+    rel = {n: ((a - b).abs().max() / a.abs().max()).item()
+           for n, a, b in zip(names, grads_no, grads_bf)}
+    log(f"phase9 mixed_precision 'no' vs 'bf16', one step from seed 0: loss {loss_no!r} vs "
+        f"{loss_bf!r} (bit-identical: {loss_no == loss_bf}); per gradient leaf "
+        "max|diff|/max|'no'|: " + " ".join(f"{n}={r:.3e}" for n, r in rel.items()))
+    check(loss_no == loss_bf, f"the bf16 policy changed the first loss: {loss_no} vs {loss_bf}")
+    check(all(r == 0.0 for n, r in rel.items() if n != "top.embed"),
+          f"gradients other than the embedding's differ: {rel}")
+    check(rel["top.embed"] <= BF16_GRAD_TOL, f"embedding gradient differs by {rel['top.embed']}")
+    del model, out, grads_no, grads_bf
+    torch.cuda.empty_cache()
+    return loss_bf
+
+
+def phase9_run(cfg, train, evals, policy, smi):
+    """The README loop under ``Accelerator(mixed_precision="bf16")`` with
+    ``remat_policy=policy``: prepare(model, AdamW, train loader, eval
+    loader, LambdaLR), 5 optimizer steps (the fifth under
+    ``accelerator.profile()``), then an eval pass with
+    ``gather_for_metrics``; returns the losses, step times, launches per
+    micro-batch, peak memory and the eval rows."""
+    import io
+
+    from torch.utils.data import DataLoader
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.utils import ProfileKwargs
+
+    shutil.rmtree(PHASE9_DIR, ignore_errors=True)
+    fresh_state()
+    acc = Accelerator(mixed_precision="bf16",
+                      kwargs_handlers=[ProfileKwargs(output_trace_dir=PHASE9_DIR)])
+    inner = llama.LlamaForCausalLM(dataclasses.replace(cfg, remat_policy=policy), seed=0)
+    opt = torch.optim.AdamW(inner.parameters(), lr=3e-5, weight_decay=1e-4)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda n: min(1.0, (n + 1) / 2))
+    model, opt, train_dl, eval_dl, sched = acc.prepare(
+        inner, opt, DataLoader(train, batch_size=PHASE9_B),
+        DataLoader(evals, batch_size=PHASE9_B), sched)
+    check(acc.unwrap_model(model) is inner, "unwrap_model did not return the module")
+    torch.cuda.synchronize()
+    losses, step_s, per_batch, fb_peak, opt_peak = [], [], [], 0, 0
+    model.train()
+    for i, batch in enumerate(train_dl):
+        before = read_flash_counts()
+        profiled = acc.profile() if i == PHASE9_STEPS - 1 else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with profiled as prof:
+            # The allocator's peaks follow the host's order of allocations:
+            # no sync is needed to split the step's into its two parts.
+            torch.cuda.reset_peak_memory_stats()
+            with acc.accumulate(model):
+                loss = model(**batch)["loss"]
+                acc.backward(loss)
+                fb_peak = max(fb_peak, torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                opt.step()
+                sched.step()
+                opt.zero_grad()
+                losses.append(loss.item())
+            opt_peak = max(opt_peak, torch.cuda.max_memory_allocated())
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        after = read_flash_counts()
+        per_batch.append(tuple(after[n] - before[n] for n in FLASH_KERNELS))
+    peak = max(fb_peak, opt_peak)
+    _, busy, groups, launches, _ = kernel_groups(prof)
+    model.eval()
+    rows = []
+    with torch.no_grad():
+        for batch in eval_dl:
+            per_row = torch.stack([model(input_ids=r[None])["loss"] for r in batch["input_ids"]])
+            rows.append(acc.gather_for_metrics(per_row))
+    rows = torch.cat(rows)
+    traces = [os.path.join(dp, f) for dp, _, fs in os.walk(PHASE9_DIR) for f in fs]
+    text = "".join(open(t).read() for t in traces)
+    named = {k: text.count(k) for k in SM90_FLASH}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        acc.print(f"phase9 {policy} printed once")
+    ms = median(step_s[1:]) * 1e3
+    log(f"phase9 remat_policy={policy}: losses {losses!r} step_ms={ms:.2f} (median of steps "
+        f"2-5; each {[round(t * 1e3, 2) for t in step_s]}) peak_mem_bytes={peak} "
+        f"({peak / 1e9:.3f} GB; forward+backward {fb_peak}, optimizer step {opt_peak}); "
+        f"profiled step 5: device_busy_ms={busy:.2f} idle_share={1 - busy / step_s[-1] / 1e3:.3f} "
+        "by group (ms, launches) " + " ".join(f"{k}={v:.2f}/{launches[k]}"
+                                             for k, v in groups.items())
+        + f"; flash launches per micro-batch {per_batch} eval rows "
+        f"{rows.shape[0]} (losses {[round(x, 4) for x in rows.tolist()]}); trace files "
+        f"{[os.path.relpath(t, PHASE9_DIR) for t in traces]} naming {named}; {smi}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(out.getvalue() == f"phase9 {policy} printed once\n", f"print gave {out.getvalue()!r}")
+    check(rows.shape == (PHASE9_EVAL,) and torch.isfinite(rows).all(),
+          f"gather_for_metrics gave {rows.shape[0]} rows, want {PHASE9_EVAL}")
+    check(len(traces) == 1 and all(named.values()), f"trace {traces} names {named}")
+    before = torch.cuda.memory_allocated()
+    del inner, loss, batch
+    nones = acc.free_memory(model, opt, train_dl, eval_dl, sched)
+    model = opt = train_dl = eval_dl = sched = None
+    freed = before - torch.cuda.memory_allocated()
+    log(f"phase9 free_memory returned {nones}; memory_allocated {before} -> "
+        f"{before - freed} bytes")
+    check(nones == [None] * 5 and freed > 0, f"free_memory: {nones}, freed {freed} bytes")
+    shutil.rmtree(PHASE9_DIR, ignore_errors=True)
+    return {"losses": losses, "ms": ms, "peak": peak, "fb_peak": fb_peak,
+            "per_batch": per_batch, "gemm_ms": groups["GEMMs"], "busy_ms": busy}
+
+
+def phase9(smi):
+    """9a: the slice at full width (Llama-3-8B widths, 4 layers, bf16
+    policy over fp32 parameters, B 2 x S 2048); 9b: the README example's
+    twin on the card and on the CPU."""
+    import argparse
+    import gc
+
+    from accelerate_tpu_torch.models import llama
+
+    # Earlier phases leave device memory reachable only through reference
+    # cycles; collect it first, so Phase 9's peaks are its own.
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase9 memory_allocated on entry {held} bytes, {torch.cuda.memory_allocated()} after "
+        "gc.collect()")
+    cfg = llama.LlamaConfig.llama3_8b(num_layers=PHASE9_LAYERS, dtype=torch.bfloat16,
+                                      param_dtype=torch.float32, remat=True)
+    rng = np.random.default_rng(9)
+    ids = rng.integers(0, cfg.vocab_size, size=(2 * PHASE9_STEPS + PHASE9_EVAL, PHASE9_S))
+    rows = [{"input_ids": torch.from_numpy(r)} for r in ids]
+    train, evals = rows[:2 * PHASE9_STEPS], rows[2 * PHASE9_STEPS:]
+    hd, tokens = cfg.head_dim_, PHASE9_B * PHASE9_S
+    # The seven projections' outputs "dots" keeps, bf16 values per token per layer.
+    saved = (cfg.num_heads * hd + 2 * cfg.num_kv_heads * hd + 2 * cfg.hidden_size
+             + 2 * cfg.intermediate_size)
+    log(f"phase9 Llama-3-8B widths, {PHASE9_LAYERS} layers, {cfg.num_params()} fp32 "
+        f"parameters, bf16 policy, B {PHASE9_B} x S {PHASE9_S}, {PHASE9_STEPS} AdamW steps, "
+        f"eval over {PHASE9_EVAL} sequences; computed: fp32 parameters, gradients and AdamW's "
+        f"two moments {16 * cfg.num_params()} bytes, the policy's bf16 copy "
+        f"{2 * cfg.num_params()} bytes, 'dots' keeps {saved} bf16 values per token per layer, "
+        f"{2 * saved * tokens} bytes a layer at {tokens} tokens")
+    t0 = time.perf_counter()
+    reset_counts()
+    reset_flash_counts()
+    first = phase9_policy_parity(cfg, {"input_ids": torch.from_numpy(ids[:PHASE9_B]).cuda()},
+                                 smi)
+    runs = {policy: phase9_run(cfg, train, evals, policy, smi) for policy in ("nothing", "dots")}
+    layers = PHASE9_LAYERS
+    for policy, r in runs.items():
+        check(r["per_batch"] == [(2 * layers, layers, layers)] * PHASE9_STEPS,
+              f"{policy}: launches per micro-batch {r['per_batch']}, want (2L, L, L)")
+    gaps = [b - a for a, b in zip(runs["nothing"]["losses"], runs["dots"]["losses"])]
+    log(f"phase9 dots - nothing: loss gaps {gaps} (bit-identical: {not any(gaps)}); step_ms "
+        f"{runs['dots']['ms']:.2f} vs {runs['nothing']['ms']:.2f}; profiled step's GEMM ms "
+        f"{runs['dots']['gemm_ms']:.2f} vs {runs['nothing']['gemm_ms']:.2f}, device busy ms "
+        f"{runs['dots']['busy_ms']:.2f} vs {runs['nothing']['busy_ms']:.2f}; forward+backward "
+        f"peak bytes {runs['dots']['fb_peak']} - {runs['nothing']['fb_peak']} = "
+        f"{runs['dots']['fb_peak'] - runs['nothing']['fb_peak']}, the step's "
+        f"{runs['dots']['peak']} - {runs['nothing']['peak']}; the training runs' first loss "
+        f"{runs['nothing']['losses'][0]!r} vs the parity step's {first!r}")
+    check(runs["nothing"]["losses"][0] == runs["dots"]["losses"][0] == first,
+          "the first loss differs between the remat policies or from the parity step")
+    check(max(abs(g) for g in gaps) <= BF16_LOSS_TOL, f"remat policies' losses part: {gaps}")
+    t1 = time.perf_counter()
+
+    # 9b: the twin of examples/nlp_example.py, JAX's threshold of 0.8.
+    config = {"lr": 2e-3, "num_epochs": 2, "seed": 42, "batch_size": 16}
+    accs = {}
+    for where, cpu in (("card", False), ("cpu", True)):
+        fresh_state()
+        accs[where] = training_function(config, argparse.Namespace(
+            mixed_precision="bf16", cpu=cpu, num_epochs=2))
+    t2 = time.perf_counter()
+    log(f"phase9b nlp_example twin, bf16 policy, 2 epochs: accuracy on the card "
+        f"{accs['card']!r}, on the CPU {accs['cpu']!r} (threshold 0.8)")
+    check(all(a > 0.8 for a in accs.values()), f"the example did not learn: {accs}")
+    dec, win = read_counts()
+    counts = dict(read_flash_counts(), paged_attention=dec, paged_window_attention=win)
+    log(f"phase9 seconds: 9a {t1 - t0:.1f}, 9b {t2 - t1:.1f}; launches {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2172,6 +2557,9 @@ def main() -> int:
     check(all(p8[n] > 0 for n in ("paged_attention", "paged_window_attention",
                                   "fused_attention_fwd")),
           f"phase 8 launched the kernels of its path {p8} times")
+    p9 = phase9(smi)
+    check(all(p9[n] > 0 for n in FLASH_KERNELS),
+          f"phase 9 launched the flash kernels {p9} times")
     log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS))
     launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"], **p5}
     check(win3 > 0, "window kernel not launched in phase 3")
@@ -2181,7 +2569,7 @@ def main() -> int:
         serving = p1[(name, "torch.bfloat16", "serving")]
         record.append(dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
                            launches=launches[name], launches_phase7=p7[name],
-                           launches_phase8=p8[name], **r,
+                           launches_phase8=p8[name], launches_phase9=p9[name], **r,
                            previous_source=PAGED_PREVIOUS,
                            design=PAGED_DESIGN,
                            serving_shape={k: serving[k] for k in (
@@ -2205,6 +2593,7 @@ def main() -> int:
         record.append(dict(dict(name=name, route="cuda", source=FLASH_SOURCE,
                                 replaces=REPLACES[name], launches=launches[name],
                                 launches_phase6=p6[name], launches_phase8=p8[name],
+                                launches_phase9=p9[name],
                                 **p4["torch.bfloat16"][name]), **extra))
     for name in FLASH_KERNELS:
         r = p4["torch.float32"][name]

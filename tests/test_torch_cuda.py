@@ -981,3 +981,83 @@ def test_tracing_on_a_paged_kernel_engine(cuda, tmp_path):
     with open(path) as f:
         assert json.load(f)["traceEvents"]
     assert len(load_serving_traces(str(tmp_path))) == 3
+
+
+@pytest.fixture
+def fresh_state():
+    """The port's shared ``AcceleratorState`` reset around a test that
+    names a ``mixed_precision``."""
+    from accelerate_tpu_torch import AcceleratorState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    yield
+    AcceleratorState._reset_state(reset_partial_state=True)
+
+
+def _flash_counts():
+    return (fu.fused_attention_fwd.launches, fu.fused_attention_bwd_dq.launches,
+            fu.fused_attention_bwd_dkv.launches)
+
+
+def test_accelerator_without_arguments_places_on_cuda(cuda, fresh_state):
+    from accelerate_tpu_torch import Accelerator
+
+    acc = Accelerator()
+    assert acc.device.type == "cuda" and acc.state.device.type == "cuda"
+    model = acc.prepare(torch.nn.Linear(4, 4))
+    assert next(model.parameters()).device.type == "cuda"
+    with pytest.raises(ValueError, match="already initialized on cuda"):
+        Accelerator(cpu=True)
+
+
+def test_bf16_policy_forward_launches_the_sm90_flash_forward(cuda, fresh_state, fwd_symbols):
+    """A tiny llama (bf16 compute, fp32 parameters) under
+    ``mixed_precision="bf16"``: the forward runs the Hopper flash kernel
+    (``atpu_flash_fwd_sm90``) once per layer; the loss comes back in fp32."""
+    from accelerate_tpu_torch import Accelerator, PreparedModel
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.bfloat16, head_dim=64, num_layers=2,
+                                 attention_impl="pallas", max_seq_len=256)
+    acc = Accelerator(mixed_precision="bf16")
+    model = acc.prepare(llama.LlamaForCausalLM(cfg, seed=0))
+    assert isinstance(model, PreparedModel)
+    ids = torch.from_numpy(np.random.default_rng(61).integers(0, cfg.vocab_size, (2, 128)))
+    before = _flash_counts()
+    with torch.no_grad():
+        loss = model(input_ids=ids.cuda())["loss"]
+    torch.cuda.synchronize()
+    assert _flash_counts()[0] - before[0] == cfg.num_layers
+    assert fwd_symbols == ["atpu_flash_fwd_sm90"] * cfg.num_layers
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+
+
+def test_dots_and_nothing_launch_alike_and_give_one_loss(cuda, fresh_state):
+    """2 layers at S 1024 under the bf16 policy: both remat policies launch
+    the forward kernel 2L times per step (the fused kernel sits inside an
+    ``autograd.Function`` whose launch no selective policy can keep) and
+    the backward kernels L times each, and give the same loss and
+    gradients bit for bit."""
+    import dataclasses
+
+    from accelerate_tpu_torch import Accelerator
+
+    base = llama.LlamaConfig.tiny(dtype=torch.bfloat16, head_dim=64, num_layers=2, remat=True,
+                                  max_seq_len=1024)
+    ids = torch.from_numpy(np.random.default_rng(67).integers(0, base.vocab_size, (2, 1024)))
+    out = {}
+    for policy in ("nothing", "dots"):
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        acc = Accelerator(mixed_precision="bf16")
+        inner = llama.LlamaForCausalLM(cfg, seed=0)
+        model = acc.prepare(inner)
+        before = _flash_counts()
+        loss = model(input_ids=ids.cuda())["loss"]
+        acc.backward(loss)
+        torch.cuda.synchronize()
+        counts = tuple(a - b for a, b in zip(_flash_counts(), before))
+        out[policy] = (counts, loss.item(), [p.grad for p in inner.parameters()])
+        acc.free_memory()
+    layers = base.num_layers
+    assert out["dots"][0] == out["nothing"][0] == (2 * layers, layers, layers)
+    assert out["dots"][1] == out["nothing"][1]
+    assert all(torch.equal(a, b) for a, b in zip(out["dots"][2], out["nothing"][2]))

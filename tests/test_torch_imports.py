@@ -68,6 +68,9 @@ def test_source_names_no_jax_import(path):
     "accelerate_tpu_torch.serving.drafter",
     "accelerate_tpu_torch.models.llama",
     "accelerate_tpu_torch.utils.random",
+    "accelerate_tpu_torch.state",
+    "accelerate_tpu_torch.utils.other",
+    "accelerate_tpu_torch.utils.modeling",
 ])
 def test_robustness_modules_are_checked(name):
     """The serving robustness layer's modules and the generation and tracing
@@ -86,7 +89,10 @@ def test_robustness_exports_match_jax_names():
 
     for n in ("HostBlockPool", "JournalError", "ServingJournal", "AdmissionRejected"):
         assert n in srv.__all__ and hasattr(srv, n)
-    assert res.__all__ == ["PreemptionGuard"]
+    assert res.__all__ == ["CheckpointVerificationError", "ENV_MANIFEST_HASH", "MANIFEST_NAME",
+                           "PreemptionGuard", "find_latest_complete", "is_complete",
+                           "list_checkpoints", "prune_checkpoints", "read_manifest",
+                           "verify_checkpoint", "write_manifest"]
 
 
 def test_generation_and_tracing_exports_match_jax_names():

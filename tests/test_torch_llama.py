@@ -212,10 +212,19 @@ def test_init_params_shapes_and_rule():
 ])
 def test_unported_config_fields_raise(field, value):
     """The fields still unported raise; ``kv_cache_quant`` is ported and
-    gives an int8 cache."""
+    gives an int8 cache, and ``remat_policy="dots"`` is ported and trains
+    (its parity with JAX is in ``test_torch_remat_dots.py``)."""
     if field == "kv_cache_quant":
         cache = tl.init_cache(tl.LlamaConfig.tiny(**{field: value}), 1, 4, device="cpu")
         assert cache["k"].dtype == torch.int8 and cache["k_scale"].dtype == torch.bfloat16
+        return
+    if field == "remat_policy":
+        cfg = tl.LlamaConfig.tiny(remat=True, **{field: value})
+        params = tl.init_params(cfg, seed=0, device="cpu")
+        params["layers"]["wq"].requires_grad_(True)
+        loss = tl.loss_fn(params, {"input_ids": torch.tensor([[1, 2, 3, 4]])}, cfg)
+        (grad,) = torch.autograd.grad(loss, [params["layers"]["wq"]])
+        assert torch.isfinite(loss) and torch.isfinite(grad).all() and grad.abs().sum() > 0
         return
     with pytest.raises(NotImplementedError, match=field):
         tl.LlamaConfig.tiny(**{field: value})
