@@ -168,8 +168,11 @@ class Accelerator:
       :class:`DistributedDataParallelKwargs` and
       :class:`DistributedInitKwargs`, kept in ``autocast_handler``,
       ``profile_handler``, ``scaler_handler``, ``ddp_handler`` and
-      ``init_handler`` (:meth:`profile` reads its handler; one process syncs
-      no gradient and scales no loss, so the others are held only);
+      ``init_handler`` (:meth:`profile` reads its handler; a ``comm_hook``
+      of ``"fp16"`` or ``"bf16"`` makes :meth:`backward` hold the
+      accumulated gradients' values in bf16, as the JAX ``PreparedModel``
+      does; one process syncs no gradient and scales no loss, so the rest
+      is held only);
     - ``rng_types``: kept for the JAX surface (one process has no generator
       to synchronise);
     - ``log_with``: trackers are not ported yet (ROADMAP A1(b)), so any
@@ -242,6 +245,10 @@ class Accelerator:
                 raise ValueError(
                     f"You can only pass one {type(handler).__name__} in `kwargs_handlers`.")
             setattr(self, slot, handler)
+        # The DDP comm-hook counterpart of the JAX PreparedModel: under an
+        # fp16 or bf16 hook the accumulated gradients carry bf16 rounding.
+        hook = self.ddp_handler.comm_hook if self.ddp_handler is not None else "no"
+        self._grad_sync_dtype = torch.bfloat16 if hook in ("fp16", "bf16") else None
 
     # -- the process (state passthroughs) -------------------------------------
 
@@ -481,11 +488,14 @@ class Accelerator:
     def backward(self, loss: torch.Tensor) -> None:
         """Accumulate ``d loss / d params * (1 / gradient_accumulation_steps)``
         into the prepared models' ``.grad``: each micro-gradient is scaled,
-        then added, the order ``make_train_step`` uses."""
+        then added, the order ``make_train_step`` uses.  Under a
+        ``comm_hook`` of ``"fp16"``/``"bf16"`` the scaled gradient and the sum
+        are rounded to bf16 (stored in the parameter's dtype)."""
         params = self._trainable()
         grads = torch.autograd.grad(loss.float().mean(), params, allow_unused=True)
         summed = accumulate_grads([p.grad for p in params], grads,
-                                  1.0 / self.gradient_accumulation_steps)
+                                  1.0 / self.gradient_accumulation_steps,
+                                  hold_dtype=self._grad_sync_dtype)
         for p, g in zip(params, summed):
             p.grad = g
 

@@ -301,6 +301,25 @@ class LlamaForCausalLM(nn.Module):
         batch = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
         return {"loss": loss_fn(self.params, batch, self.config)}
 
+    def _forward_cast_at_use(self, compute_dtype: torch.dtype, input_ids: torch.Tensor,
+                             cache: Optional[dict] = None,
+                             attention_mask: Optional[torch.Tensor] = None,
+                             labels: Optional[torch.Tensor] = None):
+        """:meth:`forward` under a 16-bit ``PreparedModel``, to the values of
+        a forward over ``compute_dtype`` copies of every parameter: the
+        embedding, norm and head weights are cast here, each layer's
+        weights inside its (checkpointed) layer of :func:`apply_hidden`, so
+        a layer's 16-bit copy lives only while the layer runs and again
+        while the backward recomputes it."""
+        params = self.params
+        cast = {k: v.to(compute_dtype) for k, v in params.items() if k != "layers"}
+        if cache is not None:
+            cast["layers"] = {k: v.to(compute_dtype) for k, v in params["layers"].items()}
+            return apply_cached(cast, input_ids, self.config, cache)
+        cast["layers"] = params["layers"]
+        batch = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
+        return {"loss": loss_fn(cast, batch, self.config, layer_dtype=compute_dtype)}
+
     def generate(self, input_ids: torch.Tensor, max_new_tokens: int, **kw) -> torch.Tensor:
         return generate(self.params, input_ids, self.config, max_new_tokens, **kw)
 
@@ -542,14 +561,17 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
                  positions: Optional[torch.Tensor] = None,
-                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 attention_mask: Optional[torch.Tensor] = None,
+                 layer_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Trunk forward: token ids ``[B, S]`` -> final-normed hidden ``[B, S,
     d]`` in the compute dtype.  With an ``attention_mask`` the positions
     count real tokens (left padding gets the right RoPE offsets).  Under
     ``config.remat`` each layer runs under ``torch.utils.checkpoint``: its
     activations are recomputed in the backward instead of stored, all of
     them under ``remat_policy="nothing"``, all but the outputs of ``mm`` /
-    ``addmm`` under ``"dots"`` (:func:`_save_dots`)."""
+    ``addmm`` under ``"dots"`` (:func:`_save_dots`).  ``layer_dtype``
+    casts each layer's weights to it inside the layer (and so inside its
+    checkpoint), the mixed-precision wrapper's cast at use."""
     c = config
     b, s = input_ids.shape
     kv_valid = attention_mask.bool() if attention_mask is not None else None
@@ -566,6 +588,8 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     per_layer = list(zip(*(params["layers"][k].unbind(0) for k in names)))
 
     def layer(x, *weights):
+        if layer_dtype is not None:
+            weights = [w.to(layer_dtype) for w in weights]
         return _layer(x, dict(zip(names, weights)), c, positions, kv_valid)
 
     context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
@@ -580,9 +604,11 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
 
 def apply(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
           positions: Optional[torch.Tensor] = None,
-          attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Training forward: token ids ``[B, S]`` -> logits ``[B, S, V]`` fp32."""
-    hidden = apply_hidden(params, input_ids, config, positions, attention_mask)
+          attention_mask: Optional[torch.Tensor] = None,
+          layer_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Training forward: token ids ``[B, S]`` -> logits ``[B, S, V]`` fp32
+    (``layer_dtype`` as in :func:`apply_hidden`)."""
+    hidden = apply_hidden(params, input_ids, config, positions, attention_mask, layer_dtype)
     return (hidden @ lm_head(params, config)).float()
 
 
@@ -612,19 +638,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (token_loss * weights).sum() / torch.clamp(weights.sum(), min=1.0)
 
 
-def loss_fn(params: dict, batch: dict, config: LlamaConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, config: LlamaConfig,
+            layer_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Next-token cross-entropy, fp32, mean over non-padded targets.
     ``config.loss_impl == "chunked"`` streams the LM head over vocabulary
-    tiles (``ops/chunked_ce.py``), so the ``[B, S, V]`` logits never exist."""
+    tiles (``ops/chunked_ce.py``), so the ``[B, S, V]`` logits never exist.
+    ``layer_dtype`` as in :func:`apply_hidden`."""
     labels, weights = labels_and_weights(batch)
     mask = batch.get("attention_mask")
     if config.loss_impl == "chunked":
         from ..ops.chunked_ce import chunked_cross_entropy
 
-        x = apply_hidden(params, batch["input_ids"], config, attention_mask=mask)
+        x = apply_hidden(params, batch["input_ids"], config, attention_mask=mask,
+                         layer_dtype=layer_dtype)
         return chunked_cross_entropy(x, lm_head(params, config), labels, weights,
                                      config.loss_chunk_size)
-    logits = apply(params, batch["input_ids"], config, attention_mask=mask)
+    logits = apply(params, batch["input_ids"], config, attention_mask=mask,
+                   layer_dtype=layer_dtype)
     return cross_entropy(logits, labels, weights)
 
 

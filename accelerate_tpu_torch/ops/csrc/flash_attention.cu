@@ -60,6 +60,23 @@
 //   - dV's fp32 p^T.dO product splits p into two parts of the operand type
 //     (p = hi + lo) and runs two tensor-core products, keeping ~16 bits of
 //     p instead of 8 (bf16) or 11 (fp16).
+//
+// Head dims 64, 96, 128 and 256, in all three types.  bf16 and fp16 at 64 and
+// 128 run the sm90 kernels of flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu and
+// flash_bwd_dkv_sm90.cu on the training path; every other (type, head dim)
+// runs this body (the wrapper routes them).  What the wide heads change:
+//   - d 256 holds a 16 x 256 fp32 accumulator per warp, 128 registers a
+//     thread, so the forward and dQ stream 32-key tiles (fewer score
+//     registers beside it), and 16-key tiles for fp32 dQ, whose Q, dO and
+//     two K/V stages of 260-float rows would not fit shared memory at 32;
+//   - dK and dV of all 256 columns would need 256 accumulator registers a
+//     thread: two CTAs (grid z) each own 128 columns of both and recompute
+//     the full-d scores S^T and dP^T from the same shared-memory tiles
+//     (1.5x the products of one CTA; a simple split, not a fast one);
+//     fp32 streams 16-row Q/dO tiles, as 32 would exceed shared memory;
+//   - d 96 is 6 k-steps of 16 and 12 n-tiles of 8; its padded rows (104
+//     16-bit or 100 fp32 elements) still start on 16-byte boundaries for
+//     cp.async and put the 8 fragment rows of a warp in distinct banks.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -73,8 +90,9 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16 * kWarps;  // rows of a CTA tile: 16 per warp
-constexpr int kTileK = 64;          // keys per streamed K/V tile (forward, dQ)
+constexpr int kTileK = 64;          // keys per streamed K/V tile (forward, dQ), d <= 128
 constexpr int kTileQ = 32;          // query rows per streamed Q/dO tile (dK/dV)
+constexpr int kOutCols = 128;       // dK/dV columns one CTA accumulates
 constexpr float kMasked = -1e30f;   // finite: no inf - inf in the exp bookkeeping
 constexpr float kLive = -0.5e30f;   // scores above this are admitted
 constexpr size_t kSmemMax = 227 * 1024;
@@ -262,15 +280,36 @@ __device__ __forceinline__ bool admitted(int row, int col, int S, int causal,
 // forward
 // ---------------------------------------------------------------------------
 
+// Shared memory of a forward (rows = 1: Q) or dQ (rows = 2: Q, dO) CTA
+// streaming K/V tiles of tk keys: its row tiles, two stages of K and V, and
+// the P (dS) strips.
+template <typename T, int D>
+constexpr size_t key_tile_smem(int rows, int tk) {
+  return ((size_t)(rows * kRows + 4 * tk) * (D + pad<T>()) + (size_t)kRows * (tk + pad<T>())) *
+         sizeof(T);
+}
+
+// Keys per streamed K/V tile: 64 up to d 128; at wider heads 32, which keeps
+// the score tiles' registers few beside the d-wide accumulator, halved again
+// while the CTA's tiles exceed shared memory (dQ in fp32 at d 256: 16).
+template <typename T, int D>
+constexpr int key_tile(int rows) {
+  int tk = D <= 128 ? kTileK : kTileK / 2;
+  while (tk > 16 && key_tile_smem<T, D>(rows, tk) > kSmemMax) tk /= 2;
+  return tk;
+}
+
 template <typename T, int D>
 struct FwdPlan {
-  static constexpr int LD = D + pad<T>();        // Q/K/V tile row stride
-  static constexpr int LDP = kTileK + pad<T>();  // P strip row stride
+  static constexpr int TK = key_tile<T, D>(1);
+  static constexpr int LD = D + pad<T>();    // Q/K/V tile row stride
+  static constexpr int LDP = TK + pad<T>();  // P strip row stride
   static constexpr size_t q_bytes = (size_t)kRows * LD * sizeof(T);
-  static constexpr size_t kv_bytes = (size_t)2 * kTileK * LD * sizeof(T);  // one stage: K, V
+  static constexpr size_t kv_bytes = (size_t)2 * TK * LD * sizeof(T);  // one stage: K, V
   static constexpr size_t p_bytes = (size_t)kRows * LDP * sizeof(T);
   static constexpr size_t smem = q_bytes + 2 * kv_bytes + p_bytes;
   static_assert(smem <= kSmemMax, "forward tiles exceed shared memory");
+  static_assert(D % 16 == 0 && TK % 16 == 0, "products step k by 16");
 };
 
 template <typename T, int D>
@@ -279,7 +318,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const int8_t* __restrict__ valid, T* __restrict__ out, float* __restrict__ lse,
                  int S, int H, int KH, int causal, float scale) {
   using P = FwdPlan<T, D>;
-  constexpr int LD = P::LD, LDP = P::LDP, NS = kTileK / 8, NO = D / 8;
+  constexpr int TK = P::TK, LD = P::LD, LDP = P::LDP, NS = TK / 8, NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
   T* kv_s = reinterpret_cast<T*>(smem + P::q_bytes);
@@ -294,13 +333,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int8_t* vld = valid ? valid + (long long)b * S : nullptr;
   // Keys past the tile's last query row are all causally masked.
   const int kend = causal ? min(S, q0 + kRows) : S;
-  const int n_tiles = (kend + kTileK - 1) / kTileK;
+  const int n_tiles = (kend + TK - 1) / TK;
 
   load_rows<T, D>(q_s, LD, qb, qstride, q0, kRows, S);
   auto prefetch = [&](int tile) {
-    T* k_t = kv_s + (tile & 1) * 2 * kTileK * LD;
-    load_rows<T, D>(k_t, LD, kb, kstride, tile * kTileK, kTileK, S);
-    load_rows<T, D>(k_t + kTileK * LD, LD, vb, kstride, tile * kTileK, kTileK, S);
+    T* k_t = kv_s + (tile & 1) * 2 * TK * LD;
+    load_rows<T, D>(k_t, LD, kb, kstride, tile * TK, TK, S);
+    load_rows<T, D>(k_t + TK * LD, LD, vb, kstride, tile * TK, TK, S);
   };
   prefetch(0);
   cp_async_commit();
@@ -317,12 +356,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const T* k_t = kv_s + (i & 1) * 2 * kTileK * LD;
-    const T* v_t = k_t + kTileK * LD;
+    const T* k_t = kv_s + (i & 1) * 2 * TK * LD;
+    const T* v_t = k_t + TK * LD;
     float s[NS][4];
     zero(s);
     warp_mma<T, NS, D, true>(s, q_w, LD, k_t, LD);
-    const int key0 = i * kTileK;
+    const int key0 = i * TK;
     float mx[2] = {kMasked, kMasked};
 #pragma unroll
     for (int j = 0; j < NS; ++j)
@@ -362,7 +401,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int e = 0; e < 4; ++e)
         p_w[(g + 8 * (e >> 1)) * LDP + 8 * j + 2 * t + (e & 1)] = from_float<T>(s[j][e]);
     __syncwarp();
-    warp_mma<T, NO, kTileK, false>(o, p_w, LDP, v_t, LD);
+    warp_mma<T, NO, TK, false>(o, p_w, LDP, v_t, LD);
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -387,13 +426,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int D>
 struct DqPlan {
+  static constexpr int TK = key_tile<T, D>(2);
   static constexpr int LD = D + pad<T>();
-  static constexpr int LDP = kTileK + pad<T>();  // dS strip row stride
+  static constexpr int LDP = TK + pad<T>();  // dS strip row stride
   static constexpr size_t q_bytes = (size_t)kRows * LD * sizeof(T);  // Q, and again dO
-  static constexpr size_t kv_bytes = (size_t)2 * kTileK * LD * sizeof(T);
+  static constexpr size_t kv_bytes = (size_t)2 * TK * LD * sizeof(T);
   static constexpr size_t ds_bytes = (size_t)kRows * LDP * sizeof(T);
   static constexpr size_t smem = 2 * q_bytes + 2 * kv_bytes + ds_bytes;
   static_assert(smem <= kSmemMax, "dQ tiles exceed shared memory");
+  static_assert(D % 16 == 0 && TK % 16 == 0, "products step k by 16");
 };
 
 template <typename T, int D>
@@ -403,7 +444,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ delta, const int8_t* __restrict__ valid,
                     T* __restrict__ dq, int S, int H, int KH, int causal, float scale) {
   using P = DqPlan<T, D>;
-  constexpr int LD = P::LD, LDP = P::LDP, NS = kTileK / 8, NO = D / 8;
+  constexpr int TK = P::TK, LD = P::LD, LDP = P::LDP, NS = TK / 8, NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
   T* do_s = reinterpret_cast<T*>(smem + P::q_bytes);
@@ -418,14 +459,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const T* vb = v + (long long)b * S * kstride + (long long)kh * D;
   const int8_t* vld = valid ? valid + (long long)b * S : nullptr;
   const int kend = causal ? min(S, q0 + kRows) : S;
-  const int n_tiles = (kend + kTileK - 1) / kTileK;
+  const int n_tiles = (kend + TK - 1) / TK;
 
   load_rows<T, D>(q_s, LD, q + qoff, qstride, q0, kRows, S);
   load_rows<T, D>(do_s, LD, dout + qoff, qstride, q0, kRows, S);
   auto prefetch = [&](int tile) {
-    T* k_t = kv_s + (tile & 1) * 2 * kTileK * LD;
-    load_rows<T, D>(k_t, LD, kb, kstride, tile * kTileK, kTileK, S);
-    load_rows<T, D>(k_t + kTileK * LD, LD, vb, kstride, tile * kTileK, kTileK, S);
+    T* k_t = kv_s + (tile & 1) * 2 * TK * LD;
+    load_rows<T, D>(k_t, LD, kb, kstride, tile * TK, TK, S);
+    load_rows<T, D>(k_t + TK * LD, LD, vb, kstride, tile * TK, TK, S);
   };
   prefetch(0);
   cp_async_commit();
@@ -449,14 +490,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const T* k_t = kv_s + (i & 1) * 2 * kTileK * LD;
-    const T* v_t = k_t + kTileK * LD;
+    const T* k_t = kv_s + (i & 1) * 2 * TK * LD;
+    const T* v_t = k_t + TK * LD;
     float s[NS][4], dp[NS][4];
     zero(s);
     zero(dp);
     warp_mma<T, NS, D, true>(s, q_w, LD, k_t, LD);
     warp_mma<T, NS, D, true>(dp, do_w, LD, v_t, LD);
-    const int key0 = i * kTileK;
+    const int key0 = i * TK;
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -468,7 +509,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         ds_w[(g + 8 * r) * LDP + 8 * j + 2 * t + (e & 1)] = from_float<T>(ds);
       }
     __syncwarp();
-    warp_mma<T, NO, kTileK, false>(acc, ds_w, LDP, k_t, LD);
+    warp_mma<T, NO, TK, false>(acc, ds_w, LDP, k_t, LD);
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -489,20 +530,45 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // backward: dK and dV
 // ---------------------------------------------------------------------------
 
+// Shared memory of a dK/dV CTA streaming Q/dO tiles of tq rows: K and V,
+// two stages of Q, dO, lse and delta, the p^T (fp32) and dS^T strips.
+template <typename T, int D>
+constexpr size_t query_tile_smem(int tq) {
+  return (size_t)(2 * kRows + 4 * tq) * (D + pad<T>()) * sizeof(T) + (size_t)4 * tq * 4 +
+         (size_t)kRows * (tq + 4) * 4 + (size_t)kRows * (tq + pad<T>()) * sizeof(T);
+}
+
+// Query rows per streamed Q/dO tile: 32, halved while the CTA's tiles exceed
+// shared memory (fp32 at d 256: 16).
+template <typename T, int D>
+constexpr int query_tile() {
+  int tq = kTileQ;
+  while (tq > 16 && query_tile_smem<T, D>(tq) > kSmemMax) tq /= 2;
+  return tq;
+}
+
+// A dK/dV CTA accumulates DO = min(d, 128) columns of dK and dV: at d 256
+// the two accumulators of all d would need 256 fp32 registers a thread, so
+// two CTAs split the columns, and each recomputes the full-d scores S^T and
+// dP^T from its shared-memory tiles.
 template <typename T, int D>
 struct DkvPlan {
+  static constexpr int TQ = query_tile<T, D>();
+  static constexpr int DO = D < kOutCols ? D : kOutCols;
+  static constexpr int SPLITS = D / DO;
   static constexpr int LD = D + pad<T>();
-  static constexpr int LDS = kTileQ + pad<T>();  // dS^T strip row stride (operand type)
-  static constexpr int LDF = kTileQ + 4;         // p^T strip row stride (fp32)
+  static constexpr int LDS = TQ + pad<T>();  // dS^T strip row stride (operand type)
+  static constexpr int LDF = TQ + 4;         // p^T strip row stride (fp32)
   static constexpr size_t kv_bytes = (size_t)kRows * LD * sizeof(T);  // K, and again V
   // One stage: Q tile, dO tile, then lse and delta of its rows.
   static constexpr size_t stage_bytes =
-      (size_t)2 * kTileQ * LD * sizeof(T) + (size_t)2 * kTileQ * sizeof(float);
+      (size_t)2 * TQ * LD * sizeof(T) + (size_t)2 * TQ * sizeof(float);
   static constexpr size_t pf_bytes = (size_t)kRows * LDF * sizeof(float);
   static constexpr size_t ds_bytes = (size_t)kRows * LDS * sizeof(T);
   static constexpr size_t smem = 2 * kv_bytes + 2 * stage_bytes + pf_bytes + ds_bytes;
   static_assert(smem <= kSmemMax, "dK/dV tiles exceed shared memory");
   static_assert(stage_bytes % 16 == 0, "stages must stay 16-byte aligned");
+  static_assert(D % 16 == 0 && TQ % 16 == 0 && D % DO == 0, "products step k by 16");
 };
 
 template <typename T, int D>
@@ -513,7 +579,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KH, int causal,
                      float scale) {
   using P = DkvPlan<T, D>;
-  constexpr int LD = P::LD, LDS = P::LDS, LDF = P::LDF, NQ = kTileQ / 8, NO = D / 8;
+  constexpr int TQ = P::TQ, LD = P::LD, LDS = P::LDS, LDF = P::LDF, NQ = TQ / 8, NO = P::DO / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* k_s = reinterpret_cast<T*>(smem);
   T* v_s = reinterpret_cast<T*>(smem + P::kv_bytes);
@@ -523,32 +589,33 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.y / KH, kh = blockIdx.y % KH, G = H / KH;
   const int k0 = blockIdx.x * kRows;
+  const int col0 = blockIdx.z * P::DO;  // this CTA's columns of dK and dV
   const long long qstride = (long long)H * D, kstride = (long long)KH * D;
   const long long koff = (long long)b * S * kstride + (long long)kh * D;
   const int8_t* vld = valid ? valid + (long long)b * S : nullptr;
   // Query rows below the tile's first key are all causally masked.
-  const int qt0 = causal ? k0 / kTileQ : 0;
-  const int nqt = (S + kTileQ - 1) / kTileQ - qt0;
+  const int qt0 = causal ? k0 / TQ : 0;
+  const int nqt = (S + TQ - 1) / TQ - qt0;
   const int total = G * nqt;  // (query head, query tile) pairs, head-major
 
   load_rows<T, D>(k_s, LD, k + koff, kstride, k0, kRows, S);
   load_rows<T, D>(v_s, LD, v + koff, kstride, k0, kRows, S);
   auto stage_q = [&](int it) { return reinterpret_cast<T*>(stages + (it & 1) * P::stage_bytes); };
   auto prefetch = [&](int it) {
-    const int hh = kh * G + it / nqt, qs = (qt0 + it % nqt) * kTileQ;
+    const int hh = kh * G + it / nqt, qs = (qt0 + it % nqt) * TQ;
     T* q_t = stage_q(it);
-    T* do_t = q_t + kTileQ * LD;
-    float* lse_t = reinterpret_cast<float*>(do_t + kTileQ * LD);
+    T* do_t = q_t + TQ * LD;
+    float* lse_t = reinterpret_cast<float*>(do_t + TQ * LD);
     const long long qoff = (long long)b * S * qstride + (long long)hh * D;
-    load_rows<T, D>(q_t, LD, q + qoff, qstride, qs, kTileQ, S);
-    load_rows<T, D>(do_t, LD, dout + qoff, qstride, qs, kTileQ, S);
+    load_rows<T, D>(q_t, LD, q + qoff, qstride, qs, TQ, S);
+    load_rows<T, D>(do_t, LD, dout + qoff, qstride, qs, TQ, S);
     // lse and delta of the tile's rows, by plain loads: the stage is free
     // (its last reader finished before the previous block barrier) and the
     // barrier before its use publishes them.
     const long long at = ((long long)b * H + hh) * S;
-    for (int i = threadIdx.x; i < 2 * kTileQ; i += kThreads) {
-      const int r = i % kTileQ, qrow = qs + r;
-      const float* src = i < kTileQ ? lse : delta;
+    for (int i = threadIdx.x; i < 2 * TQ; i += kThreads) {
+      const int r = i % TQ, qrow = qs + r;
+      const float* src = i < TQ ? lse : delta;
       lse_t[i] = qrow < S ? src[at + qrow] : 0.f;
     }
   };
@@ -570,10 +637,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     cp_async_wait<1>();
     __syncthreads();
     const T* q_t = stage_q(it);
-    const T* do_t = q_t + kTileQ * LD;
-    const float* lse_t = reinterpret_cast<const float*>(do_t + kTileQ * LD);
-    const float* delta_t = lse_t + kTileQ;
-    const int qs = (qt0 + it % nqt) * kTileQ;
+    const T* do_t = q_t + TQ * LD;
+    const float* lse_t = reinterpret_cast<const float*>(do_t + TQ * LD);
+    const float* delta_t = lse_t + TQ;
+    const int qs = (qt0 + it % nqt) * TQ;
     float st[NQ][4], dpt[NQ][4];
     zero(st);
     zero(dpt);
@@ -591,8 +658,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         ds_w[(g + 8 * r) * LDS + qc] = from_float<T>(ds);
       }
     __syncwarp();
-    warp_mma<T, NO, kTileQ, false, float>(dv_acc, pf_w, LDF, do_t, LD);
-    warp_mma<T, NO, kTileQ, false>(dk_acc, ds_w, LDS, q_t, LD);
+    warp_mma<T, NO, TQ, false, float>(dv_acc, pf_w, LDF, do_t + col0, LD);
+    warp_mma<T, NO, TQ, false>(dk_acc, ds_w, LDS, q_t + col0, LD);
     __syncthreads();
   }
   cp_async_wait<0>();
@@ -600,7 +667,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= S) continue;
-    const long long at = ((long long)b * S + key[r]) * kstride + (long long)kh * D;
+    const long long at = ((long long)b * S + key[r]) * kstride + (long long)kh * D + col0;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       dk[at + 8 * j + 2 * t] = from_float<T>(dk_acc[j][2 * r]);
@@ -673,7 +740,7 @@ struct BwdDkv {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((a.S + kRows - 1) / kRows, a.B * a.KH);
+    dim3 grid((a.S + kRows - 1) / kRows, a.B * a.KH, DkvPlan<T, D>::SPLITS);
     kernel<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const T*>(a.dout), static_cast<const float*>(a.lse_in),
@@ -683,18 +750,26 @@ struct BwdDkv {
   }
 };
 
-// dtype: 0 float32, 1 bfloat16, 2 float16; head dim 64 or 128.
+// dtype: 0 float32, 1 bfloat16, 2 float16; head dim 64, 96, 128 or 256.
+template <template <typename, int> class Op, typename T>
+int dispatch_hd(int hd, const Args& a) {
+  switch (hd) {
+    case 64: return Op<T, 64>::run(a);
+    case 96: return Op<T, 96>::run(a);
+    case 128: return Op<T, 128>::run(a);
+    case 256: return Op<T, 256>::run(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <template <typename, int> class Op>
 int dispatch(int dtype, int hd, const Args& a) {
   if (a.B <= 0 || a.S <= 0 || a.KH <= 0 || a.H % a.KH != 0 || a.B * a.H > 65535)
     return (int)cudaErrorInvalidValue;
-  switch (dtype * 1000 + hd) {
-    case 64: return Op<float, 64>::run(a);
-    case 128: return Op<float, 128>::run(a);
-    case 1064: return Op<__nv_bfloat16, 64>::run(a);
-    case 1128: return Op<__nv_bfloat16, 128>::run(a);
-    case 2064: return Op<__half, 64>::run(a);
-    case 2128: return Op<__half, 128>::run(a);
+  switch (dtype) {
+    case 0: return dispatch_hd<Op, float>(hd, a);
+    case 1: return dispatch_hd<Op, __nv_bfloat16>(hd, a);
+    case 2: return dispatch_hd<Op, __half>(hd, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -54,6 +54,10 @@
 //   - online softmax in the log2 domain (exp2 of scale*log2(e) scores); the
 //     four warps merge once at the end, and the CTA writes its unnormalised
 //     fp32 partial (o, m, l) to scratch the wrapper allocates;
+//   - head dims 64, 96, 128 and 256 in all three types.  A ring stage holds
+//     64 positions, or 32 where two stages of 64 would not fit shared memory
+//     (fp32 at 256: 133 KB a stage); the 16 positions of a warp stay, so
+//     with 32-position stages the warps take stages in turn, two at a time;
 //   - merge kernel, grid (slot x kv head, row group, 32-dim chunk), launched
 //     as a programmatic dependent of the split kernel so its launch and
 //     prologue (q, k_new, v_new staged in shared memory, the new-row scores)
@@ -188,10 +192,17 @@ struct Plan {
   static constexpr int VEC = 16 / sizeof(T);
   static constexpr int VPR = HD / VEC;  // 16-byte vectors per K/V row
   static constexpr int STRIDE = HD + VEC;
-  static constexpr int TILE = kStageTok * STRIDE;
   static constexpr size_t q_bytes = kRows * STRIDE * sizeof(T);
   // fp32 path: per warp, probabilities [kRows][kWarpTok] and row factors.
   static constexpr size_t p_bytes = kF32 ? kWarps * (kRows * kWarpTok + kRows) * 4 : 0;
+  // Positions per ring stage: 64, or 32 where two stages of 64 do not fit.
+  static constexpr int TOK =
+      q_bytes + p_bytes + 2048 + 4 * (size_t)kStageTok * STRIDE * sizeof(T) <= kSmemLimit
+          ? kStageTok
+          : kStageTok / 2;
+  static constexpr int WPS = TOK / kWarpTok;   // warps that share one stage
+  static constexpr int TURNS = kWarps / WPS;   // stages in flight across the warps
+  static constexpr int TILE = TOK * STRIDE;
   static constexpr size_t stage_bytes = 2 * TILE * sizeof(T);
   static constexpr size_t combine_bytes = kWarps * kRows * HD * 4;
   // 2 KB stay for the static arrays (table entries, per-warp m and l).
@@ -464,9 +475,9 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   auto issue = [&](int stage, int slot) {
     T* k_s = ring + slot * 2 * P::TILE;
     T* v_s = k_s + P::TILE;
-    for (int idx = threadIdx.x; idx < kStageTok * P::VPR; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < P::TOK * P::VPR; idx += kThreads) {
       const int t = idx / P::VPR, c = idx % P::VPR;
-      const int pos = stage * kStageTok + t;
+      const int pos = stage * P::TOK + t;
       const bool ok = pos < n_tok;
       long long src = 0;
       if (ok) src = ((long long)tbl_s[pos / BS] * BS + pos % BS) * tok_stride + kh * HD + c * P::VEC;
@@ -477,7 +488,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 
   WarpState<T, HD> st;
   st.init();
-  const int n_st = (n_tok + kStageTok - 1) / kStageTok;
+  const int n_st = (n_tok + P::TOK - 1) / P::TOK;
   for (int s = 0; s < stages - 1; ++s) {
     if (s < n_st) issue(s, s);
     cp_async_commit();
@@ -490,9 +501,12 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     if (next < n_st) issue(next, next % stages);
     cp_async_commit();
     const T* k_s = ring + (s % stages) * 2 * P::TILE;
-    const int t0 = warp * kWarpTok;
-    const int nv = min(kWarpTok, n_tok - s * kStageTok - t0);
-    if (nv > 0) st.step(q_s, k_s, k_s + P::TILE, p_w, t0, nv, scale_log2, lane);
+    // WPS warps take 16 positions each of this stage (all four at 64).
+    if (warp / P::WPS == s % P::TURNS) {
+      const int t0 = (warp % P::WPS) * kWarpTok;
+      const int nv = min(kWarpTok, n_tok - s * P::TOK - t0);
+      if (nv > 0) st.step(q_s, k_s, k_s + P::TILE, p_w, t0, nv, scale_log2, lane);
+    }
   }
   cp_async_wait(0);
   __syncthreads();  // the ring is drained: its space becomes the combine's
@@ -581,7 +595,7 @@ paged_merge_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
       float acc = 0.f;
 #pragma unroll 16
       for (int dd = 0; dd < HD; ++dd) {
-        const int d = (dd + 2 * item) & (HD - 1);
+        const int d = (HD & (HD - 1)) == 0 ? (dd + 2 * item) & (HD - 1) : (dd + 2 * item) % HD;
         acc += to_float(q_s[i * HD + d]) * to_float(kn_s[kw * HD + d]);
       }
       s = acc * scale_log2;
@@ -654,7 +668,7 @@ int launch_typed(const Args& a) {
   const float scale_log2 = kLog2e / sqrtf((float)HD);
   cudaError_t err;
   if (a.split) {
-    int stages = (a.C + kStageTok - 1) / kStageTok;
+    int stages = (a.C + P::TOK - 1) / P::TOK;
     stages = stages < 2 ? 2 : (stages > P::max_stages ? P::max_stages : stages);
     const size_t smem = P::smem(stages);
     static size_t granted = 0;
@@ -698,7 +712,9 @@ template <typename T>
 int launch_hd(int HD, const Args& a) {
   switch (HD) {
     case 64: return launch_typed<T, 64>(a);
+    case 96: return launch_typed<T, 96>(a);
     case 128: return launch_typed<T, 128>(a);
+    case 256: return launch_typed<T, 256>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -710,8 +726,8 @@ int launch(int dtype, int HD, const Args& a) {
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0: return launch_hd<float>(HD, a);
-    case 1: return HD == 256 ? launch_typed<__nv_bfloat16, 256>(a) : launch_hd<__nv_bfloat16>(HD, a);
-    case 2: return HD == 256 ? launch_typed<__half, 256>(a) : launch_hd<__half>(HD, a);
+    case 1: return launch_hd<__nv_bfloat16>(HD, a);
+    case 2: return launch_hd<__half>(HD, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,18 +10,20 @@ kv_valid, out, lse)`` and computes δ = rowsum(dO∘O) with a plain torch op
 before the two backward kernels.
 
 Three kernels, each behind a wrapper that counts its launches in
-``<wrapper>.launches``:
+``<wrapper>.launches``, at head dims 64, 96, 128 and 256 (any other
+raises):
 
-- :func:`fused_attention_fwd` -> ``(out, lse)``: bf16 and fp16 run the
-  Hopper forward of ``csrc/flash_fwd_sm90.cu`` (wgmma, TMA-fed K/V ring, P
-  in registers), fp32 the CUDA-core body of ``csrc/flash_attention.cu``;
-- :func:`fused_attention_bwd_dq` -> ``dq``: bf16 and fp16 run the Hopper
-  kernel of ``csrc/flash_bwd_dq_sm90.cu`` (wgmma, TMA-fed K/V ring, dS in
-  registers), fp32 the CUDA-core body of ``csrc/flash_attention.cu``;
+- :func:`fused_attention_fwd` -> ``(out, lse)``: bf16 and fp16 at head dim
+  64 and 128 run the Hopper forward of ``csrc/flash_fwd_sm90.cu`` (wgmma,
+  TMA-fed K/V ring, P in registers); fp32, and head dims 96 and 256 in
+  every type, the mma.sync body of ``csrc/flash_attention.cu``;
+- :func:`fused_attention_bwd_dq` -> ``dq``: bf16 and fp16 at 64 and 128
+  run the Hopper kernel of ``csrc/flash_bwd_dq_sm90.cu`` (wgmma, TMA-fed
+  K/V ring, dS in registers), the rest the body of ``csrc/flash_attention.cu``;
 - :func:`fused_attention_bwd_dkv` -> ``(dk, dv)``, already summed over each
-  kv head's query heads: bf16 and fp16 run the Hopper kernel of
-  ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma, TMA-fed Q/dO ring, P^T and dS^T in
-  registers), fp32 the CUDA-core body of ``csrc/flash_attention.cu``.
+  kv head's query heads: bf16 and fp16 at 64 and 128 run the Hopper kernel
+  of ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma, TMA-fed Q/dO ring, P^T and dS^T
+  in registers), the rest the body of ``csrc/flash_attention.cu``.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the plain PyTorch version (:func:`fused_attention_fwd_plain`,
@@ -56,7 +58,8 @@ __all__ = [
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 96, 128, 256)  # the body of flash_attention.cu takes all four
+_SM90_HEAD_DIMS = (64, 128)  # the sm90 kernels' head dims (16-bit types)
 _NEG = -1e30  # finite: no inf - inf in the exp bookkeeping
 _LIVE = -0.5e30  # scores above this are admitted
 
@@ -255,6 +258,14 @@ def _launch(symbol: str, q, k, v, kv_valid, *ptrs, causal: bool):
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
 
 
+def _symbol(base: str, q) -> str:
+    """The launcher of ``base`` for q's dtype and head dim: the sm90 kernel
+    for bf16 and fp16 at head dim 64 and 128, else the body of
+    ``flash_attention.cu``."""
+    sm90 = q.dtype != torch.float32 and q.shape[-1] in _SM90_HEAD_DIMS
+    return f"{base}_sm90" if sm90 else base
+
+
 def _on_cuda(name: str, q) -> bool:
     """True on a CUDA tensor, False on a CPU one; raises on anything else."""
     if q.device.type == "cpu":
@@ -271,8 +282,9 @@ def _valid_ptr(kv_valid):
 def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_size: int = 512):
     """Flash-attention forward: ``(out [B, S, H, d]`` in q's dtype, ``lse
     [B, H, S]`` fp32).  ``kv_valid`` is int8 ``[B, S]`` (nonzero: the key
-    takes part) or None.  On CUDA, bf16 and fp16 launch the Hopper kernel
-    (``atpu_flash_fwd_sm90``) and fp32 the CUDA-core one (``atpu_flash_fwd``)."""
+    takes part) or None.  On CUDA, bf16 and fp16 at head dim 64 and 128
+    launch the Hopper kernel (``atpu_flash_fwd_sm90``), the rest the
+    mma.sync body (``atpu_flash_fwd``)."""
     if not _on_cuda("fused_attention_fwd", q):
         return fused_attention_fwd_plain(q, k, v, kv_valid, causal=causal, block_size=block_size)
     _check(q, k, v, kv_valid)
@@ -280,42 +292,41 @@ def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_si
     b, s, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    symbol = "atpu_flash_fwd" if q.dtype == torch.float32 else "atpu_flash_fwd_sm90"
-    _launch(symbol, q, k, v, kv_valid, _valid_ptr(kv_valid), out.data_ptr(), lse.data_ptr(),
-            causal=causal)
+    _launch(_symbol("atpu_flash_fwd", q), q, k, v, kv_valid, _valid_ptr(kv_valid),
+            out.data_ptr(), lse.data_ptr(), causal=causal)
     fused_attention_fwd.launches += 1
     return out, lse
 
 
 def fused_attention_bwd_dq(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True):
     """dQ ``[B, S, H, d]`` in q's dtype from the saved ``lse`` and δ
-    (``delta [B, H, S]`` fp32).  On CUDA, bf16 and fp16 launch the Hopper
-    kernel (``atpu_flash_bwd_dq_sm90``) and fp32 the CUDA-core one
-    (``atpu_flash_bwd_dq``)."""
+    (``delta [B, H, S]`` fp32).  On CUDA, bf16 and fp16 at head dim 64 and
+    128 launch the Hopper kernel (``atpu_flash_bwd_dq_sm90``), the rest the
+    mma.sync body (``atpu_flash_bwd_dq``)."""
     if not _on_cuda("fused_attention_bwd_dq", q):
         return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[0]
     _check(q, k, v, kv_valid, {"do": do, "lse": lse, "delta": delta})
     dq = torch.empty_like(q)
-    symbol = "atpu_flash_bwd_dq" if q.dtype == torch.float32 else "atpu_flash_bwd_dq_sm90"
-    _launch(symbol, q, k, v, kv_valid, do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), _valid_ptr(kv_valid), dq.data_ptr(), causal=causal)
+    _launch(_symbol("atpu_flash_bwd_dq", q), q, k, v, kv_valid, do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _valid_ptr(kv_valid), dq.data_ptr(),
+            causal=causal)
     fused_attention_bwd_dq.launches += 1
     return dq
 
 
 def fused_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True):
     """dK, dV ``[B, S, K, d]`` in k's dtype, summed over each kv head's query
-    heads.  On CUDA, bf16 and fp16 launch the Hopper kernel
-    (``atpu_flash_bwd_dkv_sm90``) and fp32 the CUDA-core one
-    (``atpu_flash_bwd_dkv``)."""
+    heads.  On CUDA, bf16 and fp16 at head dim 64 and 128 launch the Hopper
+    kernel (``atpu_flash_bwd_dkv_sm90``), the rest the mma.sync body
+    (``atpu_flash_bwd_dkv``), which splits d 256 across two CTAs."""
     if not _on_cuda("fused_attention_bwd_dkv", q):
         return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[1:]
     _check(q, k, v, kv_valid, {"do": do, "lse": lse, "delta": delta})
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    symbol = "atpu_flash_bwd_dkv" if q.dtype == torch.float32 else "atpu_flash_bwd_dkv_sm90"
-    _launch(symbol, q, k, v, kv_valid, do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), _valid_ptr(kv_valid), dk.data_ptr(), dv.data_ptr(), causal=causal)
+    _launch(_symbol("atpu_flash_bwd_dkv", q), q, k, v, kv_valid, do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _valid_ptr(kv_valid), dk.data_ptr(),
+            dv.data_ptr(), causal=causal)
     fused_attention_bwd_dkv.launches += 1
     return dk, dv
 

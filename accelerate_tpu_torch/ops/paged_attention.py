@@ -49,7 +49,7 @@ __all__ = [
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (64, 96, 128, 256)
 _LOG2E = 1.4426950408889634
 # Split size: the fewest pool positions a split CTA streams, and the most
 # split CTAs (every slot counted as full) per SM before splits grow.
@@ -57,6 +57,14 @@ SPLIT_MIN_TOKENS = 128
 SPLIT_MAX_CTAS_PER_SM = 64
 _MAX_SPLIT_BLOCKS = 256  # table entries one split may span (the kernel's cap)
 _MAX_WINDOW = 256  # the merge kernel stages the window's k_new rows in shared memory
+_MERGE_SMEM = 227 * 1024 - 1024  # what the merge kernel may stage
+
+
+def _merge_smem(w: int, d: int, itemsize: int) -> int:
+    """Shared memory of the merge kernel: 16 query rows and the W k_new rows
+    of d elements, this chunk's W v_new values and 16 x W new-row scores
+    (fp32).  fp32 at d 256 caps the window below :data:`_MAX_WINDOW`."""
+    return (16 + w) * d * itemsize + w * (32 + 16) * 4
 
 
 def paged_window_attention_plain(q, k_new, v_new, pool_k, pool_v, tables, lengths):
@@ -220,11 +228,12 @@ def _check(q, k_new, v_new, pool_k, pool_v, tables, lengths, window: bool) -> No
         raise ValueError(f"k_new {tuple(ks)} does not match q {tuple(qs)}")
     if h % kh:
         raise ValueError(f"num q heads {h} not divisible by kv heads {kh}")
-    if window and qs[1] > _MAX_WINDOW:
-        raise ValueError(f"window {qs[1]} longer than the kernel's {_MAX_WINDOW}")
-    if d not in _HEAD_DIMS or (d == 256 and dtype == torch.float32):
-        raise ValueError(f"head_dim {d} in {dtype} not supported by the kernel "
-                         f"(one of {_HEAD_DIMS}; 256 only in 16-bit types)")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported by the kernel (one of {_HEAD_DIMS})")
+    if window and (qs[1] > _MAX_WINDOW
+                   or _merge_smem(qs[1], d, q.element_size()) > _MERGE_SMEM):
+        raise ValueError(f"window {qs[1]} too long for the kernel at head_dim {d} in {dtype} "
+                         f"(at most {_MAX_WINDOW}, and the merge kernel's shared memory)")
     if len(ps) != 4 or ps != pool_v.shape or ps[2] != kh or ps[3] != d:
         raise ValueError(f"pool shape {tuple(ps)} is not [N, bs, {kh}, {d}]")
     ts = tables.shape
@@ -372,8 +381,9 @@ def paged_split_merge(q, k_new, v_new, part_o, part_ml, lengths, split_tokens, b
     if part_o.dtype != torch.float32 or part_ml.dtype != torch.float32 or \
             lengths.dtype != torch.int32 or k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise TypeError("partials must be float32, lengths int32, k_new/v_new in q's dtype")
-    if q.dtype not in _DTYPE_CODES or d not in _HEAD_DIMS or (d == 256 and q.dtype == torch.float32):
-        raise ValueError(f"head_dim {d} in {q.dtype} not supported by the kernel")
+    if q.dtype not in _DTYPE_CODES or d not in _HEAD_DIMS or \
+            _merge_smem(w, d, q.element_size()) > _MERGE_SMEM:
+        raise ValueError(f"head_dim {d} at window {w} in {q.dtype} not supported by the kernel")
     out = torch.empty_like(q)
     rc = _kernel("atpu_paged_split_merge")(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),

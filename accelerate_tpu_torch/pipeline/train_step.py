@@ -44,18 +44,26 @@ def micro_loss(model, batch) -> torch.Tensor:
     return loss.float().mean()
 
 
-def accumulate_grads(acc, grads, scale: float):
+def accumulate_grads(acc, grads, scale: float, hold_dtype=None):
     """``acc[i] + grads[i] * scale`` (``grads[i] * scale`` where ``acc[i]``
     is None); a None gradient leaves its slot as it was.  A scale of 1 is
     skipped: ``g * 1.0`` is ``g`` bit for bit, and the copy would cost a
-    pass over every gradient."""
+    pass over every gradient.  With ``hold_dtype`` (bf16 under a
+    ``comm_hook``) the scaled gradient is rounded to it and added to the
+    sum in it, the rounding of the JAX ``PreparedModel._accumulate``, and
+    the result comes back in the gradient's own dtype (a ``.grad`` keeps
+    its parameter's)."""
     out = []
     for a, g in zip(acc, grads):
         if g is None:
             out.append(a)
             continue
         s = g if scale == 1.0 else g * scale
-        out.append(s if a is None else a + s)
+        if hold_dtype is None:
+            out.append(s if a is None else a + s)
+        else:
+            s = s.to(hold_dtype)
+            out.append((s if a is None else a.to(hold_dtype) + s).to(g.dtype))
     return out
 
 

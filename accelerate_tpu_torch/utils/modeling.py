@@ -32,10 +32,14 @@ class PreparedModel(nn.Module):
     :meth:`Accelerator.unwrap_model` returns it.
 
     The copies are made once, before the module's forward, which the
-    wrapper cannot see into: a model that passes its weights into a
-    checkpointed region as inputs (llama under ``remat``) keeps their
-    16-bit copies alive until the backward has recomputed that region
-    (ROADMAP C)."""
+    wrapper cannot see into, so a model that passes its weights into a
+    checkpointed region as inputs would keep their 16-bit copies alive
+    until the backward has recomputed that region.  Such a model casts
+    at use instead: a module with a ``_forward_cast_at_use(compute_dtype,
+    *args, **kwargs)`` method (``LlamaForCausalLM``) is called through it
+    with its fp32 parameters, and casts each weight to ``compute_dtype``
+    where it uses it, to the same values; every other module gets the
+    copies made here."""
 
     def __init__(self, module: nn.Module, compute_dtype: torch.dtype):
         super().__init__()
@@ -44,6 +48,11 @@ class PreparedModel(nn.Module):
 
     def forward(self, *args, **kwargs):
         module, dt = self.module, self.compute_dtype
+        cast_at_use = getattr(module, "_forward_cast_at_use", None)
+        if cast_at_use is not None:
+            args, kwargs = recursively_apply(
+                lambda t: t.to(dt) if t.is_floating_point() else t, (args, kwargs))
+            return convert_to_fp32(cast_at_use(dt, *args, **kwargs))
         casted = {n: p.to(dt) if p.is_floating_point() else p
                   for n, p in module.named_parameters()}
         buffers = {n: (b, b.to(dt)) for n, b in module.named_buffers() if b.is_floating_point()}

@@ -20,7 +20,7 @@ import math
 import os
 import struct
 import sys
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -44,9 +44,12 @@ def _bytes(t: torch.Tensor):
     return t.reshape(-1).view(torch.uint8).numpy()
 
 
-def save_file(tensors: Dict[str, torch.Tensor], path: str, fsync: bool = False) -> None:
+def save_file(tensors: Dict[str, torch.Tensor], path: str, fsync: bool = False,
+              metadata: Optional[Dict[str, str]] = None) -> None:
     """Write ``tensors`` (any device; copied to the host one at a time) to
-    ``path``.  ``fsync`` flushes the file to disk before returning."""
+    ``path``, with ``metadata`` (strings) as the header's
+    ``"__metadata__"``.  ``fsync`` flushes the file to disk before
+    returning."""
     for name, t in tensors.items():
         if t.dtype not in _DTYPES:
             raise ValueError(f"{name}: dtype {t.dtype} has no safetensors name")
@@ -58,6 +61,8 @@ def save_file(tensors: Dict[str, torch.Tensor], path: str, fsync: bool = False) 
         header[name] = {"dtype": _DTYPES[t.dtype], "shape": list(t.shape),
                         "data_offsets": [offset, offset + n]}
         offset += n
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
     blob = json.dumps(header, separators=(",", ":")).encode()
     blob += b" " * (-len(blob) % 8)
     with open(path, "wb") as f:

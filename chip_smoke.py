@@ -160,12 +160,45 @@ Phases (each fails the run on any mismatch; nothing is caught):
    ``mixed_precision="bf16"`` on the card and with ``cpu=True``: each
    accuracy above 0.8, JAX's ``test_nlp_example_learns`` threshold.
 
+10. The wide heads and Gemma-2B at full width.  10a: the three flash
+   kernels at head dim 256 (Gemma-2B's 8 q / 1 kv heads, Gemma-7B's 16 /
+   16) and 96 (Phi-3-mini's 32 / 32), B 2 x S 2048 causal, unpadded and
+   left-padded, in bf16 and fp32, against their plain versions (the
+   forward's out and lse, dQ, dK and dV), with kernel (L2-cold copies),
+   plain, bound and ``scaled_dot_product_attention`` forward and backward
+   times (an error recorded where sdpa refuses the shape); the paged pair
+   at head dim 96 (bf16, fp32) and 256 (fp32) at Phase 1's long shape
+   against plain, with kernel, plain, bound and library times.  10b:
+   Gemma-2B (vocab 256000, d 2048, FFN 16384, 18 layers, 8 q / 1 kv head
+   of 256, GeGLU, (1 + w) RMSNorm, sqrt(d) embeddings, tied head; random
+   weights from seed 0) built by the port's ``config_from_hf`` from
+   google/gemma-2b's published ``config.json`` values: the parameters
+   through ``export_state_dict`` -> ``import_state_dict`` bit-identical;
+   one forward and backward under ``mixed_precision="no"`` and ``"bf16"``
+   (the loss equal, the memory held after the forward within one layer's
+   bf16 copy of each other, the peaks printed); the first step on the
+   kernel path against the plain path, with fp32 activations (loss and
+   every gradient within a relative 1e-4) and in bf16 (loss within 1e-4
+   of itself, every gradient within a relative 5e-2); then the README loop under
+   ``Accelerator(mixed_precision="bf16")``, ``prepare(model, AdamW,
+   DataLoader, LambdaLR)``, ``remat=True``, 5 steps at B 2 x S 2048 (B 1
+   if the peak reckoned in the log reaches 72 GB): the flash kernels
+   launched 2L / L / L = 36 / 18 / 18 a step, the fifth step profiled
+   (the trace must name the d-256 kernels), step time, tokens/s, share of
+   the bf16 peak, peak memory and idle share.  10c: the trained weights in
+   bf16 through ``prepare_serving(paged_kernel=True)`` with Phase 2's
+   geometry and traffic, ``spec_tokens`` 0 and 3: 18 paged launches (head
+   dim 256) per dispatch, every request token-identical to greedy
+   ``generate`` or parting from it at a near tie, TTFT, ITL and decode
+   tokens/s.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
-launches as ``launches_phase7``, every kernel's Phase 8 and Phase 9
-launches as ``launches_phase8`` and ``launches_phase9``), the card's name
-and power limit, and ``{"ok": true,
-"device": {...}}``.  Without CUDA, or without the package beside it, the
-script exits non-zero and prints no result.
+launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
+launches as ``launches_phase8``, ``launches_phase9`` and
+``launches_phase10``, the head dims each takes as ``head_dims`` and
+Phase 10a's records as ``wide_heads``), the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+package beside it, the script exits non-zero and prints no result.
 """
 
 import contextlib
@@ -2520,6 +2553,469 @@ def phase9(smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the wide heads, and Gemma-2B at full width
+# ---------------------------------------------------------------------------
+
+# google/gemma-2b's config.json (Hugging Face Hub), the values config_from_hf reads.
+GEMMA_2B = dict(
+    model_type="gemma", architectures=["GemmaForCausalLM"], vocab_size=256000,
+    hidden_size=2048, intermediate_size=16384, num_hidden_layers=18,
+    num_attention_heads=8, num_key_value_heads=1, head_dim=256,
+    max_position_embeddings=8192, rms_norm_eps=1e-6, rope_theta=10000.0,
+    hidden_act="gelu_pytorch_tanh", hidden_activation=None, attention_bias=False,
+    attention_dropout=0.0, tie_word_embeddings=True, bos_token_id=2, eos_token_id=1,
+    pad_token_id=0, torch_dtype="bfloat16")
+# Attention geometries (q heads, kv heads, head dim) of the published
+# config.json files of google/gemma-2b, google/gemma-7b and
+# microsoft/Phi-3-mini-4k-instruct (3072 / 32 = 96).
+PHASE10_FLASH_SHAPES = (("Gemma-2B", 8, 1, 256), ("Gemma-7B", 16, 16, 256),
+                        ("Phi-3-mini", 32, 32, 96))
+PHASE10_PAGED = ((96, torch.bfloat16), (96, torch.float32), (256, torch.float32))
+PHASE10_B, PHASE10_S, PHASE10_STEPS, PHASE10_PAD = 2, 2048, 5, 300
+PHASE10_PEAK_LIMIT = 72e9  # bytes: B 2 when the reckoned peak stays under it, else B 1
+# Phase 10b's bf16 first step, kernel path against plain path: the loss
+# relative to itself.  Phase 5's absolute 1e-3 is 8.2e-5 of its loss (12.16)
+# at 4 layers; Gemma-2B's 18 layers and sqrt(d)-scaled activations at a loss
+# of ~15 read 1.051e-3 absolute, 7.0e-5 relative (bf16 rounding: the fp32
+# step below agrees to 1e-4 and better).
+PHASE10_BF16_LOSS_REL = 1e-4
+# The d 96 and 256 instantiations of flash_attention.cu's kernels, as a
+# profiler names them (bf16 at Gemma's head dim).
+WIDE_FLASH = tuple(f"{k}<__nv_bfloat16, 256>" for k in
+                   ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+
+
+def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
+    """Kernel (L2-cold copies, as Phase 4), plain, bound and ``sdpa`` times
+    of the three flash kernels at one shape; ``sdpa``'s failure is recorded
+    as its error."""
+    delta = attention_delta(out, do)
+    set_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, do))
+    copies = [(q, k, v, do, lse, delta)] + [
+        tuple(t.clone() for t in (q, k, v, do, lse, delta))
+        for _ in range(math.ceil(100e6 / set_bytes) - 1)]
+    times = {
+        "fused_attention_fwd": cuda_ms(
+            lambda q, k, v: fu.fused_attention_fwd(q, k, v, causal=True, block_size=blk),
+            [c[:3] for c in copies], iters=10),
+        "fused_attention_bwd_dq": cuda_ms(
+            lambda *a: fu.fused_attention_bwd_dq(*a, causal=True), copies, iters=10),
+        "fused_attention_bwd_dkv": cuda_ms(
+            lambda *a: fu.fused_attention_bwd_dkv(*a, causal=True), copies, iters=10),
+    }
+    del copies
+    plain_fwd = cuda_ms(lambda q, k, v: fu.fused_attention_fwd_plain(
+        q, k, v, causal=True, block_size=blk), [(q, k, v)], iters=2)
+    plain_bwd = cuda_ms(lambda q, k, v, do: fu.fused_attention_bwd_plain(
+        q, k, v, out, lse, do, causal=True, block_size=blk), [(q, k, v, do)], iters=2)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+
+    def sdpa(qt, kt, vt):
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd(qt, kt, vt, dot):
+        qt, kt, vt = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        sdpa(qt, kt, vt).backward(dot)
+
+    lib_fwd = lib_bwd = lib_err = None
+    try:
+        lib_fwd = cuda_ms(sdpa, [(qt, kt, vt)], iters=10)
+        lib_bwd = cuda_ms(sdpa_fwd_bwd, [(qt, kt, vt, dot)], iters=10) - lib_fwd
+    except RuntimeError as e:  # a shape sdpa refuses is recorded, not raised
+        lib_err = str(e).splitlines()[0][:200]
+    del qt, kt, vt, dot
+    bounds, _ = flash_bounds(q, k, True)
+    err = {"fused_attention_fwd": errs["out"], "fused_attention_bwd_dq": errs["dq"],
+           "fused_attention_bwd_dkv": max(errs["dk"], errs["dv"])}
+    rec = {}
+    for name in FLASH_KERNELS:
+        b_ms, b_by = bounds[name]
+        fwd = name == "fused_attention_fwd"
+        rec[name] = dict(max_abs_err=err[name], ms=times[name],
+                         plain_ms=plain_fwd if fwd else plain_bwd, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_fwd if fwd else None,
+                         library_bwd_ms=None if fwd else lib_bwd, library_error=lib_err)
+    return rec
+
+
+def phase10a(smi):
+    """The three flash kernels at head dims 256 and 96 (Gemma-2B, Gemma-7B
+    and Phi-3-mini attention geometry, B 2 x S 2048 causal, unpadded and
+    with batch 0 left-padded by 300 keys) in bf16 and fp32, and the paged
+    pair at head dim 96 (bf16, fp32) and 256 (fp32) at Phase 1's long
+    shape, each against its plain version, with times."""
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import fused_attention as fu
+    from accelerate_tpu_torch.ops import paged_attention as pa
+    from accelerate_tpu_torch.ops.flash_attention import pick_block_pallas
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    flash = {}
+    b, s = PHASE10_B, PHASE10_S
+    for geom, h, kh, d in PHASE10_FLASH_SHAPES:
+        blk = pick_block_pallas(s, d)
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = TOL[str(dtype)]
+            for pad in (0, PHASE10_PAD):
+                q, k, v, do, valid = flash_inputs(dtype, b, s, pad, gen, h=h, kh=kh, d=d)
+                out, lse = fu.fused_attention_fwd(q, k, v, valid, causal=True, block_size=blk)
+                dq, dk, dv = fu.fused_attention_bwd(q, k, v, out, lse, do, valid, causal=True,
+                                                    block_size=blk)
+                torch.cuda.synchronize()
+                want_out, want_lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=True,
+                                                                  block_size=blk)
+                want = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, valid, causal=True,
+                                                    block_size=blk)
+                errs = {}
+                for name, got, ref in (("out", out, want_out), ("lse", lse, want_lse),
+                                       ("dq", dq, want[0]), ("dk", dk, want[1]),
+                                       ("dv", dv, want[2])):
+                    check(bool(torch.isfinite(got).all()), f"phase10 {geom} {dtype} {name}: "
+                          "non-finite")
+                    errs[name] = (got.float() - ref.float()).abs().max().item()
+                    check(torch.allclose(got.float(), ref.float(), atol=tol, rtol=tol),
+                          f"phase10 flash {geom} d={d} {dtype} pad={pad} {name}: max abs err "
+                          f"{errs[name]} over atol=rtol={tol}")
+                if pad:
+                    check(bool((out[0, :pad] == 0).all()) and bool((dq[0, :pad] == 0).all()),
+                          "empty rows must output zero and get zero gradient")
+                log(f"phase10a flash {geom} H={h} K={kh} d={d} {dtype} B={b} S={s} causal "
+                    f"left_pad={pad}: max_abs_err "
+                    + " ".join(f"{n}={e:.3e}" for n, e in errs.items()) + f" (atol=rtol={tol})")
+                if not pad:
+                    rec = wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs)
+                    flash[(geom, str(dtype))] = rec
+                    for name, r in rec.items():
+                        log(f"phase10a {name} {geom} d={d} {dtype}: kernel_ms={r['ms']:.4f} "
+                            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                            f"({r['bound_by']}) library_ms={r['library_ms']} "
+                            f"library_bwd_ms={r['library_bwd_ms']} "
+                            f"library_error={r['library_error']}; {smi}")
+                del q, k, v, do, valid, out, lse, dq, dk, dv, want_out, want_lse, want
+                torch.cuda.empty_cache()
+
+    order = ("q", "k_new", "v_new", "pool_k", "pool_v", "tables", "lengths")
+    lengths = PHASE1_SHAPES[0][1]
+    paged = {}
+    for d, dtype in PHASE10_PAGED:
+        for name, window in (("paged_attention", None), ("paged_window_attention", 4)):
+            kern, plain = getattr(pa, name), getattr(pa, name + "_plain")
+            a = kernel_inputs(dtype, window, lengths, gen, hd=d)
+            tol = TOL[str(dtype)]
+            got = kern(**a)
+            torch.cuda.synchronize()
+            want = plain(**a)
+            err = (got.float() - want.float()).abs().max().item()
+            check(bool(torch.isfinite(got).all()), f"phase10 {name} d={d} {dtype}: non-finite")
+            check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+                  f"phase10 {name} d={d} {dtype}: max abs err {err} over atol=rtol={tol}")
+            pool_bytes = 2 * a["pool_k"].numel() * a["pool_k"].element_size()
+            copies = [a] + [dict(a, pool_k=a["pool_k"].clone(), pool_v=a["pool_v"].clone())
+                            for _ in range(math.ceil(100e6 / pool_bytes) - 1)]
+            sets = [tuple(c[k] for k in order) for c in copies]
+            k_ms = graph_ms(kern, sets)
+            p_ms = graph_ms(plain, sets[:1], iters=5, replays=2)
+            lib_fn, lib_args = library_call(a, window)
+            lib_ms = graph_ms(lib_fn, [lib_args], iters=10)
+            b_ms, b_by = bound_ms(a, window)
+            paged[(name, d, str(dtype))] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            log(f"phase10a {name} d={d} {dtype} W={window or 1} long lengths={lengths}: "
+                f"max_abs_err={err:.3e} (atol=rtol={tol}) kernel_ms={k_ms:.4f} "
+                f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms:.4f}; "
+                f"{smi}")
+            del a, copies, sets, lib_args
+            torch.cuda.empty_cache()
+    return flash, paged
+
+
+def gemma_2b_config(**overrides):
+    """Gemma-2B's config, built by the port's ``config_from_hf`` from its
+    published ``config.json`` values."""
+    from types import SimpleNamespace
+
+    from accelerate_tpu_torch.models.hf_import import config_from_hf
+
+    return config_from_hf(SimpleNamespace(**GEMMA_2B), **overrides)
+
+
+def phase10_policy_memory(model, batch, smi):
+    """One forward and backward of Gemma-2B under ``"no"`` and ``"bf16"``:
+    the memory held after the forward and the forward+backward peak (C10:
+    llama casts each layer's weights inside its checkpointed layer, so the
+    policy keeps no stacked 16-bit copy), and the loss bit-identical."""
+    from accelerate_tpu_torch import Accelerator
+
+    mem, losses = {}, {}
+    for mode in ("no", "bf16"):
+        fresh_state()
+        prepared = Accelerator(mixed_precision=mode).prepare(model)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = prepared(**batch)["loss"]
+        held = torch.cuda.memory_allocated() - base
+        fwd_peak = torch.cuda.max_memory_allocated() - base
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        peak = torch.cuda.max_memory_allocated() - base
+        mem[mode], losses[mode] = (held, max(fwd_peak, peak)), loss.item()
+        del loss, grads, prepared
+        torch.cuda.empty_cache()
+    layer = sum(p[0].numel() for n, p in model.named_parameters() if n.startswith("layers."))
+    (h_no, p_no), (h_bf, p_bf) = mem["no"], mem["bf16"]
+    log(f"phase10b C10 one forward and backward, 'no' vs 'bf16', bytes above what was "
+        f"allocated before it: held after the forward {h_no} vs {h_bf} ({h_bf - h_no:+d}; "
+        f"one layer's bf16 copy, computed, {2 * layer}; the stacked copy of all layers, "
+        f"computed, {2 * layer * model.config.num_layers}); forward+backward peak {p_no} vs "
+        f"{p_bf} ({p_bf - p_no:+d}); loss {losses['no']!r} vs {losses['bf16']!r}; {smi}")
+    check(losses["no"] == losses["bf16"], f"the bf16 policy changed the loss: {losses}")
+    check(h_bf - h_no <= 2 * layer, f"the bf16 policy holds {h_bf - h_no} bytes more than "
+          f"'no' after the forward, over one layer's copy {2 * layer}")
+    return mem
+
+
+def phase10b(smi):
+    """Gemma-2B (published widths, all 18 layers, random weights from seed
+    0) trained through the README loop: the export/import round trip, C10's
+    memory, the kernel path against the plain path, then 5 steps of
+    ``prepare(model, AdamW, DataLoader, LambdaLR)`` under
+    ``mixed_precision="bf16"`` with ``remat=True``."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.data import DataLoader
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import hf_export, hf_import, llama
+
+    cfg = gemma_2b_config(dtype=torch.bfloat16, param_dtype=torch.float32, remat=True)
+    n = cfg.num_params()
+    v, d, f, L, s = cfg.vocab_size, cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, \
+        PHASE10_S
+    # The peak, reckoned: fp32 parameters, gradients and AdamW's two moments
+    # (16 B a parameter), the bf16 embedding (tied head) and its gradient,
+    # the logits chain at the loss (bf16 logits, their fp32 copy, the log
+    # softmax and its gradient: 14 B a logit), the layers' saved inputs and
+    # one recomputed layer's MLP.
+    def reckon(b):
+        return (16 * n + 4 * v * d + b * s * v * 14 + L * b * s * d * 2 + b * s * f * 2 * 4)
+
+    b = PHASE10_B if reckon(PHASE10_B) < PHASE10_PEAK_LIMIT else 1
+    log(f"phase10b Gemma-2B from config_from_hf(google/gemma-2b config.json): vocab {v} d {d} "
+        f"ffn {f} layers {L} heads {cfg.num_heads}/{cfg.num_kv_heads} head_dim {cfg.head_dim_} "
+        f"act {cfg.hidden_act} rms_offset {cfg.rms_offset} embed_scale {cfg.embed_scale} tied "
+        f"{cfg.tie_embeddings} rope_theta {cfg.rope_theta} eps {cfg.rms_eps}; {n} parameters, "
+        f"{4 * n} bytes fp32, {16 * n} bytes of fp32 training state; reckoned peak at B 2 x S "
+        f"{s} {reckon(2)} bytes, at B 1 {reckon(1)}, limit {PHASE10_PEAK_LIMIT:.0f}: B {b}")
+    t0 = time.perf_counter()
+    model = llama.LlamaForCausalLM(cfg, seed=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = model.params
+    want = {k: v_.detach().clone() for k, v_ in params.items() if k != "layers"}
+    sd = hf_export.export_state_dict("llama", params, cfg)
+    back = hf_import.import_state_dict("llama", sd, cfg, consume_source=True)
+    del sd
+    same = all(torch.equal(back[k], want[k]) for k in want) and all(
+        torch.equal(back["layers"][k], params["layers"][k]) for k in params["layers"])
+    torch.cuda.synchronize()
+    log(f"phase10b init_s={t1 - t0:.1f}; export_state_dict -> import_state_dict round trip "
+        f"bit-identical: {same} ({time.perf_counter() - t1:.1f} s)")
+    check(same, "the HF export/import round trip changed the parameters")
+    del back, want, params
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(10)
+    ids = rng.integers(0, v, size=(b * PHASE10_STEPS, s))
+    rows = [{"input_ids": torch.from_numpy(r)} for r in ids]
+    first = {"input_ids": torch.from_numpy(ids[:b]).cuda()}
+    mem = phase10_policy_memory(model, first, smi)
+
+    # The first step's loss and gradients: the kernel path against the
+    # plain path (the fused op's plain versions), with fp32 activations
+    # (every leaf within a relative 1e-4, as Phase 5), then bf16 compute.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    loss_k, grads_k = loss_and_grads(model, cfg32, first)
+    with plain_flash():
+        loss_p, grads_p = loss_and_grads(model, cfg32, first)
+    rel = max(((gk - gp).abs().max() / gp.abs().max()).item()
+              for gk, gp in zip(grads_k, grads_p))
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    log(f"phase10b fp32 first step, kernel vs plain path: loss {loss_k.item():.6f} vs "
+        f"{loss_p.item():.6f} (rel {loss_rel:.3e}); max over {len(grads_k)} gradient leaves "
+        f"of max|diff|/max|plain| = {rel:.3e} (limit 1e-4)")
+    check(loss_rel <= 1e-4 and rel <= 1e-4,
+          f"fp32 kernel path differs: loss {loss_rel}, grad {rel}")
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+    loss_k, grads_k = loss_and_grads(model, cfg, first)
+    with plain_flash():
+        loss_p, grads_p = loss_and_grads(model, cfg, first)
+    loss_k, loss_p = loss_k.item(), loss_p.item()
+    rels = [((gk - gp).abs().max() / gp.abs().max()).item() for gk, gp in zip(grads_k, grads_p)]
+    names = [nm for nm, _ in model.named_parameters()]
+    loss_lim = PHASE10_BF16_LOSS_REL * abs(loss_p)
+    log(f"phase10b bf16 first step, kernel vs plain path: loss {loss_k:.5f} vs {loss_p:.5f} "
+        f"(|diff| {abs(loss_k - loss_p):.3e}, limit {loss_lim:.3e} = "
+        f"{PHASE10_BF16_LOSS_REL} of the loss); per gradient leaf max|diff|/max|plain|: "
+        + " ".join(f"{nm}={r:.3e}" for nm, r in zip(names, rels)) + f" (limit {BF16_GRAD_TOL})")
+    check(abs(loss_k - loss_p) <= loss_lim, f"bf16 loss differs by {abs(loss_k - loss_p)}")
+    check(max(rels) <= BF16_GRAD_TOL, f"bf16 gradients differ: {max(rels)}")
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    fresh_state()
+    acc = Accelerator(mixed_precision="bf16")
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda i: min(1.0, (i + 1) / 2))
+    pmodel, opt, dl, sched = acc.prepare(model, opt, DataLoader(rows, batch_size=b), sched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, per_step = [], [], []
+    reset_flash_counts()
+    for i, batch in enumerate(dl):
+        before = read_flash_counts()
+        ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+               if i == PHASE10_STEPS - 1 else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx as prof:
+            with acc.accumulate(pmodel):
+                loss = pmodel(**batch)["loss"]
+                acc.backward(loss)
+                opt.step()
+                sched.step()
+                opt.zero_grad()
+            losses.append(loss.item())
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        after = read_flash_counts()
+        per_step.append(tuple(after[k] - before[k] for k in FLASH_KERNELS))
+    counts = read_flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    by_kernel, busy, groups, launches, flash = kernel_groups(prof)
+    wide = {k: sum(cnt for _, cnt, key in by_kernel if k in key) for k in WIDE_FLASH}
+    tokens = b * s
+    dense = n - (0 if cfg.tie_embeddings else v * d)  # the embedding lookup is no product
+    pairs = s * (s + 1) // 2
+    flops = 6 * dense * tokens + L * 3.5 * 4 * b * cfg.num_heads * cfg.head_dim_ * pairs
+    ms = median(step_s[1:]) * 1e3
+    log(f"phase10b README loop, bf16 policy, B {b} x S {s}, {PHASE10_STEPS} steps: losses "
+        f"{losses!r} step_ms={ms:.2f} (median of steps 2-5; each "
+        f"{[round(x * 1e3, 2) for x in step_s]}; the fifth profiled) tokens_per_s="
+        f"{tokens / ms * 1e3:.1f} model_tflop_per_step={flops / 1e12:.3f} "
+        f"bf16_peak_share={flops / (ms / 1e3) / PEAK_FLOPS['torch.bfloat16']:.4f} "
+        f"peak_mem_bytes={peak}; profiled step: device_busy_ms={busy:.2f} idle_share="
+        f"{1 - busy / (step_s[-1] * 1e3):.3f} by group (ms, launches) "
+        + " ".join(f"{k}={t:.2f}/{launches[k]}" for k, t in groups.items())
+        + f"; flash: {', '.join(flash)}; d-256 kernels in the trace {wide}; flash launches "
+        f"per step {per_step}; {smi}")
+    for t, cnt, key in by_kernel[:8]:
+        log(f"phase10b   device {t:.3f} ms in {cnt} launches: {key[:110]}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(per_step == [(2 * L, L, L)] * PHASE10_STEPS,
+          f"flash launches per step {per_step}, want (2L, L, L) = {(2 * L, L, L)}")
+    check(all(wide.values()), f"the profiler trace names no d-256 kernel: {wide}")
+    out = dict(counts=counts, ms=ms, tokens_per_s=tokens / ms * 1e3, peak=peak, mem=mem,
+               idle=1 - busy / (step_s[-1] * 1e3), b=b)
+    params16 = {k: (val.detach().to(torch.bfloat16) if not isinstance(val, dict) else
+                    {kk: vv.detach().to(torch.bfloat16) for kk, vv in val.items()})
+                for k, val in model.params.items()}
+    nones = acc.free_memory(pmodel, opt, dl, sched)
+    del model, pmodel, opt, dl, sched, loss, batch, prof, nones
+    gc_collect()
+    return out, params16
+
+
+def gc_collect():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase10c(params, smi):
+    """Gemma-2B in bf16 (the weights Phase 10b trained) served through
+    ``prepare_serving(paged_kernel=True)``: Phase 2's geometry and traffic
+    with ``spec_tokens`` 0 and 3, every request token-identical to greedy
+    ``generate`` or parting from it at a near tie."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import llama
+
+    cfg = gemma_2b_config(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    rng = np.random.default_rng(11)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in PHASE2_PROMPT_LENS]
+    max_new = 32
+    fresh_state()
+    acc = Accelerator()
+    out = {}
+    for spec in (0, 3):
+        engine = acc.prepare_serving(llama.apply_cached, llama.init_cache, params, cfg,
+                                     paged_kernel=True, spec_tokens=spec, **PHASE2_GEOMETRY)
+        engine.submit(list(rng.integers(0, cfg.vocab_size, size=40)), 4)  # warm-up
+        engine.run()
+        engine.pop_finished()
+        base = engine.decode_dispatches
+        base_s, base_tok = engine.decode_seconds, engine.decode_emitted_tokens
+        if spec:
+            prompts = [(p[:16] * 64)[:n] for p, n in zip(prompts, PHASE2_PROMPT_LENS)]
+        reset_counts()
+        done, wall, ids = serve(engine, prompts, max_new, stagger_ticks=3)
+        dec, win = read_counts()
+        dispatches = engine.decode_dispatches - base
+        check(len(done) == len(prompts), f"phase10c spec={spec}: {len(done)} completed")
+        per = cfg.num_layers * dispatches
+        if spec:
+            check(win == per and dec == 0, f"phase10c window kernel launched {win} times, "
+                  f"want {per}; decode kernel {dec}")
+        else:
+            check(dec == per and win == 0, f"phase10c decode kernel launched {dec} times, "
+                  f"want {per}; window kernel {win}")
+        labels = []
+        for rid, p in zip(ids, prompts):
+            c = done[rid]
+            check(c.status == "ok" and c.new_tokens == max_new, f"phase10c request {rid}: "
+                  f"{c.status} with {c.new_tokens} tokens")
+            ref = llama.generate(params, torch.tensor([p], device="cuda"), cfg,
+                                 max_new_tokens=max_new)[0].tolist()
+            labels.append(check_greedy(params, cfg, f"phase10c spec={spec} request {rid}", ref,
+                                       c.tokens, len(p)))
+        gaps = [x for c in done.values() for x in c.inter_token_ms]
+        ttft = median([c.ttft_ms for c in done.values()])
+        itl, itl_mean = median(gaps), sum(gaps) / len(gaps)
+        decode_tps = (engine.decode_emitted_tokens - base_tok) / (engine.decode_seconds - base_s)
+        st = engine.stats()
+        log(f"phase10c Gemma-2B bf16 serving spec_tokens={spec}: {len(done)} requests, "
+            f"decode_dispatches={dispatches} decode_launches={dec} window_launches={win} "
+            f"(head_dim {cfg.head_dim_}) wall_s={wall:.3f} ttft_p50_ms={ttft:.1f} "
+            f"itl_p50_ms={itl:.2f} itl_mean_ms={itl_mean:.2f} decode_tokens_per_s="
+            f"{decode_tps:.1f} acceptance={st['spec']['acceptance_rate']}; against greedy "
+            f"generate: {labels}; {smi}")
+        out[spec] = dict(dec=dec, win=win, ttft_p50_ms=ttft, itl_p50_ms=itl,
+                         itl_mean_ms=itl_mean, decode_tokens_per_s=decode_tps)
+        del engine
+        gc_collect()
+    return out
+
+
+def phase10(smi):
+    """10a the wide-head kernels, 10b Gemma-2B training, 10c its serving."""
+    gc_collect()
+    t0 = time.perf_counter()
+    flash, paged = phase10a(smi)
+    t1 = time.perf_counter()
+    train, params16 = phase10b(smi)
+    t2 = time.perf_counter()
+    serving = phase10c(params16, smi)
+    del params16
+    gc_collect()
+    log(f"phase10 seconds: 10a {t1 - t0:.1f}, 10b {t2 - t1:.1f}, 10c "
+        f"{time.perf_counter() - t2:.1f}")
+    counts = dict(train["counts"], paged_attention=serving[0]["dec"],
+                  paged_window_attention=serving[3]["win"])
+    return dict(flash=flash, paged=paged, train=train, serving=serving, counts=counts)
+
+
 def main() -> int:
     import torch
 
@@ -2560,7 +3056,15 @@ def main() -> int:
     p9 = phase9(smi)
     check(all(p9[n] > 0 for n in FLASH_KERNELS),
           f"phase 9 launched the flash kernels {p9} times")
-    log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS))
+    p10 = phase10(smi)
+    check(all(p10["counts"][n] > 0 for n in REPLACES),
+          f"phase 10 launched the kernels of its path {p10['counts']} times")
+    from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
+    from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
+
+    log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS)
+        + f"; head dims: paged {pa_dims}, flash {fu_dims} (flash 96 and 256, and fp32 at "
+        f"every head dim, on {FLASH_SOURCE})")
     launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"], **p5}
     check(win3 > 0, "window kernel not launched in phase 3")
     record = []
@@ -2569,7 +3073,11 @@ def main() -> int:
         serving = p1[(name, "torch.bfloat16", "serving")]
         record.append(dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
                            launches=launches[name], launches_phase7=p7[name],
-                           launches_phase8=p8[name], launches_phase9=p9[name], **r,
+                           launches_phase8=p8[name], launches_phase9=p9[name],
+                           launches_phase10=p10["counts"][name], head_dims=list(pa_dims),
+                           wide_heads={f"d{d}-{dt[6:]}": p10["paged"][(name, d, dt)]
+                                       for d, dt in ((d, str(t)) for d, t in PHASE10_PAGED)},
+                           **r,
                            previous_source=PAGED_PREVIOUS,
                            design=PAGED_DESIGN,
                            serving_shape={k: serving[k] for k in (
@@ -2589,11 +3097,15 @@ def main() -> int:
         if sm90:
             extra = dict(source=sm90[0], previous_source=FLASH_SOURCE, design=sm90[1],
                          dtypes={"bfloat16": sm90[0], "float16": sm90[0],
-                                 "float32": FLASH_SOURCE})
+                                 "float32": FLASH_SOURCE},
+                         wide_heads_source=FLASH_SOURCE)  # head dims 96 and 256, every dtype
         record.append(dict(dict(name=name, route="cuda", source=FLASH_SOURCE,
                                 replaces=REPLACES[name], launches=launches[name],
                                 launches_phase6=p6[name], launches_phase8=p8[name],
                                 launches_phase9=p9[name],
+                                launches_phase10=p10["counts"][name], head_dims=list(fu_dims),
+                                wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
+                                            for geom, dt in p10["flash"]},
                                 **p4["torch.bfloat16"][name]), **extra))
     for name in FLASH_KERNELS:
         r = p4["torch.float32"][name]

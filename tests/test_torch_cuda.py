@@ -91,6 +91,7 @@ def test_kernel_matches_plain(cuda, dtype, window):
 @pytest.mark.paged
 @pytest.mark.parametrize("d,dtype,window", [
     (64, torch.float32, 3), (256, torch.bfloat16, 2), (128, torch.float32, 40),
+    (96, torch.float16, 3), (256, torch.float32, 2), (96, torch.float32, 40),
 ])
 def test_kernel_other_head_dims_and_long_windows(cuda, d, dtype, window):
     args = _inputs(29, 2, 8, window, dtype, d=d, bs=8, lengths=(5, 0, 33, 70), m=16)
@@ -163,7 +164,7 @@ def paged_symbols(monkeypatch):
 
 
 _SM90_CASES = [(dtype, d) for dtype in (torch.float32, torch.bfloat16, torch.float16)
-               for d in (64, 128, 256) if not (dtype == torch.float32 and d == 256)]
+               for d in (64, 96, 128, 256)]
 
 
 @pytest.mark.paged
@@ -171,9 +172,9 @@ _SM90_CASES = [(dtype, d) for dtype in (torch.float32, torch.bfloat16, torch.flo
 @pytest.mark.parametrize("dtype,d", _SM90_CASES,
                          ids=[f"{str(t)[6:]}-hd{d}" for t, d in _SM90_CASES])
 def test_paged_sm90_matches_plain(cuda, paged_symbols, dtype, d, window):
-    """The split and merge kernels in every dtype and head dim, decode and
-    windows up to 40 (G*W = 160 rows: ten row groups), one wrapper launch
-    per call."""
+    """The split and merge kernels in every dtype and head dim (fp32 at 256
+    streams 32-position ring stages), decode and windows up to 40 (G*W =
+    160 rows: ten row groups), one wrapper launch per call."""
     args = _inputs(83, 2, 4, window, dtype, d=d, lengths=(0, 1, 15, 16, 17, 300, 1000), m=64)
     fn, plain = _fns(window)
     before = fn.launches
@@ -305,7 +306,7 @@ def _flash_check(seed, b, s, h, kh, d, dtype, causal, masked):
 @pytest.mark.parametrize("masked", [False, True], ids=["dense", "kv_valid"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("groups", [1, 4])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
                          ids=["fp32", "bf16", "fp16"])
 def test_flash_kernels_match_plain(cuda, dtype, d, groups, causal, masked):
@@ -617,16 +618,62 @@ def test_flash_wrapper_raises_instead_of_falling_back(cuda):
 
 def test_auto_attention_with_unsupported_head_dim_raises(cuda):
     """``attention_impl="auto"`` at S 1024 on the card takes the kernels
-    whatever the head dim, so a head dim they do not take raises instead of
-    running a plain path."""
-    cfg = llama.LlamaConfig.tiny(head_dim=256, num_layers=1, max_seq_len=1024,
+    whatever the head dim, so a head dim they do not take (80; they take
+    64, 96, 128 and 256) raises instead of running a plain path."""
+    cfg = llama.LlamaConfig.tiny(head_dim=80, num_layers=1, max_seq_len=1024,
                                  attention_impl="auto")
     params = llama.init_params(cfg, seed=0)
     ids = torch.from_numpy(np.random.default_rng(61).integers(0, cfg.vocab_size, (1, 1024)))
     before = fu.fused_attention_fwd.launches
-    with pytest.raises(ValueError, match="head_dim 256"):
+    with pytest.raises(ValueError, match="head_dim 80"):
         llama.apply(params, ids.cuda(), cfg)
     assert fu.fused_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_symbols, dtype):
+    """Gemma's head dim on the card: ``attention_impl="auto"`` at S 1024
+    runs the forward, dQ and dK/dV kernels of ``flash_attention.cu`` once
+    per layer each, and the loss and gradients match the same step on
+    their plain versions."""
+    cfg = llama.LlamaConfig.tiny(head_dim=256, num_layers=2, max_seq_len=1024, dtype=dtype,
+                                 num_heads=4, num_kv_heads=1, attention_impl="auto")
+    model = llama.LlamaForCausalLM(cfg, seed=0)
+    ids = torch.from_numpy(np.random.default_rng(61).integers(0, cfg.vocab_size, (1, 1024)))
+    batch = {"input_ids": ids.cuda()}
+    before = (fu.fused_attention_fwd.launches, fu.fused_attention_bwd_dq.launches,
+              fu.fused_attention_bwd_dkv.launches)
+    loss = llama.loss_fn(model.params, batch, cfg)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    after = (fu.fused_attention_fwd.launches, fu.fused_attention_bwd_dq.launches,
+             fu.fused_attention_bwd_dkv.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2)
+    assert sorted(set(fwd_symbols)) == ["atpu_flash_bwd_dkv", "atpu_flash_bwd_dq",
+                                        "atpu_flash_fwd"]
+    fwd, bwd = fu.fused_attention_fwd, fu.fused_attention_bwd
+    fu.fused_attention_fwd, fu.fused_attention_bwd = (fu.fused_attention_fwd_plain,
+                                                      fu.fused_attention_bwd_plain)
+    try:
+        want = llama.loss_fn(model.params, batch, cfg)
+        want_grads = torch.autograd.grad(want, list(model.parameters()))
+    finally:
+        fu.fused_attention_fwd, fu.fused_attention_bwd = fwd, bwd
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert abs(loss.item() - want.item()) <= tol * abs(want.item())
+    for g, w in zip(grads, want_grads):
+        assert ((g - w).abs().max() / w.abs().max()).item() <= tol
+
+
+@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("s", [200, 1024])
+def test_flash_wide_heads_ragged_and_long(cuda, fwd_symbols, s, dtype, d):
+    """Head dims 96 and 256 on the body of ``flash_attention.cu`` in every
+    dtype (the sm90 kernels are not called), S off the 64-row tiles and
+    long, with a left-padded and an all-invalid batch."""
+    _flash_check(131, 2, s, 8, 2, d, dtype, True, True)
+    assert set(fwd_symbols) == {"atpu_flash_fwd", "atpu_flash_bwd_dq", "atpu_flash_bwd_dkv"}
 
 
 # -- the training loop's data pipeline and checkpoints on the card -----------

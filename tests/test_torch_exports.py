@@ -46,6 +46,11 @@ THIS_SLICE = {
     ".utils.operations": ["verify_operation"],
     ".utils.other": ["extract_model_from_parallel", "save"],
 }
+HF_IO = {  # the llama family's HF import and export
+    ".models.hf_import": ["config_from_hf", "import_state_dict", "from_hf",
+                          "load_hf_checkpoint"],
+    ".models.hf_export": ["export_state_dict", "export_hf_checkpoint"],
+}
 
 
 def _cases(table):
@@ -73,6 +78,13 @@ def test_names_of_this_slice_import_at_jax_paths(path, name):
     jax_obj, port_obj = _pair(path, name)
     assert isinstance(port_obj, type) == isinstance(jax_obj, type) and callable(port_obj)
     assert port_obj.__module__.startswith("accelerate_tpu_torch")
+
+
+@pytest.mark.parametrize("path,name", _cases(HF_IO), ids=lambda v: v)
+def test_hf_import_and_export_names_import_at_jax_paths(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert callable(jax_obj) and callable(port_obj)
+    assert port_obj.__module__ == "accelerate_tpu_torch" + path
 
 
 def test_the_examples_imports_resolve():

@@ -286,3 +286,67 @@ def test_block_override_env(monkeypatch):
     monkeypatch.setenv("ACCELERATE_ATTN_BLOCK", "-2")
     with pytest.raises(ValueError, match="positive"):
         tfa.pick_block(2048)
+
+
+@pytest.mark.parametrize("h,kv_heads", [(4, 1), (2, 2)], ids=["gqa4", "mha2"])
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "padded"])
+@pytest.mark.parametrize("d", [96, 256])
+def test_plain_versions_match_pallas_at_wide_heads(d, masked, h, kv_heads):
+    """Head dims 96 (Phi-3-mini) and 256 (Gemma), which the CUDA body of
+    ``flash_attention.cu`` takes since the port widened it: the plain
+    forward (``out``, ``lse``) against ``_flash_fwd`` and the plain backward
+    against the gradients of ``pallas_attention``, both in interpret mode,
+    causal at S 128 with batch 0 left-padded by 40 keys when ``masked``.
+    The scale is 1/sqrt(d) on both sides (1/16 at d 256)."""
+    b, s = 2, 128
+    rng = np.random.default_rng(11)
+    q, do = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, s, kv_heads, d)).astype(np.float32) for _ in range(2))
+    valid = None
+    if masked:
+        valid = np.ones((b, s), np.int8)
+        valid[0, :40] = 0
+    jvalid = None if valid is None else jnp.asarray(valid)
+    tr = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    want_out, want_lse = jpa._flash_fwd(tr(q), tr(k), tr(v), scale=float(1.0 / np.sqrt(d)),
+                                        causal=True, blk_q=BLK, blk_k=BLK, interpret=True,
+                                        kv_valid=jvalid)
+
+    def f(q, k, v):
+        return jpa.pallas_attention(q, k, v, causal=True, block_size=BLK, interpret=True,
+                                    kv_valid=jvalid)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want_grads = vjp(jnp.asarray(do))
+    tvalid = None if valid is None else torch.from_numpy(valid)
+    out, lse = tfu.fused_attention_fwd(_t(q), _t(k), _t(v), tvalid, causal=True,
+                                       block_size=BLK)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out).transpose(0, 2, 1, 3),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=2e-5, rtol=2e-5)
+    grads = tfu.fused_attention_bwd(_t(q), _t(k), _t(v), out, lse, _t(do), tvalid, causal=True,
+                                    block_size=BLK)
+    for got, ref, name in zip(grads, want_grads, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-5, rtol=5e-5,
+                                   err_msg=name)
+    if masked:
+        assert np.all(out.numpy()[0, :40] == 0) and np.all(grads[1].numpy()[0, :40] == 0)
+
+
+def test_wrappers_take_the_kernels_head_dims_only():
+    """The head dims the kernels take are 64, 96, 128 and 256: the wrapper's
+    check passes them (on a CPU tensor it needs no card) and raises for
+    another, and the routing sends 96 and 256 to the body of
+    ``flash_attention.cu`` in every dtype."""
+    assert tfu._HEAD_DIMS == (64, 96, 128, 256)
+    for d in (96, 256):
+        x = torch.zeros(1, 64, 2, d)
+        tfu._check(x, x, x, None)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            assert tfu._symbol("atpu_flash_fwd", x.to(dtype)) == "atpu_flash_fwd"
+    assert tfu._symbol("atpu_flash_bwd_dq", torch.zeros(1, 64, 2, 128,
+                                                        dtype=torch.bfloat16)) == \
+        "atpu_flash_bwd_dq_sm90"
+    x = torch.zeros(1, 64, 2, 80)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        tfu._check(x, x, x, None)

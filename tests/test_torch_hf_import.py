@@ -1,0 +1,193 @@
+"""The port's HF import and export for the llama family
+(``accelerate_tpu_torch/models/hf_import.py`` / ``hf_export.py``) against
+the JAX package's and against transformers itself.
+
+For llama, qwen2, mistral, gemma and phi3, a tiny transformers model is
+built in code from a torch seed; then:
+
+- the port's ``from_hf`` gives the params JAX's ``from_hf`` gives, exactly
+  (both copy the same fp32 tensors; transposes and splits move no bits);
+- the port's fp32 logits match the transformers forward and JAX's
+  ``llama.apply`` within 1e-5 (the three sum in other orders);
+- ``export_hf_checkpoint`` writes a directory ``from_pretrained`` loads,
+  whose logits match the original model's within 1e-5, and importing it
+  again (``load_hf_checkpoint``) gives the params bit for bit.
+
+``config_from_hf``'s refusals raise what JAX's raise, with the same
+message.  No network: every config is written here.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from accelerate_tpu.models import hf_import as jhf
+from accelerate_tpu.models import llama as jl
+from accelerate_tpu_torch.models import hf_export, hf_import
+from accelerate_tpu_torch.models import llama as tl
+
+transformers = pytest.importorskip("transformers")
+
+SMALL = dict(vocab_size=96, hidden_size=48, intermediate_size=96, num_hidden_layers=2,
+             num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64)
+
+
+def _hf_model(family, seed):
+    if family == "llama":
+        cfg = transformers.LlamaConfig(**SMALL, rms_norm_eps=1e-6, tie_word_embeddings=False)
+        cls = transformers.LlamaForCausalLM
+    elif family == "qwen2":
+        cfg = transformers.Qwen2Config(**SMALL, use_sliding_window=False,
+                                       tie_word_embeddings=False)
+        cls = transformers.Qwen2ForCausalLM
+    elif family == "mistral":
+        cfg = transformers.MistralConfig(**SMALL, sliding_window=None)
+        cls = transformers.MistralForCausalLM
+    elif family == "gemma":
+        # head_dim 32 against hidden 48 / 4 heads: Gemma's head dim is its own.
+        cfg = transformers.GemmaConfig(**SMALL, head_dim=32, rms_norm_eps=1e-6)
+        cls = transformers.GemmaForCausalLM
+    else:
+        cfg = transformers.Phi3Config(**SMALL, pad_token_id=0, sliding_window=None)
+        cls = transformers.Phi3ForCausalLM
+    torch.manual_seed(seed)
+    model = cls(cfg).eval()
+    if family == "gemma":  # nonzero (1 + w) norm offsets, so the norms' weights count
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if "norm" in name:
+                    p.normal_(0.0, 0.1)
+    return model
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _ids(vocab, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (2, 10)).astype(np.int64)
+
+
+FAMILIES = ["llama", "qwen2", "mistral", "gemma", "phi3"]
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_import_matches_jax_and_transformers(family):
+    hf = _hf_model(family, seed=FAMILIES.index(family))
+    got_family, cfg, params = hf_import.from_hf(hf, device="cpu", dtype=torch.float32)
+    jfamily, jcfg, jparams = jhf.from_hf(hf, dtype=jnp.float32, param_dtype=jnp.float32)
+    assert got_family == jfamily == "llama"
+    for field in ("hidden_size", "num_heads", "num_kv_heads", "head_dim_", "hidden_act",
+                  "rms_offset", "embed_scale", "tie_embeddings", "attention_bias", "rms_eps",
+                  "rope_theta", "rope_scaling", "max_seq_len"):
+        assert getattr(cfg, field) == getattr(jcfg, field), field
+    got, want = _flat(params), _flat(jparams)
+    assert sorted(got) == sorted(want)
+    for name, t in got.items():
+        assert t.dtype == torch.float32 and t.is_contiguous(), name
+        np.testing.assert_array_equal(t.numpy(), np.asarray(want[name]), err_msg=name)
+    ids = _ids(cfg.vocab_size)
+    logits = tl.apply(params, torch.from_numpy(ids), cfg).numpy()
+    with torch.no_grad():
+        ref = hf(torch.from_numpy(ids)).logits.numpy()
+    jlogits = np.asarray(jl.apply(jparams, jnp.asarray(ids, jnp.int32), jcfg))
+    np.testing.assert_allclose(logits, ref, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(logits, jlogits, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_export_loads_in_transformers_and_round_trips(family, tmp_path):
+    hf = _hf_model(family, seed=10 + FAMILIES.index(family))
+    _, cfg, params = hf_import.from_hf(hf, device="cpu", dtype=torch.float32)
+    sd = hf_export.export_state_dict("llama", params, cfg)
+    again = hf_import.import_state_dict("llama", sd, cfg)
+    for name, t in _flat(params).items():
+        assert torch.equal(_flat(again)[name], t), name
+    out = hf_export.export_hf_checkpoint("llama", params, cfg, str(tmp_path / family))
+    loaded = transformers.AutoModelForCausalLM.from_pretrained(out).eval()
+    assert type(loaded).__name__ == ("GemmaForCausalLM" if family == "gemma"
+                                     else "LlamaForCausalLM")
+    ids = torch.from_numpy(_ids(cfg.vocab_size, seed=1))
+    with torch.no_grad():
+        np.testing.assert_allclose(loaded(ids).logits.numpy(), hf(ids).logits.numpy(),
+                                   atol=1e-5, rtol=1e-5)
+    fam, cfg2, params2 = hf_import.load_hf_checkpoint(out, device="cpu", dtype=torch.float32)
+    # config.json names the head dim even where the HF config left it implied.
+    assert fam == "llama" and cfg2.head_dim_ == cfg.head_dim_
+    assert dataclasses.replace(cfg2, head_dim=None) == dataclasses.replace(cfg, head_dim=None)
+    for name, t in _flat(params).items():
+        assert torch.equal(_flat(params2)[name], t), name
+
+
+def _refusals():
+    kw = dict(vocab_size=64, hidden_size=32, intermediate_size=48, num_hidden_layers=1,
+              num_attention_heads=4, num_key_value_heads=2)
+    return {
+        "mistral-window": lambda: transformers.MistralConfig(**kw, sliding_window=8),
+        "qwen2-window": lambda: transformers.Qwen2Config(**kw, use_sliding_window=True),
+        "phi3-window": lambda: transformers.Phi3Config(**kw, pad_token_id=0,
+                                                       sliding_window=2047),
+        "phi3-partial-rotary": lambda: transformers.Phi3Config(
+            **kw, pad_token_id=0, sliding_window=None, partial_rotary_factor=0.5),
+        "yarn": lambda: transformers.LlamaConfig(
+            **kw, rope_scaling={"rope_type": "yarn", "factor": 4.0}),
+        "llama-gelu": lambda: transformers.LlamaConfig(**kw, hidden_act="gelu"),
+        "gemma-erf-gelu": lambda: transformers.GemmaConfig(**kw, hidden_activation="gelu"),
+        "unknown-type": lambda: type("Cfg", (), {"model_type": "falcon"})(),
+    }
+
+
+@pytest.mark.parametrize("case", list(_refusals()))
+def test_config_refusals_match_jax(case):
+    hf_cfg = _refusals()[case]()
+    with pytest.raises(ValueError) as want:
+        jhf.config_from_hf(hf_cfg)
+    with pytest.raises(ValueError) as got:
+        hf_import.config_from_hf(hf_cfg)
+    if case == "unknown-type":  # the port lists the families it knows of
+        assert "Unsupported HF model_type 'falcon'" in str(got.value)
+    else:
+        assert str(got.value) == str(want.value)
+
+
+def test_config_from_hf_reads_any_object_with_the_attributes():
+    """No transformers needed: Gemma-2B's published ``config.json`` values
+    (google/gemma-2b) in a plain namespace."""
+    from types import SimpleNamespace
+
+    cfg = hf_import.config_from_hf(SimpleNamespace(
+        model_type="gemma", vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+        num_hidden_layers=18, num_attention_heads=8, num_key_value_heads=1, head_dim=256,
+        max_position_embeddings=8192, rms_norm_eps=1e-6, rope_theta=10000.0,
+        hidden_act="gelu_pytorch_tanh", hidden_activation=None, attention_bias=False,
+        tie_word_embeddings=True))
+    assert (cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads, cfg.hidden_act, cfg.rms_offset,
+            cfg.embed_scale, cfg.tie_embeddings) == (256, 8, 1, "gelu_tanh", True, True, True)
+    assert cfg.num_params() == 2_506_172_416
+
+
+def test_strict_import_refuses_unmapped_tensors_and_other_families():
+    hf = _hf_model("llama", seed=20)
+    sd = dict(hf.state_dict())
+    sd["model.layers.0.self_attn.extra.weight"] = torch.zeros(3)
+    cfg = hf_import.config_from_hf(hf.config)
+    with pytest.raises(ValueError, match="unmapped"):
+        hf_import.import_state_dict("llama", dict(sd), cfg)
+    params = hf_import.import_state_dict("llama", dict(sd), cfg, strict=False)
+    assert params["layers"]["wq"].shape == (2, 48, 48)
+    for family, item in (("gpt2", "A2"), ("mixtral", "A3"), ("bert", "A3")):
+        with pytest.raises(NotImplementedError, match=item):
+            hf_import.import_state_dict(family, {}, cfg)
+        with pytest.raises(NotImplementedError, match=item):
+            hf_export.export_state_dict(family, params, cfg)
+    with pytest.raises(NotImplementedError, match="A2"):
+        hf_import.config_from_hf(transformers.GPT2Config(n_layer=1))

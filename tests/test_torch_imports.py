@@ -71,6 +71,8 @@ def test_source_names_no_jax_import(path):
     "accelerate_tpu_torch.state",
     "accelerate_tpu_torch.utils.other",
     "accelerate_tpu_torch.utils.modeling",
+    "accelerate_tpu_torch.models.hf_import",
+    "accelerate_tpu_torch.models.hf_export",
 ])
 def test_robustness_modules_are_checked(name):
     """The serving robustness layer's modules and the generation and tracing

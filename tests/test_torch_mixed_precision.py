@@ -214,3 +214,100 @@ def test_trace_dir_env_and_profile_handler(tmp_path, monkeypatch):
     with acc.profile():
         pmodel(torch.ones(2, 4))
     assert os.listdir(tmp_path / "profile_0")
+
+
+class _CastBeforeForward(tl.LlamaForCausalLM):
+    """llama without the cast-at-use protocol: the bf16 policy's
+    ``PreparedModel`` casts every parameter before the forward, as it does
+    for any other module."""
+
+    _forward_cast_at_use = None
+
+
+def _policy_step(cls, cfg, params, ids):
+    AcceleratorState._reset_state(reset_partial_state=True)
+    acc = Accelerator(cpu=True, mixed_precision="bf16")
+    model = cls(cfg, params={k: (dict(v) if k == "layers" else v) for k, v in params.items()},
+                device="cpu")
+    pmodel = acc.prepare(model)
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss = pmodel(input_ids=ids)["loss"]
+    acc.backward(loss)
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()}, saved, model
+
+
+_GEMMA_LIKE = dict(hidden_act="gelu_tanh", rms_offset=True, embed_scale=True,
+                   tie_embeddings=True, head_dim=32)
+
+
+@pytest.mark.parametrize("gemma", [False, True], ids=["llama", "gemma"])
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_llama_casts_at_use_bit_identical_to_casting_before_forward(policy, gemma):
+    """Under ``"bf16"`` llama casts each layer's weights inside its
+    checkpointed layer (``_forward_cast_at_use``); the loss and every
+    gradient, the embedding's included, equal the cast-before-forward path
+    bit for bit (gemma's (1 + w) norms read the bf16-rounded w either way)."""
+    cfg = tl.LlamaConfig.tiny(dtype=torch.bfloat16, num_layers=2, remat=True,
+                              remat_policy=policy, **(_GEMMA_LIKE if gemma else {}))
+    params = tl.init_params(cfg, seed=0, device="cpu")
+    if gemma:  # nonzero (1 + w) offsets, so the norms' weights are read
+        for k in ("ln_attn", "ln_mlp"):
+            params["layers"][k] = torch.randn(params["layers"][k].shape,
+                                              generator=torch.Generator().manual_seed(2)) * 0.1
+    ids = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(1))
+    loss, grads, _, _ = _policy_step(tl.LlamaForCausalLM, cfg, params, ids)
+    want_loss, want_grads, _, _ = _policy_step(_CastBeforeForward, cfg, params, ids)
+    assert torch.equal(loss, want_loss)
+    assert list(grads) == list(want_grads)
+    for name, g in grads.items():
+        assert g.dtype == torch.float32 and torch.equal(g, want_grads[name]), name
+
+
+def test_no_saved_tensor_aliases_a_stacked_16bit_layer_weight():
+    """What autograd saves in a ``"bf16"`` forward under ``remat=True``: a
+    checkpointed layer saves its inputs, and with the cast at use those
+    are views of the fp32 layer parameters; no saved tensor is a view of a
+    stacked [L, ...] 16-bit copy, which the cast-before-forward path holds
+    for every layer until the backward."""
+    cfg = tl.LlamaConfig.tiny(dtype=torch.bfloat16, num_layers=3, remat=True)
+    params = tl.init_params(cfg, seed=0, device="cpu")
+    ids = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(1))
+    stacked = {tuple(v.shape) for v in params["layers"].values()}
+
+    def stacked_16bit(saved):
+        return [t for t in saved if t._base is not None and t._base.dtype == torch.bfloat16
+                and tuple(t._base.shape) in stacked]
+
+    _, _, saved, model = _policy_step(tl.LlamaForCausalLM, cfg, params, ids)
+    assert stacked_16bit(saved) == []
+    layer_params = {p.data_ptr() for p in model.layers.values()}
+    assert sum(t._base is not None and t._base.data_ptr() in layer_params for t in saved) == \
+        cfg.num_layers * len(params["layers"])
+    _, _, saved, _ = _policy_step(_CastBeforeForward, cfg, params, ids)
+    assert len(stacked_16bit(saved)) == cfg.num_layers * len(params["layers"])
+
+
+def test_cached_forward_casts_at_use_to_the_same_logits():
+    """``forward(input_ids, cache)`` (the serving forward) through the bf16
+    policy: llama casts every weight at use there too, to the logits and
+    cache of the cast-before-forward path, bit for bit."""
+    cfg = tl.LlamaConfig.tiny(dtype=torch.bfloat16, num_layers=2)
+    params = tl.init_params(cfg, seed=0, device="cpu")
+    ids = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(4))
+    out = []
+    for cls in (tl.LlamaForCausalLM, _CastBeforeForward):
+        AcceleratorState._reset_state(reset_partial_state=True)
+        pmodel = Accelerator(cpu=True, mixed_precision="bf16").prepare(
+            cls(cfg, params={k: (dict(v) if k == "layers" else v) for k, v in params.items()},
+                device="cpu"))
+        with torch.no_grad():
+            out.append(pmodel(ids, tl.init_cache(cfg, 2, 16, device="cpu")))
+    (logits, cache), (want_logits, want_cache) = out
+    assert torch.equal(logits, want_logits)
+    assert all(torch.equal(cache[k], want_cache[k]) for k in ("k", "v"))

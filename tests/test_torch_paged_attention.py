@@ -252,3 +252,44 @@ def test_pick_split_tokens_uses_whole_blocks_within_the_table():
     # Many full slots: splits grow until at most 64 CTAs per SM remain.
     c = pa.pick_split_tokens(64, 8, 4096, 16, 132)
     assert c % 16 == 0 and 64 * 8 * -(-4096 * 16 // c) <= 64 * 132
+
+
+@pytest.mark.parametrize("window", [None, 3], ids=["decode", "w3"])
+@pytest.mark.parametrize("d,dtype", [(96, "fp32"), (96, "bf16"), (256, "fp32")])
+def test_wide_heads_match_pallas_kernel(d, dtype, window):
+    """Head dims the paged kernels took in this port's widening: 96 in every
+    dtype and 256 in fp32, the plain versions against the Pallas kernels in
+    interpret mode (fp32 at 2e-5; bf16 at 1e-2, the gap of P rounded to bf16
+    before P.V in Pallas and kept in fp32 here)."""
+    args = _inputs(7, 2, 2, window, d=d, bs=4, lengths=(30, 0, 61, 17), m=16)
+    if dtype == "bf16":
+        floats = ("q", "k_new", "v_new", "pool_k", "pool_v")
+        jargs = {k: jnp.asarray(v, jnp.bfloat16 if k in floats else None)
+                 for k, v in args.items()}
+        targs = {k: torch.from_numpy(v).to(torch.bfloat16) if k in floats
+                 else torch.from_numpy(v) for k, v in args.items()}
+        tol = BF16_TOL
+    else:
+        jargs, targs, tol = _jax(args), _torch(args), TOL
+    if window is None:
+        want = pallas_paged_attention(**jargs, interpret=True)
+        got = pa.paged_attention(**targs)
+    else:
+        want = pallas_paged_window_attention(**jargs, interpret=True)
+        got = pa.paged_window_attention(**targs)
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+    split = pa.paged_window_attention_split_plain(
+        *(targs[k] if window else targs[k][:, None] for k in ("q", "k_new", "v_new")),
+        targs["pool_k"], targs["pool_v"], targs["tables"], targs["lengths"], split_tokens=16)
+    np.testing.assert_allclose(split.float().numpy().reshape(want.shape),
+                               np.asarray(want, np.float32), **tol)
+
+
+def test_merge_window_limit_follows_shared_memory():
+    """fp32 at head dim 256 stages 1 KB a k_new row in the merge kernel, so
+    its window stops short of the 256 the other widths take; the wrapper's
+    check says so instead of the kernel refusing the launch."""
+    assert pa._merge_smem(256, 128, 4) <= pa._MERGE_SMEM
+    assert pa._merge_smem(256, 256, 2) <= pa._MERGE_SMEM
+    assert pa._merge_smem(160, 256, 4) <= pa._MERGE_SMEM < pa._merge_smem(200, 256, 4)

@@ -149,6 +149,31 @@ def test_trajectory_matches_jax_and_eager_equals_fused(accum, clip):
     assert fused_opt._step_count == eager_opt._step_count == STEPS
 
 
+def test_gemma_shaped_trajectory_matches_jax():
+    """A tiny Gemma-shaped llama: head dim 256 against hidden 64 / 2 heads
+    (MQA, one kv head), GeGLU, (1 + w) norms, sqrt(d) embeddings and a tied
+    head.  The port trains through ``attention_impl="pallas"``, the fused
+    op whose plain versions (what it runs on CPU tensors) stand in for the
+    d-256 kernels; JAX through its own path.  3 AdamW steps through
+    ``make_train_step``, losses within rtol 2e-5."""
+    gemma = dict(num_layers=2, num_heads=2, num_kv_heads=1, head_dim=256,
+                 hidden_act="gelu_tanh", rms_offset=True, embed_scale=True,
+                 tie_embeddings=True)
+    jcfg = jl.LlamaConfig.tiny(dtype=jnp.float32, **gemma)
+    tcfg = tl.LlamaConfig.tiny(dtype=torch.float32, attention_impl="pallas", **gemma)
+    params = jax.tree.map(np.asarray, jl.init_params(jcfg, jax.random.key(3)))
+    rng = np.random.default_rng(5)  # nonzero (1 + w) offsets, so the norms count
+    for k in ("ln_attn", "ln_mlp"):
+        params["layers"][k] = rng.standard_normal(params["layers"][k].shape).astype(
+            np.float32) * 0.1
+    assert "lm_head" not in params and params["layers"]["wq"].shape == (2, 64, 512)
+    windows = _windows(jcfg.vocab_size, 1)
+    want = _jax_run(jcfg, params, windows, 1, None)
+    got, _, _ = _port_fused(tcfg, params, windows, 1, None)
+    np.testing.assert_allclose(got, want, rtol=2e-5)
+    assert want[-1] < want[0]
+
+
 @pytest.mark.parametrize("clip_norm,clip_value", [
     (-1.0, -1.0), (0.5, -1.0), (-1.0, 0.01), (0.5, 0.01), (0.0, -1.0), (float("inf"), 0.02),
 ])
