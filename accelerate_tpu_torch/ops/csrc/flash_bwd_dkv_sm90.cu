@@ -7,14 +7,14 @@
 // launched by _flash_bwd at :361) with the GQA group sum of :388 folded in,
 // under the contract of atpu_flash_bwd_dkv:
 //   q, do [B, S, H, d]; k, v, dk, dv [B, S, KH, d]; lse, delta [B, H, S]
-//   fp32; valid [B, S] int8 or null; d 64 or 128; bf16 or fp16.  For each key
-//   j of kv head kh, summed over its G query heads and every admitted query
-//   i (key < S, causal i >= j, valid[j] != 0): p_ij = exp(s_ij - lse_i) with
-//   s_ij = (q_i . k_j) * scale in fp32, dV_j = sum_i p_ij dO_i with p kept in
-//   fp32 (dO is fp32 in the TPU kernel), dS_ij = p_ij (dP_ij - delta_i) scale
-//   with dP_ij = dO_i . v_j, cast to q's dtype, dK_j = sum_i dS_ij q_i.  Key
-//   rows with valid == 0 get exactly 0; rows >= S are neither read as live nor
-//   written.
+//   fp32; valid [B, S] int8 or null; d 64, 128 or 256; bf16 or fp16.  For
+//   each key j of kv head kh, summed over its G query heads and every
+//   admitted query i (key < S, causal i >= j, valid[j] != 0): p_ij =
+//   exp(s_ij - lse_i) with s_ij = (q_i . k_j) * scale in fp32, dV_j = sum_i
+//   p_ij dO_i with p kept in fp32 (dO is fp32 in the TPU kernel), dS_ij =
+//   p_ij (dP_ij - delta_i) scale with dP_ij = dO_i . v_j, cast to q's dtype,
+//   dK_j = sum_i dS_ij q_i.  Key rows with valid == 0 get exactly 0; rows >=
+//   S are neither read as live nor written.
 //
 // Bound on this card.  At the training shape (B 2, S 2048, causal, 32 q over
 // 8 kv heads, d 128) the four products are 137.5 GFLOP on ~70 MB: far above
@@ -70,6 +70,32 @@
 // of packed P hi, P lo and dS; S^T and dP^T die as they are packed.  ptxas's
 // report (-Xptxas -v, kept beside the library) shows no spills.
 //
+// Head dim 256 (flash_bwd_dkv_sm90_d256_kernel).  The design above does not
+// instantiate there: d/2 = 128 fp32 each of dK and dV a thread is 256
+// registers, over setmaxnreg's 240, and K + V 128 KB plus 3 stages of 64 KB
+// of Q/dO is 320 KB, over 227.  So:
+//   - CTA = 64 keys; the two consumer warpgroups split dK/dV's columns, 128
+//     each, and each recomputes the same 64 x 64 S^T = K.Q^T and dP^T =
+//     V.dO^T over the full d (wgmma m64n64k16, 16 k16 steps).  A thread then
+//     holds what it holds at d 128: 64 + 64 accumulators, 32 + 32 of S^T and
+//     dP^T, 16 each of packed P hi, P lo and dS.  The products are 1.5x the
+//     minimum (1.75x with the lo half); chip_smoke.py's bound counts the
+//     minimum;
+//   - dV += P^T.dO[:, c] and dK += dS^T.Q[:, c] are m64n128k16 over the
+//     warpgroup's two 64-column blocks of the tile (c = 128 wg ..);
+//   - shared memory: K + V 64 KB, 2 stages x (Q 32 KB + dO 32 KB), lse and
+//     delta: 193 KB;
+//   - filling the card: Gemma-2B's one kv head gives B x KH x S/64 = 64 CTAs
+//     for 132 SMs, so the G query heads of a kv head are split over n_split
+//     CTAs (chosen on the host from shapes, fused_attention.pick_dkv_split).
+//     With n_split > 1 each CTA writes fp32 partials [n_split, B, S, KH, d]
+//     into a workspace the wrapper allocates, and flash_bwd_dkv_sum_kernel
+//     adds them in split order and casts to k's dtype: per-query-head fp32
+//     results summed outside, as the reference does (pallas_attention.py:
+//     388), and deterministic.  With n_split = 1 the CTA writes dK/dV in
+//     k's dtype as the d-128 kernel does (staged in K and V after a barrier
+//     of both warpgroups, which both read all of K and V).
+//
 // Traps, and how each is handled:
 //   - Q and dO are B operands twice: K-major for S^T and dP^T (stepping 32
 //     bytes per k16 inside a 64-column block and 8 KB across blocks) and
@@ -94,6 +120,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -542,7 +570,302 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// launcher
+// head dim 256: 64-key CTAs, dK/dV columns split over the two warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int kWD = 256;
+constexpr int kWBK = 64;  // keys per CTA
+constexpr int kWStages = 2;
+constexpr uint32_t kWKBlock = kWBK * 128;  // one 64-column block of a K or V tile, bytes
+
+struct WidePlan {
+  static constexpr uint32_t kv_tile = (kWD / 64) * kWKBlock;  // K or V
+  static constexpr uint32_t q_tile = (kWD / 64) * kQBlock;    // Q or dO of one stage
+  static constexpr uint32_t off_v = kv_tile;
+  static constexpr uint32_t off_q = 2 * kv_tile;
+  static constexpr uint32_t off_do = off_q + kWStages * q_tile;
+  static constexpr uint32_t off_lse = off_do + kWStages * q_tile;  // kBQ floats per stage
+  static constexpr uint32_t off_delta = off_lse + kWStages * kBQ * 4;
+  static constexpr uint32_t off_bar = off_delta + kWStages * kBQ * 4;  // full[], empty[], kv
+  static constexpr uint32_t bytes = off_bar + (2 * kWStages + 1) * 8;
+  static constexpr size_t smem = bytes + 1024;
+  static_assert(smem <= kSmemMax, "d-256 dK/dV tiles exceed shared memory");
+};
+
+// kPartial: write fp32 partials of this CTA's query heads into part (dK at
+// [split, B, S, KH, d], dV n_split * B * S * KH * d floats after it), else dK
+// and dV in T.
+template <typename T, bool kPartial>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_sm90_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               const int8_t* __restrict__ valid, T* __restrict__ dk,
+                               T* __restrict__ dv, float* __restrict__ part, int S, int H,
+                               int KH, int n_split, int causal, float scale, float scale_log2) {
+  using P = WidePlan;
+  constexpr int D = kWD;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~static_cast<uintptr_t>(1023));
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t full = sbase + P::off_bar;
+  const uint32_t empty = full + 8 * kWStages;
+  const uint32_t kvbar = empty + 8 * kWStages;
+
+  const int sp = blockIdx.x % n_split, bkh = blockIdx.x / n_split;
+  const int b = bkh / KH, kh = bkh % KH, gs = H / KH / n_split;  // query heads of this split
+  const int k0 = blockIdx.y * kWBK;  // the lowest key tiles, the heaviest when causal, first
+  const int8_t* vld = valid ? valid + static_cast<long long>(b) * S : nullptr;
+  const long long out_row0 = static_cast<long long>(b) * S;
+  const long long part_n = static_cast<long long>(gridDim.x / n_split / KH) * S * KH * D;
+  float* part_dk = kPartial ? part + sp * part_n : nullptr;
+  float* part_dv = kPartial ? part + (n_split + sp) * part_n : nullptr;
+
+  // A CTA with no valid key writes zeros and loads nothing.
+  if (vld != nullptr) {
+    const int key = k0 + static_cast<int>(threadIdx.x);
+    const int live = threadIdx.x < kWBK && key < S && vld[key] != 0;
+    if (!__syncthreads_or(live)) {
+      for (int c = threadIdx.x; c < kWBK * D / 8; c += kThreads) {
+        const int kr = k0 + c / (D / 8);
+        if (kr >= S) continue;
+        const long long at = ((out_row0 + kr) * KH + kh) * D + (c % (D / 8)) * 8;
+        if constexpr (kPartial) {
+          const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<float4*>(part_dk + at) = zero;
+          *reinterpret_cast<float4*>(part_dk + at + 4) = zero;
+          *reinterpret_cast<float4*>(part_dv + at) = zero;
+          *reinterpret_cast<float4*>(part_dv + at + 4) = zero;
+        } else {
+          const uint4 zero = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(dk + at) = zero;
+          *reinterpret_cast<uint4*>(dv + at) = zero;
+        }
+      }
+      return;
+    }
+  }
+
+  const int qt_first = causal ? k0 / kBQ : 0;
+  const int nqt = (S + kBQ - 1) / kBQ - qt_first;
+  const int total = gs * nqt;  // (query head, q tile) steps, head-major
+  const int h0 = kh * (H / KH) + sp * gs;  // this split's first query head
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 32 * kConsumerWarps) {
+    // ----- producer warpgroup: its first warp loads, the others leave -----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x >= 32 * kConsumerWarps + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_arrive_tx(kvbar, 2 * P::kv_tile);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sbase + c * kWKBlock, &tm_k, 64 * c, kh, k0, b, kvbar);
+        tma_load(sbase + P::off_v + c * kWKBlock, &tm_v, 64 * c, kh, k0, b, kvbar);
+      }
+    }
+    for (int it = 0; it < total; ++it) {
+      const int s = it % kWStages;
+      mbar_wait(empty + 8 * s, ((it / kWStages) & 1) ^ 1);
+      const int hh = h0 + it / nqt, q0 = (qt_first + it % nqt) * kBQ;
+      const long long at = (static_cast<long long>(b) * H + hh) * S;
+      float* lse_s = reinterpret_cast<float*>(smem + P::off_lse + s * kBQ * 4);
+      float* delta_s = reinterpret_cast<float*>(smem + P::off_delta + s * kBQ * 4);
+#pragma unroll
+      for (int e = 0; e < kBQ / 32; ++e) {
+        const int r = lane + 32 * e, row = q0 + r;
+        lse_s[r] = row < S ? lse[at + row] * kLog2e : 0.f;
+        delta_s[r] = row < S ? delta[at + row] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(full + 8 * s, 2 * P::q_tile);
+        const uint32_t q_dst = sbase + P::off_q + s * P::q_tile;
+        const uint32_t do_dst = sbase + P::off_do + s * P::q_tile;
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(q_dst + c * kQBlock, &tm_q, 64 * c, hh, q0, b, full + 8 * s);
+          tma_load(do_dst + c * kQBlock, &tm_do, 64 * c, hh, q0, b, full + 8 * s);
+        }
+      } else {
+        mbar_arrive(full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // ----- consumer warpgroups: the same 64 keys, columns 128 wg .. 128 wg + 127 -----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int q_min[2] = {causal ? k0 + 16 * warp + g : 0, causal ? k0 + 16 * warp + g + 8 : 0};
+  const uint32_t k_addr = sbase, v_addr = sbase + P::off_v;
+  const uint32_t col_off = 2 * wg * kQBlock;  // the warpgroup's first Q/dO column block
+
+  float dk_acc[64], dv_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(kvbar, 0);
+  for (int it = 0; it < total; ++it) {
+    const int s = it % kWStages;
+    const int q0 = (qt_first + it % nqt) * kBQ;
+    mbar_wait(full + 8 * s, (it / kWStages) & 1);
+    const uint32_t q_addr = sbase + P::off_q + s * P::q_tile;
+    const uint32_t do_addr = sbase + P::off_do + s * P::q_tile;
+
+    float st[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      const uint32_t ka = (kd / 4) * kWKBlock + (kd % 4) * 32;
+      const uint32_t qa = (kd / 4) * kQBlock + (kd % 4) * 32;
+      wgmma_ss_n64<T>(st, desc_sw128(k_addr + ka, 16, 1024), desc_sw128(q_addr + qa, 16, 1024),
+                      kd > 0);
+    }
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      const uint32_t ka = (kd / 4) * kWKBlock + (kd % 4) * 32;
+      const uint32_t qa = (kd / 4) * kQBlock + (kd % 4) * 32;
+      wgmma_ss_n64<T>(dpt, desc_sw128(v_addr + ka, 16, 1024), desc_sw128(do_addr + qa, 16, 1024),
+                      kd > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    const float* lse2 = reinterpret_cast<const float*>(smem + P::off_lse + s * kBQ * 4);
+    const float* dlt = reinterpret_cast<const float*>(smem + P::off_delta + s * kBQ * 4);
+    if ((causal && q0 < k0 + kWBK - 1) || q0 + kBQ > S) {
+      probs<true>(st, dpt, lse2, dlt, t, scale_log2, scale, q0, q_min, S);
+    } else {
+      probs<false>(st, dpt, lse2, dlt, t, scale_log2, scale, q0, q_min, S);
+    }
+
+    uint32_t ph[4][4], pl[4][4], ds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x0 = st[8 * kk + 2 * i], x1 = st[8 * kk + 2 * i + 1];
+        ph[kk][i] = pack2<T>(x0, x1);
+        const float2 hv = unpack2<T>(ph[kk][i]);
+        pl[kk][i] = pack2<T>(x0 - hv.x, x1 - hv.y);
+        ds[kk][i] = pack2<T>(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1]);
+      }
+
+    // dV += P^T.dO[:, cols] and dK += dS^T.Q[:, cols], 128 columns: two
+    // 64-column blocks (leading byte offset one block), 16 rows a k16 step.
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t ddo = desc_sw128(do_addr + col_off + kk * 2048, kQBlock, 1024);
+      wgmma_rs_n128<T>(dv_acc, ph[kk], ddo);
+      wgmma_rs_n128<T>(dv_acc, pl[kk], ddo);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n128<T>(dk_acc, ds[kk], desc_sw128(q_addr + col_off + kk * 2048, kQBlock, 1024));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  // ----- epilogue -----
+  if constexpr (kPartial) {
+    // fp32 pairs straight from the accumulators: 4 lanes fill a 32-byte
+    // sector of a row.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + 16 * warp + g + 8 * r;
+      if (key >= S) continue;
+      const bool live = vld == nullptr || vld[key] != 0;
+      const long long row = ((out_row0 + key) * KH + kh) * D + 128 * wg + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 kv = live ? make_float2(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1])
+                               : make_float2(0.f, 0.f);
+        const float2 vv = live ? make_float2(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1])
+                               : make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(part_dk + row + 8 * j) = kv;
+        *reinterpret_cast<float2*>(part_dv + row + 8 * j) = vv;
+      }
+    }
+  } else {
+    // Both warpgroups read all of K and V: wait for both before staging the
+    // warpgroup's dK (dV) columns in K's (V's) blocks 2 wg and 2 wg + 1,
+    // 16-byte chunk c of row r at c ^ (r % 8).
+    named_sync(1, 32 * kConsumerWarps);
+    uint8_t* k_stage = smem + 2 * wg * kWKBlock;
+    uint8_t* v_stage = smem + P::off_v + 2 * wg * kWKBlock;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rl = 16 * warp + g + 8 * r;
+        const uint32_t at = (j / 8) * kWKBlock + rl * 128 + ((j % 8) ^ (rl & 7)) * 16 + 4 * t;
+        *reinterpret_cast<uint32_t*>(k_stage + at) =
+            pack2<T>(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(v_stage + at) =
+            pack2<T>(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
+    named_sync(2 + wg, 128);
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    for (int c = tid; c < 64 * 16; c += 128) {
+      const int rl = c / 16, cc = c % 16, key = k0 + rl;
+      if (key >= S) continue;
+      const uint32_t at = (cc / 8) * kWKBlock + rl * 128 + ((cc % 8) ^ (rl & 7)) * 16;
+      const bool live = vld == nullptr || vld[key] != 0;
+      const long long o = ((out_row0 + key) * KH + kh) * D + 128 * wg + cc * 8;
+      *reinterpret_cast<uint4*>(dk + o) = live ? *reinterpret_cast<const uint4*>(k_stage + at) : zero;
+      *reinterpret_cast<uint4*>(dv + o) = live ? *reinterpret_cast<const uint4*>(v_stage + at) : zero;
+    }
+  }
+}
+
+// dk[i] = sum over split s = 0, 1, .. of part[s][i], in that order, cast to
+// T; dv from the n_split partials after dK's.  n is a multiple of 4.
+template <typename T>
+__global__ void flash_bwd_dkv_sum_kernel(const float* __restrict__ part, T* __restrict__ dk,
+                                         T* __restrict__ dv, long long n, int n_split) {
+  const long long quads = n / 4;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < 2 * quads;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int m = i >= quads;  // 0 dK, 1 dV
+    const long long at = 4 * (i - m * quads);
+    const float* src = part + m * n_split * n + at;
+    float4 acc = *reinterpret_cast<const float4*>(src);
+    for (int s = 1; s < n_split; ++s) {
+      const float4 x = *reinterpret_cast<const float4*>(src + s * n);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    uint2 packed;
+    packed.x = pack2<T>(acc.x, acc.y);
+    packed.y = pack2<T>(acc.z, acc.w);
+    *reinterpret_cast<uint2*>((m ? dv : dk) + at) = packed;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
 // ---------------------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -590,7 +913,8 @@ int encode(CUtensorMap* map, EncodeTiled enc, CUtensorMapDataType dt, const void
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *valid;
   void *dk, *dv;
-  int B, S, H, KH, causal;
+  float* part;  // d-256 split workspace, or null
+  int B, S, H, KH, causal, n_split;
   float scale;
   cudaStream_t stream;
 };
@@ -618,6 +942,37 @@ int run(CUtensorMapDataType dt, const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int run_d256(CUtensorMapDataType dt, const Args& a) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return kErrEntryPoint;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = encode(&tq, enc, dt, a.q, kWD, a.H, a.S, a.B, kBQ);
+  if (rc == 0) rc = encode(&tk, enc, dt, a.k, kWD, a.KH, a.S, a.B, kWBK);
+  if (rc == 0) rc = encode(&tv, enc, dt, a.v, kWD, a.KH, a.S, a.B, kWBK);
+  if (rc == 0) rc = encode(&tdo, enc, dt, a.dout, kWD, a.H, a.S, a.B, kBQ);
+  if (rc != 0) return rc;
+  const bool partial = a.n_split > 1;
+  auto kernel = partial ? flash_bwd_dkv_sm90_d256_kernel<T, true>
+                        : flash_bwd_dkv_sm90_d256_kernel<T, false>;
+  const size_t smem = WidePlan::smem;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.B * a.KH * a.n_split, (a.S + kWBK - 1) / kWBK);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const int8_t*>(a.valid), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.part,
+      a.S, a.H, a.KH, a.n_split, a.causal, a.scale, a.scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !partial) return (int)err;
+  const long long n = static_cast<long long>(a.B) * a.S * a.KH * kWD;
+  const int blocks = static_cast<int>(std::min<long long>((n / 2 + 255) / 256, 4096));
+  flash_bwd_dkv_sum_kernel<T><<<blocks, 256, 0, a.stream>>>(
+      a.part, static_cast<T*>(a.dk), static_cast<T*>(a.dv), n, a.n_split);
+  return (int)cudaGetLastError();
+}
+
 bool bad_args(const Args& a) {
   const uintptr_t mis = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
                         reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout) |
@@ -638,8 +993,8 @@ extern "C" int atpu_flash_bwd_dkv_sm90(int dtype, const void* q, const void* k, 
                                        const void* dout, const void* lse, const void* delta,
                                        const void* valid, void* dk, void* dv, int B, int S, int H,
                                        int KH, int hd, int causal, float scale, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, valid, dk, dv, B, S, H, KH, causal, scale,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{q,  k,  v, dout, lse,    delta, valid, dk, dv, nullptr,
+               B,  S,  H, KH,   causal, 1,     scale, static_cast<cudaStream_t>(stream)};
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
   switch (dtype * 1000 + hd) {
     case 1064: return run<__nv_bfloat16, 64, true>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
@@ -658,8 +1013,33 @@ extern "C" int atpu_flash_bwd_dkv_sm90_nolo(int dtype, const void* q, const void
                                             const void* delta, const void* valid, void* dk,
                                             void* dv, int B, int S, int H, int KH, int hd,
                                             int causal, float scale, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, valid, dk, dv, B, S, H, KH, causal, scale,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{q,  k,  v, dout, lse,    delta, valid, dk, dv, nullptr,
+               B,  S,  H, KH,   causal, 1,     scale, static_cast<cudaStream_t>(stream)};
   if (bad_args(a) || dtype != 1 || hd != 128) return (int)cudaErrorInvalidValue;
   return run<__nv_bfloat16, 128, false>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
+}
+
+// Head dim 256, bf16 (dtype 1) or fp16 (2): arguments as above, plus part,
+// the fp32 workspace of 2 x n_split x B x S x KH x 256 floats (16-byte
+// aligned; null when n_split is 1), and n_split, which divides H / KH.
+// Launches the split kernel and, when n_split > 1, the sum kernel after it
+// on the same stream.  Returns as above.
+extern "C" int atpu_flash_bwd_dkv_sm90_d256(int dtype, const void* q, const void* k,
+                                            const void* v, const void* dout, const void* lse,
+                                            const void* delta, const void* valid, void* dk,
+                                            void* dv, void* part, int B, int S, int H, int KH,
+                                            int hd, int causal, int n_split, float scale,
+                                            void* stream) {
+  const Args a{q,  k,  v, dout, lse,    delta,   valid, dk, dv, static_cast<float*>(part),
+               B,  S,  H, KH,   causal, n_split, scale, static_cast<cudaStream_t>(stream)};
+  if (bad_args(a) || hd != kWD || n_split < 1 || (H / KH) % n_split != 0 ||
+      (S + kWBK - 1) / kWBK > 65535 ||
+      (n_split > 1 && (part == nullptr || (reinterpret_cast<uintptr_t>(part) & 15) != 0)) ||
+      static_cast<long long>(B) * KH * n_split > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 1: return run_d256<__nv_bfloat16>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
+    case 2: return run_d256<__half>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -5,8 +5,8 @@
 // Replaces _fwd_kernel (accelerate_tpu/ops/pallas_attention.py:96, launched
 // by _flash_fwd at :174), with the contract of atpu_flash_fwd:
 //   q, out [B, S, H, d]; k, v [B, S, KH, d]; query head h reads kv head
-//   h / (H / KH); valid [B, S] int8 or null; lse [B, H, S] fp32; d 64 or 128;
-//   bf16 or fp16.  Per query row i and key j, s_ij = (q_i . k_j) * scale in
+//   h / (H / KH); valid [B, S] int8 or null; lse [B, H, S] fp32; d 64, 128
+//   or 256; bf16 or fp16.  Per query row i and key j, s_ij = (q_i . k_j) * scale in
 //   fp32, or -1e30 where masked (key past S, causal j > i, valid[j] == 0); a
 //   probability is gated on the masked score (s > -0.5e30), never on the
 //   running max, so a row with no admitted key has l = 0, output 0 and lse ~
@@ -24,15 +24,17 @@
 //     threads, one CTA per SM); setmaxnreg moves registers from the
 //     producer (40 a thread) to the consumers (232), which would otherwise
 //     get 168 and spill;
-//   - the producer's lane 0 loads the Q tile once and streams 128-key K and V
-//     tiles into a 2-stage ring with cp.async.bulk.tensor (4-D tensor maps
-//     (d, heads, S, B) over the public layout: no transposes, rows past S
-//     zero-filled per batch), arming each stage's full barrier with
-//     expect_tx; each consumer warp releases a stage on its empty barrier
-//     after the P.V that read it has completed (wgmma.wait_group 0);
-//   - S = Q.K^T is wgmma m64n128k16 with both operands from shared memory
+//   - the producer's lane 0 loads the Q tile once and streams K and V tiles
+//     of kBN keys (128; 64 at d 256, below) into a 2-stage ring with
+//     cp.async.bulk.tensor (4-D tensor maps (d, heads, S, B) over the public
+//     layout: no transposes, rows past S zero-filled per batch), arming each
+//     stage's full barrier with expect_tx; each consumer warp releases a
+//     stage on its empty barrier after the P.V that read it has completed
+//     (wgmma.wait_group 0);
+//   - S = Q.K^T is wgmma m64n{kBN}k16 with both operands from shared memory
 //     (K-major, 128-byte swizzle); O += P.V is wgmma m64n{d}k16 with P from
-//     registers and V from shared memory, MN-major with the transpose bit;
+//     registers and V from shared memory, MN-major with the transpose bit
+//     (at d 256 two m64n128k16 halves over the same P registers);
 //   - the fp32 score accumulator of a wgmma has the per-warp layout of
 //     mma.sync's (rows g and g + 8 of the warp's 16, pairs of columns), so
 //     each k16 chunk of P packs straight into the next wgmma's A registers:
@@ -47,12 +49,19 @@
 //     < S; lse from one lane per row; the heaviest causal q tiles launch
 //     first (q-tile index reversed, grid y), so the last wave is short.
 //
-// Shared memory (1024-byte aligned tiles; a 64-column block of 128 rows is
-// 16 KB): d 128 -> Q 32 KB + 2 stages x (K 32 KB + V 32 KB) = 160 KB; d 64
-// -> 80 KB; plus 2 x 128 bytes of kv_valid, flags and 5 mbarriers; one CTA
-// per SM.  Registers per consumer thread (232 after setmaxnreg): 64 fp32 of
-// S, d/2 fp32 of O and 32 packed P; ptxas's report (-Xptxas -v, kept beside
-// the library) shows no spills.
+// Shared memory (1024-byte aligned tiles; a 64-column block is 128 bytes a
+// row): d 128 -> Q 32 KB + 2 stages x (K 32 KB + V 32 KB) = 160 KB; d 64
+// -> 80 KB; plus 2 x kBN bytes of kv_valid, flags and 5 mbarriers; one CTA
+// per SM.  Registers per consumer thread (232 after setmaxnreg): kBN/2 fp32
+// of S, d/2 fp32 of O and kBN/4 packed P; ptxas's report (-Xptxas -v, kept
+// beside the library) shows no spills.
+//
+// Head dim 256.  128-key tiles would need Q 64 KB + 2 x (64 + 64) = 320 KB
+// and 64 + 128 + 32 registers a thread, so the key tile is 64 at d 256:
+// Q 64 KB + 2 stages x (K 32 KB + V 32 KB) = 192 KB, and per consumer thread
+// O 128, S 32 and packed P 16 registers.  S = Q.K^T is m64n64k16; the grid
+// (B*H x S/128, heaviest causal tiles first), the causal tile skip, kv_valid
+// and the zero rows of an all-masked query row are those of d 128.
 //
 // Traps, and how each is handled:
 //   - the tensor-map encoder is a driver-API function: fetched once through
@@ -64,7 +73,7 @@
 //     V's MN-major descriptor has the block as its leading byte offset and
 //     1024 bytes (8 keys) as its stride, stepping 2048 bytes per k16;
 //   - alignment: the launcher refuses pointers that are not 16-byte aligned
-//     (fused_attention._check raises first); d in {64, 128} makes every
+//     (fused_attention._check raises first); d in {64, 128, 256} makes every
 //     stride a multiple of 16 bytes;
 //   - wgmma ordering: wgmma.fence before each batch (the S and O registers,
 //     and the P fragments, were written by ordinary instructions), commit
@@ -83,13 +92,12 @@
 namespace {
 
 constexpr int kBM = 128;  // query rows per CTA: two consumer warpgroups of 64
-constexpr int kBN = 128;  // keys per K/V tile
 constexpr int kStages = 2;
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
 constexpr int kProducerRegs = 40;   // setmaxnreg: 128 x 40 + 256 x 232 <= 65536
 constexpr int kConsumerRegs = 232;
-constexpr uint32_t kBlock = 128 * 128;              // one 64-column block of 128 rows, bytes
+constexpr uint32_t kBlock = kBM * 128;  // one 64-column block of a Q tile, bytes
 constexpr float kMasked = -1e30f;  // finite: no inf - inf in the exp bookkeeping
 constexpr float kLive = -0.5e30f;  // scores above this are admitted
 constexpr float kLog2e = 1.4426950408889634f;
@@ -98,10 +106,13 @@ constexpr size_t kSmemMax = 227 * 1024;
 
 template <int D>
 struct Plan {
-  static constexpr uint32_t tile = (D / 64) * kBlock;  // Q, or K or V of one stage
-  static constexpr uint32_t off_k = tile;
-  static constexpr uint32_t off_v = off_k + kStages * tile;
-  static constexpr uint32_t off_mask = off_v + kStages * tile;  // kv_valid bytes per stage
+  static constexpr int kBN = D == 256 ? 64 : 128;  // keys per K/V tile
+  static constexpr uint32_t kv_block = kBN * 128;  // one 64-column block of K or V, bytes
+  static constexpr uint32_t q_tile = (D / 64) * kBlock;
+  static constexpr uint32_t kv_tile = (D / 64) * kv_block;  // K or V of one stage
+  static constexpr uint32_t off_k = q_tile;
+  static constexpr uint32_t off_v = off_k + kStages * kv_tile;
+  static constexpr uint32_t off_mask = off_v + kStages * kv_tile;  // kv_valid bytes per stage
   static constexpr uint32_t off_all = off_mask + kStages * kBN;  // whole-tile-valid flags
   static constexpr uint32_t off_bar = off_all + kStages * 8;     // full[], empty[], q
   static constexpr uint32_t bytes = off_bar + (2 * kStages + 1) * 8;
@@ -185,9 +196,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define ATPU_ACC32 ATPU_ACC8(0), ATPU_ACC8(8), ATPU_ACC8(16), ATPU_ACC8(24)
 #define ATPU_ACC64 ATPU_ACC32, ATPU_ACC8(32), ATPU_ACC8(40), ATPU_ACC8(48), ATPU_ACC8(56)
 
-// d[64] (+)= A[64 x 16] . B[16 x 128]: A and B K-major in shared memory.
+// d[N/2] (+)= A[64 x 16] . B[16 x N]: A and B K-major in shared memory.
 template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc);
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc);
 // d[N/2] += A[64 x 16] . B[16 x N]: A in registers, B MN-major in shared
 // memory (transposed).
 template <typename T>
@@ -203,6 +216,15 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
                  "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTX "." PTX " {" ATPU_REGS64    \
                  "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                             \
                  : ATPU_ACC64                                                                   \
+                 : "l"(da), "l"(db), "r"(acc));                                                 \
+  }                                                                                             \
+  template <>                                                                                   \
+  __device__ __forceinline__ void wgmma_ss_n64<TYPE>(float (&d)[32], uint64_t da, uint64_t db,  \
+                                                     int acc) {                                 \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                   \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX " {" ATPU_REGS32     \
+                 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                             \
+                 : ATPU_ACC32                                                                   \
                  : "l"(da), "l"(db), "r"(acc));                                                 \
   }                                                                                             \
   template <>                                                                                   \
@@ -273,7 +295,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       T* __restrict__ out, float* __restrict__ lse, int S, int H, int KH,
                       int causal, float scale_log2) {
   using P = Plan<D>;
-  constexpr int NO = D / 2;  // O accumulator registers per thread
+  constexpr int kBN = P::kBN;
+  constexpr int NO = D / 2;   // O accumulator registers per thread
+  constexpr int NS = kBN / 2;  // S accumulator registers per thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                              ~static_cast<uintptr_t>(1023));
@@ -307,7 +331,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x >= 32 * kConsumerWarps + 32) return;
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
-      mbar_arrive_tx(qbar, P::tile);
+      mbar_arrive_tx(qbar, P::q_tile);
       for (int c = 0; c < D / 64; ++c) tma_load(sbase + c * kBlock, &tm_q, 64 * c, h, q0, b, qbar);
     }
     for (int i = 0; i < n_tiles; ++i) {
@@ -315,26 +339,25 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(empty + 8 * s, ((i / kStages) & 1) ^ 1);
       const int key0 = i * kBN;
       if (vld) {
-        uint32_t word = 0;
+        constexpr int KPL = kBN / 32;  // keys per lane
         bool all = true;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 4 * lane + e;
+        for (int e = 0; e < KPL; ++e) {
+          const int key = key0 + KPL * lane + e;
           const bool ok = key < S && vld[key] != 0;
-          word |= static_cast<uint32_t>(ok) << (8 * e);
+          smem[P::off_mask + s * kBN + KPL * lane + e] = ok;
           all = all && ok;
         }
-        *reinterpret_cast<uint32_t*>(smem + P::off_mask + s * kBN + 4 * lane) = word;
         const int tile_all = __all_sync(0xffffffffu, all);
         if (lane == 0) *reinterpret_cast<int*>(smem + P::off_all + 4 * s) = tile_all;
       }
       if (lane == 0) {
-        mbar_arrive_tx(full + 8 * s, 2 * P::tile);
-        const uint32_t k_dst = sbase + P::off_k + s * P::tile;
-        const uint32_t v_dst = sbase + P::off_v + s * P::tile;
+        mbar_arrive_tx(full + 8 * s, 2 * P::kv_tile);
+        const uint32_t k_dst = sbase + P::off_k + s * P::kv_tile;
+        const uint32_t v_dst = sbase + P::off_v + s * P::kv_tile;
         for (int c = 0; c < D / 64; ++c) {
-          tma_load(k_dst + c * kBlock, &tm_k, 64 * c, kh, key0, b, full + 8 * s);
-          tma_load(v_dst + c * kBlock, &tm_v, 64 * c, kh, key0, b, full + 8 * s);
+          tma_load(k_dst + c * P::kv_block, &tm_k, 64 * c, kh, key0, b, full + 8 * s);
+          tma_load(v_dst + c * P::kv_block, &tm_v, 64 * c, kh, key0, b, full + 8 * s);
         }
       } else {
         mbar_arrive(full + 8 * s);
@@ -351,28 +374,32 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int row[2] = {row_base + 16 * warp + g, row_base + 16 * warp + g + 8};
   const uint32_t q_addr = sbase + 64 * wg * 128;  // this warpgroup's rows of block 0
 
-  float o[NO], sc[64];
+  float o[NO], sc[NS];
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+  for (int i = 0; i < NS; ++i) sc[i] = 0.f;
   float m_run[2] = {kMasked, kMasked}, l_run[2] = {0.f, 0.f};  // l: this thread's columns
 
   mbar_wait(qbar, 0);
   for (int i = 0; i < n_tiles; ++i) {
     const int s = i % kStages;
     mbar_wait(full + 8 * s, (i / kStages) & 1);
-    const uint32_t k_addr = sbase + P::off_k + s * P::tile;
-    const uint32_t v_addr = sbase + P::off_v + s * P::tile;
+    const uint32_t k_addr = sbase + P::off_k + s * P::kv_tile;
+    const uint32_t v_addr = sbase + P::off_v + s * P::kv_tile;
 
     // S = Q . K^T over d in k16 steps: 32 bytes inside a 64-column block.
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
-      const uint32_t off = (kd / 4) * kBlock + (kd % 4) * 32;
-      wgmma_ss_n128<T>(sc, desc_sw128(q_addr + off, 16, 1024), desc_sw128(k_addr + off, 16, 1024),
-                       kd > 0);
+      const uint64_t dq = desc_sw128(q_addr + (kd / 4) * kBlock + (kd % 4) * 32, 16, 1024);
+      const uint64_t dk = desc_sw128(k_addr + (kd / 4) * P::kv_block + (kd % 4) * 32, 16, 1024);
+      if constexpr (kBN == 128) {
+        wgmma_ss_n128<T>(sc, dq, dk, kd > 0);
+      } else {
+        wgmma_ss_n64<T>(sc, dq, dk, kd > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait0();
@@ -386,7 +413,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (need_mask) {
       const uint8_t* vm = vmask + s * kBN;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, c = 8 * j + 2 * t + (e & 1), col = key0 + c;
@@ -396,7 +423,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
     } else {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           sc[4 * j + e] *= scale_log2;
@@ -413,14 +440,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     if (need_mask) {
 #pragma unroll
-      for (int e = 0; e < 64; ++e) {
+      for (int e = 0; e < NS; ++e) {
         const int r = (e >> 1) & 1;
         sc[e] = sc[e] > kLive ? ex2(sc[e] - m_new[r]) : 0.f;
         l_run[r] += sc[e];
       }
     } else {
 #pragma unroll
-      for (int e = 0; e < 64; ++e) {
+      for (int e = 0; e < NS; ++e) {
         const int r = (e >> 1) & 1;
         sc[e] = ex2(sc[e] - m_new[r]);
         l_run[r] += sc[e];
@@ -444,8 +471,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint64_t dv = desc_sw128(v_addr + kk * 2048, kBlock, 1024);
-      if constexpr (D == 128) {
+      const uint64_t dv = desc_sw128(v_addr + kk * 2048, P::kv_block, 1024);
+      if constexpr (D == 256) {
+        // Columns 0-127 into o[0..63], 128-255 (V blocks 2 and 3) into o[64..127]:
+        // the register layout of one m64n256k16.
+        wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(o), pa[kk], dv);
+        wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(o + 64), pa[kk],
+                         desc_sw128(v_addr + 2 * P::kv_block + kk * 2048, P::kv_block, 1024));
+      } else if constexpr (D == 128) {
         wgmma_rs_n128<T>(o, pa[kk], dv);
       } else {
         wgmma_rs_n64<T>(o, pa[kk], dv);
@@ -546,8 +579,8 @@ int run(CUtensorMapDataType dt, const void* q, const void* k, const void* v, con
   if (enc == nullptr) return kErrEntryPoint;
   CUtensorMap tq, tk, tv;
   int rc = encode(&tq, enc, dt, q, D, H, S, B, kBM);
-  if (rc == 0) rc = encode(&tk, enc, dt, k, D, KH, S, B, kBN);
-  if (rc == 0) rc = encode(&tv, enc, dt, v, D, KH, S, B, kBN);
+  if (rc == 0) rc = encode(&tk, enc, dt, k, D, KH, S, B, Plan<D>::kBN);
+  if (rc == 0) rc = encode(&tv, enc, dt, v, D, KH, S, B, Plan<D>::kBN);
   if (rc != 0) return rc;
   auto kernel = flash_fwd_sm90_kernel<T, D>;
   const size_t smem = Plan<D>::smem;
@@ -563,7 +596,8 @@ int run(CUtensorMapDataType dt, const void* q, const void* k, const void* v, con
 
 }  // namespace
 
-// dtype 1 bfloat16, 2 float16 (float32 runs atpu_flash_fwd); hd 64 or 128.
+// dtype 1 bfloat16, 2 float16 (float32 runs atpu_flash_fwd); hd 64, 128 or
+// 256.
 // q [B, S, H, hd], k/v [B, S, KH, hd], valid [B, S] int8 or null, all
 // 16-byte aligned; writes out [B, S, H, hd] and lse [B, H, S] fp32.  Returns
 // 0, a cudaError_t, 999 if the tensor-map encoder is missing, or 1000 + the
@@ -589,6 +623,12 @@ extern "C" int atpu_flash_fwd_sm90(int dtype, const void* q, const void* k, cons
                              KH, causal, scale, st);
     case 2128:
       return run<__half, 128>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, q, k, v, valid, out, lse, B, S, H,
+                              KH, causal, scale, st);
+    case 1256:
+      return run<__nv_bfloat16, 256>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, valid, out, lse,
+                                     B, S, H, KH, causal, scale, st);
+    case 2256:
+      return run<__half, 256>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, q, k, v, valid, out, lse, B, S, H,
                               KH, causal, scale, st);
     default:
       return (int)cudaErrorInvalidValue;

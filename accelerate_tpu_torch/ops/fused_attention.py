@@ -14,16 +14,22 @@ Three kernels, each behind a wrapper that counts its launches in
 raises):
 
 - :func:`fused_attention_fwd` -> ``(out, lse)``: bf16 and fp16 at head dim
-  64 and 128 run the Hopper forward of ``csrc/flash_fwd_sm90.cu`` (wgmma,
-  TMA-fed K/V ring, P in registers); fp32, and head dims 96 and 256 in
-  every type, the mma.sync body of ``csrc/flash_attention.cu``;
+  64, 128 and 256 run the Hopper forward of ``csrc/flash_fwd_sm90.cu``
+  (wgmma, TMA-fed K/V ring, P in registers; 64-key tiles at 256); fp32,
+  and head dim 96 in every type, the mma.sync body of
+  ``csrc/flash_attention.cu``;
 - :func:`fused_attention_bwd_dq` -> ``dq``: bf16 and fp16 at 64 and 128
   run the Hopper kernel of ``csrc/flash_bwd_dq_sm90.cu`` (wgmma, TMA-fed
-  K/V ring, dS in registers), the rest the body of ``csrc/flash_attention.cu``;
+  K/V ring, dS in registers); fp32, and head dims 96 and 256 in every type,
+  the body of ``csrc/flash_attention.cu``;
 - :func:`fused_attention_bwd_dkv` -> ``(dk, dv)``, already summed over each
   kv head's query heads: bf16 and fp16 at 64 and 128 run the Hopper kernel
   of ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma, TMA-fed Q/dO ring, P^T and dS^T
-  in registers), the rest the body of ``csrc/flash_attention.cu``.
+  in registers), and at 256 its d-256 kernel (64-key CTAs whose two
+  warpgroups split the columns; a kv head's query heads split over
+  :func:`pick_dkv_split` CTAs whose fp32 partials a second kernel adds in
+  split order); fp32, and head dim 96 in every type, the body of
+  ``csrc/flash_attention.cu``.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the plain PyTorch version (:func:`fused_attention_fwd_plain`,
@@ -47,6 +53,8 @@ from typing import Optional
 
 import torch
 
+from .paged_attention import _sm_count
+
 __all__ = [
     "fused_attention",
     "fused_attention_fwd",
@@ -55,11 +63,18 @@ __all__ = [
     "fused_attention_bwd_dkv",
     "fused_attention_fwd_plain",
     "fused_attention_bwd_plain",
+    "dkv_split_partials_plain",
+    "dkv_split_sum_plain",
+    "pick_dkv_split",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 96, 128, 256)  # the body of flash_attention.cu takes all four
-_SM90_HEAD_DIMS = (64, 128)  # the sm90 kernels' head dims (16-bit types)
+# The head dims each kernel's sm90 body takes (16-bit types); the rest run
+# the body of flash_attention.cu.
+_SM90_HEAD_DIMS = {"atpu_flash_fwd": (64, 128, 256), "atpu_flash_bwd_dq": (64, 128),
+                   "atpu_flash_bwd_dkv": (64, 128, 256)}
+_DKV_SPLIT_KEYS = 64  # keys per CTA of the d-256 dK/dV kernel
 _NEG = -1e30  # finite: no inf - inf in the exp bookkeeping
 _LIVE = -0.5e30  # scores above this are admitted
 
@@ -127,6 +142,12 @@ def _delta(out, do):
 
 
 def _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, block_size):
+    dq, dk, dv = _bwd_plain_f32(q, k, v, lse, delta, do, kv_valid, causal, block_size)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_plain_f32(q, k, v, lse, delta, do, kv_valid, causal, block_size):
+    """:func:`_bwd_plain` before the casts: fp32 dQ, dK and dV."""
     b, s, h, d = q.shape
     kh = k.shape[2]
     g = h // kh
@@ -148,8 +169,8 @@ def _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, block_size):
         dq = dq + torch.einsum("bkgst,bktd->bkgsd", ds.to(k.dtype).float(), kt)
         dvs.append(torch.einsum("bkgst,bkgsd->btkd", p, dof))
         dks.append(torch.einsum("bkgst,bkgsd->btkd", ds.to(q.dtype).float(), qf))
-    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
-    return dq, torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    return dq, torch.cat(dks, 1), torch.cat(dvs, 1)
 
 
 def fused_attention_bwd_plain(q, k, v, out, lse, do, kv_valid=None, *, causal: bool = True,
@@ -159,6 +180,49 @@ def fused_attention_bwd_plain(q, k, v, out, lse, do, kv_valid=None, *, causal: b
     each kv head's query heads.  Returns ``(dq, dk, dv)`` in the input
     dtypes."""
     return _bwd_plain(q, k, v, lse, _delta(out, do), do, kv_valid, causal, block_size)
+
+
+def pick_dkv_split(batch: int, kv_heads: int, seq_len: int, groups: int, sm_count: int) -> int:
+    """CTAs over which the d-256 dK/dV kernel splits each kv head's
+    ``groups`` query heads: the least divisor of ``groups`` that gives at
+    least one CTA per SM (``batch x kv_heads x ceil(seq_len / 64)`` key tiles
+    times the split), else ``groups``.  Host-known shapes only."""
+    tiles = batch * kv_heads * -(-seq_len // _DKV_SPLIT_KEYS)
+    for n in range(1, groups + 1):
+        if groups % n == 0 and tiles * n >= sm_count:
+            return n
+    return groups
+
+
+def dkv_split_partials_plain(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True,
+                             n_split: int = 1):
+    """Plain version of the split d-256 dK/dV kernel: fp32 partials ``[n_split,
+    B, S, K, d]`` of dK and of dV, split ``i`` summing the query heads ``i *
+    G / n_split .. (i + 1) * G / n_split - 1`` of each kv head."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    if g % n_split:
+        raise ValueError(f"n_split {n_split} does not divide the {g} query heads of a kv head")
+    gs = g // n_split
+    dks, dvs = [], []
+    for i in range(n_split):
+        heads = torch.tensor([j * g + i * gs + r for j in range(kh) for r in range(gs)],
+                             device=q.device)
+        _, dk, dv = _bwd_plain_f32(q[:, :, heads], k, v, lse[:, heads], delta[:, heads],
+                                   do[:, :, heads], kv_valid, causal, s)
+        dks.append(dk)
+        dvs.append(dv)
+    return torch.stack(dks), torch.stack(dvs)
+
+
+def dkv_split_sum_plain(part_dk, part_dv, dtype):
+    """Plain version of the sum kernel: the partials added in split order
+    (0, 1, ..) in fp32, then cast to ``dtype``."""
+    dk, dv = part_dk[0], part_dv[0]
+    for i in range(1, part_dk.shape[0]):
+        dk, dv = dk + part_dk[i], dv + part_dv[i]
+    return dk.to(dtype), dv.to(dtype)
 
 
 def _check(q, k, v, kv_valid, extra=()) -> None:
@@ -211,6 +275,10 @@ _DQ_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
 # dtype, q, k, v, do, lse, delta, valid, dk, dv, B, S, H, KH, hd, causal, scale, stream
 _DKV_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p]
+# dtype, q, k, v, do, lse, delta, valid, dk, dv, part, B, S, H, KH, hd, causal, n_split,
+# scale, stream
+_DKV_SPLIT_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p]
 _ARGTYPES = {
     "atpu_flash_fwd": _FWD_ARGTYPES,
     "atpu_flash_fwd_sm90": _FWD_ARGTYPES,
@@ -222,6 +290,7 @@ _ARGTYPES = {
     "atpu_flash_bwd_dkv_sm90": _DKV_ARGTYPES,
     # the same kernel without the lo half of P in dV: on no path, timed only
     "atpu_flash_bwd_dkv_sm90_nolo": _DKV_ARGTYPES,
+    "atpu_flash_bwd_dkv_sm90_d256": _DKV_SPLIT_ARGTYPES,
 }
 # The source of each symbol that is not in flash_attention.cu.
 _SOURCES = {
@@ -230,6 +299,7 @@ _SOURCES = {
     "atpu_flash_bwd_dq_sm90_ring2": "flash_bwd_dq_sm90",
     "atpu_flash_bwd_dkv_sm90": "flash_bwd_dkv_sm90",
     "atpu_flash_bwd_dkv_sm90_nolo": "flash_bwd_dkv_sm90",
+    "atpu_flash_bwd_dkv_sm90_d256": "flash_bwd_dkv_sm90",
 }
 
 
@@ -247,11 +317,12 @@ def _kernel(symbol: str):
     return fn
 
 
-def _launch(symbol: str, q, k, v, kv_valid, *ptrs, causal: bool):
+def _launch(symbol: str, q, k, v, kv_valid, *ptrs, causal: bool, n_split=None):
     b, s, h, d = q.shape
+    split = () if n_split is None else (n_split,)
     rc = _kernel(symbol)(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs,
-        b, s, h, k.shape[2], d, int(causal), 1.0 / math.sqrt(d),
+        b, s, h, k.shape[2], d, int(causal), *split, 1.0 / math.sqrt(d),
         torch.cuda.current_stream().cuda_stream,
     )
     if rc != 0:
@@ -260,10 +331,12 @@ def _launch(symbol: str, q, k, v, kv_valid, *ptrs, causal: bool):
 
 def _symbol(base: str, q) -> str:
     """The launcher of ``base`` for q's dtype and head dim: the sm90 kernel
-    for bf16 and fp16 at head dim 64 and 128, else the body of
-    ``flash_attention.cu``."""
-    sm90 = q.dtype != torch.float32 and q.shape[-1] in _SM90_HEAD_DIMS
-    return f"{base}_sm90" if sm90 else base
+    for bf16 and fp16 at the head dims of ``_SM90_HEAD_DIMS[base]`` (dK/dV's
+    d-256 kernel at 256), else the body of ``flash_attention.cu``."""
+    d = q.shape[-1]
+    if q.dtype == torch.float32 or d not in _SM90_HEAD_DIMS[base]:
+        return base
+    return f"{base}_sm90_d256" if base == "atpu_flash_bwd_dkv" and d == 256 else f"{base}_sm90"
 
 
 def _on_cuda(name: str, q) -> bool:
@@ -282,8 +355,8 @@ def _valid_ptr(kv_valid):
 def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_size: int = 512):
     """Flash-attention forward: ``(out [B, S, H, d]`` in q's dtype, ``lse
     [B, H, S]`` fp32).  ``kv_valid`` is int8 ``[B, S]`` (nonzero: the key
-    takes part) or None.  On CUDA, bf16 and fp16 at head dim 64 and 128
-    launch the Hopper kernel (``atpu_flash_fwd_sm90``), the rest the
+    takes part) or None.  On CUDA, bf16 and fp16 at head dim 64, 128 and
+    256 launch the Hopper kernel (``atpu_flash_fwd_sm90``), the rest the
     mma.sync body (``atpu_flash_fwd``)."""
     if not _on_cuda("fused_attention_fwd", q):
         return fused_attention_fwd_plain(q, k, v, kv_valid, causal=causal, block_size=block_size)
@@ -317,16 +390,29 @@ def fused_attention_bwd_dq(q, k, v, do, lse, delta, kv_valid=None, *, causal: bo
 def fused_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True):
     """dK, dV ``[B, S, K, d]`` in k's dtype, summed over each kv head's query
     heads.  On CUDA, bf16 and fp16 at head dim 64 and 128 launch the Hopper
-    kernel (``atpu_flash_bwd_dkv_sm90``), the rest the mma.sync body
-    (``atpu_flash_bwd_dkv``), which splits d 256 across two CTAs."""
+    kernel (``atpu_flash_bwd_dkv_sm90``), at 256 its d-256 kernel
+    (``atpu_flash_bwd_dkv_sm90_d256``: query heads split over
+    :func:`pick_dkv_split` CTAs, fp32 partials in a workspace allocated here,
+    summed in split order by a second kernel), the rest the mma.sync body
+    (``atpu_flash_bwd_dkv``)."""
     if not _on_cuda("fused_attention_bwd_dkv", q):
         return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[1:]
     _check(q, k, v, kv_valid, {"do": do, "lse": lse, "delta": delta})
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch(_symbol("atpu_flash_bwd_dkv", q), q, k, v, kv_valid, do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _valid_ptr(kv_valid), dk.data_ptr(),
-            dv.data_ptr(), causal=causal)
+    symbol = _symbol("atpu_flash_bwd_dkv", q)
+    ptrs = (do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _valid_ptr(kv_valid),
+            dk.data_ptr(), dv.data_ptr())
+    if symbol.endswith("_d256"):
+        b, s, h, _ = q.shape
+        kh = k.shape[2]
+        n_split = pick_dkv_split(b, kh, s, h // kh, _sm_count(q.device))
+        part = (torch.empty(2 * n_split * k.numel(), dtype=torch.float32, device=q.device)
+                if n_split > 1 else None)
+        _launch(symbol, q, k, v, kv_valid, *ptrs, None if part is None else part.data_ptr(),
+                causal=causal, n_split=n_split)
+    else:
+        _launch(symbol, q, k, v, kv_valid, *ptrs, causal=causal)
     fused_attention_bwd_dkv.launches += 1
     return dk, dv
 

@@ -163,10 +163,15 @@ Phases (each fails the run on any mismatch; nothing is caught):
 10. The wide heads and Gemma-2B at full width.  10a: the three flash
    kernels at head dim 256 (Gemma-2B's 8 q / 1 kv heads, Gemma-7B's 16 /
    16) and 96 (Phi-3-mini's 32 / 32), B 2 x S 2048 causal, unpadded and
-   left-padded, in bf16 and fp32, against their plain versions (the
-   forward's out and lse, dQ, dK and dV), with kernel (L2-cold copies),
-   plain, bound and ``scaled_dot_product_attention`` forward and backward
-   times (an error recorded where sdpa refuses the shape); the paged pair
+   left-padded, in bf16 and fp32 (and fp16 at Gemma-2B's), against their
+   plain versions (the forward's out and lse, dQ, dK and dV), with kernel
+   (L2-cold copies), plain, bound and ``scaled_dot_product_attention``
+   forward and backward times (an error recorded where sdpa refuses the
+   shape) and the launcher each wrapper called; at d 256 in bf16 and fp16
+   the sm90 forward and dK/dV beside the mma.sync bodies they replace
+   (``atpu_flash_fwd``, ``atpu_flash_bwd_dkv``, called directly, not
+   counted) as ``previous_ms`` in turns, and dK/dV at every split of the
+   query-head group (``split_ms``, each held to the tolerance); the paged pair
    at head dim 96 (bf16, fp32) and 256 (fp32) at Phase 1's long shape
    against plain, with kernel, plain, bound and library times.  10b:
    Gemma-2B (vocab 256000, d 2048, FFN 16384, 18 layers, 8 q / 1 kv head
@@ -184,7 +189,8 @@ Phases (each fails the run on any mismatch; nothing is caught):
    DataLoader, LambdaLR)``, ``remat=True``, 5 steps at B 2 x S 2048 (B 1
    if the peak reckoned in the log reaches 72 GB): the flash kernels
    launched 2L / L / L = 36 / 18 / 18 a step, the fifth step profiled
-   (the trace must name the d-256 kernels), step time, tokens/s, share of
+   (the trace must name the d-256 kernels: the sm90 forward and dK/dV with
+   its sum kernel, flash_attention.cu's dQ), step time, tokens/s, share of
    the bf16 peak, peak memory and idle share.  10c: the trained weights in
    bf16 through ``prepare_serving(paged_kernel=True)`` with Phase 2's
    geometry and traffic, ``spec_tokens`` 0 and 3: 18 paged launches (head
@@ -240,6 +246,7 @@ FWD_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_fwd_sm90.cu"  # bf16 and fp16 
 FWD_DESIGN = ("bf16/fp16: wgmma m64n128k16 Q.K^T (smem descriptors) and P.V (P in registers, "
               "V MN-major), TMA 4-D maps into a 2-stage mbarrier K/V ring, 128-row CTA of 2 "
               "consumer warpgroups + a producer warpgroup (one warp loads), setmaxnreg 232/40; "
+              "d 256: 64-key tiles, m64n64k16 Q.K^T and two m64n128k16 P.V halves (192 KB); "
               "fp32: the CUDA-core body of flash_attention.cu")
 DQ_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu"  # bf16 and fp16 dQ
 DQ_DESIGN = ("bf16/fp16: 128-row CTA of one (batch, q head), 2 consumer warpgroups of 64 rows "
@@ -255,8 +262,11 @@ DKV_DESIGN = ("bf16/fp16: 128-key CTA of one (batch, kv head), 2 consumer warpgr
               "G query heads by TMA into a 3-stage mbarrier ring (lse, delta by plain loads); "
               "wgmma m64n64k16 S^T = K.Q^T and dP^T = V.dO^T (smem descriptors), P^T and dS^T "
               "in registers as A of wgmma m64n{d}k16 dV += P^T.dO (P as hi + lo) and "
-              "dK += dS^T.Q (Q/dO MN-major); no atomics; fp32: the CUDA-core body of "
-              "flash_attention.cu")
+              "dK += dS^T.Q (Q/dO MN-major); no atomics; d 256: 64-key CTAs whose 2 "
+              "warpgroups own 128 columns each and recompute S^T/dP^T over the full d, a "
+              "2-stage ring (193 KB), the group's query heads split over n_split CTAs "
+              "(pick_dkv_split) writing fp32 partials that a second kernel sums in split "
+              "order; fp32: the CUDA-core body of flash_attention.cu")
 REPLACES = {
     "paged_attention": "accelerate_tpu/ops/pallas_attention.py:564",
     "paged_window_attention": "accelerate_tpu/ops/pallas_attention.py:686",
@@ -2580,15 +2590,97 @@ PHASE10_PEAK_LIMIT = 72e9  # bytes: B 2 when the reckoned peak stays under it, e
 # of ~15 read 1.051e-3 absolute, 7.0e-5 relative (bf16 rounding: the fp32
 # step below agrees to 1e-4 and better).
 PHASE10_BF16_LOSS_REL = 1e-4
-# The d 96 and 256 instantiations of flash_attention.cu's kernels, as a
-# profiler names them (bf16 at Gemma's head dim).
-WIDE_FLASH = tuple(f"{k}<__nv_bfloat16, 256>" for k in
-                   ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+# The bf16 d-256 kernels Gemma-2B's training step runs, as a profiler names
+# them: the sm90 forward, flash_attention.cu's dQ, the sm90 d-256 dK/dV
+# (split over query heads at Gemma-2B's one kv head) and its sum kernel.
+WIDE_FLASH = ("flash_fwd_sm90_kernel<__nv_bfloat16, 256>",
+              "flash_bwd_dq_kernel<__nv_bfloat16, 256>",
+              "flash_bwd_dkv_sm90_d256_kernel<__nv_bfloat16, true>",
+              "flash_bwd_dkv_sum_kernel<__nv_bfloat16>")
+# The launcher each flash wrapper calls, by its base name.
+FLASH_BASES = {"fused_attention_fwd": "atpu_flash_fwd",
+               "fused_attention_bwd_dq": "atpu_flash_bwd_dq",
+               "fused_attention_bwd_dkv": "atpu_flash_bwd_dkv"}
 
 
-def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
+def direct_dkv_d256(fu, n_split, q, k, v, do, lse, delta):
+    """The d-256 dK/dV launcher called directly (not counted) with the query
+    heads split ``n_split`` ways; returns ``(dk, dv)``."""
+    import torch
+
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part = (torch.empty(2 * n_split * k.numel(), dtype=torch.float32, device=q.device)
+            if n_split > 1 else None)
+    fu._launch("atpu_flash_bwd_dkv_sm90_d256", q, k, v, None, do.data_ptr(), lse.data_ptr(),
+               delta.data_ptr(), None, dk.data_ptr(), dv.data_ptr(),
+               None if part is None else part.data_ptr(), causal=True, n_split=n_split)
+    return dk, dv
+
+
+def wide_previous(fu, copies, fwd_ms, dkv_ms, want):
+    """At d 256 in 16-bit types: the mma.sync bodies the sm90 forward and
+    dK/dV replace (``atpu_flash_fwd``, ``atpu_flash_bwd_dkv``, called
+    directly), held to the plain versions' tolerance and timed in turns with
+    the kernels (kernel, previous, previous, kernel); and the dK/dV kernel
+    at every split of the group, each held to the tolerance and timed.
+    Returns ``({wrapper: extra record keys}, {wrapper: second kernel ms})``."""
+    import torch
+
+    q, k, v, do, lse, delta = copies[0]
+    tol = TOL[str(q.dtype)]
+    want_out, want_dk, want_dv = want
+    got = {"fused_attention_fwd": previous_fwd(fu, q, k, v)[:1],
+           "fused_attention_bwd_dkv": direct_bwd(fu, "atpu_flash_bwd_dkv", q, k, v, do, lse,
+                                                 delta)}
+    torch.cuda.synchronize()
+    refs = {"fused_attention_fwd": (want_out,), "fused_attention_bwd_dkv": (want_dk, want_dv)}
+    calls = {"fused_attention_fwd": (lambda q, k, v, *_: previous_fwd(fu, q, k, v)),
+             "fused_attention_bwd_dkv": (lambda *a: direct_bwd(fu, "atpu_flash_bwd_dkv", *a))}
+    kernels = {"fused_attention_fwd": (lambda q, k, v, *_: fu.fused_attention_fwd(
+        q, k, v, causal=True, block_size=q.shape[1])),
+        "fused_attention_bwd_dkv": (lambda *a: fu.fused_attention_bwd_dkv(*a, causal=True))}
+    extra, second = {}, {}
+    for name in calls:
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got[name],
+                                                                            refs[name]))
+        check(all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
+                  for g, w in zip(got[name], refs[name])),
+              f"previous {name} body at d 256: max abs err {err} over atol=rtol={tol}")
+        prev = [cuda_ms(calls[name], copies, iters=10) for _ in range(2)]
+        second[name] = cuda_ms(kernels[name], copies, iters=10)
+        extra[name] = dict(previous_ms=sum(prev) / 2, previous_max_abs_err=err,
+                           previous_body=FLASH_BASES[name])
+        log(f"phase10a {name} {q.dtype} d=256 in turns: kernel "
+            f"{fwd_ms if name == 'fused_attention_fwd' else dkv_ms:.4f} previous {prev[0]:.4f} "
+            f"previous {prev[1]:.4f} kernel {second[name]:.4f} ms; previous max abs err "
+            f"{err:.3e}")
+    del got
+    b, s, h, _ = q.shape
+    g = h // k.shape[2]
+    split_ms, split_err = {}, {}
+    for n in (n for n in range(1, g + 1) if g % n == 0):
+        dk, dv = direct_dkv_d256(fu, n, q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        split_err[n] = max((dk.float() - want_dk.float()).abs().max().item(),
+                           (dv.float() - want_dv.float()).abs().max().item())
+        check(torch.allclose(dk.float(), want_dk.float(), atol=tol, rtol=tol)
+              and torch.allclose(dv.float(), want_dv.float(), atol=tol, rtol=tol),
+              f"d-256 dK/dV at n_split {n}: max abs err {split_err[n]} over atol=rtol={tol}")
+        del dk, dv
+        split_ms[n] = cuda_ms(lambda *a, n=n: direct_dkv_d256(fu, n, *a), copies, iters=10)
+    picked = fu.pick_dkv_split(b, k.shape[2], s, g, fu._sm_count(q.device))
+    log(f"phase10a fused_attention_bwd_dkv {q.dtype} d=256 by n_split (ms): "
+        + " ".join(f"{n}={t:.4f}" for n, t in split_ms.items()) + f"; picked {picked}")
+    extra["fused_attention_bwd_dkv"].update(n_split=picked, split_ms=split_ms,
+                                            split_max_abs_err=split_err)
+    return extra, second
+
+
+def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs, want):
     """Kernel (L2-cold copies, as Phase 4), plain, bound and ``sdpa`` times
-    of the three flash kernels at one shape; ``sdpa``'s failure is recorded
+    of the three flash kernels at one shape, with the launcher each wrapper
+    called (``body``); at d 256 in 16-bit types also the replaced mma.sync
+    bodies' times (:func:`wide_previous`).  ``sdpa``'s failure is recorded
     as its error."""
     delta = attention_delta(out, do)
     set_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, do))
@@ -2604,6 +2696,12 @@ def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
         "fused_attention_bwd_dkv": cuda_ms(
             lambda *a: fu.fused_attention_bwd_dkv(*a, causal=True), copies, iters=10),
     }
+    prev, second = {}, {}
+    if q.dtype != torch.float32 and q.shape[-1] == 256:
+        prev, second = wide_previous(fu, copies, times["fused_attention_fwd"],
+                                     times["fused_attention_bwd_dkv"], want)
+        for name, ms in second.items():
+            times[name] = 0.5 * (times[name] + ms)
     del copies
     plain_fwd = cuda_ms(lambda q, k, v: fu.fused_attention_fwd_plain(
         q, k, v, causal=True, block_size=blk), [(q, k, v)], iters=2)
@@ -2635,14 +2733,16 @@ def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
         rec[name] = dict(max_abs_err=err[name], ms=times[name],
                          plain_ms=plain_fwd if fwd else plain_bwd, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_fwd if fwd else None,
-                         library_bwd_ms=None if fwd else lib_bwd, library_error=lib_err)
+                         library_bwd_ms=None if fwd else lib_bwd, library_error=lib_err,
+                         body=fu._symbol(FLASH_BASES[name], q), **prev.get(name, {}))
     return rec
 
 
 def phase10a(smi):
     """The three flash kernels at head dims 256 and 96 (Gemma-2B, Gemma-7B
     and Phi-3-mini attention geometry, B 2 x S 2048 causal, unpadded and
-    with batch 0 left-padded by 300 keys) in bf16 and fp32, and the paged
+    with batch 0 left-padded by 300 keys) in bf16 and fp32, and fp16 at
+    Gemma-2B's, with the d-256 mma.sync bodies beside the sm90 ones; the paged
     pair at head dim 96 (bf16, fp32) and 256 (fp32) at Phase 1's long
     shape, each against its plain version, with times."""
     import torch.nn.functional as F
@@ -2656,7 +2756,9 @@ def phase10a(smi):
     b, s = PHASE10_B, PHASE10_S
     for geom, h, kh, d in PHASE10_FLASH_SHAPES:
         blk = pick_block_pallas(s, d)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            if dtype == torch.float16 and geom != "Gemma-2B":
+                continue
             tol = TOL[str(dtype)]
             for pad in (0, PHASE10_PAD):
                 q, k, v, do, valid = flash_inputs(dtype, b, s, pad, gen, h=h, kh=kh, d=d)
@@ -2685,10 +2787,12 @@ def phase10a(smi):
                     f"left_pad={pad}: max_abs_err "
                     + " ".join(f"{n}={e:.3e}" for n, e in errs.items()) + f" (atol=rtol={tol})")
                 if not pad:
-                    rec = wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs)
+                    rec = wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs,
+                                           (want_out, want[1], want[2]))
                     flash[(geom, str(dtype))] = rec
                     for name, r in rec.items():
-                        log(f"phase10a {name} {geom} d={d} {dtype}: kernel_ms={r['ms']:.4f} "
+                        log(f"phase10a {name} {geom} d={d} {dtype}: body {r['body']} "
+                            f"kernel_ms={r['ms']:.4f} previous_ms={r.get('previous_ms')} "
                             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                             f"({r['bound_by']}) library_ms={r['library_ms']} "
                             f"library_bwd_ms={r['library_bwd_ms']} "
@@ -3063,8 +3167,9 @@ def main() -> int:
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
     log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS)
-        + f"; head dims: paged {pa_dims}, flash {fu_dims} (flash 96 and 256, and fp32 at "
-        f"every head dim, on {FLASH_SOURCE})")
+        + f"; head dims: paged {pa_dims}, flash {fu_dims} (flash 96, dQ at 256, and fp32 at "
+        f"every head dim, on {FLASH_SOURCE}; bf16/fp16 forward and dK/dV at 256 on "
+        f"{FWD_SOURCE} and {DKV_SOURCE})")
     launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"], **p5}
     check(win3 > 0, "window kernel not launched in phase 3")
     record = []
@@ -3095,10 +3200,16 @@ def main() -> int:
                 "fused_attention_bwd_dq": (DQ_SOURCE, DQ_DESIGN),
                 "fused_attention_bwd_dkv": (DKV_SOURCE, DKV_DESIGN)}.get(name)
         if sm90:
+            # The body each (head dim, dtype) runs: d 96 and fp32 on
+            # flash_attention.cu, bf16/fp16 at d 256 on the sm90 file for the
+            # forward and dK/dV and on flash_attention.cu for dQ.
+            wide = {"d96": FLASH_SOURCE, "d256-float32": FLASH_SOURCE}
+            for dt in ("bfloat16", "float16"):
+                wide[f"d256-{dt}"] = FLASH_SOURCE if name == "fused_attention_bwd_dq" else sm90[0]
             extra = dict(source=sm90[0], previous_source=FLASH_SOURCE, design=sm90[1],
                          dtypes={"bfloat16": sm90[0], "float16": sm90[0],
                                  "float32": FLASH_SOURCE},
-                         wide_heads_source=FLASH_SOURCE)  # head dims 96 and 256, every dtype
+                         wide_heads_source=wide)
         record.append(dict(dict(name=name, route="cuda", source=FLASH_SOURCE,
                                 replaces=REPLACES[name], launches=launches[name],
                                 launches_phase6=p6[name], launches_phase8=p8[name],

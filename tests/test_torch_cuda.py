@@ -337,11 +337,12 @@ def fwd_symbols(monkeypatch):
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 @pytest.mark.parametrize("groups", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("s", [64, 100, 129, 200, 1024])
 def test_flash_fwd_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal):
-    """The Hopper forward (128-row CTAs over 128-key tiles) at S below one
-    tile, across a ragged edge and long, against the plain forward."""
+    """The Hopper forward (128-row CTAs over 128-key tiles, 64-key at d
+    256) at S below one tile, across a ragged edge and long, against the
+    plain forward."""
     q, k, v, _, _ = _flash_inputs(67, 2, s, 2 * groups, 2, d, dtype, False)
     before = fu.fused_attention_fwd.launches
     out, lse = fu.fused_attention_fwd(q, k, v, causal=causal, block_size=s)
@@ -357,12 +358,12 @@ def test_flash_fwd_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_fwd_sm90_left_pad_past_a_tile(cuda, dtype, d, causal):
-    """Batch 0 left-padded by 300 keys (its first two 128-key tiles hold no
-    valid key; under the causal mask its first 300 rows admit none), batch
-    1 all invalid: empty rows output 0 with lse ~ -1e30 and get zero
-    gradients from the backward kernels."""
+    """Batch 0 left-padded by 300 keys (its first two 128-key tiles, four
+    64-key tiles at d 256, hold no valid key; under the causal mask its
+    first 300 rows admit none), batch 1 all invalid: empty rows output 0
+    with lse ~ -1e30 and get zero gradients from the backward kernels."""
     s, pad = 400, 300
     q, k, v, do, _ = _flash_inputs(71, 2, s, 8, 2, d, dtype, False)
     valid = torch.ones(2, s, dtype=torch.int8, device="cuda")
@@ -424,10 +425,12 @@ def _dkv_inputs(seed, b, s, groups, d, dtype, causal, valid=None):
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 @pytest.mark.parametrize("groups", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("s", [64, 100, 129, 200, 1024])
 def test_flash_bwd_dkv_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal):
-    """The Hopper dK/dV kernel (128-key CTAs over 64-row Q/dO tiles) at S
+    """The Hopper dK/dV kernel (128-key CTAs over 64-row Q/dO tiles; at d
+    256 64-key CTAs, the group split over CTAs whose fp32 partials a second
+    kernel sums whenever the key tiles alone do not fill the card) at S
     below one tile, across a ragged edge (129: an lse row that is not
     16-byte aligned) and long, against the plain backward."""
     q, k, v, do, out, lse, delta = _dkv_inputs(83, 2, s, groups, d, dtype, causal)
@@ -435,7 +438,8 @@ def test_flash_bwd_dkv_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal
     dk, dv = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
     torch.cuda.synchronize()
     assert fu.fused_attention_bwd_dkv.launches == before + 1
-    assert fwd_symbols == ["atpu_flash_bwd_dkv_sm90"]
+    assert fwd_symbols == ["atpu_flash_bwd_dkv_sm90_d256" if d == 256 else
+                           "atpu_flash_bwd_dkv_sm90"]
     _, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
                                                        block_size=s)
     tol = TOL[dtype]
@@ -457,6 +461,34 @@ def test_flash_bwd_dkv_sm90_is_deterministic(cuda, dtype):
     for a, b in zip(first, second):
         assert torch.equal(a, b)
     assert (first[0][0, :70] == 0).all() and (first[1][0, :70] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_flash_bwd_dkv_d256_split_is_deterministic(cuda, fwd_symbols, dtype):
+    """Gemma-2B's 8 q / 1 kv heads of 256 at B 2 x S 2048, batch 0's first
+    300 keys invalid: the query heads split over CTAs (n_split > 1), the
+    partials summed in split order, so two calls agree bit for bit, the
+    invalid keys get exactly 0, and the result matches the plain backward."""
+    b, s, pad = 2, 2048, 300
+    valid = torch.ones(b, s, dtype=torch.int8, device="cuda")
+    valid[0, :pad] = 0
+    q, k, v, do, _ = _flash_inputs(139, b, s, 8, 1, 256, dtype, False)
+    out, lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=True, block_size=512)
+    delta = fu._delta(out, do)
+    n_split = fu.pick_dkv_split(b, 1, s, 8, fu._sm_count(q.device))
+    assert n_split > 1
+    first = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, valid, causal=True)
+    second = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, valid, causal=True)
+    torch.cuda.synchronize()
+    assert fwd_symbols == ["atpu_flash_bwd_dkv_sm90_d256"] * 2
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    assert (first[0][0, :pad] == 0).all() and (first[1][0, :pad] == 0).all()
+    _, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, valid,
+                                                       causal=True, block_size=512)
+    tol = TOL[dtype]
+    for got, ref, name in zip(first, (want_dk, want_dv), ("dk", "dv")):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol, msg=name)
 
 
 def test_flash_bwd_dkv_fp32_stays_on_the_cuda_core_body(cuda, fwd_symbols):
@@ -633,9 +665,10 @@ def test_auto_attention_with_unsupported_head_dim_raises(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_symbols, dtype):
     """Gemma's head dim on the card: ``attention_impl="auto"`` at S 1024
-    runs the forward, dQ and dK/dV kernels of ``flash_attention.cu`` once
-    per layer each, and the loss and gradients match the same step on
-    their plain versions."""
+    runs the forward, dQ and dK/dV kernels once per layer each (fp32 all on
+    ``flash_attention.cu``; bf16 the sm90 forward and d-256 dK/dV with that
+    file's dQ), and the loss and gradients match the same step on their
+    plain versions."""
     cfg = llama.LlamaConfig.tiny(head_dim=256, num_layers=2, max_seq_len=1024, dtype=dtype,
                                  num_heads=4, num_kv_heads=1, attention_impl="auto")
     model = llama.LlamaForCausalLM(cfg, seed=0)
@@ -649,8 +682,10 @@ def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_sym
     after = (fu.fused_attention_fwd.launches, fu.fused_attention_bwd_dq.launches,
              fu.fused_attention_bwd_dkv.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2)
-    assert sorted(set(fwd_symbols)) == ["atpu_flash_bwd_dkv", "atpu_flash_bwd_dq",
-                                        "atpu_flash_fwd"]
+    assert sorted(set(fwd_symbols)) == (
+        ["atpu_flash_bwd_dkv", "atpu_flash_bwd_dq", "atpu_flash_fwd"]
+        if dtype == torch.float32 else
+        ["atpu_flash_bwd_dkv_sm90_d256", "atpu_flash_bwd_dq", "atpu_flash_fwd_sm90"])
     fwd, bwd = fu.fused_attention_fwd, fu.fused_attention_bwd
     fu.fused_attention_fwd, fu.fused_attention_bwd = (fu.fused_attention_fwd_plain,
                                                       fu.fused_attention_bwd_plain)
@@ -669,11 +704,37 @@ def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_sym
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("s", [200, 1024])
 def test_flash_wide_heads_ragged_and_long(cuda, fwd_symbols, s, dtype, d):
-    """Head dims 96 and 256 on the body of ``flash_attention.cu`` in every
-    dtype (the sm90 kernels are not called), S off the 64-row tiles and
-    long, with a left-padded and an all-invalid batch."""
+    """Head dims 96 and 256, S off the 64-row tiles and long, with a
+    left-padded and an all-invalid batch: d 96 and fp32 run the body of
+    ``flash_attention.cu``, bf16 at d 256 the sm90 forward and d-256 dK/dV
+    with that body's dQ."""
     _flash_check(131, 2, s, 8, 2, d, dtype, True, True)
-    assert set(fwd_symbols) == {"atpu_flash_fwd", "atpu_flash_bwd_dq", "atpu_flash_bwd_dkv"}
+    if dtype == torch.bfloat16 and d == 256:
+        want = {"atpu_flash_fwd_sm90", "atpu_flash_bwd_dq", "atpu_flash_bwd_dkv_sm90_d256"}
+    else:
+        want = {"atpu_flash_fwd", "atpu_flash_bwd_dq", "atpu_flash_bwd_dkv"}
+    assert set(fwd_symbols) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+def test_flash_d256_fp32_and_dq_stay_on_the_cuda_core_body(cuda, fwd_symbols, dtype):
+    """At head dim 256 fp32 runs all three kernels on ``flash_attention.cu``
+    and bf16/fp16 run dQ there (``atpu_flash_bwd_dq``), against the plain
+    backward."""
+    q, k, v, do, out, lse, delta = _dkv_inputs(149, 2, 300, 4, 256, dtype, True)
+    dq = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    fu.fused_attention_fwd(q, k, v, causal=True, block_size=300)
+    fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    torch.cuda.synchronize()
+    sm90 = dtype != torch.float32
+    assert fwd_symbols == ["atpu_flash_bwd_dq",
+                           "atpu_flash_fwd_sm90" if sm90 else "atpu_flash_fwd",
+                           "atpu_flash_bwd_dkv_sm90_d256" if sm90 else "atpu_flash_bwd_dkv"]
+    want_dq = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                           block_size=300)[0]
+    tol = TOL[dtype]
+    torch.testing.assert_close(dq.float(), want_dq.float(), rtol=tol, atol=tol)
 
 
 # -- the training loop's data pipeline and checkpoints on the card -----------

@@ -333,20 +333,96 @@ def test_plain_versions_match_pallas_at_wide_heads(d, masked, h, kv_heads):
         assert np.all(out.numpy()[0, :40] == 0) and np.all(grads[1].numpy()[0, :40] == 0)
 
 
-def test_wrappers_take_the_kernels_head_dims_only():
+# The launcher each wrapper calls for bf16/fp16 at a head dim: the sm90
+# bodies at 64 and 128, the forward's and dK/dV's at 256 too; the rest (and
+# fp32 everywhere) on flash_attention.cu's body.
+_ROUTES = {
+    "atpu_flash_fwd": {64: "atpu_flash_fwd_sm90", 128: "atpu_flash_fwd_sm90",
+                       256: "atpu_flash_fwd_sm90"},
+    "atpu_flash_bwd_dq": {64: "atpu_flash_bwd_dq_sm90", 128: "atpu_flash_bwd_dq_sm90"},
+    "atpu_flash_bwd_dkv": {64: "atpu_flash_bwd_dkv_sm90", 128: "atpu_flash_bwd_dkv_sm90",
+                           256: "atpu_flash_bwd_dkv_sm90_d256"},
+}
+
+
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("kernel", sorted(_ROUTES))
+def test_wrappers_take_the_kernels_head_dims_only(kernel, dtype, d):
     """The head dims the kernels take are 64, 96, 128 and 256: the wrapper's
     check passes them (on a CPU tensor it needs no card) and raises for
-    another, and the routing sends 96 and 256 to the body of
-    ``flash_attention.cu`` in every dtype."""
+    another.  Routing is per kernel: bf16/fp16 forward and dK/dV at 64, 128
+    and 256 and dQ at 64 and 128 go to their sm90 bodies, everything else to
+    the body of ``flash_attention.cu``."""
     assert tfu._HEAD_DIMS == (64, 96, 128, 256)
-    for d in (96, 256):
-        x = torch.zeros(1, 64, 2, d)
-        tfu._check(x, x, x, None)
-        for dtype in (torch.float32, torch.bfloat16, torch.float16):
-            assert tfu._symbol("atpu_flash_fwd", x.to(dtype)) == "atpu_flash_fwd"
-    assert tfu._symbol("atpu_flash_bwd_dq", torch.zeros(1, 64, 2, 128,
-                                                        dtype=torch.bfloat16)) == \
-        "atpu_flash_bwd_dq_sm90"
-    x = torch.zeros(1, 64, 2, 80)
+    x = torch.zeros(1, 64, 2, d, dtype=dtype)
+    tfu._check(x, x, x, None)
+    want = kernel if dtype == torch.float32 else _ROUTES[kernel].get(d, kernel)
+    assert tfu._symbol(kernel, x) == want
+    assert want in tfu._ARGTYPES
+    x = torch.zeros(1, 64, 2, 80, dtype=dtype)
     with pytest.raises(ValueError, match="head_dim 80"):
         tfu._check(x, x, x, None)
+
+
+@pytest.mark.parametrize("b,kh,s,g,sms,want", [
+    (2, 16, 2048, 1, 132, 1),   # Gemma-7B: 1024 CTAs
+    (2, 1, 2048, 8, 132, 4),    # Gemma-2B: 64 key tiles, x4 = 256 CTAs
+    (1, 1, 2048, 8, 132, 8),    # 32 tiles: only x8 = 256 fills a wave
+    (2, 1, 4096, 8, 132, 2),    # 128 tiles: x2 fills the card
+    (2, 8, 2048, 4, 132, 1),    # Llama-3-8B's geometry: 512 CTAs
+    (1, 1, 100, 6, 132, 6),     # 2 tiles: no divisor fills a wave, so the whole group
+    (1, 1, 64, 6, 4, 6),        # 1 tile on 4 SMs: 6 is the least divisor >= 4
+    (3, 2, 1000, 6, 132, 2),    # 96 ragged tiles x 2 = 192
+])
+def test_pick_dkv_split(b, kh, s, g, sms, want):
+    """The d-256 dK/dV split: the least divisor of the group that fills one
+    wave of CTAs (or the whole group), from shapes and the SM count only."""
+    n = tfu.pick_dkv_split(b, kh, s, g, sms)
+    assert n == want and g % n == 0
+    tiles = b * kh * -(-s // 64)
+    assert n == g or tiles * n >= sms
+    assert all(tiles * m < sms for m in range(1, n) if g % m == 0)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4, 8])
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "padded"])
+def test_split_dkv_sum_matches_pallas_group_sum(masked, n_split):
+    """The d-256 dK/dV kernel's arithmetic in plain torch: per-split fp32
+    partials over a kv head's query heads, added in split order and cast,
+    equal ``_flash_bwd``'s per-query-head dK/dV summed over the group
+    (Pallas interpret mode) at Gemma-2B's 8 q / 1 kv heads of 256, S 128,
+    with batch 0 left-padded by 40 keys when ``masked`` (its invalid keys
+    get exactly 0)."""
+    b, s, h, kh, d = 2, 128, 8, 1, 256
+    rng = np.random.default_rng(17)
+    q, do = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, s, kh, d)).astype(np.float32) for _ in range(2))
+    valid = None
+    if masked:
+        valid = np.ones((b, s), np.int8)
+        valid[0, :40] = 0
+    jvalid = None if valid is None else jnp.asarray(valid)
+    tr = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    scale = float(1.0 / np.sqrt(d))
+    out, lse = jpa._flash_fwd(tr(q), tr(k), tr(v), scale=scale, causal=True, blk_q=BLK,
+                              blk_k=BLK, interpret=True, kv_valid=jvalid)
+    _, want_dk, want_dv = jpa._flash_bwd(tr(q), tr(k), tr(v), out, lse, tr(do), scale=scale,
+                                         causal=True, blk_q=BLK, blk_k=BLK, interpret=True,
+                                         kv_valid=jvalid)
+    t_out = torch.from_numpy(np.asarray(out).transpose(0, 2, 1, 3).copy())
+    delta = tfu._delta(t_out, _t(do))
+    tvalid = None if valid is None else torch.from_numpy(valid)
+    part_dk, part_dv = tfu.dkv_split_partials_plain(
+        _t(q), _t(k), _t(v), _t(do), torch.from_numpy(np.array(lse)), delta, tvalid,
+        causal=True, n_split=n_split)
+    assert part_dk.shape == part_dv.shape == (n_split, b, s, kh, d)
+    assert part_dk.dtype == torch.float32
+    dk, dv = tfu.dkv_split_sum_plain(part_dk, part_dv, torch.float32)
+    for got, ref, name in ((dk, want_dk, "dk"), (dv, want_dv, "dv")):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref).transpose(0, 2, 1, 3),
+                                   atol=5e-5, rtol=5e-5, err_msg=name)
+    if masked:
+        assert np.all(dk.numpy()[0, :40] == 0) and np.all(dv.numpy()[0, :40] == 0)
+        assert torch.all(part_dk[:, 0, :40] == 0) and torch.all(part_dv[:, 0, :40] == 0)
