@@ -5,8 +5,8 @@
 // Replaces _bwd_dq_kernel (accelerate_tpu/ops/pallas_attention.py:206,
 // launched by _flash_bwd at :338) under the contract of atpu_flash_bwd_dq:
 //   q, do, dq [B, S, H, d]; k, v [B, S, KH, d], query head h reads kv head
-//   h / (H / KH); lse, delta [B, H, S] fp32; valid [B, S] int8 or null; d 64
-//   or 128; bf16 or fp16.  For each query row i of head h and each key j that
+//   h / (H / KH); lse, delta [B, H, S] fp32; valid [B, S] int8 or null; d 64,
+//   128 or 256; bf16 or fp16.  For each query row i of head h and each key j that
 //   is admitted (key < S, causal j <= i, valid[j] != 0): s_ij = (q_i . k_j)
 //   * scale in fp32, p_ij = exp(s_ij - lse_i) (a masked pair has s = -1e30
 //   and is gated to 0), dP_ij = dO_i . v_j in fp32, dS_ij = p_ij (dP_ij -
@@ -62,6 +62,21 @@
 // is packed.  ptxas's report (-Xptxas -v, kept beside the library) shows no
 // spills.
 //
+// Head dim 256.  64-key tiles would need Q 64 KB + dO 64 KB + 3 x (32 + 32)
+// = 320 KB, and 128 + 32 + 32 + 16 registers a consumer thread, so the K/V
+// tile is 32 keys at d 256 (Plan::kBN) in a 2-stage ring: Q 64 KB + dO 64 KB
+// + 2 stages x (K 16 KB + V 16 KB) = 192 KB (3 stages fit in 224 KB and
+// were timed 0.4% slower on an H100), and per consumer thread dQ 128, S 16,
+// dP 16 and packed dS 8 registers.  S and dP are wgmma
+// m64n32k16 (16 k-steps); dQ += dS.K is two m64n128k16 halves (K blocks 0-1
+// and 2-3) over the same dS registers for each of the tile's two k16 steps,
+// which is the register layout of one m64n256k16.  The 128-row CTA, the
+// heaviest-first grid, the causal skip, the flag, the epilogue and the
+// absence of atomics are those of d 128; each warpgroup still executes only
+// the minimum products.  An N = 32 product reads its 64-row A tile from
+// shared memory for half the output of an N = 64 one, so at d 256 the
+// products read 1.4x the shared-memory bytes per flop of d 128.
+//
 // Traps, and how each is handled:
 //   - K is a B operand twice: K-major for S (stepping 32 bytes per k16
 //     inside a 64-column block and 8 KB across blocks) and MN-major for dQ
@@ -93,21 +108,22 @@
 namespace {
 
 constexpr int kBM = 128;  // query rows per CTA: two consumer warpgroups of 64
-constexpr int kBN = 64;   // keys per streamed K/V tile
-constexpr int kStages = 3;
+constexpr int kStages = 3;       // K/V ring depth at d 64 and 128
+constexpr int kStagesD256 = 2;   // and at d 256
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
 constexpr int kProducerRegs = 24;   // setmaxnreg: 128 x 24 + 256 x 240 = 384 x 168
 constexpr int kConsumerRegs = 240;
 constexpr uint32_t kQBlock = kBM * 128;  // one 64-column block of a Q or dO tile, bytes
-constexpr uint32_t kKBlock = kBN * 128;  // one 64-column block of a K or V tile, bytes
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr size_t kSmemMax = 227 * 1024;
 
 template <int D, int NS>
 struct Plan {
-  static constexpr uint32_t q_tile = (D / 64) * kQBlock;   // Q or dO
-  static constexpr uint32_t kv_tile = (D / 64) * kKBlock;  // K or V of one stage
+  static constexpr int kBN = D == 256 ? 32 : 64;     // keys per streamed K/V tile
+  static constexpr uint32_t kv_block = kBN * 128;    // one 64-column block of K or V, bytes
+  static constexpr uint32_t q_tile = (D / 64) * kQBlock;    // Q or dO
+  static constexpr uint32_t kv_tile = (D / 64) * kv_block;  // K or V of one stage
   static constexpr uint32_t off_do = q_tile;
   static constexpr uint32_t off_k = 2 * q_tile;
   static constexpr uint32_t off_v = off_k + NS * kv_tile;
@@ -192,12 +208,17 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define ATPU_ACC8(i)                                                                 \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ATPU_ACC32 ATPU_ACC8(0), ATPU_ACC8(8), ATPU_ACC8(16), ATPU_ACC8(24)
+#define ATPU_REGS16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define ATPU_ACC16 ATPU_ACC8(0), ATPU_ACC8(8)
+#define ATPU_ACC32 ATPU_ACC16, ATPU_ACC8(16), ATPU_ACC8(24)
 #define ATPU_ACC64 ATPU_ACC32, ATPU_ACC8(32), ATPU_ACC8(40), ATPU_ACC8(48), ATPU_ACC8(56)
 
-// d[32] (+)= A[64 x 16] . B[16 x 64]: A and B K-major in shared memory.
+// d[N/2] (+)= A[64 x 16] . B[16 x N]: A and B K-major in shared memory.
 template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc);
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int acc);
 // d[N/2] += A[64 x 16] . B[16 x N]: A in registers, B MN-major in shared
 // memory (transposed).
 template <typename T>
@@ -213,6 +234,15 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX " {" ATPU_REGS32    \
                  "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                            \
                  : ATPU_ACC32                                                                  \
+                 : "l"(da), "l"(db), "r"(acc));                                                \
+  }                                                                                            \
+  template <>                                                                                  \
+  __device__ __forceinline__ void wgmma_ss_n32<TYPE>(float (&d)[16], uint64_t da, uint64_t db, \
+                                                     int acc) {                                \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                  \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." PTX "." PTX " {" ATPU_REGS16    \
+                 "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                            \
+                 : ATPU_ACC16                                                                  \
                  : "l"(da), "l"(db), "r"(acc));                                                \
   }                                                                                            \
   template <>                                                                                  \
@@ -237,13 +267,30 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 ATPU_WGMMA(__nv_bfloat16, "bf16")
 ATPU_WGMMA(__half, "f16")
 
-// d[D/2] += A[64 x 16] . B[16 x D], B MN-major.
-template <typename T, int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 128) {
-    wgmma_rs_n128<T>(d, a, db);
+// d[N/2] (+)= A[64 x 16] . B[16 x N] for the key tile's width N.
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64<T>(d, da, db, acc);
   } else {
-    wgmma_rs_n64<T>(d, a, db);
+    wgmma_ss_n32<T>(d, da, db, acc);
+  }
+}
+
+// d[D/2] += A[64 x 16] . B[16 x D], B MN-major from a K tile whose 64-column
+// blocks lie `block` bytes apart; at d 256 two m64n128k16 halves (blocks 0-1
+// into d[0..63], 2-3 into d[64..127]: the register layout of one m64n256k16).
+template <typename T, int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint32_t addr,
+                                         uint32_t block) {
+  if constexpr (D == 256) {
+    wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(d), a, desc_sw128(addr, block, 1024));
+    wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(d + 64), a,
+                     desc_sw128(addr + 2 * block, block, 1024));
+  } else if constexpr (D == 128) {
+    wgmma_rs_n128<T>(d, a, desc_sw128(addr, block, 1024));
+  } else {
+    wgmma_rs_n64<T>(d, a, desc_sw128(addr, block, 1024));
   }
 }
 
@@ -277,14 +324,14 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 // With kMask, a pair is admitted only where the key is below S, valid (vm,
 // the tile's kv_valid bytes, or null) and, under the causal mask, at or
 // before the row.
-template <bool kMask>
-__device__ __forceinline__ void dscores(float (&sc)[32], const float (&dp)[32],
+template <bool kMask, int NR>
+__device__ __forceinline__ void dscores(float (&sc)[NR], const float (&dp)[NR],
                                         const float (&lse2)[2], const float (&dlt)[2], int t,
                                         float scale_log2, float scale, int key0,
                                         const int (&row)[2], int S, int causal,
                                         const uint8_t* vm) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NR / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1;
@@ -312,7 +359,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const int8_t* __restrict__ valid, T* __restrict__ dq, int S, int H,
                          int KH, int causal, float scale, float scale_log2) {
   using P = Plan<D, NS>;
+  constexpr int kBN = P::kBN;
   constexpr int NA = D / 2;   // dQ accumulator registers per thread
+  constexpr int NR = kBN / 2;  // S and dP accumulator registers per thread
   constexpr int CPR = D / 8;  // 16-byte chunks per dQ row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
@@ -356,17 +405,15 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_wait(empty + 8 * s, ((i / NS) & 1) ^ 1);
       const int key0 = i * kBN;
       if (vld) {
-        uint32_t word = 0;
+        constexpr int KPL = kBN / 32;  // keys per lane: 2, and 1 at d 256
         bool all = true;
 #pragma unroll
-        for (int e = 0; e < kBN / 32; ++e) {
-          const int key = key0 + (kBN / 32) * lane + e;
+        for (int e = 0; e < KPL; ++e) {
+          const int key = key0 + KPL * lane + e;
           const bool ok = key < S && vld[key] != 0;
-          word |= static_cast<uint32_t>(ok) << (8 * e);
+          smem[P::off_mask + s * kBN + KPL * lane + e] = ok;
           all = all && ok;
         }
-        *reinterpret_cast<uint16_t*>(smem + P::off_mask + s * kBN + (kBN / 32) * lane) =
-            static_cast<uint16_t>(word);
         const int tile_all = __all_sync(0xffffffffu, all);
         if (lane == 0) *reinterpret_cast<int*>(smem + P::off_all + 4 * s) = tile_all;
       }
@@ -375,8 +422,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint32_t k_dst = sbase + P::off_k + s * P::kv_tile;
         const uint32_t v_dst = sbase + P::off_v + s * P::kv_tile;
         for (int c = 0; c < D / 64; ++c) {
-          tma_load(k_dst + c * kKBlock, &tm_k, 64 * c, kh, key0, b, full + 8 * s);
-          tma_load(v_dst + c * kKBlock, &tm_v, 64 * c, kh, key0, b, full + 8 * s);
+          tma_load(k_dst + c * P::kv_block, &tm_k, 64 * c, kh, key0, b, full + 8 * s);
+          tma_load(v_dst + c * P::kv_block, &tm_v, 64 * c, kh, key0, b, full + 8 * s);
         }
       } else {
         mbar_arrive(full + 8 * s);
@@ -422,21 +469,21 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       // S = Q.K^T and dP = dO.V^T over d in k16 steps (32 bytes inside a
       // 64-column block).  Their first step does not read the accumulators
       // (scale-d 0), so they live only inside the step.
-      float sc[32], dp[32];
+      float sc[NR], dp[NR];
       wgmma_fence();
 #pragma unroll
       for (int kd = 0; kd < D / 16; ++kd) {
         const uint32_t qa = (kd / 4) * kQBlock + (kd % 4) * 32;
-        const uint32_t ka = (kd / 4) * kKBlock + (kd % 4) * 32;
-        wgmma_ss_n64<T>(sc, desc_sw128(q_addr + qa, 16, 1024), desc_sw128(k_addr + ka, 16, 1024),
-                        kd > 0);
+        const uint32_t ka = (kd / 4) * P::kv_block + (kd % 4) * 32;
+        wgmma_ss<T, kBN>(sc, desc_sw128(q_addr + qa, 16, 1024),
+                         desc_sw128(k_addr + ka, 16, 1024), kd > 0);
       }
 #pragma unroll
       for (int kd = 0; kd < D / 16; ++kd) {
         const uint32_t qa = (kd / 4) * kQBlock + (kd % 4) * 32;
-        const uint32_t ka = (kd / 4) * kKBlock + (kd % 4) * 32;
-        wgmma_ss_n64<T>(dp, desc_sw128(do_addr + qa, 16, 1024),
-                        desc_sw128(v_addr + ka, 16, 1024), kd > 0);
+        const uint32_t ka = (kd / 4) * P::kv_block + (kd % 4) * 32;
+        wgmma_ss<T, kBN>(dp, desc_sw128(do_addr + qa, 16, 1024),
+                         desc_sw128(v_addr + ka, 16, 1024), kd > 0);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -453,20 +500,20 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // k16 chunk kk of dS, in k's dtype = the A registers of the kk-th step
       // of dQ += dS.K.
-      uint32_t ds[4][4];
+      uint32_t ds[kBN / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
         for (int i2 = 0; i2 < 4; ++i2)
           ds[kk][i2] = pack2<T>(sc[8 * kk + 2 * i2], sc[8 * kk + 2 * i2 + 1]);
 
-      // dQ += dS.K over the tile's 64 keys in k16 steps (2048 bytes: 16
-      // rows), K MN-major.
+      // dQ += dS.K over the tile's keys in k16 steps (2048 bytes: 16 rows),
+      // K MN-major.
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<T, D>(acc, ds[kk], desc_sw128(k_addr + kk * 2048, kKBlock, 1024));
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_rs<T, D>(acc, ds[kk], k_addr + kk * 2048, P::kv_block);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(acc);
@@ -558,8 +605,8 @@ int run(CUtensorMapDataType dt, const Args& a) {
   if (enc == nullptr) return kErrEntryPoint;
   CUtensorMap tq, tk, tv, tdo;
   int rc = encode(&tq, enc, dt, a.q, D, a.H, a.S, a.B, kBM);
-  if (rc == 0) rc = encode(&tk, enc, dt, a.k, D, a.KH, a.S, a.B, kBN);
-  if (rc == 0) rc = encode(&tv, enc, dt, a.v, D, a.KH, a.S, a.B, kBN);
+  if (rc == 0) rc = encode(&tk, enc, dt, a.k, D, a.KH, a.S, a.B, Plan<D, NS>::kBN);
+  if (rc == 0) rc = encode(&tv, enc, dt, a.v, D, a.KH, a.S, a.B, Plan<D, NS>::kBN);
   if (rc == 0) rc = encode(&tdo, enc, dt, a.dout, D, a.H, a.S, a.B, kBM);
   if (rc != 0) return rc;
   auto kernel = flash_bwd_dq_sm90_kernel<T, D, NS>;
@@ -585,8 +632,8 @@ bool bad_args(const Args& a) {
 
 }  // namespace
 
-// dtype 1 bfloat16, 2 float16 (float32 runs atpu_flash_bwd_dq); hd 64 or
-// 128.  q, do [B, S, H, hd], k/v [B, S, KH, hd], lse/delta [B, H, S] fp32,
+// dtype 1 bfloat16, 2 float16 (float32 runs atpu_flash_bwd_dq); hd 64, 128
+// or 256.  q, do [B, S, H, hd], k/v [B, S, KH, hd], lse/delta [B, H, S] fp32,
 // valid [B, S] int8 or null; q, k, v, do, dq 16-byte aligned.  Writes dq
 // [B, S, H, hd].  Returns 0, a cudaError_t, 999 if the tensor-map encoder is
 // missing, or 1000 + the CUresult of a failed encode.
@@ -602,6 +649,8 @@ extern "C" int atpu_flash_bwd_dq_sm90(int dtype, const void* q, const void* k, c
     case 1128: return run<__nv_bfloat16, 128, kStages>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
     case 2064: return run<__half, 64, kStages>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, a);
     case 2128: return run<__half, 128, kStages>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, a);
+    case 1256: return run<__nv_bfloat16, 256, kStagesD256>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
+    case 2256: return run<__half, 256, kStagesD256>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,8 +5,8 @@
 // Replaces _fwd_kernel (accelerate_tpu/ops/pallas_attention.py:96, launched
 // by _flash_fwd at :174), with the contract of atpu_flash_fwd:
 //   q, out [B, S, H, d]; k, v [B, S, KH, d]; query head h reads kv head
-//   h / (H / KH); valid [B, S] int8 or null; lse [B, H, S] fp32; d 64, 128
-//   or 256; bf16 or fp16.  Per query row i and key j, s_ij = (q_i . k_j) * scale in
+//   h / (H / KH); valid [B, S] int8 or null; lse [B, H, S] fp32; d 64, 96,
+//   128 or 256; bf16 or fp16.  Per query row i and key j, s_ij = (q_i . k_j) * scale in
 //   fp32, or -1e30 where masked (key past S, causal j > i, valid[j] == 0); a
 //   probability is gated on the masked score (s > -0.5e30), never on the
 //   running max, so a row with no admitted key has l = 0, output 0 and lse ~
@@ -63,6 +63,19 @@
 // (B*H x S/128, heaviest causal tiles first), the causal tile skip, kv_valid
 // and the zero rows of an all-masked query row are those of d 128.
 //
+// Head dim 96.  A 128-byte swizzle box is at most 64 16-bit values wide and
+// 96 is not a multiple of 64, so a d-96 tile is stored as a 64-column
+// 128-byte-swizzled block beside a 32-column 64-byte-swizzled one (a second
+// tensor map per operand, 32 columns wide): Q.K^T takes k-steps 0-3 from the
+// first block and 4-5 from the second (64-byte-swizzle descriptors: 512-byte
+// stride between 8-row groups), and P.V is m64n64k16 over V's first block
+// plus m64n32k16 over its second, from the same P registers (the register
+// layout of one m64n96k16).  Q 24 KB + 2 x (K 24 KB + V 24 KB) = 120 KB; O
+// 48 registers a thread; exactly the minimum products; the epilogue stores
+// 96 columns at a row stride of H x 96.  (The d-128 plan over maps of the
+// real width, zero-filled by TMA past column 96, was timed 6% slower on an
+// H100: P.V over 128 columns makes 7/6 of the products.)
+//
 // Traps, and how each is handled:
 //   - the tensor-map encoder is a driver-API function: fetched once through
 //     cudaGetDriverEntryPoint(ByVersion), so no -lcuda; maps are passed as
@@ -73,8 +86,8 @@
 //     V's MN-major descriptor has the block as its leading byte offset and
 //     1024 bytes (8 keys) as its stride, stepping 2048 bytes per k16;
 //   - alignment: the launcher refuses pointers that are not 16-byte aligned
-//     (fused_attention._check raises first); d in {64, 128, 256} makes every
-//     stride a multiple of 16 bytes;
+//     (fused_attention._check raises first); d in {64, 96, 128, 256} makes
+//     every stride a multiple of 16 bytes (192 at d 96);
 //   - wgmma ordering: wgmma.fence before each batch (the S and O registers,
 //     and the P fragments, were written by ordinary instructions), commit
 //     and wait_group 0 before registers are read, an empty compiler fence on
@@ -106,10 +119,12 @@ constexpr size_t kSmemMax = 227 * 1024;
 
 template <int D>
 struct Plan {
+  static constexpr int kFull = D / 64;        // 64-column 128-byte-swizzled blocks
+  static constexpr bool kHalf = D % 64 != 0;  // + one 32-column 64-byte-swizzled block (d 96)
   static constexpr int kBN = D == 256 ? 64 : 128;  // keys per K/V tile
   static constexpr uint32_t kv_block = kBN * 128;  // one 64-column block of K or V, bytes
-  static constexpr uint32_t q_tile = (D / 64) * kBlock;
-  static constexpr uint32_t kv_tile = (D / 64) * kv_block;  // K or V of one stage
+  static constexpr uint32_t q_tile = kFull * kBlock + (kHalf ? kBlock / 2 : 0);
+  static constexpr uint32_t kv_tile = kFull * kv_block + (kHalf ? kv_block / 2 : 0);  // K or V
   static constexpr uint32_t off_k = q_tile;
   static constexpr uint32_t off_v = off_k + kStages * kv_tile;
   static constexpr uint32_t off_mask = off_v + kStages * kv_tile;  // kv_valid bytes per stage
@@ -165,6 +180,11 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
+// The same for a 64-byte swizzle (layout type 2): d 96's 32-column block.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (2ull << 62);
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -193,7 +213,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define ATPU_ACC8(i)                                                                 \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ATPU_ACC32 ATPU_ACC8(0), ATPU_ACC8(8), ATPU_ACC8(16), ATPU_ACC8(24)
+#define ATPU_REGS16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define ATPU_ACC16 ATPU_ACC8(0), ATPU_ACC8(8)
+#define ATPU_ACC32 ATPU_ACC16, ATPU_ACC8(16), ATPU_ACC8(24)
 #define ATPU_ACC64 ATPU_ACC32, ATPU_ACC8(32), ATPU_ACC8(40), ATPU_ACC8(48), ATPU_ACC8(56)
 
 // d[N/2] (+)= A[64 x 16] . B[16 x N]: A and B K-major in shared memory.
@@ -207,6 +230,8 @@ template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db);
 template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db);
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db);
 
 #define ATPU_WGMMA(TYPE, PTX)                                                                   \
   template <>                                                                                   \
@@ -243,6 +268,15 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX " {" ATPU_REGS32     \
                  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                               \
                  : ATPU_ACC32                                                                   \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));                \
+  }                                                                                             \
+  template <>                                                                                   \
+  __device__ __forceinline__ void wgmma_rs_n32<TYPE>(float (&d)[16], const uint32_t (&a)[4],    \
+                                                     uint64_t db) {                             \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                   \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." PTX "." PTX " {" ATPU_REGS16     \
+                 "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                               \
+                 : ATPU_ACC16                                                                   \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));                \
   }
 
@@ -287,15 +321,21 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 // kernel
 // ---------------------------------------------------------------------------
 
+// tm_q, tm_k, tm_v read 64-column boxes; tm_q2, tm_k2, tm_v2 the 32-column
+// boxes of d 96's second block (unused at the other widths).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v, const int8_t* __restrict__ valid,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_q2,
+                      const __grid_constant__ CUtensorMap tm_k2,
+                      const __grid_constant__ CUtensorMap tm_v2, const int8_t* __restrict__ valid,
                       T* __restrict__ out, float* __restrict__ lse, int S, int H, int KH,
                       int causal, float scale_log2) {
   using P = Plan<D>;
   constexpr int kBN = P::kBN;
+  constexpr int kFull = P::kFull;
   constexpr int NO = D / 2;   // O accumulator registers per thread
   constexpr int NS = kBN / 2;  // S accumulator registers per thread
   extern __shared__ uint8_t smem_raw[];
@@ -332,7 +372,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
       mbar_arrive_tx(qbar, P::q_tile);
-      for (int c = 0; c < D / 64; ++c) tma_load(sbase + c * kBlock, &tm_q, 64 * c, h, q0, b, qbar);
+      for (int c = 0; c < kFull; ++c) tma_load(sbase + c * kBlock, &tm_q, 64 * c, h, q0, b, qbar);
+      if constexpr (P::kHalf)
+        tma_load(sbase + kFull * kBlock, &tm_q2, 64 * kFull, h, q0, b, qbar);
     }
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % kStages;
@@ -355,9 +397,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive_tx(full + 8 * s, 2 * P::kv_tile);
         const uint32_t k_dst = sbase + P::off_k + s * P::kv_tile;
         const uint32_t v_dst = sbase + P::off_v + s * P::kv_tile;
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < kFull; ++c) {
           tma_load(k_dst + c * P::kv_block, &tm_k, 64 * c, kh, key0, b, full + 8 * s);
           tma_load(v_dst + c * P::kv_block, &tm_v, 64 * c, kh, key0, b, full + 8 * s);
+        }
+        if constexpr (P::kHalf) {
+          tma_load(k_dst + kFull * P::kv_block, &tm_k2, 64 * kFull, kh, key0, b, full + 8 * s);
+          tma_load(v_dst + kFull * P::kv_block, &tm_v2, 64 * kFull, kh, key0, b, full + 8 * s);
         }
       } else {
         mbar_arrive(full + 8 * s);
@@ -373,6 +419,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int row_base = q0 + 64 * wg;              // first row of this warpgroup
   const int row[2] = {row_base + 16 * warp + g, row_base + 16 * warp + g + 8};
   const uint32_t q_addr = sbase + 64 * wg * 128;  // this warpgroup's rows of block 0
+  // ... and of the 32-column block (64-byte rows), where there is one.
+  const uint32_t q_half = sbase + kFull * kBlock + 64 * wg * 64;
 
   float o[NO], sc[NS];
 #pragma unroll
@@ -388,13 +436,19 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t k_addr = sbase + P::off_k + s * P::kv_tile;
     const uint32_t v_addr = sbase + P::off_v + s * P::kv_tile;
 
-    // S = Q . K^T over d in k16 steps: 32 bytes inside a 64-column block.
+    // S = Q . K^T over d in k16 steps: 32 bytes inside a 64-column block, and
+    // inside the 32-column block at d 96.
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
-      const uint64_t dq = desc_sw128(q_addr + (kd / 4) * kBlock + (kd % 4) * 32, 16, 1024);
-      const uint64_t dk = desc_sw128(k_addr + (kd / 4) * P::kv_block + (kd % 4) * 32, 16, 1024);
+      const bool full_block = kd < 4 * kFull;
+      const uint64_t dq =
+          full_block ? desc_sw128(q_addr + (kd / 4) * kBlock + (kd % 4) * 32, 16, 1024)
+                     : desc_sw64(q_half + (kd % 4) * 32, 16, 512);
+      const uint64_t dk =
+          full_block ? desc_sw128(k_addr + (kd / 4) * P::kv_block + (kd % 4) * 32, 16, 1024)
+                     : desc_sw64(k_addr + kFull * P::kv_block + (kd % 4) * 32, 16, 512);
       if constexpr (kBN == 128) {
         wgmma_ss_n128<T>(sc, dq, dk, kd > 0);
       } else {
@@ -480,6 +534,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          desc_sw128(v_addr + 2 * P::kv_block + kk * 2048, P::kv_block, 1024));
       } else if constexpr (D == 128) {
         wgmma_rs_n128<T>(o, pa[kk], dv);
+      } else if constexpr (D == 96) {
+        // Columns 0-63 (the 128-byte-swizzled block) into o[0..31], 64-95
+        // (the 64-byte-swizzled block: 1024 bytes per 16 keys, 512 per 8)
+        // into o[32..47]: the register layout of one m64n96k16.
+        wgmma_rs_n64<T>(*reinterpret_cast<float(*)[32]>(o), pa[kk], dv);
+        wgmma_rs_n32<T>(*reinterpret_cast<float(*)[16]>(o + 32), pa[kk],
+                        desc_sw64(v_addr + P::kv_block + kk * 1024, P::kv_block / 2, 512));
       } else {
         wgmma_rs_n64<T>(o, pa[kk], dv);
       }
@@ -502,15 +563,20 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   }
   // Stage the warpgroup's 64 x D output in its own Q rows (its last wgmma
-  // read them before the wait above), 16-byte chunk c of row r at c ^ (r % 8).
-  uint8_t* stage = smem + 64 * wg * 128;
+  // read them before the wait above): 16-byte chunk c of row r at c ^ (r % 8)
+  // in a 64-column block (128-byte rows), at c ^ (r % 4) in the 32-column
+  // block (64-byte rows).
+  const auto stage_at = [&](int j, int rl) -> uint32_t {
+    const int r = 64 * wg + rl;
+    return j < 8 * kFull ? (j / 8) * kBlock + r * 128 + ((j % 8) ^ (rl & 7)) * 16
+                         : kFull * kBlock + r * 64 + ((j % 4) ^ (rl & 3)) * 16;
+  };
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int rl = 16 * warp + g + 8 * r;
-      const uint32_t at = (j / 8) * kBlock + rl * 128 + ((j % 8) ^ (rl & 7)) * 16 + 4 * t;
-      *reinterpret_cast<uint32_t*>(stage + at) =
+      *reinterpret_cast<uint32_t*>(smem + stage_at(j, rl) + 4 * t) =
           pack2<T>(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
     }
   named_sync(1 + wg, 128);
@@ -518,8 +584,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int c = tid; c < 64 * CPR; c += 128) {
     const int rl = c / CPR, cc = c % CPR, rw = row_base + rl;
     if (rw >= S) continue;
-    const uint4 val = *reinterpret_cast<const uint4*>(stage + (cc / 8) * kBlock + rl * 128 +
-                                                      ((cc % 8) ^ (rl & 7)) * 16);
+    const uint4 val = *reinterpret_cast<const uint4*>(smem + stage_at(cc, rl));
     *reinterpret_cast<uint4*>(out + ((static_cast<long long>(b) * S + rw) * H + h) * D + cc * 8) =
         val;
   }
@@ -556,17 +621,19 @@ EncodeTiled encoder() {
 }
 
 // A 4-D map (d, heads, S, B) over a contiguous [B, S, heads, d] tensor, read
-// in boxes of 64 columns x `rows` rows of one head, 128-byte swizzled.
+// in boxes of `cols` columns x `rows` rows of one head: 64 columns 128-byte
+// swizzled, or 32 columns 64-byte swizzled.
 int encode(CUtensorMap* map, EncodeTiled enc, CUtensorMapDataType dt, const void* ptr, int d,
-           int heads, int S, int B, int rows) {
+           int heads, int S, int B, int rows, int cols = 64) {
   const cuuint64_t es = 2;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {d * es, (cuuint64_t)heads * d * es,
                                  (cuuint64_t)S * heads * d * es};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, dt, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }
@@ -575,20 +642,26 @@ template <typename T, int D>
 int run(CUtensorMapDataType dt, const void* q, const void* k, const void* v, const void* valid,
         void* out, void* lse, int B, int S, int H, int KH, int causal, float scale,
         cudaStream_t stream) {
+  using P = Plan<D>;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return kErrEntryPoint;
-  CUtensorMap tq, tk, tv;
+  // The 32-column maps only at d 96.
+  CUtensorMap tq, tk, tv, tq2{}, tk2{}, tv2{};
   int rc = encode(&tq, enc, dt, q, D, H, S, B, kBM);
-  if (rc == 0) rc = encode(&tk, enc, dt, k, D, KH, S, B, Plan<D>::kBN);
-  if (rc == 0) rc = encode(&tv, enc, dt, v, D, KH, S, B, Plan<D>::kBN);
+  if (rc == 0) rc = encode(&tk, enc, dt, k, D, KH, S, B, P::kBN);
+  if (rc == 0) rc = encode(&tv, enc, dt, v, D, KH, S, B, P::kBN);
+  if (P::kHalf && rc == 0) rc = encode(&tq2, enc, dt, q, D, H, S, B, kBM, 32);
+  if (P::kHalf && rc == 0) rc = encode(&tk2, enc, dt, k, D, KH, S, B, P::kBN, 32);
+  if (P::kHalf && rc == 0) rc = encode(&tv2, enc, dt, v, D, KH, S, B, P::kBN, 32);
   if (rc != 0) return rc;
   auto kernel = flash_fwd_sm90_kernel<T, D>;
-  const size_t smem = Plan<D>::smem;
+  const size_t smem = P::smem;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (S + kBM - 1) / kBM);
-  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<const int8_t*>(valid),
+  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, tq2, tk2, tv2,
+                                           static_cast<const int8_t*>(valid),
                                            static_cast<T*>(out), static_cast<float*>(lse), S, H,
                                            KH, causal, scale * kLog2e);
   return (int)cudaGetLastError();
@@ -596,8 +669,8 @@ int run(CUtensorMapDataType dt, const void* q, const void* k, const void* v, con
 
 }  // namespace
 
-// dtype 1 bfloat16, 2 float16 (float32 runs atpu_flash_fwd); hd 64, 128 or
-// 256.
+// dtype 1 bfloat16, 2 float16 (float32 runs atpu_flash_fwd); hd 64, 96, 128
+// or 256.
 // q [B, S, H, hd], k/v [B, S, KH, hd], valid [B, S] int8 or null, all
 // 16-byte aligned; writes out [B, S, H, hd] and lse [B, H, S] fp32.  Returns
 // 0, a cudaError_t, 999 if the tensor-map encoder is missing, or 1000 + the
@@ -612,6 +685,12 @@ extern "C" int atpu_flash_fwd_sm90(int dtype, const void* q, const void* k, cons
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype * 1000 + hd) {
+    case 1096:
+      return run<__nv_bfloat16, 96>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, valid, out, lse, B,
+                                    S, H, KH, causal, scale, st);
+    case 2096:
+      return run<__half, 96>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, q, k, v, valid, out, lse, B, S, H,
+                             KH, causal, scale, st);
     case 1064:
       return run<__nv_bfloat16, 64>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v, valid, out, lse, B,
                                     S, H, KH, causal, scale, st);

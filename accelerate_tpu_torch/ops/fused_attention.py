@@ -13,15 +13,14 @@ Three kernels, each behind a wrapper that counts its launches in
 ``<wrapper>.launches``, at head dims 64, 96, 128 and 256 (any other
 raises):
 
-- :func:`fused_attention_fwd` -> ``(out, lse)``: bf16 and fp16 at head dim
-  64, 128 and 256 run the Hopper forward of ``csrc/flash_fwd_sm90.cu``
-  (wgmma, TMA-fed K/V ring, P in registers; 64-key tiles at 256); fp32,
-  and head dim 96 in every type, the mma.sync body of
-  ``csrc/flash_attention.cu``;
-- :func:`fused_attention_bwd_dq` -> ``dq``: bf16 and fp16 at 64 and 128
-  run the Hopper kernel of ``csrc/flash_bwd_dq_sm90.cu`` (wgmma, TMA-fed
-  K/V ring, dS in registers); fp32, and head dims 96 and 256 in every type,
-  the body of ``csrc/flash_attention.cu``;
+- :func:`fused_attention_fwd` -> ``(out, lse)``: bf16 and fp16 run the
+  Hopper forward of ``csrc/flash_fwd_sm90.cu`` (wgmma, TMA-fed K/V ring, P
+  in registers; 64-key tiles at 256; at 96 a 64-column block beside a
+  32-column one); fp32 the mma.sync body of ``csrc/flash_attention.cu``;
+- :func:`fused_attention_bwd_dq` -> ``dq``: bf16 and fp16 at 64, 128 and
+  256 run the Hopper kernel of ``csrc/flash_bwd_dq_sm90.cu`` (wgmma, TMA-fed
+  K/V ring, dS in registers; 32-key tiles at 256); fp32, and head dim 96 in
+  every type, the body of ``csrc/flash_attention.cu``;
 - :func:`fused_attention_bwd_dkv` -> ``(dk, dv)``, already summed over each
   kv head's query heads: bf16 and fp16 at 64 and 128 run the Hopper kernel
   of ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma, TMA-fed Q/dO ring, P^T and dS^T
@@ -72,7 +71,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 96, 128, 256)  # the body of flash_attention.cu takes all four
 # The head dims each kernel's sm90 body takes (16-bit types); the rest run
 # the body of flash_attention.cu.
-_SM90_HEAD_DIMS = {"atpu_flash_fwd": (64, 128, 256), "atpu_flash_bwd_dq": (64, 128),
+_SM90_HEAD_DIMS = {"atpu_flash_fwd": (64, 96, 128, 256), "atpu_flash_bwd_dq": (64, 128, 256),
                    "atpu_flash_bwd_dkv": (64, 128, 256)}
 _DKV_SPLIT_KEYS = 64  # keys per CTA of the d-256 dK/dV kernel
 _NEG = -1e30  # finite: no inf - inf in the exp bookkeeping
@@ -355,9 +354,8 @@ def _valid_ptr(kv_valid):
 def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_size: int = 512):
     """Flash-attention forward: ``(out [B, S, H, d]`` in q's dtype, ``lse
     [B, H, S]`` fp32).  ``kv_valid`` is int8 ``[B, S]`` (nonzero: the key
-    takes part) or None.  On CUDA, bf16 and fp16 at head dim 64, 128 and
-    256 launch the Hopper kernel (``atpu_flash_fwd_sm90``), the rest the
-    mma.sync body (``atpu_flash_fwd``)."""
+    takes part) or None.  On CUDA, bf16 and fp16 launch the Hopper kernel
+    (``atpu_flash_fwd_sm90``), fp32 the mma.sync body (``atpu_flash_fwd``)."""
     if not _on_cuda("fused_attention_fwd", q):
         return fused_attention_fwd_plain(q, k, v, kv_valid, causal=causal, block_size=block_size)
     _check(q, k, v, kv_valid)
@@ -373,9 +371,9 @@ def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_si
 
 def fused_attention_bwd_dq(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True):
     """dQ ``[B, S, H, d]`` in q's dtype from the saved ``lse`` and δ
-    (``delta [B, H, S]`` fp32).  On CUDA, bf16 and fp16 at head dim 64 and
-    128 launch the Hopper kernel (``atpu_flash_bwd_dq_sm90``), the rest the
-    mma.sync body (``atpu_flash_bwd_dq``)."""
+    (``delta [B, H, S]`` fp32).  On CUDA, bf16 and fp16 at head dim 64, 128
+    and 256 launch the Hopper kernel (``atpu_flash_bwd_dq_sm90``), the rest
+    the mma.sync body (``atpu_flash_bwd_dq``)."""
     if not _on_cuda("fused_attention_bwd_dq", q):
         return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[0]
     _check(q, k, v, kv_valid, {"do": do, "lse": lse, "delta": delta})

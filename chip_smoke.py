@@ -167,10 +167,12 @@ Phases (each fails the run on any mismatch; nothing is caught):
    plain versions (the forward's out and lse, dQ, dK and dV), with kernel
    (L2-cold copies), plain, bound and ``scaled_dot_product_attention``
    forward and backward times (an error recorded where sdpa refuses the
-   shape) and the launcher each wrapper called; at d 256 in bf16 and fp16
-   the sm90 forward and dK/dV beside the mma.sync bodies they replace
-   (``atpu_flash_fwd``, ``atpu_flash_bwd_dkv``, called directly, not
-   counted) as ``previous_ms`` in turns, and dK/dV at every split of the
+   shape) and the launcher each wrapper called; in bf16 and fp16 the sm90
+   bodies beside the mma.sync bodies they replace (at d 256 the forward, dQ
+   and dK/dV: ``atpu_flash_fwd``, ``atpu_flash_bwd_dq``,
+   ``atpu_flash_bwd_dkv``; at d 96 the forward; called directly, not
+   counted) as ``previous_ms`` in turns, each held to the tolerance,
+   δ's time beside the backward kernels', and dK/dV at every split of the
    query-head group (``split_ms``, each held to the tolerance); the paged pair
    at head dim 96 (bf16, fp32) and 256 (fp32) at Phase 1's long shape
    against plain, with kernel, plain, bound and library times.  10b:
@@ -189,8 +191,8 @@ Phases (each fails the run on any mismatch; nothing is caught):
    DataLoader, LambdaLR)``, ``remat=True``, 5 steps at B 2 x S 2048 (B 1
    if the peak reckoned in the log reaches 72 GB): the flash kernels
    launched 2L / L / L = 36 / 18 / 18 a step, the fifth step profiled
-   (the trace must name the d-256 kernels: the sm90 forward and dK/dV with
-   its sum kernel, flash_attention.cu's dQ), step time, tokens/s, share of
+   (the trace must name the d-256 kernels: the sm90 forward, dQ and dK/dV
+   with its sum kernel), step time, tokens/s, share of
    the bf16 peak, peak memory and idle share.  10c: the trained weights in
    bf16 through ``prepare_serving(paged_kernel=True)`` with Phase 2's
    geometry and traffic, ``spec_tokens`` 0 and 3: 18 paged launches (head
@@ -247,6 +249,8 @@ FWD_DESIGN = ("bf16/fp16: wgmma m64n128k16 Q.K^T (smem descriptors) and P.V (P i
               "V MN-major), TMA 4-D maps into a 2-stage mbarrier K/V ring, 128-row CTA of 2 "
               "consumer warpgroups + a producer warpgroup (one warp loads), setmaxnreg 232/40; "
               "d 256: 64-key tiles, m64n64k16 Q.K^T and two m64n128k16 P.V halves (192 KB); "
+              "d 96: a 64-column 128B-swizzled block beside a 32-column 64B-swizzled one, "
+              "P.V as m64n64k16 + m64n32k16 (120 KB); "
               "fp32: the CUDA-core body of flash_attention.cu")
 DQ_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu"  # bf16 and fp16 dQ
 DQ_DESIGN = ("bf16/fp16: 128-row CTA of one (batch, q head), 2 consumer warpgroups of 64 rows "
@@ -254,8 +258,9 @@ DQ_DESIGN = ("bf16/fp16: 128-row CTA of one (batch, q head), 2 consumer warpgrou
              "kv head by TMA into a 3-stage mbarrier ring with kv_valid bytes and an all-valid "
              "flag (lse, delta by plain loads per row); wgmma m64n64k16 S = Q.K^T and "
              "dP = dO.V^T (smem descriptors), dS in registers as A of wgmma m64n{d}k16 "
-             "dQ += dS.K (K MN-major); heaviest causal q tiles first; no atomics; fp32: the "
-             "CUDA-core body of flash_attention.cu")
+             "dQ += dS.K (K MN-major); heaviest causal q tiles first; no atomics; d 256: "
+             "32-key tiles in a 2-stage ring (192 KB), wgmma m64n32k16 S and dP, two "
+             "m64n128k16 dQ halves; fp32, and d 96: the CUDA-core body of flash_attention.cu")
 DKV_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu"  # bf16 and fp16 dK/dV
 DKV_DESIGN = ("bf16/fp16: 128-key CTA of one (batch, kv head), 2 consumer warpgroups of 64 keys "
               "+ a producer warp, setmaxnreg 240/24; K/V by TMA once, 64-row Q/dO tiles of the "
@@ -2591,10 +2596,10 @@ PHASE10_PEAK_LIMIT = 72e9  # bytes: B 2 when the reckoned peak stays under it, e
 # step below agrees to 1e-4 and better).
 PHASE10_BF16_LOSS_REL = 1e-4
 # The bf16 d-256 kernels Gemma-2B's training step runs, as a profiler names
-# them: the sm90 forward, flash_attention.cu's dQ, the sm90 d-256 dK/dV
-# (split over query heads at Gemma-2B's one kv head) and its sum kernel.
+# them: the sm90 forward and dQ, the sm90 d-256 dK/dV (split over query
+# heads at Gemma-2B's one kv head) and its sum kernel.
 WIDE_FLASH = ("flash_fwd_sm90_kernel<__nv_bfloat16, 256>",
-              "flash_bwd_dq_kernel<__nv_bfloat16, 256>",
+              "flash_bwd_dq_sm90_kernel<__nv_bfloat16, 256, 2>",
               "flash_bwd_dkv_sm90_d256_kernel<__nv_bfloat16, true>",
               "flash_bwd_dkv_sum_kernel<__nv_bfloat16>")
 # The launcher each flash wrapper calls, by its base name.
@@ -2617,44 +2622,48 @@ def direct_dkv_d256(fu, n_split, q, k, v, do, lse, delta):
     return dk, dv
 
 
-def wide_previous(fu, copies, fwd_ms, dkv_ms, want):
-    """At d 256 in 16-bit types: the mma.sync bodies the sm90 forward and
-    dK/dV replace (``atpu_flash_fwd``, ``atpu_flash_bwd_dkv``, called
-    directly), held to the plain versions' tolerance and timed in turns with
-    the kernels (kernel, previous, previous, kernel); and the dK/dV kernel
-    at every split of the group, each held to the tolerance and timed.
-    Returns ``({wrapper: extra record keys}, {wrapper: second kernel ms})``."""
+def wide_previous(fu, copies, times, want):
+    """In 16-bit types at d 96 and 256: the mma.sync bodies the sm90 kernels
+    replace (the forward at both, dQ and dK/dV at 256; called directly),
+    each held to the plain versions' tolerance and timed in turns with the
+    kernel (kernel, previous, previous, kernel); at d 256 also dK/dV at
+    every split of the group, each held to the tolerance and timed.
+    Returns ``({wrapper: extra record keys}, {wrapper: second kernel
+    ms})``."""
     import torch
 
     q, k, v, do, lse, delta = copies[0]
+    d = q.shape[-1]
     tol = TOL[str(q.dtype)]
-    want_out, want_dk, want_dv = want
-    got = {"fused_attention_fwd": previous_fwd(fu, q, k, v)[:1],
-           "fused_attention_bwd_dkv": direct_bwd(fu, "atpu_flash_bwd_dkv", q, k, v, do, lse,
-                                                 delta)}
-    torch.cuda.synchronize()
-    refs = {"fused_attention_fwd": (want_out,), "fused_attention_bwd_dkv": (want_dk, want_dv)}
-    calls = {"fused_attention_fwd": (lambda q, k, v, *_: previous_fwd(fu, q, k, v)),
-             "fused_attention_bwd_dkv": (lambda *a: direct_bwd(fu, "atpu_flash_bwd_dkv", *a))}
-    kernels = {"fused_attention_fwd": (lambda q, k, v, *_: fu.fused_attention_fwd(
-        q, k, v, causal=True, block_size=q.shape[1])),
-        "fused_attention_bwd_dkv": (lambda *a: fu.fused_attention_bwd_dkv(*a, causal=True))}
+    want_out, want_dq, want_dk, want_dv = want
+    fwd, dq, dkv = FLASH_KERNELS
+    previous = {fwd: lambda q, k, v, *_: previous_fwd(fu, q, k, v)}
+    if d == 256:
+        previous[dq] = lambda *a: direct_bwd(fu, "atpu_flash_bwd_dq", *a)
+        previous[dkv] = lambda *a: direct_bwd(fu, "atpu_flash_bwd_dkv", *a)
+    refs = {fwd: (want_out,), dq: (want_dq,), dkv: (want_dk, want_dv)}
+    kernels = {fwd: (lambda q, k, v, *_: fu.fused_attention_fwd(q, k, v, causal=True,
+                                                                block_size=q.shape[1])),
+               dq: (lambda *a: fu.fused_attention_bwd_dq(*a, causal=True)),
+               dkv: (lambda *a: fu.fused_attention_bwd_dkv(*a, causal=True))}
     extra, second = {}, {}
-    for name in calls:
-        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got[name],
-                                                                            refs[name]))
-        check(all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
-                  for g, w in zip(got[name], refs[name])),
-              f"previous {name} body at d 256: max abs err {err} over atol=rtol={tol}")
-        prev = [cuda_ms(calls[name], copies, iters=10) for _ in range(2)]
-        second[name] = cuda_ms(kernels[name], copies, iters=10)
-        extra[name] = dict(previous_ms=sum(prev) / 2, previous_max_abs_err=err,
-                           previous_body=FLASH_BASES[name])
-        log(f"phase10a {name} {q.dtype} d=256 in turns: kernel "
-            f"{fwd_ms if name == 'fused_attention_fwd' else dkv_ms:.4f} previous {prev[0]:.4f} "
-            f"previous {prev[1]:.4f} kernel {second[name]:.4f} ms; previous max abs err "
-            f"{err:.3e}")
-    del got
+    for wrapper, call in previous.items():
+        got = call(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        pairs = list(zip(got, refs[wrapper]))
+        err = max((g.float() - w.float()).abs().max().item() for g, w in pairs)
+        check(all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol) for g, w in pairs),
+              f"previous {wrapper} body at d {d}: max abs err {err} over atol=rtol={tol}")
+        del got, pairs
+        prev = [cuda_ms(call, copies, iters=10) for _ in range(2)]
+        second[wrapper] = cuda_ms(kernels[wrapper], copies, iters=10)
+        extra[wrapper] = dict(previous_ms=sum(prev) / 2, previous_max_abs_err=err,
+                              previous_body=FLASH_BASES[wrapper])
+        log(f"phase10a {wrapper} {q.dtype} d={d} in turns: kernel {times[wrapper]:.4f} "
+            f"previous {prev[0]:.4f} previous {prev[1]:.4f} kernel {second[wrapper]:.4f} ms; "
+            f"previous max abs err {err:.3e}")
+    if d != 256:
+        return extra, second
     b, s, h, _ = q.shape
     g = h // k.shape[2]
     split_ms, split_err = {}, {}
@@ -2679,8 +2688,8 @@ def wide_previous(fu, copies, fwd_ms, dkv_ms, want):
 def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs, want):
     """Kernel (L2-cold copies, as Phase 4), plain, bound and ``sdpa`` times
     of the three flash kernels at one shape, with the launcher each wrapper
-    called (``body``); at d 256 in 16-bit types also the replaced mma.sync
-    bodies' times (:func:`wide_previous`).  ``sdpa``'s failure is recorded
+    called (``body``) and δ's time; in 16-bit types also the replaced
+    mma.sync bodies' times (:func:`wide_previous`).  ``sdpa``'s failure is recorded
     as its error."""
     delta = attention_delta(out, do)
     set_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, do))
@@ -2697,9 +2706,8 @@ def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs, want):
             lambda *a: fu.fused_attention_bwd_dkv(*a, causal=True), copies, iters=10),
     }
     prev, second = {}, {}
-    if q.dtype != torch.float32 and q.shape[-1] == 256:
-        prev, second = wide_previous(fu, copies, times["fused_attention_fwd"],
-                                     times["fused_attention_bwd_dkv"], want)
+    if q.dtype != torch.float32:
+        prev, second = wide_previous(fu, copies, times, want)
         for name, ms in second.items():
             times[name] = 0.5 * (times[name] + ms)
     del copies
@@ -2723,6 +2731,12 @@ def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs, want):
     except RuntimeError as e:  # a shape sdpa refuses is recorded, not raised
         lib_err = str(e).splitlines()[0][:200]
     del qt, kt, vt, dot
+    delta_ms = cuda_ms(attention_delta, [(out, do)], iters=10)
+    bwd_ms = delta_ms + times["fused_attention_bwd_dq"] + times["fused_attention_bwd_dkv"]
+    log(f"phase10a {q.dtype} H={q.shape[2]} K={k.shape[2]} d={q.shape[-1]} backward: delta "
+        f"{delta_ms:.4f} + dQ {times['fused_attention_bwd_dq']:.4f} + dK/dV "
+        f"{times['fused_attention_bwd_dkv']:.4f} = {bwd_ms:.4f} ms against sdpa's whole "
+        f"backward {lib_bwd}")
     bounds, _ = flash_bounds(q, k, True)
     err = {"fused_attention_fwd": errs["out"], "fused_attention_bwd_dq": errs["dq"],
            "fused_attention_bwd_dkv": max(errs["dk"], errs["dv"])}
@@ -2735,6 +2749,7 @@ def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs, want):
                          library_ms=lib_fwd if fwd else None,
                          library_bwd_ms=None if fwd else lib_bwd, library_error=lib_err,
                          body=fu._symbol(FLASH_BASES[name], q), **prev.get(name, {}))
+    rec["fused_attention_bwd_dq"]["delta_ms"] = delta_ms
     return rec
 
 
@@ -2742,7 +2757,8 @@ def phase10a(smi):
     """The three flash kernels at head dims 256 and 96 (Gemma-2B, Gemma-7B
     and Phi-3-mini attention geometry, B 2 x S 2048 causal, unpadded and
     with batch 0 left-padded by 300 keys) in bf16 and fp32, and fp16 at
-    Gemma-2B's, with the d-256 mma.sync bodies beside the sm90 ones; the paged
+    Gemma-2B's, with the replaced mma.sync bodies beside the sm90 ones; the
+    paged
     pair at head dim 96 (bf16, fp32) and 256 (fp32) at Phase 1's long
     shape, each against its plain version, with times."""
     import torch.nn.functional as F
@@ -2788,7 +2804,7 @@ def phase10a(smi):
                     + " ".join(f"{n}={e:.3e}" for n, e in errs.items()) + f" (atol=rtol={tol})")
                 if not pad:
                     rec = wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs,
-                                           (want_out, want[1], want[2]))
+                                           (want_out, *want))
                     flash[(geom, str(dtype))] = rec
                     for name, r in rec.items():
                         log(f"phase10a {name} {geom} d={d} {dtype}: body {r['body']} "
@@ -3167,9 +3183,9 @@ def main() -> int:
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
     log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS)
-        + f"; head dims: paged {pa_dims}, flash {fu_dims} (flash 96, dQ at 256, and fp32 at "
-        f"every head dim, on {FLASH_SOURCE}; bf16/fp16 forward and dK/dV at 256 on "
-        f"{FWD_SOURCE} and {DKV_SOURCE})")
+        + f"; head dims: paged {pa_dims}, flash {fu_dims} (fp32 at every head dim, and dQ "
+        f"and dK/dV at 96, on {FLASH_SOURCE}; bf16/fp16 forward at 96 and 256 and dQ and "
+        f"dK/dV at 256 on {FWD_SOURCE}, {DQ_SOURCE} and {DKV_SOURCE})")
     launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"], **p5}
     check(win3 > 0, "window kernel not launched in phase 3")
     record = []
@@ -3200,12 +3216,12 @@ def main() -> int:
                 "fused_attention_bwd_dq": (DQ_SOURCE, DQ_DESIGN),
                 "fused_attention_bwd_dkv": (DKV_SOURCE, DKV_DESIGN)}.get(name)
         if sm90:
-            # The body each (head dim, dtype) runs: d 96 and fp32 on
-            # flash_attention.cu, bf16/fp16 at d 256 on the sm90 file for the
-            # forward and dK/dV and on flash_attention.cu for dQ.
-            wide = {"d96": FLASH_SOURCE, "d256-float32": FLASH_SOURCE}
+            # The body each (head dim, dtype) runs: fp32 on flash_attention.cu;
+            # bf16/fp16 at d 256 on the sm90 file, at d 96 too for the forward.
+            wide = {"d96-float32": FLASH_SOURCE, "d256-float32": FLASH_SOURCE}
             for dt in ("bfloat16", "float16"):
-                wide[f"d256-{dt}"] = FLASH_SOURCE if name == "fused_attention_bwd_dq" else sm90[0]
+                wide[f"d256-{dt}"] = sm90[0]
+                wide[f"d96-{dt}"] = sm90[0] if name == "fused_attention_fwd" else FLASH_SOURCE
             extra = dict(source=sm90[0], previous_source=FLASH_SOURCE, design=sm90[1],
                          dtypes={"bfloat16": sm90[0], "float16": sm90[0],
                                  "float32": FLASH_SOURCE},

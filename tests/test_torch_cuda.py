@@ -337,12 +337,13 @@ def fwd_symbols(monkeypatch):
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 @pytest.mark.parametrize("groups", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("s", [64, 100, 129, 200, 1024])
 def test_flash_fwd_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal):
     """The Hopper forward (128-row CTAs over 128-key tiles, 64-key at d
-    256) at S below one tile, across a ragged edge and long, against the
-    plain forward."""
+    256; at d 96 a 64-column block beside a 64-byte-swizzled 32-column one)
+    at S below one tile, across a ragged edge and long, against the plain
+    forward."""
     q, k, v, _, _ = _flash_inputs(67, 2, s, 2 * groups, 2, d, dtype, False)
     before = fu.fused_attention_fwd.launches
     out, lse = fu.fused_attention_fwd(q, k, v, causal=causal, block_size=s)
@@ -358,7 +359,7 @@ def test_flash_fwd_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_flash_fwd_sm90_left_pad_past_a_tile(cuda, dtype, d, causal):
     """Batch 0 left-padded by 300 keys (its first two 128-key tiles, four
     64-key tiles at d 256, hold no valid key; under the causal mask its
@@ -517,12 +518,12 @@ def test_flash_bwd_dkv_raises_on_misaligned_view_and_launches_nothing(cuda, fwd_
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 @pytest.mark.parametrize("groups", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("s", [64, 100, 129, 200, 1024])
 def test_flash_bwd_dq_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal):
-    """The Hopper dQ kernel (128-row CTAs over 64-key K/V tiles) at S below
-    one CTA, across a ragged edge (129: an lse row that is not 16-byte
-    aligned) and long, against the plain backward."""
+    """The Hopper dQ kernel (128-row CTAs over 64-key K/V tiles, 32-key at
+    d 256) at S below one CTA, across a ragged edge (129: an lse row that is
+    not 16-byte aligned) and long, against the plain backward."""
     q, k, v, do, out, lse, delta = _dkv_inputs(103, 2, s, groups, d, dtype, causal)
     before = fu.fused_attention_bwd_dq.launches
     dq = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
@@ -535,23 +536,34 @@ def test_flash_bwd_dq_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal)
     torch.testing.assert_close(dq.float(), want_dq.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
-def test_flash_bwd_dq_sm90_is_deterministic(cuda, dtype):
+def test_flash_bwd_dq_sm90_is_deterministic(cuda, fwd_symbols, dtype, d):
     """One CTA owns its query rows (no atomics), so two calls agree bit for
-    bit, empty rows included."""
-    valid = torch.ones(2, 300, dtype=torch.int8, device="cuda")
-    valid[0, :70] = 0
-    q, k, v, do, out, lse, delta = _dkv_inputs(107, 2, 300, 4, 128, dtype, True, valid)
+    bit, empty rows included: at d 128 over 8 q / 2 kv heads at S 300, at d
+    256 at Gemma-2B's 8 q / 1 kv heads, B 2 x S 2048, against the plain
+    backward."""
+    b, s, pad = (2, 300, 70) if d == 128 else (2, 2048, 300)
+    valid = torch.ones(b, s, dtype=torch.int8, device="cuda")
+    valid[0, :pad] = 0
+    q, k, v, do, _ = _flash_inputs(107, b, s, 8, 2 if d == 128 else 1, d, dtype, False)
+    out, lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=True, block_size=s)
+    delta = fu._delta(out, do)
     first = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, valid, causal=True)
     second = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, valid, causal=True)
     torch.cuda.synchronize()
+    assert fwd_symbols == ["atpu_flash_bwd_dq_sm90"] * 2
     assert torch.equal(first, second)
-    assert (first[0, :70] == 0).all()
+    assert (first[0, :pad] == 0).all()
+    want_dq = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, valid, causal=True,
+                                           block_size=s if d == 128 else 512)[0]
+    tol = TOL[dtype]
+    torch.testing.assert_close(first.float(), want_dq.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_bwd_dq_sm90_left_pad_past_a_cta(cuda, fwd_symbols, dtype, d, causal):
     """Batch 0 left-padded by 130 keys (past a 128-row CTA and two 64-key
     tiles; under the causal mask its first 130 rows admit no key), batch 1
@@ -666,9 +678,8 @@ def test_auto_attention_with_unsupported_head_dim_raises(cuda):
 def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_symbols, dtype):
     """Gemma's head dim on the card: ``attention_impl="auto"`` at S 1024
     runs the forward, dQ and dK/dV kernels once per layer each (fp32 all on
-    ``flash_attention.cu``; bf16 the sm90 forward and d-256 dK/dV with that
-    file's dQ), and the loss and gradients match the same step on their
-    plain versions."""
+    ``flash_attention.cu``; bf16 the sm90 forward, dQ and d-256 dK/dV), and
+    the loss and gradients match the same step on their plain versions."""
     cfg = llama.LlamaConfig.tiny(head_dim=256, num_layers=2, max_seq_len=1024, dtype=dtype,
                                  num_heads=4, num_kv_heads=1, attention_impl="auto")
     model = llama.LlamaForCausalLM(cfg, seed=0)
@@ -685,7 +696,7 @@ def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_sym
     assert sorted(set(fwd_symbols)) == (
         ["atpu_flash_bwd_dkv", "atpu_flash_bwd_dq", "atpu_flash_fwd"]
         if dtype == torch.float32 else
-        ["atpu_flash_bwd_dkv_sm90_d256", "atpu_flash_bwd_dq", "atpu_flash_fwd_sm90"])
+        ["atpu_flash_bwd_dkv_sm90_d256", "atpu_flash_bwd_dq_sm90", "atpu_flash_fwd_sm90"])
     fwd, bwd = fu.fused_attention_fwd, fu.fused_attention_bwd
     fu.fused_attention_fwd, fu.fused_attention_bwd = (fu.fused_attention_fwd_plain,
                                                       fu.fused_attention_bwd_plain)
@@ -705,36 +716,35 @@ def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_sym
 @pytest.mark.parametrize("s", [200, 1024])
 def test_flash_wide_heads_ragged_and_long(cuda, fwd_symbols, s, dtype, d):
     """Head dims 96 and 256, S off the 64-row tiles and long, with a
-    left-padded and an all-invalid batch: d 96 and fp32 run the body of
-    ``flash_attention.cu``, bf16 at d 256 the sm90 forward and d-256 dK/dV
-    with that body's dQ."""
+    left-padded and an all-invalid batch: fp32 runs the body of
+    ``flash_attention.cu``; bf16 at d 256 the sm90 forward, dQ and d-256
+    dK/dV, at d 96 the sm90 forward with that body's dQ and dK/dV."""
     _flash_check(131, 2, s, 8, 2, d, dtype, True, True)
-    if dtype == torch.bfloat16 and d == 256:
-        want = {"atpu_flash_fwd_sm90", "atpu_flash_bwd_dq", "atpu_flash_bwd_dkv_sm90_d256"}
-    else:
+    if dtype == torch.float32:
         want = {"atpu_flash_fwd", "atpu_flash_bwd_dq", "atpu_flash_bwd_dkv"}
+    elif d == 256:
+        want = {"atpu_flash_fwd_sm90", "atpu_flash_bwd_dq_sm90", "atpu_flash_bwd_dkv_sm90_d256"}
+    else:
+        want = {"atpu_flash_fwd_sm90", "atpu_flash_bwd_dq", "atpu_flash_bwd_dkv"}
     assert set(fwd_symbols) == want
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
-                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("dtype", [torch.float32], ids=["fp32"])
 def test_flash_d256_fp32_and_dq_stay_on_the_cuda_core_body(cuda, fwd_symbols, dtype):
     """At head dim 256 fp32 runs all three kernels on ``flash_attention.cu``
-    and bf16/fp16 run dQ there (``atpu_flash_bwd_dq``), against the plain
-    backward."""
+    (bf16/fp16 dQ moved to the sm90 kernel, which the dQ tests above hold),
+    against the plain backward."""
     q, k, v, do, out, lse, delta = _dkv_inputs(149, 2, 300, 4, 256, dtype, True)
     dq = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
     fu.fused_attention_fwd(q, k, v, causal=True, block_size=300)
     fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
     torch.cuda.synchronize()
-    sm90 = dtype != torch.float32
-    assert fwd_symbols == ["atpu_flash_bwd_dq",
-                           "atpu_flash_fwd_sm90" if sm90 else "atpu_flash_fwd",
-                           "atpu_flash_bwd_dkv_sm90_d256" if sm90 else "atpu_flash_bwd_dkv"]
+    assert fwd_symbols == ["atpu_flash_bwd_dq", "atpu_flash_fwd", "atpu_flash_bwd_dkv"]
     want_dq = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
                                            block_size=300)[0]
     tol = TOL[dtype]
     torch.testing.assert_close(dq.float(), want_dq.float(), rtol=tol, atol=tol)
+
 
 
 # -- the training loop's data pipeline and checkpoints on the card -----------

@@ -288,7 +288,7 @@ def test_block_override_env(monkeypatch):
         tfa.pick_block(2048)
 
 
-@pytest.mark.parametrize("h,kv_heads", [(4, 1), (2, 2)], ids=["gqa4", "mha2"])
+@pytest.mark.parametrize("h,kv_heads", [(4, 1), (2, 2), (8, 1)], ids=["gqa4", "mha2", "gqa8"])
 @pytest.mark.parametrize("masked", [False, True], ids=["dense", "padded"])
 @pytest.mark.parametrize("d", [96, 256])
 def test_plain_versions_match_pallas_at_wide_heads(d, masked, h, kv_heads):
@@ -296,8 +296,10 @@ def test_plain_versions_match_pallas_at_wide_heads(d, masked, h, kv_heads):
     ``flash_attention.cu`` takes since the port widened it: the plain
     forward (``out``, ``lse``) against ``_flash_fwd`` and the plain backward
     against the gradients of ``pallas_attention``, both in interpret mode,
-    causal at S 128 with batch 0 left-padded by 40 keys when ``masked``.
-    The scale is 1/sqrt(d) on both sides (1/16 at d 256)."""
+    causal at S 128 with batch 0 left-padded by 40 keys when ``masked``;
+    ``gqa8`` is Gemma-2B's 8 q / 1 kv heads, the ratio the sm90 dQ and
+    forward bodies see on its training path.  The scale is 1/sqrt(d) on
+    both sides (1/16 at d 256)."""
     b, s = 2, 128
     rng = np.random.default_rng(11)
     q, do = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(2))
@@ -334,12 +336,13 @@ def test_plain_versions_match_pallas_at_wide_heads(d, masked, h, kv_heads):
 
 
 # The launcher each wrapper calls for bf16/fp16 at a head dim: the sm90
-# bodies at 64 and 128, the forward's and dK/dV's at 256 too; the rest (and
-# fp32 everywhere) on flash_attention.cu's body.
+# bodies at 64, 128 and 256, the forward's at 96 too; the rest (dQ and
+# dK/dV at 96, and fp32 everywhere) on flash_attention.cu's body.
 _ROUTES = {
-    "atpu_flash_fwd": {64: "atpu_flash_fwd_sm90", 128: "atpu_flash_fwd_sm90",
-                       256: "atpu_flash_fwd_sm90"},
-    "atpu_flash_bwd_dq": {64: "atpu_flash_bwd_dq_sm90", 128: "atpu_flash_bwd_dq_sm90"},
+    "atpu_flash_fwd": {64: "atpu_flash_fwd_sm90", 96: "atpu_flash_fwd_sm90",
+                       128: "atpu_flash_fwd_sm90", 256: "atpu_flash_fwd_sm90"},
+    "atpu_flash_bwd_dq": {64: "atpu_flash_bwd_dq_sm90", 128: "atpu_flash_bwd_dq_sm90",
+                          256: "atpu_flash_bwd_dq_sm90"},
     "atpu_flash_bwd_dkv": {64: "atpu_flash_bwd_dkv_sm90", 128: "atpu_flash_bwd_dkv_sm90",
                            256: "atpu_flash_bwd_dkv_sm90_d256"},
 }
@@ -352,9 +355,9 @@ _ROUTES = {
 def test_wrappers_take_the_kernels_head_dims_only(kernel, dtype, d):
     """The head dims the kernels take are 64, 96, 128 and 256: the wrapper's
     check passes them (on a CPU tensor it needs no card) and raises for
-    another.  Routing is per kernel: bf16/fp16 forward and dK/dV at 64, 128
-    and 256 and dQ at 64 and 128 go to their sm90 bodies, everything else to
-    the body of ``flash_attention.cu``."""
+    another.  Routing is per kernel: the bf16/fp16 forward at every head
+    dim, and dQ and dK/dV at 64, 128 and 256, go to their sm90 bodies;
+    everything else to the body of ``flash_attention.cu``."""
     assert tfu._HEAD_DIMS == (64, 96, 128, 256)
     x = torch.zeros(1, 64, 2, d, dtype=dtype)
     tfu._check(x, x, x, None)
