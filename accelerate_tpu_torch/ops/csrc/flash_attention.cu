@@ -61,10 +61,12 @@
 //     (p = hi + lo) and runs two tensor-core products, keeping ~16 bits of
 //     p instead of 8 (bf16) or 11 (fp16).
 //
-// Head dims 64, 96, 128 and 256, in all three types.  bf16 and fp16 at 64 and
-// 128 run the sm90 kernels of flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu and
-// flash_bwd_dkv_sm90.cu on the training path; every other (type, head dim)
-// runs this body (the wrapper routes them).  What the wide heads change:
+// Head dims 64, 96, 128 and 256, in all three types.  On the training path
+// only fp32 runs this body: bf16 and fp16 at every head dim run the sm90
+// kernels of flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu
+// (the wrapper routes them), and this body's 16-bit instantiations are on no
+// path, kept as the yardstick chip_smoke.py times the sm90 bodies against
+// (previous_ms).  What the wide heads change:
 //   - d 256 holds a 16 x 256 fp32 accumulator per warp, 128 registers a
 //     thread, so the forward and dQ stream 32-key tiles (fewer score
 //     registers beside it), and 16-key tiles for fp32 dQ, whose Q, dO and

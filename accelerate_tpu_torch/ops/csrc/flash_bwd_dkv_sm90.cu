@@ -7,7 +7,7 @@
 // launched by _flash_bwd at :361) with the GQA group sum of :388 folded in,
 // under the contract of atpu_flash_bwd_dkv:
 //   q, do [B, S, H, d]; k, v, dk, dv [B, S, KH, d]; lse, delta [B, H, S]
-//   fp32; valid [B, S] int8 or null; d 64, 128 or 256; bf16 or fp16.  For
+//   fp32; valid [B, S] int8 or null; d 64, 96, 128 or 256; bf16 or fp16.  For
 //   each key j of kv head kh, summed over its G query heads and every
 //   admitted query i (key < S, causal i >= j, valid[j] != 0): p_ij =
 //   exp(s_ij - lse_i) with s_ij = (q_i . k_j) * scale in fp32, dV_j = sum_i
@@ -70,6 +70,23 @@
 // of packed P hi, P lo and dS; S^T and dP^T die as they are packed.  ptxas's
 // report (-Xptxas -v, kept beside the library) shows no spills.
 //
+// Head dim 96.  A 128-byte swizzle box is at most 64 16-bit values wide, so
+// each tile is a 64-column 128-byte-swizzled block beside a 32-column
+// 64-byte-swizzled one (64-byte rows; a second tensor map per operand, 32
+// columns wide), the layout of the d-96 forward (flash_fwd_sm90.cu): S^T
+// and dP^T take k-steps 0-3 from the first blocks and 4-5 from the second
+// (64-byte-swizzle descriptors: 512 bytes between 8-row groups), and the dV
+// (hi and lo) and dK products are each m64n64k16 over the Q/dO tile's first
+// block plus m64n32k16 over its second (1024 bytes per 16 rows) from the
+// same A registers, the register layout of one m64n96k16.  The d-128 plan
+// holds: K 24 KB + V 24 KB + 3 stages x (Q 12 KB + dO 12 KB + 512 bytes) =
+// 121.5 KB (4 stages, 146 KB, are the timing symbol _ring4); per consumer
+// thread dK 48 + dV 48 + S^T 32 + dP^T 32 + 3 x 16 packed = 208 registers,
+// so no column split; exactly the minimum products (with the lo half); the
+// epilogue stages each block with its own XOR pattern and stores 96
+// columns.  Phi-3-mini (32 q / 32 kv heads) gives B x KH x S/128 = 1024
+// CTAs at B 2 x S 2048: no group split is needed.
+//
 // Head dim 256 (flash_bwd_dkv_sm90_d256_kernel).  The design above does not
 // instantiate there: d/2 = 128 fp32 each of dK and dV a thread is 256
 // registers, over setmaxnreg's 240, and K + V 128 KB plus 3 stages of 64 KB
@@ -101,7 +118,9 @@
 //     bytes per k16 inside a 64-column block and 8 KB across blocks) and
 //     MN-major for dK and dV (the block as leading byte offset, 1024 bytes =
 //     8 rows as stride, 2048 bytes = 16 rows per k16 step); both address the
-//     one swizzled tile;
+//     one swizzled tile; at d 96 its 32-column block is read both ways too,
+//     with a 64-byte swizzle (512 bytes = 8 rows as stride, 1024 bytes = 16
+//     rows per k16 step);
 //   - a row with no admitted key has lse ~ -1e30; its pairs are gated to 0
 //     on the tiles that mask, and on a tile that does not mask they meet only
 //     invalid keys, whose rows the epilogue overwrites with 0;
@@ -127,7 +146,7 @@ namespace {
 
 constexpr int kBK = 128;  // keys per CTA: two consumer warpgroups of 64
 constexpr int kBQ = 64;   // query rows per streamed Q/dO tile
-constexpr int kStages = 3;
+constexpr int kStages = 3;  // Q/dO ring depth at d 64, 96 and 128
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
 constexpr int kProducerRegs = 24;   // setmaxnreg: 128 x 24 + 256 x 240 = 384 x 168
@@ -137,17 +156,19 @@ constexpr uint32_t kQBlock = kBQ * 128;  // one 64-column block of a Q or dO til
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr size_t kSmemMax = 227 * 1024;
 
-template <int D>
+template <int D, int NS>
 struct Plan {
-  static constexpr uint32_t kv_tile = (D / 64) * kKBlock;  // K or V
-  static constexpr uint32_t q_tile = (D / 64) * kQBlock;   // Q or dO of one stage
+  static constexpr int kFull = D / 64;        // 64-column 128-byte-swizzled blocks
+  static constexpr bool kHalf = D % 64 != 0;  // + one 32-column 64-byte-swizzled block (d 96)
+  static constexpr uint32_t kv_tile = kFull * kKBlock + (kHalf ? kKBlock / 2 : 0);  // K or V
+  static constexpr uint32_t q_tile = kFull * kQBlock + (kHalf ? kQBlock / 2 : 0);   // Q or dO
   static constexpr uint32_t off_v = kv_tile;
   static constexpr uint32_t off_q = 2 * kv_tile;
-  static constexpr uint32_t off_do = off_q + kStages * q_tile;
-  static constexpr uint32_t off_lse = off_do + kStages * q_tile;  // kBQ floats per stage
-  static constexpr uint32_t off_delta = off_lse + kStages * kBQ * 4;
-  static constexpr uint32_t off_bar = off_delta + kStages * kBQ * 4;  // full[], empty[], kv
-  static constexpr uint32_t bytes = off_bar + (2 * kStages + 1) * 8;
+  static constexpr uint32_t off_do = off_q + NS * q_tile;
+  static constexpr uint32_t off_lse = off_do + NS * q_tile;  // kBQ floats per stage
+  static constexpr uint32_t off_delta = off_lse + NS * kBQ * 4;
+  static constexpr uint32_t off_bar = off_delta + NS * kBQ * 4;  // full[], empty[], kv
+  static constexpr uint32_t bytes = off_bar + (2 * NS + 1) * 8;
   static constexpr size_t smem = bytes + 1024;  // room to align the base to 1024
   static_assert(smem <= kSmemMax, "dK/dV tiles exceed shared memory");
 };
@@ -197,6 +218,11 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
+// The same for a 64-byte swizzle (layout type 2): d 96's 32-column block.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (2ull << 62);
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -225,7 +251,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #define ATPU_ACC8(i)                                                                 \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),        \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define ATPU_ACC32 ATPU_ACC8(0), ATPU_ACC8(8), ATPU_ACC8(16), ATPU_ACC8(24)
+#define ATPU_REGS16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define ATPU_ACC16 ATPU_ACC8(0), ATPU_ACC8(8)
+#define ATPU_ACC32 ATPU_ACC16, ATPU_ACC8(16), ATPU_ACC8(24)
 #define ATPU_ACC64 ATPU_ACC32, ATPU_ACC8(32), ATPU_ACC8(40), ATPU_ACC8(48), ATPU_ACC8(56)
 
 // d[32] (+)= A[64 x 16] . B[16 x 64]: A and B K-major in shared memory.
@@ -237,6 +266,8 @@ template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db);
 template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db);
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db);
 
 #define ATPU_WGMMA(TYPE, PTX)                                                                  \
   template <>                                                                                  \
@@ -265,16 +296,43 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
                  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                              \
                  : ATPU_ACC32                                                                  \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));               \
+  }                                                                                            \
+  template <>                                                                                  \
+  __device__ __forceinline__ void wgmma_rs_n32<TYPE>(float (&d)[16], const uint32_t (&a)[4],   \
+                                                     uint64_t db) {                            \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                  \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." PTX "." PTX " {" ATPU_REGS16    \
+                 "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                              \
+                 : ATPU_ACC16                                                                  \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));               \
   }
 
 ATPU_WGMMA(__nv_bfloat16, "bf16")
 ATPU_WGMMA(__half, "f16")
 
-// d[D/2] += A[64 x 16] . B[16 x D], B MN-major.
+// K-major descriptor of k16 step kd over a tile's d columns: 32 bytes a step
+// inside a 64-column block (blocks `block` bytes apart from `addr`), and at
+// d 96 steps 4-5 inside the 32-column block at `half` (64-byte rows).
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr, uint32_t half, uint32_t block, int kd) {
+  return kd < 4 * (D / 64) ? desc_sw128(addr + (kd / 4) * block + (kd % 4) * 32, 16, 1024)
+                           : desc_sw64(half + (kd % 4) * 32, 16, 512);
+}
+
+// d[D/2] += A[64 x 16] . B[16 x D] for k16 step kk (16 rows) of the Q or dO
+// tile at addr, B MN-major; at d 96 m64n64k16 over the tile's first block
+// into d[0..31] and m64n32k16 over its 32-column block (1024 bytes per 16
+// rows) into d[32..47]: the register layout of one m64n96k16.
 template <typename T, int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint32_t addr,
+                                         int kk) {
+  const uint64_t db = desc_sw128(addr + kk * 2048, kQBlock, 1024);
   if constexpr (D == 128) {
     wgmma_rs_n128<T>(d, a, db);
+  } else if constexpr (D == 96) {
+    wgmma_rs_n64<T>(*reinterpret_cast<float(*)[32]>(d), a, db);
+    wgmma_rs_n32<T>(*reinterpret_cast<float(*)[16]>(d + 32), a,
+                    desc_sw64(addr + kQBlock + kk * 1024, kQBlock / 2, 512));
   } else {
     wgmma_rs_n64<T>(d, a, db);
   }
@@ -346,17 +404,24 @@ __device__ __forceinline__ void probs(float (&st)[32], float (&dpt)[32], const f
 // kernel
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool kLo>
+// tm_q, tm_k, tm_v, tm_do read 64-column boxes; tm_q2, tm_k2, tm_v2, tm_do2
+// the 32-column boxes of d 96's second block (unused at the other widths).
+template <typename T, int D, bool kLo, int NS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_q2,
+                          const __grid_constant__ CUtensorMap tm_k2,
+                          const __grid_constant__ CUtensorMap tm_v2,
+                          const __grid_constant__ CUtensorMap tm_do2,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const int8_t* __restrict__ valid, T* __restrict__ dk,
                           T* __restrict__ dv, int S, int H, int KH, int causal, float scale,
                           float scale_log2) {
-  using P = Plan<D>;
+  using P = Plan<D, NS>;
+  constexpr int kFull = P::kFull;
   constexpr int NA = D / 2;    // dK or dV accumulator registers per thread
   constexpr int CPR = D / 8;   // 16-byte chunks per dK/dV row
   extern __shared__ uint8_t smem_raw[];
@@ -364,8 +429,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                              ~static_cast<uintptr_t>(1023));
   const uint32_t sbase = smem_u32(smem);
   const uint32_t full = sbase + P::off_bar;  // full[s] = full + 8 s
-  const uint32_t empty = full + 8 * kStages;
-  const uint32_t kvbar = empty + 8 * kStages;
+  const uint32_t empty = full + 8 * NS;
+  const uint32_t kvbar = empty + 8 * NS;
 
   const int b = blockIdx.x / KH, kh = blockIdx.x % KH, G = H / KH;
   const int k0 = blockIdx.y * kBK;  // the lowest key tiles, the heaviest when causal, first
@@ -395,7 +460,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int total = G * nqt;  // (query head, q tile) steps, head-major
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(full + 8 * s, 32);                // every producer lane arrives
       mbar_init(empty + 8 * s, kConsumerWarps);  // one lane per consumer warp
     }
@@ -411,14 +476,18 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
       mbar_arrive_tx(kvbar, 2 * P::kv_tile);
-      for (int c = 0; c < D / 64; ++c) {
+      for (int c = 0; c < kFull; ++c) {
         tma_load(sbase + c * kKBlock, &tm_k, 64 * c, kh, k0, b, kvbar);
         tma_load(sbase + P::off_v + c * kKBlock, &tm_v, 64 * c, kh, k0, b, kvbar);
       }
+      if constexpr (P::kHalf) {
+        tma_load(sbase + kFull * kKBlock, &tm_k2, 64 * kFull, kh, k0, b, kvbar);
+        tma_load(sbase + P::off_v + kFull * kKBlock, &tm_v2, 64 * kFull, kh, k0, b, kvbar);
+      }
     }
     for (int it = 0; it < total; ++it) {
-      const int s = it % kStages;
-      mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+      const int s = it % NS;
+      mbar_wait(empty + 8 * s, ((it / NS) & 1) ^ 1);
       const int hh = kh * G + it / nqt, q0 = (qt_first + it % nqt) * kBQ;
       const long long at = (static_cast<long long>(b) * H + hh) * S;
       float* lse_s = reinterpret_cast<float*>(smem + P::off_lse + s * kBQ * 4);
@@ -433,9 +502,13 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive_tx(full + 8 * s, 2 * P::q_tile);
         const uint32_t q_dst = sbase + P::off_q + s * P::q_tile;
         const uint32_t do_dst = sbase + P::off_do + s * P::q_tile;
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < kFull; ++c) {
           tma_load(q_dst + c * kQBlock, &tm_q, 64 * c, hh, q0, b, full + 8 * s);
           tma_load(do_dst + c * kQBlock, &tm_do, 64 * c, hh, q0, b, full + 8 * s);
+        }
+        if constexpr (P::kHalf) {
+          tma_load(q_dst + kFull * kQBlock, &tm_q2, 64 * kFull, hh, q0, b, full + 8 * s);
+          tma_load(do_dst + kFull * kQBlock, &tm_do2, 64 * kFull, hh, q0, b, full + 8 * s);
         }
       } else {
         mbar_arrive(full + 8 * s);
@@ -453,6 +526,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q_min[2] = {causal ? kw0 + 16 * warp + g : 0, causal ? kw0 + 16 * warp + g + 8 : 0};
   const uint32_t k_addr = sbase + 64 * wg * 128;  // this warpgroup's rows of K block 0
   const uint32_t v_addr = sbase + P::off_v + 64 * wg * 128;
+  // ... and of the 32-column block (64-byte rows), where there is one.
+  const uint32_t k_half = sbase + kFull * kKBlock + 64 * wg * 64;
+  const uint32_t v_half = k_half + P::off_v;
 
   float dk_acc[NA], dv_acc[NA];
 #pragma unroll
@@ -460,34 +536,28 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   mbar_wait(kvbar, 0);
   for (int it = 0; it < total; ++it) {
-    const int s = it % kStages;
+    const int s = it % NS;
     const int q0 = (qt_first + it % nqt) * kBQ;
-    mbar_wait(full + 8 * s, (it / kStages) & 1);
+    mbar_wait(full + 8 * s, (it / NS) & 1);
     // Under the causal mask a tile wholly before this warpgroup's keys adds
     // nothing to them.
     if (!causal || q0 + kBQ - 1 >= kw0) {
       const uint32_t q_addr = sbase + P::off_q + s * P::q_tile;
       const uint32_t do_addr = sbase + P::off_do + s * P::q_tile;
 
-      // S^T = K.Q^T and dP^T = V.dO^T over d in k16 steps (32 bytes inside
-      // a 64-column block).  Their first step does not read the
-      // accumulators (scale-d 0), so they live only inside the step.
+      // S^T = K.Q^T and dP^T = V.dO^T over d in k16 steps (desc_k).  Their
+      // first step does not read the accumulators (scale-d 0), so they live
+      // only inside the step.
       float st[32], dpt[32];
       wgmma_fence();
 #pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        const uint32_t ka = (kd / 4) * kKBlock + (kd % 4) * 32;
-        const uint32_t qa = (kd / 4) * kQBlock + (kd % 4) * 32;
-        wgmma_ss_n64<T>(st, desc_sw128(k_addr + ka, 16, 1024), desc_sw128(q_addr + qa, 16, 1024),
-                        kd > 0);
-      }
+      for (int kd = 0; kd < D / 16; ++kd)
+        wgmma_ss_n64<T>(st, desc_k<D>(k_addr, k_half, kKBlock, kd),
+                        desc_k<D>(q_addr, q_addr + kFull * kQBlock, kQBlock, kd), kd > 0);
 #pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        const uint32_t ka = (kd / 4) * kKBlock + (kd % 4) * 32;
-        const uint32_t qa = (kd / 4) * kQBlock + (kd % 4) * 32;
-        wgmma_ss_n64<T>(dpt, desc_sw128(v_addr + ka, 16, 1024),
-                        desc_sw128(do_addr + qa, 16, 1024), kd > 0);
-      }
+      for (int kd = 0; kd < D / 16; ++kd)
+        wgmma_ss_n64<T>(dpt, desc_k<D>(v_addr, v_half, kKBlock, kd),
+                        desc_k<D>(do_addr, do_addr + kFull * kQBlock, kQBlock, kd), kd > 0);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(st);
@@ -518,19 +588,17 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
 
       // dV += P^T.dO and dK += dS^T.Q over the tile's 64 queries in k16 steps
-      // (2048 bytes: 16 rows), Q and dO MN-major.
+      // of 16 rows, Q and dO MN-major.
       fence_regs(dv_acc);
       fence_regs(dk_acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t ddo = desc_sw128(do_addr + kk * 2048, kQBlock, 1024);
-        wgmma_rs<T, D>(dv_acc, ph[kk], ddo);
-        if constexpr (kLo) wgmma_rs<T, D>(dv_acc, pl[kk], ddo);
+        wgmma_rs<T, D>(dv_acc, ph[kk], do_addr, kk);
+        if constexpr (kLo) wgmma_rs<T, D>(dv_acc, pl[kk], do_addr, kk);
       }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs<T, D>(dk_acc, ds[kk], desc_sw128(q_addr + kk * 2048, kQBlock, 1024));
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<T, D>(dk_acc, ds[kk], q_addr, kk);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(dv_acc);
@@ -541,16 +609,22 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // ----- epilogue -----
   // Stage the warpgroup's 64 x D dK and dV in its own K and V rows (only its
-  // own wgmmas read them, and they completed above), 16-byte chunk c of row
-  // r at c ^ (r % 8).
-  uint8_t* k_stage = smem + 64 * wg * 128;
-  uint8_t* v_stage = smem + P::off_v + 64 * wg * 128;
+  // own wgmmas read them, and they completed above): 16-byte chunk c of row
+  // r at c ^ (r % 8) in a 64-column block (128-byte rows), at c ^ (r % 4) in
+  // the 32-column block (64-byte rows).
+  const auto stage_at = [&](int j, int rl) -> uint32_t {
+    const int r = 64 * wg + rl;
+    return j < 8 * kFull ? (j / 8) * kKBlock + r * 128 + ((j % 8) ^ (rl & 7)) * 16
+                         : kFull * kKBlock + r * 64 + ((j % 4) ^ (rl & 3)) * 16;
+  };
+  uint8_t* k_stage = smem;
+  uint8_t* v_stage = smem + P::off_v;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int rl = 16 * warp + g + 8 * r;
-      const uint32_t at = (j / 8) * kKBlock + rl * 128 + ((j % 8) ^ (rl & 7)) * 16 + 4 * t;
+      const uint32_t at = stage_at(j, rl) + 4 * t;
       *reinterpret_cast<uint32_t*>(k_stage + at) =
           pack2<T>(dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1]);
       *reinterpret_cast<uint32_t*>(v_stage + at) =
@@ -561,7 +635,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int c = tid; c < 64 * CPR; c += 128) {
     const int rl = c / CPR, cc = c % CPR, key = kw0 + rl;
     if (key >= S) continue;
-    const uint32_t at = (cc / 8) * kKBlock + rl * 128 + ((cc % 8) ^ (rl & 7)) * 16;
+    const uint32_t at = stage_at(cc, rl);
     const bool live = vld == nullptr || vld[key] != 0;
     const long long o = ((out_row0 + key) * KH + kh) * D + cc * 8;
     *reinterpret_cast<uint4*>(dk + o) = live ? *reinterpret_cast<const uint4*>(k_stage + at) : zero;
@@ -895,17 +969,19 @@ EncodeTiled encoder() {
 }
 
 // A 4-D map (d, heads, S, B) over a contiguous [B, S, heads, d] tensor, read
-// in boxes of 64 columns x `rows` rows of one head, 128-byte swizzled.
+// in boxes of `cols` columns x `rows` rows of one head: 64 columns 128-byte
+// swizzled, or 32 columns 64-byte swizzled.
 int encode(CUtensorMap* map, EncodeTiled enc, CUtensorMapDataType dt, const void* ptr, int d,
-           int heads, int S, int B, int rows) {
+           int heads, int S, int B, int rows, int cols = 64) {
   const cuuint64_t es = 2;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {d * es, (cuuint64_t)heads * d * es,
                                  (cuuint64_t)S * heads * d * es};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, dt, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }
@@ -919,24 +995,30 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool kLo>
+template <typename T, int D, bool kLo, int NS = kStages>
 int run(CUtensorMapDataType dt, const Args& a) {
+  using P = Plan<D, NS>;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return kErrEntryPoint;
-  CUtensorMap tq, tk, tv, tdo;
+  // The 32-column maps only at d 96.
+  CUtensorMap tq, tk, tv, tdo, tq2{}, tk2{}, tv2{}, tdo2{};
   int rc = encode(&tq, enc, dt, a.q, D, a.H, a.S, a.B, kBQ);
   if (rc == 0) rc = encode(&tk, enc, dt, a.k, D, a.KH, a.S, a.B, kBK);
   if (rc == 0) rc = encode(&tv, enc, dt, a.v, D, a.KH, a.S, a.B, kBK);
   if (rc == 0) rc = encode(&tdo, enc, dt, a.dout, D, a.H, a.S, a.B, kBQ);
+  if (P::kHalf && rc == 0) rc = encode(&tq2, enc, dt, a.q, D, a.H, a.S, a.B, kBQ, 32);
+  if (P::kHalf && rc == 0) rc = encode(&tk2, enc, dt, a.k, D, a.KH, a.S, a.B, kBK, 32);
+  if (P::kHalf && rc == 0) rc = encode(&tv2, enc, dt, a.v, D, a.KH, a.S, a.B, kBK, 32);
+  if (P::kHalf && rc == 0) rc = encode(&tdo2, enc, dt, a.dout, D, a.H, a.S, a.B, kBQ, 32);
   if (rc != 0) return rc;
-  auto kernel = flash_bwd_dkv_sm90_kernel<T, D, kLo>;
-  const size_t smem = Plan<D>::smem;
+  auto kernel = flash_bwd_dkv_sm90_kernel<T, D, kLo, NS>;
+  const size_t smem = P::smem;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.B * a.KH, (a.S + kBK - 1) / kBK);
   kernel<<<grid, kThreads, smem, a.stream>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      tq, tk, tv, tdo, tq2, tk2, tv2, tdo2, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const int8_t*>(a.valid), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.S,
       a.H, a.KH, a.causal, a.scale, a.scale * kLog2e);
   return (int)cudaGetLastError();
@@ -983,8 +1065,8 @@ bool bad_args(const Args& a) {
 
 }  // namespace
 
-// dtype 1 bfloat16, 2 float16 (float32 runs atpu_flash_bwd_dkv); hd 64 or
-// 128.  q, do [B, S, H, hd], k/v [B, S, KH, hd], lse/delta [B, H, S] fp32,
+// dtype 1 bfloat16, 2 float16 (float32 runs atpu_flash_bwd_dkv); hd 64, 96
+// or 128 (256: atpu_flash_bwd_dkv_sm90_d256).  q, do [B, S, H, hd], k/v [B, S, KH, hd], lse/delta [B, H, S] fp32,
 // valid [B, S] int8 or null; q, k, v, do, dk, dv 16-byte aligned.  Writes dk
 // and dv [B, S, KH, hd] (summed over each kv head's query heads).  Returns 0,
 // a cudaError_t, 999 if the tensor-map encoder is missing, or 1000 + the
@@ -997,6 +1079,8 @@ extern "C" int atpu_flash_bwd_dkv_sm90(int dtype, const void* q, const void* k, 
                B,  S,  H, KH,   causal, 1,     scale, static_cast<cudaStream_t>(stream)};
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
   switch (dtype * 1000 + hd) {
+    case 1096: return run<__nv_bfloat16, 96, true>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
+    case 2096: return run<__half, 96, true>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, a);
     case 1064: return run<__nv_bfloat16, 64, true>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
     case 1128: return run<__nv_bfloat16, 128, true>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
     case 2064: return run<__half, 64, true>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, a);
@@ -1017,6 +1101,20 @@ extern "C" int atpu_flash_bwd_dkv_sm90_nolo(int dtype, const void* q, const void
                B,  S,  H, KH,   causal, 1,     scale, static_cast<cudaStream_t>(stream)};
   if (bad_args(a) || dtype != 1 || hd != 128) return (int)cudaErrorInvalidValue;
   return run<__nv_bfloat16, 128, false>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
+}
+
+// The same kernel with a 4-stage Q/dO ring, bf16 and hd 96 only: on no path,
+// timed beside the kernel to weigh the ring's depth.  Arguments and returns
+// as above.
+extern "C" int atpu_flash_bwd_dkv_sm90_ring4(int dtype, const void* q, const void* k,
+                                             const void* v, const void* dout, const void* lse,
+                                             const void* delta, const void* valid, void* dk,
+                                             void* dv, int B, int S, int H, int KH, int hd,
+                                             int causal, float scale, void* stream) {
+  const Args a{q,  k,  v, dout, lse,    delta, valid, dk, dv, nullptr,
+               B,  S,  H, KH,   causal, 1,     scale, static_cast<cudaStream_t>(stream)};
+  if (bad_args(a) || dtype != 1 || hd != 96) return (int)cudaErrorInvalidValue;
+  return run<__nv_bfloat16, 96, true, 4>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
 }
 
 // Head dim 256, bf16 (dtype 1) or fp16 (2): arguments as above, plus part,

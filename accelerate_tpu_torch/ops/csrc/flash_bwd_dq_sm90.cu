@@ -6,7 +6,7 @@
 // launched by _flash_bwd at :338) under the contract of atpu_flash_bwd_dq:
 //   q, do, dq [B, S, H, d]; k, v [B, S, KH, d], query head h reads kv head
 //   h / (H / KH); lse, delta [B, H, S] fp32; valid [B, S] int8 or null; d 64,
-//   128 or 256; bf16 or fp16.  For each query row i of head h and each key j that
+//   96, 128 or 256; bf16 or fp16.  For each query row i of head h and each key j that
 //   is admitted (key < S, causal j <= i, valid[j] != 0): s_ij = (q_i . k_j)
 //   * scale in fp32, p_ij = exp(s_ij - lse_i) (a masked pair has s = -1e30
 //   and is gated to 0), dP_ij = dO_i . v_j in fp32, dS_ij = p_ij (dP_ij -
@@ -77,11 +77,27 @@
 // shared memory for half the output of an N = 64 one, so at d 256 the
 // products read 1.4x the shared-memory bytes per flop of d 128.
 //
+// Head dim 96.  A 128-byte swizzle box is at most 64 16-bit values wide, so
+// each tile is a 64-column 128-byte-swizzled block beside a 32-column
+// 64-byte-swizzled one (64-byte rows; a second tensor map per operand, 32
+// columns wide), the layout of the d-96 forward (flash_fwd_sm90.cu): S and
+// dP take k-steps 0-3 from the first blocks and 4-5 from the second
+// (64-byte-swizzle descriptors: 512 bytes between 8-row groups), and dQ +=
+// dS.K is m64n64k16 over K's first block plus m64n32k16 over its second
+// (1024 bytes per 16 keys) from the same dS registers, the register layout
+// of one m64n96k16.  64-key tiles as at d 128: Q 24 KB + dO 24 KB + 3
+// stages x (K 12 KB + V 12 KB) = 120 KB (4 stages, 144 KB, are the timing
+// symbol _ring4); per consumer thread dQ 48, S 32, dP 32 and packed dS 16
+// registers; exactly the minimum products; the epilogue stages each block
+// with its own XOR pattern and stores 96 columns.
+//
 // Traps, and how each is handled:
 //   - K is a B operand twice: K-major for S (stepping 32 bytes per k16
 //     inside a 64-column block and 8 KB across blocks) and MN-major for dQ
 //     (the block as leading byte offset, 1024 bytes = 8 keys as stride, 2048
-//     bytes = 16 keys per k16 step); both address the one swizzled tile;
+//     bytes = 16 keys per k16 step); both address the one swizzled tile; at
+//     d 96 its 32-column block is read both ways too, with a 64-byte swizzle
+//     (512 bytes = 8 keys as stride, 1024 bytes = 16 keys per k16 step);
 //   - a row with no admitted key has lse ~ -1e30, and ex2 of its unmasked
 //     pairs would overflow: on a tile that does not mask, every pair of the
 //     warpgroup's rows is admitted, so no row there is empty and such an lse
@@ -108,7 +124,7 @@
 namespace {
 
 constexpr int kBM = 128;  // query rows per CTA: two consumer warpgroups of 64
-constexpr int kStages = 3;       // K/V ring depth at d 64 and 128
+constexpr int kStages = 3;       // K/V ring depth at d 64, 96 and 128
 constexpr int kStagesD256 = 2;   // and at d 256
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 32 * kConsumerWarps + 128;  // + the producer warpgroup
@@ -120,10 +136,12 @@ constexpr size_t kSmemMax = 227 * 1024;
 
 template <int D, int NS>
 struct Plan {
+  static constexpr int kFull = D / 64;        // 64-column 128-byte-swizzled blocks
+  static constexpr bool kHalf = D % 64 != 0;  // + one 32-column 64-byte-swizzled block (d 96)
   static constexpr int kBN = D == 256 ? 32 : 64;     // keys per streamed K/V tile
   static constexpr uint32_t kv_block = kBN * 128;    // one 64-column block of K or V, bytes
-  static constexpr uint32_t q_tile = (D / 64) * kQBlock;    // Q or dO
-  static constexpr uint32_t kv_tile = (D / 64) * kv_block;  // K or V of one stage
+  static constexpr uint32_t q_tile = kFull * kQBlock + (kHalf ? kQBlock / 2 : 0);  // Q or dO
+  static constexpr uint32_t kv_tile = kFull * kv_block + (kHalf ? kv_block / 2 : 0);  // K or V
   static constexpr uint32_t off_do = q_tile;
   static constexpr uint32_t off_k = 2 * q_tile;
   static constexpr uint32_t off_v = off_k + NS * kv_tile;
@@ -180,6 +198,11 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
+// The same for a 64-byte swizzle (layout type 2): d 96's 32-column block.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (2ull << 62);
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -225,6 +248,8 @@ template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db);
 template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db);
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db);
 
 #define ATPU_WGMMA(TYPE, PTX)                                                                  \
   template <>                                                                                  \
@@ -262,6 +287,15 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
                  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                              \
                  : ATPU_ACC32                                                                  \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));               \
+  }                                                                                            \
+  template <>                                                                                  \
+  __device__ __forceinline__ void wgmma_rs_n32<TYPE>(float (&d)[16], const uint32_t (&a)[4],   \
+                                                     uint64_t db) {                            \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                  \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." PTX "." PTX " {" ATPU_REGS16    \
+                 "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                              \
+                 : ATPU_ACC16                                                                  \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));               \
   }
 
 ATPU_WGMMA(__nv_bfloat16, "bf16")
@@ -277,20 +311,37 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
   }
 }
 
-// d[D/2] += A[64 x 16] . B[16 x D], B MN-major from a K tile whose 64-column
-// blocks lie `block` bytes apart; at d 256 two m64n128k16 halves (blocks 0-1
-// into d[0..63], 2-3 into d[64..127]: the register layout of one m64n256k16).
+// K-major descriptor of k16 step kd over a tile's d columns: 32 bytes a step
+// inside a 64-column block (blocks `block` bytes apart from `addr`), and at
+// d 96 steps 4-5 inside the 32-column block at `half` (64-byte rows).
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr, uint32_t half, uint32_t block, int kd) {
+  return kd < 4 * (D / 64) ? desc_sw128(addr + (kd / 4) * block + (kd % 4) * 32, 16, 1024)
+                           : desc_sw64(half + (kd % 4) * 32, 16, 512);
+}
+
+// d[D/2] += A[64 x 16] . B[16 x D] for k16 step kk (16 keys), B MN-major
+// from a K tile at addr whose 64-column blocks lie `block` bytes apart; at d
+// 256 two m64n128k16 halves (blocks 0-1 into d[0..63], 2-3 into d[64..127]:
+// the register layout of one m64n256k16); at d 96 m64n64k16 over block 0
+// into d[0..31] and m64n32k16 over the 32-column block after it (1024
+// bytes per 16 keys) into d[32..47]: the register layout of one m64n96k16.
 template <typename T, int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint32_t addr,
-                                         uint32_t block) {
+                                         int kk, uint32_t block) {
+  const uint32_t at = addr + kk * 2048;
   if constexpr (D == 256) {
-    wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(d), a, desc_sw128(addr, block, 1024));
+    wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(d), a, desc_sw128(at, block, 1024));
     wgmma_rs_n128<T>(*reinterpret_cast<float(*)[64]>(d + 64), a,
-                     desc_sw128(addr + 2 * block, block, 1024));
+                     desc_sw128(at + 2 * block, block, 1024));
   } else if constexpr (D == 128) {
-    wgmma_rs_n128<T>(d, a, desc_sw128(addr, block, 1024));
+    wgmma_rs_n128<T>(d, a, desc_sw128(at, block, 1024));
+  } else if constexpr (D == 96) {
+    wgmma_rs_n64<T>(*reinterpret_cast<float(*)[32]>(d), a, desc_sw128(at, block, 1024));
+    wgmma_rs_n32<T>(*reinterpret_cast<float(*)[16]>(d + 32), a,
+                    desc_sw64(addr + block + kk * 1024, block / 2, 512));
   } else {
-    wgmma_rs_n64<T>(d, a, desc_sw128(addr, block, 1024));
+    wgmma_rs_n64<T>(d, a, desc_sw128(at, block, 1024));
   }
 }
 
@@ -349,17 +400,24 @@ __device__ __forceinline__ void dscores(float (&sc)[NR], const float (&dp)[NR],
 // kernel
 // ---------------------------------------------------------------------------
 
+// tm_q, tm_k, tm_v, tm_do read 64-column boxes; tm_q2, tm_k2, tm_v2, tm_do2
+// the 32-column boxes of d 96's second block (unused at the other widths).
 template <typename T, int D, int NS>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_q2,
+                         const __grid_constant__ CUtensorMap tm_k2,
+                         const __grid_constant__ CUtensorMap tm_v2,
+                         const __grid_constant__ CUtensorMap tm_do2,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const int8_t* __restrict__ valid, T* __restrict__ dq, int S, int H,
                          int KH, int causal, float scale, float scale_log2) {
   using P = Plan<D, NS>;
   constexpr int kBN = P::kBN;
+  constexpr int kFull = P::kFull;
   constexpr int NA = D / 2;   // dQ accumulator registers per thread
   constexpr int NR = kBN / 2;  // S and dP accumulator registers per thread
   constexpr int CPR = D / 8;  // 16-byte chunks per dQ row
@@ -395,9 +453,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
       mbar_arrive_tx(qbar, 2 * P::q_tile);
-      for (int c = 0; c < D / 64; ++c) {
+      for (int c = 0; c < kFull; ++c) {
         tma_load(sbase + c * kQBlock, &tm_q, 64 * c, h, q0, b, qbar);
         tma_load(sbase + P::off_do + c * kQBlock, &tm_do, 64 * c, h, q0, b, qbar);
+      }
+      if constexpr (P::kHalf) {
+        tma_load(sbase + kFull * kQBlock, &tm_q2, 64 * kFull, h, q0, b, qbar);
+        tma_load(sbase + P::off_do + kFull * kQBlock, &tm_do2, 64 * kFull, h, q0, b, qbar);
       }
     }
     for (int i = 0; i < n_tiles; ++i) {
@@ -421,9 +483,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_arrive_tx(full + 8 * s, 2 * P::kv_tile);
         const uint32_t k_dst = sbase + P::off_k + s * P::kv_tile;
         const uint32_t v_dst = sbase + P::off_v + s * P::kv_tile;
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < kFull; ++c) {
           tma_load(k_dst + c * P::kv_block, &tm_k, 64 * c, kh, key0, b, full + 8 * s);
           tma_load(v_dst + c * P::kv_block, &tm_v, 64 * c, kh, key0, b, full + 8 * s);
+        }
+        if constexpr (P::kHalf) {
+          tma_load(k_dst + kFull * P::kv_block, &tm_k2, 64 * kFull, kh, key0, b, full + 8 * s);
+          tma_load(v_dst + kFull * P::kv_block, &tm_v2, 64 * kFull, kh, key0, b, full + 8 * s);
         }
       } else {
         mbar_arrive(full + 8 * s);
@@ -450,6 +516,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg_kend = row_base >= S ? 0 : causal ? min(kend, row_base + 64) : kend;
   const uint32_t q_addr = sbase + 64 * wg * 128;  // this warpgroup's rows of block 0
   const uint32_t do_addr = sbase + P::off_do + 64 * wg * 128;
+  // ... and of the 32-column block (64-byte rows), where there is one.
+  const uint32_t q_half = sbase + kFull * kQBlock + 64 * wg * 64;
+  const uint32_t do_half = q_half + P::off_do;
   const uint8_t* vmask = smem + P::off_mask;
   const int* vall = reinterpret_cast<const int*>(smem + P::off_all);
 
@@ -466,25 +535,21 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t k_addr = sbase + P::off_k + s * P::kv_tile;
       const uint32_t v_addr = sbase + P::off_v + s * P::kv_tile;
 
-      // S = Q.K^T and dP = dO.V^T over d in k16 steps (32 bytes inside a
-      // 64-column block).  Their first step does not read the accumulators
-      // (scale-d 0), so they live only inside the step.
+      // S = Q.K^T and dP = dO.V^T over d in k16 steps (desc_k).  Their
+      // first step does not read the accumulators (scale-d 0), so they live
+      // only inside the step.
+      const uint32_t k_half = k_addr + kFull * P::kv_block;
+      const uint32_t v_half = v_addr + kFull * P::kv_block;
       float sc[NR], dp[NR];
       wgmma_fence();
 #pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        const uint32_t qa = (kd / 4) * kQBlock + (kd % 4) * 32;
-        const uint32_t ka = (kd / 4) * P::kv_block + (kd % 4) * 32;
-        wgmma_ss<T, kBN>(sc, desc_sw128(q_addr + qa, 16, 1024),
-                         desc_sw128(k_addr + ka, 16, 1024), kd > 0);
-      }
+      for (int kd = 0; kd < D / 16; ++kd)
+        wgmma_ss<T, kBN>(sc, desc_k<D>(q_addr, q_half, kQBlock, kd),
+                         desc_k<D>(k_addr, k_half, P::kv_block, kd), kd > 0);
 #pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        const uint32_t qa = (kd / 4) * kQBlock + (kd % 4) * 32;
-        const uint32_t ka = (kd / 4) * P::kv_block + (kd % 4) * 32;
-        wgmma_ss<T, kBN>(dp, desc_sw128(do_addr + qa, 16, 1024),
-                         desc_sw128(v_addr + ka, 16, 1024), kd > 0);
-      }
+      for (int kd = 0; kd < D / 16; ++kd)
+        wgmma_ss<T, kBN>(dp, desc_k<D>(do_addr, do_half, kQBlock, kd),
+                         desc_k<D>(v_addr, v_half, P::kv_block, kd), kd > 0);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(sc);
@@ -512,8 +577,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_rs<T, D>(acc, ds[kk], k_addr + kk * 2048, P::kv_block);
+      for (int kk = 0; kk < kBN / 16; ++kk) wgmma_rs<T, D>(acc, ds[kk], k_addr, kk, P::kv_block);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(acc);
@@ -523,23 +587,27 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // ----- epilogue -----
   // Stage the warpgroup's 64 x D dQ in its own Q rows (only its own wgmmas
-  // read them, and they completed above), 16-byte chunk c of row r at
-  // c ^ (r % 8).
-  uint8_t* stage = smem + 64 * wg * 128;
+  // read them, and they completed above): 16-byte chunk c of row r at
+  // c ^ (r % 8) in a 64-column block (128-byte rows), at c ^ (r % 4) in the
+  // 32-column block (64-byte rows).
+  const auto stage_at = [&](int j, int rl) -> uint32_t {
+    const int r = 64 * wg + rl;
+    return j < 8 * kFull ? (j / 8) * kQBlock + r * 128 + ((j % 8) ^ (rl & 7)) * 16
+                         : kFull * kQBlock + r * 64 + ((j % 4) ^ (rl & 3)) * 16;
+  };
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int rl = 16 * warp + g + 8 * r;
-      const uint32_t at = (j / 8) * kQBlock + rl * 128 + ((j % 8) ^ (rl & 7)) * 16 + 4 * t;
-      *reinterpret_cast<uint32_t*>(stage + at) = pack2<T>(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(smem + stage_at(j, rl) + 4 * t) =
+          pack2<T>(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
   named_sync(1 + wg, 128);
   for (int c = tid; c < 64 * CPR; c += 128) {
     const int rl = c / CPR, cc = c % CPR, rw = row_base + rl;
     if (rw >= S) continue;
-    const uint4 val = *reinterpret_cast<const uint4*>(stage + (cc / 8) * kQBlock + rl * 128 +
-                                                      ((cc % 8) ^ (rl & 7)) * 16);
+    const uint4 val = *reinterpret_cast<const uint4*>(smem + stage_at(cc, rl));
     *reinterpret_cast<uint4*>(dq + ((static_cast<long long>(b) * S + rw) * H + h) * D + cc * 8) =
         val;
   }
@@ -576,17 +644,19 @@ EncodeTiled encoder() {
 }
 
 // A 4-D map (d, heads, S, B) over a contiguous [B, S, heads, d] tensor, read
-// in boxes of 64 columns x `rows` rows of one head, 128-byte swizzled.
+// in boxes of `cols` columns x `rows` rows of one head: 64 columns 128-byte
+// swizzled, or 32 columns 64-byte swizzled.
 int encode(CUtensorMap* map, EncodeTiled enc, CUtensorMapDataType dt, const void* ptr, int d,
-           int heads, int S, int B, int rows) {
+           int heads, int S, int B, int rows, int cols = 64) {
   const cuuint64_t es = 2;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {d * es, (cuuint64_t)heads * d * es,
                                  (cuuint64_t)S * heads * d * es};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, dt, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }
@@ -601,22 +671,28 @@ struct Args {
 
 template <typename T, int D, int NS>
 int run(CUtensorMapDataType dt, const Args& a) {
+  using P = Plan<D, NS>;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return kErrEntryPoint;
-  CUtensorMap tq, tk, tv, tdo;
+  // The 32-column maps only at d 96.
+  CUtensorMap tq, tk, tv, tdo, tq2{}, tk2{}, tv2{}, tdo2{};
   int rc = encode(&tq, enc, dt, a.q, D, a.H, a.S, a.B, kBM);
-  if (rc == 0) rc = encode(&tk, enc, dt, a.k, D, a.KH, a.S, a.B, Plan<D, NS>::kBN);
-  if (rc == 0) rc = encode(&tv, enc, dt, a.v, D, a.KH, a.S, a.B, Plan<D, NS>::kBN);
+  if (rc == 0) rc = encode(&tk, enc, dt, a.k, D, a.KH, a.S, a.B, P::kBN);
+  if (rc == 0) rc = encode(&tv, enc, dt, a.v, D, a.KH, a.S, a.B, P::kBN);
   if (rc == 0) rc = encode(&tdo, enc, dt, a.dout, D, a.H, a.S, a.B, kBM);
+  if (P::kHalf && rc == 0) rc = encode(&tq2, enc, dt, a.q, D, a.H, a.S, a.B, kBM, 32);
+  if (P::kHalf && rc == 0) rc = encode(&tk2, enc, dt, a.k, D, a.KH, a.S, a.B, P::kBN, 32);
+  if (P::kHalf && rc == 0) rc = encode(&tv2, enc, dt, a.v, D, a.KH, a.S, a.B, P::kBN, 32);
+  if (P::kHalf && rc == 0) rc = encode(&tdo2, enc, dt, a.dout, D, a.H, a.S, a.B, kBM, 32);
   if (rc != 0) return rc;
   auto kernel = flash_bwd_dq_sm90_kernel<T, D, NS>;
-  const size_t smem = Plan<D, NS>::smem;
+  const size_t smem = P::smem;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.B * a.H, (a.S + kBM - 1) / kBM);
   kernel<<<grid, kThreads, smem, a.stream>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      tq, tk, tv, tdo, tq2, tk2, tv2, tdo2, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const int8_t*>(a.valid), static_cast<T*>(a.dq), a.S, a.H, a.KH, a.causal,
       a.scale, a.scale * kLog2e);
   return (int)cudaGetLastError();
@@ -632,8 +708,8 @@ bool bad_args(const Args& a) {
 
 }  // namespace
 
-// dtype 1 bfloat16, 2 float16 (float32 runs atpu_flash_bwd_dq); hd 64, 128
-// or 256.  q, do [B, S, H, hd], k/v [B, S, KH, hd], lse/delta [B, H, S] fp32,
+// dtype 1 bfloat16, 2 float16 (float32 runs atpu_flash_bwd_dq); hd 64, 96,
+// 128 or 256.  q, do [B, S, H, hd], k/v [B, S, KH, hd], lse/delta [B, H, S] fp32,
 // valid [B, S] int8 or null; q, k, v, do, dq 16-byte aligned.  Writes dq
 // [B, S, H, hd].  Returns 0, a cudaError_t, 999 if the tensor-map encoder is
 // missing, or 1000 + the CUresult of a failed encode.
@@ -645,6 +721,8 @@ extern "C" int atpu_flash_bwd_dq_sm90(int dtype, const void* q, const void* k, c
                static_cast<cudaStream_t>(stream)};
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
   switch (dtype * 1000 + hd) {
+    case 1096: return run<__nv_bfloat16, 96, kStages>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
+    case 2096: return run<__half, 96, kStages>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, a);
     case 1064: return run<__nv_bfloat16, 64, kStages>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
     case 1128: return run<__nv_bfloat16, 128, kStages>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
     case 2064: return run<__half, 64, kStages>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, a);
@@ -667,4 +745,18 @@ extern "C" int atpu_flash_bwd_dq_sm90_ring2(int dtype, const void* q, const void
                static_cast<cudaStream_t>(stream)};
   if (bad_args(a) || dtype != 1 || hd != 128) return (int)cudaErrorInvalidValue;
   return run<__nv_bfloat16, 128, 2>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
+}
+
+// The same kernel with a 4-stage K/V ring, bf16 and hd 96 only: on no path,
+// timed beside the kernel to weigh the ring's depth.  Arguments and returns
+// as above.
+extern "C" int atpu_flash_bwd_dq_sm90_ring4(int dtype, const void* q, const void* k,
+                                            const void* v, const void* dout, const void* lse,
+                                            const void* delta, const void* valid, void* dq,
+                                            int B, int S, int H, int KH, int hd, int causal,
+                                            float scale, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, valid, dq, B, S, H, KH, causal, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (bad_args(a) || dtype != 1 || hd != 96) return (int)cudaErrorInvalidValue;
+  return run<__nv_bfloat16, 96, 4>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
 }

@@ -15,20 +15,21 @@ raises):
 
 - :func:`fused_attention_fwd` -> ``(out, lse)``: bf16 and fp16 run the
   Hopper forward of ``csrc/flash_fwd_sm90.cu`` (wgmma, TMA-fed K/V ring, P
-  in registers; 64-key tiles at 256; at 96 a 64-column block beside a
-  32-column one); fp32 the mma.sync body of ``csrc/flash_attention.cu``;
-- :func:`fused_attention_bwd_dq` -> ``dq``: bf16 and fp16 at 64, 128 and
-  256 run the Hopper kernel of ``csrc/flash_bwd_dq_sm90.cu`` (wgmma, TMA-fed
-  K/V ring, dS in registers; 32-key tiles at 256); fp32, and head dim 96 in
-  every type, the body of ``csrc/flash_attention.cu``;
+  in registers; 64-key tiles at 256);
+- :func:`fused_attention_bwd_dq` -> ``dq``: bf16 and fp16 run the Hopper
+  kernel of ``csrc/flash_bwd_dq_sm90.cu`` (wgmma, TMA-fed K/V ring, dS in
+  registers; 32-key tiles at 256);
 - :func:`fused_attention_bwd_dkv` -> ``(dk, dv)``, already summed over each
-  kv head's query heads: bf16 and fp16 at 64 and 128 run the Hopper kernel
-  of ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma, TMA-fed Q/dO ring, P^T and dS^T
-  in registers), and at 256 its d-256 kernel (64-key CTAs whose two
-  warpgroups split the columns; a kv head's query heads split over
+  kv head's query heads: bf16 and fp16 at 64, 96 and 128 run the Hopper
+  kernel of ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma, TMA-fed Q/dO ring, P^T
+  and dS^T in registers), and at 256 its d-256 kernel (64-key CTAs whose
+  two warpgroups split the columns; a kv head's query heads split over
   :func:`pick_dkv_split` CTAs whose fp32 partials a second kernel adds in
-  split order); fp32, and head dim 96 in every type, the body of
-  ``csrc/flash_attention.cu``.
+  split order).
+
+At head dim 96 each Hopper kernel stores a tile as a 64-column block beside
+a 32-column one.  fp32 runs the mma.sync body of ``csrc/flash_attention.cu``
+at every head dim.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the plain PyTorch version (:func:`fused_attention_fwd_plain`,
@@ -68,11 +69,7 @@ __all__ = [
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 96, 128, 256)  # the body of flash_attention.cu takes all four
-# The head dims each kernel's sm90 body takes (16-bit types); the rest run
-# the body of flash_attention.cu.
-_SM90_HEAD_DIMS = {"atpu_flash_fwd": (64, 96, 128, 256), "atpu_flash_bwd_dq": (64, 128, 256),
-                   "atpu_flash_bwd_dkv": (64, 128, 256)}
+_HEAD_DIMS = (64, 96, 128, 256)  # every kernel body takes all four
 _DKV_SPLIT_KEYS = 64  # keys per CTA of the d-256 dK/dV kernel
 _NEG = -1e30  # finite: no inf - inf in the exp bookkeeping
 _LIVE = -0.5e30  # scores above this are admitted
@@ -283,12 +280,16 @@ _ARGTYPES = {
     "atpu_flash_fwd_sm90": _FWD_ARGTYPES,
     "atpu_flash_bwd_dq": _DQ_ARGTYPES,
     "atpu_flash_bwd_dq_sm90": _DQ_ARGTYPES,
-    # the same kernel with a 2-stage K/V ring: on no path, timed only
+    # the same kernel with a 2-stage K/V ring (hd 128) or a 4-stage one (hd
+    # 96): on no path, timed only
     "atpu_flash_bwd_dq_sm90_ring2": _DQ_ARGTYPES,
+    "atpu_flash_bwd_dq_sm90_ring4": _DQ_ARGTYPES,
     "atpu_flash_bwd_dkv": _DKV_ARGTYPES,
     "atpu_flash_bwd_dkv_sm90": _DKV_ARGTYPES,
-    # the same kernel without the lo half of P in dV: on no path, timed only
+    # the same kernel without the lo half of P in dV (hd 128), or with a
+    # 4-stage Q/dO ring (hd 96): on no path, timed only
     "atpu_flash_bwd_dkv_sm90_nolo": _DKV_ARGTYPES,
+    "atpu_flash_bwd_dkv_sm90_ring4": _DKV_ARGTYPES,
     "atpu_flash_bwd_dkv_sm90_d256": _DKV_SPLIT_ARGTYPES,
 }
 # The source of each symbol that is not in flash_attention.cu.
@@ -296,8 +297,10 @@ _SOURCES = {
     "atpu_flash_fwd_sm90": "flash_fwd_sm90",
     "atpu_flash_bwd_dq_sm90": "flash_bwd_dq_sm90",
     "atpu_flash_bwd_dq_sm90_ring2": "flash_bwd_dq_sm90",
+    "atpu_flash_bwd_dq_sm90_ring4": "flash_bwd_dq_sm90",
     "atpu_flash_bwd_dkv_sm90": "flash_bwd_dkv_sm90",
     "atpu_flash_bwd_dkv_sm90_nolo": "flash_bwd_dkv_sm90",
+    "atpu_flash_bwd_dkv_sm90_ring4": "flash_bwd_dkv_sm90",
     "atpu_flash_bwd_dkv_sm90_d256": "flash_bwd_dkv_sm90",
 }
 
@@ -329,13 +332,13 @@ def _launch(symbol: str, q, k, v, kv_valid, *ptrs, causal: bool, n_split=None):
 
 
 def _symbol(base: str, q) -> str:
-    """The launcher of ``base`` for q's dtype and head dim: the sm90 kernel
-    for bf16 and fp16 at the head dims of ``_SM90_HEAD_DIMS[base]`` (dK/dV's
-    d-256 kernel at 256), else the body of ``flash_attention.cu``."""
-    d = q.shape[-1]
-    if q.dtype == torch.float32 or d not in _SM90_HEAD_DIMS[base]:
+    """The launcher of ``base`` for q's dtype and head dim: the body of
+    ``flash_attention.cu`` for fp32, else the sm90 kernel (dK/dV's d-256
+    kernel at 256)."""
+    if q.dtype == torch.float32:
         return base
-    return f"{base}_sm90_d256" if base == "atpu_flash_bwd_dkv" and d == 256 else f"{base}_sm90"
+    d256 = base == "atpu_flash_bwd_dkv" and q.shape[-1] == 256
+    return f"{base}_sm90_d256" if d256 else f"{base}_sm90"
 
 
 def _on_cuda(name: str, q) -> bool:
@@ -371,9 +374,9 @@ def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_si
 
 def fused_attention_bwd_dq(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True):
     """dQ ``[B, S, H, d]`` in q's dtype from the saved ``lse`` and δ
-    (``delta [B, H, S]`` fp32).  On CUDA, bf16 and fp16 at head dim 64, 128
-    and 256 launch the Hopper kernel (``atpu_flash_bwd_dq_sm90``), the rest
-    the mma.sync body (``atpu_flash_bwd_dq``)."""
+    (``delta [B, H, S]`` fp32).  On CUDA, bf16 and fp16 launch the Hopper
+    kernel (``atpu_flash_bwd_dq_sm90``), fp32 the mma.sync body
+    (``atpu_flash_bwd_dq``)."""
     if not _on_cuda("fused_attention_bwd_dq", q):
         return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[0]
     _check(q, k, v, kv_valid, {"do": do, "lse": lse, "delta": delta})
@@ -387,11 +390,11 @@ def fused_attention_bwd_dq(q, k, v, do, lse, delta, kv_valid=None, *, causal: bo
 
 def fused_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True):
     """dK, dV ``[B, S, K, d]`` in k's dtype, summed over each kv head's query
-    heads.  On CUDA, bf16 and fp16 at head dim 64 and 128 launch the Hopper
-    kernel (``atpu_flash_bwd_dkv_sm90``), at 256 its d-256 kernel
+    heads.  On CUDA, bf16 and fp16 at head dim 64, 96 and 128 launch the
+    Hopper kernel (``atpu_flash_bwd_dkv_sm90``), at 256 its d-256 kernel
     (``atpu_flash_bwd_dkv_sm90_d256``: query heads split over
     :func:`pick_dkv_split` CTAs, fp32 partials in a workspace allocated here,
-    summed in split order by a second kernel), the rest the mma.sync body
+    summed in split order by a second kernel), fp32 the mma.sync body
     (``atpu_flash_bwd_dkv``)."""
     if not _on_cuda("fused_attention_bwd_dkv", q):
         return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[1:]

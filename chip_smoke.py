@@ -160,7 +160,7 @@ Phases (each fails the run on any mismatch; nothing is caught):
    ``mixed_precision="bf16"`` on the card and with ``cpu=True``: each
    accuracy above 0.8, JAX's ``test_nlp_example_learns`` threshold.
 
-10. The wide heads and Gemma-2B at full width.  10a: the three flash
+10. The wide heads, Gemma-2B at full width and Phi-3-mini.  10a: the three flash
    kernels at head dim 256 (Gemma-2B's 8 q / 1 kv heads, Gemma-7B's 16 /
    16) and 96 (Phi-3-mini's 32 / 32), B 2 x S 2048 causal, unpadded and
    left-padded, in bf16 and fp32 (and fp16 at Gemma-2B's), against their
@@ -168,10 +168,11 @@ Phases (each fails the run on any mismatch; nothing is caught):
    (L2-cold copies), plain, bound and ``scaled_dot_product_attention``
    forward and backward times (an error recorded where sdpa refuses the
    shape) and the launcher each wrapper called; in bf16 and fp16 the sm90
-   bodies beside the mma.sync bodies they replace (at d 256 the forward, dQ
-   and dK/dV: ``atpu_flash_fwd``, ``atpu_flash_bwd_dq``,
-   ``atpu_flash_bwd_dkv``; at d 96 the forward; called directly, not
-   counted) as ``previous_ms`` in turns, each held to the tolerance,
+   bodies beside the mma.sync bodies they replace (the forward, dQ and
+   dK/dV: ``atpu_flash_fwd``, ``atpu_flash_bwd_dq``, ``atpu_flash_bwd_dkv``;
+   called directly, not counted) as ``previous_ms`` in turns, and in bf16
+   at d 96 dQ and dK/dV with a 4-stage ring (``..._sm90_ring4``) as
+   ``ring4_ms``, each held to the tolerance,
    δ's time beside the backward kernels', and dK/dV at every split of the
    query-head group (``split_ms``, each held to the tolerance); the paged pair
    at head dim 96 (bf16, fp32) and 256 (fp32) at Phase 1's long shape
@@ -198,12 +199,21 @@ Phases (each fails the run on any mismatch; nothing is caught):
    geometry and traffic, ``spec_tokens`` 0 and 3: 18 paged launches (head
    dim 256) per dispatch, every request token-identical to greedy
    ``generate`` or parting from it at a near tie, TTFT, ITL and decode
-   tokens/s.
+   tokens/s.  10d: Phi-3-mini (microsoft/Phi-3-mini-4k-instruct's published
+   widths: vocab 32064, d 3072, FFN 8192, 32 q / 32 kv heads of 96, untied
+   head, rope_theta 10000, eps 1e-5; its sliding window left out) cut to 8
+   of 32 layers, random weights from seed 0: the first step on the kernel
+   path against the plain path as in 10b, then the same README loop, 5
+   steps at B 2 x S 2048: the flash kernels launched 2L / L / L = 16 / 8 /
+   8 a step, the profiled step naming the d-96 sm90 forward, dQ and dK/dV
+   and no kernel of ``flash_attention.cu``, step time, tokens/s, share of
+   the bf16 peak and idle share.
 
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
-``launches_phase10``, the head dims each takes as ``head_dims`` and
+``launches_phase10``, the flash kernels' Phase 10d launches as
+``launches_phase10d``, the head dims each takes as ``head_dims`` and
 Phase 10a's records as ``wide_heads``), the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -260,7 +270,9 @@ DQ_DESIGN = ("bf16/fp16: 128-row CTA of one (batch, q head), 2 consumer warpgrou
              "dP = dO.V^T (smem descriptors), dS in registers as A of wgmma m64n{d}k16 "
              "dQ += dS.K (K MN-major); heaviest causal q tiles first; no atomics; d 256: "
              "32-key tiles in a 2-stage ring (192 KB), wgmma m64n32k16 S and dP, two "
-             "m64n128k16 dQ halves; fp32, and d 96: the CUDA-core body of flash_attention.cu")
+             "m64n128k16 dQ halves; d 96: a 64-column 128B-swizzled block beside a 32-column "
+             "64B-swizzled one, dQ as m64n64k16 + m64n32k16 (120 KB); fp32: the CUDA-core body "
+             "of flash_attention.cu")
 DKV_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu"  # bf16 and fp16 dK/dV
 DKV_DESIGN = ("bf16/fp16: 128-key CTA of one (batch, kv head), 2 consumer warpgroups of 64 keys "
               "+ a producer warp, setmaxnreg 240/24; K/V by TMA once, 64-row Q/dO tiles of the "
@@ -271,7 +283,9 @@ DKV_DESIGN = ("bf16/fp16: 128-key CTA of one (batch, kv head), 2 consumer warpgr
               "warpgroups own 128 columns each and recompute S^T/dP^T over the full d, a "
               "2-stage ring (193 KB), the group's query heads split over n_split CTAs "
               "(pick_dkv_split) writing fp32 partials that a second kernel sums in split "
-              "order; fp32: the CUDA-core body of flash_attention.cu")
+              "order; d 96: a 64-column 128B-swizzled block beside a 32-column 64B-swizzled "
+              "one, dV and dK as m64n64k16 + m64n32k16 (121.5 KB); fp32: the CUDA-core body of "
+              "flash_attention.cu")
 REPLACES = {
     "paged_attention": "accelerate_tpu/ops/pallas_attention.py:564",
     "paged_window_attention": "accelerate_tpu/ops/pallas_attention.py:686",
@@ -2602,6 +2616,20 @@ WIDE_FLASH = ("flash_fwd_sm90_kernel<__nv_bfloat16, 256>",
               "flash_bwd_dq_sm90_kernel<__nv_bfloat16, 256, 2>",
               "flash_bwd_dkv_sm90_d256_kernel<__nv_bfloat16, true>",
               "flash_bwd_dkv_sum_kernel<__nv_bfloat16>")
+# microsoft/Phi-3-mini-4k-instruct's config.json (Hugging Face Hub): the
+# widths Phase 10d trains, built directly as a LlamaConfig (32 heads of
+# 3072 / 32 = 96).  Its sliding_window (2047) is left out: the JAX llama has
+# none, and the port's hf_import refuses it.  Depth is cut to
+# PHASE10D_LAYERS of its 32 layers to keep the script's time.
+PHI3_MINI = dict(vocab_size=32064, hidden_size=3072, intermediate_size=8192, num_heads=32,
+                 num_kv_heads=32, max_seq_len=4096, rope_theta=10000.0, rms_eps=1e-5,
+                 tie_embeddings=False)
+PHASE10D_LAYERS = 8
+# The bf16 d-96 kernels Phi-3-mini's training step runs, as a profiler names
+# them: the sm90 forward, dQ and dK/dV.
+PHI3_FLASH = ("flash_fwd_sm90_kernel<__nv_bfloat16, 96>",
+              "flash_bwd_dq_sm90_kernel<__nv_bfloat16, 96, 3>",
+              "flash_bwd_dkv_sm90_kernel<__nv_bfloat16, 96, true, 3>")
 # The launcher each flash wrapper calls, by its base name.
 FLASH_BASES = {"fused_attention_fwd": "atpu_flash_fwd",
                "fused_attention_bwd_dq": "atpu_flash_bwd_dq",
@@ -2624,10 +2652,11 @@ def direct_dkv_d256(fu, n_split, q, k, v, do, lse, delta):
 
 def wide_previous(fu, copies, times, want):
     """In 16-bit types at d 96 and 256: the mma.sync bodies the sm90 kernels
-    replace (the forward at both, dQ and dK/dV at 256; called directly),
-    each held to the plain versions' tolerance and timed in turns with the
-    kernel (kernel, previous, previous, kernel); at d 256 also dK/dV at
-    every split of the group, each held to the tolerance and timed.
+    replace (the forward, dQ and dK/dV; called directly) and, in bf16 at d
+    96, dQ and dK/dV with a 4-stage ring (``..._sm90_ring4``), each held to
+    the plain versions' tolerance and timed in turns with the kernel
+    (kernel, previous, ring4, ring4, previous, kernel); at d 256 also dK/dV
+    at every split of the group, each held to the tolerance and timed.
     Returns ``({wrapper: extra record keys}, {wrapper: second kernel
     ms})``."""
     import torch
@@ -2637,31 +2666,43 @@ def wide_previous(fu, copies, times, want):
     tol = TOL[str(q.dtype)]
     want_out, want_dq, want_dk, want_dv = want
     fwd, dq, dkv = FLASH_KERNELS
-    previous = {fwd: lambda q, k, v, *_: previous_fwd(fu, q, k, v)}
-    if d == 256:
-        previous[dq] = lambda *a: direct_bwd(fu, "atpu_flash_bwd_dq", *a)
-        previous[dkv] = lambda *a: direct_bwd(fu, "atpu_flash_bwd_dkv", *a)
+    others = {fwd: {"previous": lambda q, k, v, *_: previous_fwd(fu, q, k, v)}}
+    for wrapper in (dq, dkv):
+        base = FLASH_BASES[wrapper]
+        others[wrapper] = {"previous": lambda *a, sym=base: direct_bwd(fu, sym, *a)}
+        if d == 96 and q.dtype == torch.bfloat16:
+            others[wrapper]["ring4"] = (
+                lambda *a, sym=f"{base}_sm90_ring4": direct_bwd(fu, sym, *a))
     refs = {fwd: (want_out,), dq: (want_dq,), dkv: (want_dk, want_dv)}
     kernels = {fwd: (lambda q, k, v, *_: fu.fused_attention_fwd(q, k, v, causal=True,
                                                                 block_size=q.shape[1])),
                dq: (lambda *a: fu.fused_attention_bwd_dq(*a, causal=True)),
                dkv: (lambda *a: fu.fused_attention_bwd_dkv(*a, causal=True))}
     extra, second = {}, {}
-    for wrapper, call in previous.items():
-        got = call(q, k, v, do, lse, delta)
-        torch.cuda.synchronize()
-        pairs = list(zip(got, refs[wrapper]))
-        err = max((g.float() - w.float()).abs().max().item() for g, w in pairs)
-        check(all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol) for g, w in pairs),
-              f"previous {wrapper} body at d {d}: max abs err {err} over atol=rtol={tol}")
-        del got, pairs
-        prev = [cuda_ms(call, copies, iters=10) for _ in range(2)]
+    for wrapper, calls in others.items():
+        extra[wrapper] = dict(previous_body=FLASH_BASES[wrapper])
+        for name, call in calls.items():
+            got = call(q, k, v, do, lse, delta)
+            torch.cuda.synchronize()
+            pairs = list(zip(got, refs[wrapper]))
+            err = max((g.float() - w.float()).abs().max().item() for g, w in pairs)
+            check(all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
+                      for g, w in pairs),
+                  f"{name} {wrapper} body at d {d}: max abs err {err} over atol=rtol={tol}")
+            extra[wrapper][f"{name}_max_abs_err"] = err
+            del got, pairs
+        order = list(calls) + list(reversed(calls))
+        ms = {name: [] for name in calls}
+        for name in order:
+            ms[name].append(cuda_ms(calls[name], copies, iters=10))
         second[wrapper] = cuda_ms(kernels[wrapper], copies, iters=10)
-        extra[wrapper] = dict(previous_ms=sum(prev) / 2, previous_max_abs_err=err,
-                              previous_body=FLASH_BASES[wrapper])
+        for name, pair in ms.items():
+            extra[wrapper][f"{name}_ms"] = sum(pair) / 2
         log(f"phase10a {wrapper} {q.dtype} d={d} in turns: kernel {times[wrapper]:.4f} "
-            f"previous {prev[0]:.4f} previous {prev[1]:.4f} kernel {second[wrapper]:.4f} ms; "
-            f"previous max abs err {err:.3e}")
+            + " ".join(f"{name} {ms[name][order[:i].count(name)]:.4f}"
+                       for i, name in enumerate(order))
+            + f" kernel {second[wrapper]:.4f} ms; max abs err "
+            + " ".join(f"{name} {extra[wrapper][name + '_max_abs_err']:.3e}" for name in calls))
     if d != 256:
         return extra, second
     b, s, h, _ = q.shape
@@ -2902,10 +2943,6 @@ def phase10b(smi):
     memory, the kernel path against the plain path, then 5 steps of
     ``prepare(model, AdamW, DataLoader, LambdaLR)`` under
     ``mixed_precision="bf16"`` with ``remat=True``."""
-    from torch.profiler import ProfilerActivity, profile
-    from torch.utils.data import DataLoader
-
-    from accelerate_tpu_torch import Accelerator
     from accelerate_tpu_torch.models import hf_export, hf_import, llama
 
     cfg = gemma_2b_config(dtype=torch.bfloat16, param_dtype=torch.float32, remat=True)
@@ -2951,9 +2988,28 @@ def phase10b(smi):
     first = {"input_ids": torch.from_numpy(ids[:b]).cuda()}
     mem = phase10_policy_memory(model, first, smi)
 
-    # The first step's loss and gradients: the kernel path against the
-    # plain path (the fused op's plain versions), with fp32 activations
-    # (every leaf within a relative 1e-4, as Phase 5), then bf16 compute.
+    kernel_vs_plain_step(model, cfg, first, "phase10b")
+    out = readme_loop(model, cfg, rows, b, "phase10b", smi, WIDE_FLASH)
+    losses, per_step, wide = out["losses"], out["per_step"], out["traced"]
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(per_step == [(2 * L, L, L)] * PHASE10_STEPS,
+          f"flash launches per step {per_step}, want (2L, L, L) = {(2 * L, L, L)}")
+    check(all(wide.values()), f"the profiler trace names no d-256 kernel: {wide}")
+    out["mem"] = mem
+    params16 = {k: (val.detach().to(torch.bfloat16) if not isinstance(val, dict) else
+                    {kk: vv.detach().to(torch.bfloat16) for kk, vv in val.items()})
+                for k, val in model.params.items()}
+    del model
+    gc_collect()
+    return out, params16
+
+
+def kernel_vs_plain_step(model, cfg, first, tag):
+    """The first step's loss and gradients on the kernel path against the
+    plain path (the fused op's plain versions): with fp32 activations loss
+    and every leaf within a relative 1e-4, as Phase 5; in bf16 the loss
+    within ``PHASE10_BF16_LOSS_REL`` of itself and every leaf within a
+    relative ``BF16_GRAD_TOL``."""
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     loss_k, grads_k = loss_and_grads(model, cfg32, first)
     with plain_flash():
@@ -2961,11 +3017,11 @@ def phase10b(smi):
     rel = max(((gk - gp).abs().max() / gp.abs().max()).item()
               for gk, gp in zip(grads_k, grads_p))
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    log(f"phase10b fp32 first step, kernel vs plain path: loss {loss_k.item():.6f} vs "
+    log(f"{tag} fp32 first step, kernel vs plain path: loss {loss_k.item():.6f} vs "
         f"{loss_p.item():.6f} (rel {loss_rel:.3e}); max over {len(grads_k)} gradient leaves "
         f"of max|diff|/max|plain| = {rel:.3e} (limit 1e-4)")
     check(loss_rel <= 1e-4 and rel <= 1e-4,
-          f"fp32 kernel path differs: loss {loss_rel}, grad {rel}")
+          f"{tag} fp32 kernel path differs: loss {loss_rel}, grad {rel}")
     del grads_k, grads_p
     torch.cuda.empty_cache()
     loss_k, grads_k = loss_and_grads(model, cfg, first)
@@ -2975,14 +3031,28 @@ def phase10b(smi):
     rels = [((gk - gp).abs().max() / gp.abs().max()).item() for gk, gp in zip(grads_k, grads_p)]
     names = [nm for nm, _ in model.named_parameters()]
     loss_lim = PHASE10_BF16_LOSS_REL * abs(loss_p)
-    log(f"phase10b bf16 first step, kernel vs plain path: loss {loss_k:.5f} vs {loss_p:.5f} "
+    log(f"{tag} bf16 first step, kernel vs plain path: loss {loss_k:.5f} vs {loss_p:.5f} "
         f"(|diff| {abs(loss_k - loss_p):.3e}, limit {loss_lim:.3e} = "
         f"{PHASE10_BF16_LOSS_REL} of the loss); per gradient leaf max|diff|/max|plain|: "
         + " ".join(f"{nm}={r:.3e}" for nm, r in zip(names, rels)) + f" (limit {BF16_GRAD_TOL})")
-    check(abs(loss_k - loss_p) <= loss_lim, f"bf16 loss differs by {abs(loss_k - loss_p)}")
-    check(max(rels) <= BF16_GRAD_TOL, f"bf16 gradients differ: {max(rels)}")
+    check(abs(loss_k - loss_p) <= loss_lim, f"{tag} bf16 loss differs by {abs(loss_k - loss_p)}")
+    check(max(rels) <= BF16_GRAD_TOL, f"{tag} bf16 gradients differ: {max(rels)}")
     del grads_k, grads_p
     torch.cuda.empty_cache()
+
+
+def readme_loop(model, cfg, rows, b, tag, smi, traced):
+    """The README loop under ``Accelerator(mixed_precision="bf16")``:
+    ``prepare(model, AdamW, DataLoader(rows, batch_size=b), LambdaLR)``, one
+    step a batch, the last profiled.  Logs and returns the losses, step time
+    (median of steps 2 on), tokens/s, peak memory, the profiled step's idle
+    share and device time by group, the flash launches of each step and the
+    launches in the profiled step of each kernel named in ``traced``; frees
+    what the accelerator holds."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.data import DataLoader
+
+    from accelerate_tpu_torch import Accelerator
 
     fresh_state()
     acc = Accelerator(mixed_precision="bf16")
@@ -2996,7 +3066,7 @@ def phase10b(smi):
     for i, batch in enumerate(dl):
         before = read_flash_counts()
         ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-               if i == PHASE10_STEPS - 1 else contextlib.nullcontext())
+               if i == len(dl) - 1 else contextlib.nullcontext())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with ctx as prof:
@@ -3014,37 +3084,88 @@ def phase10b(smi):
     counts = read_flash_counts()
     peak = torch.cuda.max_memory_allocated()
     by_kernel, busy, groups, launches, flash = kernel_groups(prof)
-    wide = {k: sum(cnt for _, cnt, key in by_kernel if k in key) for k in WIDE_FLASH}
+    in_trace = {k: sum(cnt for _, cnt, key in by_kernel if k in key) for k in traced}
+    n, v, d, L, s = (cfg.num_params(), cfg.vocab_size, cfg.hidden_size, cfg.num_layers,
+                     len(rows[0]["input_ids"]))
     tokens = b * s
     dense = n - (0 if cfg.tie_embeddings else v * d)  # the embedding lookup is no product
     pairs = s * (s + 1) // 2
     flops = 6 * dense * tokens + L * 3.5 * 4 * b * cfg.num_heads * cfg.head_dim_ * pairs
     ms = median(step_s[1:]) * 1e3
-    log(f"phase10b README loop, bf16 policy, B {b} x S {s}, {PHASE10_STEPS} steps: losses "
-        f"{losses!r} step_ms={ms:.2f} (median of steps 2-5; each "
-        f"{[round(x * 1e3, 2) for x in step_s]}; the fifth profiled) tokens_per_s="
+    idle = 1 - busy / (step_s[-1] * 1e3)
+    log(f"{tag} README loop, bf16 policy, B {b} x S {s}, {len(step_s)} steps: losses "
+        f"{losses!r} step_ms={ms:.2f} (median of steps 2-{len(step_s)}; each "
+        f"{[round(x * 1e3, 2) for x in step_s]}; the last profiled) tokens_per_s="
         f"{tokens / ms * 1e3:.1f} model_tflop_per_step={flops / 1e12:.3f} "
         f"bf16_peak_share={flops / (ms / 1e3) / PEAK_FLOPS['torch.bfloat16']:.4f} "
         f"peak_mem_bytes={peak}; profiled step: device_busy_ms={busy:.2f} idle_share="
-        f"{1 - busy / (step_s[-1] * 1e3):.3f} by group (ms, launches) "
+        f"{idle:.3f} by group (ms, launches) "
         + " ".join(f"{k}={t:.2f}/{launches[k]}" for k, t in groups.items())
-        + f"; flash: {', '.join(flash)}; d-256 kernels in the trace {wide}; flash launches "
+        + f"; flash: {', '.join(flash)}; kernels in the trace {in_trace}; flash launches "
         f"per step {per_step}; {smi}")
     for t, cnt, key in by_kernel[:8]:
-        log(f"phase10b   device {t:.3f} ms in {cnt} launches: {key[:110]}")
-    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
-    check(per_step == [(2 * L, L, L)] * PHASE10_STEPS,
-          f"flash launches per step {per_step}, want (2L, L, L) = {(2 * L, L, L)}")
-    check(all(wide.values()), f"the profiler trace names no d-256 kernel: {wide}")
-    out = dict(counts=counts, ms=ms, tokens_per_s=tokens / ms * 1e3, peak=peak, mem=mem,
-               idle=1 - busy / (step_s[-1] * 1e3), b=b)
-    params16 = {k: (val.detach().to(torch.bfloat16) if not isinstance(val, dict) else
-                    {kk: vv.detach().to(torch.bfloat16) for kk, vv in val.items()})
-                for k, val in model.params.items()}
+        log(f"{tag}   device {t:.3f} ms in {cnt} launches: {key[:110]}")
+    out = dict(counts=counts, ms=ms, tokens_per_s=tokens / ms * 1e3, peak=peak, idle=idle, b=b,
+               losses=losses, per_step=per_step, traced=in_trace, by_kernel=by_kernel)
     nones = acc.free_memory(pmodel, opt, dl, sched)
-    del model, pmodel, opt, dl, sched, loss, batch, prof, nones
+    del pmodel, opt, dl, sched, loss, batch, prof, nones
     gc_collect()
-    return out, params16
+    return out
+
+
+def phi3_mini_model():
+    """Phi-3-mini's widths (``PHI3_MINI``) cut to ``PHASE10D_LAYERS`` layers,
+    bf16 compute, fp32 parameters, ``remat=True``, random weights from seed
+    0: ``(cfg, model)``."""
+    from accelerate_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(**PHI3_MINI, num_layers=PHASE10D_LAYERS, dtype=torch.bfloat16,
+                            param_dtype=torch.float32, remat=True)
+    return cfg, llama.LlamaForCausalLM(cfg, seed=0)
+
+
+def phase10d_loop(cfg, model, smi):
+    """Phase 10d's README loop: ``PHASE10_STEPS`` steps at B ``PHASE10_B`` x
+    S ``PHASE10_S`` from seed 12 (:func:`readme_loop`)."""
+    rng = np.random.default_rng(12)
+    ids = rng.integers(0, cfg.vocab_size, size=(PHASE10_B * PHASE10_STEPS, PHASE10_S))
+    rows = [{"input_ids": torch.from_numpy(r)} for r in ids]
+    return readme_loop(model, cfg, rows, PHASE10_B, "phase10d", smi, PHI3_FLASH)
+
+
+def phase10d(smi):
+    """Phi-3-mini (published widths cut to 8 of 32 layers, head dim 96)
+    trained through the README loop: the kernel path against the plain path,
+    then 5 steps under ``mixed_precision="bf16"`` with ``remat=True``,
+    launching the d-96 sm90 forward, dQ and dK/dV and no kernel of
+    ``flash_attention.cu``."""
+    t0 = time.perf_counter()
+    cfg, model = phi3_mini_model()
+    torch.cuda.synchronize()
+    n, b, s, L = cfg.num_params(), PHASE10_B, PHASE10_S, cfg.num_layers
+    log(f"phase10d Phi-3-mini from microsoft/Phi-3-mini-4k-instruct's config.json: vocab "
+        f"{cfg.vocab_size} d {cfg.hidden_size} ffn {cfg.intermediate_size} heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim {cfg.head_dim_} untied head, rope_theta "
+        f"{cfg.rope_theta} eps {cfg.rms_eps}; depth cut to {L} of 32 layers; its "
+        f"sliding_window 2047 left out (the JAX llama has none, hf_import refuses it); {n} "
+        f"parameters, {16 * n} bytes of fp32 training state; init_s="
+        f"{time.perf_counter() - t0:.1f}")
+    first = {"input_ids": torch.from_numpy(
+        np.random.default_rng(12).integers(0, cfg.vocab_size, size=(b, s))).cuda()}
+    kernel_vs_plain_step(model, cfg, first, "phase10d")
+    del first
+    out = phase10d_loop(cfg, model, smi)
+    losses, per_step = out["losses"], out["per_step"]
+    legacy = sorted({key[:60] for _, _, key in out["by_kernel"]
+                     if re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_kernel", key)})
+    check(all(math.isfinite(x) for x in losses), f"phase10d non-finite loss {losses}")
+    check(per_step == [(2 * L, L, L)] * PHASE10_STEPS,
+          f"phase10d flash launches per step {per_step}, want (2L, L, L) = {(2 * L, L, L)}")
+    check(all(out["traced"].values()), f"the trace lacks a d-96 sm90 kernel: {out['traced']}")
+    check(not legacy, f"the trace names flash_attention.cu kernels: {legacy}")
+    del model
+    gc_collect()
+    return out
 
 
 def gc_collect():
@@ -3119,7 +3240,8 @@ def phase10c(params, smi):
 
 
 def phase10(smi):
-    """10a the wide-head kernels, 10b Gemma-2B training, 10c its serving."""
+    """10a the wide-head kernels, 10b Gemma-2B training, 10c its serving,
+    10d Phi-3-mini training."""
     gc_collect()
     t0 = time.perf_counter()
     flash, paged = phase10a(smi)
@@ -3129,11 +3251,14 @@ def phase10(smi):
     serving = phase10c(params16, smi)
     del params16
     gc_collect()
-    log(f"phase10 seconds: 10a {t1 - t0:.1f}, 10b {t2 - t1:.1f}, 10c "
-        f"{time.perf_counter() - t2:.1f}")
+    t3 = time.perf_counter()
+    phi3 = phase10d(smi)
+    log(f"phase10 seconds: 10a {t1 - t0:.1f}, 10b {t2 - t1:.1f}, 10c {t3 - t2:.1f}, 10d "
+        f"{time.perf_counter() - t3:.1f}")
     counts = dict(train["counts"], paged_attention=serving[0]["dec"],
                   paged_window_attention=serving[3]["win"])
-    return dict(flash=flash, paged=paged, train=train, serving=serving, counts=counts)
+    return dict(flash=flash, paged=paged, train=train, serving=serving, phi3=phi3,
+                counts=counts)
 
 
 def main() -> int:
@@ -3179,13 +3304,15 @@ def main() -> int:
     p10 = phase10(smi)
     check(all(p10["counts"][n] > 0 for n in REPLACES),
           f"phase 10 launched the kernels of its path {p10['counts']} times")
+    check(all(p10["phi3"]["counts"][n] > 0 for n in FLASH_KERNELS),
+          f"phase 10d launched the flash kernels {p10['phi3']['counts']} times")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
     log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS)
-        + f"; head dims: paged {pa_dims}, flash {fu_dims} (fp32 at every head dim, and dQ "
-        f"and dK/dV at 96, on {FLASH_SOURCE}; bf16/fp16 forward at 96 and 256 and dQ and "
-        f"dK/dV at 256 on {FWD_SOURCE}, {DQ_SOURCE} and {DKV_SOURCE})")
+        + f"; head dims: paged {pa_dims}, flash {fu_dims} (fp32 at every head dim on "
+        f"{FLASH_SOURCE}; bf16/fp16 at every head dim on {FWD_SOURCE}, {DQ_SOURCE} and "
+        f"{DKV_SOURCE})")
     launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"], **p5}
     check(win3 > 0, "window kernel not launched in phase 3")
     record = []
@@ -3216,12 +3343,10 @@ def main() -> int:
                 "fused_attention_bwd_dq": (DQ_SOURCE, DQ_DESIGN),
                 "fused_attention_bwd_dkv": (DKV_SOURCE, DKV_DESIGN)}.get(name)
         if sm90:
-            # The body each (head dim, dtype) runs: fp32 on flash_attention.cu;
-            # bf16/fp16 at d 256 on the sm90 file, at d 96 too for the forward.
-            wide = {"d96-float32": FLASH_SOURCE, "d256-float32": FLASH_SOURCE}
-            for dt in ("bfloat16", "float16"):
-                wide[f"d256-{dt}"] = sm90[0]
-                wide[f"d96-{dt}"] = sm90[0] if name == "fused_attention_fwd" else FLASH_SOURCE
+            # The body each (head dim, dtype) runs: fp32 on flash_attention.cu,
+            # bf16/fp16 on the sm90 file.
+            wide = {f"d{d}-{dt}": sm90[0] if dt != "float32" else FLASH_SOURCE
+                    for d in (96, 256) for dt in ("bfloat16", "float16", "float32")}
             extra = dict(source=sm90[0], previous_source=FLASH_SOURCE, design=sm90[1],
                          dtypes={"bfloat16": sm90[0], "float16": sm90[0],
                                  "float32": FLASH_SOURCE},
@@ -3230,7 +3355,9 @@ def main() -> int:
                                 replaces=REPLACES[name], launches=launches[name],
                                 launches_phase6=p6[name], launches_phase8=p8[name],
                                 launches_phase9=p9[name],
-                                launches_phase10=p10["counts"][name], head_dims=list(fu_dims),
+                                launches_phase10=p10["counts"][name],
+                                launches_phase10d=p10["phi3"]["counts"][name],
+                                head_dims=list(fu_dims),
                                 wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
                                             for geom, dt in p10["flash"]},
                                 **p4["torch.bfloat16"][name]), **extra))

@@ -426,14 +426,15 @@ def _dkv_inputs(seed, b, s, groups, d, dtype, causal, valid=None):
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 @pytest.mark.parametrize("groups", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("s", [64, 100, 129, 200, 1024])
 def test_flash_bwd_dkv_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal):
-    """The Hopper dK/dV kernel (128-key CTAs over 64-row Q/dO tiles; at d
-    256 64-key CTAs, the group split over CTAs whose fp32 partials a second
-    kernel sums whenever the key tiles alone do not fill the card) at S
-    below one tile, across a ragged edge (129: an lse row that is not
-    16-byte aligned) and long, against the plain backward."""
+    """The Hopper dK/dV kernel (128-key CTAs over 64-row Q/dO tiles, at d
+    96 each tile a 64-column block beside a 32-column one; at d 256 64-key
+    CTAs, the group split over CTAs whose fp32 partials a second kernel sums
+    whenever the key tiles alone do not fill the card) at S below one tile,
+    across a ragged edge (129: an lse row that is not 16-byte aligned) and
+    long, against the plain backward."""
     q, k, v, do, out, lse, delta = _dkv_inputs(83, 2, s, groups, d, dtype, causal)
     before = fu.fused_attention_bwd_dkv.launches
     dk, dv = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
@@ -449,19 +450,34 @@ def test_flash_bwd_dkv_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal
         torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol, msg=name)
 
 
+@pytest.mark.parametrize("d", [128, 96])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
-def test_flash_bwd_dkv_sm90_is_deterministic(cuda, dtype):
+def test_flash_bwd_dkv_sm90_is_deterministic(cuda, fwd_symbols, dtype, d):
     """One CTA owns its keys across the group's query heads (no atomics), so
-    two calls agree bit for bit, padded keys included."""
-    valid = torch.ones(2, 300, dtype=torch.int8, device="cuda")
-    valid[0, :70] = 0
-    q, k, v, do, out, lse, delta = _dkv_inputs(89, 2, 300, 4, 128, dtype, True, valid)
+    two calls agree bit for bit, padded keys included: at d 128 over 8 q / 2
+    kv heads at S 300, at d 96 at Phi-3-mini's 32 q / 32 kv heads, B 2 x S
+    2048, against the plain backward."""
+    b, s, pad = (2, 300, 70) if d == 128 else (2, 2048, 300)
+    valid = torch.ones(b, s, dtype=torch.int8, device="cuda")
+    valid[0, :pad] = 0
+    if d == 128:
+        q, k, v, do, out, lse, delta = _dkv_inputs(89, b, s, 4, d, dtype, True, valid)
+    else:
+        q, k, v, do, _ = _flash_inputs(89, b, s, 32, 32, d, dtype, False)
+        out, lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=True, block_size=512)
+        delta = fu._delta(out, do)
     first = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, valid, causal=True)
     second = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, valid, causal=True)
     torch.cuda.synchronize()
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
-    assert (first[0][0, :70] == 0).all() and (first[1][0, :70] == 0).all()
+    assert fwd_symbols == ["atpu_flash_bwd_dkv_sm90"] * 2
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    assert (first[0][0, :pad] == 0).all() and (first[1][0, :pad] == 0).all()
+    _, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, valid,
+                                                       causal=True, block_size=min(s, 512))
+    tol = TOL[dtype]
+    for got, ref, name in zip(first, (want_dk, want_dv), ("dk", "dv")):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol, msg=name)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
@@ -518,12 +534,13 @@ def test_flash_bwd_dkv_raises_on_misaligned_view_and_launches_nothing(cuda, fwd_
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 @pytest.mark.parametrize("groups", [1, 4, 8])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("s", [64, 100, 129, 200, 1024])
 def test_flash_bwd_dq_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal):
     """The Hopper dQ kernel (128-row CTAs over 64-key K/V tiles, 32-key at
-    d 256) at S below one CTA, across a ragged edge (129: an lse row that is
-    not 16-byte aligned) and long, against the plain backward."""
+    d 256; at d 96 each tile a 64-column block beside a 32-column one) at S
+    below one CTA, across a ragged edge (129: an lse row that is not 16-byte
+    aligned) and long, against the plain backward."""
     q, k, v, do, out, lse, delta = _dkv_inputs(103, 2, s, groups, d, dtype, causal)
     before = fu.fused_attention_bwd_dq.launches
     dq = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
@@ -536,17 +553,18 @@ def test_flash_bwd_dq_sm90_edges(cuda, fwd_symbols, s, d, groups, dtype, causal)
     torch.testing.assert_close(dq.float(), want_dq.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("d", [128, 256, 96])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
 def test_flash_bwd_dq_sm90_is_deterministic(cuda, fwd_symbols, dtype, d):
     """One CTA owns its query rows (no atomics), so two calls agree bit for
     bit, empty rows included: at d 128 over 8 q / 2 kv heads at S 300, at d
-    256 at Gemma-2B's 8 q / 1 kv heads, B 2 x S 2048, against the plain
-    backward."""
+    256 at Gemma-2B's 8 q / 1 kv heads and at d 96 at Phi-3-mini's 32 q / 32
+    kv heads, B 2 x S 2048, against the plain backward."""
     b, s, pad = (2, 300, 70) if d == 128 else (2, 2048, 300)
     valid = torch.ones(b, s, dtype=torch.int8, device="cuda")
     valid[0, :pad] = 0
-    q, k, v, do, _ = _flash_inputs(107, b, s, 8, 2 if d == 128 else 1, d, dtype, False)
+    h, kh = {128: (8, 2), 256: (8, 1), 96: (32, 32)}[d]
+    q, k, v, do, _ = _flash_inputs(107, b, s, h, kh, d, dtype, False)
     out, lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=True, block_size=s)
     delta = fu._delta(out, do)
     first = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, valid, causal=True)
@@ -563,7 +581,7 @@ def test_flash_bwd_dq_sm90_is_deterministic(cuda, fwd_symbols, dtype, d):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_flash_bwd_dq_sm90_left_pad_past_a_cta(cuda, fwd_symbols, dtype, d, causal):
     """Batch 0 left-padded by 130 keys (past a 128-row CTA and two 64-key
     tiles; under the causal mask its first 130 rows admit no key), batch 1
@@ -717,15 +735,15 @@ def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_sym
 def test_flash_wide_heads_ragged_and_long(cuda, fwd_symbols, s, dtype, d):
     """Head dims 96 and 256, S off the 64-row tiles and long, with a
     left-padded and an all-invalid batch: fp32 runs the body of
-    ``flash_attention.cu``; bf16 at d 256 the sm90 forward, dQ and d-256
-    dK/dV, at d 96 the sm90 forward with that body's dQ and dK/dV."""
+    ``flash_attention.cu``; bf16 the sm90 forward, dQ and dK/dV (its d-256
+    kernel at 256)."""
     _flash_check(131, 2, s, 8, 2, d, dtype, True, True)
     if dtype == torch.float32:
         want = {"atpu_flash_fwd", "atpu_flash_bwd_dq", "atpu_flash_bwd_dkv"}
     elif d == 256:
         want = {"atpu_flash_fwd_sm90", "atpu_flash_bwd_dq_sm90", "atpu_flash_bwd_dkv_sm90_d256"}
     else:
-        want = {"atpu_flash_fwd_sm90", "atpu_flash_bwd_dq", "atpu_flash_bwd_dkv"}
+        want = {"atpu_flash_fwd_sm90", "atpu_flash_bwd_dq_sm90", "atpu_flash_bwd_dkv_sm90"}
     assert set(fwd_symbols) == want
 
 

@@ -336,15 +336,15 @@ def test_plain_versions_match_pallas_at_wide_heads(d, masked, h, kv_heads):
 
 
 # The launcher each wrapper calls for bf16/fp16 at a head dim: the sm90
-# bodies at 64, 128 and 256, the forward's at 96 too; the rest (dQ and
-# dK/dV at 96, and fp32 everywhere) on flash_attention.cu's body.
+# bodies at every head dim (dK/dV's d-256 kernel at 256); fp32 everywhere on
+# flash_attention.cu's body.
 _ROUTES = {
     "atpu_flash_fwd": {64: "atpu_flash_fwd_sm90", 96: "atpu_flash_fwd_sm90",
                        128: "atpu_flash_fwd_sm90", 256: "atpu_flash_fwd_sm90"},
-    "atpu_flash_bwd_dq": {64: "atpu_flash_bwd_dq_sm90", 128: "atpu_flash_bwd_dq_sm90",
-                          256: "atpu_flash_bwd_dq_sm90"},
-    "atpu_flash_bwd_dkv": {64: "atpu_flash_bwd_dkv_sm90", 128: "atpu_flash_bwd_dkv_sm90",
-                           256: "atpu_flash_bwd_dkv_sm90_d256"},
+    "atpu_flash_bwd_dq": {64: "atpu_flash_bwd_dq_sm90", 96: "atpu_flash_bwd_dq_sm90",
+                          128: "atpu_flash_bwd_dq_sm90", 256: "atpu_flash_bwd_dq_sm90"},
+    "atpu_flash_bwd_dkv": {64: "atpu_flash_bwd_dkv_sm90", 96: "atpu_flash_bwd_dkv_sm90",
+                           128: "atpu_flash_bwd_dkv_sm90", 256: "atpu_flash_bwd_dkv_sm90_d256"},
 }
 
 
@@ -355,13 +355,13 @@ _ROUTES = {
 def test_wrappers_take_the_kernels_head_dims_only(kernel, dtype, d):
     """The head dims the kernels take are 64, 96, 128 and 256: the wrapper's
     check passes them (on a CPU tensor it needs no card) and raises for
-    another.  Routing is per kernel: the bf16/fp16 forward at every head
-    dim, and dQ and dK/dV at 64, 128 and 256, go to their sm90 bodies;
-    everything else to the body of ``flash_attention.cu``."""
+    another.  Routing is per kernel: bf16/fp16 at every head dim go to the
+    sm90 bodies (dK/dV at 256 to its d-256 kernel); fp32 to the body of
+    ``flash_attention.cu``."""
     assert tfu._HEAD_DIMS == (64, 96, 128, 256)
     x = torch.zeros(1, 64, 2, d, dtype=dtype)
     tfu._check(x, x, x, None)
-    want = kernel if dtype == torch.float32 else _ROUTES[kernel].get(d, kernel)
+    want = kernel if dtype == torch.float32 else _ROUTES[kernel][d]
     assert tfu._symbol(kernel, x) == want
     assert want in tfu._ARGTYPES
     x = torch.zeros(1, 64, 2, 80, dtype=dtype)
