@@ -80,8 +80,8 @@
 // block plus m64n32k16 over its second (1024 bytes per 16 rows) from the
 // same A registers, the register layout of one m64n96k16.  The d-128 plan
 // holds: K 24 KB + V 24 KB + 3 stages x (Q 12 KB + dO 12 KB + 512 bytes) =
-// 121.5 KB (4 stages, 146 KB, are the timing symbol _ring4); per consumer
-// thread dK 48 + dV 48 + S^T 32 + dP^T 32 + 3 x 16 packed = 208 registers,
+// 121.5 KB (a 4-stage ring, 146 KB, timed no faster); per consumer thread
+// dK 48 + dV 48 + S^T 32 + dP^T 32 + 3 x 16 packed = 208 registers,
 // so no column split; exactly the minimum products (with the lo half); the
 // epilogue stages each block with its own XOR pattern and stores 96
 // columns.  Phi-3-mini (32 q / 32 kv heads) gives B x KH x S/128 = 1024
@@ -156,7 +156,7 @@ constexpr uint32_t kQBlock = kBQ * 128;  // one 64-column block of a Q or dO til
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr size_t kSmemMax = 227 * 1024;
 
-template <int D, int NS>
+template <int D>
 struct Plan {
   static constexpr int kFull = D / 64;        // 64-column 128-byte-swizzled blocks
   static constexpr bool kHalf = D % 64 != 0;  // + one 32-column 64-byte-swizzled block (d 96)
@@ -164,11 +164,11 @@ struct Plan {
   static constexpr uint32_t q_tile = kFull * kQBlock + (kHalf ? kQBlock / 2 : 0);   // Q or dO
   static constexpr uint32_t off_v = kv_tile;
   static constexpr uint32_t off_q = 2 * kv_tile;
-  static constexpr uint32_t off_do = off_q + NS * q_tile;
-  static constexpr uint32_t off_lse = off_do + NS * q_tile;  // kBQ floats per stage
-  static constexpr uint32_t off_delta = off_lse + NS * kBQ * 4;
-  static constexpr uint32_t off_bar = off_delta + NS * kBQ * 4;  // full[], empty[], kv
-  static constexpr uint32_t bytes = off_bar + (2 * NS + 1) * 8;
+  static constexpr uint32_t off_do = off_q + kStages * q_tile;
+  static constexpr uint32_t off_lse = off_do + kStages * q_tile;  // kBQ floats per stage
+  static constexpr uint32_t off_delta = off_lse + kStages * kBQ * 4;
+  static constexpr uint32_t off_bar = off_delta + kStages * kBQ * 4;  // full[], empty[], kv
+  static constexpr uint32_t bytes = off_bar + (2 * kStages + 1) * 8;
   static constexpr size_t smem = bytes + 1024;  // room to align the base to 1024
   static_assert(smem <= kSmemMax, "dK/dV tiles exceed shared memory");
 };
@@ -406,7 +406,7 @@ __device__ __forceinline__ void probs(float (&st)[32], float (&dpt)[32], const f
 
 // tm_q, tm_k, tm_v, tm_do read 64-column boxes; tm_q2, tm_k2, tm_v2, tm_do2
 // the 32-column boxes of d 96's second block (unused at the other widths).
-template <typename T, int D, bool kLo, int NS>
+template <typename T, int D, bool kLo>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -420,7 +420,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const int8_t* __restrict__ valid, T* __restrict__ dk,
                           T* __restrict__ dv, int S, int H, int KH, int causal, float scale,
                           float scale_log2) {
-  using P = Plan<D, NS>;
+  using P = Plan<D>;
   constexpr int kFull = P::kFull;
   constexpr int NA = D / 2;    // dK or dV accumulator registers per thread
   constexpr int CPR = D / 8;   // 16-byte chunks per dK/dV row
@@ -429,8 +429,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                              ~static_cast<uintptr_t>(1023));
   const uint32_t sbase = smem_u32(smem);
   const uint32_t full = sbase + P::off_bar;  // full[s] = full + 8 s
-  const uint32_t empty = full + 8 * NS;
-  const uint32_t kvbar = empty + 8 * NS;
+  const uint32_t empty = full + 8 * kStages;
+  const uint32_t kvbar = empty + 8 * kStages;
 
   const int b = blockIdx.x / KH, kh = blockIdx.x % KH, G = H / KH;
   const int k0 = blockIdx.y * kBK;  // the lowest key tiles, the heaviest when causal, first
@@ -460,7 +460,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int total = G * nqt;  // (query head, q tile) steps, head-major
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < NS; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 32);                // every producer lane arrives
       mbar_init(empty + 8 * s, kConsumerWarps);  // one lane per consumer warp
     }
@@ -486,8 +486,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
     for (int it = 0; it < total; ++it) {
-      const int s = it % NS;
-      mbar_wait(empty + 8 * s, ((it / NS) & 1) ^ 1);
+      const int s = it % kStages;
+      mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
       const int hh = kh * G + it / nqt, q0 = (qt_first + it % nqt) * kBQ;
       const long long at = (static_cast<long long>(b) * H + hh) * S;
       float* lse_s = reinterpret_cast<float*>(smem + P::off_lse + s * kBQ * 4);
@@ -536,9 +536,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   mbar_wait(kvbar, 0);
   for (int it = 0; it < total; ++it) {
-    const int s = it % NS;
+    const int s = it % kStages;
     const int q0 = (qt_first + it % nqt) * kBQ;
-    mbar_wait(full + 8 * s, (it / NS) & 1);
+    mbar_wait(full + 8 * s, (it / kStages) & 1);
     // Under the causal mask a tile wholly before this warpgroup's keys adds
     // nothing to them.
     if (!causal || q0 + kBQ - 1 >= kw0) {
@@ -995,9 +995,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool kLo, int NS = kStages>
+template <typename T, int D, bool kLo>
 int run(CUtensorMapDataType dt, const Args& a) {
-  using P = Plan<D, NS>;
+  using P = Plan<D>;
   EncodeTiled enc = encoder();
   if (enc == nullptr) return kErrEntryPoint;
   // The 32-column maps only at d 96.
@@ -1011,7 +1011,7 @@ int run(CUtensorMapDataType dt, const Args& a) {
   if (P::kHalf && rc == 0) rc = encode(&tv2, enc, dt, a.v, D, a.KH, a.S, a.B, kBK, 32);
   if (P::kHalf && rc == 0) rc = encode(&tdo2, enc, dt, a.dout, D, a.H, a.S, a.B, kBQ, 32);
   if (rc != 0) return rc;
-  auto kernel = flash_bwd_dkv_sm90_kernel<T, D, kLo, NS>;
+  auto kernel = flash_bwd_dkv_sm90_kernel<T, D, kLo>;
   const size_t smem = P::smem;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1101,20 +1101,6 @@ extern "C" int atpu_flash_bwd_dkv_sm90_nolo(int dtype, const void* q, const void
                B,  S,  H, KH,   causal, 1,     scale, static_cast<cudaStream_t>(stream)};
   if (bad_args(a) || dtype != 1 || hd != 128) return (int)cudaErrorInvalidValue;
   return run<__nv_bfloat16, 128, false>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
-}
-
-// The same kernel with a 4-stage Q/dO ring, bf16 and hd 96 only: on no path,
-// timed beside the kernel to weigh the ring's depth.  Arguments and returns
-// as above.
-extern "C" int atpu_flash_bwd_dkv_sm90_ring4(int dtype, const void* q, const void* k,
-                                             const void* v, const void* dout, const void* lse,
-                                             const void* delta, const void* valid, void* dk,
-                                             void* dv, int B, int S, int H, int KH, int hd,
-                                             int causal, float scale, void* stream) {
-  const Args a{q,  k,  v, dout, lse,    delta, valid, dk, dv, nullptr,
-               B,  S,  H, KH,   causal, 1,     scale, static_cast<cudaStream_t>(stream)};
-  if (bad_args(a) || dtype != 1 || hd != 96) return (int)cudaErrorInvalidValue;
-  return run<__nv_bfloat16, 96, true, 4>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
 }
 
 // Head dim 256, bf16 (dtype 1) or fp16 (2): arguments as above, plus part,

@@ -86,8 +86,8 @@
 // dS.K is m64n64k16 over K's first block plus m64n32k16 over its second
 // (1024 bytes per 16 keys) from the same dS registers, the register layout
 // of one m64n96k16.  64-key tiles as at d 128: Q 24 KB + dO 24 KB + 3
-// stages x (K 12 KB + V 12 KB) = 120 KB (4 stages, 144 KB, are the timing
-// symbol _ring4); per consumer thread dQ 48, S 32, dP 32 and packed dS 16
+// stages x (K 12 KB + V 12 KB) = 120 KB (a 4-stage ring, 144 KB, timed
+// slower); per consumer thread dQ 48, S 32, dP 32 and packed dS 16
 // registers; exactly the minimum products; the epilogue stages each block
 // with its own XOR pattern and stores 96 columns.
 //
@@ -745,18 +745,4 @@ extern "C" int atpu_flash_bwd_dq_sm90_ring2(int dtype, const void* q, const void
                static_cast<cudaStream_t>(stream)};
   if (bad_args(a) || dtype != 1 || hd != 128) return (int)cudaErrorInvalidValue;
   return run<__nv_bfloat16, 128, 2>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
-}
-
-// The same kernel with a 4-stage K/V ring, bf16 and hd 96 only: on no path,
-// timed beside the kernel to weigh the ring's depth.  Arguments and returns
-// as above.
-extern "C" int atpu_flash_bwd_dq_sm90_ring4(int dtype, const void* q, const void* k,
-                                            const void* v, const void* dout, const void* lse,
-                                            const void* delta, const void* valid, void* dq,
-                                            int B, int S, int H, int KH, int hd, int causal,
-                                            float scale, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, valid, dq, B, S, H, KH, causal, scale,
-               static_cast<cudaStream_t>(stream)};
-  if (bad_args(a) || dtype != 1 || hd != 96) return (int)cudaErrorInvalidValue;
-  return run<__nv_bfloat16, 96, 4>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a);
 }

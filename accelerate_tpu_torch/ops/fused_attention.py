@@ -280,16 +280,12 @@ _ARGTYPES = {
     "atpu_flash_fwd_sm90": _FWD_ARGTYPES,
     "atpu_flash_bwd_dq": _DQ_ARGTYPES,
     "atpu_flash_bwd_dq_sm90": _DQ_ARGTYPES,
-    # the same kernel with a 2-stage K/V ring (hd 128) or a 4-stage one (hd
-    # 96): on no path, timed only
+    # the same kernel with a 2-stage K/V ring: on no path, timed only
     "atpu_flash_bwd_dq_sm90_ring2": _DQ_ARGTYPES,
-    "atpu_flash_bwd_dq_sm90_ring4": _DQ_ARGTYPES,
     "atpu_flash_bwd_dkv": _DKV_ARGTYPES,
     "atpu_flash_bwd_dkv_sm90": _DKV_ARGTYPES,
-    # the same kernel without the lo half of P in dV (hd 128), or with a
-    # 4-stage Q/dO ring (hd 96): on no path, timed only
+    # the same kernel without the lo half of P in dV: on no path, timed only
     "atpu_flash_bwd_dkv_sm90_nolo": _DKV_ARGTYPES,
-    "atpu_flash_bwd_dkv_sm90_ring4": _DKV_ARGTYPES,
     "atpu_flash_bwd_dkv_sm90_d256": _DKV_SPLIT_ARGTYPES,
 }
 # The source of each symbol that is not in flash_attention.cu.
@@ -297,10 +293,8 @@ _SOURCES = {
     "atpu_flash_fwd_sm90": "flash_fwd_sm90",
     "atpu_flash_bwd_dq_sm90": "flash_bwd_dq_sm90",
     "atpu_flash_bwd_dq_sm90_ring2": "flash_bwd_dq_sm90",
-    "atpu_flash_bwd_dq_sm90_ring4": "flash_bwd_dq_sm90",
     "atpu_flash_bwd_dkv_sm90": "flash_bwd_dkv_sm90",
     "atpu_flash_bwd_dkv_sm90_nolo": "flash_bwd_dkv_sm90",
-    "atpu_flash_bwd_dkv_sm90_ring4": "flash_bwd_dkv_sm90",
     "atpu_flash_bwd_dkv_sm90_d256": "flash_bwd_dkv_sm90",
 }
 

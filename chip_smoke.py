@@ -170,11 +170,10 @@ Phases (each fails the run on any mismatch; nothing is caught):
    shape) and the launcher each wrapper called; in bf16 and fp16 the sm90
    bodies beside the mma.sync bodies they replace (the forward, dQ and
    dK/dV: ``atpu_flash_fwd``, ``atpu_flash_bwd_dq``, ``atpu_flash_bwd_dkv``;
-   called directly, not counted) as ``previous_ms`` in turns, and in bf16
-   at d 96 dQ and dK/dV with a 4-stage ring (``..._sm90_ring4``) as
-   ``ring4_ms``, each held to the tolerance,
-   δ's time beside the backward kernels', and dK/dV at every split of the
-   query-head group (``split_ms``, each held to the tolerance); the paged pair
+   called directly, not counted) as ``previous_ms`` in turns, each held to
+   the tolerance, δ's time beside the backward kernels', and dK/dV at every
+   split of the query-head group (``split_ms``, each held to the
+   tolerance); the paged pair
    at head dim 96 (bf16, fp32) and 256 (fp32) at Phase 1's long shape
    against plain, with kernel, plain, bound and library times.  10b:
    Gemma-2B (vocab 256000, d 2048, FFN 16384, 18 layers, 8 q / 1 kv head
@@ -2629,7 +2628,7 @@ PHASE10D_LAYERS = 8
 # them: the sm90 forward, dQ and dK/dV.
 PHI3_FLASH = ("flash_fwd_sm90_kernel<__nv_bfloat16, 96>",
               "flash_bwd_dq_sm90_kernel<__nv_bfloat16, 96, 3>",
-              "flash_bwd_dkv_sm90_kernel<__nv_bfloat16, 96, true, 3>")
+              "flash_bwd_dkv_sm90_kernel<__nv_bfloat16, 96, true>")
 # The launcher each flash wrapper calls, by its base name.
 FLASH_BASES = {"fused_attention_fwd": "atpu_flash_fwd",
                "fused_attention_bwd_dq": "atpu_flash_bwd_dq",
@@ -2652,13 +2651,11 @@ def direct_dkv_d256(fu, n_split, q, k, v, do, lse, delta):
 
 def wide_previous(fu, copies, times, want):
     """In 16-bit types at d 96 and 256: the mma.sync bodies the sm90 kernels
-    replace (the forward, dQ and dK/dV; called directly) and, in bf16 at d
-    96, dQ and dK/dV with a 4-stage ring (``..._sm90_ring4``), each held to
-    the plain versions' tolerance and timed in turns with the kernel
-    (kernel, previous, ring4, ring4, previous, kernel); at d 256 also dK/dV
-    at every split of the group, each held to the tolerance and timed.
-    Returns ``({wrapper: extra record keys}, {wrapper: second kernel
-    ms})``."""
+    replace (the forward, dQ and dK/dV; called directly), each held to the
+    plain versions' tolerance and timed in turns with the kernel (kernel,
+    previous, previous, kernel); at d 256 also dK/dV at every split of the
+    group, each held to the tolerance and timed.  Returns ``({wrapper: extra
+    record keys}, {wrapper: second kernel ms})``."""
     import torch
 
     q, k, v, do, lse, delta = copies[0]
@@ -2666,43 +2663,30 @@ def wide_previous(fu, copies, times, want):
     tol = TOL[str(q.dtype)]
     want_out, want_dq, want_dk, want_dv = want
     fwd, dq, dkv = FLASH_KERNELS
-    others = {fwd: {"previous": lambda q, k, v, *_: previous_fwd(fu, q, k, v)}}
-    for wrapper in (dq, dkv):
-        base = FLASH_BASES[wrapper]
-        others[wrapper] = {"previous": lambda *a, sym=base: direct_bwd(fu, sym, *a)}
-        if d == 96 and q.dtype == torch.bfloat16:
-            others[wrapper]["ring4"] = (
-                lambda *a, sym=f"{base}_sm90_ring4": direct_bwd(fu, sym, *a))
+    previous = {fwd: lambda q, k, v, *_: previous_fwd(fu, q, k, v),
+                dq: lambda *a: direct_bwd(fu, "atpu_flash_bwd_dq", *a),
+                dkv: lambda *a: direct_bwd(fu, "atpu_flash_bwd_dkv", *a)}
     refs = {fwd: (want_out,), dq: (want_dq,), dkv: (want_dk, want_dv)}
     kernels = {fwd: (lambda q, k, v, *_: fu.fused_attention_fwd(q, k, v, causal=True,
                                                                 block_size=q.shape[1])),
                dq: (lambda *a: fu.fused_attention_bwd_dq(*a, causal=True)),
                dkv: (lambda *a: fu.fused_attention_bwd_dkv(*a, causal=True))}
     extra, second = {}, {}
-    for wrapper, calls in others.items():
-        extra[wrapper] = dict(previous_body=FLASH_BASES[wrapper])
-        for name, call in calls.items():
-            got = call(q, k, v, do, lse, delta)
-            torch.cuda.synchronize()
-            pairs = list(zip(got, refs[wrapper]))
-            err = max((g.float() - w.float()).abs().max().item() for g, w in pairs)
-            check(all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
-                      for g, w in pairs),
-                  f"{name} {wrapper} body at d {d}: max abs err {err} over atol=rtol={tol}")
-            extra[wrapper][f"{name}_max_abs_err"] = err
-            del got, pairs
-        order = list(calls) + list(reversed(calls))
-        ms = {name: [] for name in calls}
-        for name in order:
-            ms[name].append(cuda_ms(calls[name], copies, iters=10))
+    for wrapper, call in previous.items():
+        got = call(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        pairs = list(zip(got, refs[wrapper]))
+        err = max((g.float() - w.float()).abs().max().item() for g, w in pairs)
+        check(all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol) for g, w in pairs),
+              f"previous {wrapper} body at d {d}: max abs err {err} over atol=rtol={tol}")
+        del got, pairs
+        prev = [cuda_ms(call, copies, iters=10) for _ in range(2)]
         second[wrapper] = cuda_ms(kernels[wrapper], copies, iters=10)
-        for name, pair in ms.items():
-            extra[wrapper][f"{name}_ms"] = sum(pair) / 2
+        extra[wrapper] = dict(previous_ms=sum(prev) / 2, previous_max_abs_err=err,
+                              previous_body=FLASH_BASES[wrapper])
         log(f"phase10a {wrapper} {q.dtype} d={d} in turns: kernel {times[wrapper]:.4f} "
-            + " ".join(f"{name} {ms[name][order[:i].count(name)]:.4f}"
-                       for i, name in enumerate(order))
-            + f" kernel {second[wrapper]:.4f} ms; max abs err "
-            + " ".join(f"{name} {extra[wrapper][name + '_max_abs_err']:.3e}" for name in calls))
+            f"previous {prev[0]:.4f} previous {prev[1]:.4f} kernel {second[wrapper]:.4f} ms; "
+            f"previous max abs err {err:.3e}")
     if d != 256:
         return extra, second
     b, s, h, _ = q.shape

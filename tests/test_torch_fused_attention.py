@@ -204,6 +204,21 @@ def test_every_launcher_is_defined_in_a_built_source(symbol):
     assert len(found.group(1).split(",")) == len(tfu._ARGTYPES[symbol])
 
 
+@pytest.mark.parametrize("source", ["flash_attention", "flash_fwd_sm90", "flash_bwd_dq_sm90",
+                                    "flash_bwd_dkv_sm90"])
+def test_every_flash_launcher_is_declared(source):
+    """The converse: each C launcher a flash source defines has its argument
+    types in ``_ARGTYPES`` and is looked up in that source, so no launcher
+    is left behind that no wrapper or timing call can reach."""
+    from accelerate_tpu_torch.ops import _build
+
+    defined = re.findall(r'extern "C" int (\w+)\(', _build.SOURCES[source].read_text())
+    assert defined
+    for symbol in defined:
+        assert symbol in tfu._ARGTYPES, f"{symbol} has no declared argument types"
+        assert tfu._SOURCES.get(symbol, "flash_attention") == source, symbol
+
+
 def test_bf16_plain_matches_pallas():
     q, k, v, do = _inputs(2, 2)
     valid = _valid()
