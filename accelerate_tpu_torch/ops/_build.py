@@ -30,6 +30,7 @@ SOURCES: Dict[str, Path] = {
     "flash_fwd_sm90": _CSRC / "flash_fwd_sm90.cu",
     "flash_bwd_dq_sm90": _CSRC / "flash_bwd_dq_sm90.cu",
     "flash_bwd_dkv_sm90": _CSRC / "flash_bwd_dkv_sm90.cu",
+    "flash_bwd_f32_sm90": _CSRC / "flash_bwd_f32_sm90.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,6 +1,6 @@
-// Flash attention for Hopper (sm_90a): the training forward and its two
-// backward kernels, for causal or full GQA attention with an optional key
-// validity mask.
+// Flash attention in fp32 for Hopper (sm_90a): the training forward and its
+// two backward kernels, for causal or full GQA attention with an optional key
+// validity mask, with fp32 FMAs on the CUDA cores.
 //
 // Replaces (accelerate_tpu/ops/pallas_attention.py):
 //   atpu_flash_fwd     -> _fwd_kernel (:96), launched by _flash_fwd (:174)
@@ -11,7 +11,7 @@
 // Layouts are the public ones of the port (no transposes around the calls):
 //   q, out, do, dq [B, S, H, d]; k, v, dk, dv [B, S, KH, d]; query head h
 //   reads kv head h / (H / KH); lse, delta [B, H, S] fp32; valid [B, S] int8
-//   (nullable).  All of q, k, v, do, out, dq, dk, dv share one dtype.
+//   (nullable).  All of q, k, v, do, out, dq, dk, dv are float32.
 //
 // What each computes, per query row i and key j (scale = 1 / sqrt(d)):
 //   s_ij = (q_i . k_j) * scale, accumulated in fp32, or -1e30 where the pair
@@ -19,73 +19,65 @@
 //   a probability is gated on the masked score (s > -0.5e30), never on the
 //   running max, so a row with no admitted key has l = 0, output 0, lse ~
 //   -1e30 and zero gradients, as in the TPU kernels;
-//   forward:  online softmax over key tiles, P cast to v's dtype before P.V,
-//             out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30));
-//   dQ:       p = exp(s - lse), dP = dO.V^T in fp32, dS = p * (dP - delta) *
-//             scale cast to k's dtype, dQ = sum_j dS.K;
-//   dK/dV:    dV = sum_i p^T.dO with p kept in fp32 (dO is fp32 in the TPU
-//             kernel, so this product is fp32 there); dK = sum_i dS^T.Q with
-//             dS cast to q's dtype; summed over the G query heads of a kv
-//             head in fp32 registers, then cast.
+//   forward:  online softmax over key tiles, out = acc / max(l, 1e-30), lse =
+//             m + log(max(l, 1e-30));
+//   dQ:       p = exp(s - lse), dP = dO.V^T, dS = p * (dP - delta) * scale,
+//             dQ = sum_j dS.K;
+//   dK/dV:    dV = sum_i p^T.dO, dK = sum_i dS^T.Q, summed over the G query
+//             heads of a kv head in registers.
 //
 // Bound on this card.  At the training shapes (S 2048, d 128) attention is
 // compute-bound: a causal forward does 2 products of 2*B*H*S^2*d/2 flops on
-// bytes that are read once, ~800 flops per byte in bf16, far above the
-// H100's ~295 flop/byte ridge.  The least time is flops / 989 TFLOP/s (bf16, fp16) or /
-// 67 TFLOP/s (fp32, CUDA cores; no TF32, the fp32 tolerances assume it); the
-// backward's least work is 5 such products (chip_smoke.py computes both).
+// bytes that are read once, ~200 flops per byte in fp32.  The least time on
+// the CUDA cores is flops / 67 TFLOP/s; the tensor cores reach fp32-level
+// error at 495 / 3 TFLOP/s in 3xTF32, the bound chip_smoke.py states; the
+// backward's least work is 5 such products.
 //
-// Design (a first, simple one; wgmma, TMA and warp specialisation are later
-// work):
+// Only the forward is on the training path: the fp32 backward runs
+// flash_bwd_f32_sm90.cu (tensor cores, 3xTF32), and this file's dQ and dK/dV
+// remain as the yardstick chip_smoke.py times those kernels against
+// (previous_ms).  bf16 and fp16 run the sm90 kernels of flash_fwd_sm90.cu,
+// flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu.
+//
+// Design (a first, simple one):
 //   - one CTA of 4 warps per (64-row tile, batch, head): query rows for the
-//     forward and dQ, key rows for dK/dV; each warp owns 16 rows, the M of
-//     one mma.sync m16n8k16, and keeps its row's softmax state, its output
-//     accumulator and its score tile in registers, in the mma accumulator
-//     layout;
+//     forward and dQ, key rows for dK/dV; each warp owns 16 rows and keeps
+//     its row's softmax state, its output accumulator and its score tile in
+//     registers, in the layout of an mma.sync m16n8 accumulator (lane (g, t)
+//     holds columns 2t, 2t + 1 of rows g and g + 8 of each 8-column block);
 //   - the streamed operand (K/V tiles of 64 keys; for dK/dV, Q/dO tiles of
 //     32 rows with their lse and delta) is double-buffered in shared memory
 //     with 16-byte cp.async copies, rows padded by 16 bytes so the fragment
 //     loads of a warp hit distinct banks;
-//   - bf16 and fp16 products run on the tensor cores (mma.sync, fp32
-//     accumulation); fp32 products run as fp32 FMAs on the CUDA cores with
-//     the same accumulator layout, so one kernel body serves all types;
+//   - products run as fp32 FMAs on the CUDA cores, each lane reloading its
+//     A and B values from shared memory for every k;
 //   - a score tile becomes probabilities in registers (row max and sum over
 //     the 4 lanes of a quad by shuffles), is written to the warp's own
-//     shared-memory strip in the operand type, and is read back as the A
-//     operand of the next product, so no block barrier sits between them;
+//     shared-memory strip, and is read back as the A operand of the next
+//     product, so no block barrier sits between them;
 //   - causal tiles wholly above the diagonal are never visited; the skip is
 //     derived from row and key positions, not from tile indices;
 //   - dQ has its own kernel and dK/dV one CTA per kv head looping over its G
-//     query heads, so no atomics: results are deterministic;
-//   - dV's fp32 p^T.dO product splits p into two parts of the operand type
-//     (p = hi + lo) and runs two tensor-core products, keeping ~16 bits of
-//     p instead of 8 (bf16) or 11 (fp16).
+//     query heads, so no atomics: results are deterministic.
 //
-// Head dims 64, 96, 128 and 256, in all three types.  On the training path
-// only fp32 runs this body: bf16 and fp16 at every head dim run the sm90
-// kernels of flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu
-// (the wrapper routes them), and this body's 16-bit instantiations are on no
-// path, kept as the yardstick chip_smoke.py times the sm90 bodies against
-// (previous_ms).  What the wide heads change:
+// Head dims 64, 96, 128 and 256.  What the wide heads change:
 //   - d 256 holds a 16 x 256 fp32 accumulator per warp, 128 registers a
-//     thread, so the forward and dQ stream 32-key tiles (fewer score
-//     registers beside it), and 16-key tiles for fp32 dQ, whose Q, dO and
-//     two K/V stages of 260-float rows would not fit shared memory at 32;
+//     thread, so the forward streams 32-key tiles (fewer score registers
+//     beside it) and dQ 16-key tiles, as its Q, dO and two K/V stages of
+//     260-float rows would not fit shared memory at 32;
 //   - dK and dV of all 256 columns would need 256 accumulator registers a
 //     thread: two CTAs (grid z) each own 128 columns of both and recompute
 //     the full-d scores S^T and dP^T from the same shared-memory tiles
-//     (1.5x the products of one CTA; a simple split, not a fast one);
-//     fp32 streams 16-row Q/dO tiles, as 32 would exceed shared memory;
-//   - d 96 is 6 k-steps of 16 and 12 n-tiles of 8; its padded rows (104
-//     16-bit or 100 fp32 elements) still start on 16-byte boundaries for
-//     cp.async and put the 8 fragment rows of a warp in distinct banks.
+//     (1.5x the products of one CTA; a simple split, not a fast one), over
+//     16-row Q/dO tiles, as 32 would exceed shared memory;
+//   - d 96 is 12 n-tiles of 8; its padded rows of 100 floats still start on
+//     16-byte boundaries for cp.async.
+//
+// The element type T of the templates is float: the bf16 and fp16
+// instantiations were retired once the sm90 kernels replaced them.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -104,33 +96,10 @@ constexpr int pad() {
   return 16 / static_cast<int>(sizeof(T));  // one 16-byte vector of padding per row
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) { return __float2half(x); }
-
-__device__ __forceinline__ uint32_t bits16(__nv_bfloat16 x) { return __bfloat16_as_ushort(x); }
-__device__ __forceinline__ uint32_t bits16(__half x) { return __half_as_ushort(x); }
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(T lo, T hi) {
-  return bits16(lo) | (bits16(hi) << 16);
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -171,95 +140,36 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, long lon
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1);
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&c)[4], const uint32_t (&a)[4],
-                                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma16816<__half>(float (&c)[4], const uint32_t (&a)[4],
-                                                 uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One warp: C[16 x 8*NT] += A[16 x K] . B[K x 8*NT], C in fp32 registers in
-// the mma.sync m16n8k16 accumulator layout: lane (g = lane / 4, t = lane % 4)
+// the mma.sync m16n8 accumulator layout: lane (g = lane / 4, t = lane % 4)
 // holds c[j][0..1] = C[g][8j + 2t + {0, 1}], c[j][2..3] = C[g + 8][same].
-// A is row-major in shared memory (A[m * lda + k]) of type TA: T, or float
-// for the split product (16-bit T only: each element enters as hi + lo).
-// B(k, n) = B[n * ldb + k] when BT (B's rows are n), else B[k * ldb + n].
-template <typename T, int NT, int K, bool BT, typename TA = T>
-__device__ __forceinline__ void warp_mma(float (&c)[NT][4], const TA* A, int lda, const T* B,
+// A is row-major in shared memory (A[m * lda + k]).  B(k, n) = B[n * ldb +
+// k] when BT (B's rows are n), else B[k * ldb + n].
+template <typename T, int NT, int K, bool BT>
+__device__ __forceinline__ void warp_mma(float (&c)[NT][4], const T* A, int lda, const T* B,
                                          int ldb) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  if constexpr (std::is_same<T, float>::value) {
-    const float* a0p = A + g * lda;
-    const float* a1p = A + (g + 8) * lda;
+  const T* a0p = A + g * lda;
+  const T* a1p = A + (g + 8) * lda;
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = a0p[k], a1 = a1p[k];
+  for (int k = 0; k < K; ++k) {
+    const float a0 = a0p[k], a1 = a1p[k];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = 8 * j + 2 * t;
-        float b0, b1;
-        if constexpr (BT) {
-          b0 = B[n * ldb + k];
-          b1 = B[(n + 1) * ldb + k];
-        } else {
-          const float2 bb = *reinterpret_cast<const float2*>(B + k * ldb + n);
-          b0 = bb.x;
-          b1 = bb.y;
-        }
-        c[j][0] = fmaf(a0, b0, c[j][0]);
-        c[j][1] = fmaf(a0, b1, c[j][1]);
-        c[j][2] = fmaf(a1, b0, c[j][2]);
-        c[j][3] = fmaf(a1, b1, c[j][3]);
+    for (int j = 0; j < NT; ++j) {
+      const int n = 8 * j + 2 * t;
+      float b0, b1;
+      if constexpr (BT) {
+        b0 = B[n * ldb + k];
+        b1 = B[(n + 1) * ldb + k];
+      } else {
+        const float2 bb = *reinterpret_cast<const float2*>(B + k * ldb + n);
+        b0 = bb.x;
+        b1 = bb.y;
       }
-    }
-  } else {
-    constexpr bool kSplit = std::is_same<TA, float>::value;
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      const int k0 = kk + 2 * t;
-      uint32_t a[4], a_lo[4];
-      const int offs[4] = {g * lda + k0, (g + 8) * lda + k0, g * lda + k0 + 8,
-                           (g + 8) * lda + k0 + 8};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        if constexpr (kSplit) {
-          const float2 x = *reinterpret_cast<const float2*>(A + offs[r]);
-          const T h0 = from_float<T>(x.x), h1 = from_float<T>(x.y);
-          a[r] = pack2(h0, h1);
-          a_lo[r] = pack2(from_float<T>(x.x - to_float(h0)), from_float<T>(x.y - to_float(h1)));
-        } else {
-          a[r] = ld32(A + offs[r]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = 8 * j + g;
-        uint32_t b0, b1;
-        if constexpr (BT) {
-          b0 = ld32(B + n * ldb + k0);
-          b1 = ld32(B + n * ldb + k0 + 8);
-        } else {
-          b0 = pack2(B[k0 * ldb + n], B[(k0 + 1) * ldb + n]);
-          b1 = pack2(B[(k0 + 8) * ldb + n], B[(k0 + 9) * ldb + n]);
-        }
-        mma16816<T>(c[j], a, b0, b1);
-        if constexpr (kSplit) mma16816<T>(c[j], a_lo, b0, b1);
-      }
+      c[j][0] = fmaf(a0, b0, c[j][0]);
+      c[j][1] = fmaf(a0, b1, c[j][1]);
+      c[j][2] = fmaf(a1, b0, c[j][2]);
+      c[j][3] = fmaf(a1, b1, c[j][3]);
     }
   }
 }
@@ -660,7 +570,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         ds_w[(g + 8 * r) * LDS + qc] = from_float<T>(ds);
       }
     __syncwarp();
-    warp_mma<T, NO, TQ, false, float>(dv_acc, pf_w, LDF, do_t + col0, LD);
+    warp_mma<T, NO, TQ, false>(dv_acc, pf_w, LDF, do_t + col0, LD);
     warp_mma<T, NO, TQ, false>(dk_acc, ds_w, LDS, q_t + col0, LD);
     __syncthreads();
   }
@@ -752,7 +662,7 @@ struct BwdDkv {
   }
 };
 
-// dtype: 0 float32, 1 bfloat16, 2 float16; head dim 64, 96, 128 or 256.
+// dtype 0 (float32); head dim 64, 96, 128 or 256.
 template <template <typename, int> class Op, typename T>
 int dispatch_hd(int hd, const Args& a) {
   switch (hd) {
@@ -768,12 +678,8 @@ template <template <typename, int> class Op>
 int dispatch(int dtype, int hd, const Args& a) {
   if (a.B <= 0 || a.S <= 0 || a.KH <= 0 || a.H % a.KH != 0 || a.B * a.H > 65535)
     return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return dispatch_hd<Op, float>(hd, a);
-    case 1: return dispatch_hd<Op, __nv_bfloat16>(hd, a);
-    case 2: return dispatch_hd<Op, __half>(hd, a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return dispatch_hd<Op, float>(hd, a);
 }
 
 }  // namespace

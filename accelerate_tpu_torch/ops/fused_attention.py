@@ -28,8 +28,11 @@ raises):
   split order).
 
 At head dim 96 each Hopper kernel stores a tile as a 64-column block beside
-a 32-column one.  fp32 runs the mma.sync body of ``csrc/flash_attention.cu``
-at every head dim.
+a 32-column one.  fp32 runs the forward of ``csrc/flash_attention.cu`` (fp32
+FMAs on the CUDA cores) and, at every head dim, the backward of
+``csrc/flash_bwd_f32_sm90.cu``: dQ and dK/dV on the tensor cores in 3xTF32
+(``mma.sync`` m16n8k8, each operand split into two TF32 parts, which keeps
+fp32-level error), dK/dV split over :func:`pick_dkv_split` CTAs as above.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the plain PyTorch version (:func:`fused_attention_fwd_plain`,
@@ -179,7 +182,8 @@ def fused_attention_bwd_plain(q, k, v, out, lse, do, kv_valid=None, *, causal: b
 
 
 def pick_dkv_split(batch: int, kv_heads: int, seq_len: int, groups: int, sm_count: int) -> int:
-    """CTAs over which the d-256 dK/dV kernel splits each kv head's
+    """CTAs over which the d-256 and the fp32 dK/dV kernels (64-key CTAs
+    both) split each kv head's
     ``groups`` query heads: the least divisor of ``groups`` that gives at
     least one CTA per SM (``batch x kv_heads x ceil(seq_len / 64)`` key tiles
     times the split), else ``groups``.  Host-known shapes only."""
@@ -287,6 +291,8 @@ _ARGTYPES = {
     # the same kernel without the lo half of P in dV: on no path, timed only
     "atpu_flash_bwd_dkv_sm90_nolo": _DKV_ARGTYPES,
     "atpu_flash_bwd_dkv_sm90_d256": _DKV_SPLIT_ARGTYPES,
+    "atpu_flash_bwd_dq_f32_sm90": _DQ_ARGTYPES,
+    "atpu_flash_bwd_dkv_f32_sm90": _DKV_SPLIT_ARGTYPES,
 }
 # The source of each symbol that is not in flash_attention.cu.
 _SOURCES = {
@@ -296,7 +302,11 @@ _SOURCES = {
     "atpu_flash_bwd_dkv_sm90": "flash_bwd_dkv_sm90",
     "atpu_flash_bwd_dkv_sm90_nolo": "flash_bwd_dkv_sm90",
     "atpu_flash_bwd_dkv_sm90_d256": "flash_bwd_dkv_sm90",
+    "atpu_flash_bwd_dq_f32_sm90": "flash_bwd_f32_sm90",
+    "atpu_flash_bwd_dkv_f32_sm90": "flash_bwd_f32_sm90",
 }
+# The dK/dV launchers that split a kv head's query heads over CTAs.
+_SPLIT_DKV = ("atpu_flash_bwd_dkv_sm90_d256", "atpu_flash_bwd_dkv_f32_sm90")
 
 
 def _kernel(symbol: str):
@@ -326,11 +336,12 @@ def _launch(symbol: str, q, k, v, kv_valid, *ptrs, causal: bool, n_split=None):
 
 
 def _symbol(base: str, q) -> str:
-    """The launcher of ``base`` for q's dtype and head dim: the body of
-    ``flash_attention.cu`` for fp32, else the sm90 kernel (dK/dV's d-256
-    kernel at 256)."""
+    """The launcher of ``base`` for q's dtype and head dim: for fp32 the
+    forward of ``flash_attention.cu`` and the backward of
+    ``flash_bwd_f32_sm90.cu``, else the sm90 kernel (dK/dV's d-256 kernel at
+    256)."""
     if q.dtype == torch.float32:
-        return base
+        return base if base == "atpu_flash_fwd" else f"{base}_f32_sm90"
     d256 = base == "atpu_flash_bwd_dkv" and q.shape[-1] == 256
     return f"{base}_sm90_d256" if d256 else f"{base}_sm90"
 
@@ -352,7 +363,7 @@ def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_si
     """Flash-attention forward: ``(out [B, S, H, d]`` in q's dtype, ``lse
     [B, H, S]`` fp32).  ``kv_valid`` is int8 ``[B, S]`` (nonzero: the key
     takes part) or None.  On CUDA, bf16 and fp16 launch the Hopper kernel
-    (``atpu_flash_fwd_sm90``), fp32 the mma.sync body (``atpu_flash_fwd``)."""
+    (``atpu_flash_fwd_sm90``), fp32 the CUDA-core body (``atpu_flash_fwd``)."""
     if not _on_cuda("fused_attention_fwd", q):
         return fused_attention_fwd_plain(q, k, v, kv_valid, causal=causal, block_size=block_size)
     _check(q, k, v, kv_valid)
@@ -369,8 +380,8 @@ def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_si
 def fused_attention_bwd_dq(q, k, v, do, lse, delta, kv_valid=None, *, causal: bool = True):
     """dQ ``[B, S, H, d]`` in q's dtype from the saved ``lse`` and δ
     (``delta [B, H, S]`` fp32).  On CUDA, bf16 and fp16 launch the Hopper
-    kernel (``atpu_flash_bwd_dq_sm90``), fp32 the mma.sync body
-    (``atpu_flash_bwd_dq``)."""
+    kernel (``atpu_flash_bwd_dq_sm90``), fp32 the 3xTF32 kernel
+    (``atpu_flash_bwd_dq_f32_sm90``)."""
     if not _on_cuda("fused_attention_bwd_dq", q):
         return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[0]
     _check(q, k, v, kv_valid, {"do": do, "lse": lse, "delta": delta})
@@ -388,8 +399,8 @@ def fused_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid=None, *, causal: b
     Hopper kernel (``atpu_flash_bwd_dkv_sm90``), at 256 its d-256 kernel
     (``atpu_flash_bwd_dkv_sm90_d256``: query heads split over
     :func:`pick_dkv_split` CTAs, fp32 partials in a workspace allocated here,
-    summed in split order by a second kernel), fp32 the mma.sync body
-    (``atpu_flash_bwd_dkv``)."""
+    summed in split order by a second kernel), fp32 the 3xTF32 kernel
+    (``atpu_flash_bwd_dkv_f32_sm90``, split the same way)."""
     if not _on_cuda("fused_attention_bwd_dkv", q):
         return _bwd_plain(q, k, v, lse, delta, do, kv_valid, causal, q.shape[1])[1:]
     _check(q, k, v, kv_valid, {"do": do, "lse": lse, "delta": delta})
@@ -398,7 +409,7 @@ def fused_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid=None, *, causal: b
     symbol = _symbol("atpu_flash_bwd_dkv", q)
     ptrs = (do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _valid_ptr(kv_valid),
             dk.data_ptr(), dv.data_ptr())
-    if symbol.endswith("_d256"):
+    if symbol in _SPLIT_DKV:
         b, s, h, _ = q.shape
         kh = k.shape[2]
         n_split = pick_dkv_split(b, kh, s, h // kh, _sm_count(q.device))

@@ -43,22 +43,26 @@ Phases (each fails the run on any mismatch; nothing is caught):
    and S 2048 causal with a left-padded row (``kv_valid``, its first rows
    admit no key).  bf16 and fp16 run the Hopper forward
    (``flash_fwd_sm90.cu``), dQ (``flash_bwd_dq_sm90.cu``) and dK/dV
-   (``flash_bwd_dkv_sm90.cu``), fp32 the CUDA-core ones.  Prints max errors
-   and, at B 2 x S 2048 causal in fp32 and bf16, the kernel, plain, bound and
-   library (``scaled_dot_product_attention``, forward and forward+backward, a
-   yardstick only) times and δ's time, and in bf16 the previous forward, dQ
-   and dK/dV bodies (``atpu_flash_fwd``, ``atpu_flash_bwd_dq``,
-   ``atpu_flash_bwd_dkv``, called directly, not counted) as ``previous_ms``
-   in turns with the kernels, the dQ kernel with a 2-stage K/V ring
-   (``atpu_flash_bwd_dq_sm90_ring2``) as ``ring2_ms``, and the dK/dV kernel
-   without the lo half of P in its dV product
-   (``atpu_flash_bwd_dkv_sm90_nolo``) as ``nolo_ms``.
+   (``flash_bwd_dkv_sm90.cu``); fp32 the CUDA-core forward
+   (``flash_attention.cu``) and the 3xTF32 tensor-core dQ and dK/dV
+   (``flash_bwd_f32_sm90.cu``).  Prints max errors and, at B 2 x S 2048
+   causal in fp32 and bf16, the kernel, plain, bound and library
+   (``scaled_dot_product_attention``, forward and forward+backward, a
+   yardstick only) times and δ's time; in fp32 the dQ and dK/dV bodies of
+   ``flash_attention.cu`` the 3xTF32 kernels replace
+   (``atpu_flash_bwd_dq``, ``atpu_flash_bwd_dkv``, called directly, not
+   counted, held to the tolerance) as ``previous_ms`` in turns with the
+   kernels (kernel, previous, previous, kernel); in bf16 the dQ kernel with
+   a 2-stage K/V ring (``atpu_flash_bwd_dq_sm90_ring2``) as ``ring2_ms`` and
+   the dK/dV kernel without the lo half of P in its dV product
+   (``atpu_flash_bwd_dkv_sm90_nolo``) as ``nolo_ms``, in the same turns.
 5. Training at full width: Llama-3-8B widths cut to 4 layers (fp32 params,
    AdamW state and gradients of all 32 would need ~128 GB), bf16 compute,
    ``remat=True``, random weights from seed 0, through
    ``Accelerator().prepare(model, torch.optim.AdamW(...))`` and
    ``make_train_step`` at B 2 x S 2048: one step with fp32 activations on
-   the kernel path and on the plain path (loss and every gradient within a
+   the kernel path (the 3xTF32 backward; its flash launches counted, 2L / L
+   / L) and on the plain path (loss and every gradient within a
    relative 1e-4), one bf16 step on both paths (loss within 1e-3, every
    gradient within a relative 5e-2), then 5 AdamW steps at lr 3e-5 on one
    fixed batch (loss finite and falling; per step the forward kernel runs 2 x L
@@ -167,13 +171,14 @@ Phases (each fails the run on any mismatch; nothing is caught):
    plain versions (the forward's out and lse, dQ, dK and dV), with kernel
    (L2-cold copies), plain, bound and ``scaled_dot_product_attention``
    forward and backward times (an error recorded where sdpa refuses the
-   shape) and the launcher each wrapper called; in bf16 and fp16 the sm90
-   bodies beside the mma.sync bodies they replace (the forward, dQ and
-   dK/dV: ``atpu_flash_fwd``, ``atpu_flash_bwd_dq``, ``atpu_flash_bwd_dkv``;
-   called directly, not counted) as ``previous_ms`` in turns, each held to
-   the tolerance, δ's time beside the backward kernels', and dK/dV at every
-   split of the query-head group (``split_ms``, each held to the
-   tolerance); the paged pair
+   shape) and the launcher each wrapper called; in fp32 the 3xTF32 dQ and
+   dK/dV beside the ``flash_attention.cu`` bodies they replace
+   (``atpu_flash_bwd_dq``, ``atpu_flash_bwd_dkv``; called directly, not
+   counted) as ``previous_ms`` in turns, each held to the tolerance; δ's
+   time beside the backward kernels'; and where a kv head has several
+   query heads (Gemma-2B), dK/dV at every split of the group in each dtype
+   whose launcher splits it (``split_ms``, each held to the tolerance); the
+   paged pair
    at head dim 96 (bf16, fp32) and 256 (fp32) at Phase 1's long shape
    against plain, with kernel, plain, bound and library times.  10b:
    Gemma-2B (vocab 256000, d 2048, FFN 16384, 18 layers, 8 q / 1 kv head
@@ -206,13 +211,19 @@ Phases (each fails the run on any mismatch; nothing is caught):
    steps at B 2 x S 2048: the flash kernels launched 2L / L / L = 16 / 8 /
    8 a step, the profiled step naming the d-96 sm90 forward, dQ and dK/dV
    and no kernel of ``flash_attention.cu``, step time, tokens/s, share of
-   the bf16 peak and idle share.
+   the bf16 peak and idle share.  10e: 10d's README loop in fp32
+   (``LlamaConfig(dtype=torch.float32)`` under ``mixed_precision="no"``, a
+   fresh model from seed 0, the same batches): 5 steps, the flash kernels
+   launched 16 / 8 / 8 a step, the profiled step naming the 3xTF32 dQ and
+   dK/dV and no backward kernel of ``flash_attention.cu``, step time and the
+   flash group's device ms.
 
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
-``launches_phase10``, the flash kernels' Phase 10d launches as
-``launches_phase10d``, the head dims each takes as ``head_dims`` and
+``launches_phase10``, the flash kernels' Phase 10d and 10e launches as
+``launches_phase10d`` and ``launches_phase10e``, their fp32 Phase 4
+records as ``fp32``, the head dims each takes as ``head_dims`` and
 Phase 10a's records as ``wide_heads``), the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -233,8 +244,11 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-# fp32 on the CUDA cores; bf16 and fp16 dense on the tensor cores
-PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12, "torch.float16": 989e12}
+# bf16 and fp16 dense on the tensor cores.  fp32 at the 3xTF32 rate: the
+# tensor cores' 495 TFLOP/s of TF32 over the three TF32 products an fp32
+# product costs there at fp32-level error (one keeps ~11 bits), the least
+# time for an fp32 result on this card (the CUDA cores give ~67 TFLOP/s).
+PEAK_FLOPS = {"torch.float32": 495e12 / 3, "torch.bfloat16": 989e12, "torch.float16": 989e12}
 TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2, "torch.float16": 2e-2}
 # Phase 5, bf16 training step, kernel path against plain path: the loss
 # (absolute) and each gradient leaf (max |diff| over the plain leaf's max).
@@ -261,6 +275,20 @@ FWD_DESIGN = ("bf16/fp16: wgmma m64n128k16 Q.K^T (smem descriptors) and P.V (P i
               "d 96: a 64-column 128B-swizzled block beside a 32-column 64B-swizzled one, "
               "P.V as m64n64k16 + m64n32k16 (120 KB); "
               "fp32: the CUDA-core body of flash_attention.cu")
+F32_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_f32_sm90.cu"  # fp32 dQ and dK/dV
+F32_DESIGN = ("fp32: mma.sync m16n8k8 tf32 in 3xTF32 (each operand split in registers into "
+              "big = tf32 round-to-nearest and small = the residual; a_small.b_big + "
+              "a_big.b_small + a_big.b_big), fragments by 32-bit lane loads at immediate "
+              "offsets from tiles padded by 4 floats a row (conflict-free in both majors), P "
+              "and dS reused from the "
+              "accumulators as A operands; 8 warps, 1 CTA an SM, cp.async rings; each tile's "
+              "products summed in a zeroed accumulator then added in fp32 (the tensor cores "
+              "round toward zero); dQ: 128-row CTAs (64 at d 256, two warps a row group "
+              "splitting each 32-key tile) over 64/64/32/32-key K/V tiles at d 64/96/128/256; "
+              "dK/dV: 64-key CTAs of 4 warp pairs, one warp S^T, P^T, dV, the other dP^T, "
+              "dS^T, dK with P^T handed over in shared memory, Q/dO tiles of 64/64/32/16 rows, "
+              "the group split "
+              "over pick_dkv_split CTAs whose fp32 partials a sum kernel adds in split order")
 DQ_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu"  # bf16 and fp16 dQ
 DQ_DESIGN = ("bf16/fp16: 128-row CTA of one (batch, q head), 2 consumer warpgroups of 64 rows "
              "+ a producer warp, setmaxnreg 240/24; Q/dO by TMA once, 64-key K/V tiles of the "
@@ -270,8 +298,8 @@ DQ_DESIGN = ("bf16/fp16: 128-row CTA of one (batch, q head), 2 consumer warpgrou
              "dQ += dS.K (K MN-major); heaviest causal q tiles first; no atomics; d 256: "
              "32-key tiles in a 2-stage ring (192 KB), wgmma m64n32k16 S and dP, two "
              "m64n128k16 dQ halves; d 96: a 64-column 128B-swizzled block beside a 32-column "
-             "64B-swizzled one, dQ as m64n64k16 + m64n32k16 (120 KB); fp32: the CUDA-core body "
-             "of flash_attention.cu")
+             "64B-swizzled one, dQ as m64n64k16 + m64n32k16 (120 KB); fp32: "
+             "flash_bwd_f32_sm90.cu (3xTF32, F32_DESIGN)")
 DKV_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu"  # bf16 and fp16 dK/dV
 DKV_DESIGN = ("bf16/fp16: 128-key CTA of one (batch, kv head), 2 consumer warpgroups of 64 keys "
               "+ a producer warp, setmaxnreg 240/24; K/V by TMA once, 64-row Q/dO tiles of the "
@@ -283,8 +311,8 @@ DKV_DESIGN = ("bf16/fp16: 128-key CTA of one (batch, kv head), 2 consumer warpgr
               "2-stage ring (193 KB), the group's query heads split over n_split CTAs "
               "(pick_dkv_split) writing fp32 partials that a second kernel sums in split "
               "order; d 96: a 64-column 128B-swizzled block beside a 32-column 64B-swizzled "
-              "one, dV and dK as m64n64k16 + m64n32k16 (121.5 KB); fp32: the CUDA-core body of "
-              "flash_attention.cu")
+              "one, dV and dK as m64n64k16 + m64n32k16 (121.5 KB); fp32: flash_bwd_f32_sm90.cu "
+              "(3xTF32, F32_DESIGN)")
 REPLACES = {
     "paged_attention": "accelerate_tpu/ops/pallas_attention.py:564",
     "paged_window_attention": "accelerate_tpu/ops/pallas_attention.py:686",
@@ -936,19 +964,6 @@ def phase4():
     return results
 
 
-def previous_fwd(fu, q, k, v):
-    """The CUDA-core forward body (``atpu_flash_fwd``) on 16-bit inputs,
-    called directly so it is not counted as a launch of the wrapper."""
-    import torch
-
-    b, s, h, _ = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    fu._launch("atpu_flash_fwd", q, k, v, None, None, out.data_ptr(), lse.data_ptr(),
-               causal=True)
-    return out, lse
-
-
 def direct_bwd(fu, symbol, q, k, v, do, lse, delta):
     """A backward launcher (``symbol``, dQ's or dK/dV's) called directly, so
     it is not counted as a launch of the wrapper.  Returns ``(dq,)`` or
@@ -962,13 +977,14 @@ def direct_bwd(fu, symbol, q, k, v, do, lse, delta):
     return outs
 
 
-def bwd_variants(fu, copies, wrapper, symbols, want, kernel_ms):
-    """A backward kernel's previous body (``symbols["previous"]``, held to
-    the plain version's tolerance) and one variant (the other entry, its
-    error reported) on the first input set: errors against ``want``, and
-    times in turns with the kernel (kernel, previous, variant, variant,
-    previous, kernel).  Returns the record's extra keys (``<name>_ms``,
-    ``<name>_max_abs_err``) and the kernel's second time."""
+def bwd_variants(fu, copies, wrapper, symbols, want, kernel_ms, tag="phase4"):
+    """Other launchers of a backward kernel's function (``symbols``, name ->
+    launcher: ``"previous"``, the body the kernel replaced, is held to the
+    plain version's tolerance; a variant's error is reported) on the first
+    input set: errors against ``want``, and times in turns with the kernel
+    (kernel, each launcher, each again in reverse order, kernel).  Returns
+    the record's extra keys (``<name>_ms``, ``<name>_max_abs_err``) and the
+    kernel's second time."""
     import torch
 
     q, k, v, do, lse, delta = copies[0]
@@ -982,19 +998,18 @@ def bwd_variants(fu, copies, wrapper, symbols, want, kernel_ms):
         if name == "previous":
             check(all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
                       for g, w in zip(got, want)),
-                  f"previous {wrapper} body: max abs err {errs[name]} over atol=rtol={tol}")
+                  f"previous {wrapper} body {symbol} at d {q.shape[-1]}: max abs err "
+                  f"{errs[name]} over atol=rtol={tol}")
         del got
-    variant = next(name for name in symbols if name != "previous")
     times = {name: [] for name in symbols}
-    for name in ("previous", variant, variant, "previous"):
-        times[name].append(cuda_ms(lambda *a, sym=symbols[name]: direct_bwd(fu, sym, *a),
-                                   copies, iters=10))
+    turns = [f"kernel {kernel_ms:.4f}"]
+    for name in list(symbols) + list(reversed(symbols)):
+        ms = cuda_ms(lambda *a, sym=symbols[name]: direct_bwd(fu, sym, *a), copies, iters=10)
+        times[name].append(ms)
+        turns.append(f"{name} {ms:.4f}")
     second = cuda_ms(getattr(fu, wrapper), copies, iters=10)
-    log(f"phase4 {wrapper} {q.dtype} in turns: kernel {kernel_ms:.4f} "
-        f"previous {times['previous'][0]:.4f} {variant} {times[variant][0]:.4f} "
-        f"{variant} {times[variant][1]:.4f} previous {times['previous'][1]:.4f} "
-        f"kernel {second:.4f} ms; max abs err previous {errs['previous']:.3e} "
-        f"{variant} {errs[variant]:.3e}")
+    log(f"{tag} {wrapper} {q.dtype} d={q.shape[-1]} in turns: {' '.join(turns)} kernel "
+        f"{second:.4f} ms; max abs err " + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
     extra = {}
     for name in symbols:
         extra[f"{name}_ms"] = sum(times[name]) / 2
@@ -1002,11 +1017,22 @@ def bwd_variants(fu, copies, wrapper, symbols, want, kernel_ms):
     return extra, second
 
 
+# The launchers each backward kernel is timed against in Phase 4: in fp32
+# the flash_attention.cu bodies the 3xTF32 kernels replace, in bf16 the
+# sm90 kernels' timing variants.
+BWD_VARIANTS = {
+    "torch.float32": {"fused_attention_bwd_dq": {"previous": "atpu_flash_bwd_dq"},
+                      "fused_attention_bwd_dkv": {"previous": "atpu_flash_bwd_dkv"}},
+    "torch.bfloat16": {"fused_attention_bwd_dq": {"ring2": "atpu_flash_bwd_dq_sm90_ring2"},
+                       "fused_attention_bwd_dkv": {"nolo": "atpu_flash_bwd_dkv_sm90_nolo"}},
+}
+
+
 def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
-    """Kernel, plain, bound and library times at the main shape; in 16-bit
-    types also the previous forward, dQ and dK/dV bodies' times and errors,
-    the dQ kernel's with a 2-stage ring and the dK/dV kernel's without the
-    lo half of P."""
+    """Kernel, plain, bound and library times at the main shape, and the
+    backward kernels beside ``BWD_VARIANTS`` in turns: in fp32 the previous
+    dQ and dK/dV bodies, in bf16 the dQ kernel's 2-stage ring and the dK/dV
+    kernel without the lo half of P."""
     import torch
 
     delta = attention_delta(out, do)
@@ -1030,36 +1056,15 @@ def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
     plain_fwd = cuda_ms(
         lambda q, k, v: fu.fused_attention_fwd_plain(q, k, v, causal=True, block_size=blk),
         fwd_sets[:1], iters=3)
-    prev = prev_bwd = None
-    if q.dtype != torch.float32:
-        prev_out, prev_lse = previous_fwd(fu, q, k, v)
-        torch.cuda.synchronize()
-        want_out, _ = fu.fused_attention_fwd_plain(q, k, v, causal=True, block_size=blk)
-        tol = TOL[str(q.dtype)]
-        prev_err = (prev_out.float() - want_out.float()).abs().max().item()
-        check(torch.allclose(prev_out.float(), want_out.float(), atol=tol, rtol=tol),
-              f"previous forward body {q.dtype}: max abs err {prev_err} over atol=rtol={tol}")
-        # In turns with the kernel (kernel above, previous, previous, kernel).
-        prev_ms = [cuda_ms(lambda *a: previous_fwd(fu, *a), fwd_sets, iters=10)
-                   for _ in range(2)]
-        times["fused_attention_fwd"] = 0.5 * (times["fused_attention_fwd"] + cuda_ms(
-            lambda q, k, v: fu.fused_attention_fwd(q, k, v, causal=True, block_size=blk),
-            fwd_sets, iters=10))
-        prev = dict(previous_ms=sum(prev_ms) / 2, previous_max_abs_err=prev_err)
-        del prev_out, prev_lse, want_out
-        want_dq, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do,
-                                                                 causal=True, block_size=blk)
-        prev_bwd = {}
-        for name, symbols, want in (
-                ("fused_attention_bwd_dq",
-                 {"previous": "atpu_flash_bwd_dq", "ring2": "atpu_flash_bwd_dq_sm90_ring2"},
-                 (want_dq,)),
-                ("fused_attention_bwd_dkv",
-                 {"previous": "atpu_flash_bwd_dkv", "nolo": "atpu_flash_bwd_dkv_sm90_nolo"},
-                 (want_dk, want_dv))):
-            prev_bwd[name], second = bwd_variants(fu, copies, name, symbols, want, times[name])
-            times[name] = 0.5 * (times[name] + second)
-        del want_dq, want_dk, want_dv
+    want_dq, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                                             block_size=blk)
+    variants = {}
+    for name, want in (("fused_attention_bwd_dq", (want_dq,)),
+                       ("fused_attention_bwd_dkv", (want_dk, want_dv))):
+        variants[name], second = bwd_variants(fu, copies, name, BWD_VARIANTS[str(q.dtype)][name],
+                                              want, times[name])
+        times[name] = 0.5 * (times[name] + second)
+    del want_dq, want_dk, want_dv, copies, fwd_sets
     # One plain backward computes dQ, dK and dV together: its time stands
     # beside both backward kernels.
     plain_bwd = cuda_ms(
@@ -1087,28 +1092,19 @@ def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
         fwd = name == "fused_attention_fwd"
         rec[name] = dict(max_abs_err=err[name], ms=times[name],
                          plain_ms=plain_fwd if fwd else plain_bwd, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_fwd if fwd else None)
-        extra = prev if fwd else prev_bwd.get(name) if prev_bwd else None
-        if prev and extra:
-            rec[name].update(extra)
+                         library_ms=lib_fwd if fwd else None, **variants.get(name, {}))
         log(f"phase4 {name} {q.dtype} B=2 S=2048 causal: kernel_ms={times[name]:.4f} "
             f"plain_ms={rec[name]['plain_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})"
             + (f" library_ms={lib_fwd:.4f}" if fwd else "")
-            + ("".join(f" {key}={val:.4f}" if key.endswith("ms") else f" {key}={val:.3e}"
-                       for key, val in extra.items()) if prev and extra else ""))
-    if prev:
-        tflops = 2 * flop / times["fused_attention_fwd"] / 1e9
-        log(f"phase4 fused_attention_fwd {q.dtype}: {tflops:.1f} TFLOP/s of least work; "
-            f"previous body {2 * flop / prev['previous_ms'] / 1e9:.1f}")
-        dq_ms, dq_var = times["fused_attention_bwd_dq"], prev_bwd["fused_attention_bwd_dq"]
-        log(f"phase4 fused_attention_bwd_dq {q.dtype}: {3 * flop / dq_ms / 1e9:.1f} TFLOP/s "
-            f"of least work; 2-stage ring {3 * flop / dq_var['ring2_ms'] / 1e9:.1f}; previous "
-            f"body {3 * flop / dq_var['previous_ms'] / 1e9:.1f}")
-        dkv_ms, dkv_var = times["fused_attention_bwd_dkv"], prev_bwd["fused_attention_bwd_dkv"]
-        log(f"phase4 fused_attention_bwd_dkv {q.dtype}: {4 * flop / dkv_ms / 1e9:.1f} TFLOP/s "
-            f"of least work ({5 * flop / dkv_ms / 1e9:.1f} with the lo half); no-lo "
-            f"{4 * flop / dkv_var['nolo_ms'] / 1e9:.1f}; previous body "
-            f"{4 * flop / dkv_var['previous_ms'] / 1e9:.1f}")
+            + "".join(f" {key}={val:.4f}" if key.endswith("ms") else f" {key}={val:.3e}"
+                      for key, val in variants.get(name, {}).items()))
+    work = {"fused_attention_fwd": 2, "fused_attention_bwd_dq": 3, "fused_attention_bwd_dkv": 4}
+    log(f"phase4 {q.dtype} TFLOP/s of least work: "
+        + "; ".join(f"{name} {work[name] * flop / rec[name]['ms'] / 1e9:.1f}"
+                    + "".join(f", {key[:-3]} {work[name] * flop / val / 1e9:.1f}"
+                              for key, val in variants.get(name, {}).items()
+                              if key.endswith("_ms"))
+                    for name in FLASH_KERNELS))
     log(f"phase4 delta {q.dtype}: rowsum(dO*O) in torch before the backward kernels, "
         f"delta_ms={delta_ms:.4f} (dQ kernel {times['fused_attention_bwd_dq']:.4f}, dK/dV "
         f"kernel {times['fused_attention_bwd_dkv']:.4f})")
@@ -1213,18 +1209,23 @@ def phase5():
     rng = np.random.default_rng(0)
     batch = {"input_ids": torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s))).cuda()}
 
-    # fp32 activations: the kernel path against the plain path, loss and
-    # every gradient leaf (relative to the leaf's largest entry).
+    # fp32 activations: the kernel path (its launches counted) against the
+    # plain path, loss and every gradient leaf (relative to the leaf's
+    # largest entry).
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    reset_flash_counts()
     loss_k, grads_k = loss_and_grads(model, cfg32, batch)
+    counts32 = read_flash_counts()
     with plain_flash():
         loss_p, grads_p = loss_and_grads(model, cfg32, batch)
     rel = max(((gk - gp).abs().max() / gp.abs().max()).item() for gk, gp in zip(grads_k, grads_p))
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     log(f"phase5 fp32 step, kernel vs plain path: loss {loss_k.item():.6f} vs "
         f"{loss_p.item():.6f} (rel {loss_rel:.3e}); max over {len(grads_k)} gradient leaves of "
-        f"max|diff|/max|plain| = {rel:.3e} (limit 1e-4)")
+        f"max|diff|/max|plain| = {rel:.3e} (limit 1e-4); fp32 launches {counts32}")
     check(loss_rel <= 1e-4 and rel <= 1e-4, f"fp32 kernel path differs: loss {loss_rel}, grad {rel}")
+    check(tuple(counts32.values()) == (2 * layers, layers, layers),
+          f"fp32 step launched the flash kernels {counts32}, want (2L, L, L)")
     del grads_k, grads_p
     torch.cuda.empty_cache()
 
@@ -2629,93 +2630,71 @@ PHASE10D_LAYERS = 8
 PHI3_FLASH = ("flash_fwd_sm90_kernel<__nv_bfloat16, 96>",
               "flash_bwd_dq_sm90_kernel<__nv_bfloat16, 96, 3>",
               "flash_bwd_dkv_sm90_kernel<__nv_bfloat16, 96, true>")
+# The fp32 kernels the same step runs in fp32 (Phase 10e): the CUDA-core
+# forward and the 3xTF32 dQ and dK/dV (32 query heads over 32 kv heads: no
+# split of the group).
+PHI3_F32_FLASH = ("flash_fwd_kernel<float, 96>", "flash_bwd_dq_f32_kernel<96>",
+                  "flash_bwd_dkv_f32_kernel<96, false>")
 # The launcher each flash wrapper calls, by its base name.
 FLASH_BASES = {"fused_attention_fwd": "atpu_flash_fwd",
                "fused_attention_bwd_dq": "atpu_flash_bwd_dq",
                "fused_attention_bwd_dkv": "atpu_flash_bwd_dkv"}
 
 
-def direct_dkv_d256(fu, n_split, q, k, v, do, lse, delta):
-    """The d-256 dK/dV launcher called directly (not counted) with the query
-    heads split ``n_split`` ways; returns ``(dk, dv)``."""
+def direct_dkv_split(fu, symbol, n_split, q, k, v, do, lse, delta):
+    """A dK/dV launcher that splits a kv head's query heads (``symbol``, one
+    of ``fu._SPLIT_DKV``) called directly (not counted) with the split
+    ``n_split``; returns ``(dk, dv)``."""
     import torch
 
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     part = (torch.empty(2 * n_split * k.numel(), dtype=torch.float32, device=q.device)
             if n_split > 1 else None)
-    fu._launch("atpu_flash_bwd_dkv_sm90_d256", q, k, v, None, do.data_ptr(), lse.data_ptr(),
-               delta.data_ptr(), None, dk.data_ptr(), dv.data_ptr(),
-               None if part is None else part.data_ptr(), causal=True, n_split=n_split)
+    fu._launch(symbol, q, k, v, None, do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None,
+               dk.data_ptr(), dv.data_ptr(), None if part is None else part.data_ptr(),
+               causal=True, n_split=n_split)
     return dk, dv
 
 
-def wide_previous(fu, copies, times, want):
-    """In 16-bit types at d 96 and 256: the mma.sync bodies the sm90 kernels
-    replace (the forward, dQ and dK/dV; called directly), each held to the
-    plain versions' tolerance and timed in turns with the kernel (kernel,
-    previous, previous, kernel); at d 256 also dK/dV at every split of the
-    group, each held to the tolerance and timed.  Returns ``({wrapper: extra
-    record keys}, {wrapper: second kernel ms})``."""
+def dkv_splits(fu, copies, want_dk, want_dv):
+    """Where q's dK/dV launcher splits a kv head's query heads and the group
+    has more than one: dK/dV at every split of the group, each held to the
+    tolerance and timed.  Returns the record's extra keys (``n_split``,
+    the one the wrapper picks; ``split_ms``; ``split_max_abs_err``), or {}."""
     import torch
 
     q, k, v, do, lse, delta = copies[0]
-    d = q.shape[-1]
-    tol = TOL[str(q.dtype)]
-    want_out, want_dq, want_dk, want_dv = want
-    fwd, dq, dkv = FLASH_KERNELS
-    previous = {fwd: lambda q, k, v, *_: previous_fwd(fu, q, k, v),
-                dq: lambda *a: direct_bwd(fu, "atpu_flash_bwd_dq", *a),
-                dkv: lambda *a: direct_bwd(fu, "atpu_flash_bwd_dkv", *a)}
-    refs = {fwd: (want_out,), dq: (want_dq,), dkv: (want_dk, want_dv)}
-    kernels = {fwd: (lambda q, k, v, *_: fu.fused_attention_fwd(q, k, v, causal=True,
-                                                                block_size=q.shape[1])),
-               dq: (lambda *a: fu.fused_attention_bwd_dq(*a, causal=True)),
-               dkv: (lambda *a: fu.fused_attention_bwd_dkv(*a, causal=True))}
-    extra, second = {}, {}
-    for wrapper, call in previous.items():
-        got = call(q, k, v, do, lse, delta)
-        torch.cuda.synchronize()
-        pairs = list(zip(got, refs[wrapper]))
-        err = max((g.float() - w.float()).abs().max().item() for g, w in pairs)
-        check(all(torch.allclose(g.float(), w.float(), atol=tol, rtol=tol) for g, w in pairs),
-              f"previous {wrapper} body at d {d}: max abs err {err} over atol=rtol={tol}")
-        del got, pairs
-        prev = [cuda_ms(call, copies, iters=10) for _ in range(2)]
-        second[wrapper] = cuda_ms(kernels[wrapper], copies, iters=10)
-        extra[wrapper] = dict(previous_ms=sum(prev) / 2, previous_max_abs_err=err,
-                              previous_body=FLASH_BASES[wrapper])
-        log(f"phase10a {wrapper} {q.dtype} d={d} in turns: kernel {times[wrapper]:.4f} "
-            f"previous {prev[0]:.4f} previous {prev[1]:.4f} kernel {second[wrapper]:.4f} ms; "
-            f"previous max abs err {err:.3e}")
-    if d != 256:
-        return extra, second
-    b, s, h, _ = q.shape
+    b, s, h, d = q.shape
     g = h // k.shape[2]
+    symbol = fu._symbol("atpu_flash_bwd_dkv", q)
+    if symbol not in fu._SPLIT_DKV or g == 1:
+        return {}
+    tol = TOL[str(q.dtype)]
     split_ms, split_err = {}, {}
     for n in (n for n in range(1, g + 1) if g % n == 0):
-        dk, dv = direct_dkv_d256(fu, n, q, k, v, do, lse, delta)
+        dk, dv = direct_dkv_split(fu, symbol, n, q, k, v, do, lse, delta)
         torch.cuda.synchronize()
         split_err[n] = max((dk.float() - want_dk.float()).abs().max().item(),
                            (dv.float() - want_dv.float()).abs().max().item())
         check(torch.allclose(dk.float(), want_dk.float(), atol=tol, rtol=tol)
               and torch.allclose(dv.float(), want_dv.float(), atol=tol, rtol=tol),
-              f"d-256 dK/dV at n_split {n}: max abs err {split_err[n]} over atol=rtol={tol}")
+              f"{symbol} at d {d} n_split {n}: max abs err {split_err[n]} over atol=rtol={tol}")
         del dk, dv
-        split_ms[n] = cuda_ms(lambda *a, n=n: direct_dkv_d256(fu, n, *a), copies, iters=10)
+        split_ms[n] = cuda_ms(lambda *a, n=n: direct_dkv_split(fu, symbol, n, *a), copies,
+                              iters=10)
     picked = fu.pick_dkv_split(b, k.shape[2], s, g, fu._sm_count(q.device))
-    log(f"phase10a fused_attention_bwd_dkv {q.dtype} d=256 by n_split (ms): "
+    log(f"phase10a fused_attention_bwd_dkv {q.dtype} d={d} {symbol} by n_split (ms): "
         + " ".join(f"{n}={t:.4f}" for n, t in split_ms.items()) + f"; picked {picked}")
-    extra["fused_attention_bwd_dkv"].update(n_split=picked, split_ms=split_ms,
-                                            split_max_abs_err=split_err)
-    return extra, second
+    return dict(n_split=picked, split_ms=split_ms, split_max_abs_err=split_err)
 
 
 def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs, want):
     """Kernel (L2-cold copies, as Phase 4), plain, bound and ``sdpa`` times
     of the three flash kernels at one shape, with the launcher each wrapper
-    called (``body``) and δ's time; in 16-bit types also the replaced
-    mma.sync bodies' times (:func:`wide_previous`).  ``sdpa``'s failure is recorded
-    as its error."""
+    called (``body``) and δ's time; in fp32 also the replaced
+    ``flash_attention.cu`` dQ and dK/dV bodies' times in turns
+    (:func:`bwd_variants`); dK/dV at every split (:func:`dkv_splits`).
+    ``sdpa``'s failure is recorded as its error."""
     delta = attention_delta(out, do)
     set_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, do))
     copies = [(q, k, v, do, lse, delta)] + [
@@ -2730,11 +2709,19 @@ def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs, want):
         "fused_attention_bwd_dkv": cuda_ms(
             lambda *a: fu.fused_attention_bwd_dkv(*a, causal=True), copies, iters=10),
     }
-    prev, second = {}, {}
-    if q.dtype != torch.float32:
-        prev, second = wide_previous(fu, copies, times, want)
-        for name, ms in second.items():
-            times[name] = 0.5 * (times[name] + ms)
+    _, want_dq, want_dk, want_dv = want
+    prev = {}
+    if q.dtype == torch.float32:
+        for name, ref in (("fused_attention_bwd_dq", (want_dq,)),
+                          ("fused_attention_bwd_dkv", (want_dk, want_dv))):
+            symbol = BWD_VARIANTS["torch.float32"][name]["previous"]
+            prev[name], second = bwd_variants(fu, copies, name, {"previous": symbol}, ref,
+                                              times[name], tag="phase10a")
+            prev[name]["previous_body"] = symbol
+            times[name] = 0.5 * (times[name] + second)
+    split = dkv_splits(fu, copies, want_dk, want_dv)
+    if split:
+        prev.setdefault("fused_attention_bwd_dkv", {}).update(split)
     del copies
     plain_fwd = cuda_ms(lambda q, k, v: fu.fused_attention_fwd_plain(
         q, k, v, causal=True, block_size=blk), [(q, k, v)], iters=2)
@@ -2782,9 +2769,8 @@ def phase10a(smi):
     """The three flash kernels at head dims 256 and 96 (Gemma-2B, Gemma-7B
     and Phi-3-mini attention geometry, B 2 x S 2048 causal, unpadded and
     with batch 0 left-padded by 300 keys) in bf16 and fp32, and fp16 at
-    Gemma-2B's, with the replaced mma.sync bodies beside the sm90 ones; the
-    paged
-    pair at head dim 96 (bf16, fp32) and 256 (fp32) at Phase 1's long
+    Gemma-2B's, with the replaced fp32 bodies beside the 3xTF32 ones; the
+    paged pair at head dim 96 (bf16, fp32) and 256 (fp32) at Phase 1's long
     shape, each against its plain version, with times."""
     import torch.nn.functional as F
 
@@ -2991,21 +2977,27 @@ def phase10b(smi):
 def kernel_vs_plain_step(model, cfg, first, tag):
     """The first step's loss and gradients on the kernel path against the
     plain path (the fused op's plain versions): with fp32 activations loss
-    and every leaf within a relative 1e-4, as Phase 5; in bf16 the loss
+    and every leaf within a relative 1e-4, as Phase 5, and the flash
+    kernels launched 2L / L / L (the forward again under remat); in bf16 the loss
     within ``PHASE10_BF16_LOSS_REL`` of itself and every leaf within a
     relative ``BF16_GRAD_TOL``."""
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    reset_flash_counts()
     loss_k, grads_k = loss_and_grads(model, cfg32, first)
+    counts32 = read_flash_counts()
     with plain_flash():
         loss_p, grads_p = loss_and_grads(model, cfg32, first)
     rel = max(((gk - gp).abs().max() / gp.abs().max()).item()
               for gk, gp in zip(grads_k, grads_p))
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    L = cfg.num_layers
     log(f"{tag} fp32 first step, kernel vs plain path: loss {loss_k.item():.6f} vs "
         f"{loss_p.item():.6f} (rel {loss_rel:.3e}); max over {len(grads_k)} gradient leaves "
-        f"of max|diff|/max|plain| = {rel:.3e} (limit 1e-4)")
+        f"of max|diff|/max|plain| = {rel:.3e} (limit 1e-4); fp32 launches {counts32}")
     check(loss_rel <= 1e-4 and rel <= 1e-4,
           f"{tag} fp32 kernel path differs: loss {loss_rel}, grad {rel}")
+    check(tuple(counts32.values()) == (2 * L, L, L),
+          f"{tag} fp32 step launched the flash kernels {counts32}, want (2L, L, L)")
     del grads_k, grads_p
     torch.cuda.empty_cache()
     loss_k, grads_k = loss_and_grads(model, cfg, first)
@@ -3025,8 +3017,8 @@ def kernel_vs_plain_step(model, cfg, first, tag):
     torch.cuda.empty_cache()
 
 
-def readme_loop(model, cfg, rows, b, tag, smi, traced):
-    """The README loop under ``Accelerator(mixed_precision="bf16")``:
+def readme_loop(model, cfg, rows, b, tag, smi, traced, mixed_precision="bf16"):
+    """The README loop under ``Accelerator(mixed_precision=...)``:
     ``prepare(model, AdamW, DataLoader(rows, batch_size=b), LambdaLR)``, one
     step a batch, the last profiled.  Logs and returns the losses, step time
     (median of steps 2 on), tokens/s, peak memory, the profiled step's idle
@@ -3039,7 +3031,7 @@ def readme_loop(model, cfg, rows, b, tag, smi, traced):
     from accelerate_tpu_torch import Accelerator
 
     fresh_state()
-    acc = Accelerator(mixed_precision="bf16")
+    acc = Accelerator(mixed_precision=mixed_precision)
     opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
     sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda i: min(1.0, (i + 1) / 2))
     pmodel, opt, dl, sched = acc.prepare(model, opt, DataLoader(rows, batch_size=b), sched)
@@ -3077,11 +3069,13 @@ def readme_loop(model, cfg, rows, b, tag, smi, traced):
     flops = 6 * dense * tokens + L * 3.5 * 4 * b * cfg.num_heads * cfg.head_dim_ * pairs
     ms = median(step_s[1:]) * 1e3
     idle = 1 - busy / (step_s[-1] * 1e3)
-    log(f"{tag} README loop, bf16 policy, B {b} x S {s}, {len(step_s)} steps: losses "
-        f"{losses!r} step_ms={ms:.2f} (median of steps 2-{len(step_s)}; each "
+    compute = "bf16" if mixed_precision == "bf16" or cfg.dtype == torch.bfloat16 else "fp32"
+    peak_flops = PEAK_FLOPS["torch.bfloat16" if compute == "bf16" else "torch.float32"]
+    log(f"{tag} README loop, {mixed_precision} policy, B {b} x S {s}, {len(step_s)} steps: "
+        f"losses {losses!r} step_ms={ms:.2f} (median of steps 2-{len(step_s)}; each "
         f"{[round(x * 1e3, 2) for x in step_s]}; the last profiled) tokens_per_s="
         f"{tokens / ms * 1e3:.1f} model_tflop_per_step={flops / 1e12:.3f} "
-        f"bf16_peak_share={flops / (ms / 1e3) / PEAK_FLOPS['torch.bfloat16']:.4f} "
+        f"{compute}_peak_share={flops / (ms / 1e3) / peak_flops:.4f} "
         f"peak_mem_bytes={peak}; profiled step: device_busy_ms={busy:.2f} idle_share="
         f"{idle:.3f} by group (ms, launches) "
         + " ".join(f"{k}={t:.2f}/{launches[k]}" for k, t in groups.items())
@@ -3090,31 +3084,32 @@ def readme_loop(model, cfg, rows, b, tag, smi, traced):
     for t, cnt, key in by_kernel[:8]:
         log(f"{tag}   device {t:.3f} ms in {cnt} launches: {key[:110]}")
     out = dict(counts=counts, ms=ms, tokens_per_s=tokens / ms * 1e3, peak=peak, idle=idle, b=b,
-               losses=losses, per_step=per_step, traced=in_trace, by_kernel=by_kernel)
+               losses=losses, per_step=per_step, traced=in_trace, by_kernel=by_kernel,
+               groups=groups)
     nones = acc.free_memory(pmodel, opt, dl, sched)
     del pmodel, opt, dl, sched, loss, batch, prof, nones
     gc_collect()
     return out
 
 
-def phi3_mini_model():
+def phi3_mini_model(dtype=torch.bfloat16):
     """Phi-3-mini's widths (``PHI3_MINI``) cut to ``PHASE10D_LAYERS`` layers,
-    bf16 compute, fp32 parameters, ``remat=True``, random weights from seed
-    0: ``(cfg, model)``."""
+    ``dtype`` compute, fp32 parameters, ``remat=True``, random weights from
+    seed 0: ``(cfg, model)``."""
     from accelerate_tpu_torch.models import llama
 
-    cfg = llama.LlamaConfig(**PHI3_MINI, num_layers=PHASE10D_LAYERS, dtype=torch.bfloat16,
+    cfg = llama.LlamaConfig(**PHI3_MINI, num_layers=PHASE10D_LAYERS, dtype=dtype,
                             param_dtype=torch.float32, remat=True)
     return cfg, llama.LlamaForCausalLM(cfg, seed=0)
 
 
-def phase10d_loop(cfg, model, smi):
+def phase10d_loop(cfg, model, smi, tag="phase10d", traced=PHI3_FLASH, mixed_precision="bf16"):
     """Phase 10d's README loop: ``PHASE10_STEPS`` steps at B ``PHASE10_B`` x
     S ``PHASE10_S`` from seed 12 (:func:`readme_loop`)."""
     rng = np.random.default_rng(12)
     ids = rng.integers(0, cfg.vocab_size, size=(PHASE10_B * PHASE10_STEPS, PHASE10_S))
     rows = [{"input_ids": torch.from_numpy(r)} for r in ids]
-    return readme_loop(model, cfg, rows, PHASE10_B, "phase10d", smi, PHI3_FLASH)
+    return readme_loop(model, cfg, rows, PHASE10_B, tag, smi, traced, mixed_precision)
 
 
 def phase10d(smi):
@@ -3147,6 +3142,38 @@ def phase10d(smi):
           f"phase10d flash launches per step {per_step}, want (2L, L, L) = {(2 * L, L, L)}")
     check(all(out["traced"].values()), f"the trace lacks a d-96 sm90 kernel: {out['traced']}")
     check(not legacy, f"the trace names flash_attention.cu kernels: {legacy}")
+    del model
+    gc_collect()
+    return out
+
+
+def phase10e(smi):
+    """Phase 10d's README loop in fp32: Phi-3-mini's widths at
+    ``PHASE10D_LAYERS`` layers with ``LlamaConfig(dtype=torch.float32)``
+    under ``mixed_precision="no"`` (a fresh model from seed 0, the batches
+    of seed 12), 5 steps: the flash kernels launched 2L / L / L a step, the
+    profiled step naming the CUDA-core forward and the 3xTF32 dQ and dK/dV
+    and no backward kernel of ``flash_attention.cu``; logs the step time
+    and the flash group's device ms."""
+    t0 = time.perf_counter()
+    cfg, model = phi3_mini_model(torch.float32)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    log(f"phase10e Phi-3-mini widths, {L} of 32 layers, fp32 compute and parameters, "
+        f"mixed_precision='no', B {PHASE10_B} x S {PHASE10_S}; init_s="
+        f"{time.perf_counter() - t0:.1f}")
+    out = phase10d_loop(cfg, model, smi, tag="phase10e", traced=PHI3_F32_FLASH,
+                        mixed_precision="no")
+    losses, per_step = out["losses"], out["per_step"]
+    legacy = sorted({key[:60] for _, _, key in out["by_kernel"]
+                     if re.search(r"flash_bwd_(dq|dkv)_kernel", key)})
+    log(f"phase10e fp32 step_ms={out['ms']:.2f} flash_group_ms={out['groups']['flash kernels']:.2f} "
+        f"(the profiled step) kernels in the trace {out['traced']}; {smi}")
+    check(all(math.isfinite(x) for x in losses), f"phase10e non-finite loss {losses}")
+    check(per_step == [(2 * L, L, L)] * PHASE10_STEPS,
+          f"phase10e flash launches per step {per_step}, want (2L, L, L) = {(2 * L, L, L)}")
+    check(all(out["traced"].values()), f"the trace lacks an fp32 flash kernel: {out['traced']}")
+    check(not legacy, f"the trace names flash_attention.cu backward kernels: {legacy}")
     del model
     gc_collect()
     return out
@@ -3225,7 +3252,7 @@ def phase10c(params, smi):
 
 def phase10(smi):
     """10a the wide-head kernels, 10b Gemma-2B training, 10c its serving,
-    10d Phi-3-mini training."""
+    10d Phi-3-mini training, 10e the same in fp32."""
     gc_collect()
     t0 = time.perf_counter()
     flash, paged = phase10a(smi)
@@ -3237,12 +3264,14 @@ def phase10(smi):
     gc_collect()
     t3 = time.perf_counter()
     phi3 = phase10d(smi)
+    t4 = time.perf_counter()
+    phi3_f32 = phase10e(smi)
     log(f"phase10 seconds: 10a {t1 - t0:.1f}, 10b {t2 - t1:.1f}, 10c {t3 - t2:.1f}, 10d "
-        f"{time.perf_counter() - t3:.1f}")
+        f"{t4 - t3:.1f}, 10e {time.perf_counter() - t4:.1f}")
     counts = dict(train["counts"], paged_attention=serving[0]["dec"],
                   paged_window_attention=serving[3]["win"])
     return dict(flash=flash, paged=paged, train=train, serving=serving, phi3=phi3,
-                counts=counts)
+                phi3_f32=phi3_f32, counts=counts)
 
 
 def main() -> int:
@@ -3290,13 +3319,15 @@ def main() -> int:
           f"phase 10 launched the kernels of its path {p10['counts']} times")
     check(all(p10["phi3"]["counts"][n] > 0 for n in FLASH_KERNELS),
           f"phase 10d launched the flash kernels {p10['phi3']['counts']} times")
+    check(all(p10["phi3_f32"]["counts"][n] > 0 for n in FLASH_KERNELS),
+          f"phase 10e launched the flash kernels {p10['phi3_f32']['counts']} times")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
     log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS)
-        + f"; head dims: paged {pa_dims}, flash {fu_dims} (fp32 at every head dim on "
-        f"{FLASH_SOURCE}; bf16/fp16 at every head dim on {FWD_SOURCE}, {DQ_SOURCE} and "
-        f"{DKV_SOURCE})")
+        + f"; head dims: paged {pa_dims}, flash {fu_dims} (fp32 at every head dim: the "
+        f"forward on {FLASH_SOURCE}, dQ and dK/dV on {F32_SOURCE}; bf16/fp16 at every head "
+        f"dim on {FWD_SOURCE}, {DQ_SOURCE} and {DKV_SOURCE})")
     launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"], **p5}
     check(win3 > 0, "window kernel not launched in phase 3")
     record = []
@@ -3322,33 +3353,35 @@ def main() -> int:
                 f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                 f"library_ms={r['library_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}")
     for name in FLASH_KERNELS:
-        extra = {}
-        sm90 = {"fused_attention_fwd": (FWD_SOURCE, FWD_DESIGN),
-                "fused_attention_bwd_dq": (DQ_SOURCE, DQ_DESIGN),
-                "fused_attention_bwd_dkv": (DKV_SOURCE, DKV_DESIGN)}.get(name)
-        if sm90:
-            # The body each (head dim, dtype) runs: fp32 on flash_attention.cu,
-            # bf16/fp16 on the sm90 file.
-            wide = {f"d{d}-{dt}": sm90[0] if dt != "float32" else FLASH_SOURCE
-                    for d in (96, 256) for dt in ("bfloat16", "float16", "float32")}
-            extra = dict(source=sm90[0], previous_source=FLASH_SOURCE, design=sm90[1],
-                         dtypes={"bfloat16": sm90[0], "float16": sm90[0],
-                                 "float32": FLASH_SOURCE},
-                         wide_heads_source=wide)
-        record.append(dict(dict(name=name, route="cuda", source=FLASH_SOURCE,
-                                replaces=REPLACES[name], launches=launches[name],
-                                launches_phase6=p6[name], launches_phase8=p8[name],
-                                launches_phase9=p9[name],
-                                launches_phase10=p10["counts"][name],
-                                launches_phase10d=p10["phi3"]["counts"][name],
-                                head_dims=list(fu_dims),
-                                wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
-                                            for geom, dt in p10["flash"]},
-                                **p4["torch.bfloat16"][name]), **extra))
+        # The body each dtype runs: bf16/fp16 the sm90 file at every head
+        # dim; fp32 the forward of flash_attention.cu, the backward 3xTF32.
+        src16, design = {"fused_attention_fwd": (FWD_SOURCE, FWD_DESIGN),
+                         "fused_attention_bwd_dq": (DQ_SOURCE, DQ_DESIGN),
+                         "fused_attention_bwd_dkv": (DKV_SOURCE, DKV_DESIGN)}[name]
+        src32 = FLASH_SOURCE if name == "fused_attention_fwd" else F32_SOURCE
+        fp32 = dict(p4["torch.float32"][name], source=src32)
+        if src32 == F32_SOURCE:
+            fp32.update(design=F32_DESIGN, previous_source=FLASH_SOURCE)
+        record.append(dict(name=name, route="cuda", source=src16, replaces=REPLACES[name],
+                           launches=launches[name], launches_phase6=p6[name],
+                           launches_phase8=p8[name], launches_phase9=p9[name],
+                           launches_phase10=p10["counts"][name],
+                           launches_phase10d=p10["phi3"]["counts"][name],
+                           launches_phase10e=p10["phi3_f32"]["counts"][name],
+                           head_dims=list(fu_dims),
+                           wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
+                                       for geom, dt in p10["flash"]},
+                           **p4["torch.bfloat16"][name], design=design,
+                           dtypes={"bfloat16": src16, "float16": src16, "float32": src32},
+                           wide_heads_source={f"d{d}-{dt}": src32 if dt == "float32" else src16
+                                              for d in (96, 256)
+                                              for dt in ("bfloat16", "float16", "float32")},
+                           fp32=fp32))
     for name in FLASH_KERNELS:
         r = p4["torch.float32"][name]
         log(f"kernels fp32 {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}")
+            f"bound_ms={r['bound_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}"
+            + (f" previous_ms={r['previous_ms']:.4f}" if "previous_ms" in r else ""))
     log(json.dumps({"kernels": record}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

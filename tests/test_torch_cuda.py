@@ -508,11 +508,11 @@ def test_flash_bwd_dkv_d256_split_is_deterministic(cuda, fwd_symbols, dtype):
         torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol, msg=name)
 
 
-def test_flash_bwd_dkv_fp32_stays_on_the_cuda_core_body(cuda, fwd_symbols):
+def test_flash_bwd_dkv_fp32_runs_the_3xtf32_kernel(cuda, fwd_symbols):
     q, k, v, do, out, lse, delta = _dkv_inputs(97, 2, 200, 4, 128, torch.float32, True)
     dk, dv = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
     torch.cuda.synchronize()
-    assert fwd_symbols == ["atpu_flash_bwd_dkv"]
+    assert fwd_symbols == ["atpu_flash_bwd_dkv_f32_sm90"]
     _, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
                                                        block_size=200)
     torch.testing.assert_close(dk, want_dk, rtol=1e-4, atol=1e-4)
@@ -605,11 +605,11 @@ def test_flash_bwd_dq_sm90_left_pad_past_a_cta(cuda, fwd_symbols, dtype, d, caus
         assert (dq[0, :pad] == 0).all()
 
 
-def test_flash_bwd_dq_fp32_stays_on_the_cuda_core_body(cuda, fwd_symbols):
+def test_flash_bwd_dq_fp32_runs_the_3xtf32_kernel(cuda, fwd_symbols):
     q, k, v, do, out, lse, delta = _dkv_inputs(113, 2, 200, 4, 128, torch.float32, True)
     dq = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
     torch.cuda.synchronize()
-    assert fwd_symbols == ["atpu_flash_bwd_dq"]
+    assert fwd_symbols == ["atpu_flash_bwd_dq_f32_sm90"]
     want_dq = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
                                            block_size=200)[0]
     torch.testing.assert_close(dq, want_dq, rtol=1e-4, atol=1e-4)
@@ -625,6 +625,86 @@ def test_flash_bwd_dq_raises_on_misaligned_view_and_launches_nothing(cuda, fwd_s
     with pytest.raises(ValueError, match="16-byte aligned"):
         fu.fused_attention_bwd_dq(q, k, v, shifted, lse, delta, causal=True)
     assert fu.fused_attention_bwd_dq.launches == before and fwd_symbols == []
+
+
+def _f32_backward(q, k, v, do, lse, delta, valid, causal):
+    dq = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, valid, causal=causal)
+    dk, dv = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, valid, causal=causal)
+    torch.cuda.synchronize()
+    return dq, dk, dv
+
+
+def _f32_close(got, q, k, v, do, out, lse, valid, causal, block_size):
+    want = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, valid, causal=causal,
+                                        block_size=block_size)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("groups", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("s", [64, 100, 129, 200, 1024])
+def test_flash_bwd_f32_sm90_edges(cuda, fwd_symbols, s, d, groups, causal):
+    """The 3xTF32 dQ (128-row CTAs, 64 at d 256) and dK/dV (64-key CTAs of
+    warp pairs; a kv head's query heads split over CTAs whenever the key
+    tiles alone do not fill the card, as at 8 q over 2 kv heads) at S below
+    one tile, across a ragged edge (129) and long, against the plain
+    backward at fp32's 1e-4."""
+    q, k, v, do, out, lse, delta = _dkv_inputs(151, 2, s, groups, d, torch.float32, causal)
+    got = _f32_backward(q, k, v, do, lse, delta, None, causal)
+    assert fwd_symbols == ["atpu_flash_bwd_dq_f32_sm90", "atpu_flash_bwd_dkv_f32_sm90"]
+    _f32_close(got, q, k, v, do, out, lse, None, causal, s)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+def test_flash_bwd_f32_sm90_left_pad_is_zero_and_bitwise_repeatable(cuda, fwd_symbols, d,
+                                                                   causal):
+    """Batch 0's first 150 keys invalid (past a 128-row dQ CTA and two 64-key
+    dK/dV CTAs), 8 q over 2 kv heads at S 300: padded keys get exactly zero
+    dK and dV, and, causal, padded rows exactly zero dQ; two calls agree bit
+    for bit; both match the plain backward."""
+    b, s, pad = 2, 300, 150
+    valid = torch.ones(b, s, dtype=torch.int8, device="cuda")
+    valid[0, :pad] = 0
+    q, k, v, do, _ = _flash_inputs(157, b, s, 8, 2, d, torch.float32, False)
+    out, lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=causal, block_size=s)
+    delta = fu._delta(out, do)
+    first = _f32_backward(q, k, v, do, lse, delta, valid, causal)
+    second = _f32_backward(q, k, v, do, lse, delta, valid, causal)
+    assert fwd_symbols == ["atpu_flash_bwd_dq_f32_sm90", "atpu_flash_bwd_dkv_f32_sm90"] * 2
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    assert (first[1][0, :pad] == 0).all() and (first[2][0, :pad] == 0).all()
+    if causal:
+        assert (first[0][0, :pad] == 0).all()
+    _f32_close(first, q, k, v, do, out, lse, valid, causal, s)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_bwd_f32_sm90_group_split_is_deterministic(cuda, fwd_symbols, d):
+    """Gemma-2B's 8 q / 1 kv heads at B 2 x S 2048, batch 0's first 300 keys
+    invalid: the query heads split over CTAs (n_split > 1) whose fp32
+    partials the sum kernel adds in split order, so two calls agree bit for
+    bit, invalid keys get exactly 0, and dQ, dK, dV match the plain
+    backward."""
+    b, s, pad = 2, 2048, 300
+    valid = torch.ones(b, s, dtype=torch.int8, device="cuda")
+    valid[0, :pad] = 0
+    q, k, v, do, _ = _flash_inputs(163, b, s, 8, 1, d, torch.float32, False)
+    out, lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=True, block_size=512)
+    delta = fu._delta(out, do)
+    assert fu.pick_dkv_split(b, 1, s, 8, fu._sm_count(q.device)) > 1
+    first = _f32_backward(q, k, v, do, lse, delta, valid, True)
+    second = _f32_backward(q, k, v, do, lse, delta, valid, True)
+    assert fwd_symbols == ["atpu_flash_bwd_dq_f32_sm90", "atpu_flash_bwd_dkv_f32_sm90"] * 2
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    assert (first[1][0, :pad] == 0).all() and (first[2][0, :pad] == 0).all()
+    assert (first[0][0, :pad] == 0).all()
+    _f32_close(first, q, k, v, do, out, lse, valid, True, 512)
 
 
 @pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
@@ -695,8 +775,9 @@ def test_auto_attention_with_unsupported_head_dim_raises(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_symbols, dtype):
     """Gemma's head dim on the card: ``attention_impl="auto"`` at S 1024
-    runs the forward, dQ and dK/dV kernels once per layer each (fp32 all on
-    ``flash_attention.cu``; bf16 the sm90 forward, dQ and d-256 dK/dV), and
+    runs the forward, dQ and dK/dV kernels once per layer each (fp32 the
+    forward of ``flash_attention.cu`` and the 3xTF32 dQ and dK/dV; bf16 the
+    sm90 forward, dQ and d-256 dK/dV), and
     the loss and gradients match the same step on their plain versions."""
     cfg = llama.LlamaConfig.tiny(head_dim=256, num_layers=2, max_seq_len=1024, dtype=dtype,
                                  num_heads=4, num_kv_heads=1, attention_impl="auto")
@@ -712,7 +793,7 @@ def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_sym
              fu.fused_attention_bwd_dkv.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2)
     assert sorted(set(fwd_symbols)) == (
-        ["atpu_flash_bwd_dkv", "atpu_flash_bwd_dq", "atpu_flash_fwd"]
+        ["atpu_flash_bwd_dkv_f32_sm90", "atpu_flash_bwd_dq_f32_sm90", "atpu_flash_fwd"]
         if dtype == torch.float32 else
         ["atpu_flash_bwd_dkv_sm90_d256", "atpu_flash_bwd_dq_sm90", "atpu_flash_fwd_sm90"])
     fwd, bwd = fu.fused_attention_fwd, fu.fused_attention_bwd
@@ -734,12 +815,12 @@ def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_sym
 @pytest.mark.parametrize("s", [200, 1024])
 def test_flash_wide_heads_ragged_and_long(cuda, fwd_symbols, s, dtype, d):
     """Head dims 96 and 256, S off the 64-row tiles and long, with a
-    left-padded and an all-invalid batch: fp32 runs the body of
-    ``flash_attention.cu``; bf16 the sm90 forward, dQ and dK/dV (its d-256
-    kernel at 256)."""
+    left-padded and an all-invalid batch: fp32 runs the forward of
+    ``flash_attention.cu`` and the 3xTF32 dQ and dK/dV; bf16 the sm90
+    forward, dQ and dK/dV (its d-256 kernel at 256)."""
     _flash_check(131, 2, s, 8, 2, d, dtype, True, True)
     if dtype == torch.float32:
-        want = {"atpu_flash_fwd", "atpu_flash_bwd_dq", "atpu_flash_bwd_dkv"}
+        want = {"atpu_flash_fwd", "atpu_flash_bwd_dq_f32_sm90", "atpu_flash_bwd_dkv_f32_sm90"}
     elif d == 256:
         want = {"atpu_flash_fwd_sm90", "atpu_flash_bwd_dq_sm90", "atpu_flash_bwd_dkv_sm90_d256"}
     else:
@@ -748,16 +829,16 @@ def test_flash_wide_heads_ragged_and_long(cuda, fwd_symbols, s, dtype, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32], ids=["fp32"])
-def test_flash_d256_fp32_and_dq_stay_on_the_cuda_core_body(cuda, fwd_symbols, dtype):
-    """At head dim 256 fp32 runs all three kernels on ``flash_attention.cu``
-    (bf16/fp16 dQ moved to the sm90 kernel, which the dQ tests above hold),
-    against the plain backward."""
+def test_flash_d256_fp32_routes_the_backward_to_the_3xtf32_kernels(cuda, fwd_symbols, dtype):
+    """At head dim 256 fp32 runs the forward on ``flash_attention.cu`` and dQ
+    and dK/dV on ``flash_bwd_f32_sm90.cu``, against the plain backward."""
     q, k, v, do, out, lse, delta = _dkv_inputs(149, 2, 300, 4, 256, dtype, True)
     dq = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
     fu.fused_attention_fwd(q, k, v, causal=True, block_size=300)
     fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
     torch.cuda.synchronize()
-    assert fwd_symbols == ["atpu_flash_bwd_dq", "atpu_flash_fwd", "atpu_flash_bwd_dkv"]
+    assert fwd_symbols == ["atpu_flash_bwd_dq_f32_sm90", "atpu_flash_fwd",
+                           "atpu_flash_bwd_dkv_f32_sm90"]
     want_dq = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
                                            block_size=300)[0]
     tol = TOL[dtype]

@@ -205,7 +205,7 @@ def test_every_launcher_is_defined_in_a_built_source(symbol):
 
 
 @pytest.mark.parametrize("source", ["flash_attention", "flash_fwd_sm90", "flash_bwd_dq_sm90",
-                                    "flash_bwd_dkv_sm90"])
+                                    "flash_bwd_dkv_sm90", "flash_bwd_f32_sm90"])
 def test_every_flash_launcher_is_declared(source):
     """The converse: each C launcher a flash source defines has its argument
     types in ``_ARGTYPES`` and is looked up in that source, so no launcher
@@ -351,8 +351,7 @@ def test_plain_versions_match_pallas_at_wide_heads(d, masked, h, kv_heads):
 
 
 # The launcher each wrapper calls for bf16/fp16 at a head dim: the sm90
-# bodies at every head dim (dK/dV's d-256 kernel at 256); fp32 everywhere on
-# flash_attention.cu's body.
+# bodies at every head dim (dK/dV's d-256 kernel at 256).
 _ROUTES = {
     "atpu_flash_fwd": {64: "atpu_flash_fwd_sm90", 96: "atpu_flash_fwd_sm90",
                        128: "atpu_flash_fwd_sm90", 256: "atpu_flash_fwd_sm90"},
@@ -361,6 +360,11 @@ _ROUTES = {
     "atpu_flash_bwd_dkv": {64: "atpu_flash_bwd_dkv_sm90", 96: "atpu_flash_bwd_dkv_sm90",
                            128: "atpu_flash_bwd_dkv_sm90", 256: "atpu_flash_bwd_dkv_sm90_d256"},
 }
+# fp32 at every head dim: the forward of flash_attention.cu, the 3xTF32
+# backward of flash_bwd_f32_sm90.cu.
+_F32_ROUTES = {"atpu_flash_fwd": "atpu_flash_fwd",
+               "atpu_flash_bwd_dq": "atpu_flash_bwd_dq_f32_sm90",
+               "atpu_flash_bwd_dkv": "atpu_flash_bwd_dkv_f32_sm90"}
 
 
 @pytest.mark.parametrize("d", [64, 96, 128, 256])
@@ -371,12 +375,13 @@ def test_wrappers_take_the_kernels_head_dims_only(kernel, dtype, d):
     """The head dims the kernels take are 64, 96, 128 and 256: the wrapper's
     check passes them (on a CPU tensor it needs no card) and raises for
     another.  Routing is per kernel: bf16/fp16 at every head dim go to the
-    sm90 bodies (dK/dV at 256 to its d-256 kernel); fp32 to the body of
-    ``flash_attention.cu``."""
+    sm90 bodies (dK/dV at 256 to its d-256 kernel); fp32 forward to the body
+    of ``flash_attention.cu``, fp32 dQ and dK/dV to the 3xTF32 kernels of
+    ``flash_bwd_f32_sm90.cu``."""
     assert tfu._HEAD_DIMS == (64, 96, 128, 256)
     x = torch.zeros(1, 64, 2, d, dtype=dtype)
     tfu._check(x, x, x, None)
-    want = kernel if dtype == torch.float32 else _ROUTES[kernel][d]
+    want = _F32_ROUTES[kernel] if dtype == torch.float32 else _ROUTES[kernel][d]
     assert tfu._symbol(kernel, x) == want
     assert want in tfu._ARGTYPES
     x = torch.zeros(1, 64, 2, 80, dtype=dtype)
