@@ -26,11 +26,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES: Dict[str, Path] = {
     "paged_attention": _CSRC / "paged_attention.cu",  # the first paged body, a timing yardstick
     "paged_attention_sm90": _CSRC / "paged_attention_sm90.cu",
-    "flash_attention": _CSRC / "flash_attention.cu",
+    "flash_attention": _CSRC / "flash_attention.cu",  # the first fp32 flash bodies, timed only
     "flash_fwd_sm90": _CSRC / "flash_fwd_sm90.cu",
     "flash_bwd_dq_sm90": _CSRC / "flash_bwd_dq_sm90.cu",
     "flash_bwd_dkv_sm90": _CSRC / "flash_bwd_dkv_sm90.cu",
-    "flash_bwd_f32_sm90": _CSRC / "flash_bwd_f32_sm90.cu",
+    "flash_f32_sm90": _CSRC / "flash_f32_sm90.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -33,8 +33,8 @@
 // error at 495 / 3 TFLOP/s in 3xTF32, the bound chip_smoke.py states; the
 // backward's least work is 5 such products.
 //
-// Only the forward is on the training path: the fp32 backward runs
-// flash_bwd_f32_sm90.cu (tensor cores, 3xTF32), and this file's dQ and dK/dV
+// No kernel of this file is on a path: fp32 runs the forward, dQ and dK/dV
+// of flash_f32_sm90.cu (tensor cores, 3xTF32), and this file's three bodies
 // remain as the yardstick chip_smoke.py times those kernels against
 // (previous_ms).  bf16 and fp16 run the sm90 kernels of flash_fwd_sm90.cu,
 // flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu.

@@ -1,19 +1,22 @@
-// Flash-attention backward in fp32 for Hopper (sm_90a): dQ, and dK/dV, on
-// the tensor cores in 3xTF32.
+// Flash attention in fp32 for Hopper (sm_90a): the training forward, dQ,
+// and dK/dV, on the tensor cores in 3xTF32.
 //
 // Replaces (accelerate_tpu/ops/pallas_attention.py), for float32 inputs:
+//   atpu_flash_fwd_f32_sm90     -> _fwd_kernel (:96), launched by _flash_fwd (:174)
 //   atpu_flash_bwd_dq_f32_sm90  -> _bwd_dq_kernel (:206), launched by _flash_bwd (:338)
 //   atpu_flash_bwd_dkv_f32_sm90 -> _bwd_dkv_kernel (:258), launched by _flash_bwd (:361),
 //                                  with the GQA group sum of :388 folded in
 //
-// Layouts and semantics are those of flash_attention.cu (whose fp32 dQ and
-// dK/dV bodies these replace): q, do, dq [B, S, H, d]; k, v, dk, dv
-// [B, S, KH, d]; lse, delta [B, H, S]; valid [B, S] int8 or null.  With
-// scale = 1 / sqrt(d):
+// Layouts and semantics are those of flash_attention.cu (whose fp32 bodies
+// these replace): q, out, do, dq [B, S, H, d]; k, v, dk, dv [B, S, KH, d];
+// lse, delta [B, H, S]; valid [B, S] int8 or null.  With scale = 1 / sqrt(d):
 //   s = (q . k) * scale, or -1e30 where the pair is masked (key past S,
 //       causal key > query, valid[key] == 0);
-//   p = exp(s - lse), gated on the masked score (s > -0.5e30), so a row with
-//       no admitted key gets zero gradients;
+//   forward: online softmax over key tiles, a probability gated on the
+//       masked score (s > -0.5e30), never on the running max; out = acc /
+//       max(l, 1e-30), lse = m + log(max(l, 1e-30)), so a row with no
+//       admitted key outputs 0 with lse ~ -1e30;
+//   p = exp(s - lse), gated the same way, so such a row gets zero gradients;
 //   dP = dO . V^T, dS = p * (dP - delta) * scale;
 //   dQ = sum_j dS . K;  dV = sum_i p^T . dO (p kept fp32, the reference's
 //   fp32 product);  dK = sum_i dS^T . Q;  dK and dV summed over the G query
@@ -26,9 +29,9 @@
 // 3xTF32 split keeps fp32-level error: x ~ big + small with big = tf32(x)
 // and small = x - big, read as TF32; a.b ~ a_small.b_big + a_big.b_small +
 // a_big.b_big, each product exact in the fp32 accumulator.  So the least
-// time is 3 x the products' flops / 495 TFLOP/s (dQ: 3 products of 2 d
-// flops per admitted pair, dK/dV: 4).  PyTorch's own fp32 attention
-// backward computes the same way (OpMultiplyAddFastF32, GemmShape<16, 8, 8>).
+// time is 3 x the products' flops / 495 TFLOP/s (forward: 2 products of 2 d
+// flops per admitted pair, dQ: 3, dK/dV: 4).  PyTorch's own fp32 attention
+// computes the same way (OpMultiplyAddFastF32, GemmShape<16, 8, 8>).
 //
 // Design:
 //   - Products are mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, three
@@ -62,9 +65,34 @@
 //     16-byte chunks (as free of conflicts, its offsets computed per load)
 //     was 1.05-1.28x slower, and an unpadded, unswizzled one 1.66-2.45x (8
 //     lanes to a bank).
-//   - 8 warps (256 threads) a CTA, 1 CTA an SM (154-218 KB of shared
+//   - 8 warps (256 threads) a CTA, 1 CTA an SM (139-218 KB of shared
 //     memory), a cp.async ring of the streamed tiles.  The tile sizes and
 //     stages below won the timed variants of flash_f32_variants.py.
+//   - Forward: a CTA owns 128 query rows of one (batch, q head), 16 a warp,
+//     over K/V tiles of 64 keys in a 3-stage ring (d 64, 96) or 2 (d 128);
+//     Q stays in shared memory.  S = Q.K^T goes through warp_nt, the online
+//     softmax runs on its accumulators (row max and sum over the 4 lanes of
+//     a quad by shuffles), and P enters warp_pv from the registers, so it
+//     never touches shared memory; O is rescaled by alpha in fp32 before
+//     warp_pv adds the tile's P.V, summed in zeroed accumulators.  At d 256
+//     O is 128 registers a thread and Q of 128 rows 133 KB, so the CTA owns
+//     64 rows and each row group's two warps take 16 keys each of a 32-key
+//     tile in a 2-stage ring, each with its own m, l and O; at the end the
+//     second hands its m, l and O to the first through the ring, which
+//     merges them in a fixed order: out = (O1 a1 + O2 a2) / (l1 a1 + l2 a2),
+//     a = exp(m - max(m1, m2)).  Heaviest causal CTAs first; a warp whose
+//     rows all lie before a tile's first key skips the tile.  Timed in turns
+//     (flash_f32_variants.py), the forward splits each operand with kTrunc
+//     (big = the fp32 word, which the tensor core reads truncated: one
+//     operation fewer than rounding it, and P needs no register beside
+//     itself), 1.05-1.13x faster than the rounded split, and takes exp(x)
+//     as exp2f(x log2 e), 1.05-1.12x faster than expf.  The losers: 32-key
+//     tiles at d 128 (1.08x slower) and d 96 (1.07x; a 2-stage ring ties);
+//     at d 256 one warp a row group over 16-key tiles in 128-row CTAs
+//     (1.09-1.22x) or in 64-row CTAs of 4 warps (1.33x), or 2 chains of the
+//     score product (1.04x); splitting each landed K/V tile once into TF32
+//     planes that all warps read (1.16-1.34x: twice the tile memory, and a
+//     barrier more a tile).
 //   - dQ: a CTA owns 128 query rows of one (batch, q head), 16 a warp, over
 //     K/V tiles of 64 (d 64, 96) or 32 (d 128) keys in a 2-3 stage ring; Q
 //     and dO stay in shared memory.  At d 256 the dQ accumulator is 128
@@ -97,6 +125,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr float kMasked = -1e30f;  // finite: no inf - inf in the exp bookkeeping
 constexpr float kLive = -0.5e30f;  // scores above this are admitted
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr size_t kSmemMax = 227 * 1024;
 
 // Floats a tile row takes: d and a 16-byte pad (see the note).
@@ -124,14 +153,14 @@ __device__ __forceinline__ void pair_sync(int pair) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
 }
 
-// All threads of the CTA: rows row0 .. row0 + rows - 1 of a [S, *] matrix
-// whose rows are `stride` floats apart (d contiguous) into a tile; rows at or
-// past S are zero-filled.
-template <int D>
+// All NT threads of the CTA: rows row0 .. row0 + rows - 1 of a [S, *]
+// matrix whose rows are `stride` floats apart (d contiguous) into a tile;
+// rows at or past S are zero-filled.
+template <int D, int NT = kThreads>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, long long stride,
                                           int row0, int rows, int S) {
   constexpr int CPR = D / 4;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < rows * CPR; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * CPR; i += NT) {
     const int r = i / CPR, c = i % CPR, row = row0 + r;
     const bool in = row < S;
     cp_async16(dst + r * LD<D> + 4 * c,
@@ -152,10 +181,18 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
 // operations: half of the 13 dropped bits' range added to the magnitude, those
 // bits cleared); small = x - big, exact in fp32, of which the tensor core
 // reads the top 19 bits (TF32) and drops the rest, so the pair holds x to
-// ~2^-21 of it.
+// ~2^-21 of it.  With kTrunc, big is the fp32 word itself, which the tensor
+// core reads truncated to TF32, and small = x - trunc(x): one operation
+// fewer, and no register beside x, for a pair that holds x to ~2^-20.
+template <bool kTrunc = false>
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
+  if constexpr (kTrunc) {
+    big = __float_as_uint(x);
+    small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+  } else {
+    big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    small = __float_as_uint(x - __uint_as_float(big));
+  }
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -180,8 +217,9 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
 // layout:
 // lane (g, t) holds c[j][0..1] = C[g][8j + 2t + {0, 1}], c[j][2..3] =
 // C[g + 8][same].  The k-steps go round KC sets of accumulators, so at least
-// 4 chains of dependent mma run side by side when NT is small.
-template <int NT, int D>
+// 4 chains of dependent mma run side by side when NT is small.  kTrunc
+// selects the split.
+template <int NT, int D, bool kTrunc = false>
 __device__ __forceinline__ void warp_nt(float (&c)[NT][4], const float* A, int a_row0,
                                         const float* B, int b_row0) {
   constexpr int KC = NT >= 4 ? 1 : 4 / NT;
@@ -196,15 +234,15 @@ __device__ __forceinline__ void warp_nt(float (&c)[NT][4], const float* A, int a
 #pragma unroll
   for (int kk = 0; kk < D; kk += 8) {
     uint32_t ab[4], as[4];
-    split(a0[kk], ab[0], as[0]);  // columns kk + t
-    split(a1[kk], ab[1], as[1]);
-    split(a0[kk + 4], ab[2], as[2]);  // columns kk + 4 + t
-    split(a1[kk + 4], ab[3], as[3]);
+    split<kTrunc>(a0[kk], ab[0], as[0]);  // columns kk + t
+    split<kTrunc>(a1[kk], ab[1], as[1]);
+    split<kTrunc>(a0[kk + 4], ab[2], as[2]);  // columns kk + 4 + t
+    split<kTrunc>(a1[kk + 4], ab[3], as[3]);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       uint32_t bb[2], bs[2];
-      split(b[8 * j * LD<D> + kk], bb[0], bs[0]);
-      split(b[8 * j * LD<D> + kk + 4], bb[1], bs[1]);
+      split<kTrunc>(b[8 * j * LD<D> + kk], bb[0], bs[0]);
+      split<kTrunc>(b[8 * j * LD<D> + kk + 4], bb[1], bs[1]);
       mma3(part[(kk / 8) % KC][j], ab, as, bb, bs);
     }
   }
@@ -224,18 +262,19 @@ __device__ __forceinline__ void warp_nt(float (&c)[NT][4], const float* A, int a
 // Each 16 x 8 block of C sums the tile's 3 NK products in a zeroed
 // accumulator, then adds it to C in fp32: the tensor cores round every
 // product-sum toward zero, so one chain through all of a kv head's query
-// tiles drifts past the fp32 tolerance (see the note).
-template <int NK, int D>
+// tiles drifts past the fp32 tolerance (see the note).  kTrunc selects the
+// split.
+template <int NK, int D, bool kTrunc = false>
 __device__ __forceinline__ void warp_pv(float (&c)[D / 8][4], const float (&p)[NK][4],
                                         const float* B, int b_row0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   uint32_t ab[NK][4], as[NK][4];
 #pragma unroll
   for (int j = 0; j < NK; ++j) {
-    split(p[j][0], ab[j][0], as[j][0]);  // row g,     k-slot t
-    split(p[j][2], ab[j][1], as[j][1]);  // row g + 8, k-slot t
-    split(p[j][1], ab[j][2], as[j][2]);  // row g,     k-slot t + 4
-    split(p[j][3], ab[j][3], as[j][3]);  // row g + 8, k-slot t + 4
+    split<kTrunc>(p[j][0], ab[j][0], as[j][0]);  // row g,     k-slot t
+    split<kTrunc>(p[j][2], ab[j][1], as[j][1]);  // row g + 8, k-slot t
+    split<kTrunc>(p[j][1], ab[j][2], as[j][2]);  // row g,     k-slot t + 4
+    split<kTrunc>(p[j][3], ab[j][3], as[j][3]);  // row g + 8, k-slot t + 4
   }
   const float* b0 = B + (b_row0 + 2 * t) * LD<D> + g;  // rows 8j + 2t, columns 8n + g
   const float* b1 = b0 + LD<D>;                         // rows 8j + 2t + 1
@@ -245,8 +284,8 @@ __device__ __forceinline__ void warp_pv(float (&c)[D / 8][4], const float (&p)[N
 #pragma unroll
     for (int j = 0; j < NK; ++j) {
       uint32_t bb[2], bs[2];
-      split(b0[8 * j * LD<D> + 8 * n], bb[0], bs[0]);
-      split(b1[8 * j * LD<D> + 8 * n], bb[1], bs[1]);
+      split<kTrunc>(b0[8 * j * LD<D> + 8 * n], bb[0], bs[0]);
+      split<kTrunc>(b1[8 * j * LD<D> + 8 * n], bb[1], bs[1]);
       mma3(part, ab[j], as[j], bb, bs);
     }
 #pragma unroll
@@ -254,10 +293,204 @@ __device__ __forceinline__ void warp_pv(float (&c)[D / 8][4], const float (&p)[N
   }
 }
 
+// blockIdx.y, read anew (volatile, so not merged with the kernel's first
+// read): the forward's epilogue computes its offsets from it, so no value
+// kept from the kernel's start lives across the main loop (at d 256 the
+// loop leaves no register for one).
+__device__ __forceinline__ int cta_y() {
+  int y;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(y));
+  return y;
+}
+
 // Whether key `col` is admitted by query `row`.
 __device__ __forceinline__ bool admitted(int row, int col, int S, int causal,
                                          const int8_t* valid) {
   return row < S && col < S && (!causal || row >= col) && (valid == nullptr || valid[col] != 0);
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// Over the 4 lanes of a quad (one accumulator row's columns).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int D>
+struct FwdPlan {
+  static constexpr int WARPS = kWarps;
+  static constexpr int ROWS = D <= 128 ? 128 : 64;  // query rows of a CTA
+  static constexpr int GROUPS = ROWS / 16;          // 16-row warp groups
+  static constexpr int KS = WARPS / GROUPS;         // warps of a group, each on TK / KS keys
+  static constexpr int TK = D <= 128 ? 64 : 32;     // keys a K/V tile
+  static constexpr int TKW = TK / KS;               // keys of a warp in a tile
+  static constexpr int STAGES = D <= 96 ? 3 : 2;
+  static constexpr int NS = TKW / 8, NO = D / 8;
+  static constexpr bool TRUNC = true;  // big = the fp32 word, read truncated (split)
+  static constexpr size_t q_floats = (size_t)ROWS * LD<D>;
+  static constexpr size_t stage_floats = (size_t)2 * TK * LD<D>;  // K and V
+  static constexpr size_t smem = (q_floats + STAGES * stage_floats) * sizeof(float);
+  // A group's second warp hands O (lane-major), m and l to the first.
+  static constexpr size_t merge_floats = (size_t)16 * D + 4 * 32;
+  static_assert(smem <= kSmemMax, "forward tiles exceed shared memory");
+  static_assert(KS * GROUPS == WARPS && TKW % 8 == 0 && D % 32 == 0, "forward plan");
+  static_assert(KS <= 2 && (KS == 1 || GROUPS * merge_floats <= STAGES * stage_floats),
+                "forward merge");
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdPlan<D>::WARPS * 32, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int8_t* __restrict__ valid,
+                     float* __restrict__ out, float* __restrict__ lse, int S, int H, int KH,
+                     int causal, float scale) {
+  using P = FwdPlan<D>;
+  constexpr int NT = P::WARPS * 32;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;
+  float* kv_s = smem + P::q_floats;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rg = warp % P::GROUPS, ks = warp / P::GROUPS;
+  const int n_qt = (S + P::ROWS - 1) / P::ROWS;
+  const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.x) : static_cast<int>(blockIdx.x);
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KH);
+  const int q0 = qt * P::ROWS;
+  const long long qstride = (long long)H * D, kstride = (long long)KH * D;
+  const long long qoff = (long long)b * S * qstride + (long long)h * D;
+  const float* kb = k + (long long)b * S * kstride + (long long)kvh * D;
+  const float* vb = v + (long long)b * S * kstride + (long long)kvh * D;
+  const int8_t* vld = valid ? valid + (long long)b * S : nullptr;
+  // Keys past the CTA's last row are all causally masked.
+  const int kend = causal ? min(S, q0 + P::ROWS) : S;
+  const int n_tiles = (kend + P::TK - 1) / P::TK;
+
+  load_rows<D, NT>(q_s, q + qoff, qstride, q0, P::ROWS, S);
+  auto prefetch = [&](int tile) {
+    float* kt = kv_s + (tile % P::STAGES) * P::stage_floats;
+    load_rows<D, NT>(kt, kb, kstride, tile * P::TK, P::TK, S);
+    load_rows<D, NT>(kt + P::TK * LD<D>, vb, kstride, tile * P::TK, P::TK, S);
+  };
+#pragma unroll
+  for (int s = 0; s < P::STAGES - 1; ++s) {
+    if (s < n_tiles) prefetch(s);
+    cp_async_commit();
+  }
+
+  const int row0 = q0 + 16 * rg;
+  const int rowg = row0 + g;  // rows rowg and rowg + 8
+  float o[P::NO][4];
+  zero(o);
+  float m_run[2] = {kMasked, kMasked}, l_run[2] = {0.f, 0.f};
+  const int kr0 = ks * P::TKW;  // the warp's first row of each K/V tile
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + P::STAGES - 1 < n_tiles) prefetch(i + P::STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<P::STAGES - 1>();
+    __syncthreads();
+    const float* kt = kv_s + (i % P::STAGES) * P::stage_floats;
+    const float* vt = kt + P::TK * LD<D>;
+    const int key0 = i * P::TK + kr0;
+    // A warp whose keys all lie past S, or causally past its last row, adds
+    // nothing: every score would be masked, alpha 1 and p 0.
+    if (key0 < S && !(causal && key0 > row0 + 15)) {
+      float s[P::NS][4];
+      zero(s);
+      warp_nt<P::NS, D, P::TRUNC>(s, q_s, 16 * rg, kt, kr0);  // S = Q.K^T
+      float mx[2] = {kMasked, kMasked};
+#pragma unroll
+      for (int j = 0; j < P::NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, col = key0 + 8 * j + 2 * t + (e & 1);
+          s[j][e] = admitted(rowg + 8 * r, col, S, causal, vld) ? s[j][e] * scale : kMasked;
+          mx[r] = fmaxf(mx[r], s[j][e]);
+        }
+      // exp(x) as exp2f(x log2(e)), with -m log2(e) kept per row.
+      float alpha[2], sum[2] = {0.f, 0.f}, mneg[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+        alpha[r] = exp2f((m_run[r] - m_new) * kLog2e);
+        mneg[r] = -m_new * kLog2e;
+        m_run[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < P::NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = s[j][e] > kLive ? exp2f(fmaf(s[j][e], kLog2e, mneg[r])) : 0.f;
+          sum[r] += p;
+          s[j][e] = p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+      for (int n = 0; n < P::NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+      warp_pv<P::NS, D, P::TRUNC>(o, s, vt, kr0);  // O += P.V
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  if constexpr (P::KS > 1) {
+    // The second warp of each row group hands m, l and O to the first
+    // through the ring (free after the loop's last barrier), lane-major, so
+    // the stores and loads hit distinct banks; merged in a fixed order.
+    float* red = kv_s + (size_t)rg * P::merge_floats;
+    float* stat = red + 16 * D;  // m of rows g, g + 8, then l
+    if (ks == 1) {
+#pragma unroll
+      for (int n = 0; n < P::NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[(n * 4 + e) * 32 + lane] = o[n][e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        stat[r * 32 + lane] = m_run[r];
+        stat[(2 + r) * 32 + lane] = l_run[r];
+      }
+    }
+    __syncthreads();
+    if (ks != 0) return;
+    float a0[2], a1[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = stat[r * 32 + lane], m = fmaxf(m_run[r], m1);
+      a0[r] = exp2f((m_run[r] - m) * kLog2e);
+      a1[r] = exp2f((m1 - m) * kLog2e);
+      l_run[r] = l_run[r] * a0[r] + stat[(2 + r) * 32 + lane] * a1[r];
+      m_run[r] = m;
+    }
+#pragma unroll
+    for (int n = 0; n < P::NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[n][e] = o[n][e] * a0[e >> 1] + red[(n * 4 + e) * 32 + lane] * a1[e >> 1];
+  }
+
+  const int bh = cta_y();  // b * H + h
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rowg + 8 * r;
+    if (row >= S) continue;
+    const float l = fmaxf(l_run[r], 1e-30f);
+    float* orow = out + ((long long)(bh / H) * S + row) * H * D + (long long)(bh % H) * D;
+#pragma unroll
+    for (int n = 0; n < P::NO; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
+          make_float2(o[n][2 * r] / l, o[n][2 * r + 1] / l);
+    if (t == 0) lse[(long long)bh * S + row] = m_run[r] + logf(l);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -568,6 +801,19 @@ struct Args {
 };
 
 template <int D>
+int run_fwd(const Args& a, float* lse) {
+  using P = FwdPlan<D>;
+  auto kernel = flash_fwd_f32_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.S + P::ROWS - 1) / P::ROWS, a.B * a.H);
+  kernel<<<grid, P::WARPS * 32, P::smem, a.stream>>>(a.q, a.k, a.v, a.valid, a.o0, lse, a.S,
+                                                     a.H, a.KH, a.causal, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int run_dq(const Args& a) {
   using P = DqPlan<D>;
   auto kernel = flash_bwd_dq_f32_kernel<D>;
@@ -609,6 +855,32 @@ bool bad_args(int dtype, const Args& a) {
 }
 
 }  // namespace
+
+// dtype 0 (float32) only; hd 64, 96, 128 or 256.  q [B, S, H, hd], k/v
+// [B, S, KH, hd], valid [B, S] int8 or null; q, k, v, out 16-byte aligned.
+// Writes out [B, S, H, hd] and lse [B, H, S] fp32.  Returns 0 or a
+// cudaError_t.
+extern "C" int atpu_flash_fwd_f32_sm90(int dtype, const void* q, const void* k, const void* v,
+                                       const void* valid, void* out, void* lse, int B, int S,
+                                       int H, int KH, int hd, int causal, float scale,
+                                       void* stream) {
+  const Args a{static_cast<const float*>(q),     static_cast<const float*>(k),
+               static_cast<const float*>(v),     nullptr,
+               nullptr,                          nullptr,
+               static_cast<const int8_t*>(valid), static_cast<float*>(out),
+               nullptr,                          nullptr,
+               B, S, H, KH, causal, 1, scale, static_cast<cudaStream_t>(stream)};
+  if (bad_args(dtype, a) || lse == nullptr || static_cast<long long>(B) * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  float* l = static_cast<float*>(lse);
+  switch (hd) {
+    case 64: return run_fwd<64>(a, l);
+    case 96: return run_fwd<96>(a, l);
+    case 128: return run_fwd<128>(a, l);
+    case 256: return run_fwd<256>(a, l);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // dtype 0 (float32) only; hd 64, 96, 128 or 256.  q, do [B, S, H, hd], k/v
 // [B, S, KH, hd], lse/delta [B, H, S] fp32, valid [B, S] int8 or null; q, k,

@@ -28,9 +28,8 @@ raises):
   split order).
 
 At head dim 96 each Hopper kernel stores a tile as a 64-column block beside
-a 32-column one.  fp32 runs the forward of ``csrc/flash_attention.cu`` (fp32
-FMAs on the CUDA cores) and, at every head dim, the backward of
-``csrc/flash_bwd_f32_sm90.cu``: dQ and dK/dV on the tensor cores in 3xTF32
+a 32-column one.  fp32 runs all three kernels of ``csrc/flash_f32_sm90.cu``
+at every head dim: the forward, dQ and dK/dV on the tensor cores in 3xTF32
 (``mma.sync`` m16n8k8, each operand split into two TF32 parts, which keeps
 fp32-level error), dK/dV split over :func:`pick_dkv_split` CTAs as above.
 
@@ -291,6 +290,7 @@ _ARGTYPES = {
     # the same kernel without the lo half of P in dV: on no path, timed only
     "atpu_flash_bwd_dkv_sm90_nolo": _DKV_ARGTYPES,
     "atpu_flash_bwd_dkv_sm90_d256": _DKV_SPLIT_ARGTYPES,
+    "atpu_flash_fwd_f32_sm90": _FWD_ARGTYPES,
     "atpu_flash_bwd_dq_f32_sm90": _DQ_ARGTYPES,
     "atpu_flash_bwd_dkv_f32_sm90": _DKV_SPLIT_ARGTYPES,
 }
@@ -302,8 +302,9 @@ _SOURCES = {
     "atpu_flash_bwd_dkv_sm90": "flash_bwd_dkv_sm90",
     "atpu_flash_bwd_dkv_sm90_nolo": "flash_bwd_dkv_sm90",
     "atpu_flash_bwd_dkv_sm90_d256": "flash_bwd_dkv_sm90",
-    "atpu_flash_bwd_dq_f32_sm90": "flash_bwd_f32_sm90",
-    "atpu_flash_bwd_dkv_f32_sm90": "flash_bwd_f32_sm90",
+    "atpu_flash_fwd_f32_sm90": "flash_f32_sm90",
+    "atpu_flash_bwd_dq_f32_sm90": "flash_f32_sm90",
+    "atpu_flash_bwd_dkv_f32_sm90": "flash_f32_sm90",
 }
 # The dK/dV launchers that split a kv head's query heads over CTAs.
 _SPLIT_DKV = ("atpu_flash_bwd_dkv_sm90_d256", "atpu_flash_bwd_dkv_f32_sm90")
@@ -337,11 +338,10 @@ def _launch(symbol: str, q, k, v, kv_valid, *ptrs, causal: bool, n_split=None):
 
 def _symbol(base: str, q) -> str:
     """The launcher of ``base`` for q's dtype and head dim: for fp32 the
-    forward of ``flash_attention.cu`` and the backward of
-    ``flash_bwd_f32_sm90.cu``, else the sm90 kernel (dK/dV's d-256 kernel at
-    256)."""
+    3xTF32 kernel of ``flash_f32_sm90.cu``, else the sm90 kernel (dK/dV's
+    d-256 kernel at 256)."""
     if q.dtype == torch.float32:
-        return base if base == "atpu_flash_fwd" else f"{base}_f32_sm90"
+        return f"{base}_f32_sm90"
     d256 = base == "atpu_flash_bwd_dkv" and q.shape[-1] == 256
     return f"{base}_sm90_d256" if d256 else f"{base}_sm90"
 
@@ -363,7 +363,8 @@ def fused_attention_fwd(q, k, v, kv_valid=None, *, causal: bool = True, block_si
     """Flash-attention forward: ``(out [B, S, H, d]`` in q's dtype, ``lse
     [B, H, S]`` fp32).  ``kv_valid`` is int8 ``[B, S]`` (nonzero: the key
     takes part) or None.  On CUDA, bf16 and fp16 launch the Hopper kernel
-    (``atpu_flash_fwd_sm90``), fp32 the CUDA-core body (``atpu_flash_fwd``)."""
+    (``atpu_flash_fwd_sm90``), fp32 the 3xTF32 kernel
+    (``atpu_flash_fwd_f32_sm90``)."""
     if not _on_cuda("fused_attention_fwd", q):
         return fused_attention_fwd_plain(q, k, v, kv_valid, causal=causal, block_size=block_size)
     _check(q, k, v, kv_valid)

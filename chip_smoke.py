@@ -43,19 +43,19 @@ Phases (each fails the run on any mismatch; nothing is caught):
    and S 2048 causal with a left-padded row (``kv_valid``, its first rows
    admit no key).  bf16 and fp16 run the Hopper forward
    (``flash_fwd_sm90.cu``), dQ (``flash_bwd_dq_sm90.cu``) and dK/dV
-   (``flash_bwd_dkv_sm90.cu``); fp32 the CUDA-core forward
-   (``flash_attention.cu``) and the 3xTF32 tensor-core dQ and dK/dV
-   (``flash_bwd_f32_sm90.cu``).  Prints max errors and, at B 2 x S 2048
-   causal in fp32 and bf16, the kernel, plain, bound and library
+   (``flash_bwd_dkv_sm90.cu``); fp32 the 3xTF32 tensor-core forward, dQ
+   and dK/dV (``flash_f32_sm90.cu``).  Prints max errors and, at B 2 x S
+   2048 causal in fp32 and bf16, the kernel, plain, bound and library
    (``scaled_dot_product_attention``, forward and forward+backward, a
-   yardstick only) times and δ's time; in fp32 the dQ and dK/dV bodies of
-   ``flash_attention.cu`` the 3xTF32 kernels replace
-   (``atpu_flash_bwd_dq``, ``atpu_flash_bwd_dkv``, called directly, not
-   counted, held to the tolerance) as ``previous_ms`` in turns with the
-   kernels (kernel, previous, previous, kernel); in bf16 the dQ kernel with
-   a 2-stage K/V ring (``atpu_flash_bwd_dq_sm90_ring2``) as ``ring2_ms`` and
-   the dK/dV kernel without the lo half of P in its dV product
-   (``atpu_flash_bwd_dkv_sm90_nolo``) as ``nolo_ms``, in the same turns.
+   yardstick only) times and δ's time; in fp32 the forward, dQ and dK/dV
+   bodies of ``flash_attention.cu`` the 3xTF32 kernels replace
+   (``atpu_flash_fwd``, ``atpu_flash_bwd_dq``, ``atpu_flash_bwd_dkv``,
+   called directly, not counted, held to the tolerance) as ``previous_ms``
+   in turns with the kernels (kernel, previous, previous, kernel); in bf16
+   the dQ kernel with a 2-stage K/V ring (``atpu_flash_bwd_dq_sm90_ring2``)
+   as ``ring2_ms`` and the dK/dV kernel without the lo half of P in its dV
+   product (``atpu_flash_bwd_dkv_sm90_nolo``) as ``nolo_ms``, in the same
+   turns.
 5. Training at full width: Llama-3-8B widths cut to 4 layers (fp32 params,
    AdamW state and gradients of all 32 would need ~128 GB), bf16 compute,
    ``remat=True``, random weights from seed 0, through
@@ -171,10 +171,11 @@ Phases (each fails the run on any mismatch; nothing is caught):
    plain versions (the forward's out and lse, dQ, dK and dV), with kernel
    (L2-cold copies), plain, bound and ``scaled_dot_product_attention``
    forward and backward times (an error recorded where sdpa refuses the
-   shape) and the launcher each wrapper called; in fp32 the 3xTF32 dQ and
-   dK/dV beside the ``flash_attention.cu`` bodies they replace
-   (``atpu_flash_bwd_dq``, ``atpu_flash_bwd_dkv``; called directly, not
-   counted) as ``previous_ms`` in turns, each held to the tolerance; δ's
+   shape) and the launcher each wrapper called; in fp32 the 3xTF32
+   forward, dQ and dK/dV beside the ``flash_attention.cu`` bodies they
+   replace (``atpu_flash_fwd``, ``atpu_flash_bwd_dq``,
+   ``atpu_flash_bwd_dkv``; called directly, not counted) as
+   ``previous_ms`` in turns, each held to the tolerance; δ's
    time beside the backward kernels'; and where a kv head has several
    query heads (Gemma-2B), dK/dV at every split of the group in each dtype
    whose launcher splits it (``split_ms``, each held to the tolerance); the
@@ -214,9 +215,9 @@ Phases (each fails the run on any mismatch; nothing is caught):
    the bf16 peak and idle share.  10e: 10d's README loop in fp32
    (``LlamaConfig(dtype=torch.float32)`` under ``mixed_precision="no"``, a
    fresh model from seed 0, the same batches): 5 steps, the flash kernels
-   launched 16 / 8 / 8 a step, the profiled step naming the 3xTF32 dQ and
-   dK/dV and no backward kernel of ``flash_attention.cu``, step time and the
-   flash group's device ms.
+   launched 16 / 8 / 8 a step, the profiled step naming the 3xTF32
+   forward, dQ and dK/dV and no kernel of ``flash_attention.cu``, step time
+   and the flash group's device ms.
 
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
@@ -274,8 +275,8 @@ FWD_DESIGN = ("bf16/fp16: wgmma m64n128k16 Q.K^T (smem descriptors) and P.V (P i
               "d 256: 64-key tiles, m64n64k16 Q.K^T and two m64n128k16 P.V halves (192 KB); "
               "d 96: a 64-column 128B-swizzled block beside a 32-column 64B-swizzled one, "
               "P.V as m64n64k16 + m64n32k16 (120 KB); "
-              "fp32: the CUDA-core body of flash_attention.cu")
-F32_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_f32_sm90.cu"  # fp32 dQ and dK/dV
+              "fp32: flash_f32_sm90.cu (3xTF32, F32_DESIGN)")
+F32_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_f32_sm90.cu"  # fp32 forward, dQ and dK/dV
 F32_DESIGN = ("fp32: mma.sync m16n8k8 tf32 in 3xTF32 (each operand split in registers into "
               "big = tf32 round-to-nearest and small = the residual; a_small.b_big + "
               "a_big.b_small + a_big.b_big), fragments by 32-bit lane loads at immediate "
@@ -283,7 +284,12 @@ F32_DESIGN = ("fp32: mma.sync m16n8k8 tf32 in 3xTF32 (each operand split in regi
               "and dS reused from the "
               "accumulators as A operands; 8 warps, 1 CTA an SM, cp.async rings; each tile's "
               "products summed in a zeroed accumulator then added in fp32 (the tensor cores "
-              "round toward zero); dQ: 128-row CTAs (64 at d 256, two warps a row group "
+              "round toward zero); forward: 128-row CTAs over 64-key K/V tiles in 3/3/2 "
+              "stages at d 64/96/128, S and the online softmax in registers, P into P.V from "
+              "the accumulators, O rescaled in fp32 before each tile's P.V is added; d 256: "
+              "64-row CTAs, two warps a row group each on 16 keys of a 32-key tile in 2 "
+              "stages, merging m, l and O in a fixed order; "
+              "dQ: 128-row CTAs (64 at d 256, two warps a row group "
               "splitting each 32-key tile) over 64/64/32/32-key K/V tiles at d 64/96/128/256; "
               "dK/dV: 64-key CTAs of 4 warp pairs, one warp S^T, P^T, dV, the other dP^T, "
               "dS^T, dK with P^T handed over in shared memory, Q/dO tiles of 64/64/32/16 rows, "
@@ -299,7 +305,7 @@ DQ_DESIGN = ("bf16/fp16: 128-row CTA of one (batch, q head), 2 consumer warpgrou
              "32-key tiles in a 2-stage ring (192 KB), wgmma m64n32k16 S and dP, two "
              "m64n128k16 dQ halves; d 96: a 64-column 128B-swizzled block beside a 32-column "
              "64B-swizzled one, dQ as m64n64k16 + m64n32k16 (120 KB); fp32: "
-             "flash_bwd_f32_sm90.cu (3xTF32, F32_DESIGN)")
+             "flash_f32_sm90.cu (3xTF32, F32_DESIGN)")
 DKV_SOURCE = "accelerate_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu"  # bf16 and fp16 dK/dV
 DKV_DESIGN = ("bf16/fp16: 128-key CTA of one (batch, kv head), 2 consumer warpgroups of 64 keys "
               "+ a producer warp, setmaxnreg 240/24; K/V by TMA once, 64-row Q/dO tiles of the "
@@ -311,7 +317,7 @@ DKV_DESIGN = ("bf16/fp16: 128-key CTA of one (batch, kv head), 2 consumer warpgr
               "2-stage ring (193 KB), the group's query heads split over n_split CTAs "
               "(pick_dkv_split) writing fp32 partials that a second kernel sums in split "
               "order; d 96: a 64-column 128B-swizzled block beside a 32-column 64B-swizzled "
-              "one, dV and dK as m64n64k16 + m64n32k16 (121.5 KB); fp32: flash_bwd_f32_sm90.cu "
+              "one, dV and dK as m64n64k16 + m64n32k16 (121.5 KB); fp32: flash_f32_sm90.cu "
               "(3xTF32, F32_DESIGN)")
 REPLACES = {
     "paged_attention": "accelerate_tpu/ops/pallas_attention.py:564",
@@ -964,12 +970,17 @@ def phase4():
     return results
 
 
-def direct_bwd(fu, symbol, q, k, v, do, lse, delta):
-    """A backward launcher (``symbol``, dQ's or dK/dV's) called directly, so
-    it is not counted as a launch of the wrapper.  Returns ``(dq,)`` or
-    ``(dk, dv)``."""
+def direct_launch(fu, symbol, q, k, v, do, lse, delta):
+    """A flash launcher (``symbol``: a forward's, dQ's or dK/dV's) called
+    directly, causal, so it is not counted as a launch of the wrapper.
+    Returns ``(out, lse)``, ``(dq,)`` or ``(dk, dv)``."""
     import torch
 
+    if symbol.startswith("atpu_flash_fwd"):
+        b, s, h, _ = q.shape
+        outs = (torch.empty_like(q), torch.empty(b, h, s, dtype=torch.float32, device=q.device))
+        fu._launch(symbol, q, k, v, None, None, *(o.data_ptr() for o in outs), causal=True)
+        return outs
     outs = ((torch.empty_like(q),) if "_dq" in symbol
             else (torch.empty_like(k), torch.empty_like(v)))
     fu._launch(symbol, q, k, v, None, do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None,
@@ -977,8 +988,16 @@ def direct_bwd(fu, symbol, q, k, v, do, lse, delta):
     return outs
 
 
-def bwd_variants(fu, copies, wrapper, symbols, want, kernel_ms, tag="phase4"):
-    """Other launchers of a backward kernel's function (``symbols``, name ->
+def wrapper_call(fu, wrapper):
+    """The flash wrapper ``wrapper`` as a function of an input set ``(q, k,
+    v, do, lse, delta)``, causal."""
+    if wrapper == "fused_attention_fwd":
+        return lambda q, k, v, *_: fu.fused_attention_fwd(q, k, v, causal=True)
+    return lambda *a: getattr(fu, wrapper)(*a, causal=True)
+
+
+def kernel_variants(fu, copies, wrapper, symbols, want, kernel_ms, tag="phase4"):
+    """Other launchers of a flash kernel's function (``symbols``, name ->
     launcher: ``"previous"``, the body the kernel replaced, is held to the
     plain version's tolerance; a variant's error is reported) on the first
     input set: errors against ``want``, and times in turns with the kernel
@@ -991,7 +1010,7 @@ def bwd_variants(fu, copies, wrapper, symbols, want, kernel_ms, tag="phase4"):
     tol = TOL[str(q.dtype)]
     errs = {}
     for name, symbol in symbols.items():
-        got = direct_bwd(fu, symbol, q, k, v, do, lse, delta)
+        got = direct_launch(fu, symbol, q, k, v, do, lse, delta)
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(g).all()) for g in got), f"{symbol}: non-finite output")
         errs[name] = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
@@ -1004,10 +1023,10 @@ def bwd_variants(fu, copies, wrapper, symbols, want, kernel_ms, tag="phase4"):
     times = {name: [] for name in symbols}
     turns = [f"kernel {kernel_ms:.4f}"]
     for name in list(symbols) + list(reversed(symbols)):
-        ms = cuda_ms(lambda *a, sym=symbols[name]: direct_bwd(fu, sym, *a), copies, iters=10)
+        ms = cuda_ms(lambda *a, sym=symbols[name]: direct_launch(fu, sym, *a), copies, iters=10)
         times[name].append(ms)
         turns.append(f"{name} {ms:.4f}")
-    second = cuda_ms(getattr(fu, wrapper), copies, iters=10)
+    second = cuda_ms(wrapper_call(fu, wrapper), copies, iters=10)
     log(f"{tag} {wrapper} {q.dtype} d={q.shape[-1]} in turns: {' '.join(turns)} kernel "
         f"{second:.4f} ms; max abs err " + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
     extra = {}
@@ -1017,11 +1036,12 @@ def bwd_variants(fu, copies, wrapper, symbols, want, kernel_ms, tag="phase4"):
     return extra, second
 
 
-# The launchers each backward kernel is timed against in Phase 4: in fp32
-# the flash_attention.cu bodies the 3xTF32 kernels replace, in bf16 the
-# sm90 kernels' timing variants.
-BWD_VARIANTS = {
-    "torch.float32": {"fused_attention_bwd_dq": {"previous": "atpu_flash_bwd_dq"},
+# The launchers each flash kernel is timed against in Phases 4 and 10a: in
+# fp32 the flash_attention.cu bodies the 3xTF32 kernels replace, in bf16 the
+# sm90 backward kernels' timing variants.
+KERNEL_VARIANTS = {
+    "torch.float32": {"fused_attention_fwd": {"previous": "atpu_flash_fwd"},
+                      "fused_attention_bwd_dq": {"previous": "atpu_flash_bwd_dq"},
                       "fused_attention_bwd_dkv": {"previous": "atpu_flash_bwd_dkv"}},
     "torch.bfloat16": {"fused_attention_bwd_dq": {"ring2": "atpu_flash_bwd_dq_sm90_ring2"},
                        "fused_attention_bwd_dkv": {"nolo": "atpu_flash_bwd_dkv_sm90_nolo"}},
@@ -1030,9 +1050,9 @@ BWD_VARIANTS = {
 
 def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
     """Kernel, plain, bound and library times at the main shape, and the
-    backward kernels beside ``BWD_VARIANTS`` in turns: in fp32 the previous
-    dQ and dK/dV bodies, in bf16 the dQ kernel's 2-stage ring and the dK/dV
-    kernel without the lo half of P."""
+    kernels beside ``KERNEL_VARIANTS`` in turns: in fp32 the previous
+    forward, dQ and dK/dV bodies, in bf16 the dQ kernel's 2-stage ring and
+    the dK/dV kernel without the lo half of P."""
     import torch
 
     delta = attention_delta(out, do)
@@ -1056,15 +1076,17 @@ def flash_times(fu, F, q, k, v, do, out, lse, blk, errs):
     plain_fwd = cuda_ms(
         lambda q, k, v: fu.fused_attention_fwd_plain(q, k, v, causal=True, block_size=blk),
         fwd_sets[:1], iters=3)
+    want_fwd = fu.fused_attention_fwd_plain(q, k, v, causal=True, block_size=blk)
     want_dq, want_dk, want_dv = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
                                                              block_size=blk)
     variants = {}
-    for name, want in (("fused_attention_bwd_dq", (want_dq,)),
+    for name, want in (("fused_attention_fwd", want_fwd), ("fused_attention_bwd_dq", (want_dq,)),
                        ("fused_attention_bwd_dkv", (want_dk, want_dv))):
-        variants[name], second = bwd_variants(fu, copies, name, BWD_VARIANTS[str(q.dtype)][name],
-                                              want, times[name])
-        times[name] = 0.5 * (times[name] + second)
-    del want_dq, want_dk, want_dv, copies, fwd_sets
+        symbols = KERNEL_VARIANTS[str(q.dtype)].get(name)
+        if symbols:
+            variants[name], second = kernel_variants(fu, copies, name, symbols, want, times[name])
+            times[name] = 0.5 * (times[name] + second)
+    del want_fwd, want_dq, want_dk, want_dv, copies, fwd_sets
     # One plain backward computes dQ, dK and dV together: its time stands
     # beside both backward kernels.
     plain_bwd = cuda_ms(
@@ -2630,10 +2652,10 @@ PHASE10D_LAYERS = 8
 PHI3_FLASH = ("flash_fwd_sm90_kernel<__nv_bfloat16, 96>",
               "flash_bwd_dq_sm90_kernel<__nv_bfloat16, 96, 3>",
               "flash_bwd_dkv_sm90_kernel<__nv_bfloat16, 96, true>")
-# The fp32 kernels the same step runs in fp32 (Phase 10e): the CUDA-core
-# forward and the 3xTF32 dQ and dK/dV (32 query heads over 32 kv heads: no
-# split of the group).
-PHI3_F32_FLASH = ("flash_fwd_kernel<float, 96>", "flash_bwd_dq_f32_kernel<96>",
+# The fp32 kernels the same step runs in fp32 (Phase 10e): the 3xTF32
+# forward, dQ and dK/dV (32 query heads over 32 kv heads: no split of the
+# group).
+PHI3_F32_FLASH = ("flash_fwd_f32_kernel<96>", "flash_bwd_dq_f32_kernel<96>",
                   "flash_bwd_dkv_f32_kernel<96, false>")
 # The launcher each flash wrapper calls, by its base name.
 FLASH_BASES = {"fused_attention_fwd": "atpu_flash_fwd",
@@ -2692,8 +2714,8 @@ def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs, want):
     """Kernel (L2-cold copies, as Phase 4), plain, bound and ``sdpa`` times
     of the three flash kernels at one shape, with the launcher each wrapper
     called (``body``) and δ's time; in fp32 also the replaced
-    ``flash_attention.cu`` dQ and dK/dV bodies' times in turns
-    (:func:`bwd_variants`); dK/dV at every split (:func:`dkv_splits`).
+    ``flash_attention.cu`` forward, dQ and dK/dV bodies' times in turns
+    (:func:`kernel_variants`); dK/dV at every split (:func:`dkv_splits`).
     ``sdpa``'s failure is recorded as its error."""
     delta = attention_delta(out, do)
     set_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, do))
@@ -2709,14 +2731,15 @@ def wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs, want):
         "fused_attention_bwd_dkv": cuda_ms(
             lambda *a: fu.fused_attention_bwd_dkv(*a, causal=True), copies, iters=10),
     }
-    _, want_dq, want_dk, want_dv = want
+    want_out, want_lse, want_dq, want_dk, want_dv = want
     prev = {}
     if q.dtype == torch.float32:
-        for name, ref in (("fused_attention_bwd_dq", (want_dq,)),
+        for name, ref in (("fused_attention_fwd", (want_out, want_lse)),
+                          ("fused_attention_bwd_dq", (want_dq,)),
                           ("fused_attention_bwd_dkv", (want_dk, want_dv))):
-            symbol = BWD_VARIANTS["torch.float32"][name]["previous"]
-            prev[name], second = bwd_variants(fu, copies, name, {"previous": symbol}, ref,
-                                              times[name], tag="phase10a")
+            symbol = KERNEL_VARIANTS["torch.float32"][name]["previous"]
+            prev[name], second = kernel_variants(fu, copies, name, {"previous": symbol}, ref,
+                                                 times[name], tag="phase10a")
             prev[name]["previous_body"] = symbol
             times[name] = 0.5 * (times[name] + second)
     split = dkv_splits(fu, copies, want_dk, want_dv)
@@ -2815,7 +2838,7 @@ def phase10a(smi):
                     + " ".join(f"{n}={e:.3e}" for n, e in errs.items()) + f" (atol=rtol={tol})")
                 if not pad:
                     rec = wide_flash_times(fu, F, q, k, v, do, out, lse, blk, errs,
-                                           (want_out, *want))
+                                           (want_out, want_lse, *want))
                     flash[(geom, str(dtype))] = rec
                     for name, r in rec.items():
                         log(f"phase10a {name} {geom} d={d} {dtype}: body {r['body']} "
@@ -3152,9 +3175,9 @@ def phase10e(smi):
     ``PHASE10D_LAYERS`` layers with ``LlamaConfig(dtype=torch.float32)``
     under ``mixed_precision="no"`` (a fresh model from seed 0, the batches
     of seed 12), 5 steps: the flash kernels launched 2L / L / L a step, the
-    profiled step naming the CUDA-core forward and the 3xTF32 dQ and dK/dV
-    and no backward kernel of ``flash_attention.cu``; logs the step time
-    and the flash group's device ms."""
+    profiled step naming the 3xTF32 forward, dQ and dK/dV and no kernel of
+    ``flash_attention.cu``; logs the step time and the flash group's device
+    ms."""
     t0 = time.perf_counter()
     cfg, model = phi3_mini_model(torch.float32)
     torch.cuda.synchronize()
@@ -3166,14 +3189,14 @@ def phase10e(smi):
                         mixed_precision="no")
     losses, per_step = out["losses"], out["per_step"]
     legacy = sorted({key[:60] for _, _, key in out["by_kernel"]
-                     if re.search(r"flash_bwd_(dq|dkv)_kernel", key)})
+                     if re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_kernel", key)})
     log(f"phase10e fp32 step_ms={out['ms']:.2f} flash_group_ms={out['groups']['flash kernels']:.2f} "
         f"(the profiled step) kernels in the trace {out['traced']}; {smi}")
     check(all(math.isfinite(x) for x in losses), f"phase10e non-finite loss {losses}")
     check(per_step == [(2 * L, L, L)] * PHASE10_STEPS,
           f"phase10e flash launches per step {per_step}, want (2L, L, L) = {(2 * L, L, L)}")
     check(all(out["traced"].values()), f"the trace lacks an fp32 flash kernel: {out['traced']}")
-    check(not legacy, f"the trace names flash_attention.cu backward kernels: {legacy}")
+    check(not legacy, f"the trace names flash_attention.cu kernels: {legacy}")
     del model
     gc_collect()
     return out
@@ -3325,9 +3348,9 @@ def main() -> int:
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
     log("kernels: paged_attention, paged_window_attention, " + ", ".join(FLASH_KERNELS)
-        + f"; head dims: paged {pa_dims}, flash {fu_dims} (fp32 at every head dim: the "
-        f"forward on {FLASH_SOURCE}, dQ and dK/dV on {F32_SOURCE}; bf16/fp16 at every head "
-        f"dim on {FWD_SOURCE}, {DQ_SOURCE} and {DKV_SOURCE})")
+        + f"; head dims: paged {pa_dims}, flash {fu_dims} (fp32 at every head dim on "
+        f"{F32_SOURCE}, the bodies it replaced in {FLASH_SOURCE} timed only; bf16/fp16 at "
+        f"every head dim on {FWD_SOURCE}, {DQ_SOURCE} and {DKV_SOURCE})")
     launches = {"paged_attention": p2[0]["dec"], "paged_window_attention": p2[3]["win"], **p5}
     check(win3 > 0, "window kernel not launched in phase 3")
     record = []
@@ -3354,14 +3377,13 @@ def main() -> int:
                 f"library_ms={r['library_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}")
     for name in FLASH_KERNELS:
         # The body each dtype runs: bf16/fp16 the sm90 file at every head
-        # dim; fp32 the forward of flash_attention.cu, the backward 3xTF32.
+        # dim; fp32 the 3xTF32 file.
         src16, design = {"fused_attention_fwd": (FWD_SOURCE, FWD_DESIGN),
                          "fused_attention_bwd_dq": (DQ_SOURCE, DQ_DESIGN),
                          "fused_attention_bwd_dkv": (DKV_SOURCE, DKV_DESIGN)}[name]
-        src32 = FLASH_SOURCE if name == "fused_attention_fwd" else F32_SOURCE
-        fp32 = dict(p4["torch.float32"][name], source=src32)
-        if src32 == F32_SOURCE:
-            fp32.update(design=F32_DESIGN, previous_source=FLASH_SOURCE)
+        src32 = F32_SOURCE
+        fp32 = dict(p4["torch.float32"][name], source=src32, design=F32_DESIGN,
+                    previous_source=FLASH_SOURCE)
         record.append(dict(name=name, route="cuda", source=src16, replaces=REPLACES[name],
                            launches=launches[name], launches_phase6=p6[name],
                            launches_phase8=p8[name], launches_phase9=p9[name],

@@ -405,15 +405,92 @@ def test_flash_fwd_bf16_counts_one_launch_and_raises_on_misaligned_view(cuda, fw
     assert fwd_symbols == ["atpu_flash_fwd_sm90"]
 
 
-def test_flash_fwd_fp32_stays_on_the_cuda_core_body(cuda, fwd_symbols):
+def test_flash_fwd_fp32_runs_the_3xtf32_kernel(cuda, fwd_symbols):
     q, k, v, _, valid = _flash_inputs(79, 2, 200, 8, 2, 128, torch.float32, True)
+    before = fu.fused_attention_fwd.launches
     out, lse = fu.fused_attention_fwd(q, k, v, valid, causal=True, block_size=200)
     torch.cuda.synchronize()
-    assert fwd_symbols == ["atpu_flash_fwd"]
+    assert fwd_symbols == ["atpu_flash_fwd_f32_sm90"]
+    assert fu.fused_attention_fwd.launches == before + 1
     want_out, want_lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=True,
                                                       block_size=200)
     torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("groups", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("s", [64, 100, 129, 200, 1024])
+def test_flash_fwd_f32_sm90_edges(cuda, fwd_symbols, s, d, groups, causal):
+    """The 3xTF32 forward (128-row CTAs over 64-key tiles; at d 256 64-row
+    CTAs whose row groups' two warps split each 32-key tile and merge their
+    m, l and O) at S below one tile, across a ragged edge and long, against
+    the plain forward at fp32's 1e-4."""
+    q, k, v, _, _ = _flash_inputs(167, 2, s, 2 * groups, 2, d, torch.float32, False)
+    out, lse = fu.fused_attention_fwd(q, k, v, causal=causal, block_size=s)
+    torch.cuda.synchronize()
+    assert fwd_symbols == ["atpu_flash_fwd_f32_sm90"]
+    want_out, want_lse = fu.fused_attention_fwd_plain(q, k, v, causal=causal, block_size=s)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+def test_flash_fwd_f32_sm90_left_pad_past_a_tile(cuda, fwd_symbols, d, causal):
+    """Batch 0 left-padded by 300 keys (its first four 64-key tiles, nine
+    32-key tiles at d 256, hold no valid key; under the causal mask its
+    first 300 rows admit none), batch 1 all invalid: empty rows output 0
+    with lse ~ -1e30, as the plain forward."""
+    s, pad = 400, 300
+    q, k, v, _, _ = _flash_inputs(173, 2, s, 8, 2, d, torch.float32, False)
+    valid = torch.ones(2, s, dtype=torch.int8, device="cuda")
+    valid[0, :pad] = 0
+    valid[1] = 0
+    out, lse = fu.fused_attention_fwd(q, k, v, valid, causal=causal, block_size=s)
+    torch.cuda.synchronize()
+    assert fwd_symbols == ["atpu_flash_fwd_f32_sm90"]
+    want_out, want_lse = fu.fused_attention_fwd_plain(q, k, v, valid, causal=causal,
+                                                      block_size=s)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    assert (out[1] == 0).all() and (lse[1] < -1e29).all()
+    if causal:
+        assert (out[0, :pad] == 0).all() and (lse[0, :, :pad] < -1e29).all()
+
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_flash_fwd_f32_sm90_long_chain(cuda, fwd_symbols, d):
+    """S 4096 at 32 q / 32 kv heads, causal and full: O sums 64 (d 256: 128)
+    K/V tiles' P.V, each in zeroed accumulators added in fp32, so the
+    tensor cores' rounding toward zero does not drift past fp32's 1e-4."""
+    q, k, v, _, _ = _flash_inputs(179, 1, 4096, 32, 32, d, torch.float32, False)
+    for causal in (True, False):
+        out, lse = fu.fused_attention_fwd(q, k, v, causal=causal, block_size=512)
+        torch.cuda.synchronize()
+        want_out, want_lse = fu.fused_attention_fwd_plain(q, k, v, causal=causal,
+                                                          block_size=512)
+        torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+        del out, lse, want_out, want_lse
+    assert fwd_symbols == ["atpu_flash_fwd_f32_sm90"] * 2
+
+
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+def test_flash_fwd_f32_sm90_is_deterministic(cuda, fwd_symbols, d):
+    """Two launches on the same inputs (8 q over 2 kv heads, S 1000 causal,
+    batch 0's first 150 keys invalid) give bit-identical out and lse: no
+    atomics, and the d-256 warps merge in a fixed order."""
+    q, k, v, _, _ = _flash_inputs(181, 2, 1000, 8, 2, d, torch.float32, False)
+    valid = torch.ones(2, 1000, dtype=torch.int8, device="cuda")
+    valid[0, :150] = 0
+    first = fu.fused_attention_fwd(q, k, v, valid, causal=True, block_size=1000)
+    second = fu.fused_attention_fwd(q, k, v, valid, causal=True, block_size=1000)
+    torch.cuda.synchronize()
+    assert fwd_symbols == ["atpu_flash_fwd_f32_sm90"] * 2
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 def _dkv_inputs(seed, b, s, groups, d, dtype, causal, valid=None):
@@ -776,8 +853,8 @@ def test_auto_attention_with_unsupported_head_dim_raises(cuda):
 def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_symbols, dtype):
     """Gemma's head dim on the card: ``attention_impl="auto"`` at S 1024
     runs the forward, dQ and dK/dV kernels once per layer each (fp32 the
-    forward of ``flash_attention.cu`` and the 3xTF32 dQ and dK/dV; bf16 the
-    sm90 forward, dQ and d-256 dK/dV), and
+    3xTF32 forward, dQ and dK/dV; bf16 the sm90 forward, dQ and d-256
+    dK/dV), and
     the loss and gradients match the same step on their plain versions."""
     cfg = llama.LlamaConfig.tiny(head_dim=256, num_layers=2, max_seq_len=1024, dtype=dtype,
                                  num_heads=4, num_kv_heads=1, attention_impl="auto")
@@ -793,7 +870,7 @@ def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_sym
              fu.fused_attention_bwd_dkv.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2)
     assert sorted(set(fwd_symbols)) == (
-        ["atpu_flash_bwd_dkv_f32_sm90", "atpu_flash_bwd_dq_f32_sm90", "atpu_flash_fwd"]
+        ["atpu_flash_bwd_dkv_f32_sm90", "atpu_flash_bwd_dq_f32_sm90", "atpu_flash_fwd_f32_sm90"]
         if dtype == torch.float32 else
         ["atpu_flash_bwd_dkv_sm90_d256", "atpu_flash_bwd_dq_sm90", "atpu_flash_fwd_sm90"])
     fwd, bwd = fu.fused_attention_fwd, fu.fused_attention_bwd
@@ -815,12 +892,13 @@ def test_auto_attention_at_head_dim_256_launches_the_three_kernels(cuda, fwd_sym
 @pytest.mark.parametrize("s", [200, 1024])
 def test_flash_wide_heads_ragged_and_long(cuda, fwd_symbols, s, dtype, d):
     """Head dims 96 and 256, S off the 64-row tiles and long, with a
-    left-padded and an all-invalid batch: fp32 runs the forward of
-    ``flash_attention.cu`` and the 3xTF32 dQ and dK/dV; bf16 the sm90
-    forward, dQ and dK/dV (its d-256 kernel at 256)."""
+    left-padded and an all-invalid batch: fp32 runs the 3xTF32 forward, dQ
+    and dK/dV; bf16 the sm90 forward, dQ and dK/dV (its d-256 kernel at
+    256)."""
     _flash_check(131, 2, s, 8, 2, d, dtype, True, True)
     if dtype == torch.float32:
-        want = {"atpu_flash_fwd", "atpu_flash_bwd_dq_f32_sm90", "atpu_flash_bwd_dkv_f32_sm90"}
+        want = {"atpu_flash_fwd_f32_sm90", "atpu_flash_bwd_dq_f32_sm90",
+                "atpu_flash_bwd_dkv_f32_sm90"}
     elif d == 256:
         want = {"atpu_flash_fwd_sm90", "atpu_flash_bwd_dq_sm90", "atpu_flash_bwd_dkv_sm90_d256"}
     else:
@@ -830,19 +908,21 @@ def test_flash_wide_heads_ragged_and_long(cuda, fwd_symbols, s, dtype, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32], ids=["fp32"])
 def test_flash_d256_fp32_routes_the_backward_to_the_3xtf32_kernels(cuda, fwd_symbols, dtype):
-    """At head dim 256 fp32 runs the forward on ``flash_attention.cu`` and dQ
-    and dK/dV on ``flash_bwd_f32_sm90.cu``, against the plain backward."""
+    """At head dim 256 fp32 runs the forward, dQ and dK/dV on
+    ``flash_f32_sm90.cu``, against the plain versions."""
     q, k, v, do, out, lse, delta = _dkv_inputs(149, 2, 300, 4, 256, dtype, True)
     dq = fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
-    fu.fused_attention_fwd(q, k, v, causal=True, block_size=300)
+    got_out, got_lse = fu.fused_attention_fwd(q, k, v, causal=True, block_size=300)
     fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
     torch.cuda.synchronize()
-    assert fwd_symbols == ["atpu_flash_bwd_dq_f32_sm90", "atpu_flash_fwd",
+    assert fwd_symbols == ["atpu_flash_bwd_dq_f32_sm90", "atpu_flash_fwd_f32_sm90",
                            "atpu_flash_bwd_dkv_f32_sm90"]
     want_dq = fu.fused_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
                                            block_size=300)[0]
     tol = TOL[dtype]
     torch.testing.assert_close(dq.float(), want_dq.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got_out, out, rtol=tol, atol=tol)
+    torch.testing.assert_close(got_lse, lse, rtol=tol, atol=tol)
 
 
 

@@ -205,7 +205,7 @@ def test_every_launcher_is_defined_in_a_built_source(symbol):
 
 
 @pytest.mark.parametrize("source", ["flash_attention", "flash_fwd_sm90", "flash_bwd_dq_sm90",
-                                    "flash_bwd_dkv_sm90", "flash_bwd_f32_sm90"])
+                                    "flash_bwd_dkv_sm90", "flash_f32_sm90"])
 def test_every_flash_launcher_is_declared(source):
     """The converse: each C launcher a flash source defines has its argument
     types in ``_ARGTYPES`` and is looked up in that source, so no launcher
@@ -307,8 +307,8 @@ def test_block_override_env(monkeypatch):
 @pytest.mark.parametrize("masked", [False, True], ids=["dense", "padded"])
 @pytest.mark.parametrize("d", [96, 256])
 def test_plain_versions_match_pallas_at_wide_heads(d, masked, h, kv_heads):
-    """Head dims 96 (Phi-3-mini) and 256 (Gemma), which the CUDA body of
-    ``flash_attention.cu`` takes since the port widened it: the plain
+    """Head dims 96 (Phi-3-mini) and 256 (Gemma), which every flash kernel
+    takes since the port widened them: the plain
     forward (``out``, ``lse``) against ``_flash_fwd`` and the plain backward
     against the gradients of ``pallas_attention``, both in interpret mode,
     causal at S 128 with batch 0 left-padded by 40 keys when ``masked``;
@@ -360,9 +360,9 @@ _ROUTES = {
     "atpu_flash_bwd_dkv": {64: "atpu_flash_bwd_dkv_sm90", 96: "atpu_flash_bwd_dkv_sm90",
                            128: "atpu_flash_bwd_dkv_sm90", 256: "atpu_flash_bwd_dkv_sm90_d256"},
 }
-# fp32 at every head dim: the forward of flash_attention.cu, the 3xTF32
-# backward of flash_bwd_f32_sm90.cu.
-_F32_ROUTES = {"atpu_flash_fwd": "atpu_flash_fwd",
+# fp32 at every head dim: the 3xTF32 forward and backward of
+# flash_f32_sm90.cu.
+_F32_ROUTES = {"atpu_flash_fwd": "atpu_flash_fwd_f32_sm90",
                "atpu_flash_bwd_dq": "atpu_flash_bwd_dq_f32_sm90",
                "atpu_flash_bwd_dkv": "atpu_flash_bwd_dkv_f32_sm90"}
 
@@ -375,9 +375,8 @@ def test_wrappers_take_the_kernels_head_dims_only(kernel, dtype, d):
     """The head dims the kernels take are 64, 96, 128 and 256: the wrapper's
     check passes them (on a CPU tensor it needs no card) and raises for
     another.  Routing is per kernel: bf16/fp16 at every head dim go to the
-    sm90 bodies (dK/dV at 256 to its d-256 kernel); fp32 forward to the body
-    of ``flash_attention.cu``, fp32 dQ and dK/dV to the 3xTF32 kernels of
-    ``flash_bwd_f32_sm90.cu``."""
+    sm90 bodies (dK/dV at 256 to its d-256 kernel); fp32 forward, dQ and
+    dK/dV to the 3xTF32 kernels of ``flash_f32_sm90.cu``."""
     assert tfu._HEAD_DIMS == (64, 96, 128, 256)
     x = torch.zeros(1, 64, 2, d, dtype=dtype)
     tfu._check(x, x, x, None)
