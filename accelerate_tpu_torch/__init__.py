@@ -29,7 +29,13 @@ Ported so far:
   ``mixed_precision`` (:class:`PreparedModel`), :class:`PartialState` /
   :class:`AcceleratorState`, the process properties and decorators, and
   the operations (``gather_for_metrics``, ``reduce``, ...,
-  ``utils/operations.py``).
+  ``utils/operations.py``), experiment trackers (``tracking.py``),
+  ``logging.get_logger``, ``find_executable_batch_size`` and
+  ``release_memory`` (``utils/memory.py``), ``LocalSGD`` (a no-op at one
+  process) and the environment, import and version helpers of ``utils``;
+- GPT-2 (``models/gpt2.py``): training forward and loss, the cached and
+  paged forwards (paged serving through the same kernels), generation, and
+  its HF import and export.
 
 The JAX package's top-level names import from here under the same names;
 the data loader, pipeline, resilience and serving ones load on first use.
@@ -65,6 +71,10 @@ _LAZY = {
     "resilience": ("PreemptionGuard", "verify_checkpoint", "find_latest_complete",
                    "CheckpointVerificationError"),
     "serving": ("ServingEngine", "ServingConfig", "AdmissionRejected", "ServingJournal"),
+    "utils.memory": ("find_executable_batch_size",),
+    "local_sgd": ("LocalSGD",),
+    "logging": ("get_logger",),
+    "utils.imports": ("is_rich_available",),
 }
 
 __all__ = [

@@ -25,7 +25,9 @@ checkpoint all of it (:mod:`.checkpointing`).  Serving:
 forward with bf16 copies of its fp32 parameters (:class:`PreparedModel`);
 the process surface (``print``, ``is_main_process``, ``gather_for_metrics``,
 ...) is the JAX ``Accelerator``'s at one process (:mod:`.state`,
-:mod:`.utils.operations`).
+:mod:`.utils.operations`).  Experiment trackers: ``log_with`` with
+:meth:`~Accelerator.init_trackers`, :meth:`~Accelerator.log` and
+:meth:`~Accelerator.end_training` (:mod:`.tracking`).
 
 ``prepare`` takes an ``nn.Module`` directly, so the JAX package's
 ``utils/torch_bridge.py`` (FX graph -> JAX lowering of torch modules) has no
@@ -35,7 +37,6 @@ counterpart here; functional models come as :class:`FunctionalModel`.
 from __future__ import annotations
 
 import contextlib
-import gc
 import itertools
 import os
 import warnings
@@ -175,8 +176,11 @@ class Accelerator:
       is held only);
     - ``rng_types``: kept for the JAX surface (one process has no generator
       to synchronise);
-    - ``log_with``: trackers are not ported yet (ROADMAP A1(b)), so any
-      tracker raises.
+    - ``log_with``: a tracker name (``"generic"``, the JSONL tracker;
+      ``"tensorboard"``, ``"wandb"``, ...; ``"all"``), a
+      :class:`~accelerate_tpu_torch.tracking.GeneralTracker`, or a list of
+      them; :meth:`init_trackers` builds them under ``logging_dir``,
+      :meth:`log` writes to each, :meth:`end_training` closes them.
     """
 
     def __init__(self, device_placement: bool = True, split_batches: bool = False,
@@ -192,10 +196,6 @@ class Accelerator:
                  device=None):
         if cpu and device is not None and str(device) != "cpu":
             raise ValueError(f"cpu=True contradicts device={device!r}")
-        if log_with:
-            raise NotImplementedError(
-                f"log_with={log_with!r}: experiment trackers are not ported to "
-                "accelerate_tpu_torch yet (ROADMAP.md A1(b))")
         # The device named in full, so a live state on another one raises.
         self.state = AcceleratorState(mixed_precision=mixed_precision,
                                       device=resolve_device("cpu" if cpu else device))
@@ -212,7 +212,8 @@ class Accelerator:
         self.device_placement = device_placement
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self.rng_types = rng_types or ["generator"]
-        self.log_with: list = []
+        self.log_with: list = (log_with if isinstance(log_with, (list, tuple))
+                               else ([log_with] if log_with else []))
         self.trackers: list = []
         self.flag_tensor = None
         self._models: List[nn.Module] = []
@@ -624,16 +625,14 @@ class Accelerator:
         """Forget every prepared model, optimizer, scheduler and dataloader,
         restart the accumulation count, collect garbage and empty the CUDA
         cache; returns one None per argument, for the caller to rebind."""
+        from .utils.memory import release_memory
+
         self._models.clear()
         self._optimizers.clear()
         self._schedulers.clear()
         self._dataloaders.clear()
         self.gradient_state.step = 0
-        objects = [None] * len(objects)
-        gc.collect()
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
-        return objects
+        return release_memory(*objects)
 
     def clear(self, *objects):
         return self.free_memory(*objects)
@@ -645,6 +644,41 @@ class Accelerator:
 
         save(obj, f, save_on_each_node=self.project_configuration.save_on_each_node,
              safe_serialization=safe_serialization)
+
+    # -- trackers ---------------------------------------------------------------
+
+    def init_trackers(self, project_name: str, config=None, init_kwargs=None):
+        """Build the trackers ``log_with`` names (unknown names raise
+        ``ValueError``, uninstalled backends are skipped with a warning) for
+        ``project_name``, those that keep files under ``logging_dir``, and
+        store ``config`` in each; ``init_kwargs`` maps a tracker name to its
+        constructor's keywords."""
+        from .tracking import init_trackers
+
+        self.trackers = init_trackers(self.log_with, project_name, config, init_kwargs, self)
+
+    def log(self, values: dict, step: Optional[int] = None, log_kwargs=None):
+        """``values`` to every tracker at ``step``."""
+        from .tracking import telemetry_rows
+
+        rows = telemetry_rows()
+        if rows:
+            values = {**rows, **values}
+        for tracker in self.trackers:
+            tracker.log(values, step=step)
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        """The tracker called ``name`` (its SDK object under ``unwrap``);
+        ``ValueError`` when none is."""
+        for tracker in self.trackers:
+            if getattr(tracker, "name", None) == name:
+                return tracker.tracker if unwrap else tracker
+        raise ValueError(f"Tracker {name} not found")
+
+    def end_training(self):
+        """Close every tracker."""
+        for tracker in self.trackers:
+            tracker.finish()
 
     # -- metrics and collectives (one process) ------------------------------
 
@@ -833,7 +867,11 @@ class Accelerator:
         """Build a continuous-batching :class:`~accelerate_tpu_torch.serving.ServingEngine`
         on this accelerator's device over a model family's cached-decode pair
         (paged KV cache, LIFO preemption, chunked prefill, one decode
-        forward per tick, greedy outputs token-identical to ``generate``).
+        forward per tick, greedy outputs token-identical to ``generate``):
+        ``llama.apply_cached, llama.init_cache`` or ``gpt2.apply_cached,
+        gpt2.init_cache`` (the engine picks up the family's ``apply_paged``
+        beside them; GPT-2's learned position table caps
+        ``max_blocks_per_seq * block_size`` at its ``max_seq_len``).
         Geometry comes from a :class:`~accelerate_tpu_torch.serving.ServingConfig`
         or its fields as keyword arguments::
 

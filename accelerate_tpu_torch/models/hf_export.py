@@ -1,13 +1,15 @@
-"""HF-checkpoint export for the llama family: the port's llama params ->
-a directory transformers' ``from_pretrained`` loads.
+"""HF-checkpoint export for the llama family and GPT-2: the port's params
+-> a directory transformers' ``from_pretrained`` loads.
 
 The JAX package's ``accelerate_tpu/models/hf_export.py`` for the llama
-family: :func:`export_state_dict` maps the params onto transformers'
-tensor names and layouts (fp32, ``[out, in]`` projections),
+family and GPT-2: :func:`export_state_dict` maps the params onto
+transformers' tensor names and layouts (fp32; llama's projections
+``[out, in]``, GPT-2's Conv1D ``[in, out]`` as the port keeps them),
 :func:`export_hf_checkpoint` writes ``config.json`` and
 ``model.safetensors`` with the port's own safetensors writer.  Gemma-
 convention configs (``rms_offset``) export as ``GemmaForCausalLM``, the
-rest as ``LlamaForCausalLM``.  ``import_state_dict(export_state_dict(p))``
+rest of the llama family as ``LlamaForCausalLM``, GPT-2 as
+``GPT2LMHeadModel``.  ``import_state_dict(export_state_dict(p))``
 gives ``p`` back bit for bit.  The other families of the JAX module raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -20,7 +22,7 @@ import os
 import torch
 
 from ..utils import safetensors_io
-from .hf_import import _NOT_PORTED, _not_ported
+from .hf_import import _NOT_PORTED, _PORTED, _not_ported
 
 __all__ = ["export_state_dict", "export_hf_checkpoint"]
 
@@ -66,6 +68,52 @@ def _export_llama(params: dict, cfg) -> dict:
     if "lm_head" in params:
         sd["lm_head.weight"] = _f32(params["lm_head"]).T.contiguous()
     return sd
+
+
+def _export_gpt2(params: dict, cfg) -> dict:
+    sd: dict = {
+        "transformer.wte.weight": _f32(params["wte"]).contiguous(),
+        "transformer.wpe.weight": _f32(params["wpe"]).contiguous(),
+        "transformer.ln_f.weight": _f32(params["final_ln_scale"]).contiguous(),
+        "transformer.ln_f.bias": _f32(params["final_ln_bias"]).contiguous(),
+    }
+    lay = params["layers"]
+    pre = "transformer.h.{}."
+    # Conv1D layout ([in, out]): no transpose.
+    _unstack(lay["w_qkv"], pre + "attn.c_attn.weight", sd)
+    _unstack(lay["b_qkv"], pre + "attn.c_attn.bias", sd)
+    _unstack(lay["w_proj"], pre + "attn.c_proj.weight", sd)
+    _unstack(lay["b_proj"], pre + "attn.c_proj.bias", sd)
+    _unstack(lay["w_up"], pre + "mlp.c_fc.weight", sd)
+    _unstack(lay["b_up"], pre + "mlp.c_fc.bias", sd)
+    _unstack(lay["w_down"], pre + "mlp.c_proj.weight", sd)
+    _unstack(lay["b_down"], pre + "mlp.c_proj.bias", sd)
+    _unstack(lay["ln_attn_scale"], pre + "ln_1.weight", sd)
+    _unstack(lay["ln_attn_bias"], pre + "ln_1.bias", sd)
+    _unstack(lay["ln_mlp_scale"], pre + "ln_2.weight", sd)
+    _unstack(lay["ln_mlp_bias"], pre + "ln_2.bias", sd)
+    return sd
+
+
+_EXPORTERS = {"llama": _export_llama, "gpt2": _export_gpt2}
+
+
+def _gpt2_config_dict(cfg, params: dict) -> dict:
+    """``config.json`` of GPT-2; the MLP width is read from the weights."""
+    return {
+        "model_type": "gpt2",
+        "architectures": ["GPT2LMHeadModel"],
+        "vocab_size": cfg.vocab_size,
+        "n_embd": cfg.hidden_size,
+        "n_layer": cfg.num_layers,
+        "n_head": cfg.num_heads,
+        "n_positions": cfg.max_seq_len,
+        "n_ctx": cfg.max_seq_len,
+        "n_inner": int(params["layers"]["w_up"].shape[-1]),
+        "layer_norm_epsilon": cfg.layer_norm_eps,
+        "activation_function": "gelu_new",
+        "torch_dtype": "float32",
+    }
 
 
 def _hf_config_dict(cfg) -> dict:
@@ -132,10 +180,10 @@ def export_state_dict(family: str, params: dict, config) -> dict:
     tensors (on the params' device)."""
     if family in _NOT_PORTED:
         raise _not_ported(family)
-    if family != "llama":
-        raise ValueError(f"Export supports {sorted(set(_NOT_PORTED) | {'llama'})}; "
+    if family not in _EXPORTERS:
+        raise ValueError(f"Export supports {sorted(set(_NOT_PORTED) | set(_PORTED))}; "
                          f"got {family!r}")
-    return _export_llama(params, config)
+    return _EXPORTERS[family](params, config)
 
 
 def export_hf_checkpoint(family: str, params: dict, config, path: str) -> str:
@@ -143,8 +191,10 @@ def export_hf_checkpoint(family: str, params: dict, config, path: str) -> str:
     ``from_pretrained(path)`` loads.  Returns ``path``."""
     sd = export_state_dict(family, params, config)
     os.makedirs(path, exist_ok=True)
+    hf_config = (_gpt2_config_dict(config, params) if family == "gpt2"
+                 else _hf_config_dict(config))
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(_hf_config_dict(config), f, indent=2)
+        json.dump(hf_config, f, indent=2)
     # The format key: transformers refuses safetensors files without it.
     safetensors_io.save_file(sd, os.path.join(path, "model.safetensors"),
                              metadata={"format": "pt"})

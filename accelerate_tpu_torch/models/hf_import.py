@@ -1,5 +1,5 @@
-"""HF-checkpoint import for the llama family: transformers configs and
-state dicts -> the port's ``(config, params)``.
+"""HF-checkpoint import for the llama family and GPT-2: transformers
+configs and state dicts -> the port's ``(config, params)``.
 
 The JAX package's ``accelerate_tpu/models/hf_import.py`` for the llama
 family, which covers LlamaForCausalLM and the architectures mapped onto it:
@@ -8,14 +8,16 @@ Qwen2ForCausalLM (Q/K/V biases, ``attention_bias=True``), MistralForCausalLM
 GemmaForCausalLM (GeGLU, (1 + w) RMSNorm and sqrt(d) embeddings through
 ``hidden_act`` / ``rms_offset`` / ``embed_scale``) and Phi3ForCausalLM
 (fused ``qkv_proj`` / ``gate_up_proj`` split on import), with Llama-3.1's
-``rope_scaling``.  The other families of the JAX module (gpt2, bert, t5,
-mixtral, vit, resnet) have no port of their model yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+``rope_scaling``; and GPT2LMHeadModel / GPT2Model onto ``models/gpt2.py``
+(HF's Conv1D stores ``[in, out]``, the port's layout, so nothing is
+transposed).  The other families of the JAX module (bert, t5, mixtral, vit,
+resnet) have no port of their model yet and raise ``NotImplementedError``
+naming their ROADMAP item.
 
 ``config_from_hf`` reads any object with the config's attributes, so it
 needs no ``transformers``; ``load_hf_checkpoint`` reads ``config.json`` and
 the safetensors weights with the port's own reader.  Params come back as
-the port's llama dict (stacked ``[L, ...]`` layers, projections stored for
+the family's dict (stacked ``[L, ...]`` layers, projections stored for
 ``x @ W``) of torch tensors in ``config.param_dtype``.
 """
 
@@ -35,8 +37,11 @@ __all__ = ["config_from_hf", "import_state_dict", "from_hf", "load_hf_checkpoint
 _LLAMA_TYPES = ("llama", "qwen2", "mistral", "gemma", "phi3")
 # Families the JAX module imports whose models the port has not ported yet,
 # with the ROADMAP item that brings each.
-_NOT_PORTED = {"gpt2": "A2", "bert": "A3", "t5": "A3", "mixtral": "A3", "vit": "A3",
-               "resnet": "A3"}
+_NOT_PORTED = {"bert": "A3", "t5": "A3", "mixtral": "A3", "vit": "A3", "resnet": "A3"}
+_PORTED = ("gpt2", "llama")
+# Architecture-wrapper prefixes stripped before mapping, so ForCausalLM and
+# bare-Model state dicts map alike.
+_PREFIXES = {"llama": "model.", "gpt2": "transformer."}
 
 
 def _not_ported(family: str):
@@ -51,23 +56,34 @@ def _detect_family(hf_config) -> str:
         # qwen2, mistral, gemma and phi3 are llama-architecture variants;
         # sliding-window, gemma2 and longrope configs are refused below.
         return "llama"
+    if mt == "gpt2":
+        return "gpt2"
     if mt in _NOT_PORTED:
         raise _not_ported(mt)
     raise ValueError(
         f"Unsupported HF model_type {mt!r}; supported: "
-        f"{sorted(set(_NOT_PORTED) | {'llama'})} (qwen2, mistral, gemma and phi3 map onto llama)"
+        f"{sorted(set(_NOT_PORTED) | set(_PORTED))} (qwen2, mistral, gemma and phi3 map "
+        "onto llama)"
     )
 
 
 def config_from_hf(hf_config, **overrides):
-    """The port's ``LlamaConfig`` from a transformers config (or any object
-    with its attributes), with the JAX package's refusals: sliding windows,
-    partial rotary, rope scaling other than llama3, and activations the
-    native MLP does not compute.  ``overrides`` replace fields."""
+    """The port's ``LlamaConfig`` or ``GPT2Config`` from a transformers
+    config (or any object with its attributes), with the JAX package's
+    refusals: sliding windows, partial rotary, rope scaling other than
+    llama3, and activations the native MLP does not compute.  ``overrides``
+    replace fields."""
     from .llama import LlamaConfig
 
-    _detect_family(hf_config)
     c = hf_config
+    if _detect_family(c) == "gpt2":
+        from .gpt2 import GPT2Config
+
+        kw = dict(vocab_size=c.vocab_size, hidden_size=c.n_embd, num_layers=c.n_layer,
+                  num_heads=c.n_head, max_seq_len=c.n_positions,
+                  layer_norm_eps=float(c.layer_norm_epsilon))
+        kw.update(overrides)
+        return GPT2Config(**kw)
     mt = getattr(c, "model_type", "llama")
     if mt == "qwen2" and getattr(c, "use_sliding_window", False):
         raise ValueError(
@@ -216,6 +232,36 @@ def _import_llama(sd: dict, cfg) -> dict:
     return params
 
 
+def _import_gpt2(sd: dict, cfg) -> dict:
+    sd.get("lm_head.weight")  # the tied alias of wte: consumed
+    L = cfg.num_layers
+    pre = "h.{}."
+    # Conv1D ([in, out] storage) is the port's layout: no transpose.
+    return {
+        "wte": _f32(sd["wte.weight"]),
+        "wpe": _f32(sd["wpe.weight"]),
+        "layers": {
+            "w_qkv": _stack(sd, pre + "attn.c_attn.weight", L),
+            "b_qkv": _stack(sd, pre + "attn.c_attn.bias", L),
+            "w_proj": _stack(sd, pre + "attn.c_proj.weight", L),
+            "b_proj": _stack(sd, pre + "attn.c_proj.bias", L),
+            "w_up": _stack(sd, pre + "mlp.c_fc.weight", L),
+            "b_up": _stack(sd, pre + "mlp.c_fc.bias", L),
+            "w_down": _stack(sd, pre + "mlp.c_proj.weight", L),
+            "b_down": _stack(sd, pre + "mlp.c_proj.bias", L),
+            "ln_attn_scale": _stack(sd, pre + "ln_1.weight", L),
+            "ln_attn_bias": _stack(sd, pre + "ln_1.bias", L),
+            "ln_mlp_scale": _stack(sd, pre + "ln_2.weight", L),
+            "ln_mlp_bias": _stack(sd, pre + "ln_2.bias", L),
+        },
+        "final_ln_scale": _f32(sd["ln_f.weight"]),
+        "final_ln_bias": _f32(sd["ln_f.bias"]),
+    }
+
+
+_IMPORTERS = {"llama": _import_llama, "gpt2": _import_gpt2}
+
+
 class _RecordingDict(dict):
     """Tracks which checkpoint keys the importer read, so a dropped tensor
     (a bias, an extra head, half of a gated MLP) is a loud error instead of
@@ -238,18 +284,19 @@ class _RecordingDict(dict):
         return default
 
 
-# Buffers transformers serializes for the llama family that carry no
-# weights, as anchored patterns: strict mode's guarantee depends on them
-# never matching a weight.
+# Buffers transformers serializes that carry no weights, as anchored
+# patterns: strict mode's guarantee depends on them never matching a weight.
 _IGNORABLE = tuple(re.compile(p) for p in (
     r"(^|\.)position_ids$",
     r"(^|\.)rotary_emb\.inv_freq$",
+    r"(^|\.)masked_bias$",
+    r"(^|\.)attn\.bias$",  # gpt2's causal-mask buffer
 ))
 
 
-def _strip_prefix(sd: dict, prefix: str = "model.") -> dict:
-    """Drop the ``model.`` wrapper prefix, so ForCausalLM and bare-Model
-    state dicts map alike."""
+def _strip_prefix(sd: dict, prefix: str) -> dict:
+    """Drop the family's wrapper prefix (``model.``, ``transformer.``), so
+    ForCausalLM and bare-Model state dicts map alike."""
     if any(k.startswith(prefix) for k in sd):
         return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
     return sd
@@ -257,9 +304,9 @@ def _strip_prefix(sd: dict, prefix: str = "model.") -> dict:
 
 def import_state_dict(family: str, state_dict: dict, config, strict: bool = True,
                       consume_source: bool = False, device=None) -> dict:
-    """A transformers state dict mapped onto the port's llama params, cast
-    to ``config.param_dtype``, on ``device`` (None: where the checkpoint's
-    tensors lie).
+    """A transformers state dict mapped onto the port's params of
+    ``family`` (``"llama"`` or ``"gpt2"``), cast to ``config.param_dtype``,
+    on ``device`` (None: where the checkpoint's tensors lie).
 
     ``strict`` (default) raises if a checkpoint tensor was not consumed by
     the mapping: a dropped tensor means the model computes something else
@@ -267,15 +314,15 @@ def import_state_dict(family: str, state_dict: dict, config, strict: bool = True
     each source tensor is freed as it is mapped."""
     if family in _NOT_PORTED:
         raise _not_ported(family)
-    if family != "llama":
+    if family not in _IMPORTERS:
         raise ValueError(f"Unknown family {family!r}; supported: "
-                         f"{sorted(set(_NOT_PORTED) | {'llama'})}")
-    stripped = _strip_prefix(dict(state_dict))
+                         f"{sorted(set(_NOT_PORTED) | set(_PORTED))}")
+    stripped = _strip_prefix(dict(state_dict), _PREFIXES[family])
     if consume_source:
         state_dict.clear()
     sd = _RecordingDict(stripped)
     del stripped
-    params = _import_llama(sd, config)
+    params = _IMPORTERS[family](sd, config)
     if strict:
         leftover = [k for k in sd
                     if k not in sd.consumed and not any(p.search(k) for p in _IGNORABLE)]

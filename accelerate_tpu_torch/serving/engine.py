@@ -193,6 +193,15 @@ class CompletedRequest:
     prefill_dispatches: int = 0
 
 
+def _tensor_leaves(tree):
+    """The tensors of a parameter tree (nested dicts), depth first."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensor_leaves(v)
+        elif isinstance(v, torch.Tensor):
+            yield v
+
+
 class ServingEngine:
     """Continuous-batching serving over a model family's
     ``apply_cached``/``init_cache`` pair (fp or int8 KV); the paged path
@@ -230,7 +239,8 @@ class ServingEngine:
                 f"max_blocks_per_seq * block_size = {max_len} exceeds the "
                 f"model's max_seq_len {model_max}; shrink the table or blocks"
             )
-        param_dev = params["embed"].device
+        # Any family's tree: the first tensor leaf names the device.
+        param_dev = next(_tensor_leaves(params)).device
         if param_dev.type != self.device.type:
             raise ValueError(f"params are on {param_dev}, the engine serves on {self.device}")
         self._apply_cached = apply_cached

@@ -1,5 +1,6 @@
-"""Conversion from the JAX package's llama pytree to the port's: the
-parameters (:func:`llama_params_from_jax`) and the AdamW state
+"""Conversion from the JAX package's pytrees to the port's: the llama and
+GPT-2 parameters (:func:`llama_params_from_jax`,
+:func:`gpt2_params_from_jax`) and the llama AdamW state
 (:func:`adamw_state_from_optax`).
 
 The port keeps the JAX layout on purpose — per-layer weights stacked on a
@@ -16,10 +17,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.gpt2 import GPT2Config
+from ..models.gpt2 import _param_shapes as _gpt2_param_shapes
 from ..models.llama import LlamaConfig, _param_shapes
 from ..state import resolve_device
 
-__all__ = ["adamw_state_from_optax", "llama_params_from_jax"]
+__all__ = ["adamw_state_from_optax", "gpt2_params_from_jax", "llama_params_from_jax"]
+
+
+def _params_from_jax(np_params: dict, shapes: dict, dtype, device) -> dict:
+    """Each leaf of ``np_params`` (nested dicts of array-likes) as a tensor
+    in ``dtype`` on ``device``, checked against ``shapes`` (the same tree of
+    shape tuples): a missing, extra or misshapen leaf raises ``ValueError``."""
+    dev = resolve_device(device)
+
+    def convert(path, tree, want):
+        if isinstance(want, dict):
+            if not isinstance(tree, dict) or set(tree) != set(want):
+                got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+                raise ValueError(f"{path or 'params'}: keys {got} do not match the config's "
+                                 f"{sorted(want)}")
+            return {k: convert(f"{path}/{k}" if path else k, tree[k], w)
+                    for k, w in want.items()}
+        arr = np.asarray(tree, dtype=np.float32)
+        if arr.shape != tuple(want):
+            raise ValueError(f"{path}: shape {arr.shape}, config expects {tuple(want)}")
+        return torch.tensor(arr, dtype=dtype, device=dev)
+
+    return convert("", np_params, shapes)
 
 
 def llama_params_from_jax(np_params: dict, config: LlamaConfig, device=None) -> dict:
@@ -29,28 +54,16 @@ def llama_params_from_jax(np_params: dict, config: LlamaConfig, device=None) -> 
     ``ValueError`` when a leaf is missing, extra or of the wrong shape for
     ``config`` (a tied config has no ``lm_head``; ``attention_bias`` adds
     ``bq``/``bk``/``bv``/``bo``)."""
-    dev = resolve_device(device)
-    shapes = _param_shapes(config)
+    return _params_from_jax(np_params, _param_shapes(config), config.param_dtype, device)
 
-    def leaf(path, value, shape):
-        arr = np.asarray(value, dtype=np.float32)
-        if arr.shape != tuple(shape):
-            raise ValueError(f"{path}: shape {arr.shape}, config expects {tuple(shape)}")
-        return torch.tensor(arr, dtype=config.param_dtype, device=dev)
 
-    def check_keys(path, got, want):
-        if set(got) != set(want):
-            raise ValueError(
-                f"{path or 'params'}: keys {sorted(got)} do not match the config's {sorted(want)}"
-            )
-
-    check_keys("", np_params, shapes)
-    check_keys("layers", np_params["layers"], shapes["layers"])
-    out = {k: leaf(k, np_params[k], s) for k, s in shapes.items() if k != "layers"}
-    out["layers"] = {
-        k: leaf(f"layers/{k}", np_params["layers"][k], s) for k, s in shapes["layers"].items()
-    }
-    return out
+def gpt2_params_from_jax(np_params: dict, config: GPT2Config, device=None) -> dict:
+    """``np_params``: the JAX ``gpt2.init_params`` tree with numpy (or any
+    array-like) leaves.  The two packages name and lay out every leaf alike
+    (``wte``, ``wpe``, ``layers/w_qkv`` ``[L, d, 3d]``, ...), so this is a
+    checked copy into ``config.param_dtype`` on ``device`` (default
+    ``cuda``); a missing, extra or misshapen leaf raises ``ValueError``."""
+    return _params_from_jax(np_params, _gpt2_param_shapes(config), config.param_dtype, device)
 
 
 def _find_adam_state(tree):

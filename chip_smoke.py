@@ -219,11 +219,39 @@ Phases (each fails the run on any mismatch; nothing is caught):
    forward, dQ and dK/dV and no kernel of ``flash_attention.cu``, step time
    and the flash group's device ms.
 
+11. GPT-2 XL (openai-community/gpt2-xl's published widths through the
+   port's ``config_from_hf``: vocab 50257, d 1600, 48 layers, 25 heads of
+   64 over 25 kv heads, 1024 positions; 1,557,611,200 parameters; random
+   weights from seed 0, full depth).  11a: the paged pair at that
+   attention geometry (one kv head per query head, so one row of a 16-row
+   tile at decode), bf16 and fp32, decode and W=4, at Phase 1's long
+   shape, against the plain versions, with kernel, plain, bound and
+   library times from CUDA graphs.  11b: the fp32 parameters through
+   ``export_state_dict`` -> ``import_state_dict`` bit-identical, then a
+   bf16 copy through ``prepare_serving(gpt2.apply_cached, gpt2.init_cache,
+   paged_kernel=True)``: 8 slots, block 16, 64 blocks a table (the 1024
+   positions of the position table), chunk 256; 8 requests of 128-768
+   prompt tokens, one every 3 ticks, 32 new tokens; ``spec_tokens`` 0 and
+   3: 48 paged launches per decode dispatch, every request token-identical
+   to greedy ``gpt2.generate`` or parting at a near tie; TTFT, ITL and
+   decode tokens/s.  11c: training under ``Accelerator(log_with=
+   [GenericTracker])`` (bf16 compute over fp32 parameters, ``remat``,
+   dense loss, AdamW lr 3e-5): the first step inside
+   ``find_executable_batch_size(starting_batch_size=1024)`` at S 1024
+   (the fp32 logits alone would be ~211 GB), halved on each real
+   ``torch.cuda.OutOfMemoryError`` until a step runs (the sizes tried and
+   the peak printed); then 3 steps on that batch inside ``LocalSGD`` with
+   each loss ``accelerator.log``-ged: the losses fall, the JSONL file
+   under ``build/phase11`` holds them exactly, and ``release_memory``
+   leaves the card holding the parameters and AdamW's moments alone.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
 ``launches_phase10``, the flash kernels' Phase 10d and 10e launches as
-``launches_phase10d`` and ``launches_phase10e``, their fp32 Phase 4
+``launches_phase10d`` and ``launches_phase10e``, the paged kernels' Phase
+11 launches as ``launches_phase11`` and 11a's records as
+``gpt2_xl_heads``, the flash kernels' fp32 Phase 4
 records as ``fp32``, the head dims each takes as ``head_dims`` and
 Phase 10a's records as ``wide_heads``), the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -1862,10 +1890,11 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def divergence(params, cfg, ref, other, start):
+def divergence(params, cfg, ref, other, start, family=None):
     """None when ``other`` equals ``ref``; else (i, gap): the first position
-    past ``start`` where they differ and, from a forward over ``ref[:i]``,
-    the logit of ``ref[i]`` minus that of ``other[i]``."""
+    past ``start`` where they differ and, from a forward over ``ref[:i]``
+    (the ``family`` module's ``apply``, llama's by default), the logit of
+    ``ref[i]`` minus that of ``other[i]``."""
     import torch
 
     from accelerate_tpu_torch.models import llama
@@ -1875,14 +1904,15 @@ def divergence(params, cfg, ref, other, start):
         return None
     i = next(j for j in range(start, len(ref)) if ref[j] != other[j])
     with torch.no_grad():
-        logits = llama.apply(params, torch.tensor([ref[:i]], device="cuda"), cfg)[0, -1]
+        logits = (family or llama).apply(params, torch.tensor([ref[:i]], device="cuda"),
+                                         cfg)[0, -1]
     return i, float(logits[ref[i]] - logits[other[i]])
 
 
-def check_greedy(params, cfg, what, ref, other, start):
+def check_greedy(params, cfg, what, ref, other, start, family=None):
     """Token identity with greedy decoding, or a first divergence at a near
     tie (both tokens within NEAR_TIE in the logits); returns a label."""
-    d = divergence(params, cfg, ref, other, start)
+    d = divergence(params, cfg, ref, other, start, family)
     if d is None:
         return "identical"
     i, gap = d
@@ -2798,7 +2828,6 @@ def phase10a(smi):
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import fused_attention as fu
-    from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.ops.flash_attention import pick_block_pallas
 
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -2850,39 +2879,49 @@ def phase10a(smi):
                 del q, k, v, do, valid, out, lse, dq, dk, dv, want_out, want_lse, want
                 torch.cuda.empty_cache()
 
-    order = ("q", "k_new", "v_new", "pool_k", "pool_v", "tables", "lengths")
     lengths = PHASE1_SHAPES[0][1]
     paged = {}
     for d, dtype in PHASE10_PAGED:
         for name, window in (("paged_attention", None), ("paged_window_attention", 4)):
-            kern, plain = getattr(pa, name), getattr(pa, name + "_plain")
-            a = kernel_inputs(dtype, window, lengths, gen, hd=d)
-            tol = TOL[str(dtype)]
-            got = kern(**a)
-            torch.cuda.synchronize()
-            want = plain(**a)
-            err = (got.float() - want.float()).abs().max().item()
-            check(bool(torch.isfinite(got).all()), f"phase10 {name} d={d} {dtype}: non-finite")
-            check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
-                  f"phase10 {name} d={d} {dtype}: max abs err {err} over atol=rtol={tol}")
-            pool_bytes = 2 * a["pool_k"].numel() * a["pool_k"].element_size()
-            copies = [a] + [dict(a, pool_k=a["pool_k"].clone(), pool_v=a["pool_v"].clone())
-                            for _ in range(math.ceil(100e6 / pool_bytes) - 1)]
-            sets = [tuple(c[k] for k in order) for c in copies]
-            k_ms = graph_ms(kern, sets)
-            p_ms = graph_ms(plain, sets[:1], iters=5, replays=2)
-            lib_fn, lib_args = library_call(a, window)
-            lib_ms = graph_ms(lib_fn, [lib_args], iters=10)
-            b_ms, b_by = bound_ms(a, window)
-            paged[(name, d, str(dtype))] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-            log(f"phase10a {name} d={d} {dtype} W={window or 1} long lengths={lengths}: "
-                f"max_abs_err={err:.3e} (atol=rtol={tol}) kernel_ms={k_ms:.4f} "
-                f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms:.4f}; "
-                f"{smi}")
-            del a, copies, sets, lib_args
-            torch.cuda.empty_cache()
+            paged[(name, d, str(dtype))] = paged_record(
+                f"phase10a {name} d={d}", name, window, dtype, lengths, gen, smi, hd=d)
     return flash, paged
+
+
+def paged_record(tag, name, window, dtype, lengths, gen, smi, **geometry):
+    """One paged kernel against its plain version on ``kernel_inputs`` at
+    ``geometry`` (its H, K, hd), held to the dtype's tolerance, with the
+    kernel (L2-cold copies), plain, bound and library times from CUDA
+    graphs."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    order = ("q", "k_new", "v_new", "pool_k", "pool_v", "tables", "lengths")
+    kern, plain = getattr(pa, name), getattr(pa, name + "_plain")
+    a = kernel_inputs(dtype, window, lengths, gen, **geometry)
+    tol = TOL[str(dtype)]
+    got = kern(**a)
+    torch.cuda.synchronize()
+    want = plain(**a)
+    err = (got.float() - want.float()).abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"{tag} {dtype}: non-finite")
+    check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+          f"{tag} {dtype}: max abs err {err} over atol=rtol={tol}")
+    pool_bytes = 2 * a["pool_k"].numel() * a["pool_k"].element_size()
+    copies = [a] + [dict(a, pool_k=a["pool_k"].clone(), pool_v=a["pool_v"].clone())
+                    for _ in range(math.ceil(100e6 / pool_bytes) - 1)]
+    sets = [tuple(c[k] for k in order) for c in copies]
+    k_ms = graph_ms(kern, sets)
+    p_ms = graph_ms(plain, sets[:1], iters=5, replays=2)
+    lib_fn, lib_args = library_call(a, window)
+    lib_ms = graph_ms(lib_fn, [lib_args], iters=10)
+    b_ms, b_by = bound_ms(a, window)
+    log(f"{tag} {dtype} W={window or 1} long lengths={lengths}: "
+        f"max_abs_err={err:.3e} (atol=rtol={tol}) kernel_ms={k_ms:.4f} "
+        f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms={lib_ms:.4f}; {smi}")
+    del a, copies, sets, lib_args
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def gemma_2b_config(**overrides):
@@ -3297,6 +3336,255 @@ def phase10(smi):
                 phi3_f32=phi3_f32, counts=counts)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: GPT-2 XL: the paged pair at one kv head per query head, serving,
+# and training under the trackers, find_executable_batch_size and LocalSGD
+# ---------------------------------------------------------------------------
+
+
+# openai-community/gpt2-xl's published config.json values.
+GPT2_XL = dict(model_type="gpt2", vocab_size=50257, n_embd=1600, n_layer=48, n_head=25,
+               n_positions=1024, layer_norm_epsilon=1e-5, activation_function="gelu_new")
+GPT2_XL_PARAMS = 1_557_611_200
+PHASE11_PROMPT_LENS = (128, 224, 320, 416, 512, 608, 704, 768)
+# 1024 positions a slot: GPT-2's position table.
+PHASE11_GEOMETRY = dict(max_slots=8, block_size=16, num_blocks=8 * 64 + 8, max_blocks_per_seq=64,
+                        prefill_chunk=256)
+PHASE11_S, PHASE11_START_BATCH, PHASE11_STEPS, PHASE11_LR = 1024, 1024, 3, 3e-5
+PHASE11_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase11")
+
+
+def gpt2_xl_config(**overrides):
+    """GPT-2 XL's config, built by the port's ``config_from_hf`` from its
+    published ``config.json`` values."""
+    from types import SimpleNamespace
+
+    from accelerate_tpu_torch.models.hf_import import config_from_hf
+
+    return config_from_hf(SimpleNamespace(**GPT2_XL), **overrides)
+
+
+def phase11a(smi):
+    """The paged pair at GPT-2 XL's attention geometry (25 query heads over
+    25 kv heads of 64: one row of each 16-row tile at decode, four in the
+    W = 4 window) in bf16 and fp32, at Phase 1's long shape."""
+    cfg = gpt2_xl_config()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, window in (("paged_attention", None), ("paged_window_attention", 4)):
+            out[(name, str(dtype))] = paged_record(
+                f"phase11a {name} GPT-2 XL H={cfg.num_heads} K={cfg.num_heads} "
+                f"d={cfg.head_dim}", name, window, dtype, PHASE1_SHAPES[0][1], gen, smi,
+                H=cfg.num_heads, K=cfg.num_heads, hd=cfg.head_dim)
+    return out
+
+
+def phase11b(params, smi):
+    """GPT-2 XL (48 layers, seed 0): the fp32 parameters through
+    ``export_state_dict`` -> ``import_state_dict`` bit-identical, then their
+    bf16 copy served through ``prepare_serving(paged_kernel=True)`` with
+    ``spec_tokens`` 0 and 3: 48 paged launches per decode dispatch, every
+    request token-identical to greedy ``generate`` or parting at a near
+    tie."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import gpt2, hf_export, hf_import
+
+    cfg32 = gpt2_xl_config()
+    t0 = time.perf_counter()
+    again = hf_import.import_state_dict("gpt2", hf_export.export_state_dict("gpt2", params, cfg32),
+                                        cfg32)
+    same = all(torch.equal(again[k], v) for k, v in params.items() if k != "layers") and all(
+        torch.equal(again["layers"][k], v) for k, v in params["layers"].items())
+    check(same and sorted(again["layers"]) == sorted(params["layers"]),
+          "phase11b GPT-2 XL HF round trip is not bit-identical")
+    del again
+    log(f"phase11b GPT-2 XL HF export -> import: bit-identical over {cfg32.num_params()} "
+        f"parameters ({time.perf_counter() - t0:.1f} s)")
+    cfg = gpt2_xl_config(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    params16 = {k: v.to(torch.bfloat16) for k, v in params.items() if k != "layers"}
+    params16["layers"] = {k: v.to(torch.bfloat16) for k, v in params["layers"].items()}
+    rng = np.random.default_rng(11)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in PHASE11_PROMPT_LENS]
+    max_new = 32
+    fresh_state()
+    acc = Accelerator()
+    out = {}
+    for spec in (0, 3):
+        engine = acc.prepare_serving(gpt2.apply_cached, gpt2.init_cache, params16, cfg,
+                                     paged_kernel=True, spec_tokens=spec, **PHASE11_GEOMETRY)
+        engine.submit(list(rng.integers(0, cfg.vocab_size, size=40)), 4)  # warm-up
+        engine.run()
+        engine.pop_finished()
+        base = engine.decode_dispatches
+        base_s, base_tok = engine.decode_seconds, engine.decode_emitted_tokens
+        if spec:
+            # Repetitive prompts: the n-gram drafter finds continuations.
+            prompts = [(p[:16] * 64)[:n] for p, n in zip(prompts, PHASE11_PROMPT_LENS)]
+        reset_counts()
+        done, wall, ids = serve(engine, prompts, max_new, stagger_ticks=3)
+        dec, win = read_counts()
+        dispatches = engine.decode_dispatches - base
+        check(len(done) == len(prompts), f"phase11b spec={spec}: {len(done)} completed")
+        per = cfg.num_layers * dispatches
+        if spec:
+            check(win == per and dec == 0, f"phase11b window kernel launched {win} times, "
+                  f"want {per}; decode kernel {dec}")
+        else:
+            check(dec == per and win == 0, f"phase11b decode kernel launched {dec} times, "
+                  f"want {per}; window kernel {win}")
+        labels = []
+        for rid, p in zip(ids, prompts):
+            c = done[rid]
+            check(c.status == "ok" and c.new_tokens == max_new, f"phase11b request {rid}: "
+                  f"{c.status} with {c.new_tokens} tokens")
+            ref = gpt2.generate(params16, torch.tensor([p], device="cuda"), cfg,
+                                max_new_tokens=max_new)[0].tolist()
+            labels.append(check_greedy(params16, cfg, f"phase11b spec={spec} request {rid}", ref,
+                                       c.tokens, len(p), family=gpt2))
+        gaps = [x for c in done.values() for x in c.inter_token_ms]
+        ttft = median([c.ttft_ms for c in done.values()])
+        itl, itl_mean = median(gaps), sum(gaps) / len(gaps)
+        decode_tps = (engine.decode_emitted_tokens - base_tok) / (engine.decode_seconds - base_s)
+        st = engine.stats()
+        log(f"phase11b GPT-2 XL bf16 serving spec_tokens={spec}: {len(done)} requests, "
+            f"decode_dispatches={dispatches} decode_launches={dec} window_launches={win} "
+            f"wall_s={wall:.3f} ttft_p50_ms={ttft:.1f} itl_p50_ms={itl:.2f} "
+            f"itl_mean_ms={itl_mean:.2f} decode_tokens_per_s={decode_tps:.1f} "
+            f"acceptance={st['spec']['acceptance_rate']}; against greedy generate: {labels}; "
+            f"{smi}")
+        out[spec] = dict(dec=dec, win=win, dispatches=dispatches, ttft_p50_ms=ttft,
+                         itl_p50_ms=itl, itl_mean_ms=itl_mean, decode_tokens_per_s=decode_tps)
+        del engine
+        gc_collect()
+    return out
+
+
+def phase11c(smi):
+    """GPT-2 XL trained under the A1 surface: ``Accelerator(log_with=
+    [GenericTracker])``, the first step inside ``find_executable_batch_size``
+    from 1024 sequences of 1024 tokens (dense loss: the fp32 logits alone
+    would be ~211 GB, so a real CUDA OOM halves it until a step runs), then
+    3 AdamW steps on that batch inside ``LocalSGD`` with each loss logged;
+    the JSONL file holds them, and ``release_memory`` brings the card back
+    to the parameters and AdamW's moments."""
+    from accelerate_tpu_torch import Accelerator, FunctionalModel, LocalSGD
+    from accelerate_tpu_torch.models import gpt2
+    from accelerate_tpu_torch.tracking import GenericTracker
+    from accelerate_tpu_torch.utils import find_executable_batch_size, release_memory
+
+    gc_collect()
+    fresh_state()
+    base_bytes = torch.cuda.memory_allocated()
+    cfg = gpt2_xl_config()  # bf16 compute over fp32 parameters, remat
+    model = FunctionalModel(lambda p, **batch: {"loss": gpt2.loss_fn(p, batch, cfg)},
+                            gpt2.init_params(cfg, seed=0))
+    shutil.rmtree(PHASE11_DIR, ignore_errors=True)
+    tracker = GenericTracker("phase11", logging_dir=PHASE11_DIR)
+    acc = Accelerator(log_with=[tracker])
+    model, opt = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=PHASE11_LR))
+    acc.init_trackers("phase11", config=dict(GPT2_XL, seq=PHASE11_S, lr=PHASE11_LR))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    data = torch.randint(0, cfg.vocab_size, (PHASE11_START_BATCH, PHASE11_S), device="cuda",
+                         generator=gen)
+    tried, ooms = [], []
+
+    @find_executable_batch_size(starting_batch_size=PHASE11_START_BATCH)
+    def first_step(batch_size):
+        tried.append(batch_size)
+        opt.zero_grad(set_to_none=True)
+        try:
+            loss = model(input_ids=data[:batch_size])["loss"]
+            acc.backward(loss)
+            opt.step()
+        except torch.cuda.OutOfMemoryError:
+            ooms.append(batch_size)
+            raise
+        opt.zero_grad(set_to_none=True)
+        return batch_size, loss.item()
+
+    torch.cuda.reset_peak_memory_stats()
+    (b, first_loss), first_s = timed(first_step)
+    peak = torch.cuda.max_memory_allocated()
+    check(ooms == tried[:-1] and ooms[:1] == [PHASE11_START_BATCH] and b == tried[-1]
+          and all(x == 2 * y for x, y in zip(tried, tried[1:])),
+          f"phase11c find_executable_batch_size tried {tried}, CUDA OOM at {ooms}")
+    log(f"phase11c find_executable_batch_size: tried {tried} (torch.cuda.OutOfMemoryError at "
+        f"{ooms}), ran at batch {b} x S {PHASE11_S}; first step {first_s:.2f} s (the OOM "
+        f"attempts included), loss {first_loss:.4f}, max_memory_allocated "
+        f"{peak / 1e9:.2f} GB; {smi}")
+    batch = data[:b]
+    losses, step_s = [], []
+    with LocalSGD(accelerator=acc, model=model, local_sgd_steps=2) as lsgd:
+        check(not lsgd.enabled, "LocalSGD enabled at one process")
+        for step in range(PHASE11_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = model(input_ids=batch)["loss"]
+            acc.backward(loss)
+            opt.step()
+            opt.zero_grad()
+            lsgd.step()
+            losses.append(loss.item())
+            step_s.append(time.perf_counter() - t0)
+            acc.log({"loss": losses[-1]}, step=step)
+    acc.end_training()
+    check(all(math.isfinite(x) for x in losses) and first_loss > losses[0] > losses[1]
+          > losses[2], f"phase11c losses do not fall: {first_loss} then {losses}")
+    path = acc.get_tracker("generic", unwrap=True)
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    check([(r["_step"], r["loss"]) for r in rows] == list(enumerate(losses)),
+          f"phase11c {path} holds {rows}, want the losses {losses}")
+    tokens = b * PHASE11_S
+    log(f"phase11c 3 AdamW steps at batch {b} x S {PHASE11_S} inside LocalSGD: losses "
+        f"{[round(x, 4) for x in losses]} (first step {first_loss:.4f}), step_s "
+        f"{[round(x, 3) for x in step_s]}, tokens/s {tokens / median(step_s):.0f}; "
+        f"{len(rows)} rows in {os.path.relpath(path)}; {smi}")
+    held = torch.cuda.memory_allocated() - base_bytes
+    loss, batch, data = release_memory(loss, batch, data)
+    after = torch.cuda.memory_allocated() - base_bytes
+    state = sum(p.numel() * p.element_size() for p in model.parameters())
+    moments = sum(v.numel() * v.element_size() for st in opt.optimizer.state.values()
+                  for v in st.values() if torch.is_tensor(v) and v.is_cuda)
+    check(state + moments <= after <= 1.01 * (state + moments),
+          f"phase11c after release_memory {after} bytes held, want the parameters and AdamW "
+          f"moments' {state + moments}")
+    log(f"phase11c release_memory: {held / 1e9:.3f} GB held after the steps -> "
+        f"{after / 1e9:.3f} GB (parameters {state / 1e9:.3f} GB + AdamW moments "
+        f"{moments / 1e9:.3f} GB)")
+    shutil.rmtree(PHASE11_DIR, ignore_errors=True)
+    return dict(tried=tried, batch=b, peak_bytes=peak, losses=[first_loss] + losses,
+                step_s=step_s, tokens_per_s=tokens / median(step_s))
+
+
+def phase11(smi):
+    """11a the paged pair at GPT-2 XL's geometry, 11b GPT-2 XL's HF round
+    trip and serving, 11c its training under the trackers,
+    find_executable_batch_size and LocalSGD.  Returns the records and the
+    paged launches of 11b."""
+    from accelerate_tpu_torch.models import gpt2
+
+    gc_collect()
+    t0 = time.perf_counter()
+    kernels = phase11a(smi)
+    t1 = time.perf_counter()
+    cfg = gpt2_xl_config()
+    check(cfg.num_params() == GPT2_XL_PARAMS and cfg.head_dim == 64,
+          f"GPT-2 XL config: {cfg.num_params()} parameters, head dim {cfg.head_dim}")
+    params = gpt2.init_params(cfg, seed=0)
+    serving = phase11b(params, smi)
+    del params
+    gc_collect()
+    t2 = time.perf_counter()
+    train = phase11c(smi)
+    gc_collect()
+    log(f"phase11 seconds: 11a {t1 - t0:.1f}, 11b {t2 - t1:.1f}, 11c "
+        f"{time.perf_counter() - t2:.1f}")
+    counts = dict(paged_attention=serving[0]["dec"], paged_window_attention=serving[3]["win"])
+    return dict(kernels=kernels, serving=serving, train=train, counts=counts)
+
+
 def main() -> int:
     import torch
 
@@ -3344,6 +3632,9 @@ def main() -> int:
           f"phase 10d launched the flash kernels {p10['phi3']['counts']} times")
     check(all(p10["phi3_f32"]["counts"][n] > 0 for n in FLASH_KERNELS),
           f"phase 10e launched the flash kernels {p10['phi3_f32']['counts']} times")
+    p11 = phase11(smi)
+    check(all(p11["counts"][n] > 0 for n in ("paged_attention", "paged_window_attention")),
+          f"phase 11 launched the paged kernels {p11['counts']} times")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
@@ -3360,9 +3651,12 @@ def main() -> int:
         record.append(dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
                            launches=launches[name], launches_phase7=p7[name],
                            launches_phase8=p8[name], launches_phase9=p9[name],
-                           launches_phase10=p10["counts"][name], head_dims=list(pa_dims),
+                           launches_phase10=p10["counts"][name],
+                           launches_phase11=p11["counts"][name], head_dims=list(pa_dims),
                            wide_heads={f"d{d}-{dt[6:]}": p10["paged"][(name, d, dt)]
                                        for d, dt in ((d, str(t)) for d, t in PHASE10_PAGED)},
+                           gpt2_xl_heads={dt[6:]: p11["kernels"][(name, dt)]
+                                          for dt in ("torch.bfloat16", "torch.float32")},
                            **r,
                            previous_source=PAGED_PREVIOUS,
                            design=PAGED_DESIGN,

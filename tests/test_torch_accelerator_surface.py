@@ -332,15 +332,22 @@ def test_handlers_that_validate_match_jax():
     assert ProfileKwargs().to_dict() == JaxProfileKwargs().to_dict()
 
 
-def test_trackers_and_fp8_raise_until_ported():
-    with pytest.raises(NotImplementedError, match=r"A1\(b\)"):
-        Accelerator(cpu=True, log_with="jsonl")
-    with pytest.raises(NotImplementedError, match="A8"):
-        Accelerator(cpu=True, mixed_precision="fp8")
+def test_trackers_and_fp8_raise_until_ported(tmp_path):
+    """Trackers are ported: ``log_with`` builds one in ``init_trackers``
+    (an unknown name raises there, as in JAX); fp8 still raises (A8)."""
+    from accelerate_tpu_torch.tracking import GenericTracker
     from accelerate_tpu_torch.utils import FP8RecipeKwargs
 
     with pytest.raises(NotImplementedError, match="A8"):
+        Accelerator(cpu=True, mixed_precision="fp8")
+    with pytest.raises(NotImplementedError, match="A8"):
         FP8RecipeKwargs()
+    acc = Accelerator(cpu=True, log_with="generic", project_dir=str(tmp_path))
+    assert acc.log_with == ["generic"] and acc.trackers == []
+    acc.init_trackers("run")
+    assert [type(t) for t in acc.trackers] == [GenericTracker]
+    with pytest.raises(ValueError, match="Unknown tracker jsonl"):
+        Accelerator(cpu=True, log_with="jsonl").init_trackers("run")
     acc = Accelerator(cpu=True, log_with=None, rng_types=["torch"], device_placement=True)
     assert acc.log_with == acc.trackers == [] and acc.rng_types == ["torch"]
 

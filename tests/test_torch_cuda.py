@@ -1358,3 +1358,107 @@ def test_dots_and_nothing_launch_alike_and_give_one_loss(cuda, fresh_state):
     assert out["dots"][0] == out["nothing"][0] == (2 * layers, layers, layers)
     assert out["dots"][1] == out["nothing"][1]
     assert all(torch.equal(a, b) for a, b in zip(out["dots"][2], out["nothing"][2]))
+
+
+# ---------------------------------------------------------------------------
+# GPT-2: one kv head per query head through the paged kernels, its engine,
+# and find_executable_batch_size on a real CUDA OOM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.paged
+@pytest.mark.parametrize("window", [None, 1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+def test_paged_kernels_at_gpt2_xl_heads_match_plain(cuda, dtype, window):
+    """GPT-2 XL's geometry: 25 query heads over 25 kv heads (G = 1, one row
+    of a 16-row tile at decode), head dim 64, an odd head count."""
+    args = _inputs(107, 25, 1, window, dtype, d=64, lengths=(0, 1, 15, 16, 17, 300, 1000),
+                   m=64)
+    fn, plain = _fns(window)
+    before = fn.launches
+    got = fn(**args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == args["q"].shape and torch.isfinite(got).all()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), plain(**args).float(), rtol=tol, atol=tol)
+
+
+def test_gpt2_apply_paged_kernel_launches_per_layer_and_matches_plain(cuda):
+    """Tiny GPT-2 (head dim 64) in fp32: a decode forward launches the decode
+    kernel once per layer, a verify forward the window kernel once per
+    layer, and both match the plain einsum path."""
+    from accelerate_tpu_torch.models import gpt2
+
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.float32, hidden_size=128, num_heads=2, num_layers=3)
+    params = gpt2.init_params(cfg, seed=0)
+    rng = np.random.default_rng(43)
+    shape = (cfg.num_layers, 12, 4, cfg.num_heads, cfg.head_dim)
+    pool = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+            for k in ("k", "v")}
+    tables = torch.tensor([[3, 5, 0, 0], [0, 0, 0, 0], [1, 2, 4, 6]], dtype=torch.int32).cuda()
+    starts = torch.tensor([6, 0, 12], dtype=torch.int32, device="cuda")
+    for t, fn in ((1, pa.paged_attention), (4, pa.paged_window_attention)):
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(3, t))).cuda()
+        before = fn.launches
+        got, rows = gpt2.apply_paged(params, ids, cfg, pool, tables, starts, kernel=True)
+        assert fn.launches == before + cfg.num_layers
+        want, want_rows = gpt2.apply_paged(params, ids, cfg, pool, tables, starts, kernel=False)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(rows["k"], want_rows["k"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("spec_tokens", [0, 3])
+def test_gpt2_engine_on_the_card_matches_generate(cuda, spec_tokens):
+    from accelerate_tpu_torch.models import gpt2
+    from accelerate_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = gpt2.GPT2Config.tiny(dtype=torch.float32, hidden_size=128, num_heads=2)
+    params = gpt2.init_params(cfg, seed=0)
+    rng = np.random.default_rng(47)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in (9, 13, 5)]
+    prompts.append([5, 9, 2, 7] * 3)
+    max_new = (8, 6, 7, 9)
+    eng = ServingEngine(gpt2.apply_cached, gpt2.init_cache, params, cfg, device="cuda",
+                        serving=ServingConfig(block_size=4, num_blocks=24, max_slots=3,
+                                              prefill_chunk=4, max_blocks_per_seq=8,
+                                              paged_kernel=True, spec_tokens=spec_tokens))
+    fn = pa.paged_window_attention if spec_tokens else pa.paged_attention
+    before = fn.launches
+    ids = [eng.submit(p, m) for p, m in zip(prompts, max_new)]
+    out = eng.run(max_ticks=3000)
+    for rid, p, m in zip(ids, prompts, max_new):
+        want = gpt2.generate(params, torch.tensor([p], device="cuda"), cfg, m)[0].tolist()
+        assert out[rid] == want
+    assert fn.launches - before == cfg.num_layers * eng.stats()["decode_dispatches"] > 0
+    assert eng.cache.allocator.used_blocks == 0
+
+
+def test_find_executable_batch_size_survives_a_cuda_oom(cuda):
+    """Each batch row takes a third of the free device memory, so 16, 8 and
+    4 rows raise a real ``torch.cuda.OutOfMemoryError`` and the retry at 2
+    runs; the failed attempts leave nothing allocated."""
+    import gc
+
+    from accelerate_tpu_torch.utils import find_executable_batch_size
+
+    gc.collect()  # earlier tests' cycles: the decorator collects them too
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    unit = torch.cuda.mem_get_info()[0] // 3
+    tried, ooms = [], []
+
+    @find_executable_batch_size(starting_batch_size=16)
+    def step(batch_size):
+        tried.append(batch_size)
+        try:
+            x = torch.ones(batch_size * unit, dtype=torch.uint8, device="cuda")
+        except torch.cuda.OutOfMemoryError:
+            ooms.append(batch_size)
+            raise
+        return batch_size if int(x[-1]) == 1 else -1
+
+    assert step() == 2
+    assert tried == [16, 8, 4, 2] and ooms == [16, 8, 4]
+    assert torch.cuda.memory_allocated() == start

@@ -1,7 +1,9 @@
 """Names the JAX package exports, importable from the port at the same
 paths (``accelerate_tpu_torch``, ``.utils``, ``.pipeline``,
-``.resilience``, ``.serving``, ``.state``): the 19 that were ported in
-submodules only, and those this slice adds.  Each is imported from both
+``.resilience``, ``.serving``, ``.state``, ``.tracking``, ``.logging``,
+``.local_sgd``, ``.models.gpt2``): the 19 that were ported in submodules
+only, those of the single-process surface, the trackers, logging, memory
+and utils helpers, and GPT-2.  Each is imported from both
 packages; a class in one is a class in the other.  Exact: no tolerance."""
 
 import importlib
@@ -53,6 +55,39 @@ HF_IO = {  # the llama family's HF import and export
 }
 
 
+A1B_AND_A2 = {  # trackers, logging, memory, LocalSGD, the utils helpers; GPT-2
+    "": ["find_executable_batch_size", "get_logger", "LocalSGD", "is_rich_available"],
+    ".utils": ["find_executable_batch_size", "release_memory", "compare_versions",
+               "is_torch_version", "is_jax_version", "str_to_bool", "parse_flag_from_env",
+               "parse_choice_from_env", "get_int_from_env", "are_libraries_initialized",
+               "patch_environment", "clear_environment", "convert_dict_to_env_variables",
+               "purge_accelerate_environment", "get_gpu_info", "check_cuda_p2p_ib_support",
+               "set_numa_affinity", "get_ccl_version", "install_xla", "is_available",
+               "is_tpu_available", "is_cpu_mesh_simulation", "is_torch_available",
+               "is_tensorboard_available", "is_wandb_available", "is_mlflow_available",
+               "is_cuda_available", "is_bf16_available", "is_fp16_available",
+               "is_fp8_available", "is_triton_available", "check_cuda_fp8_capability",
+               "torchao_required", "is_weights_only_available"],
+    ".utils.memory": ["find_executable_batch_size", "release_memory", "clear_device_cache",
+                      "should_reduce_batch_size"],
+    ".utils.environment": ["patch_environment", "str_to_bool"],
+    ".utils.versions": ["compare_versions", "is_jax_version"],
+    ".utils.imports": ["is_available", "is_tpu_available"],
+    ".logging": ["get_logger", "MultiProcessAdapter"],
+    ".tracking": ["GeneralTracker", "GenericTracker", "TensorBoardTracker", "WandBTracker",
+                  "CometMLTracker", "AimTracker", "MLflowTracker", "ClearMLTracker",
+                  "DVCLiveTracker", "filter_trackers", "init_trackers", "on_main_process",
+                  "telemetry_rows"],
+    ".local_sgd": ["LocalSGD"],
+    ".models.gpt2": ["GPT2Config", "init_params", "apply", "apply_hidden", "lm_head",
+                     "loss_fn", "init_cache", "apply_cached", "apply_paged", "generate",
+                     "speculative_generate", "generate_beam"],
+}
+A1B_CONSTANTS = {".utils": ["SAFE_WEIGHTS_NAME", "WEIGHTS_NAME", "MODEL_NAME", "SCALER_NAME",
+                            "TORCH_LAUNCH_PARAMS"],
+                 ".utils.constants": ["STR_OPERATION_TO_FUNC", "FSDP_SHARDING_STRATEGY"]}
+
+
 def _cases(table):
     return [(path, name) for path, names in table.items() for name in names]
 
@@ -85,6 +120,19 @@ def test_hf_import_and_export_names_import_at_jax_paths(path, name):
     jax_obj, port_obj = _pair(path, name)
     assert callable(jax_obj) and callable(port_obj)
     assert port_obj.__module__ == "accelerate_tpu_torch" + path
+
+
+@pytest.mark.parametrize("path,name", _cases(A1B_AND_A2), ids=lambda v: v if v else "top")
+def test_a1b_and_gpt2_names_import_at_jax_paths(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert isinstance(port_obj, type) == isinstance(jax_obj, type) and callable(port_obj)
+    assert port_obj.__module__.startswith("accelerate_tpu_torch")
+
+
+@pytest.mark.parametrize("path,name", _cases(A1B_CONSTANTS), ids=lambda v: v)
+def test_a1b_constants_equal_jax(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert port_obj == jax_obj
 
 
 def test_the_examples_imports_resolve():

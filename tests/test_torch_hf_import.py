@@ -1,14 +1,15 @@
-"""The port's HF import and export for the llama family
+"""The port's HF import and export for the llama family and GPT-2
 (``accelerate_tpu_torch/models/hf_import.py`` / ``hf_export.py``) against
 the JAX package's and against transformers itself.
 
-For llama, qwen2, mistral, gemma and phi3, a tiny transformers model is
-built in code from a torch seed; then:
+For llama, qwen2, mistral, gemma, phi3 and gpt2, a tiny transformers model
+is built in code from a torch seed; then:
 
 - the port's ``from_hf`` gives the params JAX's ``from_hf`` gives, exactly
   (both copy the same fp32 tensors; transposes and splits move no bits);
 - the port's fp32 logits match the transformers forward and JAX's
-  ``llama.apply`` within 1e-5 (the three sum in other orders);
+  ``llama.apply`` (``gpt2.apply``) within 1e-5 (the three sum in other
+  orders);
 - ``export_hf_checkpoint`` writes a directory ``from_pretrained`` loads,
   whose logits match the original model's within 1e-5, and importing it
   again (``load_hf_checkpoint``) gives the params bit for bit.
@@ -24,8 +25,10 @@ import numpy as np
 import pytest
 import torch
 
+from accelerate_tpu.models import gpt2 as jg
 from accelerate_tpu.models import hf_import as jhf
 from accelerate_tpu.models import llama as jl
+from accelerate_tpu_torch.models import gpt2 as tg
 from accelerate_tpu_torch.models import hf_export, hf_import
 from accelerate_tpu_torch.models import llama as tl
 
@@ -50,16 +53,23 @@ def _hf_model(family, seed):
         # head_dim 32 against hidden 48 / 4 heads: Gemma's head dim is its own.
         cfg = transformers.GemmaConfig(**SMALL, head_dim=32, rms_norm_eps=1e-6)
         cls = transformers.GemmaForCausalLM
-    else:
+    elif family == "phi3":
         cfg = transformers.Phi3Config(**SMALL, pad_token_id=0, sliding_window=None)
         cls = transformers.Phi3ForCausalLM
+    else:
+        cfg = transformers.GPT2Config(vocab_size=96, n_embd=48, n_layer=2, n_head=4,
+                                      n_positions=64, activation_function="gelu_new")
+        cls = transformers.GPT2LMHeadModel
     torch.manual_seed(seed)
     model = cls(cfg).eval()
-    if family == "gemma":  # nonzero (1 + w) norm offsets, so the norms' weights count
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                if "norm" in name:
-                    p.normal_(0.0, 0.1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if family == "gemma" and "norm" in name:
+                # nonzero (1 + w) norm offsets, so the norms' weights count
+                p.normal_(0.0, 0.1)
+            elif family == "gpt2" and (name.endswith("bias") or ".ln_" in name):
+                # biases and LayerNorms away from their init, so each counts
+                p.normal_(1.0 if name.endswith("weight") else 0.0, 0.1)
     return model
 
 
@@ -77,7 +87,19 @@ def _ids(vocab, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (2, 10)).astype(np.int64)
 
 
-FAMILIES = ["llama", "qwen2", "mistral", "gemma", "phi3"]
+FAMILIES = ["llama", "qwen2", "mistral", "gemma", "phi3", "gpt2"]
+# The config fields each native family must carry over as JAX's does.
+FIELDS = {
+    "llama": ("hidden_size", "num_heads", "num_kv_heads", "head_dim_", "hidden_act",
+              "rms_offset", "embed_scale", "tie_embeddings", "attention_bias", "rms_eps",
+              "rope_theta", "rope_scaling", "max_seq_len"),
+    "gpt2": ("vocab_size", "hidden_size", "num_layers", "num_heads", "max_seq_len",
+             "layer_norm_eps", "head_dim"),
+}
+
+
+def _native(family):
+    return "gpt2" if family == "gpt2" else "llama"
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -85,10 +107,8 @@ def test_import_matches_jax_and_transformers(family):
     hf = _hf_model(family, seed=FAMILIES.index(family))
     got_family, cfg, params = hf_import.from_hf(hf, device="cpu", dtype=torch.float32)
     jfamily, jcfg, jparams = jhf.from_hf(hf, dtype=jnp.float32, param_dtype=jnp.float32)
-    assert got_family == jfamily == "llama"
-    for field in ("hidden_size", "num_heads", "num_kv_heads", "head_dim_", "hidden_act",
-                  "rms_offset", "embed_scale", "tie_embeddings", "attention_bias", "rms_eps",
-                  "rope_theta", "rope_scaling", "max_seq_len"):
+    assert got_family == jfamily == _native(family)
+    for field in FIELDS[_native(family)]:
         assert getattr(cfg, field) == getattr(jcfg, field), field
     got, want = _flat(params), _flat(jparams)
     assert sorted(got) == sorted(want)
@@ -96,10 +116,11 @@ def test_import_matches_jax_and_transformers(family):
         assert t.dtype == torch.float32 and t.is_contiguous(), name
         np.testing.assert_array_equal(t.numpy(), np.asarray(want[name]), err_msg=name)
     ids = _ids(cfg.vocab_size)
-    logits = tl.apply(params, torch.from_numpy(ids), cfg).numpy()
+    tmod, jmod = (tg, jg) if family == "gpt2" else (tl, jl)
+    logits = tmod.apply(params, torch.from_numpy(ids), cfg).numpy()
     with torch.no_grad():
         ref = hf(torch.from_numpy(ids)).logits.numpy()
-    jlogits = np.asarray(jl.apply(jparams, jnp.asarray(ids, jnp.int32), jcfg))
+    jlogits = np.asarray(jmod.apply(jparams, jnp.asarray(ids, jnp.int32), jcfg))
     np.testing.assert_allclose(logits, ref, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(logits, jlogits, atol=1e-5, rtol=1e-5)
 
@@ -107,23 +128,28 @@ def test_import_matches_jax_and_transformers(family):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_export_loads_in_transformers_and_round_trips(family, tmp_path):
     hf = _hf_model(family, seed=10 + FAMILIES.index(family))
-    _, cfg, params = hf_import.from_hf(hf, device="cpu", dtype=torch.float32)
-    sd = hf_export.export_state_dict("llama", params, cfg)
-    again = hf_import.import_state_dict("llama", sd, cfg)
+    native, cfg, params = hf_import.from_hf(hf, device="cpu", dtype=torch.float32)
+    sd = hf_export.export_state_dict(native, params, cfg)
+    again = hf_import.import_state_dict(native, sd, cfg)
     for name, t in _flat(params).items():
         assert torch.equal(_flat(again)[name], t), name
-    out = hf_export.export_hf_checkpoint("llama", params, cfg, str(tmp_path / family))
+    out = hf_export.export_hf_checkpoint(native, params, cfg, str(tmp_path / family))
     loaded = transformers.AutoModelForCausalLM.from_pretrained(out).eval()
-    assert type(loaded).__name__ == ("GemmaForCausalLM" if family == "gemma"
-                                     else "LlamaForCausalLM")
+    assert type(loaded).__name__ == {"gemma": "GemmaForCausalLM",
+                                     "gpt2": "GPT2LMHeadModel"}.get(family, "LlamaForCausalLM")
     ids = torch.from_numpy(_ids(cfg.vocab_size, seed=1))
     with torch.no_grad():
         np.testing.assert_allclose(loaded(ids).logits.numpy(), hf(ids).logits.numpy(),
                                    atol=1e-5, rtol=1e-5)
     fam, cfg2, params2 = hf_import.load_hf_checkpoint(out, device="cpu", dtype=torch.float32)
-    # config.json names the head dim even where the HF config left it implied.
-    assert fam == "llama" and cfg2.head_dim_ == cfg.head_dim_
-    assert dataclasses.replace(cfg2, head_dim=None) == dataclasses.replace(cfg, head_dim=None)
+    assert fam == native
+    if native == "gpt2":
+        assert cfg2 == cfg
+    else:
+        # config.json names the head dim even where the HF config left it implied.
+        assert cfg2.head_dim_ == cfg.head_dim_
+        assert dataclasses.replace(cfg2, head_dim=None) == dataclasses.replace(cfg,
+                                                                              head_dim=None)
     for name, t in _flat(params).items():
         assert torch.equal(_flat(params2)[name], t), name
 
@@ -184,10 +210,12 @@ def test_strict_import_refuses_unmapped_tensors_and_other_families():
         hf_import.import_state_dict("llama", dict(sd), cfg)
     params = hf_import.import_state_dict("llama", dict(sd), cfg, strict=False)
     assert params["layers"]["wq"].shape == (2, 48, 48)
-    for family, item in (("gpt2", "A2"), ("mixtral", "A3"), ("bert", "A3")):
+    for family, item in (("mixtral", "A3"), ("bert", "A3")):
         with pytest.raises(NotImplementedError, match=item):
             hf_import.import_state_dict(family, {}, cfg)
         with pytest.raises(NotImplementedError, match=item):
             hf_export.export_state_dict(family, params, cfg)
-    with pytest.raises(NotImplementedError, match="A2"):
-        hf_import.config_from_hf(transformers.GPT2Config(n_layer=1))
+    with pytest.raises(NotImplementedError, match="A3"):
+        hf_import.config_from_hf(transformers.MixtralConfig(num_hidden_layers=1))
+    assert isinstance(hf_import.config_from_hf(transformers.GPT2Config(n_layer=1)),
+                      tg.GPT2Config)

@@ -73,6 +73,17 @@ def test_source_names_no_jax_import(path):
     "accelerate_tpu_torch.utils.modeling",
     "accelerate_tpu_torch.models.hf_import",
     "accelerate_tpu_torch.models.hf_export",
+    "accelerate_tpu_torch.models.gpt2",
+    "accelerate_tpu_torch.tracking",
+    "accelerate_tpu_torch.logging",
+    "accelerate_tpu_torch.local_sgd",
+    "accelerate_tpu_torch.memory_utils",
+    "accelerate_tpu_torch.utils.memory",
+    "accelerate_tpu_torch.utils.environment",
+    "accelerate_tpu_torch.utils.imports",
+    "accelerate_tpu_torch.utils.versions",
+    "accelerate_tpu_torch.utils.constants",
+    "accelerate_tpu_torch.utils.convert",
 ])
 def test_robustness_modules_are_checked(name):
     """The serving robustness layer's modules and the generation and tracing
