@@ -1,0 +1,219 @@
+"""BERT-style bidirectional encoder in PyTorch: the JAX package's
+``accelerate_tpu/models/bert.py`` with the same parameter tree, numerics and
+public contracts.
+
+Post-LN transformer layers (residual, then LayerNorm with bias), learned
+position and token-type embeddings, a tanh pooler over the first token and
+a classification head.  Parameters are a plain dict of tensors laid out as
+the JAX pytree: per-layer weights stacked on a leading ``[L, ...]`` axis,
+projections stored for ``x @ W``, the fused QKV projection ``[L, d, 3d]``
+split as ``(3, H, hd)``.  The GELU is the tanh approximation
+(``jax.nn.gelu``'s default), not BERT's erf.
+
+Attention is the einsum path, as in the JAX package off its sequence-
+parallel mesh: no kernel of this module is hand-written.  A padding mask
+removes padded keys and padded queries alike (the dense JAX path).
+``sp_impl="ulysses"`` and sequence parallelism raise (ROADMAP A6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..state import resolve_device
+from .gpt2 import _layer_norm
+
+__all__ = ["BertConfig", "init_params", "apply", "classification_loss_fn"]
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    """Field for field the JAX ``BertConfig``; ``dtype``/``param_dtype`` are
+    torch dtypes.  ``remat`` checkpoints each layer of the forward."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    max_seq_len: int = 512
+    type_vocab_size: int = 2
+    num_labels: int = 2
+    layer_norm_eps: float = 1e-12
+    dtype: Any = torch.bfloat16  # compute dtype
+    param_dtype: Any = torch.float32
+    remat: bool = False
+    sp_impl: str = "ring"
+
+    def __post_init__(self):
+        if self.sp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"sp_impl must be 'ring' or 'ulysses', got {self.sp_impl!r}")
+        if self.sp_impl != "ring":
+            raise NotImplementedError(
+                f"BertConfig.sp_impl={self.sp_impl!r} is not ported to accelerate_tpu_torch "
+                "yet (ROADMAP.md A6)")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @classmethod
+    def tiny(cls, **kw) -> "BertConfig":
+        defaults = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4, max_seq_len=64)
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+def _param_shapes(c: BertConfig) -> dict:
+    d, L = c.hidden_size, c.num_layers
+    return {
+        "embeddings": {
+            "word": (c.vocab_size, d),
+            "position": (c.max_seq_len, d),
+            "token_type": (c.type_vocab_size, d),
+            "ln_scale": (d,),
+            "ln_bias": (d,),
+        },
+        "layers": {
+            "w_qkv": (L, d, 3 * d),
+            "b_qkv": (L, 3 * d),
+            "w_proj": (L, d, d),
+            "b_proj": (L, d),
+            "w_up": (L, d, 4 * d),
+            "b_up": (L, 4 * d),
+            "w_down": (L, 4 * d, d),
+            "b_down": (L, d),
+            "ln_attn_scale": (L, d),
+            "ln_attn_bias": (L, d),
+            "ln_mlp_scale": (L, d),
+            "ln_mlp_bias": (L, d),
+        },
+        "pooler": {"w": (d, d), "b": (d,)},
+        "classifier": {"w": (d, c.num_labels), "b": (c.num_labels,)},
+    }
+
+
+def _init_normal_tree(shapes: dict, dtype, device, seed: int, std: float, ones, zeros) -> dict:
+    """A nested dict of tensors for a nested dict of shapes: ``ones(name)``
+    leaves one, ``zeros(name)`` leaves zero, the rest normal(0, ``std``)
+    drawn in fp32 from one ``torch.Generator`` seeded with ``seed``, each
+    2-D slice of a leaf at a time."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def one(name, shape):
+        if ones(name):
+            return torch.ones(shape, dtype=dtype, device=device)
+        if zeros(name):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for sub in out.reshape(-1, *shape[-2:]) if len(shape) >= 2 else [out]:
+            draw = torch.empty(sub.shape, dtype=torch.float32, device=device)
+            sub.copy_(draw.normal_(0.0, std, generator=gen))
+        return out
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else one(k, v) for k, v in tree.items()}
+
+    return walk(shapes)
+
+
+def init_params(config: BertConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters with the JAX package's shapes and init rule:
+    LayerNorm scales one, biases zero, every weight normal(0, 0.02), on
+    ``device`` (default ``cuda``); the numbers differ from ``jax.random``'s."""
+    return _init_normal_tree(
+        _param_shapes(config), config.param_dtype, resolve_device(device), seed, 0.02,
+        ones=lambda n: n.endswith("scale"),
+        zeros=lambda n: n.startswith("b_") or n.endswith("bias") or n == "b")
+
+
+def _attend(q, k, v, mask=None):
+    """Softmax attention over ``[B, S, H, hd]``: scores in the compute dtype,
+    then fp32 over sqrt(hd), ``mask`` (broadcast against ``[B, H, S, T]``)
+    entries out at -1e30, probabilities cast to the value dtype.  Returns
+    ``[B, S, H*hd]``."""
+    b, s, h, hd = q.shape
+    scores = torch.einsum("bshd,bthd->bhst", q, k).float() / math.sqrt(hd)
+    if mask is not None:
+        scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v).reshape(b, s, h * hd)
+
+
+def _qkv_heads(x, p, c):
+    """The fused QKV projection split into q, k, v ``[B, S, H, hd]``."""
+    b, s, _ = x.shape
+    qkv = x @ p["w_qkv"].to(c.dtype) + p["b_qkv"].to(c.dtype)
+    return qkv.reshape(b, s, 3, c.num_heads, c.head_dim).unbind(2)
+
+
+def _run_layers(x, layers: dict, remat: bool, layer_fn):
+    """``layer_fn(x, p)`` over the stacked ``[L, ...]`` layers, each layer under
+    ``torch.utils.checkpoint`` when ``remat`` and gradients are on."""
+    names = list(layers)
+    per_layer = list(zip(*(layers[k].unbind(0) for k in names)))
+
+    def layer(x, *weights):
+        return layer_fn(x, dict(zip(names, weights)))
+
+    for weights in per_layer:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, *weights, use_reentrant=False)
+        else:
+            x = layer(x, *weights)
+    return x
+
+
+def _layer(x, p, c: BertConfig, mask):
+    attn = _attend(*_qkv_heads(x, p, c), mask[:, None])
+    # Post-LN (original BERT): residual then LayerNorm.
+    x = _layer_norm(x + attn @ p["w_proj"].to(c.dtype) + p["b_proj"].to(c.dtype),
+                    p["ln_attn_scale"], p["ln_attn_bias"], c.layer_norm_eps)
+    u = F.gelu(x @ p["w_up"].to(c.dtype) + p["b_up"].to(c.dtype), approximate="tanh")
+    return _layer_norm(x + u @ p["w_down"].to(c.dtype) + p["b_down"].to(c.dtype),
+                       p["ln_mlp_scale"], p["ln_mlp_bias"], c.layer_norm_eps)
+
+
+def apply(params: dict, input_ids: torch.Tensor, config: BertConfig,
+          attention_mask: Optional[torch.Tensor] = None,
+          token_type_ids: Optional[torch.Tensor] = None):
+    """Token ids ``[B, S]`` -> (sequence output ``[B, S, d]`` in the compute
+    dtype, pooled ``[B, d]`` fp32).  ``attention_mask`` ``[B, S]`` masks
+    padded keys and queries."""
+    c = config
+    b, s = input_ids.shape
+    dev = input_ids.device
+    if attention_mask is None:
+        mask = torch.ones((b, s, s), dtype=torch.bool, device=dev)
+    else:
+        valid = attention_mask.bool()
+        mask = valid[:, None, :] & valid[:, :, None]
+    if token_type_ids is None:
+        token_type_ids = torch.zeros_like(input_ids)
+    e = params["embeddings"]
+    x = (F.embedding(input_ids.long(), e["word"]).to(c.dtype)
+         + e["position"].to(c.dtype)[:s][None]
+         + e["token_type"].to(c.dtype)[token_type_ids.long()])
+    x = _layer_norm(x, e["ln_scale"], e["ln_bias"], c.layer_norm_eps)
+    x = _run_layers(x, params["layers"], c.remat, lambda x, p: _layer(x, p, c, mask))
+    pooled = torch.tanh(x[:, 0].float() @ params["pooler"]["w"].float() + params["pooler"]["b"])
+    return x, pooled
+
+
+def _classify(params: dict, pooled: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of the fp32 classifier head over ``pooled``."""
+    logits = pooled @ params["classifier"]["w"].float() + params["classifier"]["b"]
+    return -torch.log_softmax(logits, -1).gather(-1, labels.long()[:, None]).mean()
+
+
+def classification_loss_fn(params: dict, batch: dict, config: BertConfig) -> torch.Tensor:
+    """Sequence-classification cross-entropy over ``batch["labels"]`` [B]."""
+    _, pooled = apply(params, batch["input_ids"], config,
+                      attention_mask=batch.get("attention_mask"),
+                      token_type_ids=batch.get("token_type_ids"))
+    return _classify(params, pooled, batch["labels"])

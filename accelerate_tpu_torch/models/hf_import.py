@@ -1,24 +1,35 @@
-"""HF-checkpoint import for the llama family and GPT-2: transformers
-configs and state dicts -> the port's ``(config, params)``.
+"""HF-checkpoint import: transformers configs and state dicts -> the port's
+``(config, params)``, for every family of the JAX package's
+``accelerate_tpu/models/hf_import.py``:
 
-The JAX package's ``accelerate_tpu/models/hf_import.py`` for the llama
-family, which covers LlamaForCausalLM and the architectures mapped onto it:
-Qwen2ForCausalLM (Q/K/V biases, ``attention_bias=True``), MistralForCausalLM
-(llama-shaped GQA, v0.2+; sliding-window configs refused),
-GemmaForCausalLM (GeGLU, (1 + w) RMSNorm and sqrt(d) embeddings through
-``hidden_act`` / ``rms_offset`` / ``embed_scale``) and Phi3ForCausalLM
-(fused ``qkv_proj`` / ``gate_up_proj`` split on import), with Llama-3.1's
-``rope_scaling``; and GPT2LMHeadModel / GPT2Model onto ``models/gpt2.py``
-(HF's Conv1D stores ``[in, out]``, the port's layout, so nothing is
-transposed).  The other families of the JAX module (bert, t5, mixtral, vit,
-resnet) have no port of their model yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+- ``llama``: LlamaForCausalLM and the architectures mapped onto it,
+  Qwen2ForCausalLM (Q/K/V biases, ``attention_bias=True``),
+  MistralForCausalLM (llama-shaped GQA, v0.2+; sliding-window configs
+  refused), GemmaForCausalLM (GeGLU, (1 + w) RMSNorm and sqrt(d)
+  embeddings through ``hidden_act`` / ``rms_offset`` / ``embed_scale``) and
+  Phi3ForCausalLM (fused ``qkv_proj`` / ``gate_up_proj`` split on import),
+  with Llama-3.1's ``rope_scaling``;
+- ``gpt2``: GPT2LMHeadModel / GPT2Model (HF's Conv1D stores ``[in, out]``,
+  the port's layout, so nothing is transposed);
+- ``bert``: BertForSequenceClassification / BertModel (the port's GELU is
+  the tanh approximation: an erf-GELU checkpoint computes ~1e-3 apart);
+- ``t5``: T5ForConditionalGeneration / T5Model (ReLU, tied head; the
+  relative bias from block 0 of each stack);
+- ``mixtral``: MixtralForCausalLM (experts w1/w3/w2 -> gate/up/down stacked
+  ``[L, E, ...]``, the router transposed);
+- ``vit``: ViTForImageClassification / ViTModel (the patch conv ``[d, C, p,
+  p]`` -> the patchify matmul's ``[p*p*C, d]``);
+- ``resnet``: ResNetForImageClassification / ResNetModel (v1.5 blocks, the
+  port's; conv kernels OIHW -> HWIO; the BN running statistics come as a
+  ``batch_stats`` tree: this family's import returns ``{"params": ...,
+  "batch_stats": ...}``).
 
 ``config_from_hf`` reads any object with the config's attributes, so it
 needs no ``transformers``; ``load_hf_checkpoint`` reads ``config.json`` and
 the safetensors weights with the port's own reader.  Params come back as
 the family's dict (stacked ``[L, ...]`` layers, projections stored for
-``x @ W``) of torch tensors in ``config.param_dtype``.
+``x @ W``) of torch tensors in ``config.param_dtype`` (batch statistics in
+fp32).
 """
 
 from __future__ import annotations
@@ -35,19 +46,11 @@ from ..state import resolve_device
 __all__ = ["config_from_hf", "import_state_dict", "from_hf", "load_hf_checkpoint"]
 
 _LLAMA_TYPES = ("llama", "qwen2", "mistral", "gemma", "phi3")
-# Families the JAX module imports whose models the port has not ported yet,
-# with the ROADMAP item that brings each.
-_NOT_PORTED = {"bert": "A3", "t5": "A3", "mixtral": "A3", "vit": "A3", "resnet": "A3"}
-_PORTED = ("gpt2", "llama")
-# Architecture-wrapper prefixes stripped before mapping, so ForCausalLM and
-# bare-Model state dicts map alike.
-_PREFIXES = {"llama": "model.", "gpt2": "transformer."}
-
-
-def _not_ported(family: str):
-    return NotImplementedError(
-        f"the {family} family is not ported to accelerate_tpu_torch yet (ROADMAP.md "
-        f"{_NOT_PORTED[family]}); its HF import comes with its model")
+_FAMILIES = ("bert", "gpt2", "llama", "mixtral", "resnet", "t5", "vit")
+# Architecture-wrapper prefixes stripped before mapping, so ForCausalLM,
+# ForSequenceClassification and bare-Model state dicts map alike.
+_PREFIXES = {"llama": "model.", "gpt2": "transformer.", "bert": "bert.", "t5": None,
+             "mixtral": "model.", "vit": "vit.", "resnet": "resnet."}
 
 
 def _detect_family(hf_config) -> str:
@@ -56,34 +59,27 @@ def _detect_family(hf_config) -> str:
         # qwen2, mistral, gemma and phi3 are llama-architecture variants;
         # sliding-window, gemma2 and longrope configs are refused below.
         return "llama"
-    if mt == "gpt2":
-        return "gpt2"
-    if mt in _NOT_PORTED:
-        raise _not_ported(mt)
+    if mt in _FAMILIES:
+        return mt
     raise ValueError(
-        f"Unsupported HF model_type {mt!r}; supported: "
-        f"{sorted(set(_NOT_PORTED) | set(_PORTED))} (qwen2, mistral, gemma and phi3 map "
-        "onto llama)"
+        f"Unsupported HF model_type {mt!r}; supported: {sorted(_FAMILIES)} (qwen2, mistral, "
+        "gemma and phi3 map onto llama)"
     )
 
 
 def config_from_hf(hf_config, **overrides):
-    """The port's ``LlamaConfig`` or ``GPT2Config`` from a transformers
+    """The port's config of the checkpoint's family from a transformers
     config (or any object with its attributes), with the JAX package's
     refusals: sliding windows, partial rotary, rope scaling other than
-    llama3, and activations the native MLP does not compute.  ``overrides``
-    replace fields."""
+    llama3, activations the native MLP does not compute, T5's untied heads,
+    gated MLPs and unequal stacks, ResNet's v1 downsampling and
+    non-doubling widths.  ``overrides`` replace fields."""
+    c = hf_config
+    family = _detect_family(c)
+    if family != "llama":
+        return _OTHER_CONFIGS[family](c, overrides)
     from .llama import LlamaConfig
 
-    c = hf_config
-    if _detect_family(c) == "gpt2":
-        from .gpt2 import GPT2Config
-
-        kw = dict(vocab_size=c.vocab_size, hidden_size=c.n_embd, num_layers=c.n_layer,
-                  num_heads=c.n_head, max_seq_len=c.n_positions,
-                  layer_norm_eps=float(c.layer_norm_epsilon))
-        kw.update(overrides)
-        return GPT2Config(**kw)
     mt = getattr(c, "model_type", "llama")
     if mt == "qwen2" and getattr(c, "use_sliding_window", False):
         raise ValueError(
@@ -165,6 +161,118 @@ def config_from_hf(hf_config, **overrides):
     return LlamaConfig(**kw)
 
 
+def _gpt2_config(c, overrides):
+    from .gpt2 import GPT2Config
+
+    kw = dict(vocab_size=c.vocab_size, hidden_size=c.n_embd, num_layers=c.n_layer,
+              num_heads=c.n_head, max_seq_len=c.n_positions,
+              layer_norm_eps=float(c.layer_norm_epsilon))
+    return GPT2Config(**{**kw, **overrides})
+
+
+def _bert_config(c, overrides):
+    from .bert import BertConfig
+
+    kw = dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+              num_layers=c.num_hidden_layers, num_heads=c.num_attention_heads,
+              max_seq_len=c.max_position_embeddings, type_vocab_size=c.type_vocab_size,
+              num_labels=getattr(c, "num_labels", 2), layer_norm_eps=float(c.layer_norm_eps))
+    return BertConfig(**{**kw, **overrides})
+
+
+def _t5_config(c, overrides):
+    from .t5 import T5Config
+
+    # The native T5 always unembeds through the 1/sqrt(d)-scaled shared
+    # embedding and applies plain ReLU; a separate lm_head or a gated
+    # activation would run but produce wrong logits.
+    if not getattr(c, "tie_word_embeddings", True):
+        raise ValueError(
+            "T5 import requires tie_word_embeddings=True (the native "
+            "family unembeds through the shared embedding)."
+        )
+    ff = getattr(c, "feed_forward_proj", "relu")
+    if ff not in ("relu",):
+        raise ValueError(
+            f"T5 import supports feed_forward_proj='relu' only, got {ff!r} "
+            "(gated variants have extra wi_0/wi_1 tensors the native "
+            "family does not model)."
+        )
+    ndl = getattr(c, "num_decoder_layers", None)
+    if ndl is not None and ndl != c.num_layers:
+        raise ValueError(
+            f"T5 import requires num_decoder_layers == num_layers "
+            f"(got {ndl} vs {c.num_layers}); the native family uses one "
+            "depth per stack."
+        )
+    kw = dict(vocab_size=c.vocab_size, hidden_size=c.d_model, intermediate_size=c.d_ff,
+              num_layers=c.num_layers, num_heads=c.num_heads, head_dim=c.d_kv,
+              num_buckets=c.relative_attention_num_buckets,
+              max_distance=getattr(c, "relative_attention_max_distance", 128),
+              rms_eps=float(c.layer_norm_epsilon))
+    return T5Config(**{**kw, **overrides})
+
+
+def _mixtral_config(c, overrides):
+    from .mixtral import MixtralConfig
+
+    kw = dict(vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+              intermediate_size=c.intermediate_size, num_layers=c.num_hidden_layers,
+              num_heads=c.num_attention_heads, num_kv_heads=c.num_key_value_heads,
+              num_experts=c.num_local_experts, top_k=c.num_experts_per_tok,
+              max_seq_len=c.max_position_embeddings,
+              rope_theta=float(getattr(c, "rope_theta", 1e6)), rms_eps=float(c.rms_norm_eps))
+    return MixtralConfig(**{**kw, **overrides})
+
+
+def _resnet_config(c, overrides):
+    from .resnet import ResNetConfig
+
+    block = {"bottleneck": "bottleneck", "basic": "basic"}.get(
+        getattr(c, "layer_type", "bottleneck"))
+    if block is None:
+        raise ValueError(f"Unsupported resnet layer_type {c.layer_type!r}")
+    if getattr(c, "downsample_in_first_stage", False):
+        raise ValueError(
+            "resnet import requires downsample_in_first_stage=False "
+            "(the native family strides stage 0 at 1, torchvision-style)."
+        )
+    if getattr(c, "downsample_in_bottleneck", False):
+        raise ValueError(
+            "resnet import requires downsample_in_bottleneck=False: the "
+            "native block strides the 3x3 conv (v1.5); a v1-style "
+            "checkpoint (stride on the first 1x1) has identical shapes "
+            "but different numerics, so it must be refused, not silently "
+            "mis-run."
+        )
+    width = c.embedding_size
+    e = 4 if block == "bottleneck" else 1
+    expect = [width * (2**s) * e for s in range(len(c.depths))]
+    if list(c.hidden_sizes) != expect:
+        raise ValueError(
+            f"resnet import supports the standard doubling geometry "
+            f"(hidden_sizes {expect} for embedding_size {width}); got "
+            f"{list(c.hidden_sizes)}."
+        )
+    kw = dict(block=block, stage_sizes=tuple(c.depths), width=width,
+              num_labels=getattr(c, "num_labels", 2), stem="imagenet")
+    return ResNetConfig(**{**kw, **overrides})
+
+
+def _vit_config(c, overrides):
+    from .vit import ViTConfig
+
+    kw = dict(image_size=c.image_size, patch_size=c.patch_size, num_channels=c.num_channels,
+              hidden_size=c.hidden_size, num_layers=c.num_hidden_layers,
+              num_heads=c.num_attention_heads, mlp_ratio=c.intermediate_size // c.hidden_size,
+              num_labels=getattr(c, "num_labels", 2), layer_norm_eps=float(c.layer_norm_eps))
+    return ViTConfig(**{**kw, **overrides})
+
+
+_OTHER_CONFIGS = {"gpt2": _gpt2_config, "bert": _bert_config, "t5": _t5_config,
+                  "mixtral": _mixtral_config, "resnet": _resnet_config, "vit": _vit_config}
+
+
 def _f32(t) -> torch.Tensor:
     """A tensor (or array-like) as fp32 torch, detached, where it lies."""
     return torch.as_tensor(t).detach().to(torch.float32)
@@ -174,6 +282,24 @@ def _stack(sd: dict, fmt: str, n: int, transpose: bool = False) -> torch.Tensor:
     """Per-layer tensors ``fmt.format(i)`` stacked into ``[L, ...]``."""
     mats = [_f32(sd[fmt.format(i)]) for i in range(n)]
     return torch.stack([m.T for m in mats] if transpose else mats)
+
+
+def _stack_cat(sd: dict, fmts: list, n: int, transpose: bool = False) -> torch.Tensor:
+    """Per layer, several tensors concatenated along the last axis (the
+    fused QKV layout ``[Wq | Wk | Wv]``), then stacked into ``[L, ...]``."""
+    out = []
+    for i in range(n):
+        mats = [_f32(sd[f.format(i)]) for f in fmts]
+        out.append(torch.cat([m.T for m in mats] if transpose else mats, dim=-1))
+    return torch.stack(out)
+
+
+def _head(sd: dict, name: str, d: int, n: int, like: torch.Tensor) -> dict:
+    """A classification head ``{w: [d, n], b: [n]}`` from ``name.weight`` /
+    ``name.bias``, zeros when the checkpoint has none (a bare model)."""
+    if name + ".weight" in sd:
+        return {"w": _f32(sd[name + ".weight"]).T, "b": _f32(sd[name + ".bias"])}
+    return {"w": like.new_zeros(d, n), "b": like.new_zeros(n)}
 
 
 def _import_llama(sd: dict, cfg) -> dict:
@@ -259,7 +385,181 @@ def _import_gpt2(sd: dict, cfg) -> dict:
     }
 
 
-_IMPORTERS = {"llama": _import_llama, "gpt2": _import_gpt2}
+def _encoder_layers(sd: dict, L: int, pre: str, attn: str, ln_attn: str, ln_mlp: str) -> dict:
+    """BERT's and ViT's stacked layer tree (fused QKV, projections for
+    ``x @ W``) from HF's per-layer ``query``/``key``/``value`` Linears."""
+    return {
+        "w_qkv": _stack_cat(sd, [pre + f"{attn}.{n}.weight" for n in ("query", "key", "value")],
+                            L, transpose=True),
+        "b_qkv": _stack_cat(sd, [pre + f"{attn}.{n}.bias" for n in ("query", "key", "value")], L),
+        "w_proj": _stack(sd, pre + "attention.output.dense.weight", L, transpose=True),
+        "b_proj": _stack(sd, pre + "attention.output.dense.bias", L),
+        "w_up": _stack(sd, pre + "intermediate.dense.weight", L, transpose=True),
+        "b_up": _stack(sd, pre + "intermediate.dense.bias", L),
+        "w_down": _stack(sd, pre + "output.dense.weight", L, transpose=True),
+        "b_down": _stack(sd, pre + "output.dense.bias", L),
+        "ln_attn_scale": _stack(sd, pre + ln_attn + ".weight", L),
+        "ln_attn_bias": _stack(sd, pre + ln_attn + ".bias", L),
+        "ln_mlp_scale": _stack(sd, pre + ln_mlp + ".weight", L),
+        "ln_mlp_bias": _stack(sd, pre + ln_mlp + ".bias", L),
+    }
+
+
+def _import_bert(sd: dict, cfg) -> dict:
+    d = cfg.hidden_size
+    word = _f32(sd["embeddings.word_embeddings.weight"])
+    params = {
+        "embeddings": {
+            "word": word,
+            "position": _f32(sd["embeddings.position_embeddings.weight"]),
+            "token_type": _f32(sd["embeddings.token_type_embeddings.weight"]),
+            "ln_scale": _f32(sd["embeddings.LayerNorm.weight"]),
+            "ln_bias": _f32(sd["embeddings.LayerNorm.bias"]),
+        },
+        "layers": _encoder_layers(sd, cfg.num_layers, "encoder.layer.{}.", "attention.self",
+                                  "attention.output.LayerNorm", "output.LayerNorm"),
+        "pooler": _head(sd, "pooler.dense", d, d, word),
+    }
+    params["classifier"] = _head(sd, "classifier", d, cfg.num_labels, word)
+    return params
+
+
+def _import_t5_stack(sd: dict, cfg, stack: str) -> dict:
+    L = cfg.num_layers
+    pre = f"{stack}.block.{{}}."
+    out = {
+        "wq": _stack(sd, pre + "layer.0.SelfAttention.q.weight", L, transpose=True),
+        "wk": _stack(sd, pre + "layer.0.SelfAttention.k.weight", L, transpose=True),
+        "wv": _stack(sd, pre + "layer.0.SelfAttention.v.weight", L, transpose=True),
+        "wo": _stack(sd, pre + "layer.0.SelfAttention.o.weight", L, transpose=True),
+        "ln_attn": _stack(sd, pre + "layer.0.layer_norm.weight", L),
+    }
+    mlp = 2 if stack == "decoder" else 1
+    out["w_up"] = _stack(sd, pre + f"layer.{mlp}.DenseReluDense.wi.weight", L, transpose=True)
+    out["w_down"] = _stack(sd, pre + f"layer.{mlp}.DenseReluDense.wo.weight", L, transpose=True)
+    out["ln_mlp"] = _stack(sd, pre + f"layer.{mlp}.layer_norm.weight", L)
+    if stack == "decoder":
+        for n in ("q", "k", "v", "o"):
+            out[f"cross_w{n}"] = _stack(sd, pre + f"layer.1.EncDecAttention.{n}.weight", L,
+                                        transpose=True)
+        out["ln_cross"] = _stack(sd, pre + "layer.1.layer_norm.weight", L)
+    return out
+
+
+def _import_t5(sd: dict, cfg) -> dict:
+    # Tied aliases of shared.weight that T5 serializes: consumed.
+    for alias in ("lm_head.weight", "encoder.embed_tokens.weight", "decoder.embed_tokens.weight"):
+        sd.get(alias)
+    rel = "{}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+    return {
+        "shared_embed": _f32(sd["shared.weight"]),
+        "enc_rel_bias": _f32(sd[rel.format("encoder")]),
+        "dec_rel_bias": _f32(sd[rel.format("decoder")]),
+        "encoder": _import_t5_stack(sd, cfg, "encoder"),
+        "decoder": _import_t5_stack(sd, cfg, "decoder"),
+        "enc_final_ln": _f32(sd["encoder.final_layer_norm.weight"]),
+        "dec_final_ln": _f32(sd["decoder.final_layer_norm.weight"]),
+    }
+
+
+def _import_mixtral(sd: dict, cfg) -> dict:
+    L, E = cfg.num_layers, cfg.num_experts
+    pre = "layers.{}."
+
+    def experts(which: str) -> torch.Tensor:  # [L, E, in, out]
+        return torch.stack([torch.stack([
+            _f32(sd[f"layers.{i}.block_sparse_moe.experts.{j}.{which}.weight"]).T
+            for j in range(E)]) for i in range(L)])
+
+    params = {
+        "embed": _f32(sd["embed_tokens.weight"]),
+        "layers": {
+            "wq": _stack(sd, pre + "self_attn.q_proj.weight", L, transpose=True),
+            "wk": _stack(sd, pre + "self_attn.k_proj.weight", L, transpose=True),
+            "wv": _stack(sd, pre + "self_attn.v_proj.weight", L, transpose=True),
+            "wo": _stack(sd, pre + "self_attn.o_proj.weight", L, transpose=True),
+            "router": _stack(sd, pre + "block_sparse_moe.gate.weight", L, transpose=True),
+            "w_gate": experts("w1"),
+            "w_up": experts("w3"),
+            "w_down": experts("w2"),
+            "ln_attn": _stack(sd, pre + "input_layernorm.weight", L),
+            "ln_mlp": _stack(sd, pre + "post_attention_layernorm.weight", L),
+        },
+        "final_norm": _f32(sd["norm.weight"]),
+    }
+    head = sd.get("lm_head.weight")
+    params["lm_head"] = _f32(head).T if head is not None else params["embed"].T
+    return params
+
+
+def _import_vit(sd: dict, cfg) -> dict:
+    p = cfg.patch_size
+    conv = _f32(sd["embeddings.patch_embeddings.projection.weight"])  # [d, C, p, p]
+    d = conv.shape[0]
+    emb = {
+        # The patchify matmul's rows run over (patch row, patch column, channel).
+        "patch_w": conv.permute(2, 3, 1, 0).reshape(p * p * cfg.num_channels, d),
+        "patch_b": _f32(sd["embeddings.patch_embeddings.projection.bias"]),
+        "position": _f32(sd["embeddings.position_embeddings"])[0],
+    }
+    if cfg.pool == "cls":
+        emb["cls"] = _f32(sd["embeddings.cls_token"])
+    return {
+        "embeddings": emb,
+        "layers": _encoder_layers(sd, cfg.num_layers, "encoder.layer.{}.",
+                                  "attention.attention", "layernorm_before", "layernorm_after"),
+        "final_ln": {"scale": _f32(sd["layernorm.weight"]), "bias": _f32(sd["layernorm.bias"])},
+        "classifier": _head(sd, "classifier", d, cfg.num_labels, conv),
+    }
+
+
+def _import_resnet(sd: dict, cfg) -> dict:
+    """HF ResNet (v1.5: the stride on the 3x3, the port's block) ->
+    ``{"params": ..., "batch_stats": ...}``: the BN running statistics are
+    state here, imported beside the weights."""
+
+    def conv(key):  # OIHW -> HWIO
+        return _f32(sd[key]).permute(2, 3, 1, 0)
+
+    def bn(prefix, site, params_out, stats_out):
+        params_out[f"{site}_scale"] = _f32(sd[prefix + ".weight"])
+        params_out[f"{site}_bias"] = _f32(sd[prefix + ".bias"])
+        stats_out[f"{site}_mean"] = _f32(sd[prefix + ".running_mean"])
+        stats_out[f"{site}_var"] = _f32(sd[prefix + ".running_var"])
+
+    n_convs = 3 if cfg.block == "bottleneck" else 2
+
+    def block(lp):
+        p, st = {}, {}
+        for j in range(n_convs):
+            p[f"conv{j + 1}_w"] = conv(lp + f"layer.{j}.convolution.weight")
+            bn(lp + f"layer.{j}.normalization", f"bn{j + 1}", p, st)
+        if lp + "shortcut.convolution.weight" in sd:
+            p["proj_w"] = conv(lp + "shortcut.convolution.weight")
+            bn(lp + "shortcut.normalization", "proj_bn", p, st)
+        return p, st
+
+    params: dict = {"stem": {"conv_w": conv("embedder.embedder.convolution.weight")}}
+    stats: dict = {"stem": {}}
+    bn("embedder.embedder.normalization", "bn", params["stem"], stats["stem"])
+    for s, depth in enumerate(cfg.stage_sizes):
+        head_p, head_s = block(f"encoder.stages.{s}.layers.0.")
+        params[f"stage{s}"], stats[f"stage{s}"] = {"head": head_p}, {"head": head_s}
+        if depth > 1:
+            tails = [block(f"encoder.stages.{s}.layers.{i}.") for i in range(1, depth)]
+            params[f"stage{s}"]["tail"] = {k: torch.stack([t[0][k] for t in tails])
+                                           for k in tails[0][0]}
+            stats[f"stage{s}"]["tail"] = {k: torch.stack([t[1][k] for t in tails])
+                                          for k in tails[0][1]}
+    d_out = cfg.stage_channels(len(cfg.stage_sizes) - 1) * cfg.expansion
+    params["classifier"] = _head(sd, "classifier.1", d_out, cfg.num_labels,
+                                 params["stem"]["conv_w"])
+    return {"params": params, "batch_stats": stats}
+
+
+_IMPORTERS = {"llama": _import_llama, "gpt2": _import_gpt2, "bert": _import_bert,
+              "t5": _import_t5, "mixtral": _import_mixtral, "vit": _import_vit,
+              "resnet": _import_resnet}
 
 
 class _RecordingDict(dict):
@@ -289,15 +589,17 @@ class _RecordingDict(dict):
 _IGNORABLE = tuple(re.compile(p) for p in (
     r"(^|\.)position_ids$",
     r"(^|\.)rotary_emb\.inv_freq$",
+    r"(^|\.)attention\.self\.distance_embedding\.weight$",
     r"(^|\.)masked_bias$",
     r"(^|\.)attn\.bias$",  # gpt2's causal-mask buffer
+    r"(^|\.)num_batches_tracked$",  # BN bookkeeping (the momentum here is a constant)
 ))
 
 
-def _strip_prefix(sd: dict, prefix: str) -> dict:
-    """Drop the family's wrapper prefix (``model.``, ``transformer.``), so
-    ForCausalLM and bare-Model state dicts map alike."""
-    if any(k.startswith(prefix) for k in sd):
+def _strip_prefix(sd: dict, prefix) -> dict:
+    """Drop the family's wrapper prefix (``model.``, ``transformer.``, ...),
+    so ForCausalLM and bare-Model state dicts map alike."""
+    if prefix and any(k.startswith(prefix) for k in sd):
         return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
     return sd
 
@@ -305,18 +607,16 @@ def _strip_prefix(sd: dict, prefix: str) -> dict:
 def import_state_dict(family: str, state_dict: dict, config, strict: bool = True,
                       consume_source: bool = False, device=None) -> dict:
     """A transformers state dict mapped onto the port's params of
-    ``family`` (``"llama"`` or ``"gpt2"``), cast to ``config.param_dtype``,
-    on ``device`` (None: where the checkpoint's tensors lie).
+    ``family`` (one of ``_FAMILIES``), cast to ``config.param_dtype`` (a
+    resnet's batch statistics to fp32), on ``device`` (None: where the
+    checkpoint's tensors lie).
 
     ``strict`` (default) raises if a checkpoint tensor was not consumed by
     the mapping: a dropped tensor means the model computes something else
     than the checkpoint.  ``consume_source`` empties the caller's dict, so
     each source tensor is freed as it is mapped."""
-    if family in _NOT_PORTED:
-        raise _not_ported(family)
     if family not in _IMPORTERS:
-        raise ValueError(f"Unknown family {family!r}; supported: "
-                         f"{sorted(set(_NOT_PORTED) | set(_PORTED))}")
+        raise ValueError(f"Unknown family {family!r}; supported: {sorted(_IMPORTERS)}")
     stripped = _strip_prefix(dict(state_dict), _PREFIXES[family])
     if consume_source:
         state_dict.clear()
@@ -335,15 +635,17 @@ def import_state_dict(family: str, state_dict: dict, config, strict: bool = True
             )
     dev = None if device is None else resolve_device(device)
 
-    def cast(t):
-        return t.to(device=dev or t.device, dtype=config.param_dtype).contiguous()
+    def cast(tree: dict, dtype) -> dict:
+        out = {}
+        for k in list(tree):  # one leaf at a time: the fp32 staging tree shrinks as it goes
+            v = tree.pop(k)
+            if isinstance(v, dict):
+                out[k] = cast(v, torch.float32 if k == "batch_stats" else dtype)
+            else:
+                out[k] = v.to(device=dev or v.device, dtype=dtype).contiguous()
+        return out
 
-    out = {k: cast(v) for k, v in params.items() if k != "layers"}
-    layers = params.pop("layers")
-    out["layers"] = {}
-    for k in list(layers):  # one leaf at a time: the fp32 staging tree shrinks as it goes
-        out["layers"][k] = cast(layers.pop(k))
-    return out
+    return cast(params, config.param_dtype)
 
 
 def load_hf_checkpoint(path: str, strict: bool = True, quantize: Optional[str] = None,

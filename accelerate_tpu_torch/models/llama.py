@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import sys
 from typing import Any, Optional
 
 import torch
@@ -276,13 +277,19 @@ class LlamaForCausalLM(nn.Module):
     ...), so a ``model.safetensors`` the JAX package saved for a llama loads
     unchanged."""
 
+    @staticmethod
+    def _family():
+        """The module whose functions this class wraps (a subclass in another
+        family's module names that module)."""
+        return sys.modules[__name__]
+
     def __init__(self, config: LlamaConfig, params: Optional[dict] = None, *,
                  seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
         if params is None:
-            params = init_params(config, seed=seed, device=dev)
+            params = self._family().init_params(config, seed=seed, device=dev)
         self.top = nn.ParameterDict(
             {k: nn.Parameter(v.to(dev)) for k, v in params.items() if k != "layers"})
         self.layers = nn.ParameterDict(
@@ -296,10 +303,11 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids: torch.Tensor, cache: Optional[dict] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None):
+        fam = self._family()
         if cache is not None:
-            return apply_cached(self.params, input_ids, self.config, cache)
+            return fam.apply_cached(self.params, input_ids, self.config, cache)
         batch = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
-        return {"loss": loss_fn(self.params, batch, self.config)}
+        return {"loss": fam.loss_fn(self.params, batch, self.config)}
 
     def _forward_cast_at_use(self, compute_dtype: torch.dtype, input_ids: torch.Tensor,
                              cache: Optional[dict] = None,
@@ -311,17 +319,19 @@ class LlamaForCausalLM(nn.Module):
         weights inside its (checkpointed) layer of :func:`apply_hidden`, so
         a layer's 16-bit copy lives only while the layer runs and again
         while the backward recomputes it."""
+        fam = self._family()
         params = self.params
         cast = {k: v.to(compute_dtype) for k, v in params.items() if k != "layers"}
         if cache is not None:
             cast["layers"] = {k: v.to(compute_dtype) for k, v in params["layers"].items()}
-            return apply_cached(cast, input_ids, self.config, cache)
+            return fam.apply_cached(cast, input_ids, self.config, cache)
         cast["layers"] = params["layers"]
         batch = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
-        return {"loss": loss_fn(cast, batch, self.config, layer_dtype=compute_dtype)}
+        return {"loss": fam.loss_fn(cast, batch, self.config, layer_dtype=compute_dtype)}
 
     def generate(self, input_ids: torch.Tensor, max_new_tokens: int, **kw) -> torch.Tensor:
-        return generate(self.params, input_ids, self.config, max_new_tokens, **kw)
+        return self._family().generate(self.params, input_ids, self.config, max_new_tokens,
+                                       **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -329,17 +339,25 @@ class LlamaForCausalLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or in its own dtype where that is wider (fp64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    # fp32 statistics regardless of compute dtype.
-    x32 = x.float()
+    # fp32 statistics regardless of compute dtype (fp64 stays fp64).
+    x32 = _wide(x)
     rms = torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
     return (x32 * rms).to(x.dtype) * scale.to(x.dtype)
 
 
 def _norm(x: torch.Tensor, scale: torch.Tensor, c) -> torch.Tensor:
     """RMSNorm with gemma's ``(1 + w)`` scale (multiplied in fp32 before the
-    downcast) when ``rms_offset``, the plain llama scale otherwise."""
-    if c.rms_offset:
+    downcast) when ``rms_offset``, the plain llama scale otherwise.  The
+    shared helpers read the optional llama fields with their defaults, as
+    the JAX ones do, so a config without them (mixtral's) takes the plain
+    path."""
+    if getattr(c, "rms_offset", False):
         x32 = x.float()
         rms = torch.rsqrt(x32.square().mean(-1, keepdim=True) + c.rms_eps)
         return (x32 * rms * (1.0 + scale.float())).to(x.dtype)
@@ -348,7 +366,7 @@ def _norm(x: torch.Tensor, scale: torch.Tensor, c) -> torch.Tensor:
 
 def _act(x: torch.Tensor, c) -> torch.Tensor:
     """Gate activation: SwiGLU's silu, or gemma's tanh-approximate GeLU."""
-    if c.hidden_act == "gelu_tanh":
+    if getattr(c, "hidden_act", "silu") == "gelu_tanh":
         return F.gelu(x, approximate="tanh")
     return F.silu(x)
 
@@ -454,7 +472,7 @@ def embed_tokens(params: dict, input_ids: torch.Tensor, config: LlamaConfig) -> 
     """Token embedding lookup in the compute dtype; ``embed_scale``
     multiplies by sqrt(d) cast to the compute dtype (gemma convention)."""
     x = F.embedding(input_ids.long(), params["embed"]).to(config.dtype)
-    if config.embed_scale:
+    if getattr(config, "embed_scale", False):
         x = x * torch.tensor(config.hidden_size**0.5, dtype=config.dtype)
     return x
 
@@ -496,9 +514,10 @@ def _use_fused(c: LlamaConfig, s: int, head_dim: int, device: torch.device) -> b
     the TPU."""
     from ..ops.flash_attention import pick_block_pallas
 
-    if c.attention_impl == "pallas":
+    impl = getattr(c, "attention_impl", "auto")
+    if impl == "pallas":
         return True
-    return (c.attention_impl == "auto" and device.type == "cuda" and s >= 1024
+    return (impl == "auto" and device.type == "cuda" and s >= 1024
             and _flash_block(s) is not None and pick_block_pallas(s, head_dim) is not None)
 
 
@@ -518,7 +537,8 @@ def _attend(q, k, v, c: LlamaConfig, kv_valid):
                 f"64/128/256/512/1024 or at most 1024; got seq_len={s}"
             )
         return fused_attention(q, k, v, causal=True, block_size=blk, kv_valid=kv_valid)
-    if (c.attention_impl == "flash" or (c.attention_impl == "auto" and s >= 1024)) and (
+    impl = getattr(c, "attention_impl", "auto")
+    if (impl == "flash" or (impl == "auto" and s >= 1024)) and (
         _flash_block(s) is not None
     ):
         from ..ops.flash_attention import flash_attention
@@ -538,7 +558,7 @@ def attention_block(x, p, c: LlamaConfig, positions, kv_valid=None) -> torch.Ten
     h = _norm(x, p["ln_attn"], c)
     b, s, _ = h.shape
     q, k, v = _qkv_proj(h, p, c, b, s)
-    q, k = _rope(q, k, positions, c.rope_theta, c.rope_scaling)
+    q, k = _rope(q, k, positions, c.rope_theta, getattr(c, "rope_scaling", None))
     return x + _out_proj(_attend(q, k, v, c, kv_valid), p, c)
 
 
@@ -682,33 +702,52 @@ def apply_cached(params: dict, input_ids: torch.Tensor, config: LlamaConfig, cac
     (logits ``[B, S, V]`` fp32, cache).  The cache tensors are written in
     place (JAX returns updated copies); the returned dict shares them and
     carries the advanced index."""
-    from .generation import cache_write, check_cache_room
+    from .generation import check_cache_room
 
     c = config
     b, s = input_ids.shape
     index = int(cache["index"])
-    max_len = cache["k"].shape[2]
-    check_cache_room(index, s, max_len)
-    dev = input_ids.device
-    positions = (index + torch.arange(s, device=dev)).expand(b, s)
+    check_cache_room(index, s, cache["k"].shape[2])
+    positions, mask = _cache_positions_and_mask(index, b, s, cache, input_ids.device)
     x = embed_tokens(params, input_ids, c)
-    mask = (positions[:, :, None] >= torch.arange(max_len, device=dev)[None, None, :])
-    groups = c.num_heads // c.num_kv_heads
-    quant = "k_scale" in cache
-
-    def layer_leaf(name, i):
-        return (cache[name][i], cache[name + "_scale"][i]) if quant else cache[name][i]
-
     for i in range(c.num_layers):
         p = _layer_params(params, i)
-        h = _norm(x, p["ln_attn"], c)
-        q, k, v = _qkv_proj(h, p, c, b, s)
-        q, k = _rope(q, k, positions, c.rope_theta, c.rope_scaling)
-        k_full = cache_write(layer_leaf("k", i), k, index, c.dtype)
-        v_full = cache_write(layer_leaf("v", i), v, index, c.dtype)
-        attn = _attention(q, k_full, v_full, mask, groups)
-        x = _out_proj_and_mlp(x, attn, p, c)
+        x = _attention_block_cached(x, p, c, _cache_layer(cache, "k", i),
+                                    _cache_layer(cache, "v", i), index, positions, mask)
+        x = _mlp_block(x, p, c)
     return unembed(params, x, c), dict(cache, index=index + s)
+
+
+def _cache_positions_and_mask(index: int, b: int, s: int, cache: dict, device):
+    """Positions ``[B, S]`` of ``S`` new tokens written at ``index`` and the
+    causal mask ``[B, S, max_len]`` over the dense cache."""
+    positions = (index + torch.arange(s, device=device)).expand(b, s)
+    max_len = cache["k"].shape[2]
+    return positions, positions[:, :, None] >= torch.arange(max_len, device=device)[None, None, :]
+
+
+def _cache_layer(cache: dict, name: str, i: int):
+    """Layer ``i`` of the cache leaf ``name``: a tensor, or (codes, scale)
+    of the int8 cache."""
+    if "k_scale" in cache:
+        return cache[name][i], cache[name + "_scale"][i]
+    return cache[name][i]
+
+
+def _attention_block_cached(x, p, c, ck, cv, index: int, positions, mask) -> torch.Tensor:
+    """Pre-norm attention sub-block against the dense cache, with residual
+    (shared by llama and mixtral, as in the JAX package): writes the new
+    K/V rows at ``index`` into ``ck`` / ``cv`` (layer views of the cache,
+    in place) and attends over the whole cache under ``mask``."""
+    from .generation import cache_write
+
+    b, s, _ = x.shape
+    h = _norm(x, p["ln_attn"], c)
+    q, k, v = _qkv_proj(h, p, c, b, s)
+    q, k = _rope(q, k, positions, c.rope_theta, getattr(c, "rope_scaling", None))
+    k_full = cache_write(ck, k, index, c.dtype)
+    v_full = cache_write(cv, v, index, c.dtype)
+    return x + _out_proj(_attention(q, k_full, v_full, mask, c.num_heads // c.num_kv_heads), p, c)
 
 
 @torch.no_grad()
@@ -753,7 +792,7 @@ def apply_paged(params: dict, input_ids: torch.Tensor, config: LlamaConfig, pool
             pk, pv = pk_all[i], pv_all[i]
         h = _norm(x, p["ln_attn"], c)
         q, k, v = _qkv_proj(h, p, c, b, t)
-        q, k = _rope(q, k, positions, c.rope_theta, c.rope_scaling)
+        q, k = _rope(q, k, positions, c.rope_theta, getattr(c, "rope_scaling", None))
         if use_kernel:
             k_store = k.to(pk.dtype).contiguous()
             v_store = v.to(pv.dtype).contiguous()

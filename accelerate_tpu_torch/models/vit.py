@@ -1,0 +1,184 @@
+"""ViT in PyTorch: the JAX package's ``accelerate_tpu/models/vit.py`` with the
+same parameter tree, numerics and public contracts.
+
+The patch embedding is a reshape + ``[p*p*C, d]`` matmul (a strided conv
+computes the same), pre-LN transformer blocks, learned position
+embeddings, CLS-token or mean pooling and a classification head.  Pixels
+are channels-last ``[B, H, W, C]``, as in the JAX package (transpose NCHW
+inputs before calling).  Parameters are a plain dict of tensors laid out as
+the JAX pytree (per-layer weights stacked on a leading ``[L, ...]`` axis,
+projections stored for ``x @ W``); the GELU is the tanh approximation.
+
+Attention is the einsum path, as in the JAX package off its sequence-
+parallel mesh: no kernel of this module is hand-written.
+``sp_impl="ulysses"`` raises (ROADMAP A6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..state import resolve_device
+from .bert import _attend, _classify, _init_normal_tree, _qkv_heads, _run_layers
+from .gpt2 import _layer_norm
+
+__all__ = ["ViTConfig", "init_params", "apply", "classification_loss_fn"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    """Field for field the JAX ``ViTConfig``; ``dtype``/``param_dtype`` are
+    torch dtypes."""
+
+    image_size: int = 224
+    patch_size: int = 16
+    num_channels: int = 3
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_ratio: int = 4
+    num_labels: int = 1000
+    pool: str = "cls"  # "cls" | "mean"
+    layer_norm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16  # compute dtype
+    param_dtype: Any = torch.float32
+    remat: bool = False
+    sp_impl: str = "ring"
+
+    def __post_init__(self):
+        if self.image_size % self.patch_size:
+            raise ValueError(
+                f"image_size {self.image_size} must be divisible by patch_size {self.patch_size}"
+            )
+        if self.hidden_size % self.num_heads:
+            raise ValueError("hidden_size must be divisible by num_heads")
+        if self.pool not in ("cls", "mean"):
+            raise ValueError(f"pool must be 'cls' or 'mean', got {self.pool!r}")
+        if self.sp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"sp_impl must be 'ring' or 'ulysses', got {self.sp_impl!r}")
+        if self.sp_impl != "ring":
+            raise NotImplementedError(
+                f"ViTConfig.sp_impl={self.sp_impl!r} is not ported to accelerate_tpu_torch "
+                "yet (ROADMAP.md A6)")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + (1 if self.pool == "cls" else 0)
+
+    def num_params(self) -> int:
+        def count(tree):
+            return sum(count(v) if isinstance(v, dict) else math.prod(v) for v in tree.values())
+
+        return count(_param_shapes(self))
+
+    @classmethod
+    def tiny(cls, **kw) -> "ViTConfig":
+        defaults = dict(image_size=32, patch_size=8, hidden_size=64, num_layers=2,
+                        num_heads=4, num_labels=10)
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
+    def vit_base_16(cls, **kw) -> "ViTConfig":
+        return cls(**kw)  # the defaults are ViT-B/16
+
+    @classmethod
+    def vit_large_16(cls, **kw) -> "ViTConfig":
+        defaults = dict(hidden_size=1024, num_layers=24, num_heads=16)
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+def _param_shapes(c: ViTConfig) -> dict:
+    d, L, m = c.hidden_size, c.num_layers, c.mlp_ratio
+    emb = {
+        "patch_w": (c.patch_size * c.patch_size * c.num_channels, d),
+        "patch_b": (d,),
+        "position": (c.seq_len, d),
+    }
+    if c.pool == "cls":
+        emb["cls"] = (1, 1, d)
+    return {
+        "embeddings": emb,
+        "layers": {
+            "w_qkv": (L, d, 3 * d),
+            "b_qkv": (L, 3 * d),
+            "w_proj": (L, d, d),
+            "b_proj": (L, d),
+            "w_up": (L, d, m * d),
+            "b_up": (L, m * d),
+            "w_down": (L, m * d, d),
+            "b_down": (L, d),
+            "ln_attn_scale": (L, d),
+            "ln_attn_bias": (L, d),
+            "ln_mlp_scale": (L, d),
+            "ln_mlp_bias": (L, d),
+        },
+        "final_ln": {"scale": (d,), "bias": (d,)},
+        "classifier": {"w": (d, c.num_labels), "b": (c.num_labels,)},
+    }
+
+
+def init_params(config: ViTConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters with the JAX package's shapes and init rule:
+    LayerNorm scales one; biases, LayerNorm biases and the CLS token zero;
+    position embeddings and weights normal(0, 0.02); on ``device`` (default
+    ``cuda``); the numbers differ from ``jax.random``'s."""
+    return _init_normal_tree(
+        _param_shapes(config), config.param_dtype, resolve_device(device), seed, 0.02,
+        ones=lambda n: n.endswith("_scale") or n == "scale",
+        zeros=lambda n: (n.startswith("b_") or n.endswith("_bias")
+                         or n in ("bias", "b", "patch_b", "cls")))
+
+
+def _patchify(pixels: torch.Tensor, c: ViTConfig) -> torch.Tensor:
+    """``[B, H, W, C]`` -> ``[B, N, p*p*C]``, rows in (patch row, patch
+    column, channel) order."""
+    b, hgt, wid, ch = pixels.shape
+    p = c.patch_size
+    x = pixels.reshape(b, hgt // p, p, wid // p, p, ch).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (hgt // p) * (wid // p), p * p * ch)
+
+
+def _layer(x, p, c: ViTConfig):
+    n = _layer_norm(x, p["ln_attn_scale"], p["ln_attn_bias"], c.layer_norm_eps)
+    x = x + _attend(*_qkv_heads(n, p, c)) @ p["w_proj"].to(c.dtype) + p["b_proj"].to(c.dtype)
+    n = _layer_norm(x, p["ln_mlp_scale"], p["ln_mlp_bias"], c.layer_norm_eps)
+    u = F.gelu(n @ p["w_up"].to(c.dtype) + p["b_up"].to(c.dtype), approximate="tanh")
+    return x + u @ p["w_down"].to(c.dtype) + p["b_down"].to(c.dtype)
+
+
+def apply(params: dict, pixels: torch.Tensor, config: ViTConfig):
+    """Channels-last pixels ``[B, H, W, C]`` -> (token features ``[B, S, d]``
+    in the compute dtype, pooled ``[B, d]`` fp32)."""
+    c = config
+    e = params["embeddings"]
+    x = _patchify(pixels.to(c.dtype), c) @ e["patch_w"].to(c.dtype) + e["patch_b"].to(c.dtype)
+    if c.pool == "cls":
+        cls = e["cls"].to(c.dtype).expand(x.shape[0], 1, c.hidden_size)
+        x = torch.cat([cls, x], dim=1)
+    x = x + e["position"].to(c.dtype)[None]
+    x = _run_layers(x, params["layers"], c.remat, lambda x, p: _layer(x, p, c))
+    x = _layer_norm(x, params["final_ln"]["scale"], params["final_ln"]["bias"], c.layer_norm_eps)
+    xf = x.float()
+    return x, (xf[:, 0] if c.pool == "cls" else xf.mean(1))
+
+
+def classification_loss_fn(params: dict, batch: dict, config: ViTConfig) -> torch.Tensor:
+    """Image-classification cross-entropy over ``batch["pixel_values"]``
+    ``[B, H, W, C]`` and ``batch["labels"]`` ``[B]``."""
+    _, pooled = apply(params, batch["pixel_values"], config)
+    return _classify(params, pooled, batch["labels"])

@@ -1,0 +1,168 @@
+"""Mixture-of-Experts routing and expert FFN: the JAX package's
+``accelerate_tpu/ops/moe.py`` with the same numerics.
+
+- **Dense dispatch** (Switch-Transformer style): routing is two einsums
+  against a ``[B, S, E, C]`` dispatch/combine tensor.  Each expert takes at
+  most ``C = ceil(S * k * cf / E)`` tokens of a batch row; the overflow is
+  dropped (it contributes zero and the residual carries it).
+- **Ragged** (:func:`moe_ffn_ragged`): the tokens sorted by expert and each
+  expert's contiguous rows through its own matmuls, ``S * k`` rows in all
+  and no token dropped; the JAX ``lax.ragged_dot``.
+
+The router runs in fp32, the experts in ``compute_dtype``.  These are
+``torch`` ops, as the JAX ones are XLA ops: no kernel of this module is
+hand-written.  The JAX module's ``ep`` sharding constraints have no
+counterpart here: the port runs on one device.
+
+Aux losses follow the Switch/Mixtral recipe: the load-balance loss (router
+probability mass times token fraction per expert) and the router z-loss.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["router", "dispatch_combine", "moe_ffn", "moe_ffn_ragged", "expert_capacity"]
+
+
+def expert_capacity(seq_len: int, num_experts: int, top_k: int, capacity_factor: float) -> int:
+    """Tokens-per-expert budget for one routing group (= one batch row)."""
+    return max(1, int(math.ceil(seq_len * top_k * capacity_factor / num_experts)))
+
+
+def router(x: torch.Tensor, w_router: torch.Tensor):
+    """Routing probabilities.  x: ``[B, S, d]``, w_router: ``[d, E]`` ->
+    (probs, logits), both ``[B, S, E]`` in fp32."""
+    logits = torch.einsum("bsd,de->bse", x.float(), w_router.float())
+    return torch.softmax(logits, dim=-1), logits
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """The ``k`` largest routing probabilities and their experts, ties to the
+    lower expert index as ``jax.lax.top_k`` breaks them (``torch.topk``
+    promises no order for ties): a stable descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _gates(probs: torch.Tensor, top_k: int):
+    """Top-k gates renormalized to sum to one per token (Mixtral) and their
+    experts."""
+    gates, idx = _top_k(probs, top_k)
+    return gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9), idx
+
+
+def dispatch_combine(probs: torch.Tensor, top_k: int, capacity: int):
+    """Dispatch/combine tensors from routing probabilities ``[B, S, E]``:
+    (dispatch ``[B, S, E, C]`` 0/1 fp32, combine ``[B, S, E, C]`` fp32, aux
+    dict).  A position in an expert's buffer is assigned greedily in
+    sequence order, one top-k slot at a time: slot 0 of every token before
+    slot 1 of any token."""
+    b, s, e = probs.shape
+    gates, idx = _gates(probs, top_k)
+    dev = probs.device
+    dispatch = torch.zeros((b, s, e, capacity), dtype=torch.float32, device=dev)
+    combine = torch.zeros((b, s, e, capacity), dtype=torch.float32, device=dev)
+    count = torch.zeros((b, e), dtype=torch.float32, device=dev)  # tokens admitted per expert
+    kept_gate_mass = torch.zeros((), dtype=torch.float32, device=dev)
+    for slot in range(top_k):
+        onehot = F.one_hot(idx[..., slot], e).float()  # [B, S, E]
+        pos = torch.cumsum(onehot, dim=1) - 1.0 + count[:, None, :]
+        keep = (pos < capacity).float() * onehot
+        count = count + keep.sum(1)
+        pos_idx = pos.clamp(0, capacity - 1).long()
+        slot_dispatch = keep[..., None] * F.one_hot(pos_idx, capacity).float()
+        dispatch = dispatch + slot_dispatch
+        combine = combine + gates[..., slot, None, None] * slot_dispatch
+        kept_gate_mass = kept_gate_mass + (gates[..., slot] * keep.sum(-1)).sum()
+    # Gate mass lost to capacity overflow, in [0, 1].
+    return dispatch, combine, {"fraction_dropped": 1.0 - kept_gate_mass / float(b * s)}
+
+
+def load_balancing_loss(probs: torch.Tensor, dispatch: torch.Tensor) -> torch.Tensor:
+    """Switch-Transformer load-balance loss: E * sum_e f_e * p_e, where f_e is
+    the fraction of tokens dispatched to expert e and p_e the mean router
+    probability."""
+    return _balance(probs, dispatch.sum((1, 3)))
+
+
+def _balance(probs: torch.Tensor, tokens_per_expert: torch.Tensor) -> torch.Tensor:
+    e = probs.shape[-1]
+    f = tokens_per_expert / torch.clamp_min(tokens_per_expert.sum(-1, keepdim=True), 1.0)
+    return e * (f * probs.mean(1)).sum(-1).mean()
+
+
+def router_z_loss(logits: torch.Tensor) -> torch.Tensor:
+    """Penalizes large router logits (ST-MoE)."""
+    return torch.logsumexp(logits, dim=-1).square().mean()
+
+
+def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor, *, top_k: int = 2, capacity_factor: float = 1.25,
+            capacity: Optional[int] = None, compute_dtype=torch.bfloat16):
+    """SwiGLU expert FFN with top-k routing through the dense dispatch.
+
+    x: ``[B, S, d]``; w_router: ``[d, E]``; w_gate/w_up: ``[E, d, f]``;
+    w_down: ``[E, f, d]``.  Returns (y ``[B, S, d]`` in ``x.dtype``, aux
+    losses)."""
+    s = x.shape[1]
+    e = w_gate.shape[0]
+    if capacity is None:
+        capacity = expert_capacity(s, e, top_k, capacity_factor)
+    cd = compute_dtype
+    probs, logits = router(x, w_router)
+    dispatch, combine, aux = dispatch_combine(probs, top_k, capacity)
+    xe = torch.einsum("bsec,bsd->becd", dispatch.to(cd), x.to(cd))
+    gate = F.silu(torch.einsum("becd,edf->becf", xe, w_gate.to(cd)))
+    up = torch.einsum("becd,edf->becf", xe, w_up.to(cd))
+    ye = torch.einsum("becf,efd->becd", gate * up, w_down.to(cd))
+    y = torch.einsum("bsec,becd->bsd", combine.to(cd), ye)
+    aux = dict(aux, load_balancing_loss=load_balancing_loss(probs, dispatch),
+               router_z_loss=router_z_loss(logits))
+    return y.to(x.dtype), aux
+
+
+def moe_ffn_ragged(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
+                   w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int = 2,
+                   compute_dtype=torch.bfloat16):
+    """Exact MoE FFN over the tokens grouped by expert (the JAX
+    ``lax.ragged_dot`` path): ``S * k`` rows, no capacity padding, no token
+    dropped.  Same contract as :func:`moe_ffn` minus the capacity knobs;
+    ``fraction_dropped`` is zero.
+
+    The group sizes come to the host to slice the sorted rows: one
+    synchronisation per MoE layer.  Each token's k expert outputs are summed
+    in fp32 in slot order, a fixed order whatever device runs it (the JAX
+    scatter-add; with k = 2 the two orders give the same bits)."""
+    b, s, d = x.shape
+    e = w_gate.shape[0]
+    cd = compute_dtype
+    probs, logits = router(x, w_router)
+    gates, idx = _gates(probs, top_k)
+    n = b * s * top_k
+    expert_of = idx.reshape(n)
+    order = torch.argsort(expert_of, stable=True)
+    token_of = torch.arange(b * s, device=x.device).repeat_interleave(top_k)
+    rows = x.reshape(b * s, d).to(cd)[token_of[order]]  # [N, d] grouped by expert
+    sizes = torch.bincount(expert_of, minlength=e).tolist()  # the host sync
+    outs = []
+    for j, r in enumerate(rows.split(sizes)):
+        gate = F.silu(r @ w_gate[j].to(cd))
+        outs.append((gate * (r @ w_up[j].to(cd))) @ w_down[j].to(cd))
+    weighted = torch.cat(outs).float() * gates.reshape(n)[order][:, None]
+    # Back to (token, slot) order, then the k outputs of a token summed.
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(n, device=x.device)
+    y = weighted[inverse].reshape(b * s, top_k, d).sum(1)
+    # Every routed token is kept: the dispatch mass is the top-k assignment.
+    tokens_per_expert = F.one_hot(idx, e).float().sum(2).sum(1)  # [B, E]
+    aux = {
+        "load_balancing_loss": _balance(probs, tokens_per_expert),
+        "router_z_loss": router_z_loss(logits),
+        "fraction_dropped": torch.zeros((), dtype=torch.float32, device=x.device),
+    }
+    return y.reshape(b, s, d).to(x.dtype), aux

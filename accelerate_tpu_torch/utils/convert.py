@@ -1,6 +1,8 @@
-"""Conversion from the JAX package's pytrees to the port's: the llama and
-GPT-2 parameters (:func:`llama_params_from_jax`,
-:func:`gpt2_params_from_jax`) and the llama AdamW state
+"""Conversion from the JAX package's pytrees to the port's: the parameters
+of every family (:func:`llama_params_from_jax`, :func:`gpt2_params_from_jax`,
+:func:`mixtral_params_from_jax`, :func:`bert_params_from_jax`,
+:func:`vit_params_from_jax`, :func:`resnet_params_from_jax` with the batch
+statistics, :func:`t5_params_from_jax`) and the llama AdamW state
 (:func:`adamw_state_from_optax`).
 
 The port keeps the JAX layout on purpose — per-layer weights stacked on a
@@ -17,12 +19,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models import bert as _bert
+from ..models import resnet as _resnet
+from ..models import t5 as _t5
+from ..models import vit as _vit
 from ..models.gpt2 import GPT2Config
 from ..models.gpt2 import _param_shapes as _gpt2_param_shapes
 from ..models.llama import LlamaConfig, _param_shapes
+from ..models.mixtral import MixtralConfig
+from ..models.mixtral import _param_shapes as _mixtral_param_shapes
 from ..state import resolve_device
 
-__all__ = ["adamw_state_from_optax", "gpt2_params_from_jax", "llama_params_from_jax"]
+__all__ = ["adamw_state_from_optax", "bert_params_from_jax", "gpt2_params_from_jax",
+           "llama_params_from_jax", "mixtral_params_from_jax", "resnet_params_from_jax",
+           "t5_params_from_jax", "vit_params_from_jax"]
 
 
 def _params_from_jax(np_params: dict, shapes: dict, dtype, device) -> dict:
@@ -64,6 +74,47 @@ def gpt2_params_from_jax(np_params: dict, config: GPT2Config, device=None) -> di
     checked copy into ``config.param_dtype`` on ``device`` (default
     ``cuda``); a missing, extra or misshapen leaf raises ``ValueError``."""
     return _params_from_jax(np_params, _gpt2_param_shapes(config), config.param_dtype, device)
+
+
+def mixtral_params_from_jax(np_params: dict, config: MixtralConfig, device=None) -> dict:
+    """``np_params``: the JAX ``mixtral.init_params`` tree with numpy (or any
+    array-like) leaves.  Both packages lay out every leaf alike (the
+    router ``[L, d, E]``, the experts ``[L, E, d, f]`` / ``[L, E, f, d]``),
+    so this is a checked copy into ``config.param_dtype`` on ``device``
+    (default ``cuda``); a missing, extra or misshapen leaf raises
+    ``ValueError``."""
+    return _params_from_jax(np_params, _mixtral_param_shapes(config), config.param_dtype, device)
+
+
+def bert_params_from_jax(np_params: dict, config: "_bert.BertConfig", device=None) -> dict:
+    """The JAX ``bert.init_params`` tree (numpy leaves) as the port's, a
+    checked copy (see :func:`gpt2_params_from_jax`)."""
+    return _params_from_jax(np_params, _bert._param_shapes(config), config.param_dtype, device)
+
+
+def vit_params_from_jax(np_params: dict, config: "_vit.ViTConfig", device=None) -> dict:
+    """The JAX ``vit.init_params`` tree (numpy leaves) as the port's, a
+    checked copy; the ``cls`` token exists only under ``pool="cls"``."""
+    return _params_from_jax(np_params, _vit._param_shapes(config), config.param_dtype, device)
+
+
+def resnet_params_from_jax(np_params: dict, np_stats: dict, config: "_resnet.ResNetConfig",
+                           device=None):
+    """The JAX ``resnet`` parameter and batch-statistics trees (numpy
+    leaves) as the port's ``(params, batch_stats)``: both keep the JAX
+    layouts (HWIO kernels, stacked ``tail`` blocks), so each is a checked
+    copy, the parameters into ``config.param_dtype``, the statistics into
+    fp32."""
+    return (_params_from_jax(np_params, _resnet._param_shapes(config), config.param_dtype,
+                             device),
+            _params_from_jax(np_stats, _resnet._stats_shapes(config), torch.float32, device))
+
+
+def t5_params_from_jax(np_params: dict, config: "_t5.T5Config", device=None) -> dict:
+    """The JAX ``t5.init_params`` tree (numpy leaves) as the port's, a
+    checked copy of both stacks, the shared embedding and the two
+    relative-bias tables."""
+    return _params_from_jax(np_params, _t5._param_shapes(config), config.param_dtype, device)
 
 
 def _find_adam_state(tree):

@@ -245,11 +245,49 @@ Phases (each fails the run on any mismatch; nothing is caught):
    under ``build/phase11`` holds them exactly, and ``release_memory``
    leaves the card holding the parameters and AdamW's moments alone.
 
+12. Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's published widths through
+   the port's ``config_from_hf``: vocab 32000, d 4096, FFN 14336, 32 q / 8
+   kv heads of 128, 8 experts, top-2, rope_theta 1e6, eps 1e-5, untied head;
+   46,702,792,704 parameters at 32 layers; random weights from seed 0).
+   12a: 2 of 32 layers (3,164,688,384 parameters; fp32 parameters,
+   gradients and AdamW state of the 32 would be ~747 GB), bf16 compute,
+   ``remat=True``, ``moe_impl="dense"``: the first step on the kernel path
+   against the plain path (fp32 activations: loss and every gradient
+   within a relative 1e-4; bf16: loss within 1e-4 of itself, every
+   gradient within a relative 5e-2), then 5 steps of the README loop at
+   B 2 x S 2048 (B 1 if the reckoned peak reaches 72 GB): the flash
+   kernels launched 2L / L / L = 4 / 2 / 2 a step, the fifth step profiled
+   and naming the sm90 forward, dQ and dK/dV, step time, tokens/s, the
+   active-path share of the bf16 peak beside the dense dispatch's
+   capacity padding, the aux losses; then one step with
+   ``moe_impl="ragged"`` on the last batch, whose expert FFN equals the
+   dense one within the bf16 tolerance on every token with no slot
+   dropped.  12b: 8 of 32 layers in bf16 (11,872,309,248 parameters,
+   drawn straight into bf16) served through ``prepare_serving`` on the
+   dense gather path (the family has no ``apply_paged``) with Phase 2's
+   geometry and traffic, prefix cache off, ``spec_tokens=0``: every
+   request token-identical to greedy decoding with the engine's slices
+   (``mixtral.generate(prefill_chunk=256)`` for whole slices) or parting
+   at a near tie; TTFT, ITL and decode tokens/s.
+
+13. BERT-base, ViT-B/16, ResNet-50 and T5-base at their published widths
+   and full depth (google-bert/bert-base-uncased, google/vit-base-patch16-224,
+   microsoft/resnet-50, google-t5/t5-base through ``config_from_hf``;
+   random weights from seed 0): the fp32 first step on the card (TF32 off)
+   against the CPU at B 2 (loss and every gradient within a relative 1e-4,
+   ResNet's new batch stats within 1e-5), the HF export -> import round
+   trip bit-identical, then 5 bf16 AdamW steps on one batch (BERT 32 x
+   128, ViT 64, ResNet 64 at 224 with the batch stats carried, T5 16 x 512
+   / 128): finite, falling, step time and tokens or images a second; T5's
+   greedy ``generate`` of 16 tokens equal on the card and the CPU, and a
+   4-beam ``generate_beam``.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
 ``launches_phase10``, the flash kernels' Phase 10d and 10e launches as
-``launches_phase10d`` and ``launches_phase10e``, the paged kernels' Phase
+``launches_phase10d`` and ``launches_phase10e``, their Phase 12 launches
+as ``launches_phase12``, the paged kernels' Phase
 11 launches as ``launches_phase11`` and 11a's records as
 ``gpt2_xl_heads``, the flash kernels' fp32 Phase 4
 records as ``fp32``, the head dims each takes as ``head_dims`` and
@@ -1200,12 +1238,14 @@ def plain_flash():
         fu.fused_attention_fwd, fu.fused_attention_bwd = saved
 
 
-def loss_and_grads(model, cfg, batch):
+def loss_and_grads(model, cfg, batch, family=None):
+    """The loss and every parameter's gradient of ``model`` on ``batch`` under
+    ``cfg`` (the ``family`` module's ``loss_fn``, llama's by default)."""
     import torch
 
     from accelerate_tpu_torch.models import llama
 
-    loss = llama.loss_fn(model.params, batch, cfg)
+    loss = (family or llama).loss_fn(model.params, batch, cfg)
     return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
 
 
@@ -3036,19 +3076,48 @@ def phase10b(smi):
     return out, params16
 
 
-def kernel_vs_plain_step(model, cfg, first, tag):
+@contextlib.contextmanager
+def routing(record=None, replay=None):
+    """Inside the block ``ops.moe``'s top-k appends each call's experts to
+    ``record``, or, with ``replay``, takes the experts of ``replay`` in call
+    order (the gates are this path's own probabilities at those experts):
+    a second path through an MoE model routes every token as the first."""
+    from accelerate_tpu_torch.ops import moe
+
+    saved = moe._top_k
+    pinned = iter(replay) if replay is not None else None
+
+    def top_k(probs, k):
+        if pinned is not None:
+            idx = next(pinned)
+            return probs.gather(-1, idx), idx
+        vals, idx = saved(probs, k)
+        record.append(idx)
+        return vals, idx
+
+    moe._top_k = top_k
+    try:
+        yield
+    finally:
+        moe._top_k = saved
+
+
+def kernel_vs_plain_step(model, cfg, first, tag, family=None, pin_routing=False):
     """The first step's loss and gradients on the kernel path against the
     plain path (the fused op's plain versions): with fp32 activations loss
     and every leaf within a relative 1e-4, as Phase 5, and the flash
     kernels launched 2L / L / L (the forward again under remat); in bf16 the loss
     within ``PHASE10_BF16_LOSS_REL`` of itself and every leaf within a
-    relative ``BF16_GRAD_TOL``."""
+    relative ``BF16_GRAD_TOL``.  ``pin_routing`` (an MoE model): the bf16
+    plain path routes every token as the kernel path did (:func:`routing`),
+    and a third, unpinned plain run logs how many top-k choices the bf16
+    differences flip and what the flips do to the loss and gradients."""
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     reset_flash_counts()
-    loss_k, grads_k = loss_and_grads(model, cfg32, first)
+    loss_k, grads_k = loss_and_grads(model, cfg32, first, family)
     counts32 = read_flash_counts()
     with plain_flash():
-        loss_p, grads_p = loss_and_grads(model, cfg32, first)
+        loss_p, grads_p = loss_and_grads(model, cfg32, first, family)
     rel = max(((gk - gp).abs().max() / gp.abs().max()).item()
               for gk, gp in zip(grads_k, grads_p))
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
@@ -3062,14 +3131,32 @@ def kernel_vs_plain_step(model, cfg, first, tag):
           f"{tag} fp32 step launched the flash kernels {counts32}, want (2L, L, L)")
     del grads_k, grads_p
     torch.cuda.empty_cache()
-    loss_k, grads_k = loss_and_grads(model, cfg, first)
-    with plain_flash():
-        loss_p, grads_p = loss_and_grads(model, cfg, first)
+    record = []
+    with routing(record=record) if pin_routing else contextlib.nullcontext():
+        loss_k, grads_k = loss_and_grads(model, cfg, first, family)
+    with plain_flash(), routing(replay=record) if pin_routing else contextlib.nullcontext():
+        loss_p, grads_p = loss_and_grads(model, cfg, first, family)
     loss_k, loss_p = loss_k.item(), loss_p.item()
     rels = [((gk - gp).abs().max() / gp.abs().max()).item() for gk, gp in zip(grads_k, grads_p)]
+    if pin_routing:
+        free = []
+        with plain_flash(), routing(record=free):
+            loss_u, grads_u = loss_and_grads(model, cfg, first, family)
+        flips = sum(int((a != b).sum()) for a, b in zip(record, free))
+        total = sum(a.numel() for a in record)
+        rel_u = max(((gu - gk).abs().max() / gk.abs().max()).item()
+                    for gu, gk in zip(grads_u, grads_k))
+        log(f"{tag} bf16 first step, plain path routed on its own: {flips} of {total} top-k "
+            f"choices differ from the kernel path's (forward and recompute); loss "
+            f"{loss_u.item():.5f} against the kernel path's {loss_k:.5f}, max over leaves of "
+            f"max|diff|/max|kernel| {rel_u:.3e}: a flip moves the token to another expert "
+            f"and shifts every later token's place in both experts' capacity")
+        del grads_u
     names = [nm for nm, _ in model.named_parameters()]
     loss_lim = PHASE10_BF16_LOSS_REL * abs(loss_p)
-    log(f"{tag} bf16 first step, kernel vs plain path: loss {loss_k:.5f} vs {loss_p:.5f} "
+    log(f"{tag} bf16 first step, kernel vs plain path"
+        + (" (the plain path routed as the kernel path)" if pin_routing else "")
+        + f": loss {loss_k:.5f} vs {loss_p:.5f} "
         f"(|diff| {abs(loss_k - loss_p):.3e}, limit {loss_lim:.3e} = "
         f"{PHASE10_BF16_LOSS_REL} of the loss); per gradient leaf max|diff|/max|plain|: "
         + " ".join(f"{nm}={r:.3e}" for nm, r in zip(names, rels)) + f" (limit {BF16_GRAD_TOL})")
@@ -3079,14 +3166,17 @@ def kernel_vs_plain_step(model, cfg, first, tag):
     torch.cuda.empty_cache()
 
 
-def readme_loop(model, cfg, rows, b, tag, smi, traced, mixed_precision="bf16"):
+def readme_loop(model, cfg, rows, b, tag, smi, traced, mixed_precision="bf16",
+                flops_per_step=None):
     """The README loop under ``Accelerator(mixed_precision=...)``:
     ``prepare(model, AdamW, DataLoader(rows, batch_size=b), LambdaLR)``, one
     step a batch, the last profiled.  Logs and returns the losses, step time
     (median of steps 2 on), tokens/s, peak memory, the profiled step's idle
     share and device time by group, the flash launches of each step and the
     launches in the profiled step of each kernel named in ``traced``; frees
-    what the accelerator holds."""
+    what the accelerator holds.  ``flops_per_step`` replaces the dense
+    decoder's model FLOPs (6 x the product parameters x tokens plus the
+    causal attention) in the peak share."""
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.data import DataLoader
 
@@ -3126,9 +3216,11 @@ def readme_loop(model, cfg, rows, b, tag, smi, traced, mixed_precision="bf16"):
     n, v, d, L, s = (cfg.num_params(), cfg.vocab_size, cfg.hidden_size, cfg.num_layers,
                      len(rows[0]["input_ids"]))
     tokens = b * s
-    dense = n - (0 if cfg.tie_embeddings else v * d)  # the embedding lookup is no product
-    pairs = s * (s + 1) // 2
-    flops = 6 * dense * tokens + L * 3.5 * 4 * b * cfg.num_heads * cfg.head_dim_ * pairs
+    flops = flops_per_step
+    if flops is None:
+        dense = n - (0 if cfg.tie_embeddings else v * d)  # the embedding lookup is no product
+        pairs = s * (s + 1) // 2
+        flops = 6 * dense * tokens + L * 3.5 * 4 * b * cfg.num_heads * cfg.head_dim_ * pairs
     ms = median(step_s[1:]) * 1e3
     idle = 1 - busy / (step_s[-1] * 1e3)
     compute = "bf16" if mixed_precision == "bf16" or cfg.dtype == torch.bfloat16 else "fp32"
@@ -3585,6 +3677,555 @@ def phase11(smi):
     return dict(kernels=kernels, serving=serving, train=train, counts=counts)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: Mixtral-8x7B's widths: training (the flash kernels on an MoE
+# model's path) and serving on the dense gather path
+# ---------------------------------------------------------------------------
+
+
+# mistralai/Mixtral-8x7B-v0.1's published config.json values.
+MIXTRAL_8X7B = dict(
+    model_type="mixtral", architectures=["MixtralForCausalLM"], vocab_size=32000,
+    hidden_size=4096, intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, num_local_experts=8, num_experts_per_tok=2,
+    max_position_embeddings=32768, rope_theta=1e6, rms_norm_eps=1e-5,
+    tie_word_embeddings=False, sliding_window=None, hidden_act="silu", torch_dtype="bfloat16")
+MIXTRAL_8X7B_PARAMS = 46_702_792_704
+PHASE12A_LAYERS, PHASE12B_LAYERS = 2, 8
+PHASE12_GEOMETRY = dict(PHASE2_GEOMETRY, prefix_cache=False)
+# The bf16 flash kernels at head dim 128, as a profiler names them.
+SM90_FLASH_128 = ("flash_fwd_sm90_kernel<__nv_bfloat16, 128>",
+                  "flash_bwd_dq_sm90_kernel<__nv_bfloat16, 128",
+                  "flash_bwd_dkv_sm90_kernel<__nv_bfloat16, 128")
+
+
+def mixtral_config(layers, **overrides):
+    """Mixtral-8x7B's config, built by the port's ``config_from_hf`` from its
+    published ``config.json`` values, cut to ``layers`` layers."""
+    from types import SimpleNamespace
+
+    from accelerate_tpu_torch.models.hf_import import config_from_hf
+
+    return config_from_hf(SimpleNamespace(**dict(MIXTRAL_8X7B, num_hidden_layers=layers)),
+                          **overrides)
+
+
+def moe_ragged_vs_dense(params, cfg, batch):
+    """Each layer's expert FFN on the dense model's own layer inputs, dense
+    dispatch against the ragged grouped matmul in bf16: the largest gap over
+    the tokens whose every top-k slot the dense dispatch kept, relative to
+    the largest dense output; and the share of tokens with a dropped slot."""
+    from accelerate_tpu_torch.models import llama, mixtral
+    from accelerate_tpu_torch.ops import moe
+
+    c = cfg
+    ids = batch["input_ids"]
+    b, s = ids.shape
+    positions = torch.arange(s, device=ids.device).expand(b, s)
+    capacity = moe.expert_capacity(s, c.num_experts, c.top_k, c.capacity_factor)
+    gaps, dropped = [], []
+    with torch.no_grad():
+        x = llama.embed_tokens(params, ids, c)
+        for i in range(c.num_layers):
+            p = {k: v[i].to(c.dtype) for k, v in params["layers"].items()}
+            x = llama.attention_block(x, p, c, positions)
+            h = llama._rms_norm(x, p["ln_mlp"], c.rms_eps)
+            w = (p["router"], p["w_gate"], p["w_up"], p["w_down"])
+            y, _ = moe.moe_ffn(h, *w, top_k=c.top_k, capacity=capacity, compute_dtype=c.dtype)
+            yr, _ = moe.moe_ffn_ragged(h, *w, top_k=c.top_k, compute_dtype=c.dtype)
+            probs, _ = moe.router(h, p["router"])
+            dispatch, _, _ = moe.dispatch_combine(probs, c.top_k, capacity)
+            kept = dispatch.sum((2, 3)) == c.top_k  # [B, S]: no slot dropped
+            gaps.append(((yr - y).float().abs()[kept].max() / y.float().abs().max()).item())
+            dropped.append(1.0 - kept.float().mean().item())
+            x = x + y
+    return gaps, dropped
+
+
+def phase12a(smi):
+    """Mixtral-8x7B's widths at 2 of 32 layers (fp32 parameters, AdamW state
+    and gradients of the 32 would be ~747 GB) trained through the README
+    loop under ``mixed_precision="bf16"``, ``remat=True``,
+    ``moe_impl="dense"``: the first step on the kernel path against the
+    plain path (fp32 activations: loss and every gradient within a relative
+    1e-4; bf16: loss within 1e-4 of itself, every gradient within 5e-2);
+    5 steps of ``prepare(model, AdamW, DataLoader, LambdaLR)`` launching
+    the flash kernels 2L / L / L = 4 / 2 / 2 a step, the fifth profiled;
+    then one step with ``moe_impl="ragged"`` on the last batch, whose expert
+    FFN must equal the dense one within the bf16 tolerance on every token
+    the dense dispatch dropped nothing of."""
+    from accelerate_tpu_torch.models import mixtral
+
+    cfg = mixtral_config(PHASE12A_LAYERS, dtype=torch.bfloat16, param_dtype=torch.float32,
+                         remat=True, moe_impl="dense")
+    full = mixtral_config(32)
+    check(full.num_params() == MIXTRAL_8X7B_PARAMS,
+          f"Mixtral-8x7B counts {full.num_params()} parameters")
+    n, v, d, f, L, s = (cfg.num_params(), cfg.vocab_size, cfg.hidden_size,
+                        cfg.intermediate_size, cfg.num_layers, PHASE10_S)
+    e, k = cfg.num_experts, cfg.top_k
+    cap = math.ceil(s * k * cfg.capacity_factor / e)
+
+    # The peak, reckoned: fp32 parameters, gradients and AdamW's two moments
+    # (16 B a parameter), the bf16 copies of the embedding and head, one
+    # layer's bf16 weights, the logits chain (14 B a logit), the saved layer
+    # inputs and one recomputed layer's expert activations (x, gate, up and
+    # their product over E x C rows, bf16, with gradients).
+    def reckon(b):
+        layer = n // L
+        return (16 * n + 2 * 2 * v * d + 2 * layer + b * s * v * 14 + L * b * s * d * 2
+                + b * e * cap * (d + 3 * f) * 2 * 2)
+
+    b = PHASE10_B if reckon(PHASE10_B) < PHASE10_PEAK_LIMIT else 1
+    log(f"phase12a Mixtral-8x7B from config_from_hf(mistralai/Mixtral-8x7B-v0.1 config.json): "
+        f"vocab {v} d {d} ffn {f} heads {cfg.num_heads}/{cfg.num_kv_heads} head_dim "
+        f"{cfg.head_dim_} experts {e} top-{k} rope_theta {cfg.rope_theta} eps {cfg.rms_eps}, "
+        f"untied head; all 32 layers {full.num_params()} parameters ({2 * full.num_params()} "
+        f"bytes in bf16); depth cut to {L} layers: {n} parameters, {16 * n} bytes of fp32 "
+        f"training state, bf16 copies {2 * n}; reckoned peak at B 2 x S {s} {reckon(2)} bytes, "
+        f"at B 1 {reckon(1)}, limit {PHASE10_PEAK_LIMIT:.0f}: B {b}; capacity {cap} tokens an "
+        f"expert a row (cf {cfg.capacity_factor})")
+    t0 = time.perf_counter()
+    model = mixtral.MixtralForCausalLM(cfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"phase12a init_s={time.perf_counter() - t0:.1f}")
+    rng = np.random.default_rng(12)
+    ids = rng.integers(0, v, size=(b * PHASE10_STEPS, s))
+    rows = [{"input_ids": torch.from_numpy(r)} for r in ids]
+    first = {"input_ids": torch.from_numpy(ids[:b]).cuda()}
+    kernel_vs_plain_step(model, cfg, first, "phase12a", family=mixtral, pin_routing=True)
+    # Active-path FLOPs (top-k experts a token) against the dense dispatch's
+    # E x C rows: the expert products it computes are this much larger.
+    tokens = b * s
+    active = cfg.flops_per_token() * tokens
+    pad = e * cap / (s * k)
+    out = readme_loop(model, cfg, rows, b, "phase12a", smi, SM90_FLASH_128,
+                      flops_per_step=active)
+    losses, per_step = out["losses"], out["per_step"]
+    check(all(math.isfinite(x) for x in losses), f"phase12a non-finite loss {losses}")
+    check(per_step == [(2 * L, L, L)] * PHASE10_STEPS,
+          f"phase12a flash launches per step {per_step}, want (2L, L, L) = {(2 * L, L, L)}")
+    check(all(out["traced"].values()), f"the trace lacks an sm90 flash kernel: {out['traced']}")
+    last = {"input_ids": torch.from_numpy(ids[-b:]).cuda()}
+    params = model.params
+    with torch.no_grad():
+        cast = {k_: v_.to(cfg.dtype) for k_, v_ in params.items() if k_ != "layers"}
+        cast["layers"] = params["layers"]
+        _, aux = mixtral.apply_hidden(cast, last["input_ids"], cfg, layer_dtype=cfg.dtype)
+    aux = {k_: float(v_) for k_, v_ in aux.items()}
+    log(f"phase12a active-path share of the bf16 peak (flops_per_token x tokens, top-{k} "
+        f"experts) {active / (out['ms'] / 1e3) / PEAK_FLOPS['torch.bfloat16']:.4f}; the dense "
+        f"dispatch computes E x C = {e * cap} expert rows a sequence for S x k = {s * k} "
+        f"routed ({pad:.4f}x); after the steps, on the last batch: aux losses (mean over "
+        f"layers) {aux}; {smi}")
+    # One more step, with the ragged grouped matmul, on the same (last)
+    # batch: its forward and backward timed in turns with the dense one's
+    # (dense, ragged, ragged, dense; the optimizer's state exists already),
+    # then the AdamW update with the ragged gradients.
+    fresh_state()
+    from accelerate_tpu_torch import Accelerator
+
+    acc = Accelerator(mixed_precision="bf16")
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
+    pmodel, opt = acc.prepare(model, opt)
+    fwd_bwd = {"dense": [], "ragged": []}
+    for impl in ("dense", "ragged", "ragged", "dense", "dense", "ragged"):
+        model.config = dataclasses.replace(cfg, moe_impl=impl)
+        opt.zero_grad()
+        reset_flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = pmodel(**last)["loss"]
+        acc.backward(loss)
+        torch.cuda.synchronize()
+        fwd_bwd[impl].append((time.perf_counter() - t0) * 1e3)
+    ragged_counts = read_flash_counts()
+    opt.step()
+    opt.zero_grad()
+    model.config = cfg
+    gaps, dropped = moe_ragged_vs_dense(model.params, cfg, last)
+    ragged_ms = median(fwd_bwd["ragged"][1:])
+    log(f"phase12a moe_impl='ragged' step on the last batch: loss {loss.item():.5f}; forward+"
+        f"backward ms in turns, dense {[round(x, 2) for x in fwd_bwd['dense']]} ragged "
+        f"{[round(x, 2) for x in fwd_bwd['ragged']]} (the first of each warms up; the ragged "
+        f"path brings the group sizes to the host once a layer) flash launches "
+        f"{ragged_counts}; per layer, ragged against dense expert FFN on the dense model's "
+        f"inputs over tokens with no slot dropped: max|diff| / max|dense| {gaps} (limit "
+        f"{TOL['torch.bfloat16']}), tokens with a dropped slot {dropped}")
+    check(math.isfinite(loss.item()), "phase12a ragged loss is not finite")
+    check(tuple(ragged_counts.values()) == (2 * L, L, L),
+          f"phase12a ragged step launched the flash kernels {ragged_counts}")
+    check(max(gaps) <= TOL["torch.bfloat16"], f"phase12a ragged differs from dense: {gaps}")
+    out.update(aux=aux, ragged_ms=ragged_ms, dense_fwd_bwd_ms=median(fwd_bwd["dense"][1:]),
+               gaps=gaps, dropped=dropped, pad=pad,
+               active_share=active / (out["ms"] / 1e3) / PEAK_FLOPS["torch.bfloat16"])
+    nones = acc.free_memory(pmodel, opt)
+    del pmodel, opt, model, params, cast, loss, nones
+    gc_collect()
+    return out
+
+
+@torch.no_grad()
+def chunked_greedy(params, cfg, prompt, max_new, chunk, pad):
+    """Greedy decoding through ``mixtral.apply_cached`` with the prompt fed in
+    slices of ``chunk``: ``mixtral.generate(prefill_chunk=chunk)`` when
+    ``pad`` is False; with ``pad`` the last slice is zero-padded to
+    ``chunk`` tokens, as the serving engine pads it (the padding competes for
+    expert capacity).  Returns the tokens and each generated token's logits
+    row (on the host)."""
+    from accelerate_tpu_torch.models import mixtral
+
+    n = len(prompt)
+    total = -(-n // chunk) * chunk if pad else n
+    cache = mixtral.init_cache(cfg, 1, total + max_new)
+    ids = torch.tensor([prompt], device="cuda")
+    for start in range(0, n, chunk):
+        piece = ids[:, start:start + chunk]
+        real = piece.shape[1]
+        if pad and real < chunk:
+            piece = torch.cat([piece, piece.new_zeros(1, chunk - real)], 1)
+        logits, cache = mixtral.apply_cached(params, piece, cfg, cache)
+        cache = dict(cache, index=start + real)
+        row = logits[0, real - 1]
+    out, rows = list(prompt), []
+    for i in range(max_new):
+        rows.append(row.float().cpu())
+        tok = int(row.argmax())
+        out.append(tok)
+        if i + 1 < max_new:
+            logits, cache = mixtral.apply_cached(params, torch.tensor([[tok]], device="cuda"),
+                                                 cfg, cache)
+            row = logits[0, -1]
+    return out, rows
+
+
+def check_mixtral_greedy(what, ref, rows, other, start):
+    """``other`` equal to ``ref``, or parting from it first where the two
+    tokens lie within ``NEAR_TIE`` in the reference path's logits."""
+    if list(ref) == list(other):
+        return "identical"
+    i = next(j for j in range(start, len(ref)) if ref[j] != other[j])
+    gap = float(rows[i - start][ref[i]] - rows[i - start][other[i]])
+    check(abs(gap) <= NEAR_TIE,
+          f"{what}: differs from greedy at token {i - start} with a logit gap of {gap:.4f}")
+    return f"near-tie divergence at token {i - start} (gap {gap:.4f})"
+
+
+def phase12b(smi):
+    """Mixtral-8x7B's widths at 8 of 32 layers in bf16 (seed 0, drawn leaf
+    by leaf straight into bf16), served through
+    ``Accelerator().prepare_serving(mixtral.apply_cached, mixtral.init_cache)``
+    with Phase 2's geometry and traffic (prefix cache off, so every prompt
+    is prefilled in the same slices), ``spec_tokens=0``: the family has no
+    ``apply_paged``, so ``decode_path`` is ``"dense"`` and no paged kernel
+    runs.  Speculation is left out: a W-token verify window routes W tokens
+    at that window's capacity, so it cannot be token-identical to one-token
+    decoding by construction.  A prompt of whole 256-token slices must give
+    the tokens of greedy ``mixtral.generate(prefill_chunk=256)``; the engine
+    pads a shorter last slice with zeros, and the padding competes for the
+    slice's expert capacity, so those prompts are held to the same
+    decoding with the padded slice (each or parting at a near tie)."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import mixtral
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    gc_collect()
+    cfg = mixtral_config(PHASE12B_LAYERS, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = mixtral.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"phase12b Mixtral-8x7B widths cut to {cfg.num_layers} of 32 layers, bf16: "
+        f"{cfg.num_params()} parameters, {2 * cfg.num_params()} bytes; init_s="
+        f"{time.perf_counter() - t0:.1f} (memory_allocated {torch.cuda.memory_allocated()})")
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in PHASE2_PROMPT_LENS]
+    max_new, chunk = 32, PHASE12_GEOMETRY["prefill_chunk"]
+    fresh_state()
+    engine = Accelerator().prepare_serving(mixtral.apply_cached, mixtral.init_cache, params, cfg,
+                                           spec_tokens=0, **PHASE12_GEOMETRY)
+    check(engine.decode_path == "dense", f"phase12b decode_path {engine.decode_path}")
+    engine.submit(list(rng.integers(0, cfg.vocab_size, size=40)), 4)  # warm-up
+    engine.run()
+    engine.pop_finished()
+    base_s, base_tok = engine.decode_seconds, engine.decode_emitted_tokens
+    base = engine.decode_dispatches
+    reset_counts()
+    done, wall, ids = serve(engine, prompts, max_new, stagger_ticks=3)
+    check(read_counts() == (0, 0), f"phase12b launched paged kernels {read_counts()}")
+    check(len(done) == len(prompts), f"phase12b {len(done)} completed")
+    labels = []
+    for rid, p in zip(ids, prompts):
+        c = done[rid]
+        check(c.status == "ok" and c.new_tokens == max_new,
+              f"phase12b request {rid}: {c.status} with {c.new_tokens} tokens")
+        whole = len(p) % chunk == 0
+        ref, rows = chunked_greedy(params, cfg, p, max_new, chunk, pad=not whole)
+        if whole:
+            gen = mixtral.generate(params, torch.tensor([p], device="cuda"), cfg, max_new,
+                                   prefill_chunk=chunk)[0].tolist()
+            check(gen == ref, "phase12b generate differs from its own chunked decoding")
+        labels.append(("generate: " if whole else "padded last slice: ") + check_mixtral_greedy(
+            f"phase12b request {rid}", ref, rows, c.tokens, len(p)))
+    gaps = [x for c in done.values() for x in c.inter_token_ms]
+    ttft = median([c.ttft_ms for c in done.values()])
+    itl, itl_mean = median(gaps), sum(gaps) / len(gaps)
+    decode_tps = (engine.decode_emitted_tokens - base_tok) / (engine.decode_seconds - base_s)
+    st = engine.stats()
+    log(f"phase12b Mixtral bf16 serving, decode_path={engine.decode_path}: {len(done)} "
+        f"requests, decode_dispatches={engine.decode_dispatches - base} prefill_dispatches="
+        f"{st['prefill_dispatches']} wall_s={wall:.3f} ttft_p50_ms={ttft:.1f} itl_p50_ms="
+        f"{itl:.2f} itl_mean_ms={itl_mean:.2f} decode_tokens_per_s={decode_tps:.1f} preempted="
+        f"{st['preempted']}; against greedy decoding: {labels}; {smi}")
+    del engine, params
+    gc_collect()
+    return dict(ttft_p50_ms=ttft, itl_p50_ms=itl, itl_mean_ms=itl_mean,
+                decode_tokens_per_s=decode_tps, labels=labels, paged=pa.paged_attention.launches)
+
+
+def phase12(smi):
+    """12a Mixtral training at 2 layers, 12b its serving at 8 layers."""
+    gc_collect()
+    t0 = time.perf_counter()
+    train = phase12a(smi)
+    t1 = time.perf_counter()
+    serving = phase12b(smi)
+    log(f"phase12 seconds: 12a {t1 - t0:.1f}, 12b {time.perf_counter() - t1:.1f}")
+    return dict(train=train, serving=serving, counts=train["counts"])
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: BERT, ViT, ResNet and T5 at their published widths, full depth
+# ---------------------------------------------------------------------------
+
+
+# The published config.json values of google-bert/bert-base-uncased,
+# google/vit-base-patch16-224, microsoft/resnet-50 and google-t5/t5-base.
+BERT_BASE = dict(model_type="bert", vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072, max_position_embeddings=512,
+                 type_vocab_size=2, layer_norm_eps=1e-12, hidden_act="gelu", num_labels=2)
+VIT_BASE = dict(model_type="vit", image_size=224, patch_size=16, num_channels=3, hidden_size=768,
+                num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072,
+                layer_norm_eps=1e-12, hidden_act="gelu", num_labels=1000)
+RESNET_50 = dict(model_type="resnet", num_channels=3, embedding_size=64,
+                 hidden_sizes=[256, 512, 1024, 2048], depths=[3, 4, 6, 3],
+                 layer_type="bottleneck", downsample_in_first_stage=False, hidden_act="relu",
+                 num_labels=1000)
+T5_BASE = dict(model_type="t5", vocab_size=32128, d_model=768, d_kv=64, d_ff=3072,
+               num_layers=12, num_decoder_layers=12, num_heads=12,
+               relative_attention_num_buckets=32, relative_attention_max_distance=128,
+               layer_norm_epsilon=1e-6, feed_forward_proj="relu", tie_word_embeddings=True)
+# (published config, training batch, what a sample is, its source) per family.
+PHASE13 = {"bert": (BERT_BASE, 32, "tokens", "google-bert/bert-base-uncased"),
+           "vit": (VIT_BASE, 64, "images", "google/vit-base-patch16-224"),
+           "resnet": (RESNET_50, 64, "images", "microsoft/resnet-50"),
+           "t5": (T5_BASE, 16, "tokens", "google-t5/t5-base")}
+PHASE13_BERT_S, PHASE13_T5_S, PHASE13_T5_T = 128, 512, 128
+PHASE13_CPU_B, PHASE13_STEPS = 2, 5
+# AdamW's rate for the 5 bf16 steps on one batch.  BERT's post-LN stack
+# overshoots at 1e-4 (on an H100 its loss went 0.738 -> 2.646 in one
+# step); 2e-5 is its published fine-tuning rate.
+PHASE13_LR = {"bert": 2e-5, "vit": 1e-4, "resnet": 1e-4, "t5": 1e-4}
+PHASE13_STATS_TOL = 1e-5
+
+
+def phase13_batch(family, cfg, b, seed, device):
+    """A batch of ``b`` samples of ``family`` from ``seed`` (numpy), on
+    ``device``."""
+    rng = np.random.default_rng(seed)
+    if family == "bert":
+        s = PHASE13_BERT_S
+        mask = np.ones((b, s), np.int64)
+        mask[-1, s // 2:] = 0  # one padded row
+        out = {"input_ids": rng.integers(0, cfg.vocab_size, (b, s)), "attention_mask": mask,
+               "token_type_ids": (np.arange(s)[None] >= s // 3).repeat(b, 0).astype(np.int64),
+               "labels": rng.integers(0, cfg.num_labels, b)}
+    elif family == "t5":
+        out = {"input_ids": rng.integers(0, cfg.vocab_size, (b, PHASE13_T5_S)),
+               "decoder_input_ids": rng.integers(0, cfg.vocab_size, (b, PHASE13_T5_T)),
+               "labels": rng.integers(0, cfg.vocab_size, (b, PHASE13_T5_T))}
+    else:
+        size = cfg.image_size if family == "vit" else 224
+        out = {"pixel_values": rng.normal(size=(b, size, size, 3)).astype(np.float32),
+               "labels": rng.integers(0, cfg.num_labels, b)}
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def phase13_loss(family, mod, params, stats, batch, cfg):
+    """(loss, new batch stats or None) of one forward."""
+    if family == "resnet":
+        return mod.classification_loss_fn(params, stats, batch, cfg, train=True)
+    fn = mod.loss_fn if family == "t5" else mod.classification_loss_fn
+    return fn(params, batch, cfg), None
+
+
+def tree_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def tree_map(fn, tree):
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def phase13_step(family, mod, cfg, cpu_params, cpu_stats, dtype):
+    """One ``dtype`` forward and backward at B ``PHASE13_CPU_B`` on the CPU
+    and on the card from the same parameters: {"cpu"/"card": (loss,
+    {leaf: gradient}, {stat: new value})}, all on the host."""
+    c = dataclasses.replace(cfg, dtype=dtype)
+    out = {}
+    for key, dev in (("cpu", "cpu"), ("card", "cuda")):
+        params = tree_map(lambda t: t.detach().to(dev, dtype, copy=True).requires_grad_(),
+                          cpu_params)
+        stats = None if cpu_stats is None else tree_map(lambda t: t.to(dev), cpu_stats)
+        batch = phase13_batch(family, cfg, PHASE13_CPU_B, 13, dev)
+        if "pixel_values" in batch:
+            batch["pixel_values"] = batch["pixel_values"].to(dtype)
+        loss, ns = phase13_loss(family, mod, params, stats, batch, c)
+        leaves = dict(tree_leaves(params))
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        out[key] = (loss.item(), dict(zip(leaves, (x.cpu() for x in g))),
+                    {} if ns is None else {k: v.cpu() for k, v in tree_leaves(ns)})
+        del params, loss, g, leaves
+    return out
+
+
+def relative_gaps(got: dict, want: dict) -> dict:
+    """max|got - want| / max|want| per leaf."""
+    return {k: ((got[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+            for k, v in want.items()}
+
+
+def phase13_family(family, smi):
+    """One family at its published widths, full depth, seed 0: the fp32 first
+    step (TF32 off) on the card against the same step on the CPU at B 2
+    (loss and every gradient within a relative 1e-4, ResNet's new batch
+    stats within 1e-5), the HF export -> import round trip bit-identical,
+    then 5 bf16 AdamW steps on one batch of the table's size (finite, the
+    last loss below the first); for T5 also greedy ``generate`` of 16 tokens
+    in fp32 on the card and the CPU token-identical, and 4-beam
+    ``generate_beam``.
+
+    T5's gradients are held in fp64: its attention has no 1/sqrt(d), so at
+    JAX's init (q and k of unit scale, scores of standard deviation
+    ~sqrt(d_kv)) the softmax saturates and its backward cancels; fp32
+    computes them only to ~1e-1 of fp64 on one CPU (logged beside), so
+    two fp32 devices cannot agree to 1e-4.  Its fp32 loss is held to
+    1e-4."""
+    import importlib
+    from types import SimpleNamespace
+
+    from accelerate_tpu_torch.models import hf_export, hf_import
+
+    mod = importlib.import_module(f"accelerate_tpu_torch.models.{family}")
+    published, big_b, unit, source = PHASE13[family]
+    cfg = hf_import.config_from_hf(SimpleNamespace(**published), dtype=torch.float32)
+    t0 = time.perf_counter()
+    cpu_params = mod.init_params(cfg, seed=0, device="cpu")
+    cpu_stats = mod.init_batch_stats(cfg, device="cpu") if family == "resnet" else None
+    n = sum(v.numel() for _, v in tree_leaves(cpu_params))
+    f32 = phase13_step(family, mod, cfg, cpu_params, cpu_stats, torch.float32)
+    rels = relative_gaps(f32["card"][1], f32["cpu"][1])
+    loss_rel = abs(f32["card"][0] - f32["cpu"][0]) / abs(f32["cpu"][0])
+    stats_rel = max(relative_gaps(f32["card"][2], f32["cpu"][2]).values(), default=0.0)
+    held, what = rels, "fp32"
+    if family == "t5":
+        f64 = phase13_step(family, mod, cfg, cpu_params, cpu_stats, torch.float64)
+        held, what = relative_gaps(f64["card"][1], f64["cpu"][1]), "fp64"
+        noise = relative_gaps(f32["cpu"][1], f64["cpu"][1])
+        log(f"phase13 t5 fp32 gradients, card vs CPU: max over leaves {max(rels.values()):.3e}; "
+            f"the CPU's fp32 against its fp64, the same step: {max(noise.values()):.3e} "
+            f"({max(noise, key=noise.get)}): fp32 resolves these gradients no better")
+        del f64
+    worst = max(held, key=held.get)
+    log(f"phase13 {family} ({source}'s published widths, full depth, {n} parameters): first "
+        f"step at B {PHASE13_CPU_B}, card vs CPU: fp32 loss {f32['card'][0]:.6f} vs "
+        f"{f32['cpu'][0]:.6f} (rel {loss_rel:.3e}); max over {len(held)} {what} gradient "
+        f"leaves of max|diff|/max|cpu| {held[worst]:.3e} ({worst}; limit 1e-4)"
+        + (f"; new batch stats max|diff|/max|cpu| {stats_rel:.3e} (limit {PHASE13_STATS_TOL})"
+           if family == "resnet" else ""))
+    check(loss_rel <= 1e-4 and held[worst] <= 1e-4,
+          f"phase13 {family} card step differs from the CPU: loss {loss_rel}, {worst} "
+          f"{held[worst]}")
+    check(stats_rel <= PHASE13_STATS_TOL, f"phase13 {family} batch stats differ: {stats_rel}")
+    del f32
+    params = tree_map(lambda t: t.cuda(), cpu_params)
+    stats = None if cpu_stats is None else tree_map(lambda t: t.cuda(), cpu_stats)
+    tree = {"params": params, "batch_stats": stats} if family == "resnet" else params
+    again = hf_import.import_state_dict(family, hf_export.export_state_dict(family, tree, cfg),
+                                        cfg)
+    same = dict(tree_leaves(again)).keys() == dict(tree_leaves(tree)).keys() and all(
+        torch.equal(v, dict(tree_leaves(again))[k]) for k, v in tree_leaves(tree))
+    check(same, f"phase13 {family} HF export -> import is not bit-identical")
+    del again
+    out = {"params": n, "cpu_vs_card_grad_rel": held[worst], "loss_rel": loss_rel,
+           "stats_rel": stats_rel}
+    if family == "t5":
+        src = torch.from_numpy(np.random.default_rng(14).integers(
+            0, cfg.vocab_size, (PHASE13_CPU_B, 64)))
+        with torch.no_grad():
+            on_card, gen_s = timed(lambda: mod.generate(params, src.cuda(), cfg, 16))
+            on_cpu = mod.generate(cpu_params, src, cfg, 16)
+            beam, beam_s = timed(lambda: mod.generate_beam(params, src.cuda(), cfg, 16,
+                                                            num_beams=4))
+        check(torch.equal(on_card.cpu(), on_cpu), f"phase13 t5 generate: card {on_card} vs "
+              f"CPU {on_cpu}")
+        check(tuple(beam.shape) == (PHASE13_CPU_B, 17), f"phase13 t5 beam shape {beam.shape}")
+        log(f"phase13 t5 fp32 greedy generate of 16 tokens from 2 x 64 source tokens: card == "
+            f"CPU {on_card.tolist()} ({gen_s * 1e3:.1f} ms on the card); generate_beam 4 beams: "
+            f"{beam.tolist()} ({beam_s * 1e3:.1f} ms)")
+        out.update(generate_ms=gen_s * 1e3, beam_ms=beam_s * 1e3)
+    del cpu_params, cpu_stats
+    # bf16 compute over fp32 parameters: 5 AdamW steps on one batch.
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    leaves = [v.requires_grad_() for _, v in tree_leaves(params)]
+    opt = torch.optim.AdamW(leaves, lr=PHASE13_LR[family])
+    batch = phase13_batch(family, cfg, big_b, 15, "cuda")
+    per_sample = (batch["input_ids"].numel() + batch["decoder_input_ids"].numel()
+                  if family == "t5" else batch["input_ids"].numel() if family == "bert"
+                  else big_b)
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(PHASE13_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, ns = phase13_loss(family, mod, params, stats, batch, cfg16)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        if ns is not None:
+            stats = ns
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t1)
+    ms = median(step_s[1:]) * 1e3
+    log(f"phase13 {family} bf16 AdamW (lr {PHASE13_LR[family]}) on one batch of {big_b}: losses "
+        f"{[round(x, 4) for x in losses]} step_ms={ms:.2f} (median of steps 2-{PHASE13_STEPS}; "
+        f"each {[round(x * 1e3, 1) for x in step_s]}) {unit}_per_s={per_sample / ms * 1e3:.1f} "
+        f"peak_mem_bytes={torch.cuda.max_memory_allocated()}; init and checks "
+        f"{time.perf_counter() - t0 - sum(step_s):.1f} s; {smi}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"phase13 {family} bf16 losses {losses}")
+    out.update(losses=losses, step_ms=ms, per_s=per_sample / ms * 1e3, unit=unit)
+    del params, stats, leaves, opt, batch, loss
+    gc_collect()
+    return out
+
+
+def phase13(smi):
+    """BERT-base, ViT-B/16, ResNet-50 and T5-base (Phase 13 of the module
+    docstring); prints each family's seconds."""
+    gc_collect()
+    out, secs = {}, {}
+    for family in PHASE13:
+        t0 = time.perf_counter()
+        out[family] = phase13_family(family, smi)
+        secs[family] = round(time.perf_counter() - t0, 1)
+    log(f"phase13 seconds: {secs}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3635,6 +4276,13 @@ def main() -> int:
     p11 = phase11(smi)
     check(all(p11["counts"][n] > 0 for n in ("paged_attention", "paged_window_attention")),
           f"phase 11 launched the paged kernels {p11['counts']} times")
+    t12 = time.perf_counter()
+    p12 = phase12(smi)
+    check(all(p12["counts"][n] > 0 for n in FLASH_KERNELS),
+          f"phase 12 launched the flash kernels {p12['counts']} times")
+    t13 = time.perf_counter()
+    phase13(smi)
+    log(f"phases 12-13 seconds: 12 {t13 - t12:.1f}, 13 {time.perf_counter() - t13:.1f}")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
@@ -3684,6 +4332,7 @@ def main() -> int:
                            launches_phase10=p10["counts"][name],
                            launches_phase10d=p10["phi3"]["counts"][name],
                            launches_phase10e=p10["phi3_f32"]["counts"][name],
+                           launches_phase12=p12["counts"][name],
                            head_dims=list(fu_dims),
                            wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
                                        for geom, dt in p10["flash"]},

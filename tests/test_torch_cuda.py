@@ -1462,3 +1462,113 @@ def test_find_executable_batch_size_survives_a_cuda_oom(cuda):
     assert step() == 2
     assert tried == [16, 8, 4, 2] and ooms == [16, 8, 4]
     assert torch.cuda.memory_allocated() == start
+
+
+# --------------------------------------------------------------------------
+# Mixtral's MoE and training step, and the encoder families, on the card
+# --------------------------------------------------------------------------
+
+
+def _moe_weights(seed, d=64, f=96, e=4):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(*shape, generator=g) * scale for shape, scale in
+            (((2, 40, d), 1.0), ((d, e), 1.0), ((e, d, f), d ** -0.5), ((e, d, f), d ** -0.5),
+             ((e, f, d), f ** -0.5))]
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["dense", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, ragged, dtype):
+    """The same call on CUDA and CPU tensors: routing in fp32 (the same
+    experts picked), the experts in ``dtype``, a capacity that drops tokens
+    on the dense path."""
+    from accelerate_tpu_torch.ops import moe
+
+    args = _moe_weights(1)
+    kw = dict(compute_dtype=dtype)
+    if not ragged:
+        kw["capacity"] = 12
+    fn = moe.moe_ffn_ragged if ragged else moe.moe_ffn
+    y_cpu, aux_cpu = fn(*args, **kw)
+    y, aux = fn(*(a.cuda() for a in args), **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.cpu(), y_cpu, atol=tol, rtol=tol)
+    for k in aux:
+        torch.testing.assert_close(aux[k].cpu(), aux_cpu[k], atol=1e-5, rtol=1e-5)
+    if not ragged:
+        assert aux["fraction_dropped"].item() > 0
+
+
+def test_tiny_mixtral_step_on_the_kernels_matches_the_plain_path(cuda):
+    """A tiny Mixtral (head dim 64, S 1024, so the fused path) in fp32: loss
+    and every gradient through the flash kernels against their plain
+    versions, within 1e-4 relative; the kernels launched 2L / L / L."""
+    from accelerate_tpu_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig.tiny(hidden_size=128, num_heads=2, num_kv_heads=1,
+                                     max_seq_len=1024, dtype=torch.float32, remat=True)
+    params = {k: (v.requires_grad_() if not isinstance(v, dict) else
+                  {kk: vv.requires_grad_() for kk, vv in v.items()})
+              for k, v in mixtral.init_params(cfg, seed=0).items()}
+    leaves = [v for k, v in params.items() if k != "layers"] + list(params["layers"].values())
+    ids = torch.randint(0, cfg.vocab_size, (2, 1024), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+    before = [getattr(fu, n).launches for n in ("fused_attention_fwd", "fused_attention_bwd_dq",
+                                                "fused_attention_bwd_dkv")]
+    loss = mixtral.loss_fn(params, {"input_ids": ids}, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    after = [getattr(fu, n).launches for n in ("fused_attention_fwd", "fused_attention_bwd_dq",
+                                               "fused_attention_bwd_dkv")]
+    L = cfg.num_layers
+    assert [a - b for a, b in zip(after, before)] == [2 * L, L, L]
+    saved = fu.fused_attention_fwd, fu.fused_attention_bwd
+    fu.fused_attention_fwd, fu.fused_attention_bwd = (fu.fused_attention_fwd_plain,
+                                                      fu.fused_attention_bwd_plain)
+    try:
+        loss_p = mixtral.loss_fn(params, {"input_ids": ids}, cfg)
+        grads_p = torch.autograd.grad(loss_p, leaves)
+    finally:
+        fu.fused_attention_fwd, fu.fused_attention_bwd = saved
+    assert abs(loss.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
+    for g, gp in zip(grads, grads_p):
+        assert ((g - gp).abs().max() / gp.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("family", ["bert", "vit", "resnet", "t5"])
+def test_encoder_forward_on_the_card_matches_the_cpu(cuda, family):
+    """One fp32 forward of each family's tiny config on the card (cuBLAS,
+    cuDNN convolutions on channels-last views) against the CPU."""
+    import importlib
+
+    mod = importlib.import_module(f"accelerate_tpu_torch.models.{family}")
+    cfg_cls = {"bert": "BertConfig", "vit": "ViTConfig", "resnet": "ResNetConfig",
+               "t5": "T5Config"}[family]
+    kw = dict(block="bottleneck", stem="imagenet") if family == "resnet" else {}
+    cfg = getattr(mod, cfg_cls).tiny(dtype=torch.float32, **kw)
+    params = mod.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    if family == "bert":
+        args = (torch.randint(0, cfg.vocab_size, (2, 16), generator=g),)
+    elif family == "t5":
+        args = (torch.randint(0, cfg.vocab_size, (2, 16), generator=g),
+                torch.randint(0, cfg.vocab_size, (2, 5), generator=g))
+    else:
+        args = (torch.randn(2, 32, 32, 3, generator=g),)
+    if family == "resnet":
+        stats = mod.init_batch_stats(cfg, device="cpu")
+        want, want_stats = mod.apply(params, stats, *args, cfg, train=True)
+        got, got_stats = mod.apply(_to(params, "cuda"), _to(stats, "cuda"),
+                                   *(a.cuda() for a in args), cfg, train=True)
+        for k in want_stats["stage0"]["head"]:
+            torch.testing.assert_close(got_stats["stage0"]["head"][k].cpu(),
+                                       want_stats["stage0"]["head"][k], atol=1e-5, rtol=1e-5)
+    else:
+        want = mod.apply(params, *args, cfg)
+        got = mod.apply(_to(params, "cuda"), *(a.cuda() for a in args), cfg)
+        if family != "t5":
+            want, got = want[1], got[1]  # the pooled output
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}

@@ -83,6 +83,15 @@ A1B_AND_A2 = {  # trackers, logging, memory, LocalSGD, the utils helpers; GPT-2
                      "loss_fn", "init_cache", "apply_cached", "apply_paged", "generate",
                      "speculative_generate", "generate_beam"],
 }
+A3 = {  # the other model families and the MoE op, at the JAX paths
+    ".ops.moe": ["router", "dispatch_combine", "moe_ffn", "moe_ffn_ragged", "expert_capacity"],
+    ".models.mixtral": ["MixtralConfig", "init_params", "apply", "loss_fn"],
+    ".models.bert": ["BertConfig", "init_params", "apply", "classification_loss_fn"],
+    ".models.vit": ["ViTConfig", "init_params", "apply", "classification_loss_fn"],
+    ".models.resnet": ["ResNetConfig", "init_params", "init_batch_stats", "apply",
+                       "classification_loss_fn"],
+    ".models.t5": ["T5Config", "init_params", "apply", "loss_fn"],
+}
 A1B_CONSTANTS = {".utils": ["SAFE_WEIGHTS_NAME", "WEIGHTS_NAME", "MODEL_NAME", "SCALER_NAME",
                             "TORCH_LAUNCH_PARAMS"],
                  ".utils.constants": ["STR_OPERATION_TO_FUNC", "FSDP_SHARDING_STRATEGY"]}
@@ -127,6 +136,14 @@ def test_a1b_and_gpt2_names_import_at_jax_paths(path, name):
     jax_obj, port_obj = _pair(path, name)
     assert isinstance(port_obj, type) == isinstance(jax_obj, type) and callable(port_obj)
     assert port_obj.__module__.startswith("accelerate_tpu_torch")
+
+
+@pytest.mark.parametrize("path,name", _cases(A3), ids=lambda v: v)
+def test_a3_names_import_at_jax_paths(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert isinstance(port_obj, type) == isinstance(jax_obj, type) and callable(port_obj)
+    assert port_obj.__module__ == "accelerate_tpu_torch" + path
+    assert name in importlib.import_module("accelerate_tpu_torch" + path).__all__
 
 
 @pytest.mark.parametrize("path,name", _cases(A1B_CONSTANTS), ids=lambda v: v)

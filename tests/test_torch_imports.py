@@ -84,6 +84,12 @@ def test_source_names_no_jax_import(path):
     "accelerate_tpu_torch.utils.versions",
     "accelerate_tpu_torch.utils.constants",
     "accelerate_tpu_torch.utils.convert",
+    "accelerate_tpu_torch.ops.moe",
+    "accelerate_tpu_torch.models.mixtral",
+    "accelerate_tpu_torch.models.bert",
+    "accelerate_tpu_torch.models.vit",
+    "accelerate_tpu_torch.models.resnet",
+    "accelerate_tpu_torch.models.t5",
 ])
 def test_robustness_modules_are_checked(name):
     """The serving robustness layer's modules and the generation and tracing
