@@ -29,6 +29,14 @@ the process surface (``print``, ``is_main_process``, ``gather_for_metrics``,
 :meth:`~Accelerator.init_trackers`, :meth:`~Accelerator.log` and
 :meth:`~Accelerator.end_training` (:mod:`.tracking`).
 
+Telemetry (:mod:`.telemetry`) is off unless ``ACCELERATE_TPU_TELEMETRY=1``
+or ``telemetry.enable()``: then ``prepare``, ``prepare_model`` and
+``backward`` run under spans, the loop counts its dispatches (the
+forward+backward, the gradient scale, the merge, the update: 3 per
+micro-batch in the eager loop, 1 per fused step), ``log`` carries the
+registry's scalars, and :meth:`~Accelerator.enable_flight_recorder` arms the
+crash-safe recorder with its anomaly-triggered profiler window.
+
 ``prepare`` takes an ``nn.Module`` directly, so the JAX package's
 ``utils/torch_bridge.py`` (FX graph -> JAX lowering of torch modules) has no
 counterpart here; functional models come as :class:`FunctionalModel`.
@@ -51,6 +59,9 @@ from .optimizer import AcceleratedOptimizer, global_norm
 from .pipeline.train_step import accumulate_grads
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, resolve_device
+from .telemetry import get_telemetry as _get_telemetry
+from .telemetry import maybe_enable_from_env as _telemetry_from_env
+from .telemetry import span as _span
 from .utils.dataclasses import (
     AutocastKwargs,
     DataLoaderConfiguration,
@@ -250,6 +261,9 @@ class Accelerator:
         # fp16 or bf16 hook the accumulated gradients carry bf16 rounding.
         hook = self.ddp_handler.comm_hook if self.ddp_handler is not None else "no"
         self._grad_sync_dtype = torch.bfloat16 if hook in ("fp16", "bf16") else None
+        # Observability is env-opt-in (ACCELERATE_TPU_TELEMETRY=1): enabled
+        # here so env-only runs get spans/metrics/watchdog with no code change.
+        _telemetry_from_env()
 
     # -- the process (state passthroughs) -------------------------------------
 
@@ -387,6 +401,7 @@ class Accelerator:
 
     # -- preparation ------------------------------------------------------------
 
+    @_span("accelerator.prepare")
     def prepare(self, *args):
         """Prepare models and dataloaders first, then optimizers (each paired
         with the model whose parameters it holds), then schedulers (each
@@ -443,6 +458,7 @@ class Accelerator:
         self._schedulers.append(prepared)
         return prepared
 
+    @_span("accelerator.prepare_model")
     def prepare_model(self, model: nn.Module, device_placement: Optional[bool] = None,
                       evaluation_mode: bool = False) -> nn.Module:
         """Move ``model`` (an ``nn.Module`` or a :class:`FunctionalModel`) to
@@ -486,6 +502,7 @@ class Accelerator:
     def _trainable(self) -> List[torch.Tensor]:
         return [p for m in self._models for p in m.parameters() if p.requires_grad]
 
+    @_span("accelerator.backward")
     def backward(self, loss: torch.Tensor) -> None:
         """Accumulate ``d loss / d params * (1 / gradient_accumulation_steps)``
         into the prepared models' ``.grad``: each micro-gradient is scaled,
@@ -493,6 +510,12 @@ class Accelerator:
         ``comm_hook`` of ``"fp16"``/``"bf16"`` the scaled gradient and the sum
         are rounded to bf16 (stored in the parameter's dtype)."""
         params = self._trainable()
+        tel = _get_telemetry()
+        if tel.enabled:
+            # The JAX package's three dispatch sites: its fused forward+backward
+            # program (here the autograd call), the gradient scale, and the
+            # merge into gradients already held.
+            tel.count_dispatch(3 if any(p.grad is not None for p in params) else 2)
         grads = torch.autograd.grad(loss.float().mean(), params, allow_unused=True)
         summed = accumulate_grads([p.grad for p in params], grads,
                                   1.0 / self.gradient_accumulation_steps,
@@ -856,9 +879,28 @@ class Accelerator:
         if guard is None or not guard.should_stop():
             return False
         if not guard.final_checkpoint_saved:
-            self.save_state(save_dir or guard.save_dir, step=step)
+            with _span("resilience.final_checkpoint"):
+                self.save_state(save_dir or guard.save_dir, step=step)
             guard.final_checkpoint_saved = True
+            tel = _get_telemetry()
+            if tel.enabled:
+                tel.registry.counter("resilience.preempt_checkpoints").inc()
+                tel.event("resilience.preempt_checkpoint", step=step)
         return True
+
+    def enable_flight_recorder(self, dir: Optional[str] = None, capacity: Optional[int] = None,
+                               flush_every: Optional[int] = None):
+        """Enable the black-box flight recorder: a bounded ring of per-step
+        events (step time, dispatches, kernel builds, checkpoint publishes,
+        preemption signals) flushed to a crash-safe JSONL snapshot
+        periodically and on SIGTERM/exit/unhandled exception, with online
+        anomaly detection whose first anomaly opens a one-shot
+        ``torch.profiler`` window (:mod:`.telemetry.flightrec`).  Enables
+        telemetry too.  Env-only runs get the same via
+        ``ACCELERATE_TPU_FLIGHTREC=1``.  Returns the recorder."""
+        from .telemetry import flightrec
+
+        return flightrec.enable(dir=dir, capacity=capacity, flush_every=flush_every)
 
     # -- serving ----------------------------------------------------------------
 

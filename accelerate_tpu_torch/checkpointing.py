@@ -43,6 +43,8 @@ from typing import Optional
 
 import torch
 
+from .telemetry import get_telemetry as _get_telemetry
+from .telemetry import span as _span
 from .utils import safetensors_io
 from .utils.operations import recursively_apply
 from .utils.random import get_rng_state, set_rng_state
@@ -227,6 +229,7 @@ def _publish(staging_dir: str, final_dir: str, fsync: bool) -> None:
         shutil.rmtree(trash_dir, ignore_errors=True)
 
 
+@_span("checkpoint.save_state")
 def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
                            step: Optional[int] = None, verified: bool = True) -> str:
     """Write every prepared model, optimizer, scheduler, dataloader position,
@@ -309,9 +312,15 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
     if verified:
         manifest = write_manifest(staging, step=step)
         t3 = time.perf_counter()
-        _publish(staging, final_dir, fsync)
-        if rotate:
-            prune_checkpoints(os.path.dirname(final_dir), keep=cfg.total_limit)
+        with _span("checkpoint.publish"):
+            _publish(staging, final_dir, fsync)
+            tel = _get_telemetry()
+            if tel.enabled:
+                # event() mirrors into the flight recorder: the postmortem of
+                # a killed run shows which checkpoints were published.
+                tel.event("checkpoint.publish", step=step, path=final_dir)
+            if rotate:
+                prune_checkpoints(os.path.dirname(final_dir), keep=cfg.total_limit)
         written = sum(e["size"] for e in manifest["files"].values())
     else:
         t3 = t2
@@ -338,6 +347,7 @@ def _rotate_unverified(base: str, keep: int) -> None:
         shutil.rmtree(os.path.join(base, existing.pop(0)), ignore_errors=True)
 
 
+@_span("checkpoint.load_state")
 def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
                            verify: bool = True) -> str:
     """Restore what :func:`save_accelerator_state` wrote (``input_dir``

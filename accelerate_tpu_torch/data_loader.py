@@ -31,6 +31,8 @@ import torch.utils.data
 
 from .pipeline.prefetch import DevicePrefetcher, prefetch_depth_from_env
 from .state import GradientState, resolve_device
+from .telemetry import get_telemetry as _get_telemetry
+from .telemetry import span as _span
 from .utils.operations import send_to_device
 
 __all__ = [
@@ -376,10 +378,19 @@ class DataLoaderShard(DataLoaderStateMixin):
             if obj is not None and obj is not self and hasattr(obj, "set_epoch"):
                 obj.set_epoch(epoch)
 
-    def _convert(self, batch):
-        if self.device is None:
-            return batch
-        return send_to_device(batch, self.device, non_blocking=self.non_blocking)
+    def _convert(self, batch, non_blocking: Optional[bool] = None):
+        """Place one batch on the loader's device (as it is without one),
+        under the ``dataloader.next_batch`` span; runs on the prefetch
+        worker in the prefetched path."""
+        with _span("dataloader.next_batch"):
+            out = batch if self.device is None else send_to_device(
+                batch, self.device,
+                non_blocking=self.non_blocking if non_blocking is None else non_blocking)
+        tel = _get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("dataloader.batches").inc()
+            tel.heartbeat()  # host-side data stalls must not trip the watchdog
+        return out
 
     def _effective_prefetch_depth(self) -> int:
         if self.device is None:
@@ -393,8 +404,8 @@ class DataLoaderShard(DataLoaderStateMixin):
             except StopIteration:
                 break
         # The worker's copies are asynchronous only from pinned memory.
-        prefetcher = DevicePrefetcher(iterator, lambda b: send_to_device(
-            b, self.device, non_blocking=True), depth, device=self.device)
+        prefetcher = DevicePrefetcher(iterator, lambda b: self._convert(b, non_blocking=True),
+                                      depth, device=self.device)
         self.prefetch_blocked_ms = prefetcher.blocked_ms
         emitted = 0
         try:

@@ -6,6 +6,11 @@ Hopper only (``sm_90a``).  Libraries land in ``build/kernels/`` beside the
 package, named by the hash of their source, so an edited source is rebuilt
 and an unchanged one is loaded as it is.  Nothing is built or imported when
 this module is imported: the CPU tests import every module of the port.
+
+Each ``nvcc`` run is reported to telemetry as a compile (``jit.compiles``,
+``jit.compile_ms``), and each library loaded without a build as a cache hit
+(``jit.cache_hits``): the port's counterpart of the JAX package's XLA
+compile listener.
 """
 
 from __future__ import annotations
@@ -16,8 +21,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from ..telemetry.metrics import CACHE_HIT_EVENT, COMPILE_EVENT, note_compile_event
 
 __all__ = ["BUILD_DIR", "SOURCES", "build", "load"]
 
@@ -69,6 +77,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for name, target in todo.items():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -86,6 +95,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
             failures.append(f"nvcc failed for {SOURCES[name]} (exit {proc.returncode}):\n{log}")
         else:
             os.replace(tmp, target)
+            note_compile_event(COMPILE_EVENT, time.perf_counter() - t0)
     if failures:
         raise RuntimeError("\n".join(failures))
     return targets
@@ -95,6 +105,8 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for source ``name``, built first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
+        if _target(name).exists():
+            note_compile_event(CACHE_HIT_EVENT)
         lib = ctypes.CDLL(str(build([name])[name]))
         _LOADED[name] = lib
     return lib

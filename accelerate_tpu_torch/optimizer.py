@@ -19,6 +19,11 @@ The JAX body's dp-chunked norm (``norm_ndp``) belongs to multi-device
 meshes and is not ported.  torch's ``AdamW`` is optax's ``adamw`` when both
 use ``betas=(0.9, 0.999)``, ``eps=1e-8`` and the same ``weight_decay``
 (torch defaults to 1e-2, optax to 1e-4).
+
+With telemetry on, a real ``step()`` runs under the ``optimizer.step`` span,
+counts one dispatch and records one completed step (step time, MFU, device
+memory gauges): host-side bookkeeping only, no further device sync than the
+update's own verdict read.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from .state import GradientState
+from .telemetry import get_telemetry as _get_telemetry
+from .telemetry import span as _span
 
 __all__ = ["AcceleratedOptimizer", "global_norm"]
 
@@ -168,5 +175,10 @@ class AcceleratedOptimizer:
         if not params:
             self._step_was_skipped = True
             return loss
-        self._apply_update(params, [p.grad for p in params])
+        with _span("optimizer.step"):
+            _get_telemetry().count_dispatch()  # the update
+            self._apply_update(params, [p.grad for p in params])
+        # A completed step is the telemetry heartbeat: step-time histogram,
+        # tokens/sec + MFU gauges, device memory gauges, watchdog beat.
+        _get_telemetry().record_step()
         return loss

@@ -29,6 +29,7 @@ from typing import Callable, Iterable, Iterator, Optional
 
 import torch
 
+from ..telemetry import get_telemetry as _get_telemetry
 from ..utils.operations import recursively_apply
 
 __all__ = ["DevicePrefetcher", "ENV_PREFETCH", "prefetch_depth_from_env"]
@@ -70,7 +71,12 @@ class DevicePrefetcher:
 
     ``convert(raw)`` runs only on the worker thread.  With a CUDA ``device``
     it runs with the worker's copy stream current, after the host tensors
-    are pinned, so a ``non_blocking`` copy inside it is asynchronous."""
+    are pinned, so a ``non_blocking`` copy inside it is asynchronous.
+
+    The consumer-side blocking time (queue empty: the host out-ran the
+    prefetcher) goes to ``blocked_ms`` and, with telemetry on, to the
+    ``pipeline.host_blocked_ms`` histogram; the staging queue is an
+    ``input.prefetch`` reservation in the memory ledger while it lives."""
 
     def __init__(self, iterator: Iterable, convert: Callable, depth: int = 1,
                  device: Optional[torch.device] = None):
@@ -84,12 +90,32 @@ class DevicePrefetcher:
         self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._closed = False
+        self._memledger_token = None
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
         self._thread = threading.Thread(target=self._worker, name="atpu-torch-prefetch",
                                         daemon=True)
         self._thread.start()
+
+    def _register_staging(self, converted) -> int:
+        """One-time memory-ledger reservation for the staging queue: the
+        first converted batch's per-device bytes x (depth + 1) — up to
+        ``depth`` batches queued plus the one in the consumer's hands.
+        Integers only; no reference to the batch survives."""
+        try:
+            from ..telemetry.memledger import get_memory_ledger, tree_device_bytes
+
+            per_device, _, _ = tree_device_bytes(converted)
+            if not per_device:
+                return 0
+            return get_memory_ledger().register(
+                "input.prefetch",
+                per_device={d: b * (self.depth + 1) for d, b in per_device.items()},
+                detail={"depth": self.depth},
+            )
+        except Exception:
+            return 0
 
     # -- worker -----------------------------------------------------------------
 
@@ -124,6 +150,8 @@ class DevicePrefetcher:
                 return
             while not self._stop.is_set():
                 converted = self._convert_one(current)
+                if self._memledger_token is None:
+                    self._memledger_token = self._register_staging(converted[0])
                 try:
                     upcoming = next(self._iterator)
                 except StopIteration:
@@ -139,9 +167,14 @@ class DevicePrefetcher:
     # -- consumer ---------------------------------------------------------------
 
     def __iter__(self) -> Iterator:
+        tel = _get_telemetry()
         while True:
             t0 = time.perf_counter()
             item = self._queue.get()
+            if tel.enabled:
+                tel.registry.histogram("pipeline.host_blocked_ms").observe(
+                    (time.perf_counter() - t0) * 1e3)
+                tel.heartbeat()
             if item is _DONE:
                 return
             self.blocked_ms.append((time.perf_counter() - t0) * 1e3)
@@ -161,6 +194,10 @@ class DevicePrefetcher:
         if self._closed:
             return
         self._closed = True
+        if self._memledger_token:
+            from ..telemetry.memledger import get_memory_ledger
+
+            get_memory_ledger().unregister("input.prefetch", self._memledger_token)
         self._stop.set()
         while True:
             try:

@@ -16,6 +16,12 @@ is the contract:
 
 The prepared model and optimizer stay the source of truth: parameters and
 optimizer state are updated in place.
+
+With telemetry on, each call runs under the ``pipeline.train_step`` span,
+counts one dispatch and records one completed step; after the first update
+the parameters and the optimizer's state are ``train.params`` /
+``train.opt_state`` reservations in the memory ledger (their storage bytes;
+torch creates the optimizer's state at its first step).
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from typing import Mapping, Optional
 
 import torch
 
+from ..telemetry import get_telemetry as _get_telemetry
+from ..telemetry import span as _span
 from ..utils.operations import send_to_device
 
 __all__ = ["TrainStep", "make_train_step"]
@@ -98,6 +106,20 @@ class TrainStep:
         self.last_health_norm = None
         self.step_count = 0
         self.dispatch_count = 0
+        self._ledger_registered = False
+
+    def _register_ledger(self) -> None:
+        """The train state's long-lived reservations, computed from the live
+        parameters and optimizer state (integers only: the ledger keeps no
+        reference to a tensor)."""
+        from ..telemetry.memledger import get_memory_ledger
+
+        ledger = get_memory_ledger()
+        ledger.register("train.params", tree=[p for p in self.model.parameters()],
+                        detail={"zero_active": False})
+        ledger.register("train.opt_state", tree=self.optimizer.optimizer,
+                        detail={"zero_active": False})
+        self._ledger_registered = True
 
     def __call__(self, *batches):
         if len(batches) == 1 and isinstance(batches[0], list):
@@ -108,6 +130,16 @@ class TrainStep:
                 f"{'es' if self.accum_steps > 1 else ''} per optimizer step but received "
                 f"{len(batches)}: pass the accumulation window as a LIST of micro-batches"
             )
+        with _span("pipeline.train_step"):
+            losses = self._step(batches)
+        if not self._ledger_registered:
+            self._register_ledger()
+        tel = _get_telemetry()
+        tel.count_dispatch()
+        tel.record_step()
+        return losses[0] if self.accum_steps == 1 else losses
+
+    def _step(self, batches):
         opt = self.optimizer
         params = [p for p in opt.params if p.requires_grad]
         scale = 1.0 / self.accum_steps
@@ -131,7 +163,7 @@ class TrainStep:
         self.last_health_norm = health_norm
         self.step_count += 1
         self.dispatch_count += 1
-        return losses[0] if self.accum_steps == 1 else losses
+        return losses
 
 
 def make_train_step(accelerator, model, optimizer, accum_steps: Optional[int] = None,

@@ -35,6 +35,8 @@ from typing import Optional
 
 import torch
 
+from ..telemetry import span as _span
+
 logger = logging.getLogger(__name__)
 
 __all__ = [
@@ -124,6 +126,7 @@ def _walk_files(root: str) -> list[str]:
     return sorted(out)
 
 
+@_span("resilience.write_manifest")
 def write_manifest(
     directory: str,
     step: Optional[int] = None,
@@ -204,6 +207,7 @@ def read_manifest(directory: str) -> Optional[dict]:
         return None
 
 
+@_span("resilience.verify_checkpoint")
 def verify_checkpoint(directory: str, check_hashes: Optional[bool] = None) -> dict:
     """Verify ``directory`` against its manifest; returns the manifest.
 

@@ -19,6 +19,8 @@ import os
 import signal
 from typing import Callable, Optional, Sequence
 
+from ..telemetry import get_telemetry
+
 logger = logging.getLogger(__name__)
 
 __all__ = ["PreemptionGuard"]
@@ -55,6 +57,7 @@ class PreemptionGuard:
         self._callbacks: list = []
         self.final_checkpoint_saved = False
         self.save_dir: Optional[str] = None
+        self._signal_noted = False
 
     # -- signal plumbing -----------------------------------------------------
 
@@ -95,6 +98,17 @@ class PreemptionGuard:
                     logger.exception("chained previous signal handler failed")
         finally:
             self._in_signal[signum] = False
+
+    def _note_signal_in_telemetry(self) -> None:
+        """Deferred signal bookkeeping, run from the training thread (a safe,
+        non-handler context) the first time the flag is observed."""
+        if self._signal_noted or not self._flag:
+            return
+        self._signal_noted = True
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("resilience.preempt_signals").inc()
+            tel.event("resilience.preempt_signal", signum=int(self._signum or 0))
 
     def install(self) -> "PreemptionGuard":
         """Install the handlers (idempotent).  Must run on the main thread,
@@ -147,6 +161,7 @@ class PreemptionGuard:
     def should_stop(self) -> bool:
         """Whether to stop at this step boundary: on one process, the local
         flag."""
+        self._note_signal_in_telemetry()
         return self._flag
 
     def reset(self) -> None:
@@ -154,3 +169,4 @@ class PreemptionGuard:
         self._flag = False
         self._signum = None
         self.final_checkpoint_saved = False
+        self._signal_noted = False

@@ -59,8 +59,13 @@ blame per completed request in ``stats()["trace_blame"]``,
 :meth:`ServingEngine.debug_requests` / :meth:`ServingEngine.debug_blocks`
 snapshots and :meth:`ServingEngine.export_chrome_trace`.
 ``ACCELERATE_TPU_SERVING_TRACE=0`` turns it off unless
-``ServingConfig.trace`` says otherwise.  Telemetry, the memory ledger and
-fault injection are left out.
+``ServingConfig.trace`` says otherwise.  With telemetry on, the engine
+publishes the JAX engine's ``serving.*`` counters (pre-created at 0),
+latency histograms and per-tick gauges, and its request-complete events; it
+registers its pool as the ``serving.kv_pool`` reservation of the memory
+ledger (the prefix-cache residents a subset of it, the host tier host
+bytes) and itself as a source of the metrics endpoint's ``/debug`` pages.
+Fault injection is left out.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ import contextlib
 import inspect
 import os
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -82,6 +88,7 @@ from ..models.generation import (
     speculative_verify_greedy,
 )
 from ..state import resolve_device
+from ..telemetry import get_telemetry
 from .blocks import NULL_BLOCK, BlockOutOfMemory, PagedKVCache, PrefixCache, blocks_for_tokens
 from .journal import JournalError, ServingJournal
 from .scheduler import Request, RequestState, Scheduler
@@ -310,6 +317,38 @@ class ServingEngine:
         self._low_headroom = False
         self.low_headroom_episodes = 0
         self._block_bytes = self.cache.block_bytes()
+        # Live /debug endpoints: the metrics server asks registered engines
+        # for request/block snapshots (weakly: a collected engine drops off).
+        from ..telemetry import export as _export
+
+        _export.register_debug_source(self)
+        # Memory ledger: the pool is a reservation for the engine's life, the
+        # prefix-cache residents a subset entry (their bytes are INSIDE the
+        # pool), the host tier host bytes.  The last engine built owns the
+        # entries; weakref.finalize drops them when it is collected,
+        # token-guarded so a successor's registration survives.
+        from ..telemetry.memledger import get_memory_ledger
+
+        ledger = get_memory_ledger()
+        pool_token = ledger.register(
+            "serving.kv_pool", tree=self.cache.pool,
+            detail={"num_blocks": sc.num_blocks, "block_size": sc.block_size,
+                    "block_bytes": self._block_bytes})
+        prefix_token = ledger.register("serving.prefix_cache", nbytes=0,
+                                       subset_of="serving.kv_pool")
+        weakref.finalize(self, ledger.unregister, "serving.kv_pool", pool_token)
+        weakref.finalize(self, ledger.unregister, "serving.prefix_cache", prefix_token)
+        self._memledger_tokens = (pool_token, prefix_token)
+        if self.cache.host is not None:
+            host_token = ledger.register(
+                "serving.kv_host", per_device={}, host_bytes=self.cache.host.pool_bytes(),
+                detail={"host_blocks": sc.host_blocks, "block_size": sc.block_size,
+                        "block_bytes": self._block_bytes})
+            weakref.finalize(self, ledger.unregister, "serving.kv_host", host_token)
+            self._memledger_tokens = (pool_token, prefix_token, host_token)
+        self._preempted_published = 0
+        self._prefix_demotions_published = 0
+        self._prefix_promotions_published = 0
         self._finished: List[CompletedRequest] = []
         self.ticks = 0
         self.decode_dispatches = 0
@@ -336,6 +375,25 @@ class ServingEngine:
         # and including its one device synchronisation.
         self.decode_seconds = 0.0
         self.prefill_seconds = 0.0
+        # The robustness and fast-path counters exist at 0 from the first
+        # scrape, so a dashboard can alert on rate() before any incident.
+        tel = get_telemetry()
+        if tel.enabled:
+            for name in (
+                "serving.shed", "serving.deadline_expired",
+                "serving.quarantined", "serving.journal_recoveries",
+                "serving.prefix_hits", "serving.prefix_blocks_reused",
+                "serving.prefix_cow_copies", "serving.decode_gather_bytes",
+                "serving.spec.proposed", "serving.spec.accepted",
+                "serving.spec.rounds",
+                "serving.tier.demotions", "serving.tier.promotions",
+                "serving.tier.demoted_blocks", "serving.tier.fallback_reprefills",
+            ):
+                tel.registry.counter(name)
+            tel.registry.gauge("serving.spec.acceptance_rate").set(0.0)
+            tel.registry.gauge("serving.tokens_per_dispatch").set(0.0)
+            tel.registry.gauge("serving.tier.host_bytes").set(0)
+            tel.registry.gauge("serving.tier.host_occupancy").set(0.0)
 
     # -- forwards ------------------------------------------------------------
     #
@@ -456,6 +514,9 @@ class ServingEngine:
         if (sc.max_queue_depth is not None and not self._recovering
                 and self.sched.pending >= sc.max_queue_depth):
             self.shed_count += 1
+            tel = get_telemetry()
+            if tel.enabled:
+                tel.registry.counter("serving.shed").inc()
             raise AdmissionRejected(
                 f"admission queue full ({self.sched.pending} >= max_queue_depth "
                 f"{sc.max_queue_depth}): request shed"
@@ -476,6 +537,9 @@ class ServingEngine:
             self.journal.record_admit(req)
         if self.tracer is not None:
             self.tracer.on_submit(req)
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.requests").inc()
         if req.state == RequestState.DONE:
             self._complete(req)
         return req.id
@@ -506,12 +570,13 @@ class ServingEngine:
             self._promote_admitted(idx)
         for idx in admitted:
             self._attach_prefix(idx)
+        self._observe_requeue_waits(admitted)
         self._prefill_tick()
         self._decode_tick()
         self._drain_scrubs()
         if self.tracer is not None:
             self.tracer.end_tick(time.monotonic(), self.sched.slots)
-        self._note_headroom()
+        self._publish_gauges()
         return self._finished[done_before:]
 
     def run(self, max_ticks: Optional[int] = None) -> Dict[int, List[int]]:
@@ -572,9 +637,15 @@ class ServingEngine:
         self._drain_scrubs()
         if self.journal is not None:
             self.journal.record_progress(self.sched.queue)
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.drains").inc()
+            tel.event("serving.drained", incomplete=len(journal),
+                      completed=len(self._finished), journal=journal)
         if self.tracer is not None:
             # The successor's stitcher needs this life's partial timelines.
             self.tracer.flush()
+        self._publish_gauges()
         return journal
 
     # -- crash recovery ------------------------------------------------------
@@ -618,6 +689,11 @@ class ServingEngine:
             self._recovering = False
         if self.tracer is not None:
             self.tracer.flush()
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.journal_recoveries").inc()
+            tel.event("serving.journal_recovered", path=path, recovered=len(mapping),
+                      terminal=len(state["done"]))
         return mapping
 
     # -- host tier -----------------------------------------------------------
@@ -625,6 +701,9 @@ class ServingEngine:
     def _count_fallback(self, req: Request) -> None:
         req.fallback_reprefills += 1
         self.tier_fallback_reprefills += 1
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.tier.fallback_reprefills").inc()
 
     def _migrate_out(self, slot) -> bool:
         """The scheduler's ``on_migrate_out`` hook: copy the victim's blocks
@@ -656,6 +735,10 @@ class ServingEngine:
         alloc.free(blocks)
         self.tier_demotions += 1
         self.tier_demoted_blocks += n
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.tier.demotions").inc()
+            tel.registry.counter("serving.tier.demoted_blocks").inc(n)
         if self.journal is not None:
             self.journal.record_tier(req, "host")
         return True
@@ -691,6 +774,9 @@ class ServingEngine:
         if req.emitted and slot.cache_len == len(req.to_feed) - 1:
             req.state = RequestState.DECODING
         self.tier_promotions += 1
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.tier.promotions").inc()
         if self.journal is not None:
             self.journal.record_tier(req, "device")
 
@@ -721,17 +807,94 @@ class ServingEngine:
         if reclaim > 0:
             self._prefix.evict(reclaim)
 
-    def _note_headroom(self) -> None:
-        """Count low-headroom episodes: one starts when the pool's free share
-        falls under the watermark and ends once it is back above 1.5x it."""
+    def _publish_gauges(self) -> None:
+        """Count low-headroom episodes (one starts when the pool's free share
+        falls under the watermark and ends once it is back above 1.5x it)
+        and, with telemetry on, publish the per-tick gauges, the serving
+        headroom, a ``memory.low_headroom`` event per episode, and the
+        tier and preemption counts since the last publish."""
         alloc = self.cache.allocator
         free_frac = alloc.free_blocks / max(alloc.capacity, 1)
+        entered = False
         if free_frac < self._headroom_watermark_frac:
             if not self._low_headroom:
                 self._low_headroom = True
                 self.low_headroom_episodes += 1
+                entered = True
         elif self._low_headroom and free_frac >= self._headroom_rearm_frac:
             self._low_headroom = False
+        tel = get_telemetry()
+        if not tel.enabled:
+            return
+        reg = tel.registry
+        reg.gauge("serving.active_slots").set(self.sched.active)
+        reg.gauge("serving.queue_depth").set(self.sched.pending)
+        reg.gauge("serving.blocks_used").set(alloc.used_blocks)
+        reg.gauge("serving.block_occupancy").set(round(alloc.occupancy, 4))
+        reg.gauge("serving.prefix_cache_blocks").set(
+            len(self._prefix) if self._prefix is not None else 0)
+        reg.gauge("serving.spec.acceptance_rate").set(
+            round(self.spec_accepted / max(self.spec_proposed, 1), 4))
+        # Per slot-lane, not per dispatch: 1.0 is plain greedy decoding,
+        # above it the accepted drafts.
+        reg.gauge("serving.tokens_per_dispatch").set(
+            round(self.decode_emitted_tokens / max(self.decode_slot_ticks, 1), 4))
+        # The prefix-cache residents' bytes (a subset of the pool) and the
+        # serving headroom: free pool bytes, clamped by the device's measured
+        # headroom when a reconcile has read it.
+        from ..telemetry.memledger import get_memory_ledger
+
+        ledger = get_memory_ledger()
+        prefix_blocks = len(self._prefix) if self._prefix is not None else 0
+        ledger.update_bytes("serving.prefix_cache", prefix_blocks * self._block_bytes,
+                            token=self._memledger_tokens[1])
+        headroom = alloc.free_blocks * self._block_bytes
+        device_free = ledger.min_device_headroom()
+        if device_free is not None:
+            headroom = min(headroom, device_free)
+        reg.gauge("serving.headroom_bytes").set(headroom)
+        if entered:
+            tel.event("memory.low_headroom", source="serving", headroom_bytes=headroom,
+                      free_blocks=alloc.free_blocks, capacity=alloc.capacity,
+                      watermark_frac=self._headroom_watermark_frac)
+        # The host tier's occupancy, and the prefix cache's own demotions
+        # and promotions (inside allocator eviction, out of counter reach)
+        # folded into the tier counters as deltas.
+        host = self.cache.host
+        if host is not None:
+            reg.gauge("serving.tier.host_bytes").set(host.used_bytes())
+            reg.gauge("serving.tier.host_occupancy").set(round(host.occupancy, 4))
+            if self._prefix is not None:
+                d = self._prefix.host_demotions - self._prefix_demotions_published
+                if d > 0:
+                    reg.counter("serving.tier.demotions").inc(d)
+                    reg.counter("serving.tier.demoted_blocks").inc(d)
+                self._prefix_demotions_published = self._prefix.host_demotions
+                p = self._prefix.host_promotions - self._prefix_promotions_published
+                if p > 0:
+                    reg.counter("serving.tier.promotions").inc(p)
+                self._prefix_promotions_published = self._prefix.host_promotions
+        # Only the preemptions since the last publish: a registry reset must
+        # not be re-inflated with the engine's whole history.
+        new_preempted = self.sched.preempted_count - self._preempted_published
+        if new_preempted > 0:
+            reg.counter("serving.preempted").inc(new_preempted)
+        self._preempted_published = self.sched.preempted_count
+
+    def _observe_requeue_waits(self, admitted: List[int]) -> None:
+        """The re-queue waits of just-(re)admitted requests into
+        ``serving.requeue_wait_ms`` (a preempted request's wait for its next
+        admission, which the first admission's ``queue_wait_ms`` misses)."""
+        tel = get_telemetry()
+        if not tel.enabled:
+            return
+        hist = tel.registry.histogram("serving.requeue_wait_ms")
+        for idx in admitted:
+            slot = self.sched.slots.get(idx)
+            if slot is None:
+                continue
+            for sample in slot.request.pop_requeue_waits():
+                hist.observe(sample)
 
     # -- deadlines and quarantine --------------------------------------------
 
@@ -752,6 +915,13 @@ class ServingEngine:
         req.state = RequestState.DONE
         req.finish_t = now
         self.deadline_expired_count += 1
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.deadline_expired").inc()
+            if req.first_token_t is None:
+                # The violation feeds the TTFT histogram, so the SLO burn
+                # rate sees the expired requests, not only the survivors.
+                tel.registry.histogram("serving.ttft_ms").observe((now - req.arrival_t) * 1e3)
         self._complete(req, status="deadline_expired")
 
     def _quarantine(self, idx: int, now: float) -> None:
@@ -767,6 +937,11 @@ class ServingEngine:
         self._release_demoted(req, dirty=True)
         self._drain_scrubs(always_null=True)
         self.quarantined_count += 1
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.quarantined").inc()
+            tel.event("serving.quarantined", request=req.id, tag=req.tag,
+                      emitted=len(req.emitted), prompt_len=len(req.prompt))
         self._complete(req, status="quarantined")
 
     def _drain_scrubs(self, always_null: bool = False) -> None:
@@ -820,6 +995,12 @@ class ServingEngine:
         slot.registered_blocks = registered
         self.prefix_hits += 1
         self.prefix_blocks_reused += reused
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.prefix_hits").inc()
+            tel.registry.counter("serving.prefix_blocks_reused").inc(reused)
+            if rows > registered * self.serving.block_size:
+                tel.registry.counter("serving.prefix_cow_copies").inc()
 
     def _register_prefix_blocks(self, idx: int) -> None:
         """Publish the slot's freshly prefilled FULL blocks under their chain
@@ -859,6 +1040,10 @@ class ServingEngine:
         if key in self._seen_widths[kind]:
             return False
         self._seen_widths[kind].add(key)
+        tel = get_telemetry()
+        if tel.enabled:
+            # "dispatch", not "kind": event() reserves "kind" for the record.
+            tel.event("serving.bucket_compile", dispatch=kind, width=key)
         return True
 
     def _table_row(self, blocks: List[int], width: Optional[int] = None) -> np.ndarray:
@@ -898,6 +1083,9 @@ class ServingEngine:
         self.prefill_seconds += time.perf_counter() - t0
         self.prefill_dispatches += 1
         req.prefill_dispatches += 1
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.prefill_dispatches").inc()
         slot.cache_len = start + n_real
         if self.tracer is not None:
             self.tracer.on_prefill(req, idx, time.monotonic(), padded_rows=chunk_len - n_real,
@@ -970,6 +1158,11 @@ class ServingEngine:
         out, accepts, oks = self._decode_forward(tables, lengths, tokens, draft_len, live)
         self.decode_seconds += time.perf_counter() - t0
         self.decode_dispatches += 1
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.decode_dispatches").inc()
+            tel.registry.counter("serving.decode_gather_bytes").inc(gathered * self._block_bytes)
+            tel.registry.gauge("serving.decode_bucket_width").set(m)
         emit_t = time.monotonic()
         if self.tracer is not None:
             # emit_t is past the forward's device synchronisation.
@@ -1003,6 +1196,12 @@ class ServingEngine:
             self.spec_rounds += 1
             self.spec_proposed += proposed
             self.spec_accepted += accepted
+            if tel.enabled:
+                tel.registry.counter("serving.spec.rounds").inc()
+                if proposed:
+                    tel.registry.counter("serving.spec.proposed").inc(proposed)
+                if accepted:
+                    tel.registry.counter("serving.spec.accepted").inc(accepted)
 
     # -- completion / metrics ------------------------------------------------
 
@@ -1010,6 +1209,13 @@ class ServingEngine:
         req = self.sched.slots[idx].request
         req.emitted.append(token)
         req.note_token(now)
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("serving.tokens").inc()
+            if len(req.emitted) == 1 and req.arrival_t is not None:
+                tel.registry.histogram("serving.ttft_ms").observe((now - req.arrival_t) * 1e3)
+            elif req.inter_token_ms:
+                tel.registry.histogram("serving.inter_token_ms").observe(req.inter_token_ms[-1])
         if req.remaining == 0:
             self.sched.finish(idx, now)
             self._complete(req)
@@ -1049,6 +1255,19 @@ class ServingEngine:
         ))
         if self.journal is not None:
             self.journal.record_done(req.id, status)
+        tel = get_telemetry()
+        if tel.enabled:
+            reg = tel.registry
+            reg.counter("serving.completed").inc()
+            reg.histogram("serving.queue_wait_ms").observe(queue_wait_ms)
+            if tps is not None:
+                reg.histogram("serving.tokens_per_s").observe(tps)
+            tel.event(
+                "serving.request_complete", request=req.id, tag=req.tag, status=status,
+                prompt_len=len(req.prompt), new_tokens=len(req.emitted),
+                ttft_ms=round(ttft_ms, 3) if ttft_ms is not None else None,
+                queue_wait_ms=round(queue_wait_ms, 3), preemptions=req.preemptions,
+            )
         if self.tracer is not None:
             self.tracer.on_terminal(req, status)
 

@@ -265,8 +265,17 @@ class Scheduler:
             try:
                 slot.blocks.extend(self.allocator.alloc(need))
                 return True
-            except BlockOutOfMemory:
+            except BlockOutOfMemory as exc:
                 if self.preempt_one() is None:
+                    # Terminal pool exhaustion (nothing left to evict):
+                    # snapshot the ranked memory ledger before the engine
+                    # dies on this raise.
+                    from ..telemetry.memledger import get_memory_ledger
+
+                    get_memory_ledger().note_oom(
+                        source="serving.admission", error=exc, slot=idx, rows=rows,
+                        free_blocks=self.allocator.free_blocks,
+                        capacity=self.allocator.capacity)
                     raise
                 slot = self.slots.get(idx)  # self-preemption returns None
         return False

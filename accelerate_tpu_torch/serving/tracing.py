@@ -45,12 +45,10 @@ reads and list appends per tick.  Completed traces live in a bounded ring
 (``ACCELERATE_TPU_SERVING_TRACE_CAPACITY``, default 1024).  Tracing is
 **default-on** (``ACCELERATE_TPU_SERVING_TRACE=0`` is the kill switch);
 the JSONL file only exists when a directory is configured
-(``ServingConfig.trace_dir`` or ``ACCELERATE_TPU_SERVING_TRACE_DIR``).
-
-Telemetry is not ported yet, so two of the JAX module's hooks are left
-out: the fallback of the trace directory to the telemetry run directory,
-and the ``serving.trace.blame.*`` counters and the unattributed-ms
-histogram that a terminal record feeds.
+(``ServingConfig.trace_dir``, ``ACCELERATE_TPU_SERVING_TRACE_DIR``, or the
+enabled telemetry run directory).  With telemetry on, each terminal record
+also feeds the ``serving.trace.blame.{phase}`` counters and the
+``serving.trace.unattributed_ms`` histogram.
 """
 
 from __future__ import annotations
@@ -62,6 +60,8 @@ import json
 import os
 import time
 from typing import Dict, List, Optional
+
+from ..telemetry import get_telemetry
 
 __all__ = [
     "PHASES",
@@ -136,9 +136,16 @@ def tracing_enabled(flag: Optional[bool] = None) -> bool:
 
 def resolve_trace_dir(explicit: Optional[str] = None) -> Optional[str]:
     """Where trace JSONL persists: explicit config, then the env override,
-    else nowhere — tracing stays purely in-memory (ring + live map) with no
-    file I/O."""
-    return explicit or os.environ.get(ENV_DIR, "").strip() or None
+    then the enabled telemetry run directory (so ``telemetry.report <dir>``
+    finds the traces next to the telemetry stream), else nowhere — tracing
+    stays purely in-memory (ring + live map) with no file I/O."""
+    path = explicit or os.environ.get(ENV_DIR, "").strip() or None
+    if path:
+        return path
+    tel = get_telemetry()
+    if tel.enabled and tel.dir:
+        return tel.dir
+    return None
 
 
 def _env_int(key: str, default: int) -> int:
@@ -464,6 +471,12 @@ class ServingTracer:
         t.status = status
         t.blame = decompose_blame(t.phase_ms(), t.window_ms(), status)
         self.blame_counts[t.blame] = self.blame_counts.get(t.blame, 0) + 1
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.registry.counter(f"serving.trace.blame.{t.blame}").inc()
+            tel.registry.histogram("serving.trace.unattributed_ms").observe(
+                t.unattributed_ms()
+            )
         self.completed.append(t)
         self._write(t.to_record())
         if self._file is not None:

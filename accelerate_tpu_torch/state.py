@@ -258,6 +258,11 @@ class AcceleratorState:
         policy = MixedPrecisionPolicy.from_mixed_precision(mode)
         partial_state = PartialState(cpu, device=device, **kwargs)
         self._partial = partial_state
+        # Env-opt-in observability (ACCELERATE_TPU_TELEMETRY=1) goes live
+        # once the process state exists, as in the JAX package.
+        from .telemetry import maybe_enable_from_env
+
+        maybe_enable_from_env()
         self._mixed_precision = mode
         self.dtype_policy = policy
         self.distributed_type = partial_state.distributed_type

@@ -9,8 +9,9 @@ Aim, MLflow, ClearML, DVCLive) import their SDK when built and are filtered
 by availability, so the module works with none of them installed.
 ``LOGGER_TYPE_TO_CLASS`` names them, :func:`filter_trackers` validates a
 ``log_with`` list and :func:`init_trackers` builds it, as
-``Accelerator.init_trackers`` does.  :func:`telemetry_rows` keeps its name
-and returns ``{}`` until telemetry is ported (ROADMAP A4).
+``Accelerator.init_trackers`` does.  :func:`telemetry_rows` is the
+telemetry registry's scalars, which ``Accelerator.log`` merges into every
+``log`` call while telemetry is on.
 """
 
 from __future__ import annotations
@@ -551,10 +552,19 @@ def filter_trackers(log_with: list, logging_dir: Optional[str] = None) -> list:
 
 def telemetry_rows(prefix: str = "telemetry/") -> dict:
     """The telemetry registry's scalars under ``prefix``, which
-    ``Accelerator.log`` merges into every ``log`` call.  Telemetry is not
-    ported yet (ROADMAP A4), so this is ``{}``, what the JAX package returns
-    with telemetry off."""
-    return {}
+    ``Accelerator.log`` merges into every ``log`` call, so any tracker
+    receives step-time / compile / memory / MFU rows once telemetry is on.
+    Empty when telemetry is off."""
+    from .telemetry import get_telemetry
+
+    tel = get_telemetry()
+    if not tel.enabled:
+        return {}
+    return {
+        f"{prefix}{k}": v
+        for k, v in tel.registry.snapshot().items()
+        if isinstance(v, (int, float))
+    }
 
 
 def init_trackers(log_with, project_name, config, init_kwargs, accelerator) -> list[GeneralTracker]:

@@ -7,9 +7,10 @@ pass it (``TypeError``); each outer call starts again from
 ``starting_batch_size``; each out-of-memory error halves the size with a
 warning; reaching 0 raises ``RuntimeError``; every other exception passes
 through.  A ``torch.cuda.OutOfMemoryError`` is an out-of-memory error by
-type, other exceptions by their message.  The JAX module also notes each
-OOM in its memory ledger and telemetry counters; those are telemetry
-(ROADMAP A4) and are left out here.
+type, other exceptions by their message.  Each OOM is noted in the memory
+ledger (a ``memory.oom_postmortem`` naming the largest reservation) and,
+with telemetry on, in the ``memory.oom_halvings`` counter and a
+``memory.oom_halving`` event.
 """
 
 from __future__ import annotations
@@ -90,6 +91,8 @@ def find_executable_batch_size(function: Optional[Callable] = None,
                 f"`{function.__name__}({arg_str})`"
             )
         from ..logging import get_logger
+        from ..telemetry import get_telemetry
+        from ..telemetry.memledger import get_memory_ledger
 
         logger = get_logger(__name__)
         while True:
@@ -100,16 +103,26 @@ def find_executable_batch_size(function: Optional[Callable] = None,
             except Exception as e:
                 if not should_reduce_batch_size(e):
                     raise
+                # Forensics before the cache is emptied: the ledger snapshots
+                # the ranked owners and the watermark of the attempt that
+                # died (it keeps the error's text, not the error).
+                get_memory_ledger().note_oom(source="find_executable_batch_size", error=e,
+                                             function=function.__name__,
+                                             batch_size=batch_size)
             # Outside the except block: the failed attempt's traceback, which
             # holds its frames and their tensors, is gone before the cache is
-            # emptied.  (The JAX module also notes the OOM in its memory
-            # ledger and telemetry here: ROADMAP A4.)
+            # emptied.
             clear_device_cache(garbage_collection=True)
             new_size = batch_size // 2
             logger.warning(
                 f"OOM at batch_size={batch_size} in `{function.__name__}`; "
                 f"retrying with batch_size={new_size}"
             )
+            tel = get_telemetry()
+            if tel.enabled:
+                tel.registry.counter("memory.oom_halvings").inc()
+                tel.event("memory.oom_halving", function=function.__name__,
+                          batch_size=batch_size, new_batch_size=new_size)
             batch_size = new_size
 
     return decorator

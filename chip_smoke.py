@@ -282,12 +282,45 @@ Phases (each fails the run on any mismatch; nothing is caught):
    greedy ``generate`` of 16 tokens equal on the card and the CPU, and a
    4-beam ``generate_beam``.
 
+14. Telemetry (``accelerate_tpu_torch.telemetry``) at full width, through
+   both main paths, in one run directory under ``build/phase14/``.  14a:
+   Phase 5's configuration (Llama-3-8B widths, 4 layers, bf16 compute,
+   ``remat``, B 2 x S 2048, AdamW) through the README loop: the step's host
+   time with telemetry on and off in turns (on, off, off, on); then
+   ``telemetry.enable``, ``Accelerator.enable_flight_recorder()`` (its
+   sentinel judging from the third step) and ``step_timer.configure`` with
+   PERF.md's FLOPs per step, 9 steps with step 4 slowed by a second: the
+   sentinel's window records steps 5-7 with ``torch.profiler`` and
+   ``profile_scan`` must find the three flash kernels 2L / L / L a step in
+   its trace, device-busy within the window; ``step.count`` equal to the
+   steps, ``step.mfu`` within 5% of the share this script computes from its
+   own clock on the same step; then 2 fused steps: the ``train.params`` /
+   ``train.opt_state`` reservations equal to the storage bytes, the
+   ledger's conservation exact against ``torch.cuda.memory_allocated``, the
+   ``hbm.*`` gauges equal to ``torch.cuda.memory_stats``; one span, one
+   ``record_step`` and one ``collect_hbm`` under
+   ``torch.cuda.set_sync_debug_mode("error")``; one flight-recorder record
+   per step.  A trimmed copy of the window's trace is written beside the
+   run directory.  14b: Phase 2's model and traffic (``spec_tokens`` 0 and
+   3) with telemetry on, the metrics endpoint on ``127.0.0.1`` at an
+   ephemeral port and the tracer writing into the run directory: every
+   request token-identical to Phase 2's, the ``serving.*`` counters equal
+   to ``engine.stats()``, the ``serving.kv_pool`` reservation equal to the
+   pool's bytes, the blame counters summing to the completed requests, one
+   scrape of ``/metrics`` parsed as Prometheus text; ITL p50 beside Phase
+   2's.  Then ``python -m accelerate_tpu_torch.telemetry.report`` over the
+   run directory exits 0 and prints the step, serving, flight-recorder and
+   trace blocks.  Last, Phase 2's traffic at ``spec_tokens`` 0 with
+   telemetry on and off in turns (on, off, off, on), token-identical each
+   time: ITL p50 and mean.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
 ``launches_phase10``, the flash kernels' Phase 10d and 10e launches as
 ``launches_phase10d`` and ``launches_phase10e``, their Phase 12 launches
-as ``launches_phase12``, the paged kernels' Phase
+as ``launches_phase12``, every kernel's Phase 14 launches as
+``launches_phase14``, the paged kernels' Phase
 11 launches as ``launches_phase11`` and 11a's records as
 ``gpt2_xl_heads``, the flash kernels' fp32 Phase 4
 records as ``fp32``, the head dims each takes as ``head_dims`` and
@@ -764,7 +797,8 @@ def phase2():
             f"itl_mean_ms={itl_mean:.2f} preempted={st['preempted']} "
             f"acceptance={st['spec']['acceptance_rate']}")
         out[spec] = dict(dec=dec, win=win, ttft_p50_ms=ttft, itl_p50_ms=itl, itl_mean_ms=itl_mean,
-                         decode_tokens_per_s=decode_tps)
+                         decode_tokens_per_s=decode_tps, prompts=list(prompts),
+                         tokens=[list(done[rid].tokens) for rid in ids])
         del engine
         torch.cuda.empty_cache()
     decode_step_checks(params, cfg)
@@ -1361,14 +1395,8 @@ def phase5():
             "fused_attention_bwd_dkv": layers * 5}
     check(counts == want, f"kernel launches {counts}, want {want} (2L, L, L per step)")
 
-    # Model FLOPs per step: 6 per non-embedding parameter (the LM head
-    # counted) per token, plus attention's forward and backward (3.5 x the
-    # forward's 2 products; the recomputed forward under remat not counted).
     tokens = b * s
-    dense = n_params - cfg.vocab_size * cfg.hidden_size  # the embedding is a lookup
-    pairs = s * (s + 1) // 2
-    attn = layers * 3.5 * 4 * b * cfg.num_heads * cfg.head_dim_ * pairs
-    flops = 6 * dense * tokens + attn
+    flops = llama_step_flops(cfg, b, s)
     ms = median(step_s[1:]) * 1e3
     log(f"phase5 step_ms={ms:.2f} (median of steps 2-5; first {step_s[0] * 1e3:.2f}) "
         f"tokens_per_s={tokens / ms * 1e3:.1f} model_tflop_per_step={flops / 1e12:.2f} "
@@ -4226,6 +4254,441 @@ def phase13(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: telemetry at full width, training and serving
+# ---------------------------------------------------------------------------
+
+PHASE14_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase14")
+PHASE14_LAYERS = 4
+PHASE14_S = 2048
+PHASE14_STEPS = 9  # the README loop's steps with telemetry on, see phase14a
+PHASE14_SLOW_STEP = 4  # the step slowed on purpose: the sentinel's window opens after it
+PHASE14_SLOW_S = 1.0
+PHASE14_FUSED_STEPS = 2
+PHASE14_TURN_STEPS = 4
+# The flash kernels as the profiler names them, and their launches a step
+# in units of L (forward 2L under remat, dQ and dK/dV L each).
+PHASE14_FLASH = (("flash_fwd_sm90_kernel", 2), ("flash_bwd_dq_sm90_kernel", 1),
+                 ("flash_bwd_dkv_sm90_kernel", 1))
+# What a trimmed copy of a torch-profiler trace keeps: the device events and
+# the host step spans timeline.py reads, with no arguments.
+TRIM_CATS = ("kernel", "gpu_memcpy", "gpu_memset", "user_annotation")
+
+
+def trim_trace(src, dst):
+    """Write the events ``telemetry.timeline`` reads from the Chrome trace
+    ``src`` (process and thread names, device work, host step spans;
+    ``ph``/``cat``/``name``/``pid``/``tid``/``ts``/``dur`` only) to ``dst``
+    (gzipped).  Returns the bytes written."""
+    import gzip
+
+    with gzip.open(src, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    keep = []
+    for e in events:
+        if e.get("ph") == "M" and e.get("name") in ("process_name", "thread_name"):
+            keep.append({k: e[k] for k in ("ph", "name", "pid", "tid", "args") if k in e})
+        elif e.get("ph") == "X" and e.get("cat") in TRIM_CATS:
+            keep.append({k: e[k] for k in ("ph", "cat", "name", "pid", "tid", "ts", "dur")})
+    with gzip.open(dst, "wt") as f:
+        json.dump({"traceEvents": keep}, f, separators=(",", ":"))
+    return os.path.getsize(dst)
+
+
+def llama_step_flops(cfg, b, s):
+    """Model FLOPs of one training step (PERF.md section 2): 6 per
+    non-embedding parameter (the LM head counted; the embedding is a
+    lookup) per token, plus attention's forward and backward (3.5 x the
+    forward's 2 causal products; the forward recomputed under remat not
+    counted)."""
+    dense = cfg.num_params() - cfg.vocab_size * cfg.hidden_size
+    pairs = s * (s + 1) // 2
+    attn = cfg.num_layers * 3.5 * 4 * b * cfg.num_heads * cfg.head_dim_ * pairs
+    return 6 * dense * b * s + attn
+
+
+def phase14a(smi):
+    """Telemetry on the README loop at Phase 5's widths; returns the flash
+    launches of the whole phase and the numbers PERF.md keeps."""
+    import glob
+    import gc
+
+    from torch.utils.data import DataLoader
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch import telemetry as tel_mod
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.telemetry import flightrec, memledger, profile_scan
+
+    gc_collect()
+    shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+    run_dir = os.path.join(PHASE14_DIR, "run")
+    layers, b, s = PHASE14_LAYERS, 2, PHASE14_S
+    cfg = llama.LlamaConfig.llama3_8b(num_layers=layers, dtype=torch.bfloat16,
+                                      param_dtype=torch.float32, remat=True)
+    t0 = time.perf_counter()
+    model = llama.LlamaForCausalLM(cfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"phase14a Llama-3-8B widths, {layers} layers, fp32 params={cfg.num_params()} "
+        f"init_s={time.perf_counter() - t0:.1f}")
+    rng = np.random.default_rng(14)
+    n_batches = 2 * PHASE14_TURN_STEPS + 2  # an epoch holds one turn or the checked run
+    n_batches = max(n_batches, PHASE14_STEPS + PHASE14_FUSED_STEPS)
+    data = [{"input_ids": torch.from_numpy(row)} for row in
+            rng.integers(0, cfg.vocab_size, size=(n_batches * b, s))]
+    acc = Accelerator()
+    model, opt, dl = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=3e-5,
+                                                           weight_decay=1e-4),
+                                 DataLoader(data, batch_size=b))
+    flops = llama_step_flops(cfg, b, s)
+    peak = PEAK_FLOPS["torch.bfloat16"]
+
+    def loop(n, slow=None, after=None):
+        """``n`` README-loop steps; the host ms of each (to a device sync).
+        ``after(i)`` runs after step ``i``, off its clock."""
+        times = []
+        it = iter(dl)
+        for i in range(1, n + 1):
+            batch = next(it)
+            t = time.perf_counter()
+            with acc.accumulate(model):
+                loss = model(**batch)["loss"]
+                acc.backward(loss)
+                if i == slow:
+                    time.sleep(PHASE14_SLOW_S)  # the anomaly the sentinel must see
+                opt.step()
+                opt.zero_grad()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            if after is not None:
+                after(i)
+        return times
+
+    loop(2)  # warm: AdamW state, allocator
+    # Step time with telemetry on and off, in turns (on, off, off, on).
+    turns = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        if mode == "on":
+            tel_mod.enable(dir=os.path.join(PHASE14_DIR, "turns"))
+        turns[mode].append(median(loop(PHASE14_TURN_STEPS)))
+        tel_mod.disable()
+    log(f"phase14a README-loop step host ms, medians of {PHASE14_TURN_STEPS} steps a turn, in "
+        f"turns (on, off, off, on): on {[round(x, 2) for x in turns['on']]} off "
+        f"{[round(x, 2) for x in turns['off']]} -> on {median(turns['on']):.2f} off "
+        f"{median(turns['off']):.2f} ({smi})")
+
+    # The checked run: telemetry, the flight recorder, the step timer.
+    tel = tel_mod.enable(dir=run_dir)
+    rec = acc.enable_flight_recorder()
+    # The sentinel judges from its third observed step (the first completed
+    # step has no duration), so the slowed step 4 opens the window, which
+    # records steps 5-7.  The trace's export ends step 7 and its analysis
+    # runs on the recorder's thread, awaited after step 7 (it would contend
+    # for the interpreter with the loop); step 8's time holds both, step 9's
+    # neither.
+    rec.sentinel = tel_mod.AnomalySentinel(warmup=2, window=16)
+    tel.step_timer.configure(tokens_per_step=b * s, flops_per_step=flops)
+    check(tel.registry.snapshot().get("step.count") is None, "telemetry registry not fresh")
+    reset_flash_counts()
+    times = loop(PHASE14_STEPS, slow=PHASE14_SLOW_STEP,
+                 after=lambda i: rec._join_analysis(timeout=300.0)
+                 if i == PHASE14_SLOW_STEP + 3 else None)
+    eager_counts = read_flash_counts()
+    want = {n: PHASE14_STEPS * k * layers for n, k in zip(FLASH_KERNELS, (2, 1, 1))}
+    check(eager_counts == want, f"README loop launched the flash kernels {eager_counts}, want "
+          f"{want} (2L, L, L a step)")
+    snap = tel.registry.snapshot()
+    check(snap["step.count"] == PHASE14_STEPS,
+          f"step.count {snap['step.count']} after {PHASE14_STEPS} steps")
+    check(snap["pipeline.dispatches_per_step"] == 3,
+          f"eager dispatches per step {snap['pipeline.dispatches_per_step']}, want 3")
+    own_share = flops / (times[-1] / 1e3) / peak
+    log(f"phase14a {PHASE14_STEPS} steps (step {PHASE14_SLOW_STEP} slowed by "
+        f"{PHASE14_SLOW_S} s): host ms {[round(x, 2) for x in times]}; step.mfu {snap['step.mfu']:.4f} "
+        f"against this script's clock on the same step {own_share:.4f} (peak {peak:.3e}, "
+        f"{flops / 1e12:.2f} TFLOP a step); step.time_ms last {snap['step.time_ms.last']:.2f}")
+    check(abs(snap["step.mfu"] / own_share - 1) <= 0.05,
+          f"step.mfu {snap['step.mfu']} not within 5% of {own_share}")
+
+    # The window's trace: written, read by profile_scan, the flash kernels
+    # at 2L / L / L a step, device-busy within the window.
+    rec._join_analysis(timeout=120.0)
+    trace_dir = os.path.join(run_dir, "anomaly_trace")
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json.gz"))
+    check(len(traces) == 1, f"the sentinel's window wrote {traces} under {trace_dir}")
+    # The slowed step is the first anomaly; step 8, which carries the
+    # trace's export and analysis, is a slow step too (no second window).
+    anomalies = [(r["step"], r["dur_ms"]) for r in rec.snapshot() if r["kind"] == "anomaly"]
+    check(anomalies and anomalies[0][0] == PHASE14_SLOW_STEP,
+          f"sentinel anomalies (step, ms) {anomalies}")
+    t0 = time.perf_counter()
+    report = profile_scan.analyze_trace_dir(trace_dir, top_k=400)
+    scan_s = time.perf_counter() - t0
+    window_steps = 3
+    found = {}
+    for base, per_layer in PHASE14_FLASH:
+        rows = [r for r in report.top_ops if re.search(base + r"\b", r["name"])]
+        found[base] = (sum(r["count"] for r in rows), round(sum(r["self_ms"] for r in rows), 3))
+        check(found[base][0] == window_steps * per_layer * layers,
+              f"profile_scan found {base} {found[base][0]} times in the window, want "
+              f"{window_steps} x {per_layer} x {layers}")
+    check(report.device_busy_ms <= report.window_ms,
+          f"device busy {report.device_busy_ms} ms > window {report.window_ms} ms")
+    log(f"phase14a sentinel anomalies (step, ms): {anomalies}; window {os.path.basename(traces[0])} "
+        f"({os.path.getsize(traces[0])} bytes): profile_scan {scan_s:.1f} s, marker "
+        f"{report.step_marker!r}, {len(report.steps)} steps, window_ms={report.window_ms} "
+        f"device_busy_ms={report.device_busy_ms} idle_ms={report.idle_ms} "
+        f"bubble={report.bubble_fraction}; flash (launches, self ms) {found}; steps "
+        + "; ".join(f"{st['index']}: {st['dur_ms']} ms busy {st['busy_ms']}" for st in report.steps)
+        + f" ({smi})")
+    for row in report.top_ops[:8]:
+        log(f"phase14a   top op {row['self_ms']:.3f} ms x{row['count']} [{row['bucket']}] "
+            f"{row['name'][:100]}")
+    digests = [r for r in rec.snapshot() if r.get("name") == "sentinel.profile_digest"]
+    check(len(digests) == 1, f"flight recorder digests {len(digests)}")
+    fixture = os.path.join(PHASE14_DIR, "llama3_8b_4l_window.pt.trace.json.gz")
+    log(f"phase14a trimmed trace {fixture}: {trim_trace(traces[0], fixture)} bytes")
+
+    # The fused step: the memory ledger's train state and its conservation.
+    step = acc.make_train_step(model, opt)
+    it = iter(dl)
+    for _ in range(PHASE14_FUSED_STEPS):
+        step(next(it))
+    torch.cuda.synchronize()
+    fused_counts = read_flash_counts()  # since the checked run began
+    steps_taken = PHASE14_STEPS + PHASE14_FUSED_STEPS
+    want = {n: steps_taken * k * layers for n, k in zip(FLASH_KERNELS, (2, 1, 1))}
+    check(fused_counts == want, f"phase 14a launched the flash kernels {fused_counts}, want "
+          f"{want}")
+    snap = tel.registry.snapshot()
+    check(snap["step.count"] == steps_taken, f"step.count {snap['step.count']}, want {steps_taken}")
+    check(snap["pipeline.dispatches_per_step"] == 1,
+          f"fused dispatches per step {snap['pipeline.dispatches_per_step']}")
+    ledger = memledger.get_memory_ledger()
+    owners = {r.owner: r for r in ledger.owners()}
+    dev = torch.cuda.current_device()
+    want_params = sum(p.untyped_storage().nbytes() for p in model.parameters())
+    # AdamW's moments live beside the parameters; its step counts are CPU
+    # scalars, which the ledger charges to host bytes.
+    on = next(model.parameters()).device
+    want_state = sum(t.untyped_storage().nbytes() for st_ in opt.optimizer.state.values()
+                     for t in st_.values() if torch.is_tensor(t) and t.device == on)
+    got_params = owners["train.params"].per_device.get(dev)
+    got_state = owners["train.opt_state"].per_device.get(dev)
+    check(got_params == want_params and got_state == want_state,
+          f"ledger train.params {got_params} / train.opt_state {got_state}, storages "
+          f"{want_params} / {want_state}")
+    last = [r for r in ledger.snapshot()["devices"] if r["device"] == dev][0]
+    check(last["attributed_bytes"] + last["program_estimate_bytes"] + last["unattributed_bytes"]
+          == last["bytes_in_use"], f"last reconcile breaks conservation: {last}")
+    (now,) = [r for r in ledger.reconcile() if r["device"] == dev]
+    allocated = torch.cuda.memory_allocated(dev)
+    check(now["attributed_bytes"] + now["program_estimate_bytes"] + now["unattributed_bytes"]
+          == now["bytes_in_use"] == allocated,
+          f"reconcile {now} against memory_allocated {allocated}")
+    hbm = tel_mod.collect_hbm(tel.registry)
+    stats = torch.cuda.memory_stats(dev)
+    check(hbm["hbm.bytes_in_use"] == stats["allocated_bytes.all.current"]
+          and hbm["hbm.peak_bytes"] == stats["allocated_bytes.all.peak"],
+          f"hbm gauges {hbm} against memory_stats current "
+          f"{stats['allocated_bytes.all.current']} peak {stats['allocated_bytes.all.peak']}")
+    log(f"phase14a fused steps {PHASE14_FUSED_STEPS}: ledger train.params={got_params} "
+        f"train.opt_state={got_state} (storage bytes); last reconcile {last}; now {now}; "
+        f"hbm {hbm}")
+
+    # Telemetry's host paths add no device sync: torch raises on any sync
+    # its ops would make while the debug mode is "error".
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with tel_mod.span("phase14.sync_check"):
+            tel.record_step()
+        tel_mod.collect_hbm(tel.registry)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    steps_taken += 1  # the checked record_step is a step to the registry
+    flightrec.get_flight_recorder().flush()
+    rec_steps = [r["step"] for r in rec.snapshot() if r["kind"] == "step"]
+    check(rec_steps == list(range(1, steps_taken + 1)),
+          f"flight recorder step records {rec_steps}")
+    del model, opt, step, acc, dl
+    gc_collect()
+    return dict(counts=fused_counts, eager=eager_counts, turns=turns, run_dir=run_dir,
+                mfu=snap["step.mfu"], found=found)
+
+
+def prometheus_series(text):
+    """``{series name: value}`` of a Prometheus text exposition; raises on a
+    line that is neither a comment nor ``name[{labels}] value``."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.fullmatch(r'([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)', line)
+        if m is None:
+            raise ValueError(f"not Prometheus text: {line!r}")
+        out[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def phase14b(smi, p2, run_dir):
+    """Phase 2's serving with telemetry on, the metrics endpoint on
+    loopback and the tracer writing into the run directory."""
+    import urllib.request
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch import telemetry as tel_mod
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.telemetry import export, memledger
+
+    tel = tel_mod.get_telemetry()
+    check(tel.enabled and tel.dir == run_dir, "phase 14b runs inside 14a's telemetry run")
+    exporter = export.get_exporter()
+    check(exporter is not None and exporter.port, "the metrics endpoint did not start")
+    cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0)  # Phase 2's weights
+    torch.cuda.synchronize()
+    log(f"phase14b Llama-3-8B bf16 (Phase 2's weights) init_s={time.perf_counter() - t0:.1f}")
+    rng = np.random.default_rng(1)
+    acc = Accelerator()
+    out = {}
+    for spec in (0, 3):
+        before = tel.registry.snapshot()
+        engine = acc.prepare_serving(llama.apply_cached, llama.init_cache, params, cfg,
+                                     paged_kernel=True, spec_tokens=spec, **PHASE2_GEOMETRY)
+        check(engine.tracer is not None and engine.tracer.path is not None
+              and engine.tracer.path.startswith(run_dir),
+              f"the tracer writes to {engine.tracer.path if engine.tracer else None}, "
+              f"not the run directory")
+        owners = {r.owner: r for r in memledger.get_memory_ledger().owners()}
+        pool_bytes = sum(t.untyped_storage().nbytes() for t in engine.cache.pool.values())
+        check(owners["serving.kv_pool"].device_bytes == pool_bytes,
+              f"serving.kv_pool {owners['serving.kv_pool'].device_bytes} != pool {pool_bytes}")
+        engine.submit(list(rng.integers(0, cfg.vocab_size, size=40)), 4)  # warm-up
+        engine.run()
+        engine.pop_finished()
+        prompts, want = p2[spec]["prompts"], p2[spec]["tokens"]
+        reset_counts()
+        done, wall, ids = serve(engine, prompts, 32, stagger_ticks=3)
+        dec, win = read_counts()
+        for i, rid in enumerate(ids):
+            check(list(done[rid].tokens) == want[i],
+                  f"spec={spec}: request {i} differs from Phase 2's with telemetry on")
+        after = tel.registry.snapshot()
+
+        def delta(name):
+            return after.get(name, 0) - before.get(name, 0)
+
+        st = engine.stats()
+        completed = st["completed"] + 1  # and the warm-up request, popped above
+        pairs = {"serving.requests": len(prompts) + 1,
+                 "serving.completed": completed,
+                 "serving.decode_dispatches": st["decode_dispatches"],
+                 "serving.prefill_dispatches": st["prefill_dispatches"],
+                 "serving.preempted": st["preempted"],
+                 "serving.decode_gather_bytes": st["decode_gather_bytes"],
+                 "serving.prefix_hits": st["prefix_hits"],
+                 "serving.spec.rounds": st["spec"]["rounds"],
+                 "serving.spec.proposed": st["spec"]["proposed"],
+                 "serving.spec.accepted": st["spec"]["accepted"],
+                 "serving.tokens": len(prompts) * 32 + 4}
+        got = {k: delta(k) for k in pairs}
+        check(got == pairs, f"spec={spec}: serving counters {got} != engine.stats() {pairs}")
+        blame = {k: delta(k) for k in after if k.startswith("serving.trace.blame.")}
+        check(sum(blame.values()) == completed == len(prompts) + 1,
+              f"spec={spec}: blame counters {blame} for {completed} completed")
+        gaps = [x for c in done.values() for x in c.inter_token_ms]
+        itl, itl_mean = median(gaps), sum(gaps) / len(gaps)
+        log(f"phase14b spec_tokens={spec}: telemetry on, all {len(ids)} requests token-identical "
+            f"to Phase 2; ITL p50 {itl:.2f} ms (Phase 2: {p2[spec]['itl_p50_ms']:.2f}), mean "
+            f"{itl_mean:.2f} (Phase 2: {p2[spec]['itl_mean_ms']:.2f}); counters {got}; blame "
+            f"{blame}; kv_pool {pool_bytes} bytes; launches decode {dec} window {win} ({smi})")
+        if spec == 0:
+            with urllib.request.urlopen(f"http://127.0.0.1:{exporter.port}/metrics",
+                                        timeout=30) as resp:
+                series = prometheus_series(resp.read().decode())
+            served = sorted(k for k in series if k.startswith("accelerate_tpu_serving_"))
+            check(series.get("accelerate_tpu_serving_completed_total") == after[
+                "serving.completed"], "the scrape's serving_completed_total differs")
+            log(f"phase14b scrape of 127.0.0.1:{exporter.port}/metrics: {len(series)} series, "
+                f"{len(served)} serving series")
+        out[spec] = dict(dec=dec, win=win, itl_p50_ms=itl, itl_mean_ms=itl_mean)
+        del engine
+        torch.cuda.empty_cache()
+    return out, params, cfg
+
+
+def phase14_serving_turns(smi, p2, params, cfg):
+    """Phase 2's traffic at ``spec_tokens`` 0 with telemetry on and off in
+    turns (on, off, off, on), an engine each; ITL p50 and mean of each."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch import telemetry as tel_mod
+    from accelerate_tpu_torch.models import llama
+
+    rng = np.random.default_rng(2)
+    acc = Accelerator()
+    turns = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        if mode == "on":
+            tel_mod.enable(dir=os.path.join(PHASE14_DIR, "serving_turns"))
+        engine = acc.prepare_serving(llama.apply_cached, llama.init_cache, params, cfg,
+                                     paged_kernel=True, spec_tokens=0, **PHASE2_GEOMETRY)
+        engine.submit(list(rng.integers(0, cfg.vocab_size, size=40)), 4)  # warm-up
+        engine.run()
+        engine.pop_finished()
+        done, _, ids = serve(engine, p2[0]["prompts"], 32, stagger_ticks=3)
+        check([list(done[r].tokens) for r in ids] == p2[0]["tokens"],
+              f"telemetry {mode}: tokens differ from Phase 2's")
+        gaps = [x for c in done.values() for x in c.inter_token_ms]
+        turns[mode].append((median(gaps), sum(gaps) / len(gaps)))
+        tel_mod.disable()
+        del engine
+        torch.cuda.empty_cache()
+    log("phase14 serving ITL ms (p50, mean) with telemetry on and off in turns (on, off, off, "
+        f"on): on {[(round(a, 2), round(b, 2)) for a, b in turns['on']]} off "
+        f"{[(round(a, 2), round(b, 2)) for a, b in turns['off']]} ({smi})")
+    return turns
+
+
+def phase14(smi, p2):
+    from accelerate_tpu_torch import telemetry as tel_mod
+    from accelerate_tpu_torch.telemetry import flightrec
+
+    t0 = time.perf_counter()
+    prior = os.environ.get("ACCELERATE_TPU_METRICS_PORT")
+    os.environ["ACCELERATE_TPU_METRICS_PORT"] = "0"  # an ephemeral port on 127.0.0.1
+    os.environ.pop("ACCELERATE_TPU_SERVING_TRACE_DIR", None)
+    try:
+        a = phase14a(smi)
+        t1 = time.perf_counter()
+        b, params, cfg = phase14b(smi, p2, a["run_dir"])
+    finally:
+        flightrec.disable()
+        tel_mod.disable()
+        if prior is None:
+            os.environ.pop("ACCELERATE_TPU_METRICS_PORT", None)
+        else:
+            os.environ["ACCELERATE_TPU_METRICS_PORT"] = prior
+    proc = subprocess.run([sys.executable, "-m", "accelerate_tpu_torch.telemetry.report",
+                           a["run_dir"]], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"report exited {proc.returncode}: {proc.stderr[-2000:]}")
+    for block in ("step.count = ", "serving engine (continuous batching):", "flight recorder — ",
+                  "serving traces (per-request blame)"):
+        check(block in proc.stdout, f"the report prints no {block!r} block")
+    log("phase14 report (head):\n" + "\n".join(proc.stdout.splitlines()[:12]))
+    t2 = time.perf_counter()
+    turns = phase14_serving_turns(smi, p2, params, cfg)
+    del params
+    gc_collect()
+    log(f"phase14 seconds: 14a {t1 - t0:.1f}, 14b {t2 - t1:.1f}, serving turns "
+        f"{time.perf_counter() - t2:.1f}")
+    return dict(a=a, b=b, serving_turns=turns, counts={**a["counts"],
+                                  "paged_attention": b[0]["dec"] + b[3]["dec"],
+                                  "paged_window_attention": b[0]["win"] + b[3]["win"]})
+
+
+
 def main() -> int:
     import torch
 
@@ -4283,6 +4746,9 @@ def main() -> int:
     t13 = time.perf_counter()
     phase13(smi)
     log(f"phases 12-13 seconds: 12 {t13 - t12:.1f}, 13 {time.perf_counter() - t13:.1f}")
+    p14 = phase14(smi, p2)
+    check(all(p14["counts"][n] > 0 for n in REPLACES),
+          f"phase 14 launched the kernels of its path {p14['counts']} times")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
@@ -4300,7 +4766,8 @@ def main() -> int:
                            launches=launches[name], launches_phase7=p7[name],
                            launches_phase8=p8[name], launches_phase9=p9[name],
                            launches_phase10=p10["counts"][name],
-                           launches_phase11=p11["counts"][name], head_dims=list(pa_dims),
+                           launches_phase11=p11["counts"][name],
+                           launches_phase14=p14["counts"][name], head_dims=list(pa_dims),
                            wide_heads={f"d{d}-{dt[6:]}": p10["paged"][(name, d, dt)]
                                        for d, dt in ((d, str(t)) for d, t in PHASE10_PAGED)},
                            gpt2_xl_heads={dt[6:]: p11["kernels"][(name, dt)]
@@ -4333,6 +4800,7 @@ def main() -> int:
                            launches_phase10d=p10["phi3"]["counts"][name],
                            launches_phase10e=p10["phi3_f32"]["counts"][name],
                            launches_phase12=p12["counts"][name],
+                           launches_phase14=p14["counts"][name],
                            head_dims=list(fu_dims),
                            wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
                                        for geom, dt in p10["flash"]},

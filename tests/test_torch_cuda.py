@@ -1572,3 +1572,60 @@ def test_encoder_forward_on_the_card_matches_the_cpu(cuda, family):
 
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Telemetry on the card
+# ---------------------------------------------------------------------------
+
+
+def test_telemetry_memory_readers_match_the_allocator(cuda):
+    """``collect_hbm`` and the ledger read the caching allocator: the
+    ``hbm.*`` gauges equal ``memory_stats``, a reconcile conserves exactly
+    against ``memory_allocated``, and a storage counts once with its views
+    while a pinned host tensor counts as host bytes."""
+    from accelerate_tpu_torch import telemetry
+    from accelerate_tpu_torch.telemetry import memledger
+
+    base = torch.zeros(1024, 256, device="cuda")
+    tree = {"w": base, "view": base[:7], "t": base.t(),
+            "host": torch.zeros(100, dtype=torch.uint8).pin_memory()}
+    per_device, host, n = memledger.tree_device_bytes(tree)
+    assert (per_device, host, n) == ({torch.cuda.current_device(): 1024 * 256 * 4}, 100, 4)
+    led = memledger.MemoryLedger()
+    led.register("w", tree=tree)
+    reg = telemetry.MetricsRegistry()
+    hbm = telemetry.collect_hbm(reg)
+    stats = torch.cuda.memory_stats()
+    assert hbm["hbm.bytes_in_use"] == stats["allocated_bytes.all.current"]
+    assert hbm["hbm.peak_bytes"] == stats["allocated_bytes.all.peak"]
+    (rec,) = [r for r in led.reconcile() if r["device"] == torch.cuda.current_device()]
+    assert rec["attributed_bytes"] + rec["unattributed_bytes"] == rec["bytes_in_use"] \
+        == torch.cuda.memory_allocated()
+
+
+def test_telemetry_hooks_add_no_device_sync(cuda, tmp_path):
+    """A span, a completed step (step timer, device memory gauges, the
+    ledger's reconcile) and ``collect_hbm`` under the sync debug mode
+    "error": torch raises if any of them synchronizes the card."""
+    from accelerate_tpu_torch import telemetry
+    from accelerate_tpu_torch.telemetry import memledger
+
+    tel = telemetry.enable(dir=str(tmp_path))
+    try:
+        memledger.get_memory_ledger().register("x", tree=torch.zeros(8, device="cuda"))
+        x = torch.randn(512, 512, device="cuda")
+        tel.record_step()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with telemetry.span("optimizer.step"):
+                y = x @ x
+            tel.record_step()
+            telemetry.collect_hbm(tel.registry)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert tel.registry.snapshot()["step.count"] == 2 and y.shape == (512, 512)
+    finally:
+        telemetry.disable()
+        memledger.get_memory_ledger().unregister("x")

@@ -92,6 +92,40 @@ A3 = {  # the other model families and the MoE op, at the JAX paths
                        "classification_loss_fn"],
     ".models.t5": ["T5Config", "init_params", "apply", "loss_fn"],
 }
+A4 = {  # telemetry, at the JAX paths
+    ".telemetry": ["Telemetry", "get_telemetry", "enabled", "enable", "disable",
+                   "maybe_enable_from_env", "span", "Counter", "Gauge", "Histogram",
+                   "MetricsRegistry", "StepTimer", "CompileWatcher", "collect_hbm",
+                   "peak_flops_per_chip", "StallWatchdog", "thread_dump", "FlightRecorder",
+                   "get_flight_recorder", "AnomalySentinel", "MemoryLedger", "get_memory_ledger",
+                   "tree_device_bytes", "GoodputLedger", "FleetAggregator", "MetricsExporter",
+                   "render_prometheus", "TraceProfileReport", "analyze_trace_dir",
+                   "analyze_trace_file", "Timeline", "TraceEvent", "TraceParseError"],
+    ".telemetry.flightrec": ["FlightRecorder", "get_flight_recorder", "enable", "disable",
+                             "maybe_enable_from_env"],
+    ".telemetry.memledger": ["MemoryLedger", "Reservation", "get_memory_ledger",
+                             "tree_device_bytes", "looks_like_oom"],
+    ".telemetry.goodput": ["GoodputLedger", "FleetAggregator", "summary_from_records",
+                           "attach", "detach"],
+    ".telemetry.export": ["MetricsExporter", "render_prometheus", "register_debug_source"],
+    ".telemetry.profile_scan": ["ProfileReport", "analyze_trace_dir", "analyze_trace_file",
+                                "analyze_events", "digest", "publish", "main"],
+    ".telemetry.timeline": ["load_trace_events", "find_trace_files", "build_timeline",
+                            "classify_op", "merge_intervals", "subtract_intervals"],
+    ".telemetry.report": ["summarize", "load_records", "format_report", "main"],
+    ".telemetry.names": ["all_names", "matches_dynamic"],
+}
+A4_CONSTANTS = {".telemetry": ["ENV_ENABLE", "ENV_DIR", "ENV_STALL_TIMEOUT"],
+                ".telemetry.flightrec": ["ENV_ENABLE", "ENV_DIR", "ENV_CAPACITY",
+                                         "ENV_FLUSH_EVERY", "ENV_SENTINEL_PROFILE"],
+                ".telemetry.export": ["ENV_PORT", "ENV_SNAPSHOT", "PREFIX"],
+                ".telemetry.goodput": ["ENV_GOODPUT", "CATEGORIES"],
+                ".telemetry.names": ["COUNTERS", "GAUGES", "HISTOGRAMS", "EVENTS"]}
+# The JAX telemetry names that wait for several GPUs (ROADMAP A6): compiled-
+# program introspection and the comms ledger.
+A6_TELEMETRY = {"ENV_INTROSPECT", "ProgramReport", "LintFinding", "CollectiveOp", "CommsLedger",
+                "inspect_compiled", "capture", "lint_reshardings", "parse_collectives",
+                "scan_hlo"}
 A1B_CONSTANTS = {".utils": ["SAFE_WEIGHTS_NAME", "WEIGHTS_NAME", "MODEL_NAME", "SCALER_NAME",
                             "TORCH_LAUNCH_PARAMS"],
                  ".utils.constants": ["STR_OPERATION_TO_FUNC", "FSDP_SHARDING_STRATEGY"]}
@@ -150,6 +184,27 @@ def test_a3_names_import_at_jax_paths(path, name):
 def test_a1b_constants_equal_jax(path, name):
     jax_obj, port_obj = _pair(path, name)
     assert port_obj == jax_obj
+
+
+@pytest.mark.parametrize("path,name", _cases(A4), ids=lambda v: v)
+def test_a4_telemetry_names_import_at_jax_paths(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert isinstance(port_obj, type) == isinstance(jax_obj, type) and callable(port_obj)
+    assert port_obj.__module__.startswith("accelerate_tpu_torch.telemetry")
+
+
+@pytest.mark.parametrize("path,name", _cases(A4_CONSTANTS), ids=lambda v: v)
+def test_a4_telemetry_constants_equal_jax(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert port_obj == jax_obj
+
+
+def test_a4_telemetry_all_is_jax_all_but_the_a6_names():
+    import accelerate_tpu.telemetry as jt
+    import accelerate_tpu_torch.telemetry as tt
+
+    assert set(jt.__all__) - set(tt.__all__) == A6_TELEMETRY
+    assert set(tt.__all__) <= set(jt.__all__)
 
 
 def test_the_examples_imports_resolve():

@@ -90,6 +90,20 @@ def test_source_names_no_jax_import(path):
     "accelerate_tpu_torch.models.vit",
     "accelerate_tpu_torch.models.resnet",
     "accelerate_tpu_torch.models.t5",
+    "accelerate_tpu_torch.telemetry",
+    "accelerate_tpu_torch.telemetry.core",
+    "accelerate_tpu_torch.telemetry.names",
+    "accelerate_tpu_torch.telemetry.metrics",
+    "accelerate_tpu_torch.telemetry.sentinel",
+    "accelerate_tpu_torch.telemetry.watchdog",
+    "accelerate_tpu_torch.telemetry.memledger",
+    "accelerate_tpu_torch.telemetry.flightrec",
+    "accelerate_tpu_torch.telemetry.spans",
+    "accelerate_tpu_torch.telemetry.goodput",
+    "accelerate_tpu_torch.telemetry.export",
+    "accelerate_tpu_torch.telemetry.timeline",
+    "accelerate_tpu_torch.telemetry.profile_scan",
+    "accelerate_tpu_torch.telemetry.report",
 ])
 def test_robustness_modules_are_checked(name):
     """The serving robustness layer's modules and the generation and tracing
