@@ -35,7 +35,14 @@ Ported so far:
   process) and the environment, import and version helpers of ``utils``;
 - GPT-2 (``models/gpt2.py``): training forward and loss, the cached and
   paged forwards (paged serving through the same kernels), generation, and
-  its HF import and export.
+  its HF import and export;
+- the other model families (Mixtral with ``ops/moe.py``, BERT, ViT,
+  ResNet, T5) and telemetry (``telemetry/``);
+- resilience for one process (``resilience/``): the checkpoint I/O retry
+  (``retry.py``), the numerical-health guard (``health.py``,
+  :meth:`Accelerator.enable_health_guard`), the JAX package's fault
+  injection (``faultinject.py``), the serving chaos campaigns
+  (``serving/chaos.py``) and the smoke modules that prove them.
 
 The JAX package's top-level names import from here under the same names;
 the data loader, pipeline, resilience and serving ones load on first use.
@@ -68,8 +75,8 @@ from .utils import (  # noqa: E402
 _LAZY = {
     "data_loader": ("prepare_data_loader", "skip_first_batches", "DataLoaderShard"),
     "pipeline": ("make_train_step", "TrainStep", "DevicePrefetcher"),
-    "resilience": ("PreemptionGuard", "verify_checkpoint", "find_latest_complete",
-                   "CheckpointVerificationError"),
+    "resilience": ("PreemptionGuard", "RetryPolicy", "retrying", "verify_checkpoint",
+                   "find_latest_complete", "CheckpointVerificationError"),
     "serving": ("ServingEngine", "ServingConfig", "AdmissionRejected", "ServingJournal"),
     "utils.memory": ("find_executable_batch_size",),
     "local_sgd": ("LocalSGD",),

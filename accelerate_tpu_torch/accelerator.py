@@ -18,7 +18,12 @@ is yielded), pairs optimizers with their models and wraps schedulers
 batch; :meth:`~Accelerator.make_train_step` runs the whole optimizer step
 in one call with the same numerics.  :meth:`~Accelerator.save_state`,
 :meth:`~Accelerator.load_state` and :meth:`~Accelerator.resume_from_latest`
-checkpoint all of it (:mod:`.checkpointing`).  Serving:
+checkpoint all of it (:mod:`.checkpointing`);
+:meth:`~Accelerator.enable_preemption_handling` and
+:meth:`~Accelerator.enable_health_guard` with their per-step
+:meth:`~Accelerator.check_preemption` / :meth:`~Accelerator.check_health`
+turn a signal into a final checkpoint and a non-finite step into a skip or
+a rewind (:mod:`.resilience`).  Serving:
 :meth:`~Accelerator.prepare_serving`.
 
 ``Accelerator(mixed_precision="bf16")`` computes each prepared model's
@@ -237,6 +242,7 @@ class Accelerator:
         self.last_save_timing: Optional[dict] = None
         self.last_load_timing: Optional[dict] = None
         self._preemption_guard = None
+        self._health_guard = None
 
         self.ddp_handler = None
         self.scaler_handler = None
@@ -874,7 +880,12 @@ class Accelerator:
         checkpoint (to ``save_dir``, the guard's directory, or automatic
         naming) whose manifest records ``step`` for
         :meth:`resume_from_latest`; the caller then leaves its loop.
-        Without a guard it returns False."""
+        Without a guard it returns False (after the env-armed
+        fault-injection tick, ``ACCELERATE_TPU_FAULT_SIGTERM_STEP``)."""
+        from .resilience import faultinject
+
+        if faultinject.armed():
+            faultinject.tick(step if step is not None else self.gradient_state.step)
         guard = self._preemption_guard
         if guard is None or not guard.should_stop():
             return False
@@ -887,6 +898,53 @@ class Accelerator:
                 tel.registry.counter("resilience.preempt_checkpoints").inc()
                 tel.event("resilience.preempt_checkpoint", step=step)
         return True
+
+    # -- numerical health ---------------------------------------------------------
+
+    def enable_health_guard(self, optimizer=None, dataloader=None, max_skips: int = 3,
+                            max_rewinds: int = 2, lr_backoff: Optional[float] = None,
+                            checkpoint_dir: Optional[str] = None, quarantine_after: int = 2,
+                            quarantine_log: Optional[str] = None):
+        """Install a :class:`~accelerate_tpu_torch.resilience.HealthGuard`:
+        the optimizer update already gates a non-finite step to a zero delta
+        on the device (pre-clip gradient norm, and in the fused step every
+        micro-batch loss); the guard adds the host-side policy: skip up to
+        ``max_skips`` consecutive anomalous steps, then rewind to the newest
+        manifest-complete checkpoint under ``checkpoint_dir`` (via
+        :meth:`resume_from_latest`, with an optional ``lr_backoff``
+        multiplier), raising ``NumericalDivergenceError`` after
+        ``max_rewinds``.  A batch that produces a non-finite step
+        ``quarantine_after`` times is quarantined: fingerprinted by (epoch,
+        batch index), logged to JSONL next to the telemetry trace, and
+        skipped by the data loader on replay.  ``optimizer``/``dataloader``
+        default to the prepared ones.  Call :meth:`check_health` once per
+        step.  Returns the guard."""
+        from .resilience.health import HealthGuard
+
+        if optimizer is None:
+            optimizer = self._optimizers[-1] if self._optimizers else None
+        if dataloader is None:
+            dataloader = self._dataloaders[0] if self._dataloaders else None
+        self._health_guard = HealthGuard(
+            self, optimizer=optimizer, dataloader=dataloader, max_skips=max_skips,
+            max_rewinds=max_rewinds, lr_backoff=lr_backoff, checkpoint_dir=checkpoint_dir,
+            quarantine_after=quarantine_after, quarantine_log=quarantine_log,
+        )
+        return self._health_guard
+
+    def check_health(self, step: Optional[int] = None, loss=None):
+        """Judge the optimizer step that just completed (call right after
+        ``optimizer.step()`` or the fused ``step_fn(batch)``).  Returns a
+        :class:`~accelerate_tpu_torch.resilience.HealthVerdict`; on
+        ``verdict.rewound`` the caller resets its step counter to
+        ``verdict.resumed_step`` and re-enters its data loader loop (the
+        loader's position was restored with the checkpoint).  A healthy
+        no-op verdict when no guard is installed."""
+        from .resilience.health import HealthVerdict
+
+        if self._health_guard is None:
+            return HealthVerdict()
+        return self._health_guard.check(step=step, loss=loss)
 
     def enable_flight_recorder(self, dir: Optional[str] = None, capacity: Optional[int] = None,
                                flush_every: Optional[int] = None):

@@ -26,10 +26,14 @@ written last, an existing ``<dir>`` is moved aside to ``<dir>.old`` and
 the staging directory renamed in (the old one restored if that rename
 fails, and a checkpoint left displaced by a crash restored on the next
 publish), and only then is the old one deleted; under automatic naming the
-newest ``total_limit`` checkpoints are kept.  The publish runs once: the
-JAX package's retry policy comes with its resilience tooling, and its
-orbax sharded, asynchronous and local saves and the elastic topology
-record belong to multi-GPU training; none is ported.
+newest ``total_limit`` checkpoints are kept.  The manifest write and the
+publish run together under the JAX package's I/O retry policy
+(:func:`_io_policy`, :class:`~.resilience.retry.RetryPolicy`, label
+``checkpoint.publish``): a transient ``OSError`` backs off and tries again,
+and a save that exhausts the policy leaves only the manifest-less staging
+directory, which discovery passes over.  The JAX package's orbax sharded,
+asynchronous and local saves and the elastic topology record belong to
+multi-GPU training and are not ported.
 """
 
 from __future__ import annotations
@@ -199,6 +203,27 @@ def _resolve_output_dir(accelerator, output_dir: Optional[str]) -> str:
     return output_dir
 
 
+def _io_policy(label: str):
+    """Retry policy for checkpoint I/O, as the JAX package's.  Env-tunable
+    so tests can shrink the backoff: ``ACCELERATE_TPU_IO_RETRIES`` (default
+    4), ``ACCELERATE_TPU_IO_RETRY_BASE_S`` (0.2), ``…_DEADLINE_S`` (120)."""
+    from .resilience.retry import RetryPolicy
+
+    def _env(key, default, cast):
+        try:
+            return cast(os.environ.get(key, "") or default)
+        except ValueError:
+            return cast(default)
+
+    return RetryPolicy(
+        # 0 (the natural "disable retries") means one attempt, not a crash.
+        tries=max(1, _env("ACCELERATE_TPU_IO_RETRIES", 4, int)),
+        base_delay_s=_env("ACCELERATE_TPU_IO_RETRY_BASE_S", 0.2, float),
+        deadline_s=_env("ACCELERATE_TPU_IO_RETRY_DEADLINE_S", 120.0, float),
+        label=label,
+    )
+
+
 def _publish(staging_dir: str, final_dir: str, fsync: bool) -> None:
     """Swing ``staging_dir`` onto ``final_dir``: an existing final directory
     is moved aside first and deleted only after the rename, so a crash
@@ -310,10 +335,16 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
     cfg = accelerator.project_configuration
     rotate = cfg.automatic_checkpoint_naming and cfg.total_limit is not None
     if verified:
-        manifest = write_manifest(staging, step=step)
-        t3 = time.perf_counter()
-        with _span("checkpoint.publish"):
+        marks = {}
+
+        def _publish_io():
+            marks["manifest"] = write_manifest(staging, step=step)
+            marks["t3"] = time.perf_counter()
             _publish(staging, final_dir, fsync)
+
+        with _span("checkpoint.publish"):
+            _io_policy("checkpoint.publish").call(_publish_io)
+            manifest, t3 = marks["manifest"], marks["t3"]
             tel = _get_telemetry()
             if tel.enabled:
                 # event() mirrors into the flight recorder: the postmortem of

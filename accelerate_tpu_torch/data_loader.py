@@ -14,9 +14,11 @@ branches of the JAX package's ``data_loader.py``.
   ``state_dict`` records the batches the user has seen this epoch;
 - :func:`prepare_data_loader` and :func:`skip_first_batches`.
 
-The JAX loader's mesh placement (``_GlobalBatchPlacer``), the dispatcher
-(``DataLoaderDispatcher``) and the health-quarantine and fault-injection
-hooks belong to multi-GPU and resilience work and are not ported.
+The loader carries the JAX loader's numerical-health hooks: positions the
+``HealthGuard`` quarantined (``quarantine``) are read but never yielded, and
+``ACCELERATE_TPU_FAULT_BAD_BATCH`` NaN-laces one position every epoch.  The
+JAX loader's mesh placement (``_GlobalBatchPlacer``) and the dispatcher
+(``DataLoaderDispatcher``) belong to multi-GPU work and are not ported.
 """
 
 from __future__ import annotations
@@ -30,10 +32,13 @@ import torch
 import torch.utils.data
 
 from .pipeline.prefetch import DevicePrefetcher, prefetch_depth_from_env
+from .logging import get_logger
 from .state import GradientState, resolve_device
 from .telemetry import get_telemetry as _get_telemetry
 from .telemetry import span as _span
 from .utils.operations import send_to_device
+
+logger = get_logger(__name__)
 
 __all__ = [
     "BatchSamplerShard",
@@ -301,6 +306,45 @@ class DataLoaderStateMixin:
             self.skip_batches = 0
             self._skip_once = False
 
+    # -- numerical-health hooks (resilience/health.py) ------------------------
+    #
+    # Quarantine: positions fingerprinted as (epoch, user-visible batch index)
+    # are consumed but never yielded — the post-rewind replay of a run whose
+    # step went non-finite twice on the same batch drops that batch.  The
+    # fingerprint is EPOCH-scoped: under a shuffling sampler the data at
+    # index i differs between epochs, so only replays of the same epoch (the
+    # rewind case — ``load_state_dict`` restores ``iteration``) skip it.
+    # ``load_state_dict`` never touches the set, so a rewind keeps it.
+
+    def quarantine(self, fingerprints) -> None:
+        """Register ``(epoch, batch_index)`` fingerprints to skip at yield
+        time (``HealthGuard`` pushes its quarantine set through here)."""
+        q = getattr(self, "_quarantined", None)
+        if q is None:
+            q = self._quarantined = set()
+        q.update((int(e), int(i)) for e, i in fingerprints)
+
+    def _is_quarantined(self, index: int) -> bool:
+        q = getattr(self, "_quarantined", None)
+        return bool(q) and (self.iteration, index) in q
+
+    def _count_quarantine_skip(self, index: int) -> None:
+        tel = _get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("health.quarantine_skips").inc()
+        logger.warning(
+            f"health: skipping quarantined batch (epoch={self.iteration}, index={index})"
+        )
+
+    def _maybe_poison(self, batch, index: int):
+        """Fault injection (``ACCELERATE_TPU_FAULT_BAD_BATCH=<i>``): NaN-lace
+        the armed per-epoch position.  One cached-None check when unarmed."""
+        from .resilience import faultinject
+
+        if faultinject.bad_batch_index() is None:
+            return batch
+        return faultinject.maybe_poison_batch(batch, index)
+
 
 class DataLoaderShard(DataLoaderStateMixin):
     """Wraps an iterable of batches (typically a torch ``DataLoader``) and
@@ -412,9 +456,14 @@ class DataLoaderShard(DataLoaderStateMixin):
             for converted, is_last in prefetcher:
                 if is_last:
                     self.end_of_dataloader = True
+                pos = self.skip_batches + emitted
                 emitted += 1
-                self._yielded = self.skip_batches + emitted
-                yield converted
+                self._yielded = pos + 1
+                if self._is_quarantined(pos):
+                    # Read (the position advances for state_dict), never yielded.
+                    self._count_quarantine_skip(pos)
+                    continue
+                yield self._maybe_poison(converted, pos)
         finally:
             prefetcher.close()
         if emitted == 0:  # the skip covered the whole epoch
@@ -444,8 +493,13 @@ class DataLoaderShard(DataLoaderStateMixin):
         # One-batch lookahead: the last yield flips end_of_dataloader before
         # user code sees that batch, and batch n + 1's copy is issued before
         # batch n is yielded.
+        def emits(index: int) -> bool:
+            # A quarantined position is read (the state_dict position still
+            # advances) but neither copied nor yielded.
+            return index >= self.skip_batches and not self._is_quarantined(index)
+
         batch_index = 0
-        converted = self._convert(current) if self.skip_batches == 0 else None
+        converted = self._convert(current) if emits(0) else None
         while True:
             try:
                 upcoming = next(iterator)
@@ -453,13 +507,18 @@ class DataLoaderShard(DataLoaderStateMixin):
                 self.end_of_dataloader = True
                 if batch_index >= self.skip_batches:
                     self._yielded = batch_index + 1
-                    yield converted
+                    if emits(batch_index):
+                        yield self._maybe_poison(converted, batch_index)
+                    else:
+                        self._count_quarantine_skip(batch_index)
                 break
-            upcoming_converted = (self._convert(upcoming)
-                                  if batch_index + 1 >= self.skip_batches else None)
+            upcoming_converted = self._convert(upcoming) if emits(batch_index + 1) else None
             if batch_index >= self.skip_batches:
                 self._yielded = batch_index + 1
-                yield converted
+                if emits(batch_index):
+                    yield self._maybe_poison(converted, batch_index)
+                else:
+                    self._count_quarantine_skip(batch_index)
             batch_index += 1
             converted = upcoming_converted
         self._finish_epoch()

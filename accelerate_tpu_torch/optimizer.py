@@ -15,6 +15,11 @@ False), and a real step runs :func:`_update_body`, the update of the JAX
   (not ``torch.nn.utils.clip_grad_norm_``'s ``norm + 1e-6``);
 - a negative clip disables it; 0 is a real clip.
 
+Under the NaN fault (``ACCELERATE_TPU_FAULT_NAN_STEP``,
+:mod:`.resilience.faultinject`) the gradients of the armed update are
+multiplied by a device scalar (NaN on an armed step, else 1) before the
+gate: one ``_foreach_mul``, no host sync.  Unarmed, nothing is added.
+
 The JAX body's dp-chunked norm (``norm_ndp``) belongs to multi-device
 meshes and is not ported.  torch's ``AdamW`` is optax's ``adamw`` when both
 use ``betas=(0.9, 0.999)``, ``eps=1e-8`` and the same ``weight_decay``
@@ -93,6 +98,7 @@ class AcceleratedOptimizer:
         self._step_was_skipped = False
         self._last_grad_norm = None
         self._last_health_norm = None
+        self._poison_scalars = None
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -145,7 +151,24 @@ class AcceleratedOptimizer:
         self._clip_norm_once = self._clip_value_once = None
         return norm, value
 
-    def _apply_update(self, params, grads, health_ok=None, clip_norm=None, clip_value=None):
+    def _poison_scale(self) -> torch.Tensor:
+        """The NaN fault's device scalar for the coming update: NaN when
+        :func:`~.resilience.faultinject.grad_poison_scale` fires for it,
+        else 1.  Both scalars are made once, so a step picks one and copies
+        nothing to the device."""
+        from .resilience import faultinject
+
+        if self._poison_scalars is None:
+            dev = self.params[0].device
+            self._poison_scalars = (torch.ones((), device=dev),
+                                    torch.full((), float("nan"), device=dev))
+        fires = faultinject.grad_poison_scale(self._step_count + 1) is not None
+        return self._poison_scalars[int(fires)]
+
+    def _apply_update(self, params, grads, health_ok=None, clip_norm=None, clip_value=None,
+                      poison: Optional[torch.Tensor] = None):
+        if poison is not None:
+            grads = torch._foreach_mul(grads, poison)
         norm, value = self._resolve_clips(clip_norm, clip_value)
         gnorm, health_norm, _ = _update_body(self.optimizer, params, grads, norm, value,
                                              health_ok=health_ok)
@@ -175,9 +198,12 @@ class AcceleratedOptimizer:
         if not params:
             self._step_was_skipped = True
             return loss
+        from .resilience import faultinject
+
         with _span("optimizer.step"):
             _get_telemetry().count_dispatch()  # the update
-            self._apply_update(params, [p.grad for p in params])
+            poison = self._poison_scale() if faultinject.nan_armed() else None
+            self._apply_update(params, [p.grad for p in params], poison=poison)
         # A completed step is the telemetry heartbeat: step-time histogram,
         # tokens/sec + MFU gauges, device memory gauges, watchdog beat.
         _get_telemetry().record_step()

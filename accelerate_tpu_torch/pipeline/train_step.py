@@ -14,6 +14,12 @@ is the contract:
 - then the health gate (loss finite and pre-clip norm finite), the value
   and norm clips and the optimizer update of ``optimizer._update_body``.
 
+The NaN fault (``ACCELERATE_TPU_FAULT_NAN_STEP``) is looked up once, when
+the step is built: an armed step multiplies its gradients by a device
+scalar (1, or NaN on an armed update) before the gate, which adds no host
+sync and leaves the flash kernels' launches as they are; an unarmed one
+carries nothing.
+
 The prepared model and optimizer stay the source of truth: parameters and
 optimizer state are updated in place.
 
@@ -107,6 +113,9 @@ class TrainStep:
         self.step_count = 0
         self.dispatch_count = 0
         self._ledger_registered = False
+        from ..resilience import faultinject
+
+        self._poison_armed = faultinject.nan_armed()
 
     def _register_ledger(self) -> None:
         """The train state's long-lived reservations, computed from the live
@@ -155,6 +164,7 @@ class TrainStep:
         gnorm, health_norm = opt._apply_update(
             [p for p, _ in live], [g for _, g in live], health_ok=torch.isfinite(losses).all(),
             clip_norm=self.clip_norm, clip_value=self.clip_value,
+            poison=opt._poison_scale() if self._poison_armed else None,
         )
         for p in params:
             p.grad = None

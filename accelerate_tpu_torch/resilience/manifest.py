@@ -3,8 +3,10 @@
 A copy of the JAX package's ``resilience/manifest.py`` with the same
 ``manifest.json`` schema (format ``accelerate-tpu-checkpoint-v1``) and the
 same environment switches, so each package's :func:`verify_checkpoint`
-accepts the other's directories.  The JAX package's I/O fault injection
-belongs to its resilience tooling and is not ported.
+accepts the other's directories.  :func:`write_manifest` passes every
+covered file and the manifest itself through
+:func:`~.faultinject.maybe_fail_write` (``ACCELERATE_TPU_FAULT_WRITE_N``),
+the JAX package's injection sites.
 
 The atomic-save protocol (``checkpointing.save_accelerator_state``):
 
@@ -139,6 +141,8 @@ def write_manifest(
     ``fsync`` (default: the ``ACCELERATE_TPU_CHECKPOINT_FSYNC`` env, on) each
     covered file and the manifest are fsynced so the completeness certificate
     is durable, not just ordered."""
+    from .faultinject import maybe_fail_write
+
     if hash_files is None:
         hash_files = hashing_enabled()
     if fsync is None:
@@ -146,6 +150,7 @@ def write_manifest(
     files: dict[str, dict] = {}
     for rel in _walk_files(directory):
         fp = os.path.join(directory, rel)
+        maybe_fail_write(fp)
         entry: dict = {"size": os.path.getsize(fp)}
         if hash_files or fsync:
             with open(fp, "rb") as f:
@@ -181,6 +186,7 @@ def write_manifest(
         manifest.update(extra)
 
     path = os.path.join(directory, MANIFEST_NAME)
+    maybe_fail_write(path)
     tmp = f"{path}.tmp"
     with open(tmp, "w") as f:
         json.dump(manifest, f, indent=2)

@@ -497,8 +497,15 @@ class PagedKVCache:
         return self.host
 
     def host_can_fit(self, n: int) -> bool:
-        """Whether a demotion of ``n`` blocks can be granted now."""
-        return self.host is not None and self.host.free_blocks >= n
+        """Whether a demotion of ``n`` blocks can be granted now.  False
+        when no host tier is attached, when the tier lacks room, or when the
+        ``SERVING_HOST_FULL`` fault arm forces the host-exhausted fallback
+        paths for testing."""
+        if self.host is None or self.host.free_blocks < n:
+            return False
+        from ..resilience import faultinject
+
+        return not faultinject.serving_host_full()
 
     def demote(self, blocks: List[int]) -> List[int]:
         """Copy device ``blocks`` into fresh host blocks and return their

@@ -65,7 +65,13 @@ latency histograms and per-tick gauges, and its request-complete events; it
 registers its pool as the ``serving.kv_pool`` reservation of the memory
 ledger (the prefix-cache residents a subset of it, the host tier host
 bytes) and itself as a source of the metrics endpoint's ``/debug`` pages.
-Fault injection is left out.
+Fault injection (:mod:`..resilience.faultinject`) reaches the engine at
+two points: ``ACCELERATE_TPU_FAULT_SERVING_NAN_REQUEST=<n>`` multiplies the
+``n``-th accepted request's logits by NaN on its first decode forward (a
+per-slot device scale, resolved once at construction, so an unarmed engine
+carries nothing), and ``ACCELERATE_TPU_FAULT_SERVING_HOST_FULL=1`` makes the
+host tier refuse every demotion (``blocks.PagedKVCache.host_can_fit``).
+``serving/chaos.py`` drives both.
 """
 
 from __future__ import annotations
@@ -303,6 +309,18 @@ class ServingEngine:
         self._drained = False
         self._draining = False
         self._recovering = False
+        self._submissions = 0
+        # The NaN-request fault is resolved once: an unarmed engine's decode
+        # forward multiplies nothing.  Armed, it keeps one persistent
+        # per-slot logit scale on the device, set in place (NaN in the
+        # poisoned slot for one forward, 1 elsewhere), so a captured decode
+        # graph could hold it.
+        from ..resilience import faultinject
+
+        self._poison_ordinal = faultinject.serving_nan_ordinal()
+        self._poison = None if self._poison_ordinal is None else torch.ones(
+            (self.serving.max_slots,), dtype=torch.float32, device=self.device)
+        self._poisoned: List[int] = []
         self.requeue_journal: Optional[List[dict]] = None
         try:
             self._headroom_watermark_frac = float(
@@ -437,6 +455,20 @@ class ServingEngine:
         tok, ok = torch.stack([next_tok, ok.long()]).tolist()
         return tok, bool(ok)
 
+    def _arm_poison(self, live: List[int]) -> None:
+        """Ready the persistent per-slot scale for this forward: the slots
+        the last forward poisoned back to 1, then NaN in the slot of each
+        request whose poison is pending (each fires once)."""
+        for idx in self._poisoned:
+            self._poison[idx] = 1.0
+        self._poisoned = []
+        for idx in live:
+            req = self.sched.slots[idx].request
+            if getattr(req, "_poison_pending", False):
+                req._poison_pending = False
+                self._poison[idx] = float("nan")
+                self._poisoned.append(idx)
+
     @torch.no_grad()
     def _decode_forward(self, tables: np.ndarray, lengths: np.ndarray, tokens: np.ndarray,
                         draft_len: np.ndarray, live: List[int]):
@@ -447,6 +479,9 @@ class ServingEngine:
         dev = self.device
         tokens_t = torch.as_tensor(tokens, device=dev)
         draft_t = torch.as_tensor(draft_len, device=dev)
+        poison = self._poison
+        if poison is not None:
+            self._arm_poison(live)
         if self.decode_path == "dense":
             # One slot at a time: the port's apply_cached takes one write
             # index per call.
@@ -455,6 +490,8 @@ class ServingEngine:
                 for i in live
             ])  # [n_live, W, V]
             sel = torch.as_tensor(live, device=dev)
+            if poison is not None:
+                logits = logits * poison[sel][:, None, None]
             t, m = speculative_verify_greedy(logits, tokens_t[sel, 1:], draft_t[sel])
             ok = torch.isfinite(logits).all(-1).all(-1)
             part = torch.cat([t, m[:, None], ok[:, None].to(torch.int32)], 1).cpu().numpy()
@@ -467,6 +504,8 @@ class ServingEngine:
                 self.params, tokens_t, self._config, self.cache.pool, tables_t, lengths_t,
                 kernel=self.serving.paged_kernel,
             )  # [S, W, V]
+            if poison is not None:
+                logits = logits * poison[:, None, None]
             t, m = speculative_verify_greedy(logits, tokens_t[:, 1:], draft_t)
             ok = torch.isfinite(logits).all(-1).all(-1)
             for name, r in rows.items():
@@ -531,7 +570,10 @@ class ServingEngine:
             req.state = RequestState.DONE
             req.admit_t = req.finish_t = time.monotonic()
         else:
-            self.sched.submit(req)
+            self.sched.submit(req)  # geometry validation may reject: count after
+        self._submissions += 1
+        if self._poison_ordinal is not None and self._submissions == self._poison_ordinal:
+            req._poison_pending = True  # fires on this request's first decode
         # Write-ahead: on disk before the id is returned.
         if self.journal is not None:
             self.journal.record_admit(req)

@@ -1,9 +1,12 @@
 """Canonical registry of every telemetry name the codebase emits.
 
 The JAX package's registry, copied name for name: the port emits the same
-names (a subset of them: the fleet, chaos, health and elastic families wait
-for their subsystems), so dashboards, the Prometheus exporter and the report
-read either package's runs.  ``tests/test_torch_telemetry.py`` holds the
+names, so dashboards, the Prometheus exporter and the report read either
+package's runs.  The health family (``health.*``), the resilience retry
+names and ``smoke.retried`` are emitted by the one-process resilience
+(``resilience/``); the fleet, elastic and training-chaos families
+(``fleet.*``, ``elastic.*``, ``chaos.*``) wait for several GPUs (ROADMAP
+A6), and the serving chaos campaign emits the ``serving.*`` names.  ``tests/test_torch_telemetry.py`` holds the
 port's emit sites against this registry.  Dynamic (f-string) names must match
 a pattern in :data:`DYNAMIC_PATTERNS`.
 """

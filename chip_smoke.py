@@ -314,13 +314,50 @@ Phases (each fails the run on any mismatch; nothing is caught):
    telemetry on and off in turns (on, off, off, on), token-identical each
    time: ITL p50 and mean.
 
+15. Resilience at full width, every life a child process on the card that
+   loads the kernels this script built (each library is checked present
+   before the children start, so none of them compiles).  15a, the recipe of
+   ``accelerate_tpu_torch.resilience.smoke`` (Llama-3-8B widths cut to 1
+   layer as in Phase 6, bf16 compute over fp32 parameters, ``remat``,
+   AdamW, B 1 x S 2048 over 6 sequences from a seed, the fused
+   ``make_train_step``, 8 steps): the preemption smoke (a reference run; a
+   victim SIGTERMed at step 4 through ``ACCELERATE_TPU_FAULT_SIGTERM_STEP``
+   that leaves one verified checkpoint; a resume whose losses for steps 5-8
+   equal the reference's bit for bit) with its retry arms (the victim's
+   checkpoint under ``..._WRITE_N=1``: ``resilience.retries`` 1 and the
+   checkpoint verifies; the resume's last save under ``..._WRITE_STICKY=1``:
+   ``resilience.gave_up`` 1, a torn staging directory, and
+   ``find_latest_complete`` still the victim's checkpoint) and, beside it,
+   the health smoke (skip: ``NAN_STEP=4`` leaves the on-device parameter
+   digest unchanged across step 4, step 5 moves it, and every step's flash
+   launches (2L / L / L) and ``pipeline.dispatches_per_step`` equal the
+   unarmed resume's; rewind: ``NAN_STEP=4``, ``NAN_COUNT=3``,
+   ``max_skips=2`` rewinds to the step-2 checkpoint and steps 3-8 equal a
+   clean resume's bit for bit).  Three 15.2 GB checkpoints are written
+   (one torn), two more in 15c; each save's and load's seconds are printed.  15b, beside
+   them, ``accelerate_tpu_torch.serving.chaos``'s serving and tiering
+   campaigns at Llama-3-8B widths cut to 2 layers in fp32 with
+   ``paged_kernel=True``: every survivor token-identical to greedy
+   ``generate``, zero block leaks, exact shed / deadline / quarantine
+   counts, death by signal 9, and per life the paged launches (2 per decode
+   forward), migrations, fallbacks and promotions.  15c, after them,
+   ``accelerate_tpu_torch.telemetry.goodput_smoke`` on the card at 15a's
+   recipe (``--size llama3-8b``: a NaN skip, a torn-write retry on the
+   step-5 save, an OOM acquisition and an OOM halving, a SIGTERM at step 7
+   and its checkpoint; the categories sum to the wall time within 1e-6 s,
+   each fault in its category, the flash kernels 2 / 1 / 1 a step) with the
+   stall watchdog quiet over 6 timely steps and firing once on an injected
+   stall.  The parent checks each proof again from the children's records.
+   Everything lives under ``build/phase15/`` and is deleted at the end.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
 ``launches_phase10``, the flash kernels' Phase 10d and 10e launches as
 ``launches_phase10d`` and ``launches_phase10e``, their Phase 12 launches
 as ``launches_phase12``, every kernel's Phase 14 launches as
-``launches_phase14``, the paged kernels' Phase
+``launches_phase14`` and its Phase 15 launches as ``launches_phase15``,
+the paged kernels' Phase
 11 launches as ``launches_phase11`` and 11a's records as
 ``gpt2_xl_heads``, the flash kernels' fp32 Phase 4
 records as ``fp32``, the head dims each takes as ``head_dims`` and
@@ -4689,6 +4726,283 @@ def phase14(smi, p2):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: resilience at full width (child processes on the card)
+# ---------------------------------------------------------------------------
+
+PHASE15_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase15")
+PHASE15_LAYERS = 1  # the resilience recipe's layers (accelerate_tpu_torch.resilience.smoke)
+PHASE15_SIZE = "llama3-8b"  # the smokes' and campaigns' size ("tiny" rehearses on the CPU)
+PHASE15_DEVICE = "cuda"
+PHASE15_SEED = 20260804  # the JAX campaigns' default seed
+
+
+def phase15_env():
+    """What the children inherit: the checkout on their path.  They load
+    the kernels this script built, whose libraries (named by their sources'
+    hashes) must all be present, so no child compiles one."""
+    from accelerate_tpu_torch.ops import _build
+
+    missing = [n for n in _build.SOURCES if not _build._target(n).exists()]
+    check(not missing, f"phase15: kernel libraries {missing} not built before the children")
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = root if not path else f"{root}{os.pathsep}{path}"
+
+
+def phase15_training(smi):
+    """15a: the preemption smoke with its retry arms beside the health
+    smoke, at Llama-3-8B widths; returns both summaries."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from accelerate_tpu_torch.resilience import health_smoke, smoke
+
+    with ThreadPoolExecutor(2) as pool:
+        pre = pool.submit(smoke.run, PHASE15_SIZE, PHASE15_DEVICE,
+                          os.path.join(PHASE15_DIR, "preempt"))
+        health = pool.submit(health_smoke.run, PHASE15_SIZE, PHASE15_DEVICE,
+                             os.path.join(PHASE15_DIR, "health"))
+        return pre.result(), health.result()
+
+
+def phase15_flash_per_step():
+    return {"fused_attention_fwd": 2 * PHASE15_LAYERS,
+            "fused_attention_bwd_dq": PHASE15_LAYERS,
+            "fused_attention_bwd_dkv": PHASE15_LAYERS}
+
+
+def phase15_check_training(pre, health, smi):
+    """15a's proofs, checked again here from the children's records."""
+    from accelerate_tpu_torch.resilience import health_smoke, smoke
+
+    want = phase15_flash_per_step()
+    lives = {"reference": pre["reference"], "victim": pre["victim"], "resume": pre["resume"],
+             "skip": health["skip"], "rewind": health["rewind"],
+             "health-resume": health["resume"]}
+    for name, life in lives.items():
+        for step, m in life["steps"].items():
+            check(m["launches"] == want and m["dispatches_per_step"] == 1,
+                  f"phase15 {name} step {step}: {m}, want launches {want} and 1 dispatch")
+    ref, res, victim = pre["reference"], pre["resume"], pre["victim"]
+    post = pre["post_steps"]
+    check(ref["last_step"] == smoke.STEPS and not ref["preempted"],
+          f"phase15a reference ran to step {ref['last_step']}")
+    check(victim["preempted"] and victim["last_step"] == smoke.KILL_STEP,
+          f"phase15a victim preempted={victim['preempted']} at step {victim['last_step']}")
+    check(len(post) >= 3 and res["last_step"] == smoke.STEPS
+          and all(ref["losses"][s] == res["losses"][s] for s in post),
+          f"phase15a resume losses {res['losses']} differ from the reference's "
+          f"{ref['losses']} at steps {post}")
+    check(victim["retries"] == 1 and victim["gave_up"] == 0,
+          f"phase15a transient write: retries {victim['retries']}, gave_up {victim['gave_up']}")
+    sticky = res["sticky"]
+    check(res["gave_up"] == 1 and sticky["raised"] and sticky["torn"]
+          and not sticky["published"] and sticky["latest"] == pre["checkpoint"],
+          f"phase15a sticky write: gave_up {res['gave_up']}, {sticky}, want the "
+          f"latest {pre['checkpoint']}")
+    skip, rw, clean = health["skip"], health["rewind"], health["resume"]
+    check(skip["skipped"] == [health_smoke.NAN_STEP] and skip["params_identical_across_skip"]
+          is True and skip["params_moved_after_skip"] is True
+          and skip["dispatches"] == skip["step_calls"] == health_smoke.STEPS,
+          f"phase15a health skip: skipped {skip['skipped']}, identical "
+          f"{skip['params_identical_across_skip']}, moved {skip['params_moved_after_skip']}, "
+          f"{skip['dispatches']} dispatches over {skip['step_calls']} steps")
+    check(all(m == health["per_step"] for m in skip["steps"].values()),
+          f"phase15a health skip: armed steps {skip['steps']} != unarmed {health['per_step']}")
+    hpost = health["post_steps"]
+    check(rw["skipped"] == [health_smoke.NAN_STEP, health_smoke.NAN_STEP + 1]
+          and rw["rewound_at"] == health_smoke.NAN_STEP + 2
+          and rw["resumed_step"] == health_smoke.CKPT_STEP and len(hpost) >= 3
+          and all(rw["losses"][s] == clean["losses"][s] for s in hpost),
+          f"phase15a health rewind: skipped {rw['skipped']}, rewound at {rw['rewound_at']} "
+          f"to {rw['resumed_step']}, losses {rw['losses']} vs the clean resume's "
+          f"{clean['losses']} at steps {hpost}")
+    log(f"phase15a preemption: reference losses {ref['losses']}; victim SIGTERMed at step "
+        f"{pre['victim']['last_step']}, checkpoint {os.path.basename(pre['checkpoint'])} "
+        f"verified in {pre['verify_s']} s; resume losses {res['losses']} bit-exact with the "
+        f"reference at steps {pre['post_steps']} ({smi})")
+    log(f"phase15a retry: victim resilience.retries={pre['victim']['retries']} "
+        f"gave_up={pre['victim']['gave_up']} (checkpoint verified); sticky save "
+        f"gave_up={res['gave_up']} torn={res['sticky']['torn']} published="
+        f"{res['sticky']['published']} latest={os.path.basename(res['sticky']['latest'])} in "
+        f"{res['sticky']['seconds']} s ({smi})")
+    log(f"phase15a health skip: skipped {skip['skipped']}, digest step 3 == step 4: "
+        f"{skip['params_identical_across_skip']}, step 5 moved: "
+        f"{skip['params_moved_after_skip']}; per step armed and unarmed {health['per_step']}; "
+        f"{skip['dispatches']} dispatches over {skip['step_calls']} steps; counters "
+        f"{skip['counters']}")
+    log(f"phase15a health rewind: skipped {rw['skipped']}, rewound at step {rw['rewound_at']} "
+        f"to {rw['resumed_step']}; losses {rw['losses']} bit-exact with the clean resume at "
+        f"steps {health['post_steps']}; counters {rw['counters']}")
+    saves = [("victim preemption (transient fault, one retry)", pre["victim"]["saves"]),
+             ("health rewind step 2", rw["saves"])]
+    loads = [("preemption resume", res["loads"]), ("health rewind", rw["loads"]),
+             ("health clean resume", clean["loads"])]
+    for what, recs in saves:
+        for t in recs:
+            log(f"phase15a save {what}: {t} total_s={sum(t.values()):.3f} ({smi})")
+    for what, recs in loads:
+        for t in recs:
+            log(f"phase15a load {what}: {t} ({smi})")
+    # Each child counts from 0 in its own process; the rewind child's total
+    # holds the steps it replayed.
+    totals = {k: sum(life["launches"][k] for life in lives.values()) for k in want}
+    log(f"phase15a flash launches by life: "
+        f"{ {name: life['launches'] for name, life in lives.items()} }")
+    return totals
+
+
+def phase15_serving(smi):
+    """15b: both chaos campaigns at Llama-3-8B widths, 2 layers, fp32,
+    ``paged_kernel=True``; returns the two summaries."""
+    from accelerate_tpu_torch.serving import chaos
+
+    serving = chaos.run_serving_campaign(PHASE15_SEED, os.path.join(PHASE15_DIR, "chaos"),
+                                         size=PHASE15_SIZE, device=PHASE15_DEVICE)
+    tiering = chaos.run_tiering_campaign(PHASE15_SEED, os.path.join(PHASE15_DIR, "tiering"),
+                                         size=PHASE15_SIZE, device=PHASE15_DEVICE)
+    return serving, tiering
+
+
+def phase15_check_serving(serving, tiering, smi):
+    """15b's proofs, checked again here from the lives' records."""
+    from accelerate_tpu_torch.serving import chaos
+
+    plan = chaos.plan_serving_campaign(PHASE15_SEED)
+    check(serving["shed"] == len(plan["expect_shed"])
+          and serving["deadline_expired"] == len(plan["expect_expired"])
+          and serving["quarantined"] == 1,
+          f"phase15b serving campaign: {serving['shed']} shed, {serving['deadline_expired']} "
+          f"expired, {serving['quarantined']} quarantined; the plan wants "
+          f"{len(plan['expect_shed'])}, {len(plan['expect_expired'])} and 1")
+    survivors = serving["tokens"]["survivors"]
+    check(sorted(survivors) == sorted(plan["survivor_tags"])
+          and all(toks == serving["oracle"][tag] for tag, toks in survivors.items()),
+          f"phase15b serving campaign: survivors {sorted(survivors)} (want "
+          f"{sorted(plan['survivor_tags'])}) not all token-identical to generate")
+    tier_plan = chaos.plan_tiering_campaign(PHASE15_SEED)
+    all_tags = sorted(r["tag"] for r in tier_plan["requests"])
+    for name, done in tiering["tokens"].items():
+        check(sorted(done) == all_tags
+              and all(toks == tiering["oracle"][tag] for tag, toks in done.items()),
+              f"phase15b tiering {name}: requests {sorted(done)} (want {all_tags}) not all "
+              f"token-identical to generate")
+    host_full = [life for life in tiering["lives"] if life["role"] == "tier-host-full"][0]
+    check(tiering["migrations"] > 0 and tiering["promotions"] > 0
+          and tiering["fallbacks_forced"] > 0 and host_full["tiering"]["promotions"] == 0
+          and tiering["host_resident_at_kill"] > 0,
+          f"phase15b tiering campaign: {tiering['migrations']} demotions, "
+          f"{tiering['promotions']} promotions, {tiering['fallbacks_forced']} forced fallbacks "
+          f"({host_full['tiering']['promotions']} promotions with the host full), "
+          f"{tiering['host_resident_at_kill']} host-resident at the SIGKILL")
+    total = {"paged_attention": 0, "paged_window_attention": 0}
+    for campaign in (serving, tiering):
+        for life in campaign["lives"]:
+            n = life.get("launches", {})
+            check(n.get("paged_attention", 0)
+                  == chaos.CARD_LAYERS * life.get("decode_dispatches", -1),
+                  f"phase15b life {life['role']}: {n} paged launches over "
+                  f"{life.get('decode_dispatches')} decode forwards, want "
+                  f"{chaos.CARD_LAYERS} per forward")
+            if "free_blocks" in life:  # a life that exited, not one SIGKILLed
+                check(life["free_blocks"] == life["capacity"]
+                      and life["host_used"] == life["prefix_host_entries"],
+                      f"phase15b life {life['role']} leaked blocks: {life}")
+            for k in total:
+                total[k] += n.get(k, 0)
+            log(f"phase15b {life['role']}: {life}")
+    log(f"phase15b serving campaign: {serving['requests']} requests, {serving['shed']} shed, "
+        f"{serving['quarantined']} quarantined, {serving['deadline_expired']} expired, "
+        f"{serving['survivors']} survivors token-identical to generate over "
+        f"{serving['recoveries']} journal recoveries ({smi})")
+    log(f"phase15b tiering campaign: {tiering['migrations']} demotions / "
+        f"{tiering['promotions']} promotions, {tiering['fallbacks_forced']} forced fallbacks, "
+        f"{tiering['host_resident_at_kill']} host-resident at the SIGKILL ({smi})")
+    check(total["paged_attention"] > 0, f"phase15b launched the decode kernel {total} times")
+    return total
+
+
+def phase15_goodput(smi):
+    """15c: the goodput smoke's one-process arm and the watchdog on the
+    card, at 15a's recipe; its proofs checked again from its record."""
+    from accelerate_tpu_torch.telemetry import goodput_smoke as gs
+
+    out = os.path.join(PHASE15_DIR, "goodput.json")
+    proc = subprocess.run([sys.executable, "-m", "accelerate_tpu_torch.telemetry.goodput_smoke",
+                           "--size", PHASE15_SIZE, "--device", PHASE15_DEVICE,
+                           "--workdir", os.path.join(PHASE15_DIR, "goodput"), "--out", out],
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"goodput smoke exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    line = [x for x in proc.stdout.splitlines() if x.startswith("goodput-smoke OK")]
+    check(len(line) == 1, f"goodput smoke printed no verdict: {proc.stdout[-2000:]}")
+    with open(out) as f:
+        g = json.load(f)
+    summary, markers = g["summary"], g["markers"]
+    check(abs(summary["conservation_error_s"]) < gs.EPS_S
+          and all(v >= 0.0 for v in summary["seconds"].values())
+          and summary["attributed_s"] <= summary["elapsed_s"] + gs.EPS_S,
+          f"phase15c goodput does not conserve: {summary}")
+    check(all(markers.get(c, 0) >= 1 for c in ("rewind_replay", "checkpoint", "preempt"))
+          and markers.get("device_acquire", 0) >= 3,
+          f"phase15c a fault left its category without a marker: {markers}")
+    check(g["skipped"] == [gs.NAN_STEP] and g["preempted_at"] == gs.SIGTERM_STEP
+          and g["retries"] == 1,
+          f"phase15c skipped {g['skipped']}, preempted at {g['preempted_at']}, "
+          f"retries {g['retries']}")
+    check(g["watchdog"]["quiet"] == 0 and g["watchdog"]["fired"] == 1,
+          f"phase15c watchdog {g['watchdog']}")
+    want = {k: v * g["steps"] for k, v in phase15_flash_per_step().items()}
+    check(g["launches"] == want,
+          f"phase15c flash launches {g['launches']} over {g['steps']} steps, want {want}")
+    log(f"phase15c {line[0]} ({smi})")
+    log(f"phase15c seconds by category {summary['seconds']} of {summary['elapsed_s']:.3f} "
+        f"elapsed, markers {markers}; saves {g['save_s']} s (the step-5 save with the "
+        f"retry, then the SIGTERM's); flash launches {g['launches']} over {g['steps']} "
+        f"steps ({smi})")
+    return g
+
+
+def phase15(smi):
+    """Resilience at full width; see the module docstring, Phase 15."""
+    from accelerate_tpu_torch.resilience.smoke import recipe_config
+
+    gc_collect()
+    cfg, _, _ = recipe_config(PHASE15_SIZE)
+    ckpt_bytes = 12 * cfg.num_params()
+    shutil.rmtree(PHASE15_DIR, ignore_errors=True)
+    os.makedirs(PHASE15_DIR)
+    disk = shutil.disk_usage(PHASE15_DIR)
+    log(f"phase15 checkpoint ~{ckpt_bytes / 1e9:.2f} GB; disk at {PHASE15_DIR}: "
+        f"free={disk.free / 1e9:.2f} GB")
+    check(disk.free >= 3.5 * ckpt_bytes, f"free disk {disk.free} < 3.5 checkpoints")
+    phase15_env()
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed_call(fn):
+        t = time.perf_counter()
+        return fn(smi), time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        training = pool.submit(timed_call, phase15_training)
+        chaos_runs = pool.submit(timed_call, phase15_serving)
+        (pre, health), t_train = training.result()
+        (serving, tiering), t_serve = chaos_runs.result()
+    t1 = time.perf_counter()
+    flash = phase15_check_training(pre, health, smi)
+    paged = phase15_check_serving(serving, tiering, smi)
+    for done in ("preempt", "health", "chaos", "tiering"):  # room for 15c's checkpoints
+        shutil.rmtree(os.path.join(PHASE15_DIR, done))
+    goodput = phase15_goodput(smi)
+    t2 = time.perf_counter()
+    shutil.rmtree(PHASE15_DIR, ignore_errors=True)
+    log(f"phase15 seconds: 15a {t_train:.1f} and 15b {t_serve:.1f} side by side "
+        f"({t1 - t0:.1f}), 15c {t2 - t1:.1f}, total {time.perf_counter() - t0:.1f}")
+    flash = {k: flash[k] + goodput["launches"][k] for k in flash}
+    return dict(counts={**flash, **paged}, goodput=goodput)
+
+
 def main() -> int:
     import torch
 
@@ -4696,6 +5010,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from accelerate_tpu_torch.ops import _build
+
+    t_script = time.perf_counter()
 
     # fp32 products in full fp32 (the fp32 tolerances assume it).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4749,6 +5065,9 @@ def main() -> int:
     p14 = phase14(smi, p2)
     check(all(p14["counts"][n] > 0 for n in REPLACES),
           f"phase 14 launched the kernels of its path {p14['counts']} times")
+    p15 = phase15(smi)
+    check(all(p15["counts"][n] > 0 for n in ("paged_attention", *FLASH_KERNELS)),
+          f"phase 15 launched the kernels of its path {p15['counts']} times")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
@@ -4767,7 +5086,8 @@ def main() -> int:
                            launches_phase8=p8[name], launches_phase9=p9[name],
                            launches_phase10=p10["counts"][name],
                            launches_phase11=p11["counts"][name],
-                           launches_phase14=p14["counts"][name], head_dims=list(pa_dims),
+                           launches_phase14=p14["counts"][name],
+                           launches_phase15=p15["counts"][name], head_dims=list(pa_dims),
                            wide_heads={f"d{d}-{dt[6:]}": p10["paged"][(name, d, dt)]
                                        for d, dt in ((d, str(t)) for d, t in PHASE10_PAGED)},
                            gpt2_xl_heads={dt[6:]: p11["kernels"][(name, dt)]
@@ -4801,6 +5121,7 @@ def main() -> int:
                            launches_phase10e=p10["phi3_f32"]["counts"][name],
                            launches_phase12=p12["counts"][name],
                            launches_phase14=p14["counts"][name],
+                           launches_phase15=p15["counts"][name],
                            head_dims=list(fu_dims),
                            wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
                                        for geom, dt in p10["flash"]},
@@ -4815,6 +5136,7 @@ def main() -> int:
         log(f"kernels fp32 {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}"
             + (f" previous_ms={r['previous_ms']:.4f}" if "previous_ms" in r else ""))
+    log(f"script seconds: {time.perf_counter() - t_script:.1f} ({smi})")
     log(json.dumps({"kernels": record}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,9 @@ paths (``accelerate_tpu_torch``, ``.utils``, ``.pipeline``,
 ``.resilience``, ``.serving``, ``.state``, ``.tracking``, ``.logging``,
 ``.local_sgd``, ``.models.gpt2``): the 19 that were ported in submodules
 only, those of the single-process surface, the trackers, logging, memory
-and utils helpers, and GPT-2.  Each is imported from both
+and utils helpers, GPT-2, the other model families, telemetry, and the
+one-process resilience (retry, health, fault injection), the serving
+chaos and the smoke modules (A5).  Each is imported from both
 packages; a class in one is a class in the other.  Exact: no tolerance."""
 
 import importlib
@@ -126,6 +128,43 @@ A4_CONSTANTS = {".telemetry": ["ENV_ENABLE", "ENV_DIR", "ENV_STALL_TIMEOUT"],
 A6_TELEMETRY = {"ENV_INTROSPECT", "ProgramReport", "LintFinding", "CollectiveOp", "CommsLedger",
                 "inspect_compiled", "capture", "lint_reshardings", "parse_collectives",
                 "scan_hlo"}
+A5 = {  # resilience for one process, the serving chaos and the smokes, at the JAX paths
+    "": ["RetryPolicy", "retrying"],
+    ".resilience": ["HealthGuard", "HealthVerdict", "NumericalDivergenceError", "RetryPolicy",
+                    "retrying", "PreemptionGuard", "write_manifest", "read_manifest",
+                    "is_complete", "list_checkpoints", "prune_checkpoints"],
+    ".resilience.retry": ["RetryPolicy", "retrying", "default_retryable"],
+    ".resilience.health": ["HealthGuard", "HealthVerdict", "NumericalDivergenceError"],
+    ".resilience.faultinject": ["InjectedWriteError", "armed", "maybe_fail_write", "tick",
+                                "maybe_oom", "synthetic_oom_acquire", "reload", "nan_armed",
+                                "grad_poison_scale", "bad_batch_index", "maybe_poison_batch",
+                                "serving_nan_ordinal", "serving_host_full"],
+    ".resilience.smoke": ["main"],
+    ".resilience.health_smoke": ["main"],
+    ".resilience.smoke_retry": ["main"],
+    ".serving.chaos": ["plan_serving_campaign", "plan_tiering_campaign",
+                       "run_serving_campaign", "run_tiering_campaign", "run_first_life",
+                       "run_victim_life", "run_finisher_life", "run_tier_pressure_life",
+                       "run_tier_victim_life", "run_tier_finisher_life", "main"],
+    ".serving.smoke": ["main"],
+    ".serving.spec_smoke": ["main"],
+    ".serving.trace_smoke": ["main"],
+    ".telemetry.goodput_smoke": ["main"],
+    ".telemetry.memledger_smoke": ["main"],
+}
+A5_CONSTANTS = {".resilience.faultinject": [
+    "ENV_WRITE_N", "ENV_WRITE_STICKY", "ENV_SIGTERM_STEP", "ENV_OOM_ONCE", "ENV_NAN_STEP",
+    "ENV_NAN_COUNT", "ENV_BAD_BATCH", "ENV_SERVING_NAN", "ENV_SERVING_HOST_FULL"],
+    ".serving.chaos": ["QUEUE_DEPTH", "MAX_TICKS"],
+    ".resilience.health_smoke": ["STEPS", "NAN_STEP", "CKPT_STEP"],
+    ".resilience.smoke": ["STEPS", "KILL_STEP"],
+    ".telemetry.goodput_smoke": ["NAN_STEP", "SIGTERM_STEP", "TOTAL_STEPS", "EPS_S"]}
+# The JAX resilience names that wait for several GPUs (ROADMAP A6): the
+# elastic topology resume and the fleet primitives.
+A6_RESILIENCE = {"ElasticPlan", "ElasticResumeInfo", "ElasticTopologyError", "capture_topology",
+                 "plan_resume", "validate_leaves", "reshard_tree", "fold_rng_bundle",
+                 "recompute_skip_batches", "state_digest", "FleetError", "Heartbeat", "barrier",
+                 "agree", "fleet_client"}
 A1B_CONSTANTS = {".utils": ["SAFE_WEIGHTS_NAME", "WEIGHTS_NAME", "MODEL_NAME", "SCALER_NAME",
                             "TORCH_LAUNCH_PARAMS"],
                  ".utils.constants": ["STR_OPERATION_TO_FUNC", "FSDP_SHARDING_STRATEGY"]}
@@ -205,6 +244,29 @@ def test_a4_telemetry_all_is_jax_all_but_the_a6_names():
 
     assert set(jt.__all__) - set(tt.__all__) == A6_TELEMETRY
     assert set(tt.__all__) <= set(jt.__all__)
+
+
+@pytest.mark.parametrize("path,name", _cases(A5), ids=lambda v: v if v else "top")
+def test_a5_names_import_at_jax_paths(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert isinstance(port_obj, type) == isinstance(jax_obj, type) and callable(port_obj)
+    assert port_obj.__module__.startswith("accelerate_tpu_torch")
+
+
+@pytest.mark.parametrize("path,name", _cases(A5_CONSTANTS), ids=lambda v: v)
+def test_a5_constants_equal_jax(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert port_obj == jax_obj
+
+
+def test_a5_resilience_all_is_jax_all_but_the_a6_names():
+    import accelerate_tpu.resilience as jr
+    import accelerate_tpu_torch.resilience as tr
+
+    assert set(jr.__all__) - set(tr.__all__) == A6_RESILIENCE
+    assert set(tr.__all__) <= set(jr.__all__)
+    for name in tr.__all__:
+        assert hasattr(tr, name)
 
 
 def test_the_examples_imports_resolve():

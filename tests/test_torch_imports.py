@@ -122,10 +122,11 @@ def test_robustness_exports_match_jax_names():
 
     for n in ("HostBlockPool", "JournalError", "ServingJournal", "AdmissionRejected"):
         assert n in srv.__all__ and hasattr(srv, n)
-    assert res.__all__ == ["CheckpointVerificationError", "ENV_MANIFEST_HASH", "MANIFEST_NAME",
-                           "PreemptionGuard", "find_latest_complete", "is_complete",
-                           "list_checkpoints", "prune_checkpoints", "read_manifest",
-                           "verify_checkpoint", "write_manifest"]
+    assert res.__all__ == ["CheckpointVerificationError", "ENV_MANIFEST_HASH", "HealthGuard",
+                           "HealthVerdict", "MANIFEST_NAME", "NumericalDivergenceError",
+                           "PreemptionGuard", "RetryPolicy", "find_latest_complete",
+                           "is_complete", "list_checkpoints", "prune_checkpoints",
+                           "read_manifest", "retrying", "verify_checkpoint", "write_manifest"]
 
 
 def test_generation_and_tracing_exports_match_jax_names():
