@@ -38,6 +38,14 @@ Ported so far:
   its HF import and export;
 - the other model families (Mixtral with ``ops/moe.py``, BERT, ViT,
   ResNet, T5) and telemetry (``telemetry/``);
+- several processes, one per GPU (``torchrun --nproc-per-node N``): the
+  process group and the mesh (:class:`ParallelismConfig`, ``state.py``,
+  ``parallel/mesh.py``), data parallelism (each process loads its share,
+  the optimizer averages the gradients; ``utils/operations.py``'s
+  collectives over the group) and the ZeRO sharded update
+  (``parallel/zero.py``, ``make_train_step(zero=True)``), with host offload
+  of the optimizer state, multi-process checkpoints, ``LocalSGD``'s average
+  and the coordinated ``PreemptionGuard``;
 - resilience for one process (``resilience/``): the checkpoint I/O retry
   (``retry.py``), the numerical-health guard (``health.py``,
   :meth:`Accelerator.enable_health_guard`), the JAX package's fault
@@ -65,6 +73,7 @@ from .utils import (  # noqa: E402
     GradScalerKwargs,
     InitProcessGroupKwargs,
     MixedPrecisionPolicy,
+    ParallelismConfig,
     ProfileKwargs,
     ProjectConfiguration,
     set_seed,
@@ -73,7 +82,8 @@ from .utils import (  # noqa: E402
 # Imported on first use, as the JAX package does: serving pulls in the
 # engine, and the rest is kept off ``import accelerate_tpu_torch``'s path.
 _LAZY = {
-    "data_loader": ("prepare_data_loader", "skip_first_batches", "DataLoaderShard"),
+    "data_loader": ("prepare_data_loader", "skip_first_batches", "DataLoaderShard",
+                    "DataLoaderDispatcher"),
     "pipeline": ("make_train_step", "TrainStep", "DevicePrefetcher"),
     "resilience": ("PreemptionGuard", "RetryPolicy", "retrying", "verify_checkpoint",
                    "find_latest_complete", "CheckpointVerificationError"),
@@ -88,7 +98,8 @@ __all__ = [
     "Accelerator", "AcceleratorState", "AutocastKwargs", "DDPCommunicationHookType",
     "DataLoaderConfiguration", "DistributedDataParallelKwargs", "DistributedInitKwargs",
     "DistributedType", "FunctionalModel", "GradScalerKwargs", "GradientAccumulationPlugin",
-    "GradientState", "InitProcessGroupKwargs", "MixedPrecisionPolicy", "PartialState",
+    "GradientState", "InitProcessGroupKwargs", "MixedPrecisionPolicy", "ParallelismConfig",
+    "PartialState",
     "PreparedModel", "ProfileKwargs", "ProjectConfiguration", "__version__", "set_seed",
     *(name for names in _LAZY.values() for name in names),
 ]

@@ -1,6 +1,7 @@
 """The port's ``Accelerator``: device placement, training and serving.
 
-Training (single GPU), the README's loop::
+Training, the README's loop (one GPU, or one process per GPU under
+``torchrun --nproc-per-node N``)::
 
     model, optimizer, dataloader, scheduler = accelerator.prepare(
         model, optimizer, dataloader, scheduler)
@@ -29,8 +30,12 @@ a rewind (:mod:`.resilience`).  Serving:
 ``Accelerator(mixed_precision="bf16")`` computes each prepared model's
 forward with bf16 copies of its fp32 parameters (:class:`PreparedModel`);
 the process surface (``print``, ``is_main_process``, ``gather_for_metrics``,
-...) is the JAX ``Accelerator``'s at one process (:mod:`.state`,
-:mod:`.utils.operations`).  Experiment trackers: ``log_with`` with
+...) is the JAX ``Accelerator``'s (:mod:`.state`, :mod:`.utils.operations`).
+With several processes the mesh is pure data parallelism: ``prepare``
+broadcasts rank 0's parameters, each process loads its rows of every global
+batch, and each optimizer step averages the gradients over the processes
+(``make_train_step(zero=True)`` reduce-scatters them instead and updates a
+shard of the optimizer state per process: :mod:`.parallel.zero`).  Experiment trackers: ``log_with`` with
 :meth:`~Accelerator.init_trackers`, :meth:`~Accelerator.log` and
 :meth:`~Accelerator.end_training` (:mod:`.tracking`).
 
@@ -59,11 +64,16 @@ import torch
 import torch.utils.data
 from torch import nn
 
-from .data_loader import DataLoaderShard, prepare_data_loader, skip_first_batches
+from .data_loader import (
+    DataLoaderDispatcher,
+    DataLoaderShard,
+    prepare_data_loader,
+    skip_first_batches,
+)
 from .optimizer import AcceleratedOptimizer, global_norm
 from .pipeline.train_step import accumulate_grads
 from .scheduler import AcceleratedScheduler
-from .state import AcceleratorState, GradientState, resolve_device
+from .state import AcceleratorState, GradientState, PartialState, resolve_device
 from .telemetry import get_telemetry as _get_telemetry
 from .telemetry import maybe_enable_from_env as _telemetry_from_env
 from .telemetry import span as _span
@@ -187,11 +197,14 @@ class Accelerator:
       ``profile_handler``, ``scaler_handler``, ``ddp_handler`` and
       ``init_handler`` (:meth:`profile` reads its handler; a ``comm_hook``
       of ``"fp16"`` or ``"bf16"`` makes :meth:`backward` hold the
-      accumulated gradients' values in bf16, as the JAX ``PreparedModel``
-      does; one process syncs no gradient and scales no loss, so the rest
-      is held only);
-    - ``rng_types``: kept for the JAX surface (one process has no generator
-      to synchronise);
+      accumulated gradients' values in bf16 and the optimizer sync them in
+      bf16, as the JAX ``PreparedModel`` does; ``init_handler`` starts the
+      process group; no loss is scaled, so the scaler's is held only);
+    - ``parallelism_config``: the mesh
+      (:class:`~accelerate_tpu_torch.utils.dataclasses.ParallelismConfig`;
+      default pure data parallelism over the processes);
+    - ``rng_types``: kept for the JAX surface (the loaders' samplers are
+      seeded alike on every process);
     - ``log_with``: a tracker name (``"generic"``, the JSONL tracker;
       ``"tensorboard"``, ``"wandb"``, ...; ``"all"``), a
       :class:`~accelerate_tpu_torch.tracking.GeneralTracker`, or a list of
@@ -209,12 +222,36 @@ class Accelerator:
                  kwargs_handlers: Optional[List[KwargsHandler]] = None,
                  rng_types: Optional[list] = None, even_batches: bool = True,
                  dispatch_batches: Optional[bool] = None, use_seedable_sampler: bool = False,
-                 device=None):
+                 device=None, parallelism_config=None):
         if cpu and device is not None and str(device) != "cpu":
             raise ValueError(f"cpu=True contradicts device={device!r}")
-        # The device named in full, so a live state on another one raises.
-        self.state = AcceleratorState(mixed_precision=mixed_precision,
-                                      device=resolve_device("cpu" if cpu else device))
+        self.ddp_handler = None
+        self.scaler_handler = None
+        self.init_handler = None
+        self.autocast_handler = None
+        self.profile_handler = None
+        self.fp8_recipe_handler = None
+        slots = {DistributedDataParallelKwargs: "ddp_handler", GradScalerKwargs: "scaler_handler",
+                 DistributedInitKwargs: "init_handler", AutocastKwargs: "autocast_handler",
+                 ProfileKwargs: "profile_handler", FP8RecipeKwargs: "fp8_recipe_handler"}
+        for handler in kwargs_handlers or []:
+            if not isinstance(handler, KwargsHandler):
+                raise ValueError(f"Unsupported kwargs handler: {handler!r}")
+            slot = slots.get(type(handler))
+            if slot is None:
+                raise ValueError(f"Unsupported kwargs handler type: {type(handler).__name__}")
+            if getattr(self, slot) is not None:
+                raise ValueError(
+                    f"You can only pass one {type(handler).__name__} in `kwargs_handlers`.")
+            setattr(self, slot, handler)
+        # A live state is asked with the device named in full, so one on
+        # another device raises; a fresh one picks cuda:LOCAL_RANK itself
+        # when several processes run.
+        if AcceleratorState._shared_state or PartialState._shared_state:
+            device = resolve_device("cpu" if cpu else device)
+        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu, device=device,
+                                      parallelism_config=parallelism_config,
+                                      init_kwargs=self.init_handler)
         self.device = self.state.device
         self.project_configuration = project_config or ProjectConfiguration()
         if project_dir is not None and self.project_configuration.project_dir is None:
@@ -243,26 +280,6 @@ class Accelerator:
         self.last_load_timing: Optional[dict] = None
         self._preemption_guard = None
         self._health_guard = None
-
-        self.ddp_handler = None
-        self.scaler_handler = None
-        self.init_handler = None
-        self.autocast_handler = None
-        self.profile_handler = None
-        self.fp8_recipe_handler = None
-        slots = {DistributedDataParallelKwargs: "ddp_handler", GradScalerKwargs: "scaler_handler",
-                 DistributedInitKwargs: "init_handler", AutocastKwargs: "autocast_handler",
-                 ProfileKwargs: "profile_handler", FP8RecipeKwargs: "fp8_recipe_handler"}
-        for handler in kwargs_handlers or []:
-            if not isinstance(handler, KwargsHandler):
-                raise ValueError(f"Unsupported kwargs handler: {handler!r}")
-            slot = slots.get(type(handler))
-            if slot is None:
-                raise ValueError(f"Unsupported kwargs handler type: {type(handler).__name__}")
-            if getattr(self, slot) is not None:
-                raise ValueError(
-                    f"You can only pass one {type(handler).__name__} in `kwargs_handlers`.")
-            setattr(self, slot, handler)
         # The DDP comm-hook counterpart of the JAX PreparedModel: under an
         # fp16 or bf16 hook the accumulated gradients carry bf16 rounding.
         hook = self.ddp_handler.comm_hook if self.ddp_handler is not None else "no"
@@ -304,6 +321,11 @@ class Accelerator:
     @property
     def use_distributed(self) -> bool:
         return self.state.use_distributed
+
+    @property
+    def mesh(self):
+        """The state's :class:`~accelerate_tpu_torch.parallel.mesh.Mesh`."""
+        return self.state.mesh
 
     @property
     def mixed_precision(self) -> str:
@@ -417,7 +439,8 @@ class Accelerator:
         for i, obj in enumerate(args):
             if isinstance(obj, nn.Module):
                 staged[i] = self.prepare_model(obj)
-            elif isinstance(obj, (torch.utils.data.DataLoader, DataLoaderShard)):
+            elif isinstance(obj, (torch.utils.data.DataLoader, DataLoaderShard,
+                                  DataLoaderDispatcher)):
                 staged[i] = self.prepare_data_loader(obj)
         for i, obj in enumerate(args):
             if i not in staged and isinstance(obj, (torch.optim.Optimizer, AcceleratedOptimizer)):
@@ -431,10 +454,11 @@ class Accelerator:
     def prepare_data_loader(self, data_loader, device_placement: Optional[bool] = None):
         """Wrap a torch ``DataLoader`` (or any iterable of batches) as a
         :class:`~accelerate_tpu_torch.data_loader.DataLoaderShard` that
-        yields batches on this accelerator's device (left where they are
-        without ``device_placement``) and tells :meth:`accumulate` about its
-        last batch."""
-        if isinstance(data_loader, DataLoaderShard):
+        yields this process's batches on this accelerator's device (left
+        where they are without ``device_placement``) and tells
+        :meth:`accumulate` about its last batch; under ``dispatch_batches``
+        a :class:`~accelerate_tpu_torch.data_loader.DataLoaderDispatcher`."""
+        if isinstance(data_loader, (DataLoaderShard, DataLoaderDispatcher)):
             if not any(data_loader is d for d in self._dataloaders):
                 self._dataloaders.append(data_loader)
             return data_loader
@@ -446,7 +470,8 @@ class Accelerator:
             data_seed=cfg.data_seed, non_blocking=cfg.non_blocking,
             use_stateful_dataloader=cfg.use_stateful_dataloader,
             static_shape_tail=cfg.static_shape_tail, prefetch_to_device=cfg.prefetch_to_device,
-            gradient_state=self.gradient_state)
+            gradient_state=self.gradient_state, num_processes=self.num_processes,
+            process_index=self.process_index, dispatch_batches=cfg.dispatch_batches)
         self._dataloaders.append(prepared)
         return prepared
 
@@ -470,7 +495,8 @@ class Accelerator:
         """Move ``model`` (an ``nn.Module`` or a :class:`FunctionalModel`) to
         this accelerator's device in place (its ``Parameter`` objects stay
         the same, so an optimizer built over them stays valid; not moved
-        without ``device_placement``) and register it.  Under a 16-bit
+        without ``device_placement``) and register it; with several
+        processes its parameters and buffers take rank 0's values.  Under a 16-bit
         ``mixed_precision`` it comes back as a :class:`PreparedModel` around
         it, under ``"no"`` as itself.  ``evaluation_mode`` puts it in
         ``eval()`` mode."""
@@ -482,6 +508,11 @@ class Accelerator:
                 return m
         if self.device_placement if device_placement is None else device_placement:
             model.to(self.device)
+        if self.num_processes > 1:
+            # Every replica starts from rank 0's values, bit for bit.
+            from .parallel.sharding import shard_params
+
+            shard_params(list(model.parameters()) + list(model.buffers()), self.mesh)
         dt = self.state.dtype_policy.compute_dtype
         prepared = model if dt == torch.float32 else PreparedModel(model, dt)
         if evaluation_mode:
@@ -497,7 +528,8 @@ class Accelerator:
         ids = {id(p) for group in optimizer.param_groups for p in group["params"]}
         for model in reversed(self._models):
             if any(id(p) in ids for p in model.parameters()):
-                prepared = AcceleratedOptimizer(optimizer, model, self.gradient_state)
+                prepared = AcceleratedOptimizer(optimizer, model, self.gradient_state,
+                                                mesh=self.mesh, sync_dtype=self._grad_sync_dtype)
                 self._optimizers.append(prepared)
                 return prepared
         raise ValueError("prepare the model before (or together with) its optimizer: no "
@@ -541,7 +573,8 @@ class Accelerator:
     def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0, norm_type: float = 2.0):
         """Arm global-norm clipping for the next optimizer step (one shot)
         and return the accumulated gradients' current norm (None before any
-        backward).  The norm is always the global 2-norm: like the JAX
+        backward; with several processes, of this process's gradients: the
+        clip itself uses the norm of their average).  The norm is always the global 2-norm: like the JAX
         ``Accelerator``, another ``norm_type`` is ignored, with a warning."""
         if norm_type != 2.0:
             warnings.warn(f"clip_grad_norm_ ignores norm_type={norm_type}: it clips to and "
@@ -558,7 +591,7 @@ class Accelerator:
             opt._clip_value_once = float(clip_value)
 
     def make_train_step(self, model, optimizer, accum_steps=None, clip_norm=None,
-                        clip_value=None):
+                        clip_value=None, zero=None):
         """The whole optimizer step in one call (see
         :mod:`accelerate_tpu_torch.pipeline.train_step`)::
 
@@ -566,16 +599,21 @@ class Accelerator:
             step_fn = accelerator.make_train_step(model, opt)
             loss = step_fn(batch)            # accum_steps == 1
             losses = step_fn([b1, b2, b3])   # accum_steps == 3
+
+        ``zero=True`` (None: ``ACCELERATE_TPU_ZERO``) shards the weight update
+        over the data-parallel processes (:mod:`.parallel.zero`); on a mesh
+        that cannot take it, it warns and runs the replicated step.
         """
         from .pipeline.train_step import make_train_step
 
         return make_train_step(self, model, optimizer, accum_steps=accum_steps,
-                               clip_norm=clip_norm, clip_value=clip_value)
+                               clip_norm=clip_norm, clip_value=clip_value, zero=zero)
 
     @contextlib.contextmanager
     def no_sync(self, model=None):
-        """``sync_gradients`` False inside (restored on exit): one process
-        has no gradient all-reduce to skip, so only the flag moves."""
+        """``sync_gradients`` False inside (restored on exit): the optimizer
+        step, and with it the gradient average over the processes, waits
+        for a micro-batch outside."""
         old = self.gradient_state.sync_gradients
         self.gradient_state.sync_gradients = False
         try:
@@ -589,10 +627,30 @@ class Accelerator:
 
     @contextlib.contextmanager
     def join_uneven_inputs(self, joinables, even_batches: Optional[bool] = None):
-        """torch's ``Join`` over processes with uneven inputs: one process
-        has nobody to wait for, so the block runs as it is (the JAX
-        ``Accelerator`` too overrides ``even_batches`` only with several)."""
-        yield
+        """The JAX ``join_uneven_inputs``: batches are equalized by
+        ``even_batches`` before they reach the step, so no ``Join`` shadows
+        the collectives; with several processes ``even_batches`` overrides
+        the prepared map-style loaders' inside the block (restored on exit),
+        and iterable loaders keep theirs, with a warning.  One process runs
+        the block as it is."""
+        overridden: list = []
+        if even_batches is not None and self.num_processes > 1:
+            iterable_seen = False
+            for dl in self._dataloaders:
+                sampler = getattr(dl, "batch_sampler", None)
+                if sampler is not None and hasattr(sampler, "even_batches"):
+                    overridden.append((sampler, sampler.even_batches))
+                    sampler.even_batches = even_batches
+                else:
+                    iterable_seen = True
+            if iterable_seen:
+                warnings.warn("Overriding even_batches is only supported for map-style "
+                              "datasets; iterable dataloaders keep their behavior.")
+        try:
+            yield
+        finally:
+            for sampler, prev in overridden:
+                sampler.even_batches = prev
 
     def unscale_gradients(self, optimizer=None) -> None:
         """No loss scaler runs (``fp16`` computes in bf16, which needs none),
@@ -709,15 +767,15 @@ class Accelerator:
         for tracker in self.trackers:
             tracker.finish()
 
-    # -- metrics and collectives (one process) ------------------------------
+    # -- metrics and collectives ------------------------------------------------
 
     def gather(self, tensor):
         return gather(tensor)
 
     def gather_for_metrics(self, input_data, use_gather_object: bool = False):
         """:meth:`gather`, then, on a prepared dataloader's last batch, only
-        its first ``remainder`` rows (what a loader filled its tail batch
-        with is dropped).  Input that is not all tensors, or
+        its first ``remainder`` rows (what the loaders filled the tail of the
+        global batch with is dropped).  Input that is not all tensors, or
         ``use_gather_object``, goes through ``gather_object`` as a list of
         samples."""
         try:
@@ -856,8 +914,9 @@ class Accelerator:
         :meth:`check_preemption` writes the final checkpoint; without it,
         automatic checkpoint naming must be on.  Serving engines built by
         :meth:`prepare_serving` afterwards drain on the signal.
-        ``coordinated=True`` (agreement across processes) raises
-        ``NotImplementedError`` until ROADMAP A6."""
+        ``coordinated=True`` (the default with several processes) makes the
+        stop a collective decision: ``should_stop`` is the max of every
+        process's flag, so all stop at the same step."""
         from .resilience import PreemptionGuard
 
         if (self._preemption_guard is None and save_dir is None

@@ -10,15 +10,24 @@ later object of a kind):
 - ``optimizer.bin``: the torch optimizer's ``state_dict()`` and the update
   count; ``scheduler.bin``: the scheduler's ``state_dict()``;
 - ``sampler.bin``: a seedable sampler's epoch and seed;
-  ``dl_state_dict.bin``: a stateful loader's position in its epoch;
+  ``dl_state_dict.bin``: a stateful loader's position in its epoch (process
+  ``r`` > 0 writes its own beside it, ``dl_state_dict.rank<r>.bin``);
 - ``custom_checkpoint_<i>.pkl``: objects passed to
   ``register_for_checkpointing``;
-- ``random_states_0.pkl``: python, numpy, torch CPU and CUDA generator
-  states (the JAX threefry seed has no counterpart);
+- ``random_states_<r>.pkl``: process ``r``'s python, numpy, torch CPU and
+  CUDA generator states (the JAX threefry seed has no counterpart);
 - ``manifest.json``: size and SHA-256 of every file (:mod:`.resilience.manifest`).
 
 Apart from the weights, files are ``torch.save`` archives (the JAX package
 pickles optax state, which the port has no use for).
+
+With several processes the save is the JAX package's consolidated one: the
+main process writes the model (replicated, so its own copy), the optimizer
+(a ZeRO state gathered to full shapes: every process takes part in that
+gather) and the rest; every process writes its RNG states and its loader
+position; ``wait_for_everyone`` goes around the manifest and the publish,
+which the main process does.  A load restores everything on every process,
+each its own RNG states and loader position.
 
 The save is atomic (``verified=False`` opts out and writes in place, with
 no staging and no manifest): files are staged in ``<dir>.tmp``, the manifest is
@@ -32,8 +41,8 @@ publish run together under the JAX package's I/O retry policy
 ``checkpoint.publish``): a transient ``OSError`` backs off and tries again,
 and a save that exhausts the policy leaves only the manifest-less staging
 directory, which discovery passes over.  The JAX package's orbax sharded,
-asynchronous and local saves and the elastic topology record belong to
-multi-GPU training and are not ported.
+asynchronous and local saves and the elastic topology record wait for
+ROADMAP A6 part 3.
 """
 
 from __future__ import annotations
@@ -172,6 +181,12 @@ def load_model_weights(model, input_dir: str, weights_name: str = WEIGHTS_NAME) 
     model.load_state_dict(state_dict)
 
 
+def _loader_position_name(i: int, rank: int) -> str:
+    """Loader ``i``'s position file of process ``rank``."""
+    name = _named("dl_state_dict", i, "bin")
+    return name if rank == 0 else name.replace(".bin", f".rank{rank}.bin")
+
+
 def _save(obj, path: str, fsync: bool) -> None:
     with open(path, "wb") as f:
         torch.save(obj, f)
@@ -279,16 +294,21 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
 
     fsync = fsync_enabled()
     final_dir = _resolve_output_dir(accelerator, output_dir)
+    rank = accelerator.process_index
+    is_writer = accelerator.is_main_process
+    several = accelerator.num_processes > 1
     if verified:
         staging = f"{final_dir.rstrip(os.sep)}.tmp"
-        if os.path.isdir(staging):  # a crashed save's staging: never loadable
+        if is_writer and os.path.isdir(staging):  # a crashed save's staging: never loadable
             shutil.rmtree(staging, ignore_errors=True)
-        os.makedirs(staging)
+        if several:
+            accelerator.wait_for_everyone()
+        os.makedirs(staging, exist_ok=several)
     else:
         staging = final_dir
         os.makedirs(staging, exist_ok=True)
         stale = os.path.join(staging, MANIFEST_NAME)
-        if os.path.exists(stale):  # it would describe the files being replaced
+        if is_writer and os.path.exists(stale):  # it would describe the files being replaced
             os.remove(stale)
 
     # Pre-hooks see the models and their current weights; what they leave
@@ -301,25 +321,30 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
             hook(accelerator._models, weights, staging)
 
     t0 = time.perf_counter()
-    if weights is None:
-        weights = [m.state_dict() for m in accelerator._models]
     files = {}
-    for i, w in enumerate(weights):
-        files[_named(MODEL_NAME, i, "safetensors")] = _to_host(w)
-    for i, opt in enumerate(accelerator._optimizers):
-        files[_named(OPTIMIZER_NAME, i, "bin")] = _to_host(opt.state_dict())
-    for i, sched in enumerate(accelerator._schedulers):
-        files[_named(SCHEDULER_NAME, i, "bin")] = sched.state_dict()
+    # Every process gathers (a ZeRO state's gather is a collective); the
+    # main one writes.
+    opt_states = [_to_host(opt.state_dict()) for opt in accelerator._optimizers]
+    if is_writer:
+        if weights is None:
+            weights = [m.state_dict() for m in accelerator._models]
+        for i, w in enumerate(weights):
+            files[_named(MODEL_NAME, i, "safetensors")] = _to_host(w)
+        for i, st in enumerate(opt_states):
+            files[_named(OPTIMIZER_NAME, i, "bin")] = st
+        for i, sched in enumerate(accelerator._schedulers):
+            files[_named(SCHEDULER_NAME, i, "bin")] = sched.state_dict()
+        for i, obj in enumerate(accelerator._custom_objects):
+            files[f"custom_checkpoint_{i}.pkl"] = _to_host(obj.state_dict())
+    del opt_states
     for i, dl in enumerate(accelerator._dataloaders):
         sampler = getattr(dl, "sampler", None)
-        if isinstance(sampler, SeedableRandomSampler):
+        if is_writer and isinstance(sampler, SeedableRandomSampler):
             files[_named(SAMPLER_NAME, i, "bin")] = {"epoch": sampler.epoch,
                                                      "initial_seed": sampler.initial_seed}
         if getattr(dl, "use_stateful_dataloader", False):
-            files[_named("dl_state_dict", i, "bin")] = dl.state_dict()
-    for i, obj in enumerate(accelerator._custom_objects):
-        files[f"custom_checkpoint_{i}.pkl"] = _to_host(obj.state_dict())
-    files["random_states_0.pkl"] = get_rng_state()
+            files[_loader_position_name(i, rank)] = dl.state_dict()
+    files[f"random_states_{rank}.pkl"] = get_rng_state()
     if any(t.device.type == "cuda" for m in accelerator._models for t in m.parameters()):
         torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -343,19 +368,29 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
             _publish(staging, final_dir, fsync)
 
         with _span("checkpoint.publish"):
-            _io_policy("checkpoint.publish").call(_publish_io)
+            if several:  # every process's files are in staging first
+                accelerator.wait_for_everyone()
+            if is_writer:
+                _io_policy("checkpoint.publish").call(_publish_io)
+                tel = _get_telemetry()
+                if tel.enabled:
+                    # event() mirrors into the flight recorder: the postmortem
+                    # of a killed run shows which checkpoints were published.
+                    tel.event("checkpoint.publish", step=step, path=final_dir)
+                if rotate:
+                    prune_checkpoints(os.path.dirname(final_dir), keep=cfg.total_limit)
+            if several:
+                accelerator.wait_for_everyone()
+        if is_writer:
             manifest, t3 = marks["manifest"], marks["t3"]
-            tel = _get_telemetry()
-            if tel.enabled:
-                # event() mirrors into the flight recorder: the postmortem of
-                # a killed run shows which checkpoints were published.
-                tel.event("checkpoint.publish", step=step, path=final_dir)
-            if rotate:
-                prune_checkpoints(os.path.dirname(final_dir), keep=cfg.total_limit)
-        written = sum(e["size"] for e in manifest["files"].values())
+            written = sum(e["size"] for e in manifest["files"].values())
+        else:
+            t3, written = t2, 0
     else:
         t3 = t2
-        if rotate:
+        if several:
+            accelerator.wait_for_everyone()
+        if rotate and is_writer:
             _rotate_unverified(os.path.dirname(final_dir), cfg.total_limit)
         written = sum(os.path.getsize(os.path.join(final_dir, n)) for n in os.listdir(final_dir))
     t4 = time.perf_counter()
@@ -423,12 +458,17 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
             st = _load(path)
             sampler.epoch = st["epoch"]
             sampler.initial_seed = st["initial_seed"]
-        path = os.path.join(input_dir, _named("dl_state_dict", i, "bin"))
+        rank = accelerator.process_index
+        path = os.path.join(input_dir, _loader_position_name(i, rank))
+        if not os.path.exists(path):
+            path = os.path.join(input_dir, _loader_position_name(i, 0))
         if os.path.exists(path) and getattr(dl, "use_stateful_dataloader", False):
             dl.load_state_dict(_load(path))
     for i, obj in enumerate(accelerator._custom_objects):
         load_custom_state(obj, input_dir, i)
-    path = os.path.join(input_dir, "random_states_0.pkl")
+    path = os.path.join(input_dir, f"random_states_{accelerator.process_index}.pkl")
+    if not os.path.exists(path):
+        path = os.path.join(input_dir, "random_states_0.pkl")
     if os.path.exists(path):
         set_rng_state(_load(path))
     if any(t.device.type == "cuda" for m in accelerator._models for t in m.parameters()):

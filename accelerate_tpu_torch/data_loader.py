@@ -1,5 +1,5 @@
-"""The data pipeline of the single-GPU training loop: the one-process
-branches of the JAX package's ``data_loader.py``.
+"""The data pipeline of the training loop: the JAX package's
+``data_loader.py``, one process per GPU.
 
 - :class:`SeedableRandomSampler`: a permutation seeded with
   ``initial_seed + epoch`` (numpy, or a torch generator when given);
@@ -12,13 +12,20 @@ branches of the JAX package's ``data_loader.py``.
   thread copies batches ahead on a CUDA stream of its own
   (:class:`~accelerate_tpu_torch.pipeline.prefetch.DevicePrefetcher`);
   ``state_dict`` records the batches the user has seen this epoch;
-- :func:`prepare_data_loader` and :func:`skip_first_batches`.
+- :class:`DataLoaderDispatcher` (``dispatch_batches=True``): the main
+  process reads each global batch and broadcasts it; every process keeps
+  its rows;
+- :func:`prepare_data_loader` (with several processes each one loads its
+  share through :class:`BatchSamplerShard` / :class:`IterableDatasetShard`)
+  and :func:`skip_first_batches`.
 
 The loader carries the JAX loader's numerical-health hooks: positions the
 ``HealthGuard`` quarantined (``quarantine``) are read but never yielded, and
 ``ACCELERATE_TPU_FAULT_BAD_BATCH`` NaN-laces one position every epoch.  The
-JAX loader's mesh placement (``_GlobalBatchPlacer``) and the dispatcher
-(``DataLoaderDispatcher``) belong to multi-GPU work and are not ported.
+JAX loader's mesh placement (``_GlobalBatchPlacer``) splits a host's batch
+over its devices and pads it to divide; with one device per process a
+process's rows go to its device whole (``send_to_device``), so no row is
+appended there and nothing of it is ported.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ logger = get_logger(__name__)
 
 __all__ = [
     "BatchSamplerShard",
+    "DataLoaderDispatcher",
     "DataLoaderShard",
     "DataLoaderStateMixin",
     "IterableDatasetShard",
@@ -204,7 +212,7 @@ class BatchSamplerShard:
             pos += 1
 
 
-class IterableDatasetShard:
+class IterableDatasetShard(torch.utils.data.IterableDataset):
     """One process's share of an iterable dataset: buffer one real batch
     (``batch_size`` per process, or the whole batch under
     ``split_batches``), emit this process's slice, and fill a short tail
@@ -524,6 +532,154 @@ class DataLoaderShard(DataLoaderStateMixin):
         self._finish_epoch()
 
 
+class DataLoaderDispatcher(DataLoaderStateMixin):
+    """The main process reads the loader and broadcasts each global batch
+    (``num_processes`` of its batches concatenated, or one batch under
+    ``split_batches``); every process keeps its rows, ``bs // n`` of them
+    in rank order after a batch that does not divide is grown by repeating
+    its last row (:func:`~.utils.operations.pad_input_tensors`), and places
+    them on its device.  For a dataset that cannot be sharded by index,
+    such as a stream."""
+
+    def __init__(self, base_loader: Iterable, split_batches: bool = False, skip_batches: int = 0,
+                 device=None, put_on_device: bool = True, non_blocking: bool = False,
+                 use_stateful_dataloader: bool = False, even_batches: bool = True,
+                 gradient_state: Optional[GradientState] = None, slice_fn=None):
+        from .state import PartialState
+        from .utils.operations import slice_tensors
+
+        self.base_loader = base_loader
+        self.split_batches = split_batches
+        self.skip_batches = skip_batches
+        self.use_stateful_dataloader = use_stateful_dataloader
+        self.even_batches = even_batches
+        self.state = PartialState()
+        self.gradient_state = gradient_state if gradient_state is not None else GradientState()
+        self.device = resolve_device(device if device is not None else self.state.device) \
+            if put_on_device else None
+        self.put_on_device = put_on_device
+        self.non_blocking = non_blocking
+        self.slice_fn = slice_fn or slice_tensors
+        self.iteration = 0
+        self._yielded = 0
+        self._num_parts = max(self.state.num_processes, 1)
+
+    @property
+    def dataset(self):
+        return getattr(self.base_loader, "dataset", self.base_loader)
+
+    def __len__(self):
+        n = len(self.base_loader)
+        if not self.split_batches:
+            n = math.ceil(n / self._num_parts)
+        return n - self.skip_batches
+
+    @property
+    def total_batch_size(self) -> int:
+        bs = getattr(self.base_loader, "batch_size", 1) or 1
+        return bs if self.split_batches else bs * self._num_parts
+
+    @property
+    def total_dataset_length(self) -> int:
+        return len(self.dataset)
+
+    def set_epoch(self, epoch: int):
+        self.iteration = epoch
+        if hasattr(self.base_loader, "set_epoch"):
+            self.base_loader.set_epoch(epoch)
+        elif hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def _fetch_global_batch(self, iterator):
+        """The main process assembles the global batch and broadcasts
+        ``[stop, batch]``."""
+        from .utils.operations import broadcast_object_list, concatenate
+
+        stop, batch = False, None
+        if self.state.is_main_process:
+            if self.split_batches:
+                try:
+                    batch = next(iterator)
+                except StopIteration:
+                    stop = True
+            else:
+                parts = []
+                for _ in range(self._num_parts):
+                    try:
+                        parts.append(next(iterator))
+                    except StopIteration:
+                        break
+                if not parts:
+                    stop = True
+                else:
+                    batch = concatenate(parts, dim=0) if len(parts) > 1 else parts[0]
+        if self.state.num_processes > 1:
+            info = broadcast_object_list([stop, batch])
+            stop, batch = info
+        return stop, batch
+
+    def _emit(self, global_batch):
+        """This process's rows of ``global_batch``, placed."""
+        from .utils.operations import find_batch_size, ignorant_find_batch_size, pad_input_tensors
+
+        with _span("dataloader.next_batch"):
+            n = self.state.num_processes
+            bs = ignorant_find_batch_size(global_batch)
+            if n > 1 and bs is not None:
+                if bs % n:
+                    global_batch = pad_input_tensors(global_batch, bs, n)
+                    bs = find_batch_size(global_batch)
+                per = bs // n
+                lo = per * self.state.process_index
+                global_batch = self.slice_fn(global_batch, slice(lo, lo + per),
+                                             process_index=self.state.process_index,
+                                             num_processes=n)
+            out = global_batch
+            if self.put_on_device:
+                out = send_to_device(global_batch, self.device, non_blocking=self.non_blocking)
+        tel = _get_telemetry()
+        if tel.enabled:
+            tel.registry.counter("dataloader.batches").inc()
+            tel.heartbeat()
+        return out
+
+    def __iter__(self):
+        from .utils.operations import ignorant_find_batch_size
+
+        self.begin()
+        self.set_epoch(self.iteration)
+        iterator = iter(self.base_loader) if self.state.is_main_process else iter(())
+        batch_index = 0
+        prev = None
+        while True:
+            stop, batch = self._fetch_global_batch(iterator)
+            if stop:
+                if prev is not None:
+                    self.end_of_dataloader = True
+                    bs = ignorant_find_batch_size(prev)
+                    if bs is not None:
+                        self.remainder = bs % self.total_batch_size or self.remainder
+                    if batch_index - 1 >= self.skip_batches:
+                        self._yielded = batch_index
+                        if self._is_quarantined(batch_index - 1):
+                            self._count_quarantine_skip(batch_index - 1)
+                        else:
+                            yield self._maybe_poison(self._emit(prev), batch_index - 1)
+                break
+            if prev is not None and batch_index - 1 >= self.skip_batches:
+                self._yielded = batch_index
+                if self._is_quarantined(batch_index - 1):
+                    self._count_quarantine_skip(batch_index - 1)
+                else:
+                    yield self._maybe_poison(self._emit(prev), batch_index - 1)
+            prev = batch
+            batch_index += 1
+        self.iteration += 1
+        self._yielded = 0
+        self._consume_skip_once()
+        self.end()
+
+
 class SkipBatchSampler:
     """A batch sampler without its first ``skip_batches`` batches."""
 
@@ -565,35 +721,87 @@ def prepare_data_loader(dataloader, device=None, split_batches: bool = False,
                         data_seed: Optional[int] = None, non_blocking: bool = False,
                         use_stateful_dataloader: bool = False, static_shape_tail: bool = False,
                         prefetch_to_device: int = 0,
-                        gradient_state: Optional[GradientState] = None) -> DataLoaderShard:
-    """Wrap ``dataloader`` for one GPU (the JAX ``prepare_data_loader`` at
-    one process):
+                        gradient_state: Optional[GradientState] = None,
+                        num_processes: Optional[int] = None,
+                        process_index: Optional[int] = None,
+                        dispatch_batches: Optional[bool] = None) -> DataLoaderShard:
+    """Wrap ``dataloader`` for this process (the JAX ``prepare_data_loader``;
+    ``num_processes`` / ``process_index`` default to the process state's,
+    and ``batch_size`` is per process unless ``split_batches``):
+
+    - ``dispatch_batches=True``: a :class:`DataLoaderDispatcher` over the
+      loader as it is;
 
     - a torch ``DataLoader`` over a map-style dataset is rebuilt over the
       same dataset: a ``RandomSampler`` becomes a
       :class:`SeedableRandomSampler` under ``use_seedable_sampler``, or gets
       a generator seeded with ``data_seed`` (42 when None) when it has none
       (the JAX ``Accelerator``'s default ``rng_types=["generator"]``);
-      ``static_shape_tail`` wraps
-      the batch sampler in :class:`BatchSamplerShard`;
-    - over an iterable dataset it is rebuilt with the same batch size, and
+      with several processes (or ``static_shape_tail``) the batch sampler
+      is wrapped in :class:`BatchSamplerShard`;
+    - over an iterable dataset it is rebuilt with the same batch size
+      (through :class:`IterableDatasetShard` with several processes), and
       one with ``batch_size=None`` keeps handing samples over unbatched;
-    - any other iterable of batches is wrapped as it is.
+    - any other iterable of batches is wrapped as it is (one process
+      only).
 
     The result is a :class:`DataLoaderShard` on ``device`` (default
     ``cuda``)."""
+    from .state import PartialState
+
+    if num_processes is None or process_index is None:
+        live = PartialState() if PartialState._shared_state else None
+        if num_processes is None:
+            num_processes = live.num_processes if live is not None else 1
+        if process_index is None:
+            process_index = live.process_index if live is not None else 0
     common = dict(device=device, put_on_device=put_on_device, non_blocking=non_blocking,
                   use_stateful_dataloader=use_stateful_dataloader,
                   prefetch_to_device=prefetch_to_device, gradient_state=gradient_state)
+    if dispatch_batches:
+        is_loader = isinstance(dataloader, torch.utils.data.DataLoader)
+        sampler = get_sampler(dataloader) if is_loader else None
+        if use_seedable_sampler and isinstance(sampler, torch.utils.data.RandomSampler):
+            seedable = SeedableRandomSampler(
+                sampler.data_source, initial_seed=data_seed if data_seed is not None else 42,
+                generator=getattr(sampler, "generator", None))
+            if getattr(dataloader, "batch_sampler", None) is not None:
+                dataloader.batch_sampler.sampler = seedable
+        if prefetch_to_device:
+            logger.warning("prefetch_to_device is not used by DataLoaderDispatcher: its "
+                           "broadcast stays on the main thread")
+        return DataLoaderDispatcher(
+            dataloader, split_batches=split_batches, device=device, put_on_device=put_on_device,
+            non_blocking=non_blocking, use_stateful_dataloader=use_stateful_dataloader,
+            even_batches=even_batches, gradient_state=gradient_state)
     if not isinstance(dataloader, torch.utils.data.DataLoader):
+        if num_processes > 1:
+            raise ValueError(
+                "Multi-host sharding of a non-torch dataloader requires dispatch_batches=True "
+                "or a torch DataLoader.")
         return DataLoaderShard(dataloader, **common)
     dataset = dataloader.dataset
     if isinstance(dataset, torch.utils.data.IterableDataset):
+        bs = dataloader.batch_size
+        if num_processes > 1:
+            if bs is None:
+                host_bs, shard_bs = None, 1
+            elif split_batches:
+                host_bs, shard_bs = bs // num_processes, bs
+            else:
+                host_bs = shard_bs = bs
+            dataset = IterableDatasetShard(
+                dataset, batch_size=shard_bs, drop_last=dataloader.drop_last,
+                num_processes=num_processes, process_index=process_index,
+                split_batches=split_batches)
+        else:
+            host_bs = bs
         base = torch.utils.data.DataLoader(
-            dataset, batch_size=dataloader.batch_size, collate_fn=dataloader.collate_fn,
+            dataset, batch_size=host_bs, collate_fn=dataloader.collate_fn,
             num_workers=dataloader.num_workers, drop_last=dataloader.drop_last,
             pin_memory=dataloader.pin_memory)
-        return DataLoaderShard(base, total_batch_size=dataloader.batch_size or 1, **common)
+        total = (bs or 1) * (1 if split_batches else num_processes)
+        return DataLoaderShard(base, total_batch_size=total, **common)
 
     sampler = get_sampler(dataloader)
     if use_seedable_sampler and isinstance(sampler, torch.utils.data.RandomSampler):
@@ -614,8 +822,11 @@ def prepare_data_loader(dataloader, device=None, split_batches: bool = False,
     if use_seedable_sampler and sampler is not None:
         batch_sampler = torch.utils.data.BatchSampler(
             sampler, batch_size=batch_sampler.batch_size, drop_last=batch_sampler.drop_last)
-    if static_shape_tail and getattr(batch_sampler, "batch_size", None) is not None:
-        batch_sampler = BatchSamplerShard(batch_sampler, split_batches=split_batches,
+    if num_processes > 1 or (static_shape_tail
+                             and getattr(batch_sampler, "batch_size", None) is not None):
+        batch_sampler = BatchSamplerShard(batch_sampler, num_processes=num_processes,
+                                          process_index=process_index,
+                                          split_batches=split_batches,
                                           even_batches=even_batches)
     return DataLoaderShard(torch.utils.data.DataLoader(
         dataset, batch_sampler=batch_sampler, **loader_kw), **common)
@@ -623,8 +834,15 @@ def prepare_data_loader(dataloader, device=None, split_batches: bool = False,
 
 def skip_first_batches(dataloader, num_batches: int = 0):
     """A loader that starts ``num_batches`` into the epoch: a prepared
-    :class:`DataLoaderShard` keeps its device and options; any other
-    loader is wrapped without placement."""
+    :class:`DataLoaderShard` or :class:`DataLoaderDispatcher` keeps its
+    device and options; any other loader is wrapped without placement."""
+    if isinstance(dataloader, DataLoaderDispatcher):
+        return DataLoaderDispatcher(
+            dataloader.base_loader, split_batches=dataloader.split_batches,
+            skip_batches=num_batches, device=dataloader.device,
+            put_on_device=dataloader.put_on_device, non_blocking=dataloader.non_blocking,
+            use_stateful_dataloader=dataloader.use_stateful_dataloader,
+            even_batches=dataloader.even_batches, gradient_state=dataloader.gradient_state)
     if isinstance(dataloader, DataLoaderShard):
         return DataLoaderShard(
             dataloader.base_loader, device=dataloader.device, skip_batches=num_batches,

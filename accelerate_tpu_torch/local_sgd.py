@@ -1,11 +1,13 @@
 """Local SGD: synchronise parameters every K steps instead of gradients every
-step.  The JAX package's ``accelerate_tpu/local_sgd.py`` at one process.
+step.  The JAX package's ``accelerate_tpu/local_sgd.py``.
 
 ``enabled`` needs ``accelerator.use_distributed``, as in the JAX package, so
 at one process :class:`LocalSGD` is a no-op: the context manager sets
-nothing and ``step`` only counts.  The parameter average across data-parallel
-replicas (a ``reduce(param, "mean")`` every ``local_sgd_steps``) waits for
-several GPUs (ROADMAP A6); until then no process can enable it.
+nothing and ``step`` only counts.  With several processes the optimizers
+keep their gradients local inside the context (each replica steps on its
+own), and every ``local_sgd_steps`` steps, and on exit, the parameters are
+averaged over the processes (``reduce(param, "mean")``, an all-reduce per
+parameter).
 """
 
 from __future__ import annotations
@@ -31,10 +33,13 @@ class LocalSGD:
         self.num_steps = 0
 
     def __enter__(self):
+        if self.enabled:
+            self.accelerator.gradient_state.local_sgd = True
         return self
 
     def __exit__(self, *exc):
         if self.enabled:
+            self.accelerator.gradient_state.local_sgd = False
             self._sync_params()
 
     def step(self):
@@ -45,8 +50,12 @@ class LocalSGD:
             self._sync_params()
 
     def _sync_params(self):
-        """The replica average; unreachable at one process, where
-        ``enabled`` is False."""
-        raise NotImplementedError(
-            "LocalSGD's parameter average needs several processes, not ported to "
-            "accelerate_tpu_torch yet (ROADMAP.md A6)")
+        """Every parameter replaced by its mean over the processes."""
+        import torch
+
+        from .parallel import collectives
+
+        n = collectives.world_size()
+        with torch.no_grad():
+            for p in self.model.parameters():
+                p.data.copy_(collectives.all_reduce(p.detach().clone()).div(n))

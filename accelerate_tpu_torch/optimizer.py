@@ -20,8 +20,20 @@ Under the NaN fault (``ACCELERATE_TPU_FAULT_NAN_STEP``,
 multiplied by a device scalar (NaN on an armed step, else 1) before the
 gate: one ``_foreach_mul``, no host sync.  Unarmed, nothing is added.
 
-The JAX body's dp-chunked norm (``norm_ndp``) belongs to multi-device
-meshes and is not ported.  torch's ``AdamW`` is optax's ``adamw`` when both
+With several processes a real step first averages the gradients over the
+data-parallel group, one all-reduce per gradient tensor (the JAX package
+gets them reduced from its sharded program; per tensor rather than one flat
+bucket, so no second copy of the gradients is held on the card at large
+widths, and the sharded step below scatters per tensor too).  ``no_sync``
+and ``accumulate`` hold back the step, and so the sync, by construction;
+inside :class:`~.local_sgd.LocalSGD` the gradients stay local.  On a mesh
+with an active dp axis both norms take the canonical dp-chunked association
+(:func:`~.parallel.zero.chunked_global_norm`, the JAX ``norm_ndp``), in the
+replicated and the sharded step alike.  Once ``make_train_step(zero=True)``
+shards the update (:meth:`AcceleratedOptimizer._enable_zero`), the torch
+optimizer holds one shard per parameter: each step reduce-scatters the
+gradients, updates the shards and all-gathers the parameters, and
+``state_dict`` gathers the state to full shapes.  torch's ``AdamW`` is optax's ``adamw`` when both
 use ``betas=(0.9, 0.999)``, ``eps=1e-8`` and the same ``weight_decay``
 (torch defaults to 1e-2, optax to 1e-4).
 
@@ -52,25 +64,32 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def _update_body(optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor],
                  grads: List[torch.Tensor], clip_norm: float, clip_value: float,
-                 health_ok: Optional[torch.Tensor] = None):
+                 health_ok: Optional[torch.Tensor] = None,
+                 norm_fn: Optional[Callable] = None):
     """Health gate, value clip, norm clip, then ``optimizer.step()`` on
     ``params`` with ``grads`` as their ``.grad``.  Returns ``(gnorm,
     health_norm, ok)``: the post-value-clip norm the clip used, the pre-clip
     norm (NaN when ``health_ok`` is False) and the verdict, all device
-    scalars.  Reading the verdict to skip the update is one host sync."""
-    gnorm = global_norm(grads)
+    scalars.  Reading the verdict to skip the update is one host sync.
+    ``norm_fn(grads)`` replaces :func:`global_norm` (the dp-chunked norm).
+    The clips write into the contiguous ``grads`` in place, on a skipped
+    step too (no second copy of the gradients on the card); an expanded
+    gradient, as autograd gives for a broadcast parameter, is copied."""
+    norm_fn = norm_fn or global_norm
+    gnorm = norm_fn(grads)
     ok = torch.isfinite(gnorm)
     health_norm = gnorm
     if health_ok is not None:
         ok = ok & health_ok
         health_norm = torch.where(health_ok, gnorm, torch.nan)
     if clip_value >= 0:
-        grads = [g.clamp(-clip_value, clip_value) for g in grads]
-        gnorm = global_norm(grads)
+        grads = [g.clamp_(-clip_value, clip_value) if g.is_contiguous() else
+                 g.clamp(-clip_value, clip_value) for g in grads]
+        gnorm = norm_fn(grads)
     if clip_norm >= 0:
         limit = torch.tensor(clip_norm, dtype=torch.float32, device=gnorm.device)
         scale = torch.clamp(limit / torch.clamp(gnorm, min=1e-12), max=1.0)
-        grads = [g * scale for g in grads]
+        grads = [g.mul_(scale) if g.is_contiguous() else g * scale for g in grads]
     if bool(ok):
         for p, g in zip(params, grads):
             p.grad = g
@@ -88,10 +107,18 @@ class AcceleratedOptimizer:
     real update only."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, model: torch.nn.Module,
-                 gradient_state: GradientState):
+                 gradient_state: GradientState, mesh=None,
+                 sync_dtype: Optional[torch.dtype] = None):
         self.optimizer = optimizer
         self.model = model
         self.gradient_state = gradient_state
+        self.mesh = mesh
+        self.sync_dtype = sync_dtype
+        self._zero = None
+        self._full_params: Optional[List[torch.Tensor]] = None
+        # Checkpoint-manifest record of the state's layout (make_train_step
+        # sets it, as the JAX fused step does).
+        self._opt_state_layout = {"kind": "replicated", "axes": [], "degree": 1}
         self._clip_norm_once: Optional[float] = None
         self._clip_value_once: Optional[float] = None
         self._step_count = 0
@@ -102,7 +129,63 @@ class AcceleratedOptimizer:
 
     @property
     def params(self) -> List[torch.Tensor]:
+        """The model parameters the optimizer updates (full ones, also when
+        its groups hold ZeRO shards)."""
+        if self._full_params is not None:
+            return list(self._full_params)
         return [p for group in self.optimizer.param_groups for p in group["params"]]
+
+    # -- data parallelism ------------------------------------------------------
+
+    @property
+    def dp_degree(self) -> int:
+        """Processes the gradients are averaged over (1: none)."""
+        from .parallel import zero
+
+        if self.mesh is None or not zero.supported(self.mesh)[0]:
+            return 1
+        return zero.zero_degree(self.mesh)
+
+    def _dp_group(self):
+        from .parallel import zero
+
+        return self.mesh.group(zero.zero_axes(self.mesh))
+
+    def _sync_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Every gradient averaged over the dp group, in place: one
+        all-reduce (sum) per tensor, in bf16 under a bf16 ``comm_hook``,
+        then divided by the group's size."""
+        from .parallel import collectives
+
+        out = []
+        group, n = self._dp_group(), self.dp_degree
+        for g in grads:
+            work = g.contiguous() if self.sync_dtype is None else g.to(self.sync_dtype)
+            out.append(collectives.all_reduce(work, group=group).div_(n).to(g.dtype))
+        return out
+
+    def _enable_zero(self, mesh=None) -> None:
+        """Shard the update over the dp group (:class:`~.parallel.zero.ZeroShards`):
+        the torch optimizer's groups take each parameter's shard in its
+        place, and its state (if any) is cut to this process's shards."""
+        from .parallel.zero import ZeroShards
+
+        if self._zero is not None:
+            return
+        if mesh is not None:
+            self.mesh = mesh
+        full = self.params
+        zs = ZeroShards(full, self.dp_degree, self._dp_group(), sync_dtype=self.sync_dtype)
+        state = self.optimizer.state
+        for p in full:
+            if p in state:
+                st = state.pop(p)
+                state[zs.shard_of(p)] = {k: zs.slice_like(p, v) if zs.is_full_state(p, v) else v
+                                         for k, v in st.items()}
+        for group in self.optimizer.param_groups:
+            group["params"] = [zs.shard_of(p) for p in group["params"]]
+        self._full_params = full
+        self._zero = zs
 
     @property
     def step_was_skipped(self) -> bool:
@@ -127,18 +210,48 @@ class AcceleratedOptimizer:
 
     def state_dict(self) -> dict:
         """The torch optimizer's own ``state_dict()`` (live tensors, not
-        copies) and the count of updates taken."""
-        return {"optimizer": self.optimizer.state_dict(), "step_count": self._step_count}
+        copies) and the count of updates taken.  Under ZeRO the state is
+        gathered to full shapes (new tensors; a collective, so every
+        process calls it), the layout of the replicated optimizer's."""
+        sd = self.optimizer.state_dict()
+        zs = self._zero
+        if zs is not None:
+            order = [p for group in self.optimizer.param_groups for p in group["params"]]
+            by_shard = {id(zs.shard_of(p)): p for p in zs.params}
+            full = {}
+            for idx, st in sd["state"].items():
+                p = by_shard[id(order[idx])]
+                full[idx] = {k: zs.gather_like(p, v) if zs.is_sharded_state(p, v) else v
+                             for k, v in st.items()}
+            sd = {**sd, "state": full}
+        return {"optimizer": sd, "step_count": self._step_count}
 
     def load_state_dict(self, state_dict: dict) -> None:
         """Restore :meth:`state_dict`'s output; torch moves each state
-        tensor to its parameter's device."""
-        self.optimizer.load_state_dict(state_dict["optimizer"])
+        tensor to its parameter's device.  Under ZeRO each process keeps
+        its shards of the full-shape state."""
+        sd = state_dict["optimizer"]
+        zs = self._zero
+        if zs is not None:
+            order = [p for group in self.optimizer.param_groups for p in group["params"]]
+            by_shard = {id(zs.shard_of(p)): p for p in zs.params}
+            cut = {}
+            for idx, st in sd["state"].items():
+                p = by_shard[id(order[int(idx)])]
+                cut[idx] = {k: zs.slice_like(p, v) if zs.is_full_state(p, v) else v
+                            for k, v in st.items()}
+            sd = {**sd, "state": cut}
+        self.optimizer.load_state_dict(sd)
         self._step_count = int(state_dict.get("step_count", 0))
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         if self.gradient_state.sync_gradients:
             self.optimizer.zero_grad(set_to_none=set_to_none)
+            for p in self._full_params or ():
+                if set_to_none:
+                    p.grad = None
+                elif p.grad is not None:
+                    p.grad.zero_()
 
     def _resolve_clips(self, clip_norm: Optional[float] = None,
                        clip_value: Optional[float] = None):
@@ -170,8 +283,25 @@ class AcceleratedOptimizer:
         if poison is not None:
             grads = torch._foreach_mul(grads, poison)
         norm, value = self._resolve_clips(clip_norm, clip_value)
-        gnorm, health_norm, _ = _update_body(self.optimizer, params, grads, norm, value,
-                                             health_ok=health_ok)
+        norm_fn = None
+        targets = params
+        degree = self.dp_degree
+        zs = self._zero
+        if zs is not None:
+            targets, grads = zs.scatter(params, grads)
+            norm_fn = lambda gs: zs.global_norm(gs, params)  # noqa: E731
+        elif degree > 1 and not self.gradient_state.local_sgd:
+            from .parallel.zero import chunked_global_norm
+
+            grads = self._sync_grads(grads)
+            norm_fn = lambda gs: chunked_global_norm(gs, degree)  # noqa: E731
+        gnorm, health_norm, ok = _update_body(self.optimizer, targets, grads, norm, value,
+                                              health_ok=health_ok, norm_fn=norm_fn)
+        if zs is not None:
+            for t in targets:
+                t.grad = None
+            if bool(ok):  # the verdict is global: every process gathers or none
+                zs.gather(params)
         self._last_grad_norm = gnorm
         self._last_health_norm = health_norm
         self._step_was_skipped = False

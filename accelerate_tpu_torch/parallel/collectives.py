@@ -1,0 +1,200 @@
+"""The collectives the port issues over a ``torch.distributed`` process group.
+
+One process per GPU: where the JAX package lets XLA place the collectives
+of a sharded program, the port calls them itself, through these helpers:
+
+- :func:`all_reduce` (in place), :func:`reduce_scatter` (dim 0 of a
+  contiguous buffer, summed), :func:`all_gather` (along dim 0),
+  :func:`broadcast` (in place) and the object forms
+  :func:`all_gather_object` / :func:`broadcast_object`.
+
+NCCL takes CUDA tensors as they are.  gloo is the CPU backend; it moves a
+CUDA tensor through host memory, and not every release of it takes every
+collective on CUDA, so a CUDA tensor on a gloo group is staged explicitly:
+copied to pinned host memory, reduced there by gloo's own collective
+(``reduce_scatter`` included), copied back.  That is gloo's transport, not
+a fallback, and it is logged once per process.
+
+Without a process group each is the identity (one process); a group of one
+process runs them for real.  Every call is counted in :data:`COMM_LOG` (calls, payload bytes, host
+seconds per operation; bytes and seconds staged through the host apart):
+the smokes read it to report what each collective moved.  The seconds are
+host wall time: a staged call waits for its copies, an NCCL call only
+enqueues.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["COMM_LOG", "all_gather", "all_gather_object", "all_reduce", "backend",
+           "broadcast", "broadcast_object", "initialized", "rank", "reset_comm_log",
+           "reduce_scatter", "world_size"]
+
+COMM_LOG: dict = {}
+_noted: set = set()
+
+_REDUCE_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN", "product": "PRODUCT"}
+
+
+def initialized() -> bool:
+    """Whether a default process group is up."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size(group=None) -> int:
+    return dist.get_world_size(group) if initialized() else 1
+
+
+def rank(group=None) -> int:
+    return dist.get_rank(group) if initialized() else 0
+
+
+def backend(group=None) -> Optional[str]:
+    """The group's backend name (``"nccl"``, ``"gloo"``), None without one."""
+    return str(dist.get_backend(group)) if initialized() else None
+
+
+def reset_comm_log() -> None:
+    COMM_LOG.clear()
+
+
+def _record(op: str, nbytes: int, seconds: float, staged: bool) -> None:
+    row = COMM_LOG.setdefault(op, {"calls": 0, "bytes": 0, "seconds": 0.0,
+                                   "staged_bytes": 0, "staged_seconds": 0.0})
+    row["calls"] += 1
+    row["bytes"] += int(nbytes)
+    row["seconds"] += seconds
+    if staged:
+        row["staged_bytes"] += int(nbytes)
+        row["staged_seconds"] += seconds
+
+
+def _note(key: str, message: str) -> None:
+    if key not in _noted:
+        _noted.add(key)
+        logger.info(message)
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    if t.device.type == "cpu" or backend(group) != "gloo":
+        return False
+    _note("gloo-staging", f"gloo group: {t.device.type} tensors are staged through host "
+                          "memory for every collective")
+    return True
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of ``t`` (the caching host allocator keeps the
+    pages for the next step: a pinned copy runs at several times a
+    pageable one's rate)."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
+
+
+def _red_op(op: str):
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"reduction must be one of {sorted(_REDUCE_OPS)}, got {op!r}")
+    return getattr(dist.ReduceOp, _REDUCE_OPS[op])
+
+
+def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """Reduce ``t`` over the group in place (``op``: sum, max, min,
+    product) and return it."""
+    if not initialized():
+        return t
+    t0 = time.perf_counter()
+    staged = _staged(t, group)
+    work = _host(t) if staged else t
+    dist.all_reduce(work, op=_red_op(op), group=group)
+    if staged:
+        t.copy_(work)
+    _record("all_reduce", t.numel() * t.element_size(), time.perf_counter() - t0, staged)
+    return t
+
+
+def reduce_scatter(inp: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the group of ``inp`` (contiguous, dim 0 divisible by the
+    group's size), of which this rank keeps rows ``[rank * n, (rank + 1) *
+    n)`` of dim 0, ``n = inp.shape[0] // size``."""
+    if not initialized():
+        return inp
+    size = world_size(group)
+    if inp.shape[0] % size:
+        raise ValueError(f"reduce_scatter: dim 0 ({inp.shape[0]}) is not divisible by the "
+                         f"group size ({size})")
+    t0 = time.perf_counter()
+    staged = _staged(inp, group)
+    src = _host(inp) if staged else inp.contiguous()
+    out = torch.empty((inp.shape[0] // size,) + tuple(inp.shape[1:]), dtype=src.dtype,
+                      device=src.device, pin_memory=staged)
+    # torch 2.13 renames ``reduce_scatter_tensor`` / ``all_gather_into_tensor``
+    # to ``reduce_scatter_single`` / ``all_gather_single`` and deprecates the
+    # old names; 2.11 has only the old ones.
+    fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    fn(out, src, group=group)
+    if staged:
+        out = out.to(inp.device)
+    _record("reduce_scatter", inp.numel() * inp.element_size(), time.perf_counter() - t0,
+            staged)
+    return out
+
+
+def all_gather(inp: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``inp`` (one shape on all ranks) concatenated along dim
+    0; a 0-d tensor gathers into a vector of one entry per rank."""
+    flat = inp.reshape(1) if inp.dim() == 0 else inp
+    if not initialized():
+        return flat.clone() if inp.dim() == 0 else inp
+    size = world_size(group)
+    t0 = time.perf_counter()
+    staged = _staged(flat, group)
+    src = _host(flat) if staged else flat.contiguous()
+    out = torch.empty((size * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device, pin_memory=staged)
+    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    fn(out, src, group=group)
+    if staged:
+        out = out.to(inp.device)
+    _record("all_gather", out.numel() * out.element_size(), time.perf_counter() - t0, staged)
+    return out
+
+
+def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """``t`` overwritten in place with rank ``src``'s and returned."""
+    if not initialized():
+        return t
+    t0 = time.perf_counter()
+    staged = _staged(t, group)
+    work = _host(t) if staged else t
+    dist.broadcast(work, src=src, group=group)
+    if staged:
+        t.copy_(work)
+    _record("broadcast", t.numel() * t.element_size(), time.perf_counter() - t0, staged)
+    return t
+
+
+def all_gather_object(obj: Any, group=None) -> list:
+    """Every rank's picklable ``obj``, in rank order."""
+    if not initialized():
+        return [obj]
+    out = [None] * world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def broadcast_object(obj: Any, src: int = 0, group=None) -> Any:
+    """Rank ``src``'s picklable ``obj`` on every rank."""
+    if not initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]

@@ -23,6 +23,20 @@ carries nothing.
 The prepared model and optimizer stay the source of truth: parameters and
 optimizer state are updated in place.
 
+With several processes each one runs the forward and backward on its own
+rows, accumulates its window's gradients locally, and the update averages
+them over the data-parallel group (one collective per gradient, after the
+window: the order the eager loop under ``no_sync`` takes).  The losses a
+call returns are the mean over the processes, the global batch's loss for
+even batches, and the health gate reads them.  ``zero=True`` (None: the
+``ACCELERATE_TPU_ZERO`` env) shards the update (:mod:`..parallel.zero`):
+per leaf a reduce-scatter along its shard dim, the gate and clips on the
+canonical norm, the optimizer on the local shard, then an all-gather of
+the parameters; ``zero_active`` says whether it runs.  On a mesh that
+cannot take it (one process, or model axes) it warns and runs the
+replicated step, as the JAX package does.  A step the gate skips leaves
+the shards and the optimizer's state as they were.
+
 With telemetry on, each call runs under the ``pipeline.train_step`` span,
 counts one dispatch and records one completed step; after the first update
 the parameters and the optimizer's state are ``train.params`` /
@@ -32,6 +46,7 @@ torch creates the optimizer's state at its first step).
 
 from __future__ import annotations
 
+import warnings
 from typing import Mapping, Optional
 
 import torch
@@ -84,11 +99,12 @@ def accumulate_grads(acc, grads, scale: float, hold_dtype=None):
 class TrainStep:
     """Callable returned by :meth:`Accelerator.make_train_step`.  Records
     ``last_grad_norm`` (post-value-clip norm), ``last_health_norm`` (pre-clip
-    norm, NaN when the step was gated), ``step_count`` and
-    ``dispatch_count`` (calls)."""
+    norm, NaN when the step was gated), ``step_count``, ``dispatch_count``
+    (calls), ``zero_config`` and ``zero_active``."""
 
     def __init__(self, accelerator, model, optimizer, accum_steps: Optional[int] = None,
-                 clip_norm: Optional[float] = None, clip_value: Optional[float] = None):
+                 clip_norm: Optional[float] = None, clip_value: Optional[float] = None,
+                 zero=None):
         from ..optimizer import AcceleratedOptimizer
 
         if not any(model is m for m in accelerator._models):
@@ -116,6 +132,26 @@ class TrainStep:
         from ..resilience import faultinject
 
         self._poison_armed = faultinject.nan_armed()
+        from ..parallel import zero as zero_mod
+
+        self.zero_config = zero_mod.ZeROConfig.resolve(zero)
+        self.zero_active = False
+        mesh = accelerator.mesh
+        if self.zero_config.enabled:
+            ok, reason = zero_mod.supported(mesh)
+            if not ok:
+                warnings.warn(
+                    f"ZeRO sharded update requested but unsupported here: {reason}. "
+                    "Falling back to the replicated fused update.")
+            else:
+                self.zero_active = True
+                if self.zero_config.overlap_effective:
+                    zero_mod.enable_overlap_flags()
+        if self.zero_active:
+            optimizer._enable_zero(mesh)
+        # An optimizer a ZeRO step sharded keeps its shards.
+        self.zero_active = optimizer._zero is not None
+        optimizer._opt_state_layout = zero_mod.opt_state_layout(mesh, self.zero_active)
 
     def _register_ledger(self) -> None:
         """The train state's long-lived reservations, computed from the live
@@ -125,9 +161,9 @@ class TrainStep:
 
         ledger = get_memory_ledger()
         ledger.register("train.params", tree=[p for p in self.model.parameters()],
-                        detail={"zero_active": False})
+                        detail={"zero_active": self.zero_active})
         ledger.register("train.opt_state", tree=self.optimizer.optimizer,
-                        detail={"zero_active": False})
+                        detail={"zero_active": self.zero_active})
         self._ledger_registered = True
 
     def __call__(self, *batches):
@@ -160,6 +196,11 @@ class TrainStep:
             grads = accumulate_grads(grads, micro, scale)
             losses.append(loss.detach())
         losses = torch.stack(losses)
+        if opt.dp_degree > 1 and not opt.gradient_state.local_sgd:
+            from ..parallel import collectives
+
+            # The mean over the processes: the global batch's loss.
+            losses = collectives.all_reduce(losses, group=opt._dp_group()).div(opt.dp_degree)
         live = [(p, g) for p, g in zip(params, grads) if g is not None]
         gnorm, health_norm = opt._apply_update(
             [p for p, _ in live], [g for _, g in live], health_ok=torch.isfinite(losses).all(),
@@ -178,8 +219,10 @@ class TrainStep:
 
 def make_train_step(accelerator, model, optimizer, accum_steps: Optional[int] = None,
                     clip_norm: Optional[float] = None,
-                    clip_value: Optional[float] = None) -> TrainStep:
+                    clip_value: Optional[float] = None, zero=None) -> TrainStep:
     """Build a :class:`TrainStep` (the function behind
-    :meth:`Accelerator.make_train_step`)."""
+    :meth:`Accelerator.make_train_step`); ``zero``: True / False / a
+    :class:`~accelerate_tpu_torch.parallel.zero.ZeROConfig`, None for the
+    env."""
     return TrainStep(accelerator, model, optimizer, accum_steps=accum_steps,
-                     clip_norm=clip_norm, clip_value=clip_value)
+                     clip_norm=clip_norm, clip_value=clip_value, zero=zero)

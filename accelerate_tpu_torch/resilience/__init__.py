@@ -24,8 +24,9 @@ without its multi-GPU parts.
   ``serving/chaos.py``) use to prove kill-and-resume and skip/rewind give
   bit-exact loss continuation.
 
-The JAX package's elastic topology resume, fleet primitives and training
-chaos campaign need several GPUs (ROADMAP A6) and are not ported yet.
+The JAX package's elastic topology resume and training chaos campaign
+(ROADMAP A6 part 3) and its fleet primitives (A6 part 4) are not ported
+yet; the coordinated ``PreemptionGuard`` is.
 """
 
 from .health import HealthGuard, HealthVerdict, NumericalDivergenceError

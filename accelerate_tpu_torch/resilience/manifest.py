@@ -24,7 +24,9 @@ that aren't fully on disk.  Discovery (:func:`find_latest_complete`) therefore
 only needs to look for ``manifest.json`` to skip torn partials.
 
 Hashing cost is opt-out for huge checkpoints: ``ACCELERATE_TPU_MANIFEST_HASH=0``
-records sizes only (verification then checks sizes only).
+records sizes only (verification then checks sizes only).  The files of one
+checkpoint are hashed (and synced) side by side, one thread each: a save or
+a verification then takes about as long as hashing its largest file.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import hashlib
 import json
 import logging
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import torch
@@ -86,15 +89,32 @@ def fsync_enabled() -> bool:
     return os.environ.get(ENV_CHECKPOINT_FSYNC, "1").strip().lower() not in _OFF
 
 
-def _sha256(path: str) -> str:
-    h = hashlib.sha256()
+def _hash_and_sync(path: str, hash_file: bool, fsync: bool) -> Optional[str]:
+    """The SHA-256 of ``path`` (None unless ``hash_file``), after an fsync
+    of it when ``fsync``."""
+    digest = None
     with open(path, "rb") as f:
-        while True:
-            chunk = f.read(_HASH_CHUNK)
-            if not chunk:
-                break
-            h.update(chunk)
-    return h.hexdigest()
+        if hash_file:
+            h = hashlib.sha256()
+            while True:
+                chunk = f.read(_HASH_CHUNK)
+                if not chunk:
+                    break
+                h.update(chunk)
+            digest = h.hexdigest()
+        if fsync:
+            try:
+                os.fsync(f.fileno())
+            except OSError:
+                pass
+    return digest
+
+
+def _each_file(fn, paths: list) -> list:
+    """``fn`` over ``paths`` on one thread a file (hashlib and the reads
+    and fsyncs release the GIL), results in order."""
+    with ThreadPoolExecutor(max(1, min(len(paths), 8))) as pool:
+        return list(pool.map(fn, paths))
 
 
 def fsync_dir(path: str) -> None:
@@ -148,26 +168,17 @@ def write_manifest(
     if fsync is None:
         fsync = fsync_enabled()
     files: dict[str, dict] = {}
-    for rel in _walk_files(directory):
+    rels = _walk_files(directory)
+    for rel in rels:
         fp = os.path.join(directory, rel)
         maybe_fail_write(fp)
-        entry: dict = {"size": os.path.getsize(fp)}
-        if hash_files or fsync:
-            with open(fp, "rb") as f:
-                if hash_files:
-                    h = hashlib.sha256()
-                    while True:
-                        chunk = f.read(_HASH_CHUNK)
-                        if not chunk:
-                            break
-                        h.update(chunk)
-                    entry["sha256"] = h.hexdigest()
-                if fsync:
-                    try:
-                        os.fsync(f.fileno())
-                    except OSError:
-                        pass
-        files[rel] = entry
+        files[rel] = {"size": os.path.getsize(fp)}
+    if hash_files or fsync:
+        digests = _each_file(lambda rel: _hash_and_sync(os.path.join(directory, rel),
+                                                        hash_files, fsync), rels)
+        if hash_files:
+            for rel, digest in zip(rels, digests):
+                files[rel]["sha256"] = digest
 
     world_size = 1
     if torch.distributed.is_available() and torch.distributed.is_initialized():
@@ -229,7 +240,7 @@ def verify_checkpoint(directory: str, check_hashes: Optional[bool] = None) -> di
         )
     if check_hashes is None:
         check_hashes = hashing_enabled()
-    problems = []
+    problems, hashed = [], []
     for rel, entry in manifest.get("files", {}).items():
         fp = os.path.join(directory, rel)
         if not os.path.exists(fp):
@@ -239,9 +250,12 @@ def verify_checkpoint(directory: str, check_hashes: Optional[bool] = None) -> di
         if size != entry.get("size"):
             problems.append(f"{rel}: size {size} != manifest {entry.get('size')}")
             continue
-        want = entry.get("sha256")
-        if check_hashes and want is not None and _sha256(fp) != want:
-            problems.append(f"{rel}: sha256 mismatch")
+        if check_hashes and entry.get("sha256") is not None:
+            hashed.append(rel)
+    digests = _each_file(lambda rel: _hash_and_sync(os.path.join(directory, rel), True, False),
+                         hashed)
+    problems += [f"{rel}: sha256 mismatch" for rel, digest in zip(hashed, digests)
+                 if digest != manifest["files"][rel]["sha256"]]
     if problems:
         raise CheckpointVerificationError(
             f"checkpoint {directory!r} failed verification: " + "; ".join(problems)

@@ -1,15 +1,20 @@
-"""Preemption-safe stepping for one process: SIGTERM/SIGINT as a flag.
+"""Preemption-safe stepping: SIGTERM/SIGINT as a flag, agreed across
+processes.
 
-The port of the JAX package's ``resilience/preemption.py`` for a single
-process.  :class:`PreemptionGuard` turns an asynchronous kill signal into a
+The port of the JAX package's ``resilience/preemption.py``.  :class:`PreemptionGuard` turns an asynchronous kill signal into a
 decision taken at a step boundary: the handler only sets a flag; the
 training loop asks ``accelerator.check_preemption()`` once per step (which
 writes one final verified checkpoint), and a serving engine with the guard
 installed drains at its next tick.
 
-Nothing is installed unless :meth:`PreemptionGuard.install` runs.  Agreement
-across processes (``coordinated=True``) is not ported yet: it needs the
-multi-GPU runtime.
+Nothing is installed unless :meth:`PreemptionGuard.install` runs.  With
+several processes the guard is coordinated by default: ``should_stop`` is
+the max of every process's flag (an all-reduce over the process group on
+every ``coordinate_every``-th call, counted per call so every process
+enters it on the same step), so a signal to one process stops all of them
+at the same step and the final checkpoint is written by all together.  The
+JAX fleet's agreement over its coordinator's key-value store, with its
+deadline and heartbeat, comes with ``fleet.py`` (ROADMAP A6 part 4).
 """
 
 from __future__ import annotations
@@ -42,13 +47,16 @@ class PreemptionGuard:
     """
 
     def __init__(self, signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT),
-                 coordinated: Optional[bool] = None):
-        if coordinated:
-            raise NotImplementedError(
-                "a coordinated PreemptionGuard (agreement across processes) is not ported to "
-                "accelerate_tpu_torch yet (see ROADMAP.md)"
-            )
+                 coordinated: Optional[bool] = None, coordinate_every: Optional[int] = None):
         self.signals = tuple(signals)
+        # On by default only with several processes; resolved at the first
+        # should_stop, so constructing a guard touches no process group.
+        self._coordinated = coordinated
+        if coordinate_every is None:
+            coordinate_every = int(os.environ.get("ACCELERATE_TPU_PREEMPT_EVERY", "10"))
+        self.coordinate_every = max(1, int(coordinate_every))
+        self._should_stop_calls = 0
+        self._agreed = False
         self._installed = False
         self._prev_handlers: dict = {}
         self._in_signal: dict = {}
@@ -158,11 +166,45 @@ class PreemptionGuard:
         """This process received a signal."""
         return self._flag
 
-    def should_stop(self) -> bool:
-        """Whether to stop at this step boundary: on one process, the local
-        flag."""
-        self._note_signal_in_telemetry()
+    def preempted_locally(self) -> bool:
+        """THIS process received a signal (uncoordinated view)."""
         return self._flag
+
+    def _coordination_on(self) -> bool:
+        if self._coordinated is not None:
+            return self._coordinated
+        from ..parallel import collectives
+
+        return collectives.world_size() > 1
+
+    def should_stop(self) -> bool:
+        """Whether to stop at this step boundary: the local flag, or, when
+        coordinated, the max of every process's flag over the group on every
+        ``coordinate_every``-th call (the same answer on every process at
+        the same step).  A failing all-reduce falls back to the local flag,
+        logged."""
+        self._note_signal_in_telemetry()
+        if not self._coordination_on():
+            return self._flag
+        if self._agreed:
+            return True
+        self._should_stop_calls += 1
+        if (self._should_stop_calls - 1) % self.coordinate_every != 0:
+            return False
+        import torch
+
+        from ..parallel import collectives
+        from ..state import PartialState
+
+        dev = PartialState().device if PartialState._shared_state else torch.device("cpu")
+        flag = torch.tensor([int(self._flag)], dtype=torch.int32, device=dev)
+        try:
+            collectives.all_reduce(flag, op="max")
+        except Exception:
+            logger.exception("preemption flag all-reduce failed; using local flag")
+            return self._flag
+        self._agreed = bool(int(flag[0]))
+        return self._agreed
 
     def reset(self) -> None:
         """Clear the flag (tests, loops that survive several preemptions)."""
@@ -170,3 +212,5 @@ class PreemptionGuard:
         self._signum = None
         self.final_checkpoint_saved = False
         self._signal_noted = False
+        self._agreed = False
+        self._should_stop_calls = 0

@@ -5,36 +5,54 @@ Every entry point runs on the card unless its caller asks for the CPU: a
 than quietly running on the host.
 
 :class:`PartialState` and :class:`AcceleratorState` are the JAX package's
-shared-state objects (``accelerate_tpu/state.py``) at one process: every
-instance of a class shares one dictionary, filled by the first construction
-and cleared by ``_reset_state()``.  ``num_processes`` is 1 and
-``process_index`` 0, so the barriers are no-ops and every ``on_*_process``
-function runs; a launch of several processes (``WORLD_SIZE`` > 1) raises
-until ROADMAP A6 brings them.  ``AcceleratorState`` adds the
-``mixed_precision`` mode and its :class:`MixedPrecisionPolicy`; a second
-construction that names another mode raises, as in the JAX package, and so
-does one that names another device.
-:class:`GradientState` stays one per ``Accelerator``."""
+shared-state objects (``accelerate_tpu/state.py``): every instance of a
+class shares one dictionary, filled by the first construction and cleared
+by ``_reset_state()``.
+
+Several processes run one per GPU.  :class:`PartialState` reads torchrun's
+``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR`` /
+``MASTER_PORT`` or the JAX package's ``ACCELERATE_COORDINATOR_ADDRESS`` /
+``ACCELERATE_NUM_PROCESSES`` / ``ACCELERATE_PROCESS_ID`` (a
+:class:`~.utils.dataclasses.DistributedInitKwargs` wins over both) and
+starts the process group under the connect retry policy: NCCL on
+``cuda:LOCAL_RANK``, or gloo when the caller asks for the CPU.  A group the
+caller already started is adopted as it is, whatever its backend (two gloo
+ranks may share one GPU that way).  The barriers, ``main_process_first``,
+``split_between_processes`` and the ``on_*_process`` decorators act over
+the group.  ``AcceleratorState`` adds the ``mixed_precision`` mode and its
+:class:`MixedPrecisionPolicy`, and the mesh: a
+:class:`~.utils.dataclasses.ParallelismConfig` resolved as in the JAX
+package (pure data parallelism by default) and its
+:class:`~.parallel.mesh.Mesh`.  A second construction that names another
+mode raises, as in the JAX package, and so does one that names another
+device.  :class:`GradientState` stays one per ``Accelerator``."""
 
 from __future__ import annotations
 
 import contextlib
+import inspect
+import logging
 import os
 import weakref
+from datetime import timedelta
 from functools import partial, wraps
 from typing import Callable, Optional, Union
 
 import torch
 
 from .utils.dataclasses import (
+    DistributedInitKwargs,
     DistributedType,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
+    ParallelismConfig,
     PrecisionType,
 )
 
+logger = logging.getLogger(__name__)
+
 __all__ = ["AcceleratorState", "GradientState", "PartialState", "is_initialized",
-           "resolve_device"]
+           "resolve_device", "resolve_parallelism"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -66,18 +84,67 @@ def _stale_handle(cls_name: str, name: str):
     )
 
 
+def _connect_retry_policy():
+    """Backoff for the process group's rendezvous, as the JAX package's
+    ``connect_retry_policy``: a coordinator that comes up a beat late is
+    redialled, not fatal.  ``ACCELERATE_TPU_COORDINATOR_CONNECT_TRIES``
+    (default 3) and ``ACCELERATE_TPU_COORDINATOR_CONNECT_DEADLINE_S``
+    (default 600); argument errors fail at once."""
+    from .resilience.retry import RetryPolicy
+
+    return RetryPolicy(
+        tries=max(1, int(os.environ.get("ACCELERATE_TPU_COORDINATOR_CONNECT_TRIES", "3"))),
+        base_delay_s=0.25,
+        max_delay_s=2.0,
+        deadline_s=float(os.environ.get("ACCELERATE_TPU_COORDINATOR_CONNECT_DEADLINE_S", "600")),
+        retryable=lambda exc: not isinstance(exc, (TypeError, ValueError)),
+        label="coordinator_connect",
+    )
+
+
+def _env_int(*keys: str, default: Optional[int] = None) -> Optional[int]:
+    for key in keys:
+        if os.environ.get(key, "") != "":
+            return int(os.environ[key])
+    return default
+
+
+def _launch_contract(init_kwargs: DistributedInitKwargs) -> dict:
+    """World size, rank, local rank and coordinator address from
+    ``init_kwargs``, else the JAX package's env contract, else
+    torchrun's."""
+    world = init_kwargs.num_processes or _env_int(
+        "ACCELERATE_NUM_PROCESSES", "WORLD_SIZE", default=1)
+    rank = init_kwargs.process_id
+    if rank is None:
+        rank = _env_int("ACCELERATE_PROCESS_ID", "RANK", default=0)
+    local = _env_int("LOCAL_RANK", "ACCELERATE_LOCAL_PROCESS_INDEX", default=rank)
+    coordinator = init_kwargs.coordinator_address or os.environ.get(
+        "ACCELERATE_COORDINATOR_ADDRESS")
+    if coordinator is None and os.environ.get("MASTER_ADDR"):
+        coordinator = f"{os.environ['MASTER_ADDR']}:{os.environ.get('MASTER_PORT', '29500')}"
+    return {"world": int(world), "rank": int(rank), "local": int(local),
+            "coordinator": coordinator}
+
+
 class PartialState:
-    """The process: ``device`` (from :func:`resolve_device`: ``cpu=True`` or
-    ``device=`` picks it, else ``cuda``, raising without CUDA),
-    ``num_processes`` 1, ``process_index`` and ``local_process_index`` 0,
-    ``distributed_type`` ``NO``; ``debug`` from ``ACCELERATE_DEBUG_MODE``.
+    """The process: ``device``, ``num_processes``, ``process_index``,
+    ``local_process_index``, ``num_nodes`` (processes over processes per
+    node), ``backend`` (``"nccl"``, ``"gloo"`` or None for one process) and
+    ``distributed_type`` (``MULTI_GPU`` with several processes, else
+    ``NO``); ``debug`` from ``ACCELERATE_DEBUG_MODE``.
+
+    The device: ``cpu=True`` or ``device=`` picks it; else ``cuda`` for one
+    process and ``cuda:LOCAL_RANK`` for several (raising without CUDA).  A
+    launch of several processes with no group up starts one (NCCL, or
+    gloo under ``cpu=True`` or a CPU ``device``); a live group is adopted.
     Later constructions return the first one's state; one that names
-    another device (``cpu=True`` or ``device=``) raises, as a second
-    ``mixed_precision`` does in :class:`AcceleratorState`."""
+    another device raises, as a second ``mixed_precision`` does in
+    :class:`AcceleratorState`."""
 
     _shared_state: dict = {}
-    _known_attrs = ["debug", "device", "distributed_type", "local_process_index",
-                    "num_processes", "process_index"]
+    _known_attrs = ["backend", "debug", "device", "distributed_type", "local_process_index",
+                    "num_nodes", "num_processes", "process_index"]
 
     def __getattr__(self, name: str):
         if name in type(self)._known_attrs:
@@ -97,19 +164,65 @@ class PartialState:
                         f"{dev}. Call AcceleratorState._reset_state(reset_partial_state=True) "
                         "first (tests), or build every Accelerator of the process on one device.")
             return
-        world = int(os.environ.get("WORLD_SIZE", "1"))
-        if world > 1:
-            raise NotImplementedError(
-                f"WORLD_SIZE={world}: several processes are not ported to accelerate_tpu_torch "
-                "yet (ROADMAP.md A6)")
+        from .parallel import collectives
+
+        init_kwargs = kwargs.pop("init_kwargs", None) or DistributedInitKwargs()
+        contract = _launch_contract(init_kwargs)
+        wants_cpu = cpu or (device is not None and torch.device(device).type == "cpu")
+        if collectives.initialized():
+            world, rank = collectives.world_size(), collectives.rank()
+        else:
+            world, rank = contract["world"], contract["rank"]
+        if device is None and not cpu and world > 1:
+            device = f"cuda:{contract['local']}"
         dev = resolve_device("cpu" if cpu else device)
+        if dev.type == "cuda" and dev.index is not None:
+            torch.cuda.set_device(dev)
+        if world > 1 and not collectives.initialized():
+            self._connect(contract, "gloo" if wants_cpu else "nccl", dev, init_kwargs.timeout)
         self.debug = os.environ.get("ACCELERATE_DEBUG_MODE", "0").lower() in (
             "1", "y", "yes", "t", "true", "on")
         self.device = dev
-        self.num_processes = 1
-        self.process_index = 0
-        self.local_process_index = 0
-        self.distributed_type = DistributedType.NO
+        self.num_processes = world
+        self.process_index = rank
+        self.local_process_index = contract["local"] if world > 1 else 0
+        local_world = min(_env_int("LOCAL_WORLD_SIZE", default=world), world)
+        self.num_nodes = max(1, world // max(1, local_world))
+        self.backend = collectives.backend()
+        self.distributed_type = DistributedType.MULTI_GPU if world > 1 else DistributedType.NO
+
+    @staticmethod
+    def _connect(contract: dict, backend: str, dev: torch.device, timeout: timedelta) -> None:
+        """Start the default process group (``tcp://`` at the coordinator)
+        under :func:`_connect_retry_policy`; a failed attempt is torn down
+        so the retry starts clean."""
+        import torch.distributed as dist
+
+        if contract["coordinator"] is None:
+            raise ValueError(
+                f"{contract['world']} processes but no coordinator: set MASTER_ADDR/MASTER_PORT "
+                "(torchrun does), ACCELERATE_COORDINATOR_ADDRESS, or "
+                "DistributedInitKwargs(coordinator_address=...)")
+        extra = {}
+        if (backend == "nccl" and dev.index is not None
+                and "device_id" in inspect.signature(dist.init_process_group).parameters):
+            extra["device_id"] = dev  # binds the communicator to the rank's GPU
+
+        def connect():
+            if dist.is_initialized():
+                return
+            try:
+                dist.init_process_group(backend, init_method=f"tcp://{contract['coordinator']}",
+                                        world_size=contract["world"], rank=contract["rank"],
+                                        timeout=timeout, **extra)
+            except Exception:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                raise
+
+        _connect_retry_policy().call(connect)
+        logger.info(f"process group up: {backend}, rank {contract['rank']} of "
+                    f"{contract['world']} on {dev}")
 
     @property
     def initialized(self) -> bool:
@@ -132,7 +245,14 @@ class PartialState:
         return self.process_index == self.num_processes - 1
 
     def wait_for_everyone(self) -> None:
-        """A barrier across processes: nothing to wait for at one."""
+        """A barrier across the processes (nothing to wait for at one)."""
+        if self.num_processes > 1:
+            import torch.distributed as dist
+
+            if self.backend == "nccl":
+                dist.barrier(device_ids=[self.device.index or 0])
+            else:
+                dist.barrier()
 
     def _goes_first(self, is_main: bool):
         if not is_main:
@@ -210,7 +330,44 @@ class PartialState:
         evenly between the processes, earlier ranks taking the remainder and
         ``apply_padding`` repeating the last element so every rank's share is
         as long: at one process the whole of ``inputs``."""
-        yield inputs
+        if self.num_processes == 1:
+            yield inputs
+            return
+        if isinstance(inputs, dict):
+            lengths = {k: len(v) for k, v in inputs.items()}
+            if len(set(lengths.values())) > 1:
+                raise ValueError("All dict values must have the same length to split between "
+                                 f"processes, got {lengths}")
+            length = next(iter(lengths.values())) if lengths else 0
+        else:
+            length = len(inputs)
+        sizes = [length // self.num_processes] * self.num_processes
+        for i in range(length % self.num_processes):
+            sizes[i] += 1
+        start = sum(sizes[: self.process_index])
+        end = start + sizes[self.process_index]
+        pad = max(sizes) - (end - start) if apply_padding else 0
+
+        def cut(v):
+            chunk = v[start:end]
+            if pad:
+                if isinstance(chunk, torch.Tensor):
+                    chunk = torch.cat([chunk] + [v[-1:]] * pad, dim=0)
+                elif isinstance(chunk, tuple):
+                    chunk = chunk + (v[-1],) * pad
+                else:
+                    chunk = list(chunk) + [v[-1]] * pad
+            return chunk
+
+        yield {k: cut(v) for k, v in inputs.items()} if isinstance(inputs, dict) else cut(inputs)
+
+    def destroy_process_group(self) -> None:
+        """Shut the process group down (with several processes)."""
+        if self.num_processes > 1:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
     def print(self, *args, **kwargs):
         if self.is_local_main_process:
@@ -222,23 +379,63 @@ class PartialState:
 
     def __repr__(self) -> str:
         return (f"Distributed environment: {self.distributed_type}\n"
+                f"Backend: {self.backend}\n"
                 f"Num processes: {self.num_processes}\n"
                 f"Process index: {self.process_index}\n"
                 f"Local process index: {self.local_process_index}\n"
                 f"Device: {self.device}\n")
 
 
+_MODEL_AXIS_PARTS = {"fsdp": "ROADMAP A6 part 1, FSDP/TP", "tp": "ROADMAP A6 part 1, FSDP/TP",
+                     "ep": "ROADMAP A6 part 1, FSDP/TP (Mixtral's ep)",
+                     "sp": "ROADMAP A6 part 2, sequence parallelism",
+                     "pp": "ROADMAP A7, pipeline parallelism"}
+
+
+def resolve_parallelism(cfg: Optional[ParallelismConfig], num_processes: int,
+                        num_nodes: int = 1) -> ParallelismConfig:
+    """The JAX ``AcceleratorState._resolve_parallelism`` with one process
+    per device: ``cfg`` (else ``ParallelismConfig.from_env()``); a size-1
+    config over several processes becomes pure data parallelism, the nodes
+    on the outer ``dcn_dp`` axis and the processes of a node on ``dp``
+    (the JAX default ``dcn_dp = processes, dp = local devices``).  The
+    mesh must hold every process, and an active model axis raises
+    ``NotImplementedError`` naming the part of ROADMAP that brings it."""
+    if cfg is None:
+        cfg = ParallelismConfig.from_env()
+    n = num_processes
+    if cfg.total_size == 1 and n > 1:
+        if num_nodes > 1 and n % num_nodes == 0:
+            cfg = ParallelismConfig(dcn_dp=num_nodes, dp=n // num_nodes)
+        else:
+            cfg = ParallelismConfig(dp=n)
+    if cfg.total_size != n:
+        raise ValueError(
+            f"Mesh of size {cfg.total_size} ({cfg.active_axes or '{}'}) does not match "
+            f"device count {n}."
+        )
+    for axis, part in _MODEL_AXIS_PARTS.items():
+        if getattr(cfg, axis) > 1:
+            raise NotImplementedError(
+                f"ParallelismConfig({axis}={getattr(cfg, axis)}): the {axis} axis is not "
+                f"ported to accelerate_tpu_torch yet ({part}); data parallelism (dp, dcn_dp) "
+                "is")
+    return cfg
+
+
 class AcceleratorState:
     """The process (:class:`PartialState`, whose attributes it passes
     through) plus the ``mixed_precision`` mode (argument, else
-    ``ACCELERATE_MIXED_PRECISION``, else ``"no"``), its ``dtype_policy``
-    and ``distributed_type``."""
+    ``ACCELERATE_MIXED_PRECISION``, else ``"no"``), its ``dtype_policy``,
+    ``distributed_type``, ``parallelism_config`` (:func:`resolve_parallelism`)
+    and ``mesh`` (:func:`~.parallel.mesh.build_mesh`)."""
 
     _shared_state: dict = {}
-    _known_attrs = PartialState._known_attrs + ["mixed_precision", "dtype_policy"]
+    _known_attrs = PartialState._known_attrs + ["mixed_precision", "dtype_policy", "mesh",
+                                                "parallelism_config"]
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False, device=None,
-                 **kwargs):
+                 parallelism_config: Optional[ParallelismConfig] = None, **kwargs):
         self.__dict__ = self._shared_state
         if self.initialized:
             if mixed_precision is not None and mixed_precision.lower() != self._mixed_precision:
@@ -257,6 +454,8 @@ class AcceleratorState:
                              f"{PrecisionType.list()}")
         policy = MixedPrecisionPolicy.from_mixed_precision(mode)
         partial_state = PartialState(cpu, device=device, **kwargs)
+        cfg = resolve_parallelism(parallelism_config, partial_state.num_processes,
+                                  partial_state.num_nodes)
         self._partial = partial_state
         # Env-opt-in observability (ACCELERATE_TPU_TELEMETRY=1) goes live
         # once the process state exists, as in the JAX package.
@@ -265,6 +464,10 @@ class AcceleratorState:
         maybe_enable_from_env()
         self._mixed_precision = mode
         self.dtype_policy = policy
+        self.parallelism_config = cfg
+        from .parallel.mesh import build_mesh
+
+        self.mesh = build_mesh(cfg)
         self.distributed_type = partial_state.distributed_type
 
     def __getattr__(self, name: str):
@@ -318,6 +521,8 @@ class GradientState:
         self.step = 0
         self.sync_gradients = True
         self._dataloaders: list = []
+        # Inside LocalSGD the optimizers keep their gradients local.
+        self.local_sgd = False
 
     @property
     def active_dataloader(self):

@@ -30,8 +30,8 @@ directory the port writes reads with either package's ``report``.
   per-step windows.
 
 The JAX package's compiled-program introspection (``introspect``,
-``hlo_scan``) waits for several GPUs (ROADMAP A6): its subject is comms
-over a mesh.
+``hlo_scan``) waits for ROADMAP A6 part 6: its subject is comms over a
+mesh.
 
 Default-off: enable with ``ACCELERATE_TPU_TELEMETRY=1`` (honored by
 ``Accelerator()``) or ``telemetry.enable()``.  Summarize a run with

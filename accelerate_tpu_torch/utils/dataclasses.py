@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import copy
 import enum
+import os
 from dataclasses import dataclass, field
 from datetime import timedelta
 from typing import Any, Optional
@@ -25,6 +26,7 @@ __all__ = [
     "InitProcessGroupKwargs",
     "KwargsHandler",
     "MixedPrecisionPolicy",
+    "ParallelismConfig",
     "PrecisionType",
     "ProfileKwargs",
     "ProjectConfiguration",
@@ -46,8 +48,8 @@ class BaseEnum(str, enum.Enum):
 
 class DistributedType(BaseEnum):
     """The JAX package's members but its TPU ones (``TPU_JAX``, ``XLA``),
-    plus ``MULTI_GPU`` for several processes over NCCL (ROADMAP A6).  One
-    process is ``NO``."""
+    plus ``MULTI_GPU``: several processes, one per GPU over NCCL (or over
+    gloo on the CPU).  One process is ``NO``."""
 
     NO = "NO"
     MULTI_GPU = "MULTI_GPU"
@@ -83,8 +85,14 @@ class KwargsHandler:
 
 @dataclass
 class DistributedInitKwargs(KwargsHandler):
-    """Bring-up of several processes (ROADMAP A6); one process reads none
-    of it."""
+    """Bring-up of several processes, read by :class:`~.state.PartialState`
+    when no process group is up yet: ``coordinator_address`` (``host:port``,
+    else ``ACCELERATE_COORDINATOR_ADDRESS`` or torchrun's ``MASTER_ADDR`` /
+    ``MASTER_PORT``), ``num_processes`` and ``process_id`` (else
+    ``ACCELERATE_NUM_PROCESSES`` / ``ACCELERATE_PROCESS_ID``, else
+    ``WORLD_SIZE`` / ``RANK``) and ``timeout`` for the group's collectives.
+    ``local_device_ids`` is the JAX field; the port places one process on
+    ``cuda:LOCAL_RANK``."""
 
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
@@ -118,8 +126,11 @@ class DDPCommunicationHookType(str, enum.Enum):
 
 @dataclass
 class DistributedDataParallelKwargs(KwargsHandler):
-    """DDP knobs, validated as in the JAX package.  One process syncs no
-    gradient, so none of them acts yet (ROADMAP A6)."""
+    """DDP knobs, validated as in the JAX package.  ``comm_hook`` ``"fp16"``
+    or ``"bf16"`` holds the accumulated gradients in bf16 and syncs them
+    over the data-parallel group in bf16 (the JAX ``_grad_sync_dtype``);
+    the bucket and graph knobs are kept for the surface: the sync is one
+    collective per gradient tensor (:mod:`~accelerate_tpu_torch.optimizer`)."""
 
     bucket_cap_mb: int = 25
     find_unused_parameters: bool = False
@@ -161,6 +172,64 @@ class FP8RecipeKwargs(KwargsHandler):
 
     def __post_init__(self):
         raise NotImplementedError(_FP8_NOT_PORTED)
+
+
+@dataclass
+class ParallelismConfig:
+    """The shape of the named mesh: the JAX ``ParallelismConfig``, one axis
+    per strategy, outermost first in ``AXIS_ORDER``.  A size of 1 disables
+    the axis.  The port runs one process per GPU, so ``total_size`` is the
+    number of processes; ``dcn_dp`` counts nodes and ``dp`` the processes
+    of one node.  The model axes (``fsdp``, ``pp``, ``sp``, ``ep``, ``tp``)
+    are accepted here and refused by :class:`~.state.AcceleratorState`
+    until their ROADMAP part lands."""
+
+    dp: int = 1
+    fsdp: int = 1
+    tp: int = 1
+    sp: int = 1
+    pp: int = 1
+    ep: int = 1
+    dcn_dp: int = 1
+
+    AXIS_ORDER = ("dcn_dp", "dp", "fsdp", "pp", "sp", "ep", "tp")
+
+    def __post_init__(self):
+        for name in self.AXIS_ORDER:
+            size = getattr(self, name)
+            if not isinstance(size, int) or size < 1:
+                raise ValueError(f"Mesh axis {name!r} must be a positive int, got {size!r}")
+
+    @property
+    def total_size(self) -> int:
+        n = 1
+        for name in self.AXIS_ORDER:
+            n *= getattr(self, name)
+        return n
+
+    @property
+    def active_axes(self) -> dict:
+        return {name: getattr(self, name) for name in self.AXIS_ORDER if getattr(self, name) > 1}
+
+    @property
+    def data_shard_size(self) -> int:
+        """Number of ways the global batch is split (dp-like axes)."""
+        return self.dcn_dp * self.dp * self.fsdp
+
+    @classmethod
+    def from_env(cls) -> "ParallelismConfig":
+        def geti(key, default=1):
+            return int(os.environ.get(key, default))
+
+        return cls(
+            dp=geti("ACCELERATE_PARALLELISM_DP"),
+            fsdp=geti("ACCELERATE_PARALLELISM_FSDP"),
+            tp=geti("ACCELERATE_PARALLELISM_TP"),
+            sp=geti("ACCELERATE_PARALLELISM_SP"),
+            pp=geti("ACCELERATE_PARALLELISM_PP"),
+            ep=geti("ACCELERATE_PARALLELISM_EP"),
+            dcn_dp=geti("ACCELERATE_PARALLELISM_DCN_DP"),
+        )
 
 
 @dataclass
@@ -220,8 +289,9 @@ class DataLoaderConfiguration:
 
     - ``split_batches``: the scheduler steps once per optimizer step (at one
       GPU the batches are the same either way);
-    - ``dispatch_batches``: carried for the JAX surface (one process reads
-      every batch itself);
+    - ``dispatch_batches``: the main process reads each global batch and
+      every process gets its rows
+      (:class:`~accelerate_tpu_torch.data_loader.DataLoaderDispatcher`);
     - ``even_batches``: with ``static_shape_tail``, the short tail batch is
       filled from the epoch's first samples;
     - ``use_seedable_sampler`` / ``data_seed``: a shuffling sampler becomes a

@@ -205,8 +205,8 @@ def is_tpu_available() -> bool:
 
 def is_cpu_mesh_simulation() -> bool:
     """False: the port builds no virtual multi-device CPU mesh (the JAX
-    package's ``XLA_FLAGS`` device count has no torch counterpart; several
-    processes come with ROADMAP A6)."""
+    package's ``XLA_FLAGS`` device count has no torch counterpart); several
+    CPU processes over gloo play its part."""
     return False
 
 

@@ -1,5 +1,5 @@
-"""The JAX package's ``utils/operations.py`` at one process, over dicts,
-lists and tuples (namedtuples rebuilt) of ``torch.Tensor`` leaves:
+"""The JAX package's ``utils/operations.py``, over dicts, lists and tuples
+(namedtuples rebuilt) of ``torch.Tensor`` leaves:
 :func:`recursively_apply`, :func:`send_to_device`, the structure helpers
 (:func:`find_batch_size`, :func:`get_data_structure`, :func:`listify`, ...),
 the collectives (:func:`gather`, :func:`reduce`, :func:`broadcast`,
@@ -7,8 +7,14 @@ the collectives (:func:`gather`, :func:`reduce`, :func:`broadcast`,
 :func:`rename_state_dict`, which gives a module's checkpoint keys the JAX
 package's parameter names.
 
-Torch goes in and torch comes out, on the input's device.  At one process
-a collective has nobody to exchange with: ``gather``, ``broadcast`` and
+Torch goes in and torch comes out, on the input's device.  With several
+processes the collectives run over the process group
+(:mod:`..parallel.collectives`): ``gather`` concatenates every process's
+tensors along dim 0 (a 0-d tensor gathers into one entry per process),
+``gather_object`` concatenates their lists, ``broadcast`` and
+``broadcast_object_list`` copy one process's, ``reduce`` sums or averages,
+``pad_across_processes`` pads to the largest size.  At one process a
+collective has nobody to exchange with: ``gather``, ``broadcast`` and
 ``pad_across_processes`` return their input, ``reduce`` its input times
 ``scale`` (the JAX package returns numpy arrays from ``reduce``,
 ``broadcast`` and ``pad_across_processes``; the values are the same)."""
@@ -148,6 +154,26 @@ def listify(data):
     return recursively_apply(lambda t: t.detach().cpu().tolist(), data)
 
 
+def _num_processes() -> int:
+    from ..parallel import collectives
+
+    return collectives.world_size()
+
+
+def _local() -> bool:
+    """No process group: the collectives have nobody to exchange with."""
+    from ..parallel import collectives
+
+    return not collectives.initialized()
+
+
+def _tree_spec(tree):
+    """Shapes and dtypes of the tensor leaves, comparable across processes."""
+    out = []
+    recursively_apply(lambda t: out.append((tuple(t.shape), str(t.dtype))), tree)
+    return out
+
+
 def verify_operation(function: Callable) -> Callable:
     """Wrap a collective so that, under ``ACCELERATE_DEBUG_MODE`` and with
     several processes, differing leaf shapes raise
@@ -156,6 +182,16 @@ def verify_operation(function: Callable) -> Callable:
 
     @wraps(function)
     def wrapper(*args, **kwargs):
+        from ..state import PartialState
+
+        if _num_processes() == 1 or not (PartialState._shared_state and PartialState().debug):
+            return function(*args, **kwargs)
+        tensor = kwargs.get("tensor", args[0] if args else None)
+        specs = gather_object([_tree_spec(tensor)])
+        if not all(sp == specs[0] for sp in specs):
+            table = "\n".join(f"  rank {i}: {sp}" for i, sp in enumerate(specs))
+            raise DistributedOperationException(
+                f"Cannot apply `{function.__name__}`: shapes differ across processes:\n{table}")
         return function(*args, **kwargs)
 
     return wrapper
@@ -163,27 +199,47 @@ def verify_operation(function: Callable) -> Callable:
 
 @verify_operation
 def gather(tensor):
-    """Every process's tensors concatenated along dim 0: at one process the
-    tensors themselves."""
-    return recursively_apply(lambda t: t, tensor, error_on_other_type=True)
+    """Every process's tensors concatenated along dim 0 (a 0-d tensor
+    gathers into one entry per process): at one process the tensors
+    themselves."""
+    if _local():
+        return recursively_apply(lambda t: t, tensor, error_on_other_type=True)
+    from ..parallel import collectives
+
+    return recursively_apply(lambda t: collectives.all_gather(t.detach()), tensor,
+                             error_on_other_type=True)
 
 
 def gather_object(object: Any) -> list:
     """The concatenation of every process's list of picklable objects: at
     one process the list itself (a copy)."""
-    return list(object)
+    if _local():
+        return list(object)
+    from ..parallel import collectives
+
+    return [x for part in collectives.all_gather_object(list(object)) for x in part]
 
 
 @verify_operation
 def broadcast(tensor, from_process: int = 0):
     """Process ``from_process``'s tensors on every process: at one process
     the tensors themselves."""
-    return recursively_apply(lambda t: t, tensor, error_on_other_type=True)
+    if _local():
+        return recursively_apply(lambda t: t, tensor, error_on_other_type=True)
+    from ..parallel import collectives
+
+    return recursively_apply(lambda t: collectives.broadcast(t.detach().clone(), from_process),
+                             tensor, error_on_other_type=True)
 
 
 def broadcast_object_list(object_list: list, from_process: int = 0) -> list:
     """``object_list`` overwritten in place with process ``from_process``'s
     and returned: at one process unchanged."""
+    if _local():
+        return object_list
+    from ..parallel import collectives
+
+    object_list[:] = collectives.broadcast_object(list(object_list), from_process)
     return object_list
 
 
@@ -193,7 +249,18 @@ def reduce(tensor, reduction: str = "mean", scale: float = 1.0):
     ``scale``: at one process each tensor times ``scale`` (a copy)."""
     if reduction not in ("sum", "mean"):
         raise ValueError(f"reduction must be 'sum' or 'mean', got {reduction!r}")
-    return recursively_apply(lambda t: t * scale, tensor, error_on_other_type=True)
+    if _local():
+        return recursively_apply(lambda t: t * scale, tensor, error_on_other_type=True)
+    n = _num_processes()
+    from ..parallel import collectives
+
+    def _reduce(t):
+        out = collectives.all_reduce(t.detach().clone())
+        if reduction == "mean":
+            out = out / n
+        return out * scale
+
+    return recursively_apply(_reduce, tensor, error_on_other_type=True)
 
 
 @verify_operation
@@ -201,7 +268,25 @@ def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bo
     """Each tensor padded with ``pad_index`` along ``dim`` to the largest
     size across processes (before a :func:`gather` of ragged batches): at
     one process each tensor is already the largest."""
-    return recursively_apply(lambda t: t, tensor, error_on_other_type=True)
+    if _local():
+        return recursively_apply(lambda t: t, tensor, error_on_other_type=True)
+    from ..parallel import collectives
+
+    def _pad(t):
+        if dim >= t.dim():
+            return t
+        size = torch.tensor([t.shape[dim]], dtype=torch.int64, device=t.device)
+        longest = int(collectives.all_gather(size).max())
+        if longest == t.shape[dim]:
+            return t
+        shape = list(t.shape)
+        shape[dim] = longest
+        out = t.new_full(shape, pad_index)
+        lo = longest - t.shape[dim] if pad_first else 0
+        out.narrow(dim, lo, t.shape[dim]).copy_(t)
+        return out
+
+    return recursively_apply(_pad, tensor, error_on_other_type=True)
 
 
 def pad_input_tensors(tensor, batch_size: int, num_processes: int, dim: int = 0):

@@ -115,8 +115,9 @@ Phases (each fails the run on any mismatch; nothing is caught):
    the journal's ms per flush (fsync on).
 
 8. Offline generation, the draft-model drafter and serving traces, at
-   full width.  8a: Llama-3-8B (32 layers, bf16, Phase 2's weights):
-   sampled ``generate`` over 4 prompts of 960 tokens + 64 (temperature 0.8,
+   full width.  8a: Llama-3-8B's widths cut to ``PHASE8_LAYERS`` (8) of
+   32 layers (bf16, random weights from Phase 2's seed): sampled
+   ``generate`` over 4 prompts of 960 tokens + 64 (temperature 0.8,
    top-k 50, top-p 0.9, ``PRNGKey``): the same key twice gives the same
    tokens, another key others, and every sampled token lies inside the
    top-50 and the 0.9 nucleus of the logits that ``apply`` (the fused
@@ -124,7 +125,8 @@ Phases (each fails the run on any mismatch; nothing is caught):
    margin ``NEAR_TIE``; ``generate_beam`` with one beam equals greedy
    ``generate``, four beams on 2 x 512 + 32 timed; greedy
    ``speculative_generate`` (1 x 512 + 64, gamma 4) with a draft at
-   Llama-3.2-1B's published widths (seed 3) and with the target as its own
+   Llama-3.2-1B's published widths cut to ``PHASE8_DRAFT_LAYERS`` (4) of 16
+   layers (seed 3) and with the target as its own
    draft, each token-identical to greedy ``generate`` or parting from it
    only at a near tie, with rounds, proposed and accepted; sampled
    speculative decoding with the target as its own draft and its acceptance
@@ -133,8 +135,8 @@ Phases (each fails the run on any mismatch; nothing is caught):
    on the card and on the CPU.  8c: Phase 2's geometry and traffic with
    ``spec_tokens=3``, ``DraftModelDrafter`` over the 1B-width draft and
    tracing on (its JSONL under ``build/phase8``): every request ok and
-   token-identical to greedy ``generate`` or parting at a near tie, 32
-   window launches per verify dispatch, the drafter's fused-forward
+   token-identical to greedy ``generate`` or parting at a near tie, one
+   window launch per layer and verify dispatch, the drafter's fused-forward
    launches counted, each trace's intervals disjoint inside its window,
    verify intervals recorded, the Chrome export read back,
    ``debug_requests()`` mid-run; ITL, decode tokens/s and the tracer's
@@ -199,10 +201,11 @@ Phases (each fails the run on any mismatch; nothing is caught):
    launched 2L / L / L = 36 / 18 / 18 a step, the fifth step profiled
    (the trace must name the d-256 kernels: the sm90 forward, dQ and dK/dV
    with its sum kernel), step time, tokens/s, share of
-   the bf16 peak, peak memory and idle share.  10c: the trained weights in
-   bf16 through ``prepare_serving(paged_kernel=True)`` with Phase 2's
-   geometry and traffic, ``spec_tokens`` 0 and 3: 18 paged launches (head
-   dim 256) per dispatch, every request token-identical to greedy
+   the bf16 peak, peak memory and idle share.  10c: the first
+   ``PHASE10C_LAYERS`` (6) of the 18 trained layers, with the trained
+   embedding and norm, in bf16 through ``prepare_serving(paged_kernel=True)``
+   with Phase 2's geometry and traffic, ``spec_tokens`` 0 and 3: one paged
+   launch (head dim 256) per layer and dispatch, every request token-identical to greedy
    ``generate`` or parting from it at a near tie, TTFT, ITL and decode
    tokens/s.  10d: Phi-3-mini (microsoft/Phi-3-mini-4k-instruct's published
    widths: vocab 32064, d 3072, FFN 8192, 32 q / 32 kv heads of 96, untied
@@ -222,7 +225,8 @@ Phases (each fails the run on any mismatch; nothing is caught):
 11. GPT-2 XL (openai-community/gpt2-xl's published widths through the
    port's ``config_from_hf``: vocab 50257, d 1600, 48 layers, 25 heads of
    64 over 25 kv heads, 1024 positions; 1,557,611,200 parameters; random
-   weights from seed 0, full depth).  11a: the paged pair at that
+   weights from seed 0; 11b and 11c cut to ``PHASE11_LAYERS`` (12) of its
+   48 layers).  11a: the paged pair at that
    attention geometry (one kv head per query head, so one row of a 16-row
    tile at decode), bf16 and fp32, decode and W=4, at Phase 1's long
    shape, against the plain versions, with kernel, plain, bound and
@@ -232,7 +236,7 @@ Phases (each fails the run on any mismatch; nothing is caught):
    paged_kernel=True)``: 8 slots, block 16, 64 blocks a table (the 1024
    positions of the position table), chunk 256; 8 requests of 128-768
    prompt tokens, one every 3 ticks, 32 new tokens; ``spec_tokens`` 0 and
-   3: 48 paged launches per decode dispatch, every request token-identical
+   3: one paged launch per layer and decode dispatch, every request token-identical
    to greedy ``gpt2.generate`` or parting at a near tie; TTFT, ITL and
    decode tokens/s.  11c: training under ``Accelerator(log_with=
    [GenericTracker])`` (bf16 compute over fp32 parameters, ``remat``,
@@ -262,7 +266,7 @@ Phases (each fails the run on any mismatch; nothing is caught):
    capacity padding, the aux losses; then one step with
    ``moe_impl="ragged"`` on the last batch, whose expert FFN equals the
    dense one within the bf16 tolerance on every token with no slot
-   dropped.  12b: 8 of 32 layers in bf16 (11,872,309,248 parameters,
+   dropped.  12b: 4 of 32 layers in bf16 (6,067,228,672 parameters,
    drawn straight into bf16) served through ``prepare_serving`` on the
    dense gather path (the family has no ``apply_paged``) with Phase 2's
    geometry and traffic, prefix cache off, ``spec_tokens=0``: every
@@ -334,8 +338,10 @@ Phases (each fails the run on any mismatch; nothing is caught):
    unarmed resume's; rewind: ``NAN_STEP=4``, ``NAN_COUNT=3``,
    ``max_skips=2`` rewinds to the step-2 checkpoint and steps 3-8 equal a
    clean resume's bit for bit).  Three 15.2 GB checkpoints are written
-   (one torn), two more in 15c; each save's and load's seconds are printed.  15b, beside
-   them, ``accelerate_tpu_torch.serving.chaos``'s serving and tiering
+   (one torn), two more in 15c; each save's and load's seconds are
+   printed.  The children save without the durability fsyncs
+   (``ACCELERATE_TPU_CHECKPOINT_FSYNC=0``), which Phase 6 times.  15b,
+   beside them, ``accelerate_tpu_torch.serving.chaos``'s serving and tiering
    campaigns at Llama-3-8B widths cut to 2 layers in fp32 with
    ``paged_kernel=True``: every survivor token-identical to greedy
    ``generate``, zero block leaks, exact shed / deadline / quarantine
@@ -350,6 +356,31 @@ Phases (each fails the run on any mismatch; nothing is caught):
    stall.  The parent checks each proof again from the children's records.
    Everything lives under ``build/phase15/`` and is deleted at the end.
 
+16. Several processes (``accelerate_tpu_torch.parallel``).  16a: a one-rank
+   NCCL group that this script starts, adopted by ``Accelerator()``: every
+   collective of ``utils/operations.py`` (``gather``, ``gather_object``,
+   ``broadcast``, ``broadcast_object_list``, ``reduce``,
+   ``pad_across_processes``) and a ZeRO-shaped reduce-scatter and
+   all-gather (the shard dim moved to the front) return the expected values
+   on ``cuda``.  16b, two processes sharing the H100 over gloo (which stages
+   every collective through host memory): ``python -m
+   accelerate_tpu_torch.parallel.zero_smoke --size llama3-8b``'s recipe,
+   Llama-3-8B's widths cut to 2 layers, bf16 compute over fp32 parameters,
+   ``remat``, AdamW, a binding clip (0.05), 3 steps of B 1 x S 2048 per
+   process from ``prepare_data_loader`` over 6 seeded sequences, the
+   replicated ``make_train_step`` and then ``zero=True`` in the same two
+   processes: losses and every parameter bit-identical between the modes
+   and the processes; the rows each process got are the halves of each
+   global batch; the flash kernels launched 2L / L / L per process per
+   step; the optimizer state's bytes read from the allocator about halved;
+   each step's time and its gloo transfer time.  Then, in this process
+   after the children exit, one step of the same model (rank 0's seed) on
+   the concatenated global batch: its loss within 1e-3 (relative) of the
+   processes' step-1 loss.  16c: the same with NCCL and one GPU per process,
+   only where ``torch.cuda.device_count() >= 2`` (else it prints that it did
+   not run).  16d: ``python -m accelerate_tpu_torch.parallel.zero_smoke``
+   as a child at its own small shapes on the card, beside 16b.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
@@ -357,6 +388,8 @@ launches as ``launches_phase8``, ``launches_phase9`` and
 ``launches_phase10d`` and ``launches_phase10e``, their Phase 12 launches
 as ``launches_phase12``, every kernel's Phase 14 launches as
 ``launches_phase14`` and its Phase 15 launches as ``launches_phase15``,
+the flash kernels' Phase 16 launches (16b's two processes, both modes) as
+``launches_phase16``,
 the paged kernels' Phase
 11 launches as ``launches_phase11`` and 11a's records as
 ``gpt2_xl_heads``, the flash kernels' fp32 Phase 4
@@ -373,6 +406,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -1596,8 +1630,9 @@ def phase6(smi):
         f"({sum(e['size'] for e in manifest['files'].values())} bytes) in "
         f"{time.perf_counter() - t0:.3f} s")
     names = [n for n, _ in model.named_parameters()]
-    final_params = [p.detach().cpu() for p in model.parameters()]
-    final_state = {k: {n: t.cpu() for n, t in v.items()}
+    # Kept on the card (15 GB beside run B's ~32), compared there.
+    final_params = [p.detach().clone() for p in model.parameters()]
+    final_state = {k: {n: t.clone() for n, t in v.items()}
                    for k, v in opt.optimizer.state_dict()["state"].items()}
     del acc, model, opt
     torch.cuda.empty_cache()
@@ -1609,10 +1644,10 @@ def phase6(smi):
           f"run B optimizer steps {synced_b} ({opt._step_count})")
     check(losses_b == losses_a[4:], f"run B losses {losses_b} != run A's {losses_a[4:]}")
     diff = [n for n, a, b in zip(names, final_params, model.parameters())
-            if not torch.equal(a, b.detach().cpu())]
+            if not torch.equal(a, b.detach())]
     state_b = opt.optimizer.state_dict()["state"]
     diff += [f"state[{k}].{n}" for k, v in final_state.items() for n, t in v.items()
-             if not torch.equal(t, state_b[k][n].cpu())]
+             if not torch.equal(t, state_b[k][n].to(t.device))]
     log(f"phase6 run B against run A: losses of micro-batches 5-7 equal; "
         f"{len(final_params)} parameters and {sum(len(v) for v in final_state.values())} AdamW "
         f"state tensors, bit-identical except {diff}")
@@ -1963,6 +1998,9 @@ def phase7(smi, unpressured):
 # ---------------------------------------------------------------------------
 
 PHASE8_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase8")
+# Depth cut to keep the script inside its time limit; the widths are the
+# published ones.
+PHASE8_LAYERS, PHASE8_DRAFT_LAYERS = 8, 4
 # bf16 logits of the 32-layer model differ by up to ~0.15 between two paths
 # through the same weights (Phase 2's fixed-pool step: the kernel against its
 # own plain version).  Where two bf16 paths pick different greedy tokens, or
@@ -1971,14 +2009,14 @@ PHASE8_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "
 NEAR_TIE = 0.25
 
 
-def llama32_1b_config():
+def llama32_1b_config(num_layers=16):
     """Llama-3.2-1B's published widths (random weights, built in code)."""
     import torch
 
     from accelerate_tpu_torch.models import llama
 
     return llama.LlamaConfig(
-        vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_layers=16,
+        vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_layers=num_layers,
         num_heads=32, num_kv_heads=8, head_dim=64, tie_embeddings=True, rope_theta=500000.0,
         rope_scaling=("llama3", 32.0, 1.0, 4.0, 8192), dtype=torch.bfloat16,
         param_dtype=torch.bfloat16)
@@ -2027,7 +2065,7 @@ def check_greedy(params, cfg, what, ref, other, start, family=None):
 
 
 def phase8a(params, cfg, draft, dcfg):
-    """Llama-3-8B (32 layers, bf16, Phase 2's weights): sampled generate,
+    """Llama-3-8B's widths, PHASE8_LAYERS layers (bf16): sampled generate,
     beam search, greedy speculative decoding with a Llama-3.2-1B-width draft
     and with the target as its own draft, and sampled speculative decoding."""
     import numpy as np
@@ -2369,12 +2407,14 @@ def phase8(smi):
 
     from accelerate_tpu_torch.models import llama
 
-    cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = llama.LlamaConfig.llama3_8b(num_layers=PHASE8_LAYERS, dtype=torch.bfloat16,
+                                      param_dtype=torch.bfloat16)
     params = llama.init_params(cfg, seed=0)
-    dcfg = llama32_1b_config()
+    dcfg = llama32_1b_config(PHASE8_DRAFT_LAYERS)
     draft = llama.init_params(dcfg, seed=3)
-    log(f"phase8 Llama-3-8B bf16 ({cfg.num_params()} parameters, seed 0) and a Llama-3.2-1B-"
-        f"width draft ({dcfg.num_params()} parameters, seed 3)")
+    log(f"phase8 Llama-3-8B widths, {PHASE8_LAYERS} of 32 layers, bf16 ({cfg.num_params()} "
+        f"parameters, seed 0) and a Llama-3.2-1B-width draft, {PHASE8_DRAFT_LAYERS} of 16 "
+        f"layers ({dcfg.num_params()} parameters, seed 3)")
     t0 = time.perf_counter()
     fwd_a = phase8a(params, cfg, draft, dcfg)
     t1 = time.perf_counter()
@@ -2759,6 +2799,7 @@ PHASE10_FLASH_SHAPES = (("Gemma-2B", 8, 1, 256), ("Gemma-7B", 16, 16, 256),
                         ("Phi-3-mini", 32, 32, 96))
 PHASE10_PAGED = ((96, torch.bfloat16), (96, torch.float32), (256, torch.float32))
 PHASE10_B, PHASE10_S, PHASE10_STEPS, PHASE10_PAD = 2, 2048, 5, 300
+PHASE10C_LAYERS = 6  # 10c's depth cut, for the script's time limit
 PHASE10_PEAK_LIMIT = 72e9  # bytes: B 2 when the reckoned peak stays under it, else B 1
 # Phase 10b's bf16 first step, kernel path against plain path: the loss
 # relative to itself.  Phase 5's absolute 1e-3 is 8.2e-5 of its loss (12.16)
@@ -3406,14 +3447,17 @@ def gc_collect():
 
 
 def phase10c(params, smi):
-    """Gemma-2B in bf16 (the weights Phase 10b trained) served through
+    """Gemma-2B in bf16 (the first PHASE10C_LAYERS of the layers Phase 10b
+    trained, with its embedding and final norm) served through
     ``prepare_serving(paged_kernel=True)``: Phase 2's geometry and traffic
     with ``spec_tokens`` 0 and 3, every request token-identical to greedy
     ``generate`` or parting from it at a near tie."""
     from accelerate_tpu_torch import Accelerator
     from accelerate_tpu_torch.models import llama
 
-    cfg = gemma_2b_config(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = gemma_2b_config(num_layers=PHASE10C_LAYERS, dtype=torch.bfloat16,
+                          param_dtype=torch.bfloat16)
+    params = dict(params, layers={k: v[:PHASE10C_LAYERS] for k, v in params["layers"].items()})
     rng = np.random.default_rng(11)
     prompts = [list(rng.integers(0, cfg.vocab_size, size=n)) for n in PHASE2_PROMPT_LENS]
     max_new = 32
@@ -3456,7 +3500,8 @@ def phase10c(params, smi):
         itl, itl_mean = median(gaps), sum(gaps) / len(gaps)
         decode_tps = (engine.decode_emitted_tokens - base_tok) / (engine.decode_seconds - base_s)
         st = engine.stats()
-        log(f"phase10c Gemma-2B bf16 serving spec_tokens={spec}: {len(done)} requests, "
+        log(f"phase10c Gemma-2B bf16 serving ({cfg.num_layers} of 18 layers) spec_tokens={spec}: "
+            f"{len(done)} requests, "
             f"decode_dispatches={dispatches} decode_launches={dec} window_launches={win} "
             f"(head_dim {cfg.head_dim_}) wall_s={wall:.3f} ttft_p50_ms={ttft:.1f} "
             f"itl_p50_ms={itl:.2f} itl_mean_ms={itl_mean:.2f} decode_tokens_per_s="
@@ -3508,6 +3553,7 @@ PHASE11_PROMPT_LENS = (128, 224, 320, 416, 512, 608, 704, 768)
 PHASE11_GEOMETRY = dict(max_slots=8, block_size=16, num_blocks=8 * 64 + 8, max_blocks_per_seq=64,
                         prefill_chunk=256)
 PHASE11_S, PHASE11_START_BATCH, PHASE11_STEPS, PHASE11_LR = 1024, 1024, 3, 3e-5
+PHASE11_LAYERS = 12  # 11b's and 11c's depth cut, for the script's time limit
 PHASE11_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase11")
 
 
@@ -3538,16 +3584,17 @@ def phase11a(smi):
 
 
 def phase11b(params, smi):
-    """GPT-2 XL (48 layers, seed 0): the fp32 parameters through
-    ``export_state_dict`` -> ``import_state_dict`` bit-identical, then their
-    bf16 copy served through ``prepare_serving(paged_kernel=True)`` with
-    ``spec_tokens`` 0 and 3: 48 paged launches per decode dispatch, every
+    """GPT-2 XL's widths at PHASE11_LAYERS layers (seed 0): the fp32
+    parameters through ``export_state_dict`` -> ``import_state_dict``
+    bit-identical, then their bf16 copy served through
+    ``prepare_serving(paged_kernel=True)`` with ``spec_tokens`` 0 and 3:
+    one paged launch per layer and decode dispatch, every
     request token-identical to greedy ``generate`` or parting at a near
     tie."""
     from accelerate_tpu_torch import Accelerator
     from accelerate_tpu_torch.models import gpt2, hf_export, hf_import
 
-    cfg32 = gpt2_xl_config()
+    cfg32 = gpt2_xl_config(num_layers=PHASE11_LAYERS)
     t0 = time.perf_counter()
     again = hf_import.import_state_dict("gpt2", hf_export.export_state_dict("gpt2", params, cfg32),
                                         cfg32)
@@ -3556,9 +3603,10 @@ def phase11b(params, smi):
     check(same and sorted(again["layers"]) == sorted(params["layers"]),
           "phase11b GPT-2 XL HF round trip is not bit-identical")
     del again
-    log(f"phase11b GPT-2 XL HF export -> import: bit-identical over {cfg32.num_params()} "
-        f"parameters ({time.perf_counter() - t0:.1f} s)")
-    cfg = gpt2_xl_config(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    log(f"phase11b GPT-2 XL widths, {cfg32.num_layers} of 48 layers, HF export -> import: "
+        f"bit-identical over {cfg32.num_params()} parameters ({time.perf_counter() - t0:.1f} s)")
+    cfg = gpt2_xl_config(num_layers=PHASE11_LAYERS, dtype=torch.bfloat16,
+                         param_dtype=torch.bfloat16)
     params16 = {k: v.to(torch.bfloat16) for k, v in params.items() if k != "layers"}
     params16["layers"] = {k: v.to(torch.bfloat16) for k, v in params["layers"].items()}
     rng = np.random.default_rng(11)
@@ -3618,7 +3666,8 @@ def phase11b(params, smi):
 
 
 def phase11c(smi):
-    """GPT-2 XL trained under the A1 surface: ``Accelerator(log_with=
+    """GPT-2 XL's widths at PHASE11_LAYERS layers trained under the A1
+    surface: ``Accelerator(log_with=
     [GenericTracker])``, the first step inside ``find_executable_batch_size``
     from 1024 sequences of 1024 tokens (dense loss: the fp32 logits alone
     would be ~211 GB, so a real CUDA OOM halves it until a step runs), then
@@ -3633,14 +3682,15 @@ def phase11c(smi):
     gc_collect()
     fresh_state()
     base_bytes = torch.cuda.memory_allocated()
-    cfg = gpt2_xl_config()  # bf16 compute over fp32 parameters, remat
+    cfg = gpt2_xl_config(num_layers=PHASE11_LAYERS)  # bf16 over fp32 parameters, remat
     model = FunctionalModel(lambda p, **batch: {"loss": gpt2.loss_fn(p, batch, cfg)},
                             gpt2.init_params(cfg, seed=0))
     shutil.rmtree(PHASE11_DIR, ignore_errors=True)
     tracker = GenericTracker("phase11", logging_dir=PHASE11_DIR)
     acc = Accelerator(log_with=[tracker])
     model, opt = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=PHASE11_LR))
-    acc.init_trackers("phase11", config=dict(GPT2_XL, seq=PHASE11_S, lr=PHASE11_LR))
+    acc.init_trackers("phase11", config=dict(GPT2_XL, n_layer=PHASE11_LAYERS, seq=PHASE11_S,
+                                             lr=PHASE11_LR))
     gen = torch.Generator(device="cuda").manual_seed(11)
     data = torch.randint(0, cfg.vocab_size, (PHASE11_START_BATCH, PHASE11_S), device="cuda",
                          generator=gen)
@@ -3729,7 +3779,7 @@ def phase11(smi):
     cfg = gpt2_xl_config()
     check(cfg.num_params() == GPT2_XL_PARAMS and cfg.head_dim == 64,
           f"GPT-2 XL config: {cfg.num_params()} parameters, head dim {cfg.head_dim}")
-    params = gpt2.init_params(cfg, seed=0)
+    params = gpt2.init_params(gpt2_xl_config(num_layers=PHASE11_LAYERS), seed=0)
     serving = phase11b(params, smi)
     del params
     gc_collect()
@@ -3756,7 +3806,7 @@ MIXTRAL_8X7B = dict(
     max_position_embeddings=32768, rope_theta=1e6, rms_norm_eps=1e-5,
     tie_word_embeddings=False, sliding_window=None, hidden_act="silu", torch_dtype="bfloat16")
 MIXTRAL_8X7B_PARAMS = 46_702_792_704
-PHASE12A_LAYERS, PHASE12B_LAYERS = 2, 8
+PHASE12A_LAYERS, PHASE12B_LAYERS = 2, 4  # 12b cut for the script's time limit
 PHASE12_GEOMETRY = dict(PHASE2_GEOMETRY, prefix_cache=False)
 # The bf16 flash kernels at head dim 128, as a profiler names them.
 SM90_FLASH_128 = ("flash_fwd_sm90_kernel<__nv_bfloat16, 128>",
@@ -3977,7 +4027,7 @@ def check_mixtral_greedy(what, ref, rows, other, start):
 
 
 def phase12b(smi):
-    """Mixtral-8x7B's widths at 8 of 32 layers in bf16 (seed 0, drawn leaf
+    """Mixtral-8x7B's widths at 4 of 32 layers in bf16 (seed 0, drawn leaf
     by leaf straight into bf16), served through
     ``Accelerator().prepare_serving(mixtral.apply_cached, mixtral.init_cache)``
     with Phase 2's geometry and traffic (prefix cache off, so every prompt
@@ -4750,21 +4800,6 @@ def phase15_env():
     os.environ["PYTHONPATH"] = root if not path else f"{root}{os.pathsep}{path}"
 
 
-def phase15_training(smi):
-    """15a: the preemption smoke with its retry arms beside the health
-    smoke, at Llama-3-8B widths; returns both summaries."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from accelerate_tpu_torch.resilience import health_smoke, smoke
-
-    with ThreadPoolExecutor(2) as pool:
-        pre = pool.submit(smoke.run, PHASE15_SIZE, PHASE15_DEVICE,
-                          os.path.join(PHASE15_DIR, "preempt"))
-        health = pool.submit(health_smoke.run, PHASE15_SIZE, PHASE15_DEVICE,
-                             os.path.join(PHASE15_DIR, "health"))
-        return pre.result(), health.result()
-
-
 def phase15_flash_per_step():
     return {"fused_attention_fwd": 2 * PHASE15_LAYERS,
             "fused_attention_bwd_dq": PHASE15_LAYERS,
@@ -4965,6 +5000,10 @@ def phase15_goodput(smi):
 
 def phase15(smi):
     """Resilience at full width; see the module docstring, Phase 15."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from accelerate_tpu_torch.resilience import health_smoke, smoke
+    from accelerate_tpu_torch.resilience.manifest import ENV_CHECKPOINT_FSYNC
     from accelerate_tpu_torch.resilience.smoke import recipe_config
 
     gc_collect()
@@ -4977,30 +5016,264 @@ def phase15(smi):
         f"free={disk.free / 1e9:.2f} GB")
     check(disk.free >= 3.5 * ckpt_bytes, f"free disk {disk.free} < 3.5 checkpoints")
     phase15_env()
-    from concurrent.futures import ThreadPoolExecutor
-
-    def timed_call(fn):
-        t = time.perf_counter()
-        return fn(smi), time.perf_counter() - t
-
+    # The children's saves skip the durability fsyncs, as the chaos
+    # campaigns and the goodput smoke do by default: no proof here reads
+    # them, and Phase 6 times a save with them.
+    fsync = os.environ.get(ENV_CHECKPOINT_FSYNC)
+    os.environ[ENV_CHECKPOINT_FSYNC] = "0"
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        training = pool.submit(timed_call, phase15_training)
-        chaos_runs = pool.submit(timed_call, phase15_serving)
-        (pre, health), t_train = training.result()
-        (serving, tiering), t_serve = chaos_runs.result()
-    t1 = time.perf_counter()
+    took = {}
+
+    def timed_from(name, fn, *args):
+        start = time.perf_counter() - t0
+        out = fn(*args)
+        took[name] = (start, time.perf_counter() - t0)
+        return out
+
+    # 15a's two smokes (a training process each) and 15b side by side; 15c
+    # alone after them, its watchdog timing steps on an idle card.
+    with ThreadPoolExecutor(3) as pool:
+        pre_f = pool.submit(timed_from, "15a preemption", smoke.run, PHASE15_SIZE,
+                            PHASE15_DEVICE, os.path.join(PHASE15_DIR, "preempt"))
+        health_f = pool.submit(timed_from, "15a health", health_smoke.run, PHASE15_SIZE,
+                               PHASE15_DEVICE, os.path.join(PHASE15_DIR, "health"))
+        serve_f = pool.submit(timed_from, "15b", phase15_serving, smi)
+        pre, health, (serving, tiering) = pre_f.result(), health_f.result(), serve_f.result()
     flash = phase15_check_training(pre, health, smi)
     paged = phase15_check_serving(serving, tiering, smi)
-    for done in ("preempt", "health", "chaos", "tiering"):  # room for 15c's checkpoints
-        shutil.rmtree(os.path.join(PHASE15_DIR, done))
-    goodput = phase15_goodput(smi)
-    t2 = time.perf_counter()
+
+    # 15a's directories are removed beside 15c (unless the disk lacks the
+    # room for 15c's two checkpoints until they are gone).
+    def remove_15a():
+        for done in ("preempt", "health", "chaos", "tiering"):
+            shutil.rmtree(os.path.join(PHASE15_DIR, done))
+
+    with ThreadPoolExecutor(1) as pool:
+        removed = pool.submit(timed_from, "15a removal", remove_15a)
+        if shutil.disk_usage(PHASE15_DIR).free < 2.2 * ckpt_bytes:
+            removed.result()
+        goodput = timed_from("15c", phase15_goodput, smi)
+        removed.result()
+    t1 = time.perf_counter()
+    if fsync is None:
+        os.environ.pop(ENV_CHECKPOINT_FSYNC)
+    else:
+        os.environ[ENV_CHECKPOINT_FSYNC] = fsync
     shutil.rmtree(PHASE15_DIR, ignore_errors=True)
-    log(f"phase15 seconds: 15a {t_train:.1f} and 15b {t_serve:.1f} side by side "
-        f"({t1 - t0:.1f}), 15c {t2 - t1:.1f}, total {time.perf_counter() - t0:.1f}")
+    log("phase15 seconds from its start to each part's start and end: "
+        + ", ".join(f"{k} {a:.1f}-{b:.1f}" for k, (a, b) in sorted(took.items()))
+        + f"; total {t1 - t0:.1f}")
     flash = {k: flash[k] + goodput["launches"][k] for k in flash}
     return dict(counts={**flash, **paged}, goodput=goodput)
+
+
+PHASE16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase16")
+PHASE16_LAYERS = 2  # zero_smoke's llama3-8b size
+PHASE16_STEPS = 3  # zero_smoke's llama3-8b steps
+PHASE16_LOSS_REL = 1e-3
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase16a():
+    """A one-rank NCCL group, adopted by the port: every collective of
+    ``utils/operations.py`` and a ZeRO-shaped reduce-scatter / all-gather
+    on ``cuda``."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.parallel import collectives, zero
+    from accelerate_tpu_torch.utils import operations as ops
+
+    fresh_state()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        acc = Accelerator()
+        check(acc.state.backend == "nccl" and acc.num_processes == 1
+              and acc.mesh.device_mesh is not None, f"phase16a: state {acc.state}")
+        dev = acc.device
+        x = torch.arange(12, dtype=torch.float32, device=dev).reshape(3, 4)
+        collectives.reset_comm_log()
+        got = {
+            "gather": torch.equal(ops.gather(x), x),
+            "gather0d": ops.gather(x[0, 1]).tolist() == [1.0],
+            "gather_object": ops.gather_object([1, "a"]) == [1, "a"],
+            "broadcast": torch.equal(ops.broadcast(x), x),
+            "broadcast_object_list": ops.broadcast_object_list([{"k": 2}]) == [{"k": 2}],
+            "reduce_sum": torch.equal(ops.reduce(x, "sum", scale=2.0), x * 2),
+            "reduce_mean": torch.equal(ops.reduce(x, "mean"), x),
+            "pad": torch.equal(ops.pad_across_processes(x, dim=1), x),
+        }
+        g = torch.randn(1024, 4096, device=dev)
+        d = zero.shard_dim(tuple(g.shape), 2)
+        buf = g.movedim(d, 0).contiguous()
+        shard = collectives.reduce_scatter(buf)
+        full = collectives.all_gather(shard)
+        got["reduce_scatter"] = torch.equal(shard, buf)
+        got["all_gather"] = torch.equal(full, buf)
+        torch.cuda.synchronize()
+        ops_run = sorted(collectives.COMM_LOG)
+        log(f"phase16a nccl one-rank group: {got}; collectives called {ops_run}")
+        check(all(got.values()), f"phase16a: {got}")
+        check({"all_reduce", "all_gather", "broadcast", "reduce_scatter"} <= set(ops_run),
+              f"phase16a: collectives {ops_run}")
+    finally:
+        fresh_state()
+        dist.destroy_process_group()
+
+
+def phase16_reference(want, world, smi):
+    """One process, rank 0's weights, one step on the concatenated global
+    batch of step 1: its loss beside the processes' step-1 loss."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.parallel import zero_smoke
+
+    fresh_state()
+    gc_collect()
+    cfg = zero_smoke.llama_config()
+    data = zero_smoke.token_dataset(cfg.vocab_size)
+    acc = Accelerator()
+    model = llama.LlamaForCausalLM(cfg, seed=0)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    step = acc.make_train_step(model, opt, clip_norm=zero_smoke.CLIP)
+    batch = {"input_ids": torch.from_numpy(np.stack(data[:world])).to(acc.device)}
+    reset_flash_counts()
+    loss = float(step(batch))
+    counts = read_flash_counts()
+    rel = abs(loss - want) / abs(loss)
+    log(f"phase16b one-process step on the global batch: loss {loss:.6f} vs the processes' "
+        f"{want:.6f} (rel {rel:.2e}); flash {counts} ({smi})")
+    check(rel <= PHASE16_LOSS_REL, f"phase16b: global-batch loss rel gap {rel}")
+    del model, opt, step
+    fresh_state()
+    gc_collect()
+    return rows_of(data, world)
+
+
+def rows_of(data, world):
+    """What process ``r`` gets at step ``i`` from the shard loader: the
+    first 8 tokens of sequence ``world * i + r``."""
+    return [[[data[world * i + r][:8].tolist()] for i in range(len(data) // world)]
+            for r in range(world)]
+
+
+def phase16_check(summary, data_rows, tag, smi):
+    """16b's / 16c's proofs again from the processes' records."""
+    from accelerate_tpu_torch.parallel import zero_smoke
+
+    ranks = summary["per_rank"]
+    check(len(ranks) == summary["world"], f"{tag}: {len(ranks)} records for "
+                                          f"{summary['world']} processes")
+    for rec in ranks:
+        r = rec["rank"]
+        check(rec["zero_active"] == {"replicated": False, "zero": True},
+              f"{tag}: rank {r} zero_active {rec['zero_active']}")
+        check(rec["dispatches"] == {"replicated": PHASE16_STEPS, "zero": PHASE16_STEPS},
+              f"{tag}: rank {r} step calls {rec['dispatches']}, want {PHASE16_STEPS}")
+        for key in ("losses", "health", "grad_norm", "digest"):
+            check(rec[key]["replicated"] == rec[key]["zero"],
+                  f"{tag}: rank {r} {key} differ replicated vs ZeRO: {rec[key]}")
+            check(rec[key] == ranks[0][key], f"{tag}: {key} differ between rank 0 "
+                                             f"{ranks[0][key]} and rank {r} {rec[key]}")
+        check(min(rec["health"]["replicated"]) > zero_smoke.CLIP,
+              f"{tag}: rank {r} the clip {zero_smoke.CLIP} did not bind: pre-clip norms "
+              f"{rec['health']['replicated']}")
+    check(summary["losses"] == ranks[0]["losses"]["zero"], f"{tag}: summary losses "
+                                                          f"{summary['losses']}")
+    per_step = {"fused_attention_fwd": 2 * PHASE16_LAYERS,
+                "fused_attention_bwd_dq": PHASE16_LAYERS,
+                "fused_attention_bwd_dkv": PHASE16_LAYERS}
+    totals = dict.fromkeys(FLASH_KERNELS, 0)
+    for mode in ("replicated", "zero"):
+        for r, steps in enumerate(summary["launches"][mode]):
+            check(all(s == per_step for s in steps),
+                  f"{tag}: rank {r} {mode} flash launches {steps}, want {per_step} per step")
+            for s in steps:
+                for k in totals:
+                    totals[k] += s[k]
+    check(summary["rows"] == data_rows, f"{tag}: the processes' rows are not the halves of "
+                                        "the global batches")
+    alloc = summary["allocator_state_bytes"]
+    ratio = alloc["replicated"] / alloc["zero"]
+    check(ratio > 0.9 * summary["world"], f"{tag}: allocator opt-state bytes {alloc}")
+    med = summary["median_step_s"]
+    staged = {m: statistics.median(s for r in summary["staged_s"][m] for s in r[1:])
+              for m in ("replicated", "zero")}
+    log(f"{tag} {summary['world']} processes over {summary['backend']} on "
+        f"{summary['devices']}: losses {summary['losses']}, pre-clip norms "
+        f"{ranks[0]['health']['zero']} (clip {zero_smoke.CLIP}) and parameter digests "
+        f"bit-identical replicated == ZeRO on every process (compared above); "
+        f"opt state per process from the allocator {alloc['replicated'] / 1e9:.3f} -> "
+        f"{alloc['zero'] / 1e9:.3f} GB ({ratio:.3f}x; per_chip_bytes "
+        f"{summary['state_bytes']}); step s (median of steps 2-3, both processes) replicated "
+        f"{med['replicated']:.3f} zero {med['zero']:.3f}; of it the collectives' host time "
+        f"(gloo: staged through host memory) replicated {staged['replicated']:.3f} zero "
+        f"{staged['zero']:.3f}; per step bytes {summary['comm_per_step']}; peak "
+        f"{[round(b / 1e9, 2) for b in summary['peak_bytes'] if b]} GB; steps s "
+        f"{summary['step_s']}; build and broadcast s {summary['build_s']}; children "
+        f"{[round(c, 1) for c in summary['child_s']]} s, wall {summary['wall_s']:.1f} s ({smi})")
+    return totals
+
+
+def phase16(smi):
+    """Several processes; see the module docstring, Phase 16."""
+    from accelerate_tpu_torch.parallel import zero_smoke
+
+    t0 = time.perf_counter()
+    fresh_state()
+    gc_collect()
+    phase16a()
+    t1 = time.perf_counter()
+    shutil.rmtree(PHASE16_DIR, ignore_errors=True)
+    os.makedirs(PHASE16_DIR)
+    phase15_env()
+    log(f"phase16 parent holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved before the children")
+    # 16d's small processes run beside 16b's (they hold a few MB of the card).
+    small_proc = subprocess.Popen(
+        [sys.executable, "-m", "accelerate_tpu_torch.parallel.zero_smoke", "--workdir",
+         os.path.join(PHASE16_DIR, "d")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    summary = zero_smoke.run("llama3-8b", "cuda", world=2, backend="gloo",
+                             workdir=os.path.join(PHASE16_DIR, "b"))
+    t2 = time.perf_counter()
+    data_rows = phase16_reference(summary["losses"][0], 2, smi)
+    counts = phase16_check(summary, data_rows, "phase16b", smi)
+    t3 = time.perf_counter()
+    n_dev = torch.cuda.device_count()
+    if n_dev >= 2:
+        nccl = zero_smoke.run("llama3-8b", "cuda", world=n_dev, backend="nccl",
+                              workdir=os.path.join(PHASE16_DIR, "c"))
+        phase16_check(nccl, rows_of(zero_smoke.token_dataset(
+            zero_smoke.llama_config().vocab_size), n_dev), "phase16c", smi)
+    else:
+        log(f"phase16c not run: {n_dev} device")
+    t4 = time.perf_counter()
+    out, err = small_proc.communicate(timeout=600)
+    check(small_proc.returncode == 0, f"phase16d: zero_smoke exited {small_proc.returncode}: "
+                                      f"{err[-2000:]}")
+    small = json.loads(out.strip().splitlines()[-1])
+    check(small["losses"] and small["state_bytes"]["replicated"]
+          > 1.8 * small["state_bytes"]["zero"], f"phase16d: {small}")
+    t5 = time.perf_counter()
+    check(small["backend"] == ("nccl" if n_dev >= 2 else "gloo"), f"phase16d: {small}")
+    log(f"phase16d zero_smoke on the card ({small['backend']}, {small['devices']}): "
+        f"{small['steps']} steps bit-exact, opt state {small['state_bytes']}")
+    shutil.rmtree(PHASE16_DIR, ignore_errors=True)
+    log(f"phase16 seconds: 16a {t1 - t0:.1f}, 16b {t3 - t1:.1f} (children {t2 - t1:.1f}, "
+        f"reference step {t3 - t2:.1f}), 16c {t4 - t3:.1f}, 16d beside 16b (waited "
+        f"{t5 - t4:.1f} more; its wall {small['wall_s']:.1f}), total {t5 - t0:.1f} ({smi})")
+    return dict(counts=counts, seconds=t5 - t0)
 
 
 def main() -> int:
@@ -5029,45 +5302,56 @@ def main() -> int:
         _build.load(name)
     log(f"phase0 built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
-    p1 = phase1()
-    p2 = phase2()
-    win3 = phase3()
-    p4 = phase4()
-    p5 = phase5()
-    p6 = phase6(smi)
-    p7 = phase7(smi, p2[0])
+    secs = {0: time.perf_counter() - t_script}
+
+    def run(n, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[n] = time.perf_counter() - t
+        return out
+
+    p1 = run(1, phase1)
+    p2 = run(2, phase2)
+    win3 = run(3, phase3)
+    p4 = run(4, phase4)
+    p5 = run(5, phase5)
+    p6 = run(6, phase6, smi)
+    p7 = run(7, phase7, smi, p2[0])
     check(p7["paged_attention"] > 0 and p7["paged_window_attention"] > 0,
           f"phase 7 launched the paged kernels {p7} times")
-    p8 = phase8(smi)
+    p8 = run(8, phase8, smi)
     check(all(p8[n] > 0 for n in ("paged_attention", "paged_window_attention",
                                   "fused_attention_fwd")),
           f"phase 8 launched the kernels of its path {p8} times")
-    p9 = phase9(smi)
+    p9 = run(9, phase9, smi)
     check(all(p9[n] > 0 for n in FLASH_KERNELS),
           f"phase 9 launched the flash kernels {p9} times")
-    p10 = phase10(smi)
+    p10 = run(10, phase10, smi)
     check(all(p10["counts"][n] > 0 for n in REPLACES),
           f"phase 10 launched the kernels of its path {p10['counts']} times")
     check(all(p10["phi3"]["counts"][n] > 0 for n in FLASH_KERNELS),
           f"phase 10d launched the flash kernels {p10['phi3']['counts']} times")
     check(all(p10["phi3_f32"]["counts"][n] > 0 for n in FLASH_KERNELS),
           f"phase 10e launched the flash kernels {p10['phi3_f32']['counts']} times")
-    p11 = phase11(smi)
+    p11 = run(11, phase11, smi)
     check(all(p11["counts"][n] > 0 for n in ("paged_attention", "paged_window_attention")),
           f"phase 11 launched the paged kernels {p11['counts']} times")
     t12 = time.perf_counter()
-    p12 = phase12(smi)
+    p12 = run(12, phase12, smi)
     check(all(p12["counts"][n] > 0 for n in FLASH_KERNELS),
           f"phase 12 launched the flash kernels {p12['counts']} times")
     t13 = time.perf_counter()
-    phase13(smi)
+    run(13, phase13, smi)
     log(f"phases 12-13 seconds: 12 {t13 - t12:.1f}, 13 {time.perf_counter() - t13:.1f}")
-    p14 = phase14(smi, p2)
+    p14 = run(14, phase14, smi, p2)
     check(all(p14["counts"][n] > 0 for n in REPLACES),
           f"phase 14 launched the kernels of its path {p14['counts']} times")
-    p15 = phase15(smi)
+    p15 = run(15, phase15, smi)
     check(all(p15["counts"][n] > 0 for n in ("paged_attention", *FLASH_KERNELS)),
           f"phase 15 launched the kernels of its path {p15['counts']} times")
+    p16 = run(16, phase16, smi)
+    check(all(p16["counts"][n] > 0 for n in FLASH_KERNELS),
+          f"phase 16 launched the flash kernels {p16['counts']} times")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
@@ -5122,6 +5406,7 @@ def main() -> int:
                            launches_phase12=p12["counts"][name],
                            launches_phase14=p14["counts"][name],
                            launches_phase15=p15["counts"][name],
+                           launches_phase16=p16["counts"][name],
                            head_dims=list(fu_dims),
                            wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
                                        for geom, dt in p10["flash"]},
@@ -5136,6 +5421,7 @@ def main() -> int:
         log(f"kernels fp32 {name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}"
             + (f" previous_ms={r['previous_ms']:.4f}" if "previous_ms" in r else ""))
+    log("phase seconds: " + ", ".join(f"{n} {v:.1f}" for n, v in secs.items()))
     log(f"script seconds: {time.perf_counter() - t_script:.1f} ({smi})")
     log(json.dumps({"kernels": record}))
     log(smi)

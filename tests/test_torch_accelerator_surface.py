@@ -412,9 +412,15 @@ def test_no_cpu_flag_places_on_the_card_or_raises():
 
 
 def test_several_processes_raise_until_ported(monkeypatch):
+    """Several processes are ported: ``WORLD_SIZE=2`` starts a process group,
+    which needs a coordinator to meet at (none here), and leaves no state
+    behind when it cannot."""
+    for key in ("MASTER_ADDR", "ACCELERATE_COORDINATOR_ADDRESS", "ACCELERATE_NUM_PROCESSES"):
+        monkeypatch.delenv(key, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="no coordinator"):
         Accelerator(cpu=True)
+    assert not AcceleratorState._shared_state and not PartialState._shared_state
 
 
 # -- operations ----------------------------------------------------------------
@@ -556,8 +562,12 @@ def test_enable_preemption_handling_coordinated(tmp_path):
     for a in (jacc, acc):
         guard = a.enable_preemption_handling(str(tmp_path / "pre"), coordinated=False)
         guard.uninstall()
-    with pytest.raises(NotImplementedError, match="coordinated"):
-        Accelerator(cpu=True).enable_preemption_handling(str(tmp_path), coordinated=True)
+    # Coordinated at one process: the agreement is over a world of one.
+    guard = Accelerator(cpu=True).enable_preemption_handling(str(tmp_path), coordinated=True)
+    try:
+        assert guard._coordination_on() and not guard.should_stop()
+    finally:
+        guard.uninstall()
 
 
 @pytest.mark.parametrize("device_specific", [False, True])

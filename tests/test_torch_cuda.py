@@ -1629,3 +1629,52 @@ def test_telemetry_hooks_add_no_device_sync(cuda, tmp_path):
     finally:
         telemetry.disable()
         memledger.get_memory_ledger().unregister("x")
+
+
+# -- several processes: the ZeRO shard layout and the canonical norm ------------
+
+@pytest.mark.parametrize("degree", [2, 4, 8])
+def test_zero_shards_and_chunked_norm_on_the_card_match_the_cpu(cuda, degree):
+    """``chunked_global_norm`` and the ZeRO shard geometry (each chunk of a
+    leaf, moved to the front and back as the reduce-scatter buffer does) on
+    ``cuda`` against the CPU; one process, no group.  The norm within 1e-6
+    relative (the card sums each chunk in its own order), the chunks exact."""
+    from accelerate_tpu_torch.parallel import zero
+
+    gen = torch.Generator().manual_seed(degree)
+    shapes = [(4096, 14336), (1024, 4096), (4096,), (5,), (3, 8, 16), (7, 11)]
+    tree = [torch.randn(s, generator=gen) for s in shapes]
+    want = float(zero.chunked_global_norm(tree, degree))
+    got = float(zero.chunked_global_norm([t.to(cuda) for t in tree], degree))
+    assert abs(got - want) <= 1e-6 * want
+    for t in tree:
+        d = zero.shard_dim(tuple(t.shape), degree)
+        if d is None:
+            continue
+        dev = t.to(cuda)
+        buf = dev.movedim(d, 0).contiguous()
+        c = t.shape[d] // degree
+        for k in range(degree):
+            chunk = buf[k * c:(k + 1) * c].movedim(0, d).contiguous()
+            assert tuple(chunk.shape) == zero.shard_shape(tuple(t.shape), degree)
+            assert torch.equal(chunk.cpu(), t.narrow(d, k * c, c))
+
+
+def test_host_offload_keeps_the_state_pinned_and_steps_as_the_plain_optimizer(cuda):
+    from accelerate_tpu_torch.parallel import host_offload as ho
+
+    gen = torch.Generator().manual_seed(0)
+    p0 = torch.randn(64, 32, generator=gen)
+    grads = [torch.randn(64, 32, generator=gen).to(cuda) for _ in range(3)]
+    a = torch.nn.Parameter(p0.clone().to(cuda))
+    b = torch.nn.Parameter(p0.clone().to(cuda))
+    plain = torch.optim.AdamW([a], lr=1e-2)
+    off = ho.host_offload(torch.optim.AdamW([b], lr=1e-2))
+    for g in grads:
+        a.grad, b.grad = g.clone(), g.clone()
+        plain.step()
+        off.step()
+        st = off.state[b]
+        assert st["exp_avg"].device.type == "cpu" and st["exp_avg"].is_pinned()
+    assert ho.host_memory_kind() == "pinned_host"
+    assert torch.equal(a, b)

@@ -1,11 +1,12 @@
 """Names the JAX package exports, importable from the port at the same
 paths (``accelerate_tpu_torch``, ``.utils``, ``.pipeline``,
 ``.resilience``, ``.serving``, ``.state``, ``.tracking``, ``.logging``,
-``.local_sgd``, ``.models.gpt2``): the 19 that were ported in submodules
-only, those of the single-process surface, the trackers, logging, memory
-and utils helpers, GPT-2, the other model families, telemetry, and the
-one-process resilience (retry, health, fault injection), the serving
-chaos and the smoke modules (A5).  Each is imported from both
+``.local_sgd``, ``.models.gpt2``, ``.parallel``): the 19 that were
+ported in submodules only, those of the single-process surface, the
+trackers, logging, memory and utils helpers, GPT-2, the other model
+families, telemetry, the one-process resilience (retry, health, fault
+injection), the serving chaos and the smoke modules (A5), and several
+processes with the ZeRO sharded update (A6's first part).  Each is imported from both
 packages; a class in one is a class in the other.  Exact: no tolerance."""
 
 import importlib
@@ -165,6 +166,25 @@ A6_RESILIENCE = {"ElasticPlan", "ElasticResumeInfo", "ElasticTopologyError", "ca
                  "plan_resume", "validate_leaves", "reshard_tree", "fold_rng_bundle",
                  "recompute_skip_batches", "state_digest", "FleetError", "Heartbeat", "barrier",
                  "agree", "fleet_client"}
+A6_PART0 = {  # several processes, data parallelism and the ZeRO sharded update
+    "": ["ParallelismConfig", "DataLoaderDispatcher"],
+    ".utils": ["ParallelismConfig"],
+    ".utils.dataclasses": ["ParallelismConfig"],
+    ".data_loader": ["DataLoaderDispatcher"],
+    ".parallel": ["build_mesh", "data_axes", "local_mesh_shape", "mesh_axis_names",
+                  "model_axes", "ZeROConfig", "zero_axes", "zero_degree"],
+    ".parallel.mesh": ["build_mesh", "mesh_axis_names", "data_axes", "model_axes",
+                       "local_mesh_shape", "trivial_mesh", "install_global_mesh",
+                       "reset_global_mesh"],
+    ".parallel.sharding": ["replicated", "batch_spec", "data_sharding", "shard_params"],
+    ".parallel.zero": ["ZeROConfig", "zero_axes", "zero_degree", "shard_dim", "shard_spec",
+                       "shard_shape", "chunked_global_norm", "shard_opt_state",
+                       "opt_state_shardings", "opt_state_layout", "per_chip_bytes",
+                       "supported", "enable_overlap_flags", "maybe_enable_from_env"],
+    ".parallel.host_offload": ["host_memory_kind", "offload_to_host", "host_offload"],
+    ".parallel.zero_smoke": ["main"],
+}
+A6_PART0_CONSTANTS = {".parallel.zero": ["ENV_ZERO", "ENV_ZERO_OVERLAP", "ZERO_AXES"]}
 A1B_CONSTANTS = {".utils": ["SAFE_WEIGHTS_NAME", "WEIGHTS_NAME", "MODEL_NAME", "SCALER_NAME",
                             "TORCH_LAUNCH_PARAMS"],
                  ".utils.constants": ["STR_OPERATION_TO_FUNC", "FSDP_SHARDING_STRATEGY"]}
@@ -244,6 +264,28 @@ def test_a4_telemetry_all_is_jax_all_but_the_a6_names():
 
     assert set(jt.__all__) - set(tt.__all__) == A6_TELEMETRY
     assert set(tt.__all__) <= set(jt.__all__)
+
+
+@pytest.mark.parametrize("path,name", _cases(A6_PART0), ids=lambda v: v if v else "top")
+def test_a6_part0_names_import_at_jax_paths(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert isinstance(port_obj, type) == isinstance(jax_obj, type) and callable(port_obj)
+    assert port_obj.__module__.startswith("accelerate_tpu_torch")
+
+
+@pytest.mark.parametrize("path,name", _cases(A6_PART0_CONSTANTS), ids=lambda v: v)
+def test_a6_part0_constants_equal_jax(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert port_obj == jax_obj
+
+
+def test_a6_part0_zero_all_is_jax_all():
+    import accelerate_tpu.parallel.host_offload as jh
+    import accelerate_tpu.parallel.zero as jz
+    import accelerate_tpu_torch.parallel.host_offload as th
+    import accelerate_tpu_torch.parallel.zero as tz
+
+    assert tz.__all__ == jz.__all__ and th.__all__ == jh.__all__
 
 
 @pytest.mark.parametrize("path,name", _cases(A5), ids=lambda v: v if v else "top")

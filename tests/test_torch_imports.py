@@ -104,6 +104,13 @@ def test_source_names_no_jax_import(path):
     "accelerate_tpu_torch.telemetry.timeline",
     "accelerate_tpu_torch.telemetry.profile_scan",
     "accelerate_tpu_torch.telemetry.report",
+    "accelerate_tpu_torch.parallel",
+    "accelerate_tpu_torch.parallel.collectives",
+    "accelerate_tpu_torch.parallel.mesh",
+    "accelerate_tpu_torch.parallel.sharding",
+    "accelerate_tpu_torch.parallel.zero",
+    "accelerate_tpu_torch.parallel.host_offload",
+    "accelerate_tpu_torch.parallel.zero_smoke",
 ])
 def test_robustness_modules_are_checked(name):
     """The serving robustness layer's modules and the generation and tracing

@@ -330,8 +330,9 @@ def test_preemption_guard_plumbing():
         assert seen[-1] == ("prev", signal.SIGUSR2) and not guard.should_stop()
     finally:
         signal.signal(signal.SIGUSR2, prev)
-    with pytest.raises(NotImplementedError, match="coordinated"):
-        PreemptionGuard(coordinated=True)
+    # Coordinated with no process group: the agreement is this process's flag.
+    coordinated = PreemptionGuard(signals=(signal.SIGUSR2,), coordinated=True)
+    assert coordinated._coordination_on() and not coordinated.should_stop()
 
 
 def test_check_preemption_writes_checkpoint_resume_from_latest_loads(tmp_path):
