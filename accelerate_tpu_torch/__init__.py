@@ -45,7 +45,11 @@ Ported so far:
   collectives over the group) and the ZeRO sharded update
   (``parallel/zero.py``, ``make_train_step(zero=True)``), with host offload
   of the optimizer state, multi-process checkpoints, ``LocalSGD``'s average
-  and the coordinated ``PreemptionGuard``;
+  and the coordinated ``PreemptionGuard``; FSDP on any prepared model and
+  tensor parallelism on the llama family (``parallel/sharding.py``,
+  :class:`FullyShardedDataParallelPlugin`), with the DeepSpeed and
+  Megatron-LM config dialects (``utils/deepspeed.py``, ``utils/megatron.py``)
+  and ``utils/fsdp_utils.py``;
 - resilience for one process (``resilience/``): the checkpoint I/O retry
   (``retry.py``), the numerical-health guard (``health.py``,
   :meth:`Accelerator.enable_health_guard`), the JAX package's fault
@@ -66,9 +70,11 @@ from .utils import (  # noqa: E402
     AutocastKwargs,
     DataLoaderConfiguration,
     DDPCommunicationHookType,
+    DeepSpeedPlugin,
     DistributedDataParallelKwargs,
     DistributedInitKwargs,
     DistributedType,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
     InitProcessGroupKwargs,
@@ -96,8 +102,9 @@ _LAZY = {
 
 __all__ = [
     "Accelerator", "AcceleratorState", "AutocastKwargs", "DDPCommunicationHookType",
-    "DataLoaderConfiguration", "DistributedDataParallelKwargs", "DistributedInitKwargs",
-    "DistributedType", "FunctionalModel", "GradScalerKwargs", "GradientAccumulationPlugin",
+    "DataLoaderConfiguration", "DeepSpeedPlugin", "DistributedDataParallelKwargs",
+    "DistributedInitKwargs", "DistributedType", "FullyShardedDataParallelPlugin",
+    "FunctionalModel", "GradScalerKwargs", "GradientAccumulationPlugin",
     "GradientState", "InitProcessGroupKwargs", "MixedPrecisionPolicy", "ParallelismConfig",
     "PartialState",
     "PreparedModel", "ProfileKwargs", "ProjectConfiguration", "__version__", "set_seed",

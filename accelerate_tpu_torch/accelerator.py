@@ -31,11 +31,16 @@ a rewind (:mod:`.resilience`).  Serving:
 forward with bf16 copies of its fp32 parameters (:class:`PreparedModel`);
 the process surface (``print``, ``is_main_process``, ``gather_for_metrics``,
 ...) is the JAX ``Accelerator``'s (:mod:`.state`, :mod:`.utils.operations`).
-With several processes the mesh is pure data parallelism: ``prepare``
-broadcasts rank 0's parameters, each process loads its rows of every global
-batch, and each optimizer step averages the gradients over the processes
-(``make_train_step(zero=True)`` reduce-scatters them instead and updates a
-shard of the optimizer state per process: :mod:`.parallel.zero`).  Experiment trackers: ``log_with`` with
+With several processes the mesh is pure data parallelism by default:
+``prepare`` broadcasts rank 0's parameters, each process loads its rows of
+every global batch, and each optimizer step averages the gradients over the
+processes (``make_train_step(zero=True)`` reduce-scatters them instead and
+updates a shard of the optimizer state per process: :mod:`.parallel.zero`).
+With an ``fsdp_plugin`` (or a ``ParallelismConfig`` with ``fsdp`` / ``tp``,
+or the DeepSpeed and Megatron-LM config dialects) ``prepare`` keeps only
+this process's shard of each parameter (:mod:`.parallel.sharding`): the
+forward gathers what it uses, and under ``tp`` the llama family runs
+Megatron's tensor parallelism.  Experiment trackers: ``log_with`` with
 :meth:`~Accelerator.init_trackers`, :meth:`~Accelerator.log` and
 :meth:`~Accelerator.end_training` (:mod:`.tracking`).
 
@@ -70,7 +75,8 @@ from .data_loader import (
     prepare_data_loader,
     skip_first_batches,
 )
-from .optimizer import AcceleratedOptimizer, global_norm
+from .optimizer import AcceleratedOptimizer
+from .parallel.mesh import data_degree, data_index
 from .pipeline.train_step import accumulate_grads
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, PartialState, resolve_device
@@ -114,11 +120,15 @@ class FunctionalModel(nn.Module):
     its path in the tree, joined with dots (``layers.wq``), as the JAX
     ``JaxModel.state_dict`` does.  ``params`` is rebuilt from the
     registered leaves on each read, so ``torch.func.functional_call``
-    (a :class:`PreparedModel`'s 16-bit copies) reaches ``apply_fn``."""
+    (a :class:`PreparedModel`'s 16-bit copies) reaches ``apply_fn``.
+    ``partition_rules`` (path regex -> spec, the JAX ``JaxModel``'s) lay
+    its leaves out on a mesh with model axes; a leaf they split over
+    ``tp`` raises there, as ``apply_fn`` sees whole leaves only."""
 
-    def __init__(self, apply_fn: Callable, params: Any):
+    def __init__(self, apply_fn: Callable, params: Any, partition_rules=None):
         super().__init__()
         self.apply_fn = apply_fn
+        self.partition_rules = partition_rules
         self._leaves = nn.ParameterList()
         names = []
 
@@ -202,7 +212,19 @@ class Accelerator:
       process group; no loss is scaled, so the scaler's is held only);
     - ``parallelism_config``: the mesh
       (:class:`~accelerate_tpu_torch.utils.dataclasses.ParallelismConfig`;
-      default pure data parallelism over the processes);
+      default pure data parallelism over the processes, or every process
+      on ``fsdp`` with an ``fsdp_plugin``);
+    - ``fsdp_plugin``: a
+      :class:`~accelerate_tpu_torch.utils.dataclasses.FullyShardedDataParallelPlugin`
+      (else one under ``ACCELERATE_USE_FSDP``);
+    - ``deepspeed_plugin`` / ``megatron_lm_plugin``: a config dialect
+      (:mod:`~accelerate_tpu_torch.utils.deepspeed`,
+      :mod:`~accelerate_tpu_torch.utils.megatron`; else one under
+      ``ACCELERATE_USE_DEEPSPEED`` / ``ACCELERATE_USE_MEGATRON_LM``),
+      mapped onto the mesh and an FSDP strategy as in the JAX package
+      (an explicit ``fsdp_plugin`` / ``parallelism_config`` wins), with its
+      ``mixed_precision``, accumulation and clipping, and
+      ``distributed_type`` ``DEEPSPEED`` / ``MEGATRON_LM``;
     - ``rng_types``: kept for the JAX surface (the loaders' samplers are
       seeded alike on every process);
     - ``log_with``: a tracker name (``"generic"``, the JSONL tracker;
@@ -222,7 +244,8 @@ class Accelerator:
                  kwargs_handlers: Optional[List[KwargsHandler]] = None,
                  rng_types: Optional[list] = None, even_batches: bool = True,
                  dispatch_batches: Optional[bool] = None, use_seedable_sampler: bool = False,
-                 device=None, parallelism_config=None):
+                 device=None, parallelism_config=None, fsdp_plugin=None, deepspeed_plugin=None,
+                 megatron_lm_plugin=None):
         if cpu and device is not None and str(device) != "cpu":
             raise ValueError(f"cpu=True contradicts device={device!r}")
         self.ddp_handler = None
@@ -249,9 +272,38 @@ class Accelerator:
         # when several processes run.
         if AcceleratorState._shared_state or PartialState._shared_state:
             device = resolve_device("cpu" if cpu else device)
+        deepspeed_plugin, megatron_lm_plugin, ds_plugins = _dialects(deepspeed_plugin,
+                                                                     megatron_lm_plugin)
+        self._deepspeed_plugin = deepspeed_plugin
+        self.megatron_lm_plugin = megatron_lm_plugin
+        dialect = deepspeed_plugin or megatron_lm_plugin
+        if dialect is not None:
+            if megatron_lm_plugin is not None:
+                _refuse_megatron_parts(megatron_lm_plugin)
+            world = PartialState(cpu, device=device,
+                                 init_kwargs=self.init_handler).num_processes
+            if parallelism_config is None:
+                parallelism_config = dialect.to_parallelism_config(world)
+            if fsdp_plugin is None:
+                fsdp_plugin = dialect.to_fsdp_plugin()
+        if deepspeed_plugin is not None:
+            if mixed_precision is None:
+                mixed_precision = deepspeed_plugin.mixed_precision
+            if gradient_accumulation_steps == 1:
+                gradient_accumulation_steps = deepspeed_plugin.gradient_accumulation_steps
+            deepspeed_plugin.select()
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu, device=device,
                                       parallelism_config=parallelism_config,
-                                      init_kwargs=self.init_handler)
+                                      fsdp_plugin=fsdp_plugin, init_kwargs=self.init_handler)
+        if dialect is not None:
+            # As the JAX package does: the dialect rewrites distributed_type on
+            # the shared state, so every reader agrees.
+            self.state.deepspeed_plugin = deepspeed_plugin
+            if deepspeed_plugin is not None:
+                self.state.deepspeed_plugins = ds_plugins or {"default": deepspeed_plugin}
+            self.state.megatron_lm_plugin = megatron_lm_plugin
+            self.state.distributed_type = (DistributedType.DEEPSPEED if deepspeed_plugin
+                                           is not None else DistributedType.MEGATRON_LM)
         self.device = self.state.device
         self.project_configuration = project_config or ProjectConfiguration()
         if project_dir is not None and self.project_configuration.project_dir is None:
@@ -330,6 +382,19 @@ class Accelerator:
     @property
     def mixed_precision(self) -> str:
         return self.state.mixed_precision
+
+    @property
+    def deepspeed_plugin(self):
+        """The active DeepSpeed dialect (the state's, which follows
+        ``select()``), None without one."""
+        active = self.state.__dict__.get("deepspeed_plugin")
+        return active if active is not None else self.__dict__.get("_deepspeed_plugin")
+
+    @property
+    def _dialect_grad_clip(self):
+        """The active dialect's ``gradient_clipping`` (None without one)."""
+        dialect = self.deepspeed_plugin or self.megatron_lm_plugin
+        return dialect.gradient_clipping if dialect is not None else None
 
     @property
     def fp8_backend(self) -> Optional[str]:
@@ -434,7 +499,12 @@ class Accelerator:
         """Prepare models and dataloaders first, then optimizers (each paired
         with the model whose parameters it holds), then schedulers (each
         driving the prepared optimizers); anything else passes through.
-        Returns the objects in order (one object unwrapped)."""
+        Under the DeepSpeed dialect its ``"auto"`` fields are filled from
+        the prepared dataloaders, a ``DummyOptim`` becomes the ``AdamW`` it
+        describes and a ``DummyScheduler`` its scheduler, as in the JAX
+        package.  Returns the objects in order (one object unwrapped)."""
+        from .utils.deepspeed import DummyOptim, DummyScheduler
+
         staged = {}
         for i, obj in enumerate(args):
             if isinstance(obj, nn.Module):
@@ -442,11 +512,27 @@ class Accelerator:
             elif isinstance(obj, (torch.utils.data.DataLoader, DataLoaderShard,
                                   DataLoaderDispatcher)):
                 staged[i] = self.prepare_data_loader(obj)
+        if self.deepspeed_plugin is not None:
+            micro_bs = next((dl.batch_size for dl in self._dataloaders
+                             if getattr(dl, "batch_size", None)), None)
+            self.deepspeed_plugin.fill_auto(train_micro_batch_size_per_gpu=micro_bs,
+                                            num_devices=self.num_processes)
+        realized = {}  # id(DummyOptim) -> the torch optimizer it became
         for i, obj in enumerate(args):
-            if i not in staged and isinstance(obj, (torch.optim.Optimizer, AcceleratedOptimizer)):
+            if i in staged:
+                continue
+            if isinstance(obj, DummyOptim):
+                real = torch.optim.AdamW(obj.params, lr=obj.lr, weight_decay=obj.weight_decay)
+                realized[id(obj)] = real
+                staged[i] = self.prepare_optimizer(real)
+            elif isinstance(obj, (torch.optim.Optimizer, AcceleratedOptimizer)):
                 staged[i] = self.prepare_optimizer(obj)
         for i, obj in enumerate(args):
-            if i not in staged:
+            if i in staged:
+                continue
+            if isinstance(obj, DummyScheduler):
+                staged[i] = self.prepare_scheduler(_realize_scheduler(obj, realized))
+            else:
                 staged[i] = self.prepare_scheduler(obj) if _is_scheduler_like(obj) else obj
         out = [staged[i] for i in range(len(args))]
         return out[0] if len(out) == 1 else tuple(out)
@@ -454,7 +540,8 @@ class Accelerator:
     def prepare_data_loader(self, data_loader, device_placement: Optional[bool] = None):
         """Wrap a torch ``DataLoader`` (or any iterable of batches) as a
         :class:`~accelerate_tpu_torch.data_loader.DataLoaderShard` that
-        yields this process's batches on this accelerator's device (left
+        yields this process's batches (its data shard's: processes that
+        differ only on ``tp`` read the same rows) on this accelerator's device (left
         where they are without ``device_placement``) and tells
         :meth:`accumulate` about its last batch; under ``dispatch_batches``
         a :class:`~accelerate_tpu_torch.data_loader.DataLoaderDispatcher`."""
@@ -470,8 +557,8 @@ class Accelerator:
             data_seed=cfg.data_seed, non_blocking=cfg.non_blocking,
             use_stateful_dataloader=cfg.use_stateful_dataloader,
             static_shape_tail=cfg.static_shape_tail, prefetch_to_device=cfg.prefetch_to_device,
-            gradient_state=self.gradient_state, num_processes=self.num_processes,
-            process_index=self.process_index, dispatch_batches=cfg.dispatch_batches)
+            gradient_state=self.gradient_state, num_processes=data_degree(self.mesh),
+            process_index=data_index(self.mesh), dispatch_batches=cfg.dispatch_batches)
         self._dataloaders.append(prepared)
         return prepared
 
@@ -495,11 +582,17 @@ class Accelerator:
         """Move ``model`` (an ``nn.Module`` or a :class:`FunctionalModel`) to
         this accelerator's device in place (its ``Parameter`` objects stay
         the same, so an optimizer built over them stays valid; not moved
-        without ``device_placement``) and register it; with several
-        processes its parameters and buffers take rank 0's values.  Under a 16-bit
-        ``mixed_precision`` it comes back as a :class:`PreparedModel` around
-        it, under ``"no"`` as itself.  ``evaluation_mode`` puts it in
-        ``eval()`` mode."""
+        without ``device_placement``) and register it.  With several
+        processes its parameters and buffers take rank 0's values, and on a
+        mesh with model axes each process keeps its shard of each parameter
+        by the specs of :func:`~.parallel.sharding.make_param_specs` (the
+        model's ``partition_rules``, then the FSDP plugin's strategy with its
+        ``min_num_params``), kept as ``model._param_specs`` as in the JAX
+        package.  Under a 16-bit ``mixed_precision`` it comes back as a
+        :class:`PreparedModel` around it, under ``"no"`` as itself (a
+        sharded model whose forward does not realize its layout, as the
+        llama family's does, in a :class:`PreparedModel` that gathers its
+        leaves).  ``evaluation_mode`` puts it in ``eval()`` mode."""
         if not isinstance(model, nn.Module):
             raise TypeError(f"prepare_model takes an nn.Module or a FunctionalModel, "
                             f"got {type(model).__name__}")
@@ -508,17 +601,49 @@ class Accelerator:
                 return m
         if self.device_placement if device_placement is None else device_placement:
             model.to(self.device)
+        gathers = False
         if self.num_processes > 1:
-            # Every replica starts from rank 0's values, bit for bit.
-            from .parallel.sharding import shard_params
-
-            shard_params(list(model.parameters()) + list(model.buffers()), self.mesh)
+            gathers = self._shard_model(model)
         dt = self.state.dtype_policy.compute_dtype
-        prepared = model if dt == torch.float32 else PreparedModel(model, dt)
+        prepared = model if dt == torch.float32 and not gathers else PreparedModel(model, dt)
         if evaluation_mode:
             prepared.eval()
         self._models.append(prepared)
         return prepared
+
+    def _shard_model(self, model: nn.Module) -> bool:
+        """Broadcast rank 0's values into every process's parameters and
+        buffers, then keep each process's shards (see :meth:`prepare_model`).
+        Returns whether the forward must gather the leaves whole."""
+        from .parallel.sharding import (
+            Layout,
+            _leaves,
+            is_sharded,
+            make_param_specs,
+            shard_params,
+        )
+
+        if hasattr(model, "params") and isinstance(model.params, dict):
+            tree = model.params
+        else:
+            tree = {n.replace(".", "/"): p for n, p in model.named_parameters()}
+        rules = getattr(model, "partition_rules", None)
+        specs = make_param_specs(tree, self.mesh, self.state.fsdp_plugin, rules=rules)
+        shard_params(tree, self.mesh, specs)
+        shard_params(list(model.buffers()), self.mesh)
+        model._param_specs = specs
+        mesh = self.mesh
+        if mesh.shape["fsdp"] == 1 and mesh.shape["tp"] == 1:
+            return False
+        layout = Layout(mesh, specs)
+        handles = getattr(model, "handles_layout", None)
+        if handles is not None and handles():
+            model._layout = layout
+            return False
+        if not any(is_sharded(s) for s in _leaves(specs, tuple)):
+            return False
+        model._gather_layout = layout
+        return True
 
     def prepare_optimizer(self, optimizer: torch.optim.Optimizer) -> AcceleratedOptimizer:
         """Wrap ``optimizer``, paired by parameter identity with the prepared
@@ -528,12 +653,29 @@ class Accelerator:
         ids = {id(p) for group in optimizer.param_groups for p in group["params"]}
         for model in reversed(self._models):
             if any(id(p) in ids for p in model.parameters()):
+                if self._host_offload_requested():
+                    from .parallel.host_offload import host_offload
+
+                    optimizer = host_offload(optimizer)
                 prepared = AcceleratedOptimizer(optimizer, model, self.gradient_state,
                                                 mesh=self.mesh, sync_dtype=self._grad_sync_dtype)
+                clip = self._dialect_grad_clip
+                if clip is not None and float(clip) > 0:
+                    # The engines applied a config's clipping on every step;
+                    # DeepSpeed's 0.0 means off.
+                    prepared._clip_norm = float(clip)
                 self._optimizers.append(prepared)
                 return prepared
         raise ValueError("prepare the model before (or together with) its optimizer: no "
                          "prepared model owns this optimizer's parameters")
+
+    def _host_offload_requested(self) -> bool:
+        """The FSDP plugin's ``cpu_offload`` or the DeepSpeed dialect's
+        ``offload_optimizer`` device: the optimizer's state in host memory
+        (:mod:`.parallel.host_offload`), as the JAX package reads them."""
+        fsdp = getattr(self.state.fsdp_plugin, "cpu_offload", False)
+        ds = getattr(self.deepspeed_plugin, "offload_optimizer_device", None) in ("cpu", "nvme")
+        return bool(fsdp or ds)
 
     # -- the eager training loop ---------------------------------------------
 
@@ -572,17 +714,23 @@ class Accelerator:
 
     def clip_grad_norm_(self, parameters=None, max_norm: float = 1.0, norm_type: float = 2.0):
         """Arm global-norm clipping for the next optimizer step (one shot)
-        and return the accumulated gradients' current norm (None before any
-        backward; with several processes, of this process's gradients: the
-        clip itself uses the norm of their average).  The norm is always the global 2-norm: like the JAX
-        ``Accelerator``, another ``norm_type`` is ignored, with a warning."""
+        and return the norm that step will clip: that of the accumulated
+        gradients averaged over the data axes, as the JAX ``Accelerator``
+        returns the global gradient's (None before any backward).  With
+        several processes the average is taken here, on a sync step in place
+        (the step does not take it again); with sharded leaves each distinct
+        shard counts once.  The norm is always the global 2-norm: another
+        ``norm_type`` is ignored, with a warning."""
         if norm_type != 2.0:
             warnings.warn(f"clip_grad_norm_ ignores norm_type={norm_type}: it clips to and "
                           "returns the global 2-norm", stacklevel=2)
         for opt in self._optimizers:
             opt._clip_norm_once = float(max_norm)
-        grads = [p.grad for p in self._trainable() if p.grad is not None]
-        return global_norm(grads) if grads else None
+        for opt in self._optimizers:
+            norm = opt._grad_norm_now()
+            if norm is not None:
+                return norm
+        return None
 
     def clip_grad_value_(self, parameters=None, clip_value: float = 1.0) -> None:
         """Arm elementwise gradient clipping for the next optimizer step
@@ -666,11 +814,31 @@ class Accelerator:
     def unwrap_model(self, model, keep_fp32_wrapper: bool = True,
                      keep_torch_compile: bool = True) -> nn.Module:
         """The original module of a prepared model, with its fp32
-        parameters (see :func:`~accelerate_tpu_torch.utils.other.extract_model_from_parallel`)."""
+        parameters (see :func:`~accelerate_tpu_torch.utils.other.extract_model_from_parallel`).
+        A sharded model's leaves are gathered (a collective: every process
+        calls it) into a copy of the module with its full weights on the
+        main process; the others get their sharded module."""
         from .utils.other import extract_model_from_parallel
 
-        return extract_model_from_parallel(model, keep_fp32_wrapper=keep_fp32_wrapper,
-                                           keep_torch_compile=keep_torch_compile)
+        module = extract_model_from_parallel(model, keep_fp32_wrapper=keep_fp32_wrapper,
+                                             keep_torch_compile=keep_torch_compile)
+        if not _is_sharded_model(module):
+            return module
+        from .parallel.sharding import full_state_dict
+
+        full = full_state_dict(module)
+        return _whole_copy(module, full) if self.is_main_process else module
+
+    def get_state_dict(self, model, unwrap: bool = True) -> dict:
+        """``model``'s state dict (fp32, under its names): a prepared
+        wrapper's is its module's, so ``unwrap`` changes nothing.  A sharded
+        model's leaves are gathered to their full shapes (a collective)."""
+        module = model.module if isinstance(model, PreparedModel) else model
+        if _is_sharded_model(module):
+            from .parallel.sharding import full_state_dict
+
+            return full_state_dict(module)
+        return (self.unwrap_model(model) if unwrap else model).state_dict()
 
     @contextlib.contextmanager
     def autocast(self, autocast_handler=None):
@@ -869,16 +1037,19 @@ class Accelerator:
                    safe_serialization: bool = True) -> str:
         """``model``'s weights as safetensors under ``save_directory`` (a
         ``model.pkl`` ``torch.save`` archive without
-        ``safe_serialization``)."""
+        ``safe_serialization``); a sharded model's are gathered and written
+        by the main process."""
         from .checkpointing import save_model_weights
 
+        module = model.module if isinstance(model, PreparedModel) else model
+        if _is_sharded_model(module):
+            full = self.get_state_dict(module)
+            if not self.is_main_process:
+                return save_directory
+            return save_model_weights(None, save_directory, max_shard_size=max_shard_size,
+                                      state_dict=full, safe_serialization=safe_serialization)
         return save_model_weights(model, save_directory, max_shard_size=max_shard_size,
                                   safe_serialization=safe_serialization)
-
-    def get_state_dict(self, model, unwrap: bool = True) -> dict:
-        """``model``'s state dict (fp32, under its names): a prepared
-        wrapper's is its module's, so ``unwrap`` changes nothing."""
-        return (self.unwrap_model(model) if unwrap else model).state_dict()
 
     def skip_first_batches(self, dataloader, num_batches: int = 0):
         return skip_first_batches(dataloader, num_batches)
@@ -1063,3 +1234,95 @@ def _is_scheduler_like(obj) -> bool:
     if callable(obj) and not hasattr(obj, "step"):
         return True
     return hasattr(obj, "step") and hasattr(obj, "get_last_lr")
+
+
+def _dialects(deepspeed_plugin, megatron_lm_plugin):
+    """The DeepSpeed and Megatron-LM plugins, from the arguments or, with
+    neither, from ``ACCELERATE_USE_DEEPSPEED`` (with
+    ``ACCELERATE_DEEPSPEED_CONFIG_FILE``) / ``ACCELERATE_USE_MEGATRON_LM``;
+    a dict of DeepSpeed plugins registers them all, the first active.
+    Returns ``(deepspeed, megatron, ds_plugins)``."""
+    if deepspeed_plugin is not None and megatron_lm_plugin is not None:
+        raise ValueError("Pass either deepspeed_plugin or megatron_lm_plugin, not both")
+    if deepspeed_plugin is None and megatron_lm_plugin is None:
+        from .utils.environment import parse_flag_from_env
+
+        if parse_flag_from_env("ACCELERATE_USE_DEEPSPEED"):
+            from .utils.deepspeed import DeepSpeedPlugin
+
+            deepspeed_plugin = DeepSpeedPlugin(
+                hf_ds_config=os.environ.get("ACCELERATE_DEEPSPEED_CONFIG_FILE"))
+        elif parse_flag_from_env("ACCELERATE_USE_MEGATRON_LM"):
+            from .utils.megatron import MegatronLMPlugin
+
+            megatron_lm_plugin = MegatronLMPlugin()
+    ds_plugins = None
+    if isinstance(deepspeed_plugin, dict):
+        from .utils.deepspeed import DeepSpeedPlugin
+
+        if not deepspeed_plugin:
+            raise ValueError("deepspeed_plugin dict must not be empty")
+        for key, value in deepspeed_plugin.items():
+            if not isinstance(value, DeepSpeedPlugin):
+                raise TypeError(
+                    f"deepspeed_plugin[{key!r}] must be a DeepSpeedPlugin, got "
+                    f"{type(value).__name__} (raw DS config dicts go through "
+                    "DeepSpeedPlugin(hf_ds_config=...))")
+        ds_plugins = dict(deepspeed_plugin)
+        deepspeed_plugin = next(iter(ds_plugins.values()))
+    return deepspeed_plugin, megatron_lm_plugin, ds_plugins
+
+
+def _refuse_megatron_parts(plugin) -> None:
+    """The Megatron-LM knobs whose axes are not ported raise, each naming
+    its ROADMAP part."""
+    if plugin.pp_degree > 1:
+        raise NotImplementedError(
+            f"MegatronLMPlugin(pp_degree={plugin.pp_degree}): pipeline parallelism is not "
+            "ported to accelerate_tpu_torch yet (ROADMAP A7)")
+    if plugin.sequence_parallelism:
+        raise NotImplementedError(
+            "MegatronLMPlugin(sequence_parallelism=True): sequence parallelism is not ported "
+            "to accelerate_tpu_torch yet (ROADMAP A6 part 2)")
+
+
+def _realize_scheduler(dummy, realized: dict):
+    """The torch scheduler a ``DummyScheduler`` stands for: its
+    ``lr_scheduler_callable`` on the optimizer, else DeepSpeed's WarmupLR
+    (linear warmup over ``warmup_num_steps``, then constant)."""
+    real_opt = realized.get(id(dummy.optimizer))
+    if real_opt is None and isinstance(dummy.optimizer, torch.optim.Optimizer):
+        real_opt = dummy.optimizer
+    if real_opt is None:
+        raise ValueError("DummyScheduler's optimizer must be the DummyOptim (or torch "
+                         "optimizer) passed to the same prepare() call")
+    if dummy.lr_scheduler_callable is not None:
+        return dummy.lr_scheduler_callable(real_opt)
+    warm = max(int(dummy.warmup_num_steps or 0), 0)
+    return torch.optim.lr_scheduler.LambdaLR(
+        real_opt, lambda step: min(1.0, (step + 1) / warm) if warm else 1.0)
+
+
+def _is_sharded_model(module) -> bool:
+    from .parallel.sharding import is_sharded, spec_of
+
+    return any(is_sharded(spec_of(p)) for p in module.parameters())
+
+
+def _whole_copy(module: nn.Module, full: dict) -> nn.Module:
+    """A copy of ``module`` holding the full tensors ``full`` (its state
+    dict's names), without the sharded layout."""
+    import copy
+
+    saved = {k: module.__dict__.pop(k) for k in ("_layout", "_gather_layout")
+             if k in module.__dict__}
+    try:
+        out = copy.deepcopy(module)
+    finally:
+        module.__dict__.update(saved)
+    with torch.no_grad():
+        for name, t in out.state_dict(keep_vars=True).items():
+            t.data = full[name].to(t.device)
+            t.__dict__.pop("_spec", None)
+            t.__dict__.pop("_full_shape", None)
+    return out

@@ -178,7 +178,34 @@ def load_model_weights(model, input_dir: str, weights_name: str = WEIGHTS_NAME) 
     state_dict = read_safetensors_state_dict(input_dir, weights_name)
     if state_dict is None:
         raise FileNotFoundError(f"no {weights_name} (or its index) under {input_dir!r}")
+    if _sharded(model):
+        from .parallel.sharding import load_full_state_dict
+
+        load_full_state_dict(getattr(model, "module", model), state_dict)
+        return
     model.load_state_dict(state_dict)
+
+
+def _sharded(model) -> bool:
+    """Whether a prepared model holds shards of its leaves."""
+    from .parallel.sharding import is_sharded, spec_of
+
+    return any(is_sharded(spec_of(p)) for p in model.parameters())
+
+
+def check_state_dict_type(accelerator) -> None:
+    """A sharded model saves and loads through the consolidated path (the
+    FSDP ``FULL_STATE_DICT``: gathered on save, re-sharded by spec on
+    load); the plugin's ``SHARDED_STATE_DICT`` (its default, as in the JAX
+    package) and ``LOCAL_STATE_DICT`` raise."""
+    plugin = getattr(accelerator.state, "fsdp_plugin", None)
+    kind = getattr(plugin, "state_dict_type", "FULL_STATE_DICT") or "FULL_STATE_DICT"
+    if kind != "FULL_STATE_DICT" and any(_sharded(m) for m in accelerator._models):
+        raise NotImplementedError(
+            f"state_dict_type={kind!r} of a sharded model is not ported to accelerate_tpu_torch "
+            "yet (ROADMAP A6 part 3, saves across processes); use "
+            "FullyShardedDataParallelPlugin(state_dict_type='FULL_STATE_DICT') or "
+            "FSDP_STATE_DICT_TYPE=FULL_STATE_DICT")
 
 
 def _loader_position_name(i: int, rank: int) -> str:
@@ -292,6 +319,7 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
         write_manifest,
     )
 
+    check_state_dict_type(accelerator)
     fsync = fsync_enabled()
     final_dir = _resolve_output_dir(accelerator, output_dir)
     rank = accelerator.process_index
@@ -322,8 +350,10 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None,
 
     t0 = time.perf_counter()
     files = {}
-    # Every process gathers (a ZeRO state's gather is a collective); the
-    # main one writes.
+    # Every process gathers (a ZeRO state's gather is a collective, and so
+    # is a sharded model's); the main one writes.
+    if weights is None and any(_sharded(m) for m in accelerator._models):
+        weights = [accelerator.get_state_dict(m) for m in accelerator._models]
     opt_states = [_to_host(opt.state_dict()) for opt in accelerator._optimizers]
     if is_writer:
         if weights is None:
@@ -440,6 +470,7 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None,
         verify_checkpoint(input_dir)
     t1 = time.perf_counter()
 
+    check_state_dict_type(accelerator)
     for hook in list(accelerator._load_state_pre_hooks.values()):
         hook(accelerator._models, input_dir)
     for i, model in enumerate(accelerator._models):

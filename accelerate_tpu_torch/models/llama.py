@@ -18,7 +18,22 @@ checkpointing under ``remat``), the dense KV cache (:func:`init_cache`,
 :func:`apply_cached`), the paged serving forward (:func:`apply_paged`),
 greedy and sampled :func:`generate`, :func:`speculative_generate` and
 :func:`generate_beam`; ``kv_cache_quant`` stores the KV cache as int8 codes
-with bf16 scales in both the dense cache and the paged pool.  fp8 and
+with bf16 scales in both the dense cache and the paged pool.
+
+On a mesh with an active ``fsdp`` or ``tp`` axis the training forward and
+loss take a :class:`~..parallel.sharding.Layout` (``layout=``) and each
+process holds only its shard of each leaf, laid out by
+:data:`PARTITION_RULES` (the JAX table): each layer gathers its weights'
+``fsdp`` dims where it runs (again when ``remat`` recomputes it; the
+backward reduce-scatters the gradients), and under ``tp`` Megatron's pair
+sits where the JAX forward constrains its activations: the column-parallel
+Q/K/V, gate and up projections take their input through
+:func:`~..parallel.collectives.tp_copy`, the row-parallel output and down
+projections give theirs through :func:`~..parallel.collectives.tp_reduce`,
+the embedding is the JAX one-hot lookup over the local vocabulary rows,
+and the loss reduces its max and sum of exponentials over ``tp``.  Head
+counts come from the local shapes, so the attention (the fused kernels
+too) runs on this process's heads.  fp8 and
 sequence parallelism are not part of this port yet; their config fields
 raise ``NotImplementedError`` when set.
 """
@@ -41,6 +56,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from ..parallel.collectives import tp_copy, tp_reduce
 from ..state import resolve_device
 from ..utils.operations import rename_state_dict
 
@@ -64,6 +80,8 @@ __all__ = [
     "final_norm",
     "lm_head",
     "unembed",
+    "PARTITION_RULES",
+    "param_specs",
 ]
 
 
@@ -228,6 +246,38 @@ def _param_shapes(config: LlamaConfig) -> dict:
     return shapes
 
 
+# Mesh-axis layout of every parameter (path regex -> spec), the JAX
+# ``llama.PARTITION_RULES``: matmul weights split their contraction-free
+# dim on ``tp`` (Megatron's layout) and the other on ``fsdp``.
+PARTITION_RULES: list = [
+    (r"embed", ("tp", "fsdp")),
+    (r"layers/wq", (None, "fsdp", "tp")),
+    (r"layers/wk", (None, "fsdp", "tp")),
+    (r"layers/wv", (None, "fsdp", "tp")),
+    (r"layers/wo", (None, "tp", "fsdp")),
+    (r"layers/w_gate", (None, "fsdp", "tp")),
+    (r"layers/w_up", (None, "fsdp", "tp")),
+    (r"layers/w_down", (None, "tp", "fsdp")),
+    (r"layers/b[qkv]$", (None, "tp")),
+    (r"layers/bo$", (None, "fsdp")),
+    (r"layers/ln_", (None, None)),
+    (r"final_norm", (None,)),
+    (r"lm_head", ("fsdp", "tp")),
+]
+
+
+def param_specs(config: LlamaConfig) -> dict:
+    """The spec tree of :func:`init_params`' structure under
+    :data:`PARTITION_RULES` (all None where no rule matches)."""
+    from ..parallel.sharding import _tree_map, spec_from_rules
+
+    def one(path, shape):
+        spec = spec_from_rules(path, len(shape), PARTITION_RULES)
+        return spec if spec is not None else (None,) * len(shape)
+
+    return _tree_map(one, _param_shapes(config))
+
+
 def init_params(config: LlamaConfig, seed: int = 0, device=None) -> dict:
     """Random parameters with the JAX package's shapes and init rule: norm
     scales one (zero under ``rms_offset``), biases zero, every other weight
@@ -275,7 +325,14 @@ class LlamaForCausalLM(nn.Module):
     ``state_dict()`` / ``load_state_dict()`` use the JAX package's flat
     parameter names (``embed``, ``final_norm``, ``lm_head``, ``layers.wq``,
     ...), so a ``model.safetensors`` the JAX package saved for a llama loads
-    unchanged."""
+    unchanged.
+
+    ``Accelerator.prepare`` shards it by :attr:`partition_rules` on a mesh
+    with an active ``fsdp`` or ``tp`` axis and sets its ``_layout``, which
+    the training forward then passes to :func:`loss_fn`."""
+
+    partition_rules = PARTITION_RULES
+    _layout = None
 
     @staticmethod
     def _family():
@@ -305,9 +362,17 @@ class LlamaForCausalLM(nn.Module):
                 labels: Optional[torch.Tensor] = None):
         fam = self._family()
         if cache is not None:
+            _refuse_sharded_serving(self._layout)
             return fam.apply_cached(self.params, input_ids, self.config, cache)
         batch = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
+        if self._layout is not None:
+            return {"loss": fam.loss_fn(self.params, batch, self.config, layout=self._layout)}
         return {"loss": fam.loss_fn(self.params, batch, self.config)}
+
+    def handles_layout(self) -> bool:
+        """Whether the forward realizes a sharded layout itself (the llama
+        family's own loss), rather than taking every leaf gathered whole."""
+        return self._family() is sys.modules[__name__]
 
     def _forward_cast_at_use(self, compute_dtype: torch.dtype, input_ids: torch.Tensor,
                              cache: Optional[dict] = None,
@@ -321,6 +386,11 @@ class LlamaForCausalLM(nn.Module):
         while the backward recomputes it."""
         fam = self._family()
         params = self.params
+        if cache is None and self._layout is not None:
+            batch = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
+            return {"loss": fam.loss_fn(params, batch, self.config, layer_dtype=compute_dtype,
+                                        layout=self._layout)}
+        _refuse_sharded_serving(self._layout if cache is not None else None)
         cast = {k: v.to(compute_dtype) for k, v in params.items() if k != "layers"}
         if cache is not None:
             cast["layers"] = {k: v.to(compute_dtype) for k, v in params["layers"].items()}
@@ -426,7 +496,8 @@ def _mm(h: torch.Tensor, w: torch.Tensor, c: LlamaConfig) -> torch.Tensor:
 
 def _qkv_proj(h, p, c, b: int, s: int):
     """Q/K/V projections with the optional Qwen2-style biases (present in
-    ``p`` iff ``attention_bias``)."""
+    ``p`` iff ``attention_bias``); the head counts come from the weights'
+    widths (this process's heads under ``tp``)."""
     hd = c.head_dim_
     q = _mm(h, p["wq"], c)
     k = _mm(h, p["wk"], c)
@@ -435,28 +506,28 @@ def _qkv_proj(h, p, c, b: int, s: int):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    return (
-        q.reshape(b, s, c.num_heads, hd),
-        k.reshape(b, s, c.num_kv_heads, hd),
-        v.reshape(b, s, c.num_kv_heads, hd),
-    )
+    return q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd)
 
 
-def _out_proj(attn, p, c):
-    """Attention output projection (with the optional bias)."""
+def _out_proj(attn, p, c, group=None):
+    """Attention output projection (with the optional bias); under ``tp``
+    (``group``) a row-parallel product whose partial sums ``tp_reduce``
+    adds before the bias."""
     b, s = attn.shape[:2]
-    out = _mm(attn.reshape(b, s, -1), p["wo"], c)
+    out = tp_reduce(_mm(attn.reshape(b, s, -1), p["wo"], c), group)
     if "bo" in p:
         out = out + p["bo"].to(out.dtype)
     return out
 
 
-def _mlp_block(x, p, c):
-    """Pre-norm gated MLP with residual."""
-    h = _norm(x, p["ln_mlp"], c)
+def _mlp_block(x, p, c, group=None):
+    """Pre-norm gated MLP with residual; under ``tp`` (``group``) gate and
+    up are column-parallel (their input through ``tp_copy``), down is
+    row-parallel (its output through ``tp_reduce``)."""
+    h = tp_copy(_norm(x, p["ln_mlp"], c), group)
     gate = _act(_mm(h, p["w_gate"], c), c)
     up = _mm(h, p["w_up"], c)
-    return x + _mm(gate * up, p["w_down"], c)
+    return x + tp_reduce(_mm(gate * up, p["w_down"], c), group)
 
 
 def _out_proj_and_mlp(x, attn, p, c):
@@ -468,10 +539,22 @@ def _layer_params(params: dict, i: int) -> dict:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
-def embed_tokens(params: dict, input_ids: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
+def embed_tokens(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
+                 layout=None, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Token embedding lookup in the compute dtype; ``embed_scale``
-    multiplies by sqrt(d) cast to the compute dtype (gemma convention)."""
-    x = F.embedding(input_ids.long(), params["embed"]).to(config.dtype)
+    multiplies by sqrt(d) cast to the compute dtype (gemma convention).  On
+    a model-sharded ``layout``: the table's ``fsdp`` dim gathered in
+    ``dtype`` (default the compute dtype), then the JAX one-hot lookup
+    over this process's vocabulary rows, summed over ``tp``."""
+    if _model_sharded(layout):
+        from ..parallel.sharding import embed_lookup
+
+        table = layout.full(params["embed"], layout.spec("embed"), dtype or config.dtype)
+        x = embed_lookup(table, input_ids, config.dtype, layout.mesh,
+                         vocab_start=layout.tp_rank * table.shape[0] if layout.tp > 1 else 0,
+                         tp_group=layout.tp_group())
+    else:
+        x = F.embedding(input_ids.long(), params["embed"]).to(config.dtype)
     if getattr(config, "embed_scale", False):
         x = x * torch.tensor(config.hidden_size**0.5, dtype=config.dtype)
     return x
@@ -481,10 +564,16 @@ def final_norm(params: dict, x: torch.Tensor, config: LlamaConfig) -> torch.Tens
     return _norm(x, params["final_norm"], config)
 
 
-def lm_head(params: dict, config: LlamaConfig) -> torch.Tensor:
-    """The ``[d, V]`` head matrix in compute dtype (transposed view when tied)."""
-    head = params["embed"].T if config.tie_embeddings else params["lm_head"]
-    return head.to(config.dtype)
+def lm_head(params: dict, config: LlamaConfig, layout=None,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The ``[d, V]`` head matrix in compute dtype (transposed view when
+    tied); on a model-sharded ``layout`` its ``fsdp`` dim gathered in
+    ``dtype`` (default the compute dtype), its ``tp`` columns local."""
+    name = "embed" if config.tie_embeddings else "lm_head"
+    head = params[name]
+    if _model_sharded(layout):
+        head = layout.full(head, layout.spec(name), dtype or config.dtype)
+    return (head.T if config.tie_embeddings else head).to(config.dtype)
 
 
 def unembed(params: dict, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
@@ -551,19 +640,22 @@ def _attend(q, k, v, c: LlamaConfig, kv_valid):
     return _attention(q, k, v, mask, c.num_heads // c.num_kv_heads)
 
 
-def attention_block(x, p, c: LlamaConfig, positions, kv_valid=None) -> torch.Tensor:
+def attention_block(x, p, c: LlamaConfig, positions, kv_valid=None,
+                    group=None) -> torch.Tensor:
     """Pre-norm causal attention sub-block with residual; ``kv_valid``
     ``[B, S]`` bool is the padding mask, kept factored so the flash and
-    fused paths never build an ``[S, S]`` mask."""
-    h = _norm(x, p["ln_attn"], c)
+    fused paths never build an ``[S, S]`` mask.  Under ``tp`` (``group``)
+    Q/K/V are column-parallel (their input through ``tp_copy``) and the
+    attention runs on this process's heads."""
+    h = tp_copy(_norm(x, p["ln_attn"], c), group)
     b, s, _ = h.shape
     q, k, v = _qkv_proj(h, p, c, b, s)
     q, k = _rope(q, k, positions, c.rope_theta, getattr(c, "rope_scaling", None))
-    return x + _out_proj(_attend(q, k, v, c, kv_valid), p, c)
+    return x + _out_proj(_attend(q, k, v, c, kv_valid), p, c, group)
 
 
-def _layer(x, p, c: LlamaConfig, positions, kv_valid=None) -> torch.Tensor:
-    return _mlp_block(attention_block(x, p, c, positions, kv_valid), p, c)
+def _layer(x, p, c: LlamaConfig, positions, kv_valid=None, group=None) -> torch.Tensor:
+    return _mlp_block(attention_block(x, p, c, positions, kv_valid, group), p, c, group)
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -582,7 +674,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
                  positions: Optional[torch.Tensor] = None,
                  attention_mask: Optional[torch.Tensor] = None,
-                 layer_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 layer_dtype: Optional[torch.dtype] = None, layout=None) -> torch.Tensor:
     """Trunk forward: token ids ``[B, S]`` -> final-normed hidden ``[B, S,
     d]`` in the compute dtype.  With an ``attention_mask`` the positions
     count real tokens (left padding gets the right RoPE offsets).  Under
@@ -591,7 +683,9 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     them under ``remat_policy="nothing"``, all but the outputs of ``mm`` /
     ``addmm`` under ``"dots"`` (:func:`_save_dots`).  ``layer_dtype``
     casts each layer's weights to it inside the layer (and so inside its
-    checkpoint), the mixed-precision wrapper's cast at use."""
+    checkpoint), the mixed-precision wrapper's cast at use.  ``layout``: the
+    sharded path (module docstring), on a mesh with an active ``fsdp`` or
+    ``tp`` axis."""
     c = config
     b, s = input_ids.shape
     kv_valid = attention_mask.bool() if attention_mask is not None else None
@@ -600,17 +694,33 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
             positions = torch.clamp(torch.cumsum(kv_valid.int(), dim=-1) - 1, min=0)
         else:
             positions = torch.arange(s, device=input_ids.device).expand(b, s)
-    x = embed_tokens(params, input_ids, c)
+    names = list(params["layers"])
+    group = None
+    if _model_sharded(layout):
+        _check_tp(c, layout.tp)
+        group = layout.tp_group()
+        # Gathered in the dtype each use casts to first (the compute dtype;
+        # the norm scales keep theirs), so a 16-bit compute moves 16-bit bytes.
+        use_dtype = layer_dtype or c.dtype
+        specs = [layout.spec(f"layers/{k}")[1:] for k in names]
+
+        def prep(k, w, spec):
+            return layout.full(w, spec, layer_dtype if k.startswith("ln_") else use_dtype)
+    else:
+        specs = [None] * len(names)
+
+        def prep(k, w, spec):
+            return w if layer_dtype is None else w.to(layer_dtype)
+
+    x = embed_tokens(params, input_ids, c, layout, layer_dtype)
     # One unbind per stacked leaf: its backward stacks the L layer gradients
     # once, where a per-layer select would add a full [L, ...] zero-padded
     # gradient per layer.
-    names = list(params["layers"])
     per_layer = list(zip(*(params["layers"][k].unbind(0) for k in names)))
 
     def layer(x, *weights):
-        if layer_dtype is not None:
-            weights = [w.to(layer_dtype) for w in weights]
-        return _layer(x, dict(zip(names, weights)), c, positions, kv_valid)
+        p = {k: prep(k, w, spec) for k, w, spec in zip(names, weights, specs)}
+        return _layer(x, p, c, positions, kv_valid, group)
 
     context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
                   if c.remat_policy == "dots" else noop_context_fn)
@@ -619,7 +729,10 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
             x = checkpoint(layer, x, *weights, use_reentrant=False, context_fn=context_fn)
         else:
             x = layer(x, *weights)
-    return final_norm(params, x, c)
+    scale = params["final_norm"]
+    if _model_sharded(layout):
+        scale = layout.full(scale, layout.spec("final_norm"), layer_dtype)
+    return _norm(x, scale, c)
 
 
 def apply(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
@@ -659,23 +772,91 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: dict, batch: dict, config: LlamaConfig,
-            layer_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+            layer_dtype: Optional[torch.dtype] = None, layout=None) -> torch.Tensor:
     """Next-token cross-entropy, fp32, mean over non-padded targets.
     ``config.loss_impl == "chunked"`` streams the LM head over vocabulary
     tiles (``ops/chunked_ce.py``), so the ``[B, S, V]`` logits never exist.
-    ``layer_dtype`` as in :func:`apply_hidden`."""
+    ``layer_dtype`` and ``layout`` as in :func:`apply_hidden`; under ``tp``
+    both losses reduce their statistics over the vocabulary shards."""
     labels, weights = labels_and_weights(batch)
-    mask = batch.get("attention_mask")
+    x = apply_hidden(params, batch["input_ids"], config,
+                     attention_mask=batch.get("attention_mask"), layer_dtype=layer_dtype,
+                     layout=layout)
+    head = lm_head(params, config, layout, layer_dtype)
+    if layout is not None and layout.tp > 1:
+        return _loss_vocab_parallel(x, head, labels, weights, config, layout)
     if config.loss_impl == "chunked":
         from ..ops.chunked_ce import chunked_cross_entropy
 
-        x = apply_hidden(params, batch["input_ids"], config, attention_mask=mask,
-                         layer_dtype=layer_dtype)
-        return chunked_cross_entropy(x, lm_head(params, config), labels, weights,
-                                     config.loss_chunk_size)
-    logits = apply(params, batch["input_ids"], config, attention_mask=mask,
-                   layer_dtype=layer_dtype)
-    return cross_entropy(logits, labels, weights)
+        return chunked_cross_entropy(x, head, labels, weights, config.loss_chunk_size)
+    return cross_entropy((x @ head).float(), labels, weights)
+
+
+def _model_sharded(layout) -> bool:
+    """Whether ``layout``'s mesh has an active ``fsdp`` or ``tp`` axis (the
+    JAX gate of the one-hot embedding, and of this module's sharded path)."""
+    return layout is not None and (layout.mesh.shape["fsdp"] > 1 or layout.mesh.shape["tp"] > 1)
+
+
+def _refuse_sharded_serving(layout, params: Optional[dict] = None) -> None:
+    """Serving takes whole weights: a layout on a model-sharded mesh, or a
+    leaf that is one process's shard, raises."""
+    from ..parallel.sharding import _leaves, is_sharded, spec_of
+
+    shards = params is not None and any(is_sharded(spec_of(t))
+                                        for t in _leaves(params, torch.Tensor))
+    if _model_sharded(layout) or shards:
+        raise NotImplementedError(
+            "serving (apply_cached / apply_paged) on a model-sharded mesh is not ported to "
+            "accelerate_tpu_torch yet (ROADMAP A6 part 5); gather the weights "
+            "(Accelerator.unwrap_model or get_state_dict) and serve them whole")
+
+
+def _check_tp(c, tp: int) -> None:
+    """Under ``tp`` every split count must divide: heads, KV heads (JAX's
+    ``tp_head_axis`` would replicate the heads where ``tp`` does not divide
+    them; the port raises), the FFN width and the vocabulary."""
+    if tp == 1:
+        return
+    counts = {"num_heads": c.num_heads, "num_kv_heads": c.num_kv_heads,
+              "intermediate_size": c.intermediate_size, "vocab_size": c.vocab_size}
+    bad = {k: v for k, v in counts.items() if v % tp}
+    if bad:
+        raise NotImplementedError(
+            f"tp={tp} does not divide {bad} of {c}: TP with tp not dividing the head counts "
+            "(JAX replicates the heads there) is not ported to accelerate_tpu_torch yet "
+            "(ROADMAP A6 part 1)")
+
+
+def _loss_vocab_parallel(x, head, labels, weights, c: LlamaConfig, layout):
+    """:func:`loss_fn`'s cross-entropy under ``tp``: ``head`` holds this
+    process's vocabulary columns, and the logits' max and sum of
+    exponentials (and the label's logit, on the rank that holds it) are
+    reduced over ``tp``."""
+    from ..ops.chunked_ce import chunked_ce_stats
+    from ..parallel.collectives import all_reduce
+
+    group = layout.tp_group()
+    x = tp_copy(x, group)
+    v_local = head.shape[1]
+    local = labels.long() - layout.tp_rank * v_local
+    hit = (local >= 0) & (local < v_local)
+    if c.loss_impl == "chunked":
+        # The running max stays in the graph, as in the one-process loss:
+        # m + log(s) does not depend on it, nor does s * exp(m - top).
+        m, s, label_logit = chunked_ce_stats(x, head, torch.where(hit, local, -1),
+                                             c.loss_chunk_size)
+        top = all_reduce(m.detach().clone(), op="max", group=group, axis="tp")
+        total = tp_reduce(s * torch.exp(m - top), group)
+    else:
+        logits = (x @ head).float()
+        top = all_reduce(logits.detach().amax(-1), op="max", group=group, axis="tp")
+        total = tp_reduce(torch.exp(logits - top[..., None]).sum(-1), group)
+        got = torch.gather(logits, -1, local.clamp(0, v_local - 1)[..., None])[..., 0]
+        label_logit = torch.where(hit, got, torch.zeros_like(got))
+    label_logit = tp_reduce(label_logit, group)
+    token_loss = (top + torch.log(total)) - label_logit
+    return (token_loss * weights).sum() / torch.clamp(weights.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -704,6 +885,7 @@ def apply_cached(params: dict, input_ids: torch.Tensor, config: LlamaConfig, cac
     carries the advanced index."""
     from .generation import check_cache_room
 
+    _refuse_sharded_serving(None, params)
     c = config
     b, s = input_ids.shape
     index = int(cache["index"])
@@ -773,6 +955,7 @@ def apply_paged(params: dict, input_ids: torch.Tensor, config: LlamaConfig, pool
     from ..ops.paged_attention import paged_attention, paged_window_attention
     from .generation import pack_paged_pool_for_scan, paged_cache_write, unpack_paged_rows_from_scan
 
+    _refuse_sharded_serving(None, params)
     c = config
     b, t = input_ids.shape
     pk_all, pv_all, quant = pack_paged_pool_for_scan(pool)

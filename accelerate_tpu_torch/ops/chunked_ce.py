@@ -33,13 +33,12 @@ def _tile(m, s, label_logit, x, tile_head, labels, c0: int, v: int):
     return new_m, s, torch.where(in_tile, got, label_logit)
 
 
-def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                          weights: torch.Tensor, chunk_size: int = 4096) -> torch.Tensor:
-    """Weighted-mean token cross-entropy of ``softmax(x @ head)`` without
-    the full logits.  ``x`` ``[B, S, d]`` (compute dtype; statistics in
-    fp32), ``head`` ``[d, V]``, ``labels`` int ``[B, S]``, ``weights`` fp32
-    ``[B, S]``.  Equals ``cross_entropy(x @ head, labels, weights)`` up to
-    fp32 rounding: per token, ``logsumexp(logits) - logits[label]``."""
+def chunked_ce_stats(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                     chunk_size: int = 4096):
+    """The streamed statistics of ``x @ head`` per token: the max ``m``,
+    the sum of exponentials at ``m`` and the label's logit (0 where the
+    label is not a column of ``head``: a negative label, as the
+    vocabulary-parallel loss passes for another rank's columns)."""
     d, v = head.shape
     if v % chunk_size:
         pad = chunk_size - v % chunk_size
@@ -56,5 +55,16 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Ten
             m, s, label_logit = checkpoint(_tile, *args, use_reentrant=False)
         else:
             m, s, label_logit = _tile(*args)
+    return m, s, label_logit
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                          weights: torch.Tensor, chunk_size: int = 4096) -> torch.Tensor:
+    """Weighted-mean token cross-entropy of ``softmax(x @ head)`` without
+    the full logits.  ``x`` ``[B, S, d]`` (compute dtype; statistics in
+    fp32), ``head`` ``[d, V]``, ``labels`` int ``[B, S]``, ``weights`` fp32
+    ``[B, S]``.  Equals ``cross_entropy(x @ head, labels, weights)`` up to
+    fp32 rounding: per token, ``logsumexp(logits) - logits[label]``."""
+    m, s, label_logit = chunked_ce_stats(x, head, labels, chunk_size)
     token_loss = (m + torch.log(s)) - label_logit
     return (token_loss * weights).sum() / torch.clamp(weights.sum(), min=1.0)

@@ -37,6 +37,16 @@ gradients, updates the shards and all-gathers the parameters, and
 use ``betas=(0.9, 0.999)``, ``eps=1e-8`` and the same ``weight_decay``
 (torch defaults to 1e-2, optax to 1e-4).
 
+On a mesh with model axes (:mod:`.parallel.sharding`) the parameters are
+this process's shards: a leaf sharded on ``fsdp`` arrives with its
+gradient summed over ``fsdp`` already (its gather's backward
+reduce-scattered it), so only the other data axes reduce it before the
+division by the data degree; nothing is reduced over ``tp``.  The norms
+then count each distinct shard once (:func:`sharded_global_norm`), the
+optimizer updates the shards, and ``state_dict`` gathers the state to full
+shapes.  ``Accelerator.clip_grad_norm_`` averages the gradients early (in
+place on a sync step) to return the norm the update will clip.
+
 With telemetry on, a real ``step()`` runs under the ``optimizer.step`` span,
 counts one dispatch and records one completed step (step time, MFU, device
 memory gauges): host-side bookkeeping only, no further device sync than the
@@ -53,13 +63,43 @@ from .state import GradientState
 from .telemetry import get_telemetry as _get_telemetry
 from .telemetry import span as _span
 
-__all__ = ["AcceleratedOptimizer", "global_norm"]
+__all__ = ["AcceleratedOptimizer", "global_norm", "sharded_global_norm"]
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32 (optax's
     ``global_norm``: one sum per tensor, then the sum over tensors)."""
     return torch.sqrt(sum(g.float().square().sum() for g in grads))
+
+
+def _shaped_like(v, p: torch.Tensor) -> bool:
+    """Whether ``v`` is a state tensor shaped like the shard ``p`` (not a
+    scalar such as Adam's ``step``)."""
+    return isinstance(v, torch.Tensor) and v.dim() > 0 and tuple(v.shape) == tuple(p.shape)
+
+
+def sharded_global_norm(grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
+                        mesh) -> torch.Tensor:
+    """The global 2-norm of gradients whose leaves may be shards: the sums
+    of squares of the leaves split over one set of axes are added, then
+    all-reduced over those axes (each distinct shard counted once), in a
+    fixed order of the sets; a leaf replicated on every axis counts once,
+    from this process's copy."""
+    from .parallel import collectives
+    from .parallel.sharding import spec_axes, spec_of
+
+    parts: dict = {}
+    for p, g in zip(params, grads):
+        axes = tuple(a for a in spec_axes(spec_of(p)) if mesh.shape[a] > 1)
+        sq = g.float().square().sum()
+        parts[axes] = sq if axes not in parts else parts[axes] + sq
+    total = None
+    for axes in sorted(parts, key=lambda t: (len(t), t)):
+        v = parts[axes]
+        if axes:
+            v = collectives.all_reduce(v.clone(), group=mesh.group(axes), axis=axes)
+        total = v if total is None else total + v
+    return torch.sqrt(total)
 
 
 def _update_body(optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor],
@@ -121,6 +161,10 @@ class AcceleratedOptimizer:
         self._opt_state_layout = {"kind": "replicated", "axes": [], "degree": 1}
         self._clip_norm_once: Optional[float] = None
         self._clip_value_once: Optional[float] = None
+        # A clip every update takes (a DeepSpeed or Megatron config's
+        # gradient_clipping); -1 is off.
+        self._clip_norm = -1.0
+        self._grads_synced = False
         self._step_count = 0
         self._step_was_skipped = False
         self._last_grad_norm = None
@@ -139,30 +183,82 @@ class AcceleratedOptimizer:
 
     @property
     def dp_degree(self) -> int:
-        """Processes the gradients are averaged over (1: none)."""
-        from .parallel import zero
+        """Processes the gradients are averaged over: the product of the
+        mesh's active data axes, ``fsdp`` included (1: none)."""
+        from .parallel.mesh import data_degree
 
-        if self.mesh is None or not zero.supported(self.mesh)[0]:
-            return 1
-        return zero.zero_degree(self.mesh)
+        return data_degree(self.mesh)
 
     def _dp_group(self):
-        from .parallel import zero
+        from .parallel.mesh import data_axes
 
-        return self.mesh.group(zero.zero_axes(self.mesh))
+        return self.mesh.group(data_axes(self.mesh))
 
-    def _sync_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Every gradient averaged over the dp group, in place: one
+    def _needs_sync(self) -> bool:
+        return self.dp_degree > 1 and not self.gradient_state.local_sgd
+
+    def _sync_grads(self, params: List[torch.Tensor],
+                    grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Every gradient averaged over the data axes, in place: one
         all-reduce (sum) per tensor, in bf16 under a bf16 ``comm_hook``,
-        then divided by the group's size."""
+        then divided by the data degree.  A leaf sharded on ``fsdp`` already
+        holds the sum over ``fsdp`` (its gather's backward reduce-scattered
+        it), so only the other data axes reduce it; no leaf is reduced over
+        ``tp``, whose ranks hold either their own shard's gradient or the
+        same full one."""
         from .parallel import collectives
+        from .parallel.mesh import data_axes, model_axes
+        from .parallel.sharding import spec_axes, spec_of
 
+        mesh, n = self.mesh, self.dp_degree
+        axes = data_axes(mesh)
+        named = bool(model_axes(mesh))
         out = []
-        group, n = self._dp_group(), self.dp_degree
-        for g in grads:
+        for p, g in zip(params, grads):
+            sharded_on = spec_axes(spec_of(p))
+            red = tuple(a for a in axes if a not in sharded_on)
             work = g.contiguous() if self.sync_dtype is None else g.to(self.sync_dtype)
-            out.append(collectives.all_reduce(work, group=group).div_(n).to(g.dtype))
+            if mesh.span(red) > 1:
+                collectives.all_reduce(work, group=mesh.group(red), axis=red if named else None)
+            out.append(work.div_(n).to(g.dtype))
         return out
+
+    def _norm_fn(self, params: Sequence[torch.Tensor]) -> Optional[Callable]:
+        """The global norm of the averaged gradients, the one the gate and
+        the clip read: with a sharded leaf, the sum of squares of each
+        distinct shard (:func:`sharded_global_norm`); on a replicated data-
+        parallel mesh the canonical dp-chunked association; else None
+        (:func:`global_norm`)."""
+        from .parallel.sharding import is_sharded, spec_of
+
+        if self.mesh is not None and any(is_sharded(spec_of(p)) for p in params):
+            mesh = self.mesh
+            return lambda gs: sharded_global_norm(gs, params, mesh)  # noqa: E731
+        degree = self.dp_degree
+        if degree > 1 and not self.gradient_state.local_sgd:
+            from .parallel.zero import chunked_global_norm
+
+            return lambda gs: chunked_global_norm(gs, degree)  # noqa: E731
+        return None
+
+    def _grad_norm_now(self) -> Optional[torch.Tensor]:
+        """The global norm of the gradients the next update will take: on a
+        sync step they are averaged over the data axes here, in place (the
+        update then does not sync them again); while accumulating, copies
+        are.  None without gradients."""
+        params = [p for p in self.params if p.grad is not None]
+        if not params:
+            return None
+        grads = [p.grad for p in params]
+        if self._needs_sync() and not self._grads_synced:
+            if self.gradient_state.sync_gradients:
+                grads = self._sync_grads(params, grads)
+                for p, g in zip(params, grads):
+                    p.grad = g
+                self._grads_synced = True
+            else:
+                grads = self._sync_grads(params, [g.clone() for g in grads])
+        return (self._norm_fn(params) or global_norm)(grads)
 
     def _enable_zero(self, mesh=None) -> None:
         """Shard the update over the dp group (:class:`~.parallel.zero.ZeroShards`):
@@ -210,8 +306,9 @@ class AcceleratedOptimizer:
 
     def state_dict(self) -> dict:
         """The torch optimizer's own ``state_dict()`` (live tensors, not
-        copies) and the count of updates taken.  Under ZeRO the state is
-        gathered to full shapes (new tensors; a collective, so every
+        copies) and the count of updates taken.  Under ZeRO, and for the
+        shards of a sharded model (the FSDP ``FULL_STATE_DICT``), the state
+        is gathered to full shapes (new tensors; a collective, so every
         process calls it), the layout of the replicated optimizer's."""
         sd = self.optimizer.state_dict()
         zs = self._zero
@@ -224,7 +321,22 @@ class AcceleratedOptimizer:
                 full[idx] = {k: zs.gather_like(p, v) if zs.is_sharded_state(p, v) else v
                              for k, v in st.items()}
             sd = {**sd, "state": full}
+        elif self._sharded_params():
+            from .parallel.sharding import gather_full, spec_of
+
+            order = self.params
+            full = {}
+            for idx, st in sd["state"].items():
+                p = order[idx]
+                full[idx] = {k: gather_full(v, spec_of(p), self.mesh)
+                             if _shaped_like(v, p) else v for k, v in st.items()}
+            sd = {**sd, "state": full}
         return {"optimizer": sd, "step_count": self._step_count}
+
+    def _sharded_params(self) -> bool:
+        from .parallel.sharding import is_sharded, spec_of
+
+        return self.mesh is not None and any(is_sharded(spec_of(p)) for p in self.params)
 
     def load_state_dict(self, state_dict: dict) -> None:
         """Restore :meth:`state_dict`'s output; torch moves each state
@@ -241,11 +353,24 @@ class AcceleratedOptimizer:
                 cut[idx] = {k: zs.slice_like(p, v) if zs.is_full_state(p, v) else v
                             for k, v in st.items()}
             sd = {**sd, "state": cut}
+        elif self._sharded_params():
+            from .parallel.sharding import local_slice, spec_of
+
+            order = self.params
+            cut = {}
+            for idx, st in sd["state"].items():
+                p = order[int(idx)]
+                full_shape = getattr(p, "_full_shape", None)
+                cut[idx] = {k: local_slice(v, spec_of(p), self.mesh).contiguous()
+                            if isinstance(v, torch.Tensor) and full_shape is not None
+                            and tuple(v.shape) == full_shape else v for k, v in st.items()}
+            sd = {**sd, "state": cut}
         self.optimizer.load_state_dict(sd)
         self._step_count = int(state_dict.get("step_count", 0))
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         if self.gradient_state.sync_gradients:
+            self._grads_synced = False
             self.optimizer.zero_grad(set_to_none=set_to_none)
             for p in self._full_params or ():
                 if set_to_none:
@@ -258,7 +383,7 @@ class AcceleratedOptimizer:
         """One-shot clips first (consumed here), then the caller's; -1 (off)
         without either."""
         norm = self._clip_norm_once if self._clip_norm_once is not None else (
-            clip_norm if clip_norm is not None else -1.0)
+            clip_norm if clip_norm is not None else self._clip_norm)
         value = self._clip_value_once if self._clip_value_once is not None else (
             clip_value if clip_value is not None else -1.0)
         self._clip_norm_once = self._clip_value_once = None
@@ -283,18 +408,21 @@ class AcceleratedOptimizer:
         if poison is not None:
             grads = torch._foreach_mul(grads, poison)
         norm, value = self._resolve_clips(clip_norm, clip_value)
-        norm_fn = None
         targets = params
-        degree = self.dp_degree
         zs = self._zero
+        synced, self._grads_synced = self._grads_synced, False
         if zs is not None:
-            targets, grads = zs.scatter(params, grads)
+            if synced:  # averaged already (clip_grad_norm_): each process takes its chunks
+                targets = [zs.shard_of(p) for p in params]
+                grads = [g if zs.dim_of(p) is None else zs.slice_like(p, g)
+                         for p, g in zip(params, grads)]
+            else:
+                targets, grads = zs.scatter(params, grads)
             norm_fn = lambda gs: zs.global_norm(gs, params)  # noqa: E731
-        elif degree > 1 and not self.gradient_state.local_sgd:
-            from .parallel.zero import chunked_global_norm
-
-            grads = self._sync_grads(grads)
-            norm_fn = lambda gs: chunked_global_norm(gs, degree)  # noqa: E731
+        else:
+            if not synced and self._needs_sync():
+                grads = self._sync_grads(params, grads)
+            norm_fn = self._norm_fn(params)
         gnorm, health_norm, ok = _update_body(self.optimizer, targets, grads, norm, value,
                                               health_ok=health_ok, norm_fn=norm_fn)
         if zs is not None:

@@ -6,7 +6,17 @@ of a sharded program, the port calls them itself, through these helpers:
 - :func:`all_reduce` (in place), :func:`reduce_scatter` (dim 0 of a
   contiguous buffer, summed), :func:`all_gather` (along dim 0),
   :func:`broadcast` (in place) and the object forms
-  :func:`all_gather_object` / :func:`broadcast_object`.
+  :func:`all_gather_object` / :func:`broadcast_object`;
+- :func:`all_gather_dim` and :func:`reduce_scatter_dim` along any dim of a
+  tensor over a group (the dim is moved to the front, as the ZeRO shards
+  move theirs, and moved back);
+- the autograd pairs of the model axes: :func:`fsdp_gather` (forward an
+  all-gather of a parameter's shard along its ``fsdp`` dim, backward a
+  reduce-scatter of the gradient, summed), and Megatron's pair on the
+  ``tp`` group, :func:`tp_copy` (forward the identity, backward an
+  all-reduce: the input of a column-parallel product) and
+  :func:`tp_reduce` (forward an all-reduce, backward the identity: the
+  output of a row-parallel product).
 
 NCCL takes CUDA tensors as they are.  gloo is the CPU backend; it moves a
 CUDA tensor through host memory, and not every release of it takes every
@@ -17,7 +27,9 @@ a fallback, and it is logged once per process.
 
 Without a process group each is the identity (one process); a group of one
 process runs them for real.  Every call is counted in :data:`COMM_LOG` (calls, payload bytes, host
-seconds per operation; bytes and seconds staged through the host apart):
+seconds per operation; bytes and seconds staged through the host apart),
+under the operation's name, or ``"<op>:<axes>"`` where the caller names
+the mesh axes it runs over (``"all_gather:fsdp"``, ``"all_reduce:tp"``):
 the smokes read it to report what each collective moved.  The seconds are
 host wall time: a staged call waits for its copies, an NCCL call only
 enqueues.
@@ -34,9 +46,10 @@ import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["COMM_LOG", "all_gather", "all_gather_object", "all_reduce", "backend",
-           "broadcast", "broadcast_object", "initialized", "rank", "reset_comm_log",
-           "reduce_scatter", "world_size"]
+__all__ = ["COMM_LOG", "all_gather", "all_gather_dim", "all_gather_object", "all_reduce",
+           "backend", "broadcast", "broadcast_object", "fsdp_gather", "initialized", "rank",
+           "reduce_scatter", "reduce_scatter_dim", "reset_comm_log", "tp_copy", "tp_reduce",
+           "world_size"]
 
 COMM_LOG: dict = {}
 _noted: set = set()
@@ -66,7 +79,9 @@ def reset_comm_log() -> None:
     COMM_LOG.clear()
 
 
-def _record(op: str, nbytes: int, seconds: float, staged: bool) -> None:
+def _record(op: str, nbytes: int, seconds: float, staged: bool, axis=None) -> None:
+    if axis:
+        op = f"{op}:{axis if isinstance(axis, str) else ','.join(axis)}"
     row = COMM_LOG.setdefault(op, {"calls": 0, "bytes": 0, "seconds": 0.0,
                                    "staged_bytes": 0, "staged_seconds": 0.0})
     row["calls"] += 1
@@ -106,9 +121,9 @@ def _red_op(op: str):
     return getattr(dist.ReduceOp, _REDUCE_OPS[op])
 
 
-def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, op: str = "sum", group=None, axis=None) -> torch.Tensor:
     """Reduce ``t`` over the group in place (``op``: sum, max, min,
-    product) and return it."""
+    product) and return it; ``axis`` names the mesh axes for the log."""
     if not initialized():
         return t
     t0 = time.perf_counter()
@@ -117,11 +132,12 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     dist.all_reduce(work, op=_red_op(op), group=group)
     if staged:
         t.copy_(work)
-    _record("all_reduce", t.numel() * t.element_size(), time.perf_counter() - t0, staged)
+    _record("all_reduce", t.numel() * t.element_size(), time.perf_counter() - t0, staged,
+            axis)
     return t
 
 
-def reduce_scatter(inp: torch.Tensor, group=None) -> torch.Tensor:
+def reduce_scatter(inp: torch.Tensor, group=None, axis=None) -> torch.Tensor:
     """The sum over the group of ``inp`` (contiguous, dim 0 divisible by the
     group's size), of which this rank keeps rows ``[rank * n, (rank + 1) *
     n)`` of dim 0, ``n = inp.shape[0] // size``."""
@@ -144,11 +160,11 @@ def reduce_scatter(inp: torch.Tensor, group=None) -> torch.Tensor:
     if staged:
         out = out.to(inp.device)
     _record("reduce_scatter", inp.numel() * inp.element_size(), time.perf_counter() - t0,
-            staged)
+            staged, axis)
     return out
 
 
-def all_gather(inp: torch.Tensor, group=None) -> torch.Tensor:
+def all_gather(inp: torch.Tensor, group=None, axis=None) -> torch.Tensor:
     """Every rank's ``inp`` (one shape on all ranks) concatenated along dim
     0; a 0-d tensor gathers into a vector of one entry per rank."""
     flat = inp.reshape(1) if inp.dim() == 0 else inp
@@ -164,11 +180,12 @@ def all_gather(inp: torch.Tensor, group=None) -> torch.Tensor:
     fn(out, src, group=group)
     if staged:
         out = out.to(inp.device)
-    _record("all_gather", out.numel() * out.element_size(), time.perf_counter() - t0, staged)
+    _record("all_gather", out.numel() * out.element_size(), time.perf_counter() - t0, staged,
+            axis)
     return out
 
 
-def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+def broadcast(t: torch.Tensor, src: int = 0, group=None, axis=None) -> torch.Tensor:
     """``t`` overwritten in place with rank ``src``'s and returned."""
     if not initialized():
         return t
@@ -178,7 +195,7 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     dist.broadcast(work, src=src, group=group)
     if staged:
         t.copy_(work)
-    _record("broadcast", t.numel() * t.element_size(), time.perf_counter() - t0, staged)
+    _record("broadcast", t.numel() * t.element_size(), time.perf_counter() - t0, staged, axis)
     return t
 
 
@@ -198,3 +215,90 @@ def broadcast_object(obj: Any, src: int = 0, group=None) -> Any:
     box = [obj]
     dist.broadcast_object_list(box, src=src, group=group)
     return box[0]
+
+
+def all_gather_dim(inp: torch.Tensor, dim: int, group=None, axis=None) -> torch.Tensor:
+    """Every rank's ``inp`` concatenated along ``dim`` (contiguous)."""
+    if not initialized():
+        return inp
+    size = world_size(group)
+    full = all_gather(inp.movedim(dim, 0).contiguous(), group=group, axis=axis)
+    moved = (size * inp.shape[dim],) + tuple(s for i, s in enumerate(inp.shape) if i != dim)
+    return full.view(moved).movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(inp: torch.Tensor, dim: int, group=None, axis=None) -> torch.Tensor:
+    """The sum over the group of ``inp``, of which this rank keeps its
+    chunk along ``dim`` (contiguous)."""
+    if not initialized():
+        return inp
+    mine = reduce_scatter(inp.movedim(dim, 0).contiguous(), group=group, axis=axis)
+    return mine.movedim(0, dim).contiguous()
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, dim, group, dtype):
+        ctx.dim, ctx.group, ctx.in_dtype = dim, group, shard.dtype
+        x = shard if dtype is None else shard.to(dtype)
+        return all_gather_dim(x, dim, group, "fsdp")
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = reduce_scatter_dim(grad.to(ctx.in_dtype), ctx.dim, ctx.group, "fsdp")
+        return g, None, None, None
+
+
+def fsdp_gather(shard: torch.Tensor, dim: int, group, dtype=None) -> torch.Tensor:
+    """The full tensor of which every rank of ``group`` holds a chunk along
+    ``dim``, cast to ``dtype`` first (so a 16-bit compute gathers 16-bit
+    bytes); the backward reduce-scatters the gradient in the shard's own
+    dtype, so each rank gets the sum over the group of its chunk's
+    gradient (fp32 for fp32 masters)."""
+    return _FsdpGather.apply(shard, dim, group, dtype)
+
+
+def _sum_wide(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the ``tp`` group of ``t``, added in fp32 where ``t`` is
+    16-bit and rounded to its dtype once, as one product's fp32
+    accumulator is."""
+    wide = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t.contiguous().clone()
+    return all_reduce(wide, group=group, axis="tp").to(t.dtype)
+
+
+class _TpCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_wide(grad, ctx.group), None
+
+
+class _TpReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_wide(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``f``: the identity forward, an all-reduce (sum) of the
+    gradient backward (in fp32 for a 16-bit gradient); the input of a
+    column-parallel product, whose gradient each rank holds a part of.
+    ``group=None`` (no ``tp`` axis): ``x`` itself."""
+    return x if group is None else _TpCopy.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``g``: an all-reduce (sum) forward (in fp32 for a 16-bit
+    input, rounded once), the identity backward; the output of a
+    row-parallel product (each rank holds a partial sum) and the
+    statistics of the vocabulary-parallel loss.  ``group=None`` (no
+    ``tp`` axis): ``x`` itself."""
+    return x if group is None else _TpReduce.apply(x, group)

@@ -1,32 +1,69 @@
-"""Parameter and batch placement on the mesh, data axes only: the JAX
-``parallel/sharding.py``'s ``replicated``, ``batch_spec``, ``data_sharding``
-and ``shard_params``.
+"""Parameter and batch placement on the mesh: the JAX ``parallel/sharding.py``.
 
 A spec is a tuple with one entry per tensor dim: None (replicated along
-it) or the mesh axis names the dim is split over, the JAX
-``PartitionSpec`` as a plain tuple.  On a pure data-parallel mesh every
-parameter is replicated, so :func:`shard_params` broadcasts rank 0's values
-to every process: the replicas start bit-identical.  The batch's dim 0 is
-split over the data axes, each process holding its own rows
-(:mod:`..data_loader`).
+it) or the mesh axis name (or tuple of names) the dim is split over, the
+JAX ``PartitionSpec`` as a plain tuple.  The rules are the JAX package's:
+:func:`spec_from_rules` reads a model's table (``llama.PARTITION_RULES``),
+:func:`auto_fsdp_spec` puts the ``fsdp`` axis on the largest free dim that
+divides, and :func:`make_param_specs` composes them with the FSDP
+strategy's precedence and clipping.
 
-The rules that shard weights (``make_param_specs``, ``auto_fsdp_spec``),
-``constrain`` and ``embed_lookup`` come with the model axes (ROADMAP A6
-part 1, FSDP/TP) and raise until then.
+Where JAX places a global array and lets GSPMD insert the collectives, each
+process here holds **only its shard** of each leaf, as a plain tensor
+(:func:`shard_params`: rank 0's full values are broadcast, then each rank
+keeps its chunk), with the spec kept on it (:func:`spec_of`).  A layout
+exists only where a collective makes it, so :func:`constrain` is an
+identity that checks the spec's names, and the collectives are explicit:
+:class:`Layout` gathers a leaf's ``fsdp`` dims where a model uses it
+(:func:`~.collectives.fsdp_gather`, whose backward reduce-scatters the
+gradient), and a model that knows the ``tp`` axis (the llama family) runs
+Megatron's pair there.  :func:`embed_lookup` is the JAX one-hot lookup on
+the local vocabulary rows.  :func:`full_state_dict` and
+:func:`load_full_state_dict` gather and re-shard a model's leaves for
+checkpoints.  A spec the port cannot realize raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import re
+import threading
 from typing import Any, Iterable, Optional
 
 import torch
 
-from .mesh import Mesh, data_axes, model_axes
+from .mesh import Mesh, data_axes
 
-__all__ = ["batch_spec", "data_sharding", "replicated", "shard_params"]
+__all__ = [
+    "spec_from_rules",
+    "auto_fsdp_spec",
+    "make_param_specs",
+    "shard_params",
+    "replicated",
+    "data_sharding",
+    "batch_spec",
+    "constrain",
+    "embed_lookup",
+    "manual_region",
+]
 
-_FSDP_TP = ("{} shards weights over the model axes, which are not ported to "
-            "accelerate_tpu_torch yet (ROADMAP A6 part 1, FSDP/TP)")
+_MANUAL = threading.local()
+
+
+@contextlib.contextmanager
+def manual_region():
+    """Mark the current thread as inside a region whose layout is realized
+    by hand: :func:`constrain` passes values through without checking."""
+    prev = getattr(_MANUAL, "active", False)
+    _MANUAL.active = True
+    try:
+        yield
+    finally:
+        _MANUAL.active = prev
+
+
+def in_manual_region() -> bool:
+    return getattr(_MANUAL, "active", False)
 
 
 class NamedSharding:
@@ -38,6 +75,65 @@ class NamedSharding:
 
     def __repr__(self) -> str:
         return f"NamedSharding(spec={self.spec})"
+
+
+def _live_mesh() -> Optional[Mesh]:
+    from ..state import AcceleratorState
+
+    return AcceleratorState._shared_state.get("mesh")
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def constrain(x: torch.Tensor, spec: Optional[tuple] = None) -> torch.Tensor:
+    """``x`` itself: in the port a layout exists only where a collective
+    makes it.  The spec's axis names are checked against the mesh's
+    (``ValueError`` for a name no mesh has), as JAX's
+    ``with_sharding_constraint`` checks them."""
+    if in_manual_region() or spec is None:
+        return x
+    from .mesh import mesh_axis_names
+
+    for entry in spec:
+        for a in _entry_axes(entry):
+            if a not in mesh_axis_names():
+                raise ValueError(f"constrain: {a!r} is not a mesh axis "
+                                 f"(axes: {mesh_axis_names()})")
+    return x
+
+
+def embed_lookup(table: torch.Tensor, input_ids: torch.Tensor, dtype, mesh: Optional[Mesh] = None,
+                 vocab_start: int = 0, tp_group=None) -> torch.Tensor:
+    """The JAX ``embed_lookup``: on a mesh whose ``fsdp`` or ``tp`` axis is
+    active (the live state's mesh by default) and more than one token a
+    row, a one-hot matmul in ``dtype``; otherwise a gather.  ``table`` may
+    be this rank's vocabulary rows ``[vocab_start, vocab_start + rows)``
+    under ``tp``: the product then covers those rows only and
+    :func:`~.collectives.tp_reduce` over ``tp_group`` sums the ranks' parts
+    (a single-token row takes the masked gather of its local rows, the same
+    sum).  Exact for ids in range, as in JAX; an id in no rank's range
+    embeds to zero."""
+    from .collectives import tp_reduce
+
+    mesh = mesh if mesh is not None else _live_mesh()
+    single_token = input_ids.dim() >= 1 and input_ids.shape[-1] == 1
+    sharded = mesh is not None and (mesh.shape["fsdp"] > 1 or mesh.shape["tp"] > 1)
+    ids = input_ids.long()
+    rows = table.shape[0]
+    if sharded and not single_token:
+        cols = torch.arange(vocab_start, vocab_start + rows, device=ids.device)
+        out = (ids[..., None] == cols).to(dtype) @ table.to(dtype)
+    elif tp_group is not None:
+        local = ids - vocab_start
+        hit = (local >= 0) & (local < rows)
+        out = table.to(dtype)[local.clamp(0, rows - 1)] * hit[..., None].to(dtype)
+    else:
+        return table.to(dtype)[ids]
+    return tp_reduce(out, tp_group)
 
 
 def replicated(mesh: Mesh) -> NamedSharding:
@@ -54,23 +150,157 @@ def data_sharding(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, batch_spec(mesh))
 
 
-def shard_params(params: Any, mesh: Mesh, specs: Any = None) -> Any:
-    """Place parameters (a tensor, a module's ``parameters()``, or a list or
-    dict of tensors) on ``mesh``: on a pure data-parallel mesh every one is
-    replicated, so rank 0's values are broadcast into each in place.
-    ``specs`` other than replicated need the model axes and raise."""
-    from . import collectives
+def spec_from_rules(path: str, ndim: int, rules: list) -> Optional[tuple]:
+    """The spec of the first rule whose regex matches ``path`` (a leaf's
+    keys joined by ``/``); a rule longer than the leaf's rank is passed
+    over.  None when no rule matches."""
+    for pattern, spec in rules:
+        if re.search(pattern, path):
+            if len(spec) > ndim:
+                continue
+            return tuple(spec)
+    return None
 
-    if model_axes(mesh):
-        raise NotImplementedError(_FSDP_TP.format("shard_params on a mesh with "
-                                                  f"{model_axes(mesh)}"))
-    if specs is not None and any(e is not None for s in _leaves(specs, tuple) for e in s):
-        raise NotImplementedError(_FSDP_TP.format("a non-replicated spec"))
-    group = mesh.group()
-    with torch.no_grad():
-        for t in _leaves(params, torch.Tensor):
-            collectives.broadcast(t.data, src=0, group=group)
-    return params
+
+def _divisible_axis(shape: tuple, axis_size: int, taken: set) -> Optional[int]:
+    """Largest dim divisible by ``axis_size`` not already sharded."""
+    order = sorted(range(len(shape)), key=lambda i: -shape[i])
+    for i in order:
+        if i not in taken and shape[i] % axis_size == 0 and shape[i] >= axis_size:
+            return i
+    return None
+
+
+def auto_fsdp_spec(shape: tuple, mesh: Mesh, existing: Optional[tuple] = None,
+                   min_size: int = 0, axis: str = "fsdp") -> tuple:
+    """``existing`` (default all None) with ``axis`` on the largest free dim
+    it divides, unless ``axis`` is inactive, already in the spec, or the
+    leaf has fewer than ``max(min_size, 2)`` elements or no such dim."""
+    if axis not in mesh.axis_names or mesh.shape[axis] == 1:
+        return tuple(existing) if existing is not None else (None,) * len(shape)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    n = n if shape else 0
+    spec = list(existing) if existing is not None else [None] * len(shape)
+    while len(spec) < len(shape):
+        spec.append(None)
+    taken = set()
+    for i, s in enumerate(spec):
+        if s is not None:
+            if axis == s or (isinstance(s, tuple) and axis in s):
+                return tuple(spec)
+            taken.add(i)
+    if n < max(min_size, 2):
+        return tuple(spec)
+    dim = _divisible_axis(tuple(shape), mesh.shape[axis], taken)
+    if dim is None:
+        return tuple(spec)
+    spec[dim] = axis if spec[dim] is None else (spec[dim], axis)
+    return tuple(spec)
+
+
+def _axis_active(mesh: Mesh, axis) -> bool:
+    if axis is None:
+        return False
+    if isinstance(axis, tuple):
+        return all(a in mesh.axis_names and mesh.shape[a] > 1 for a in axis)
+    return axis in mesh.axis_names and mesh.shape[axis] > 1
+
+
+def _tree_map(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` over the tensor (or shape) leaves of nested dicts
+    and lists, ``path`` the keys joined by ``/``."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, f"{path}/{k}" if path else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_shape(tree):
+        return type(tree)(_tree_map(fn, v, f"{path}/{i}" if path else str(i))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _is_shape(x) -> bool:
+    return isinstance(x, (tuple, torch.Size)) and all(isinstance(s, int) for s in x)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf) if _is_shape(leaf) else tuple(leaf.shape)
+
+
+def make_param_specs(params: Any, mesh: Mesh, fsdp_plugin=None,
+                     rules: Optional[list] = None) -> Any:
+    """The spec tree of a parameter tree (nested dicts or lists of tensors,
+    or of shapes), the JAX precedence: a ``rules`` match first, its entries
+    clipped to the active axes (and without ``fsdp`` when the strategy keeps
+    the parameters replicated), then the strategy's ``fsdp`` axis on a free
+    dim (:func:`auto_fsdp_spec` with the plugin's ``min_num_params``)."""
+    shards_params = (fsdp_plugin is not None and fsdp_plugin.shards_parameters
+                     and "fsdp" in mesh.axis_names and mesh.shape["fsdp"] > 1)
+    min_size = fsdp_plugin.min_num_params if fsdp_plugin is not None else 0
+
+    def keep(s):
+        if s is None:
+            return None
+        axes = s if isinstance(s, tuple) else (s,)
+        kept = tuple(a for a in axes if _axis_active(mesh, a) and (shards_params or a != "fsdp"))
+        if not kept:
+            return None
+        return kept if len(kept) > 1 else kept[0]
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        spec = spec_from_rules(path, len(shape), rules) if rules else None
+        if spec is not None:
+            spec = tuple([keep(s) for s in (list(spec) + [None] * (len(shape) - len(spec)))]
+                         [: len(shape)])
+        if shards_params:
+            spec = auto_fsdp_spec(shape, mesh, existing=spec, min_size=min_size)
+        elif spec is None:
+            spec = (None,) * len(shape)
+        return spec
+
+    return _tree_map(one, params)
+
+
+# ---------------------------------------------------------------------------
+# Shards on this process
+# ---------------------------------------------------------------------------
+
+
+def spec_of(t: torch.Tensor) -> Optional[tuple]:
+    """The spec :func:`shard_params` kept on a leaf (None: replicated)."""
+    return getattr(t, "_spec", None)
+
+
+def is_sharded(spec: Optional[tuple]) -> bool:
+    return spec is not None and any(e is not None for e in spec)
+
+
+def spec_axes(spec: Optional[tuple]) -> tuple:
+    """Every mesh axis a spec names, in ``AXIS_ORDER``."""
+    from .mesh import mesh_axis_names
+
+    named = {a for e in (spec or ()) for a in _entry_axes(e)}
+    return tuple(a for a in mesh_axis_names() if a in named)
+
+
+def local_slice(full: torch.Tensor, spec: Optional[tuple], mesh: Mesh,
+                rank: Optional[int] = None) -> torch.Tensor:
+    """The chunk of ``full`` that ``rank`` (this process by default) holds
+    under ``spec``: along each split dim, chunk ``mesh.index(axes)`` of
+    ``mesh.span(axes)``, as JAX lays out a ``NamedSharding``."""
+    out = full
+    for d, entry in enumerate(spec or ()):
+        axes = _entry_axes(entry)
+        n = mesh.span(axes)
+        if n == 1:
+            continue
+        if full.shape[d] % n:
+            raise ValueError(f"dim {d} ({full.shape[d]}) of a leaf does not divide over "
+                             f"{axes} ({n})")
+        c = full.shape[d] // n
+        out = out.narrow(d, mesh.index(axes, rank) * c, c)
+    return out
 
 
 def _leaves(tree, kind) -> Iterable:
@@ -84,17 +314,137 @@ def _leaves(tree, kind) -> Iterable:
             yield from _leaves(v, kind)
 
 
-def make_param_specs(*args, **kwargs):
-    raise NotImplementedError(_FSDP_TP.format("make_param_specs"))
+def shard_params(params: Any, mesh: Mesh, specs: Any = None) -> Any:
+    """Place parameters (a tensor, a module's ``parameters()``, or a list or
+    dict tree of tensors) on ``mesh`` in place: rank 0's values are
+    broadcast into every one, then each process keeps its chunk of a leaf
+    whose spec (``specs``, the same structure; None: all replicated) splits
+    it, as the leaf's new ``.data``, with the spec kept on the leaf
+    (:func:`spec_of`) and its full shape (``_full_shape``).  Returns
+    ``params``."""
+    from . import collectives
+
+    group = mesh.group()
+    leaves = list(_leaves(params, torch.Tensor))
+    spec_list = [None] * len(leaves) if specs is None else list(_leaves(specs, tuple))
+    if len(spec_list) != len(leaves):
+        raise ValueError(f"shard_params: {len(leaves)} leaves but {len(spec_list)} specs")
+    with torch.no_grad():
+        for t, spec in zip(leaves, spec_list):
+            collectives.broadcast(t.data, src=0, group=group)
+            for entry in spec or ():
+                for a in _entry_axes(entry):
+                    if a not in mesh.axis_names:
+                        raise ValueError(f"shard_params: {a!r} is not a mesh axis")
+            if is_sharded(spec) and mesh.span(spec_axes(spec)) > 1:
+                full_shape = tuple(t.shape)
+                t.data = local_slice(t.data, spec, mesh).contiguous().clone()
+                t._spec = tuple(spec)
+                t._full_shape = full_shape
+    return params
 
 
-def auto_fsdp_spec(*args, **kwargs):
-    raise NotImplementedError(_FSDP_TP.format("auto_fsdp_spec"))
+def gather_full(t: torch.Tensor, spec: Optional[tuple], mesh: Mesh) -> torch.Tensor:
+    """The full tensor of a leaf every process holds a chunk of (a
+    collective: every process calls it), without autograd; a dim split over
+    several axes is gathered minor axis first."""
+    from . import collectives
+
+    out = t.detach()
+    for d, entry in enumerate(spec or ()):
+        for a in reversed(_entry_axes(entry)):
+            if mesh.shape[a] > 1:
+                out = collectives.all_gather_dim(out, d, group=mesh.group(a), axis=a)
+    return out
 
 
-def constrain(x, spec: Optional[tuple] = None):
-    raise NotImplementedError(_FSDP_TP.format("constrain"))
+class Layout:
+    """How a model's leaves lie on ``mesh``: ``specs`` is the spec tree of
+    its parameter tree (:func:`make_param_specs`).  A model's forward reads
+    it to gather a leaf's ``fsdp`` dims where it uses the leaf
+    (:meth:`full`) and to find the ``tp`` axis's group, size and this
+    process's coordinate on it."""
+
+    def __init__(self, mesh: Mesh, specs: Any):
+        self.mesh = mesh
+        self.specs = specs
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.shape["tp"]
+
+    @property
+    def tp_rank(self) -> int:
+        return self.mesh.coords()["tp"]
+
+    def tp_group(self):
+        return self.mesh.group("tp") if self.tp > 1 else None
+
+    def spec(self, path: str) -> tuple:
+        node = self.specs
+        for k in path.split("/"):
+            node = node[k]
+        return node
+
+    def full(self, leaf: torch.Tensor, spec: Optional[tuple], dtype=None,
+             keep=("tp",)) -> torch.Tensor:
+        """``leaf`` (this process's chunk, cast to ``dtype`` where given)
+        with its ``fsdp`` dims gathered (:func:`~.collectives.fsdp_gather`,
+        differentiable); a dim split over an axis in ``keep`` stays local.
+        Any other split raises ``NotImplementedError``."""
+        from . import collectives
+
+        out = leaf
+        cast = dtype
+        for d, entry in enumerate(spec or ()):
+            axes = tuple(a for a in _entry_axes(entry) if self.mesh.shape[a] > 1)
+            if not axes or all(a in keep for a in axes):
+                continue
+            if axes != ("fsdp",):
+                raise NotImplementedError(
+                    f"a leaf split over {axes} on dim {d}: the port gathers a dim split over "
+                    f"fsdp alone, and leaves {keep} to the model")
+            out = collectives.fsdp_gather(out, d, self.mesh.group("fsdp"), dtype=cast)
+            cast = None
+        return out if cast is None else out.to(cast)
 
 
-def embed_lookup(*args, **kwargs):
-    raise NotImplementedError(_FSDP_TP.format("embed_lookup"))
+def full_state_dict(model) -> dict:
+    """``model.state_dict()`` with every sharded leaf gathered to its full
+    shape (a collective: every process calls it)."""
+    from ..state import AcceleratorState
+
+    mesh = AcceleratorState._shared_state.get("mesh")
+    out = {}
+    for name, t in model.state_dict(keep_vars=True).items():
+        spec = spec_of(t)
+        out[name] = (gather_full(t, spec, mesh) if is_sharded(spec) and mesh is not None
+                     else t.detach())
+    return out
+
+
+@torch.no_grad()
+def load_full_state_dict(model, state_dict: dict, strict: bool = True) -> None:
+    """Load full tensors into a model whose leaves may be shards: each
+    process copies its chunk of a sharded leaf (by the spec kept on it),
+    the whole tensor of a replicated one."""
+    from ..state import AcceleratorState
+
+    mesh = AcceleratorState._shared_state.get("mesh")
+    own = model.state_dict(keep_vars=True)
+    if strict:
+        missing = set(own) - set(state_dict)
+        extra = set(state_dict) - set(own)
+        if missing or extra:
+            raise RuntimeError(f"load_full_state_dict: missing {sorted(missing)}, unexpected "
+                               f"{sorted(extra)}")
+    for name, value in state_dict.items():
+        if name not in own:
+            continue
+        t = own[name]
+        spec = spec_of(t)
+        src = local_slice(value, spec, mesh) if is_sharded(spec) and mesh is not None else value
+        if tuple(src.shape) != tuple(t.shape):
+            raise RuntimeError(f"load_full_state_dict: {name} has shape {tuple(value.shape)}, "
+                               f"its chunk {tuple(src.shape)} does not fit {tuple(t.shape)}")
+        t.copy_(src)

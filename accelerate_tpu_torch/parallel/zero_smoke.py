@@ -27,6 +27,17 @@ step's flash launches (2L / L / L), its time and the time of the gloo
 transfers through host memory, and the optimizer state's bytes read from
 the allocator.
 
+With ``model_axes`` (``--model-axes``; two processes, ``llama3-8b``) each
+process then runs the same recipe twice more, from the same weights, on a
+fresh ``AcceleratorState`` over the same group: ``fsdp=2`` under
+``FULL_SHARD`` and ``tp=2`` (both processes read the same rows), each for
+``MODEL_AXES_STEPS`` steps, and records what the replicated run is held
+to: losses, norms, the parameters' change over 2 steps against the
+replicated run's (its start and step-2 parameters kept on the host for
+that), the allocator's
+bytes, the collectives by axis, and the q / k shapes the fused attention
+saw.
+
 Run::
 
     python -m accelerate_tpu_torch.parallel.zero_smoke            # on the card
@@ -52,6 +63,8 @@ from typing import Optional
 
 SIZES = ("tiny", "llama3-8b")
 STEPS = {"tiny": 4, "llama3-8b": 3}
+MODEL_AXES = ("fsdp", "tp")
+MODEL_AXES_STEPS = 2
 CLIP = 0.05
 N_SEQ = 6  # llama3-8b: sequences of the seeded token dataset
 SEQ = 2048
@@ -105,17 +118,24 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _build(size: str, device: str):
+def _build(size: str, device: str, axis: Optional[str] = None):
     """A fresh accelerator, model, optimizer and (llama) loader; every
     process starts from its own seed, so ``prepare``'s broadcast of rank
-    0's parameters is what makes them equal."""
+    0's parameters is what makes them equal.  ``axis`` ``"fsdp"`` or
+    ``"tp"``: the mesh puts the two processes on it (``FULL_SHARD``)."""
     import torch
 
     from ..accelerator import Accelerator, FunctionalModel
     from ..state import AcceleratorState
+    from ..utils.dataclasses import FullyShardedDataParallelPlugin, ParallelismConfig
 
     AcceleratorState._reset_state(reset_partial_state=True)
-    acc = Accelerator(device=device)
+    kw = {}
+    if axis is not None:
+        kw["parallelism_config"] = ParallelismConfig(**{axis: 2})
+        if axis == "fsdp":
+            kw["fsdp_plugin"] = FullyShardedDataParallelPlugin(sharding_strategy="FULL_SHARD")
+    acc = Accelerator(device=device, **kw)
     seed = 7 * acc.process_index
     if size == "tiny":
         g = torch.Generator().manual_seed(seed)
@@ -142,22 +162,41 @@ def _build(size: str, device: str):
     return acc, model, opt, dl
 
 
-def _run_mode(size: str, device: str, zero: bool) -> dict:
-    """One mode's steps in this process; its record."""
+def _run_mode(size: str, device: str, zero: bool, axis: Optional[str] = None,
+              snapshot_steps: tuple = (), compare_to: Optional[dict] = None) -> dict:
+    """One mode's steps in this process; its record.  ``axis``: the
+    ``fsdp`` or ``tp`` mode (``MODEL_AXES_STEPS`` steps, the q / k shapes
+    the fused attention saw, the parameters after its last step against
+    ``compare_to``'s snapshots, :func:`_gap`); ``snapshot_steps``: keep the
+    full parameters after each of those steps (0: before the first) on
+    the host, in the record's ``snapshots``."""
     import gc
 
     import torch
 
+    from ..ops import fused_attention as fu
     from . import collectives
     from .zero import per_chip_bytes
 
     t_build = time.perf_counter()
-    acc, model, opt, dl = _build(size, device)
+    dev0 = torch.device(device)
+    _sync(dev0)
+    base = torch.cuda.memory_allocated(dev0) if dev0.type == "cuda" else 0
+    acc, model, opt, dl = _build(size, device, axis)
     dev = acc.device
     _sync(dev)
     build_s = time.perf_counter() - t_build
+    param_alloc = torch.cuda.memory_allocated(dev) - base if dev.type == "cuda" else None
     r, n = acc.process_index, acc.num_processes
     step = acc.make_train_step(model, opt, clip_norm=CLIP, zero=zero)
+    steps = STEPS[size] if axis is None else MODEL_AXES_STEPS
+    shapes: list = []
+    plain_attention = fu.fused_attention
+
+    def recording(q, k, v, **kw):
+        shapes.append([list(q.shape), list(k.shape)])
+        return plain_attention(q, k, v, **kw)
+
     if size == "tiny":
         batches = []
         for b in tiny_batches():
@@ -165,25 +204,41 @@ def _run_mode(size: str, device: str, zero: bool) -> dict:
             batches.append({k: v[r * per:(r + 1) * per].to(dev) for k, v in b.items()})
     else:
         batches = list(dl)
-    losses, health, grad_norm, times, staged_s, launches, comm = [], [], [], [], [], [], []
-    rows = []
-    for batch in batches[: STEPS[size]]:
-        if "input_ids" in batch:
-            rows.append(batch["input_ids"][:, :8].tolist())
-        before = _flash_counts()
-        collectives.reset_comm_log()
-        _sync(dev)
-        t0 = time.perf_counter()
-        loss = step(batch)
-        _sync(dev)
-        times.append(time.perf_counter() - t0)
-        after = _flash_counts()
-        launches.append({k: after[k] - before[k] for k in FLASH})
-        comm.append({op: dict(v) for op, v in collectives.COMM_LOG.items()})
-        staged_s.append(sum(v["staged_seconds"] for v in collectives.COMM_LOG.values()))
-        losses.append(float(loss))
-        health.append(float(step.last_health_norm))
-        grad_norm.append(float(step.last_grad_norm))
+    snapshots = {}
+
+    def keep(i):
+        if i in snapshot_steps:
+            snapshots[i] = {k: v.detach().to("cpu", copy=True)
+                            for k, v in acc.get_state_dict(model).items()}
+
+    keep(0)
+    fu.fused_attention = recording
+    try:
+        losses, health, grad_norm, times, staged_s, launches, comm = [], [], [], [], [], [], []
+        rows = []
+        for i, batch in enumerate(batches[:steps]):
+            if "input_ids" in batch:
+                rows.append(batch["input_ids"][:, :8].tolist())
+            before = _flash_counts()
+            collectives.reset_comm_log()
+            _sync(dev)
+            t0 = time.perf_counter()
+            loss = step(batch)
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+            after = _flash_counts()
+            launches.append({k: after[k] - before[k] for k in FLASH})
+            comm.append({op: dict(v) for op, v in collectives.COMM_LOG.items()})
+            staged_s.append(sum(v["staged_seconds"] for v in collectives.COMM_LOG.values()))
+            losses.append(float(loss))
+            health.append(float(step.last_health_norm))
+            grad_norm.append(float(step.last_grad_norm))
+            keep(i + 1)
+    finally:
+        fu.fused_attention = plain_attention
+    gap = None
+    if compare_to is not None:
+        gap = _gap(model, compare_to[0], compare_to[steps], acc.mesh)
     state_bytes = per_chip_bytes(opt.optimizer)
     param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     digest = _digest(model)
@@ -198,7 +253,8 @@ def _run_mode(size: str, device: str, zero: bool) -> dict:
                   grad_norm=grad_norm, step_s=times, staged_s=staged_s, launches=launches, comm=comm,
                   state_bytes=state_bytes, allocator_state_bytes=allocator_bytes,
                   param_bytes=param_bytes, digest=digest, rows=rows,
-                  dispatches=step.dispatch_count, build_s=build_s,
+                  dispatches=step.dispatch_count, build_s=build_s, param_alloc_bytes=param_alloc,
+                  attention_shapes=shapes, gap=gap, snapshots=snapshots, mesh=dict(acc.mesh.shape),
                   peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None)
     del acc, model, opt, dl, step, batches
     gc.collect()
@@ -208,10 +264,37 @@ def _run_mode(size: str, device: str, zero: bool) -> dict:
     return record
 
 
+def _gap(model, start: dict, want: dict, mesh) -> dict:
+    """This process's parameters (shards, where the model is sharded)
+    against its chunks of ``want``'s full host tensors, both having
+    started from ``start``: whether all are equal, the largest absolute
+    difference, and the relative norm of the difference of the two changes
+    ``||(p - start) - (want - start)|| / ||want - start||`` (its squared
+    terms too); an update that did nothing reads 1.0.  The processes
+    together cover every element, with no collective."""
+    import torch
+
+    from .sharding import local_slice, spec_of
+
+    worst, equal, diff_sq, delta_sq = 0.0, True, 0.0, 0.0
+    with torch.no_grad():
+        for k, v in model.state_dict(keep_vars=True).items():
+            w = local_slice(want[k], spec_of(v), mesh).to(v.device)
+            s0 = local_slice(start[k], spec_of(v), mesh).to(v.device)
+            equal = equal and torch.equal(v, w)
+            diff = v.float() - w.float()
+            worst = max(worst, float(diff.abs().max()))
+            diff_sq += float(diff.square().sum(dtype=torch.float64))
+            delta_sq += float((w.float() - s0.float()).square().sum(dtype=torch.float64))
+    return {"max_abs": worst, "bit_identical": equal, "diff_sq": diff_sq,
+            "delta_sq": delta_sq, "relnorm": (diff_sq / delta_sq) ** 0.5 if delta_sq else None}
+
+
 def child(rank: int, world: int, init: str, backend: str, device: str, size: str,
-          out: str) -> None:
-    """One process: join the group, run the replicated then the ZeRO mode,
-    write the records to ``out``."""
+          out: str, model_axes: bool = False) -> None:
+    """One process: join the group, run the replicated then the ZeRO mode
+    (with ``model_axes`` then the ``fsdp`` and ``tp`` ones), write the
+    records to ``out``."""
     import torch
     import torch.distributed as dist
 
@@ -222,9 +305,20 @@ def child(rank: int, world: int, init: str, backend: str, device: str, size: str
     try:
         t0 = time.perf_counter()
         record = {"rank": rank, "world": world, "backend": backend, "device": device}
-        record["replicated"] = _run_mode(size, device, False)
+        record["replicated"] = _run_mode(
+            size, device, False, snapshot_steps=(0, MODEL_AXES_STEPS) if model_axes else ())
+        snapshots = record["replicated"].pop("snapshots")
         record["zero"] = _run_mode(size, device, True)
         record["seconds"] = time.perf_counter() - t0
+        if model_axes:
+            for axis in MODEL_AXES:
+                t1 = time.perf_counter()
+                record[axis] = _run_mode(size, device, False, axis=axis,
+                                         compare_to=snapshots if axis == "fsdp" else None)
+                record[axis]["seconds"] = time.perf_counter() - t1
+            del snapshots
+        for mode in ("zero", *MODEL_AXES):
+            record.get(mode, {}).pop("snapshots", None)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -233,11 +327,16 @@ def child(rank: int, world: int, init: str, backend: str, device: str, size: str
 
 
 def run(size: str = "tiny", device: Optional[str] = None, world: int = 2,
-        workdir: Optional[str] = None, backend: Optional[str] = None) -> dict:
+        workdir: Optional[str] = None, backend: Optional[str] = None,
+        model_axes: bool = False) -> dict:
     """Start the processes, check every requirement, return the summary.
     ``device`` None is the card (raising without CUDA), ``"cpu"`` the CPU.
     ``backend`` None is NCCL with a card per process where there are
-    enough, else gloo (the processes sharing card 0 on the card)."""
+    enough, else gloo (the processes sharing card 0 on the card).
+    ``model_axes``: the ``fsdp`` and ``tp`` modes too (two processes,
+    ``llama3-8b``), whose records the summary carries under ``model_axes``."""
+    if model_axes and (world != 2 or size != "llama3-8b"):
+        raise ValueError("model_axes runs two processes at the llama3-8b size")
     import torch
 
     from ..state import resolve_device
@@ -267,7 +366,7 @@ def run(size: str = "tiny", device: Optional[str] = None, world: int = 2,
     for r in range(world):
         out = os.path.join(work, f"rank{r}.json")
         outs.append(out)
-        args = json.dumps([r, world, init, backend, devices[r], size, out])
+        args = json.dumps([r, world, init, backend, devices[r], size, out, model_axes])
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "accelerate_tpu_torch.parallel.zero_smoke", "--child", args],
             env=env))
@@ -346,6 +445,7 @@ def summarize(records: list, size: str, wall: float) -> dict:
                         "zero": first["zero"]["state_bytes"]},
         "allocator_state_bytes": {"replicated": first["replicated"]["allocator_state_bytes"],
                                   "zero": first["zero"]["allocator_state_bytes"]},
+        "param_alloc_bytes": first["replicated"]["param_alloc_bytes"],
         "step_s": {m: [r[m]["step_s"] for r in records] for m in ("replicated", "zero")},
         "build_s": {m: [r[m]["build_s"] for r in records] for m in ("replicated", "zero")},
         "staged_s": {m: [r[m]["staged_s"] for r in records] for m in ("replicated", "zero")},
@@ -356,6 +456,8 @@ def summarize(records: list, size: str, wall: float) -> dict:
         "child_s": [r["seconds"] for r in records],
         "per_rank": per_rank(records),
     }
+    if any(mode in first for mode in MODEL_AXES):
+        summary["model_axes"] = {mode: [rec[mode] for rec in records] for mode in MODEL_AXES}
     if size == "llama3-8b":
         layers = 2  # llama_config's
         want = {"fused_attention_fwd": 2 * layers, "fused_attention_bwd_dq": layers,
@@ -373,12 +475,15 @@ def main(argv=None) -> int:
     parser.add_argument("--world", type=int, default=2, help="processes (default 2)")
     parser.add_argument("--size", choices=SIZES, default="tiny")
     parser.add_argument("--workdir", default=None)
+    parser.add_argument("--model-axes", action="store_true",
+                        help="also the fsdp=2 and tp=2 modes (two processes, llama3-8b)")
     parser.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.child is not None:
         child(*json.loads(args.child))
         return 0
-    summary = run(args.size, "cpu" if args.cpu else None, args.world, args.workdir)
+    summary = run(args.size, "cpu" if args.cpu else None, args.world, args.workdir,
+                  model_axes=args.model_axes)
     if args.size == "llama3-8b":
         for mode in ("replicated", "zero"):
             for r, per_step in enumerate(summary["launches"][mode]):

@@ -27,8 +27,9 @@ With several processes each one runs the forward and backward on its own
 rows, accumulates its window's gradients locally, and the update averages
 them over the data-parallel group (one collective per gradient, after the
 window: the order the eager loop under ``no_sync`` takes).  The losses a
-call returns are the mean over the processes, the global batch's loss for
-even batches, and the health gate reads them.  ``zero=True`` (None: the
+call returns are the mean over the data shards, the global batch's loss for
+even batches, and the health gate reads them.  On an ``fsdp`` / ``tp`` mesh
+the same step runs on each process's shards (``optimizer.py``).  ``zero=True`` (None: the
 ``ACCELERATE_TPU_ZERO`` env) shards the update (:mod:`..parallel.zero`):
 per leaf a reduce-scatter along its shard dim, the gate and clips on the
 canonical norm, the optimizer on the local shard, then an all-gather of

@@ -386,56 +386,62 @@ class PartialState:
                 f"Device: {self.device}\n")
 
 
-_MODEL_AXIS_PARTS = {"fsdp": "ROADMAP A6 part 1, FSDP/TP", "tp": "ROADMAP A6 part 1, FSDP/TP",
-                     "ep": "ROADMAP A6 part 1, FSDP/TP (Mixtral's ep)",
-                     "sp": "ROADMAP A6 part 2, sequence parallelism",
-                     "pp": "ROADMAP A7, pipeline parallelism"}
+_UNPORTED_AXIS_PARTS = {"ep": "ROADMAP A6 part 1, Mixtral's ep (what is left of it)",
+                        "sp": "ROADMAP A6 part 2, sequence parallelism",
+                        "pp": "ROADMAP A7, pipeline parallelism"}
 
 
 def resolve_parallelism(cfg: Optional[ParallelismConfig], num_processes: int,
-                        num_nodes: int = 1) -> ParallelismConfig:
+                        num_nodes: int = 1, fsdp_plugin=None) -> ParallelismConfig:
     """The JAX ``AcceleratorState._resolve_parallelism`` with one process
     per device: ``cfg`` (else ``ParallelismConfig.from_env()``); a size-1
-    config over several processes becomes pure data parallelism, the nodes
-    on the outer ``dcn_dp`` axis and the processes of a node on ``dp``
-    (the JAX default ``dcn_dp = processes, dp = local devices``).  The
-    mesh must hold every process, and an active model axis raises
-    ``NotImplementedError`` naming the part of ROADMAP that brings it."""
+    config over several processes puts every process on ``fsdp`` when an
+    FSDP plugin is set, else on ``dp`` (the nodes on the outer ``dcn_dp``
+    axis in both cases, as the JAX default puts its processes there).  The
+    mesh must hold every process.  ``fsdp`` and ``tp`` run; an active
+    ``sp``, ``pp`` or ``ep`` raises ``NotImplementedError`` naming the part
+    of ROADMAP that brings it."""
     if cfg is None:
         cfg = ParallelismConfig.from_env()
     n = num_processes
     if cfg.total_size == 1 and n > 1:
+        inner = "fsdp" if fsdp_plugin is not None else "dp"
         if num_nodes > 1 and n % num_nodes == 0:
-            cfg = ParallelismConfig(dcn_dp=num_nodes, dp=n // num_nodes)
+            cfg = ParallelismConfig(dcn_dp=num_nodes, **{inner: n // num_nodes})
         else:
-            cfg = ParallelismConfig(dp=n)
+            cfg = ParallelismConfig(**{inner: n})
     if cfg.total_size != n:
         raise ValueError(
             f"Mesh of size {cfg.total_size} ({cfg.active_axes or '{}'}) does not match "
             f"device count {n}."
         )
-    for axis, part in _MODEL_AXIS_PARTS.items():
+    for axis, part in _UNPORTED_AXIS_PARTS.items():
         if getattr(cfg, axis) > 1:
             raise NotImplementedError(
                 f"ParallelismConfig({axis}={getattr(cfg, axis)}): the {axis} axis is not "
-                f"ported to accelerate_tpu_torch yet ({part}); data parallelism (dp, dcn_dp) "
-                "is")
+                f"ported to accelerate_tpu_torch yet ({part}); dp, dcn_dp, fsdp and tp are")
     return cfg
 
 
 class AcceleratorState:
     """The process (:class:`PartialState`, whose attributes it passes
     through) plus the ``mixed_precision`` mode (argument, else
-    ``ACCELERATE_MIXED_PRECISION``, else ``"no"``), its ``dtype_policy``,
-    ``distributed_type``, ``parallelism_config`` (:func:`resolve_parallelism`)
+    ``ACCELERATE_MIXED_PRECISION``, else ``"no"``), its ``dtype_policy``
+    (the FSDP plugin's ``mixed_precision_policy`` where it has one),
+    ``fsdp_plugin`` (argument, else a default one under
+    ``ACCELERATE_USE_FSDP``), ``distributed_type`` (``FSDP`` with the plugin
+    on an active ``fsdp`` axis, else ``TP`` on an active ``tp`` axis, as in
+    the JAX package; the ``Accelerator`` rewrites it for the DeepSpeed and
+    Megatron dialects), ``parallelism_config`` (:func:`resolve_parallelism`)
     and ``mesh`` (:func:`~.parallel.mesh.build_mesh`)."""
 
     _shared_state: dict = {}
     _known_attrs = PartialState._known_attrs + ["mixed_precision", "dtype_policy", "mesh",
-                                                "parallelism_config"]
+                                                "parallelism_config", "fsdp_plugin"]
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False, device=None,
-                 parallelism_config: Optional[ParallelismConfig] = None, **kwargs):
+                 parallelism_config: Optional[ParallelismConfig] = None, fsdp_plugin=None,
+                 **kwargs):
         self.__dict__ = self._shared_state
         if self.initialized:
             if mixed_precision is not None and mixed_precision.lower() != self._mixed_precision:
@@ -453,9 +459,17 @@ class AcceleratorState:
             raise ValueError(f"Unknown mixed_precision mode: {mode}; must be one of "
                              f"{PrecisionType.list()}")
         policy = MixedPrecisionPolicy.from_mixed_precision(mode)
+        from .utils.environment import parse_flag_from_env
+
+        if fsdp_plugin is None and parse_flag_from_env("ACCELERATE_USE_FSDP"):
+            from .utils.dataclasses import FullyShardedDataParallelPlugin
+
+            fsdp_plugin = FullyShardedDataParallelPlugin()
+        if getattr(fsdp_plugin, "mixed_precision_policy", None) is not None:
+            policy = fsdp_plugin.mixed_precision_policy
         partial_state = PartialState(cpu, device=device, **kwargs)
         cfg = resolve_parallelism(parallelism_config, partial_state.num_processes,
-                                  partial_state.num_nodes)
+                                  partial_state.num_nodes, fsdp_plugin)
         self._partial = partial_state
         # Env-opt-in observability (ACCELERATE_TPU_TELEMETRY=1) goes live
         # once the process state exists, as in the JAX package.
@@ -467,8 +481,14 @@ class AcceleratorState:
         self.parallelism_config = cfg
         from .parallel.mesh import build_mesh
 
+        self.fsdp_plugin = fsdp_plugin
         self.mesh = build_mesh(cfg)
-        self.distributed_type = partial_state.distributed_type
+        if fsdp_plugin is not None and cfg.fsdp > 1:
+            self.distributed_type = DistributedType.FSDP
+        elif cfg.tp > 1:
+            self.distributed_type = DistributedType.TP
+        else:
+            self.distributed_type = partial_state.distributed_type
 
     def __getattr__(self, name: str):
         if name in ("_shared_state", "_partial", "initialized"):

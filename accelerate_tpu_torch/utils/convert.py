@@ -57,14 +57,31 @@ def _params_from_jax(np_params: dict, shapes: dict, dtype, device) -> dict:
     return convert("", np_params, shapes)
 
 
-def llama_params_from_jax(np_params: dict, config: LlamaConfig, device=None) -> dict:
+def llama_params_from_jax(np_params: dict, config: LlamaConfig, device=None, specs=None,
+                          mesh=None, rank=None) -> dict:
     """``np_params``: the JAX ``llama.init_params`` tree with numpy (or any
     array-like) leaves.  Returns the port's parameter dict in
     ``config.param_dtype`` on ``device`` (default ``cuda``).  Raises
     ``ValueError`` when a leaf is missing, extra or of the wrong shape for
     ``config`` (a tied config has no ``lm_head``; ``attention_bias`` adds
-    ``bq``/``bk``/``bv``/``bo``)."""
-    return _params_from_jax(np_params, _param_shapes(config), config.param_dtype, device)
+    ``bq``/``bk``/``bv``/``bo``).
+
+    With ``specs`` (the spec tree, as :func:`~..parallel.sharding.make_param_specs`
+    gives it) and ``mesh``: the leaves of one process, the one at ``rank``
+    (default: this process), each its chunk of the full leaf, which is what
+    JAX's ``shard_params`` puts on the device at that mesh coordinate."""
+    params = _params_from_jax(np_params, _param_shapes(config), config.param_dtype, device)
+    if specs is None:
+        return params
+    from ..parallel.sharding import _tree_map, local_slice
+
+    def cut(path, t):
+        node = specs
+        for k in path.split("/"):
+            node = node[k]
+        return local_slice(t, node, mesh, rank).contiguous()
+
+    return _tree_map(cut, params)
 
 
 def gpt2_params_from_jax(np_params: dict, config: GPT2Config, device=None) -> dict:

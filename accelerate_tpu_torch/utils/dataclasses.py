@@ -21,6 +21,7 @@ __all__ = [
     "DistributedInitKwargs",
     "DistributedType",
     "FP8RecipeKwargs",
+    "FullyShardedDataParallelPlugin",
     "GradScalerKwargs",
     "GradientAccumulationPlugin",
     "InitProcessGroupKwargs",
@@ -230,6 +231,85 @@ class ParallelismConfig:
             ep=geti("ACCELERATE_PARALLELISM_EP"),
             dcn_dp=geti("ACCELERATE_PARALLELISM_DCN_DP"),
         )
+
+
+@dataclass
+class FullyShardedDataParallelPlugin:
+    """The FSDP strategy on the ``fsdp`` mesh axis: the JAX
+    ``FullyShardedDataParallelPlugin``, field for field.
+
+    - ``sharding_strategy``: ``FULL_SHARD`` and ``HYBRID_SHARD`` keep one
+      shard of each parameter, its gradient and its optimizer state per
+      process on the ``fsdp`` axis (``HYBRID_SHARD`` replicates them over
+      ``dcn_dp``); ``SHARD_GRAD_OP`` and ``NO_SHARD`` keep the parameters
+      replicated, as the JAX package does (:func:`~..parallel.sharding.make_param_specs`);
+      the integer forms 1-4 name them in that order;
+    - ``min_num_params``: a parameter with fewer elements stays replicated;
+    - ``cpu_offload``: the optimizer's state lives in host memory
+      (:mod:`~..parallel.host_offload`);
+    - ``state_dict_type``: ``FULL_STATE_DICT`` gathers the full tensors on
+      save and re-shards them on load; ``SHARDED_STATE_DICT`` (the default,
+      as in the JAX package) and ``LOCAL_STATE_DICT`` raise when a sharded
+      model is saved (ROADMAP A6 part 3);
+    - ``mixed_precision_policy``: a policy that overrides the
+      ``mixed_precision`` mode;
+    - ``reshard_after_forward``, ``use_orig_params``, ``sync_module_states``,
+      ``auto_wrap_policy``, ``transformer_cls_names_to_wrap``,
+      ``activation_checkpointing``, ``fsdp_version``: carried for the JAX
+      surface (a layer's weights are gathered where it runs and dropped
+      after it; ``prepare`` broadcasts rank 0's values before it shards).
+
+    The ``FSDP_*`` environment variables override the fields, as in the
+    JAX package."""
+
+    sharding_strategy: str = "FULL_SHARD"
+    reshard_after_forward: bool = True
+    cpu_offload: bool = False
+    min_num_params: int = 0
+    auto_wrap_policy: Any = None
+    transformer_cls_names_to_wrap: Optional[list] = None
+    state_dict_type: str = "SHARDED_STATE_DICT"
+    use_orig_params: bool = True
+    sync_module_states: bool = True
+    activation_checkpointing: bool = False
+    mixed_precision_policy: Optional["MixedPrecisionPolicy"] = None
+    fsdp_version: int = 2
+
+    VALID_STRATEGIES = ("FULL_SHARD", "SHARD_GRAD_OP", "NO_SHARD", "HYBRID_SHARD")
+
+    def __post_init__(self):
+        from .environment import str_to_bool
+
+        env_prefix = "FSDP_"
+        self.sharding_strategy = os.environ.get(
+            env_prefix + "SHARDING_STRATEGY", self.sharding_strategy).upper()
+        int_map = {"1": "FULL_SHARD", "2": "SHARD_GRAD_OP", "3": "NO_SHARD", "4": "HYBRID_SHARD"}
+        self.sharding_strategy = int_map.get(self.sharding_strategy, self.sharding_strategy)
+        if self.sharding_strategy not in self.VALID_STRATEGIES:
+            raise ValueError(
+                f"sharding_strategy must be one of {self.VALID_STRATEGIES}, got "
+                f"{self.sharding_strategy}")
+        if "FSDP_MIN_NUM_PARAMS" in os.environ:
+            self.min_num_params = int(os.environ["FSDP_MIN_NUM_PARAMS"])
+        if "FSDP_CPU_OFFLOAD" in os.environ:
+            self.cpu_offload = bool(str_to_bool(os.environ["FSDP_CPU_OFFLOAD"]))
+        if "FSDP_STATE_DICT_TYPE" in os.environ:
+            self.state_dict_type = os.environ["FSDP_STATE_DICT_TYPE"].upper()
+        if "FSDP_ACTIVATION_CHECKPOINTING" in os.environ:
+            self.activation_checkpointing = bool(
+                str_to_bool(os.environ["FSDP_ACTIVATION_CHECKPOINTING"]))
+        if (self.transformer_cls_names_to_wrap is None
+                and "FSDP_TRANSFORMER_CLS_TO_WRAP" in os.environ):
+            self.transformer_cls_names_to_wrap = (
+                os.environ["FSDP_TRANSFORMER_CLS_TO_WRAP"].split(","))
+
+    @property
+    def shards_parameters(self) -> bool:
+        return self.sharding_strategy in ("FULL_SHARD", "HYBRID_SHARD")
+
+    @property
+    def shards_grads_and_optimizer(self) -> bool:
+        return self.sharding_strategy in ("FULL_SHARD", "HYBRID_SHARD", "SHARD_GRAD_OP")
 
 
 @dataclass

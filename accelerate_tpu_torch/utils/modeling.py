@@ -39,7 +39,14 @@ class PreparedModel(nn.Module):
     *args, **kwargs)`` method (``LlamaForCausalLM``) is called through it
     with its fp32 parameters, and casts each weight to ``compute_dtype``
     where it uses it, to the same values; every other module gets the
-    copies made here."""
+    copies made here.
+
+    A module ``prepare`` sharded whose forward does not realize the layout
+    itself carries it as ``_gather_layout``: each of its leaves is then
+    gathered whole over ``fsdp`` (cast to ``compute_dtype`` first) before
+    ``functional_call``, and the backward reduce-scatters the gradients
+    (:meth:`~..parallel.sharding.Layout.full`); a leaf split over another
+    axis raises."""
 
     def __init__(self, module: nn.Module, compute_dtype: torch.dtype):
         super().__init__()
@@ -48,13 +55,21 @@ class PreparedModel(nn.Module):
 
     def forward(self, *args, **kwargs):
         module, dt = self.module, self.compute_dtype
+        layout = getattr(module, "_gather_layout", None)
         cast_at_use = getattr(module, "_forward_cast_at_use", None)
-        if cast_at_use is not None:
+        if cast_at_use is not None and layout is None:
             args, kwargs = recursively_apply(
                 lambda t: t.to(dt) if t.is_floating_point() else t, (args, kwargs))
             return convert_to_fp32(cast_at_use(dt, *args, **kwargs))
-        casted = {n: p.to(dt) if p.is_floating_point() else p
-                  for n, p in module.named_parameters()}
+        if layout is not None:
+            from ..parallel.sharding import spec_of
+
+            casted = {n: layout.full(p, spec_of(p), dt if p.is_floating_point() else None,
+                                     keep=())
+                      for n, p in module.named_parameters()}
+        else:
+            casted = {n: p.to(dt) if p.is_floating_point() else p
+                      for n, p in module.named_parameters()}
         buffers = {n: (b, b.to(dt)) for n, b in module.named_buffers() if b.is_floating_point()}
         casted.update({n: c for n, (_, c) in buffers.items()})
         args, kwargs = recursively_apply(

@@ -378,8 +378,33 @@ Phases (each fails the run on any mismatch; nothing is caught):
    the concatenated global batch: its loss within 1e-3 (relative) of the
    processes' step-1 loss.  16c: the same with NCCL and one GPU per process,
    only where ``torch.cuda.device_count() >= 2`` (else it prints that it did
-   not run).  16d: ``python -m accelerate_tpu_torch.parallel.zero_smoke``
+   not run), over every card.  16d: ``python -m accelerate_tpu_torch.parallel.zero_smoke``
    as a child at its own small shapes on the card, beside 16b.
+
+17. FSDP and tensor parallelism (``parallel/sharding.py``, the llama
+   family's sharded forward), inside 16b's two children after their
+   replicated and ZeRO runs (``zero_smoke.run(model_axes=True)``): a fresh
+   ``AcceleratorState`` over the same group, the same recipe and weights,
+   2 steps each.  17a, ``fsdp=2`` under ``FULL_SHARD``: each process holds
+   half of every leaf, a layer's weights gathered in bf16 where it runs
+   (again under ``remat``), the gradients reduce-scattered in fp32; step
+   1's loss bit-identical to 16b's replicated step 1, step 2's within
+   ``PHASE17_STEP2_REL``; each step's pre-clip gradient norm within
+   ``PHASE17_NORM_REL`` of 16b's replicated one; the parameters' change
+   over the 2 steps against 16b's replicated change from the same start
+   (both kept on the host): ``||d_fsdp - d_rep|| / ||d_rep||`` within
+   ``PHASE17_DELTA_REL`` (an update that did nothing reads 1.0); the allocator's
+   parameter and optimizer-state bytes per process about half of 16b's;
+   the flash kernels 2L / L / L per process per step on all 32 / 8 heads;
+   each step's time and its gloo transfer time, the bytes each collective
+   moved by axis.  17b, ``tp=2``: both processes read the same rows; the
+   fused attention saw 16 / 4 heads; the two processes' losses identical,
+   step 1's within ``PHASE17_LOSS_REL`` and its pre-clip gradient norm
+   within ``PHASE17_TP_NORM_REL`` (relative) of one process's on the same
+   batch and weights, computed here after the children exit.  17c: the
+   same with NCCL and one GPU per process (two processes), only where
+   ``torch.cuda.device_count() >= 2`` (else it prints that it did not run;
+   it is never counted as passed).
 
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
@@ -389,7 +414,8 @@ launches as ``launches_phase8``, ``launches_phase9`` and
 as ``launches_phase12``, every kernel's Phase 14 launches as
 ``launches_phase14`` and its Phase 15 launches as ``launches_phase15``,
 the flash kernels' Phase 16 launches (16b's two processes, both modes) as
-``launches_phase16``,
+``launches_phase16`` and their Phase 17 launches (both processes, 17a and
+17b) as ``launches_phase17``,
 the paged kernels' Phase
 11 launches as ``launches_phase11`` and 11a's records as
 ``gpt2_xl_heads``, the flash kernels' fp32 Phase 4
@@ -5071,6 +5097,22 @@ PHASE16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", 
 PHASE16_LAYERS = 2  # zero_smoke's llama3-8b size
 PHASE16_STEPS = 3  # zero_smoke's llama3-8b steps
 PHASE16_LOSS_REL = 1e-3
+# Phase 17's limits (relative), each set from this script's readings on an
+# H100 (PERF.md, Findings) and far below what a wrong update or a wrong
+# averaging factor gives.  17a's pre-clip norms read 9.9e-8 and 7.2e-6 from
+# 16b's (the norm's association); a factor of 2 reads 1.0.
+PHASE17_NORM_REL = 1e-4
+# 17a's step-2 loss read bit-identical to 16b's; one optimizer step moves
+# a loss by ~5e-4 here.
+PHASE17_STEP2_REL = 1e-5
+# 17a's parameter change against 16b's read 5.15e-3; an update that did
+# nothing reads 1.0, one in the wrong direction 2.0.
+PHASE17_DELTA_REL = 0.1
+# 17b's step-1 loss read 1.91e-5 from one process's, its pre-clip norm
+# 3.83e-5; counting a replicated leaf twice adds its squares to the norm.
+PHASE17_LOSS_REL = 1e-4
+PHASE17_TP_NORM_REL = 2e-4
+PHASE17_HEADS = {"fsdp": (32, 8), "tp": (16, 4)}
 
 
 def free_port() -> int:
@@ -5132,10 +5174,14 @@ def phase16a():
 
 def phase16_reference(want, world, smi):
     """One process, rank 0's weights, one step on the concatenated global
-    batch of step 1: its loss beside the processes' step-1 loss."""
+    batch of step 1: its loss beside the processes' step-1 loss.  Returns
+    the rows the processes should have read and, for 17b, the loss and the
+    pre-clip gradient norm of the same weights on the first row alone."""
     from accelerate_tpu_torch import Accelerator
     from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.optimizer import global_norm
     from accelerate_tpu_torch.parallel import zero_smoke
+    from accelerate_tpu_torch.pipeline.train_step import micro_loss
 
     fresh_state()
     gc_collect()
@@ -5146,6 +5192,11 @@ def phase16_reference(want, world, smi):
     opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
     model, opt = acc.prepare(model, opt)
     step = acc.make_train_step(model, opt, clip_norm=zero_smoke.CLIP)
+    # 17b's batch: both processes read the first row.
+    params = [p for p in opt.params if p.requires_grad]
+    row_loss = micro_loss(model, {"input_ids": torch.from_numpy(data[0][None]).to(acc.device)})
+    first_row = (float(row_loss), float(global_norm(torch.autograd.grad(row_loss, params))))
+    del row_loss
     batch = {"input_ids": torch.from_numpy(np.stack(data[:world])).to(acc.device)}
     reset_flash_counts()
     loss = float(step(batch))
@@ -5157,7 +5208,7 @@ def phase16_reference(want, world, smi):
     del model, opt, step
     fresh_state()
     gc_collect()
-    return rows_of(data, world)
+    return rows_of(data, world), first_row
 
 
 def rows_of(data, world):
@@ -5245,19 +5296,29 @@ def phase16(smi):
          os.path.join(PHASE16_DIR, "d")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
     summary = zero_smoke.run("llama3-8b", "cuda", world=2, backend="gloo",
-                             workdir=os.path.join(PHASE16_DIR, "b"))
+                             workdir=os.path.join(PHASE16_DIR, "b"), model_axes=True)
     t2 = time.perf_counter()
-    data_rows = phase16_reference(summary["losses"][0], 2, smi)
+    data_rows, first_row = phase16_reference(summary["losses"][0], 2, smi)
     counts = phase16_check(summary, data_rows, "phase16b", smi)
+    counts17 = phase17_check(summary, first_row, "phase17", smi)
     t3 = time.perf_counter()
     n_dev = torch.cuda.device_count()
     if n_dev >= 2:
+        # 16c over every card; 17c's model axes take two processes, so with
+        # more cards they get a run of their own.
+        data = zero_smoke.token_dataset(zero_smoke.llama_config().vocab_size)
         nccl = zero_smoke.run("llama3-8b", "cuda", world=n_dev, backend="nccl",
-                              workdir=os.path.join(PHASE16_DIR, "c"))
-        phase16_check(nccl, rows_of(zero_smoke.token_dataset(
-            zero_smoke.llama_config().vocab_size), n_dev), "phase16c", smi)
+                              workdir=os.path.join(PHASE16_DIR, "c"), model_axes=n_dev == 2)
+        phase16_check(nccl, rows_of(data, n_dev), "phase16c", smi)
+        if n_dev != 2:
+            nccl = zero_smoke.run("llama3-8b", "cuda", world=2, backend="nccl",
+                                  workdir=os.path.join(PHASE16_DIR, "c2"), model_axes=True)
+            phase16_check(nccl, rows_of(data, 2), "phase16c (2 processes)", smi)
+        phase17_check(nccl, first_row, "phase17c", smi)
     else:
         log(f"phase16c not run: {n_dev} device")
+        log(f"phase17c not run: {n_dev} device (NCCL puts no two ranks on one GPU); not "
+            "counted as passed")
     t4 = time.perf_counter()
     out, err = small_proc.communicate(timeout=600)
     check(small_proc.returncode == 0, f"phase16d: zero_smoke exited {small_proc.returncode}: "
@@ -5270,10 +5331,107 @@ def phase16(smi):
     log(f"phase16d zero_smoke on the card ({small['backend']}, {small['devices']}): "
         f"{small['steps']} steps bit-exact, opt state {small['state_bytes']}")
     shutil.rmtree(PHASE16_DIR, ignore_errors=True)
-    log(f"phase16 seconds: 16a {t1 - t0:.1f}, 16b {t3 - t1:.1f} (children {t2 - t1:.1f}, "
-        f"reference step {t3 - t2:.1f}), 16c {t4 - t3:.1f}, 16d beside 16b (waited "
-        f"{t5 - t4:.1f} more; its wall {small['wall_s']:.1f}), total {t5 - t0:.1f} ({smi})")
-    return dict(counts=counts, seconds=t5 - t0)
+    in17 = sum(max(r["seconds"] for r in summary["model_axes"][m]) for m in ("fsdp", "tp"))
+    log(f"phase16 seconds: 16a {t1 - t0:.1f}, 16b+17 {t3 - t1:.1f} (children {t2 - t1:.1f}, "
+        f"of it 17a+17b {in17:.1f}; reference step {t3 - t2:.1f}), 16c/17c {t4 - t3:.1f}, 16d "
+        f"beside 16b (waited {t5 - t4:.1f} more; its wall {small['wall_s']:.1f}); phases 16 "
+        f"and 17 together {t5 - t0:.1f} ({smi})")
+    return dict(counts=counts, counts17=counts17, seconds=t5 - t0, seconds17=in17)
+
+
+def phase17_check(summary, first_row, tag, smi):
+    """17a's and 17b's proofs from the children's records (see the module
+    docstring, Phase 17), against 16b's replicated run and ``first_row``,
+    one process's (loss, pre-clip norm) on 17b's batch; logs the readings
+    before it checks them; returns the flash launches of both."""
+    from accelerate_tpu_torch.parallel import zero_smoke
+
+    ranks = summary["per_rank"]
+    fsdp, tp = summary["model_axes"]["fsdp"], summary["model_axes"]["tp"]
+    layers = PHASE16_LAYERS
+    per_step = {"fused_attention_fwd": 2 * layers, "fused_attention_bwd_dq": layers,
+                "fused_attention_bwd_dkv": layers}
+    totals = dict.fromkeys(FLASH_KERNELS, 0)
+    # remat runs each layer's forward twice a step.
+    calls = 2 * layers * zero_smoke.MODEL_AXES_STEPS
+    for mode, recs in (("fsdp", fsdp), ("tp", tp)):
+        h, kh = PHASE17_HEADS[mode]
+        for r, rec in enumerate(recs):
+            check(rec["mesh"][mode] == 2, f"{tag} {mode}: rank {r} mesh {rec['mesh']}")
+            check(all(s == per_step for s in rec["launches"]),
+                  f"{tag} {mode}: rank {r} flash launches {rec['launches']}, want {per_step}")
+            shapes = rec["attention_shapes"]
+            check(len(shapes) == calls and all(q[2] == h and k[2] == kh for q, k in shapes),
+                  f"{tag} {mode}: rank {r} attention q/k shapes {shapes[:2]} x {len(shapes)}, "
+                  f"want {h}/{kh} heads x {calls}")
+            check(min(rec["health"]) > zero_smoke.CLIP, f"{tag} {mode}: the clip did not bind")
+            for s in rec["launches"]:
+                for k in totals:
+                    totals[k] += s[k]
+        check(recs[0]["losses"] == recs[1]["losses"],
+              f"{tag} {mode}: the processes' losses differ: {[x['losses'] for x in recs]}")
+    rep, rep_norms = ranks[0]["losses"]["replicated"], ranks[0]["health"]["replicated"]
+    step2_rel = abs(fsdp[0]["losses"][1] - rep[1]) / abs(rep[1])
+    norm_rel = [[abs(a - b) / b for a, b in zip(rec["health"], rep_norms)] for rec in fsdp]
+    gaps = [rec["gap"] for rec in fsdp]
+    delta_rel = (sum(g["diff_sq"] for g in gaps) / sum(g["delta_sq"] for g in gaps)) ** 0.5
+    one_loss, one_norm = first_row
+    rel = abs(tp[0]["losses"][0] - one_loss) / abs(one_loss)
+    tp_norm_rel = abs(tp[0]["health"][0] - one_norm) / one_norm
+    alloc = {"params": [rec["param_alloc_bytes"] for rec in fsdp],
+             "state": [rec["allocator_state_bytes"] for rec in fsdp],
+             "peak": [rec["peak_bytes"] for rec in fsdp]}
+    want = {"params": summary["param_alloc_bytes"], "peak": summary["peak_bytes"][0],
+            "state": summary["allocator_state_bytes"]["replicated"]}
+    log(f"{tag}a against 16b: step-1 loss {fsdp[0]['losses'][0]!r} vs {rep[0]!r}; step 2 "
+        f"{fsdp[0]['losses'][1]!r} vs {rep[1]!r} (rel {step2_rel:.3e}, limit "
+        f"{PHASE17_STEP2_REL}); pre-clip norms {[rec['health'] for rec in fsdp]} vs "
+        f"{rep_norms} (rel {norm_rel}, limit {PHASE17_NORM_REL}); parameter change "
+        f"||d_fsdp - d_rep|| / ||d_rep|| {delta_rel:.6e} (per process "
+        f"{[g['relnorm'] for g in gaps]}, limit {PHASE17_DELTA_REL}; an update that did "
+        f"nothing reads 1.0), max abs {[g['max_abs'] for g in gaps]}, bit-identical "
+        f"{[g['bit_identical'] for g in gaps]}; 16b replicated params / opt state / peak GB "
+        f"{want['params'] / 1e9:.3f} / {want['state'] / 1e9:.3f} / {want['peak'] / 1e9:.3f}; "
+        f"{tag}b step-1 loss {tp[0]['losses'][0]!r} vs one process {one_loss!r} (rel "
+        f"{rel:.3e}, limit {PHASE17_LOSS_REL}), pre-clip norm {tp[0]['health'][0]!r} vs "
+        f"{one_norm!r} (rel {tp_norm_rel:.3e}, limit {PHASE17_TP_NORM_REL}) ({smi})")
+    check(fsdp[0]["losses"][0] == rep[0], f"{tag}a: step-1 loss {fsdp[0]['losses'][0]!r}, 16b's "
+                                          f"replicated {rep[0]!r}: not bit-identical")
+    check(step2_rel <= PHASE17_STEP2_REL, f"{tag}a: step-2 loss rel gap {step2_rel}")
+    for r, (rec, rels) in enumerate(zip(fsdp, norm_rel)):
+        check(max(rels) <= PHASE17_NORM_REL, f"{tag}a: rank {r} pre-clip norms {rec['health']} "
+                                             f"against 16b's {rep_norms} (rel {rels})")
+        check(rec["gap"]["relnorm"] is not None
+              and rec["gap"]["relnorm"] <= PHASE17_DELTA_REL,
+              f"{tag}a: rank {r} parameter change against 16b's: {rec['gap']}")
+    for key in ("params", "state"):
+        for got in alloc[key]:
+            ratio = got / want[key]
+            check(0.45 <= ratio <= 0.55, f"{tag}a: {key} bytes per process {got} against 16b's "
+                                         f"{want[key]} ({ratio:.3f}x), want about half")
+    check(rel <= PHASE17_LOSS_REL, f"{tag}b: step-1 loss {tp[0]['losses'][0]} against one "
+                                   f"process's {one_loss} (rel {rel:.2e})")
+    check(tp_norm_rel <= PHASE17_TP_NORM_REL, f"{tag}b: step-1 pre-clip norm "
+                                              f"{tp[0]['health'][0]} against one process's "
+                                              f"{one_norm} (rel {tp_norm_rel:.2e})")
+
+    def per_axis(rec):
+        c = rec["comm"][-1]
+        return {op: (round(v["bytes"] / 1e9, 3), round(v["seconds"], 3)) for op, v in c.items()}
+
+    for mode, recs in (("fsdp", fsdp), ("tp", tp)):
+        log(f"{tag}{'a' if mode == 'fsdp' else 'b'} {mode}=2 over {summary['backend']}: losses "
+            f"{recs[0]['losses']}, pre-clip norms {recs[0]['health']}, steps s "
+            f"{[[round(x, 3) for x in r['step_s']] for r in recs]}, gloo host s "
+            f"{[[round(x, 3) for x in r['staged_s']] for r in recs]}, step 2's collectives "
+            f"(GB, s) {per_axis(recs[0])}, attention q/k {recs[0]['attention_shapes'][0]}, "
+            f"params / opt state / peak GB a process "
+            f"{[round((r['param_alloc_bytes'] or 0) / 1e9, 3) for r in recs]} / "
+            f"{[round((r['allocator_state_bytes'] or 0) / 1e9, 3) for r in recs]} / "
+            f"{[round((r['peak_bytes'] or 0) / 1e9, 3) for r in recs]}, build s "
+            f"{[round(r['build_s'], 1) for r in recs]}, seconds "
+            f"{[round(r['seconds'], 1) for r in recs]} ({smi})")
+    return totals
 
 
 def main() -> int:
@@ -5352,6 +5510,8 @@ def main() -> int:
     p16 = run(16, phase16, smi)
     check(all(p16["counts"][n] > 0 for n in FLASH_KERNELS),
           f"phase 16 launched the flash kernels {p16['counts']} times")
+    check(all(p16["counts17"][n] > 0 for n in FLASH_KERNELS),
+          f"phase 17 launched the flash kernels {p16['counts17']} times")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
@@ -5407,6 +5567,7 @@ def main() -> int:
                            launches_phase14=p14["counts"][name],
                            launches_phase15=p15["counts"][name],
                            launches_phase16=p16["counts"][name],
+                           launches_phase17=p16["counts17"][name],
                            head_dims=list(fu_dims),
                            wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
                                        for geom, dt in p10["flash"]},

@@ -1678,3 +1678,54 @@ def test_host_offload_keeps_the_state_pinned_and_steps_as_the_plain_optimizer(cu
         assert st["exp_avg"].device.type == "cpu" and st["exp_avg"].is_pinned()
     assert ho.host_memory_kind() == "pinned_host"
     assert torch.equal(a, b)
+
+
+# -- the model axes' collectives over a one-rank NCCL group ------------------------
+
+
+@pytest.fixture
+def nccl_one_rank(cuda):
+    """A one-rank NCCL group, as ``chip_smoke.py`` Phase 16a starts one."""
+    import socket
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already up")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fsdp_gather_and_megatron_pair_on_a_one_rank_nccl_group(nccl_one_rank, dtype):
+    """``fsdp_gather`` (a shard not along dim 0, cast to ``dtype`` first),
+    ``tp_copy`` and ``tp_reduce`` on CUDA tensors: with one rank each
+    returns its input and its backward the incoming gradient (the
+    gather's in the shard's fp32), and each logs its collective under its
+    axis."""
+    from accelerate_tpu_torch.parallel import collectives as co
+
+    group = nccl_one_rank
+    gen = torch.Generator().manual_seed(0)
+    shard = torch.randn(64, 128, generator=gen).cuda().requires_grad_(True)
+    x = torch.randn(4, 64, generator=gen).cuda().to(dtype).requires_grad_(True)
+    co.reset_comm_log()
+    full = co.fsdp_gather(shard, 1, group, dtype=dtype)
+    assert full.dtype == dtype and torch.equal(full, shard.detach().to(dtype))
+    y = co.tp_reduce(co.tp_copy(x, group) @ full, group)
+    assert torch.equal(y, x.detach() @ shard.detach().to(dtype))
+    g = torch.randn(y.shape, generator=gen).cuda().to(dtype)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert shard.grad.dtype == torch.float32
+    assert torch.equal(shard.grad, (x.detach().T @ g).float())
+    assert torch.equal(x.grad, g @ shard.detach().to(dtype).T)
+    assert {"all_gather:fsdp", "reduce_scatter:fsdp", "all_reduce:tp"} <= set(co.COMM_LOG)

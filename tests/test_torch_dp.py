@@ -7,7 +7,8 @@ In a 2-process world (module-scoped):
 
 - the eager loop's averaged gradient (``accumulate``; ``no_sync`` on all
   but the last micro-batch) equals one process's gradient of the global
-  batch within 1e-6 relative;
+  batch within 1e-6 relative, and so does the norm ``clip_grad_norm_``
+  returns (ROADMAP C12);
 - the ZeRO ``make_train_step`` is bit-exact against the replicated one
   (losses, parameters on every process, the state dict gathered to full
   shapes) at ``accum`` 1 and 2 with a binding clip, holds about half the
@@ -69,6 +70,16 @@ def world4(tmp_path_factory):
 def test_eager_dp_gradient_equals_the_global_batch(world, accum, no_sync):
     for errs in world.run("torch_dp_tasks:dp_grads_match_global", accum, no_sync):
         assert max(errs.values()) <= 1e-6, errs
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_clip_grad_norm_returns_the_averaged_gradients_norm(world, accum):
+    """``clip_grad_norm_`` returns the norm of the gradient averaged over
+    the processes, as the JAX ``Accelerator`` returns the global gradient's
+    (ROADMAP C12): the one-process norm of the concatenated batch's
+    gradient, within 1e-6, on every process."""
+    for out in world.run("torch_dp_tasks:clip_norm_is_the_global_norm", accum):
+        assert abs(out["got"] - out["want"]) <= 1e-6 * out["want"], out
 
 
 def _same(a, b):

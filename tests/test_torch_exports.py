@@ -6,7 +6,9 @@ ported in submodules only, those of the single-process surface, the
 trackers, logging, memory and utils helpers, GPT-2, the other model
 families, telemetry, the one-process resilience (retry, health, fault
 injection), the serving chaos and the smoke modules (A5), and several
-processes with the ZeRO sharded update (A6's first part).  Each is imported from both
+processes with the ZeRO sharded update (A6's first part), and FSDP, the
+llama family's TP and the DeepSpeed / Megatron-LM dialects (A6 part 1).
+Each is imported from both
 packages; a class in one is a class in the other.  Exact: no tolerance."""
 
 import importlib
@@ -185,6 +187,34 @@ A6_PART0 = {  # several processes, data parallelism and the ZeRO sharded update
     ".parallel.zero_smoke": ["main"],
 }
 A6_PART0_CONSTANTS = {".parallel.zero": ["ENV_ZERO", "ENV_ZERO_OVERLAP", "ZERO_AXES"]}
+_FSDP_UTILS = ["save_fsdp_model", "load_fsdp_model", "save_fsdp_optimizer",
+               "load_fsdp_optimizer", "merge_fsdp_weights", "fsdp2_prepare_model",
+               "fsdp2_load_full_state_dict", "fsdp2_switch_optimizer_parameters",
+               "get_fsdp2_grad_scaler", "enable_fsdp_ram_efficient_loading",
+               "disable_fsdp_ram_efficient_loading", "ensure_weights_retied"]
+_DEEPSPEED = ["HfDeepSpeedConfig", "DeepSpeedPlugin", "DummyOptim", "DummyScheduler",
+              "get_active_deepspeed_plugin", "DeepSpeedEngineWrapper",
+              "DeepSpeedOptimizerWrapper", "DeepSpeedSchedulerWrapper", "GatheredParameters",
+              "deepspeed_required", "map_pytorch_optim_to_deepspeed"]
+_MEGATRON = ["MegatronLMPlugin", "megatron_pipeline_loss_fn", "AbstractTrainStep",
+             "BertTrainStep", "GPTTrainStep", "T5TrainStep", "MegatronEngine",
+             "MegatronLMDummyDataLoader", "MegatronLMDummyScheduler",
+             "MegatronLMOptimizerWrapper", "MegatronLMSchedulerWrapper",
+             "add_model_config_to_megatron_parser", "avg_losses_across_data_parallel_group",
+             "gather_across_data_parallel_groups", "megatron_lm_initialize",
+             "megatron_lm_prepare_data_loader", "megatron_lm_prepare_model_optimizer_scheduler",
+             "megatron_lm_prepare_optimizer", "megatron_lm_prepare_scheduler"]
+A6_PART1 = {  # FSDP, the llama family's TP, the DeepSpeed and Megatron-LM dialects
+    "": ["FullyShardedDataParallelPlugin", "DeepSpeedPlugin"],
+    ".utils": ["FullyShardedDataParallelPlugin", *_DEEPSPEED, *_FSDP_UTILS, *_MEGATRON],
+    ".utils.dataclasses": ["FullyShardedDataParallelPlugin"],
+    ".utils.fsdp_utils": _FSDP_UTILS,
+    ".utils.deepspeed": _DEEPSPEED,
+    ".utils.megatron": _MEGATRON,
+    ".parallel.sharding": ["spec_from_rules", "auto_fsdp_spec", "make_param_specs",
+                           "constrain", "embed_lookup", "manual_region", "in_manual_region"],
+    ".models.llama": ["param_specs"],
+}
 A1B_CONSTANTS = {".utils": ["SAFE_WEIGHTS_NAME", "WEIGHTS_NAME", "MODEL_NAME", "SCALER_NAME",
                             "TORCH_LAUNCH_PARAMS"],
                  ".utils.constants": ["STR_OPERATION_TO_FUNC", "FSDP_SHARDING_STRATEGY"]}
@@ -286,6 +316,27 @@ def test_a6_part0_zero_all_is_jax_all():
     import accelerate_tpu_torch.parallel.zero as tz
 
     assert tz.__all__ == jz.__all__ and th.__all__ == jh.__all__
+
+
+@pytest.mark.parametrize("path,name", _cases(A6_PART1), ids=lambda v: v if v else "top")
+def test_a6_part1_names_import_at_jax_paths(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert isinstance(port_obj, type) == isinstance(jax_obj, type) and callable(port_obj)
+    assert port_obj.__module__.startswith("accelerate_tpu_torch")
+
+
+def test_a6_part1_all_is_jax_all():
+    """The JAX ``__all__`` of the sharding engine and the three dialect
+    modules, the llama rule table's patterns and specs."""
+    import accelerate_tpu.models.llama as jl
+    import accelerate_tpu_torch.models.llama as tl
+
+    for mod in (".parallel.sharding", ".utils.fsdp_utils", ".utils.deepspeed",
+                ".utils.megatron"):
+        jax_mod = importlib.import_module("accelerate_tpu" + mod)
+        port_mod = importlib.import_module("accelerate_tpu_torch" + mod)
+        assert port_mod.__all__ == jax_mod.__all__, mod
+    assert [(r, tuple(s)) for r, s in jl.PARTITION_RULES] == tl.PARTITION_RULES
 
 
 @pytest.mark.parametrize("path,name", _cases(A5), ids=lambda v: v if v else "top")

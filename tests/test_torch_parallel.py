@@ -104,10 +104,13 @@ def test_mesh_errors(monkeypatch):
     with pytest.raises(ValueError) as je:
         _jax_resolve(monkeypatch, JaxParallelismConfig(dp=4), 2, 1)
     assert str(te.value) == str(je.value)
-    parts = {"fsdp": "part 1", "tp": "part 1", "ep": "part 1", "sp": "part 2", "pp": "A7"}
+    parts = {"ep": "part 1", "sp": "part 2", "pp": "A7"}
     for axis, part in parts.items():
         with pytest.raises(NotImplementedError, match=part):
             resolve_parallelism(ParallelismConfig(**{axis: 2}), 2)
+    for axis in ("fsdp", "tp"):  # the model axes of ROADMAP A6 part 1 run
+        assert _fields(resolve_parallelism(ParallelismConfig(**{axis: 2}), 2)) == _fields(
+            _jax_resolve(monkeypatch, JaxParallelismConfig(**{axis: 2}), 2, 1))
 
 
 def test_one_process_state_has_a_trivial_mesh():

@@ -184,6 +184,30 @@ def dp_grads_match_global(accum: int, use_no_sync: bool):
     return {k: float((synced[k] - want[k]).abs().max() / want[k].abs().max()) for k in want}
 
 
+def clip_norm_is_the_global_norm(accum: int):
+    """What ``clip_grad_norm_`` returns on the sync micro-batch of an
+    ``accumulate`` window (a clip too wide to bind), against one process's
+    norm of the global batch's gradient."""
+    from accelerate_tpu_torch.optimizer import global_norm
+
+    acc, model, opt = _mlp_prepared(accum)
+    r, n = acc.process_index, acc.num_processes
+    start = {k: v.clone() for k, v in model.params.items()}
+    batches = _mlp_batches(accum, 4 * n)
+    got = None
+    for b in batches:
+        with acc.accumulate(model):
+            acc.backward(model(**_my_rows(b, r, n))["loss"])
+            if acc.sync_gradients:
+                got = float(acc.clip_grad_norm_(model.parameters(), max_norm=1e9))
+            opt.step()
+            opt.zero_grad()
+    ref = {k: v.clone().requires_grad_(True) for k, v in start.items()}
+    total = sum(_mlp_apply(ref, **b)["loss"] for b in batches) / accum
+    want = float(global_norm(torch.autograd.grad(total, list(ref.values()))))
+    return {"got": got, "want": want}
+
+
 def zero_vs_replicated(accum: int, clip: float, steps: int = 3, poison_step=None,
                        comm_hook: str = "no"):
     """Losses, pre- and post-value-clip norms, parameters, opt-state bytes
