@@ -122,13 +122,22 @@ class FunctionalModel(nn.Module):
     registered leaves on each read, so ``torch.func.functional_call``
     (a :class:`PreparedModel`'s 16-bit copies) reaches ``apply_fn``.
     ``partition_rules`` (path regex -> spec, the JAX ``JaxModel``'s) lay
-    its leaves out on a mesh with model axes; a leaf they split over
-    ``tp`` raises there, as ``apply_fn`` sees whole leaves only."""
+    its leaves out on a mesh with model axes.  An ``apply_fn`` that sees
+    whole leaves gets them gathered over ``fsdp``, and a leaf the rules
+    split over ``tp`` or ``ep`` raises there; with ``handles_layout`` the
+    ``apply_fn`` takes this process's shards and the
+    :class:`~.parallel.sharding.Layout` as ``layout=`` (None off such a
+    mesh) and realizes the layout itself, as a family's ``loss_fn`` does
+    (``gpt2.loss_fn(params, batch, config, layout=layout)``)."""
 
-    def __init__(self, apply_fn: Callable, params: Any, partition_rules=None):
+    _layout = None
+
+    def __init__(self, apply_fn: Callable, params: Any, partition_rules=None,
+                 handles_layout: bool = False):
         super().__init__()
         self.apply_fn = apply_fn
         self.partition_rules = partition_rules
+        self._handles_layout = handles_layout
         self._leaves = nn.ParameterList()
         names = []
 
@@ -154,7 +163,13 @@ class FunctionalModel(nn.Module):
         return build(self._structure)
 
     def forward(self, *args, **kwargs):
+        if self._handles_layout:
+            kwargs["layout"] = self._layout
         return self.apply_fn(self.params, *args, **kwargs)
+
+    def handles_layout(self) -> bool:
+        """Whether ``apply_fn`` realizes a sharded layout itself."""
+        return self._handles_layout
 
 
 class _Leaf:
@@ -633,7 +648,7 @@ class Accelerator:
         shard_params(list(model.buffers()), self.mesh)
         model._param_specs = specs
         mesh = self.mesh
-        if mesh.shape["fsdp"] == 1 and mesh.shape["tp"] == 1:
+        if all(mesh.shape[a] == 1 for a in ("fsdp", "tp", "ep")):
             return False
         layout = Layout(mesh, specs)
         handles = getattr(model, "handles_layout", None)

@@ -535,16 +535,21 @@ class DataLoaderShard(DataLoaderStateMixin):
 class DataLoaderDispatcher(DataLoaderStateMixin):
     """The main process reads the loader and broadcasts each global batch
     (``num_processes`` of its batches concatenated, or one batch under
-    ``split_batches``); every process keeps its rows, ``bs // n`` of them
-    in rank order after a batch that does not divide is grown by repeating
-    its last row (:func:`~.utils.operations.pad_input_tensors`), and places
-    them on its device.  For a dataset that cannot be sharded by index,
-    such as a stream."""
+    ``split_batches``); every process keeps its data shard's rows, ``bs //
+    n`` of them in shard order after a batch that does not divide is grown
+    by repeating its last row (:func:`~.utils.operations.pad_input_tensors`),
+    and places them on its device.  ``num_processes`` / ``process_index``
+    are the data shards and this process's shard (default: one per
+    process; ``prepare_data_loader`` passes the mesh's data degree and
+    index, so processes that differ only on ``tp`` or ``ep`` read the same
+    rows).  For a dataset that cannot be sharded by index, such as a
+    stream."""
 
     def __init__(self, base_loader: Iterable, split_batches: bool = False, skip_batches: int = 0,
                  device=None, put_on_device: bool = True, non_blocking: bool = False,
                  use_stateful_dataloader: bool = False, even_batches: bool = True,
-                 gradient_state: Optional[GradientState] = None, slice_fn=None):
+                 gradient_state: Optional[GradientState] = None, slice_fn=None,
+                 num_processes: Optional[int] = None, process_index: Optional[int] = None):
         from .state import PartialState
         from .utils.operations import slice_tensors
 
@@ -562,7 +567,9 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
         self.slice_fn = slice_fn or slice_tensors
         self.iteration = 0
         self._yielded = 0
-        self._num_parts = max(self.state.num_processes, 1)
+        self._num_parts = max(self.state.num_processes if num_processes is None
+                              else num_processes, 1)
+        self._part = self.state.process_index if process_index is None else process_index
 
     @property
     def dataset(self):
@@ -623,17 +630,16 @@ class DataLoaderDispatcher(DataLoaderStateMixin):
         from .utils.operations import find_batch_size, ignorant_find_batch_size, pad_input_tensors
 
         with _span("dataloader.next_batch"):
-            n = self.state.num_processes
+            n = self._num_parts
             bs = ignorant_find_batch_size(global_batch)
             if n > 1 and bs is not None:
                 if bs % n:
                     global_batch = pad_input_tensors(global_batch, bs, n)
                     bs = find_batch_size(global_batch)
                 per = bs // n
-                lo = per * self.state.process_index
+                lo = per * self._part
                 global_batch = self.slice_fn(global_batch, slice(lo, lo + per),
-                                             process_index=self.state.process_index,
-                                             num_processes=n)
+                                             process_index=self._part, num_processes=n)
             out = global_batch
             if self.put_on_device:
                 out = send_to_device(global_batch, self.device, non_blocking=self.non_blocking)
@@ -773,7 +779,8 @@ def prepare_data_loader(dataloader, device=None, split_batches: bool = False,
         return DataLoaderDispatcher(
             dataloader, split_batches=split_batches, device=device, put_on_device=put_on_device,
             non_blocking=non_blocking, use_stateful_dataloader=use_stateful_dataloader,
-            even_batches=even_batches, gradient_state=gradient_state)
+            even_batches=even_batches, gradient_state=gradient_state,
+            num_processes=num_processes, process_index=process_index)
     if not isinstance(dataloader, torch.utils.data.DataLoader):
         if num_processes > 1:
             raise ValueError(
@@ -842,7 +849,8 @@ def skip_first_batches(dataloader, num_batches: int = 0):
             skip_batches=num_batches, device=dataloader.device,
             put_on_device=dataloader.put_on_device, non_blocking=dataloader.non_blocking,
             use_stateful_dataloader=dataloader.use_stateful_dataloader,
-            even_batches=dataloader.even_batches, gradient_state=dataloader.gradient_state)
+            even_batches=dataloader.even_batches, gradient_state=dataloader.gradient_state,
+            num_processes=dataloader._num_parts, process_index=dataloader._part)
     if isinstance(dataloader, DataLoaderShard):
         return DataLoaderShard(
             dataloader.base_loader, device=dataloader.device, skip_batches=num_batches,

@@ -13,7 +13,14 @@ split as ``(3, H, hd)``.  The GELU is the tanh approximation
 Attention is the einsum path, as in the JAX package off its sequence-
 parallel mesh: no kernel of this module is hand-written.  A padding mask
 removes padded keys and padded queries alike (the dense JAX path).
-``sp_impl="ulysses"`` and sequence parallelism raise (ROADMAP A6).
+``sp_impl="ulysses"`` and sequence parallelism raise (ROADMAP A6 part 2).
+
+On a mesh with an active ``fsdp`` or ``tp`` axis :func:`apply` and the
+loss take a :class:`~..parallel.sharding.Layout` (``layout=``) and each
+process holds its shard of each leaf by :data:`PARTITION_RULES` (the JAX
+table): GPT-2's split of the layers (the fused QKV gathered over ``tp``,
+each process taking its heads' columns), the pooler column-parallel and
+the classifier row-parallel, whose partial logits are summed over ``tp``.
 """
 
 from __future__ import annotations
@@ -26,10 +33,25 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import tp_copy, tp_reduce
+from ..parallel.sharding import TpView, layer_leaves, leaf, specs_from_rules
 from ..state import resolve_device
 from .gpt2 import _layer_norm
 
-__all__ = ["BertConfig", "init_params", "apply", "classification_loss_fn"]
+__all__ = ["BertConfig", "init_params", "param_specs", "PARTITION_RULES", "apply",
+           "classification_loss_fn"]
+
+# Mesh-axis layout of every parameter (path regex -> spec), the JAX
+# ``bert.PARTITION_RULES``.
+PARTITION_RULES: list = [
+    (r"embeddings/", (None, "fsdp")),
+    (r"layers/w_qkv", (None, "fsdp", "tp")),
+    (r"layers/w_proj", (None, "tp", "fsdp")),
+    (r"layers/w_up", (None, "fsdp", "tp")),
+    (r"layers/w_down", (None, "tp", "fsdp")),
+    (r"pooler/w", ("fsdp", "tp")),
+    (r"classifier/w", ("tp", None)),
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +78,7 @@ class BertConfig:
         if self.sp_impl != "ring":
             raise NotImplementedError(
                 f"BertConfig.sp_impl={self.sp_impl!r} is not ported to accelerate_tpu_torch "
-                "yet (ROADMAP.md A6)")
+                "yet (ROADMAP.md A6 part 2)")
 
     @property
     def head_dim(self) -> int:
@@ -122,6 +144,12 @@ def _init_normal_tree(shapes: dict, dtype, device, seed: int, std: float, ones, 
     return walk(shapes)
 
 
+def param_specs(config: BertConfig) -> dict:
+    """The spec tree of :func:`init_params`' structure under
+    :data:`PARTITION_RULES` (all None where no rule matches)."""
+    return specs_from_rules(_param_shapes(config), PARTITION_RULES)
+
+
 def init_params(config: BertConfig, seed: int = 0, device=None) -> dict:
     """Random parameters with the JAX package's shapes and init rule:
     LayerNorm scales one, biases zero, every weight normal(0, 0.02), on
@@ -145,21 +173,30 @@ def _attend(q, k, v, mask=None):
     return torch.einsum("bhst,bthd->bshd", probs, v).reshape(b, s, h * hd)
 
 
-def _qkv_heads(x, p, c):
-    """The fused QKV projection split into q, k, v ``[B, S, H, hd]``."""
+def _qkv_heads(x, p, c, tp=None):
+    """The fused QKV projection split into q, k, v ``[B, S, H, hd]``; under
+    ``tp`` (a :class:`~..parallel.sharding.TpView`) this process's heads of
+    the whole fused weight, its input through ``tp_copy``."""
     b, s, _ = x.shape
-    qkv = x @ p["w_qkv"].to(c.dtype) + p["b_qkv"].to(c.dtype)
-    return qkv.reshape(b, s, 3, c.num_heads, c.head_dim).unbind(2)
+    tp = tp or _NO_TP
+    x = tp_copy(x, tp.attn)
+    w = tp.head_chunk(p["w_qkv"], 3)
+    bias = p["b_qkv"] if tp.heads is None else tp.head_chunk(tp_copy(p["b_qkv"], tp.group), 3)
+    qkv = x @ w.to(c.dtype) + bias.to(c.dtype)
+    return qkv.reshape(b, s, 3, -1, c.head_dim).unbind(2)
 
 
-def _run_layers(x, layers: dict, remat: bool, layer_fn):
+def _run_layers(x, layers: dict, remat: bool, layer_fn, layout=None, path: str = "layers",
+                dtype=None, tp_grad=None):
     """``layer_fn(x, p)`` over the stacked ``[L, ...]`` layers, each layer under
-    ``torch.utils.checkpoint`` when ``remat`` and gradients are on."""
-    names = list(layers)
-    per_layer = list(zip(*(layers[k].unbind(0) for k in names)))
+    ``torch.utils.checkpoint`` when ``remat`` and gradients are on; on a
+    ``layout`` each layer's leaves gathered where it runs
+    (:func:`~..parallel.sharding.layer_leaves`, ``path`` the stack's place
+    in the spec tree)."""
+    names, per_layer, prep = layer_leaves(layers, layout, path, dtype, tp_grad)
 
     def layer(x, *weights):
-        return layer_fn(x, dict(zip(names, weights)))
+        return layer_fn(x, {k: prep(k, w) for k, w in zip(names, weights)})
 
     for weights in per_layer:
         if remat and torch.is_grad_enabled():
@@ -169,22 +206,33 @@ def _run_layers(x, layers: dict, remat: bool, layer_fn):
     return x
 
 
-def _layer(x, p, c: BertConfig, mask):
-    attn = _attend(*_qkv_heads(x, p, c), mask[:, None])
+def _layer(x, p, c: BertConfig, mask, tp=None):
+    tp = tp or _NO_TP
+    attn = _attend(*_qkv_heads(x, p, c, tp), mask[:, None])
     # Post-LN (original BERT): residual then LayerNorm.
-    x = _layer_norm(x + attn @ p["w_proj"].to(c.dtype) + p["b_proj"].to(c.dtype),
-                    p["ln_attn_scale"], p["ln_attn_bias"], c.layer_norm_eps)
-    u = F.gelu(x @ p["w_up"].to(c.dtype) + p["b_up"].to(c.dtype), approximate="tanh")
-    return _layer_norm(x + u @ p["w_down"].to(c.dtype) + p["b_down"].to(c.dtype),
-                       p["ln_mlp_scale"], p["ln_mlp_bias"], c.layer_norm_eps)
+    x = _layer_norm(x + tp_reduce(attn @ p["w_proj"].to(c.dtype), tp.attn)
+                    + p["b_proj"].to(c.dtype), p["ln_attn_scale"], p["ln_attn_bias"],
+                    c.layer_norm_eps)
+    u = F.gelu(tp_copy(x, tp.group) @ p["w_up"].to(c.dtype) + tp.chunk(p["b_up"]).to(c.dtype),
+               approximate="tanh")
+    return _layer_norm(x + tp_reduce(u @ p["w_down"].to(c.dtype), tp.group)
+                       + p["b_down"].to(c.dtype), p["ln_mlp_scale"], p["ln_mlp_bias"],
+                       c.layer_norm_eps)
+
+
+def _stack_gathers(tp) -> dict:
+    """The ``tp`` gathers of a GPT-2-style layer (fused QKV, row-parallel
+    output projection)."""
+    return tp.head_gathers(fused=("w_qkv",), rows=("w_proj",))
 
 
 def apply(params: dict, input_ids: torch.Tensor, config: BertConfig,
           attention_mask: Optional[torch.Tensor] = None,
-          token_type_ids: Optional[torch.Tensor] = None):
+          token_type_ids: Optional[torch.Tensor] = None, layout=None):
     """Token ids ``[B, S]`` -> (sequence output ``[B, S, d]`` in the compute
     dtype, pooled ``[B, d]`` fp32).  ``attention_mask`` ``[B, S]`` masks
-    padded keys and queries."""
+    padded keys and queries.  ``layout``: the sharded path (module
+    docstring); under ``tp`` ``pooled`` holds this process's columns."""
     c = config
     b, s = input_ids.shape
     dev = input_ids.device
@@ -195,25 +243,37 @@ def apply(params: dict, input_ids: torch.Tensor, config: BertConfig,
         mask = valid[:, None, :] & valid[:, :, None]
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
-    e = params["embeddings"]
+    e = {k: leaf(params, f"embeddings/{k}", layout, c.dtype) for k in params["embeddings"]}
     x = (F.embedding(input_ids.long(), e["word"]).to(c.dtype)
          + e["position"].to(c.dtype)[:s][None]
          + e["token_type"].to(c.dtype)[token_type_ids.long()])
     x = _layer_norm(x, e["ln_scale"], e["ln_bias"], c.layer_norm_eps)
-    x = _run_layers(x, params["layers"], c.remat, lambda x, p: _layer(x, p, c, mask))
-    pooled = torch.tanh(x[:, 0].float() @ params["pooler"]["w"].float() + params["pooler"]["b"])
+    tp = TpView(layout, c.num_heads)
+    x = _run_layers(x, params["layers"], c.remat, lambda x, p: _layer(x, p, c, mask, tp),
+                    layout, "layers", c.dtype, _stack_gathers(tp))
+    first = tp_copy(x[:, 0].float(), tp.group)
+    pooled = torch.tanh(first @ leaf(params, "pooler/w", layout).float()
+                        + tp.chunk(leaf(params, "pooler/b", layout)))
     return x, pooled
 
 
-def _classify(params: dict, pooled: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy of the fp32 classifier head over ``pooled``."""
-    logits = pooled @ params["classifier"]["w"].float() + params["classifier"]["b"]
+def _classify(params: dict, pooled: torch.Tensor, labels: torch.Tensor, layout=None,
+              tp=None) -> torch.Tensor:
+    """Mean cross-entropy of the fp32 classifier head over ``pooled``; under
+    ``tp`` ``pooled`` holds this process's features, the head's rows, and
+    the partial logits are summed over ``tp``."""
+    w = leaf(params, "classifier/w", layout).float()
+    logits = tp_reduce(pooled @ w, (tp or _NO_TP).group) + leaf(params, "classifier/b", layout)
     return -torch.log_softmax(logits, -1).gather(-1, labels.long()[:, None]).mean()
 
 
-def classification_loss_fn(params: dict, batch: dict, config: BertConfig) -> torch.Tensor:
+def classification_loss_fn(params: dict, batch: dict, config: BertConfig,
+                           layout=None) -> torch.Tensor:
     """Sequence-classification cross-entropy over ``batch["labels"]`` [B]."""
     _, pooled = apply(params, batch["input_ids"], config,
                       attention_mask=batch.get("attention_mask"),
-                      token_type_ids=batch.get("token_type_ids"))
-    return _classify(params, pooled, batch["labels"])
+                      token_type_ids=batch.get("token_type_ids"), layout=layout)
+    return _classify(params, pooled, batch["labels"], layout, TpView(layout, config.num_heads))
+
+
+_NO_TP = TpView()

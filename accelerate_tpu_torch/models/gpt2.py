@@ -19,8 +19,23 @@ serving forward (:func:`apply_paged`, whose decode runs the paged kernels
 under ``kernel=True``), greedy and sampled :func:`generate`,
 :func:`speculative_generate` and :func:`generate_beam`; ``kv_cache_quant``
 stores the KV cache as int8 codes with bf16 scales.  Sequence parallelism
-(``sp_impl="ulysses"``) raises ``NotImplementedError`` (ROADMAP A6), and so
+(``sp_impl="ulysses"``) raises ``NotImplementedError`` (ROADMAP A6 part 2), and so
 do int8-weight layers (``quantize_weights``, ROADMAP A8).
+
+On a mesh with an active ``fsdp`` or ``tp`` axis the training forward and
+loss take a :class:`~..parallel.sharding.Layout` (``layout=``; a
+``FunctionalModel`` with ``handles_layout`` passes it) and each process
+holds its shard of each leaf by :data:`PARTITION_RULES` (the JAX table):
+each layer gathers its leaves' ``fsdp`` dims where it runs, and under
+``tp`` Megatron's pair splits the attention by heads and the MLP by width.
+The fused QKV's ``tp`` shard is a contiguous chunk of its ``3 * H * hd``
+columns, not a set of heads, so the layer gathers it whole over ``tp``
+(the backward sums its gradient over ``tp`` and keeps this process's
+chunk) and takes its heads' q, k and v columns; a replicated bias enters
+through ``tp_copy`` before its chunk is taken.  Where ``tp`` does not
+divide the heads, every process computes every head from the whole
+weights.  The tied embedding is vocabulary-parallel, and so is the loss
+(llama's).
 
 The learned position table has ``max_seq_len`` rows, so a dense cache or a
 block table longer than that raises: GPT-2 serving needs
@@ -37,12 +52,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import tp_copy, tp_reduce
+from ..parallel.sharding import TpView, layer_leaves, leaf, specs_from_rules, vocab_lookup
 from ..state import resolve_device
-from .llama import cross_entropy, labels_and_weights
+from .llama import _loss_vocab_parallel, cross_entropy, labels_and_weights
 
 __all__ = [
     "GPT2Config",
     "init_params",
+    "param_specs",
+    "PARTITION_RULES",
     "apply",
     "apply_hidden",
     "lm_head",
@@ -85,7 +104,7 @@ class GPT2Config:
         if self.sp_impl != "ring":
             raise NotImplementedError(
                 f"GPT2Config.sp_impl={self.sp_impl!r} is not ported to accelerate_tpu_torch "
-                "yet (see ROADMAP.md)")
+                "yet (ROADMAP.md A6 part 2)")
 
     @property
     def head_dim(self) -> int:
@@ -137,6 +156,27 @@ def _param_shapes(c: GPT2Config) -> dict:
         "final_ln_scale": (d,),
         "final_ln_bias": (d,),
     }
+
+
+# Mesh-axis layout of every parameter (path regex -> spec), the JAX
+# ``gpt2.PARTITION_RULES``: the vocabulary on ``tp``, the fused QKV and up
+# projections column-parallel, the output and down projections row-parallel.
+PARTITION_RULES: list = [
+    (r"wte", ("tp", "fsdp")),
+    (r"wpe", (None, "fsdp")),
+    (r"layers/w_qkv", (None, "fsdp", "tp")),
+    (r"layers/w_proj", (None, "tp", "fsdp")),
+    (r"layers/w_up", (None, "fsdp", "tp")),
+    (r"layers/w_down", (None, "tp", "fsdp")),
+    (r"layers/(b_|ln_)", (None, None)),
+    (r"final_ln", (None,)),
+]
+
+
+def param_specs(config: GPT2Config) -> dict:
+    """The spec tree of :func:`init_params`' structure under
+    :data:`PARTITION_RULES` (all None where no rule matches)."""
+    return specs_from_rules(_param_shapes(config), PARTITION_RULES)
 
 
 def init_params(config: GPT2Config, seed: int = 0, device=None) -> dict:
@@ -197,12 +237,18 @@ def _layer_norm(x, scale, bias, eps):
     return y.to(x.dtype) * scale.to(x.dtype) + bias.to(x.dtype)
 
 
-def _qkv(x, p, c: GPT2Config):
-    """Pre-norm fused QKV projection -> q, k, v ``[B, S, H, hd]``."""
+def _qkv(x, p, c: GPT2Config, tp=None):
+    """Pre-norm fused QKV projection -> q, k, v ``[B, S, H, hd]``; under
+    ``tp`` (a :class:`~..parallel.sharding.TpView`) this process's heads,
+    from the whole fused weight (module docstring)."""
     b, s, _ = x.shape
-    hn = _layer_norm(x, p["ln_attn_scale"], p["ln_attn_bias"], c.layer_norm_eps)
-    qkv = hn @ p["w_qkv"].to(c.dtype) + p["b_qkv"].to(c.dtype)
-    q, k, v = qkv.reshape(b, s, 3, c.num_heads, c.head_dim).unbind(2)
+    tp = tp or _NO_TP
+    hn = tp_copy(_layer_norm(x, p["ln_attn_scale"], p["ln_attn_bias"], c.layer_norm_eps),
+                 tp.attn)
+    w = tp.head_chunk(p["w_qkv"], 3)
+    bias = p["b_qkv"] if tp.heads is None else tp.head_chunk(tp_copy(p["b_qkv"], tp.group), 3)
+    qkv = hn @ w.to(c.dtype) + bias.to(c.dtype)
+    q, k, v = qkv.reshape(b, s, 3, -1, c.head_dim).unbind(2)
     return q, k, v
 
 
@@ -214,43 +260,58 @@ def _attend(q, k, v, mask, c: GPT2Config):
     scores = torch.einsum("bshd,bthd->bhst", q, k).float() / math.sqrt(c.head_dim)
     scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhst,bthd->bshd", probs, v).reshape(b, s, c.hidden_size)
+    return torch.einsum("bhst,bthd->bshd", probs, v).reshape(b, s, -1)
 
 
-def _mlp_block(x, p, c: GPT2Config):
+def _mlp_block(x, p, c: GPT2Config, tp=None):
     """Pre-norm GELU (tanh approximation, HF's ``gelu_new``) MLP with
-    residual."""
-    hn = _layer_norm(x, p["ln_mlp_scale"], p["ln_mlp_bias"], c.layer_norm_eps)
-    u = F.gelu(hn @ p["w_up"].to(c.dtype) + p["b_up"].to(c.dtype), approximate="tanh")
-    return x + u @ p["w_down"].to(c.dtype) + p["b_down"].to(c.dtype)
+    residual; under ``tp`` up column-parallel, down row-parallel."""
+    tp = tp or _NO_TP
+    hn = tp_copy(_layer_norm(x, p["ln_mlp_scale"], p["ln_mlp_bias"], c.layer_norm_eps),
+                 tp.group)
+    u = F.gelu(hn @ p["w_up"].to(c.dtype) + tp.chunk(p["b_up"]).to(c.dtype),
+               approximate="tanh")
+    return x + tp_reduce(u @ p["w_down"].to(c.dtype), tp.group) + p["b_down"].to(c.dtype)
 
 
-def _proj_and_mlp(x, attn, p, c: GPT2Config):
-    """Attention output projection + residual, then the MLP block."""
-    x = x + attn @ p["w_proj"].to(c.dtype) + p["b_proj"].to(c.dtype)
-    return _mlp_block(x, p, c)
+def _proj_and_mlp(x, attn, p, c: GPT2Config, tp=None):
+    """Attention output projection + residual, then the MLP block; under
+    ``tp`` the projection row-parallel (over this process's heads)."""
+    out = tp_reduce(attn @ p["w_proj"].to(c.dtype), (tp or _NO_TP).attn)
+    return _mlp_block(x + out + p["b_proj"].to(c.dtype), p, c, tp)
 
 
-def _layer(x, p, c: GPT2Config, mask):
-    q, k, v = _qkv(x, p, c)
-    return _proj_and_mlp(x, _attend(q, k, v, mask[:, None], c), p, c)
+def _layer(x, p, c: GPT2Config, mask, tp=None):
+    q, k, v = _qkv(x, p, c, tp)
+    return _proj_and_mlp(x, _attend(q, k, v, mask[:, None], c), p, c, tp)
 
 
 def _embed(params: dict, input_ids: torch.Tensor, positions: torch.Tensor,
-           c: GPT2Config) -> torch.Tensor:
+           c: GPT2Config, layout=None) -> torch.Tensor:
     """Token plus position embeddings in the compute dtype; ``positions``
-    broadcasts against ``input_ids``."""
-    return (F.embedding(input_ids.long(), params["wte"]).to(c.dtype)
-            + params["wpe"].to(c.dtype)[positions])
+    broadcasts against ``input_ids``.  On a ``layout``: the tables'
+    ``fsdp`` dims gathered, the token lookup over this process's
+    vocabulary rows (:func:`~..parallel.sharding.embed_lookup`)."""
+    if layout is None:
+        return (F.embedding(input_ids.long(), params["wte"]).to(c.dtype)
+                + params["wpe"].to(c.dtype)[positions])
+    tok = vocab_lookup(leaf(params, "wte", layout, c.dtype), input_ids, c.dtype, layout)
+    return tok + leaf(params, "wpe", layout, c.dtype)[positions]
 
 
-def _final(params: dict, x: torch.Tensor, c: GPT2Config) -> torch.Tensor:
-    return _layer_norm(x, params["final_ln_scale"], params["final_ln_bias"], c.layer_norm_eps)
+def _final(params: dict, x: torch.Tensor, c: GPT2Config, layout=None) -> torch.Tensor:
+    return _layer_norm(x, leaf(params, "final_ln_scale", layout, c.dtype),
+                       leaf(params, "final_ln_bias", layout, c.dtype), c.layer_norm_eps)
 
 
-def lm_head(params: dict, config: GPT2Config) -> torch.Tensor:
-    """The tied ``[d, V]`` head (``wte`` transposed) in the compute dtype."""
-    return params["wte"].to(config.dtype).T
+def lm_head(params: dict, config: GPT2Config, layout=None) -> torch.Tensor:
+    """The tied ``[d, V]`` head (``wte`` transposed) in the compute dtype;
+    on a ``layout`` its ``fsdp`` dim gathered, its ``tp`` columns (this
+    process's vocabulary rows) local."""
+    return leaf(params, "wte", layout, config.dtype).to(config.dtype).T
+
+
+_NO_TP = TpView()
 
 
 # ---------------------------------------------------------------------------
@@ -259,35 +320,34 @@ def lm_head(params: dict, config: GPT2Config) -> torch.Tensor:
 
 
 def apply_hidden(params: dict, input_ids: torch.Tensor, config: GPT2Config,
-                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 attention_mask: Optional[torch.Tensor] = None, layout=None) -> torch.Tensor:
     """Trunk forward: token ids ``[B, S]`` -> final-LN hidden ``[B, S, d]``
     in the compute dtype.  Positions are ``0 .. S-1`` whatever the mask says
     (as in the JAX package); ``attention_mask`` removes padded keys.  Under
     ``config.remat`` each layer runs under ``torch.utils.checkpoint``: its
-    activations are recomputed in the backward instead of stored."""
+    activations are recomputed in the backward instead of stored.
+    ``layout``: the sharded path (module docstring)."""
     c = config
     b, s = input_ids.shape
     dev = input_ids.device
     mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril().expand(b, s, s)
     if attention_mask is not None:
         mask = mask & attention_mask.bool()[:, None, :]
-    x = _embed(params, input_ids, torch.arange(s, device=dev)[None], c)
-    layers = _dequant_layer(params["layers"])
-    # One unbind per stacked leaf: its backward stacks the L layer gradients
-    # once, where a per-layer select would add a full [L, ...] zero-padded
-    # gradient per layer.
-    names = list(layers)
-    per_layer = list(zip(*(layers[k].unbind(0) for k in names)))
+    x = _embed(params, input_ids, torch.arange(s, device=dev)[None], c, layout)
+    tp = TpView(layout, c.num_heads)
+    names, per_layer, prep = layer_leaves(
+        _dequant_layer(params["layers"]), layout, "layers", c.dtype,
+        tp.head_gathers(fused=("w_qkv",), rows=("w_proj",)))
 
     def layer(x, *weights):
-        return _layer(x, dict(zip(names, weights)), c, mask)
+        return _layer(x, {k: prep(k, w) for k, w in zip(names, weights)}, c, mask, tp)
 
     for weights in per_layer:
         if c.remat and torch.is_grad_enabled():
             x = checkpoint(layer, x, *weights, use_reentrant=False)
         else:
             x = layer(x, *weights)
-    return _final(params, x, c)
+    return _final(params, x, c, layout)
 
 
 def apply(params: dict, input_ids: torch.Tensor, config: GPT2Config,
@@ -297,21 +357,27 @@ def apply(params: dict, input_ids: torch.Tensor, config: GPT2Config,
     return (hidden @ lm_head(params, config)).float()
 
 
-def loss_fn(params: dict, batch: dict, config: GPT2Config) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, config: GPT2Config, layout=None) -> torch.Tensor:
     """Next-token cross-entropy, fp32, mean over non-padded targets (the
     llama family's ``labels_and_weights`` and ``cross_entropy``);
     ``config.loss_impl == "chunked"`` streams the head over vocabulary tiles
-    (``ops/chunked_ce.py``), so the ``[B, S, V]`` logits never exist."""
+    (``ops/chunked_ce.py``), so the ``[B, S, V]`` logits never exist.  On a
+    ``layout`` under ``tp``: llama's loss over the vocabulary shards."""
     labels, weights = labels_and_weights(batch)
     mask = batch.get("attention_mask")
+    if layout is None and config.loss_impl != "chunked":
+        logits = apply(params, batch["input_ids"], config, attention_mask=mask)
+        return cross_entropy(logits, labels, weights)
+    hidden = apply_hidden(params, batch["input_ids"], config, attention_mask=mask,
+                          layout=layout)
+    head = lm_head(params, config, layout)
+    if layout is not None and layout.tp > 1:
+        return _loss_vocab_parallel(hidden, head, labels, weights, config, layout)
     if config.loss_impl == "chunked":
         from ..ops.chunked_ce import chunked_cross_entropy
 
-        hidden = apply_hidden(params, batch["input_ids"], config, attention_mask=mask)
-        return chunked_cross_entropy(hidden, lm_head(params, config), labels, weights,
-                                     config.loss_chunk_size)
-    logits = apply(params, batch["input_ids"], config, attention_mask=mask)
-    return cross_entropy(logits, labels, weights)
+        return chunked_cross_entropy(hidden, head, labels, weights, config.loss_chunk_size)
+    return cross_entropy((hidden @ head).float(), labels, weights)
 
 
 # ---------------------------------------------------------------------------

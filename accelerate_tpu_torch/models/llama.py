@@ -269,13 +269,9 @@ PARTITION_RULES: list = [
 def param_specs(config: LlamaConfig) -> dict:
     """The spec tree of :func:`init_params`' structure under
     :data:`PARTITION_RULES` (all None where no rule matches)."""
-    from ..parallel.sharding import _tree_map, spec_from_rules
+    from ..parallel.sharding import specs_from_rules
 
-    def one(path, shape):
-        spec = spec_from_rules(path, len(shape), PARTITION_RULES)
-        return spec if spec is not None else (None,) * len(shape)
-
-    return _tree_map(one, _param_shapes(config))
+    return specs_from_rules(_param_shapes(config), PARTITION_RULES)
 
 
 def init_params(config: LlamaConfig, seed: int = 0, device=None) -> dict:
@@ -370,9 +366,10 @@ class LlamaForCausalLM(nn.Module):
         return {"loss": fam.loss_fn(self.params, batch, self.config)}
 
     def handles_layout(self) -> bool:
-        """Whether the forward realizes a sharded layout itself (the llama
-        family's own loss), rather than taking every leaf gathered whole."""
-        return self._family() is sys.modules[__name__]
+        """Whether the forward realizes a sharded layout itself (the family's
+        own loss takes ``layout=``), rather than taking every leaf gathered
+        whole: every family with a rule table."""
+        return hasattr(self._family(), "PARTITION_RULES")
 
     def _forward_cast_at_use(self, compute_dtype: torch.dtype, input_ids: torch.Tensor,
                              cache: Optional[dict] = None,
@@ -494,19 +491,39 @@ def _mm(h: torch.Tensor, w: torch.Tensor, c: LlamaConfig) -> torch.Tensor:
     return h @ w.to(c.dtype)
 
 
-def _qkv_proj(h, p, c, b: int, s: int):
+def _qkv_proj(h, p, c, b: int, s: int, q_heads=None):
     """Q/K/V projections with the optional Qwen2-style biases (present in
     ``p`` iff ``attention_bias``); the head counts come from the weights'
-    widths (this process's heads under ``tp``)."""
+    widths (this process's heads under ``tp``).  ``q_heads`` (this
+    process's first query head and count under ``tp``) with whole K/V
+    weights (``tp`` not dividing the kv heads): only the kv heads those
+    query heads read (``ih // g``) are projected, and where they do not
+    read them in equal groups each query head gets its own copy."""
     hd = c.head_dim_
+    wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
+    pick = None
+    if q_heads is not None and wk.shape[-1] == c.num_kv_heads * hd:
+        lo, n = q_heads
+        g = c.num_heads // c.num_kv_heads
+        klo, khi = lo // g, (lo + n - 1) // g + 1
+        cols = slice(klo * hd, khi * hd)
+        wk, wv = wk[..., cols], wv[..., cols]
+        if bk is not None:
+            bk, bv = bk[..., cols], bv[..., cols]
+        counts = {j: sum(1 for i in range(lo, lo + n) if i // g == j) for j in range(klo, khi)}
+        if len(set(counts.values())) > 1:
+            pick = torch.tensor([i // g - klo for i in range(lo, lo + n)], device=h.device)
     q = _mm(h, p["wq"], c)
-    k = _mm(h, p["wk"], c)
-    v = _mm(h, p["wv"], c)
-    if "bq" in p:
+    k = _mm(h, wk, c)
+    v = _mm(h, wv, c)
+    if bk is not None:
         q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
-    return q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd)
+        k = k + bk.to(k.dtype)
+        v = v + bv.to(v.dtype)
+    q, k, v = q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd)
+    if pick is not None:
+        k, v = k[:, :, pick], v[:, :, pick]
+    return q, k, v
 
 
 def _out_proj(attn, p, c, group=None):
@@ -547,12 +564,10 @@ def embed_tokens(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     ``dtype`` (default the compute dtype), then the JAX one-hot lookup
     over this process's vocabulary rows, summed over ``tp``."""
     if _model_sharded(layout):
-        from ..parallel.sharding import embed_lookup
+        from ..parallel.sharding import vocab_lookup
 
         table = layout.full(params["embed"], layout.spec("embed"), dtype or config.dtype)
-        x = embed_lookup(table, input_ids, config.dtype, layout.mesh,
-                         vocab_start=layout.tp_rank * table.shape[0] if layout.tp > 1 else 0,
-                         tp_group=layout.tp_group())
+        x = vocab_lookup(table, input_ids, config.dtype, layout)
     else:
         x = F.embedding(input_ids.long(), params["embed"]).to(config.dtype)
     if getattr(config, "embed_scale", False):
@@ -569,11 +584,12 @@ def lm_head(params: dict, config: LlamaConfig, layout=None,
     """The ``[d, V]`` head matrix in compute dtype (transposed view when
     tied); on a model-sharded ``layout`` its ``fsdp`` dim gathered in
     ``dtype`` (default the compute dtype), its ``tp`` columns local."""
-    name = "embed" if config.tie_embeddings else "lm_head"
+    tied = getattr(config, "tie_embeddings", False)
+    name = "embed" if tied else "lm_head"
     head = params[name]
     if _model_sharded(layout):
         head = layout.full(head, layout.spec(name), dtype or config.dtype)
-    return (head.T if config.tie_embeddings else head).to(config.dtype)
+    return (head.T if tied else head).to(config.dtype)
 
 
 def unembed(params: dict, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
@@ -637,25 +653,79 @@ def _attend(q, k, v, c: LlamaConfig, kv_valid):
     mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril().expand(b, s, s)
     if kv_valid is not None:
         mask = mask & kv_valid[:, None, :]
-    return _attention(q, k, v, mask, c.num_heads // c.num_kv_heads)
+    return _attention(q, k, v, mask, q.shape[2] // k.shape[2])
 
 
-def attention_block(x, p, c: LlamaConfig, positions, kv_valid=None,
-                    group=None) -> torch.Tensor:
+def attention_block(x, p, c: LlamaConfig, positions, kv_valid=None, group=None,
+                    q_heads=None) -> torch.Tensor:
     """Pre-norm causal attention sub-block with residual; ``kv_valid``
     ``[B, S]`` bool is the padding mask, kept factored so the flash and
-    fused paths never build an ``[S, S]`` mask.  Under ``tp`` (``group``)
-    Q/K/V are column-parallel (their input through ``tp_copy``) and the
-    attention runs on this process's heads."""
+    fused paths never build an ``[S, S]`` mask.  Under ``tp`` (``group``,
+    with ``q_heads`` this process's first query head and count) Q/K/V are
+    column-parallel (their input through ``tp_copy``) and the attention
+    runs on this process's heads; where ``tp`` does not divide the query
+    heads (``q_heads`` None) the caller passes whole weights and every
+    process computes every head."""
+    if q_heads is None or group is None:
+        group = q_heads = None
     h = tp_copy(_norm(x, p["ln_attn"], c), group)
     b, s, _ = h.shape
-    q, k, v = _qkv_proj(h, p, c, b, s)
+    q, k, v = _qkv_proj(h, p, c, b, s, q_heads)
     q, k = _rope(q, k, positions, c.rope_theta, getattr(c, "rope_scaling", None))
     return x + _out_proj(_attend(q, k, v, c, kv_valid), p, c, group)
 
 
-def _layer(x, p, c: LlamaConfig, positions, kv_valid=None, group=None) -> torch.Tensor:
-    return _mlp_block(attention_block(x, p, c, positions, kv_valid, group), p, c, group)
+def _layer(x, p, c: LlamaConfig, positions, kv_valid=None, group=None,
+           q_heads=None) -> torch.Tensor:
+    x = attention_block(x, p, c, positions, kv_valid, group, q_heads)
+    return _mlp_block(x, p, c, group)
+
+
+_Q_LEAVES = ("wq", "wo", "bq")
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
+def sharded_layers(params: dict, c, layout, layer_dtype=None):
+    """The sharded path's per-layer plumbing, for this family and every
+    family built on its attention (Mixtral): ``(names, per_layer, prep,
+    group, q_heads)``.  ``per_layer`` holds each layer's leaves (one
+    ``unbind`` per stacked leaf: its backward stacks the L layer gradients
+    once, where a per-layer select would add a full zero-padded gradient
+    per layer); ``prep(name, leaf)`` gives a layer's leaf as the layer uses
+    it, gathered over ``fsdp`` (cast first to the dtype the use casts to:
+    the compute dtype, the norm scales keeping theirs) and, where ``tp``
+    does not divide the heads, over ``tp``; ``group`` is the ``tp`` group
+    and ``q_heads`` this process's first query head and count (None where
+    every process computes every head, or off a sharded layout).  The heads
+    ``tp`` does not divide are computed whole (JAX's ``tp_head_axis``
+    keeps them off ``tp``): the K/V leaves gathered with a backward that
+    sums over ``tp`` where each process reads only the kv heads of its
+    query heads, every attention leaf gathered with a backward that keeps
+    this process's chunk where it computes every head.  Without a
+    model-sharded ``layout``: the leaves as they are, cast to
+    ``layer_dtype``."""
+    names = list(params["layers"])
+    per_layer = list(zip(*(params["layers"][k].unbind(0) for k in names)))
+    if not _model_sharded(layout):
+        def plain(k, w):
+            return w if layer_dtype is None else w.to(layer_dtype)
+
+        return names, per_layer, plain, None, None
+    group = layout.tp_group()
+    q_heads = layout.heads(c.num_heads)
+    gather = {}
+    if layout.tp > 1 and q_heads is None:
+        gather = dict.fromkeys(_Q_LEAVES + _KV_LEAVES, "slice")
+    elif layout.tp > 1 and layout.heads(c.num_kv_heads) is None:
+        gather = dict.fromkeys(_KV_LEAVES, "sum")
+    use_dtype = layer_dtype or c.dtype
+    specs = {k: layout.spec(f"layers/{k}")[1:] for k in names}
+
+    def prep(k, w):
+        return layout.full(w, specs[k], layer_dtype if k.startswith("ln_") else use_dtype,
+                           tp_grad=gather.get(k))
+
+    return names, per_layer, prep, group, q_heads
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -694,33 +764,12 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
             positions = torch.clamp(torch.cumsum(kv_valid.int(), dim=-1) - 1, min=0)
         else:
             positions = torch.arange(s, device=input_ids.device).expand(b, s)
-    names = list(params["layers"])
-    group = None
-    if _model_sharded(layout):
-        _check_tp(c, layout.tp)
-        group = layout.tp_group()
-        # Gathered in the dtype each use casts to first (the compute dtype;
-        # the norm scales keep theirs), so a 16-bit compute moves 16-bit bytes.
-        use_dtype = layer_dtype or c.dtype
-        specs = [layout.spec(f"layers/{k}")[1:] for k in names]
-
-        def prep(k, w, spec):
-            return layout.full(w, spec, layer_dtype if k.startswith("ln_") else use_dtype)
-    else:
-        specs = [None] * len(names)
-
-        def prep(k, w, spec):
-            return w if layer_dtype is None else w.to(layer_dtype)
-
+    names, per_layer, prep, group, q_heads = sharded_layers(params, c, layout, layer_dtype)
     x = embed_tokens(params, input_ids, c, layout, layer_dtype)
-    # One unbind per stacked leaf: its backward stacks the L layer gradients
-    # once, where a per-layer select would add a full [L, ...] zero-padded
-    # gradient per layer.
-    per_layer = list(zip(*(params["layers"][k].unbind(0) for k in names)))
 
     def layer(x, *weights):
-        p = {k: prep(k, w, spec) for k, w, spec in zip(names, weights, specs)}
-        return _layer(x, p, c, positions, kv_valid, group)
+        p = {k: prep(k, w) for k, w in zip(names, weights)}
+        return _layer(x, p, c, positions, kv_valid, group, q_heads)
 
     context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
                   if c.remat_policy == "dots" else noop_context_fn)
@@ -782,6 +831,14 @@ def loss_fn(params: dict, batch: dict, config: LlamaConfig,
     x = apply_hidden(params, batch["input_ids"], config,
                      attention_mask=batch.get("attention_mask"), layer_dtype=layer_dtype,
                      layout=layout)
+    return token_loss(x, params, labels, weights, config, layout, layer_dtype)
+
+
+def token_loss(x, params: dict, labels, weights, config, layout=None,
+               layer_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The head and the weighted-mean cross-entropy of the final hidden
+    ``x``: dense, chunked (``config.loss_impl``), or under ``tp`` over the
+    vocabulary shards (:func:`_loss_vocab_parallel`)."""
     head = lm_head(params, config, layout, layer_dtype)
     if layout is not None and layout.tp > 1:
         return _loss_vocab_parallel(x, head, labels, weights, config, layout)
@@ -793,9 +850,9 @@ def loss_fn(params: dict, batch: dict, config: LlamaConfig,
 
 
 def _model_sharded(layout) -> bool:
-    """Whether ``layout``'s mesh has an active ``fsdp`` or ``tp`` axis (the
-    JAX gate of the one-hot embedding, and of this module's sharded path)."""
-    return layout is not None and (layout.mesh.shape["fsdp"] > 1 or layout.mesh.shape["tp"] > 1)
+    """Whether ``layout``'s mesh has an active model axis, ``fsdp``, ``tp``
+    or ``ep`` (the gate of this module's sharded path)."""
+    return layout is not None and any(layout.mesh.shape[a] > 1 for a in ("fsdp", "tp", "ep"))
 
 
 def _refuse_sharded_serving(layout, params: Optional[dict] = None) -> None:
@@ -810,22 +867,6 @@ def _refuse_sharded_serving(layout, params: Optional[dict] = None) -> None:
             "serving (apply_cached / apply_paged) on a model-sharded mesh is not ported to "
             "accelerate_tpu_torch yet (ROADMAP A6 part 5); gather the weights "
             "(Accelerator.unwrap_model or get_state_dict) and serve them whole")
-
-
-def _check_tp(c, tp: int) -> None:
-    """Under ``tp`` every split count must divide: heads, KV heads (JAX's
-    ``tp_head_axis`` would replicate the heads where ``tp`` does not divide
-    them; the port raises), the FFN width and the vocabulary."""
-    if tp == 1:
-        return
-    counts = {"num_heads": c.num_heads, "num_kv_heads": c.num_kv_heads,
-              "intermediate_size": c.intermediate_size, "vocab_size": c.vocab_size}
-    bad = {k: v for k, v in counts.items() if v % tp}
-    if bad:
-        raise NotImplementedError(
-            f"tp={tp} does not divide {bad} of {c}: TP with tp not dividing the head counts "
-            "(JAX replicates the heads there) is not ported to accelerate_tpu_torch yet "
-            "(ROADMAP A6 part 1)")
 
 
 def _loss_vocab_parallel(x, head, labels, weights, c: LlamaConfig, layout):

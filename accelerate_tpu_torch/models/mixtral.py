@@ -18,8 +18,17 @@ checkpointing under ``remat``), the dense KV cache (:func:`init_cache`,
 :func:`apply_cached`, int8 under ``kv_cache_quant``), greedy and sampled
 :func:`generate`, :func:`speculative_generate` and :func:`generate_beam`.
 As in the JAX package there is no ``apply_paged``: the serving engine takes
-its dense gather path.  ``fp8`` (ROADMAP A8), ``sp_impl="ulysses"`` (A6) and
-int8-weight layers (``quantize_weights``, A8) raise.
+its dense gather path.  ``fp8`` (ROADMAP A8), ``sp_impl="ulysses"`` (A6
+part 2) and int8-weight layers (``quantize_weights``, A8) raise.
+
+On a mesh with an active ``fsdp``, ``tp`` or ``ep`` axis the training
+forward and loss take a :class:`~..parallel.sharding.Layout` (``layout=``)
+and each process holds its shard of each leaf by :data:`PARTITION_RULES`
+(the JAX table): llama's sharded layers, attention and vocabulary-parallel
+loss, and the experts on ``ep`` (each process runs its ``E / ep`` experts'
+slots of the replicated routing and the partial combines are summed over
+``ep`` and ``tp``; ``ops/moe.py``).  ``moe_impl="ragged"`` raises under
+``ep`` and warns under a sharded batch, as in the JAX package.
 
 Routing capacity is a function of the sequence length of each forward
 (``expert_capacity``), so a chunked prefill routes differently from a
@@ -31,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import sys
+import warnings
 from typing import Any, Optional
 
 import torch
@@ -41,12 +51,14 @@ from ..ops.moe import expert_capacity, moe_ffn, moe_ffn_ragged
 from ..state import resolve_device
 from . import llama as _llama
 from .gpt2 import _dequant_layer
-from .llama import cross_entropy, labels_and_weights
+from .llama import labels_and_weights
 
 __all__ = [
     "MixtralConfig",
     "MixtralForCausalLM",
     "init_params",
+    "param_specs",
+    "PARTITION_RULES",
     "apply",
     "apply_hidden",
     "lm_head",
@@ -106,7 +118,7 @@ class MixtralConfig:
         if self.moe_impl not in ("dense", "ragged"):
             raise ValueError(f"moe_impl must be 'dense' or 'ragged', got {self.moe_impl!r}")
         for name, on, item in (("fp8", self.fp8, "A8"),
-                               ("sp_impl", self.sp_impl != "ring", "A6")):
+                               ("sp_impl", self.sp_impl != "ring", "A6 part 2")):
             if on:
                 raise NotImplementedError(
                     f"MixtralConfig.{name}={getattr(self, name)!r} is not ported to "
@@ -169,6 +181,33 @@ def _param_shapes(c: MixtralConfig) -> dict:
     }
 
 
+# Mesh-axis layout of every parameter (path regex -> spec), the JAX
+# ``mixtral.PARTITION_RULES``: llama's attention and head, the router
+# replicated, each expert matrix's expert dim on ``ep``.
+PARTITION_RULES: list = [
+    (r"embed", ("tp", "fsdp")),
+    (r"layers/wq", (None, "fsdp", "tp")),
+    (r"layers/wk", (None, "fsdp", "tp")),
+    (r"layers/wv", (None, "fsdp", "tp")),
+    (r"layers/wo", (None, "tp", "fsdp")),
+    (r"layers/router", (None, None, None)),
+    (r"layers/w_gate", (None, "ep", "fsdp", "tp")),
+    (r"layers/w_up", (None, "ep", "fsdp", "tp")),
+    (r"layers/w_down", (None, "ep", "tp", "fsdp")),
+    (r"layers/ln_", (None, None)),
+    (r"final_norm", (None,)),
+    (r"lm_head", ("fsdp", "tp")),
+]
+
+
+def param_specs(config: MixtralConfig) -> dict:
+    """The spec tree of :func:`init_params`' structure under
+    :data:`PARTITION_RULES` (all None where no rule matches)."""
+    from ..parallel.sharding import specs_from_rules
+
+    return specs_from_rules(_param_shapes(config), PARTITION_RULES)
+
+
 def init_params(config: MixtralConfig, seed: int = 0, device=None) -> dict:
     """Random parameters with the JAX package's shapes and init rule: norm
     scales one, every other weight a normal truncated at two standard
@@ -206,7 +245,10 @@ class MixtralForCausalLM(_llama.LlamaForCausalLM):
     given; ``forward(input_ids, cache)`` is :func:`apply_cached`,
     ``forward(input_ids=..., attention_mask=..., labels=...)`` returns
     ``{"loss": loss_fn(...)}``; ``state_dict()`` uses the JAX package's flat
-    names."""
+    names.  ``Accelerator.prepare`` shards it by :attr:`partition_rules`
+    on a mesh with model axes, as the llama family's."""
+
+    partition_rules = PARTITION_RULES
 
     @staticmethod
     def _family():
@@ -218,19 +260,72 @@ class MixtralForCausalLM(_llama.LlamaForCausalLM):
 # ---------------------------------------------------------------------------
 
 
-def _moe(h, p, c: MixtralConfig, capacity: int):
+def _mesh_of(layout):
+    if layout is not None:
+        return layout.mesh
+    from ..parallel.sharding import _live_mesh
+
+    return _live_mesh()
+
+
+def _check_moe_impl(c: MixtralConfig, layout=None) -> None:
+    """The JAX ``_check_moe_impl`` on ``layout``'s mesh (the live state's by
+    default): ``moe_impl="ragged"`` raises under an active ``ep`` axis (its
+    group sizes depend on each shard's data) and warns under sharded batch
+    axes (it routes every token of its process's batch; use the dense
+    dispatch there)."""
+    if c.moe_impl != "ragged":
+        return
+    from ..parallel.mesh import data_axes
+
+    mesh = _mesh_of(layout)
+    if mesh is not None and mesh.shape["ep"] > 1:
+        raise ValueError(
+            "moe_impl='ragged' cannot run under an ep>1 mesh: ragged "
+            "group sizes are data-dependent per shard.  Use "
+            "moe_impl='dense' for expert-parallel meshes."
+        )
+    batch_axes = data_axes(mesh) if mesh is not None else ()
+    if batch_axes:
+        warnings.warn(
+            f"moe_impl='ragged' under a mesh with sharded batch axes "
+            f"{batch_axes}: the ragged grouped-matmul sorts and bins the "
+            "GLOBAL token set, so XLA all-gathers the full batch onto every "
+            "device before routing — the per-device work does not shrink "
+            "with the mesh.  Use moe_impl='dense' for dp/fsdp meshes (its "
+            "dispatch einsum partitions over the batch axes)."
+        )
+
+
+def _expert_group(layout):
+    """``(group, axes, first expert)``: the group over the active ``ep`` and
+    ``tp`` axes whose processes each hold part of the experts' output
+    (their experts, their columns of the FFN width), and this process's
+    first expert; ``(None, None, 0)`` off such a mesh."""
+    if layout is None:
+        return None, None, 0
+    axes = tuple(a for a in ("ep", "tp") if layout.mesh.shape[a] > 1)
+    if not axes:
+        return None, None, 0
+    return layout.mesh.group(axes), axes, layout.ep_rank
+
+
+def _moe(h, p, c: MixtralConfig, capacity: int, experts=(None, None, 0)):
     """The expert FFN by ``moe_impl``: the dense dispatch or the ragged
-    grouped matmul."""
+    grouped matmul; ``experts`` is :func:`_expert_group`'s."""
+    group, axes, ep_rank = experts
     if c.moe_impl == "ragged":
         return moe_ffn_ragged(h, p["router"], p["w_gate"], p["w_up"], p["w_down"],
-                              top_k=c.top_k, compute_dtype=c.dtype)
+                              top_k=c.top_k, compute_dtype=c.dtype, group=group, axis=axes)
     return moe_ffn(h, p["router"], p["w_gate"], p["w_up"], p["w_down"], top_k=c.top_k,
-                   capacity=capacity, compute_dtype=c.dtype)
+                   capacity=capacity, compute_dtype=c.dtype, group=group, axis=axes,
+                   first_expert=ep_rank * p["w_gate"].shape[0])
 
 
-def _layer(x, p, c: MixtralConfig, positions, kv_valid, capacity: int):
-    x = _llama.attention_block(x, p, c, positions, kv_valid)
-    y, aux = _moe(_llama._rms_norm(x, p["ln_mlp"], c.rms_eps), p, c, capacity)
+def _layer(x, p, c: MixtralConfig, positions, kv_valid, capacity: int, group=None,
+           q_heads=None, experts=(None, None, 0)):
+    x = _llama.attention_block(x, p, c, positions, kv_valid, group, q_heads)
+    y, aux = _moe(_llama._rms_norm(x, p["ln_mlp"], c.rms_eps), p, c, capacity, experts)
     return x + y, aux
 
 
@@ -242,30 +337,30 @@ def lm_head(params: dict, config: MixtralConfig) -> torch.Tensor:
 def apply_hidden(params: dict, input_ids: torch.Tensor, config: MixtralConfig,
                  positions: Optional[torch.Tensor] = None,
                  attention_mask: Optional[torch.Tensor] = None,
-                 layer_dtype: Optional[torch.dtype] = None):
+                 layer_dtype: Optional[torch.dtype] = None, layout=None):
     """Trunk forward: token ids ``[B, S]`` -> (final-normed hidden ``[B, S,
     d]`` in the compute dtype, aux losses averaged over layers).  Positions
     are ``0 .. S-1`` whatever the mask says (as in the JAX package);
     ``attention_mask`` removes padded keys.  Under ``config.remat`` each
     layer runs under ``torch.utils.checkpoint`` (recomputed in the
     backward); ``layer_dtype`` casts each layer's weights to it inside the
-    layer."""
+    layer.  ``layout``: the sharded path (module docstring)."""
     c = config
+    _check_moe_impl(c, layout)
     b, s = input_ids.shape
     if positions is None:
         positions = torch.arange(s, device=input_ids.device).expand(b, s)
     kv_valid = attention_mask.bool() if attention_mask is not None else None
-    x = _llama.embed_tokens(params, input_ids, c)
+    x = _llama.embed_tokens(params, input_ids, c, layout, layer_dtype)
     capacity = expert_capacity(s, c.num_experts, c.top_k, c.capacity_factor)
-    layers = _dequant_layer(params["layers"])
-    # One unbind per stacked leaf (see llama.apply_hidden).
-    names = list(layers)
-    per_layer = list(zip(*(layers[k].unbind(0) for k in names)))
+    _dequant_layer(params["layers"])
+    names, per_layer, prep, group, q_heads = _llama.sharded_layers(params, c, layout,
+                                                                   layer_dtype)
+    experts = _expert_group(layout)
 
     def layer(x, *weights):
-        if layer_dtype is not None:
-            weights = [w.to(layer_dtype) for w in weights]
-        return _layer(x, dict(zip(names, weights)), c, positions, kv_valid, capacity)
+        p = {k: prep(k, w) for k, w in zip(names, weights)}
+        return _layer(x, p, c, positions, kv_valid, capacity, group, q_heads, experts)
 
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in _AUX}
     for weights in per_layer:
@@ -275,7 +370,10 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: MixtralConfig,
             x, a = layer(x, *weights)
         aux = {k: aux[k] + a[k] for k in _AUX}
     aux = {k: v / c.num_layers for k, v in aux.items()}
-    return _llama._rms_norm(x, params["final_norm"], c.rms_eps), aux
+    scale = params["final_norm"]
+    if _llama._model_sharded(layout):
+        scale = layout.full(scale, layout.spec("final_norm"), layer_dtype)
+    return _llama._rms_norm(x, scale, c.rms_eps), aux
 
 
 def apply(params: dict, input_ids: torch.Tensor, config: MixtralConfig,
@@ -289,24 +387,17 @@ def apply(params: dict, input_ids: torch.Tensor, config: MixtralConfig,
 
 
 def loss_fn(params: dict, batch: dict, config: MixtralConfig,
-            layer_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+            layer_dtype: Optional[torch.dtype] = None, layout=None) -> torch.Tensor:
     """Next-token cross-entropy plus the router aux losses (``router_aux_coef``
     times the load-balance loss, ``router_z_coef`` times the z-loss).
     ``config.loss_impl == "chunked"`` streams the head over vocabulary tiles
-    (``ops/chunked_ce.py``), so the ``[B, S, V]`` logits never exist."""
+    (``ops/chunked_ce.py``), so the ``[B, S, V]`` logits never exist; under
+    ``tp`` the loss is llama's over the vocabulary shards."""
     labels, weights = labels_and_weights(batch)
-    mask = batch.get("attention_mask")
-    if config.loss_impl == "chunked":
-        from ..ops.chunked_ce import chunked_cross_entropy
-
-        hidden, aux = apply_hidden(params, batch["input_ids"], config, attention_mask=mask,
-                                   layer_dtype=layer_dtype)
-        ce = chunked_cross_entropy(hidden, lm_head(params, config), labels, weights,
-                                   config.loss_chunk_size)
-    else:
-        logits, aux = apply(params, batch["input_ids"], config, attention_mask=mask,
-                            layer_dtype=layer_dtype)
-        ce = cross_entropy(logits, labels, weights)
+    hidden, aux = apply_hidden(params, batch["input_ids"], config,
+                               attention_mask=batch.get("attention_mask"),
+                               layer_dtype=layer_dtype, layout=layout)
+    ce = _llama.token_loss(hidden, params, labels, weights, config, layout, layer_dtype)
     return (ce + config.router_aux_coef * aux["load_balancing_loss"]
             + config.router_z_coef * aux["router_z_loss"])
 
@@ -337,6 +428,7 @@ def apply_cached(params: dict, input_ids: torch.Tensor, config: MixtralConfig, c
     from .generation import check_cache_room
 
     c = config
+    _check_moe_impl(c)
     b, s = input_ids.shape
     index = int(cache["index"])
     check_cache_room(index, s, cache["k"].shape[2])

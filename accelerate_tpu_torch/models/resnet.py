@@ -18,8 +18,19 @@ estimate with the unbiased one, ``running = m * running + (1 - m) *
 batch`` with ``bn_momentum`` m (0.9: the reverse of torch's convention).
 The running statistics live in an explicit ``batch_stats`` tree that
 :func:`apply` returns updated; they are no parameters and carry no
-gradient.  Batch statistics over several processes (the JAX package's
-batch norm over a sharded mesh) raise (ROADMAP A6).
+gradient.
+
+Over several processes the batch statistics are the global batch's, as
+they are under GSPMD in the JAX package (its answer to SyncBatchNorm): each
+process's per-channel sums, then its sums of squared deviations from the
+global mean, are added over the data axes by
+:func:`~..parallel.collectives.data_sum`, whose backward adds the
+gradients too.  On a mesh with an active ``fsdp`` or ``tp`` axis the
+forward and loss take a :class:`~..parallel.sharding.Layout` (``layout=``)
+and each process holds its shard of each leaf by :data:`PARTITION_RULES`
+(the JAX table): the convolutions' output channels on ``fsdp``, gathered
+where each runs, and the classifier's classes on ``tp``, its logits
+gathered over ``tp`` before the loss.
 """
 
 from __future__ import annotations
@@ -32,10 +43,23 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import data_sum, tp_copy, tp_gather
+from ..parallel.sharding import TpView, leaf, spec_from_rules
 from ..state import resolve_device
 from .bert import _classify
 
-__all__ = ["ResNetConfig", "init_params", "init_batch_stats", "apply", "classification_loss_fn"]
+__all__ = ["ResNetConfig", "init_params", "init_batch_stats", "apply", "classification_loss_fn",
+           "PARTITION_RULES", "param_specs"]
+
+# Mesh-axis layout of every parameter (path regex -> spec), the JAX
+# ``resnet.PARTITION_RULES``: each convolution's output channels on
+# ``fsdp``, the classifier's classes on ``tp``.
+PARTITION_RULES: list = [
+    (r"stem/conv", (None, None, None, "fsdp")),
+    (r"/conv\d_w$", (None, None, None, "fsdp")),
+    (r"/proj_w$", (None, None, None, "fsdp")),
+    (r"classifier/w", (None, "tp")),
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +183,24 @@ def _stats_shapes(c: ResNetConfig) -> dict:
     return out
 
 
+def param_specs(config: ResNetConfig) -> dict:
+    """The spec tree of :func:`init_params`' structure under
+    :data:`PARTITION_RULES`, as the JAX ``param_specs`` builds it: a stacked
+    ``tail`` leaf matches the rules at its block's rank, behind a
+    replicated leading dim."""
+    from ..parallel.sharding import _tree_map
+
+    def one(path, shape):
+        ndim = len(shape)
+        if "tail" in path.split("/"):
+            spec = spec_from_rules(path, ndim - 1, PARTITION_RULES)
+            return (None,) + spec if spec is not None else (None,) * ndim
+        spec = spec_from_rules(path, ndim, PARTITION_RULES)
+        return spec if spec is not None else (None,) * ndim
+
+    return _tree_map(one, _param_shapes(config))
+
+
 def init_params(config: ResNetConfig, seed: int = 0, device=None) -> dict:
     """Random parameters with the JAX package's shapes and init rule: each
     residual branch's last BN scale zero (every block starts as the
@@ -215,15 +257,23 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int, c: ResNetConfig) -> tor
 
 
 def _batch_norm(x, scale, bias, mean, var, new_stats: dict, site: str, c: ResNetConfig,
-                train: bool):
+                train: bool, data=(None, None, 1)):
     """Normalize over (N, H, W) in fp32 and write ``new_stats[site_mean /
     site_var]``: the momentum update of the running statistics when
-    ``train``, the given ones otherwise."""
+    ``train``, the given ones otherwise.  ``data`` is ``(group, axes,
+    shards)`` of the data axes: with a group the statistics are the global
+    batch's (module docstring)."""
     if train:
         xf = x.float()
-        bmean = xf.mean((0, 1, 2))
-        bvar = (xf - bmean).square().mean((0, 1, 2))
+        group, axes, shards = data
         n = x.shape[0] * x.shape[1] * x.shape[2]
+        if group is None:
+            bmean = xf.mean((0, 1, 2))
+            bvar = (xf - bmean).square().mean((0, 1, 2))
+        else:
+            n = n * shards
+            bmean = data_sum(xf.sum((0, 1, 2)), group, axes) / n
+            bvar = data_sum((xf - bmean).square().sum((0, 1, 2)), group, axes) / n
         m = c.bn_momentum
         with torch.no_grad():
             unbiased = bvar * (n / max(n - 1, 1))
@@ -237,13 +287,13 @@ def _batch_norm(x, scale, bias, mean, var, new_stats: dict, site: str, c: ResNet
     return ((x.float() - use_mean) * inv + bias.float()).to(c.dtype)
 
 
-def _block(x, p, stats, c: ResNetConfig, stride: int, train: bool):
+def _block(x, p, stats, c: ResNetConfig, stride: int, train: bool, data=(None, None, 1)):
     """One residual block -> (out, the block's new stats)."""
     ns: dict = {}
 
     def bn(h, site, relu):
         h = _batch_norm(h, p[f"{site}_scale"], p[f"{site}_bias"], stats[f"{site}_mean"],
-                        stats[f"{site}_var"], ns, site, c, train)
+                        stats[f"{site}_var"], ns, site, c, train, data)
         return F.relu(h) if relu else h
 
     if c.block == "basic":
@@ -259,28 +309,42 @@ def _block(x, p, stats, c: ResNetConfig, stride: int, train: bool):
     return F.relu(h + shortcut), ns
 
 
-def _check_one_process(train: bool) -> None:
-    if train and torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "ResNet batch statistics over several processes (the JAX package's batch norm "
-            "over a sharded mesh, SyncBatchNorm) are not ported to accelerate_tpu_torch yet "
-            "(ROADMAP.md A6)")
+def _data_group(layout):
+    """``(group, axes, shards)`` of the data axes of ``layout``'s mesh (the
+    live state's without one): the processes whose rows make up the
+    global batch; ``(None, None, 1)`` with one such shard."""
+    from ..parallel.mesh import data_axes
+    from ..parallel.sharding import _live_mesh
+
+    mesh = layout.mesh if layout is not None else _live_mesh()
+    axes = data_axes(mesh) if mesh is not None else ()
+    if not axes or mesh.device_mesh is None:
+        return None, None, 1
+    return mesh.group(axes), axes, mesh.span(axes)
 
 
 def apply(params: dict, batch_stats: dict, pixels: torch.Tensor, config: ResNetConfig,
-          train: bool = False):
+          train: bool = False, layout=None):
     """Channels-last pixels ``[B, H, W, C]`` -> (pooled features ``[B,
     C_out]`` fp32, new batch stats).  In eval (``train=False``) the returned
-    stats are the given ones."""
-    _check_one_process(train)
+    stats are the given ones.  Over several data shards the training
+    statistics are the global batch's; ``layout``: the sharded path (module
+    docstring)."""
     c = config
+    data = _data_group(layout) if train else (None, None, 1)
+
+    def gathered(path, tree):
+        if layout is None:
+            return tree
+        return {k: gathered(f"{path}/{k}", v) if isinstance(v, dict) else
+                leaf(params, f"{path}/{k}", layout) for k, v in tree.items()}
+
     new_stats: dict = {"stem": {}}
-    s = params["stem"]
+    s = gathered("stem", params["stem"])
     x = _conv(pixels.to(c.dtype), s["conv_w"], 2 if c.stem == "imagenet" else 1, c)
     st = batch_stats["stem"]
     x = F.relu(_batch_norm(x, s["bn_scale"], s["bn_bias"], st["bn_mean"], st["bn_var"],
-                           new_stats["stem"], "bn", c, train))
+                           new_stats["stem"], "bn", c, train, data))
     if c.stem == "imagenet":
         # torch MaxPool2d(3, stride=2, padding=1): symmetric -inf padding.
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, padding=1).permute(0, 2, 3, 1)
@@ -293,26 +357,52 @@ def apply(params: dict, batch_stats: dict, pixels: torch.Tensor, config: ResNetC
     for si, n in enumerate(c.stage_sizes):
         sp, ss = params[f"stage{si}"], batch_stats[f"stage{si}"]
         stride = 1 if si == 0 else 2
-        # The stride is bound now: the backward's recompute runs after the loop.
-        x, head = run(lambda x, p, st, stride=stride: _block(x, p, st, c, stride, train), x,
-                      sp["head"], ss["head"])
+
+        # The stride is bound now: the backward's recompute runs after the
+        # loop.  Each block gathers its leaves where it runs.
+        def head_fn(x, p, st, stride=stride, si=si):
+            return _block(x, gathered(f"stage{si}/head", p), st, c, stride, train, data)
+
+        x, head = run(head_fn, x, sp["head"], ss["head"])
         sns = {"head": head}
         if n > 1:
             tails = []
             for i in range(n - 1):
                 p = {k: v[i] for k, v in sp["tail"].items()}
                 st = {k: v[i] for k, v in ss["tail"].items()}
-                x, ns = run(lambda x, p, st: _block(x, p, st, c, 1, train), x, p, st)
+
+                def tail_fn(x, p, st, si=si):
+                    return _block(x, _tail_leaves(p, f"stage{si}/tail", layout), st, c, 1,
+                                  train, data)
+
+                x, ns = run(tail_fn, x, p, st)
                 tails.append(ns)
             sns["tail"] = {k: torch.stack([t[k] for t in tails]) for k in tails[0]}
         new_stats[f"stage{si}"] = sns
     return x.float().mean((1, 2)), new_stats
 
 
+def _tail_leaves(p: dict, path: str, layout):
+    """One tail block's leaves (each a slice of its stacked leaf), gathered
+    by the stacked leaf's spec without its leading dim."""
+    if layout is None:
+        return p
+    return {k: layout.full(v, layout.spec(f"{path}/{k}")[1:]) for k, v in p.items()}
+
+
 def classification_loss_fn(params: dict, batch_stats: dict, batch: dict, config: ResNetConfig,
-                           train: bool = True):
+                           train: bool = True, layout=None):
     """Cross-entropy over ``batch["pixel_values"]`` ``[B, H, W, C]`` and
     ``batch["labels"]`` ``[B]`` -> ``(loss, new_batch_stats)``; thread the
-    stats like optimizer state."""
-    pooled, new_stats = apply(params, batch_stats, batch["pixel_values"], config, train=train)
-    return _classify(params, pooled, batch["labels"]), new_stats
+    stats like optimizer state.  On a ``layout`` under ``tp`` each process
+    computes its classes' logits, gathered over ``tp`` before the loss."""
+    pooled, new_stats = apply(params, batch_stats, batch["pixel_values"], config, train=train,
+                              layout=layout)
+    if layout is None or layout.tp == 1:
+        return _classify(params, pooled, batch["labels"], layout), new_stats
+    tp = TpView(layout)
+    w = leaf(params, "classifier/w", layout).float()
+    part = tp_copy(pooled, tp.group) @ w + tp.chunk(leaf(params, "classifier/b", layout))
+    logits = tp_gather(part, part.dim() - 1, tp.group, partial=False)
+    loss = -torch.log_softmax(logits, -1).gather(-1, batch["labels"].long()[:, None]).mean()
+    return loss, new_stats

@@ -25,6 +25,19 @@ K/V computed once in full precision; :func:`decode_cached`), and T5's own
 Attention is the einsum path, as in the JAX package: no kernel of this
 module is hand-written.  Int8-weight layers (``quantize_weights``) raise
 (ROADMAP A8).
+
+On a mesh with an active ``fsdp`` or ``tp`` axis the training forward and
+loss take a :class:`~..parallel.sharding.Layout` (``layout=``) and each
+process holds its shard of each leaf by :data:`PARTITION_RULES` (the JAX
+table): each stack's layers gather their ``fsdp`` dims where they run;
+under ``tp`` the self- and cross-attention's q/k/v are column-parallel over
+heads (their inputs, the encoder output among them, through ``tp_copy``),
+``wo`` / ``cross_wo`` and the MLP's down projection row-parallel; the
+replicated relative-bias tables enter through ``tp_copy``, of which each
+process reads its heads' columns; the shared embedding and the tied head
+are vocabulary-parallel, and so is the loss (llama's).  Where ``tp`` does
+not divide the heads every process computes every head from the whole
+weights.
 """
 
 from __future__ import annotations
@@ -36,14 +49,18 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import tp_copy, tp_reduce
+from ..parallel.sharding import TpView, leaf, specs_from_rules, vocab_lookup
 from ..state import resolve_device
 from .gpt2 import _dequant_layer
-from .llama import _rms_norm, _wide, cross_entropy
+from .llama import _loss_vocab_parallel, _rms_norm, _wide, cross_entropy
 from .bert import _run_layers
 
 __all__ = [
     "T5Config",
     "init_params",
+    "param_specs",
+    "PARTITION_RULES",
     "apply",
     "apply_hidden",
     "lm_head",
@@ -90,6 +107,23 @@ class T5Config:
         return cls(**defaults)
 
 
+# Mesh-axis layout of every parameter (path regex -> spec), the JAX
+# ``t5.PARTITION_RULES``.
+PARTITION_RULES: list = [
+    (r"shared_embed", ("tp", "fsdp")),
+    (r"/(wq|wk|wv|cross_wq|cross_wk|cross_wv)", (None, "fsdp", "tp")),
+    (r"/(wo|cross_wo)", (None, "tp", "fsdp")),
+    (r"/w_up", (None, "fsdp", "tp")),
+    (r"/w_down", (None, "tp", "fsdp")),
+    (r"rel_bias", (None, None)),
+    (r"final_ln", (None,)),
+    (r"/ln_", (None, None)),
+]
+
+_ATTN_COLS = ("wq", "wk", "wv", "cross_wq", "cross_wk", "cross_wv")
+_ATTN_ROWS = ("wo", "cross_wo")
+
+
 def _stack_shapes(c: T5Config, decoder: bool) -> dict:
     d, f, L, hd, h = c.hidden_size, c.intermediate_size, c.num_layers, c.head_dim, c.num_heads
     shapes = {
@@ -123,6 +157,12 @@ def _param_shapes(c: T5Config) -> dict:
         "enc_final_ln": (c.hidden_size,),
         "dec_final_ln": (c.hidden_size,),
     }
+
+
+def param_specs(config: T5Config) -> dict:
+    """The spec tree of :func:`init_params`' structure under
+    :data:`PARTITION_RULES` (all None where no rule matches)."""
+    return specs_from_rules(_param_shapes(config), PARTITION_RULES)
 
 
 def init_params(config: T5Config, seed: int = 0, device=None) -> dict:
@@ -186,7 +226,7 @@ def _rel_bias(table, q_len: int, k_len: int, c: T5Config, bidirectional: bool):
 
 def _heads(h, w, c: T5Config):
     b, s, _ = h.shape
-    return (h @ w.to(c.dtype)).reshape(b, s, c.num_heads, c.head_dim)
+    return (h @ w.to(c.dtype)).reshape(b, s, -1, c.head_dim)
 
 
 def _attend(q, k, v, bias, mask):
@@ -202,74 +242,113 @@ def _attend(q, k, v, bias, mask):
     return torch.einsum("bhst,bthd->bshd", probs, v).reshape(b, s, h * hd)
 
 
-def _mha(h_q, h_kv, p, prefix: str, c: T5Config, bias, mask):
-    q = _heads(h_q, p[prefix + "wq"], c)
-    k = _heads(h_kv, p[prefix + "wk"], c)
-    v = _heads(h_kv, p[prefix + "wv"], c)
-    return _attend(q, k, v, bias, None if mask is None else mask[:, None]) @ \
+def _mha(h_q, h_kv, p, prefix: str, c: T5Config, bias, mask, tp=None):
+    """Multi-head attention of ``h_q`` over ``h_kv``; under ``tp`` (a
+    :class:`~..parallel.sharding.TpView`) over this process's heads, the
+    output projection's partial sums added over ``tp``."""
+    group = (tp or _NO_TP).attn
+    hq = tp_copy(h_q, group)
+    hkv = hq if h_kv is h_q else tp_copy(h_kv, group)
+    q = _heads(hq, p[prefix + "wq"], c)
+    k = _heads(hkv, p[prefix + "wk"], c)
+    v = _heads(hkv, p[prefix + "wv"], c)
+    out = _attend(q, k, v, bias, None if mask is None else mask[:, None]) @ \
         p[prefix + "wo"].to(c.dtype)
+    return tp_reduce(out, group)
 
 
-def _mlp(x, p, c: T5Config):
-    h = _rms_norm(x, p["ln_mlp"], c.rms_eps)
-    return x + F.relu(h @ p["w_up"].to(c.dtype)) @ p["w_down"].to(c.dtype)
+def _mlp(x, p, c: T5Config, tp=None):
+    group = (tp or _NO_TP).group
+    h = tp_copy(_rms_norm(x, p["ln_mlp"], c.rms_eps), group)
+    return x + tp_reduce(F.relu(h @ p["w_up"].to(c.dtype)) @ p["w_down"].to(c.dtype), group)
 
 
-def _enc_layer(x, p, c: T5Config, bias, mask):
+def _enc_layer(x, p, c: T5Config, bias, mask, tp=None):
     h = _rms_norm(x, p["ln_attn"], c.rms_eps)
-    return _mlp(x + _mha(h, h, p, "", c, bias, mask), p, c)
+    return _mlp(x + _mha(h, h, p, "", c, bias, mask, tp), p, c, tp)
 
 
-def _dec_layer(x, p, c: T5Config, bias, self_mask, enc_out, cross_mask):
+def _dec_layer(x, p, c: T5Config, bias, self_mask, enc_out, cross_mask, tp=None):
     h = _rms_norm(x, p["ln_attn"], c.rms_eps)
-    x = x + _mha(h, h, p, "", c, bias, self_mask)
+    x = x + _mha(h, h, p, "", c, bias, self_mask, tp)
     h = _rms_norm(x, p["ln_cross"], c.rms_eps)
-    return _mlp(x + _mha(h, enc_out, p, "cross_", c, None, cross_mask), p, c)
+    return _mlp(x + _mha(h, enc_out, p, "cross_", c, None, cross_mask, tp), p, c, tp)
 
 
-def _embed(params: dict, ids: torch.Tensor, c: T5Config) -> torch.Tensor:
-    return F.embedding(ids.long(), params["shared_embed"]).to(c.dtype)
+def _embed(params: dict, ids: torch.Tensor, c: T5Config, layout=None) -> torch.Tensor:
+    """The shared embedding in the compute dtype; on a ``layout`` its
+    ``fsdp`` dim gathered and the lookup over this process's vocabulary
+    rows (:func:`~..parallel.sharding.embed_lookup`)."""
+    if layout is None:
+        return F.embedding(ids.long(), params["shared_embed"]).to(c.dtype)
+    return vocab_lookup(leaf(params, "shared_embed", layout, c.dtype), ids, c.dtype, layout)
 
 
-def lm_head(params: dict, config: T5Config) -> torch.Tensor:
+def lm_head(params: dict, config: T5Config, layout=None) -> torch.Tensor:
     """The tied ``[d, V]`` head: the shared embedding in the compute dtype,
-    divided by sqrt(d) in fp32 (the JAX package's promotion)."""
-    return _wide(params["shared_embed"].T.to(config.dtype)) / math.sqrt(config.hidden_size)
+    divided by sqrt(d) in fp32 (the JAX package's promotion); on a
+    ``layout`` its ``fsdp`` dim gathered, its ``tp`` columns local."""
+    table = leaf(params, "shared_embed", layout, config.dtype)
+    return _wide(table.T.to(config.dtype)) / math.sqrt(config.hidden_size)
+
+
+def _rel_table(params: dict, name: str, layout, tp):
+    """A relative-bias table ``[buckets, H]`` as the attention reads it:
+    under ``tp`` this process's heads' columns (through ``tp_copy``)."""
+    table = leaf(params, name, layout)
+    return table if tp.heads is None else tp.chunk(table, -1)
+
+
+def _stack(name: str, c: T5Config, layout, tp) -> dict:
+    """``_run_layers``'s gather arguments for the stack ``name``: the
+    attention leaves gathered over ``tp`` where it does not divide the
+    heads."""
+    return dict(layout=layout, path=name, dtype=c.dtype,
+                tp_grad=tp.head_gathers(split=_ATTN_COLS, rows=_ATTN_ROWS))
+
+
+_NO_TP = TpView()
 
 
 def encode(params: dict, input_ids: torch.Tensor, config: T5Config,
-           attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+           attention_mask: Optional[torch.Tensor] = None, layout=None) -> torch.Tensor:
     """Encoder stack only -> final-normed ``[B, S, d]`` in the compute
-    dtype; ``attention_mask`` masks padded keys and queries."""
+    dtype; ``attention_mask`` masks padded keys and queries.  ``layout``:
+    the sharded path (module docstring)."""
     c = config
     s = input_ids.shape[1]
     mask = None
     if attention_mask is not None:
         valid = attention_mask.bool()
         mask = valid[:, None, :] & valid[:, :, None]
-    bias = _rel_bias(params["enc_rel_bias"], s, s, c, bidirectional=True)
-    x = _run_layers(_embed(params, input_ids, c), _dequant_layer(params["encoder"]), c.remat,
-                   lambda x, p: _enc_layer(x, p, c, bias, mask))
-    return _rms_norm(x, params["enc_final_ln"], c.rms_eps)
+    tp = TpView(layout, c.num_heads)
+    bias = _rel_bias(_rel_table(params, "enc_rel_bias", layout, tp), s, s, c, bidirectional=True)
+    x = _run_layers(_embed(params, input_ids, c, layout), _dequant_layer(params["encoder"]),
+                    c.remat, lambda x, p: _enc_layer(x, p, c, bias, mask, tp),
+                    **_stack("encoder", c, layout, tp))
+    return _rms_norm(x, leaf(params, "enc_final_ln", layout), c.rms_eps)
 
 
 def apply_hidden(params: dict, input_ids: torch.Tensor, decoder_input_ids: torch.Tensor,
-                 config: T5Config, attention_mask: Optional[torch.Tensor] = None):
+                 config: T5Config, attention_mask: Optional[torch.Tensor] = None, layout=None):
     """Encoder + decoder -> final-normed decoder hidden ``[B, T, d]``."""
     c = config
     b, s = input_ids.shape
     t = decoder_input_ids.shape[1]
-    enc_out = encode(params, input_ids, c, attention_mask)
+    enc_out = encode(params, input_ids, c, attention_mask, layout)
     dev = input_ids.device
-    bias = _rel_bias(params["dec_rel_bias"], t, t, c, bidirectional=False)
+    tp = TpView(layout, c.num_heads)
+    bias = _rel_bias(_rel_table(params, "dec_rel_bias", layout, tp), t, t, c,
+                     bidirectional=False)
     self_mask = torch.ones((t, t), dtype=torch.bool, device=dev).tril().expand(b, t, t)
     cross_mask = None
     if attention_mask is not None:
         cross_mask = attention_mask.bool()[:, None, :].expand(b, t, s)
-    y = _run_layers(_embed(params, decoder_input_ids, c), _dequant_layer(params["decoder"]),
-                   c.remat,
-                   lambda y, p: _dec_layer(y, p, c, bias, self_mask, enc_out, cross_mask))
-    return _rms_norm(y, params["dec_final_ln"], c.rms_eps)
+    y = _run_layers(_embed(params, decoder_input_ids, c, layout),
+                    _dequant_layer(params["decoder"]), c.remat,
+                    lambda y, p: _dec_layer(y, p, c, bias, self_mask, enc_out, cross_mask, tp),
+                    **_stack("decoder", c, layout, tp))
+    return _rms_norm(y, leaf(params, "dec_final_ln", layout), c.rms_eps)
 
 
 def apply(params: dict, input_ids: torch.Tensor, decoder_input_ids: torch.Tensor,
@@ -281,22 +360,28 @@ def apply(params: dict, input_ids: torch.Tensor, decoder_input_ids: torch.Tensor
     return hidden.to(head.dtype) @ head
 
 
-def loss_fn(params: dict, batch: dict, config: T5Config) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, config: T5Config, layout=None) -> torch.Tensor:
     """Seq2seq cross-entropy over ``input_ids``, ``decoder_input_ids`` and
     ``labels`` (negative = ignored), with an optional ``attention_mask``;
     ``config.loss_impl == "chunked"`` streams the head over vocabulary
-    tiles."""
+    tiles; on a ``layout`` under ``tp``, llama's loss over the vocabulary
+    shards."""
     labels = batch["labels"]
     weights = (labels >= 0).float()
     labels = labels.clamp(min=0)
-    if config.loss_impl == "chunked":
-        from ..ops.chunked_ce import chunked_cross_entropy
-
+    if layout is not None or config.loss_impl == "chunked":
         hidden = apply_hidden(params, batch["input_ids"], batch["decoder_input_ids"], config,
-                              attention_mask=batch.get("attention_mask"))
-        head = lm_head(params, config)
-        return chunked_cross_entropy(hidden.to(head.dtype), head, labels, weights,
-                                     config.loss_chunk_size)
+                              attention_mask=batch.get("attention_mask"), layout=layout)
+        head = lm_head(params, config, layout)
+        if layout is not None and layout.tp > 1:
+            return _loss_vocab_parallel(hidden.to(head.dtype), head, labels, weights, config,
+                                        layout)
+        if config.loss_impl == "chunked":
+            from ..ops.chunked_ce import chunked_cross_entropy
+
+            return chunked_cross_entropy(hidden.to(head.dtype), head, labels, weights,
+                                         config.loss_chunk_size)
+        return cross_entropy(hidden.to(head.dtype) @ head, labels, weights)
     logits = apply(params, batch["input_ids"], batch["decoder_input_ids"], config,
                    attention_mask=batch.get("attention_mask"))
     return cross_entropy(logits, labels, weights)

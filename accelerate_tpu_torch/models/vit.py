@@ -11,7 +11,14 @@ projections stored for ``x @ W``); the GELU is the tanh approximation.
 
 Attention is the einsum path, as in the JAX package off its sequence-
 parallel mesh: no kernel of this module is hand-written.
-``sp_impl="ulysses"`` raises (ROADMAP A6).
+``sp_impl="ulysses"`` raises (ROADMAP A6 part 2).
+
+On a mesh with an active ``fsdp`` or ``tp`` axis :func:`apply` and the
+loss take a :class:`~..parallel.sharding.Layout` (``layout=``) and each
+process holds its shard of each leaf by :data:`PARTITION_RULES` (the JAX
+table): BERT's split of the layers, and the classifier row-parallel on the
+replicated pooled features (each process multiplies its chunk of them,
+then the partial logits are summed over ``tp``).
 """
 
 from __future__ import annotations
@@ -23,11 +30,27 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import tp_copy, tp_reduce
+from ..parallel.sharding import TpView, leaf, specs_from_rules
 from ..state import resolve_device
-from .bert import _attend, _classify, _init_normal_tree, _qkv_heads, _run_layers
+from .bert import (_NO_TP, _attend, _classify, _init_normal_tree, _qkv_heads, _run_layers,
+                   _stack_gathers)
 from .gpt2 import _layer_norm
 
-__all__ = ["ViTConfig", "init_params", "apply", "classification_loss_fn"]
+__all__ = ["ViTConfig", "init_params", "param_specs", "PARTITION_RULES", "apply",
+           "classification_loss_fn"]
+
+# Mesh-axis layout of every parameter (path regex -> spec), the JAX
+# ``vit.PARTITION_RULES``.
+PARTITION_RULES: list = [
+    (r"embeddings/patch_w", (None, "fsdp")),
+    (r"embeddings/position", (None, "fsdp")),
+    (r"layers/w_qkv", (None, "fsdp", "tp")),
+    (r"layers/w_proj", (None, "tp", "fsdp")),
+    (r"layers/w_up", (None, "fsdp", "tp")),
+    (r"layers/w_down", (None, "tp", "fsdp")),
+    (r"classifier/w", ("tp", None)),
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +87,7 @@ class ViTConfig:
         if self.sp_impl != "ring":
             raise NotImplementedError(
                 f"ViTConfig.sp_impl={self.sp_impl!r} is not ported to accelerate_tpu_torch "
-                "yet (ROADMAP.md A6)")
+                "yet (ROADMAP.md A6 part 2)")
 
     @property
     def head_dim(self) -> int:
@@ -132,6 +155,12 @@ def _param_shapes(c: ViTConfig) -> dict:
     }
 
 
+def param_specs(config: ViTConfig) -> dict:
+    """The spec tree of :func:`init_params`' structure under
+    :data:`PARTITION_RULES` (all None where no rule matches)."""
+    return specs_from_rules(_param_shapes(config), PARTITION_RULES)
+
+
 def init_params(config: ViTConfig, seed: int = 0, device=None) -> dict:
     """Random parameters with the JAX package's shapes and init rule:
     LayerNorm scales one; biases, LayerNorm biases and the CLS token zero;
@@ -153,32 +182,41 @@ def _patchify(pixels: torch.Tensor, c: ViTConfig) -> torch.Tensor:
     return x.reshape(b, (hgt // p) * (wid // p), p * p * ch)
 
 
-def _layer(x, p, c: ViTConfig):
+def _layer(x, p, c: ViTConfig, tp=None):
+    tp = tp or _NO_TP
     n = _layer_norm(x, p["ln_attn_scale"], p["ln_attn_bias"], c.layer_norm_eps)
-    x = x + _attend(*_qkv_heads(n, p, c)) @ p["w_proj"].to(c.dtype) + p["b_proj"].to(c.dtype)
-    n = _layer_norm(x, p["ln_mlp_scale"], p["ln_mlp_bias"], c.layer_norm_eps)
-    u = F.gelu(n @ p["w_up"].to(c.dtype) + p["b_up"].to(c.dtype), approximate="tanh")
-    return x + u @ p["w_down"].to(c.dtype) + p["b_down"].to(c.dtype)
+    attn = _attend(*_qkv_heads(n, p, c, tp))
+    x = x + tp_reduce(attn @ p["w_proj"].to(c.dtype), tp.attn) + p["b_proj"].to(c.dtype)
+    n = tp_copy(_layer_norm(x, p["ln_mlp_scale"], p["ln_mlp_bias"], c.layer_norm_eps), tp.group)
+    u = F.gelu(n @ p["w_up"].to(c.dtype) + tp.chunk(p["b_up"]).to(c.dtype), approximate="tanh")
+    return x + tp_reduce(u @ p["w_down"].to(c.dtype), tp.group) + p["b_down"].to(c.dtype)
 
 
-def apply(params: dict, pixels: torch.Tensor, config: ViTConfig):
+def apply(params: dict, pixels: torch.Tensor, config: ViTConfig, layout=None):
     """Channels-last pixels ``[B, H, W, C]`` -> (token features ``[B, S, d]``
-    in the compute dtype, pooled ``[B, d]`` fp32)."""
+    in the compute dtype, pooled ``[B, d]`` fp32).  ``layout``: the sharded
+    path (BERT's layers; module docstring)."""
     c = config
-    e = params["embeddings"]
+    e = {k: leaf(params, f"embeddings/{k}", layout, c.dtype) for k in params["embeddings"]}
     x = _patchify(pixels.to(c.dtype), c) @ e["patch_w"].to(c.dtype) + e["patch_b"].to(c.dtype)
     if c.pool == "cls":
         cls = e["cls"].to(c.dtype).expand(x.shape[0], 1, c.hidden_size)
         x = torch.cat([cls, x], dim=1)
     x = x + e["position"].to(c.dtype)[None]
-    x = _run_layers(x, params["layers"], c.remat, lambda x, p: _layer(x, p, c))
-    x = _layer_norm(x, params["final_ln"]["scale"], params["final_ln"]["bias"], c.layer_norm_eps)
+    tp = TpView(layout, c.num_heads)
+    x = _run_layers(x, params["layers"], c.remat, lambda x, p: _layer(x, p, c, tp), layout,
+                    "layers", c.dtype, _stack_gathers(tp))
+    x = _layer_norm(x, leaf(params, "final_ln/scale", layout, c.dtype),
+                    leaf(params, "final_ln/bias", layout, c.dtype), c.layer_norm_eps)
     xf = x.float()
     return x, (xf[:, 0] if c.pool == "cls" else xf.mean(1))
 
 
-def classification_loss_fn(params: dict, batch: dict, config: ViTConfig) -> torch.Tensor:
+def classification_loss_fn(params: dict, batch: dict, config: ViTConfig,
+                           layout=None) -> torch.Tensor:
     """Image-classification cross-entropy over ``batch["pixel_values"]``
-    ``[B, H, W, C]`` and ``batch["labels"]`` ``[B]``."""
-    _, pooled = apply(params, batch["pixel_values"], config)
-    return _classify(params, pooled, batch["labels"])
+    ``[B, H, W, C]`` and ``batch["labels"]`` ``[B]``; on a ``layout`` under
+    ``tp`` the classifier row-parallel over the pooled features' chunks."""
+    _, pooled = apply(params, batch["pixel_values"], config, layout)
+    tp = TpView(layout, config.num_heads)
+    return _classify(params, tp.chunk(pooled), batch["labels"], layout, tp)

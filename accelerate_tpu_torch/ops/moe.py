@@ -11,8 +11,22 @@
 
 The router runs in fp32, the experts in ``compute_dtype``.  These are
 ``torch`` ops, as the JAX ones are XLA ops: no kernel of this module is
-hand-written.  The JAX module's ``ep`` sharding constraints have no
-counterpart here: the port runs on one device.
+hand-written.
+
+Expert parallelism (``group``): the JAX module constrains the dispatched
+activations' expert dim to ``ep`` and lets GSPMD place the collectives.
+Here every process of ``group`` (the active ``ep`` and ``tp`` axes) holds
+the same tokens, since neither is a data axis, and computes the same
+routing and dispatch/combine tensors; it runs the slots of its own
+experts (from ``first_expert``, as many as its ``w_gate`` holds) over its
+columns of the FFN width, and the partial outputs are summed over the
+group (:func:`~..parallel.collectives.tp_reduce`).  Each process's
+backward reaches only its experts' columns of the combine tensor and a
+part of the input's gradient, so the input and the combine tensor enter
+through :func:`~..parallel.collectives.tp_copy` (the router's gradient,
+which flows through the combine weights, is then whole on every
+process); the aux losses read the whole routing, computed alike on every
+process.  No all-to-all is needed for the dense result.
 
 Aux losses follow the Switch/Mixtral recipe: the load-balance loss (router
 probability mass times token fraction per expert) and the router z-loss.
@@ -25,6 +39,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import tp_copy, tp_reduce
 
 __all__ = ["router", "dispatch_combine", "moe_ffn", "moe_ffn_ragged", "expert_capacity"]
 
@@ -103,36 +119,43 @@ def router_z_loss(logits: torch.Tensor) -> torch.Tensor:
 
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor, *, top_k: int = 2, capacity_factor: float = 1.25,
-            capacity: Optional[int] = None, compute_dtype=torch.bfloat16):
+            capacity: Optional[int] = None, compute_dtype=torch.bfloat16, group=None,
+            axis=None, first_expert: int = 0):
     """SwiGLU expert FFN with top-k routing through the dense dispatch.
 
     x: ``[B, S, d]``; w_router: ``[d, E]``; w_gate/w_up: ``[E, d, f]``;
     w_down: ``[E, f, d]``.  Returns (y ``[B, S, d]`` in ``x.dtype``, aux
-    losses)."""
+    losses).  ``group`` (``axis`` its mesh axes): the expert weights are
+    this process's experts from ``first_expert`` and its columns of ``f``
+    (module docstring)."""
     s = x.shape[1]
-    e = w_gate.shape[0]
+    e = w_router.shape[-1]
     if capacity is None:
         capacity = expert_capacity(s, e, top_k, capacity_factor)
     cd = compute_dtype
     probs, logits = router(x, w_router)
     dispatch, combine, aux = dispatch_combine(probs, top_k, capacity)
-    xe = torch.einsum("bsec,bsd->becd", dispatch.to(cd), x.to(cd))
+    aux = dict(aux, load_balancing_loss=load_balancing_loss(probs, dispatch),
+               router_z_loss=router_z_loss(logits))
+    mine = slice(first_expert, first_expert + w_gate.shape[0])
+    xe = torch.einsum("bsec,bsd->becd", dispatch[:, :, mine].to(cd),
+                      tp_copy(x, group, axis).to(cd))
     gate = F.silu(torch.einsum("becd,edf->becf", xe, w_gate.to(cd)))
     up = torch.einsum("becd,edf->becf", xe, w_up.to(cd))
     ye = torch.einsum("becf,efd->becd", gate * up, w_down.to(cd))
-    y = torch.einsum("bsec,becd->bsd", combine.to(cd), ye)
-    aux = dict(aux, load_balancing_loss=load_balancing_loss(probs, dispatch),
-               router_z_loss=router_z_loss(logits))
-    return y.to(x.dtype), aux
+    y = torch.einsum("bsec,becd->bsd", tp_copy(combine, group, axis)[:, :, mine].to(cd), ye)
+    return tp_reduce(y, group, axis).to(x.dtype), aux
 
 
 def moe_ffn_ragged(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
                    w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int = 2,
-                   compute_dtype=torch.bfloat16):
+                   compute_dtype=torch.bfloat16, group=None, axis=None):
     """Exact MoE FFN over the tokens grouped by expert (the JAX
     ``lax.ragged_dot`` path): ``S * k`` rows, no capacity padding, no token
     dropped.  Same contract as :func:`moe_ffn` minus the capacity knobs;
-    ``fraction_dropped`` is zero.
+    ``fraction_dropped`` is zero.  ``group`` is the ``tp`` group only (every
+    expert on every process, its columns of ``f``): the ragged groups
+    depend on the data, so ``ep`` takes the dense dispatch.
 
     The group sizes come to the host to slice the sorted rows: one
     synchronisation per MoE layer.  Each token's k expert outputs are summed
@@ -147,17 +170,17 @@ def moe_ffn_ragged(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor
     expert_of = idx.reshape(n)
     order = torch.argsort(expert_of, stable=True)
     token_of = torch.arange(b * s, device=x.device).repeat_interleave(top_k)
-    rows = x.reshape(b * s, d).to(cd)[token_of[order]]  # [N, d] grouped by expert
+    rows = tp_copy(x, group, axis).reshape(b * s, d).to(cd)[token_of[order]]  # by expert
     sizes = torch.bincount(expert_of, minlength=e).tolist()  # the host sync
     outs = []
     for j, r in enumerate(rows.split(sizes)):
         gate = F.silu(r @ w_gate[j].to(cd))
         outs.append((gate * (r @ w_up[j].to(cd))) @ w_down[j].to(cd))
-    weighted = torch.cat(outs).float() * gates.reshape(n)[order][:, None]
+    weighted = torch.cat(outs).float() * tp_copy(gates, group, axis).reshape(n)[order][:, None]
     # Back to (token, slot) order, then the k outputs of a token summed.
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(n, device=x.device)
-    y = weighted[inverse].reshape(b * s, top_k, d).sum(1)
+    y = tp_reduce(weighted[inverse].reshape(b * s, top_k, d).sum(1), group, axis)
     # Every routed token is kept: the dispatch mass is the top-k assignment.
     tokens_per_expert = F.one_hot(idx, e).float().sum(2).sum(1)  # [B, E]
     aux = {

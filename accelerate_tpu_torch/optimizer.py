@@ -41,7 +41,8 @@ On a mesh with model axes (:mod:`.parallel.sharding`) the parameters are
 this process's shards: a leaf sharded on ``fsdp`` arrives with its
 gradient summed over ``fsdp`` already (its gather's backward
 reduce-scattered it), so only the other data axes reduce it before the
-division by the data degree; nothing is reduced over ``tp``.  The norms
+division by the data degree; nothing is reduced over ``tp`` or ``ep``,
+which are no data axes.  The norms
 then count each distinct shard once (:func:`sharded_global_norm`), the
 optimizer updates the shards, and ``state_dict`` gathers the state to full
 shapes.  ``Accelerator.clip_grad_norm_`` averages the gradients early (in
@@ -204,7 +205,7 @@ class AcceleratedOptimizer:
         then divided by the data degree.  A leaf sharded on ``fsdp`` already
         holds the sum over ``fsdp`` (its gather's backward reduce-scattered
         it), so only the other data axes reduce it; no leaf is reduced over
-        ``tp``, whose ranks hold either their own shard's gradient or the
+        ``tp`` or ``ep``, whose ranks hold either their own shard's gradient or the
         same full one."""
         from .parallel import collectives
         from .parallel.mesh import data_axes, model_axes

@@ -12,11 +12,18 @@ of a sharded program, the port calls them itself, through these helpers:
   move theirs, and moved back);
 - the autograd pairs of the model axes: :func:`fsdp_gather` (forward an
   all-gather of a parameter's shard along its ``fsdp`` dim, backward a
-  reduce-scatter of the gradient, summed), and Megatron's pair on the
-  ``tp`` group, :func:`tp_copy` (forward the identity, backward an
-  all-reduce: the input of a column-parallel product) and
-  :func:`tp_reduce` (forward an all-reduce, backward the identity: the
-  output of a row-parallel product).
+  reduce-scatter of the gradient, summed); Megatron's pair on the ``tp``
+  group, or on any group whose ranks hold parts of one sum (``ep`` and
+  ``tp`` together for the experts), :func:`tp_copy` (forward the
+  identity, backward an all-reduce: the input of a column-parallel
+  product) and :func:`tp_reduce` (forward an all-reduce, backward the
+  identity: the output of a row-parallel product); :func:`tp_gather`, a
+  leaf's ``tp`` shards gathered whole, whose backward either sums the
+  gradient over ``tp`` and keeps this rank's chunk (each rank used only
+  its own heads' part of the whole) or only keeps the chunk (every rank
+  used the whole on the same inputs); and :func:`data_sum`, an
+  all-reduce both ways, for a statistic over the data axes that every
+  rank's loss reads (batch norm over a sharded batch).
 
 NCCL takes CUDA tensors as they are.  gloo is the CPU backend; it moves a
 CUDA tensor through host memory, and not every release of it takes every
@@ -48,8 +55,8 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["COMM_LOG", "all_gather", "all_gather_dim", "all_gather_object", "all_reduce",
            "backend", "broadcast", "broadcast_object", "fsdp_gather", "initialized", "rank",
-           "reduce_scatter", "reduce_scatter_dim", "reset_comm_log", "tp_copy", "tp_reduce",
-           "world_size"]
+           "reduce_scatter", "reduce_scatter_dim", "reset_comm_log", "tp_copy", "tp_gather",
+           "tp_reduce", "data_sum", "world_size"]
 
 COMM_LOG: dict = {}
 _noted: set = set()
@@ -258,47 +265,98 @@ def fsdp_gather(shard: torch.Tensor, dim: int, group, dtype=None) -> torch.Tenso
     return _FsdpGather.apply(shard, dim, group, dtype)
 
 
-def _sum_wide(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum over the ``tp`` group of ``t``, added in fp32 where ``t`` is
+def _sum_wide(t: torch.Tensor, group, axis="tp") -> torch.Tensor:
+    """The sum over ``group`` of ``t``, added in fp32 where ``t`` is
     16-bit and rounded to its dtype once, as one product's fp32
     accumulator is."""
     wide = t.float() if t.dtype in (torch.bfloat16, torch.float16) else t.contiguous().clone()
-    return all_reduce(wide, group=group, axis="tp").to(t.dtype)
+    return all_reduce(wide, group=group, axis=axis).to(t.dtype)
 
 
 class _TpCopy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return _sum_wide(grad, ctx.group), None
+        return _sum_wide(grad, ctx.group, ctx.axis), None, None
 
 
 class _TpReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return _sum_wide(x, group)
+    def forward(ctx, x, group, axis):
+        return _sum_wide(x, group, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
-def tp_copy(x: torch.Tensor, group) -> torch.Tensor:
+def tp_copy(x: torch.Tensor, group, axis="tp") -> torch.Tensor:
     """Megatron's ``f``: the identity forward, an all-reduce (sum) of the
     gradient backward (in fp32 for a 16-bit gradient); the input of a
     column-parallel product, whose gradient each rank holds a part of.
-    ``group=None`` (no ``tp`` axis): ``x`` itself."""
-    return x if group is None else _TpCopy.apply(x, group)
+    ``group=None`` (no such axis): ``x`` itself.  ``axis`` names the mesh
+    axes of ``group`` for the log."""
+    return x if group is None else _TpCopy.apply(x, group, axis)
 
 
-def tp_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def tp_reduce(x: torch.Tensor, group, axis="tp") -> torch.Tensor:
     """Megatron's ``g``: an all-reduce (sum) forward (in fp32 for a 16-bit
     input, rounded once), the identity backward; the output of a
     row-parallel product (each rank holds a partial sum) and the
-    statistics of the vocabulary-parallel loss.  ``group=None`` (no
-    ``tp`` axis): ``x`` itself."""
-    return x if group is None else _TpReduce.apply(x, group)
+    statistics of the vocabulary-parallel loss.  ``group=None`` (no such
+    axis): ``x`` itself."""
+    return x if group is None else _TpReduce.apply(x, group, axis)
+
+
+class _TpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, dim, group, partial):
+        ctx.dim, ctx.group, ctx.partial = dim, group, partial
+        ctx.size, ctx.rank = world_size(group), rank(group)
+        return all_gather_dim(shard, dim, group, "tp")
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.partial:
+            g = reduce_scatter_dim(grad.float() if grad.dtype in (torch.bfloat16, torch.float16)
+                                   else grad, ctx.dim, ctx.group, "tp").to(grad.dtype)
+        else:
+            n = grad.shape[ctx.dim] // ctx.size
+            g = grad.narrow(ctx.dim, ctx.rank * n, n).contiguous()
+        return g, None, None, None
+
+
+def tp_gather(shard: torch.Tensor, dim: int, group, partial: bool) -> torch.Tensor:
+    """The whole leaf of which every rank of the ``tp`` ``group`` holds a
+    chunk along ``dim``.  Backward, with ``partial`` (each rank then used
+    only its own heads' part of the whole, so its gradient is a part):
+    the gradient summed over ``tp`` (in fp32 for a 16-bit one), of which
+    this rank keeps its chunk, a reduce-scatter; without (every rank used
+    the whole on the same inputs, so every rank holds the whole
+    gradient): this rank's chunk of it, with no collective, as a sum
+    would count it ``tp`` times.  ``group=None``: ``shard`` itself."""
+    return shard if group is None else _TpGather.apply(shard, dim, group, partial)
+
+
+class _DataSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return all_reduce(x.contiguous().clone(), group=group, axis=axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous().clone(), group=ctx.group, axis=ctx.axis), None, None
+
+
+def data_sum(x: torch.Tensor, group, axis=None) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (the data axes), forward and
+    backward: a statistic of the global batch that every rank's loss
+    reads, so its gradient is the sum of every rank's (the optimizer then
+    averages the parameters' gradients over the same ranks).
+    ``group=None``: ``x`` itself."""
+    return x if group is None else _DataSum.apply(x, group, axis)

@@ -16,9 +16,12 @@ exists only where a collective makes it, so :func:`constrain` is an
 identity that checks the spec's names, and the collectives are explicit:
 :class:`Layout` gathers a leaf's ``fsdp`` dims where a model uses it
 (:func:`~.collectives.fsdp_gather`, whose backward reduce-scatters the
-gradient), and a model that knows the ``tp`` axis (the llama family) runs
-Megatron's pair there.  :func:`embed_lookup` is the JAX one-hot lookup on
-the local vocabulary rows.  :func:`full_state_dict` and
+gradient), and a model that knows the ``tp`` and ``ep`` axes (every family
+with a rule table) runs Megatron's pair there, gathering over ``tp`` only
+the leaves its forward cannot split by head (:func:`~.collectives.tp_gather`;
+:class:`TpView`, :func:`layer_leaves` and :func:`leaf` are the families'
+shared plumbing).  :func:`embed_lookup` is the JAX one-hot lookup on the
+local vocabulary rows.  :func:`full_state_dict` and
 :func:`load_full_state_dict` gather and re-shard a model's leaves for
 checkpoints.  A spec the port cannot realize raises.
 """
@@ -136,6 +139,16 @@ def embed_lookup(table: torch.Tensor, input_ids: torch.Tensor, dtype, mesh: Opti
     return tp_reduce(out, tp_group)
 
 
+def vocab_lookup(table: torch.Tensor, input_ids: torch.Tensor, dtype, layout) -> torch.Tensor:
+    """:func:`embed_lookup` of this process's rows of a table laid out on
+    ``layout`` (its vocabulary split over ``tp``, this process's chunk
+    starting at ``tp_rank`` times its rows), summed over ``tp``."""
+    tp = layout.tp > 1
+    return embed_lookup(table, input_ids, dtype, layout.mesh,
+                        vocab_start=layout.tp_rank * table.shape[0] if tp else 0,
+                        tp_group=layout.tp_group())
+
+
 def replicated(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, ())
 
@@ -160,6 +173,17 @@ def spec_from_rules(path: str, ndim: int, rules: list) -> Optional[tuple]:
                 continue
             return tuple(spec)
     return None
+
+
+def specs_from_rules(shapes: Any, rules: list) -> Any:
+    """The spec tree of a tree of shapes under ``rules`` (a family's
+    ``param_specs``): each leaf's first matching rule, all None where none
+    matches."""
+    def one(path, shape):
+        spec = spec_from_rules(path, len(shape), rules)
+        return spec if spec is not None else (None,) * len(shape)
+
+    return _tree_map(one, shapes)
 
 
 def _divisible_axis(shape: tuple, axis_size: int, taken: set) -> Optional[int]:
@@ -362,8 +386,9 @@ class Layout:
     """How a model's leaves lie on ``mesh``: ``specs`` is the spec tree of
     its parameter tree (:func:`make_param_specs`).  A model's forward reads
     it to gather a leaf's ``fsdp`` dims where it uses the leaf
-    (:meth:`full`) and to find the ``tp`` axis's group, size and this
-    process's coordinate on it."""
+    (:meth:`full`), its ``tp`` dims where the forward cannot split by
+    them (``tp_grad``), and to find the ``tp`` axis's group and size, and
+    this process's coordinates on ``tp`` and ``ep``."""
 
     def __init__(self, mesh: Mesh, specs: Any):
         self.mesh = mesh
@@ -380,6 +405,20 @@ class Layout:
     def tp_group(self):
         return self.mesh.group("tp") if self.tp > 1 else None
 
+    @property
+    def ep_rank(self) -> int:
+        return self.mesh.coords()["ep"]
+
+    def heads(self, n: int) -> Optional[tuple]:
+        """This process's ``(first, count)`` of ``n`` heads split over
+        ``tp``; None where ``tp`` does not divide ``n`` (the heads are then
+        computed whole on every process, as JAX's ``tp_head_axis`` keeps
+        them off ``tp``)."""
+        if n % self.tp:
+            return None
+        per = n // self.tp
+        return self.tp_rank * per, per
+
     def spec(self, path: str) -> tuple:
         node = self.specs
         for k in path.split("/"):
@@ -387,26 +426,127 @@ class Layout:
         return node
 
     def full(self, leaf: torch.Tensor, spec: Optional[tuple], dtype=None,
-             keep=("tp",)) -> torch.Tensor:
+             keep=("ep", "tp"), tp_grad: Optional[str] = None) -> torch.Tensor:
         """``leaf`` (this process's chunk, cast to ``dtype`` where given)
         with its ``fsdp`` dims gathered (:func:`~.collectives.fsdp_gather`,
         differentiable); a dim split over an axis in ``keep`` stays local.
-        Any other split raises ``NotImplementedError``."""
+        ``tp_grad`` (``"sum"`` or ``"slice"``) gathers its ``tp`` dims too
+        (:func:`~.collectives.tp_gather`, whose backward sums the gradient
+        over ``tp`` under ``"sum"``).  Any other split raises
+        ``NotImplementedError``."""
         from . import collectives
 
+        if tp_grad is not None:
+            keep = tuple(a for a in keep if a != "tp")
         out = leaf
         cast = dtype
         for d, entry in enumerate(spec or ()):
             axes = tuple(a for a in _entry_axes(entry) if self.mesh.shape[a] > 1)
             if not axes or all(a in keep for a in axes):
                 continue
+            if axes == ("tp",) and tp_grad is not None:
+                if cast is not None:
+                    out, cast = out.to(cast), None
+                out = collectives.tp_gather(out, d, self.tp_group(), tp_grad == "sum")
+                continue
             if axes != ("fsdp",):
                 raise NotImplementedError(
                     f"a leaf split over {axes} on dim {d}: the port gathers a dim split over "
-                    f"fsdp alone, and leaves {keep} to the model")
+                    f"fsdp alone (or over tp where the forward asks), and leaves {keep} to "
+                    "the model")
             out = collectives.fsdp_gather(out, d, self.mesh.group("fsdp"), dtype=cast)
             cast = None
         return out if cast is None else out.to(cast)
+
+
+class TpView:
+    """One forward's view of ``tp`` for a family that splits its attention
+    by heads and its MLP by width (Megatron's layout), on ``layout``
+    (None: one process, every method the identity).  ``group`` is the
+    ``tp`` group (None off ``tp``); ``heads`` this process's ``(first,
+    count)`` of ``num_heads`` (None where every process computes every
+    head: off ``tp``, or where ``tp`` does not divide them); ``attn`` the
+    group the attention's Megatron pair runs on (None where every process
+    computes every head)."""
+
+    def __init__(self, layout=None, num_heads: int = 1):
+        on = layout is not None and layout.tp > 1
+        self.group = layout.tp_group() if on else None
+        self.size = layout.tp if on else 1
+        self.rank = layout.tp_rank if on else 0
+        self.heads = layout.heads(num_heads) if on else None
+        self.num_heads = num_heads
+
+    @property
+    def attn(self):
+        return self.group if self.heads is not None else None
+
+    def chunk(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This process's chunk along ``dim`` of ``t``, which every process
+        holds whole (a replicated bias, the pooled features): through
+        :func:`~.collectives.tp_copy`, so its gradient, of which each
+        process holds its chunk's part, is whole on every process."""
+        from .collectives import tp_copy
+
+        if self.group is None:
+            return t
+        n = t.shape[dim] // self.size
+        return tp_copy(t, self.group).narrow(dim, self.rank * n, n)
+
+    def head_chunk(self, t: torch.Tensor, parts: int = 1) -> torch.Tensor:
+        """This process's heads of ``t``'s last dim laid out ``[parts,
+        num_heads, head_dim]`` (the fused QKV's ``(3, H, hd)``)."""
+        if self.heads is None:
+            return t
+        lo, n = self.heads
+        lead = t.shape[:-1]
+        return t.reshape(*lead, parts, self.num_heads, -1)[..., lo:lo + n, :].reshape(*lead, -1)
+
+    def head_gathers(self, fused=(), split=(), rows=()) -> dict:
+        """``Layout.full``'s ``tp_grad`` for a layer's attention leaves:
+        the ``fused`` ones (the fused QKV, whose ``tp`` chunks are not sets
+        of heads) gathered and their gradient summed over ``tp`` where each
+        process then takes its heads' columns; where every process
+        computes every head, those, the column-parallel ``split`` ones and
+        the row-parallel ``rows`` ones gathered whole, each process keeping
+        its chunk of the gradient."""
+        if self.group is None:
+            return {}
+        if self.heads is not None:
+            return dict.fromkeys(fused, "sum")
+        return dict.fromkeys(tuple(fused) + tuple(split) + tuple(rows), "slice")
+
+
+def layer_leaves(layers: dict, layout=None, path: str = "layers", dtype=None,
+                 tp_grad: Optional[dict] = None):
+    """``(names, per_layer, prep)`` of a stack of layers (each leaf ``[L,
+    ...]``) at ``path`` in ``layout``'s spec tree: ``per_layer`` holds each
+    layer's leaves (one ``unbind`` per stacked leaf, whose backward stacks
+    the L gradients once), and ``prep(name, leaf)`` gives a layer's leaf as
+    the layer uses it: its ``fsdp`` dims gathered in ``dtype`` and its
+    ``tp`` dims where ``tp_grad`` names it (:meth:`Layout.full`); without a
+    ``layout``, the leaf itself."""
+    names = list(layers)
+    per_layer = list(zip(*(layers[k].unbind(0) for k in names)))
+    if layout is None:
+        return names, per_layer, lambda k, w: w
+    specs = {k: layout.spec(f"{path}/{k}")[1:] for k in names}
+    grads = tp_grad or {}
+
+    def prep(k, w):
+        return layout.full(w, specs[k], dtype, tp_grad=grads.get(k))
+
+    return names, per_layer, prep
+
+
+def leaf(params: dict, path: str, layout=None, dtype=None, tp_grad: Optional[str] = None):
+    """The leaf at ``path`` (keys joined by ``/``) as a forward uses it:
+    gathered by :meth:`Layout.full` on ``layout``, else itself."""
+    node = params
+    for k in path.split("/"):
+        node = node[k]
+    return node if layout is None else layout.full(node, layout.spec(path), dtype,
+                                                   tp_grad=tp_grad)
 
 
 def full_state_dict(model) -> dict:

@@ -38,6 +38,11 @@ that), the allocator's
 bytes, the collectives by axis, and the q / k shapes the fused attention
 saw.
 
+``then`` (``"module:function"``, with ``model_axes``) names more work for
+the same two processes once those modes are done: each calls
+``function(rank, world, device)`` in the group, and the summary carries
+what each returned (a JSON-able record) under ``then``, in rank order.
+
 Run::
 
     python -m accelerate_tpu_torch.parallel.zero_smoke            # on the card
@@ -291,10 +296,10 @@ def _gap(model, start: dict, want: dict, mesh) -> dict:
 
 
 def child(rank: int, world: int, init: str, backend: str, device: str, size: str,
-          out: str, model_axes: bool = False) -> None:
+          out: str, model_axes: bool = False, then: Optional[str] = None) -> None:
     """One process: join the group, run the replicated then the ZeRO mode
-    (with ``model_axes`` then the ``fsdp`` and ``tp`` ones), write the
-    records to ``out``."""
+    (with ``model_axes`` then the ``fsdp`` and ``tp`` ones, and ``then``),
+    write the records to ``out``."""
     import torch
     import torch.distributed as dist
 
@@ -317,6 +322,13 @@ def child(rank: int, world: int, init: str, backend: str, device: str, size: str
                                          compare_to=snapshots if axis == "fsdp" else None)
                 record[axis]["seconds"] = time.perf_counter() - t1
             del snapshots
+        if then is not None:
+            import importlib
+
+            module, name = then.split(":")
+            t1 = time.perf_counter()
+            record["then"] = getattr(importlib.import_module(module), name)(rank, world, device)
+            record["then_seconds"] = time.perf_counter() - t1
         for mode in ("zero", *MODEL_AXES):
             record.get(mode, {}).pop("snapshots", None)
         dist.barrier()
@@ -328,15 +340,18 @@ def child(rank: int, world: int, init: str, backend: str, device: str, size: str
 
 def run(size: str = "tiny", device: Optional[str] = None, world: int = 2,
         workdir: Optional[str] = None, backend: Optional[str] = None,
-        model_axes: bool = False) -> dict:
+        model_axes: bool = False, then: Optional[str] = None) -> dict:
     """Start the processes, check every requirement, return the summary.
     ``device`` None is the card (raising without CUDA), ``"cpu"`` the CPU.
     ``backend`` None is NCCL with a card per process where there are
     enough, else gloo (the processes sharing card 0 on the card).
     ``model_axes``: the ``fsdp`` and ``tp`` modes too (two processes,
-    ``llama3-8b``), whose records the summary carries under ``model_axes``."""
+    ``llama3-8b``), whose records the summary carries under ``model_axes``;
+    ``then``: the work of the module docstring, after them."""
     if model_axes and (world != 2 or size != "llama3-8b"):
         raise ValueError("model_axes runs two processes at the llama3-8b size")
+    if then is not None and not model_axes:
+        raise ValueError("then runs after the model_axes modes")
     import torch
 
     from ..state import resolve_device
@@ -366,7 +381,7 @@ def run(size: str = "tiny", device: Optional[str] = None, world: int = 2,
     for r in range(world):
         out = os.path.join(work, f"rank{r}.json")
         outs.append(out)
-        args = json.dumps([r, world, init, backend, devices[r], size, out, model_axes])
+        args = json.dumps([r, world, init, backend, devices[r], size, out, model_axes, then])
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "accelerate_tpu_torch.parallel.zero_smoke", "--child", args],
             env=env))
@@ -458,6 +473,9 @@ def summarize(records: list, size: str, wall: float) -> dict:
     }
     if any(mode in first for mode in MODEL_AXES):
         summary["model_axes"] = {mode: [rec[mode] for rec in records] for mode in MODEL_AXES}
+    if "then" in first:
+        summary["then"] = [rec["then"] for rec in records]
+        summary["then_seconds"] = [rec["then_seconds"] for rec in records]
     if size == "llama3-8b":
         layers = 2  # llama_config's
         want = {"fused_attention_fwd": 2 * layers, "fused_attention_bwd_dq": layers,

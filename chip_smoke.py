@@ -406,6 +406,33 @@ Phases (each fails the run on any mismatch; nothing is caught):
    ``torch.cuda.device_count() >= 2`` (else it prints that it did not run;
    it is never counted as passed).
 
+18. Expert parallelism, replicated heads and an encoder's tensor
+   parallelism, inside 16b's two children after Phase 17
+   (``zero_smoke.run(then="chip_smoke:phase18_child")``), each held
+   against one process's run on the same weights and rows, which rank 0
+   computes alone first while rank 1 waits.  18a, Mixtral-8x7B's widths
+   (``config_from_hf`` of its published config.json) on ``ep=2``, 4
+   experts a rank, at 2 layers when the two ranks' reckoned peak stays
+   under ``PHASE10_PEAK_LIMIT`` (else 1; logged), fp32 compute, B 1 x S
+   2048, 2 AdamW steps of ``make_train_step`` with the binding clip: each
+   step's loss within ``PHASE18A_LOSS_REL`` and pre-clip norm within
+   ``PHASE18A_NORM_REL`` of one process's, the parameters' change over
+   the 2 steps within ``PHASE18A_DELTA_REL`` (relnorm) of one process's
+   (rank 1 sends its experts to rank 0 for it), the expert parameters'
+   and their AdamW state's bytes a rank exactly half of one process's, the
+   flash kernels 2L / L / L a step; the bf16 forward's loss and the
+   count of top-k choices it flips against one process's are logged (bf16
+   routing flips between paths).  18b, Gemma-2B's widths cut to
+   ``PHASE18B_LAYERS`` layers on ``tp=2``: query heads 4 / 4, the one kv
+   head replicated (the fused attention saw 4 / 1 heads), bf16, 2 steps:
+   step 1's loss within ``PHASE18_LOSS_REL`` and pre-clip norm within
+   ``PHASE18_NORM_REL`` of one process's, flash launches a step equal one
+   process's.  18c, BERT-base at its 12 layers on ``tp=2`` through a
+   ``FunctionalModel`` with BERT's rules (the fused QKV split by heads,
+   the pooler and classifier split), B 16 x S 128: the same checks as
+   18b, the bf16 loss within ``PHASE18C_LOSS_REL``; then in fp32, loss
+   and norm within 18a's limits.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
@@ -414,8 +441,9 @@ launches as ``launches_phase8``, ``launches_phase9`` and
 as ``launches_phase12``, every kernel's Phase 14 launches as
 ``launches_phase14`` and its Phase 15 launches as ``launches_phase15``,
 the flash kernels' Phase 16 launches (16b's two processes, both modes) as
-``launches_phase16`` and their Phase 17 launches (both processes, 17a and
-17b) as ``launches_phase17``,
+``launches_phase16``, their Phase 17 launches (both processes, 17a and
+17b) as ``launches_phase17`` and their Phase 18 launches (both processes,
+18a and 18b) as ``launches_phase18``,
 the paged kernels' Phase
 11 launches as ``launches_phase11`` and 11a's records as
 ``gpt2_xl_heads``, the flash kernels' fp32 Phase 4
@@ -5296,11 +5324,13 @@ def phase16(smi):
          os.path.join(PHASE16_DIR, "d")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
     summary = zero_smoke.run("llama3-8b", "cuda", world=2, backend="gloo",
-                             workdir=os.path.join(PHASE16_DIR, "b"), model_axes=True)
+                             workdir=os.path.join(PHASE16_DIR, "b"), model_axes=True,
+                             then="chip_smoke:phase18_child")
     t2 = time.perf_counter()
     data_rows, first_row = phase16_reference(summary["losses"][0], 2, smi)
     counts = phase16_check(summary, data_rows, "phase16b", smi)
     counts17 = phase17_check(summary, first_row, "phase17", smi)
+    counts18 = phase18_check(summary, smi)
     t3 = time.perf_counter()
     n_dev = torch.cuda.device_count()
     if n_dev >= 2:
@@ -5332,11 +5362,13 @@ def phase16(smi):
         f"{small['steps']} steps bit-exact, opt state {small['state_bytes']}")
     shutil.rmtree(PHASE16_DIR, ignore_errors=True)
     in17 = sum(max(r["seconds"] for r in summary["model_axes"][m]) for m in ("fsdp", "tp"))
-    log(f"phase16 seconds: 16a {t1 - t0:.1f}, 16b+17 {t3 - t1:.1f} (children {t2 - t1:.1f}, "
-        f"of it 17a+17b {in17:.1f}; reference step {t3 - t2:.1f}), 16c/17c {t4 - t3:.1f}, 16d "
-        f"beside 16b (waited {t5 - t4:.1f} more; its wall {small['wall_s']:.1f}); phases 16 "
-        f"and 17 together {t5 - t0:.1f} ({smi})")
-    return dict(counts=counts, counts17=counts17, seconds=t5 - t0, seconds17=in17)
+    in18 = max(summary["then_seconds"])
+    log(f"phase16 seconds: 16a {t1 - t0:.1f}, 16b+17+18 {t3 - t1:.1f} (children "
+        f"{t2 - t1:.1f}, of it 17a+17b {in17:.1f}, 18 {in18:.1f}; reference step "
+        f"{t3 - t2:.1f}), 16c/17c {t4 - t3:.1f}, 16d beside 16b (waited {t5 - t4:.1f} more; "
+        f"its wall {small['wall_s']:.1f}); phases 16, 17 and 18 together {t5 - t0:.1f} ({smi})")
+    return dict(counts=counts, counts17=counts17, counts18=counts18, seconds=t5 - t0,
+                seconds17=in17, seconds18=in18)
 
 
 def phase17_check(summary, first_row, tag, smi):
@@ -5434,6 +5466,456 @@ def phase17_check(summary, first_row, tag, smi):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: expert parallelism, replicated heads and an encoder's tensor
+# parallelism, inside 16b's two children (zero_smoke.run(then=...))
+# ---------------------------------------------------------------------------
+
+PHASE18_SEQ = 2048
+PHASE18_STEPS = 2
+PHASE18B_LAYERS = 4  # of Gemma-2B's 18, for the script's time limit
+PHASE18C_B = 16  # BERT-base rows of PHASE13_BERT_S tokens
+# 18a's limits (fp32 compute; relative), set from this script's readings on
+# an H100 (PERF.md, Findings).  Each step's loss and pre-clip gradient norm
+# against one process's: a router gradient left partial, or an expert's
+# gradient counted twice, moves the norm by far more.
+PHASE18A_LOSS_REL = 1e-5
+PHASE18A_NORM_REL = 1e-4
+# The parameters' change over the 2 steps against one process's change
+# from the same start: an update that did nothing reads 1.0.
+PHASE18A_DELTA_REL = 0.1
+# 18b and 18c: step 1's loss and pre-clip norm against one process's, as
+# 17b (bf16 partial sums added over tp in fp32).
+PHASE18_LOSS_REL = PHASE17_LOSS_REL
+PHASE18_NORM_REL = PHASE17_TP_NORM_REL
+# 18c's bf16 step-1 loss read 3.715e-4 from one process's (0.68155 against
+# 0.68180: the post-LN stack's bf16 partial sums over tp rounded apart);
+# its fp32 step is held at 18a's limits.
+PHASE18C_LOSS_REL = 2e-3
+PHASE18_EXPERT_LEAVES = ("layers.w_gate", "layers.w_up", "layers.w_down")
+
+
+def phase18a_layers():
+    """18a's Mixtral-8x7B depth: 2 layers when the two ranks' reckoned peak
+    (18 B a parameter: fp32 masters, gradients and AdamW's two moments plus
+    a bf16 copy; each rank holds half of every expert) stays under
+    ``PHASE10_PEAK_LIMIT``, else 1; and the reckoning."""
+    cfg = mixtral_config(2)
+    per_layer_experts = 3 * cfg.num_experts * cfg.hidden_size * cfg.intermediate_size
+    whole = cfg.num_params()
+    per_rank = whole - cfg.num_layers * per_layer_experts // 2
+    peak = 2 * 18 * per_rank
+    return (2 if peak < PHASE10_PEAK_LIMIT else 1), {
+        "params_one_process": whole, "params_a_rank": per_rank, "two_rank_peak_bytes": peak}
+
+
+def _phase18_ids(vocab, rows, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, size=(rows, PHASE18_SEQ)))
+
+
+def _expert_bytes(model, state):
+    """The bytes of this process's expert leaves, and of the optimizer's
+    state of them (``state``: the torch optimizer's ``state``)."""
+    sd = model.state_dict(keep_vars=True)
+    leaves = [sd[k] for k in PHASE18_EXPERT_LEAVES]
+    held = sum(v.numel() * v.element_size() for t in leaves for v in state.get(t, {}).values()
+               if isinstance(v, torch.Tensor) and v.dim() > 0)
+    return [sum(t.numel() * t.element_size() for t in leaves), held]
+
+
+def _sq_diff(a, b, chunk=1 << 26):
+    """``sum((a - b) ** 2)`` in fp64 and ``max |a - b|`` of two tensors of one
+    shape, ``b`` on any device, a chunk at a time on ``a``'s device."""
+    a, b = a.detach().reshape(-1), b.detach().reshape(-1)
+    total, worst = 0.0, 0.0
+    for i in range(0, a.numel(), chunk):
+        d = a[i:i + chunk].double() - b[i:i + chunk].to(a.device).double()
+        total += float(d.square().sum())
+        worst = max(worst, float(d.abs().max()))
+    return total, worst
+
+
+def phase18a_reference(layers, ids, device):
+    """One process, no collective: Mixtral at ``layers`` layers from seed 0,
+    the bf16 forward's loss and top-k choices, then ``PHASE18_STEPS`` fp32
+    AdamW steps as ``make_train_step`` takes them (the pre-clip norm, the
+    binding clip, the update).  Returns the record, the parameters after
+    the steps (on the host) and the squared norm of their change."""
+    from accelerate_tpu_torch.models import mixtral
+    from accelerate_tpu_torch.optimizer import _update_body
+    from accelerate_tpu_torch.parallel import zero_smoke
+
+    cfg32 = mixtral_config(layers, dtype=torch.float32, param_dtype=torch.float32, remat=True,
+                           moe_impl="dense")
+    model = mixtral.MixtralForCausalLM(cfg32, seed=0, device=device)
+    batch = {"input_ids": ids.to(device)}
+    routes = []
+    model.config = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+    with torch.no_grad(), routing(record=routes):
+        loss16 = float(model(**batch)["loss"])
+    model.config = cfg32
+    start = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
+    params = list(model.parameters())
+    losses, norms, launches = [], [], []
+    for _ in range(PHASE18_STEPS):
+        reset_flash_counts()
+        loss = model(**batch)["loss"]
+        grads = list(torch.autograd.grad(loss, params))
+        _, health, ok = _update_body(opt, params, grads, zero_smoke.CLIP, -1.0)
+        check(bool(ok), "phase18a reference: the update was skipped")
+        losses.append(float(loss.detach()))
+        norms.append(float(health))
+        launches.append(read_flash_counts())
+        del loss, grads
+    rec = dict(losses=losses, norms=norms, launches=launches, loss16=loss16,
+               routes=[r.reshape(-1).tolist() for r in routes[:layers]],
+               expert_bytes=_expert_bytes(model, opt.state))
+    end, delta_sq = {}, 0.0
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            delta_sq += _sq_diff(v, start.pop(k))[0]
+            end[k] = v.to("cpu", copy=True)
+    del model, opt, params
+    gc_collect()
+    return rec, end, delta_sq
+
+
+def phase18a(rank, device):
+    """18a, in each child: rank 0 runs the one-process reference while rank
+    1 waits; then both run Mixtral-8x7B's widths on ``ep=2`` (4 experts a
+    rank) through ``prepare``: the bf16 forward's loss and top-k choices,
+    then ``PHASE18_STEPS`` fp32 steps of ``make_train_step`` (AdamW, the
+    binding clip) on the same row (``ep`` is not a data axis); rank 1 sends
+    its experts after the steps, and rank 0 holds every leaf against the
+    reference's."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator, ParallelismConfig
+    from accelerate_tpu_torch.models import mixtral
+    from accelerate_tpu_torch.parallel import zero_smoke
+    from accelerate_tpu_torch.parallel.sharding import spec_of
+
+    layers, reckoning = phase18a_layers()
+    cfg32 = mixtral_config(layers, dtype=torch.float32, param_dtype=torch.float32, remat=True,
+                           moe_impl="dense")
+    ids = _phase18_ids(cfg32.vocab_size, 1, 18)
+    out = dict(layers=layers, reckoning=reckoning)
+    t0 = time.perf_counter()
+    end = delta_sq = None
+    if rank == 0:
+        out["reference"], end, delta_sq = phase18a_reference(layers, ids, device)
+    dist.barrier()
+    t1 = time.perf_counter()
+    fresh_state()
+    acc = Accelerator(device=device, parallelism_config=ParallelismConfig(ep=2))
+    torch.cuda.reset_peak_memory_stats()
+    model = mixtral.MixtralForCausalLM(cfg32, seed=0, device=device)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    batch = {"input_ids": ids.to(acc.device)}
+    t2 = time.perf_counter()
+    routes = []
+    model.config = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+    with torch.no_grad(), routing(record=routes):
+        out["loss16"] = float(model(**batch)["loss"])
+    model.config = cfg32
+    out["routes"] = [r.reshape(-1).tolist() for r in routes[:layers]] if rank == 0 else None
+    step = acc.make_train_step(model, opt, clip_norm=zero_smoke.CLIP)
+    losses, norms, launches, step_s = [], [], [], []
+    for _ in range(PHASE18_STEPS):
+        reset_flash_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(step(batch)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        norms.append(float(step.last_health_norm))
+        launches.append(read_flash_counts())
+    out.update(losses=losses, norms=norms, launches=launches, step_s=step_s,
+               mesh=dict(acc.mesh.shape), expert_bytes=_expert_bytes(model, opt.optimizer.state),
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               gate_shape=list(model.params["layers"]["w_gate"].shape),
+               gate_spec=list(spec_of(model.params["layers"]["w_gate"]) or ()))
+    t3 = time.perf_counter()
+    # The parameters after the steps against the reference's, on rank 0:
+    # every leaf it holds whole or in part, and rank 1's experts.
+    sd = model.state_dict(keep_vars=True)
+    with torch.no_grad():
+        if rank == 1:
+            for k in PHASE18_EXPERT_LEAVES:
+                dist.send(sd[k].detach().to("cpu", copy=True), dst=0)
+        else:
+            diff_sq, worst = 0.0, 0.0
+            # The experts last, in the order rank 1 sends them.
+            order = [k for k in sd if k not in PHASE18_EXPERT_LEAVES] + list(PHASE18_EXPERT_LEAVES)
+            for k in order:
+                v, want = sd[k], end.pop(k)
+                parts = [(v, want)]
+                if k in PHASE18_EXPERT_LEAVES:
+                    other = torch.empty(v.shape, dtype=v.dtype)
+                    dist.recv(other, src=1)
+                    e = v.shape[1]
+                    parts = [(v, want[:, :e].contiguous()),
+                             (other.to(v.device), want[:, e:].contiguous())]
+                for got, ref_part in parts:
+                    sq, most = _sq_diff(got, ref_part)
+                    diff_sq += sq
+                    worst = max(worst, most)
+                del parts, want
+            out["gap"] = dict(diff_sq=diff_sq, delta_sq=delta_sq, max_abs=worst,
+                              relnorm=(diff_sq / delta_sq) ** 0.5)
+    dist.barrier()
+    out["seconds"] = dict(reference=t1 - t0, build=t2 - t1, steps=t3 - t2,
+                          compare=time.perf_counter() - t3)
+    del model, opt, step, sd, acc
+    fresh_state()
+    gc_collect()
+    return out
+
+
+def _first_step_one_process(loss_of, params):
+    """One process's step-1 loss and pre-clip gradient norm, and the flash
+    launches of its forward and backward."""
+    from accelerate_tpu_torch.optimizer import global_norm
+
+    reset_flash_counts()
+    loss = loss_of()
+    grads = torch.autograd.grad(loss, params)
+    norm = float(global_norm(grads))
+    return dict(loss=float(loss.detach()), norm=norm, launches=read_flash_counts())
+
+
+def _tp_steps(acc, model, opt, batch, shapes=None):
+    """``PHASE18_STEPS`` steps of ``make_train_step`` (AdamW, the binding
+    clip): losses, pre-clip norms, flash launches and times a step, and the
+    q / k shapes the fused attention saw (``shapes``)."""
+    from accelerate_tpu_torch.ops import fused_attention as fu
+    from accelerate_tpu_torch.parallel import zero_smoke
+
+    step = acc.make_train_step(model, opt, clip_norm=zero_smoke.CLIP)
+    plain = fu.fused_attention
+
+    def recording(q, k, v, **kw):
+        shapes.append([list(q.shape), list(k.shape)])
+        return plain(q, k, v, **kw)
+
+    if shapes is not None:
+        fu.fused_attention = recording
+    losses, norms, launches, step_s = [], [], [], []
+    try:
+        for _ in range(PHASE18_STEPS):
+            reset_flash_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(step(batch)))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            norms.append(float(step.last_health_norm))
+            launches.append(read_flash_counts())
+    finally:
+        fu.fused_attention = plain
+    return dict(losses=losses, norms=norms, launches=launches, step_s=step_s,
+                mesh=dict(acc.mesh.shape), peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def phase18b(rank, device):
+    """18b, in each child: Gemma-2B's widths cut to ``PHASE18B_LAYERS``
+    layers, bf16 compute over fp32 parameters, ``remat``: rank 0's one
+    process step-1 loss, pre-clip norm and flash launches (rank 1 waits),
+    then both on ``tp=2``: 4 / 4 query heads, the one kv head replicated."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator, ParallelismConfig
+    from accelerate_tpu_torch.models import llama
+
+    cfg = gemma_2b_config(num_layers=PHASE18B_LAYERS, dtype=torch.bfloat16,
+                          param_dtype=torch.float32, remat=True)
+    ids = _phase18_ids(cfg.vocab_size, 1, 19)
+    out = {}
+    t0 = time.perf_counter()
+    if rank == 0:
+        model = llama.LlamaForCausalLM(cfg, seed=0, device=device)
+        batch = {"input_ids": ids.to(device)}
+        out["reference"] = _first_step_one_process(lambda: model(**batch)["loss"],
+                                                   list(model.parameters()))
+        del model
+        gc_collect()
+    dist.barrier()
+    t1 = time.perf_counter()
+    fresh_state()
+    acc = Accelerator(device=device, parallelism_config=ParallelismConfig(tp=2))
+    torch.cuda.reset_peak_memory_stats()
+    model = llama.LlamaForCausalLM(cfg, seed=0, device=device)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    shapes = []
+    out.update(_tp_steps(acc, model, opt, {"input_ids": ids.to(acc.device)}, shapes))
+    out["attention_shapes"] = shapes
+    out["seconds"] = dict(reference=t1 - t0, tp=time.perf_counter() - t1)
+    del model, opt, acc
+    fresh_state()
+    gc_collect()
+    dist.barrier()
+    return out
+
+
+def phase18c(rank, device, dtype):
+    """18c, in each child: BERT-base (published config, all 12 layers),
+    ``dtype`` compute over fp32 parameters, sequence classification on
+    ``PHASE18C_B`` rows: rank 0's one-process step-1 loss and pre-clip
+    norm, then both on ``tp=2`` through a ``FunctionalModel`` with BERT's
+    rules and ``handles_layout``: the fused QKV gathered and split by
+    heads, the pooler and the classifier split."""
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator, FunctionalModel, ParallelismConfig
+    from accelerate_tpu_torch.models import bert, hf_import
+
+    cfg = hf_import.config_from_hf(SimpleNamespace(**BERT_BASE), dtype=dtype)
+    out = {}
+    t0 = time.perf_counter()
+    if rank == 0:
+        params = bert.init_params(cfg, seed=0, device=device)
+        batch = phase13_batch("bert", cfg, PHASE18C_B, 20, device)
+        leaves = [v for _, v in tree_leaves(params)]
+        for v in leaves:
+            v.requires_grad_(True)
+        out["reference"] = _first_step_one_process(
+            lambda: bert.classification_loss_fn(params, batch, cfg), leaves)
+        del params, leaves
+        gc_collect()
+    dist.barrier()
+    t1 = time.perf_counter()
+    fresh_state()
+    acc = Accelerator(device=device, parallelism_config=ParallelismConfig(tp=2))
+    torch.cuda.reset_peak_memory_stats()
+
+    def apply_fn(p, layout=None, **batch):
+        return {"loss": bert.classification_loss_fn(p, batch, cfg, layout=layout)}
+
+    model = FunctionalModel(apply_fn, bert.init_params(cfg, seed=0, device=device),
+                            partition_rules=bert.PARTITION_RULES, handles_layout=True)
+    opt = torch.optim.AdamW(model.parameters(), lr=PHASE13_LR["bert"], weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    out.update(_tp_steps(acc, model, opt, phase13_batch("bert", cfg, PHASE18C_B, 20,
+                                                        acc.device)))
+    out["seconds"] = dict(reference=t1 - t0, tp=time.perf_counter() - t1)
+    del model, opt, acc
+    fresh_state()
+    gc_collect()
+    dist.barrier()
+    return out
+
+
+def phase18_child(rank, world, device):
+    """Phase 18 in one of 16b's children (``zero_smoke.run(then=...)``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"a": phase18a(rank, device), "b": phase18b(rank, device),
+            "c": phase18c(rank, device, torch.bfloat16),
+            "c32": phase18c(rank, device, torch.float32)}
+
+
+def phase18_check(summary, smi):
+    """18a-18c's proofs from the children's records (see the module
+    docstring, Phase 18); logs the readings before it checks them; returns
+    the flash launches of the three."""
+    recs = summary["then"]
+    totals = dict.fromkeys(FLASH_KERNELS, 0)
+
+    def add(launches):
+        for s in launches:
+            for k in totals:
+                totals[k] += s[k]
+
+    # 18a: Mixtral-8x7B on ep=2 against one process, fp32 compute.
+    a0, a1 = recs[0]["a"], recs[1]["a"]
+    ref = a0["reference"]
+    L = a0["layers"]
+    per_step = {"fused_attention_fwd": 2 * L, "fused_attention_bwd_dq": L,
+                "fused_attention_bwd_dkv": L}
+    loss_rel = [abs(x - y) / abs(y) for x, y in zip(a0["losses"], ref["losses"])]
+    norm_rel = [abs(x - y) / y for x, y in zip(a0["norms"], ref["norms"])]
+    flips = sum(x != y for got, want in zip(a0["routes"], ref["routes"])
+                for x, y in zip(got, want))
+    choices = sum(len(r) for r in ref["routes"])
+    half = [a0["expert_bytes"][i] * 2 == ref["expert_bytes"][i] for i in range(2)]
+    log(f"phase18a Mixtral-8x7B (config_from_hf(mistralai/Mixtral-8x7B-v0.1)) on ep=2, 4 "
+        f"experts a rank, {L} layers (reckoned two-rank peak {a0['reckoning']}, limit "
+        f"{PHASE10_PEAK_LIMIT:.0f}), fp32 compute, B 1 x S {PHASE18_SEQ}: losses "
+        f"{a0['losses']} / {a1['losses']} vs one process {ref['losses']} (rel {loss_rel}, "
+        f"limit {PHASE18A_LOSS_REL}); pre-clip norms {a0['norms']} / {a1['norms']} vs "
+        f"{ref['norms']} (rel {norm_rel}, limit {PHASE18A_NORM_REL}); parameters' change "
+        f"against one process's {a0['gap']} (limit {PHASE18A_DELTA_REL}); expert parameter / "
+        f"AdamW-state bytes a rank {a0['expert_bytes']} vs one process {ref['expert_bytes']} "
+        f"(half: {half}); w_gate shard {a0['gate_shape']} spec {a0['gate_spec']}; flash a step "
+        f"{a0['launches']} vs one process {ref['launches']}; steps s "
+        f"{[round(x, 3) for x in a0['step_s']]}, peak GB a rank "
+        f"{[round(r['a']['peak_bytes'] / 1e9, 2) for r in recs]}; bf16 forward (logged, not "
+        f"held: bf16 routing flips between paths) loss {a0['loss16']!r} vs one process "
+        f"{ref['loss16']!r}, {flips} of {choices} top-k choices flipped; seconds "
+        f"{a0['seconds']} ({smi})")
+    for r in (a0, a1):
+        check(r["mesh"]["ep"] == 2 and r["gate_spec"][1] == "ep"
+              and r["gate_shape"][1] == 4, f"phase18a: mesh {r['mesh']}, w_gate "
+              f"{r['gate_shape']} {r['gate_spec']}")
+        check(r["losses"] == a0["losses"], f"phase18a: the ranks' losses differ")
+        check(all(s == per_step for s in r["launches"]),
+              f"phase18a: flash launches {r['launches']}, want {per_step} a step")
+        add(r["launches"])
+    check(all(s == per_step for s in ref["launches"]),
+          f"phase18a: one process's flash launches {ref['launches']}")
+    check(max(loss_rel) <= PHASE18A_LOSS_REL, f"phase18a: losses rel {loss_rel}")
+    check(max(norm_rel) <= PHASE18A_NORM_REL, f"phase18a: pre-clip norms rel {norm_rel}")
+    check(min(ref["norms"]) > 0.05, "phase18a: the clip did not bind")
+    check(a0["gap"]["relnorm"] <= PHASE18A_DELTA_REL,
+          f"phase18a: the parameters' change against one process's: {a0['gap']}")
+    check(all(half), f"phase18a: expert bytes {a0['expert_bytes']} are not half of "
+                     f"{ref['expert_bytes']}")
+    for tag, key, heads, loss_lim, norm_lim in (
+            ("phase18b", "b", (4, 1), PHASE18_LOSS_REL, PHASE18_NORM_REL),
+            ("phase18c", "c", None, PHASE18C_LOSS_REL, PHASE18_NORM_REL),
+            ("phase18c", "c32", None, PHASE18A_LOSS_REL, PHASE18A_NORM_REL)):
+        r0, r1 = recs[0][key], recs[1][key]
+        ref = r0["reference"]
+        rel = abs(r0["losses"][0] - ref["loss"]) / abs(ref["loss"])
+        nrel = abs(r0["norms"][0] - ref["norm"]) / ref["norm"]
+        what = ("Gemma-2B (config_from_hf(google/gemma-2b)) cut to "
+                f"{PHASE18B_LAYERS} of 18 layers, tp=2, B 1 x S {PHASE18_SEQ}" if key == "b"
+                else f"BERT-base (google-bert/bert-base-uncased, 12 layers), tp=2, B "
+                     f"{PHASE18C_B} x S {PHASE13_BERT_S}")
+        shapes = r0.get("attention_shapes") or []
+        log(f"{tag} {what}, {'fp32' if key == 'c32' else 'bf16'} compute: losses "
+            f"{r0['losses']} / {r1['losses']}, step 1 vs one process {ref['loss']!r} (rel "
+            f"{rel:.3e}, limit {loss_lim}); pre-clip norms {r0['norms']}, step 1 vs "
+            f"{ref['norm']!r} (rel {nrel:.3e}, limit {norm_lim}); flash a step {r0['launches']} vs one process "
+            f"{ref['launches']}; attention q/k {shapes[:1]} x {len(shapes)}; steps s "
+            f"{[round(x, 3) for x in r0['step_s']]}; peak GB a rank "
+            f"{[round(r[key]['peak_bytes'] / 1e9, 2) for r in recs]}; seconds "
+            f"{r0['seconds']} ({smi})")
+        for r in (r0, r1):
+            check(r["mesh"]["tp"] == 2, f"{tag}: mesh {r['mesh']}")
+            check(r["losses"] == r0["losses"], f"{tag}: the ranks' losses differ")
+            check(all(s == ref["launches"] for s in r["launches"]),
+                  f"{tag}: flash launches {r['launches']} a step, one process's "
+                  f"{ref['launches']}")
+            add(r["launches"])
+        if heads is not None:
+            check(shapes and all(q[2] == heads[0] and k[2] == heads[1] for q, k in shapes),
+                  f"{tag}: attention q/k shapes {shapes[:2]}, want {heads} heads")
+            check(all(ref["launches"][k] > 0 for k in FLASH_KERNELS),
+                  f"{tag}: one process launched {ref['launches']}")
+        check(rel <= loss_lim, f"{tag} ({key}): step-1 loss rel {rel:.3e}")
+        check(nrel <= norm_lim, f"{tag} ({key}): step-1 pre-clip norm rel {nrel:.3e}")
+        check(min(r0["norms"]) > 0.05, f"{tag} ({key}): the clip did not bind")
+    log(f"phase18 seconds a child {[round(s, 1) for s in summary['then_seconds']]} ({smi})")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -5512,6 +5994,8 @@ def main() -> int:
           f"phase 16 launched the flash kernels {p16['counts']} times")
     check(all(p16["counts17"][n] > 0 for n in FLASH_KERNELS),
           f"phase 17 launched the flash kernels {p16['counts17']} times")
+    check(all(p16["counts18"][n] > 0 for n in FLASH_KERNELS),
+          f"phase 18 launched the flash kernels {p16['counts18']} times")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
@@ -5568,6 +6052,7 @@ def main() -> int:
                            launches_phase15=p15["counts"][name],
                            launches_phase16=p16["counts"][name],
                            launches_phase17=p16["counts17"][name],
+                           launches_phase18=p16["counts18"][name],
                            head_dims=list(fu_dims),
                            wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
                                        for geom, dt in p10["flash"]},

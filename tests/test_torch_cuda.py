@@ -1729,3 +1729,139 @@ def test_fsdp_gather_and_megatron_pair_on_a_one_rank_nccl_group(nccl_one_rank, d
     assert torch.equal(shard.grad, (x.detach().T @ g).float())
     assert torch.equal(x.grad, g @ shard.detach().to(dtype).T)
     assert {"all_gather:fsdp", "reduce_scatter:fsdp", "all_reduce:tp"} <= set(co.COMM_LOG)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tp_gather_and_data_sum_on_a_one_rank_nccl_group(nccl_one_rank, dtype):
+    """``tp_gather`` (summing and slicing backward) and ``data_sum`` on CUDA
+    tensors: with one rank each returns its input and its backward the
+    incoming gradient, and each logs its collective."""
+    from accelerate_tpu_torch.parallel import collectives as co
+
+    group = nccl_one_rank
+    gen = torch.Generator().manual_seed(1)
+    co.reset_comm_log()
+    for partial in (True, False):
+        shard = torch.randn(32, 48, generator=gen).cuda().to(dtype).requires_grad_(True)
+        full = co.tp_gather(shard, 1, group, partial)
+        assert torch.equal(full, shard.detach())
+        g = torch.randn(full.shape, generator=gen).cuda().to(dtype)
+        full.backward(g)
+        assert torch.equal(shard.grad, g)
+    x = torch.randn(16, generator=gen).cuda().to(dtype).requires_grad_(True)
+    y = co.data_sum(x, group, ("dp",))
+    assert torch.equal(y, x.detach())
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    assert torch.equal(x.grad, torch.ones_like(x))
+    assert {"all_gather:tp", "reduce_scatter:tp", "all_reduce:dp"} <= set(co.COMM_LOG)
+
+
+@pytest.mark.parametrize("geometry", [(8, 1, 256, 4), (12, 3, 128, 3), (4, 2, 64, 1)],
+                         ids=["gemma-2b-4-of-8", "ragged-groups", "one-query-head"])
+def test_replicated_kv_heads_through_the_fused_kernels(cuda, geometry):
+    """``tp`` not dividing the kv heads: a rank's query heads ``[lo, lo +
+    n)`` with the whole K/V weights read only the kv heads ``ih // g`` of
+    those heads (in equal groups, or one copy a query head where the groups
+    are ragged), through the sm90 kernels (bf16, one forward launch); its
+    attention equals those heads of the whole attention."""
+    h, kh, hd, n = geometry
+    c = llama.LlamaConfig.tiny(num_heads=h, num_kv_heads=kh, head_dim=hd, hidden_size=256,
+                               dtype=torch.bfloat16, attention_impl="pallas")
+    gen = torch.Generator().manual_seed(2)
+    d, s = c.hidden_size, 256
+    p = {k: (torch.randn(d, w, generator=gen) / d ** 0.5).cuda()
+         for k, w in (("wq", h * hd), ("wk", kh * hd), ("wv", kh * hd))}
+    x = torch.randn(1, s, d, generator=gen).cuda().to(c.dtype)
+    positions = torch.arange(s, device="cuda")[None]
+    q, k, v = llama._qkv_proj(x, p, c, 1, s)
+    q, k = llama._rope(q, k, positions, c.rope_theta)
+    whole = llama._attend(q, k, v, c, None)
+    for lo in range(0, h, n):
+        mine = dict(p, wq=p["wq"][:, lo * hd:(lo + n) * hd])
+        q, k, v = llama._qkv_proj(x, mine, c, 1, s, (lo, n))
+        q, k = llama._rope(q, k, positions, c.rope_theta)
+        before = fu.fused_attention_fwd.launches
+        got = llama._attend(q, k, v, c, None)
+        torch.cuda.synchronize()
+        assert fu.fused_attention_fwd.launches == before + 1
+        torch.testing.assert_close(got, whole[:, :, lo:lo + n], atol=TOL[c.dtype],
+                                   rtol=TOL[c.dtype])
+
+
+def _two_ranks_on_the_card(rank, port, mode):
+    """One of two gloo processes sharing card 0 (``torch.multiprocessing``)."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.ops import moe
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    try:
+        gen = torch.Generator().manual_seed(3)
+        if mode == "ep":
+            b, s, d, e, f = 2, 64, 32, 8, 48
+            x = torch.randn(b, s, d, generator=gen).cuda()
+            w = [torch.randn(d, e, generator=gen).cuda() * 0.3] + [
+                torch.randn(e, *shape, generator=gen).cuda() * 0.2
+                for shape in ((d, f), (d, f), (f, d))]
+            full = [t.clone().requires_grad_(True) for t in [x] + w]
+            y, _ = moe.moe_ffn(*full, top_k=2, capacity=12, compute_dtype=torch.float32)
+            y.square().sum().backward()
+            half = e // 2
+            lo = rank * half
+            mine = [t.clone().requires_grad_(True) for t in
+                    [x, w[0]] + [t[lo:lo + half] for t in w[1:]]]
+            got, _ = moe.moe_ffn(*mine, top_k=2, capacity=12, compute_dtype=torch.float32,
+                                 group=dist.group.WORLD, axis="ep", first_expert=lo)
+            got.square().sum().backward()
+            torch.testing.assert_close(got, y, atol=1e-5, rtol=1e-5)
+            # The router's and the input's gradients whole on every rank.
+            for a, b_ in zip(mine[:2], full[:2]):
+                torch.testing.assert_close(a.grad, b_.grad, atol=1e-5, rtol=1e-5)
+            for a, b_ in zip(mine[2:], full[2:]):
+                torch.testing.assert_close(a.grad, b_.grad[lo:lo + half], atol=1e-5, rtol=1e-5)
+        else:
+            from accelerate_tpu_torch import Accelerator, AcceleratorState, ParallelismConfig
+            from accelerate_tpu_torch.optimizer import global_norm
+
+            c = llama.LlamaConfig.tiny(num_heads=8, num_kv_heads=1, head_dim=64,
+                                       hidden_size=256, dtype=torch.bfloat16,
+                                       attention_impl="pallas", remat=True)
+            ids = torch.randint(0, c.vocab_size, (1, 256), generator=gen).cuda()
+            one = llama.LlamaForCausalLM(c, seed=0, device="cuda")
+            loss1 = one(input_ids=ids)["loss"]
+            norm1 = global_norm(torch.autograd.grad(loss1, list(one.parameters())))
+            AcceleratorState._reset_state(reset_partial_state=True)
+            acc = Accelerator(device="cuda:0", parallelism_config=ParallelismConfig(tp=2))
+            model = llama.LlamaForCausalLM(c, seed=0, device="cuda")
+            model, _ = acc.prepare(model, torch.optim.SGD(model.parameters(), lr=0.0))
+            before = fu.fused_attention_fwd.launches
+            loss = model(input_ids=ids)["loss"]
+            assert fu.fused_attention_fwd.launches == before + c.num_layers
+            acc.backward(loss)
+            norm = acc.clip_grad_norm_(1e9)
+            assert abs(float(loss) - float(loss1)) <= 1e-3 * abs(float(loss1))
+            assert abs(float(norm) - float(norm1)) <= 1e-2 * float(norm1)
+            AcceleratorState._reset_state(reset_partial_state=True)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode", ["ep", "tp-one-kv-head"])
+def test_two_ranks_sharing_the_card_match_one_process(cuda, mode):
+    """Two gloo processes on card 0: ``ep`` (``moe_ffn`` over each rank's 4
+    of 8 experts, the partial combines summed: the output, the router's and
+    the input's gradients equal one process's in fp32) and ``tp`` with
+    the one kv head replicated (a Gemma-shaped tiny llama's bf16 loss and
+    pre-clip norm against one process's, one fused forward a layer)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp.spawn(_two_ranks_on_the_card, args=(port, mode), nprocs=2)

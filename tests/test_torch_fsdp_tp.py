@@ -286,17 +286,39 @@ def test_auto_fsdp_spec_and_rules_equal_jax():
         _flat(tl.param_specs(tl.LlamaConfig.tiny()))
 
 
-def test_tp_not_dividing_the_kv_heads_raises():
-    """JAX's ``tp_head_axis`` replicates the heads where ``tp`` does not
-    divide them; the port raises, naming the config (ROADMAP A6 part 1)."""
+def test_tp_not_dividing_the_heads_shards_as_jax_and_a_leaf_it_does_not_divide_raises():
+    """``tp`` not dividing the heads no longer raises (the port computes
+    those heads whole, as JAX's ``tp_head_axis`` keeps them off ``tp``;
+    ``test_torch_ep_tp.py`` holds the step to JAX's): the tiny llama's 4 / 2
+    heads shard over ``tp=4`` as JAX's ``shard_params`` lays them out.  A
+    leaf that ``tp`` does not divide (here the FFN width) raises, as JAX's
+    ``shard_params`` does."""
     from accelerate_tpu_torch.models import llama as tl
 
-    cfg = tl.LlamaConfig.tiny(dtype=torch.float32)  # 4 / 2 heads
-    params = tl.init_params(cfg, device="cpu")
-    layout = tsh.Layout(TorchMesh({"tp": 4}), tl.param_specs(cfg))
-    with pytest.raises(NotImplementedError, match="num_kv_heads.*A6 part 1"):
-        tl.loss_fn(params, {"input_ids": torch.zeros((1, 8), dtype=torch.long)}, cfg,
-                   layout=layout)
+    for width, divides in ((64, True), (90, False)):
+        jcfg = jl.LlamaConfig.tiny(dtype=jnp.float32, num_layers=1, intermediate_size=width)
+        tcfg = tl.LlamaConfig.tiny(dtype=torch.float32, num_layers=1, intermediate_size=width)
+        params = _params(jcfg)
+        jmesh = _jax_mesh(dict(tp=4))
+        tmesh = TorchMesh({"tp": 4})
+        specs = tl.param_specs(tcfg)
+        if not divides:
+            with pytest.raises(ValueError):
+                jsh.shard_params(jax.tree.map(jnp.asarray, params), jmesh, jl.param_specs(jcfg))
+            with pytest.raises(ValueError, match="does not divide"):
+                tsh.local_slice(torch.from_numpy(params["layers"]["w_up"]),
+                                specs["layers"]["w_up"], tmesh)
+            continue
+        placed = _flat(jsh.shard_params(jax.tree.map(jnp.asarray, params), jmesh,
+                                         jl.param_specs(jcfg)))
+        flat_specs, flat_params = _flat(specs), _flat(params)
+        for rank in range(4):
+            device = jmesh.devices.flat[rank]
+            for path, arr in placed.items():
+                (shard,) = [x.data for x in arr.addressable_shards if x.device == device]
+                got = tsh.local_slice(torch.from_numpy(flat_params[path]), flat_specs[path],
+                                      tmesh, rank)
+                np.testing.assert_array_equal(got.numpy(), np.asarray(shard), err_msg=path)
 
 
 def test_sharding_all_is_jax_all():

@@ -104,11 +104,11 @@ def test_mesh_errors(monkeypatch):
     with pytest.raises(ValueError) as je:
         _jax_resolve(monkeypatch, JaxParallelismConfig(dp=4), 2, 1)
     assert str(te.value) == str(je.value)
-    parts = {"ep": "part 1", "sp": "part 2", "pp": "A7"}
+    parts = {"sp": "part 2", "pp": "A7"}
     for axis, part in parts.items():
         with pytest.raises(NotImplementedError, match=part):
             resolve_parallelism(ParallelismConfig(**{axis: 2}), 2)
-    for axis in ("fsdp", "tp"):  # the model axes of ROADMAP A6 part 1 run
+    for axis in ("fsdp", "tp", "ep"):  # the model axes of ROADMAP A6 part 1 run
         assert _fields(resolve_parallelism(ParallelismConfig(**{axis: 2}), 2)) == _fields(
             _jax_resolve(monkeypatch, JaxParallelismConfig(**{axis: 2}), 2, 1))
 
