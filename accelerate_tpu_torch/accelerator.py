@@ -128,16 +128,21 @@ class FunctionalModel(nn.Module):
     ``apply_fn`` takes this process's shards and the
     :class:`~.parallel.sharding.Layout` as ``layout=`` (None off such a
     mesh) and realizes the layout itself, as a family's ``loss_fn`` does
-    (``gpt2.loss_fn(params, batch, config, layout=layout)``)."""
+    (``gpt2.loss_fn(params, batch, config, layout=layout)``).
+    ``splits_sequence`` declares that ``apply_fn`` runs this process's
+    chunk of the sequence on an active ``sp`` axis (GPT-2's, BERT's and
+    ViT's losses do; T5's and ResNet's compute the whole), so the
+    optimizer sums the gradients over ``sp``."""
 
     _layout = None
 
     def __init__(self, apply_fn: Callable, params: Any, partition_rules=None,
-                 handles_layout: bool = False):
+                 handles_layout: bool = False, splits_sequence: bool = False):
         super().__init__()
         self.apply_fn = apply_fn
         self.partition_rules = partition_rules
         self._handles_layout = handles_layout
+        self.splits_sequence = splits_sequence
         self._leaves = nn.ParameterList()
         names = []
 
@@ -648,9 +653,9 @@ class Accelerator:
         shard_params(list(model.buffers()), self.mesh)
         model._param_specs = specs
         mesh = self.mesh
-        if all(mesh.shape[a] == 1 for a in ("fsdp", "tp", "ep")):
+        if all(mesh.shape[a] == 1 for a in ("fsdp", "tp", "ep", "sp")):
             return False
-        layout = Layout(mesh, specs)
+        layout = Layout(mesh, specs, bool(getattr(model, "splits_sequence", False)))
         handles = getattr(model, "handles_layout", None)
         if handles is not None and handles():
             model._layout = layout
@@ -1290,15 +1295,12 @@ def _dialects(deepspeed_plugin, megatron_lm_plugin):
 
 def _refuse_megatron_parts(plugin) -> None:
     """The Megatron-LM knobs whose axes are not ported raise, each naming
-    its ROADMAP part."""
+    its ROADMAP part: ``pp_degree`` (``sequence_parallelism`` with
+    ``sp_degree`` carves the ``sp`` axis out of ``dp``, as in JAX)."""
     if plugin.pp_degree > 1:
         raise NotImplementedError(
             f"MegatronLMPlugin(pp_degree={plugin.pp_degree}): pipeline parallelism is not "
             "ported to accelerate_tpu_torch yet (ROADMAP A7)")
-    if plugin.sequence_parallelism:
-        raise NotImplementedError(
-            "MegatronLMPlugin(sequence_parallelism=True): sequence parallelism is not ported "
-            "to accelerate_tpu_torch yet (ROADMAP A6 part 2)")
 
 
 def _realize_scheduler(dummy, realized: dict):

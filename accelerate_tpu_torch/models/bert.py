@@ -13,7 +13,15 @@ split as ``(3, H, hd)``.  The GELU is the tanh approximation
 Attention is the einsum path, as in the JAX package off its sequence-
 parallel mesh: no kernel of this module is hand-written.  A padding mask
 removes padded keys and padded queries alike (the dense JAX path).
-``sp_impl="ulysses"`` and sequence parallelism raise (ROADMAP A6 part 2).
+
+Under ``sp`` (a ``FunctionalModel`` with ``splits_sequence=True``) each
+process runs its chunk of the sequence through llama's
+:func:`~.llama.sp_attention` (bidirectional: the ring, or Ulysses under
+``sp_impl="ulysses"``), the padding mask removing padded keys only, as the
+JAX sp path does (padded query rows attend normally, and nothing reads
+them).  The pooler reads token 0, which lies in ``sp`` rank 0's chunk: the
+loss is that rank's, the others' part is zero (multiplied out, so every
+rank's backward runs the same collectives), summed over ``sp``.
 
 On a mesh with an active ``fsdp`` or ``tp`` axis :func:`apply` and the
 loss take a :class:`~..parallel.sharding.Layout` (``layout=``) and each
@@ -37,6 +45,7 @@ from ..parallel.collectives import tp_copy, tp_reduce
 from ..parallel.sharding import TpView, layer_leaves, leaf, specs_from_rules
 from ..state import resolve_device
 from .gpt2 import _layer_norm
+from .llama import _sp_active, sp_attention, sp_gather, sp_inputs, sp_sum
 
 __all__ = ["BertConfig", "init_params", "param_specs", "PARTITION_RULES", "apply",
            "classification_loss_fn"]
@@ -75,10 +84,6 @@ class BertConfig:
     def __post_init__(self):
         if self.sp_impl not in ("ring", "ulysses"):
             raise ValueError(f"sp_impl must be 'ring' or 'ulysses', got {self.sp_impl!r}")
-        if self.sp_impl != "ring":
-            raise NotImplementedError(
-                f"BertConfig.sp_impl={self.sp_impl!r} is not ported to accelerate_tpu_torch "
-                "yet (ROADMAP.md A6 part 2)")
 
     @property
     def head_dim(self) -> int:
@@ -206,9 +211,16 @@ def _run_layers(x, layers: dict, remat: bool, layer_fn, layout=None, path: str =
     return x
 
 
-def _layer(x, p, c: BertConfig, mask, tp=None):
+def _layer(x, p, c: BertConfig, mask, tp=None, sp_mesh=None, kv_valid=None):
     tp = tp or _NO_TP
-    attn = _attend(*_qkv_heads(x, p, c, tp), mask[:, None])
+    q, k, v = _qkv_heads(x, p, c, tp)
+    if sp_mesh is not None:
+        # Bidirectional over the whole sequence; padded keys only.
+        b, s = q.shape[:2]
+        attn = sp_attention(q, k, v, c, causal=False, kv_valid=kv_valid,
+                            mesh=sp_mesh).reshape(b, s, -1)
+    else:
+        attn = _attend(q, k, v, mask[:, None])
     # Post-LN (original BERT): residual then LayerNorm.
     x = _layer_norm(x + tp_reduce(attn @ p["w_proj"].to(c.dtype), tp.attn)
                     + p["b_proj"].to(c.dtype), p["ln_attn_scale"], p["ln_attn_bias"],
@@ -232,24 +244,47 @@ def apply(params: dict, input_ids: torch.Tensor, config: BertConfig,
     """Token ids ``[B, S]`` -> (sequence output ``[B, S, d]`` in the compute
     dtype, pooled ``[B, d]`` fp32).  ``attention_mask`` ``[B, S]`` masks
     padded keys and queries.  ``layout``: the sharded path (module
-    docstring); under ``tp`` ``pooled`` holds this process's columns."""
+    docstring); under ``tp`` ``pooled`` holds this process's columns; under
+    ``sp`` the sequence output is gathered over ``sp`` and ``pooled`` is
+    ``sp`` rank 0's on every process."""
+    x, pooled = _trunk(params, input_ids, config, attention_mask, token_type_ids, layout)
+    if _sp_active(layout) is not None:
+        # Rank 0's pooled features on every process (a gather, then the
+        # first entry: the others' backward gets zero).
+        pooled = sp_gather(pooled[:, None], layout)[:, 0]
+    return sp_gather(x, layout), pooled
+
+
+def _trunk(params: dict, input_ids: torch.Tensor, config: BertConfig,
+           attention_mask: Optional[torch.Tensor] = None,
+           token_type_ids: Optional[torch.Tensor] = None, layout=None):
+    """:func:`apply` before the gathers: under ``sp`` this process's chunk
+    and the pooler over its first token (the whole row's token 0 on ``sp``
+    rank 0)."""
     c = config
     b, s = input_ids.shape
     dev = input_ids.device
+    sp_mesh = _sp_active(layout)
+    mask = valid = None
     if attention_mask is None:
-        mask = torch.ones((b, s, s), dtype=torch.bool, device=dev)
+        if sp_mesh is None:
+            mask = torch.ones((b, s, s), dtype=torch.bool, device=dev)
     else:
         valid = attention_mask.bool()
-        mask = valid[:, None, :] & valid[:, :, None]
+        if sp_mesh is None:
+            mask = valid[:, None, :] & valid[:, :, None]
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
     e = {k: leaf(params, f"embeddings/{k}", layout, c.dtype) for k in params["embeddings"]}
-    x = (F.embedding(input_ids.long(), e["word"]).to(c.dtype)
-         + e["position"].to(c.dtype)[:s][None]
+    positions = e["position"].to(c.dtype)[:s][None]
+    input_ids, token_type_ids, positions, valid = sp_inputs(
+        layout, s, input_ids, token_type_ids, positions, valid)
+    x = (F.embedding(input_ids.long(), e["word"]).to(c.dtype) + positions
          + e["token_type"].to(c.dtype)[token_type_ids.long()])
     x = _layer_norm(x, e["ln_scale"], e["ln_bias"], c.layer_norm_eps)
     tp = TpView(layout, c.num_heads)
-    x = _run_layers(x, params["layers"], c.remat, lambda x, p: _layer(x, p, c, mask, tp),
+    x = _run_layers(x, params["layers"], c.remat,
+                    lambda x, p: _layer(x, p, c, mask, tp, sp_mesh, valid),
                     layout, "layers", c.dtype, _stack_gathers(tp))
     first = tp_copy(x[:, 0].float(), tp.group)
     pooled = torch.tanh(first @ leaf(params, "pooler/w", layout).float()
@@ -269,11 +304,22 @@ def _classify(params: dict, pooled: torch.Tensor, labels: torch.Tensor, layout=N
 
 def classification_loss_fn(params: dict, batch: dict, config: BertConfig,
                            layout=None) -> torch.Tensor:
-    """Sequence-classification cross-entropy over ``batch["labels"]`` [B]."""
-    _, pooled = apply(params, batch["input_ids"], config,
-                      attention_mask=batch.get("attention_mask"),
-                      token_type_ids=batch.get("token_type_ids"), layout=layout)
-    return _classify(params, pooled, batch["labels"], layout, TpView(layout, config.num_heads))
+    """Sequence-classification cross-entropy over ``batch["labels"]`` [B];
+    under ``sp`` ``sp`` rank 0's loss (module docstring)."""
+    _, pooled = _trunk(params, batch["input_ids"], config,
+                       attention_mask=batch.get("attention_mask"),
+                       token_type_ids=batch.get("token_type_ids"), layout=layout)
+    loss = _classify(params, pooled, batch["labels"], layout, TpView(layout, config.num_heads))
+    return first_chunk_loss(loss, layout)
+
+
+def first_chunk_loss(loss: torch.Tensor, layout) -> torch.Tensor:
+    """Under ``sp``: ``loss`` where this process holds the sequence's first
+    chunk, zero (``loss`` times 0, so the backward still runs) elsewhere,
+    summed over ``sp``; off ``sp``, ``loss``."""
+    if _sp_active(layout) is None:
+        return loss
+    return sp_sum(loss * float(layout.sp_rank == 0), layout)
 
 
 _NO_TP = TpView()

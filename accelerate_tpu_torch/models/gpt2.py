@@ -18,9 +18,8 @@ dense KV cache (:func:`init_cache`, :func:`apply_cached`), the paged
 serving forward (:func:`apply_paged`, whose decode runs the paged kernels
 under ``kernel=True``), greedy and sampled :func:`generate`,
 :func:`speculative_generate` and :func:`generate_beam`; ``kv_cache_quant``
-stores the KV cache as int8 codes with bf16 scales.  Sequence parallelism
-(``sp_impl="ulysses"``) raises ``NotImplementedError`` (ROADMAP A6 part 2), and so
-do int8-weight layers (``quantize_weights``, ROADMAP A8).
+stores the KV cache as int8 codes with bf16 scales.  int8-weight layers
+(``quantize_weights``, ROADMAP A8) raise ``NotImplementedError``.
 
 On a mesh with an active ``fsdp`` or ``tp`` axis the training forward and
 loss take a :class:`~..parallel.sharding.Layout` (``layout=``; a
@@ -35,7 +34,11 @@ chunk) and takes its heads' q, k and v columns; a replicated bias enters
 through ``tp_copy`` before its chunk is taken.  Where ``tp`` does not
 divide the heads, every process computes every head from the whole
 weights.  The tied embedding is vocabulary-parallel, and so is the loss
-(llama's).
+(llama's).  Under ``sp`` (a ``FunctionalModel`` with
+``splits_sequence=True``) each process runs its chunk of the sequence:
+the learned positions are the chunk's global ones, the attention is
+llama's :func:`~.llama.sp_attention` (causal, the padding mask's chunk
+riding the ring), and the loss is llama's chunk-and-sum.
 
 The learned position table has ``max_seq_len`` rows, so a dense cache or a
 block table longer than that raises: GPT-2 serving needs
@@ -55,7 +58,15 @@ from torch.utils.checkpoint import checkpoint
 from ..parallel.collectives import tp_copy, tp_reduce
 from ..parallel.sharding import TpView, layer_leaves, leaf, specs_from_rules, vocab_lookup
 from ..state import resolve_device
-from .llama import _loss_vocab_parallel, cross_entropy, labels_and_weights
+from .llama import (
+    _sp_active,
+    cross_entropy,
+    labels_and_weights,
+    sp_attention,
+    sp_gather,
+    sp_inputs,
+    token_loss,
+)
 
 __all__ = [
     "GPT2Config",
@@ -101,10 +112,6 @@ class GPT2Config:
             raise ValueError(f"loss_impl must be 'dense' or 'chunked', got {self.loss_impl!r}")
         if self.sp_impl not in ("ring", "ulysses"):
             raise ValueError(f"sp_impl must be 'ring' or 'ulysses', got {self.sp_impl!r}")
-        if self.sp_impl != "ring":
-            raise NotImplementedError(
-                f"GPT2Config.sp_impl={self.sp_impl!r} is not ported to accelerate_tpu_torch "
-                "yet (ROADMAP.md A6 part 2)")
 
     @property
     def head_dim(self) -> int:
@@ -281,9 +288,17 @@ def _proj_and_mlp(x, attn, p, c: GPT2Config, tp=None):
     return _mlp_block(x + out + p["b_proj"].to(c.dtype), p, c, tp)
 
 
-def _layer(x, p, c: GPT2Config, mask, tp=None):
+def _layer(x, p, c: GPT2Config, mask, tp=None, sp_mesh=None, kv_valid=None):
     q, k, v = _qkv(x, p, c, tp)
-    return _proj_and_mlp(x, _attend(q, k, v, mask[:, None], c), p, c, tp)
+    if sp_mesh is not None:
+        # This process's chunk: the shared ring / Ulysses dispatch, causal
+        # by global positions, the validity chunk riding the ring.
+        b, s = q.shape[:2]
+        attn = sp_attention(q, k, v, c, causal=True, kv_valid=kv_valid,
+                            mesh=sp_mesh).reshape(b, s, -1)
+    else:
+        attn = _attend(q, k, v, mask[:, None], c)
+    return _proj_and_mlp(x, attn, p, c, tp)
 
 
 def _embed(params: dict, input_ids: torch.Tensor, positions: torch.Tensor,
@@ -326,21 +341,37 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: GPT2Config,
     (as in the JAX package); ``attention_mask`` removes padded keys.  Under
     ``config.remat`` each layer runs under ``torch.utils.checkpoint``: its
     activations are recomputed in the backward instead of stored.
-    ``layout``: the sharded path (module docstring)."""
+    ``layout``: the sharded path (module docstring); under ``sp`` the
+    hidden is gathered over ``sp``."""
+    return sp_gather(_trunk(params, input_ids, config, attention_mask, layout), layout)
+
+
+def _trunk(params: dict, input_ids: torch.Tensor, config: GPT2Config,
+           attention_mask: Optional[torch.Tensor] = None, layout=None) -> torch.Tensor:
+    """:func:`apply_hidden` before the gather: under ``sp`` this process's
+    chunk of the sequence, at its global positions, and no ``[S, S]``
+    mask."""
     c = config
     b, s = input_ids.shape
     dev = input_ids.device
-    mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril().expand(b, s, s)
-    if attention_mask is not None:
-        mask = mask & attention_mask.bool()[:, None, :]
-    x = _embed(params, input_ids, torch.arange(s, device=dev)[None], c, layout)
+    positions = torch.arange(s, device=dev)[None]
+    kv_valid = None if attention_mask is None else attention_mask.bool()
+    sp_mesh = _sp_active(layout)
+    mask = None
+    if sp_mesh is None:
+        mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril().expand(b, s, s)
+        if kv_valid is not None:
+            mask = mask & kv_valid[:, None, :]
+    input_ids, positions, kv_valid = sp_inputs(layout, s, input_ids, positions, kv_valid)
+    x = _embed(params, input_ids, positions, c, layout)
     tp = TpView(layout, c.num_heads)
     names, per_layer, prep = layer_leaves(
         _dequant_layer(params["layers"]), layout, "layers", c.dtype,
         tp.head_gathers(fused=("w_qkv",), rows=("w_proj",)))
 
     def layer(x, *weights):
-        return _layer(x, {k: prep(k, w) for k, w in zip(names, weights)}, c, mask, tp)
+        return _layer(x, {k: prep(k, w) for k, w in zip(names, weights)}, c, mask, tp,
+                      sp_mesh, kv_valid)
 
     for weights in per_layer:
         if c.remat and torch.is_grad_enabled():
@@ -351,10 +382,12 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: GPT2Config,
 
 
 def apply(params: dict, input_ids: torch.Tensor, config: GPT2Config,
-          attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token ids ``[B, S]`` -> fp32 logits ``[B, S, V]`` (tied head)."""
-    hidden = apply_hidden(params, input_ids, config, attention_mask)
-    return (hidden @ lm_head(params, config)).float()
+          attention_mask: Optional[torch.Tensor] = None, layout=None) -> torch.Tensor:
+    """Token ids ``[B, S]`` -> fp32 logits ``[B, S, V]`` (tied head);
+    ``layout`` as in :func:`apply_hidden` (the head whole: off ``tp``;
+    under ``sp`` each process's chunk of the logits, gathered)."""
+    hidden = _trunk(params, input_ids, config, attention_mask, layout)
+    return sp_gather((hidden @ lm_head(params, config, layout)).float(), layout)
 
 
 def loss_fn(params: dict, batch: dict, config: GPT2Config, layout=None) -> torch.Tensor:
@@ -362,22 +395,16 @@ def loss_fn(params: dict, batch: dict, config: GPT2Config, layout=None) -> torch
     llama family's ``labels_and_weights`` and ``cross_entropy``);
     ``config.loss_impl == "chunked"`` streams the head over vocabulary tiles
     (``ops/chunked_ce.py``), so the ``[B, S, V]`` logits never exist.  On a
-    ``layout`` under ``tp``: llama's loss over the vocabulary shards."""
+    ``layout`` under ``tp``: llama's loss over the vocabulary shards; under
+    ``sp``: this process's chunk's part, summed over ``sp``."""
     labels, weights = labels_and_weights(batch)
     mask = batch.get("attention_mask")
     if layout is None and config.loss_impl != "chunked":
         logits = apply(params, batch["input_ids"], config, attention_mask=mask)
         return cross_entropy(logits, labels, weights)
-    hidden = apply_hidden(params, batch["input_ids"], config, attention_mask=mask,
-                          layout=layout)
-    head = lm_head(params, config, layout)
-    if layout is not None and layout.tp > 1:
-        return _loss_vocab_parallel(hidden, head, labels, weights, config, layout)
-    if config.loss_impl == "chunked":
-        from ..ops.chunked_ce import chunked_cross_entropy
-
-        return chunked_cross_entropy(hidden, head, labels, weights, config.loss_chunk_size)
-    return cross_entropy((hidden @ head).float(), labels, weights)
+    hidden = _trunk(params, batch["input_ids"], config, attention_mask=mask, layout=layout)
+    return token_loss(hidden, params, labels, weights, config, layout,
+                      head=lm_head(params, config, layout))
 
 
 # ---------------------------------------------------------------------------

@@ -33,9 +33,20 @@ projections give theirs through :func:`~..parallel.collectives.tp_reduce`,
 the embedding is the JAX one-hot lookup over the local vocabulary rows,
 and the loss reduces its max and sum of exponentials over ``tp``.  Head
 counts come from the local shapes, so the attention (the fused kernels
-too) runs on this process's heads.  fp8 and
-sequence parallelism are not part of this port yet; their config fields
-raise ``NotImplementedError`` when set.
+too) runs on this process's heads.
+
+On a layout whose ``sp`` axis is active the training forward runs on this
+process's chunk of ``S / sp`` tokens: the ids, RoPE positions (the
+padding-aware count over the whole row), labels and loss weights are made
+for the whole sequence and then sliced, so a chunk's last label is the
+next chunk's first token; attention goes through :func:`sp_attention`
+(the ring over the fused kernels, the einsum ring for padded batches, or
+Ulysses under ``sp_impl="ulysses"``); the loss is this process's weighted
+sum over the global weight sum, reported summed over ``sp``, and each
+replicated leaf's gradient is its chunk's part, which the optimizer sums
+over ``sp``.  :func:`apply_hidden` and :func:`apply` return the sequence
+gathered over ``sp``, as JAX returns its global array.  fp8 is not part of
+this port yet; its config field raises ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -76,6 +87,7 @@ __all__ = [
     "generate",
     "speculative_generate",
     "generate_beam",
+    "sp_attention",
     "embed_tokens",
     "final_norm",
     "lm_head",
@@ -93,8 +105,9 @@ class LlamaConfig:
     whole layer, under ``"dots"`` it keeps the products without batch
     dimensions (the seven projections) and recomputes the rest (see
     :func:`apply_hidden`); ``attention_impl`` picks the training attention
-    path and ``loss_impl``/``loss_chunk_size`` the loss (see
-    :func:`attention_block` and :func:`loss_fn`)."""
+    path, ``sp_impl`` the sequence-parallel one (:func:`sp_attention`), and
+    ``loss_impl``/``loss_chunk_size`` the loss (see :func:`attention_block`
+    and :func:`loss_fn`)."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -150,16 +163,11 @@ class LlamaConfig:
             raise ValueError(f"sp_impl must be 'ring' or 'ulysses', got {self.sp_impl!r}")
         if self.loss_impl not in ("dense", "chunked"):
             raise ValueError(f"loss_impl must be 'dense' or 'chunked', got {self.loss_impl!r}")
-        unported = {
-            "fp8": self.fp8,
-            "sp_impl": self.sp_impl != "ring",
-        }
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(
-                    f"LlamaConfig.{name}={getattr(self, name)!r} is not ported to "
-                    "accelerate_tpu_torch yet (see ROADMAP.md)"
-                )
+        if self.fp8:
+            raise NotImplementedError(
+                f"LlamaConfig.fp8={self.fp8!r} is not ported to accelerate_tpu_torch yet "
+                "(see ROADMAP.md)"
+            )
 
     @property
     def head_dim_(self) -> int:
@@ -364,6 +372,10 @@ class LlamaForCausalLM(nn.Module):
         if self._layout is not None:
             return {"loss": fam.loss_fn(self.params, batch, self.config, layout=self._layout)}
         return {"loss": fam.loss_fn(self.params, batch, self.config)}
+
+    # The llama family's and Mixtral's sharded forwards run this process's
+    # chunk of the sequence on an active ``sp`` axis (the Layout reads it).
+    splits_sequence = True
 
     def handles_layout(self) -> bool:
         """Whether the forward realizes a sharded layout itself (the family's
@@ -626,15 +638,64 @@ def _use_fused(c: LlamaConfig, s: int, head_dim: int, device: torch.device) -> b
             and _flash_block(s) is not None and pick_block_pallas(s, head_dim) is not None)
 
 
-def _attend(q, k, v, c: LlamaConfig, kv_valid):
+def _sp_active(layout):
+    """The mesh of ``layout`` when its ``sp`` axis is active (the sharded
+    forward then runs on this process's chunk of the sequence), else
+    None."""
+    return layout.mesh if layout is not None and layout.sp > 1 else None
+
+
+def sp_attention(q, k, v, c, *, causal: bool = True, kv_valid=None, mesh=None):
+    """The shared sequence-parallel attention of every family, on this
+    process's chunk (q ``[B, S/sp, H, hd]``, k/v ``[B, S/sp, K, hd]``,
+    ``kv_valid`` the chunk's key validity) over ``mesh``'s ``sp`` axis (the
+    live state's by default), with the JAX dispatch: Ulysses under
+    ``sp_impl="ulysses"`` (the fused kernels as its local attention where
+    :func:`_use_fused` picks them for this process's chunk); else the ring
+    over the fused kernels where they are picked and the batch is not
+    padded; else the einsum ring.  ``c`` needs no field: ``sp_impl`` and
+    ``attention_impl`` default to ``"ring"`` and ``"auto"`` (GPT-2, BERT
+    and ViT have no ``attention_impl``)."""
+    sp_pallas = _use_fused(c, q.shape[1], q.shape[-1], q.device)
+    if getattr(c, "sp_impl", "ring") == "ulysses":
+        from ..ops.ulysses_attention import ulysses_attention
+
+        return ulysses_attention(q, k, v, mesh=mesh, axis_name="sp", causal=causal,
+                                 kv_valid=kv_valid, impl="pallas" if sp_pallas else None)
+    if sp_pallas and kv_valid is None:
+        from ..ops.ring_fused import ring_fused_attention
+
+        return ring_fused_attention(q, k, v, mesh=mesh, axis_name="sp", causal=causal)
+    from ..ops.ring_attention import ring_attention
+
+    return ring_attention(q, k, v, mesh=mesh, axis_name="sp", causal=causal, kv_valid=kv_valid)
+
+
+def _refuse_sp_fused() -> None:
+    """The fused kernels run on whole sequences: under a live mesh whose
+    ``sp`` axis is active they raise (the JAX ``pallas_attention_spmd``'s
+    refusal); the sharded forward takes :func:`sp_attention` there."""
+    from ..parallel.sharding import _live_mesh
+
+    mesh = _live_mesh()
+    if mesh is not None and mesh.shape["sp"] > 1:
+        raise ValueError("the fused attention does not shard the sequence axis; use "
+                         "ring/ulysses for sp>1 (pass the model's layout)")
+
+
+def _attend(q, k, v, c: LlamaConfig, kv_valid, sp_mesh=None):
     """Causal GQA attention of the training forward, by ``attention_impl``
-    (the dispatch of the JAX ``attention_block``): the fused kernels, the
+    (the dispatch of the JAX ``attention_block``): on ``sp_mesh`` (an active
+    ``sp`` axis) :func:`sp_attention`; else the fused kernels, the
     blockwise flash path, or einsum with ``kv_valid`` folded into the mask."""
+    if sp_mesh is not None:
+        return sp_attention(q, k, v, c, causal=True, kv_valid=kv_valid, mesh=sp_mesh)
     b, s = q.shape[:2]
     if _use_fused(c, s, q.shape[-1], q.device):
         from ..ops.flash_attention import pick_block_pallas
         from ..ops.fused_attention import fused_attention
 
+        _refuse_sp_fused()
         blk = pick_block_pallas(s, q.shape[-1])
         if blk is None:
             raise ValueError(
@@ -657,7 +718,7 @@ def _attend(q, k, v, c: LlamaConfig, kv_valid):
 
 
 def attention_block(x, p, c: LlamaConfig, positions, kv_valid=None, group=None,
-                    q_heads=None) -> torch.Tensor:
+                    q_heads=None, sp_mesh=None) -> torch.Tensor:
     """Pre-norm causal attention sub-block with residual; ``kv_valid``
     ``[B, S]`` bool is the padding mask, kept factored so the flash and
     fused paths never build an ``[S, S]`` mask.  Under ``tp`` (``group``,
@@ -665,19 +726,20 @@ def attention_block(x, p, c: LlamaConfig, positions, kv_valid=None, group=None,
     column-parallel (their input through ``tp_copy``) and the attention
     runs on this process's heads; where ``tp`` does not divide the query
     heads (``q_heads`` None) the caller passes whole weights and every
-    process computes every head."""
+    process computes every head.  ``sp_mesh``: ``x`` is this process's
+    chunk of the sequence and the attention is :func:`sp_attention`."""
     if q_heads is None or group is None:
         group = q_heads = None
     h = tp_copy(_norm(x, p["ln_attn"], c), group)
     b, s, _ = h.shape
     q, k, v = _qkv_proj(h, p, c, b, s, q_heads)
     q, k = _rope(q, k, positions, c.rope_theta, getattr(c, "rope_scaling", None))
-    return x + _out_proj(_attend(q, k, v, c, kv_valid), p, c, group)
+    return x + _out_proj(_attend(q, k, v, c, kv_valid, sp_mesh), p, c, group)
 
 
 def _layer(x, p, c: LlamaConfig, positions, kv_valid=None, group=None,
-           q_heads=None) -> torch.Tensor:
-    x = attention_block(x, p, c, positions, kv_valid, group, q_heads)
+           q_heads=None, sp_mesh=None) -> torch.Tensor:
+    x = attention_block(x, p, c, positions, kv_valid, group, q_heads, sp_mesh)
     return _mlp_block(x, p, c, group)
 
 
@@ -754,22 +816,64 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     ``addmm`` under ``"dots"`` (:func:`_save_dots`).  ``layer_dtype``
     casts each layer's weights to it inside the layer (and so inside its
     checkpoint), the mixed-precision wrapper's cast at use.  ``layout``: the
-    sharded path (module docstring), on a mesh with an active ``fsdp`` or
-    ``tp`` axis."""
-    c = config
+    sharded path (module docstring), on a mesh with an active ``fsdp``,
+    ``tp``, ``ep`` or ``sp`` axis; under ``sp`` the hidden is gathered over
+    ``sp`` (each process then holds the whole sequence)."""
+    x = _trunk(params, input_ids, config, positions, attention_mask, layer_dtype, layout)
+    return sp_gather(x, layout)
+
+
+def sp_gather(x: torch.Tensor, layout) -> torch.Tensor:
+    """``x`` (this process's chunk along dim 1) gathered over ``sp`` where
+    ``layout``'s ``sp`` axis is active, else ``x``: every process then reads
+    the whole, so the backward keeps this process's chunk of the
+    gradient."""
+    if _sp_active(layout) is None:
+        return x
+    from ..parallel.collectives import tp_gather
+
+    return tp_gather(x, 1, layout.sp_group(), partial=False, axis="sp")
+
+
+def sp_inputs(layout, s: int, *tensors):
+    """Each ``[B, S, ...]`` tensor of ``tensors`` (None passes through) cut
+    to this process's chunk of the sequence where ``layout``'s ``sp`` axis
+    is active, else as given."""
+    if _sp_active(layout) is None:
+        return tensors
+    chunk = layout.seq_chunk(s)
+    return tuple(None if t is None else t[:, chunk] for t in tensors)
+
+
+def _positions(input_ids, positions, kv_valid):
+    """RoPE positions of the whole row: the padding-aware count of real
+    tokens under a mask, else ``0 .. S-1``."""
+    if positions is not None:
+        return positions
     b, s = input_ids.shape
+    if kv_valid is not None:
+        return torch.clamp(torch.cumsum(kv_valid.int(), dim=-1) - 1, min=0)
+    return torch.arange(s, device=input_ids.device).expand(b, s)
+
+
+def _trunk(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
+           positions: Optional[torch.Tensor] = None,
+           attention_mask: Optional[torch.Tensor] = None,
+           layer_dtype: Optional[torch.dtype] = None, layout=None) -> torch.Tensor:
+    """:func:`apply_hidden` before the gather: under ``sp`` the final-normed
+    hidden of this process's chunk of the sequence."""
+    c = config
     kv_valid = attention_mask.bool() if attention_mask is not None else None
-    if positions is None:
-        if kv_valid is not None:
-            positions = torch.clamp(torch.cumsum(kv_valid.int(), dim=-1) - 1, min=0)
-        else:
-            positions = torch.arange(s, device=input_ids.device).expand(b, s)
+    positions = _positions(input_ids, positions, kv_valid)
+    input_ids, positions, kv_valid = sp_inputs(layout, input_ids.shape[1], input_ids,
+                                                positions, kv_valid)
+    sp_mesh = _sp_active(layout)
     names, per_layer, prep, group, q_heads = sharded_layers(params, c, layout, layer_dtype)
     x = embed_tokens(params, input_ids, c, layout, layer_dtype)
 
     def layer(x, *weights):
         p = {k: prep(k, w) for k, w in zip(names, weights)}
-        return _layer(x, p, c, positions, kv_valid, group, q_heads)
+        return _layer(x, p, c, positions, kv_valid, group, q_heads, sp_mesh)
 
     context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
                   if c.remat_policy == "dots" else noop_context_fn)
@@ -787,11 +891,16 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
 def apply(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
           positions: Optional[torch.Tensor] = None,
           attention_mask: Optional[torch.Tensor] = None,
-          layer_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+          layer_dtype: Optional[torch.dtype] = None, layout=None) -> torch.Tensor:
     """Training forward: token ids ``[B, S]`` -> logits ``[B, S, V]`` fp32
-    (``layer_dtype`` as in :func:`apply_hidden`)."""
-    hidden = apply_hidden(params, input_ids, config, positions, attention_mask, layer_dtype)
-    return (hidden @ lm_head(params, config)).float()
+    (``layer_dtype`` and ``layout`` as in :func:`apply_hidden`: under
+    ``sp`` each process's chunk of the logits, gathered; the head's ``tp``
+    columns are not gathered, so a ``tp`` layout raises)."""
+    if layout is not None and layout.tp > 1:
+        raise NotImplementedError("apply on a tp layout: the logits' vocabulary is split; "
+                                  "use loss_fn")
+    hidden = _trunk(params, input_ids, config, positions, attention_mask, layer_dtype, layout)
+    return sp_gather((hidden @ lm_head(params, config, layout, layer_dtype)).float(), layout)
 
 
 def labels_and_weights(batch: dict):
@@ -813,11 +922,17 @@ def labels_and_weights(batch: dict):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  weights: torch.Tensor) -> torch.Tensor:
-    """Weighted-mean token cross-entropy in fp32."""
+                  weights: torch.Tensor, denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted-mean token cross-entropy in fp32; ``denom`` replaces the
+    weights' own sum (floored at 1) as the divisor (a sequence chunk's
+    share of the whole's mean)."""
     logp = torch.log_softmax(logits, dim=-1)
     token_loss = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    return (token_loss * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return (token_loss * weights).sum() / _denom(weights, denom)
+
+
+def _denom(weights: torch.Tensor, denom: Optional[torch.Tensor]) -> torch.Tensor:
+    return torch.clamp(weights.sum(), min=1.0) if denom is None else denom
 
 
 def loss_fn(params: dict, batch: dict, config: LlamaConfig,
@@ -828,25 +943,55 @@ def loss_fn(params: dict, batch: dict, config: LlamaConfig,
     ``layer_dtype`` and ``layout`` as in :func:`apply_hidden`; under ``tp``
     both losses reduce their statistics over the vocabulary shards."""
     labels, weights = labels_and_weights(batch)
-    x = apply_hidden(params, batch["input_ids"], config,
-                     attention_mask=batch.get("attention_mask"), layer_dtype=layer_dtype,
-                     layout=layout)
+    x = _trunk(params, batch["input_ids"], config, attention_mask=batch.get("attention_mask"),
+               layer_dtype=layer_dtype, layout=layout)
     return token_loss(x, params, labels, weights, config, layout, layer_dtype)
 
 
 def token_loss(x, params: dict, labels, weights, config, layout=None,
-               layer_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The head and the weighted-mean cross-entropy of the final hidden
+               layer_dtype: Optional[torch.dtype] = None, head=None) -> torch.Tensor:
+    """The head (:func:`lm_head` unless ``head`` is given: another family's
+    ``[d, V]`` head) and the weighted-mean cross-entropy of the final hidden
     ``x``: dense, chunked (``config.loss_impl``), or under ``tp`` over the
-    vocabulary shards (:func:`_loss_vocab_parallel`)."""
-    head = lm_head(params, config, layout, layer_dtype)
+    vocabulary shards (:func:`_loss_vocab_parallel`).  Under ``sp`` ``x`` is
+    this process's chunk and ``labels`` / ``weights`` the whole sequence's:
+    the chunk's weighted sum over the global weight sum, summed over ``sp``
+    (:func:`sp_sum`)."""
+    if head is None:
+        head = lm_head(params, config, layout, layer_dtype)
+    labels, weights = sp_inputs(layout, labels.shape[1], labels, weights)
+    denom = sp_denominator(weights, layout)
     if layout is not None and layout.tp > 1:
-        return _loss_vocab_parallel(x, head, labels, weights, config, layout)
-    if config.loss_impl == "chunked":
+        loss = _loss_vocab_parallel(x, head, labels, weights, config, layout, denom)
+    elif config.loss_impl == "chunked":
         from ..ops.chunked_ce import chunked_cross_entropy
 
-        return chunked_cross_entropy(x, head, labels, weights, config.loss_chunk_size)
-    return cross_entropy((x @ head).float(), labels, weights)
+        loss = chunked_cross_entropy(x, head, labels, weights, config.loss_chunk_size, denom)
+    else:
+        loss = cross_entropy((x @ head).float(), labels, weights, denom)
+    return sp_sum(loss, layout)
+
+
+def sp_denominator(weights: torch.Tensor, layout) -> Optional[torch.Tensor]:
+    """Under ``sp``: the whole sequence's weight sum (this process's chunk's
+    ``weights`` summed over ``sp``, no gradient), floored at 1; else None
+    (each loss divides by its own weights' sum)."""
+    if _sp_active(layout) is None:
+        return None
+    from ..parallel.collectives import all_reduce
+
+    total = all_reduce(weights.detach().sum().clone(), group=layout.sp_group(), axis="sp")
+    return torch.clamp(total, min=1.0)
+
+
+def sp_sum(loss: torch.Tensor, layout) -> torch.Tensor:
+    """A chunk's part of a loss that sums over the sequence, summed over
+    ``sp`` (the value every process reports) with the identity backward (each
+    process's gradient stays its chunk's part); ``loss`` itself off
+    ``sp``."""
+    if _sp_active(layout) is None:
+        return loss
+    return tp_reduce(loss, layout.sp_group(), "sp")
 
 
 def _model_sharded(layout) -> bool:
@@ -869,7 +1014,7 @@ def _refuse_sharded_serving(layout, params: Optional[dict] = None) -> None:
             "(Accelerator.unwrap_model or get_state_dict) and serve them whole")
 
 
-def _loss_vocab_parallel(x, head, labels, weights, c: LlamaConfig, layout):
+def _loss_vocab_parallel(x, head, labels, weights, c: LlamaConfig, layout, denom=None):
     """:func:`loss_fn`'s cross-entropy under ``tp``: ``head`` holds this
     process's vocabulary columns, and the logits' max and sum of
     exponentials (and the label's logit, on the rank that holds it) are
@@ -897,7 +1042,7 @@ def _loss_vocab_parallel(x, head, labels, weights, c: LlamaConfig, layout):
         label_logit = torch.where(hit, got, torch.zeros_like(got))
     label_logit = tp_reduce(label_logit, group)
     token_loss = (top + torch.log(total)) - label_logit
-    return (token_loss * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return (token_loss * weights).sum() / _denom(weights, denom)
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,8 @@ checkpointing under ``remat``), the dense KV cache (:func:`init_cache`,
 :func:`apply_cached`, int8 under ``kv_cache_quant``), greedy and sampled
 :func:`generate`, :func:`speculative_generate` and :func:`generate_beam`.
 As in the JAX package there is no ``apply_paged``: the serving engine takes
-its dense gather path.  ``fp8`` (ROADMAP A8), ``sp_impl="ulysses"`` (A6
-part 2) and int8-weight layers (``quantize_weights``, A8) raise.
+its dense gather path.  ``fp8`` (ROADMAP A8) and int8-weight layers
+(``quantize_weights``, A8) raise.
 
 On a mesh with an active ``fsdp``, ``tp`` or ``ep`` axis the training
 forward and loss take a :class:`~..parallel.sharding.Layout` (``layout=``)
@@ -28,7 +28,12 @@ and each process holds its shard of each leaf by :data:`PARTITION_RULES`
 loss, and the experts on ``ep`` (each process runs its ``E / ep`` experts'
 slots of the replicated routing and the partial combines are summed over
 ``ep`` and ``tp``; ``ops/moe.py``).  ``moe_impl="ragged"`` raises under
-``ep`` and warns under a sharded batch, as in the JAX package.
+``ep`` and warns under a sharded batch, as in the JAX package.  Under
+``sp`` each process runs llama's sequence-parallel layer on its chunk of
+the sequence; the routing capacity is the whole row's, a chunk's slots
+follow the earlier chunks' per-expert counts and the aux losses are the
+whole row's (``ops/moe.py``, ``seq_group``), so the tokens dropped are
+JAX's.
 
 Routing capacity is a function of the sequence length of each forward
 (``expert_capacity``), so a chunked prefill routes differently from a
@@ -117,12 +122,10 @@ class MixtralConfig:
             raise ValueError(f"loss_impl must be 'dense' or 'chunked', got {self.loss_impl!r}")
         if self.moe_impl not in ("dense", "ragged"):
             raise ValueError(f"moe_impl must be 'dense' or 'ragged', got {self.moe_impl!r}")
-        for name, on, item in (("fp8", self.fp8, "A8"),
-                               ("sp_impl", self.sp_impl != "ring", "A6 part 2")):
-            if on:
-                raise NotImplementedError(
-                    f"MixtralConfig.{name}={getattr(self, name)!r} is not ported to "
-                    f"accelerate_tpu_torch yet (ROADMAP.md {item})")
+        if self.fp8:
+            raise NotImplementedError(
+                f"MixtralConfig.fp8={self.fp8!r} is not ported to accelerate_tpu_torch yet "
+                "(ROADMAP.md A8)")
 
     @property
     def head_dim_(self) -> int:
@@ -310,22 +313,28 @@ def _expert_group(layout):
     return layout.mesh.group(axes), axes, layout.ep_rank
 
 
-def _moe(h, p, c: MixtralConfig, capacity: int, experts=(None, None, 0)):
+def _moe(h, p, c: MixtralConfig, capacity: int, experts=(None, None, 0), seq_group=None):
     """The expert FFN by ``moe_impl``: the dense dispatch or the ragged
-    grouped matmul; ``experts`` is :func:`_expert_group`'s."""
+    grouped matmul; ``experts`` is :func:`_expert_group`'s, ``seq_group``
+    the ``sp`` group where ``h`` is this process's chunk of the
+    sequence."""
     group, axes, ep_rank = experts
     if c.moe_impl == "ragged":
         return moe_ffn_ragged(h, p["router"], p["w_gate"], p["w_up"], p["w_down"],
-                              top_k=c.top_k, compute_dtype=c.dtype, group=group, axis=axes)
+                              top_k=c.top_k, compute_dtype=c.dtype, group=group, axis=axes,
+                              seq_group=seq_group)
     return moe_ffn(h, p["router"], p["w_gate"], p["w_up"], p["w_down"], top_k=c.top_k,
                    capacity=capacity, compute_dtype=c.dtype, group=group, axis=axes,
-                   first_expert=ep_rank * p["w_gate"].shape[0])
+                   first_expert=ep_rank * p["w_gate"].shape[0], seq_group=seq_group)
 
 
 def _layer(x, p, c: MixtralConfig, positions, kv_valid, capacity: int, group=None,
-           q_heads=None, experts=(None, None, 0)):
-    x = _llama.attention_block(x, p, c, positions, kv_valid, group, q_heads)
-    y, aux = _moe(_llama._rms_norm(x, p["ln_mlp"], c.rms_eps), p, c, capacity, experts)
+           q_heads=None, experts=(None, None, 0), sp_layout=None):
+    sp_mesh = _llama._sp_active(sp_layout)
+    x = _llama.attention_block(x, p, c, positions, kv_valid, group, q_heads, sp_mesh)
+    seq_group = None if sp_mesh is None else sp_layout.sp_group()
+    y, aux = _moe(_llama._rms_norm(x, p["ln_mlp"], c.rms_eps), p, c, capacity, experts,
+                  seq_group)
     return x + y, aux
 
 
@@ -344,14 +353,38 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: MixtralConfig,
     ``attention_mask`` removes padded keys.  Under ``config.remat`` each
     layer runs under ``torch.utils.checkpoint`` (recomputed in the
     backward); ``layer_dtype`` casts each layer's weights to it inside the
-    layer.  ``layout``: the sharded path (module docstring)."""
+    layer.  ``layout``: the sharded path (module docstring); under ``sp`` the
+    hidden is gathered over ``sp``, the aux losses are the whole
+    sequence's."""
+    hidden, aux = _trunk(params, input_ids, config, positions, attention_mask, layer_dtype,
+                         layout)
+    return _llama.sp_gather(hidden, layout), _sp_aux(aux, layout)
+
+
+def _sp_aux(aux: dict, layout) -> dict:
+    """The whole sequence's aux losses from this process's parts under
+    ``sp`` (the fraction dropped is the whole's already)."""
+    return {k: v if k == "fraction_dropped" else _llama.sp_sum(v, layout)
+            for k, v in aux.items()}
+
+
+def _trunk(params: dict, input_ids: torch.Tensor, config: MixtralConfig,
+           positions: Optional[torch.Tensor] = None,
+           attention_mask: Optional[torch.Tensor] = None,
+           layer_dtype: Optional[torch.dtype] = None, layout=None):
+    """:func:`apply_hidden` before the gather: under ``sp`` the hidden of
+    this process's chunk and its part of the load-balance and z losses (the
+    fraction dropped is the whole's)."""
     c = config
     _check_moe_impl(c, layout)
     b, s = input_ids.shape
     if positions is None:
         positions = torch.arange(s, device=input_ids.device).expand(b, s)
     kv_valid = attention_mask.bool() if attention_mask is not None else None
+    input_ids, positions, kv_valid = _llama.sp_inputs(layout, s, input_ids, positions,
+                                                      kv_valid)
     x = _llama.embed_tokens(params, input_ids, c, layout, layer_dtype)
+    # The whole row's capacity, also where this process holds a chunk.
     capacity = expert_capacity(s, c.num_experts, c.top_k, c.capacity_factor)
     _dequant_layer(params["layers"])
     names, per_layer, prep, group, q_heads = _llama.sharded_layers(params, c, layout,
@@ -360,7 +393,7 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: MixtralConfig,
 
     def layer(x, *weights):
         p = {k: prep(k, w) for k, w in zip(names, weights)}
-        return _layer(x, p, c, positions, kv_valid, capacity, group, q_heads, experts)
+        return _layer(x, p, c, positions, kv_valid, capacity, group, q_heads, experts, layout)
 
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in _AUX}
     for weights in per_layer:
@@ -379,11 +412,15 @@ def apply_hidden(params: dict, input_ids: torch.Tensor, config: MixtralConfig,
 def apply(params: dict, input_ids: torch.Tensor, config: MixtralConfig,
           positions: Optional[torch.Tensor] = None,
           attention_mask: Optional[torch.Tensor] = None,
-          layer_dtype: Optional[torch.dtype] = None):
+          layer_dtype: Optional[torch.dtype] = None, layout=None):
     """Training forward: token ids ``[B, S]`` -> (logits ``[B, S, V]`` fp32,
-    mean aux losses)."""
-    hidden, aux = apply_hidden(params, input_ids, config, positions, attention_mask, layer_dtype)
-    return (hidden @ lm_head(params, config)).float(), aux
+    mean aux losses); ``layout`` as in :func:`apply_hidden` (its head
+    whole: off ``tp``; under ``sp`` each process's chunk of the logits,
+    gathered)."""
+    hidden, aux = _trunk(params, input_ids, config, positions, attention_mask, layer_dtype,
+                         layout)
+    return _llama.sp_gather((hidden @ lm_head(params, config)).float(), layout), _sp_aux(
+        aux, layout)
 
 
 def loss_fn(params: dict, batch: dict, config: MixtralConfig,
@@ -394,12 +431,12 @@ def loss_fn(params: dict, batch: dict, config: MixtralConfig,
     (``ops/chunked_ce.py``), so the ``[B, S, V]`` logits never exist; under
     ``tp`` the loss is llama's over the vocabulary shards."""
     labels, weights = labels_and_weights(batch)
-    hidden, aux = apply_hidden(params, batch["input_ids"], config,
-                               attention_mask=batch.get("attention_mask"),
-                               layer_dtype=layer_dtype, layout=layout)
+    hidden, aux = _trunk(params, batch["input_ids"], config,
+                         attention_mask=batch.get("attention_mask"), layer_dtype=layer_dtype,
+                         layout=layout)
     ce = _llama.token_loss(hidden, params, labels, weights, config, layout, layer_dtype)
-    return (ce + config.router_aux_coef * aux["load_balancing_loss"]
-            + config.router_z_coef * aux["router_z_loss"])
+    return ce + _llama.sp_sum(config.router_aux_coef * aux["load_balancing_loss"]
+                              + config.router_z_coef * aux["router_z_loss"], layout)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,14 @@ the JAX pytree (per-layer weights stacked on a leading ``[L, ...]`` axis,
 projections stored for ``x @ W``); the GELU is the tanh approximation.
 
 Attention is the einsum path, as in the JAX package off its sequence-
-parallel mesh: no kernel of this module is hand-written.
-``sp_impl="ulysses"`` raises (ROADMAP A6 part 2).
+parallel mesh: no kernel of this module is hand-written.  Under ``sp`` (a
+``FunctionalModel`` with ``splits_sequence=True``) each process runs its
+chunk of the patches through llama's
+:func:`~.llama.sp_attention` (bidirectional: the ring, or Ulysses under
+``sp_impl="ulysses"``); ``pool="cls"`` raises there, with JAX's message,
+and ``"mean"`` pools over every process's tokens (the chunk sums added
+over ``sp`` both ways, :func:`~..parallel.collectives.data_sum`), the
+loss ``sp`` rank 0's (BERT's ``first_chunk_loss``).
 
 On a mesh with an active ``fsdp`` or ``tp`` axis :func:`apply` and the
 loss take a :class:`~..parallel.sharding.Layout` (``layout=``) and each
@@ -34,8 +40,9 @@ from ..parallel.collectives import tp_copy, tp_reduce
 from ..parallel.sharding import TpView, leaf, specs_from_rules
 from ..state import resolve_device
 from .bert import (_NO_TP, _attend, _classify, _init_normal_tree, _qkv_heads, _run_layers,
-                   _stack_gathers)
+                   _stack_gathers, first_chunk_loss)
 from .gpt2 import _layer_norm
+from .llama import _sp_active, sp_attention, sp_gather, sp_inputs
 
 __all__ = ["ViTConfig", "init_params", "param_specs", "PARTITION_RULES", "apply",
            "classification_loss_fn"]
@@ -84,10 +91,6 @@ class ViTConfig:
             raise ValueError(f"pool must be 'cls' or 'mean', got {self.pool!r}")
         if self.sp_impl not in ("ring", "ulysses"):
             raise ValueError(f"sp_impl must be 'ring' or 'ulysses', got {self.sp_impl!r}")
-        if self.sp_impl != "ring":
-            raise NotImplementedError(
-                f"ViTConfig.sp_impl={self.sp_impl!r} is not ported to accelerate_tpu_torch "
-                "yet (ROADMAP.md A6 part 2)")
 
     @property
     def head_dim(self) -> int:
@@ -182,10 +185,15 @@ def _patchify(pixels: torch.Tensor, c: ViTConfig) -> torch.Tensor:
     return x.reshape(b, (hgt // p) * (wid // p), p * p * ch)
 
 
-def _layer(x, p, c: ViTConfig, tp=None):
+def _layer(x, p, c: ViTConfig, tp=None, sp_mesh=None):
     tp = tp or _NO_TP
     n = _layer_norm(x, p["ln_attn_scale"], p["ln_attn_bias"], c.layer_norm_eps)
-    attn = _attend(*_qkv_heads(n, p, c, tp))
+    q, k, v = _qkv_heads(n, p, c, tp)
+    if sp_mesh is not None:
+        b, s = q.shape[:2]
+        attn = sp_attention(q, k, v, c, causal=False, mesh=sp_mesh).reshape(b, s, -1)
+    else:
+        attn = _attend(q, k, v)
     x = x + tp_reduce(attn @ p["w_proj"].to(c.dtype), tp.attn) + p["b_proj"].to(c.dtype)
     n = tp_copy(_layer_norm(x, p["ln_mlp_scale"], p["ln_mlp_bias"], c.layer_norm_eps), tp.group)
     u = F.gelu(n @ p["w_up"].to(c.dtype) + tp.chunk(p["b_up"]).to(c.dtype), approximate="tanh")
@@ -195,28 +203,57 @@ def _layer(x, p, c: ViTConfig, tp=None):
 def apply(params: dict, pixels: torch.Tensor, config: ViTConfig, layout=None):
     """Channels-last pixels ``[B, H, W, C]`` -> (token features ``[B, S, d]``
     in the compute dtype, pooled ``[B, d]`` fp32).  ``layout``: the sharded
-    path (BERT's layers; module docstring)."""
+    path (BERT's layers; module docstring); under ``sp`` the token features
+    are gathered over ``sp`` and ``pooled`` is the whole's mean."""
+    x, pooled = _trunk(params, pixels, config, layout)
+    return sp_gather(x, layout), pooled
+
+
+def _trunk(params: dict, pixels: torch.Tensor, config: ViTConfig, layout=None):
+    """:func:`apply` before the gather: under ``sp`` this process's chunk of
+    the patches, and the mean over every process's."""
     c = config
+    sp_mesh = _sp_active(layout)
+    if sp_mesh is not None and c.pool == "cls":
+        raise ValueError(
+            "ViT with pool='cls' cannot run sequence-parallel: the CLS token "
+            "makes the token count num_patches+1, indivisible by the sp axis. "
+            "Use ViTConfig(pool='mean')."
+        )
     e = {k: leaf(params, f"embeddings/{k}", layout, c.dtype) for k in params["embeddings"]}
-    x = _patchify(pixels.to(c.dtype), c) @ e["patch_w"].to(c.dtype) + e["patch_b"].to(c.dtype)
+    patches = _patchify(pixels.to(c.dtype), c)
+    positions = e["position"].to(c.dtype)[None]
+    patches, positions = sp_inputs(layout, patches.shape[1], patches, positions)
+    x = patches @ e["patch_w"].to(c.dtype) + e["patch_b"].to(c.dtype)
     if c.pool == "cls":
         cls = e["cls"].to(c.dtype).expand(x.shape[0], 1, c.hidden_size)
         x = torch.cat([cls, x], dim=1)
-    x = x + e["position"].to(c.dtype)[None]
+    x = x + positions
     tp = TpView(layout, c.num_heads)
-    x = _run_layers(x, params["layers"], c.remat, lambda x, p: _layer(x, p, c, tp), layout,
-                    "layers", c.dtype, _stack_gathers(tp))
+    x = _run_layers(x, params["layers"], c.remat, lambda x, p: _layer(x, p, c, tp, sp_mesh),
+                    layout, "layers", c.dtype, _stack_gathers(tp))
     x = _layer_norm(x, leaf(params, "final_ln/scale", layout, c.dtype),
                     leaf(params, "final_ln/bias", layout, c.dtype), c.layer_norm_eps)
     xf = x.float()
-    return x, (xf[:, 0] if c.pool == "cls" else xf.mean(1))
+    if c.pool == "cls":
+        return x, xf[:, 0]
+    if sp_mesh is None:
+        return x, xf.mean(1)
+    from ..parallel.collectives import data_sum
+
+    # The whole's mean: every process's sum, added over sp both ways (each
+    # process's tokens move the pooled features every process's loss reads).
+    total = data_sum(xf.sum(1), layout.sp_group(), "sp")
+    return x, total / (xf.shape[1] * layout.sp)
 
 
 def classification_loss_fn(params: dict, batch: dict, config: ViTConfig,
                            layout=None) -> torch.Tensor:
     """Image-classification cross-entropy over ``batch["pixel_values"]``
     ``[B, H, W, C]`` and ``batch["labels"]`` ``[B]``; on a ``layout`` under
-    ``tp`` the classifier row-parallel over the pooled features' chunks."""
-    _, pooled = apply(params, batch["pixel_values"], config, layout)
+    ``tp`` the classifier row-parallel over the pooled features' chunks;
+    under ``sp`` ``sp`` rank 0's loss (BERT's ``first_chunk_loss``)."""
+    _, pooled = _trunk(params, batch["pixel_values"], config, layout)
     tp = TpView(layout, config.num_heads)
-    return _classify(params, tp.chunk(pooled), batch["labels"], layout, tp)
+    loss = _classify(params, tp.chunk(pooled), batch["labels"], layout, tp)
+    return first_chunk_loss(loss, layout)

@@ -59,12 +59,16 @@ def chunked_ce_stats(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 
 
 def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                          weights: torch.Tensor, chunk_size: int = 4096) -> torch.Tensor:
+                          weights: torch.Tensor, chunk_size: int = 4096,
+                          denom=None) -> torch.Tensor:
     """Weighted-mean token cross-entropy of ``softmax(x @ head)`` without
     the full logits.  ``x`` ``[B, S, d]`` (compute dtype; statistics in
     fp32), ``head`` ``[d, V]``, ``labels`` int ``[B, S]``, ``weights`` fp32
     ``[B, S]``.  Equals ``cross_entropy(x @ head, labels, weights)`` up to
-    fp32 rounding: per token, ``logsumexp(logits) - logits[label]``."""
+    fp32 rounding: per token, ``logsumexp(logits) - logits[label]``.
+    ``denom`` replaces the weights' own sum (floored at 1) as the divisor
+    (a sequence chunk's share of the whole's mean)."""
     m, s, label_logit = chunked_ce_stats(x, head, labels, chunk_size)
     token_loss = (m + torch.log(s)) - label_logit
-    return (token_loss * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    total = (token_loss * weights).sum()
+    return total / (torch.clamp(weights.sum(), min=1.0) if denom is None else denom)

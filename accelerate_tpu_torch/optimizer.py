@@ -195,8 +195,29 @@ class AcceleratedOptimizer:
 
         return self.mesh.group(data_axes(self.mesh))
 
+    def _splits_sequence(self) -> bool:
+        """Whether the model's forward runs on this process's chunk of the
+        sequence (its layout's ``sp`` is above 1: the model declared
+        ``splits_sequence`` and the mesh's ``sp`` axis is active): each
+        replicated leaf's gradient is then its chunk's part of the
+        whole."""
+        model = getattr(self.model, "module", self.model)
+        layout = getattr(model, "_layout", None)
+        return layout is not None and layout.sp > 1
+
+    def _sync_axes(self) -> tuple:
+        """The axes the gradients are reduced over: the data axes (averaged;
+        none under LocalSGD), then ``sp`` where the forward split the
+        sequence (summed)."""
+        from .parallel.mesh import data_axes
+
+        if self.mesh is None:
+            return ()
+        axes = () if self.gradient_state.local_sgd else data_axes(self.mesh)
+        return axes + (("sp",) if self._splits_sequence() else ())
+
     def _needs_sync(self) -> bool:
-        return self.dp_degree > 1 and not self.gradient_state.local_sgd
+        return self.mesh is not None and self.mesh.span(self._sync_axes()) > 1
 
     def _sync_grads(self, params: List[torch.Tensor],
                     grads: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -206,14 +227,17 @@ class AcceleratedOptimizer:
         holds the sum over ``fsdp`` (its gather's backward reduce-scattered
         it), so only the other data axes reduce it; no leaf is reduced over
         ``tp`` or ``ep``, whose ranks hold either their own shard's gradient or the
-        same full one."""
+        same full one.  Where the forward split the sequence over ``sp``,
+        the same all-reduce also sums over ``sp`` (each process holds its
+        chunk's part), before the division by the data degree."""
         from .parallel import collectives
-        from .parallel.mesh import data_axes, model_axes
+        from .parallel.mesh import model_axes
         from .parallel.sharding import spec_axes, spec_of
 
-        mesh, n = self.mesh, self.dp_degree
-        axes = data_axes(mesh)
-        named = bool(model_axes(mesh))
+        mesh = self.mesh
+        axes = self._sync_axes()
+        n = self.dp_degree if not self.gradient_state.local_sgd else 1
+        named = bool(model_axes(mesh)) or "sp" in axes
         out = []
         for p, g in zip(params, grads):
             sharded_on = spec_axes(spec_of(p))

@@ -54,9 +54,9 @@ import torch.distributed as dist
 logger = logging.getLogger(__name__)
 
 __all__ = ["COMM_LOG", "all_gather", "all_gather_dim", "all_gather_object", "all_reduce",
-           "backend", "broadcast", "broadcast_object", "fsdp_gather", "initialized", "rank",
-           "reduce_scatter", "reduce_scatter_dim", "reset_comm_log", "tp_copy", "tp_gather",
-           "tp_reduce", "data_sum", "world_size"]
+           "all_to_all_dim", "backend", "broadcast", "broadcast_object", "fsdp_gather",
+           "initialized", "rank", "reduce_scatter", "reduce_scatter_dim", "reset_comm_log",
+           "ring_shift", "tp_copy", "tp_gather", "tp_reduce", "data_sum", "world_size"]
 
 COMM_LOG: dict = {}
 _noted: set = set()
@@ -314,23 +314,24 @@ def tp_reduce(x: torch.Tensor, group, axis="tp") -> torch.Tensor:
 
 class _TpGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, shard, dim, group, partial):
-        ctx.dim, ctx.group, ctx.partial = dim, group, partial
+    def forward(ctx, shard, dim, group, partial, axis):
+        ctx.dim, ctx.group, ctx.partial, ctx.axis = dim, group, partial, axis
         ctx.size, ctx.rank = world_size(group), rank(group)
-        return all_gather_dim(shard, dim, group, "tp")
+        return all_gather_dim(shard, dim, group, axis)
 
     @staticmethod
     def backward(ctx, grad):
         if ctx.partial:
             g = reduce_scatter_dim(grad.float() if grad.dtype in (torch.bfloat16, torch.float16)
-                                   else grad, ctx.dim, ctx.group, "tp").to(grad.dtype)
+                                   else grad, ctx.dim, ctx.group, ctx.axis).to(grad.dtype)
         else:
             n = grad.shape[ctx.dim] // ctx.size
             g = grad.narrow(ctx.dim, ctx.rank * n, n).contiguous()
-        return g, None, None, None
+        return g, None, None, None, None
 
 
-def tp_gather(shard: torch.Tensor, dim: int, group, partial: bool) -> torch.Tensor:
+def tp_gather(shard: torch.Tensor, dim: int, group, partial: bool,
+              axis="tp") -> torch.Tensor:
     """The whole leaf of which every rank of the ``tp`` ``group`` holds a
     chunk along ``dim``.  Backward, with ``partial`` (each rank then used
     only its own heads' part of the whole, so its gradient is a part):
@@ -338,8 +339,10 @@ def tp_gather(shard: torch.Tensor, dim: int, group, partial: bool) -> torch.Tens
     this rank keeps its chunk, a reduce-scatter; without (every rank used
     the whole on the same inputs, so every rank holds the whole
     gradient): this rank's chunk of it, with no collective, as a sum
-    would count it ``tp`` times.  ``group=None``: ``shard`` itself."""
-    return shard if group is None else _TpGather.apply(shard, dim, group, partial)
+    would count it ``tp`` times.  ``group=None``: ``shard`` itself.
+    ``axis`` names the group's mesh axes for the log (``"sp"`` for a
+    sequence gathered whole, whose every rank then reads the whole)."""
+    return shard if group is None else _TpGather.apply(shard, dim, group, partial, axis)
 
 
 class _DataSum(torch.autograd.Function):
@@ -360,3 +363,76 @@ def data_sum(x: torch.Tensor, group, axis=None) -> torch.Tensor:
     averages the parameters' gradients over the same ranks).
     ``group=None``: ``x`` itself."""
     return x if group is None else _DataSum.apply(x, group, axis)
+
+
+def ring_shift(t: torch.Tensor, group, axis="sp", reverse: bool = False) -> torch.Tensor:
+    """JAX's ``ppermute`` over ``group`` with the permutation ``(i, i + 1 mod
+    n)``: this rank's ``t`` goes to the next rank of the group and the
+    previous rank's comes back (one shape on all ranks), through
+    ``batch_isend_irecv``; staged through pinned host memory on a gloo
+    group.  ``reverse``: the permutation ``(i, i - 1 mod n)``.  No autograd.
+    ``group=None`` or a group of one: ``t`` itself.  Logged as
+    ``"ppermute:<axis>"``."""
+    if group is None or not initialized():
+        return t
+    n = world_size(group)
+    if n == 1:
+        return t
+    t0 = time.perf_counter()
+    me = rank(group)
+    staged = _staged(t, group)
+    src = _host(t) if staged else t.contiguous()
+    out = torch.empty(src.shape, dtype=src.dtype, device=src.device, pin_memory=staged)
+    step = -1 if reverse else 1
+    peers = [dist.get_global_rank(group, (me + d) % n) for d in (step, -step)]
+    ops = [dist.P2POp(dist.isend, src, peers[0], group),
+           dist.P2POp(dist.irecv, out, peers[1], group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        out = out.to(t.device)
+    _record("ppermute", t.numel() * t.element_size(), time.perf_counter() - t0, staged, axis)
+    return out
+
+
+def _all_to_all(t: torch.Tensor, split: int, concat: int, group, axis) -> torch.Tensor:
+    n = world_size(group)
+    t0 = time.perf_counter()
+    parts = torch.stack(t.chunk(n, dim=split))  # part j goes to rank j
+    staged = _staged(parts, group)
+    src = _host(parts) if staged else parts.contiguous()
+    out = torch.empty(src.shape, dtype=src.dtype, device=src.device, pin_memory=staged)
+    dist.all_to_all_single(out, src, group=group)
+    if staged:
+        out = out.to(t.device)
+    _record("all_to_all", t.numel() * t.element_size(), time.perf_counter() - t0, staged, axis)
+    return torch.cat(out.unbind(0), dim=concat)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, split, concat, group, axis):
+        ctx.split, ctx.concat, ctx.group, ctx.axis = split, concat, group, axis
+        return _all_to_all(t, split, concat, group, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_all_to_all(grad, ctx.concat, ctx.split, ctx.group, ctx.axis),
+                None, None, None, None)
+
+
+def all_to_all_dim(t: torch.Tensor, split_dim: int, concat_dim: int, group,
+                   axis="sp") -> torch.Tensor:
+    """``lax.all_to_all(t, split_axis=split_dim, concat_axis=concat_dim,
+    tiled=True)`` over ``group``: ``t`` cut into ``n`` chunks along
+    ``split_dim``, chunk ``j`` sent to rank ``j``, and the chunks received
+    concatenated along ``concat_dim`` in rank order (``all_to_all_single``,
+    staged through pinned host memory on a gloo group).  Differentiable:
+    the backward is the reverse exchange.  ``group=None`` or a group of
+    one: ``t`` itself.  Logged as ``"all_to_all:<axis>"``."""
+    if group is None or not initialized() or world_size(group) == 1:
+        return t
+    if t.shape[split_dim] % world_size(group):
+        raise ValueError(f"all_to_all_dim: dim {split_dim} ({t.shape[split_dim]}) is not "
+                         f"divisible by the group size ({world_size(group)})")
+    return _AllToAll.apply(t, split_dim, concat_dim, group, axis)

@@ -142,7 +142,8 @@ def data_degree(mesh: Optional[Mesh]) -> int:
 
 def data_index(mesh: Optional[Mesh]) -> int:
     """This process's shard of the global batch (ranks that differ only on
-    a model axis, such as ``tp``, read the same rows)."""
+    a model axis, such as ``tp``, or on ``sp``, read the same rows: a
+    sequence-parallel forward cuts them into chunks itself)."""
     return 0 if mesh is None else mesh.index(data_axes(mesh))
 
 

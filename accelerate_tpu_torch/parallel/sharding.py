@@ -388,11 +388,41 @@ class Layout:
     it to gather a leaf's ``fsdp`` dims where it uses the leaf
     (:meth:`full`), its ``tp`` dims where the forward cannot split by
     them (``tp_grad``), and to find the ``tp`` axis's group and size, and
-    this process's coordinates on ``tp`` and ``ep``."""
+    this process's coordinates on ``tp`` and ``ep``.
 
-    def __init__(self, mesh: Mesh, specs: Any):
+    ``splits_sequence`` is the model's own declaration that its forward
+    runs on this process's chunk of the sequence (:meth:`seq_chunk`) on an
+    active ``sp`` axis; ``sp`` is then the axis's size (``sp_rank``,
+    :meth:`sp_group`), else 1, and a model that does not split computes
+    the whole sequence on every ``sp`` process.  Where ``sp > 1`` each
+    replicated leaf's gradient is its chunk's part of the whole, which the
+    optimizer sums over ``sp``.  The parameters stay replicated over
+    ``sp``, as in JAX's rule tables."""
+
+    def __init__(self, mesh: Mesh, specs: Any, splits_sequence: bool = False):
         self.mesh = mesh
         self.specs = specs
+        self.splits_sequence = splits_sequence
+
+    @property
+    def sp(self) -> int:
+        return self.mesh.shape["sp"] if self.splits_sequence else 1
+
+    @property
+    def sp_rank(self) -> int:
+        return self.mesh.coords()["sp"]
+
+    def sp_group(self):
+        return self.mesh.group("sp") if self.sp > 1 else None
+
+    def seq_chunk(self, s: int) -> slice:
+        """This process's tokens of a sequence of ``s`` split over ``sp``
+        (``ValueError`` where ``sp`` does not divide ``s``)."""
+        if s % self.sp:
+            raise ValueError(f"the sequence length {s} does not divide over the sp axis "
+                             f"({self.sp})")
+        n = s // self.sp
+        return slice(self.sp_rank * n, (self.sp_rank + 1) * n)
 
     @property
     def tp(self) -> int:

@@ -386,8 +386,7 @@ class PartialState:
                 f"Device: {self.device}\n")
 
 
-_UNPORTED_AXIS_PARTS = {"sp": "ROADMAP A6 part 2, sequence parallelism",
-                        "pp": "ROADMAP A7, pipeline parallelism"}
+_UNPORTED_AXIS_PARTS = {"pp": "ROADMAP A7, pipeline parallelism"}
 
 
 def resolve_parallelism(cfg: Optional[ParallelismConfig], num_processes: int,
@@ -397,9 +396,9 @@ def resolve_parallelism(cfg: Optional[ParallelismConfig], num_processes: int,
     config over several processes puts every process on ``fsdp`` when an
     FSDP plugin is set, else on ``dp`` (the nodes on the outer ``dcn_dp``
     axis in both cases, as the JAX default puts its processes there).  The
-    mesh must hold every process.  ``fsdp``, ``tp`` and ``ep`` run; an
-    active ``sp`` or ``pp`` raises ``NotImplementedError`` naming the part
-    of ROADMAP that brings it."""
+    mesh must hold every process.  ``fsdp``, ``tp``, ``ep`` and ``sp`` run;
+    an active ``pp`` raises ``NotImplementedError`` naming the part of
+    ROADMAP that brings it."""
     if cfg is None:
         cfg = ParallelismConfig.from_env()
     n = num_processes
@@ -418,7 +417,8 @@ def resolve_parallelism(cfg: Optional[ParallelismConfig], num_processes: int,
         if getattr(cfg, axis) > 1:
             raise NotImplementedError(
                 f"ParallelismConfig({axis}={getattr(cfg, axis)}): the {axis} axis is not "
-                f"ported to accelerate_tpu_torch yet ({part}); dp, dcn_dp, fsdp, ep and tp are")
+                f"ported to accelerate_tpu_torch yet ({part}); dp, dcn_dp, fsdp, sp, ep and tp "
+                "are")
     return cfg
 
 

@@ -7,9 +7,10 @@ pp)`` as Megatron computes it:
 - ``use_distributed_optimizer`` -> the data axis becomes ``fsdp`` under
   ``SHARD_GRAD_OP``;
 - ``recompute_activations`` -> the strategy's ``activation_checkpointing``;
-- ``pp_degree`` > 1 (pipeline parallelism, ROADMAP A7) and
-  ``sequence_parallelism`` (ROADMAP A6 part 2) map as in the JAX package,
-  and the ``Accelerator`` refuses them, naming their parts.
+- ``sequence_parallelism`` with ``sp_degree`` -> the ``sp`` axis, carved
+  out of ``dp`` (without ``sp_degree`` no axis, with a warning);
+- ``pp_degree`` > 1 (pipeline parallelism, ROADMAP A7) maps as in the JAX
+  package, and the ``Accelerator`` refuses it, naming its part.
 
 The ``MEGATRON_LM_*`` environment variables fill what the fields leave
 None.  The engine-shaped names (the dummies, the wrappers,

@@ -433,6 +433,44 @@ Phases (each fails the run on any mismatch; nothing is caught):
    18b, the bf16 loss within ``PHASE18C_LOSS_REL``; then in fp32, loss
    and norm within 18a's limits.
 
+19. Sequence parallelism, inside 16b's two children after Phase 18 (the
+   same ``then``), over gloo on the one card.  19a: the ring over the flash
+   kernels (``ops/ring_fused.py``: each hop the forward kernel, the merge of
+   the ``(out, lse)`` pairs in fp32, the backward's dQ and dK/dV kernels
+   with the global ``lse`` and δ once, the fp32 dK/dV accumulators riding
+   the ring home) against the same ring over their plain versions at the
+   shapes 19b-19d give it, each rank's chunk of B 1 x S 8192 (4096 a
+   rank), 32 / 8 heads of 128: out, dQ, dK and dV causal and non-causal
+   (19b's hop 0 and hop 1), each in fp32 (1e-4) and bf16 (2e-2), 2 / 2 / 2
+   launches a call, both rings' forward+backward times in turns and the
+   ``ppermute:sp`` bytes; and 19c's local attention, ``fused_attention`` on
+   each rank's 16 / 4 heads over the whole 8192 tokens in fp32, against its
+   plain forward and backward (1e-4, 1 / 1 / 1 launches).  Then rank 0
+   runs one process's reference while rank 1 waits: Llama-3-8B's widths
+   (``config_from_hf`` of meta-llama/Meta-Llama-3-8B's published
+   config.json) at 2 layers when the two ranks' reckoned peak stays under
+   ``PHASE10_PEAK_LIMIT`` (else 1; logged), fp32 compute, ``remat``, the
+   fused kernels, the chunked loss, B 1 x S 8192: one bf16-compute step's
+   loss and pre-clip norm on the row and on the row cut into two
+   independent halves (the fault 19d's limits are set against), then 2
+   AdamW steps with the binding clip.  19b: the same weights and row on
+   ``sp=2`` (4096 tokens a rank) through ``prepare`` and
+   ``make_train_step``, the ring over the kernels:
+   each step's loss within ``PHASE18A_LOSS_REL`` and pre-clip norm within
+   ``PHASE18A_NORM_REL`` of one process's, the parameters' change within
+   ``PHASE18A_DELTA_REL`` (relnorm), the flash kernels 2·sp·L / sp·L / sp·L
+   a rank a step (each hop a forward, again under ``remat``).  19c: from
+   the same start, ``sp_impl="ulysses"``, one step: the fused attention saw
+   16 / 4 heads over the whole 8192 tokens, launches 2L / L / L, the loss
+   and norm within 19b's limits.  19d: from the same start, the ring in
+   bf16 compute, one step: its loss within ``PHASE19D_LOSS_REL`` and its
+   pre-clip norm within ``PHASE19D_NORM_REL`` of one process's bf16 step
+   (the halves' distances are logged beside them).  Each part's seconds and the bytes and host
+   seconds of ``ppermute:sp``, ``all_to_all:sp`` and ``all_reduce:sp`` a
+   step are printed.  19e: 19a's rings over NCCL, one GPU per process, only
+   where ``torch.cuda.device_count() >= 2`` (else it prints that it did not
+   run; it is never counted as passed).
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
@@ -442,8 +480,10 @@ as ``launches_phase12``, every kernel's Phase 14 launches as
 ``launches_phase14`` and its Phase 15 launches as ``launches_phase15``,
 the flash kernels' Phase 16 launches (16b's two processes, both modes) as
 ``launches_phase16``, their Phase 17 launches (both processes, 17a and
-17b) as ``launches_phase17`` and their Phase 18 launches (both processes,
-18a and 18b) as ``launches_phase18``,
+17b) as ``launches_phase17``, their Phase 18 launches (both processes,
+18a and 18b) as ``launches_phase18`` and their Phase 19 launches (both
+processes, 19b-19d: the main path's, not 19a's comparisons) as
+``launches_phase19``,
 the paged kernels' Phase
 11 launches as ``launches_phase11`` and 11a's records as
 ``gpt2_xl_heads``, the flash kernels' fp32 Phase 4
@@ -5331,6 +5371,8 @@ def phase16(smi):
     counts = phase16_check(summary, data_rows, "phase16b", smi)
     counts17 = phase17_check(summary, first_row, "phase17", smi)
     counts18 = phase18_check(summary, smi)
+    counts19 = phase19_check(summary, smi)
+    phase19e(smi)
     t3 = time.perf_counter()
     n_dev = torch.cuda.device_count()
     if n_dev >= 2:
@@ -5362,13 +5404,14 @@ def phase16(smi):
         f"{small['steps']} steps bit-exact, opt state {small['state_bytes']}")
     shutil.rmtree(PHASE16_DIR, ignore_errors=True)
     in17 = sum(max(r["seconds"] for r in summary["model_axes"][m]) for m in ("fsdp", "tp"))
-    in18 = max(summary["then_seconds"])
-    log(f"phase16 seconds: 16a {t1 - t0:.1f}, 16b+17+18 {t3 - t1:.1f} (children "
-        f"{t2 - t1:.1f}, of it 17a+17b {in17:.1f}, 18 {in18:.1f}; reference step "
-        f"{t3 - t2:.1f}), 16c/17c {t4 - t3:.1f}, 16d beside 16b (waited {t5 - t4:.1f} more; "
-        f"its wall {small['wall_s']:.1f}); phases 16, 17 and 18 together {t5 - t0:.1f} ({smi})")
-    return dict(counts=counts, counts17=counts17, counts18=counts18, seconds=t5 - t0,
-                seconds17=in17, seconds18=in18)
+    in19 = max(r["p19"]["seconds_total"] for r in summary["then"])
+    in18 = max(summary["then_seconds"]) - in19
+    log(f"phase16 seconds: 16a {t1 - t0:.1f}, 16b+17+18+19 {t3 - t1:.1f} (children "
+        f"{t2 - t1:.1f}, of it 17a+17b {in17:.1f}, 18 {in18:.1f}, 19 {in19:.1f}; reference "
+        f"step {t3 - t2:.1f}), 16c/17c {t4 - t3:.1f}, 16d beside 16b (waited {t5 - t4:.1f} "
+        f"more; its wall {small['wall_s']:.1f}); phases 16-19 together {t5 - t0:.1f} ({smi})")
+    return dict(counts=counts, counts17=counts17, counts18=counts18, counts19=counts19,
+                seconds=t5 - t0, seconds17=in17, seconds18=in18, seconds19=in19)
 
 
 def phase17_check(summary, first_row, tag, smi):
@@ -5812,12 +5855,17 @@ def phase18c(rank, device, dtype):
 
 
 def phase18_child(rank, world, device):
-    """Phase 18 in one of 16b's children (``zero_smoke.run(then=...)``)."""
+    """Phases 18 and 19 in one of 16b's children (``zero_smoke.run(then=...)``);
+    Phase 19's record under ``"p19"``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return {"a": phase18a(rank, device), "b": phase18b(rank, device),
-            "c": phase18c(rank, device, torch.bfloat16),
-            "c32": phase18c(rank, device, torch.float32)}
+    out = {"a": phase18a(rank, device), "b": phase18b(rank, device),
+           "c": phase18c(rank, device, torch.bfloat16),
+           "c32": phase18c(rank, device, torch.float32)}
+    t = time.perf_counter()
+    out["p19"] = phase19_child(rank, device)
+    out["p19"]["seconds_total"] = time.perf_counter() - t
+    return out
 
 
 def phase18_check(summary, smi):
@@ -5912,7 +5960,532 @@ def phase18_check(summary, smi):
         check(rel <= loss_lim, f"{tag} ({key}): step-1 loss rel {rel:.3e}")
         check(nrel <= norm_lim, f"{tag} ({key}): step-1 pre-clip norm rel {nrel:.3e}")
         check(min(r0["norms"]) > 0.05, f"{tag} ({key}): the clip did not bind")
-    log(f"phase18 seconds a child {[round(s, 1) for s in summary['then_seconds']]} ({smi})")
+    own = [s - r["p19"]["seconds_total"] for s, r in zip(summary["then_seconds"], recs)]
+    log(f"phase18 seconds a child {[round(s, 1) for s in own]} ({smi})")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: sequence parallelism, inside 16b's two children after Phase 18
+# ---------------------------------------------------------------------------
+
+# meta-llama/Meta-Llama-3-8B's config.json (Hugging Face Hub), the values
+# config_from_hf reads.
+LLAMA3_8B = dict(
+    model_type="llama", architectures=["LlamaForCausalLM"], vocab_size=128256,
+    hidden_size=4096, intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, max_position_embeddings=8192, rms_norm_eps=1e-5,
+    rope_theta=500000.0, rope_scaling=None, hidden_act="silu", attention_bias=False,
+    tie_word_embeddings=False, bos_token_id=128000, eos_token_id=128001,
+    torch_dtype="bfloat16")
+PHASE19_SEQ = 8192  # 19b-19d: B 1 x S 8192, 4096 tokens a rank
+PHASE19_STEPS = 2
+PHASE19_SP = 2
+# 19a: the rings' shape, 19b-19d's attention (the whole sequence; 4096
+# tokens a rank), and 19c's: the fused attention on a rank's 16 / 4 heads
+# over the whole sequence.
+PHASE19A = dict(b=1, s=PHASE19_SEQ, h=32, kh=8, d=128)
+PHASE19A_TURNS = 3
+# 19d: one bf16 step of the ring against one process's bf16 step from the
+# same start (relative loss and pre-clip norm).  Each limit lies about 20x
+# above the ring's reading on the H100 and 25x below the same step's on the
+# row cut into two independent halves, what a ring whose K/V never crossed
+# computes (loss 2.5e-6 vs 1.4e-3, norm 2.4e-5 vs 1.4e-2; PERF.md,
+# Findings).
+PHASE19D_LOSS_REL = 5e-5
+PHASE19D_NORM_REL = 5e-4
+SP_COMM = ("ppermute:sp", "all_to_all:sp", "all_reduce:sp", "all_gather:sp")
+
+
+def llama3_8b_config(layers, **overrides):
+    """Llama-3-8B's config, built by the port's ``config_from_hf`` from its
+    published ``config.json`` values, cut to ``layers`` layers."""
+    from types import SimpleNamespace
+
+    from accelerate_tpu_torch.models.hf_import import config_from_hf
+
+    return config_from_hf(SimpleNamespace(**dict(LLAMA3_8B, num_hidden_layers=layers)),
+                          **overrides)
+
+
+def phase19_layers():
+    """19b's depth: 2 layers when the two ranks' reckoned peak (18 B a
+    parameter: fp32 masters, gradients and AdamW's two moments plus a
+    gradient copy; every leaf replicated over ``sp``) stays under
+    ``PHASE10_PEAK_LIMIT``, else 1; and the reckoning."""
+    per_rank = llama3_8b_config(2).num_params()
+    peak = PHASE19_SP * 18 * per_rank
+    return (2 if peak < PHASE10_PEAK_LIMIT else 1), {"params_a_rank": per_rank,
+                                                     "two_rank_peak_bytes": peak}
+
+
+def _sp_comm():
+    """The ``sp`` collectives' calls, bytes and host seconds in
+    ``COMM_LOG`` (staged through host memory on gloo)."""
+    from accelerate_tpu_torch.parallel import collectives
+
+    return {k: dict(calls=v["calls"], bytes=v["bytes"], seconds=round(v["seconds"], 4))
+            for k, v in collectives.COMM_LOG.items() if k in SP_COMM}
+
+
+def _phase19a_times(call):
+    """Median forward+backward ms of each of ``call``'s ``{name: fn}``
+    over ``PHASE19A_TURNS`` turns, their order alternated."""
+    times = {name: [] for name in call}
+    names = list(call)
+    for turn in range(PHASE19A_TURNS):
+        for name in names if turn % 2 == 0 else names[::-1]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def _phase19a_record(got, want, tol, launches, ms, plain_ms, want_launches):
+    """19a's record of one comparison: out, dQ, dK and dV's max errors,
+    ``allclose(atol=rtol=tol)`` (the ``fused_attention`` contract), the
+    plain version's largest value, the launches and both times."""
+    keys = ("out", "dq", "dk", "dv")
+    return dict(errs={k: float((a.float() - b.float()).abs().max())
+                      for k, a, b in zip(keys, got, want)},
+                close={k: bool(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol))
+                       for k, a, b in zip(keys, got, want)},
+                max_abs_plain={k: float(b.float().abs().max()) for k, b in zip(keys, want)},
+                launches=launches, want_launches=want_launches, ms=ms, plain_ms=plain_ms,
+                tol=tol)
+
+
+def phase19a(device):
+    """19a, in each child, at the shapes 19b-19d give the kernels: the ring
+    over the flash kernels against the same ring over their plain versions
+    on this rank's chunk of one sequence (``PHASE19A``: 4096 tokens a rank,
+    32 / 8 heads), causal and non-causal (19b's hop 0 and hop 1) in fp32
+    and bf16 (19d's); then 19c's: ``fused_attention`` on this rank's 16 / 4
+    heads over the whole sequence, fp32 and causal, against its plain
+    forward and backward.  Out, dQ, dK and dV, launches
+    per call, each version's forward+backward time in turns (both ranks
+    share the card and step in lockstep) and the ring's ``sp``
+    collectives."""
+    from accelerate_tpu_torch import Accelerator, ParallelismConfig
+    from accelerate_tpu_torch.ops import fused_attention as fu
+    from accelerate_tpu_torch.ops.ring_fused import (
+        ring_fused_attention,
+        ring_fused_attention_plain,
+    )
+    from accelerate_tpu_torch.parallel import collectives
+
+    class PlainFused(torch.autograd.Function):
+        # fused_attention over the kernels' plain versions.
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = fu.fused_attention_fwd_plain(q, k, v, causal=True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            return fu.fused_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+
+    fresh_state()
+    mesh = Accelerator(device=device, parallelism_config=ParallelismConfig(sp=PHASE19_SP)).mesh
+    rank = mesh.coords()["sp"]
+    g = PHASE19A
+    out = {}
+
+    def inputs(dtype, tokens=slice(None), heads=False):
+        # Whole [B, S, H, d] q, k, v and dO of ``PHASE19A`` from one seed;
+        # this rank's ``tokens``, and under ``heads`` its 1 / sp of the
+        # heads (Ulysses').
+        gen = torch.Generator().manual_seed(19)
+        out = []
+        for n in (g["h"], g["kh"], g["kh"], g["h"]):
+            part = slice(rank * n // PHASE19_SP, (rank + 1) * n // PHASE19_SP) if heads else ...
+            whole = torch.randn(g["b"], g["s"], n, g["d"], generator=gen)
+            out.append(whole[:, tokens, part].to(device, dtype).contiguous())
+        return out
+
+    def grads(fn, q, k, v, do):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o = fn(qq, kk, vv)
+        o.backward(do)
+        return [o.detach(), qq.grad, kk.grad, vv.grad]
+
+    sq = g["s"] // PHASE19_SP
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            q, k, v, do = inputs(dtype, slice(rank * sq, (rank + 1) * sq))
+            rings = {"kernel": lambda q_, k_, v_: ring_fused_attention(
+                         q_, k_, v_, mesh=mesh, causal=causal),
+                     "plain": lambda q_, k_, v_: ring_fused_attention_plain(
+                         q_, k_, v_, mesh=mesh, causal=causal)}
+            reset_flash_counts()
+            got = grads(rings["kernel"], q, k, v, do)
+            torch.cuda.synchronize()
+            launches = read_flash_counts()
+            want = grads(rings["plain"], q, k, v, do)
+            collectives.reset_comm_log()
+            ms = _phase19a_times({n: (lambda f=f: grads(f, q, k, v, do))
+                                  for n, f in rings.items()})
+            tag = f"ring-{str(dtype)[6:]}-{'causal' if causal else 'full'}"
+            out[tag] = _phase19a_record(got, want, TOL[str(dtype)], launches, ms["kernel"],
+                                        ms["plain"], dict.fromkeys(FLASH_KERNELS, PHASE19_SP))
+            out[tag].update(comm=_sp_comm(), shape=[list(q.shape), list(k.shape)])
+            del q, k, v, do, got, want
+    # 19c's local attention: this rank's heads of the whole sequence.
+    q, k, v, do = inputs(torch.float32, heads=True)
+    versions = {"kernel": lambda q_, k_, v_: fu.fused_attention(q_, k_, v_, causal=True),
+                "plain": PlainFused.apply}
+    reset_flash_counts()
+    got = grads(versions["kernel"], q, k, v, do)
+    torch.cuda.synchronize()
+    launches = read_flash_counts()
+    want = grads(versions["plain"], q, k, v, do)
+    ms = _phase19a_times({n: (lambda f=f: grads(f, q, k, v, do)) for n, f in versions.items()})
+    out["ulysses-float32-causal"] = _phase19a_record(
+        got, want, TOL["torch.float32"], launches, ms["kernel"], ms["plain"],
+        dict.fromkeys(FLASH_KERNELS, 1))
+    out["ulysses-float32-causal"]["shape"] = [list(q.shape), list(k.shape)]
+    del q, k, v, do, got, want
+    gc_collect()
+    return out
+
+
+def phase19_reference(layers, ids, device):
+    """One process, no collective: Llama-3-8B's widths at ``layers`` layers
+    from seed 0 on ``ids`` (B 1 x S ``PHASE19_SEQ``): 19d's references, the
+    loss and pre-clip norm of one bf16-compute step (no update) on the row
+    and, as the fault 19d's limits must catch, on the row cut into two
+    independent halves (B 2 x S/2: what a ring whose K/V never crossed
+    computes, less the one label across the cut); then
+    ``PHASE19_STEPS`` fp32 AdamW steps as ``make_train_step`` takes them.
+    Returns the record, the parameters after the steps (on the host) and
+    the squared norm of their change."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.optimizer import _update_body, global_norm
+    from accelerate_tpu_torch.parallel import zero_smoke
+
+    cfg32 = phase19_config(layers)
+    model = llama.LlamaForCausalLM(cfg32, seed=0, device=device)
+    batch = {"input_ids": ids.to(device)}
+    params = list(model.parameters())
+    model.config = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+    bf16 = {}
+    for name, rows in (("row", batch["input_ids"]),
+                       ("halves", batch["input_ids"].view(2, PHASE19_SEQ // 2))):
+        loss = model(input_ids=rows)["loss"]
+        grads = torch.autograd.grad(loss, params)
+        bf16[name] = dict(loss=float(loss.detach()), norm=float(global_norm(grads)))
+        del loss, grads
+    model.config = cfg32
+    start = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
+    losses, norms, launches, step_s = [], [], [], []
+    for _ in range(PHASE19_STEPS):
+        reset_flash_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = model(**batch)["loss"]
+        grads = list(torch.autograd.grad(loss, params))
+        _, health, ok = _update_body(opt, params, grads, zero_smoke.CLIP, -1.0)
+        check(bool(ok), "phase19 reference: the update was skipped")
+        losses.append(float(loss.detach()))
+        norms.append(float(health))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        launches.append(read_flash_counts())
+        del loss, grads
+    rec = dict(losses=losses, norms=norms, launches=launches, bf16=bf16, step_s=step_s)
+    end, delta_sq = {}, 0.0
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            delta_sq += _sq_diff(v, start.pop(k))[0]
+            end[k] = v.to("cpu", copy=True)
+    del model, opt, params
+    gc_collect()
+    return rec, end, delta_sq
+
+
+def phase19_config(layers, **overrides):
+    """19b's configuration: Llama-3-8B's widths at ``layers`` layers, fp32
+    compute and parameters, ``remat``, the fused kernels, the chunked
+    loss."""
+    return llama3_8b_config(layers, dtype=torch.float32, param_dtype=torch.float32, remat=True,
+                            attention_impl="pallas", loss_impl="chunked", **overrides)
+
+
+def _phase19_steps(acc, model, opt, batch, n, shapes=None):
+    """``n`` steps of ``make_train_step`` (AdamW, the binding clip):
+    losses, pre-clip norms, flash launches, the ``sp`` collectives and the
+    time a step, and the q / k shapes the fused attention saw
+    (``shapes``)."""
+    from accelerate_tpu_torch.ops import fused_attention as fu
+    from accelerate_tpu_torch.parallel import collectives, zero_smoke
+
+    step = acc.make_train_step(model, opt, clip_norm=zero_smoke.CLIP)
+    plain = fu.fused_attention
+
+    def recording(q, k, v, **kw):
+        shapes.append([list(q.shape), list(k.shape)])
+        return plain(q, k, v, **kw)
+
+    if shapes is not None:
+        fu.fused_attention = recording
+    rec = dict(losses=[], norms=[], launches=[], step_s=[], comm=[])
+    try:
+        for _ in range(n):
+            reset_flash_counts()
+            collectives.reset_comm_log()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rec["losses"].append(float(step(batch)))
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t)
+            rec["norms"].append(float(step.last_health_norm))
+            rec["launches"].append(read_flash_counts())
+            rec["comm"].append(_sp_comm())
+    finally:
+        fu.fused_attention = plain
+    return rec
+
+
+def phase19_child(rank, device):
+    """Phase 19 in one of 16b's children, after Phase 18: 19a, then rank 0's
+    one-process reference while rank 1 waits, then 19b (the kernel ring on
+    ``sp=2``, ``PHASE19_STEPS`` fp32 steps), 19c (the same weights and row
+    under ``sp_impl="ulysses"``, one step) and 19d (the ring in bf16, one
+    step), each from the same start; the parameters after 19b against the
+    reference's on rank 0 (every leaf is replicated over ``sp``)."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator, ParallelismConfig
+    from accelerate_tpu_torch.models import llama
+
+    out = {}
+    t0 = time.perf_counter()
+    out["a"] = phase19a(device)
+    fresh_state()
+    gc_collect()
+    dist.barrier()
+    t1 = time.perf_counter()
+    layers, reckoning = phase19_layers()
+    cfg32 = phase19_config(layers)
+    ids = torch.from_numpy(np.random.default_rng(25).integers(0, cfg32.vocab_size,
+                                                               size=(1, PHASE19_SEQ)))
+    out.update(layers=layers, reckoning=reckoning)
+    end = delta_sq = None
+    if rank == 0:
+        out["reference"], end, delta_sq = phase19_reference(layers, ids, device)
+    dist.barrier()
+    t2 = time.perf_counter()
+    fresh_state()
+    acc = Accelerator(device=device, parallelism_config=ParallelismConfig(sp=PHASE19_SP))
+    torch.cuda.reset_peak_memory_stats()
+    model = llama.LlamaForCausalLM(cfg32, seed=0, device=device)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    start = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    batch = {"input_ids": ids.to(acc.device)}
+    t3 = time.perf_counter()
+    out["b"] = _phase19_steps(acc, model, opt, batch, PHASE19_STEPS)
+    out["b"].update(mesh=dict(acc.mesh.shape), peak_bytes=torch.cuda.max_memory_allocated(),
+                    split=model._layout.sp == PHASE19_SP)
+    t4 = time.perf_counter()
+    sd = model.state_dict()
+    if rank == 0:
+        diff_sq, worst = 0.0, 0.0
+        with torch.no_grad():
+            for k, v in sd.items():
+                sq, most = _sq_diff(v, end.pop(k))
+                diff_sq += sq
+                worst = max(worst, most)
+        out["gap"] = dict(diff_sq=diff_sq, delta_sq=delta_sq, max_abs=worst,
+                          relnorm=(diff_sq / delta_sq) ** 0.5)
+    t5 = time.perf_counter()
+
+    def restart(config):
+        # The start's weights, ``config``, and AdamW from its first step (its
+        # state dropped: two states of 1.5 B parameters a rank do not fit
+        # two ranks on the card).
+        with torch.no_grad():
+            for k, v in sd.items():
+                v.copy_(start[k])
+        model.config = config
+        opt.optimizer.state.clear()
+        gc_collect()
+        return opt
+
+    shapes = []
+    out["c"] = _phase19_steps(acc, model, restart(dataclasses.replace(cfg32, sp_impl="ulysses")),
+                              batch, 1, shapes)
+    out["c"]["attention_shapes"] = shapes
+    t6 = time.perf_counter()
+    out["d"] = _phase19_steps(acc, model, restart(dataclasses.replace(cfg32, dtype=torch.bfloat16)),
+                              batch, 1)
+    t7 = time.perf_counter()
+    out["seconds"] = dict(a=t1 - t0, reference=t2 - t1, build=t3 - t2, b=t4 - t3,
+                          compare=t5 - t4, c=t6 - t5, d=t7 - t6)
+    del model, opt, acc, sd, start
+    fresh_state()
+    gc_collect()
+    dist.barrier()
+    return out
+
+
+def _phase19e_worker(rank, port, out_path):
+    """19e: one process per GPU over NCCL, 19a's rings on ``cuda:rank``."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    try:
+        rec = phase19a(f"cuda:{rank}")
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(rec, f)
+    finally:
+        fresh_state()
+        dist.destroy_process_group()
+
+
+def phase19e(smi):
+    """19e: the kernel ring over NCCL, one GPU per process, only where the
+    machine has two cards; else it says it did not run (never a pass)."""
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        log(f"phase19e not run: {n_dev} device (NCCL puts no two ranks on one GPU); not "
+            "counted as passed")
+        return None
+    import torch.multiprocessing as mp
+
+    path = os.path.join(PHASE16_DIR, "phase19e.json")
+    mp.spawn(_phase19e_worker, args=(free_port(), path), nprocs=2)
+    with open(path) as f:
+        rec = json.load(f)
+    for tag, r in rec.items():
+        check(all(r["close"].values()),
+              f"phase19e {tag}: kernel vs plain {r['errs']} over atol=rtol={r['tol']}")
+    log(f"phase19e NCCL, 2 GPUs: {rec} ({smi})")
+    return rec
+
+
+def phase19_check(summary, smi):
+    """19a-19d's proofs from the children's records (see the module
+    docstring, Phase 19); logs the readings before it checks them; returns
+    the flash launches of 19b-19d (the main path's)."""
+    recs = [r["p19"] for r in summary["then"]]
+    totals = dict.fromkeys(FLASH_KERNELS, 0)
+    r0 = recs[0]
+    n = PHASE19_SP
+    for rank, r in enumerate(recs):
+        for tag, a in r["a"].items():
+            what = ("the ring over the flash kernels vs over their plain versions, this rank's "
+                    f"chunk of B {PHASE19A['b']} x S {PHASE19A['s']}" if tag.startswith("ring")
+                    else "fused_attention vs its plain version on this rank's heads of the "
+                         "whole sequence (19c's)")
+            log(f"phase19a rank {rank} {tag}, {what}, q / k {a['shape']}: max errors "
+                f"{a['errs']} over max |plain| {a['max_abs_plain']} (atol=rtol={a['tol']}: "
+                f"{a['close']}); launches a call {a['launches']}; fwd+bwd ms kernel "
+                f"{a['ms']:.3f} plain {a['plain_ms']:.3f} ({PHASE19A_TURNS} turns, two ranks "
+                f"sharing the card); sp collectives over the turns {a.get('comm')} ({smi})")
+            check(all(a["close"].values()),
+                  f"phase19a {tag}: kernel vs plain {a['errs']} over atol=rtol={a['tol']}")
+            check(a["launches"] == a["want_launches"],
+                  f"phase19a {tag}: launches a call {a['launches']}, want {a['want_launches']}")
+    ref = r0["reference"]
+    L = r0["layers"]
+    ring_step = {"fused_attention_fwd": 2 * n * L, "fused_attention_bwd_dq": n * L,
+                 "fused_attention_bwd_dkv": n * L}
+    one_step = {"fused_attention_fwd": 2 * L, "fused_attention_bwd_dq": L,
+                "fused_attention_bwd_dkv": L}
+    b0 = r0["b"]
+    loss_rel = [abs(x - y) / abs(y) for x, y in zip(b0["losses"], ref["losses"])]
+    norm_rel = [abs(x - y) / y for x, y in zip(b0["norms"], ref["norms"])]
+    log(f"phase19b Llama-3-8B (config_from_hf(meta-llama/Meta-Llama-3-8B)) on sp={n}, {L} "
+        f"layers (reckoned {r0['reckoning']}, limit {PHASE10_PEAK_LIMIT:.0f}), fp32, the ring "
+        f"over the flash kernels, chunked loss, B 1 x S {PHASE19_SEQ} ({PHASE19_SEQ // n} a "
+        f"rank): losses {b0['losses']} / {recs[1]['b']['losses']} vs one process "
+        f"{ref['losses']} (rel {loss_rel}, limit {PHASE18A_LOSS_REL}); pre-clip norms "
+        f"{b0['norms']} vs {ref['norms']} (rel {norm_rel}, limit {PHASE18A_NORM_REL}); "
+        f"parameters' change against one process's {r0['gap']} (limit {PHASE18A_DELTA_REL}); "
+        f"flash a step {b0['launches']} (want {ring_step}) vs one process {ref['launches']}; "
+        f"steps s {[round(x, 3) for x in b0['step_s']]} vs one process "
+        f"{[round(x, 3) for x in ref['step_s']]}; sp collectives a step {b0['comm']}; peak GB "
+        f"a rank {[round(r['b']['peak_bytes'] / 1e9, 2) for r in recs]}; seconds "
+        f"{r0['seconds']} ({smi})")
+    for r in recs:
+        b = r["b"]
+        check(b["mesh"]["sp"] == n and b["split"], f"phase19b: mesh {b['mesh']}, split "
+                                                   f"{b['split']}")
+        check(b["losses"] == b0["losses"], "phase19b: the ranks' losses differ")
+        check(all(s == ring_step for s in b["launches"]),
+              f"phase19b: flash launches {b['launches']}, want {ring_step} a step")
+        check(all("ppermute:sp" in c for c in b["comm"]), f"phase19b: no ring hop {b['comm']}")
+        for key in ("b", "c", "d"):
+            for s in r[key]["launches"]:
+                for k in totals:
+                    totals[k] += s[k]
+    check(all(s == one_step for s in ref["launches"]),
+          f"phase19b: one process's flash launches {ref['launches']}")
+    check(max(loss_rel) <= PHASE18A_LOSS_REL, f"phase19b: losses rel {loss_rel}")
+    check(max(norm_rel) <= PHASE18A_NORM_REL, f"phase19b: pre-clip norms rel {norm_rel}")
+    check(min(ref["norms"]) > 0.05, "phase19b: the clip did not bind")
+    check(r0["gap"]["relnorm"] <= PHASE18A_DELTA_REL,
+          f"phase19b: the parameters' change against one process's: {r0['gap']}")
+    c0 = r0["c"]
+    c_loss = abs(c0["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    c_norm = abs(c0["norms"][0] - ref["norms"][0]) / ref["norms"][0]
+    shapes = c0["attention_shapes"]
+    want_heads = (LLAMA3_8B["num_attention_heads"] // n, LLAMA3_8B["num_key_value_heads"] // n)
+    log(f"phase19c the same on sp_impl='ulysses', one step: loss {c0['losses']} / "
+        f"{recs[1]['c']['losses']} vs {ref['losses'][0]!r} (rel {c_loss:.3e}); pre-clip norm "
+        f"{c0['norms']} vs {ref['norms'][0]!r} (rel {c_norm:.3e}); flash {c0['launches']} "
+        f"(want {one_step}); the fused attention saw q/k {shapes[:1]} x {len(shapes)}; step s "
+        f"{[round(x, 3) for x in c0['step_s']]}; sp collectives {c0['comm']} ({smi})")
+    for r in recs:
+        c = r["c"]
+        check(c["losses"] == c0["losses"], "phase19c: the ranks' losses differ")
+        check(all(s == one_step for s in c["launches"]),
+              f"phase19c: flash launches {c['launches']}, want {one_step}")
+        check(c["attention_shapes"] and all(
+            q[1] == PHASE19_SEQ and q[2] == want_heads[0] and k[2] == want_heads[1]
+            for q, k in c["attention_shapes"]),
+            f"phase19c: attention q/k {c['attention_shapes'][:2]}, want {want_heads} heads "
+            f"over {PHASE19_SEQ} tokens")
+        check(all("all_to_all:sp" in x for x in c["comm"]), f"phase19c: {c['comm']}")
+    check(c_loss <= PHASE18A_LOSS_REL, f"phase19c: loss rel {c_loss:.3e}")
+    check(c_norm <= PHASE18A_NORM_REL, f"phase19c: pre-clip norm rel {c_norm:.3e}")
+    d0 = r0["d"]
+    want, halves = ref["bf16"]["row"], ref["bf16"]["halves"]
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+
+    d_loss, d_norm = rel(d0["losses"][0], want["loss"]), rel(d0["norms"][0], want["norm"])
+    f_loss, f_norm = rel(halves["loss"], want["loss"]), rel(halves["norm"], want["norm"])
+    bf16_err = {k: max(r["a"]["ring-bfloat16-causal"]["errs"][k] for r in recs)
+                for k in ("out", "dq", "dk", "dv")}
+    log(f"phase19d the ring in bf16, one step: loss {d0['losses']} / {recs[1]['d']['losses']} "
+        f"and pre-clip norm {d0['norms']} / {recs[1]['d']['norms']} vs one process's bf16 "
+        f"step {want} (rel loss {d_loss:.3e}, limit {PHASE19D_LOSS_REL}; rel norm "
+        f"{d_norm:.3e}, limit {PHASE19D_NORM_REL}); the fault, the row cut into two "
+        f"independent halves, {halves} (rel loss {f_loss:.3e}, norm {f_norm:.3e}); one "
+        f"process's fp32 step 1 vs its bf16 step: rel loss "
+        f"{rel(ref['losses'][0], want['loss']):.3e}, norm "
+        f"{rel(ref['norms'][0], want['norm']):.3e}; "
+        f"19a's bf16 causal ring max errors {bf16_err}; flash {d0['launches']}; step s "
+        f"{[round(x, 3) for x in d0['step_s']]} ({smi})")
+    for r in recs:
+        check(r["d"]["losses"] == d0["losses"], "phase19d: the ranks' losses differ")
+        check(all(s == ring_step for s in r["d"]["launches"]),
+              f"phase19d: flash launches {r['d']['launches']}, want {ring_step}")
+    check(d_loss <= PHASE19D_LOSS_REL, f"phase19d: bf16 loss rel {d_loss:.3e}")
+    check(d_norm <= PHASE19D_NORM_REL, f"phase19d: bf16 pre-clip norm rel {d_norm:.3e}")
+    log(f"phase19 seconds a child {[round(r['seconds_total'], 1) for r in recs]} ({smi})")
     return totals
 
 
@@ -5996,6 +6569,8 @@ def main() -> int:
           f"phase 17 launched the flash kernels {p16['counts17']} times")
     check(all(p16["counts18"][n] > 0 for n in FLASH_KERNELS),
           f"phase 18 launched the flash kernels {p16['counts18']} times")
+    check(all(p16["counts19"][n] > 0 for n in FLASH_KERNELS),
+          f"phase 19 launched the flash kernels {p16['counts19']} times")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
@@ -6053,6 +6628,7 @@ def main() -> int:
                            launches_phase16=p16["counts"][name],
                            launches_phase17=p16["counts17"][name],
                            launches_phase18=p16["counts18"][name],
+                           launches_phase19=p16["counts19"][name],
                            head_dims=list(fu_dims),
                            wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
                                        for geom, dt in p10["flash"]},

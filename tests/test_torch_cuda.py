@@ -1865,3 +1865,63 @@ def test_two_ranks_sharing_the_card_match_one_process(cuda, mode):
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     mp.spawn(_two_ranks_on_the_card, args=(port, mode), nprocs=2)
+
+
+def _ring_halves(dtype):
+    """Llama-3-8B head geometry, queries ``q`` of 1024 tokens against keys
+    in two halves of 1024 (the ring's hops), and the whole as one call's
+    inputs: queries ``[q; q]`` over keys ``[k1; k2]`` with ``dO`` zero on the
+    second copy (its rows add nothing to dK and dV)."""
+    gen = torch.Generator().manual_seed(25)
+
+    def randn(h):
+        return torch.randn(1, 1024, h, 128, generator=gen).to("cuda", dtype)
+
+    q, k1, k2, v1, v2, do = randn(32), randn(8), randn(8), randn(8), randn(8), randn(32)
+    whole = [torch.cat(t, 1).contiguous() for t in ((q, q), (k1, k2), (v1, v2),
+                                                      (do, torch.zeros_like(do)))]
+    return q, (k1, k2), (v1, v2), do, whole
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_lse_merge_of_two_forward_halves_matches_one_forward(cuda, dtype):
+    """The ring's forward merge: two non-causal fused forwards over halves of
+    the keys, merged in fp32 (``ring_fused._merge``), against one fused
+    forward over all the keys (out and lse)."""
+    from accelerate_tpu_torch.ops.ring_fused import _merge
+
+    q, ks, vs, _, whole = _ring_halves(dtype)
+    out_whole, lse_whole = fu.fused_attention_fwd(*whole[:3], causal=False, block_size=2048)
+    o1, l1 = fu.fused_attention_fwd(q, ks[0], vs[0], causal=False, block_size=1024)
+    o2, l2 = fu.fused_attention_fwd(q, ks[1], vs[1], causal=False, block_size=1024)
+    out, lse = _merge(o1.float(), l1, o2, l2)
+    torch.testing.assert_close(out.to(dtype).float(), out_whole[:, :1024].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, lse_whole[:, :, :1024], atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_backward_halves_with_delta_once_match_one_backward(cuda, dtype):
+    """The ring's backward: δ = rowsum(dO∘O) once from the whole out, the dQ
+    and dK/dV kernels on each half of the keys with the whole lse; dQ
+    summed, dK and dV concatenated, against one fused backward over all the
+    keys."""
+    q, ks, vs, do, whole = _ring_halves(dtype)
+    out_whole, lse_whole = fu.fused_attention_fwd(*whole[:3], causal=False, block_size=2048)
+    dq_w, dk_w, dv_w = fu.fused_attention_bwd(*whole[:3], out_whole, lse_whole, whole[3],
+                                              causal=False)
+    out = out_whole[:, :1024].contiguous()
+    lse = lse_whole[:, :, :1024].contiguous()
+    delta = fu._delta(out, do)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    dks, dvs = [], []
+    for k, v in zip(ks, vs):
+        dq += fu.fused_attention_bwd_dq(q, k, v, do, lse, delta, causal=False).float()
+        dk, dv = fu.fused_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False)
+        dks.append(dk)
+        dvs.append(dv)
+    tol = TOL[dtype]
+    torch.testing.assert_close(dq.to(dtype).float(), dq_w[:, :1024].float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(torch.cat(dks, 1).float(), dk_w.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(torch.cat(dvs, 1).float(), dv_w.float(), atol=tol, rtol=tol)

@@ -323,8 +323,13 @@ def test_megatron_env_contract(monkeypatch):
 def test_megatron_unported_parts_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="A7"):
         Accelerator(cpu=True, megatron_lm_plugin=MegatronLMPlugin(pp_degree=2))
-    with pytest.raises(NotImplementedError, match="A6 part 2"):
-        Accelerator(cpu=True, megatron_lm_plugin=MegatronLMPlugin(sequence_parallelism=True))
+    # Sequence parallelism is ported (ROADMAP A6 part 2): without sp_degree
+    # the plugin makes no sp axis and says so, as JAX's does.
+    with pytest.warns(UserWarning, match="sp_degree"):
+        acc = Accelerator(cpu=True,
+                          megatron_lm_plugin=MegatronLMPlugin(sequence_parallelism=True))
+    assert acc.mesh.shape["sp"] == 1
+    AcceleratorState._reset_state(reset_partial_state=True)
     from accelerate_tpu_torch.models import llama as tl
 
     cfg = tl.LlamaConfig.tiny(dtype=torch.float32)

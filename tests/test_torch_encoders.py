@@ -243,5 +243,7 @@ def test_encoder_entry_points_default_to_cuda():
                lambda: tr.init_batch_stats(tr.ResNetConfig.tiny())):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn()
-    with pytest.raises(NotImplementedError, match="A6"):
-        tb.BertConfig.tiny(sp_impl="ulysses")
+    # Ulysses is ported (ROADMAP A6 part 2); an unknown sp_impl still raises.
+    assert tb.BertConfig.tiny(sp_impl="ulysses").sp_impl == "ulysses"
+    with pytest.raises(ValueError, match="sp_impl"):
+        tb.BertConfig.tiny(sp_impl="rings")

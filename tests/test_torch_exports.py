@@ -215,6 +215,13 @@ A6_PART1 = {  # FSDP, the llama family's TP, the DeepSpeed and Megatron-LM diale
                            "constrain", "embed_lookup", "manual_region", "in_manual_region"],
     ".models.llama": ["param_specs"],
 }
+A6_PART2 = {  # sequence parallelism: the rings, Ulysses, the shared dispatch
+    ".ops": ["ring_attention", "ring_self_attention"],
+    ".ops.ring_attention": ["ring_attention", "ring_self_attention", "full_sequence_attention",
+                            "resolve_sp_mesh", "tp_head_axis"],
+    ".ops.ulysses_attention": ["ulysses_attention"],
+    ".models.llama": ["sp_attention"],
+}
 A1B_CONSTANTS = {".utils": ["SAFE_WEIGHTS_NAME", "WEIGHTS_NAME", "MODEL_NAME", "SCALER_NAME",
                             "TORCH_LAUNCH_PARAMS"],
                  ".utils.constants": ["STR_OPERATION_TO_FUNC", "FSDP_SHARDING_STRATEGY"]}
@@ -337,6 +344,51 @@ def test_a6_part1_all_is_jax_all():
         port_mod = importlib.import_module("accelerate_tpu_torch" + mod)
         assert port_mod.__all__ == jax_mod.__all__, mod
     assert [(r, tuple(s)) for r, s in jl.PARTITION_RULES] == tl.PARTITION_RULES
+
+
+@pytest.mark.parametrize("path,name", _cases(A6_PART2), ids=lambda v: v)
+def test_a6_part2_names_import_at_jax_paths(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert isinstance(port_obj, type) == isinstance(jax_obj, type) and callable(port_obj)
+    assert port_obj.__module__.startswith("accelerate_tpu_torch.")
+
+
+def test_a6_part2_all_is_jax_all():
+    for mod in (".ops.ring_attention", ".ops.ulysses_attention"):
+        jax_mod = importlib.import_module("accelerate_tpu" + mod)
+        port_mod = importlib.import_module("accelerate_tpu_torch" + mod)
+        assert port_mod.__all__ == jax_mod.__all__, mod
+
+
+def test_a6_part2_sp_resolves_and_pp_raises():
+    from accelerate_tpu.utils.dataclasses import ParallelismConfig as JaxParallelismConfig
+
+    from accelerate_tpu_torch.state import resolve_parallelism
+    from accelerate_tpu_torch.utils import ParallelismConfig
+
+    for kw in (dict(sp=2), dict(dp=2, sp=4), dict(fsdp=2, sp=2, tp=2)):
+        got = resolve_parallelism(ParallelismConfig(**kw), ParallelismConfig(**kw).total_size)
+        want = JaxParallelismConfig(**kw)
+        assert [getattr(got, a) for a in got.AXIS_ORDER] == [getattr(want, a)
+                                                             for a in want.AXIS_ORDER]
+    with pytest.raises(NotImplementedError, match="A7"):
+        resolve_parallelism(ParallelismConfig(pp=2), 2)
+
+
+def test_a6_part2_megatron_sequence_parallelism_maps_as_jax():
+    from accelerate_tpu.utils.megatron import MegatronLMPlugin as JaxPlugin
+
+    from accelerate_tpu_torch.utils import MegatronLMPlugin
+
+    for kw, world in ((dict(sequence_parallelism=True, sp_degree=2), 2),
+                      (dict(tp_degree=2, sequence_parallelism=True, sp_degree=2), 8),
+                      (dict(sequence_parallelism=True, sp_degree=4,
+                            use_distributed_optimizer=True), 8)):
+        got = MegatronLMPlugin(**kw).to_parallelism_config(world)
+        want = JaxPlugin(**kw).to_parallelism_config(world)
+        assert [getattr(got, a) for a in got.AXIS_ORDER] == [getattr(want, a)
+                                                             for a in want.AXIS_ORDER], kw
+        assert got.sp == kw["sp_degree"]
 
 
 @pytest.mark.parametrize("path,name", _cases(A5), ids=lambda v: v if v else "top")

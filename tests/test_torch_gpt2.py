@@ -280,8 +280,10 @@ def test_position_table_bounds_the_cache_and_the_table(gpt2_setup):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="sp_impl"):
-        tg.GPT2Config.tiny(sp_impl="ulysses")
+    # Ulysses is ported (ROADMAP A6 part 2); an unknown sp_impl still raises.
+    assert tg.GPT2Config.tiny(sp_impl="ulysses").sp_impl == "ulysses"
+    with pytest.raises(ValueError, match="sp_impl"):
+        tg.GPT2Config.tiny(sp_impl="rings")
     with pytest.raises(ValueError, match="loss_impl"):
         tg.GPT2Config.tiny(loss_impl="sparse")
     cfg = tg.GPT2Config.tiny(dtype=torch.float32)

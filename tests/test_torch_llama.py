@@ -212,8 +212,17 @@ def test_init_params_shapes_and_rule():
 ])
 def test_unported_config_fields_raise(field, value):
     """The fields still unported raise; ``kv_cache_quant`` is ported and
-    gives an int8 cache, and ``remat_policy="dots"`` is ported and trains
-    (its parity with JAX is in ``test_torch_remat_dots.py``)."""
+    gives an int8 cache, ``remat_policy="dots"`` is ported and trains
+    (its parity with JAX is in ``test_torch_remat_dots.py``), and
+    ``sp_impl="ulysses"`` is ported and, off an ``sp`` mesh, trains as the
+    one-process forward (its parity with JAX is in ``test_torch_sp.py``)."""
+    if field == "sp_impl":
+        cfg = tl.LlamaConfig.tiny(dtype=torch.float32, **{field: value})
+        plain = tl.LlamaConfig.tiny(dtype=torch.float32)
+        params = tl.init_params(cfg, seed=0, device="cpu")
+        batch = {"input_ids": torch.tensor([[1, 2, 3, 4]])}
+        assert torch.equal(tl.loss_fn(params, batch, cfg), tl.loss_fn(params, batch, plain))
+        return
     if field == "kv_cache_quant":
         cache = tl.init_cache(tl.LlamaConfig.tiny(**{field: value}), 1, 4, device="cpu")
         assert cache["k"].dtype == torch.int8 and cache["k_scale"].dtype == torch.bfloat16

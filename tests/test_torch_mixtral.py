@@ -226,8 +226,10 @@ def test_engine_serves_on_the_dense_path_as_generate(mixtral_setup):
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="A8"):
         tmx.MixtralConfig.tiny(fp8=True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tmx.MixtralConfig.tiny(sp_impl="ulysses")
+    # Ulysses is ported (ROADMAP A6 part 2); an unknown sp_impl still raises.
+    assert tmx.MixtralConfig.tiny(sp_impl="ulysses").sp_impl == "ulysses"
+    with pytest.raises(ValueError, match="sp_impl"):
+        tmx.MixtralConfig.tiny(sp_impl="rings")
     with pytest.raises(ValueError, match="moe_impl"):
         tmx.MixtralConfig.tiny(moe_impl="sparse")
     cfg = tmx.MixtralConfig.tiny(dtype=torch.float32)

@@ -104,11 +104,12 @@ def test_mesh_errors(monkeypatch):
     with pytest.raises(ValueError) as je:
         _jax_resolve(monkeypatch, JaxParallelismConfig(dp=4), 2, 1)
     assert str(te.value) == str(je.value)
-    parts = {"sp": "part 2", "pp": "A7"}
+    parts = {"pp": "A7"}
     for axis, part in parts.items():
         with pytest.raises(NotImplementedError, match=part):
             resolve_parallelism(ParallelismConfig(**{axis: 2}), 2)
-    for axis in ("fsdp", "tp", "ep"):  # the model axes of ROADMAP A6 part 1 run
+    # the model axes of ROADMAP A6 part 1 and the sp axis of part 2 run
+    for axis in ("fsdp", "tp", "ep", "sp"):
         assert _fields(resolve_parallelism(ParallelismConfig(**{axis: 2}), 2)) == _fields(
             _jax_resolve(monkeypatch, JaxParallelismConfig(**{axis: 2}), 2, 1))
 

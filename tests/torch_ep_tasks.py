@@ -87,7 +87,7 @@ def build(family, np_params, cfg_kw, np_stats=None):
         return {"loss": loss(p, batch, cfg, layout=layout)}
 
     return FunctionalModel(apply_fn, params, partition_rules=fam.PARTITION_RULES,
-                           handles_layout=True)
+                           handles_layout=True, splits_sequence=family != "t5")
 
 
 def _mine(acc, batch):
@@ -103,7 +103,8 @@ def family_step(family, np_params, cfg_kw, mesh_kw, strategy, batch, lr, np_stat
     gradient gathered to its full shape, this process's own gradients, the
     norm ``clip_grad_norm_`` returns, the full parameters after the step,
     this process's shards as ``prepare`` left them, the specs, the
-    collectives' log keys and (ResNet) the new batch statistics."""
+    collectives' log keys, (ResNet) the new batch statistics, and whether
+    the model's layout splits the sequence over ``sp``."""
     from accelerate_tpu_torch.parallel.sharding import gather_full, spec_of
 
     acc = _fresh(mesh_kw, strategy)
@@ -129,9 +130,11 @@ def family_step(family, np_params, cfg_kw, mesh_kw, strategy, batch, lr, np_stat
     stats = None
     if family == "resnet":
         stats = {k: v.clone() for k, v in _flat(model.box["stats"]).items()}
+    layout = getattr(model, "_layout", None)
     return {"loss": float(loss1), "norm": norm, "grads": grads, "local": local, "p1": p1,
             "shards": shards, "specs": specs, "coords": mesh.coords(), "stats": stats,
-            "comm": sorted(collectives.COMM_LOG), "param_specs": model._param_specs}
+            "comm": sorted(collectives.COMM_LOG), "param_specs": model._param_specs,
+            "split": bool(layout is not None and layout.sp > 1)}
 
 
 def ragged_checks(mesh_kw):
