@@ -350,6 +350,8 @@ class Accelerator:
         self._load_state_pre_hooks: dict = {}
         self.last_save_timing: Optional[dict] = None
         self.last_load_timing: Optional[dict] = None
+        self.last_resume_info = None  # an ElasticResumeInfo after resume_from_latest
+        self._async_save = None  # the in-flight save_state(async_save=True)
         self._preemption_guard = None
         self._health_guard = None
         # The DDP comm-hook counterpart of the JAX PreparedModel: under an
@@ -951,7 +953,10 @@ class Accelerator:
         raise ValueError(f"Tracker {name} not found")
 
     def end_training(self):
-        """Close every tracker."""
+        """Publish a pending asynchronous save (:meth:`wait_for_checkpoint`),
+        then close every tracker."""
+        if self._async_save is not None:
+            self.wait_for_checkpoint()
         for tracker in self.trackers:
             tracker.finish()
 
@@ -1034,16 +1039,28 @@ class Accelerator:
             self._custom_objects.append(obj)
 
     def save_state(self, output_dir: Optional[str] = None, step: Optional[int] = None,
-                   verified: bool = True) -> str:
+                   verified: bool = True, async_save: bool = False) -> str:
         """Write a verified checkpoint of everything prepared (see
         :mod:`accelerate_tpu_torch.checkpointing`) and return its directory;
         under automatic naming it is
         ``<project_dir>/checkpoints/checkpoint_<iteration>``.
         ``verified=False`` writes in place, with no staging and no
-        manifest."""
+        manifest.  ``async_save=True`` returns once every tensor is copied
+        to host memory and writes the files on a thread: the checkpoint is
+        published by :meth:`wait_for_checkpoint`, :meth:`end_training` or
+        the next ``save_state``."""
         from .checkpointing import save_accelerator_state
 
-        return save_accelerator_state(self, output_dir, step=step, verified=verified)
+        return save_accelerator_state(self, output_dir, step=step, verified=verified,
+                                      async_save=async_save)
+
+    def wait_for_checkpoint(self) -> None:
+        """Block until the in-flight ``save_state(async_save=True)``'s files
+        are written, then run its deferred manifest and atomic publish; a
+        failed write re-raises here and nothing is published."""
+        from .checkpointing import finalize_async_checkpoint
+
+        finalize_async_checkpoint(self)
 
     def load_state(self, input_dir: Optional[str] = None, verify: bool = True) -> str:
         """Restore a checkpoint written by :meth:`save_state` (verified
@@ -1082,19 +1099,63 @@ class Accelerator:
         when none), or None when there is no complete checkpoint
         (``verify=False`` loads it without checking the manifest's sizes
         and hashes).  Automatic naming continues after the checkpoint
-        resumed from."""
+        resumed from.
+
+        Elastic: a checkpoint saved under another topology (mesh, world
+        size, ZeRO or ``fsdp`` layout) lands on the live one.  Its topology
+        record is planned and validated leaf by leaf, and the
+        ``skip_first_batches`` count recomputed for a changed global batch,
+        before anything is loaded (a pipeline stage-count change or a
+        non-divisible batch geometry raises
+        :class:`~accelerate_tpu_torch.resilience.ElasticTopologyError` with
+        the live state untouched).  What happened is kept in
+        ``last_resume_info`` (an
+        :class:`~accelerate_tpu_torch.resilience.ElasticResumeInfo`); a
+        checkpoint with no topology record resumes on the legacy path, with
+        a warning."""
+        from .resilience import elastic
         from .resilience.manifest import find_latest_complete, read_manifest
 
         root = checkpoint_dir or os.path.join(self.project_dir or ".", "checkpoints")
         ckpt = find_latest_complete(root)
         if ckpt is None:
             return None
-        step = (read_manifest(ckpt) or {}).get("step")
+        manifest = read_manifest(ckpt) or {}
+        topology = manifest.get(elastic.TOPOLOGY_KEY)
+        step = manifest.get("step")
+        resumed_step = int(step) if step is not None else 0
+        plan = skip_batches = None
+        if topology is None:
+            import logging
+
+            logging.getLogger(__name__).warning(
+                f"checkpoint {ckpt!r} carries no topology record (pre-elastic save): "
+                "resuming best-effort, assuming it was saved under the current mesh — "
+                "cross-topology state cannot be validated.")
+        else:
+            plan = elastic.plan_resume(topology, self)
+            elastic.validate_leaves(topology, self)
+            live_gb = None
+            for dl in self._dataloaders:
+                try:
+                    live_gb = int(dl.total_batch_size)
+                except Exception:
+                    live_gb = None
+                break
+            # Only a changed global batch needs the recomputed skip: the same
+            # geometry keeps the loader position load_state restores.
+            if (plan.saved_global_batch is not None and live_gb is not None
+                    and plan.saved_global_batch != live_gb):
+                skip_batches = elastic.recompute_skip_batches(
+                    resumed_step, plan.saved_global_batch, live_gb)
         self.load_state(ckpt, verify=verify)
         tail = os.path.basename(ckpt).rsplit("_", 1)[-1]
         if os.path.basename(ckpt).startswith("checkpoint_") and tail.isdigit():
             self.project_configuration.iteration = int(tail) + 1
-        return int(step) if step is not None else 0
+        self.last_resume_info = elastic.ElasticResumeInfo(
+            step=resumed_step, checkpoint=ckpt, plan=plan, legacy=topology is None,
+            skip_batches=skip_batches)
+        return resumed_step
 
     # -- preemption ---------------------------------------------------------------
 

@@ -1,0 +1,215 @@
+"""Start a world of processes for one job and wait for them.
+
+The launcher the smokes share (:mod:`.zero_smoke`, the training chaos
+campaign and the elastic smoke, the resilience smokes' and the serving
+campaign's lives): :func:`start` forks ``world`` children from a server
+process that has imported ``FORK_PRELOAD`` once (and initialised no CUDA),
+so a child skips the interpreter's start and torch's import; each calls
+``<module>.main(argv(rank))`` under the job's environment, with the
+repository on ``PYTHONPATH`` and any ``torchrun`` variables removed.
+Told its rank, the world size and a ``file://`` rendezvous under the job's
+work directory (never a fixed port), a child meets the others in a process
+group of their own through :func:`join_group`.  :meth:`Job.wait` waits for
+every child under a time limit and kills the rest when it passes; a parent
+can start a job whose children build their state and then wait for a go
+signal (:func:`wait_for_file`) while an earlier job still runs.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import threading
+import time
+from typing import Callable, Optional, Sequence
+
+__all__ = ["rendezvous", "child_env", "start", "Job", "wait_for_file", "join_group",
+           "devices_for", "FORK_PRELOAD"]
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+# What a forked child finds imported already: torch, its process groups and
+# the compiler stack its optimizers import (seconds of every start).
+FORK_PRELOAD = ("torch", "torch.distributed", "torch._dynamo", "numpy")
+
+
+def rendezvous(workdir: str) -> str:
+    """A fresh ``file://`` init method under ``workdir``."""
+    return f"file://{os.path.join(workdir, f'rendezvous_{os.getpid()}_{time.time_ns()}')}"
+
+
+def child_env(base: Optional[dict] = None) -> dict:
+    """``base`` (the environment by default) with the repository on
+    ``PYTHONPATH`` and the ``torchrun`` variables removed."""
+    env = dict(os.environ if base is None else base)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (_ROOT, env.get("PYTHONPATH")) if p)
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(name, None)
+    return env
+
+
+def devices_for(device, world: int, backend: Optional[str] = None) -> tuple:
+    """``(backend, devices)`` for ``world`` processes on ``device`` (a
+    ``torch.device``): NCCL with a card each where there are enough cards
+    (or where asked), else gloo, with every process on card 0 (or on the
+    CPU)."""
+    import torch
+
+    if backend is None:
+        backend = ("nccl" if device.type == "cuda" and torch.cuda.device_count() >= world
+                   else "gloo")
+    if backend == "nccl":
+        return backend, [f"cuda:{r}" for r in range(world)]
+    return backend, [("cuda:0" if device.type == "cuda" else "cpu")] * world
+
+
+class Job:
+    """The processes of one job, started together: :meth:`wait` collects
+    them."""
+
+    def __init__(self, module: str, procs: list, spools: list, started: float):
+        self.module, self.procs, self.spools, self.started = module, procs, spools, started
+
+    def wait(self, timeout: float = 900.0) -> list:
+        """Wait for every child (within ``timeout`` seconds of the start);
+        each one's ``(exitcode, stdout, stderr)`` (the streams None unless
+        captured; the exit code negative for a signal).  A child still
+        running when the wait ends is killed."""
+        deadline = self.started + timeout
+        late = []
+        try:
+            for p in self.procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+                late.append(p.exitcode is None)
+        finally:
+            self.kill()
+        out = []
+        for p, killed, (so, se) in zip(self.procs, late, self.spools):
+            texts = []
+            for f in (so, se):
+                if f is None:
+                    texts.append(None)
+                else:
+                    f.seek(0)
+                    texts.append(f.read())
+                    f.close()
+                    os.unlink(f.name)
+            if killed:
+                texts[1] = (texts[1] or "") + f"\n{self.module}: killed after {timeout} s"
+            out.append((p.exitcode, *texts))
+        return out
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.exitcode is None:
+                p.kill()
+                p.join()
+
+
+def start(module: str, argv: Callable[[int], Sequence[str]], world: int,
+          env: Optional[dict] = None, capture: bool = False) -> Job:
+    """Start ``world`` children, forked together, each calling
+    ``module.main(argv(rank))`` under ``env`` (this process's by default);
+    its return value is the child's exit code.  ``capture`` spools each
+    child's streams through files, so no child ever blocks on a full
+    pipe."""
+    import tempfile
+
+    env = child_env(env)
+    spools = [(tempfile.NamedTemporaryFile("w+", delete=False),
+               tempfile.NamedTemporaryFile("w+", delete=False)) if capture
+              else (None, None) for _ in range(world)]
+    ctx = _fork_context()
+    procs = []
+    for r in range(world):
+        p = ctx.Process(target=_forked, args=(module, list(argv(r)), env,
+                                              *(f.name if f else None for f in spools[r])))
+        with _main_hidden():
+            p.start()
+        procs.append(p)
+    return Job(module, procs, spools, time.monotonic())
+
+
+_FORK_CONTEXT = []
+
+
+def _fork_context():
+    if not _FORK_CONTEXT:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("forkserver")
+        ctx.set_forkserver_preload(list(FORK_PRELOAD))
+        _FORK_CONTEXT.append(ctx)
+    return _FORK_CONTEXT[0]
+
+
+_MAIN_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _main_hidden():
+    """Keep multiprocessing from re-running the parent's main script in a
+    forked child (``_forked`` imports what it runs itself).  One thread at a
+    time: the parent's threads may start jobs side by side."""
+    with _MAIN_LOCK:
+        main = sys.modules.get("__main__")
+        saved = {k: main.__dict__[k] for k in ("__file__", "__spec__") if k in main.__dict__}
+        try:
+            for k in saved:
+                setattr(main, k, None)
+            yield
+        finally:
+            main.__dict__.update(saved)
+
+
+def _forked(module: str, argv: list, env: dict, out_path: Optional[str],
+            err_path: Optional[str]) -> None:
+    """A forked child: the job's environment and streams, then
+    ``module.main(argv)``; its return value is the exit code."""
+    import importlib
+
+    os.environ.clear()
+    os.environ.update(env)
+    for path, target in ((out_path, 1), (err_path, 2)):
+        if path is not None:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            fd = os.open(path, os.O_WRONLY | os.O_APPEND)
+            os.dup2(fd, target)
+            os.close(fd)
+    threads = env.get("OMP_NUM_THREADS")
+    if threads:
+        import torch
+
+        torch.set_num_threads(int(threads))
+    try:
+        code = importlib.import_module(module).main(argv)
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+    sys.exit(int(code or 0))
+
+
+def wait_for_file(path: str, timeout: float) -> float:
+    """Block until ``path`` exists (a go signal a parent writes); the
+    seconds waited.  Raises ``TimeoutError`` after ``timeout``."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"no {path} after {timeout} s")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def join_group(rank: int, world: int, init: str, backend: str, device: str) -> None:
+    """The child's side: pin its card (TF32 off, as the fp32 checks
+    assume) and join the group; nothing to join for one process."""
+    import torch
+    import torch.distributed as dist
+
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if world > 1:
+        dist.init_process_group(backend, init_method=init, rank=rank, world_size=world)

@@ -21,7 +21,7 @@ ZeRO one from the same weights over their rows of the same global batches
 Sizes: ``tiny`` (default) is the JAX smoke's model, a ``tanh(x @ w + b)``
 layer with ``w`` 256 x 128 under Adam, 4 steps of a 16-row global batch;
 ``llama3-8b`` is Llama-3-8B's widths cut to 2 layers (bf16 compute over
-fp32 parameters, ``remat``), AdamW, 3 steps of one 2048-token sequence per
+fp32 parameters, ``remat``), AdamW, 2 steps of one 2048-token sequence per
 process from ``prepare_data_loader`` over 6 seeded sequences, with each
 step's flash launches (2L / L / L), its time and the time of the gloo
 transfers through host memory, and the optimizer state's bytes read from
@@ -60,14 +60,13 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
 from typing import Optional
 
 SIZES = ("tiny", "llama3-8b")
-STEPS = {"tiny": 4, "llama3-8b": 3}
+STEPS = {"tiny": 4, "llama3-8b": 2}
 MODEL_AXES = ("fsdp", "tp")
 MODEL_AXES_STEPS = 2
 CLIP = 0.05
@@ -300,13 +299,11 @@ def child(rank: int, world: int, init: str, backend: str, device: str, size: str
     """One process: join the group, run the replicated then the ZeRO mode
     (with ``model_axes`` then the ``fsdp`` and ``tp`` ones, and ``then``),
     write the records to ``out``."""
-    import torch
     import torch.distributed as dist
 
-    if device.startswith("cuda"):
-        torch.cuda.set_device(torch.device(device))
-        torch.backends.cuda.matmul.allow_tf32 = False
-    dist.init_process_group(backend, init_method=init, rank=rank, world_size=world)
+    from .launch import join_group
+
+    join_group(rank, world, init, backend, device)
     try:
         t0 = time.perf_counter()
         record = {"rank": rank, "world": world, "backend": backend, "device": device}
@@ -331,9 +328,11 @@ def child(rank: int, world: int, init: str, backend: str, device: str, size: str
             record["then_seconds"] = time.perf_counter() - t1
         for mode in ("zero", *MODEL_AXES):
             record.get(mode, {}).pop("snapshots", None)
-        dist.barrier()
+        if dist.is_initialized():
+            dist.barrier()
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
     with open(out, "w") as f:
         json.dump(record, f)
 
@@ -352,46 +351,26 @@ def run(size: str = "tiny", device: Optional[str] = None, world: int = 2,
         raise ValueError("model_axes runs two processes at the llama3-8b size")
     if then is not None and not model_axes:
         raise ValueError("then runs after the model_axes modes")
-    import torch
-
     from ..state import resolve_device
+    from . import launch
 
     dev = resolve_device(device)
     if size not in SIZES:
         raise ValueError(f"size must be one of {SIZES}, got {size!r}")
     work = workdir or tempfile.mkdtemp(prefix="atpu_zero_smoke_")
     os.makedirs(work, exist_ok=True)
-    init = f"file://{os.path.join(work, f'rendezvous_{os.getpid()}_{time.time_ns()}')}"
-    if backend is None:
-        backend = ("nccl" if dev.type == "cuda" and torch.cuda.device_count() >= world
-                   else "gloo")
-    if backend == "nccl":
-        devices = [f"cuda:{r}" for r in range(world)]
-    else:
-        devices = [("cuda:0" if dev.type == "cuda" else "cpu")] * world
+    init = launch.rendezvous(work)
+    backend, devices = launch.devices_for(dev, world, backend)
     print(f"# zero-smoke: {world} processes, {backend}, devices {devices}, size {size}",
           file=sys.stderr)
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
-    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
-        env.pop(name, None)
-    procs, outs = [], []
+    outs = [os.path.join(work, f"rank{r}.json") for r in range(world)]
     t0 = time.perf_counter()
-    for r in range(world):
-        out = os.path.join(work, f"rank{r}.json")
-        outs.append(out)
-        args = json.dumps([r, world, init, backend, devices[r], size, out, model_axes, then])
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "accelerate_tpu_torch.parallel.zero_smoke", "--child", args],
-            env=env))
-    try:
-        codes = [p.wait(timeout=CHILD_TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    results = launch.start(
+        "accelerate_tpu_torch.parallel.zero_smoke",
+        lambda r: ["--child", json.dumps([r, world, init, backend, devices[r], size, outs[r],
+                                          model_axes, then])],
+        world).wait(CHILD_TIMEOUT_S)
+    codes = [code for code, _, _ in results]
     wall = time.perf_counter() - t0
     require(codes == [0] * world, f"zero-smoke children exited {codes}")
     records = []

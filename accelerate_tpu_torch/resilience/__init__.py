@@ -1,5 +1,5 @@
-"""Resilience for one process: the JAX package's ``resilience`` package
-without its multi-GPU parts.
+"""Resilience: the JAX package's ``resilience`` package without its fleet
+primitives.
 
 - **atomic verified checkpoints** (:mod:`.manifest`) — ``save_state`` stages
   into ``<dir>.tmp``, writes ``manifest.json`` (per-file size + SHA-256,
@@ -22,13 +22,37 @@ without its multi-GPU parts.
   NaN-poisoned gradients, a NaN-laced batch, a poisoned serving request, a
   full host KV tier) that the smokes (:mod:`.smoke`, :mod:`.health_smoke`,
   ``serving/chaos.py``) use to prove kill-and-resume and skip/rewind give
-  bit-exact loss continuation.
+  bit-exact loss continuation;
+- **elastic topology resume** (:mod:`.elastic`) — every verified manifest
+  records the save's topology (mesh axes and degrees, world size, each
+  leaf's full shape and spec for the parameters and the optimizer state,
+  the RNG streams, the global batch); ``resume_from_latest`` validates it
+  leaf by leaf and lands the checkpoint on another mesh or world size (dp
+  -> dp x fsdp, ZeRO on and off, more or fewer ranks) with the state
+  bit-identical, a stream folded for each new rank and
+  ``skip_first_batches`` recomputed for a new global batch; a pipeline
+  stage-count change is refused;
+- **chaos campaign** (:mod:`.chaos`) — a seeded schedule of faults across
+  kill -> resume lives that change the mesh between lives, each life a
+  world of ranks; the elastic smoke (:mod:`.elastic_smoke`) resumes one
+  checkpoint on several meshes.
 
-The JAX package's elastic topology resume and training chaos campaign
-(ROADMAP A6 part 3) and its fleet primitives (A6 part 4) are not ported
-yet; the coordinated ``PreemptionGuard`` is.
+The coordinated ``PreemptionGuard`` is ported; the JAX package's fleet
+primitives (ROADMAP A6 part 4) are not yet.
 """
 
+from .elastic import (
+    ElasticPlan,
+    ElasticResumeInfo,
+    ElasticTopologyError,
+    capture_topology,
+    fold_rng_bundle,
+    plan_resume,
+    recompute_skip_batches,
+    reshard_tree,
+    state_digest,
+    validate_leaves,
+)
 from .health import HealthGuard, HealthVerdict, NumericalDivergenceError
 from .manifest import (
     ENV_MANIFEST_HASH,
@@ -45,21 +69,32 @@ from .manifest import (
 from .preemption import PreemptionGuard
 from .retry import RetryPolicy, retrying
 
+# The JAX package's order, without its fleet names.
 __all__ = [
-    "CheckpointVerificationError",
-    "ENV_MANIFEST_HASH",
+    "ElasticPlan",
+    "ElasticResumeInfo",
+    "ElasticTopologyError",
+    "capture_topology",
+    "plan_resume",
+    "validate_leaves",
+    "reshard_tree",
+    "fold_rng_bundle",
+    "recompute_skip_batches",
+    "state_digest",
     "HealthGuard",
     "HealthVerdict",
-    "MANIFEST_NAME",
     "NumericalDivergenceError",
-    "PreemptionGuard",
-    "RetryPolicy",
-    "find_latest_complete",
+    "MANIFEST_NAME",
+    "ENV_MANIFEST_HASH",
+    "CheckpointVerificationError",
+    "write_manifest",
+    "read_manifest",
+    "verify_checkpoint",
     "is_complete",
     "list_checkpoints",
+    "find_latest_complete",
     "prune_checkpoints",
-    "read_manifest",
+    "RetryPolicy",
     "retrying",
-    "verify_checkpoint",
-    "write_manifest",
+    "PreemptionGuard",
 ]

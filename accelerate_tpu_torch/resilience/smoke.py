@@ -42,7 +42,6 @@ import argparse
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -235,18 +234,21 @@ def _train(role: str, ckpt_root: str, out_path: str, size: str, device: str) -> 
 
 
 def child(module: str, args: list, out_path: str, extra_env: dict) -> dict:
-    """Run ``python -m <module> <args>`` and return the JSON it wrote to
-    ``out_path``; raises with the child's output when it exits non-zero."""
+    """Run ``<module>.main(args)`` in a fresh process (forked from a server
+    that imported torch once: :func:`~..parallel.launch.start`) and return
+    the JSON it wrote to ``out_path``; raises with the child's output when
+    it exits non-zero."""
+    from ..parallel import launch
+
     env = dict(os.environ)
     env.update(extra_env)
-    cmd = [sys.executable, "-m", module, *args]
-    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                          timeout=CHILD_TIMEOUT_S)
-    if proc.returncode != 0:
-        print(proc.stdout)
-        print(proc.stderr, file=sys.stderr)
-        raise RuntimeError(f"{module} {args} exited rc={proc.returncode}")
-    sys.stderr.write(proc.stderr[-4000:])
+    [(code, out, err)] = launch.start(module, lambda r: args, 1, env=env,
+                                      capture=True).wait(CHILD_TIMEOUT_S)
+    if code != 0:
+        print(out)
+        print(err, file=sys.stderr)
+        raise RuntimeError(f"{module} {args} exited rc={code}")
+    sys.stderr.write(err[-4000:])
     with open(out_path) as f:
         return json.load(f)
 

@@ -64,7 +64,6 @@ import argparse
 import json
 import os
 import signal
-import subprocess
 import sys
 import tempfile
 from typing import Optional
@@ -429,27 +428,28 @@ def _child_env(extra: Optional[dict] = None) -> dict:
 def _spawn(role: str, plan_path: str, journal_path: str, size: str, device: str,
            extra_env: Optional[dict] = None, expect_rc=0,
            kill_after: Optional[int] = None) -> list:
-    cmd = [
-        sys.executable, "-m", "accelerate_tpu_torch.serving.chaos",
+    from ..parallel import launch
+
+    args = [
         "--role", role, "--plan", plan_path, "--journal", journal_path,
         "--size", size, "--device", device,
     ]
     if kill_after is not None:
-        cmd += ["--kill-after", str(kill_after)]
-    proc = subprocess.run(
-        cmd, env=_child_env(extra_env), capture_output=True, text=True,
-        timeout=CHILD_TIMEOUT_S,
-    )
-    sys.stderr.write(proc.stderr[-4000:])
-    if proc.returncode != expect_rc:
-        print(proc.stdout)
-        print(proc.stderr, file=sys.stderr)
+        args += ["--kill-after", str(kill_after)]
+    # A fresh process forked from a server that imported torch once.
+    [(code, out, err)] = launch.start(
+        "accelerate_tpu_torch.serving.chaos", lambda r: args, 1, env=_child_env(extra_env),
+        capture=True).wait(CHILD_TIMEOUT_S)
+    sys.stderr.write(err[-4000:])
+    if code != expect_rc:
+        print(out)
+        print(err, file=sys.stderr)
         raise RuntimeError(
-            f"serving life {role!r} exited rc={proc.returncode}, "
+            f"serving life {role!r} exited rc={code}, "
             f"expected {expect_rc}"
         )
     records = []
-    for line in proc.stdout.splitlines():
+    for line in out.splitlines():
         line = line.strip()
         if line.startswith("{"):
             records.append(json.loads(line))

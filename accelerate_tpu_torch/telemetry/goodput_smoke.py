@@ -22,8 +22,12 @@ injected in one process, then four proofs:
    scrapes once with valid text exposition, the atomic snapshot file
    parses identically, and the offline ``telemetry.report`` path
    reproduces the ``goodput`` summary's markers from the JSONL alone;
-4. **watchdog** — with ``ACCELERATE_TPU_STALL_TIMEOUT_S`` armed, steps that
-   beat in time leave ``stall.count`` at 0, and a stall injected past the
+4. **watchdog** — the deadline follows the steps this process runs:
+   ``STALL_STEPS`` timed steps first, then ``ACCELERATE_TPU_STALL_TIMEOUT_S``
+   armed at ``STALL_MULTIPLE`` times the slowest of them (at least
+   ``STALL_TIMEOUT_S``); over ``STALL_STEPS`` more steps ``stall.count``
+   stays 0 (a beat that itself came later than half the deadline, which a
+   loaded host can make, may count one), and a stall injected past the
    deadline fires it once.
 
 At ``llama3-8b`` the run saves once before the SIGTERM's checkpoint (at
@@ -48,7 +52,8 @@ NAN_STEP = 3
 SIGTERM_STEP = 7
 TOTAL_STEPS = 9
 EPS_S = 1e-6
-STALL_TIMEOUT_S = 0.5
+STALL_TIMEOUT_S = 0.5  # the watchdog deadline's floor
+STALL_MULTIPLE = 10  # the deadline: this many times the slowest timed step
 STALL_STEPS = 6
 SAVE_STEPS = {"tiny": (2, 5), "llama3-8b": (5,)}
 
@@ -228,9 +233,12 @@ def run(device: Optional[str] = None, size: str = "tiny",
         assert offline["markers"].get(category, 0) >= 1, (category, offline["markers"])
 
     # -- proof 4: the stall watchdog -----------------------------------------
-    quiet, fired = _watchdog(step_fn, batches, os.path.join(work, "watchdog"))
-    steps_run += STALL_STEPS
-    assert quiet == 0, f"the watchdog fired {quiet} times on steps that beat in time"
+    deadline, quiet, gaps, fired = _watchdog(step_fn, batches, os.path.join(work, "watchdog"))
+    steps_run += 2 * STALL_STEPS
+    late = sum(g > deadline / 2 for g in gaps)
+    assert quiet == 0 or quiet <= late, (
+        f"the watchdog fired {quiet} times on steps that beat in time (deadline "
+        f"{deadline:.3f} s, beat gaps {gaps})")
     assert fired == 1, f"an injected stall fired the watchdog {fired} times, want 1"
 
     print(
@@ -245,34 +253,50 @@ def run(device: Optional[str] = None, size: str = "tiny",
         f"oom->device_acquire, sigterm->preempt; "
         f"endpoint scraped {len(samples)} samples, snapshot parsed; "
         f"watchdog quiet over {STALL_STEPS} steps, fired once on a "
-        f"{2 * STALL_TIMEOUT_S:.1f} s stall"
+        f"{2 * deadline + 0.5:.1f} s stall (deadline {deadline:.2f} s)"
     )
     return {"summary": summary, "markers": markers, "retries": retries,
             "skipped": skipped, "preempted_at": preempted_at, "save_s": save_s,
             "steps": steps_run, "launches": flash_launches(),
-            "watchdog": {"quiet": quiet, "fired": fired, "timeout_s": STALL_TIMEOUT_S}}
+            "watchdog": {"quiet": quiet, "fired": fired, "timeout_s": deadline,
+                         "beat_gaps_s": gaps, "late": late}}
 
 
 def _watchdog(step_fn, batches, tel_dir):
-    """``(stalls over STALL_STEPS timely steps, stalls after one injected
-    stall)`` with ``ACCELERATE_TPU_STALL_TIMEOUT_S`` at ``STALL_TIMEOUT_S``."""
+    """``(deadline, stalls over STALL_STEPS steps, each of their beat gaps,
+    stalls after one injected stall)``.  ``STALL_STEPS`` steps are timed
+    first; ``ACCELERATE_TPU_STALL_TIMEOUT_S`` is then armed at
+    ``STALL_MULTIPLE`` times the slowest of them, at least
+    ``STALL_TIMEOUT_S``.  A gap runs from the watchdog's start or the last
+    beat to the end of the next step."""
     from .. import telemetry
 
-    os.environ["ACCELERATE_TPU_STALL_TIMEOUT_S"] = str(STALL_TIMEOUT_S)
+    timed = []
+    for _ in range(STALL_STEPS):
+        t0 = time.perf_counter()
+        float(step_fn(next(batches)))
+        timed.append(time.perf_counter() - t0)
+    deadline = max(STALL_TIMEOUT_S, STALL_MULTIPLE * max(timed))
+    os.environ["ACCELERATE_TPU_STALL_TIMEOUT_S"] = str(deadline)
     try:
+        t0 = time.perf_counter()
         tel = telemetry.enable(dir=tel_dir)
     finally:
         os.environ.pop("ACCELERATE_TPU_STALL_TIMEOUT_S", None)
     stalls = tel.registry.counter("stall.count")
+    gaps = []
     try:
         for _ in range(STALL_STEPS):
             float(step_fn(next(batches)))  # each step beats the watchdog
+            t1 = time.perf_counter()
+            gaps.append(t1 - t0)
+            t0 = t1
         quiet = stalls.value
-        time.sleep(2 * STALL_TIMEOUT_S + 0.5)  # the injected stall: no beat
+        time.sleep(2 * deadline + 0.5)  # the injected stall: no beat
         fired = stalls.value - quiet
     finally:
         telemetry.disable()
-    return quiet, fired
+    return deadline, quiet, gaps, fired
 
 
 def main(argv=None) -> int:

@@ -249,8 +249,9 @@ class FullyShardedDataParallelPlugin:
       (:mod:`~..parallel.host_offload`);
     - ``state_dict_type``: ``FULL_STATE_DICT`` gathers the full tensors on
       save and re-shards them on load; ``SHARDED_STATE_DICT`` (the default,
-      as in the JAX package) and ``LOCAL_STATE_DICT`` raise when a sharded
-      model is saved (ROADMAP A6 part 3);
+      as in the JAX package) has every process write its own shards, which
+      load onto any layout; ``LOCAL_STATE_DICT`` dumps them verbatim, for
+      the same layout only (:mod:`~..checkpointing`);
     - ``mixed_precision_policy``: a policy that overrides the
       ``mixed_precision`` mode;
     - ``reshard_after_forward``, ``use_orig_params``, ``sync_module_states``,

@@ -2,13 +2,16 @@
 
 In the port "FSDP" is the ``fsdp`` axis of the mesh: each process holds its
 shard of a prepared model's leaves (:mod:`..parallel.sharding`).  The
-model and optimizer saves take the consolidated path, the plugin's
-``FULL_STATE_DICT``: every process gathers the full tensors (a
-collective), the main process writes them; a load re-shards them by each
-leaf's spec.  ``SHARDED_STATE_DICT`` (the plugin's default, as in the JAX
-package) and ``LOCAL_STATE_DICT`` raise: per-process saves come with
-ROADMAP A6 part 3.  The ``fsdp2_*`` helpers, :func:`merge_fsdp_weights` and
-:func:`ensure_weights_retied` delegate as the JAX ones do.
+model saves follow the plugin's ``state_dict_type``, as the JAX ones do:
+``FULL_STATE_DICT`` gathers the full tensors (a collective) and the main
+process writes them; ``SHARDED_STATE_DICT`` has every process write its
+own shards under ``model_<i>`` (:func:`~..checkpointing.save_sharded_model`),
+which load onto any live layout; ``LOCAL_STATE_DICT`` dumps each process's
+shards under ``model_<i>_local``, for the same layout only.  The optimizer
+state is saved gathered to full shapes under every type.
+:func:`merge_fsdp_weights` consolidates either kind of directory into one
+file; the ``fsdp2_*`` helpers and :func:`ensure_weights_retied` delegate as
+the JAX ones do.
 """
 
 from __future__ import annotations
@@ -34,12 +37,7 @@ __all__ = [
 
 
 def _state_dict_type(fsdp_plugin) -> str:
-    kind = getattr(fsdp_plugin, "state_dict_type", "FULL_STATE_DICT") or "FULL_STATE_DICT"
-    if kind != "FULL_STATE_DICT":
-        raise NotImplementedError(
-            f"state_dict_type={kind!r} is not ported to accelerate_tpu_torch yet (ROADMAP A6 "
-            "part 3, saves across processes); FULL_STATE_DICT saves and loads consolidated")
-    return kind
+    return getattr(fsdp_plugin, "state_dict_type", "FULL_STATE_DICT") or "FULL_STATE_DICT"
 
 
 def _weights_name(model_index: int) -> str:
@@ -48,33 +46,49 @@ def _weights_name(model_index: int) -> str:
 
 def save_fsdp_model(fsdp_plugin, accelerator, model, output_dir, model_index: int = 0,
                     adapter_only: bool = False) -> None:
-    """Write ``model``'s full weights as ``model[_<i>].safetensors`` under
-    ``output_dir``: gathered by every process, written by the main one."""
-    from ..checkpointing import save_model_weights
+    """Write ``model``'s weights by the plugin's ``state_dict_type``: FULL
+    as ``model[_<i>].safetensors`` (gathered by every process, written by
+    the main one), SHARDED as every process's own shards under
+    ``model_<i>``, LOCAL as every process's shards verbatim under
+    ``model_<i>_local``."""
+    from ..checkpointing import save_local_model, save_model_weights, save_sharded_model
 
-    _state_dict_type(fsdp_plugin)
-    full = accelerator.get_state_dict(model)
-    if accelerator.is_main_process:
-        save_model_weights(None, output_dir, weights_name=_weights_name(model_index),
-                           state_dict=full)
+    sd_type = _state_dict_type(fsdp_plugin)
+    if sd_type == "SHARDED_STATE_DICT":
+        save_sharded_model(model, os.path.join(output_dir, f"model_{model_index}"))
+    elif sd_type == "LOCAL_STATE_DICT":
+        save_local_model(model, os.path.join(output_dir, f"model_{model_index}_local"))
+    else:
+        full = accelerator.get_state_dict(model)
+        if accelerator.is_main_process:
+            save_model_weights(None, output_dir, weights_name=_weights_name(model_index),
+                               state_dict=full)
     accelerator.wait_for_everyone()
 
 
 def load_fsdp_model(fsdp_plugin, accelerator, model, input_dir, model_index: int = 0,
                     adapter_only: bool = False) -> None:
     """Load what :func:`save_fsdp_model` wrote, each process keeping its
-    shards."""
-    from ..checkpointing import load_model_weights
+    shards: SHARDED onto the live layout, LOCAL only onto the layout it was
+    saved from (else it raises), FULL re-sharded by each leaf's spec."""
+    from ..checkpointing import load_local_model, load_model_weights, load_sharded_model
 
-    _state_dict_type(fsdp_plugin)
-    load_model_weights(model, input_dir, weights_name=_weights_name(model_index))
+    sd_type = _state_dict_type(fsdp_plugin)
+    sharded_dir = os.path.join(input_dir, f"model_{model_index}")
+    local_dir = os.path.join(input_dir, f"model_{model_index}_local")
+    if sd_type == "SHARDED_STATE_DICT" and os.path.isdir(sharded_dir):
+        load_sharded_model(model, sharded_dir)
+    elif sd_type == "LOCAL_STATE_DICT" and os.path.isdir(local_dir):
+        load_local_model(model, local_dir)
+    else:
+        load_model_weights(model, input_dir, weights_name=_weights_name(model_index))
 
 
 def save_fsdp_optimizer(fsdp_plugin, accelerator, optimizer, model, output_dir,
                         optimizer_index: int = 0) -> None:
     """Write ``optimizer``'s state, gathered to full shapes, as
-    ``optimizer_<i>.bin`` (a ``torch.save`` archive) on the main process."""
-    _state_dict_type(fsdp_plugin)
+    ``optimizer_<i>.bin`` (a ``torch.save`` archive) on the main process,
+    under every ``state_dict_type``, as in the JAX package."""
     state = optimizer.state_dict()
     if accelerator.is_main_process:
         os.makedirs(output_dir, exist_ok=True)
@@ -86,7 +100,6 @@ def load_fsdp_optimizer(fsdp_plugin, accelerator, optimizer, model, input_dir,
                         optimizer_index: int = 0, adapter_only: bool = False) -> None:
     """Restore what :func:`save_fsdp_optimizer` wrote (each process keeps
     the shards of its leaves)."""
-    _state_dict_type(fsdp_plugin)
     path = os.path.join(input_dir, f"optimizer_{optimizer_index}.bin")
     optimizer.load_state_dict(torch.load(path, map_location="cpu", weights_only=False))
 
@@ -95,16 +108,25 @@ def merge_fsdp_weights(checkpoint_dir: str, output_path: str, safe_serialization
                        remove_checkpoint_dir: bool = False) -> None:
     """Consolidate the weights of ``checkpoint_dir`` into one file under
     ``output_path`` (``model.safetensors``, or ``model.pkl`` without
-    ``safe_serialization``).  The port's saves are consolidated already, so
-    this reads them (one file or an index of shards) and writes them whole;
+    ``safe_serialization``): a sharded save's shards (the directory itself,
+    or its ``model_orbax`` / ``model_0``) are assembled to full tensors, a
+    consolidated save (one file or an index of shards) is read whole;
     ``remove_checkpoint_dir`` deletes the source."""
     import shutil
 
-    from ..checkpointing import read_safetensors_state_dict, save_model_weights
+    from ..checkpointing import merge_sharded, read_safetensors_state_dict, save_model_weights
 
-    state_dict = read_safetensors_state_dict(checkpoint_dir)
+    state_dict = None
+    for sub in ("", "model_orbax", "model_0"):
+        d = os.path.join(checkpoint_dir, sub)
+        if os.path.isdir(d) and any(n.endswith(".index.json") and n.startswith("rank")
+                                    for n in os.listdir(d)):
+            state_dict = merge_sharded(d)
+            break
     if state_dict is None:
-        raise FileNotFoundError(f"No consolidated weights found in {checkpoint_dir}")
+        state_dict = read_safetensors_state_dict(checkpoint_dir)
+    if state_dict is None:
+        raise FileNotFoundError(f"No consolidated or sharded weights found in {checkpoint_dir}")
     save_model_weights(None, output_path, state_dict=state_dict, max_shard_size=2**62,
                        safe_serialization=safe_serialization)
     if remove_checkpoint_dir:

@@ -20,6 +20,16 @@ import torch
 
 __all__ = ["PRNGKey", "get_rng_state", "set_rng_state", "set_seed"]
 
+# The seed ``set_seed`` last took (the JAX package keeps its root key's seed
+# in its RNG registry): the RNG bundle and the checkpoint topology record
+# carry it as ``jax_seed``, the input of the elastic stream fold.
+_SEED: list = [None]
+
+
+def seed_of_record():
+    """The seed :func:`set_seed` last took (None before any)."""
+    return _SEED[0]
+
 
 def set_seed(seed: int, device_specific: bool = False, deterministic: bool = False) -> None:
     """Seed python's ``random``, numpy's global generator and torch's CPU
@@ -34,6 +44,7 @@ def set_seed(seed: int, device_specific: bool = False, deterministic: bool = Fal
         seed += PartialState._shared_state.get("process_index", 0)
     if deterministic:
         torch.use_deterministic_algorithms(True)
+    _SEED[0] = int(seed)
     random.seed(seed)
     np.random.seed(seed % 2**32)
     torch.manual_seed(seed)
@@ -41,9 +52,10 @@ def set_seed(seed: int, device_specific: bool = False, deterministic: bool = Fal
 
 def get_rng_state() -> dict:
     """python, numpy, torch CPU and, when CUDA is up, every CUDA device's
-    generator state."""
+    generator state, and the seed of record (``jax_seed``, as the JAX
+    bundle names it)."""
     states = {"python": random.getstate(), "numpy": np.random.get_state(),
-              "torch": torch.get_rng_state()}
+              "torch": torch.get_rng_state(), "jax_seed": _SEED[0]}
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         states["cuda"] = torch.cuda.get_rng_state_all()
     return states
@@ -51,6 +63,8 @@ def get_rng_state() -> dict:
 
 def set_rng_state(states: dict) -> None:
     """Restore what :func:`get_rng_state` returned."""
+    if states.get("jax_seed") is not None:
+        _SEED[0] = int(states["jax_seed"])
     random.setstate(states["python"])
     np.random.set_state(states["numpy"])
     torch.set_rng_state(states["torch"])

@@ -115,7 +115,7 @@ Phases (each fails the run on any mismatch; nothing is caught):
    the journal's ms per flush (fsync on).
 
 8. Offline generation, the draft-model drafter and serving traces, at
-   full width.  8a: Llama-3-8B's widths cut to ``PHASE8_LAYERS`` (8) of
+   full width.  8a: Llama-3-8B's widths cut to ``PHASE8_LAYERS`` (4) of
    32 layers (bf16, random weights from Phase 2's seed): sampled
    ``generate`` over 4 prompts of 960 tokens + 64 (temperature 0.8,
    top-k 50, top-p 0.9, ``PRNGKey``): the same key twice gives the same
@@ -339,8 +339,9 @@ Phases (each fails the run on any mismatch; nothing is caught):
    ``max_skips=2`` rewinds to the step-2 checkpoint and steps 3-8 equal a
    clean resume's bit for bit).  Three 15.2 GB checkpoints are written
    (one torn), two more in 15c; each save's and load's seconds are
-   printed.  The children save without the durability fsyncs
-   (``ACCELERATE_TPU_CHECKPOINT_FSYNC=0``), which Phase 6 times.  15b,
+   printed.  The children save without the durability fsyncs and the
+   manifests' SHA-256 (``ACCELERATE_TPU_CHECKPOINT_FSYNC=0``,
+   ``ACCELERATE_TPU_MANIFEST_HASH=0``: sizes only), which Phase 6 times.  15b,
    beside them, ``accelerate_tpu_torch.serving.chaos``'s serving and tiering
    campaigns at Llama-3-8B widths cut to 2 layers in fp32 with
    ``paged_kernel=True``: every survivor token-identical to greedy
@@ -352,8 +353,9 @@ Phases (each fails the run on any mismatch; nothing is caught):
    step-5 save, an OOM acquisition and an OOM halving, a SIGTERM at step 7
    and its checkpoint; the categories sum to the wall time within 1e-6 s,
    each fault in its category, the flash kernels 2 / 1 / 1 a step) with the
-   stall watchdog quiet over 6 timely steps and firing once on an injected
-   stall.  The parent checks each proof again from the children's records.
+   stall watchdog, its deadline 10x the slowest of 6 timed steps, quiet over
+   6 more and firing once on an injected stall.  The parent checks each
+   proof again from the children's records.
    Everything lives under ``build/phase15/`` and is deleted at the end.
 
 16. Several processes (``accelerate_tpu_torch.parallel``).  16a: a one-rank
@@ -412,8 +414,8 @@ Phases (each fails the run on any mismatch; nothing is caught):
    against one process's run on the same weights and rows, which rank 0
    computes alone first while rank 1 waits.  18a, Mixtral-8x7B's widths
    (``config_from_hf`` of its published config.json) on ``ep=2``, 4
-   experts a rank, at 2 layers when the two ranks' reckoned peak stays
-   under ``PHASE10_PEAK_LIMIT`` (else 1; logged), fp32 compute, B 1 x S
+   experts a rank, at ``PHASE18A_MAX_LAYERS`` (1) layer (2 fit under
+   ``PHASE10_PEAK_LIMIT``; cut for the time limit; logged), fp32 compute, B 1 x S
    2048, 2 AdamW steps of ``make_train_step`` with the binding clip: each
    step's loss within ``PHASE18A_LOSS_REL`` and pre-clip norm within
    ``PHASE18A_NORM_REL`` of one process's, the parameters' change over
@@ -448,8 +450,8 @@ Phases (each fails the run on any mismatch; nothing is caught):
    plain forward and backward (1e-4, 1 / 1 / 1 launches).  Then rank 0
    runs one process's reference while rank 1 waits: Llama-3-8B's widths
    (``config_from_hf`` of meta-llama/Meta-Llama-3-8B's published
-   config.json) at 2 layers when the two ranks' reckoned peak stays under
-   ``PHASE10_PEAK_LIMIT`` (else 1; logged), fp32 compute, ``remat``, the
+   config.json) at ``PHASE19_MAX_LAYERS`` (1) layer (2 fit under
+   ``PHASE10_PEAK_LIMIT``; cut for the time limit; logged), fp32 compute, ``remat``, the
    fused kernels, the chunked loss, B 1 x S 8192: one bf16-compute step's
    loss and pre-clip norm on the row and on the row cut into two
    independent halves (the fault 19d's limits are set against), then 2
@@ -471,6 +473,40 @@ Phases (each fails the run on any mismatch; nothing is caught):
    where ``torch.cuda.device_count() >= 2`` (else it prints that it did not
    run; it is never counted as passed).
 
+20. Saves across processes, as children of their own after Phase 19: a
+   life is a fresh set of processes, two ranks sharing the card over gloo
+   (``resilience/elastic_smoke.py --size llama3.2-1b``).  Llama-3.2-1B's
+   published widths at 2 of 16 layers (fp32 masters and AdamW state, bf16
+   compute, ``remat``, the fused attention kernels), AdamW through
+   ``make_train_step`` with the binding clip, one row of 2048 tokens a
+   rank a step from a seed; the checkpoints go under ``build/phase20``
+   (deleted at the end), unsynced and unhashed (``ACCELERATE_TPU_CHECKPOINT_FSYNC=0``,
+   ``ACCELERATE_TPU_MANIFEST_HASH=0``: the state digest is the oracle).
+   20a: life 1, 2 ranks on ``dp=2`` with ZeRO, 2 steps: after step 1
+   ``save_state(async_save=True)`` (step 2 runs while it writes, then
+   ``wait_for_checkpoint``), after step 2 a synchronous save, the state
+   digest after each; life 2, one process, resumes life 1's last
+   checkpoint: its digest bit-identical to life 1's step-2 digest and a
+   reshard reported, then a step; life 3, 2 ranks on ``fsdp=2`` under the
+   plugin's default ``SHARDED_STATE_DICT``: the same resume and digest, a
+   step, a sharded save (each rank writes its own shards), and a
+   ``LOCAL_STATE_DICT`` save reloaded in the same life with the digest
+   equal; life 4, 2 ranks on ``dp=2`` without ZeRO: resumes life 3's
+   sharded save (digest equal to life 3's), loading life 3's local save
+   raises the topology-bound error, then a step.  Every loss finite, the
+   flash kernels 2L / L / L a rank a step; each life's save and load
+   seconds by part, GB/s, bytes on disk and seconds are printed, and the
+   async save's blocking time beside the synchronous save's.  The four
+   lives start together: each builds its model, then waits for the life it
+   resumes from to end (a go file; lives 2 and 3 run side by side).  Every
+   life's ranks are forked from a server that imported torch once
+   (``parallel/launch.py``).  20b, beside 20a:
+   ``python -m accelerate_tpu_torch.resilience.chaos --seed 0`` on the card
+   (the JAX campaign's toy recipe and plan: a reference run and four lives
+   of 8, 8, 4 and 2 ranks with their faults, each life starting while the
+   one before runs), which must pass the JAX package's five assertions; its
+   lives, faults, topologies and time are printed.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
@@ -483,7 +519,8 @@ the flash kernels' Phase 16 launches (16b's two processes, both modes) as
 17b) as ``launches_phase17``, their Phase 18 launches (both processes,
 18a and 18b) as ``launches_phase18`` and their Phase 19 launches (both
 processes, 19b-19d: the main path's, not 19a's comparisons) as
-``launches_phase19``,
+``launches_phase19``, their Phase 20 launches (every rank of 20a's four
+lives) as ``launches_phase20``,
 the paged kernels' Phase
 11 launches as ``launches_phase11`` and 11a's records as
 ``gpt2_xl_heads``, the flash kernels' fp32 Phase 4
@@ -2094,7 +2131,7 @@ def phase7(smi, unpressured):
 PHASE8_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase8")
 # Depth cut to keep the script inside its time limit; the widths are the
 # published ones.
-PHASE8_LAYERS, PHASE8_DRAFT_LAYERS = 8, 4
+PHASE8_LAYERS, PHASE8_DRAFT_LAYERS = 4, 4  # 8a at 4 (8 before Phase 20 needed the time)
 # bf16 logits of the 32-layer model differ by up to ~0.15 between two paths
 # through the same weights (Phase 2's fixed-pool step: the kernel against its
 # own plain version).  Where two bf16 paths pick different greedy tokens, or
@@ -5097,7 +5134,7 @@ def phase15(smi):
     from concurrent.futures import ThreadPoolExecutor
 
     from accelerate_tpu_torch.resilience import health_smoke, smoke
-    from accelerate_tpu_torch.resilience.manifest import ENV_CHECKPOINT_FSYNC
+    from accelerate_tpu_torch.resilience.manifest import ENV_CHECKPOINT_FSYNC, ENV_MANIFEST_HASH
     from accelerate_tpu_torch.resilience.smoke import recipe_config
 
     gc_collect()
@@ -5111,10 +5148,13 @@ def phase15(smi):
     check(disk.free >= 3.5 * ckpt_bytes, f"free disk {disk.free} < 3.5 checkpoints")
     phase15_env()
     # The children's saves skip the durability fsyncs, as the chaos
-    # campaigns and the goodput smoke do by default: no proof here reads
-    # them, and Phase 6 times a save with them.
+    # campaigns and the goodput smoke do by default, and the manifests'
+    # SHA-256 (sizes only; a load still verifies them): no proof here reads
+    # either, and Phase 6 times a save with both.
     fsync = os.environ.get(ENV_CHECKPOINT_FSYNC)
+    hashing = os.environ.get(ENV_MANIFEST_HASH)
     os.environ[ENV_CHECKPOINT_FSYNC] = "0"
+    os.environ[ENV_MANIFEST_HASH] = "0"
     t0 = time.perf_counter()
     took = {}
 
@@ -5149,10 +5189,11 @@ def phase15(smi):
         goodput = timed_from("15c", phase15_goodput, smi)
         removed.result()
     t1 = time.perf_counter()
-    if fsync is None:
-        os.environ.pop(ENV_CHECKPOINT_FSYNC)
-    else:
-        os.environ[ENV_CHECKPOINT_FSYNC] = fsync
+    for key, value in ((ENV_CHECKPOINT_FSYNC, fsync), (ENV_MANIFEST_HASH, hashing)):
+        if value is None:
+            os.environ.pop(key)
+        else:
+            os.environ[key] = value
     shutil.rmtree(PHASE15_DIR, ignore_errors=True)
     log("phase15 seconds from its start to each part's start and end: "
         + ", ".join(f"{k} {a:.1f}-{b:.1f}" for k, (a, b) in sorted(took.items()))
@@ -5163,7 +5204,7 @@ def phase15(smi):
 
 PHASE16_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase16")
 PHASE16_LAYERS = 2  # zero_smoke's llama3-8b size
-PHASE16_STEPS = 3  # zero_smoke's llama3-8b steps
+PHASE16_STEPS = 2  # zero_smoke's llama3-8b steps (3 before Phase 20 needed the time)
 PHASE16_LOSS_REL = 1e-3
 # Phase 17's limits (relative), each set from this script's readings on an
 # H100 (PERF.md, Findings) and far below what a wrong update or a wrong
@@ -5282,7 +5323,8 @@ def phase16_reference(want, world, smi):
 def rows_of(data, world):
     """What process ``r`` gets at step ``i`` from the shard loader: the
     first 8 tokens of sequence ``world * i + r``."""
-    return [[[data[world * i + r][:8].tolist()] for i in range(len(data) // world)]
+    return [[[data[world * i + r][:8].tolist()] for i in range(min(len(data) // world,
+                                                                 PHASE16_STEPS))]
             for r in range(world)]
 
 
@@ -5334,7 +5376,7 @@ def phase16_check(summary, data_rows, tag, smi):
         f"bit-identical replicated == ZeRO on every process (compared above); "
         f"opt state per process from the allocator {alloc['replicated'] / 1e9:.3f} -> "
         f"{alloc['zero'] / 1e9:.3f} GB ({ratio:.3f}x; per_chip_bytes "
-        f"{summary['state_bytes']}); step s (median of steps 2-3, both processes) replicated "
+        f"{summary['state_bytes']}); step s (median of steps 2-{PHASE16_STEPS}, both processes) replicated "
         f"{med['replicated']:.3f} zero {med['zero']:.3f}; of it the collectives' host time "
         f"(gloo: staged through host memory) replicated {staged['replicated']:.3f} zero "
         f"{staged['zero']:.3f}; per step bytes {summary['comm_per_step']}; peak "
@@ -5516,7 +5558,11 @@ def phase17_check(summary, first_row, tag, smi):
 
 PHASE18_SEQ = 2048
 PHASE18_STEPS = 2
-PHASE18B_LAYERS = 4  # of Gemma-2B's 18, for the script's time limit
+PHASE18B_LAYERS = 2  # of Gemma-2B's 18, for the script's time limit (4 before Phase 20)
+# 18a's and 19b-19d's depth, for the script's time limit (2, where the
+# reckoned peak allowed it, before Phase 20 needed the time).
+PHASE18A_MAX_LAYERS = 1
+PHASE19_MAX_LAYERS = 1
 PHASE18C_B = 16  # BERT-base rows of PHASE13_BERT_S tokens
 # 18a's limits (fp32 compute; relative), set from this script's readings on
 # an H100 (PERF.md, Findings).  Each step's loss and pre-clip gradient norm
@@ -5542,13 +5588,14 @@ def phase18a_layers():
     """18a's Mixtral-8x7B depth: 2 layers when the two ranks' reckoned peak
     (18 B a parameter: fp32 masters, gradients and AdamW's two moments plus
     a bf16 copy; each rank holds half of every expert) stays under
-    ``PHASE10_PEAK_LIMIT``, else 1; and the reckoning."""
+    ``PHASE10_PEAK_LIMIT``, else 1, at most ``PHASE18A_MAX_LAYERS``; and the
+    reckoning."""
     cfg = mixtral_config(2)
     per_layer_experts = 3 * cfg.num_experts * cfg.hidden_size * cfg.intermediate_size
     whole = cfg.num_params()
     per_rank = whole - cfg.num_layers * per_layer_experts // 2
     peak = 2 * 18 * per_rank
-    return (2 if peak < PHASE10_PEAK_LIMIT else 1), {
+    return min(PHASE18A_MAX_LAYERS, 2 if peak < PHASE10_PEAK_LIMIT else 1), {
         "params_one_process": whole, "params_a_rank": per_rank, "two_rank_peak_bytes": peak}
 
 
@@ -6012,11 +6059,12 @@ def phase19_layers():
     """19b's depth: 2 layers when the two ranks' reckoned peak (18 B a
     parameter: fp32 masters, gradients and AdamW's two moments plus a
     gradient copy; every leaf replicated over ``sp``) stays under
-    ``PHASE10_PEAK_LIMIT``, else 1; and the reckoning."""
+    ``PHASE10_PEAK_LIMIT``, else 1, at most ``PHASE19_MAX_LAYERS``; and the
+    reckoning."""
     per_rank = llama3_8b_config(2).num_params()
     peak = PHASE19_SP * 18 * per_rank
-    return (2 if peak < PHASE10_PEAK_LIMIT else 1), {"params_a_rank": per_rank,
-                                                     "two_rank_peak_bytes": peak}
+    return min(PHASE19_MAX_LAYERS, 2 if peak < PHASE10_PEAK_LIMIT else 1), {
+        "params_a_rank": per_rank, "two_rank_peak_bytes": peak}
 
 
 def _sp_comm():
@@ -6489,6 +6537,140 @@ def phase19_check(summary, smi):
     return totals
 
 
+PHASE20_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase20")
+PHASE20_CHAOS_SEED = 0
+PHASE20_CHAOS_TIMEOUT_S = 600
+
+
+def kill_session(proc):
+    """Kill ``proc``'s session (it and every process it started: a
+    campaign's fork server and its ranks) and reap ``proc``."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def phase20b_start():
+    """Start 20b, the chaos campaign on the card (see the module docstring,
+    Phase 20), in a session of its own; its handle.  A campaign left
+    running when the script exits is killed, its ranks with it."""
+    import atexit
+
+    shutil.rmtree(PHASE20_DIR, ignore_errors=True)
+    os.makedirs(PHASE20_DIR)
+    out = os.path.join(PHASE20_DIR, "chaos.json")
+    streams = [open(os.path.join(PHASE20_DIR, f"chaos.{n}"), "w+") for n in ("out", "err")]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "accelerate_tpu_torch.resilience.chaos", "--seed",
+         str(PHASE20_CHAOS_SEED), "--workdir", os.path.join(PHASE20_DIR, "b"), "--json", out],
+        stdout=streams[0], stderr=streams[1], text=True, start_new_session=True)
+
+    def stop():
+        kill_session(proc)
+
+    atexit.register(stop)
+    return {"proc": proc, "streams": streams, "out": out, "t0": time.perf_counter(),
+            "stop": stop}
+
+
+def phase20(smi):
+    """Saves across processes; see the module docstring, Phase 20."""
+    from accelerate_tpu_torch.resilience import elastic_smoke
+
+    t0 = time.perf_counter()
+    fresh_state()
+    gc_collect()
+    phase15_env()
+    chaos_run = phase20b_start()
+    chaos_proc, streams, out = chaos_run["proc"], chaos_run["streams"], chaos_run["out"]
+    # 20a's parent runs as a child of its own (its fork server and ranks in
+    # its session).
+    a_streams = [open(os.path.join(PHASE20_DIR, f"elastic.{n}"), "w+") for n in ("out", "err")]
+    a_proc = subprocess.Popen(
+        [sys.executable, "-m", "accelerate_tpu_torch.resilience.elastic_smoke", "--size",
+         elastic_smoke.SIZES[1], "--workdir", os.path.join(PHASE20_DIR, "a")],
+        stdout=a_streams[0], stderr=a_streams[1], text=True, start_new_session=True)
+    try:
+        try:
+            code = a_proc.wait(timeout=PHASE20_CHAOS_TIMEOUT_S)
+        finally:
+            kill_session(a_proc)
+        text_a = []
+        for f in a_streams:
+            f.seek(0)
+            text_a.append(f.read())
+            f.close()
+        check(code == 0, f"phase20a: the elastic smoke exited {code}: {text_a[1][-4000:]}")
+        summary = json.loads(text_a[0].strip().splitlines()[-1])
+        t1 = time.perf_counter()
+        for life, w in zip(summary["lives"], summary["walls"]):
+            save = {tag: {k: round(v, 3) if isinstance(v, float) else v for k, v in t.items()}
+                    for tag, t in life["save"].items()}
+            load = {k: round(v, 3) for k, v in (life.get("load") or {}).items()}
+            gbs = {tag: round(t["bytes"] / 1e9 / max(t.get("write_s", 0) + t["manifest_s"]
+                                                      + t["publish_s"] + t["d2h_s"], 1e-9), 3)
+                   for tag, t in life["save"].items() if t.get("bytes")}
+            log(f"phase20a life {life['life']}: {life['world']} rank(s), mesh {life['mesh']}, "
+                f"zero {life['zero']}, losses {life['losses']}, step s "
+                f"{[round(v, 3) for v in life['step_s']]}, flash launches a rank a step "
+                f"{life['launches']}, resumed at {life.get('resumed_at')} (resharded "
+                f"{life.get('resharded')}: {life.get('changes')}), load s {load}, save s "
+                f"{save}, save GB/s (bytes over d2h+write+manifest+publish) {gbs}, bytes on "
+                f"disk {life['bytes']}, digests {[round(v, 3) for v in life['digest_s']]} s; "
+                f"rank 0's start {life['start_s']:.1f} s, group {life['join_s']:.1f}, build "
+                f"{life['build_s']:.1f}, waiting for the life before {life['wait_s']:.1f}, life "
+                f"{life['life_s']:.1f}, exit {life['exit_s']:.1f}; ended at {w:.1f} s, peak "
+                f"{life.get('peak_bytes', 0) / 1e9:.2f} GB ({smi})")
+        a = summary["lives"][0]["save"]
+        log(f"phase20a async save: blocked {a['async']['blocking_s']:.3f} s (d2h "
+            f"{a['async']['d2h_s']:.3f} s), written on its thread in {a['async']['write_s']:.3f} s, "
+            f"join waited {a['async']['join_wait_s']:.3f} s, finalize {a['async']['finalize_s']:.3f}"
+            f" s; the synchronous save blocked {a['sync']['blocking_s']:.3f} s (d2h "
+            f"{a['sync']['d2h_s']:.3f}, write {a['sync']['write_s']:.3f}, manifest "
+            f"{a['sync']['manifest_s']:.3f}, publish {a['sync']['publish_s']:.3f}) ({smi})")
+        log(f"phase20a digests bit-identical: life 1 step 2 {summary['digests']['life1']['sync'][:16]}"
+            f" == life 2 / life 3 loaded; life 3 sharded {summary['digests']['life3']['sharded'][:16]}"
+            f" == local reload == life 4 loaded; life 4's local load refused: "
+            f"{summary['local_refused'][:120]}")
+        code = chaos_proc.wait(timeout=max(1.0, PHASE20_CHAOS_TIMEOUT_S
+                                           - (time.perf_counter() - chaos_run["t0"])))
+        t2 = time.perf_counter()
+        text = []
+        for f in streams:
+            f.seek(0)
+            text.append(f.read())
+        check(code == 0, f"phase20b: the chaos campaign exited {code}: {text[1][-4000:]}")
+        check("chaos-smoke OK" in text[0], f"phase20b: {text[0][-2000:]}")
+        with open(out) as f:
+            chaos = json.load(f)
+    finally:
+        chaos_run["stop"]()
+        for f in streams:
+            f.close()
+        shutil.rmtree(PHASE20_DIR, ignore_errors=True)
+    lives = ", ".join(f"life {c['life']} {c['topology']} ({w} ranks) {c['fault']}@{c['fault_step']}"
+                      f" -> {d}, resumed at {r} (resharded {rs}), ended at {chaos['seconds'][f'life{i}']:.1f} s"
+                      for i, (c, w, d, r, rs) in enumerate(zip(
+                          chaos["cycles"], chaos["worlds"], chaos["deaths"], chaos["resumed_at"],
+                          chaos["resharded"])))
+    log(f"phase20b chaos campaign --seed {chaos['seed']} on the card: reference ended at "
+        f"{chaos['seconds']['reference']:.1f} s; {lives}; {chaos['resumes']} resumes, "
+        f"{chaos['topology_changes']} topology changes, {chaos['published']} published (0 torn), "
+        f"final step {chaos['final_step']}; goodput {[g['markers'] for g in chaos['goodput']]}; "
+        f"rank 0's seconds (reference, lives) {[{k: round(v, 2) for k, v in t.items()} for t in chaos['timing']]}; "
+        f"campaign {chaos['campaign_s']:.1f} s ({smi})")
+    check(chaos["final_step"] == 10 and chaos["resumes"] >= 3, f"phase20b: {chaos}")
+    counts = summary["launches"]
+    log(f"phase20 seconds: 20a {t1 - t0:.1f} (its lives ended at "
+        f"{[round(w, 1) for w in summary['walls']]}), 20b beside it {chaos['campaign_s']:.1f} "
+        f"(waited {t2 - t1:.1f} more); flash launches {counts} ({smi})")
+    return {"counts": counts, "seconds": t2 - t0}
+
+
 def main() -> int:
     import torch
 
@@ -6571,6 +6753,9 @@ def main() -> int:
           f"phase 18 launched the flash kernels {p16['counts18']} times")
     check(all(p16["counts19"][n] > 0 for n in FLASH_KERNELS),
           f"phase 19 launched the flash kernels {p16['counts19']} times")
+    p20 = run(20, phase20, smi)
+    check(all(p20["counts"][n] > 0 for n in FLASH_KERNELS),
+          f"phase 20 launched the flash kernels {p20['counts']} times")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
@@ -6629,6 +6814,7 @@ def main() -> int:
                            launches_phase17=p16["counts17"][name],
                            launches_phase18=p16["counts18"][name],
                            launches_phase19=p16["counts19"][name],
+                           launches_phase20=p20["counts"][name],
                            head_dims=list(fu_dims),
                            wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
                                        for geom, dt in p10["flash"]},

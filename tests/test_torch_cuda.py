@@ -16,6 +16,8 @@ Tolerances (the kernel's online softmax sums in another order than the
 plain version): fp32 atol = rtol = 1e-4, bf16 and fp16 atol = rtol = 2e-2.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1925,3 +1927,101 @@ def test_ring_backward_halves_with_delta_once_match_one_backward(cuda, dtype):
     torch.testing.assert_close(dq.to(dtype).float(), dq_w[:, :1024].float(), atol=tol, rtol=tol)
     torch.testing.assert_close(torch.cat(dks, 1).float(), dk_w.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(torch.cat(dvs, 1).float(), dv_w.float(), atol=tol, rtol=tol)
+
+
+def test_async_save_snapshots_cuda_parameters_before_returning(cuda, tmp_path):
+    """``save_state(async_save=True)`` of a model on the card: the
+    parameters and AdamW state are changed in place as soon as it returns
+    (the write still in flight), yet the published files hold the state of
+    the moment it returned."""
+    from accelerate_tpu_torch import Accelerator, AcceleratorState, FunctionalModel
+    from accelerate_tpu_torch.resilience.elastic import state_digest
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    acc = Accelerator(device="cuda")
+    gen = torch.Generator().manual_seed(5)
+    model = FunctionalModel(lambda p, x: {"loss": torch.tanh(x @ p["w"]).sum()},
+                            {"w": torch.randn(2048, 1024, generator=gen)})
+    model, opt = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-3))
+    step = acc.make_train_step(model, opt)
+    step({"x": torch.randn(8, 2048, generator=gen)})
+    before = state_digest(acc)
+    ckpt = acc.save_state(str(tmp_path / "ckpt"), async_save=True)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(-3.0)
+        for st in opt.optimizer.state.values():
+            st["exp_avg"].add_(1.0)
+    torch.cuda.synchronize()
+    changed = state_digest(acc)
+    acc.wait_for_checkpoint()
+    assert changed != before
+    acc.load_state(ckpt)
+    assert state_digest(acc) == before
+    assert next(model.parameters()).device.type == "cuda"
+    AcceleratorState._reset_state(reset_partial_state=True)
+
+
+def _sharded_save_on_the_card(rank, init, ckpt, out):
+    """One of two gloo processes on card 0: a llama on ``fsdp=2`` under the
+    plugin's default ``SHARDED_STATE_DICT``, one step, a save; its
+    digest."""
+    import json
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator, AcceleratorState, ParallelismConfig
+    from accelerate_tpu_torch.resilience.elastic import state_digest
+    from accelerate_tpu_torch.utils import FullyShardedDataParallelPlugin
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2)
+    try:
+        AcceleratorState._reset_state(reset_partial_state=True)
+        acc = Accelerator(device="cuda:0", parallelism_config=ParallelismConfig(fsdp=2),
+                          fsdp_plugin=FullyShardedDataParallelPlugin())
+        c = llama.LlamaConfig.tiny(head_dim=64, dtype=torch.bfloat16,
+                                   param_dtype=torch.float32, attention_impl="pallas")
+        model = llama.LlamaForCausalLM(c, seed=0, device="cuda")
+        model, opt = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-3))
+        step = acc.make_train_step(model, opt)
+        gen = torch.Generator().manual_seed(rank)
+        step({"input_ids": torch.randint(0, c.vocab_size, (1, 128), generator=gen).cuda()})
+        acc.save_state(ckpt)
+        digest = state_digest(acc)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump({"digest": digest, "shard": list(next(model.parameters()).shape)}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_save_of_cuda_shards_loads_onto_a_replicated_model(cuda, tmp_path):
+    """Two gloo processes on card 0 write their own CUDA shards
+    (``model_orbax/rank<r>.safetensors``); this process loads them onto a
+    replicated model on the card, bit-identical (the state digest)."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    from accelerate_tpu_torch import Accelerator, AcceleratorState
+    from accelerate_tpu_torch.resilience.elastic import state_digest
+
+    ckpt, out = str(tmp_path / "ckpt"), str(tmp_path / "out.json")
+    mp.spawn(_sharded_save_on_the_card, args=(f"file://{tmp_path / 'init'}", ckpt, out),
+             nprocs=2)
+    with open(out) as f:
+        saved = json.load(f)
+    assert sorted(os.listdir(os.path.join(ckpt, "model_orbax"))) == [
+        "rank0.index.json", "rank0.safetensors", "rank1.index.json", "rank1.safetensors"]
+    AcceleratorState._reset_state(reset_partial_state=True)
+    acc = Accelerator(device="cuda")
+    c = llama.LlamaConfig.tiny(head_dim=64, dtype=torch.bfloat16, param_dtype=torch.float32,
+                               attention_impl="pallas")
+    model = llama.LlamaForCausalLM(c, seed=9, device="cuda")
+    model, opt = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-3))
+    acc.load_state(ckpt)
+    assert state_digest(acc) == saved["digest"]
+    assert acc.last_load_timing["read_place_s"] > 0
+    assert list(next(model.parameters()).shape) != saved["shard"]
+    AcceleratorState._reset_state(reset_partial_state=True)

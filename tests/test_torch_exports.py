@@ -162,12 +162,26 @@ A5_CONSTANTS = {".resilience.faultinject": [
     ".resilience.health_smoke": ["STEPS", "NAN_STEP", "CKPT_STEP"],
     ".resilience.smoke": ["STEPS", "KILL_STEP"],
     ".telemetry.goodput_smoke": ["NAN_STEP", "SIGTERM_STEP", "TOTAL_STEPS", "EPS_S"]}
-# The JAX resilience names that wait for several GPUs (ROADMAP A6): the
-# elastic topology resume and the fleet primitives.
-A6_RESILIENCE = {"ElasticPlan", "ElasticResumeInfo", "ElasticTopologyError", "capture_topology",
-                 "plan_resume", "validate_leaves", "reshard_tree", "fold_rng_bundle",
-                 "recompute_skip_batches", "state_digest", "FleetError", "Heartbeat", "barrier",
-                 "agree", "fleet_client"}
+# The JAX resilience names that wait for ROADMAP A6 part 4: the fleet
+# primitives.
+A6_RESILIENCE = {"FleetError", "Heartbeat", "barrier", "agree", "fleet_client"}
+_ELASTIC = ["ElasticPlan", "ElasticResumeInfo", "ElasticTopologyError", "capture_topology",
+            "plan_resume", "validate_leaves", "reshard_tree", "fold_rng_bundle",
+            "recompute_skip_batches", "state_digest"]
+A6_PART3 = {  # saves across processes: the elastic resume, the chaos campaign
+    ".resilience": _ELASTIC,
+    ".resilience.elastic": _ELASTIC + ["describe_mesh"],
+    ".resilience.chaos": ["plan_campaign", "build_recipe", "make_batch", "run_life",
+                          "child_env", "spawn_life", "run_campaign", "main", "Cycle"],
+    ".resilience.elastic_smoke": ["main"],
+    ".checkpointing": ["save_sharded_model", "load_sharded_model", "save_local_model",
+                       "load_local_model", "finalize_async_checkpoint"],
+}
+A6_PART3_CONSTANTS = {
+    ".resilience.elastic": ["TOPOLOGY_KEY", "TOPOLOGY_SCHEMA_VERSION"],
+    ".resilience.chaos": ["TOTAL_STEPS", "TOPOLOGIES", "BASE_TOPOLOGY", "FAULTS", "CROSS_TOL"],
+    ".resilience.elastic_smoke": ["SAVE_STEPS", "RESUME_STEPS"],
+}
 A6_PART0 = {  # several processes, data parallelism and the ZeRO sharded update
     "": ["ParallelismConfig", "DataLoaderDispatcher"],
     ".utils": ["ParallelismConfig"],
@@ -412,6 +426,71 @@ def test_a5_resilience_all_is_jax_all_but_the_a6_names():
     assert set(tr.__all__) <= set(jr.__all__)
     for name in tr.__all__:
         assert hasattr(tr, name)
+
+
+@pytest.mark.parametrize("path,name", _cases(A6_PART3), ids=lambda v: v)
+def test_a6_part3_names_import_at_jax_paths(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert isinstance(port_obj, type) == isinstance(jax_obj, type) and callable(port_obj)
+    assert port_obj.__module__.startswith("accelerate_tpu_torch.")
+
+
+@pytest.mark.parametrize("path,name", _cases(A6_PART3_CONSTANTS), ids=lambda v: v)
+def test_a6_part3_constants_equal_jax(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert port_obj == jax_obj
+
+
+def test_a6_part3_all_is_jax_all():
+    """``.resilience.elastic``'s ``__all__`` is the JAX one, and
+    ``.resilience``'s is the JAX one in its order without the fleet names."""
+    import accelerate_tpu.resilience as jr
+    import accelerate_tpu.resilience.elastic as je
+    import accelerate_tpu_torch.resilience as tr
+    import accelerate_tpu_torch.resilience.elastic as te
+
+    assert te.__all__ == je.__all__
+    assert tr.__all__ == [n for n in jr.__all__ if n not in A6_RESILIENCE]
+
+
+def test_a6_part3_default_fsdp_plugin_saves_a_sharded_model(tmp_path):
+    """``FullyShardedDataParallelPlugin()`` (its default
+    ``SHARDED_STATE_DICT``) saves an ``fsdp`` model: every process writes its
+    own shards, which load back bit-identical."""
+    script = (
+        "import json, os, sys, torch, torch.distributed as dist\n"
+        "from accelerate_tpu_torch import Accelerator, FunctionalModel\n"
+        "from accelerate_tpu_torch.utils import FullyShardedDataParallelPlugin\n"
+        "r = int(sys.argv[1])\n"
+        "dist.init_process_group('gloo', init_method='file://' + sys.argv[2], rank=r, "
+        "world_size=2)\n"
+        "acc = Accelerator(cpu=True, fsdp_plugin=FullyShardedDataParallelPlugin())\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "m = FunctionalModel(lambda p, x: {'loss': (x @ p['w']).sum()}, "
+        "{'w': torch.randn(8, 4, generator=g)})\n"
+        "m, opt = acc.prepare(m, torch.optim.SGD(m.parameters(), lr=0.1))\n"
+        "w = list(m.parameters())[0]\n"
+        "full = acc.get_state_dict(m)['w'].clone()\n"
+        "acc.save_state(sys.argv[3])\n"
+        "with torch.no_grad():\n"
+        "    w.zero_()\n"
+        "acc.load_state(sys.argv[3])\n"
+        "ok = torch.equal(acc.get_state_dict(m)['w'], full)\n"
+        "files = sorted(os.listdir(os.path.join(sys.argv[3], 'model_orbax')))\n"
+        "print(json.dumps([str(acc.distributed_type), tuple(w.shape), ok, files]))\n"
+        "dist.destroy_process_group()\n")
+    init, ckpt = str(tmp_path / "init"), str(tmp_path / "ckpt")
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(r), init, ckpt], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    for out, _ in outs:
+        kind, shape, ok, files = json.loads(out.strip().splitlines()[-1])
+        assert kind.endswith("FSDP") and shape == [4, 4] and ok, out
+        assert files == ["rank0.index.json", "rank0.safetensors", "rank1.index.json",
+                         "rank1.safetensors"]
 
 
 def test_the_examples_imports_resolve():

@@ -129,11 +129,15 @@ def test_robustness_exports_match_jax_names():
 
     for n in ("HostBlockPool", "JournalError", "ServingJournal", "AdmissionRejected"):
         assert n in srv.__all__ and hasattr(srv, n)
-    assert res.__all__ == ["CheckpointVerificationError", "ENV_MANIFEST_HASH", "HealthGuard",
-                           "HealthVerdict", "MANIFEST_NAME", "NumericalDivergenceError",
-                           "PreemptionGuard", "RetryPolicy", "find_latest_complete",
-                           "is_complete", "list_checkpoints", "prune_checkpoints",
-                           "read_manifest", "retrying", "verify_checkpoint", "write_manifest"]
+    assert res.__all__ == ["ElasticPlan", "ElasticResumeInfo", "ElasticTopologyError",
+                           "capture_topology", "plan_resume", "validate_leaves",
+                           "reshard_tree", "fold_rng_bundle", "recompute_skip_batches",
+                           "state_digest", "HealthGuard", "HealthVerdict",
+                           "NumericalDivergenceError", "MANIFEST_NAME", "ENV_MANIFEST_HASH",
+                           "CheckpointVerificationError", "write_manifest", "read_manifest",
+                           "verify_checkpoint", "is_complete", "list_checkpoints",
+                           "find_latest_complete", "prune_checkpoints", "RetryPolicy",
+                           "retrying", "PreemptionGuard"]
 
 
 def test_generation_and_tracing_exports_match_jax_names():
