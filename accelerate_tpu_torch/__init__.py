@@ -98,6 +98,7 @@ _LAZY = {
     "local_sgd": ("LocalSGD",),
     "logging": ("get_logger",),
     "utils.imports": ("is_rich_available",),
+    "launchers": ("notebook_launcher", "debug_launcher"),
 }
 
 __all__ = [

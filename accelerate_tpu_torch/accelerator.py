@@ -79,7 +79,8 @@ from .optimizer import AcceleratedOptimizer
 from .parallel.mesh import data_degree, data_index
 from .pipeline.train_step import accumulate_grads
 from .scheduler import AcceleratedScheduler
-from .state import AcceleratorState, GradientState, PartialState, resolve_device
+from .state import (AcceleratorState, GradientState, PartialState, cpu_requested,
+                    resolve_device)
 from .telemetry import get_telemetry as _get_telemetry
 from .telemetry import maybe_enable_from_env as _telemetry_from_env
 from .telemetry import span as _span
@@ -266,6 +267,7 @@ class Accelerator:
                  dispatch_batches: Optional[bool] = None, use_seedable_sampler: bool = False,
                  device=None, parallelism_config=None, fsdp_plugin=None, deepspeed_plugin=None,
                  megatron_lm_plugin=None):
+        cpu = cpu_requested(cpu, device)
         if cpu and device is not None and str(device) != "cpu":
             raise ValueError(f"cpu=True contradicts device={device!r}")
         self.ddp_handler = None
@@ -1192,9 +1194,12 @@ class Accelerator:
         naming) whose manifest records ``step`` for
         :meth:`resume_from_latest`; the caller then leaves its loop.
         Without a guard it returns False (after the env-armed
-        fault-injection tick, ``ACCELERATE_TPU_FAULT_SIGTERM_STEP``)."""
-        from .resilience import faultinject
+        fault-injection tick, ``ACCELERATE_TPU_FAULT_SIGTERM_STEP``).  First
+        it beats the fleet's step-loop heartbeat, when the supervisor set
+        ``ACCELERATE_TPU_HEARTBEAT_DIR`` (one env lookup otherwise)."""
+        from .resilience import faultinject, fleet
 
+        fleet.maybe_beat(step if step is not None else self.gradient_state.step)
         if faultinject.armed():
             faultinject.tick(step if step is not None else self.gradient_state.step)
         guard = self._preemption_guard

@@ -9,23 +9,31 @@ so a child skips the interpreter's start and torch's import; each calls
 repository on ``PYTHONPATH`` and any ``torchrun`` variables removed.
 Told its rank, the world size and a ``file://`` rendezvous under the job's
 work directory (never a fixed port), a child meets the others in a process
-group of their own through :func:`join_group`.  :meth:`Job.wait` waits for
-every child under a time limit and kills the rest when it passes; a parent
-can start a job whose children build their state and then wait for a go
-signal (:func:`wait_for_file`) while an earlier job still runs.
+group of their own through :func:`join_group`, which keeps the group's
+store for the fleet primitives (``resilience.fleet``).  :meth:`Job.wait`
+waits for every child under a time limit and kills the rest when it
+passes; a parent can start a job whose children build their state and
+then wait for a go signal (:func:`wait_for_file`) while an earlier job
+still runs.  :func:`fork` forks one child (a module's ``main``, a script or
+a ``python -m`` module) and returns a :class:`Forked` handle shaped as a
+``subprocess.Popen``, which the ``FleetSupervisor`` babysits.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import os
+import signal
+import subprocess
 import sys
 import threading
 import time
+from datetime import timedelta
 from typing import Callable, Optional, Sequence
 
-__all__ = ["rendezvous", "child_env", "start", "Job", "wait_for_file", "join_group",
-           "devices_for", "FORK_PRELOAD"]
+__all__ = ["rendezvous", "child_env", "start", "Job", "fork", "Forked", "wait_for_file",
+           "join_group", "devices_for", "FORK_PRELOAD"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -116,19 +124,65 @@ def start(module: str, argv: Callable[[int], Sequence[str]], world: int,
     pipe."""
     import tempfile
 
-    env = child_env(env)
     spools = [(tempfile.NamedTemporaryFile("w+", delete=False),
                tempfile.NamedTemporaryFile("w+", delete=False)) if capture
               else (None, None) for _ in range(world)]
-    ctx = _fork_context()
-    procs = []
-    for r in range(world):
-        p = ctx.Process(target=_forked, args=(module, list(argv(r)), env,
-                                              *(f.name if f else None for f in spools[r])))
-        with _main_hidden():
-            p.start()
-        procs.append(p)
+    procs = [fork(module, argv(r), env, *(f.name if f else None for f in spools[r])).process
+             for r in range(world)]
     return Job(module, procs, spools, time.monotonic())
+
+
+class Forked:
+    """One forked child, shaped as a ``subprocess.Popen`` (what the
+    ``FleetSupervisor`` calls): ``pid``, ``returncode``, ``poll()`` (the exit
+    code, negative for a signal, None while it runs), ``send_signal``,
+    ``terminate``, ``kill`` and ``wait(timeout)``."""
+
+    def __init__(self, process):
+        self.process = process
+        self.pid = process.pid
+        self.returncode = None
+
+    def poll(self) -> Optional[int]:
+        self.returncode = self.process.exitcode
+        return self.returncode
+
+    def send_signal(self, signum: int) -> None:
+        if self.poll() is None:
+            try:
+                os.kill(self.pid, signum)
+            except ProcessLookupError:
+                pass
+
+    def terminate(self) -> None:
+        self.send_signal(signal.SIGTERM)
+
+    def kill(self) -> None:
+        self.send_signal(signal.SIGKILL)
+
+    def wait(self, timeout: Optional[float] = None) -> int:
+        self.process.join(timeout)
+        if self.poll() is None:
+            raise subprocess.TimeoutExpired(f"forked pid {self.pid}", timeout)
+        return self.returncode
+
+
+def fork(target: str, argv: Sequence[str], env: Optional[dict] = None,
+         stdout: Optional[str] = None, stderr: Optional[str] = None,
+         how: str = "main") -> Forked:
+    """Fork one child from the preloaded server under ``env`` (this
+    process's by default, through :func:`child_env`); its streams appended
+    to the files ``stdout`` / ``stderr`` (else this process's).  ``how``:
+    ``"main"`` calls ``target.main(argv)`` (its return value the exit
+    code), ``"path"`` runs the script ``target`` and ``"module"`` the
+    module ``target`` as ``python [-m] target *argv`` would."""
+    if how not in ("main", "path", "module"):
+        raise ValueError(f"how must be 'main', 'path' or 'module', got {how!r}")
+    p = _fork_context().Process(target=_forked, args=(target, list(argv), child_env(env),
+                                                      stdout, stderr, how))
+    with _main_hidden():
+        p.start()
+    return Forked(p)
 
 
 _FORK_CONTEXT = []
@@ -164,10 +218,12 @@ def _main_hidden():
 
 
 def _forked(module: str, argv: list, env: dict, out_path: Optional[str],
-            err_path: Optional[str]) -> None:
+            err_path: Optional[str], how: str = "main") -> None:
     """A forked child: the job's environment and streams, then
-    ``module.main(argv)``; its return value is the exit code."""
+    ``module.main(argv)`` (its return value is the exit code), or the
+    script or module ``module`` run as ``__main__``."""
     import importlib
+    import runpy
 
     os.environ.clear()
     os.environ.update(env)
@@ -184,8 +240,21 @@ def _forked(module: str, argv: list, env: dict, out_path: Optional[str],
 
         torch.set_num_threads(int(threads))
     try:
-        code = importlib.import_module(module).main(argv)
+        if how == "main":
+            code = importlib.import_module(module).main(argv)
+        elif how == "path":
+            sys.argv = [module, *argv]
+            sys.path.insert(0, os.path.dirname(os.path.abspath(module)))
+            runpy.run_path(module, run_name="__main__")
+            code = 0
+        else:
+            sys.argv = [module, *argv]
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+            code = 0
     finally:
+        # What a fresh interpreter runs at its exit (multiprocessing skips
+        # it): telemetry's final snapshot, the flight recorder's flush.
+        atexit._run_exitfuncs()
         sys.stdout.flush()
         sys.stderr.flush()
     sys.exit(int(code or 0))
@@ -204,12 +273,21 @@ def wait_for_file(path: str, timeout: float) -> float:
 
 def join_group(rank: int, world: int, init: str, backend: str, device: str) -> None:
     """The child's side: pin its card (TF32 off, as the fp32 checks
-    assume) and join the group; nothing to join for one process."""
+    assume) and join the group over a ``FileStore`` at ``init``
+    (``file://<path>``, from :func:`rendezvous`), kept for the fleet
+    primitives; nothing to join for one process."""
     import torch
     import torch.distributed as dist
+
+    from ..resilience import fleet
 
     if device.startswith("cuda"):
         torch.cuda.set_device(torch.device(device))
         torch.backends.cuda.matmul.allow_tf32 = False
     if world > 1:
-        dist.init_process_group(backend, init_method=init, rank=rank, world_size=world)
+        if not init.startswith("file://"):
+            raise ValueError(f"init must be file://<path>, got {init!r}")
+        store = dist.FileStore(init[len("file://"):], world)
+        store.set_timeout(timedelta(minutes=30))  # the group's default, as the rendezvous sets it
+        dist.init_process_group(backend, store=store, rank=rank, world_size=world)
+        fleet._keep_store(store)

@@ -1,5 +1,4 @@
-"""Resilience: the JAX package's ``resilience`` package without its fleet
-primitives.
+"""Resilience: the JAX package's ``resilience`` package.
 
 - **atomic verified checkpoints** (:mod:`.manifest`) — ``save_state`` stages
   into ``<dir>.tmp``, writes ``manifest.json`` (per-file size + SHA-256,
@@ -35,10 +34,14 @@ primitives.
 - **chaos campaign** (:mod:`.chaos`) — a seeded schedule of faults across
   kill -> resume lives that change the mesh between lives, each life a
   world of ranks; the elastic smoke (:mod:`.elastic_smoke`) resumes one
-  checkpoint on several meshes.
-
-The coordinated ``PreemptionGuard`` is ported; the JAX package's fleet
-primitives (ROADMAP A6 part 4) are not yet.
+  checkpoint on several meshes;
+- **fleet primitives** (:mod:`.fleet`) — deadline-bound ``barrier`` /
+  ``agree`` over the process group's store (a dead member raises a loud
+  ``FleetError`` instead of hanging the survivors), the step-loop file
+  heartbeat the ``FleetSupervisor`` (``launchers.py``) watches for wedges,
+  and the coordinator connect-retry policy; exercised by the fleet chaos
+  campaign (:mod:`.fleet_chaos`, ``chaos --mode fleet``), whose ranks the
+  supervisor reaps, postmortems and relaunches smaller.
 """
 
 from .elastic import (
@@ -53,6 +56,7 @@ from .elastic import (
     state_digest,
     validate_leaves,
 )
+from .fleet import FleetError, Heartbeat, agree, barrier, fleet_client
 from .health import HealthGuard, HealthVerdict, NumericalDivergenceError
 from .manifest import (
     ENV_MANIFEST_HASH,
@@ -69,7 +73,7 @@ from .manifest import (
 from .preemption import PreemptionGuard
 from .retry import RetryPolicy, retrying
 
-# The JAX package's order, without its fleet names.
+# The JAX package's order.
 __all__ = [
     "ElasticPlan",
     "ElasticResumeInfo",
@@ -97,4 +101,9 @@ __all__ = [
     "RetryPolicy",
     "retrying",
     "PreemptionGuard",
+    "FleetError",
+    "Heartbeat",
+    "barrier",
+    "agree",
+    "fleet_client",
 ]

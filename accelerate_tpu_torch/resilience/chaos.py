@@ -44,6 +44,7 @@ Run::
 
     python -m accelerate_tpu_torch.resilience.chaos --seed 0          # on the card
     python -m accelerate_tpu_torch.resilience.chaos --seed 0 --device cpu
+    python -m accelerate_tpu_torch.resilience.chaos --mode fleet --device cpu   # fleet_chaos.py
 
 On the card every rank of a life shares card 0 over gloo.  The recipe is the
 JAX campaign's toy (a ``tanh(x @ w + b)`` layer under Adam) and runs no
@@ -616,17 +617,24 @@ def main(argv=None) -> int:
     parser.add_argument("--world", type=int, default=1, help=argparse.SUPPRESS)
     parser.add_argument("--init", default=None, help=argparse.SUPPRESS)
     parser.add_argument(
-        "--mode", choices=("train", "serving"), default="train",
+        "--mode", choices=("train", "serving", "fleet"), default="train",
         help="'serving' runs the serving chaos campaign (overload burst, poisoned "
-        "request, deadline storm, SIGTERM drain, SIGKILL + journal recovery) instead of "
-        "the kill->resume training campaign; the fleet campaign is not ported yet")
+        "request, deadline storm, SIGTERM drain, SIGKILL + journal recovery); 'fleet' runs "
+        "the fleet campaign (SIGKILL, coordinated drain, wedge, elastic 4->3 restart over a "
+        "supervised 4-process group) instead of the kill->resume training campaign")
     args = parser.parse_args(argv)
 
+    device = ["--device", args.device] if args.device else []
     if args.mode == "serving":
         from ..serving.chaos import main as serving_main
 
-        return serving_main(["--seed", str(args.seed)]
-                            + (["--device", args.device] if args.device else []))
+        return serving_main(["--seed", str(args.seed)] + device)
+    if args.mode == "fleet":
+        from .fleet_chaos import main as fleet_main
+
+        return fleet_main(["--seed", str(args.seed)] + device
+                          + (["--workdir", args.workdir] if args.workdir else [])
+                          + (["--json", args.json] if args.json else []))
     if args.role == "life":
         return _life_main(args)
 

@@ -9,12 +9,14 @@ installed drains at its next tick.
 
 Nothing is installed unless :meth:`PreemptionGuard.install` runs.  With
 several processes the guard is coordinated by default: ``should_stop`` is
-the max of every process's flag (an all-reduce over the process group on
-every ``coordinate_every``-th call, counted per call so every process
-enters it on the same step), so a signal to one process stops all of them
-at the same step and the final checkpoint is written by all together.  The
-JAX fleet's agreement over its coordinator's key-value store, with its
-deadline and heartbeat, comes with ``fleet.py`` (ROADMAP A6 part 4).
+any process's flag, agreed on every ``coordinate_every``-th call (counted
+per call, so every process takes part on the same step), so a signal to
+one process stops all of them at the same step and the final checkpoint
+is written by all together.  The agreement runs over the process group's
+store with a deadline (:func:`.fleet.agree`, ``agree_timeout_s``), which
+stays answerable while part of the fleet is dying; only a group without a
+store falls back to an all-reduce.  A failed agreement leaves each process
+its local flag.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ class PreemptionGuard:
     """
 
     def __init__(self, signals: Sequence[int] = (signal.SIGTERM, signal.SIGINT),
-                 coordinated: Optional[bool] = None, coordinate_every: Optional[int] = None):
+                 coordinated: Optional[bool] = None, coordinate_every: Optional[int] = None,
+                 agree_timeout_s: Optional[float] = None):
         self.signals = tuple(signals)
         # On by default only with several processes; resolved at the first
         # should_stop, so constructing a guard touches no process group.
@@ -55,6 +58,11 @@ class PreemptionGuard:
         if coordinate_every is None:
             coordinate_every = int(os.environ.get("ACCELERATE_TPU_PREEMPT_EVERY", "10"))
         self.coordinate_every = max(1, int(coordinate_every))
+        # The agreement's deadline: a fleet losing members mid-drain falls
+        # back to the local flag loudly instead of hanging the drain.
+        if agree_timeout_s is None:
+            agree_timeout_s = float(os.environ.get("ACCELERATE_TPU_PREEMPT_AGREE_TIMEOUT_S", "60"))
+        self.agree_timeout_s = agree_timeout_s
         self._should_stop_calls = 0
         self._agreed = False
         self._installed = False
@@ -163,10 +171,6 @@ class PreemptionGuard:
         return self._installed
 
     def preempted_locally(self) -> bool:
-        """This process received a signal."""
-        return self._flag
-
-    def preempted_locally(self) -> bool:
         """THIS process received a signal (uncoordinated view)."""
         return self._flag
 
@@ -179,10 +183,11 @@ class PreemptionGuard:
 
     def should_stop(self) -> bool:
         """Whether to stop at this step boundary: the local flag, or, when
-        coordinated, the max of every process's flag over the group on every
+        coordinated, whether any process's flag is set, agreed on every
         ``coordinate_every``-th call (the same answer on every process at
-        the same step).  A failing all-reduce falls back to the local flag,
-        logged."""
+        the same step): over the group's store with ``agree_timeout_s``
+        (:func:`.fleet.agree`), else by an all-reduce.  A missed deadline
+        or a failing agreement falls back to the local flag, logged."""
         self._note_signal_in_telemetry()
         if not self._coordination_on():
             return self._flag
@@ -191,6 +196,32 @@ class PreemptionGuard:
         self._should_stop_calls += 1
         if (self._should_stop_calls - 1) % self.coordinate_every != 0:
             return False
+        from . import fleet
+
+        try:
+            if fleet.fleet_client() is not None:
+                # Over the store, with a hard deadline: unlike a collective,
+                # it stays answerable while part of the fleet is dying,
+                # which is exactly when a coordinated drain runs.
+                flags = fleet.agree("preempt", bool(self._flag), timeout_s=self.agree_timeout_s)
+            else:
+                flags = [bool(self._all_reduce_flag())]
+        except fleet.FleetError:
+            # A dead member mid-drain: the deadline fired instead of hanging.
+            # The local flag still drives this process's own checkpoint and exit.
+            logger.exception("preemption fleet agreement timed out; using local flag")
+            return self._flag
+        except Exception:
+            # The coordination path itself failing (a process already died)
+            # must not mask the local signal.
+            logger.exception("preemption flag agreement failed; using local flag")
+            return self._flag
+        self._agreed = any(flags)
+        return self._agreed
+
+    def _all_reduce_flag(self) -> int:
+        """The max of every process's flag over the group (a group with no
+        store)."""
         import torch
 
         from ..parallel import collectives
@@ -198,13 +229,8 @@ class PreemptionGuard:
 
         dev = PartialState().device if PartialState._shared_state else torch.device("cpu")
         flag = torch.tensor([int(self._flag)], dtype=torch.int32, device=dev)
-        try:
-            collectives.all_reduce(flag, op="max")
-        except Exception:
-            logger.exception("preemption flag all-reduce failed; using local flag")
-            return self._flag
-        self._agreed = bool(int(flag[0]))
-        return self._agreed
+        collectives.all_reduce(flag, op="max")
+        return int(flag[0])
 
     def reset(self) -> None:
         """Clear the flag (tests, loops that survive several preemptions)."""

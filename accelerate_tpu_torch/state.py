@@ -14,8 +14,11 @@ Several processes run one per GPU.  :class:`PartialState` reads torchrun's
 ``MASTER_PORT`` or the JAX package's ``ACCELERATE_COORDINATOR_ADDRESS`` /
 ``ACCELERATE_NUM_PROCESSES`` / ``ACCELERATE_PROCESS_ID`` (a
 :class:`~.utils.dataclasses.DistributedInitKwargs` wins over both) and
-starts the process group under the connect retry policy: NCCL on
-``cuda:LOCAL_RANK``, or gloo when the caller asks for the CPU.  A group the
+starts the process group over a ``TCPStore`` it keeps for the fleet
+primitives, under the fleet's connect retry policy: NCCL on
+``cuda:LOCAL_RANK`` where the host has a card for each of its processes,
+gloo with every process on card 0 where it has fewer, gloo when the
+caller asks for the CPU.  A group the
 caller already started is adopted as it is, whatever its backend (two gloo
 ranks may share one GPU that way).  The barriers, ``main_process_first``,
 ``split_between_processes`` and the ``on_*_process`` decorators act over
@@ -84,22 +87,11 @@ def _stale_handle(cls_name: str, name: str):
     )
 
 
-def _connect_retry_policy():
-    """Backoff for the process group's rendezvous, as the JAX package's
-    ``connect_retry_policy``: a coordinator that comes up a beat late is
-    redialled, not fatal.  ``ACCELERATE_TPU_COORDINATOR_CONNECT_TRIES``
-    (default 3) and ``ACCELERATE_TPU_COORDINATOR_CONNECT_DEADLINE_S``
-    (default 600); argument errors fail at once."""
-    from .resilience.retry import RetryPolicy
-
-    return RetryPolicy(
-        tries=max(1, int(os.environ.get("ACCELERATE_TPU_COORDINATOR_CONNECT_TRIES", "3"))),
-        base_delay_s=0.25,
-        max_delay_s=2.0,
-        deadline_s=float(os.environ.get("ACCELERATE_TPU_COORDINATOR_CONNECT_DEADLINE_S", "600")),
-        retryable=lambda exc: not isinstance(exc, (TypeError, ValueError)),
-        label="coordinator_connect",
-    )
+def cpu_requested(cpu: bool = False, device=None) -> bool:
+    """``cpu``, or no device named and ``ACCELERATE_USE_CPU`` set (the
+    launcher's ``--cpu`` and ``--debug_cpu``)."""
+    return cpu or (device is None and os.environ.get("ACCELERATE_USE_CPU", "").lower() in (
+        "1", "y", "yes", "t", "true", "on"))
 
 
 def _env_int(*keys: str, default: Optional[int] = None) -> Optional[int]:
@@ -134,10 +126,13 @@ class PartialState:
     ``distributed_type`` (``MULTI_GPU`` with several processes, else
     ``NO``); ``debug`` from ``ACCELERATE_DEBUG_MODE``.
 
-    The device: ``cpu=True`` or ``device=`` picks it; else ``cuda`` for one
-    process and ``cuda:LOCAL_RANK`` for several (raising without CUDA).  A
-    launch of several processes with no group up starts one (NCCL, or
-    gloo under ``cpu=True`` or a CPU ``device``); a live group is adopted.
+    The device: ``cpu=True`` (or ``ACCELERATE_USE_CPU``) or ``device=``
+    picks it; else ``cuda`` for one process and, for several,
+    ``cuda:LOCAL_RANK`` where the host has a card for each of its processes,
+    else ``cuda:0`` for all of them (raising without CUDA).  A launch of
+    several processes with no group up starts one (NCCL with a card each,
+    gloo on a shared card, under ``cpu=True`` or on a CPU ``device``); a
+    live group is adopted.
     Later constructions return the first one's state; one that names
     another device raises, as a second ``mixed_precision`` does in
     :class:`AcceleratorState`."""
@@ -153,6 +148,7 @@ class PartialState:
 
     def __init__(self, cpu: bool = False, device=None, **kwargs):
         self.__dict__ = self._shared_state
+        cpu = cpu_requested(cpu, device)
         if cpu and device is not None and str(device) != "cpu":
             raise ValueError(f"cpu=True contradicts device={device!r}")
         if self.initialized:
@@ -173,13 +169,21 @@ class PartialState:
             world, rank = collectives.world_size(), collectives.rank()
         else:
             world, rank = contract["world"], contract["rank"]
-        if device is None and not cpu and world > 1:
-            device = f"cuda:{contract['local']}"
+        backend = "gloo"
+        if world > 1 and not wants_cpu:
+            from .parallel.launch import devices_for
+
+            # NCCL with a card each where the host has a card for each of
+            # its processes; else gloo, every process on card 0.
+            local_world = min(_env_int("LOCAL_WORLD_SIZE", default=world), world)
+            backend, _ = devices_for(torch.device("cuda"), local_world)
+            if device is None:
+                device = f"cuda:{contract['local']}" if backend == "nccl" else "cuda:0"
         dev = resolve_device("cpu" if cpu else device)
         if dev.type == "cuda" and dev.index is not None:
             torch.cuda.set_device(dev)
         if world > 1 and not collectives.initialized():
-            self._connect(contract, "gloo" if wants_cpu else "nccl", dev, init_kwargs.timeout)
+            self._connect(contract, backend, dev, init_kwargs.timeout)
         self.debug = os.environ.get("ACCELERATE_DEBUG_MODE", "0").lower() in (
             "1", "y", "yes", "t", "true", "on")
         self.device = dev
@@ -193,10 +197,14 @@ class PartialState:
 
     @staticmethod
     def _connect(contract: dict, backend: str, dev: torch.device, timeout: timedelta) -> None:
-        """Start the default process group (``tcp://`` at the coordinator)
-        under :func:`_connect_retry_policy`; a failed attempt is torn down
-        so the retry starts clean."""
+        """Start the default process group over a ``TCPStore`` at the
+        coordinator (rank 0 hosts it), under the fleet's
+        ``connect_retry_policy``; a failed attempt is torn down so the retry
+        starts clean.  The store is kept for the fleet primitives
+        (``resilience.fleet``)."""
         import torch.distributed as dist
+
+        from .resilience import fleet
 
         if contract["coordinator"] is None:
             raise ValueError(
@@ -208,19 +216,24 @@ class PartialState:
                 and "device_id" in inspect.signature(dist.init_process_group).parameters):
             extra["device_id"] = dev  # binds the communicator to the rank's GPU
 
+        host, _, port = contract["coordinator"].rpartition(":")
+
         def connect():
             if dist.is_initialized():
                 return
             try:
-                dist.init_process_group(backend, init_method=f"tcp://{contract['coordinator']}",
-                                        world_size=contract["world"], rank=contract["rank"],
-                                        timeout=timeout, **extra)
+                # As the tcp:// rendezvous builds it, but kept.
+                store = dist.TCPStore(host, int(port), contract["world"], contract["rank"] == 0,
+                                      timeout=timeout, multi_tenant=True)
+                dist.init_process_group(backend, store=store, world_size=contract["world"],
+                                        rank=contract["rank"], timeout=timeout, **extra)
             except Exception:
                 if dist.is_initialized():
                     dist.destroy_process_group()
                 raise
+            fleet._keep_store(store)
 
-        _connect_retry_policy().call(connect)
+        fleet.connect_retry_policy().call(connect)
         logger.info(f"process group up: {backend}, rank {contract['rank']} of "
                     f"{contract['world']} on {dev}")
 

@@ -507,6 +507,27 @@ Phases (each fails the run on any mismatch; nothing is caught):
    one before runs), which must pass the JAX package's five assertions; its
    lives, faults, topologies and time are printed.
 
+21. The fleet, beside 20a's later lives once 20b has ended.  21a, the
+   user's path: ``python -m accelerate_tpu_torch.commands.launch
+   --num_processes 2 --elastic`` of this script's ``--phase21-worker``,
+   two ranks forked from the launcher's preloaded server onto card 0
+   (gloo) under the ``FleetSupervisor``.  Each trains Phase 20a's model
+   (Llama-3.2-1B's widths at 2 of 16 layers, fp32 masters, bf16 compute,
+   ``remat``, B 1 x S 2048 a rank) with a save and ``check_preemption``
+   (the heartbeat, the agreement over the group's store) every step;
+   rank 1 SIGKILLs itself before step 2.  The supervisor must name it
+   dead, tear rank 0 down within its grace (5 s) plus 15 s, write a
+   postmortem naming rank 1, and relaunch the fleet at world 1, whose
+   rank resumes the step-1 checkpoint with a digest bit-identical to the
+   one saved, trains to step 3 and leaves a complete final checkpoint.
+   Every rank-step launches the flash kernels 2L / L / L.  The teardown,
+   the time from the death to the relaunched rank's start, each rank's
+   start, group, build, load and steps are printed.  21b, beside 21a:
+   ``python -m accelerate_tpu_torch.resilience.chaos --mode fleet --seed
+   0``, the JAX fleet campaign's five arms (reference, sigkill, drain,
+   wedge, elastic 4 -> 3) with four ranks on card 0, which must hold
+   every JAX assertion; its plan and each arm's seconds are printed.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
@@ -520,7 +541,8 @@ the flash kernels' Phase 16 launches (16b's two processes, both modes) as
 18a and 18b) as ``launches_phase18`` and their Phase 19 launches (both
 processes, 19b-19d: the main path's, not 19a's comparisons) as
 ``launches_phase19``, their Phase 20 launches (every rank of 20a's four
-lives) as ``launches_phase20``,
+lives) as ``launches_phase20``, their Phase 21 launches (every rank-step
+of 21a's two attempts) as ``launches_phase21``,
 the paged kernels' Phase
 11 launches as ``launches_phase11`` and 11a's records as
 ``gpt2_xl_heads``, the flash kernels' fp32 Phase 4
@@ -530,6 +552,7 @@ and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -1720,7 +1743,7 @@ def phase6(smi):
     import torch
 
     from accelerate_tpu_torch.models import llama
-    from accelerate_tpu_torch.resilience.manifest import read_manifest, verify_checkpoint
+    from accelerate_tpu_torch.resilience.manifest import read_manifest
 
     layers, s, n_seq = 1, 2048, 14
     cfg = llama.LlamaConfig.llama3_8b(num_layers=layers, dtype=torch.bfloat16,
@@ -1754,12 +1777,8 @@ def phase6(smi):
         f"after the last (peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f})")
     check(again < losses_a[0], f"loss did not fall: {losses_a[0]} -> {again}")
     manifest = read_manifest(record["path"])
+    # Hashed, so run B's load verifies every file's SHA-256 (its verify_s).
     check(manifest["hashed"] and manifest["step"] == 2, f"manifest {manifest['step']}")
-    t0 = time.perf_counter()
-    verify_checkpoint(record["path"], check_hashes=True)
-    log(f"phase6 manifest verified with SHA-256 over {len(manifest['files'])} files "
-        f"({sum(e['size'] for e in manifest['files'].values())} bytes) in "
-        f"{time.perf_counter() - t0:.3f} s")
     names = [n for n, _ in model.named_parameters()]
     # Kept on the card (15 GB beside run B's ~32), compared there.
     final_params = [p.detach().clone() for p in model.parameters()]
@@ -6577,8 +6596,10 @@ def phase20b_start():
             "stop": stop}
 
 
-def phase20(smi):
-    """Saves across processes; see the module docstring, Phase 20."""
+def phase20(smi, beside=None):
+    """Saves across processes; see the module docstring, Phase 20.
+    ``beside()`` is called once 20b has ended, while 20a's later lives
+    still run (Phase 21 starts there)."""
     from accelerate_tpu_torch.resilience import elastic_smoke
 
     t0 = time.perf_counter()
@@ -6596,7 +6617,16 @@ def phase20(smi):
         stdout=a_streams[0], stderr=a_streams[1], text=True, start_new_session=True)
     try:
         try:
-            code = a_proc.wait(timeout=PHASE20_CHAOS_TIMEOUT_S)
+            # 20b ends first (40-63 s against 20a's 110-170 on an NVIDIA H100
+            # 80GB HBM3, 700.00 W).
+            chaos_proc.wait(timeout=PHASE20_CHAOS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            pass  # checked below
+        t_b = time.perf_counter()
+        if beside is not None:
+            beside()
+        try:
+            code = a_proc.wait(timeout=max(1.0, PHASE20_CHAOS_TIMEOUT_S - (t_b - t0)))
         finally:
             kill_session(a_proc)
         text_a = []
@@ -6669,6 +6699,285 @@ def phase20(smi):
         f"{[round(w, 1) for w in summary['walls']]}), 20b beside it {chaos['campaign_s']:.1f} "
         f"(waited {t2 - t1:.1f} more); flash launches {counts} ({smi})")
     return {"counts": counts, "seconds": t2 - t0}
+
+
+PHASE21_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase21")
+PHASE21_LAYERS = 2  # of Llama-3.2-1B's 16
+PHASE21_STEPS = 3
+PHASE21_KILL = (1, 2)  # (rank, step): SIGKILLed before that step trains, on attempt 0
+PHASE21_GRACE_S = 5.0  # the launch's --grace_period
+PHASE21_HEARTBEAT_S = 180.0  # --heartbeat_timeout: two ranks' step, save and digest stay far under it
+PHASE21_TIMEOUT_S = 600
+PHASE21_FLEET_SEED = 0
+
+
+def phase21_config():
+    """Llama-3.2-1B's published widths (Phase 20a's) at ``PHASE21_LAYERS``."""
+    from accelerate_tpu_torch.resilience import elastic_smoke
+
+    return dataclasses.replace(elastic_smoke.llama_config(), num_layers=PHASE21_LAYERS)
+
+
+def phase21_worker(work: str) -> int:
+    """One rank of 21a, started by ``python -m accelerate_tpu_torch.commands.launch
+    --num_processes 2 --elastic chip_smoke.py --phase21-worker <work>``: it
+    joins the fleet through ``Accelerator()`` (the launch contract: gloo on
+    card 0 for two ranks and one card), resumes the newest checkpoint under
+    ``<work>/ckpt``, trains to ``PHASE21_STEPS`` with a save and
+    ``check_preemption`` (the heartbeat, the agreement over the store) every
+    step, and rewrites its record after each step; ``PHASE21_KILL``'s rank
+    SIGKILLs itself on attempt 0."""
+    import signal
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import fused_attention as fu
+    from accelerate_tpu_torch.parallel.mesh import data_degree, data_index
+    from accelerate_tpu_torch.resilience import elastic_smoke
+    from accelerate_tpu_torch.resilience.elastic import state_digest
+
+    rec = {"entry": time.time(), "attempt": int(os.environ["ACCELERATE_FLEET_ATTEMPT"]),
+           "steps": []}
+    acc = Accelerator(mixed_precision="bf16")
+    rank, world = acc.process_index, acc.num_processes
+    rec.update(rank=rank, world=world, device=str(acc.device), backend=acc.state.backend,
+               joined=time.time())
+    cfg = phase21_config()
+    model = llama.LlamaForCausalLM(cfg, seed=7, device=acc.device)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-5, weight_decay=1e-4)
+    model, opt = acc.prepare(model, opt)
+    root = os.path.join(work, "ckpt")
+    acc.enable_preemption_handling(save_dir=os.path.join(root, "preempted"))
+    step_fn = acc.make_train_step(model, opt, clip_norm=0.05)
+    torch.cuda.synchronize()
+    rec["built"] = time.time()
+    path = os.path.join(work, f"rank{rank}_a{rec['attempt']}.json")
+
+    def write():
+        with open(path + ".tmp", "w") as f:
+            json.dump(rec, f)
+        os.replace(path + ".tmp", path)
+
+    t0 = time.perf_counter()
+    resumed = acc.resume_from_latest(root)
+    rec["load_s"] = time.perf_counter() - t0
+    rec["resumed_at"] = resumed
+    info = acc.last_resume_info
+    rec["resharded"] = bool(info is not None and info.resharded)
+    if resumed is not None:
+        t0 = time.perf_counter()
+        rec["loaded_digest"] = state_digest(acc)
+        rec["digest_s"] = time.perf_counter() - t0
+    write()
+    n, k = data_degree(acc.mesh), data_index(acc.mesh)
+    for i in range(resumed or 0, PHASE21_STEPS):
+        step = i + 1
+        if rec["attempt"] == 0 and (rank, step) == PHASE21_KILL:
+            rec["killed"] = time.time()
+            write()
+            os.kill(os.getpid(), signal.SIGKILL)
+        row = torch.from_numpy(elastic_smoke._rows(i, n, cfg.vocab_size)[k:k + 1]).to(acc.device)
+        before = {name: getattr(fu, name).launches for name in FLASH_KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step_fn({"input_ids": row}))
+        torch.cuda.synchronize()
+        m = {"step": step, "loss": loss, "step_s": time.perf_counter() - t0,
+             "launches": {name: getattr(fu, name).launches - before[name]
+                          for name in FLASH_KERNELS}}
+        t0 = time.perf_counter()
+        acc.save_state(os.path.join(root, f"checkpoint_{step}"), step=step)
+        m["save_s"] = time.perf_counter() - t0
+        if rec["attempt"] == 0:  # the oracle of the relaunch's load
+            t0 = time.perf_counter()
+            m["digest"] = state_digest(acc)
+            m["digest_s"] = time.perf_counter() - t0
+        stop = acc.check_preemption(step=step)
+        rec["steps"].append(m)
+        write()
+        if stop:
+            break
+    rec["done"] = time.time()
+    write()
+    return 0
+
+
+def phase21b_start():
+    """Start 21b, the fleet chaos campaign on the card, in a session of its
+    own; its handle."""
+    import atexit
+
+    out = os.path.join(PHASE21_DIR, "fleet.json")
+    streams = [open(os.path.join(PHASE21_DIR, f"fleet.{n}"), "w+") for n in ("out", "err")]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "accelerate_tpu_torch.resilience.chaos", "--mode", "fleet",
+         "--seed", str(PHASE21_FLEET_SEED), "--workdir", os.path.join(PHASE21_DIR, "b"),
+         "--json", out],
+        stdout=streams[0], stderr=streams[1], text=True, start_new_session=True)
+
+    def stop():
+        kill_session(proc)
+
+    atexit.register(stop)
+    return {"proc": proc, "streams": streams, "out": out, "t0": time.perf_counter(),
+            "stop": stop}
+
+
+def _read_streams(streams):
+    text = []
+    for f in streams:
+        f.seek(0)
+        text.append(f.read())
+        f.close()
+    return text
+
+
+def phase21(smi):
+    """The fleet; see the module docstring, Phase 21."""
+    from accelerate_tpu_torch.resilience.manifest import find_latest_complete, verify_checkpoint
+
+    t0 = time.perf_counter()
+    fresh_state()
+    gc_collect()
+    phase15_env()
+    shutil.rmtree(PHASE21_DIR, ignore_errors=True)
+    work = os.path.join(PHASE21_DIR, "a")
+    tdir = os.path.join(work, "telemetry")
+    os.makedirs(tdir)
+    fleet_run = phase21b_start()
+    env = dict(os.environ, TMPDIR=work, ACCELERATE_TPU_CHECKPOINT_FSYNC="0",
+               ACCELERATE_TPU_MANIFEST_HASH="0", ACCELERATE_TPU_PREEMPT_EVERY="1",
+               ACCELERATE_TPU_TELEMETRY="1", ACCELERATE_TPU_TELEMETRY_DIR=tdir,
+               ACCELERATE_TPU_FLIGHTREC="1", ACCELERATE_TPU_FLIGHTREC_DIR=tdir,
+               ACCELERATE_TPU_FLIGHTREC_FLUSH_EVERY="1", ACCELERATE_TPU_SENTINEL_PROFILE="0")
+    a_streams = [open(os.path.join(PHASE21_DIR, f"launch.{n}"), "w+") for n in ("out", "err")]
+    launched = time.time()
+    a_proc = subprocess.Popen(
+        [sys.executable, "-m", "accelerate_tpu_torch.commands.launch", "--num_processes", "2",
+         "--elastic", "--grace_period", str(PHASE21_GRACE_S), "--heartbeat_timeout",
+         str(PHASE21_HEARTBEAT_S), os.path.abspath(__file__), "--phase21-worker", work],
+        stdout=a_streams[0], stderr=a_streams[1], text=True, env=env, start_new_session=True)
+    try:
+        try:
+            code = a_proc.wait(timeout=PHASE21_TIMEOUT_S)
+        finally:
+            kill_session(a_proc)
+        ended = time.time()
+        t1 = time.perf_counter()
+        out_a, err_a = _read_streams(a_streams)
+        check(code == 0, f"phase21a: the launch exited {code}: {err_a[-4000:]}")
+        found = re.search(r"summary: (\S+)", err_a)
+        check(found is not None, f"phase21a: no fleet summary on stderr: {err_a[-2000:]}")
+        with open(found.group(1)) as f:
+            fleet = json.load(f)
+        recs = {}
+        for name in os.listdir(work):
+            if name.startswith("rank") and name.endswith(".json"):
+                with open(os.path.join(work, name)) as f:
+                    recs[name[:-5]] = json.load(f)
+        code = fleet_run["proc"].wait(timeout=max(1.0, PHASE21_TIMEOUT_S - (
+            time.perf_counter() - fleet_run["t0"])))
+        t2 = time.perf_counter()
+        out_b, err_b = _read_streams(fleet_run["streams"])
+        check(code == 0, f"phase21b: the fleet campaign exited {code}: {err_b[-4000:]}")
+        check("fleet-chaos-smoke OK" in out_b, f"phase21b: {out_b[-2000:]}")
+        with open(fleet_run["out"]) as f:
+            campaign = json.load(f)
+        final = find_latest_complete(os.path.join(work, "ckpt"))
+        manifest = verify_checkpoint(final) if final is not None else None
+    finally:
+        fleet_run["stop"]()
+        for f in a_streams + fleet_run["streams"]:
+            f.close()
+    counts = phase21_check(fleet, recs, manifest, launched, ended, smi)
+    arms = campaign["arms"]
+    log(f"phase21b fleet chaos campaign --seed {campaign['seed']} on the card, 4 ranks on "
+        f"card 0: plan {json.dumps({k: v for k, v in campaign['plan'].items() if k != 'seed'})}; "
+        f"reference {arms['reference']['duration_s']:.1f} s; sigkill rank "
+        f"{arms['sigkill']['dead_rank']} reaped in {arms['sigkill']['teardown_s']:.3f} s (arm "
+        f"{arms['sigkill']['duration_s']:.1f} s); drain agreed on step "
+        f"{arms['drain']['agreed_step']} ({arms['drain']['duration_s']:.1f} s); wedge rank "
+        f"{arms['wedge']['wedged_rank']} ({arms['wedge']['duration_s']:.1f} s, teardown "
+        f"{arms['wedge']['teardown_s']:.3f}); elastic 4 -> 3 resumed bit-identical at step "
+        f"{arms['elastic']['resume_step']} ({arms['elastic']['duration_s']:.1f} s, teardown "
+        f"{arms['elastic']['teardown_s']:.3f}); campaign {campaign['campaign_s']:.1f} s ({smi})")
+    shutil.rmtree(PHASE21_DIR, ignore_errors=True)
+    log(f"phase21 seconds: 21a {t1 - t0:.1f}, 21b beside it {campaign['campaign_s']:.1f} "
+        f"(waited {t2 - t1:.1f} more); flash launches {counts} ({smi})")
+    return {"counts": counts, "seconds": t2 - t0}
+
+
+def phase21_check(fleet, recs, manifest, launched, ended, smi):
+    """21a's requirements over the supervisor's summary and the ranks'
+    records; the flash launches of every rank's steps."""
+    want = {"fused_attention_fwd": 2 * PHASE21_LAYERS, "fused_attention_bwd_dq": PHASE21_LAYERS,
+            "fused_attention_bwd_dkv": PHASE21_LAYERS}
+    kill_rank, kill_step = PHASE21_KILL
+    attempts = fleet["attempts"]
+    check(fleet["verdict"] == "completed" and fleet["world_size"] == 1 and len(attempts) == 2,
+          f"phase21a: fleet {fleet['verdict']} at world {fleet['world_size']} after "
+          f"{len(attempts)} attempts")
+    a0, a1 = attempts
+    check(a0["verdict"] == "worker_dead" and a0["dead_rank"] == kill_rank
+          and a0["exit_code"] == -9, f"phase21a: attempt 0 {a0}")
+    check(a0["teardown_s"] <= PHASE21_GRACE_S + 15.0,
+          f"phase21a: teardown {a0['teardown_s']} s > grace {PHASE21_GRACE_S} + 15")
+    check(a1["verdict"] == "completed" and a1["world_size"] == 1, f"phase21a: attempt 1 {a1}")
+    check(fleet["postmortem"] is not None, "phase21a: no postmortem")
+    with open(fleet["postmortem"]) as f:
+        post = json.load(f)
+    check(post["cause"] == "worker_dead" and post["dead_rank"] == kill_rank
+          and str(kill_rank) in post["fleet"]["ranks"] and post["fleet"]["n_ranks"] == 2,
+          f"phase21a: postmortem {post['cause']} rank {post['dead_rank']}, ranks "
+          f"{sorted(post['fleet']['ranks'])}")
+    check(sorted(recs) == ["rank0_a0", "rank0_a1", "rank1_a0"], f"phase21a: records {sorted(recs)}")
+    r00, r10, r01 = recs["rank0_a0"], recs["rank1_a0"], recs["rank0_a1"]
+    check(r00["world"] == r10["world"] == 2 and r01["world"] == 1
+          and r00["backend"] == "gloo" and r00["device"] == "cuda:0",
+          f"phase21a: worlds {r00['world']}, {r10['world']}, {r01['world']} on {r00['device']} "
+          f"({r00['backend']})")
+    saved = [m for m in r00["steps"] if m["step"] == kill_step - 1]
+    check(saved and saved[0]["digest"] == r10["steps"][0]["digest"],
+          "phase21a: the ranks' step-1 digests differ")
+    check(r01["resumed_at"] == kill_step - 1 and r01["resharded"],
+          f"phase21a: relaunch resumed at {r01['resumed_at']} (resharded {r01['resharded']})")
+    check(r01["loaded_digest"] == saved[0]["digest"],
+          f"phase21a: loaded digest {r01['loaded_digest'][:16]} != step-{kill_step - 1} digest "
+          f"{saved[0]['digest'][:16]}")
+    check([m["step"] for m in r01["steps"]] == list(range(kill_step, PHASE21_STEPS + 1)),
+          f"phase21a: relaunch steps {[m['step'] for m in r01['steps']]}")
+    check(manifest is not None and manifest["step"] == PHASE21_STEPS,
+          f"phase21a: final checkpoint {manifest and manifest['step']}")
+    counts = dict.fromkeys(FLASH_KERNELS, 0)
+    for name, rec in sorted(recs.items()):
+        for m in rec["steps"]:
+            check(math.isfinite(m["loss"]), f"phase21a {name} step {m['step']}: loss {m['loss']}")
+            check(m["launches"] == want, f"phase21a {name} step {m['step']}: flash launches "
+                                         f"{m['launches']}, want {want}")
+            for k in FLASH_KERNELS:
+                counts[k] += m["launches"][k]
+    death_to_relaunch = r01["entry"] - r10["killed"]
+    log(f"phase21a launch --num_processes 2 --elastic at Llama-3.2-1B widths ({PHASE21_LAYERS} of "
+        f"16 layers, bf16 over fp32, B 1 x S {elastic_seq()} a rank): rank {kill_rank} SIGKILLed "
+        f"at step {kill_step}; the supervisor's teardown {a0['teardown_s']:.3f} s (grace "
+        f"{PHASE21_GRACE_S}), death to the relaunched rank's start {death_to_relaunch:.2f} s, "
+        f"postmortem names rank {post['dead_rank']} of {post['fleet']['n_ranks']}; world 1 "
+        f"resumed at step {r01['resumed_at']} bit-identical ({r01['loaded_digest'][:16]}), "
+        f"final checkpoint at step {manifest['step']}; attempts' seconds "
+        f"{[a['duration_s'] for a in attempts]}, the launch {ended - launched:.1f} s ({smi})")
+    for name, rec in sorted(recs.items()):
+        log(f"phase21a {name}: start {rec['entry'] - launched:.2f} s after the launch, group "
+            f"{rec['joined'] - rec['entry']:.2f}, build {rec['built'] - rec['joined']:.2f}, load "
+            f"{rec['load_s']:.2f}" + (f" + digest {rec['digest_s']:.2f}" if 'digest_s' in rec else "")
+            + f"; steps {[(m['step'], round(m['loss'], 6), round(m['step_s'], 3), round(m['save_s'], 2), round(m.get('digest_s', 0.0), 2)) for m in rec['steps']]}"
+            " (step, loss, step s, save s, digest s)")
+    return counts
+
+
+def elastic_seq():
+    from accelerate_tpu_torch.resilience import elastic_smoke
+
+    return elastic_smoke.SEQ
 
 
 def main() -> int:
@@ -6753,9 +7062,21 @@ def main() -> int:
           f"phase 18 launched the flash kernels {p16['counts18']} times")
     check(all(p16["counts19"][n] > 0 for n in FLASH_KERNELS),
           f"phase 19 launched the flash kernels {p16['counts19']} times")
-    p20 = run(20, phase20, smi)
+    beside = []
+
+    def phase21_beside():
+        # Phase 21 runs beside 20a's later lives, once 20b has ended (a
+        # thread here waits on its processes).
+        beside.append(concurrent.futures.ThreadPoolExecutor(1).submit(run, 21, phase21, smi))
+
+    t20 = time.perf_counter()
+    p20 = run(20, phase20, smi, phase21_beside)
     check(all(p20["counts"][n] > 0 for n in FLASH_KERNELS),
           f"phase 20 launched the flash kernels {p20['counts']} times")
+    p21 = beside[0].result() if beside else run(21, phase21, smi)
+    log(f"phases 20-21 together {time.perf_counter() - t20:.1f} s ({smi})")
+    check(all(p21["counts"][n] > 0 for n in FLASH_KERNELS),
+          f"phase 21 launched the flash kernels {p21['counts']} times")
     from accelerate_tpu_torch.ops.fused_attention import _HEAD_DIMS as fu_dims
     from accelerate_tpu_torch.ops.paged_attention import _HEAD_DIMS as pa_dims
 
@@ -6815,6 +7136,7 @@ def main() -> int:
                            launches_phase18=p16["counts18"][name],
                            launches_phase19=p16["counts19"][name],
                            launches_phase20=p20["counts"][name],
+                           launches_phase21=p21["counts"][name],
                            head_dims=list(fu_dims),
                            wide_heads={f"{geom}-{dt[6:]}": p10["flash"][(geom, dt)][name]
                                        for geom, dt in p10["flash"]},
@@ -6839,4 +7161,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase21-worker"]:
+        sys.exit(phase21_worker(sys.argv[2]))
     sys.exit(main())

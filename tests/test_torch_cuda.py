@@ -17,6 +17,7 @@ plain version): fp32 atol = rtol = 1e-4, bf16 and fp16 atol = rtol = 2e-2.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -2025,3 +2026,55 @@ def test_sharded_save_of_cuda_shards_loads_onto_a_replicated_model(cuda, tmp_pat
     assert acc.last_load_timing["read_place_s"] > 0
     assert list(next(model.parameters()).shape) != saved["shard"]
     AcceleratorState._reset_state(reset_partial_state=True)
+
+
+_FLEET_RANK_ON_THE_CARD = """
+import os, signal, sys, time
+
+import torch
+
+from accelerate_tpu_torch import Accelerator
+
+acc = Accelerator()  # the launch contract: gloo on card 0 for two ranks on one card
+x = torch.ones(1 << 24, device=acc.device)  # a CUDA context and 64 MB on the card
+acc.check_preemption(step=1)  # beats the heartbeat
+if acc.process_index == 1:
+    if sys.argv[1] == "sigkill":
+        os.kill(os.getpid(), signal.SIGKILL)
+    time.sleep(3600)  # wedged: alive, silent
+acc.reduce(x, "sum")  # rank 0: fails or hangs on the missing peer
+time.sleep(3600)
+"""
+
+
+@pytest.mark.parametrize("fault", ["sigkill", "wedge"])
+def test_supervisor_reaps_ranks_that_hold_a_cuda_context(cuda, tmp_path, fault):
+    """Two ranks forked from the preloaded server join one group on the card
+    and hold CUDA memory; rank 1 dies (or goes silent).  The
+    ``FleetSupervisor`` names the fault, tears both down within its grace
+    window plus 15 s, and the card's memory comes back."""
+    from accelerate_tpu_torch.launchers import FleetSupervisor
+    from accelerate_tpu_torch.parallel import launch
+
+    script = tmp_path / "rank.py"
+    script.write_text(_FLEET_RANK_ON_THE_CARD)
+    free_before, _ = torch.cuda.mem_get_info()
+
+    def spawn(rank, world, overrides):
+        return launch.fork(str(script), [fault], dict(os.environ, **overrides), how="path")
+
+    grace = 3.0
+    result = FleetSupervisor(spawn, 2, str(tmp_path / "fleet"), heartbeat_timeout_s=10.0,
+                             grace_s=grace, poll_s=0.1).run()
+    attempt = result["attempts"][0]
+    if fault == "sigkill":
+        assert result["verdict"] == "worker_dead", result
+        assert (attempt["dead_rank"], attempt["exit_code"]) == (1, -9), attempt
+    else:
+        assert result["verdict"] == "wedged" and attempt["wedged_rank"] is not None, result
+    assert attempt["teardown_s"] <= grace + 15.0, attempt
+    assert all(code is not None for code in attempt["exit_codes"].values()), attempt
+    deadline = time.monotonic() + 30
+    while torch.cuda.mem_get_info()[0] < free_before - (256 << 20) and time.monotonic() < deadline:
+        time.sleep(0.5)
+    assert torch.cuda.mem_get_info()[0] >= free_before - (256 << 20)

@@ -6,8 +6,10 @@ ported in submodules only, those of the single-process surface, the
 trackers, logging, memory and utils helpers, GPT-2, the other model
 families, telemetry, the one-process resilience (retry, health, fault
 injection), the serving chaos and the smoke modules (A5), and several
-processes with the ZeRO sharded update (A6's first part), and FSDP, the
-llama family's TP and the DeepSpeed / Megatron-LM dialects (A6 part 1).
+processes with the ZeRO sharded update (A6's first part), FSDP, the
+llama family's TP and the DeepSpeed / Megatron-LM dialects (A6 part 1),
+and the fleet: its primitives, the launchers and the launch command (A6
+part 4).
 Each is imported from both
 packages; a class in one is a class in the other.  Exact: no tolerance."""
 
@@ -162,9 +164,6 @@ A5_CONSTANTS = {".resilience.faultinject": [
     ".resilience.health_smoke": ["STEPS", "NAN_STEP", "CKPT_STEP"],
     ".resilience.smoke": ["STEPS", "KILL_STEP"],
     ".telemetry.goodput_smoke": ["NAN_STEP", "SIGTERM_STEP", "TOTAL_STEPS", "EPS_S"]}
-# The JAX resilience names that wait for ROADMAP A6 part 4: the fleet
-# primitives.
-A6_RESILIENCE = {"FleetError", "Heartbeat", "barrier", "agree", "fleet_client"}
 _ELASTIC = ["ElasticPlan", "ElasticResumeInfo", "ElasticTopologyError", "capture_topology",
             "plan_resume", "validate_leaves", "reshard_tree", "fold_rng_bundle",
             "recompute_skip_batches", "state_digest"]
@@ -176,6 +175,32 @@ A6_PART3 = {  # saves across processes: the elastic resume, the chaos campaign
     ".resilience.elastic_smoke": ["main"],
     ".checkpointing": ["save_sharded_model", "load_sharded_model", "save_local_model",
                        "load_local_model", "finalize_async_checkpoint"],
+}
+_FLEET = ["FleetError", "fleet_client", "barrier", "agree", "Heartbeat", "heartbeat_path",
+          "read_heartbeat", "maybe_beat", "connect_retry_policy"]
+_UTILS_LAUNCH = ["PrepareForLaunch", "_filter_args", "prepare_simple_launcher_cmd_env",
+                 "prepare_multi_gpu_env", "prepare_deepspeed_cmd_env", "prepare_tpu",
+                 "get_cpu_distributed_information"]
+A6_PART4 = {  # the fleet: deadline-bound agreement, heartbeats, the supervisor, launch
+    "": ["notebook_launcher", "debug_launcher"],
+    ".resilience": ["FleetError", "Heartbeat", "barrier", "agree", "fleet_client"],
+    ".resilience.fleet": _FLEET,
+    ".resilience.fleet_chaos": ["plan_fleet_campaign", "run_worker", "run_fleet_campaign",
+                                "main"],
+    ".launchers": ["notebook_launcher", "debug_launcher", "FleetSupervisor"],
+    ".commands.launch": ["launch_command", "launch_command_parser", "register_subcommand",
+                         "build_env", "main_launch"],
+    ".commands.config": ["ClusterConfig", "load_config", "save_config", "config_command",
+                         "default_config_command", "write_basic_config"],
+    ".commands._parser": ["DualDashParser"],
+    ".commands.menu": ["BulletMenu"],
+    ".utils.launch": _UTILS_LAUNCH + ["prepare_sagemager_args_inputs"],
+    ".utils": _UTILS_LAUNCH + ["prepare_sagemager_args_inputs", "write_basic_config"],
+}
+A6_PART4_CONSTANTS = {
+    ".resilience.fleet": ["ENV_HEARTBEAT_DIR"],
+    ".resilience.fleet_chaos": ["WORLD", "TOTAL_STEPS", "GLOBAL_BATCH", "WEDGE_SLEEP_S",
+                                "HEARTBEAT_TIMEOUT_S", "GRACE_S", "ARM_TIMEOUT_S"],
 }
 A6_PART3_CONSTANTS = {
     ".resilience.elastic": ["TOPOLOGY_KEY", "TOPOLOGY_SCHEMA_VERSION"],
@@ -419,10 +444,11 @@ def test_a5_constants_equal_jax(path, name):
 
 
 def test_a5_resilience_all_is_jax_all_but_the_a6_names():
+    """No A6 name is left out since the fleet (A6 part 4) came."""
     import accelerate_tpu.resilience as jr
     import accelerate_tpu_torch.resilience as tr
 
-    assert set(jr.__all__) - set(tr.__all__) == A6_RESILIENCE
+    assert set(jr.__all__) - set(tr.__all__) == set()
     assert set(tr.__all__) <= set(jr.__all__)
     for name in tr.__all__:
         assert hasattr(tr, name)
@@ -442,15 +468,37 @@ def test_a6_part3_constants_equal_jax(path, name):
 
 
 def test_a6_part3_all_is_jax_all():
-    """``.resilience.elastic``'s ``__all__`` is the JAX one, and
-    ``.resilience``'s is the JAX one in its order without the fleet names."""
+    """``.resilience.elastic``'s ``__all__`` is the JAX one, and so is
+    ``.resilience``'s, in its order (the fleet names since A6 part 4)."""
     import accelerate_tpu.resilience as jr
     import accelerate_tpu.resilience.elastic as je
     import accelerate_tpu_torch.resilience as tr
     import accelerate_tpu_torch.resilience.elastic as te
 
     assert te.__all__ == je.__all__
-    assert tr.__all__ == [n for n in jr.__all__ if n not in A6_RESILIENCE]
+    assert tr.__all__ == jr.__all__
+
+
+@pytest.mark.parametrize("path,name", _cases(A6_PART4), ids=lambda v: v if v else "top")
+def test_a6_part4_names_import_at_jax_paths(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert isinstance(port_obj, type) == isinstance(jax_obj, type) and callable(port_obj)
+    assert port_obj.__module__.startswith("accelerate_tpu_torch.")
+
+
+@pytest.mark.parametrize("path,name", _cases(A6_PART4_CONSTANTS), ids=lambda v: v)
+def test_a6_part4_constants_equal_jax(path, name):
+    jax_obj, port_obj = _pair(path, name)
+    assert port_obj == jax_obj
+
+
+@pytest.mark.parametrize("path", [".launchers", ".commands.launch", ".utils.launch",
+                                  ".resilience.fleet", ".commands.config", ".commands._parser",
+                                  ".commands.menu"])
+def test_a6_part4_all_is_jax_all(path):
+    jax_mod = importlib.import_module("accelerate_tpu" + path)
+    port_mod = importlib.import_module("accelerate_tpu_torch" + path)
+    assert port_mod.__all__ == jax_mod.__all__
 
 
 def test_a6_part3_default_fsdp_plugin_saves_a_sharded_model(tmp_path):

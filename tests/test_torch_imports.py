@@ -111,6 +111,17 @@ def test_source_names_no_jax_import(path):
     "accelerate_tpu_torch.parallel.zero",
     "accelerate_tpu_torch.parallel.host_offload",
     "accelerate_tpu_torch.parallel.zero_smoke",
+    "accelerate_tpu_torch.parallel.launch",
+    "accelerate_tpu_torch.resilience.fleet",
+    "accelerate_tpu_torch.resilience.fleet_chaos",
+    "accelerate_tpu_torch.resilience.chaos",
+    "accelerate_tpu_torch.launchers",
+    "accelerate_tpu_torch.commands",
+    "accelerate_tpu_torch.commands.launch",
+    "accelerate_tpu_torch.commands.config",
+    "accelerate_tpu_torch.commands._parser",
+    "accelerate_tpu_torch.commands.menu",
+    "accelerate_tpu_torch.utils.launch",
 ])
 def test_robustness_modules_are_checked(name):
     """The serving robustness layer's modules and the generation and tracing
@@ -137,7 +148,8 @@ def test_robustness_exports_match_jax_names():
                            "CheckpointVerificationError", "write_manifest", "read_manifest",
                            "verify_checkpoint", "is_complete", "list_checkpoints",
                            "find_latest_complete", "prune_checkpoints", "RetryPolicy",
-                           "retrying", "PreemptionGuard"]
+                           "retrying", "PreemptionGuard", "FleetError", "Heartbeat", "barrier",
+                           "agree", "fleet_client"]
 
 
 def test_generation_and_tracing_exports_match_jax_names():
