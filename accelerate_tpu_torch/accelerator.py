@@ -1300,15 +1300,28 @@ class Accelerator:
 
         With a guard from :meth:`enable_preemption_handling` the engine
         drains on the signal instead of dying with work in its queue.
+
+        ``params`` are taken as the caller holds them: whole, they are
+        served whole on every process (on a data-parallel mesh every process
+        runs the same engine); this process's shards, as :meth:`prepare`
+        left them (``model.params`` of a model prepared on a mesh with an
+        active ``fsdp``, ``tp`` or ``ep`` axis), they are served through the
+        layout their specs give on this accelerator's mesh, without being
+        gathered: the pool holds this process's kv heads, each forward is
+        the family's sharded forward, and the engines of the model group
+        run in lockstep, so every process must submit the same requests in
+        the same order (see :mod:`~accelerate_tpu_torch.serving.engine`).
         """
+        from .parallel.sharding import layout_of
         from .serving import ServingConfig, ServingEngine
 
         if serving is not None and serving_kwargs:
             raise ValueError("pass either a ServingConfig or its fields, not both")
         if serving is None:
             serving = ServingConfig(**serving_kwargs)
+        layout = layout_of(params, self.mesh) if self.num_processes > 1 else None
         engine = ServingEngine(apply_cached, init_cache, params, config, serving=serving,
-                               device=self.device)
+                               device=self.device, layout=layout)
         if self._preemption_guard is not None:
             engine.install_preemption_guard(self._preemption_guard)
         return engine

@@ -38,7 +38,10 @@ weights.  The tied embedding is vocabulary-parallel, and so is the loss
 ``splits_sequence=True``) each process runs its chunk of the sequence:
 the learned positions are the chunk's global ones, the attention is
 llama's :func:`~.llama.sp_attention` (causal, the padding mask's chunk
-riding the ring), and the loss is llama's chunk-and-sum.
+riding the ring), and the loss is llama's chunk-and-sum.  The cached and
+paged serving forwards take the same ``layout`` (or read it from the
+shards' specs): each rank computes and caches its heads (every head where
+``tp`` does not divide them) and returns the whole logits.
 
 The learned position table has ``max_seq_len`` rows, so a dense cache or a
 block table longer than that raises: GPT-2 serving needs
@@ -59,13 +62,18 @@ from ..parallel.collectives import tp_copy, tp_reduce
 from ..parallel.sharding import TpView, layer_leaves, leaf, specs_from_rules, vocab_lookup
 from ..state import resolve_device
 from .llama import (
+    _check_cache_heads,
+    _model_sharded,
     _sp_active,
     cross_entropy,
     labels_and_weights,
     sp_attention,
     sp_gather,
     sp_inputs,
+    serving_init_cache,
+    serving_layout,
     token_loss,
+    vocab_gather,
 )
 
 __all__ = [
@@ -412,16 +420,42 @@ def loss_fn(params: dict, batch: dict, config: GPT2Config, layout=None) -> torch
 # ---------------------------------------------------------------------------
 
 
-def init_cache(config: GPT2Config, batch_size: int, max_len: int, device=None) -> dict:
+def init_cache(config: GPT2Config, batch_size: int, max_len: int, device=None,
+               layout=None) -> dict:
     """Zeroed KV cache: k/v ``[L, B, max_len, H, hd]`` + write index;
-    ``config.kv_cache_quant`` stores int8 codes with bf16 scales."""
+    ``config.kv_cache_quant`` stores int8 codes with bf16 scales.  On a
+    model-sharded ``layout`` ``H`` is the heads this process computes
+    (``H / tp`` where ``tp`` divides them, else every head)."""
     from .generation import make_kv_cache
 
     c = config
     return make_kv_cache(
-        c.num_layers, batch_size, max_len, c.num_heads, c.head_dim, c.dtype,
-        device=resolve_device(device), quantized=c.kv_cache_quant,
+        c.num_layers, batch_size, max_len, _cache_heads(c, layout if _model_sharded(layout) else None),
+        c.head_dim, c.dtype, device=resolve_device(device), quantized=c.kv_cache_quant,
     )
+
+
+def _cache_heads(c: GPT2Config, layout) -> int:
+    heads = TpView(layout, c.num_heads).heads
+    return c.num_heads if heads is None else heads[1]
+
+
+def _serving_layers(params: dict, c: GPT2Config, layout):
+    """``(tp, names, per_layer, prep)`` of a serving forward: the training
+    forward's ``TpView`` and per-layer leaves on ``layout`` (None: whole
+    weights, one process's view); each leaf gathered in its own dtype."""
+    tp = TpView(layout, c.num_heads)
+    names, per_layer, prep = layer_leaves(
+        _dequant_layer(params["layers"]), layout, "layers", None,
+        tp.head_gathers(fused=("w_qkv",), rows=("w_proj",)))
+    return tp, names, per_layer, prep
+
+
+def _serving_logits(params: dict, x, c: GPT2Config, layout) -> torch.Tensor:
+    """The final LN and the tied head -> fp32 logits, on ``layout`` this
+    process's vocabulary columns gathered over ``tp``."""
+    x = _final(params, x, c, layout)
+    return vocab_gather((x @ lm_head(params, c, layout)).float(), layout)
 
 
 def _check_positions(extent: int, c: GPT2Config, what: str) -> None:
@@ -432,43 +466,53 @@ def _check_positions(extent: int, c: GPT2Config, what: str) -> None:
 
 
 @torch.no_grad()
-def apply_cached(params: dict, input_ids: torch.Tensor, config: GPT2Config, cache: dict):
+def apply_cached(params: dict, input_ids: torch.Tensor, config: GPT2Config, cache: dict,
+                 layout=None):
     """Forward over new tokens at positions ``cache['index'] .. index+S``
     with cache read/write; returns (logits ``[B, S, V]`` fp32, cache).  The
     cache tensors are written in place (JAX returns updated copies); the
     returned dict shares them and carries the advanced index.  A cache
-    longer than ``max_seq_len`` raises."""
+    longer than ``max_seq_len`` raises.
+
+    ``layout`` (or the specs kept on sharded leaves: llama's
+    ``serving_layout``): the training forward's plumbing, each layer's
+    leaves gathered over ``fsdp``; under ``tp`` the fused QKV split by this
+    process's heads (every head where ``tp`` does not divide them), the
+    MLP column / row parallel, the cache holding the heads this process
+    computes, and the tied head's vocabulary columns gathered, so every
+    process returns the whole logits."""
     from .generation import cache_write, check_cache_room
 
     c = config
+    layout = serving_layout(params, layout)
     b, s = input_ids.shape
     index = int(cache["index"])
     max_len = cache["k"].shape[2]
     check_cache_room(index, s, max_len)
     _check_positions(max_len, c, "cache length")
-    layers = _dequant_layer(params["layers"])
+    _check_cache_heads(cache["k"], _cache_heads(c, layout))
+    tp, names, per_layer, prep = _serving_layers(params, c, layout)
     dev = input_ids.device
     positions = index + torch.arange(s, device=dev)
-    x = _embed(params, input_ids, positions[None], c)
+    x = _embed(params, input_ids, positions[None], c, layout)
     mask = (positions[:, None] >= torch.arange(max_len, device=dev)[None, :])[None, None]
     quant = "k_scale" in cache
 
     def layer_leaf(name, i):
         return (cache[name][i], cache[name + "_scale"][i]) if quant else cache[name][i]
 
-    for i in range(c.num_layers):
-        p = {k: v[i] for k, v in layers.items()}
-        q, k, v = _qkv(x, p, c)
+    for i, weights in enumerate(per_layer):
+        p = {k: prep(k, w) for k, w in zip(names, weights)}
+        q, k, v = _qkv(x, p, c, tp)
         k_full = cache_write(layer_leaf("k", i), k, index, c.dtype)
         v_full = cache_write(layer_leaf("v", i), v, index, c.dtype)
-        x = _proj_and_mlp(x, _attend(q, k_full, v_full, mask, c), p, c)
-    x = _final(params, x, c)
-    return (x @ lm_head(params, c)).float(), dict(cache, index=index + s)
+        x = _proj_and_mlp(x, _attend(q, k_full, v_full, mask, c), p, c, tp)
+    return _serving_logits(params, x, c, layout), dict(cache, index=index + s)
 
 
 @torch.no_grad()
 def apply_paged(params: dict, input_ids: torch.Tensor, config: GPT2Config, pool: dict,
-                tables: torch.Tensor, starts: torch.Tensor, kernel: bool = False):
+                tables: torch.Tensor, starts: torch.Tensor, kernel: bool = False, layout=None):
     """Forward over new tokens straight against the paged block pool — the
     serving engine's decode, verify and prefill forward.
 
@@ -485,29 +529,33 @@ def apply_paged(params: dict, input_ids: torch.Tensor, config: GPT2Config, pool:
     kernels: the single-token one at ``T == 1``, the window one at ``T >
     1``.  On CUDA tensors they launch the Hopper kernel or raise; on CPU
     tensors they run their plain version.  An int8 pool takes the plain
-    path whatever ``kernel`` says, as in the JAX package."""
+    path whatever ``kernel`` says, as in the JAX package.  ``layout``: the
+    sharded forward of :func:`apply_cached`, the pool holding the heads this
+    process computes (built from :func:`init_cache` on the same layout)."""
     from ..ops import paged_attention as pa
     from .generation import pack_paged_pool_for_scan, paged_cache_write, unpack_paged_rows_from_scan
 
     c = config
+    layout = serving_layout(params, layout)
     b, t = input_ids.shape
+    _check_cache_heads(pool["k"], _cache_heads(c, layout))
     pk_all, pv_all, quant = pack_paged_pool_for_scan(pool)
     total = tables.shape[1] * pool["k"].shape[2]
     _check_positions(total, c, "block table extent")
-    layers = _dequant_layer(params["layers"])
+    tp, names, per_layer, prep = _serving_layers(params, c, layout)
     use_kernel = kernel and not quant
     dev = input_ids.device
     positions = starts[:, None].long() + torch.arange(t, device=dev)[None]
-    x = _embed(params, input_ids, positions.clamp(max=c.max_seq_len - 1), c)
+    x = _embed(params, input_ids, positions.clamp(max=c.max_seq_len - 1), c, layout)
     mask = (positions[:, :, None] >= torch.arange(total, device=dev)[None, None, :])[:, None]
     k_rows, v_rows = [], []
-    for i in range(c.num_layers):
-        p = {k: v[i] for k, v in layers.items()}
+    for i, weights in enumerate(per_layer):
+        p = {k: prep(k, w) for k, w in zip(names, weights)}
         if quant:
             pk, pv = (pk_all[0][i], pk_all[1][i]), (pv_all[0][i], pv_all[1][i])
         else:
             pk, pv = pk_all[i], pv_all[i]
-        q, k, v = _qkv(x, p, c)
+        q, k, v = _qkv(x, p, c, tp)
         if use_kernel:
             k_store = k.to(pk.dtype).contiguous()
             v_store = v.to(pv.dtype).contiguous()
@@ -518,16 +566,16 @@ def apply_paged(params: dict, input_ids: torch.Tensor, config: GPT2Config, pool:
             else:
                 attn = pa.paged_window_attention(
                     q.contiguous(), k_store, v_store, pk, pv, tables, starts)
-            attn = attn.reshape(b, t, c.hidden_size)
+            attn = attn.reshape(b, t, -1)
         else:
             k_store, k_full = paged_cache_write(pk, k, tables, starts, c.dtype)
             v_store, v_full = paged_cache_write(pv, v, tables, starts, c.dtype)
             attn = _attend(q, k_full, v_full, mask, c)
-        x = _proj_and_mlp(x, attn, p, c)
+        x = _proj_and_mlp(x, attn, p, c, tp)
         k_rows.append(k_store)
         v_rows.append(v_store)
-    x = _final(params, x, c)
-    return (x @ lm_head(params, c)).float(), unpack_paged_rows_from_scan(k_rows, v_rows, quant)
+    return (_serving_logits(params, x, c, layout),
+            unpack_paged_rows_from_scan(k_rows, v_rows, quant))
 
 
 def generate(params: dict, input_ids: torch.Tensor, config: GPT2Config, max_new_tokens: int,
@@ -535,11 +583,13 @@ def generate(params: dict, input_ids: torch.Tensor, config: GPT2Config, max_new_
              top_p: float = 1.0, prefill_chunk: Optional[int] = None) -> torch.Tensor:
     """Greedy (``temperature <= 0``) or sampled autoregressive generation:
     ``[B, S]`` -> ``[B, S + max_new_tokens]`` (see
-    ``generation.generate_loop``); the cache must fit the position table."""
+    ``generation.generate_loop``); the cache must fit the position table.
+    On shards every forward is the sharded one."""
     from .generation import generate_loop
 
     return generate_loop(
-        apply_cached, init_cache, params, input_ids, config, max_new_tokens,
+        apply_cached, serving_init_cache(init_cache, params), params, input_ids, config,
+        max_new_tokens,
         temperature=temperature, key=key, max_len=max_len, top_k=top_k, top_p=top_p,
         prefill_chunk=prefill_chunk,
     )
@@ -557,8 +607,8 @@ def speculative_generate(params: dict, draft_params: dict, input_ids: torch.Tens
     from .generation import speculative_generate_loop
 
     return speculative_generate_loop(
-        apply_cached, init_cache, params, config,
-        apply_cached, init_cache, draft_params, draft_config,
+        apply_cached, serving_init_cache(init_cache, params), params, config,
+        apply_cached, serving_init_cache(init_cache, draft_params), draft_params, draft_config,
         input_ids, max_new_tokens, num_draft_tokens=num_draft_tokens, max_len=max_len,
         return_stats=return_stats, temperature=temperature, key=key,
     )
@@ -572,7 +622,8 @@ def generate_beam(params: dict, input_ids: torch.Tensor, config: GPT2Config,
     from .generation import beam_search
 
     return beam_search(
-        apply_cached, init_cache, params, input_ids, config, max_new_tokens,
+        apply_cached, serving_init_cache(init_cache, params), params, input_ids, config,
+        max_new_tokens,
         num_beams=num_beams, length_penalty=length_penalty, eos_token_id=eos_token_id,
         max_len=max_len,
     )

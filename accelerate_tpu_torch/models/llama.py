@@ -45,7 +45,17 @@ Ulysses under ``sp_impl="ulysses"``); the loss is this process's weighted
 sum over the global weight sum, reported summed over ``sp``, and each
 replicated leaf's gradient is its chunk's part, which the optimizer sums
 over ``sp``.  :func:`apply_hidden` and :func:`apply` return the sequence
-gathered over ``sp``, as JAX returns its global array.  fp8 is not part of
+gathered over ``sp``, and :func:`apply` the vocabulary gathered over
+``tp``, as JAX returns its global array.
+
+The serving forwards (:func:`apply_cached`, :func:`apply_paged`, and the
+generation loops over them) take the same ``layout`` on a model-sharded
+mesh, or read it from the specs kept on sharded leaves
+(:func:`serving_layout`): the layers' plumbing of the training forward on
+this process's heads, a cache or pool of this process's kv heads
+(:func:`init_cache` with the layout, :func:`kv_head_ids`), and the whole
+logits on every process.  They compute the whole sequence on every
+process, also on an active ``sp`` axis, as JAX's do.  fp8 is not part of
 this port yet; its config field raises ``NotImplementedError`` when set.
 """
 
@@ -87,6 +97,8 @@ __all__ = [
     "generate",
     "speculative_generate",
     "generate_beam",
+    "kv_head_ids",
+    "serving_layout",
     "sp_attention",
     "embed_tokens",
     "final_norm",
@@ -366,8 +378,8 @@ class LlamaForCausalLM(nn.Module):
                 labels: Optional[torch.Tensor] = None):
         fam = self._family()
         if cache is not None:
-            _refuse_sharded_serving(self._layout)
-            return fam.apply_cached(self.params, input_ids, self.config, cache)
+            return fam.apply_cached(self.params, input_ids, self.config, cache,
+                                    layout=self._layout)
         batch = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
         if self._layout is not None:
             return {"loss": fam.loss_fn(self.params, batch, self.config, layout=self._layout)}
@@ -399,16 +411,19 @@ class LlamaForCausalLM(nn.Module):
             batch = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
             return {"loss": fam.loss_fn(params, batch, self.config, layer_dtype=compute_dtype,
                                         layout=self._layout)}
-        _refuse_sharded_serving(self._layout if cache is not None else None)
         cast = {k: v.to(compute_dtype) for k, v in params.items() if k != "layers"}
         if cache is not None:
+            # This process's shards cast, on the model's layout (a cast copy
+            # keeps no spec of its own).
             cast["layers"] = {k: v.to(compute_dtype) for k, v in params["layers"].items()}
-            return fam.apply_cached(cast, input_ids, self.config, cache)
+            return fam.apply_cached(cast, input_ids, self.config, cache, layout=self._layout)
         cast["layers"] = params["layers"]
         batch = {"input_ids": input_ids, "attention_mask": attention_mask, "labels": labels}
         return {"loss": fam.loss_fn(cast, batch, self.config, layer_dtype=compute_dtype)}
 
     def generate(self, input_ids: torch.Tensor, max_new_tokens: int, **kw) -> torch.Tensor:
+        """The family's ``generate`` on this model's parameters (its shards
+        on a model-sharded mesh)."""
         return self._family().generate(self.params, input_ids, self.config, max_new_tokens,
                                        **kw)
 
@@ -515,16 +530,13 @@ def _qkv_proj(h, p, c, b: int, s: int, q_heads=None):
     wk, wv, bk, bv = p["wk"], p["wv"], p.get("bk"), p.get("bv")
     pick = None
     if q_heads is not None and wk.shape[-1] == c.num_kv_heads * hd:
-        lo, n = q_heads
-        g = c.num_heads // c.num_kv_heads
-        klo, khi = lo // g, (lo + n - 1) // g + 1
+        klo, khi, picked = _kv_pick(c, *q_heads)
         cols = slice(klo * hd, khi * hd)
         wk, wv = wk[..., cols], wv[..., cols]
         if bk is not None:
             bk, bv = bk[..., cols], bv[..., cols]
-        counts = {j: sum(1 for i in range(lo, lo + n) if i // g == j) for j in range(klo, khi)}
-        if len(set(counts.values())) > 1:
-            pick = torch.tensor([i // g - klo for i in range(lo, lo + n)], device=h.device)
+        if picked is not None:
+            pick = torch.tensor(picked, device=h.device)
     q = _mm(h, p["wq"], c)
     k = _mm(h, wk, c)
     v = _mm(h, wv, c)
@@ -536,6 +548,39 @@ def _qkv_proj(h, p, c, b: int, s: int, q_heads=None):
     if pick is not None:
         k, v = k[:, :, pick], v[:, :, pick]
     return q, k, v
+
+
+def _kv_pick(c, lo: int, n: int):
+    """The kv heads that query heads ``lo .. lo + n - 1`` read (``ih // g``):
+    ``(first, end, pick)``, ``pick`` the kv head (from ``first``) of each
+    query head where they do not read them in equal groups, else None."""
+    g = c.num_heads // c.num_kv_heads
+    klo, khi = lo // g, (lo + n - 1) // g + 1
+    counts = {j: sum(1 for i in range(lo, lo + n) if i // g == j) for j in range(klo, khi)}
+    if len(set(counts.values())) > 1:
+        return klo, khi, [i // g - klo for i in range(lo, lo + n)]
+    return klo, khi, None
+
+
+def kv_head_ids(config, layout=None) -> list:
+    """The kv heads this process computes, caches and pools on ``layout``,
+    in its cache's order (what :func:`_qkv_proj` gives): its ``K / tp``
+    where ``tp`` divides them; where ``tp`` divides only the query heads,
+    the kv heads its query heads read (one for each query head where they
+    read them in unequal groups); every head off ``tp`` or where ``tp``
+    divides no heads."""
+    c = config
+    every = list(range(c.num_kv_heads))
+    if not _model_sharded(layout) or layout.tp == 1:
+        return every
+    q_heads = layout.heads(c.num_heads)
+    if q_heads is None:
+        return every
+    mine = layout.heads(c.num_kv_heads)
+    if mine is not None:
+        return every[mine[0]:mine[0] + mine[1]]
+    klo, khi, pick = _kv_pick(c, *q_heads)
+    return every[klo:khi] if pick is None else [klo + j for j in pick]
 
 
 def _out_proj(attn, p, c, group=None):
@@ -557,15 +602,6 @@ def _mlp_block(x, p, c, group=None):
     gate = _act(_mm(h, p["w_gate"], c), c)
     up = _mm(h, p["w_up"], c)
     return x + tp_reduce(_mm(gate * up, p["w_down"], c), group)
-
-
-def _out_proj_and_mlp(x, attn, p, c):
-    """Attention output projection + residual, then the gated MLP block."""
-    return _mlp_block(x + _out_proj(attn, p, c), p, c)
-
-
-def _layer_params(params: dict, i: int) -> dict:
-    return {k: v[i] for k, v in params["layers"].items()}
 
 
 def embed_tokens(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
@@ -604,9 +640,27 @@ def lm_head(params: dict, config: LlamaConfig, layout=None,
     return (head.T if tied else head).to(config.dtype)
 
 
-def unembed(params: dict, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
-    """Final norm + LM head -> fp32 logits."""
-    return (final_norm(params, x, config) @ lm_head(params, config)).float()
+def unembed(params: dict, x: torch.Tensor, config: LlamaConfig, layout=None) -> torch.Tensor:
+    """Final norm + LM head -> fp32 logits ``[..., V]``; on a model-sharded
+    ``layout`` the norm scale gathered over ``fsdp`` and the logits of this
+    process's vocabulary columns gathered over ``tp``."""
+    if not _model_sharded(layout):
+        return (final_norm(params, x, config) @ lm_head(params, config)).float()
+    scale = layout.full(params["final_norm"], layout.spec("final_norm"))
+    return vocab_gather((_norm(x, scale, config) @ lm_head(params, config, layout)).float(),
+                        layout)
+
+
+def vocab_gather(logits: torch.Tensor, layout) -> torch.Tensor:
+    """``logits`` of this process's vocabulary columns (the head split over
+    ``tp``) gathered whole along the last dim (every process then reads the
+    whole, so the backward keeps this process's columns of the gradient);
+    ``logits`` itself off ``tp``."""
+    if layout is None or layout.tp == 1:
+        return logits
+    from ..parallel.collectives import tp_gather
+
+    return tp_gather(logits, logits.dim() - 1, layout.tp_group(), partial=False)
 
 
 # ---------------------------------------------------------------------------
@@ -747,7 +801,7 @@ _Q_LEAVES = ("wq", "wo", "bq")
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
 
 
-def sharded_layers(params: dict, c, layout, layer_dtype=None):
+def sharded_layers(params: dict, c, layout, layer_dtype=None, cast: bool = True):
     """The sharded path's per-layer plumbing, for this family and every
     family built on its attention (Mixtral): ``(names, per_layer, prep,
     group, q_heads)``.  ``per_layer`` holds each layer's leaves (one
@@ -765,7 +819,8 @@ def sharded_layers(params: dict, c, layout, layer_dtype=None):
     query heads, every attention leaf gathered with a backward that keeps
     this process's chunk where it computes every head.  Without a
     model-sharded ``layout``: the leaves as they are, cast to
-    ``layer_dtype``."""
+    ``layer_dtype``.  ``cast=False`` gathers each leaf in its own dtype
+    (the serving forwards cast at use, as the one-process forward does)."""
     names = list(params["layers"])
     per_layer = list(zip(*(params["layers"][k].unbind(0) for k in names)))
     if not _model_sharded(layout):
@@ -784,8 +839,8 @@ def sharded_layers(params: dict, c, layout, layer_dtype=None):
     specs = {k: layout.spec(f"layers/{k}")[1:] for k in names}
 
     def prep(k, w):
-        return layout.full(w, specs[k], layer_dtype if k.startswith("ln_") else use_dtype,
-                           tp_grad=gather.get(k))
+        dtype = layer_dtype if k.startswith("ln_") or not cast else use_dtype
+        return layout.full(w, specs[k], dtype, tp_grad=gather.get(k))
 
     return names, per_layer, prep, group, q_heads
 
@@ -893,14 +948,14 @@ def apply(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
           attention_mask: Optional[torch.Tensor] = None,
           layer_dtype: Optional[torch.dtype] = None, layout=None) -> torch.Tensor:
     """Training forward: token ids ``[B, S]`` -> logits ``[B, S, V]`` fp32
-    (``layer_dtype`` and ``layout`` as in :func:`apply_hidden`: under
-    ``sp`` each process's chunk of the logits, gathered; the head's ``tp``
-    columns are not gathered, so a ``tp`` layout raises)."""
-    if layout is not None and layout.tp > 1:
-        raise NotImplementedError("apply on a tp layout: the logits' vocabulary is split; "
-                                  "use loss_fn")
+    (``layer_dtype`` and ``layout`` as in :func:`apply_hidden`): under
+    ``tp`` the logits of this process's vocabulary columns gathered over
+    ``tp``, under ``sp`` each process's chunk of the sequence gathered over
+    ``sp``, so every process returns the whole logits, as JAX returns its
+    global array."""
     hidden = _trunk(params, input_ids, config, positions, attention_mask, layer_dtype, layout)
-    return sp_gather((hidden @ lm_head(params, config, layout, layer_dtype)).float(), layout)
+    logits = (hidden @ lm_head(params, config, layout, layer_dtype)).float()
+    return sp_gather(vocab_gather(logits, layout), layout)
 
 
 def labels_and_weights(batch: dict):
@@ -997,21 +1052,7 @@ def sp_sum(loss: torch.Tensor, layout) -> torch.Tensor:
 def _model_sharded(layout) -> bool:
     """Whether ``layout``'s mesh has an active model axis, ``fsdp``, ``tp``
     or ``ep`` (the gate of this module's sharded path)."""
-    return layout is not None and any(layout.mesh.shape[a] > 1 for a in ("fsdp", "tp", "ep"))
-
-
-def _refuse_sharded_serving(layout, params: Optional[dict] = None) -> None:
-    """Serving takes whole weights: a layout on a model-sharded mesh, or a
-    leaf that is one process's shard, raises."""
-    from ..parallel.sharding import _leaves, is_sharded, spec_of
-
-    shards = params is not None and any(is_sharded(spec_of(t))
-                                        for t in _leaves(params, torch.Tensor))
-    if _model_sharded(layout) or shards:
-        raise NotImplementedError(
-            "serving (apply_cached / apply_paged) on a model-sharded mesh is not ported to "
-            "accelerate_tpu_torch yet (ROADMAP A6 part 5); gather the weights "
-            "(Accelerator.unwrap_model or get_state_dict) and serve them whole")
+    return layout is not None and bool(layout.model_axes)
 
 
 def _loss_vocab_parallel(x, head, labels, weights, c: LlamaConfig, layout, denom=None):
@@ -1050,40 +1091,90 @@ def _loss_vocab_parallel(x, head, labels, weights, c: LlamaConfig, layout, denom
 # ---------------------------------------------------------------------------
 
 
-def init_cache(config: LlamaConfig, batch_size: int, max_len: int, device=None) -> dict:
+def init_cache(config: LlamaConfig, batch_size: int, max_len: int, device=None,
+               layout=None) -> dict:
     """Zeroed KV cache: k/v ``[L, B, max_len, K, hd]`` + write index;
-    ``config.kv_cache_quant`` stores int8 codes with bf16 scales."""
+    ``config.kv_cache_quant`` stores int8 codes with bf16 scales.  On a
+    model-sharded ``layout`` ``K`` is this process's kv heads
+    (:func:`kv_head_ids`), the width the sharded forwards write; the serving
+    engine's pool is built from it at that width."""
     from .generation import make_kv_cache
 
     c = config
     return make_kv_cache(
-        c.num_layers, batch_size, max_len, c.num_kv_heads, c.head_dim_, c.dtype,
+        c.num_layers, batch_size, max_len, len(kv_head_ids(c, layout)), c.head_dim_, c.dtype,
         device=resolve_device(device), quantized=c.kv_cache_quant,
     )
 
 
+def serving_layout(params: dict, layout=None):
+    """The layout a serving forward runs on: ``layout`` where its mesh has an
+    active model axis; where none is given and ``params`` hold shards (the
+    specs :func:`~..parallel.sharding.shard_params` kept on them), the
+    live mesh's layout of those shards; else None (whole weights, served
+    whole).  The serving forwards compute the whole sequence on every
+    process, also on an active ``sp`` axis."""
+    if layout is None:
+        from ..parallel.sharding import layout_of
+
+        layout = layout_of(params)
+    return layout if _model_sharded(layout) else None
+
+
+def serving_layers(params: dict, c, layout):
+    """:func:`sharded_layers` for a serving forward on ``layout`` (already
+    through :func:`serving_layout`): ``(names, per_layer, prep, group,
+    q_heads)`` with ``q_heads`` None wherever ``group`` is (no ``tp``:
+    every head is this process's)."""
+    names, per_layer, prep, group, q_heads = sharded_layers(params, c, layout, cast=False)
+    return names, per_layer, prep, group, q_heads if group is not None else None
+
+
+def _check_cache_heads(leaf: torch.Tensor, want: int) -> None:
+    """A cache or pool leaf ``[..., K, hd]`` must hold the ``want`` heads
+    this process's forward writes."""
+    if leaf.shape[-2] != want:
+        raise ValueError(
+            f"the KV cache holds {leaf.shape[-2]} kv heads, this process's forward writes "
+            f"{want}: build it with init_cache(..., layout=) on the same layout")
+
+
 @torch.no_grad()
-def apply_cached(params: dict, input_ids: torch.Tensor, config: LlamaConfig, cache: dict):
+def apply_cached(params: dict, input_ids: torch.Tensor, config: LlamaConfig, cache: dict,
+                 layout=None):
     """Forward over new tokens with cache read/write.  ``input_ids`` ``[B, S]``
     are the tokens at positions ``cache['index'] .. index+S``; returns
     (logits ``[B, S, V]`` fp32, cache).  The cache tensors are written in
     place (JAX returns updated copies); the returned dict shares them and
-    carries the advanced index."""
+    carries the advanced index.
+
+    ``layout`` (or, without one, the specs kept on sharded leaves: see
+    :func:`serving_layout`): the sharded forward, each process holding its
+    shards.  Each layer's leaves are gathered over ``fsdp``; under ``tp``
+    the attention runs on this process's heads (column-parallel Q/K/V,
+    row-parallel output projection and MLP, their partial sums added over
+    ``tp`` in fp32), the cache holds this process's kv heads
+    (:func:`init_cache` with the same ``layout``), and the logits of this
+    process's vocabulary columns are gathered over ``tp``, so every process
+    returns the whole logits."""
     from .generation import check_cache_room
 
-    _refuse_sharded_serving(None, params)
     c = config
+    layout = serving_layout(params, layout)
     b, s = input_ids.shape
     index = int(cache["index"])
     check_cache_room(index, s, cache["k"].shape[2])
+    _check_cache_heads(cache["k"], len(kv_head_ids(c, layout)))
     positions, mask = _cache_positions_and_mask(index, b, s, cache, input_ids.device)
-    x = embed_tokens(params, input_ids, c)
-    for i in range(c.num_layers):
-        p = _layer_params(params, i)
+    x = embed_tokens(params, input_ids, c, layout)
+    names, per_layer, prep, group, q_heads = serving_layers(params, c, layout)
+    for i, weights in enumerate(per_layer):
+        p = {k: prep(k, w) for k, w in zip(names, weights)}
         x = _attention_block_cached(x, p, c, _cache_layer(cache, "k", i),
-                                    _cache_layer(cache, "v", i), index, positions, mask)
-        x = _mlp_block(x, p, c)
-    return unembed(params, x, c), dict(cache, index=index + s)
+                                    _cache_layer(cache, "v", i), index, positions, mask,
+                                    group, q_heads)
+        x = _mlp_block(x, p, c, group)
+    return unembed(params, x, c, layout), dict(cache, index=index + s)
 
 
 def _cache_positions_and_mask(index: int, b: int, s: int, cache: dict, device):
@@ -1102,25 +1193,29 @@ def _cache_layer(cache: dict, name: str, i: int):
     return cache[name][i]
 
 
-def _attention_block_cached(x, p, c, ck, cv, index: int, positions, mask) -> torch.Tensor:
+def _attention_block_cached(x, p, c, ck, cv, index: int, positions, mask, group=None,
+                            q_heads=None) -> torch.Tensor:
     """Pre-norm attention sub-block against the dense cache, with residual
     (shared by llama and mixtral, as in the JAX package): writes the new
     K/V rows at ``index`` into ``ck`` / ``cv`` (layer views of the cache,
-    in place) and attends over the whole cache under ``mask``."""
+    in place) and attends over the whole cache under ``mask``.  Under
+    ``tp`` (``group``, ``q_heads`` this process's first query head and
+    count) on this process's heads, as :func:`attention_block`."""
     from .generation import cache_write
 
     b, s, _ = x.shape
-    h = _norm(x, p["ln_attn"], c)
-    q, k, v = _qkv_proj(h, p, c, b, s)
+    h = tp_copy(_norm(x, p["ln_attn"], c), group)
+    q, k, v = _qkv_proj(h, p, c, b, s, q_heads)
     q, k = _rope(q, k, positions, c.rope_theta, getattr(c, "rope_scaling", None))
     k_full = cache_write(ck, k, index, c.dtype)
     v_full = cache_write(cv, v, index, c.dtype)
-    return x + _out_proj(_attention(q, k_full, v_full, mask, c.num_heads // c.num_kv_heads), p, c)
+    attn = _attention(q, k_full, v_full, mask, q.shape[2] // k_full.shape[2])
+    return x + _out_proj(attn, p, c, group)
 
 
 @torch.no_grad()
 def apply_paged(params: dict, input_ids: torch.Tensor, config: LlamaConfig, pool: dict,
-                tables: torch.Tensor, starts: torch.Tensor, kernel: bool = False):
+                tables: torch.Tensor, starts: torch.Tensor, kernel: bool = False, layout=None):
     """Forward over new tokens straight against the paged block pool — the
     serving engine's decode, verify and prefill forward.
 
@@ -1137,30 +1232,37 @@ def apply_paged(params: dict, input_ids: torch.Tensor, config: LlamaConfig, pool
     tensors they run their plain version.  An int8 pool takes the plain
     path whatever ``kernel`` says, as in the JAX package, whose kernels
     read fp pools only.  ``kernel=False`` gathers the context through the
-    tables (``paged_cache_write``) and runs the einsum attention."""
+    tables (``paged_cache_write``) and runs the einsum attention.
+
+    ``layout``: the sharded forward of :func:`apply_cached`; the pool holds
+    this process's ``K`` kv heads (built from :func:`init_cache` with the
+    same ``layout``, never a slice of a whole pool: the kernels need it
+    contiguous), the kernels run on its ``H / tp`` query heads, and the
+    rows returned are its heads'."""
     from ..ops.paged_attention import paged_attention, paged_window_attention
     from .generation import pack_paged_pool_for_scan, paged_cache_write, unpack_paged_rows_from_scan
 
-    _refuse_sharded_serving(None, params)
     c = config
+    layout = serving_layout(params, layout)
     b, t = input_ids.shape
+    _check_cache_heads(pool["k"], len(kv_head_ids(c, layout)))
     pk_all, pv_all, quant = pack_paged_pool_for_scan(pool)
     use_kernel = kernel and not quant
     total = tables.shape[1] * pool["k"].shape[2]
     dev = input_ids.device
     positions = starts[:, None].long() + torch.arange(t, device=dev)[None]
-    x = embed_tokens(params, input_ids, c)
+    x = embed_tokens(params, input_ids, c, layout)
     mask = positions[:, :, None] >= torch.arange(total, device=dev)[None, None, :]
-    groups = c.num_heads // c.num_kv_heads
+    names, per_layer, prep, group, q_heads = serving_layers(params, c, layout)
     k_rows, v_rows = [], []
-    for i in range(c.num_layers):
-        p = _layer_params(params, i)
+    for i, weights in enumerate(per_layer):
+        p = {k: prep(k, w) for k, w in zip(names, weights)}
         if quant:
             pk, pv = (pk_all[0][i], pk_all[1][i]), (pv_all[0][i], pv_all[1][i])
         else:
             pk, pv = pk_all[i], pv_all[i]
-        h = _norm(x, p["ln_attn"], c)
-        q, k, v = _qkv_proj(h, p, c, b, t)
+        h = tp_copy(_norm(x, p["ln_attn"], c), group)
+        q, k, v = _qkv_proj(h, p, c, b, t, q_heads)
         q, k = _rope(q, k, positions, c.rope_theta, getattr(c, "rope_scaling", None))
         if use_kernel:
             k_store = k.to(pk.dtype).contiguous()
@@ -1176,11 +1278,20 @@ def apply_paged(params: dict, input_ids: torch.Tensor, config: LlamaConfig, pool
         else:
             k_store, k_full = paged_cache_write(pk, k, tables, starts, c.dtype)
             v_store, v_full = paged_cache_write(pv, v, tables, starts, c.dtype)
-            attn = _attention(q, k_full, v_full, mask, groups)
-        x = _out_proj_and_mlp(x, attn, p, c)
+            attn = _attention(q, k_full, v_full, mask, q.shape[2] // k_full.shape[2])
+        x = _mlp_block(x + _out_proj(attn, p, c, group), p, c, group)
         k_rows.append(k_store)
         v_rows.append(v_store)
-    return unembed(params, x, c), unpack_paged_rows_from_scan(k_rows, v_rows, quant)
+    return (unembed(params, x, c, layout),
+            unpack_paged_rows_from_scan(k_rows, v_rows, quant))
+
+
+def serving_init_cache(init_cache, params: dict):
+    """``init_cache`` bound to the layout ``params`` are served on
+    (:func:`serving_layout`): the one function of a generation loop that
+    cannot see the parameters (``apply_cached`` reads their specs itself)."""
+    layout = serving_layout(params)
+    return init_cache if layout is None else functools.partial(init_cache, layout=layout)
 
 
 def generate(params: dict, input_ids: torch.Tensor, config: LlamaConfig, max_new_tokens: int,
@@ -1190,11 +1301,13 @@ def generate(params: dict, input_ids: torch.Tensor, config: LlamaConfig, max_new
     ``[B, S]`` -> ``[B, S + max_new_tokens]``.  Sampling takes an explicit
     ``key`` (:class:`~accelerate_tpu_torch.utils.random.PRNGKey`) and the
     ``top_k`` / ``top_p`` filters; the arguments come in the JAX package's
-    order."""
+    order.  On shards (:func:`serving_layout`) every forward is the
+    sharded one."""
     from .generation import generate_loop
 
     return generate_loop(
-        apply_cached, init_cache, params, input_ids, config, max_new_tokens,
+        apply_cached, serving_init_cache(init_cache, params), params, input_ids, config,
+        max_new_tokens,
         temperature=temperature, key=key, max_len=max_len, top_k=top_k, top_p=top_p,
         prefill_chunk=prefill_chunk,
     )
@@ -1212,8 +1325,8 @@ def speculative_generate(params: dict, draft_params: dict, input_ids: torch.Tens
     from .generation import speculative_generate_loop
 
     return speculative_generate_loop(
-        apply_cached, init_cache, params, config,
-        apply_cached, init_cache, draft_params, draft_config,
+        apply_cached, serving_init_cache(init_cache, params), params, config,
+        apply_cached, serving_init_cache(init_cache, draft_params), draft_params, draft_config,
         input_ids, max_new_tokens, num_draft_tokens=num_draft_tokens, max_len=max_len,
         return_stats=return_stats, temperature=temperature, key=key,
     )
@@ -1227,7 +1340,8 @@ def generate_beam(params: dict, input_ids: torch.Tensor, config: LlamaConfig,
     from .generation import beam_search
 
     return beam_search(
-        apply_cached, init_cache, params, input_ids, config, max_new_tokens,
+        apply_cached, serving_init_cache(init_cache, params), params, input_ids, config,
+        max_new_tokens,
         num_beams=num_beams, length_penalty=length_penalty, eos_token_id=eos_token_id,
         max_len=max_len,
     )

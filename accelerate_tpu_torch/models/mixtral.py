@@ -33,7 +33,9 @@ slots of the replicated routing and the partial combines are summed over
 the sequence; the routing capacity is the whole row's, a chunk's slots
 follow the earlier chunks' per-expert counts and the aux losses are the
 whole row's (``ops/moe.py``, ``seq_group``), so the tokens dropped are
-JAX's.
+JAX's.  :func:`apply_cached` takes the same ``layout`` (or reads it from
+the shards' specs): llama's sharded attention and cache, the experts as
+training runs them, the whole logits on every process.
 
 Routing capacity is a function of the sequence length of each forward
 (``expert_capacity``), so a chunked prefill routes differently from a
@@ -444,44 +446,54 @@ def loss_fn(params: dict, batch: dict, config: MixtralConfig,
 # ---------------------------------------------------------------------------
 
 
-def init_cache(config: MixtralConfig, batch_size: int, max_len: int, device=None) -> dict:
+def init_cache(config: MixtralConfig, batch_size: int, max_len: int, device=None,
+               layout=None) -> dict:
     """Zeroed KV cache (llama's layout: the attention is shared code);
-    ``config.kv_cache_quant`` stores int8 codes with bf16 scales."""
-    from .generation import make_kv_cache
-
-    c = config
-    return make_kv_cache(c.num_layers, batch_size, max_len, c.num_kv_heads, c.head_dim_,
-                         c.dtype, device=resolve_device(device), quantized=c.kv_cache_quant)
+    ``config.kv_cache_quant`` stores int8 codes with bf16 scales; on a
+    model-sharded ``layout`` this process's kv heads (llama's
+    ``kv_head_ids``)."""
+    return _llama.init_cache(config, batch_size, max_len, device, layout)
 
 
 @torch.no_grad()
-def apply_cached(params: dict, input_ids: torch.Tensor, config: MixtralConfig, cache: dict):
+def apply_cached(params: dict, input_ids: torch.Tensor, config: MixtralConfig, cache: dict,
+                 layout=None):
     """Forward over new tokens at positions ``cache['index'] .. index+S``
     with cache read/write; returns (logits ``[B, S, V]`` fp32, cache).  The
     router aux losses are not accumulated.  The expert capacity is that of
     an ``S``-token forward.  The cache tensors are written in place (JAX
     returns updated copies); the returned dict shares them and carries the
-    advanced index."""
+    advanced index.
+
+    ``layout`` (or the specs kept on sharded leaves: llama's
+    ``serving_layout``): llama's sharded attention on this process's heads
+    and cache, and the expert FFN as training runs it on ``ep`` and ``tp``
+    (this process's experts' slots of the replicated routing, the partial
+    combines summed over the group); every process returns the whole
+    logits."""
     from .generation import check_cache_room
 
     c = config
-    _check_moe_impl(c)
+    layout = _llama.serving_layout(params, layout)
+    _check_moe_impl(c, layout)
     b, s = input_ids.shape
     index = int(cache["index"])
     check_cache_room(index, s, cache["k"].shape[2])
+    _llama._check_cache_heads(cache["k"], len(_llama.kv_head_ids(c, layout)))
     positions, mask = _llama._cache_positions_and_mask(index, b, s, cache, input_ids.device)
-    x = _llama.embed_tokens(params, input_ids, c)
+    x = _llama.embed_tokens(params, input_ids, c, layout)
     capacity = expert_capacity(s, c.num_experts, c.top_k, c.capacity_factor)
-    layers = _dequant_layer(params["layers"])
-    for i in range(c.num_layers):
-        p = {k: v[i] for k, v in layers.items()}
+    _dequant_layer(params["layers"])
+    names, per_layer, prep, group, q_heads = _llama.serving_layers(params, c, layout)
+    experts = _expert_group(layout)
+    for i, weights in enumerate(per_layer):
+        p = {k: prep(k, w) for k, w in zip(names, weights)}
         y = _llama._attention_block_cached(x, p, c, _llama._cache_layer(cache, "k", i),
                                            _llama._cache_layer(cache, "v", i), index,
-                                           positions, mask)
-        ffn, _ = _moe(_llama._rms_norm(y, p["ln_mlp"], c.rms_eps), p, c, capacity)
+                                           positions, mask, group, q_heads)
+        ffn, _ = _moe(_llama._rms_norm(y, p["ln_mlp"], c.rms_eps), p, c, capacity, experts)
         x = y + ffn
-    x = _llama._rms_norm(x, params["final_norm"], c.rms_eps)
-    return (x @ lm_head(params, c)).float(), dict(cache, index=index + s)
+    return _llama.unembed(params, x, c, layout), dict(cache, index=index + s)
 
 
 def generate(params: dict, input_ids: torch.Tensor, config: MixtralConfig, max_new_tokens: int,
@@ -490,11 +502,13 @@ def generate(params: dict, input_ids: torch.Tensor, config: MixtralConfig, max_n
     """Greedy (``temperature <= 0``) or sampled autoregressive generation:
     ``[B, S]`` -> ``[B, S + max_new_tokens]`` (see
     ``generation.generate_loop``).  ``prefill_chunk`` changes the routing
-    capacity of the prompt's forwards, and so may change the output."""
+    capacity of the prompt's forwards, and so may change the output.  On
+    shards every forward is the sharded one."""
     from .generation import generate_loop
 
     return generate_loop(
-        apply_cached, init_cache, params, input_ids, config, max_new_tokens,
+        apply_cached, _llama.serving_init_cache(init_cache, params), params, input_ids,
+        config, max_new_tokens,
         temperature=temperature, key=key, max_len=max_len, top_k=top_k, top_p=top_p,
         prefill_chunk=prefill_chunk,
     )
@@ -512,8 +526,9 @@ def speculative_generate(params: dict, draft_params: dict, input_ids: torch.Tens
     from .generation import speculative_generate_loop
 
     return speculative_generate_loop(
-        apply_cached, init_cache, params, config,
-        apply_cached, init_cache, draft_params, draft_config,
+        apply_cached, _llama.serving_init_cache(init_cache, params), params, config,
+        apply_cached, _llama.serving_init_cache(init_cache, draft_params), draft_params,
+        draft_config,
         input_ids, max_new_tokens, num_draft_tokens=num_draft_tokens, max_len=max_len,
         return_stats=return_stats, temperature=temperature, key=key,
     )
@@ -527,7 +542,8 @@ def generate_beam(params: dict, input_ids: torch.Tensor, config: MixtralConfig,
     from .generation import beam_search
 
     return beam_search(
-        apply_cached, init_cache, params, input_ids, config, max_new_tokens,
+        apply_cached, _llama.serving_init_cache(init_cache, params), params, input_ids,
+        config, max_new_tokens,
         num_beams=num_beams, length_penalty=length_penalty, eos_token_id=eos_token_id,
         max_len=max_len,
     )

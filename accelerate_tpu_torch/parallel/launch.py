@@ -33,7 +33,7 @@ from datetime import timedelta
 from typing import Callable, Optional, Sequence
 
 __all__ = ["rendezvous", "child_env", "start", "Job", "fork", "Forked", "wait_for_file",
-           "join_group", "devices_for", "FORK_PRELOAD"]
+           "join_group", "devices_for", "run_ranks", "rank_child", "FORK_PRELOAD"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -291,3 +291,53 @@ def join_group(rank: int, world: int, init: str, backend: str, device: str) -> N
         store.set_timeout(timedelta(minutes=30))  # the group's default, as the rendezvous sets it
         dist.init_process_group(backend, store=store, rank=rank, world_size=world)
         fleet._keep_store(store)
+
+
+def run_ranks(module: str, device, world: int, workdir: str, timeout: float = 600.0,
+              env: Optional[dict] = None) -> list:
+    """One job of ``world`` ranks on ``device`` (a ``torch.device``; the
+    backend and each rank's card by :func:`devices_for`), each forked to call
+    ``module.main(["--rank-child", <json>])``, which hands the JSON to
+    :func:`rank_child`; waits for them and returns each rank's record, in
+    rank order.  Raises ``RuntimeError`` with the ranks' last errors when one
+    fails."""
+    import json
+
+    os.makedirs(workdir, exist_ok=True)
+    init = rendezvous(workdir)
+    backend, devices = devices_for(device, world)
+    outs = [os.path.join(workdir, f"rank{r}.json") for r in range(world)]
+    job = start(module, lambda r: ["--rank-child", json.dumps(
+        [r, world, init, backend, devices[r], outs[r]])], world, env=env, capture=True)
+    results = job.wait(timeout)
+    if any(code != 0 for code, _, _ in results):
+        tails = "\n".join(f"--- rank {r} exited {code} ---\n{(err or '')[-3000:]}"
+                          for r, (code, _, err) in enumerate(results))
+        raise RuntimeError(f"{module}: a rank failed\n{tails}")
+    records = []
+    for out in outs:
+        with open(out) as f:
+            records.append(json.load(f))
+    return records
+
+
+def rank_child(fn: Callable, argv_json: str) -> int:
+    """A rank of :func:`run_ranks`: join the group, ``record = fn(rank,
+    world, device)``, meet the others at a barrier, leave the group and
+    write the record (JSON) where the parent reads it."""
+    import json
+
+    import torch.distributed as dist
+
+    rank, world, init, backend, device, out = json.loads(argv_json)
+    join_group(rank, world, init, backend, device)
+    try:
+        record = fn(rank, world, device)
+        if dist.is_initialized():
+            dist.barrier()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(record, f)
+    return 0

@@ -425,6 +425,13 @@ class Layout:
         return slice(self.sp_rank * n, (self.sp_rank + 1) * n)
 
     @property
+    def model_axes(self) -> tuple:
+        """The active axes a model's leaves are split over, ``fsdp``, ``ep``
+        and ``tp``: the processes along them run one model's forward
+        together (their serving engines tick in lockstep)."""
+        return tuple(a for a in ("fsdp", "ep", "tp") if self.mesh.shape[a] > 1)
+
+    @property
     def tp(self) -> int:
         return self.mesh.shape["tp"]
 
@@ -487,6 +494,20 @@ class Layout:
             out = collectives.fsdp_gather(out, d, self.mesh.group("fsdp"), dtype=cast)
             cast = None
         return out if cast is None else out.to(cast)
+
+
+def layout_of(params: Any, mesh: Optional[Mesh] = None) -> Optional["Layout"]:
+    """The :class:`Layout` of a parameter tree whose leaves are this
+    process's shards as :func:`shard_params` left them (each sharded leaf's
+    spec kept on it, a replicated one's all None), on ``mesh`` (the live
+    state's by default); None where no leaf is sharded (whole weights)."""
+    if not any(is_sharded(spec_of(t)) for t in _leaves(params, torch.Tensor)):
+        return None
+    mesh = mesh if mesh is not None else _live_mesh()
+    if mesh is None:
+        raise ValueError("layout_of: the leaves are shards but no mesh is live")
+    specs = _tree_map(lambda path, t: spec_of(t) or (None,) * t.dim(), params)
+    return Layout(mesh, specs)
 
 
 class TpView:

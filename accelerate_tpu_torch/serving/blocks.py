@@ -44,6 +44,7 @@ keeps no refcounts; a host block marked dirty is zeroed when it is freed.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
@@ -471,16 +472,21 @@ class PagedKVCache:
     batch-1 template (:func:`~accelerate_tpu_torch.models.generation.make_paged_pool`,
     fp and int8 layouts alike) and live on ``device``.  With
     ``num_host_blocks > 0`` (or :meth:`enable_host_tier`) a host tier of
-    that many blocks sits beside it."""
+    that many blocks sits beside it.  On a model-sharded ``layout`` the
+    template is ``init_cache(..., layout=layout)``'s, so the pool, the host
+    tier and the int8 scales hold this process's kv heads only, allocated
+    at that width (contiguous, as the paged kernels need)."""
 
     def __init__(self, init_cache: Callable, config, num_blocks: int, block_size: int, device,
-                 num_host_blocks: int = 0):
+                 num_host_blocks: int = 0, layout=None):
         from ..models.generation import make_paged_pool
 
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         self.block_size = block_size
         self.allocator = BlockAllocator(num_blocks)
+        if layout is not None:
+            init_cache = functools.partial(init_cache, layout=layout)
         self.pool: Dict[str, torch.Tensor] = make_paged_pool(
             init_cache, config, num_blocks, block_size, device
         )

@@ -37,6 +37,30 @@ preemption, migration, prefix sharing or speculation.  A slot whose logits
 are not finite completes as ``"quarantined"`` and its blocks are zeroed when
 their last reference drops.
 
+Several processes: with a ``layout`` whose mesh has an active ``fsdp``,
+``tp`` or ``ep`` axis (``Accelerator.prepare_serving`` passes one when the
+parameters are this process's shards), every process of the model group
+runs an engine over its shards: the pool holds this process's kv heads
+(the family's ``init_cache(..., layout=)``, the host tier and int8 scales
+at the same width), and every forward is the family's sharded forward,
+a collective.  The engines run in **lockstep**: a process that skipped a
+forward would hang every other.  The contract is that the caller submits
+the same requests, in the same order, between the same ticks, on every
+process of the group; the scheduler is deterministic given them.  The two
+inputs that are not, the clock and the preemption signal, are agreed once
+a tick in one small all-reduce over the group: rank 0's ``now`` (which
+every process's deadline checks read) and the arrival times of the
+requests submitted since the last tick are rank 0's, and the drain flag
+is the OR of every process's guard.  The same all-reduce compares the
+number of requests each process submitted since the last tick: where they
+differ, every process raises a ``ValueError`` naming this contract (a
+second all-reduce, on ticks with fresh requests, carries their arrival
+times).  The journal and the tracer's files
+are written by the main process only (every process reads the journal on
+recovery); the counters are each process's own.  Whole weights on a
+data-parallel mesh need no agreement: every process runs the same engine
+on its own.
+
 Robustness layer:
 
 - ``max_queue_depth`` bounds the queue: ``submit`` past it raises
@@ -78,6 +102,7 @@ from __future__ import annotations
 
 import contextlib
 import inspect
+import math
 import os
 import time
 import weakref
@@ -93,6 +118,7 @@ from ..models.generation import (
     scatter_token_rows,
     speculative_verify_greedy,
 )
+from ..parallel import collectives
 from ..state import resolve_device
 from ..telemetry import get_telemetry
 from .blocks import NULL_BLOCK, BlockOutOfMemory, PagedKVCache, PrefixCache, blocks_for_tokens
@@ -228,10 +254,13 @@ class ServingEngine:
 
     ``device`` defaults to ``cuda`` and raises without CUDA; pass
     ``device="cpu"`` to serve on the host.  ``params`` must already be on
-    that device."""
+    that device.  ``layout``: this process's shards of ``params`` on a
+    model-sharded mesh, served in lockstep with the other processes of the
+    group (module docstring)."""
 
     def __init__(self, apply_cached: Callable, init_cache: Callable, params, config,
-                 serving: Optional[ServingConfig] = None, drafter=None, device=None):
+                 serving: Optional[ServingConfig] = None, drafter=None, device=None,
+                 layout=None):
         self.device = resolve_device(device)
         self.serving = serving or ServingConfig()
         sc = self.serving
@@ -257,6 +286,15 @@ class ServingEngine:
         if param_dev.type != self.device.type:
             raise ValueError(f"params are on {param_dev}, the engine serves on {self.device}")
         self._apply_cached = apply_cached
+        self.layout = layout if layout is not None and layout.model_axes else None
+        # The families' forwards take the layout as a keyword; whole weights
+        # call them as they always were.
+        self._layout_kw = {} if self.layout is None else {"layout": self.layout}
+        self._group_axes = None if self.layout is None else self.layout.model_axes
+        self._group = None if self.layout is None else self.layout.mesh.group(self._group_axes)
+        self._clock_offset = 0.0
+        self._fresh: List[Request] = []
+        self._writes = collectives.rank() == 0
         self._paged_apply = None
         if sc.decode_path == "paged":
             self._paged_apply = getattr(inspect.getmodule(apply_cached), "apply_paged", None)
@@ -265,7 +303,7 @@ class ServingEngine:
         self.params = params
         self.spec_tokens = int(sc.spec_tokens)
         self.cache = PagedKVCache(init_cache, config, sc.num_blocks, sc.block_size, self.device,
-                                  num_host_blocks=sc.host_blocks)
+                                  num_host_blocks=sc.host_blocks, layout=self.layout)
         self.sched = Scheduler(
             self.cache.allocator,
             num_slots=sc.max_slots,
@@ -288,8 +326,9 @@ class ServingEngine:
         # pressure, LIFO victim) goes through the scheduler's callback.
         self.tracer: Optional[ServingTracer] = None
         if tracing_enabled(sc.trace):
-            self.tracer = ServingTracer(dir=resolve_trace_dir(sc.trace_dir))
-            self.sched.on_preempt = lambda req: self.tracer.on_preempt(req, time.monotonic())
+            trace_dir = resolve_trace_dir(sc.trace_dir) if self._writes else None
+            self.tracer = ServingTracer(dir=trace_dir)
+            self.sched.on_preempt = lambda req: self.tracer.on_preempt(req, self._now())
         # The table widths each program kind has dispatched at: a width not
         # seen yet marks the tick as the first at that shape (where the JAX
         # engine compiles).
@@ -303,7 +342,7 @@ class ServingEngine:
                 drafter = NgramDrafter(max_ngram=sc.spec_ngram_max, min_ngram=sc.spec_ngram_min)
             self._drafter = drafter
         self.journal: Optional[ServingJournal] = (
-            ServingJournal(sc.journal_path) if sc.journal_path else None
+            ServingJournal(sc.journal_path) if sc.journal_path and self._writes else None
         )
         self._preemption_guard = None
         self._drained = False
@@ -428,7 +467,7 @@ class ServingEngine:
         starts = torch.tensor([start], dtype=torch.int32, device=dev)
         view = {n: gather_block_view(leaf, tables)[0] for n, leaf in self.cache.pool.items()}
         logits, view = self._apply_cached(self.params, ids, self._config,
-                                          dict(view, index=int(start)))
+                                          dict(view, index=int(start)), **self._layout_kw)
         t = ids.shape[1]
         for n, leaf in self.cache.pool.items():
             rows = extract_token_rows(view[n][None], starts, t)
@@ -446,8 +485,8 @@ class ServingEngine:
             tables = torch.as_tensor(table_row[None], device=dev)
             starts = torch.tensor([start], dtype=torch.int32, device=dev)
             logits, rows = self._paged_apply(
-                self.params, ids, self._config, self.cache.pool, tables, starts
-            )
+                self.params, ids, self._config, self.cache.pool, tables, starts,
+                **self._layout_kw)
             for name, r in rows.items():
                 scatter_token_rows(self.cache.pool[name], r, tables, starts, chunk.shape[1])
         next_tok = logits[0, n_real - 1].argmax()
@@ -502,7 +541,7 @@ class ServingEngine:
             lengths_t = torch.as_tensor(lengths, device=dev)
             logits, rows = self._paged_apply(
                 self.params, tokens_t, self._config, self.cache.pool, tables_t, lengths_t,
-                kernel=self.serving.paged_kernel,
+                kernel=self.serving.paged_kernel, **self._layout_kw,
             )  # [S, W, V]
             if poison is not None:
                 logits = logits * poison[:, None, None]
@@ -561,16 +600,19 @@ class ServingEngine:
                 f"{sc.max_queue_depth}): request shed"
             )
         req = Request(
-            list(np.asarray(prompt_ids).reshape(-1)), max_new_tokens, arrival_t, tag=tag,
+            list(np.asarray(prompt_ids).reshape(-1)), max_new_tokens,
+            self._now() if arrival_t is None else arrival_t, tag=tag,
             ttft_deadline_ms=(ttft_deadline_ms if ttft_deadline_ms is not None
                               else sc.default_ttft_deadline_ms),
             deadline_ms=deadline_ms if deadline_ms is not None else sc.default_deadline_ms,
         )
         if req.max_new_tokens == 0:
             req.state = RequestState.DONE
-            req.admit_t = req.finish_t = time.monotonic()
+            req.admit_t = req.finish_t = self._now()
         else:
             self.sched.submit(req)  # geometry validation may reject: count after
+            if self._group is not None:
+                self._fresh.append(req)
         self._submissions += 1
         if self._poison_ordinal is not None and self._submissions == self._poison_ordinal:
             req._poison_pending = True  # fires on this request's first decode
@@ -589,10 +631,13 @@ class ServingEngine:
     def step(self) -> List[CompletedRequest]:
         """One engine tick (see the module docstring for its order).
         Returns the requests that completed this tick; a drain returns
-        none."""
-        now = time.monotonic()
+        none.  In lockstep (several processes on one model) each tick starts
+        with the agreement of the clock and the drain flag."""
         done_before = len(self._finished)
-        if self._drained or self._drain_requested():
+        if self._drained:
+            return []
+        now, stop = self._agree()
+        if stop:
             self.drain()
             return []
         self.ticks += 1
@@ -603,7 +648,7 @@ class ServingEngine:
         self._pressure_relief()
         admitted = self.sched.admit(now)
         if self.tracer is not None:
-            admit_t = time.monotonic()
+            admit_t = self._now()
             for idx in admitted:
                 self.tracer.on_admit(self.sched.slots[idx].request, admit_t, idx)
         for idx in admitted:
@@ -617,7 +662,7 @@ class ServingEngine:
         self._decode_tick()
         self._drain_scrubs()
         if self.tracer is not None:
-            self.tracer.end_tick(time.monotonic(), self.sched.slots)
+            self.tracer.end_tick(self._now(), self.sched.slots)
         self._publish_gauges()
         return self._finished[done_before:]
 
@@ -643,9 +688,47 @@ class ServingEngine:
         out, self._finished = self._finished, []
         return out
 
-    def _drain_requested(self) -> bool:
+    def _now(self) -> float:
+        """The engine's clock: this process's monotonic clock, moved onto
+        rank 0's in lockstep (the offset the last agreement measured)."""
+        return time.monotonic() + self._clock_offset
+
+    def _agree(self):
+        """``(now, stop)`` of this tick.  One process: the clock and the
+        guard's ``should_stop``.  In lockstep, a max all-reduce over the
+        model group of ``[rank 0's clock, this process's preemption flag,
+        n, -n]``, ``n`` the requests this process submitted since the last
+        tick: the flags' max is their OR, and a max of ``n`` other than
+        its min breaks the lockstep contract and raises on every process.
+        Where ``n > 0``, a second one carries rank 0's arrival times of
+        those requests (the caller submits the same ones on every
+        process), which replace this process's own."""
+        local = time.monotonic()
         guard = self._preemption_guard
-        return guard is not None and guard.should_stop()
+        if self._group is None:
+            return local, guard is not None and guard.should_stop()
+        flag = guard is not None and getattr(guard, "preempted_locally", guard.should_stop)()
+        fresh, self._fresh = self._fresh, []
+        lo = -math.inf  # a max over the group takes rank 0's value where the rest send this
+        main = collectives.rank(self._group) == 0
+
+        def group_max(vals):
+            return collectives.all_reduce(
+                torch.tensor(vals, dtype=torch.float64, device=self.device), op="max",
+                group=self._group, axis=self._group_axes).tolist()
+
+        head = group_max([local if main else lo, float(flag), len(fresh), -len(fresh)])
+        if head[2] != -head[3]:
+            raise ValueError(
+                f"serving lockstep broken: the processes of the model group submitted "
+                f"between {int(-head[3])} and {int(head[2])} requests since the last tick; "
+                "every process must submit the same requests, in the same order, between "
+                "the same ticks")
+        if fresh:
+            for req, t in zip(fresh, group_max([r.arrival_t if main else lo for r in fresh])):
+                req.arrival_t = t
+        self._clock_offset = head[0] - local
+        return head[0], head[1] > 0
 
     def drain(self) -> List[dict]:
         """Graceful drain: close admission, preempt every in-flight slot
@@ -1130,15 +1213,15 @@ class ServingEngine:
             tel.registry.counter("serving.prefill_dispatches").inc()
         slot.cache_len = start + n_real
         if self.tracer is not None:
-            self.tracer.on_prefill(req, idx, time.monotonic(), padded_rows=chunk_len - n_real,
+            self.tracer.on_prefill(req, idx, self._now(), padded_rows=chunk_len - n_real,
                                    width=width, fresh=fresh)
         if not ok:
-            self._quarantine(idx, time.monotonic())
+            self._quarantine(idx, self._now())
             return
         self._register_prefix_blocks(idx)
         if slot.cache_len == len(feed):
             # Final chunk: its last real logits row IS the next token.
-            self._emit(idx, next_tok, time.monotonic())
+            self._emit(idx, next_tok, self._now())
             if idx in sched.slots:
                 sched.slots[idx].request.state = RequestState.DECODING
 
@@ -1195,7 +1278,7 @@ class ServingEngine:
                     else sum(len(sched.slots[i].blocks) for i in live))
         self.decode_gather_bytes += gathered * self._block_bytes
         fresh = self._note_bucket("decode_spec" if window > 1 else "decode", m)
-        dispatch_t0 = time.monotonic()
+        dispatch_t0 = self._now()
         t0 = time.perf_counter()
         out, accepts, oks = self._decode_forward(tables, lengths, tokens, draft_len, live)
         self.decode_seconds += time.perf_counter() - t0
@@ -1205,7 +1288,7 @@ class ServingEngine:
             tel.registry.counter("serving.decode_dispatches").inc()
             tel.registry.counter("serving.decode_gather_bytes").inc(gathered * self._block_bytes)
             tel.registry.gauge("serving.decode_bucket_width").set(m)
-        emit_t = time.monotonic()
+        emit_t = self._now()
         if self.tracer is not None:
             # emit_t is past the forward's device synchronisation.
             self.tracer.on_decode(
@@ -1318,7 +1401,7 @@ class ServingEngine:
     def debug_requests(self) -> List[dict]:
         """Snapshot of every slotted and queued request: state, age and,
         with tracing on, its phase-so-far decomposition.  Host reads only."""
-        now = time.monotonic()
+        now = self._now()
         out = []
         seen = set()
         for idx, slot in sorted(self.sched.slots.items()):

@@ -1,9 +1,9 @@
 """Speculative-serving smoke: the draft-then-verify proof.
 
-The one-process arm of the JAX package's ``serving/spec_smoke.py``:
-``python -m accelerate_tpu_torch.serving.spec_smoke`` (on the card: the
-verify window through the paged window kernel; ``--device cpu`` on the
-CPU).  A
+The JAX package's ``serving/spec_smoke.py``: ``python -m
+accelerate_tpu_torch.serving.spec_smoke`` on the card, ``--device cpu`` on
+the CPU; the verify window takes the paged path's plain attention, as in
+the serving smoke (gpt2-tiny's head dim is not one the kernels take).  A
 mix of pattern-heavy prompts (the n-gram drafter's best case) and random
 prompts (mostly-rejected drafts) flows through a speculative engine
 (``spec_tokens=3``) on gpt2-tiny.  Asserts:
@@ -18,22 +18,25 @@ prompts (mostly-rejected drafts) flows through a speculative engine
 - **zero block leaks** — the KV pool is fully free after the last
   completion.
 
-The JAX smoke's 8-device mesh waits for several GPUs (ROADMAP A6):
-``--mesh`` raises.  Exit code 0 only when every assertion holds.
+``--mesh`` is the JAX smoke's 8-device data-parallel arm, as the serving
+smoke's (``smoke.mesh_arm``): ``--world`` ranks on a ``dp`` mesh, every
+assertion on every rank, every rank's tokens equal to rank 0's.  Exit code
+0 only when every assertion holds.
 """
 
 from __future__ import annotations
 
-import argparse
 import os
 import sys
 import tempfile
 from typing import Optional
 
-from .smoke import mesh_arm_unported
+from .smoke import accelerator_on, main_of
 
 
-def run(device: Optional[str] = None) -> dict:
+def run(device: Optional[str] = None, world: int = 1) -> dict:
+    """The scenario on this process: one process, or (``world > 1``) one
+    rank of a ``dp=world`` mesh whose group it joined."""
     from ..state import resolve_device
 
     device = str(resolve_device(device))
@@ -44,10 +47,9 @@ def run(device: Optional[str] = None) -> dict:
     import torch
 
     from .. import telemetry
-    from ..accelerator import Accelerator
     from ..models import gpt2
     tel = telemetry.enable(dir=tempfile.mkdtemp(prefix="atpu_spec_smoke_"))
-    acc = Accelerator(device=device)
+    acc = accelerator_on(device, world)
 
     cfg = gpt2.GPT2Config.tiny(dtype=torch.float32)
     params = gpt2.init_params(cfg, seed=0, device=device)
@@ -76,7 +78,6 @@ def run(device: Optional[str] = None) -> dict:
         gpt2.apply_cached, gpt2.init_cache, params, cfg,
         block_size=4, num_blocks=24, max_slots=4, prefill_chunk=8,
         max_blocks_per_seq=8, spec_tokens=3, prefix_cache=False,
-        paged_kernel=device != "cpu",
     )
 
     dispatch_counter = tel.registry.counter("serving.decode_dispatches")
@@ -136,19 +137,13 @@ def run(device: Optional[str] = None) -> dict:
     telemetry.disable()
     print("spec smoke OK")
     return {"requests": len(outputs), "acceptance_rate": spec["acceptance_rate"],
-            "tokens_per_dispatch": spec["tokens_per_dispatch"], "verify_forwards": delta}
+            "tokens_per_dispatch": spec["tokens_per_dispatch"], "verify_forwards": delta,
+            "rank": acc.process_index, "device": device,
+            "tokens": [outputs[r] for r in sorted(ids, key=ids.get)]}
 
 
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(prog="python -m accelerate_tpu_torch.serving.spec_smoke")
-    parser.add_argument("--device", default=None, help="cuda (the default) or cpu")
-    parser.add_argument("--mesh", action="store_true",
-                        help="the JAX smoke's 8-device data-parallel arm (ROADMAP A6)")
-    args = parser.parse_args(argv)
-    if args.mesh:
-        mesh_arm_unported("spec smoke")
-    run(args.device)
-    return 0
+    return main_of("accelerate_tpu_torch.serving.spec_smoke", run, "spec smoke OK", argv)
 
 
 if __name__ == "__main__":

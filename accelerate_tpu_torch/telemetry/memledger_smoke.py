@@ -1,14 +1,21 @@
 """Memory-ledger smoke: attribution, conservation, OOM forensics, end to end
-on one device (``python -m accelerate_tpu_torch.telemetry.memledger_smoke``
-on the card, ``--device cpu`` on the CPU).
+(``python -m accelerate_tpu_torch.telemetry.memledger_smoke`` on the card,
+``--device cpu`` on the CPU).
 
-The one-process arm of the JAX package's ``telemetry/memledger_smoke.py``
-(whose 8-device mesh arm waits for several GPUs: ROADMAP A6).  Asserts,
-through the public surfaces only:
+The JAX package's ``telemetry/memledger_smoke.py``.  ``--devices N`` (JAX's
+8-device mesh) starts ``N`` ranks on a ``dp=N`` mesh (8 gloo processes
+under ``--device cpu --devices 8``; on the card one a card, or ranks sharing
+card 0 over gloo), forked from the preloaded server: each holds its 16 rows
+of a ``dp``-sharded ``(N * 16, 32)`` leaf and the replicated ones, as each
+JAX device does, and the ledger charges each rank JAX's per-device bytes.
+Asserts, through the public surfaces only:
 
 1. **attribution** — registered trees charge the device their storage
-   bytes, ``subset_of`` entries are ranked but excluded from conservation,
-   and ``note_program_bytes`` feeds the program-estimate term;
+   bytes (a ``dp``-sharded leaf its rank's rows, a replicated leaf its
+   whole size), ``subset_of`` entries are ranked but excluded from
+   conservation, and ``note_program_bytes`` feeds the program-estimate
+   term; with several ranks the ranks' ``attributed_per_device()`` are
+   gathered and every one is held to JAX's per-device bytes;
 2. **conservation** — with an injected ``stats_fn``,
    ``attributed + program_estimate + unattributed == bytes_in_use`` holds
    exactly, a *negative* residual (stale registration) is exposed rather
@@ -22,6 +29,9 @@ through the public surfaces only:
 4. **export** — the Prometheus endpoint (127.0.0.1, an ephemeral port)
    scrapes the ``memory.*`` gauge family and ``GET /debug/memory`` returns
    the ranked-ledger JSON.
+
+Attribution and conservation hold on every rank; the forensics and the
+export run on rank 0, as JAX's one process runs them once.
 """
 
 from __future__ import annotations
@@ -35,17 +45,40 @@ import urllib.request
 from typing import Optional
 
 
+PER_DEVICE = 2048 + 256 + 16384  # JAX's per-device bytes: 16 rows, the (64,) leaf, the hog
+
+
 def run(device: Optional[str] = None, devices: int = 1) -> dict:
-    if devices != 1:
-        raise NotImplementedError(
-            "the memory-ledger smoke's mesh arm needs several GPUs: ROADMAP A6")
+    """The smoke on one process, or (``devices > 1``) on ``devices`` ranks of
+    a ``dp`` mesh: the ranks' records, each rank held to JAX's per-device
+    bytes."""
     from ..state import resolve_device
 
-    device = str(resolve_device(device))
+    if devices == 1:
+        return _scenario(str(resolve_device(device)), 1)
+    from ..parallel import launch
 
+    dev = resolve_device(device)
+    env = dict(os.environ)
+    env.setdefault("OMP_NUM_THREADS", "1")
+    records = launch.run_ranks("accelerate_tpu_torch.telemetry.memledger_smoke", dev, devices,
+                               tempfile.mkdtemp(prefix="atpu_memledger_mesh_"), env=env)
+    for rec in records:
+        assert rec["per_device"] == {str(rec["index"]): PER_DEVICE}, rec
+    assert [rec["postmortem"] for rec in records] == ["smoke.hog"] + [None] * (devices - 1)
+    print(f"# memledger-smoke: {devices} ranks on dp={devices} ({records[0]['device']}), "
+          f"each charged {PER_DEVICE} B as each JAX device is")
+    print(MESH_VERDICT)
+    return {"ranks": records}
+
+
+def _scenario(device: str, world: int) -> dict:
+    """Every check on this process; ``world > 1``: one rank of a
+    ``dp=world`` mesh whose group it joined."""
     import torch
 
     from .. import telemetry
+    from ..parallel import collectives
     from ..resilience import faultinject
     from ..utils.memory import find_executable_batch_size
     from . import flightrec, report
@@ -61,7 +94,14 @@ def run(device: Optional[str] = None, devices: int = 1) -> dict:
         torch.cuda.current_device() if dev.type == "cuda" else 0)
 
     # -- 1. attribution ------------------------------------------------------
-    w = torch.zeros((16, 32), dtype=torch.float32, device=dev)  # 2048 B
+    w = torch.zeros((world * 16, 32), dtype=torch.float32, device=dev)  # 2048 B a rank
+    if world > 1:
+        from ..accelerator import Accelerator
+        from ..parallel.sharding import shard_params
+        from ..utils.dataclasses import ParallelismConfig
+
+        acc = Accelerator(device=device, parallelism_config=ParallelismConfig(dp=world))
+        shard_params(w, acc.mesh, ("dp", None))  # this rank keeps its 16 rows
     b = torch.ones((64,), dtype=torch.float32, device=dev)  # 256 B
     ledger.register("smoke.params", tree={"w": w, "b": b})
     hog = torch.zeros((4096,), dtype=torch.float32, device=dev)  # 16384 B: the planted blame
@@ -70,8 +110,10 @@ def run(device: Optional[str] = None, devices: int = 1) -> dict:
     ledger.note_program_bytes("smoke.step", 1000)
 
     att = ledger.attributed_per_device()
-    expect = {index: 2048 + 256 + 16384}
+    expect = {index: PER_DEVICE}
     assert att == expect, (att, expect)
+    for other in collectives.all_gather_object(att):
+        assert list(other.values()) == [PER_DEVICE], other  # every rank, as JAX's expect
     ranked = ledger.owners()
     assert ranked[0].owner == "smoke.hog", [r.owner for r in ranked]
     print(f"# attribution: {att[index]} B on device {index}", file=sys.stderr)
@@ -109,6 +151,12 @@ def run(device: Optional[str] = None, devices: int = 1) -> dict:
     assert snap["memory.unattributed_bytes"] == 777, snap
     assert snap["memory.owner.smoke_hog_bytes"] == 16384, snap
     print("# conservation: residual 777 B, exactly", file=sys.stderr)
+    rank = collectives.rank()
+    if rank != 0:
+        telemetry.disable()
+        flightrec.disable()
+        return {"rank": rank, "device": device, "index": index, "per_device": att,
+                "postmortem": None}
 
     # -- 3. OOM forensics under fault injection ------------------------------
     os.environ[faultinject.ENV_OOM_ONCE] = "1"
@@ -166,21 +214,31 @@ def run(device: Optional[str] = None, devices: int = 1) -> dict:
 
     telemetry.disable()
     flightrec.disable()
-    print(
-        "memledger-smoke OK — attribution exact, conservation residual 777 B by "
-        "construction, negative residual exposed, OOM postmortem blamed smoke.hog "
-        "through find_executable_batch_size, memory.* scraped and /debug/memory served"
-    )
-    return {"attributed": att[index], "postmortem": pm["blame"], "calls": calls}
+    print(VERDICT)
+    return {"rank": rank, "device": device, "index": index, "per_device": att,
+            "attributed": att[index], "postmortem": pm["blame"], "calls": calls}
+
+
+VERDICT = ("memledger-smoke OK — attribution exact, conservation residual 777 B by "
+           "construction, negative residual exposed, OOM postmortem blamed smoke.hog "
+           "through find_executable_batch_size, memory.* scraped and /debug/memory served")
+MESH_VERDICT = ("memledger-smoke OK — every rank charged JAX's per-device bytes, "
+                + VERDICT.split("— ", 1)[1])
 
 
 def main(argv=None) -> int:
+    from ..parallel import launch
+
     parser = argparse.ArgumentParser(
         prog="python -m accelerate_tpu_torch.telemetry.memledger_smoke")
     parser.add_argument("--device", default=None, help="cuda (the default) or cpu")
     parser.add_argument("--devices", type=int, default=1,
-                        help="devices of the mesh arm (several wait for ROADMAP A6)")
+                        help="ranks of the dp mesh arm (JAX's is 8; default 1, one process)")
+    parser.add_argument("--rank-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.rank_child is not None:
+        return launch.rank_child(lambda rank, world, device: _scenario(device, world),
+                                 args.rank_child)
     run(args.device, args.devices)
     return 0
 

@@ -528,6 +528,37 @@ Phases (each fails the run on any mismatch; nothing is caught):
    wedge, elastic 4 -> 3) with four ranks on card 0, which must hold
    every JAX assertion; its plan and each arm's seconds are printed.
 
+22. Serving on several processes, inside 16b's two children after Phase
+   19 (the group and the card's context exist there).  22a: Llama-3-70B's
+   widths (``LlamaConfig.llama3_70b``: d 8192, 64 / 8 heads of 128, FFN
+   28672, vocab 128256) cut to ``PHASE22_LAYERS`` (4) of 80 layers (two
+   ranks share the card; the time limit; logged), bf16 weights from seed
+   0 on both ranks.  Rank 0 serves Phase 2's traffic (8 slots, block 16,
+   chunk 256, 8 requests of 128-1024 tokens one every 3 ticks, 32 new
+   tokens; ``spec_tokens`` 0 and 3, the paged kernels) on the whole
+   weights, takes the fp32 logits of a 256-token prefill chunk, a decode
+   step and a W-4 verify through ``apply_paged``, and times the paged pair
+   against their plain versions at a rank's shapes (32 / 4 heads, hd 128,
+   bf16 and fp32, W 1 and 4, Phase 1's long lengths) while rank 1 waits.
+   Then both ranks ``prepare`` the weights on ``tp=2`` and serve the same
+   traffic through ``prepare_serving`` in lockstep: both ranks' tokens
+   equal, and equal to one process's or parting at a near tie
+   (``NEAR_TIE``, the gap read by :func:`divergence` from rank 0's
+   forward over the whole weights, kept for it); the paged kernels
+   L times a rank per decode and per verify tick; equal
+   ``decode_dispatches``; a rank's pool exactly half of one process's and
+   its parameters about half.  The fp32 logits' relative gaps to one
+   process's stay within ``PHASE22_FP32_REL``, logged beside the fault
+   control's (rank 1's ``tp_reduce`` skipped).  TTFT and ITL p50 of each
+   rank and of one process, the tick time and the ``all_reduce:tp`` /
+   ``all_gather:tp`` bytes a tick are printed.  22b, inside 18a with its
+   model (Mixtral-8x7B at 1 of 32 layers, fp32, seed 0): 4 requests
+   through the engine's dense path on ``ep=2`` give one process's tokens.
+   22c: the serving and speculative smokes' ``--mesh`` rank side and the
+   memory-ledger smoke's ``devices=2`` rank on a ``dp=2`` mesh of the two
+   children: every assertion on both ranks, both ranks' tokens equal, each
+   charged JAX's per-device bytes.
+
 The last lines are the kernels' JSON record (the paged kernels' Phase 7
 launches as ``launches_phase7``, every kernel's Phase 8, 9 and 10
 launches as ``launches_phase8``, ``launches_phase9`` and
@@ -542,7 +573,9 @@ the flash kernels' Phase 16 launches (16b's two processes, both modes) as
 processes, 19b-19d: the main path's, not 19a's comparisons) as
 ``launches_phase19``, their Phase 20 launches (every rank of 20a's four
 lives) as ``launches_phase20``, their Phase 21 launches (every rank-step
-of 21a's two attempts) as ``launches_phase21``,
+of 21a's two attempts) as ``launches_phase21``, the paged kernels' Phase 22
+launches (22a's ``tp=2`` serving, both ranks) as ``launches_phase22`` and
+their times at a ``tp=2`` rank's shapes as ``tp2_rank_heads``,
 the paged kernels' Phase
 11 launches as ``launches_phase11`` and 11a's records as
 ``gpt2_xl_heads``, the flash kernels' fp32 Phase 4
@@ -555,6 +588,7 @@ package beside it, the script exits non-zero and prints no result.
 import concurrent.futures
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -5433,6 +5467,7 @@ def phase16(smi):
     counts17 = phase17_check(summary, first_row, "phase17", smi)
     counts18 = phase18_check(summary, smi)
     counts19 = phase19_check(summary, smi)
+    counts22, timing22 = phase22_check(summary, smi)
     phase19e(smi)
     t3 = time.perf_counter()
     n_dev = torch.cuda.device_count()
@@ -5466,13 +5501,16 @@ def phase16(smi):
     shutil.rmtree(PHASE16_DIR, ignore_errors=True)
     in17 = sum(max(r["seconds"] for r in summary["model_axes"][m]) for m in ("fsdp", "tp"))
     in19 = max(r["p19"]["seconds_total"] for r in summary["then"])
-    in18 = max(summary["then_seconds"]) - in19
-    log(f"phase16 seconds: 16a {t1 - t0:.1f}, 16b+17+18+19 {t3 - t1:.1f} (children "
-        f"{t2 - t1:.1f}, of it 17a+17b {in17:.1f}, 18 {in18:.1f}, 19 {in19:.1f}; reference "
-        f"step {t3 - t2:.1f}), 16c/17c {t4 - t3:.1f}, 16d beside 16b (waited {t5 - t4:.1f} "
-        f"more; its wall {small['wall_s']:.1f}); phases 16-19 together {t5 - t0:.1f} ({smi})")
+    in22 = max(r["p22"]["seconds_total"] for r in summary["then"])
+    in18 = max(summary["then_seconds"]) - in19 - in22
+    log(f"phase16 seconds: 16a {t1 - t0:.1f}, 16b+17+18+19+22 {t3 - t1:.1f} (children "
+        f"{t2 - t1:.1f}, of it 17a+17b {in17:.1f}, 18 {in18:.1f} (22b inside), 19 {in19:.1f}, "
+        f"22 {in22:.1f}; reference step {t3 - t2:.1f}), 16c/17c {t4 - t3:.1f}, 16d beside 16b "
+        f"(waited {t5 - t4:.1f} more; its wall {small['wall_s']:.1f}); phases 16-19 and 22 "
+        f"together {t5 - t0:.1f} ({smi})")
     return dict(counts=counts, counts17=counts17, counts18=counts18, counts19=counts19,
-                seconds=t5 - t0, seconds17=in17, seconds18=in18, seconds19=in19)
+                counts22=counts22, timing22=timing22, seconds=t5 - t0, seconds17=in17,
+                seconds18=in18, seconds19=in19, seconds22=in22)
 
 
 def phase17_check(summary, first_row, tag, smi):
@@ -5659,6 +5697,7 @@ def phase18a_reference(layers, ids, device):
                            moe_impl="dense")
     model = mixtral.MixtralForCausalLM(cfg32, seed=0, device=device)
     batch = {"input_ids": ids.to(device)}
+    p22b = phase22b_serve(model.params, cfg32, device)  # Phase 22b's one-process reference
     routes = []
     model.config = dataclasses.replace(cfg32, dtype=torch.bfloat16)
     with torch.no_grad(), routing(record=routes):
@@ -5680,7 +5719,7 @@ def phase18a_reference(layers, ids, device):
         del loss, grads
     rec = dict(losses=losses, norms=norms, launches=launches, loss16=loss16,
                routes=[r.reshape(-1).tolist() for r in routes[:layers]],
-               expert_bytes=_expert_bytes(model, opt.state))
+               expert_bytes=_expert_bytes(model, opt.state), p22b=p22b)
     end, delta_sq = {}, 0.0
     with torch.no_grad():
         for k, v in model.state_dict().items():
@@ -5725,6 +5764,8 @@ def phase18a(rank, device):
     model, opt = acc.prepare(model, opt)
     batch = {"input_ids": ids.to(acc.device)}
     t2 = time.perf_counter()
+    # Phase 22b: the seed-0 weights as prepare left them, served on ep=2.
+    out["p22b"] = phase22b_serve(model.params, cfg32, device, acc=acc)
     routes = []
     model.config = dataclasses.replace(cfg32, dtype=torch.bfloat16)
     with torch.no_grad(), routing(record=routes):
@@ -5921,8 +5962,9 @@ def phase18c(rank, device, dtype):
 
 
 def phase18_child(rank, world, device):
-    """Phases 18 and 19 in one of 16b's children (``zero_smoke.run(then=...)``);
-    Phase 19's record under ``"p19"``."""
+    """Phases 18, 19 and 22 in one of 16b's children
+    (``zero_smoke.run(then=...)``); Phase 19's record under ``"p19"``,
+    Phase 22's under ``"p22"`` (22b's inside 18a's, under ``"p22b"``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"a": phase18a(rank, device), "b": phase18b(rank, device),
@@ -5931,6 +5973,9 @@ def phase18_child(rank, world, device):
     t = time.perf_counter()
     out["p19"] = phase19_child(rank, device)
     out["p19"]["seconds_total"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["p22"] = phase22_child(rank, device)
+    out["p22"]["seconds_total"] = time.perf_counter() - t
     return out
 
 
@@ -6974,6 +7019,404 @@ def phase21_check(fleet, recs, manifest, launched, ended, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: serving on several processes, inside 16b's two children after 19
+# ---------------------------------------------------------------------------
+
+PHASE22_LAYERS = 4  # of Llama-3-70B's 80: two ranks share one card, and the time limit
+PHASE22_NEW = 32  # Phase 2's new tokens a request
+PHASE22_HEADS = (32, 4)  # a rank's query / kv heads of Llama-3-70B's 64 / 8 on tp=2
+# 22a's fp32 limit: the relative gap (l2) of tp=2's logits to one process's
+# over a prefill chunk, a decode step and a W-4 verify, set from this
+# script's readings on an H100 (4.06e-6 / 2.37e-6 / 1.99e-6; PERF.md,
+# Findings) beside the fault control (one rank's tp_reduce skipped:
+# 1.18-1.20), which must read over 100 times the limit.
+PHASE22_FP32_REL = 5e-5
+# 22b: Mixtral on ep=2 through the engine's dense path, 4 requests.
+PHASE22B_PROMPT_LENS = (40, 56, 72, 88)
+PHASE22B_NEW = 8
+PHASE22B_GEOMETRY = dict(max_slots=4, block_size=16, num_blocks=4 * 8 + 1, max_blocks_per_seq=8,
+                         prefill_chunk=32)
+
+
+def phase22_config(**overrides):
+    """Llama-3-70B's widths (``LlamaConfig.llama3_70b``: d 8192, 64 / 8
+    heads of 128, FFN 28672, vocab 128256) cut to ``PHASE22_LAYERS``, bf16."""
+    from accelerate_tpu_torch.models import llama
+
+    kw = dict(num_layers=PHASE22_LAYERS, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    kw.update(overrides)
+    return llama.LlamaConfig.llama3_70b(**kw)
+
+
+def smi_line():
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def phase22_rank0(rank, fn):
+    """``fn()`` on rank 0 while rank 1 waits; a failure there fails both
+    ranks at once (the error is broadcast), rather than leaving rank 1 in a
+    collective."""
+    from accelerate_tpu_torch.parallel import collectives
+
+    result, err = None, None
+    if rank == 0:
+        try:
+            result = fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised on both ranks below
+            err = repr(e)
+    err = collectives.broadcast_object(err, src=0)
+    if err is not None:
+        raise SystemExit(f"chip_smoke FAILED on rank 0: {err}")
+    return result
+
+
+def phase22_serve(engine, prompts, spec):
+    """Phase 2's traffic through ``engine`` (one request to warm it first):
+    the tokens, the paged launches, the times and the ``tp`` collectives'
+    bytes a tick."""
+    from accelerate_tpu_torch.parallel import collectives
+
+    warm = [int(t) for t in np.random.default_rng(220).integers(
+        0, engine._config.vocab_size, size=40)]
+    engine.submit(warm, 4)
+    engine.run()
+    engine.pop_finished()
+    base, base_ticks, base_s = engine.decode_dispatches, engine.ticks, engine.decode_seconds
+    collectives.reset_comm_log()
+    reset_counts()
+    done, wall, ids = serve(engine, prompts, PHASE22_NEW, stagger_ticks=3)
+    dec, win = read_counts()
+    ticks = engine.ticks - base_ticks
+    dispatches = engine.decode_dispatches - base
+    gaps = [x for c in done.values() for x in c.inter_token_ms]
+    comm = {k: collectives.COMM_LOG.get(k, {}).get("bytes", 0) / ticks
+            for k in ("all_reduce:tp", "all_gather:tp")}
+    return dict(spec=spec, tokens=[[int(t) for t in done[r].tokens] for r in ids],
+                status=[done[r].status for r in ids], dec=dec, win=win, dispatches=dispatches,
+                ticks=ticks, wall_s=wall, ttft_p50_ms=median([c.ttft_ms for c in done.values()]),
+                itl_p50_ms=median(gaps), itl_mean_ms=sum(gaps) / len(gaps),
+                tick_ms=wall / ticks * 1e3,
+                decode_ms=(engine.decode_seconds - base_s) / dispatches * 1e3,
+                comm_bytes_per_tick=comm, pool_bytes=engine.cache.pool_bytes(),
+                pool_shape=list(engine.cache.pool["k"].shape), lockstep=engine.layout is not None)
+
+
+def phase22_engines(params, cfg, device, prompts, acc=None):
+    """Phase 2's traffic at ``spec_tokens`` 0 and 3 (the repetitive prompts
+    there, as Phase 2), through one process's engine (``acc`` None) or
+    ``acc.prepare_serving`` over the shards."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.serving import ServingConfig, ServingEngine
+
+    out = []
+    for spec in (0, 3):
+        geo = dict(PHASE2_GEOMETRY, paged_kernel=True, spec_tokens=spec)
+        if acc is None:
+            engine = ServingEngine(llama.apply_cached, llama.init_cache, params, cfg,
+                                   serving=ServingConfig(**geo), device=device)
+        else:
+            engine = acc.prepare_serving(llama.apply_cached, llama.init_cache, params, cfg, **geo)
+        traffic = prompts if spec == 0 else [(p[:16] * 64)[:len(p)] for p in prompts]
+        out.append(phase22_serve(engine, traffic, spec))
+        del engine
+        gc_collect()
+    return out
+
+
+def phase22_fp32(params, cfg, layout, device):
+    """A prefill chunk of 256 tokens (the plain path, as the engine's
+    prefill), a decode step and a W-4 verify (the paged kernels) of one slot
+    through ``apply_paged`` in fp32 compute over the bf16 weights, each
+    written into an fp32 pool of this process's kv heads: the three logits
+    on the host."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.generation import make_paged_pool, scatter_token_rows
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    pool = make_paged_pool(lambda c, b, n, device: llama.init_cache(c, b, n, device, layout),
+                           cfg32, 24, 16, device)
+    ids = torch.from_numpy(np.random.default_rng(221).integers(0, cfg.vocab_size, size=(1, 261)))
+    ids = ids.to(device)
+    tables = torch.arange(1, 18, dtype=torch.int32, device=device)[None]
+    out = []
+    for start, t, kernel in ((0, 256, False), (256, 1, True), (257, 4, True)):
+        starts = torch.tensor([start], dtype=torch.int32, device=device)
+        logits, rows = llama.apply_paged(params, ids[:, start:start + t], cfg32, pool, tables,
+                                         starts, kernel=kernel, layout=layout)
+        for name, r in rows.items():
+            scatter_token_rows(pool[name], r, tables, starts, t)
+        out.append(logits.to("cpu"))
+    del pool
+    return out
+
+
+def phase22_gaps(got, want):
+    """The relative l2 gap of each of ``got``'s logits to ``want``'s."""
+    return [float((g.double() - w.double()).norm() / w.double().norm()) for g, w in zip(got, want)]
+
+
+def phase22_divergences(whole, cfg, ref, got, start):
+    """Each request's first divergence of ``got`` from ``ref`` past its
+    prompt (``start[i]`` tokens) and the logit gap there, as
+    :func:`divergence` reads it: from one process's forward over the whole
+    weights ``whole`` (the sharded model under test never vouches for
+    itself); None where they agree."""
+    out = []
+    for r, g, s in zip(ref, got, start):
+        d = divergence(whole, cfg, r, g, s)
+        out.append(None if d is None else (d[0] - s, d[1]))
+    return out
+
+
+def phase22a_timing(smi):
+    """The paged pair against their plain versions at a rank's shapes
+    (``PHASE22_HEADS``, hd 128) at Phase 1's long lengths, bf16 and fp32,
+    W 1 and 4, with times (rank 0 alone on the card)."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    h, k = PHASE22_HEADS
+    return {f"{name}:{str(dtype)[6:]}": paged_record(
+        f"phase22a rank shapes {h}/{k}", name, window, dtype, PHASE1_SHAPES[0][1], gen, smi,
+        H=h, K=k, hd=128)
+        for dtype in (torch.bfloat16, torch.float32)
+        for name, window in (("paged_attention", None), ("paged_window_attention", 4))}
+
+
+def phase22a(rank, device):
+    """22a, in each child: Llama-3-70B's widths cut to ``PHASE22_LAYERS``,
+    bf16 weights from seed 0 on both ranks; rank 0 serves Phase 2's
+    traffic on the whole weights and takes the fp32 logits while rank 1
+    waits; then both ``prepare`` the weights on ``tp=2`` and serve the
+    same traffic through ``prepare_serving`` in lockstep, take the same
+    fp32 logits, and the fault control's (rank 1's ``tp_reduce`` skipped)."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import Accelerator, ParallelismConfig
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.parallel import collectives
+
+    fresh_state()
+    gc_collect()
+    smi = smi_line()
+    cfg = phase22_config()
+    rng = np.random.default_rng(22)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+               for n in PHASE2_PROMPT_LENS]
+    t0 = time.perf_counter()
+    model = llama.LlamaForCausalLM(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    whole_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    t1 = time.perf_counter()
+
+    def reference():
+        t = time.perf_counter()
+        engines = phase22_engines(model.params, cfg, device, prompts)
+        fp32 = phase22_fp32(model.params, cfg, None, device)
+        timing = phase22a_timing(smi)
+        return dict(engines=engines, fp32=fp32, timing=timing, seconds=time.perf_counter() - t)
+
+    ref = phase22_rank0(rank, reference)
+    t2 = time.perf_counter()
+    # Rank 0 keeps the whole weights (the storage `prepare` replaces with its
+    # shard) to read the divergences' logit gaps from one process's forward.
+    whole = ({k: (v.detach() if k != "layers" else {n: w.detach() for n, w in v.items()})
+              for k, v in model.params.items()} if rank == 0 else None)
+    acc = Accelerator(device=device, parallelism_config=ParallelismConfig(tp=2))
+    model = acc.prepare(model)
+    gc_collect()
+    layout = model._layout
+    params = model.params
+    local_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    t3 = time.perf_counter()
+    engines = phase22_engines(params, cfg, device, prompts, acc=acc)
+    t4 = time.perf_counter()
+    fp32 = phase22_fp32(params, cfg, layout, device)
+    real = llama.tp_reduce
+
+    def skipped(x, group, axis="tp"):
+        real(x.clone(), group, axis)  # the collective still runs: rank 0 must not wait
+        return x
+
+    if rank == 1:
+        llama.tp_reduce = skipped
+    try:
+        fault = phase22_fp32(params, cfg, layout, device)
+    finally:
+        llama.tp_reduce = real
+    t5 = time.perf_counter()
+    starts = list(PHASE2_PROMPT_LENS)
+    divergences = phase22_rank0(rank, lambda: [
+        phase22_divergences(whole, cfg, want["tokens"], e["tokens"], starts)
+        for want, e in zip(ref["engines"], engines)])
+    divergences = collectives.broadcast_object(divergences, src=0)
+    sums = [[float(x.double().sum()), float(x.abs().max())] for x in fp32]
+    out = dict(layers=cfg.num_layers, mesh=dict(acc.mesh.shape), engines=engines, sums=sums,
+               kv_heads=len(llama.kv_head_ids(cfg, layout)), q_heads=layout.heads(cfg.num_heads),
+               divergences=divergences, param_bytes=local_bytes, whole_param_bytes=whole_bytes,
+               smi=smi)
+    if rank == 0:
+        out.update(gaps=phase22_gaps(fp32, ref["fp32"]),
+                   fault_gaps=phase22_gaps(fault, ref["fp32"]),
+                   reference=dict(engines=ref["engines"], timing=ref["timing"],
+                                  seconds=ref["seconds"]))
+    out["seconds"] = dict(build=t1 - t0, reference=t2 - t1, prepare=t3 - t2, serve=t4 - t3,
+                          fp32=t5 - t4, compare=time.perf_counter() - t5)
+    del model, params, acc, fp32, fault, ref, whole
+    fresh_state()
+    gc_collect()
+    dist.barrier()
+    return out
+
+
+def phase22b_serve(params, cfg, device, acc=None):
+    """22b's 4 requests through the engine's dense path (Mixtral has no
+    ``apply_paged``): one process's engine (``acc`` None) or
+    ``acc.prepare_serving`` over the shards."""
+    from accelerate_tpu_torch.models import mixtral
+    from accelerate_tpu_torch.serving import ServingConfig, ServingEngine
+
+    rng = np.random.default_rng(222)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, size=n)]
+               for n in PHASE22B_PROMPT_LENS]
+    if acc is None:
+        engine = ServingEngine(mixtral.apply_cached, mixtral.init_cache, params, cfg,
+                               serving=ServingConfig(**PHASE22B_GEOMETRY), device=device)
+    else:
+        engine = acc.prepare_serving(mixtral.apply_cached, mixtral.init_cache, params, cfg,
+                                     **PHASE22B_GEOMETRY)
+    done, wall, ids = serve(engine, prompts, PHASE22B_NEW, stagger_ticks=1)
+    return dict(tokens=[[int(t) for t in done[r].tokens] for r in ids],
+                decode_path=engine.decode_path, lockstep=engine.layout is not None,
+                dispatches=engine.decode_dispatches, wall_s=wall,
+                pool_bytes=engine.cache.pool_bytes())
+
+
+def phase22c(rank, device):
+    """22c, in each child: the ``--mesh`` arms' rank side of the serving and
+    speculative smokes and the memory-ledger smoke's ``devices=2`` rank,
+    on a ``dp=2`` mesh of the two children (their group, card 0)."""
+    from accelerate_tpu_torch.serving import smoke, spec_smoke
+    from accelerate_tpu_torch.telemetry import memledger_smoke
+
+    out = {}
+    for name, fn in (("serving", smoke.run), ("spec", spec_smoke.run),
+                     ("memledger", memledger_smoke._scenario)):
+        fresh_state()
+        t = time.perf_counter()
+        printed = io.StringIO()  # the smokes' reports: their verdict lines are kept
+        with contextlib.redirect_stdout(printed):
+            rec = fn(device, 2)
+        out[name] = dict(rec, seconds=time.perf_counter() - t,
+                         verdict=(printed.getvalue().strip().splitlines() or [""])[-1])
+    fresh_state()
+    gc_collect()
+    return out
+
+
+def phase22_child(rank, device):
+    """Phase 22 in one of 16b's children, after Phase 19 (22b ran inside
+    18a, with its model)."""
+    t0 = time.perf_counter()
+    out = {"a": phase22a(rank, device)}
+    t1 = time.perf_counter()
+    out["c"] = phase22c(rank, device)
+    out["seconds"] = dict(a=t1 - t0, c=time.perf_counter() - t1)
+    return out
+
+
+def phase22_check(summary, smi):
+    """22a-22c's proofs from the children's records (see the module
+    docstring, Phase 22); logs the readings before it checks them; returns
+    the paged launches of 22a's tp=2 serving (both ranks)."""
+    recs = [r["p22"] for r in summary["then"]]
+    a0, a1 = recs[0]["a"], recs[1]["a"]
+    ref = a0["reference"]
+    L = a0["layers"]
+    counts = {"paged_attention": 0, "paged_window_attention": 0}
+    log(f"phase22a Llama-3-70B's widths (LlamaConfig.llama3_70b) cut to {L} of 80 layers "
+        f"(two ranks share one card; the time limit), bf16, seed 0; tp=2 mesh {a0['mesh']}, "
+        f"a rank's heads q {a0['q_heads']} kv {a0['kv_heads']}; parameter bytes a rank "
+        f"{a0['param_bytes']} / {a1['param_bytes']} of {a0['whole_param_bytes']}; seconds "
+        f"rank 0 {a0['seconds']}, rank 1 {a1['seconds']}, the reference's serving "
+        f"{ref['seconds']:.1f} ({smi})")
+    for i, spec in enumerate((0, 3)):
+        want = ref["engines"][i]
+        e0, e1 = a0["engines"][i], a1["engines"][i]
+        per = L * e0["dispatches"]
+        for who, e in (("one process", want), ("rank 0", e0), ("rank 1", e1)):
+            log(f"phase22a spec_tokens={spec} {who}: ttft_p50_ms={e['ttft_p50_ms']:.2f} "
+                f"itl_p50_ms={e['itl_p50_ms']:.2f} itl_mean_ms={e['itl_mean_ms']:.2f} "
+                f"tick_ms={e['tick_ms']:.2f} decode_ms={e['decode_ms']:.2f} "
+                f"ticks={e['ticks']} decode_dispatches={e['dispatches']} "
+                f"launches decode/window {e['dec']}/{e['win']} pool {e['pool_shape']} "
+                f"{e['pool_bytes']} B; bytes a tick {e['comm_bytes_per_tick']} ({smi})")
+        log(f"phase22a spec_tokens={spec}: divergences from one process "
+            f"{a0['divergences'][i]} (NEAR_TIE {NEAR_TIE})")
+        for e in (e0, e1):
+            check(e["lockstep"] and all(s == "ok" for s in e["status"]),
+                  f"phase22a spec={spec}: lockstep {e['lockstep']}, statuses {e['status']}")
+            check(e["tokens"] == e0["tokens"], f"phase22a spec={spec}: the ranks' tokens differ")
+            check(e["dispatches"] == e0["dispatches"],
+                  f"phase22a spec={spec}: decode dispatches {e0['dispatches']} / "
+                  f"{e['dispatches']}")
+            want_dec, want_win = (per, 0) if spec == 0 else (0, per)
+            check((e["dec"], e["win"]) == (want_dec, want_win),
+                  f"phase22a spec={spec}: paged launches {e['dec']}/{e['win']}, want "
+                  f"{want_dec}/{want_win} ({L} a rank a tick)")
+            check(e["pool_shape"][3] == PHASE22_HEADS[1] and 2 * e["pool_bytes"] ==
+                  want["pool_bytes"], f"phase22a: pool {e['pool_shape']} {e['pool_bytes']} B "
+                                      f"vs one process's {want['pool_bytes']} B")
+            counts["paged_attention"] += e["dec"]
+            counts["paged_window_attention"] += e["win"]
+        for d in a0["divergences"][i]:
+            check(d is None or abs(d[1]) <= NEAR_TIE,
+                  f"phase22a spec={spec}: a divergence from one process past a near tie: {d}")
+    log(f"phase22a fp32 logits (prefill 256, decode, W-4 verify) against one process's, "
+        f"relative l2 gaps {a0['gaps']} (limit {PHASE22_FP32_REL}); the fault control (rank "
+        f"1's tp_reduce skipped) {a0['fault_gaps']} ({smi})")
+    check(max(a0["gaps"]) <= PHASE22_FP32_REL, f"phase22a: fp32 gaps {a0['gaps']}")
+    check(min(a0["fault_gaps"]) > 100 * PHASE22_FP32_REL,
+          f"phase22a: the fault control {a0['fault_gaps']} does not clear the limit")
+    check(a0["sums"] == a1["sums"], f"phase22a: the ranks' fp32 logits differ {a0['sums']} / "
+                                    f"{a1['sums']}")
+    check(a0["q_heads"][1] == PHASE22_HEADS[0] and a0["kv_heads"] == PHASE22_HEADS[1],
+          f"phase22a: heads {a0['q_heads']} / {a0['kv_heads']}")
+    for a in (a0, a1):
+        ratio = a["param_bytes"] / a["whole_param_bytes"]
+        check(0.49 < ratio < 0.51, f"phase22a: a rank holds {ratio:.4f} of the parameters")
+    # 22b: Mixtral on ep=2 through the dense path, inside 18a.
+    b0, b1 = (r["a"]["p22b"] for r in summary["then"])
+    bref = summary["then"][0]["a"]["reference"]["p22b"]
+    log(f"phase22b Mixtral-8x7B (18a's model, fp32, seed 0) on ep=2 through the dense path: "
+        f"{len(PHASE22B_PROMPT_LENS)} requests, {PHASE22B_NEW} new tokens, decode dispatches "
+        f"{b0['dispatches']} / {b1['dispatches']} vs one process {bref['dispatches']}; wall s "
+        f"{b0['wall_s']:.2f} / {b1['wall_s']:.2f} vs {bref['wall_s']:.2f} ({smi})")
+    for b in (b0, b1):
+        check(b["decode_path"] == "dense" and b["lockstep"], f"phase22b: {b['decode_path']}")
+        check(b["tokens"] == bref["tokens"], "phase22b: tokens differ from one process's")
+    # 22c: the smokes' mesh arms on the two children.
+    c0, c1 = recs[0]["c"], recs[1]["c"]
+    for name in ("serving", "spec"):
+        check(c0[name]["tokens"] == c1[name]["tokens"], f"phase22c {name}: tokens differ")
+    for c in (c0, c1):
+        check(c["memledger"]["per_device"] == {"0": 2048 + 256 + 16384},
+              f"phase22c memledger: {c['memledger']['per_device']}")
+        check(c["serving"]["verdict"] == "serving smoke OK"
+              and c["spec"]["verdict"] == "spec smoke OK", "phase22c: a smoke's verdict")
+    check(c0["memledger"]["postmortem"] == "smoke.hog", "phase22c memledger: no postmortem")
+    log(f"phase22c the serving, speculative and memory-ledger smokes' mesh arms on dp=2 "
+        f"(two ranks, card 0): every assertion on both ranks, tokens equal; seconds "
+        f"{[{k: round(v['seconds'], 1) for k, v in c.items()} for c in (c0, c1)]}; phase22 "
+        f"seconds a child {[r['seconds'] for r in recs]} ({smi})")
+    timing = ref["timing"]
+    for key, r in timing.items():
+        log(f"phase22a kernels at a rank's shapes {key}: {r} ({smi})")
+    return counts, timing
+
+
 def elastic_seq():
     from accelerate_tpu_torch.resilience import elastic_smoke
 
@@ -7062,6 +7505,8 @@ def main() -> int:
           f"phase 18 launched the flash kernels {p16['counts18']} times")
     check(all(p16["counts19"][n] > 0 for n in FLASH_KERNELS),
           f"phase 19 launched the flash kernels {p16['counts19']} times")
+    check(all(p16["counts22"][n] > 0 for n in ("paged_attention", "paged_window_attention")),
+          f"phase 22 launched the paged kernels {p16['counts22']} times")
     beside = []
 
     def phase21_beside():
@@ -7096,7 +7541,11 @@ def main() -> int:
                            launches_phase10=p10["counts"][name],
                            launches_phase11=p11["counts"][name],
                            launches_phase14=p14["counts"][name],
-                           launches_phase15=p15["counts"][name], head_dims=list(pa_dims),
+                           launches_phase15=p15["counts"][name],
+                           launches_phase22=p16["counts22"][name],
+                           tp2_rank_heads={dt: p16["timing22"][f"{name}:{dt}"]
+                                           for dt in ("bfloat16", "float32")},
+                           head_dims=list(pa_dims),
                            wide_heads={f"d{d}-{dt[6:]}": p10["paged"][(name, d, dt)]
                                        for d, dt in ((d, str(t)) for d, t in PHASE10_PAGED)},
                            gpt2_xl_heads={dt[6:]: p11["kernels"][(name, dt)]

@@ -1388,6 +1388,68 @@ def test_paged_kernels_at_gpt2_xl_heads_match_plain(cuda, dtype, window):
     torch.testing.assert_close(got.float(), plain(**args).float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.paged
+@pytest.mark.parametrize("window", [None, 1, 4])
+@pytest.mark.parametrize("heads", [(32, 4), (4, 1)], ids=["llama3-70b-tp2", "tiny-kv2-tp2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_paged_kernels_at_a_tp_ranks_heads_match_plain(cuda, dtype, heads, window):
+    """A ``tp=2`` rank's heads, as the sharded ``apply_paged`` hands them to
+    the kernels: Llama-3-70B's 64 / 8 heads give a rank 32 / 4 (G 8), and a
+    model of 8 / 2 heads gives 4 / 1; head dim 128."""
+    q_heads, kv = heads
+    args = _inputs(122, kv, q_heads // kv, window, dtype, lengths=(0, 1, 15, 16, 17, 300, 1000),
+                   m=64)
+    fn, plain = _fns(window)
+    before = fn.launches
+    got = fn(**args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.shape == args["q"].shape and torch.isfinite(got).all()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), plain(**args).float(), rtol=tol, atol=tol)
+
+
+def test_pool_at_a_ranks_width_is_contiguous_and_aligned(cuda):
+    """The engine's pool on a ``tp=2`` rank is built at the rank's width
+    (``init_cache(..., layout=)``), never sliced from a whole pool: every
+    layer's K/V is a contiguous, 16-byte-aligned ``[N, bs, K / tp, hd]``
+    that the decode kernel reads as it is, against its plain version."""
+    import types
+
+    from accelerate_tpu_torch.models.generation import make_paged_pool
+    from accelerate_tpu_torch.parallel.sharding import Layout
+
+    class RankOfTp2(Layout):  # a rank's coordinates on tp=2, without a process group
+        def __init__(self, rank):
+            super().__init__(types.SimpleNamespace(shape={"fsdp": 1, "tp": 2, "ep": 1}), None)
+            self._rank = rank
+
+        tp = property(lambda self: 2)
+        tp_rank = property(lambda self: self._rank)
+
+    cfg = llama.LlamaConfig.llama3_70b(num_layers=3, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for rank in (0, 1):
+        layout = RankOfTp2(rank)
+        assert llama.kv_head_ids(cfg, layout) == [4 * rank + j for j in range(4)]
+        pool = make_paged_pool(lambda c, b, n, device: llama.init_cache(c, b, n, device, layout),
+                               cfg, 9, 16, "cuda")
+        for leaf in pool.values():
+            assert tuple(leaf.shape) == (3, 9, 16, 4, 128)
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+        tables = torch.tensor([[3, 1, 4, 0], [2, 5, 6, 7]], dtype=torch.int32, device="cuda")
+        lengths = torch.tensor([40, 60], dtype=torch.int32, device="cuda")
+        q = torch.randn((2, 32, 128), generator=gen, device="cuda").to(torch.bfloat16)
+        k_new = torch.randn((2, 4, 128), generator=gen, device="cuda").to(torch.bfloat16)
+        v_new = torch.randn((2, 4, 128), generator=gen, device="cuda").to(torch.bfloat16)
+        for i in range(3):
+            pk, pv = pool["k"][i], pool["v"][i]
+            assert pk.is_contiguous() and pk.data_ptr() % 16 == 0 and pv.data_ptr() % 16 == 0
+            got = pa.paged_attention(q, k_new, v_new, pk, pv, tables, lengths)
+            want = pa.paged_attention_plain(q, k_new, v_new, pk, pv, tables, lengths)
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
 def test_gpt2_apply_paged_kernel_launches_per_layer_and_matches_plain(cuda):
     """Tiny GPT-2 (head dim 64) in fp32: a decode forward launches the decode
     kernel once per layer, a verify forward the window kernel once per

@@ -48,6 +48,8 @@ LR = 0.1
 LOSS_RTOL = 2e-6
 GRAD_ATOL, GRAD_RTOL, GRAD_RELNORM = 2e-6, 1e-4, 1e-5
 DELTA_ATOL, DELTA_RELNORM = 1e-6, 1e-4
+# The sharded cached forward's fp32 logits (test_torch_sharded_serving.py's).
+LOGITS_ATOL, LOGITS_RTOL = 2e-5, 1e-4
 
 MESHES = {
     "fsdp4": (dict(fsdp=4), "FULL_SHARD", {}),
@@ -175,9 +177,21 @@ def test_mesh_matches_jax_dense(world, name):
             got = out["p2"][_state_name(path)].numpy() - out["p1"][_state_name(path)].numpy()
             _close(d, got, f"{name} step-2 delta {path}", DELTA_ATOL, GRAD_RTOL, DELTA_RELNORM)
     assert all(o["loss"] == outs[0]["loss"] for o in outs)
-    # Serving takes whole weights: a shard raises, naming its part.
-    sharded = any(e is not None for spec in flat_jspecs.values() for e in spec)
-    assert (outs[0]["serving"] is not None and "A6 part 5" in outs[0]["serving"]) == sharded
+    # Serving the shards after step 2: the sharded apply_cached gives JAX's
+    # whole-weight logits on every process.
+    after = {}
+    for path in flat_params:
+        node = after
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = jnp.asarray(outs[0]["p2"][_state_name(path)].numpy())
+    want_logits, _ = jl.apply_cached(after, jnp.asarray(batches[1]["input_ids"][:1, :4]), jcfg,
+                                     jl.init_cache(jcfg, 1, 8))
+    for rank, out in enumerate(outs):
+        np.testing.assert_allclose(out["serving"].numpy(), np.asarray(want_logits),
+                                   atol=LOGITS_ATOL, rtol=LOGITS_RTOL,
+                                   err_msg=f"{name} rank {rank} sharded apply_cached")
     comm = set(outs[0]["comm"])
     if mesh_kw.get("fsdp", 1) > 1 and strategy in ("FULL_SHARD", "HYBRID_SHARD"):
         assert {"all_gather:fsdp", "reduce_scatter:fsdp"} <= comm, comm

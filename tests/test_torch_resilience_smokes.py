@@ -9,8 +9,12 @@ watchdog) and the memory-ledger smoke, and the serving and speculative
 smokes' one-process arms, each asked for the CPU with ``--device cpu``.
 The asserts are the smokes' own (the JAX package's); each must exit 0.  The
 subprocesses start together, so the file costs about its slowest smoke.
-The mesh arms raise, naming ROADMAP A6, and every smoke's default device
-is the card: without CUDA it raises."""
+The serving and speculative smokes' data-parallel arms run beside them on
+2 gloo ranks (``--mesh --world 2 --device cpu``: every assertion on every
+rank, every rank's tokens equal to rank 0's), the memory-ledger smoke's on
+2 ranks in the test's process (``run(device="cpu", devices=2)``: each rank
+charged JAX's per-device bytes), and every smoke's default device is the
+card: without CUDA it raises."""
 
 import os
 import pathlib
@@ -31,6 +35,9 @@ SMOKES = {
 VERDICTS = {"preemption": "resilience-smoke OK", "health": "health-smoke OK",
             "goodput": "goodput-smoke OK", "memledger": "memledger-smoke OK",
             "serving": "serving smoke OK", "spec": "spec smoke OK"}
+MESH_ARMS = {f"{module}:mesh": [module, "--mesh", "--world", "2", "--device", "cpu"]
+             for module in ("accelerate_tpu_torch.serving.smoke",
+                            "accelerate_tpu_torch.serving.spec_smoke")}
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +50,7 @@ def runs(tmp_path_factory):
         env.pop(key)
     procs = {name: subprocess.Popen([sys.executable, "-m", *cmd], cwd=REPO, env=env,
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for name, cmd in SMOKES.items()}
+             for name, cmd in {**SMOKES, **MESH_ARMS}.items()}
     yield procs
     for proc in procs.values():
         if proc.poll() is None:
@@ -60,12 +67,14 @@ def test_smoke_passes(runs, name):
 
 @pytest.mark.parametrize("module", ["accelerate_tpu_torch.serving.smoke",
                                     "accelerate_tpu_torch.serving.spec_smoke"])
-def test_mesh_arms_name_roadmap_a6(module):
-    import importlib
-
-    mod = importlib.import_module(module)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        mod.main(["--mesh"])
+def test_mesh_arms_name_roadmap_a6(runs, module):
+    """The data-parallel arm on 2 gloo ranks passes: every rank's
+    assertions held and every rank's tokens equal rank 0's."""
+    proc = runs[f"{module}:mesh"]
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, f"{module} --mesh failed:\n{out[-3000:]}\n{err[-5000:]}"
+    assert "2 ranks on dp=2 (cpu), every assertion held on every rank" in out
+    assert ("spec smoke OK" if "spec" in module else "serving smoke OK") in out
 
 
 @pytest.mark.parametrize("module,entry,args", [
@@ -92,10 +101,16 @@ def test_smoke_default_device_is_the_card(monkeypatch, module, entry, args):
 
 
 def test_memledger_mesh_arm_names_roadmap_a6():
+    """The mesh arm on 2 gloo ranks: each rank holds its 16 rows of the
+    ``dp``-sharded leaf and is charged JAX's per-device bytes (2048 + 256 +
+    16384); rank 0 alone runs the forensics."""
     from accelerate_tpu_torch.telemetry import memledger_smoke
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        memledger_smoke.run(devices=8)
+    out = memledger_smoke.run(device="cpu", devices=2)
+    assert [r["rank"] for r in out["ranks"]] == [0, 1]
+    for rec in out["ranks"]:
+        assert rec["per_device"] == {"0": 2048 + 256 + 16384}, rec
+    assert [r["postmortem"] for r in out["ranks"]] == ["smoke.hog", None]
 
 
 def test_smoke_retry_retries_once_loudly(tmp_path):

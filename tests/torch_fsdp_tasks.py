@@ -87,12 +87,11 @@ def mesh_run(np_params, cfg_kw, mesh_kw, strategy, batches, lr):
     loss1 = collectives.all_reduce(loss.detach().clone(), group=group).div(opt.dp_degree)
     from accelerate_tpu_torch.models import llama as tl
 
-    ids = torch.zeros((1, 4), dtype=torch.long)
-    try:
-        tl.apply_cached(model.params, ids, model.config, tl.init_cache(model.config, 1, 8, "cpu"))
-        serving = None
-    except NotImplementedError as e:
-        serving = str(e)
+    # Serving this process's shards after the steps: the sharded cached
+    # forward on the model's layout, every process the whole logits.
+    ids = torch.from_numpy(batches[1]["input_ids"][:1, :4])
+    cache = tl.init_cache(model.config, 1, 8, "cpu", layout=model._layout)
+    serving, _ = tl.apply_cached(model.params, ids, model.config, cache, layout=model._layout)
     return {"loss": [float(loss1), float(loss2)], "norm": norm, "grads": grads, "p1": p1,
             "p2": p2, "shards": shards, "specs": specs, "coords": mesh.coords(),
             "comm": sorted(collectives.COMM_LOG), "type": str(acc.distributed_type),
